@@ -6,11 +6,17 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build both CUDA kernels from ``tpu_captioner_torch/csrc`` (nvcc);
-3. hold each kernel against its plain PyTorch version at the main path's
-   shapes (fused ConvNeXt MLP tail at the four ConvNeXt-Base stages at batch
-   8; decode step at 8 images x beam 5 = 40 rows, cache length 52), with
-   CUDA-event times of both;
+2. build the three CUDA kernels from ``tpu_captioner_torch/csrc`` (one nvcc
+   per source, all started together);
+3. hold each kernel against its plain PyTorch version at the main paths'
+   shapes, with CUDA-event times of both and the least time the card could
+   take (``bound_ms``): the fused ConvNeXt MLP tail at the four
+   ConvNeXt-Base stages at batch 8 (serving) and 32 (the train step), with
+   all-one and with stochastic-depth row scales (0 and 1/survival); the
+   decode step at 8 images x beam 5 = 40
+   rows, cache length 52; the dropout mask pool at the flagship train
+   step's 29,366,272 bits for three seeds, whose bits must be identical,
+   beside ``Tensor.bernoulli_`` as the library yardstick;
 4. the serving path at full width: ConvNeXt-Base + 6-layer E=512
    Transformer, vocab 9490, random weights from a seed, saved as a reference
    ``.pth.tar`` and loaded back through the CLI's loader; beam 5, 50 steps
@@ -18,17 +24,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    launched (36 MLP launches per encoder pass, L decode launches per token),
    then the same batch through the plain versions on the card, which must
    give the same captions; then encoder ms, beam ms and captions/s at batch 8
-   and 32.
+   and 32;
+5. the frozen-encoder teacher-forced train step at full width, batch 32,
+   through ``make_train_step``: two steps from one state and one seed with
+   the pool kernel (1 dropout_mask and 36 mlp_block launches per step), then
+   the same two steps with the plain pool on the card, which must agree;
+   a finite loss, an unchanged encoder; then ms per step, images/s and peak
+   memory.
 
 The line before the last is a JSON object of the kernels (route, source, the
-TPU kernel each replaces, launches on the main path, max error, times); the
-last line is ``{"ok": true, "device": {...}}``.  Needs the repository beside
-it and one card; imports no JAX.
+TPU kernel each replaces, launches on the main paths, max error, times and
+bounds); the last line is ``{"ok": true, "device": {...}}``.  Needs the
+repository beside it and one card; imports no JAX.
 """
 
 import argparse
+import concurrent.futures
+import contextlib
+import copy
 import dataclasses
 import json
+import math
 import os
 import sys
 import tempfile
@@ -42,6 +58,17 @@ TIE_GAP = 1e-4  # a differing caption is accepted only at a near-tie of this siz
 VOCAB = 9490  # COCO vocab size (bench.py:92)
 BEAM, MAX_STEPS = 5, 50
 DECODE_ROWS, DECODE_T = 8 * BEAM, MAX_STEPS + 2
+POOL_N = 29_366_272  # keep-bits of one flagship train step (batch 32, T 52, 6 layers)
+POOL_SEEDS = ((0, 0), (0x9E3779B9, 7), (0xFFFFFFFF, 0x12345678))
+TRAIN_BS, TRAIN_T = 32, 52
+TRAIN_TIMED_STEPS = 12
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+# Integer operations of one Philox4x32-10 call: 10 rounds of two 32x32->64
+# multiplies (high and low halves: 4) and four xors, 9 key bumps of two
+# adds, and 4 threshold compares.
+PHILOX_OPS = 10 * (4 + 4) + 9 * 2 + 4
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -74,35 +101,70 @@ def _host_ms(fn, repeats=3):
     return sorted(times)[len(times) // 2], out
 
 
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the peak rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def check_mlp(dev, card):
-    """Kernel vs plain at the four stage shapes at batch 8 (N = 8*H*W rows)."""
+    """Kernel vs plain at the four stage shapes of both main paths: serving
+    at batch 8 (N = 8*H*W rows) with all-one row scales and with
+    stochastic-depth scales, and the train step at batch 32 with per-image
+    scales (0 or 1/survival) drawn at each stage's ramped rate.  Returns the
+    worst error and the batch-8 encoder pass's times and bound."""
     import torch
 
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS, sd_probs
     from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
 
-    depths, dims, side = (3, 3, 27, 3), (128, 256, 512, 1024), 64
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
-    for s, (depth, c) in enumerate(zip(depths, dims)):
-        n = 8 * (side >> s) ** 2
+    side = 64
+    probs = sd_probs(BASE_DEPTHS)
+    worst, passes = 0.0, {}
+    for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
         g = torch.Generator().manual_seed(c)
         f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
-        args = tuple(a.to(dev) for a in (
-            f(n, c), f(n, c), torch.ones(n), 1 + 0.1 * f(c), 0.1 * f(c),
+        rest = tuple(a.to(dev) for a in (
+            1 + 0.1 * f(c), 0.1 * f(c),
             0.02 * f(4 * c, c), 0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c),
         ))
-        err = (fused_convnext_mlp(*args) - _mlp_plain(*args)).abs().max().item()
-        t_plain = _time_ms(lambda: _mlp_plain(*args))
-        t_kernel = _time_ms(lambda: fused_convnext_mlp(*args))
-        print(f"mlp_block C={c} N={n}: max_abs_err {err:.3e} (tol {MLP_TOL:g}); "
-              f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms per launch [{card}]")
-        if not err < MLP_TOL:
-            raise AssertionError(f"mlp_block kernel disagrees at C={c}: {err} >= {MLP_TOL}")
-        worst = max(worst, err)
-        ms += depth * t_kernel  # one encoder pass at batch 8
-        plain_ms += depth * t_plain
-    print(f"mlp_block per encoder pass at batch 8 (36 blocks): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms [{card}]")
-    return worst, ms, plain_ms
+        survival = 1.0 - probs[sum(BASE_DEPTHS[: s + 1]) - 1]  # the stage's last block
+        for batch in (8, 32):
+            n = batch * (side >> s) ** 2
+            keep = torch.rand(batch, generator=g) < survival
+            keep[0], keep[1] = False, True  # one image dropped, one kept
+            sd_rows = (keep / survival).repeat_interleave(n // batch)
+            x, res = f(n, c).to(dev), f(n, c).to(dev)
+            args = (x, res, torch.ones(n, device=dev), *rest)
+            err = (fused_convnext_mlp(*args) - _mlp_plain(*args)).abs().max().item()
+            sd_args = (x, res, sd_rows.to(dev), *rest)
+            got = fused_convnext_mlp(*sd_args)
+            sd_err = (got - _mlp_plain(*sd_args)).abs().max().item()
+            if not torch.equal(got[: n // batch], res[: n // batch]):  # sd 0: the block is skipped
+                raise AssertionError(f"mlp_block with sd 0 changed its residual at C={c}, batch {batch}")
+            timed = args if batch == 8 else sd_args  # as each path runs it
+            t_plain = _time_ms(lambda: _mlp_plain(*timed))
+            t_kernel = _time_ms(lambda: fused_convnext_mlp(*timed))
+            print(f"mlp_block batch {batch} C={c} N={n}: max_abs_err {err:.3e}, with sd rows "
+                  f"(survival {survival:.4f}) {sd_err:.3e} (tol {MLP_TOL:g}); kernel {t_kernel:.4f} ms, "
+                  f"plain {t_plain:.4f} ms per launch [{card}]")
+            if not max(err, sd_err) < MLP_TOL:
+                raise AssertionError(
+                    f"mlp_block kernel disagrees at C={c}, batch {batch}: {max(err, sd_err)} >= {MLP_TOL}")
+            worst = max(worst, err, sd_err)
+            ms, plain_ms, n_bytes, n_ops = passes.get(batch, (0.0, 0.0, 0, 0))
+            # Per launch: x, residual and sd read, out written, weights read
+            # once; two N x C x 4C products.
+            passes[batch] = (ms + depth * t_kernel, plain_ms + depth * t_plain,
+                             n_bytes + depth * 4 * (3 * n * c + n + 8 * c * c + 8 * c),
+                             n_ops + depth * 16 * n * c * c)
+    for batch, (ms, plain_ms, n_bytes, n_ops) in passes.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f"mlp_block per encoder pass at batch {batch} (36 blocks): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    ms, plain_ms, n_bytes, n_ops = passes[8]
+    return (worst, ms, plain_ms, *bound(n_bytes, n_ops))
 
 
 def check_decode(dev, card, layers):
@@ -119,7 +181,8 @@ def check_decode(dev, card, layers):
     w = prepare_decode_weights(layers, E)
     g = torch.Generator().manual_seed(1)
     f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
-    worst, times, plain_times = 0.0, [], []
+    worst, times, plain_times, n_bytes, n_ops = 0.0, [], [], 0, 0
+    Fd = layers[0].linear1.out_features
     for pos in (0, 1, 25, DECODE_T - 1):
         ck, cv = f(L, DECODE_ROWS, DECODE_T, E), f(L, DECODE_ROWS, DECODE_T, E)
         ck[:, :, pos:] = float("nan")
@@ -142,7 +205,171 @@ def check_decode(dev, card, layers):
         worst = max(worst, *errs.values())
         times.append(t_kernel)
         plain_times.append(t_plain)
-    return worst, sum(times) / len(times), sum(plain_times) / len(plain_times)
+        # Per layer: the six weight matrices and their biases, the pos
+        # cached self-attention rows of k and v, the P memory rows of k and
+        # v, k_new and v_new written; per step x in, x out and alpha.
+        # Products: 2 flops per weight per row, and the two attentions'
+        # scores and weighted sums.
+        w_floats = 6 * E * E + 2 * E * Fd + 9 * E + Fd
+        n_bytes += 4 * (L * (w_floats + DECODE_ROWS * (2 * pos + 2 * P + 2) * E)
+                        + DECODE_ROWS * (2 * E + P))
+        n_ops += L * DECODE_ROWS * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
+    bound_ms, bound_by = bound(n_bytes / 4, n_ops / 4)
+    print(f"decode_step bound, mean over the four positions: {bound_ms:.4f} ms ({bound_by})")
+    return (worst, sum(times) / len(times), sum(plain_times) / len(plain_times),
+            bound_ms, bound_by)
+
+
+def check_dropout(dev, card):
+    """Kernel vs plain at the flagship pool size for three seeds: identical
+    bits and a keep rate within 5 sigma of 0.5; CUDA-event times of the
+    kernel, the plain version and ``Tensor.bernoulli_``."""
+    import torch
+
+    from tpu_captioner_torch.ops.dropout_mask import _mask_plain, random_mask_pool
+
+    keep, mismatches = 0.5, 0
+    for seed in POOL_SEEDS:
+        got = random_mask_pool(seed, POOL_N, keep, dev)
+        want = _mask_plain(seed, POOL_N, keep, dev)
+        bad = int((got != want).sum().item())
+        rate = got.double().mean().item()
+        sigma = (keep * (1 - keep) / POOL_N) ** 0.5
+        print(f"dropout_mask n={POOL_N} seed={seed}: {bad} bits differ from the plain version; "
+              f"keep rate {rate:.6f} ({(rate - keep) / sigma:+.2f} sigma)")
+        if bad or not abs(rate - keep) < 5 * sigma:
+            raise AssertionError(f"dropout_mask kernel wrong at seed {seed}: {bad} bits differ, rate {rate}")
+        mismatches += bad
+    seed = POOL_SEEDS[1]
+    t_kernel = _time_ms(lambda: random_mask_pool(seed, POOL_N, keep, dev), iters=50)
+    t_plain = _time_ms(lambda: _mask_plain(seed, POOL_N, keep, dev), iters=5)
+    t_lib = _time_ms(lambda: torch.empty(POOL_N, dtype=torch.bool, device=dev).bernoulli_(keep), iters=50)
+    # Bytes: the bools written, nothing read.  Operations: integer Philox
+    # work, over the 32-bit non-tensor rate (the data sheet gives no
+    # integer rate; the f32 one is the closest).
+    bound_ms, bound_by = bound(POOL_N, (POOL_N + 3) // 4 * PHILOX_OPS)
+    print(f"dropout_mask n={POOL_N}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+          f"bernoulli_ {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return mismatches, t_kernel, t_plain, t_lib, bound_ms, bound_by
+
+
+def train_batch(rng, word_map, vocab):
+    """Seeded uint8 images and captions <start> words <end> <pad>... with
+    caplens from 10 to 52; the last row is batch padding (valid False)."""
+    import torch
+
+    caplens = torch.randint(10, TRAIN_T + 1, (TRAIN_BS,), generator=rng)
+    caplens[0], caplens[1] = 10, TRAIN_T
+    caps = torch.randint(1, vocab - 3, (TRAIN_BS, TRAIN_T), generator=rng)
+    pos = torch.arange(TRAIN_T)[None, :]
+    caps = torch.where(pos < caplens[:, None] - 1, caps, torch.zeros_like(caps))
+    caps[torch.arange(TRAIN_BS), caplens - 1] = word_map["<end>"]
+    caps[:, 0] = word_map["<start>"]
+    valid = torch.ones(TRAIN_BS, dtype=torch.bool)
+    valid[-1] = False
+    images = torch.randint(0, 256, (TRAIN_BS, 256, 256, 3), generator=rng, dtype=torch.uint8)
+    return {"images": images, "captions": caps, "caplens": caplens, "valid": valid}
+
+
+@contextlib.contextmanager
+def plain_mask_pool():
+    """Route the train step's pool through the plain version (on the card)."""
+    from tpu_captioner_torch.ops import dropout_mask
+
+    kernel = dropout_mask.random_mask_pool
+    dropout_mask.random_mask_pool = dropout_mask._mask_plain
+    try:
+        yield
+    finally:
+        dropout_mask.random_mask_pool = kernel
+
+
+def train_phase(dev, card, seed, word_map):
+    """Phase 5: the frozen-encoder train step at full width, batch 32."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step, pool_demand
+
+    cfg, tc = ModelConfig(vocab_size=VOCAB), TrainConfig(batch_size=TRAIN_BS)
+    if pool_demand(cfg, TRAIN_BS, TRAIN_T, cfg.num_pixels) != POOL_N:
+        raise AssertionError("the flagship pool size changed")
+    model = CaptionModel(cfg, device=dev, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 3)
+    with torch.no_grad():  # order-one layer scales, as in phase 3
+        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+    start = copy.deepcopy(model.state_dict())
+    batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
+    root = prng.root_seed(seed)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+
+    def two_steps(count):
+        model.load_state_dict(start)
+        state = TrainState.create(model, tc)
+        step = make_train_step(model, tc, word_map)
+        out, grads = [], []
+        for s in seeds:
+            random_mask_pool.launches = fused_convnext_mlp.launches = 0
+            state, m = step(state, batch, s)
+            torch.cuda.synchronize()
+            out.append({k: float(v) for k, v in m.items()})
+            grads.append({k: p.grad.clone() for k, p in model.decoder.named_parameters()})
+            if count:
+                launches.append((random_mask_pool.launches, fused_convnext_mlp.launches))
+                print(f"train step: {launches[-1][0]} dropout_mask launches, "
+                      f"{launches[-1][1]} mlp_block launches")
+                if launches[-1] != (1, 36):
+                    raise AssertionError(f"expected 1 dropout_mask and 36 mlp_block launches, got {launches[-1]}")
+        return out, grads, {k: v.clone() for k, v in model.decoder.state_dict().items()}, state
+
+    launches = []
+    got, grads, params, state = two_steps(count=True)
+    with plain_mask_pool():
+        want, _, want_params, _ = two_steps(count=False)
+    for i, (a, b) in enumerate(zip(got, want)):
+        print(f"train step {i}: kernel pool {a}; plain pool {b}")
+        if not all(abs(a[k] - b[k]) <= 1e-5 for k in a) or not math.isfinite(a["loss"]):
+            raise AssertionError(f"train step {i}: kernel and plain pools disagree or the loss is not finite")
+    worst = 0.0
+    for k, p in params.items():
+        sure = (grads[0][k].abs() >= 1e-7) & (grads[1][k].abs() >= 1e-7)
+        err = (p - want_params[k]).abs()[sure]
+        worst = max(worst, err.max().item() if err.numel() else 0.0)
+    print(f"updated decoder parameters, kernel vs plain pool: max abs diff {worst:.3e} "
+          f"(tol {1e-2 * tc.decoder_lr:g}, lr {tc.decoder_lr:g})")
+    if not worst <= 1e-2 * tc.decoder_lr:
+        raise AssertionError("updated decoder parameters disagree between the two pools")
+    enc = model.encoder.state_dict()
+    if not all(torch.equal(v, start[f"encoder.{k}"]) for k, v in enc.items()):
+        raise AssertionError("the frozen encoder changed")
+
+    # Steady-state time per step (host clock, each step synchronised).
+    step = make_train_step(model, tc, word_map)
+    for i in range(3):
+        state, _ = step(state, batch, prng.step_seed(root, "dropout", 1, i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, prng.step_seed(root, "dropout", 2, i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    enc_ms, _ = _host_ms(lambda: model.encode(
+        batch["images"], train=True, generator=prng.generator(seeds[0], dev)), repeats=5)
+    ms = sorted(times)[len(times) // 2]
+    print(f"train step bs={TRAIN_BS} frozen encoder: median {ms:.2f} ms/step over {TRAIN_TIMED_STEPS} "
+          f"steps (min {min(times):.2f}, max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, "
+          f"train-mode encoder {enc_ms:.2f} ms, peak memory {peak / 2**30:.2f} GiB; "
+          f"loss {float(m['loss']):.4f} [{card}]")
+    return launches[0]
 
 
 def word_map_of(vocab):
@@ -216,12 +443,15 @@ def main(argv=None):
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     pin_f32_precision()
 
-    # 2. Build the kernels.
-    for name in ("mlp_block", "decode_step"):
-        t0 = time.perf_counter()
-        path = _build.build(name)
+    # 2. Build the kernels, one nvcc each, all at once.
+    names = ("mlp_block", "decode_step", "dropout_mask")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(_build.build, names)))
+    print(f"built {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, path in paths.items():
         _build.load(name)
-        print(f"built {name}.cu in {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, ROOT)}")
+        print(f"built {name}.cu -> {os.path.relpath(path, ROOT)}")
         log = path.with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
             if "registers" in line or "spill" in line:
@@ -238,8 +468,9 @@ def main(argv=None):
         for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
             blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
         model.decoder.fc_out.weight.mul_(16.0)
-    mlp_err, mlp_ms, mlp_plain_ms = check_mlp(dev, card)
-    dec_err, dec_ms, dec_plain_ms = check_decode(dev, card, model.decoder.layers)
+    mlp_err, mlp_ms, mlp_plain_ms, mlp_bound, mlp_by = check_mlp(dev, card)
+    dec_err, dec_ms, dec_plain_ms, dec_bound, dec_by = check_decode(dev, card, model.decoder.layers)
+    pool_err, pool_ms, pool_plain_ms, pool_lib_ms, pool_bound, pool_by = check_dropout(dev, card)
 
     # 4. The serving path through the CLI's loader, kernels on.
     word_map = word_map_of(VOCAB)
@@ -302,13 +533,26 @@ def main(argv=None):
             print(f"serve bs={bs} {label}: encoder {enc_ms:.2f} ms, beam {beam_ms:.2f} ms, "
                   f"{bs / ((enc_ms + beam_ms) / 1e3):.2f} captions/s [{card}]")
 
+    # 5. The frozen-encoder train step at full width.
+    del served, plain, model
+    torch.cuda.empty_cache()
+    pool_launches, _ = train_phase(dev, card, args.seed, word_map)
+
+    # mlp_block's launches: one serving encoder pass; the train path's 36
+    # per step were checked in phase 5.  dropout_mask's: one per train step.
     print(json.dumps({"kernels": [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
-         "max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain_ms},
+         "max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain_ms,
+         "bound_ms": mlp_bound, "bound_by": mlp_by, "library_ms": None},
         {"name": "decode_step", "route": "cuda", "source": "tpu_captioner_torch/csrc/decode_step.cu",
          "replaces": "tpu_captioner/ops/decode_step.py:185", "launches": dec_launches,
-         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms},
+         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
+         "bound_ms": dec_bound, "bound_by": dec_by, "library_ms": None},
+        {"name": "dropout_mask", "route": "cuda", "source": "tpu_captioner_torch/csrc/dropout_mask.cu",
+         "replaces": "tpu_captioner/ops/dropout_mask.py:39", "launches": pool_launches,
+         "max_abs_err": pool_err, "ms": pool_ms, "plain_ms": pool_plain_ms,
+         "bound_ms": pool_bound, "bound_by": pool_by, "library_ms": pool_lib_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 The pytest form of ``chip_smoke.py``'s kernel phase.  Every test is marked
 ``gpu`` and skips without CUDA.  This file imports no JAX, so it also runs on
@@ -10,6 +10,8 @@ a machine without it (``tests/conftest.py`` imports JAX, hence
 Tolerances: 1e-4 absolute for outputs of order one, which sum up to 4C
 (MLP) or E (decode) f32 products in another order than cuBLAS, with erff
 against torch's erf; 1e-5 for the attention map, a mean of probabilities.
+The dropout pool's bits must be identical: both versions compute the same
+Philox4x32-10 words in integer arithmetic.
 """
 
 import math
@@ -22,6 +24,7 @@ from tpu_captioner_torch.ops.decode_step import (
     _decode_step_plain,
     fused_decode_step,
 )
+from tpu_captioner_torch.ops.dropout_mask import _mask_plain, random_mask_pool
 from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
 
 pytestmark = pytest.mark.gpu
@@ -100,3 +103,15 @@ def test_decode_kernel_matches_plain(cuda, shape, pos_at):
     for name, a, b, tol in zip(("x", "alpha", "k_new", "v_new"), got, want, (1e-4, 1e-5, 1e-4, 1e-4)):
         assert torch.isfinite(a).all(), name
         assert (a - b).abs().max().item() < tol, name
+
+
+@pytest.mark.parametrize("n", [1, 4, 4099, 1_000_003])  # ragged tails of 1, 0, 3 and 3
+@pytest.mark.parametrize("keep", [0.5, 0.9])
+def test_dropout_kernel_matches_plain(cuda, n, keep):
+    seed = (0xDEADBEEF, n)
+    before = random_mask_pool.launches
+    got = random_mask_pool(seed, n, keep, cuda)
+    torch.cuda.synchronize()
+    assert random_mask_pool.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (n,)
+    assert torch.equal(got, _mask_plain(seed, n, keep, cuda))

@@ -5,6 +5,10 @@
 - On a host without CUDA, every request for the card raises: the kernel
   build, the kernel wrappers given a non-CPU tensor, a model asked for
   ``cuda``, and ``chip_smoke.main()``.
+- The kernel wrappers are forward only and raise, on every device, when
+  autograd would need a gradient through them.
+- The train step's branches that are not ported raise, naming their
+  ROADMAP item.
 """
 
 import os
@@ -29,7 +33,7 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "tpu_captioner"))
         assert not bad, bad
-        assert len(names) >= 14, names
+        assert len(names) >= 20, names
         """
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -87,3 +91,42 @@ def test_bf16_and_lstm_are_refused():
         CaptionModel(ModelConfig(vocab_size=11, compute_dtype="bfloat16"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CaptionModel(ModelConfig(vocab_size=11, decoder="lstm"), device="cpu")
+
+
+def test_mask_pool_refuses_other_devices():
+    from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        random_mask_pool((1, 2), 16, 0.5, torch.empty(1, device="meta").device)
+
+
+def test_kernel_wrappers_refuse_to_drop_gradients():
+    from tpu_captioner_torch.ops.decode_step import DecodeWeights, fused_decode_step
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+
+    c = 128
+    mlp = [torch.zeros(s) for s in ((4, c), (4, c), (4,), (c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,), (c,))]
+    mlp[5].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="Queue 2 #4"):
+        fused_convnext_mlp(*mlp)
+    with torch.no_grad():
+        assert fused_convnext_mlp(*mlp).shape == (4, c)
+    w = DecodeWeights(*(torch.zeros(1, 1, requires_grad=True) for _ in DecodeWeights._fields))
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_decode_step(w, torch.zeros(2, 8), 0, *(torch.zeros(1, 2, 4, 8),) * 4, 2)
+
+
+def test_unported_train_branches_raise():
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    model = CaptionModel(
+        ModelConfig(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
+                    encoder_dim=8, embed_dim=8, num_heads=2, decoder_dim=8, num_layers=1),
+        device="cpu",
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
+        make_train_step(model, TrainConfig(), {}, train_encoder=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #11"):
+        make_train_step(model, TrainConfig(), {}, teacher_forcing=False)

@@ -6,6 +6,15 @@ other.  The TPU switches become kernel selectors: ``use_pallas`` picks the
 fused ConvNeXt MLP kernel and ``decode_kernel`` the fused decode step.
 ``'auto'`` and ``'on'`` launch the kernel for CUDA tensors and take the plain
 PyTorch version for CPU tensors; ``'off'`` takes the plain version everywhere.
+
+``dropout_masks`` picks how a train step draws its decoder dropout masks:
+``'auto'`` and ``'pool'`` take one pooled draw per step
+(``ops/dropout_mask.py``: the kernel for CUDA, the plain version for the
+CPU); ``'threefry'`` draws each site with ``torch.bernoulli`` from the
+step's generator.  Threefry's own bits, which the JAX package draws there,
+cannot be reproduced in PyTorch; only the distribution is the same.
+
+``TrainConfig`` keeps the JAX package's training knobs and defaults.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ EMBEDDING_PRESETS = {
 
 DECODER_TYPES = ("lstm", "lstm_no_attention", "transformer", "transformer_attvis")
 KERNEL_MODES = ("auto", "on", "off")
+DROPOUT_MASK_MODES = ("auto", "pool", "threefry")
 
 
 @dataclass
@@ -53,7 +63,7 @@ class ModelConfig:
     decode_kernel: str = "auto"  # fused decode-step kernel: 'auto' | 'on' | 'off'
     # Training-only switches of the JAX config, kept so configs round-trip.
     encoder_remat: str = "auto"
-    dropout_masks: str = "auto"
+    dropout_masks: str = "auto"  # one of DROPOUT_MASK_MODES
 
     def __post_init__(self):
         if self.decoder not in DECODER_TYPES:
@@ -63,6 +73,10 @@ class ModelConfig:
                 raise ValueError(
                     f"{name} must be one of {KERNEL_MODES}, got {getattr(self, name)!r}"
                 )
+        if self.dropout_masks not in DROPOUT_MASK_MODES:
+            raise ValueError(
+                f"dropout_masks must be one of {DROPOUT_MASK_MODES}, got {self.dropout_masks!r}"
+            )
         if self.embedding_name is not None and self.embedding_name in EMBEDDING_PRESETS:
             dim, path = EMBEDDING_PRESETS[self.embedding_name]
             self.embed_dim = dim
@@ -75,3 +89,31 @@ class ModelConfig:
     @property
     def num_pixels(self) -> int:
         return self.encoded_image_size * self.encoded_image_size
+
+
+@dataclass
+class TrainConfig:
+    """Training-loop knobs (reference train.py:46-58, trainMultiGPU.py:50-61),
+    with the JAX package's defaults."""
+
+    epochs: int = 120
+    batch_size: int = 32
+    decoder_lr: float = 1e-4
+    encoder_lr: float = 1e-4
+    grad_clip: float = 5.0  # elementwise clamp, not a norm clip (utils/utils.py:183-192)
+    alpha_c: float = 1.0  # doubly stochastic attention regulariser (train.py:55)
+    attvis_regularization: bool = False  # the regulariser on transformer_attvis maps too
+    teacher_forcing: bool = True
+    scheduled_sampling_prob: float = 0.0  # free-running training only
+    max_decode_len: int = 51  # free-running rollout cap (train.py:329)
+    fine_tune_epoch: int = 20  # encoder unlock epoch (train.py:161)
+    starting_layer: int = 5  # first trainable ConvNeXt child (train.py:63)
+    fine_tune_encoder: bool = False  # pre-unlock state (train.py:58)
+    lr_decay_factor: float = 0.8  # adjust_learning_rate shrink (train.py:172)
+    lr_decay_every: int = 8  # stagnant epochs between decays (train.py:171)
+    early_stop_patience: int = 20
+    seed: int = 42
+    print_freq: int = 100
+    checkpoint: Optional[str] = None  # resume path
+    results_dir: str = "results"
+    checkpoint_dir: str = "checkpoints"

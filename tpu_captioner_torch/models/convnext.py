@@ -16,13 +16,18 @@ under torchvision's parameter names, so the reference Encoder's
 Activations are NHWC (channels last) throughout; a conv sees them as an NCHW
 view with channels-last strides.  Each block: depthwise 7x7 conv + bias (the
 grouped conv, as on the JAX main path), then the fused tail of
-``ops/mlp_block.py``.  All LayerNorms use eps 1e-6.  Eval only: stochastic
-depth is the all-ones row scale.
+``ops/mlp_block.py``.  All LayerNorms use eps 1e-6.
+
+Stochastic depth (row mode, torchvision's): in training each block keeps an
+image with survival ``1 - p``, p ramped as ``0.5 * i / (blocks - 1)``, and
+scales a kept image by ``1 / survival``; the per-row scale is the fused
+tail's ``sd``.  ``draw_sd`` draws the scales from a generator; without them
+(eval) every scale is one.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -33,7 +38,15 @@ from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
 
 BASE_DEPTHS = (3, 3, 27, 3)
 BASE_DIMS = (128, 256, 512, 1024)
+BASE_SD_RATE = 0.5
 LN_EPS = 1e-6
+
+
+def sd_probs(depths: Sequence[int]) -> List[float]:
+    """Per-block drop rates, ramped linearly from 0 to ``BASE_SD_RATE`` over
+    all blocks (tpu_captioner/models/convnext.py:294-296)."""
+    total = sum(depths)
+    return [BASE_SD_RATE * i / max(total - 1.0, 1.0) for i in range(total)]
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -70,17 +83,29 @@ class CNBlock(nn.Module):
         self.block[2].reset_parameters()
         self.layer_scale.fill_(1e-6)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
-        c = x.shape[-1]
+    def forward(self, x: torch.Tensor, sd_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, H, W, C) -> (B, H, W, C); ``sd_rows`` (B,) is the per-image
+        stochastic-depth scale (ones when None)."""
+        _, h, w, c = x.shape
         y = conv_nhwc(x, self.block[0]).reshape(-1, c).contiguous()
         ln, pw1, pw2 = self.block[2], self.block[3], self.block[5]
         tail = fused_convnext_mlp if self.use_kernel else _mlp_plain
+        sd = y.new_ones(y.shape[0]) if sd_rows is None else sd_rows.repeat_interleave(h * w)
         out = tail(
-            y, x.reshape(-1, c).contiguous(), y.new_ones(y.shape[0]),
+            y, x.reshape(-1, c).contiguous(), sd.contiguous(),
             ln.weight, ln.bias, pw1.weight, pw1.bias, pw2.weight, pw2.bias,
             self.layer_scale.view(-1),
         )
         return out.view(x.shape)
+
+
+class Stage(nn.Sequential):
+    """A stack of blocks of one width."""
+
+    def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None):
+        for i, blk in enumerate(self):
+            x = blk(x, None if sd_rows is None else sd_rows[i])
+        return x
 
 
 class Stem(nn.Sequential):
@@ -120,8 +145,32 @@ class ConvNeXtFeatures(nn.Sequential):
         for s, (depth, dim) in enumerate(zip(depths, dims)):
             if s > 0:
                 children.append(Downsample(dims[s - 1], dim, device))
-            children.append(nn.Sequential(*(CNBlock(dim, use_kernel, device) for _ in range(depth))))
+            children.append(Stage(*(CNBlock(dim, use_kernel, device) for _ in range(depth))))
         super().__init__(*children)
+        self.sd_probs = sd_probs(depths)
+
+    def draw_sd(self, batch: int, generator: torch.Generator) -> List[torch.Tensor]:
+        """Training-mode stochastic-depth scales: one (B,) tensor per block,
+        on the generator's device, each entry 0 or ``1 / survival``."""
+        rows = []
+        for p in self.sd_probs:
+            survival = 1.0 - p
+            probs = torch.full((batch,), survival, device=generator.device)
+            rows.append(torch.bernoulli(probs, generator=generator) / survival)
+        return rows
+
+    def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None):
+        """NHWC images -> features; ``sd_rows`` is ``draw_sd``'s list (eval:
+        None)."""
+        start = 0
+        for child in self:
+            if isinstance(child, Stage):
+                depth = len(child)
+                x = child(x, None if sd_rows is None else sd_rows[start : start + depth])
+                start += depth
+            else:
+                x = child(x)
+        return x
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:

@@ -42,8 +42,10 @@ class Encoder(nn.Module):
         self.encoded_image_size = encoded_image_size
         self.convnext = ConvNeXtFeatures(depths, dims, use_kernel, device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """Normalised f32 NHWC (B, H, W, 3) -> (B, enc, enc, dims[-1])."""
-        x = self.convnext(images)
+    def forward(self, images: torch.Tensor, sd_rows=None) -> torch.Tensor:
+        """Normalised f32 NHWC (B, H, W, 3) -> (B, enc, enc, dims[-1]);
+        ``sd_rows`` are ``convnext.draw_sd``'s stochastic-depth scales
+        (training) or None (eval)."""
+        x = self.convnext(images, sd_rows)
         x = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), self.encoded_image_size)
         return x.permute(0, 2, 3, 1)

@@ -11,14 +11,21 @@ directly.
 
 Decoding keeps per-layer KV caches and projects the encoder memory to K/V once
 per image.  ``decode_step`` here is the plain head-split version; the fused
-kernel path is ``ops/decode_step.py``.  Teacher forcing and the rollouts are
-not ported yet.
+kernel path is ``ops/decode_step.py``.
+
+``tf_forward`` is the teacher-forced full-sequence pass of training, with
+autograd through plain PyTorch ops (the JAX package runs it on XLA's
+attention, without a Pallas kernel).  Its dropout sites, in the JAX order:
+the embedding (before +PE); then, per layer, the self-attention
+probabilities, the self-attention output, the cross-attention
+probabilities, the cross-attention output, the FFN hidden layer and the FFN
+output.  The rollouts are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,7 +33,16 @@ import torch.nn.functional as F
 
 from tpu_captioner_torch.core.config import ModelConfig
 from tpu_captioner_torch.models import torch_init
-from tpu_captioner_torch.models.layers import attention_one_query, layer_norm, split_heads
+from tpu_captioner_torch.models.layers import (
+    attention_core,
+    attention_one_query,
+    causal_mask,
+    dropout,
+    layer_norm,
+    merge_heads,
+    pool_layer_scope,
+    split_heads,
+)
 
 
 def sinusoidal_pe(max_len: int, dim: int) -> torch.Tensor:
@@ -99,6 +115,8 @@ class TransformerDecoder(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        # transformer_attvis returns the cross-attention maps from tf_forward.
+        self.capture_alphas = cfg.decoder == "transformer_attvis"
         e = cfg.embed_dim
         self.embedding = nn.Embedding(cfg.vocab_size, e, device=device)
         self.transformer_decoder = _LayerStack(cfg, device)
@@ -131,14 +149,63 @@ class TransformerDecoder(nn.Module):
             return self.encoder_proj(encoder_out)
         return encoder_out
 
-    def embed(self, tokens: torch.Tensor, positions) -> torch.Tensor:
-        """Token embedding + PE (eval: no dropout).  With pretrained
-        embeddings the pad row is pinned to zero (padding_idx semantics,
-        transformerDecoder.py:74)."""
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embedding.  With pretrained embeddings the pad row is pinned
+        to zero (padding_idx semantics, transformerDecoder.py:74)."""
         emb = self.embedding(tokens)
         if self.cfg.embedding_path is not None:
             emb = torch.where((tokens == 0)[..., None], torch.zeros((), device=emb.device), emb)
-        return emb + self.pe[positions]
+        return emb
+
+    def embed(self, tokens: torch.Tensor, positions) -> torch.Tensor:
+        """Token embedding + PE (eval: no dropout)."""
+        return self._lookup(tokens) + self.pe[positions]
+
+    # -- teacher forcing ----------------------------------------------------
+    def _mha_full(self, m: MultiheadAttention, q_in, kv_in, mask, train, generator):
+        """Full-sequence multi-head attention.  Returns (output (B, Tq, E),
+        per-head probabilities before dropout (B, H, Tq, Tk))."""
+        e, h = self.cfg.embed_dim, self.cfg.num_heads
+        w, b = m.in_proj_weight, m.in_proj_bias
+        q = split_heads(F.linear(q_in, w[:e], b[:e]), h)
+        k = split_heads(F.linear(kv_in, w[e : 2 * e], b[e : 2 * e]), h)
+        v = split_heads(F.linear(kv_in, w[2 * e :], b[2 * e :]), h)
+        ctx, probs = attention_core(q, k, v, mask, self.cfg.dropout, generator, train)
+        return m.out_proj(merge_heads(ctx)), probs
+
+    def tf_forward(
+        self,
+        encoder_out: torch.Tensor,  # (B, 7, 7, C) or (B, P, C)
+        captions: torch.Tensor,  # (B, T) token ids
+        key_padding_mask: Optional[torch.Tensor] = None,  # (B, T) True where pad
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Full-sequence pass (transformerDecoder.py:88-108).  Returns
+        (logits (B, T, V), cross-attention maps averaged over layers and
+        heads (B, T, P) when ``capture_alphas``, else None)."""
+        c = self.cfg
+        p = c.dropout
+        mem = self.project_memory(encoder_out)
+        t = captions.shape[1]
+        x = dropout(self._lookup(captions), p, generator, train) + self.pe[:t]
+        mask = causal_mask(t, captions.device)
+        if key_padding_mask is not None:
+            mask = mask & (~key_padding_mask)[:, None, None, :]
+        alphas = []
+        for i, lyr in enumerate(self.layers):
+            with pool_layer_scope(i, c.num_layers):
+                sa, _ = self._mha_full(lyr.self_attn, x, x, mask, train, generator)
+                x = layer_norm(x + dropout(sa, p, generator, train), lyr.norm1.weight, lyr.norm1.bias)
+                ca, ca_probs = self._mha_full(lyr.multihead_attn, x, mem, None, train, generator)
+                x = layer_norm(x + dropout(ca, p, generator, train), lyr.norm2.weight, lyr.norm2.bias)
+                hid = dropout(torch.relu(lyr.linear1(x)), p, generator, train)
+                ff = dropout(lyr.linear2(hid), p, generator, train)
+                x = layer_norm(x + ff, lyr.norm3.weight, lyr.norm3.bias)
+            if self.capture_alphas:
+                alphas.append(ca_probs.mean(dim=1))
+        logits = self.fc_out(x)
+        return logits, torch.stack(alphas).mean(dim=0) if self.capture_alphas else None
 
     # -- incremental decode -------------------------------------------------
     def precompute_memory(self, encoder_out: torch.Tensor) -> Memory:

@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -79,3 +81,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.tc_error_string.restype = ctypes.c_char_p
         msg = lib.tc_error_string(ctypes.c_int(err)).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def refuse_autograd(what: str, tensors, todo: str) -> None:
+    """Raise if autograd would need a gradient through ``what``: grad mode
+    is on and a tensor requires grad.  The kernels are forward only and
+    their wrappers pass raw pointers, so autograd would lose the gradient
+    without an error.  ``todo`` names the ROADMAP item of the backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is forward only: call it under torch.no_grad() or "
+            f"torch.inference_mode(); its backward is {todo}"
+        )

@@ -190,7 +190,12 @@ def fused_decode_step(
     averaged over heads and layers, k_new (L, R, E), v_new (L, R, E)).  The
     caches are read-only here; persist the new rows with
     ``apply_cache_update``.  CUDA tensors launch the kernel once per layer;
-    CPU tensors take the plain version; any other device raises."""
+    CPU tensors take the plain version; any other device raises.  Forward
+    only: raises on every device when autograd would need its gradient."""
+    _build.refuse_autograd(
+        "fused_decode_step", (*w, x, cache_k, cache_v, mem_k, mem_v),
+        "not planned (decoding runs under torch.inference_mode)",
+    )
     pos = int(pos)
     if x.device.type == "cpu":
         return _decode_step_plain(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads)

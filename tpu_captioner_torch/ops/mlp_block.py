@@ -11,7 +11,8 @@ depth scale: all ones in eval.
 
 ``fused_convnext_mlp`` launches the CUDA kernel ``csrc/mlp_block.cu`` for CUDA
 tensors; for CPU tensors it runs ``_mlp_plain``.  Forward only: the backward
-kernel belongs to the fine-tune step and is not ported yet.
+kernel belongs to the fine-tune step and is not ported yet, so the wrapper
+raises when autograd would need a gradient through it.
 """
 
 from __future__ import annotations
@@ -75,8 +76,12 @@ def fused_convnext_mlp(
     gamma: torch.Tensor,  # (C,) layer scale
 ) -> torch.Tensor:
     """The fused tail: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors; any other device raises."""
+    CPU tensors; any other device raises.  Forward only: raises on every
+    device when autograd would need its gradient."""
     args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    _build.refuse_autograd(
+        "fused_convnext_mlp", args, "the MLP-tail backward kernel, ROADMAP.md Queue 2 #4"
+    )
     if x.device.type == "cpu":
         return _mlp_plain(*args)
     if x.device.type != "cuda":

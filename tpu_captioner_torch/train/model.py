@@ -1,12 +1,15 @@
 """CaptionModel: encoder + Transformer decoder behind one interface
 (counterpart of ``tpu_captioner/train/model.py``).
 
-Covers what serving needs: ``encode`` (uint8 NHWC images -> (B, 7, 7, C)),
-the decoder choice for the two Transformer families, and the kernel/plain
-selection.  There is no training code yet.
+Covers what serving and the frozen-encoder train step need: ``encode``
+(uint8 NHWC images -> (B, 7, 7, C), with stochastic depth in training),
+``tf_forward``, the decoder choice for the two Transformer families, and the
+kernel/plain selection.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -21,7 +24,8 @@ SERVED_DECODERS = ("transformer", "transformer_attvis")
 
 class CaptionModel(nn.Module):
     """Built on ``device`` with weights drawn from ``seed`` (a checkpoint
-    load overwrites them).  Eval mode only."""
+    load overwrites them).  Training and eval are chosen per call (``train``
+    arguments), not by ``nn.Module.train``."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
@@ -61,7 +65,33 @@ class CaptionModel(nn.Module):
         (the wrapper itself runs the plain version for CPU tensors)."""
         return self.cfg.decode_kernel != "off"
 
-    @torch.inference_mode()
-    def encode(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 NHWC (B, H, W, 3) -> (B, enc, enc, C) f32."""
-        return self.encoder(preprocess_images(images_u8.to(self.device)))
+    @torch.no_grad()
+    def encode(
+        self, images_u8: torch.Tensor, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """uint8 NHWC (B, H, W, 3) -> (B, enc, enc, C) f32, without autograd:
+        the frozen encoder.  ``no_grad``, not ``inference_mode``, so the
+        decoder may save the output for its backward (serving calls this
+        under its own ``inference_mode``).  ``train`` draws stochastic depth
+        from ``generator``: the reference keeps the encoder in train mode
+        while it is frozen (train.py:242)."""
+        x = preprocess_images(images_u8.to(self.device))
+        if not train:
+            return self.encoder(x)
+        if generator is None:
+            raise ValueError("train-mode encode needs a generator for stochastic depth")
+        return self.encoder(x, self.encoder.convnext.draw_sd(x.shape[0], generator))
+
+    def tf_forward(
+        self, encoder_out: torch.Tensor, captions: torch.Tensor, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Teacher-forced logits aligned so ``logits[:, t]`` predicts
+        ``captions[:, t + 1]``: (B, T-1, V), and the (B, T-1, P) attention
+        maps for ``transformer_attvis`` (else None).  <pad> (id 0) positions
+        are masked as keys (train.py:271)."""
+        logits, alphas = self.decoder.tf_forward(
+            encoder_out, captions, captions == 0, train, generator
+        )
+        return logits[:, :-1], alphas[:, :-1] if alphas is not None else None
