@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the three CUDA kernels from ``tpu_captioner_torch/csrc`` (one nvcc
+2. build the four CUDA kernels from ``tpu_captioner_torch/csrc`` (one nvcc
    per source, all started together);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with CUDA-event times of both and the least time the card could
@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    decode step at 8 images x beam 5 = 40
    rows, cache length 52; the dropout mask pool at the flagship train
    step's 29,366,272 bits for three seeds, whose bits must be identical,
-   beside ``Tensor.bernoulli_`` as the library yardstick;
+   beside ``Tensor.bernoulli_`` as the library yardstick; the MLP-tail
+   backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048 at
+   C = 1024, batch 32, stochastic-depth rows) and at a ragged N = 600;
 4. the serving path at full width: ConvNeXt-Base + 6-layer E=512
    Transformer, vocab 9490, random weights from a seed, saved as a reference
    ``.pth.tar`` and loaded back through the CLI's loader; beam 5, 50 steps
@@ -30,7 +32,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    the pool kernel (1 dropout_mask and 36 mlp_block launches per step), then
    the same two steps with the plain pool on the card, which must agree;
    a finite loss, an unchanged encoder; then ms per step, images/s and peak
-   memory.
+   memory;
+6. the fine-tune train step (``train_encoder=True``, ``starting_layer`` 5)
+   at full width, batch 32: two steps from one state and one seed with the
+   kernels (1 dropout_mask, 36 mlp_block and 30 mlp_block_bwd launches per
+   step), then the same two steps on a ``use_pallas='off'`` copy on the
+   card, which must agree; children 0-4 unchanged and every trainable child
+   changed; then ms per step, images/s and peak memory with remat 'off' and
+   'on', the plain copy's ms per step, and a profiler window's kernel time
+   by group.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths, max error, times and
@@ -52,6 +62,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MLP_TOL = 1e-4  # order-one outputs of 4C-long f32 sums in another order; erff vs torch's erf
+# The backward's nine outputs, relative to max(1, the plain output's largest
+# magnitude): the parameter gradients are N-long f32 sums.
+MLP_BWD_TOL = 1e-4
+FT_START = 5  # the fine-tune step's starting_layer (TrainConfig's default)
 DECODE_TOL = {"x": 1e-4, "alpha": 1e-5, "k_new": 1e-4, "v_new": 1e-4}
 SCORE_TOL = 1e-3  # beam scores, kernel path vs plain path
 TIE_GAP = 1e-4  # a differing caption is accepted only at a near-tie of this size
@@ -165,6 +179,60 @@ def check_mlp(dev, card):
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     ms, plain_ms, n_bytes, n_ops = passes[8]
     return (worst, ms, plain_ms, *bound(n_bytes, n_ops))
+
+
+def check_mlp_bwd(dev, card):
+    """Backward kernel vs plain at the fine-tune step's two trainable stages
+    at batch 32 (per-image sd rows of 0 and 1/survival at the stage's last
+    ramped rate) and at a ragged N = 600, C = 128 (per-row sd): each of the
+    nine outputs within MLP_BWD_TOL x max(1, max |plain|), and d_x exactly 0
+    on rows with sd 0.  Returns the worst absolute error and one fine-tune
+    step's (27 + 3 launches) kernel ms, plain ms and bound."""
+    import torch
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS, sd_probs
+    from tpu_captioner_torch.ops.mlp_block import _mlp_bwd_plain, fused_convnext_mlp_bwd
+
+    probs = sd_probs(BASE_DEPTHS)
+    worst, worst_abs, ms, plain_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+    for s, n in ((2, TRAIN_BS * 16 * 16), (3, TRAIN_BS * 8 * 8), (0, 600)):
+        c = BASE_DIMS[s]
+        g = torch.Generator().manual_seed(c + 1)
+        f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+        params = tuple(a.to(dev) for a in (
+            1 + 0.1 * f(c), 0.1 * f(c),
+            0.02 * f(4 * c, c), 0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c),
+        ))
+        survival = 1.0 - probs[sum(BASE_DEPTHS[: s + 1]) - 1]
+        units = TRAIN_BS if n % TRAIN_BS == 0 else n  # images, or rows for the ragged case
+        keep = torch.rand(units, generator=g) < survival
+        keep[0], keep[1] = False, True
+        sd = (keep / survival).repeat_interleave(n // units).to(dev)
+        args = (f(n, c).to(dev), f(n, c).to(dev), sd, *params)
+        got, want = fused_convnext_mlp_bwd(*args), _mlp_bwd_plain(*args)
+        abs_errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        errs = [e / max(1.0, b.abs().max().item()) for e, b in zip(abs_errs, want)]
+        if not torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0])):
+            raise AssertionError(f"mlp_block_bwd: rows with sd 0 have a nonzero d_x at C={c}")
+        t_kernel = _time_ms(lambda: fused_convnext_mlp_bwd(*args), iters=10)
+        t_plain = _time_ms(lambda: _mlp_bwd_plain(*args), iters=10)
+        print(f"mlp_block_bwd C={c} N={n} (survival {survival:.4f}): max abs err {max(abs_errs):.3e}, "
+              f"max err / max(1, max |plain|) {max(errs):.3e} "
+              f"(tol {MLP_BWD_TOL:g}); kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms per launch [{card}]")
+        if not max(errs) < MLP_BWD_TOL or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"mlp_block_bwd kernel disagrees at C={c}, N={n}: {errs}")
+        worst, worst_abs = max(worst, *errs), max(worst_abs, *abs_errs)
+        if n % TRAIN_BS == 0:  # a fine-tune stage: depth launches per step
+            depth = BASE_DEPTHS[s]
+            ms, plain_ms = ms + depth * t_kernel, plain_ms + depth * t_plain
+            # g, x and sd read, d_x and d_sd written, the weights read and
+            # their gradients written once; 48 N C^2 flops (module note).
+            n_bytes += depth * 4 * (3 * n * c + 2 * n + 16 * c * c + 16 * c)
+            n_ops += depth * 48 * n * c * c
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"mlp_block_bwd per fine-tune step (27 + 3 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return worst_abs, ms, plain_ms, bound_ms, bound_by
 
 
 def check_decode(dev, card, layers):
@@ -372,6 +440,169 @@ def train_phase(dev, card, seed, word_map):
     return launches[0]
 
 
+# Kernel-name substrings of each group in a profiler window, first match wins.
+KERNEL_GROUPS = (
+    ("mlp_block_bwd", ("gemm_kernel", "prep_rows", "finish_rows", "column_partials",
+                       "column_finish", "sum_splits")),
+    ("mlp_block", ("mlp_block_kernel",)),
+    ("dropout_mask", ("mask_pool_kernel",)),
+    ("convolution backward", ("dgrad", "wgrad", "backward", "grad_weight", "grad_input")),
+    ("convolution forward", ("conv", "cudnn", "fprop")),
+    ("cuBLAS gemm", ("gemm", "sm90_xmma", "cutlass")),
+)
+
+
+def _kernel_ms_by_group(step, state, batch, seeds):
+    """Device time of each kernel group, and of the eight longest kernels,
+    over ``len(seeds)`` steps, from a ``torch.profiler`` window (kernel rows
+    only), in ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for s in seeds:
+            state, _ = step(state, batch, s)
+        torch.cuda.synchronize()
+    groups, kernels = {}, []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name, ms = e.key.lower(), e.self_device_time_total / 1e3 / len(seeds)
+        group = next((g for g, subs in KERNEL_GROUPS if any(x.lower() in name for x in subs)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+        kernels.append((ms, e.key[:90]))
+    return state, groups, sorted(kernels, reverse=True)[:8]
+
+
+def finetune_phase(dev, card, seed, word_map):
+    """Phase 6: the fine-tune step at full width, batch 32, starting_layer 5."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    cfg, tc = ModelConfig(vocab_size=VOCAB), TrainConfig(batch_size=TRAIN_BS)
+    if tc.starting_layer != FT_START:
+        raise AssertionError("the fine-tune step's starting_layer changed")
+    model = CaptionModel(cfg, device=dev, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 5)
+    with torch.no_grad():  # order-one layer scales, as in phases 3 and 5
+        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+    start = copy.deepcopy(model.state_dict())
+    plain = CaptionModel(dataclasses.replace(cfg, use_pallas="off"), device=dev)
+    batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
+    root = prng.root_seed(seed + 1)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+
+    def counts():
+        return random_mask_pool.launches, fused_convnext_mlp.launches, fused_convnext_mlp_bwd.launches
+
+    def two_steps(m, expect):
+        m.load_state_dict(start)
+        state = TrainState.create(m, tc)
+        step = make_train_step(m, tc, word_map, train_encoder=True)
+        out, grads, seen = [], [], []
+        for s in seeds:
+            random_mask_pool.launches = fused_convnext_mlp.launches = fused_convnext_mlp_bwd.launches = 0
+            state, met = step(state, batch, s)
+            torch.cuda.synchronize()
+            seen.append(counts())
+            out.append({k: float(v) for k, v in met.items()})
+            grads.append({k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None})
+        if any(c != expect for c in seen):
+            raise AssertionError(f"expected (dropout_mask, mlp_block, mlp_block_bwd) launches {expect} "
+                                 f"per step, got {seen}")
+        return out, grads, {k: v.clone() for k, v in m.state_dict().items()}, seen[0]
+
+    got, grads, params, launches = two_steps(model, (1, 36, 30))
+    print(f"fine-tune step: {launches[0]} dropout_mask, {launches[1]} mlp_block, "
+          f"{launches[2]} mlp_block_bwd launches per step")
+    want, want_grads, want_params, _ = two_steps(plain, (1, 0, 0))
+    for i, (a, b) in enumerate(zip(got, want)):
+        print(f"fine-tune step {i}: kernels {a}; plain {b}")
+        if not (abs(a["loss"] - b["loss"]) <= 1e-4 and a["top5_correct"] == b["top5_correct"]
+                and a["tokens"] == b["tokens"] and math.isfinite(a["loss"])):
+            raise AssertionError(f"fine-tune step {i}: kernel and plain paths disagree")
+    if set(grads[0]) != set(want_grads[0]):
+        raise AssertionError("the two paths trained different parameters")
+    grad_err = max(((grads[0][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                   for k, g in want_grads[0].items())
+    param_err, lr = 0.0, tc.encoder_lr
+    for k, g0 in want_grads[0].items():
+        g1 = want_grads[1][k]
+        sure = (g0.abs() >= 1e-3 * g0.abs().max()) & (g1.abs() >= 1e-3 * g1.abs().max())
+        err = (params[k] - want_params[k]).abs()[sure]
+        param_err = max(param_err, err.max().item() if err.numel() else 0.0)
+    print(f"fine-tune step 1 gradients, kernels vs plain: worst |d|/|plain| {grad_err:.3e} (tol 1e-3); "
+          f"updated parameters: max abs diff {param_err:.3e} (tol {1e-2 * lr:g}) over "
+          f"{len(want_grads[0])} tensors")
+    if not (grad_err <= 1e-3 and param_err <= 1e-2 * lr):
+        raise AssertionError("fine-tune gradients or updated parameters disagree between the two paths")
+    changed = {}  # ConvNeXt child -> (tensors changed, tensors)
+    for k, v in start.items():
+        if k.startswith("encoder.convnext."):
+            i = int(k.split(".")[2])
+            n_changed, n = changed.get(i, (0, 0))
+            changed[i] = (n_changed + (not torch.equal(params[k], v)), n + 1)
+    print("encoder tensors changed per child (changed, all): " + str(dict(sorted(changed.items()))))
+    if any((i >= FT_START) != (c > 0) or (i < FT_START and c) for i, (c, _) in changed.items()):
+        raise AssertionError(f"children below {FT_START} must stay bit-identical and every child "
+                             "from it on must change")
+    del plain, want_grads, grads
+    torch.cuda.empty_cache()
+
+    # Steady-state time per step for each remat mode, and the plain copy's.
+    results = {}
+    runs = (("off", model), ("on", model), ("plain, off", None))
+    for label, m in runs:
+        if m is None:
+            m = CaptionModel(dataclasses.replace(cfg, use_pallas="off"), device=dev)
+        m.cfg = dataclasses.replace(m.cfg, encoder_remat=label.split(", ")[-1])
+        m.load_state_dict(start)
+        state = TrainState.create(m, tc)
+        step = make_train_step(m, tc, word_map, train_encoder=True)
+        for i in range(3):
+            state, _ = step(state, batch, prng.step_seed(root, "dropout", 1, i))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(TRAIN_TIMED_STEPS):
+            random_mask_pool.launches = fused_convnext_mlp.launches = fused_convnext_mlp_bwd.launches = 0
+            t0 = time.perf_counter()
+            state, met = step(state, batch, prng.step_seed(root, "dropout", 2, i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        if label == "on" and counts() != (1, 66, 30):
+            raise AssertionError(f"remat 'on': expected (1, 66, 30) launches per step, got {counts()}")
+        ms = sorted(times)[len(times) // 2]
+        results[label] = ms
+        print(f"fine-tune step bs={TRAIN_BS} starting_layer {FT_START}, "
+              f"{'plain tails' if label.startswith('plain') else 'kernels'}, remat {label.split(', ')[-1]!r}: "
+              f"median {ms:.2f} ms/step over {TRAIN_TIMED_STEPS} steps (min {min(times):.2f}, "
+              f"max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory "
+              f"{peak / 2**30:.2f} GiB; launches per step {counts()}; loss {float(met['loss']):.4f} [{card}]")
+        if label == "off":
+            state, groups, top = _kernel_ms_by_group(
+                step, state, batch, [prng.step_seed(root, "dropout", 3, i) for i in range(2)])
+            total = sum(groups.values())
+            print(f"fine-tune step kernel time by group (torch.profiler, kernel rows, ms per step; "
+                  f"total {total:.2f}): " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                      groups.items(), key=lambda kv: -kv[1])) + f" [{card}]")
+            for ms_k, name in top:
+                print(f"  {ms_k:8.2f} ms/step  {name}")
+        del state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
 def word_map_of(vocab):
     wm = {"<pad>": 0}
     wm.update({f"w{i}": i for i in range(1, vocab - 3)})
@@ -444,7 +675,7 @@ def main(argv=None):
     pin_f32_precision()
 
     # 2. Build the kernels, one nvcc each, all at once.
-    names = ("mlp_block", "decode_step", "dropout_mask")
+    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -471,6 +702,7 @@ def main(argv=None):
     mlp_err, mlp_ms, mlp_plain_ms, mlp_bound, mlp_by = check_mlp(dev, card)
     dec_err, dec_ms, dec_plain_ms, dec_bound, dec_by = check_decode(dev, card, model.decoder.layers)
     pool_err, pool_ms, pool_plain_ms, pool_lib_ms, pool_bound, pool_by = check_dropout(dev, card)
+    bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, bwd_by = check_mlp_bwd(dev, card)
 
     # 4. The serving path through the CLI's loader, kernels on.
     word_map = word_map_of(VOCAB)
@@ -538,13 +770,22 @@ def main(argv=None):
     torch.cuda.empty_cache()
     pool_launches, _ = train_phase(dev, card, args.seed, word_map)
 
-    # mlp_block's launches: one serving encoder pass; the train path's 36
-    # per step were checked in phase 5.  dropout_mask's: one per train step.
+    # 6. The fine-tune train step at full width.
+    torch.cuda.empty_cache()
+    _, _, bwd_launches = finetune_phase(dev, card, args.seed, word_map)
+
+    # mlp_block's launches: one serving encoder pass; the train paths' 36
+    # per step were checked in phases 5 and 6.  dropout_mask's: one per train
+    # step.  mlp_block_bwd's: one fine-tune step.
     print(json.dumps({"kernels": [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
          "max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain_ms,
          "bound_ms": mlp_bound, "bound_by": mlp_by, "library_ms": None},
+        {"name": "mlp_block_bwd", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block_bwd.cu",
+         "replaces": "tpu_captioner/ops/mlp_block.py:275", "launches": bwd_launches,
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None},
         {"name": "decode_step", "route": "cuda", "source": "tpu_captioner_torch/csrc/decode_step.cu",
          "replaces": "tpu_captioner/ops/decode_step.py:185", "launches": dec_launches,
          "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,

@@ -11,7 +11,10 @@ Tolerances: 1e-4 absolute for outputs of order one, which sum up to 4C
 (MLP) or E (decode) f32 products in another order than cuBLAS, with erff
 against torch's erf; 1e-5 for the attention map, a mean of probabilities.
 The dropout pool's bits must be identical: both versions compute the same
-Philox4x32-10 words in integer arithmetic.
+Philox4x32-10 words in integer arithmetic.  The MLP-tail backward's nine
+outputs agree within 1e-4 times each output's largest magnitude (sums over
+up to 4C products and, for the parameter gradients, over all N rows, in
+another order than cuBLAS); rows with sd 0 give d_x exactly 0.
 """
 
 import math
@@ -25,7 +28,13 @@ from tpu_captioner_torch.ops.decode_step import (
     fused_decode_step,
 )
 from tpu_captioner_torch.ops.dropout_mask import _mask_plain, random_mask_pool
-from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
+from tpu_captioner_torch.ops.mlp_block import (
+    SUPPORTED_C,
+    _mlp_bwd_plain,
+    _mlp_plain,
+    fused_convnext_mlp,
+    fused_convnext_mlp_bwd,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +69,23 @@ def test_mlp_kernel_matches_plain(cuda, c, sd):
     assert fused_convnext_mlp.launches == before + 1
     want = _mlp_plain(*args)
     assert (got - want).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("n,c", [(1003, c) for c in SUPPORTED_C] + [(600, 128), (7, 1024)])
+def test_mlp_backward_kernel_matches_plain(cuda, n, c):
+    x, _, sd, *params = mlp_args(n, c, cuda, seed=n + c, sd="mixed")
+    g = torch.randn(n, c, generator=torch.Generator().manual_seed(c)).to(cuda)
+    before = fused_convnext_mlp_bwd.launches
+    got = fused_convnext_mlp_bwd(g, x, sd, *params)
+    torch.cuda.synchronize()
+    assert fused_convnext_mlp_bwd.launches == before + 1
+    want = _mlp_bwd_plain(g, x, sd, *params)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), i
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), i
+    assert torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
+    again = fused_convnext_mlp_bwd(g, x, sd, *params)  # no atomics: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def decode_args(L, R, T, P, E, H, Fd, pos, device, seed=0):

@@ -5,10 +5,11 @@
 - On a host without CUDA, every request for the card raises: the kernel
   build, the kernel wrappers given a non-CPU tensor, a model asked for
   ``cuda``, and ``chip_smoke.main()``.
-- The kernel wrappers are forward only and raise, on every device, when
-  autograd would need a gradient through them.
-- The train step's branches that are not ported raise, naming their
-  ROADMAP item.
+- The MLP-tail wrapper carries a gradient (its backward is a kernel too);
+  the decode-step wrapper is forward only and raises, on every device, when
+  autograd would need a gradient through it.
+- The train step's branch that is not ported raises, naming its ROADMAP
+  item; the fine-tune branch builds a step.
 """
 
 import os
@@ -105,10 +106,12 @@ def test_kernel_wrappers_refuse_to_drop_gradients():
     from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
 
     c = 128
-    mlp = [torch.zeros(s) for s in ((4, c), (4, c), (4,), (c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,), (c,))]
+    mlp = [torch.ones(s) for s in ((4, c), (4, c), (4,), (c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,), (c,))]
     mlp[5].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="Queue 2 #4"):
-        fused_convnext_mlp(*mlp)
+    out = fused_convnext_mlp(*mlp)
+    assert out.grad_fn is not None
+    (grad_w1,) = torch.autograd.grad(out.sum(), mlp[5])
+    assert grad_w1.shape == (4 * c, c) and grad_w1.abs().sum() > 0
     with torch.no_grad():
         assert fused_convnext_mlp(*mlp).shape == (4, c)
     w = DecodeWeights(*(torch.zeros(1, 1, requires_grad=True) for _ in DecodeWeights._fields))
@@ -126,7 +129,10 @@ def test_unported_train_branches_raise():
                     encoder_dim=8, embed_dim=8, num_heads=2, decoder_dim=8, num_layers=1),
         device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
-        make_train_step(model, TrainConfig(), {}, train_encoder=True)
+    assert callable(make_train_step(model, TrainConfig(), {}, train_encoder=True))
+    trained = {n.split(".")[1] for n, p in model.encoder.named_parameters() if p.requires_grad}
+    assert trained == {"5", "6", "7"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #11"):
         make_train_step(model, TrainConfig(), {}, teacher_forcing=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #11"):
+        make_train_step(model, TrainConfig(), {}, teacher_forcing=False, train_encoder=True)

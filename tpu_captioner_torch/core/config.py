@@ -32,6 +32,7 @@ EMBEDDING_PRESETS = {
 DECODER_TYPES = ("lstm", "lstm_no_attention", "transformer", "transformer_attvis")
 KERNEL_MODES = ("auto", "on", "off")
 DROPOUT_MASK_MODES = ("auto", "pool", "threefry")
+ENCODER_REMAT_MODES = ("auto", "on", "off", "save_mlp_in")
 
 
 @dataclass
@@ -61,7 +62,8 @@ class ModelConfig:
     compute_dtype: str = "float32"
     use_pallas: str = "auto"  # fused ConvNeXt MLP kernel: 'auto' | 'on' | 'off'
     decode_kernel: str = "auto"  # fused decode-step kernel: 'auto' | 'on' | 'off'
-    # Training-only switches of the JAX config, kept so configs round-trip.
+    # What the fine-tune step's trainable stages keep for the backward: one
+    # of ENCODER_REMAT_MODES ('auto' resolves in train/model.py).
     encoder_remat: str = "auto"
     dropout_masks: str = "auto"  # one of DROPOUT_MASK_MODES
 
@@ -76,6 +78,10 @@ class ModelConfig:
         if self.dropout_masks not in DROPOUT_MASK_MODES:
             raise ValueError(
                 f"dropout_masks must be one of {DROPOUT_MASK_MODES}, got {self.dropout_masks!r}"
+            )
+        if self.encoder_remat not in ENCODER_REMAT_MODES:
+            raise ValueError(
+                f"encoder_remat must be one of {ENCODER_REMAT_MODES}, got {self.encoder_remat!r}"
             )
         if self.embedding_name is not None and self.embedding_name in EMBEDDING_PRESETS:
             dim, path = EMBEDDING_PRESETS[self.embedding_name]

@@ -23,15 +23,22 @@ image with survival ``1 - p``, p ramped as ``0.5 * i / (blocks - 1)``, and
 scales a kept image by ``1 / survival``; the per-row scale is the fused
 tail's ``sd``.  ``draw_sd`` draws the scales from a generator; without them
 (eval) every scale is one.
+
+Fine-tuning (``ConvNeXtFeatures.forward(..., grad_from=i)``): children below
+``i`` run under ``no_grad``, so the backward stops at child ``i``'s input;
+the others run with autograd, through the fused tail's backward kernel.
+``remat`` picks what a stage keeps for its backward (``Stage``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpu_captioner_torch.models import torch_init
 from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
@@ -40,6 +47,7 @@ BASE_DEPTHS = (3, 3, 27, 3)
 BASE_DIMS = (128, 256, 512, 1024)
 BASE_SD_RATE = 0.5
 LN_EPS = 1e-6
+REMAT_MODES = ("on", "off", "save_mlp_in")  # resolved modes; 'auto' is resolved by the caller
 
 
 def sd_probs(depths: Sequence[int]) -> List[float]:
@@ -100,11 +108,29 @@ class CNBlock(nn.Module):
 
 
 class Stage(nn.Sequential):
-    """A stack of blocks of one width."""
+    """A stack of blocks of one width.
 
-    def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None):
+    ``remat`` applies only when the stage runs with autograd.  ``'on'``
+    recomputes each block's forward in the backward
+    (``torch.utils.checkpoint``, non-reentrant), handed the same sd rows, so
+    the block's forward kernel launches twice per step.  ``'off'`` and
+    ``'save_mlp_in'`` run the blocks plainly: autograd then keeps each
+    block's input (for the depthwise conv) and its dwconv output (for the
+    fused tail), which is what the JAX package's ``save_mlp_in`` policy keeps
+    (tpu_captioner/models/convnext.py:156-160, :244-256)."""
+
+    def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None,
+                remat: str = "off"):
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+        recompute = remat == "on" and torch.is_grad_enabled()
         for i, blk in enumerate(self):
-            x = blk(x, None if sd_rows is None else sd_rows[i])
+            rows = None if sd_rows is None else sd_rows[i]
+            if recompute:
+                # The block draws nothing: its sd rows come in as an argument.
+                x = checkpoint(blk, x, rows, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(x, rows)
         return x
 
 
@@ -159,17 +185,22 @@ class ConvNeXtFeatures(nn.Sequential):
             rows.append(torch.bernoulli(probs, generator=generator) / survival)
         return rows
 
-    def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None):
+    def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None,
+                grad_from: Optional[int] = None, remat: str = "off"):
         """NHWC images -> features; ``sd_rows`` is ``draw_sd``'s list (eval:
-        None)."""
+        None).  With ``grad_from`` set, children below it run under
+        ``no_grad``; ``remat`` is each stage's (``Stage``)."""
         start = 0
-        for child in self:
-            if isinstance(child, Stage):
-                depth = len(child)
-                x = child(x, None if sd_rows is None else sd_rows[start : start + depth])
-                start += depth
-            else:
-                x = child(x)
+        for i, child in enumerate(self):
+            frozen = grad_from is not None and i < grad_from
+            with torch.no_grad() if frozen else contextlib.nullcontext():
+                if isinstance(child, Stage):
+                    depth = len(child)
+                    rows = None if sd_rows is None else sd_rows[start : start + depth]
+                    x = child(x, rows, remat)
+                    start += depth
+                else:
+                    x = child(x)
         return x
 
     @torch.no_grad()

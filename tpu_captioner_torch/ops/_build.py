@@ -85,9 +85,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def refuse_autograd(what: str, tensors, todo: str) -> None:
     """Raise if autograd would need a gradient through ``what``: grad mode
-    is on and a tensor requires grad.  The kernels are forward only and
-    their wrappers pass raw pointers, so autograd would lose the gradient
-    without an error.  ``todo`` names the ROADMAP item of the backward."""
+    is on and a tensor requires grad.  For a forward-only kernel, whose
+    wrapper passes raw pointers, autograd would otherwise lose the gradient
+    without an error.  ``todo`` says where its backward stands."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} is forward only: call it under torch.no_grad() or "

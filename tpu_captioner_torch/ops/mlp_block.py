@@ -9,15 +9,19 @@ with LayerNorm eps 1e-6 and the exact erf GELU.  ``W1`` (4C, C) and ``W2``
 (the JAX package keeps their transposes).  ``sd`` is the per-row stochastic-
 depth scale: all ones in eval.
 
-``fused_convnext_mlp`` launches the CUDA kernel ``csrc/mlp_block.cu`` for CUDA
-tensors; for CPU tensors it runs ``_mlp_plain``.  Forward only: the backward
-kernel belongs to the fine-tune step and is not ported yet, so the wrapper
-raises when autograd would need a gradient through it.
+``fused_convnext_mlp`` is a ``torch.autograd.Function`` (the JAX package's
+``custom_vjp``).  Its forward launches ``csrc/mlp_block.cu`` for CUDA tensors
+and runs ``_mlp_plain`` for CPU tensors.  Its backward returns the cotangent
+itself as the residual's gradient and calls ``fused_convnext_mlp_bwd``, which
+launches ``csrc/mlp_block_bwd.cu`` for CUDA tensors and runs
+``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
+output), sd and the parameters, never the residual.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +29,9 @@ import torch.nn.functional as F
 from tpu_captioner_torch.ops import _build
 
 LN_EPS = 1e-6
-SUPPORTED_C = (128, 256, 512, 1024)  # the widths the kernel is instantiated for
+SUPPORTED_C = (128, 256, 512, 1024)  # the widths the kernels are instantiated for
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
 def _mlp_plain(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
@@ -36,25 +42,60 @@ def _mlp_plain(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     return residual + sd[:, None] * y
 
 
-def _check(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
-    n, c = x.shape
-    want = {
-        "x": (x, (n, c)), "residual": (residual, (n, c)), "sd": (sd, (n,)),
-        "ln_w": (ln_w, (c,)), "ln_b": (ln_b, (c,)),
-        "w1": (w1, (4 * c, c)), "b1": (b1, (4 * c,)),
+def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain PyTorch version of the backward kernel, written with the TPU
+    kernel's formulas (tpu_captioner/ops/mlp_block.py:301-339).  ``g`` is the
+    cotangent of the tail's output.  Returns (d_x, d_sd, d_ln_w, d_ln_b,
+    d_w1 (4C, C), d_b1, d_w2 (C, 4C), d_b2, d_gamma): the weight gradients
+    in the port's ``nn.Linear`` layouts."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    r = torch.rsqrt(var + LN_EPS)
+    xhat = (x - mu) * r
+    xn = xhat * ln_w + ln_b
+    a = F.linear(xn, w1, b1)
+    h = F.gelu(a)
+    u = F.linear(h, w2, b2)
+    d_y = g * sd[:, None]  # cotangent of u * gamma, rows scaled by stochastic depth
+    d_sd = (g * (u * gamma)).sum(-1)
+    d_u = d_y * gamma
+    d_h = d_u @ w2  # (N, C) x (C, 4C)
+    # gelu'(a) = Phi(a) + a * phi(a)
+    d_a = d_h * (0.5 * (1.0 + torch.erf(a * _INV_SQRT2)) + a * torch.exp(-0.5 * a * a) * _INV_SQRT_2PI)
+    d_xn = d_a @ w1  # (N, 4C) x (4C, C)
+    d_xhat = d_xn * ln_w
+    m1 = d_xhat.mean(-1, keepdim=True)
+    m2 = (d_xhat * xhat).mean(-1, keepdim=True)
+    d_x = r * (d_xhat - m1 - xhat * m2)
+    return (
+        d_x, d_sd, (d_xn * xhat).sum(0), d_xn.sum(0),
+        d_a.T @ xn, d_a.sum(0), d_u.T @ h, d_u.sum(0), (d_y * u).sum(0),
+    )
+
+
+def _check(what, c, tensors):
+    """Raise unless every ``name: (tensor, shape)`` entry is a contiguous,
+    16-byte-aligned float32 tensor of that shape on the first one's device,
+    and ``c`` is a width the kernel is built for."""
+    device = next(iter(tensors.values()))[0].device
+    for name, (t, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    if c not in SUPPORTED_C:
+        raise ValueError(f"{what} kernel supports C in {SUPPORTED_C}, got {c}")
+
+
+def _param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    return {
+        "ln_w": (ln_w, (c,)), "ln_b": (ln_b, (c,)), "w1": (w1, (4 * c, c)), "b1": (b1, (4 * c,)),
         "w2": (w2, (c, 4 * c)), "b2": (b2, (c,)), "gamma": (gamma, (c,)),
     }
-    for name, (t, shape) in want.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if c not in SUPPORTED_C:
-        raise ValueError(f"fused_convnext_mlp kernel supports C in {SUPPORTED_C}, got {c}")
 
 
 def _lib():
@@ -66,6 +107,87 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _build.load("mlp_block_bwd")
+    lib.tc_mlp_block_backward.restype = ctypes.c_int
+    lib.tc_mlp_block_backward.argtypes = [ctypes.c_void_p] * 20 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.tc_mlp_block_backward_workspace.restype = ctypes.c_longlong
+    lib.tc_mlp_block_backward_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """The forward: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors; any other device raises."""
+    args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu":
+        return _mlp_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_convnext_mlp runs on cpu or cuda tensors, got {x.device}")
+    n, c = x.shape
+    _check("fused_convnext_mlp", c, {
+        "x": (x, (n, c)), "residual": (residual, (n, c)), "sd": (sd, (n,)),
+        **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
+    })
+    lib = _lib()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tc_mlp_block_forward(*(t.data_ptr() for t in args), out.data_ptr(), n, c, stream)
+    _build.check(lib, err, "mlp_block")
+    fused_convnext_mlp.launches += 1
+    return out
+
+
+def fused_convnext_mlp_bwd(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Gradients of the tail without its residual, for the cotangent ``g``
+    (N, C): the nine outputs of ``_mlp_bwd_plain``.  CUDA tensors launch
+    ``csrc/mlp_block_bwd.cu`` on the current stream; CPU tensors take the
+    plain version; any other device raises."""
+    args = (g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    if x.device.type == "cpu":
+        return _mlp_bwd_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_convnext_mlp_bwd runs on cpu or cuda tensors, got {x.device}")
+    n, c = x.shape
+    _check("fused_convnext_mlp_bwd", c, {
+        "g": (g, (n, c)), "x": (x, (n, c)), "sd": (sd, (n,)),
+        **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
+    })
+    lib = _bwd_lib()
+    outs = (
+        torch.empty_like(x), x.new_empty(n), x.new_empty(c), x.new_empty(c),
+        torch.empty_like(w1), x.new_empty(4 * c), torch.empty_like(w2), x.new_empty(c), x.new_empty(c),
+    )
+    with torch.cuda.device(x.device):
+        work = x.new_empty(lib.tc_mlp_block_backward_workspace(n, c))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tc_mlp_block_backward(
+            *(t.data_ptr() for t in (*args, *outs, work)), n, c, stream
+        )
+    _build.check(lib, err, "mlp_block_bwd")
+    fused_convnext_mlp_bwd.launches += 1
+    return outs
+
+
+fused_convnext_mlp_bwd.launches = 0
+
+
+class _FusedMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+        ctx.save_for_backward(x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+        return _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_x, d_sd, *d_params = fused_convnext_mlp_bwd(g.contiguous(), *ctx.saved_tensors)
+        grads = (d_x, g, d_sd, *d_params)
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
+
+
 def fused_convnext_mlp(
     x: torch.Tensor,  # (N, C) depthwise-conv output rows
     residual: torch.Tensor,  # (N, C) block input rows
@@ -75,29 +197,11 @@ def fused_convnext_mlp(
     w2: torch.Tensor, b2: torch.Tensor,  # (C, 4C), (C,)
     gamma: torch.Tensor,  # (C,) layer scale
 ) -> torch.Tensor:
-    """The fused tail: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors; any other device raises.  Forward only: raises on every
-    device when autograd would need its gradient."""
-    args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
-    _build.refuse_autograd(
-        "fused_convnext_mlp", args, "the MLP-tail backward kernel, ROADMAP.md Queue 2 #4"
-    )
-    if x.device.type == "cpu":
-        return _mlp_plain(*args)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_convnext_mlp runs on cpu or cuda tensors, got {x.device}")
-    _check(*args)
-    lib = _lib()
-    out = torch.empty_like(x)
-    n, c = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tc_mlp_block_forward(
-            *(t.data_ptr() for t in args), out.data_ptr(), n, c, stream
-        )
-    _build.check(lib, err, "mlp_block")
-    fused_convnext_mlp.launches += 1
-    return out
+    """The fused tail, differentiable: the CUDA kernels for CUDA tensors, the
+    plain versions for CPU tensors; any other device raises.
+    ``fused_convnext_mlp.launches`` counts forward kernel launches,
+    ``fused_convnext_mlp_bwd.launches`` backward ones."""
+    return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
 
 
 fused_convnext_mlp.launches = 0

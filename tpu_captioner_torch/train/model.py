@@ -1,10 +1,19 @@
 """CaptionModel: encoder + Transformer decoder behind one interface
 (counterpart of ``tpu_captioner/train/model.py``).
 
-Covers what serving and the frozen-encoder train step need: ``encode``
-(uint8 NHWC images -> (B, 7, 7, C), with stochastic depth in training),
-``tf_forward``, the decoder choice for the two Transformer families, and the
-kernel/plain selection.
+Covers what serving and the two teacher-forced train steps need: ``encode``
+(uint8 NHWC images -> (B, 7, 7, C), with stochastic depth in training,
+without autograd), ``encode_fine_tune`` (the same with autograd from a
+starting child on), ``tf_forward``, the decoder choice for the two
+Transformer families, and the kernel/plain selection.
+
+The fine-tune policies of the JAX package (``finetune_use_pallas``,
+``finetune_encoder_remat``, tpu_captioner/train/model.py:30-62) were chosen
+on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
+- no per-stage kernel choice: the fused MLP kernels run at every stage.  The
+  JAX package put stage 4 on XLA because the TPU backward staged 48 MB of
+  weight gradients in scoped VMEM; a Hopper kernel has no such limit;
+- ``finetune_encoder_remat`` below, decided on the H100.
 """
 
 from __future__ import annotations
@@ -20,6 +29,18 @@ from tpu_captioner_torch.models.encoder import Encoder, preprocess_images
 from tpu_captioner_torch.models.transformer import TransformerDecoder
 
 SERVED_DECODERS = ("transformer", "transformer_attvis")
+
+
+def finetune_encoder_remat(remat: str, compute_dtype: str = "float32") -> str:
+    """Remat mode of the fine-tune step's trainable stages (the one home of
+    this policy).  Explicit modes pass through.  ``'auto'`` resolves to
+    ``'off'`` for float32, the only ported dtype: on an NVIDIA H100 80GB
+    HBM3 at 700 W (``chip_smoke.py`` phase 6) the full-width fine-tune step
+    at batch 32 took 229.29 ms with ``'off'`` (peak 5.21 GiB) against
+    280.97 ms with ``'on'`` (peak 4.76 GiB), which recomputes the 30
+    trainable blocks' forwards; both fit in 80 GB many times over."""
+    del compute_dtype  # only float32 is ported; the choice above was measured there
+    return "off" if remat == "auto" else remat
 
 
 class CaptionModel(nn.Module):
@@ -82,6 +103,20 @@ class CaptionModel(nn.Module):
         if generator is None:
             raise ValueError("train-mode encode needs a generator for stochastic depth")
         return self.encoder(x, self.encoder.convnext.draw_sd(x.shape[0], generator))
+
+    def encode_fine_tune(
+        self, images_u8: torch.Tensor, starting_layer: int,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``encode`` for the fine-tune step: ConvNeXt children below
+        ``starting_layer`` run under ``no_grad``, the rest with autograd and
+        the remat mode ``finetune_encoder_remat`` resolves from the config.
+        ``generator`` draws stochastic depth (train mode); None runs every
+        block with scale one."""
+        x = preprocess_images(images_u8.to(self.device))
+        sd_rows = None if generator is None else self.encoder.convnext.draw_sd(x.shape[0], generator)
+        remat = finetune_encoder_remat(self.cfg.encoder_remat, self.cfg.compute_dtype)
+        return self.encoder(x, sd_rows, grad_from=starting_layer, remat=remat)
 
     def tf_forward(
         self, encoder_out: torch.Tensor, captions: torch.Tensor, train: bool = False,

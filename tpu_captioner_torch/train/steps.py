@@ -1,21 +1,27 @@
 """Train step (counterpart of ``tpu_captioner/train/steps.py``).
 
-Ported: the teacher-forced step with the encoder frozen, which the reference
-trains for its first ``fine_tune_epoch`` epochs (train.py:240-291):
+Ported: the teacher-forced step, with the encoder frozen, which the reference
+trains for its first ``fine_tune_epoch`` epochs (train.py:240-291), and
+fine-tuned from ``starting_layer`` on (``train_encoder=True``), which it
+trains after them:
 - the loss is the cross-entropy over the tokens at ``t < caplen - 1`` of
   valid rows, divided by their count (``nn.CrossEntropyLoss`` over
   ``pack_padded_sequence`` tokens, train.py:266-276);
-- the encoder runs without autograd, with stochastic depth on, and its
-  parameters have ``requires_grad`` off;
-- the decoder's gradients are clamped elementwise to +-grad_clip, then Adam
-  steps (``train/state.py``);
+- frozen: the encoder runs without autograd, with stochastic depth on, and
+  its parameters have ``requires_grad`` off;
+- fine-tune: ``fine_tune_mask`` sets ``requires_grad`` per parameter; the
+  children below ``starting_layer`` run under ``no_grad``, so the backward
+  stops at the first trainable child's input (the JAX step's
+  ``stop_gradient``), and those parameters stay bit-identical;
+- the gradients are clamped elementwise to +-grad_clip, then each Adam of
+  ``train/state.py`` steps (the encoder's only when it trains);
 - with ``dropout_masks`` 'auto' or 'pool' one ``random_mask_pool`` call
   draws every dropout mask of the step (``ops/dropout_mask.py``).  Its size
   is counted from the shapes (``pool_demand``), and the step checks that the
   forward consumed exactly that many bits.
 
-Not ported yet: the fine-tune step (``train_encoder=True``, ROADMAP.md
-Queue 1 #8) and free-running training (``rollout_loss``, Queue 1 #11).
+Not ported yet: free-running training (``rollout_loss``, ROADMAP.md Queue 1
+#11).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from tpu_captioner_torch.core import prng
 from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
 from tpu_captioner_torch.eval.metrics import masked_cross_entropy, topk_correct
+from tpu_captioner_torch.models.encoder import fine_tune_mask
 from tpu_captioner_torch.models.layers import MaskPool, mask_pool_scope
 from tpu_captioner_torch.ops import dropout_mask
 from tpu_captioner_torch.train.state import TrainState, clip_gradients, zero_frozen
@@ -68,10 +75,13 @@ def tf_loss(
     train: bool,
     seed: Optional[int] = None,
     attvis_regularization: bool = False,
+    grad_from: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Teacher-forced loss of ``batch`` (``images`` uint8 NHWC, ``captions``
     (B, T), ``caplens`` (B,), ``valid`` (B,) bool).  ``train`` turns on
     stochastic depth and dropout, drawn from the 64-bit step ``seed``.
+    ``grad_from`` runs the encoder with autograd from that ConvNeXt child on
+    (``CaptionModel.encode_fine_tune``); None runs it without.
     Returns (loss, {loss, tokens, top5_correct}), the metrics detached."""
     dev = model.device
     caps = batch["captions"].to(dev).long()
@@ -80,7 +90,10 @@ def tf_loss(
     if train and seed is None:
         raise ValueError("a training loss needs a seed")
     enc_gen = prng.generator(prng.fold_in(seed, _ENCODER), dev) if train else None
-    enc_out = model.encode(batch["images"], train=train, generator=enc_gen)
+    if grad_from is None:
+        enc_out = model.encode(batch["images"], train=train, generator=enc_gen)
+    else:
+        enc_out = model.encode_fine_tune(batch["images"], grad_from, generator=enc_gen)
     cfg = model.cfg
     if train and cfg.dropout > 0.0 and cfg.dropout_masks in ("auto", "pool"):
         logits, alphas = _pooled_tf_forward(model, enc_out, caps, prng.fold_in(seed, _DECODER))
@@ -111,30 +124,37 @@ def make_train_step(
     """Returns ``step(state, batch, seed) -> (state, metrics)``, which
     updates ``state`` (a ``TrainState`` of ``model``) in place.  ``seed`` is
     a 64-bit step seed (``core.prng.step_seed``); ``metrics`` holds ``loss``,
-    ``tokens`` and ``top5_correct``.  After a step the decoder's ``.grad``
-    hold the clamped gradients it applied.  ``word_ids`` serves the
-    free-running branch, which is not ported yet."""
+    ``tokens`` and ``top5_correct``.  ``train_encoder`` trains the ConvNeXt
+    children from ``cfg.starting_layer`` on.  After a step the trained
+    parameters' ``.grad`` hold the clamped gradients that were applied.
+    ``word_ids`` serves the free-running branch, which is not ported yet."""
     del word_ids
-    if train_encoder:
-        raise NotImplementedError(
-            "the fine-tune step (train_encoder=True) is not ported yet: ROADMAP.md Queue 1 #8"
-        )
     if not teacher_forcing:
         raise NotImplementedError(
             "free-running training (rollout_loss) is not ported yet: ROADMAP.md Queue 1 #11"
         )
-    model.encoder.requires_grad_(False)
+    mask = fine_tune_mask(model.encoder, train_encoder, cfg.starting_layer)
+    for name, p in model.encoder.named_parameters():
+        p.requires_grad_(mask[name])
+    enc_params = [p for name, p in model.encoder.named_parameters() if mask[name]]
+    grad_from = cfg.starting_layer if train_encoder else None
     dec_params = list(model.decoder.parameters())
     freeze_embedding = model.cfg.embedding_path is not None and not model.cfg.fine_tune_embeddings
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
         state.dec_opt.zero_grad(set_to_none=True)
-        loss, metrics = tf_loss(model, batch, cfg.alpha_c, True, seed, cfg.attvis_regularization)
+        state.enc_opt.zero_grad(set_to_none=True)
+        loss, metrics = tf_loss(
+            model, batch, cfg.alpha_c, True, seed, cfg.attvis_regularization, grad_from
+        )
         loss.backward()
         if freeze_embedding:
             # nn.Embedding.from_pretrained(freeze=True) (transformerDecoder.py:74).
             zero_frozen(model.decoder, {"embedding.weight": False})
+        clip_gradients(enc_params, cfg.grad_clip)
         clip_gradients(dec_params, cfg.grad_clip)
+        if train_encoder:
+            state.enc_opt.step()
         state.dec_opt.step()
         state.step += 1
         return state, metrics
