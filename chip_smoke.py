@@ -6,15 +6,17 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the four CUDA kernels from ``tpu_captioner_torch/csrc`` (one nvcc
-   per source, all started together);
+2. build the CUDA kernels from the four sources in
+   ``tpu_captioner_torch/csrc`` (one nvcc per source, all started together;
+   ``decode_step.cu`` holds three kernels);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with CUDA-event times of both and the least time the card could
    take (``bound_ms``): the fused ConvNeXt MLP tail at the four
    ConvNeXt-Base stages at batch 8 (serving) and 32 (the train step), with
    all-one and with stochastic-depth row scales (0 and 1/survival); the
-   decode step at 8 images x beam 5 = 40
-   rows, cache length 52; the dropout mask pool at the flagship train
+   per-layer decode step at 8 images x beam 5 = 40 rows and the one-cell
+   step at the greedy eval's 32 rows, cache length 52, each also against
+   the other; the dropout mask pool at the flagship train
    step's 29,366,272 bits for three seeds, whose bits must be identical,
    beside ``Tensor.bernoulli_`` as the library yardstick; the MLP-tail
    backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048 at
@@ -40,7 +42,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    card, which must agree; children 0-4 unchanged and every trainable child
    changed; then ms per step, images/s and peak memory with remat 'off' and
    'on', the plain copy's ms per step, and a profiler window's kernel time
-   by group.
+   by group;
+7. the greedy eval step (``make_eval_step``) at full width, batch 32, 51
+   steps, with phase 4's weights, in four decode modes: 'off' (plain),
+   'step', 'step' with one_cell, and 'mega'.  Each mode's launches are
+   counted (36 MLP launches, and L decode launches per token, one one-cell
+   launch per token or one rollout launch), and each must agree with 'off':
+   sequences equal except at a near-tie, logits and maps within 1e-4 and
+   1e-5, the loss within 1e-4 relative and the counts equal.  Run twice:
+   with the natural <end>, then with an end id the first run's rows emit,
+   so that rows finish and every loop stops early; then encoder, rollout
+   and eval-step ms per mode, and the rollout kernel against its plain
+   version with CUDA-event times and its bound.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths, max error, times and
@@ -235,9 +248,24 @@ def check_mlp_bwd(dev, card):
     return worst_abs, ms, plain_ms, bound_ms, bound_by
 
 
-def check_decode(dev, card, layers):
-    """Kernel vs plain at 40 rows, cache length 52, several positions, with
-    NaN in every cache slot at or past ``pos``."""
+def decode_bound(L, R, pos, P, E, Fd):
+    """(bytes, ops) of one decode step at cache position ``pos``: per layer
+    the six weight matrices and their biases, the pos cached self-attention
+    rows of k and v, the P memory rows of k and v, k_new and v_new written;
+    per step x in, x out and alpha.  Products: 2 flops per weight per row,
+    and the two attentions' scores and weighted sums."""
+    w_floats = 6 * E * E + 2 * E * Fd + 9 * E + Fd
+    n_bytes = 4 * (L * (w_floats + R * (2 * pos + 2 * P + 2) * E) + R * (2 * E + P))
+    n_ops = L * R * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
+    return n_bytes, n_ops
+
+
+def check_decode(dev, card, layers, rows):
+    """The per-layer and one-cell kernels against the plain step at ``rows``
+    rows, cache length 52, several positions, with NaN in every cache slot
+    at or past ``pos``; the one-cell kernel also against the per-layer one
+    (the same arithmetic: within 1e-6).  Returns {kernel: (max error, mean
+    ms per step, mean plain ms, bound ms, bound by)}."""
     import torch
 
     from tpu_captioner_torch.ops.decode_step import (
@@ -249,43 +277,45 @@ def check_decode(dev, card, layers):
     w = prepare_decode_weights(layers, E)
     g = torch.Generator().manual_seed(1)
     f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
-    worst, times, plain_times, n_bytes, n_ops = 0.0, [], [], 0, 0
+    worst = {"decode_step": 0.0, "decode_onecell": 0.0}
+    times = {k: [] for k in worst}
+    plain_times, n_bytes, n_ops = [], 0, 0
     Fd = layers[0].linear1.out_features
     for pos in (0, 1, 25, DECODE_T - 1):
-        ck, cv = f(L, DECODE_ROWS, DECODE_T, E), f(L, DECODE_ROWS, DECODE_T, E)
+        ck, cv = f(L, rows, DECODE_T, E), f(L, rows, DECODE_T, E)
         ck[:, :, pos:] = float("nan")
         cv[:, :, pos:] = float("nan")
-        args = (w, f(DECODE_ROWS, E), pos, ck, cv, f(L, DECODE_ROWS, P, E), f(L, DECODE_ROWS, P, E), H)
-        got, want = fused_decode_step(*args), _decode_step_plain(*args)
-        errs = {}
-        for name, a, b in zip(DECODE_TOL, got, want):
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"decode_step kernel gave non-finite {name} at pos {pos}")
-            errs[name] = (a - b).abs().max().item()
-        t_plain = _time_ms(lambda: _decode_step_plain(*args))
-        t_kernel = _time_ms(lambda: fused_decode_step(*args))
-        print(f"decode_step R={DECODE_ROWS} T={DECODE_T} pos={pos}: max_abs_err "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f"; kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms per step ({L} layers) [{card}]")
-        for name, e in errs.items():
-            if not e < DECODE_TOL[name]:
-                raise AssertionError(f"decode_step kernel disagrees on {name} at pos {pos}: {e}")
-        worst = max(worst, *errs.values())
-        times.append(t_kernel)
-        plain_times.append(t_plain)
-        # Per layer: the six weight matrices and their biases, the pos
-        # cached self-attention rows of k and v, the P memory rows of k and
-        # v, k_new and v_new written; per step x in, x out and alpha.
-        # Products: 2 flops per weight per row, and the two attentions'
-        # scores and weighted sums.
-        w_floats = 6 * E * E + 2 * E * Fd + 9 * E + Fd
-        n_bytes += 4 * (L * (w_floats + DECODE_ROWS * (2 * pos + 2 * P + 2) * E)
-                        + DECODE_ROWS * (2 * E + P))
-        n_ops += L * DECODE_ROWS * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
+        args = (w, f(rows, E), pos, ck, cv, f(L, rows, P, E), f(L, rows, P, E), H)
+        want = _decode_step_plain(*args)
+        got = {"decode_step": fused_decode_step(*args),
+               "decode_onecell": fused_decode_step(*args, one_cell=True)}
+        same = max((a - b).abs().max().item() for a, b in zip(*got.values()))
+        line = []
+        for kernel, outs in got.items():
+            errs = {}
+            for name, a, b in zip(DECODE_TOL, outs, want):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{kernel} kernel gave non-finite {name} at pos {pos}")
+                errs[name] = (a - b).abs().max().item()
+            for name, e in errs.items():
+                if not e < DECODE_TOL[name]:
+                    raise AssertionError(f"{kernel} kernel disagrees on {name} at R={rows}, pos {pos}: {e}")
+            worst[kernel] = max(worst[kernel], *errs.values())
+            one_cell = kernel == "decode_onecell"
+            times[kernel].append(_time_ms(lambda: fused_decode_step(*args, one_cell=one_cell)))
+            line.append(f"{kernel} " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                        + f", {times[kernel][-1]:.4f} ms")
+        if not same <= 1e-6:
+            raise AssertionError(f"the one-cell and per-layer kernels differ by {same} at R={rows}, pos {pos}")
+        plain_times.append(_time_ms(lambda: _decode_step_plain(*args)))
+        print(f"decode R={rows} T={DECODE_T} pos={pos}: max_abs_err vs plain: " + "; ".join(line)
+              + f" per step ({L} layers); one-cell vs per-layer {same:.3e}; plain {plain_times[-1]:.4f} ms [{card}]")
+        b, o = decode_bound(L, rows, pos, P, E, Fd)
+        n_bytes, n_ops = n_bytes + b, n_ops + o
     bound_ms, bound_by = bound(n_bytes / 4, n_ops / 4)
-    print(f"decode_step bound, mean over the four positions: {bound_ms:.4f} ms ({bound_by})")
-    return (worst, sum(times) / len(times), sum(plain_times) / len(plain_times),
-            bound_ms, bound_by)
+    print(f"decode bound at R={rows}, mean over the four positions: {bound_ms:.4f} ms ({bound_by})")
+    return {k: (worst[k], sum(times[k]) / len(times[k]), sum(plain_times) / len(plain_times), bound_ms, bound_by)
+            for k in worst}
 
 
 def check_dropout(dev, card):
@@ -603,6 +633,196 @@ def finetune_phase(dev, card, seed, word_map):
     return launches
 
 
+EVAL_MODES = (  # (label, ModelConfig.decode_kernel, one_cell)
+    ("off", "off", False), ("step", "step", False), ("one_cell", "step", True), ("mega", "mega", False),
+)
+LOGIT_TOL, ALPHA_TOL = 1e-4, 1e-5  # as DECODE_TOL's x and alpha: f32 sums in another order
+
+
+def flagship_model(cfg, dev, seed):
+    """The served model of phases 3, 4 and 7: random weights from ``seed``,
+    order-one layer scales so that every MLP tail shows in the features, and
+    a vocab head scaled x16 (peaked, as a trained captioner's) so that beam
+    and argmax ties are improbable."""
+    import torch
+
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    model = CaptionModel(cfg, device=dev, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+        model.decoder.fc_out.weight.mul_(16.0)
+    return model
+
+
+def compare_rollouts(label, got, want):
+    """Greedy rollouts (logits, seqs, alphas) against the plain one: per row
+    equal tokens up to the first step where they differ, which must be a
+    near-tie (the plain logits of the two tokens within TIE_GAP); logits and
+    maps within LOGIT_TOL and ALPHA_TOL up to that step.  Returns (max logit
+    error, max map error, rows that differ)."""
+    import torch
+
+    (gl, gs, ga), (wl, ws, wa) = got, want
+    diff = gs != ws
+    first = diff.int().argmax(dim=1)
+    upto = torch.where(diff.any(dim=1), first + 1, ws.shape[1])
+    keep = torch.arange(ws.shape[1], device=ws.device)[None, :] < upto[:, None]
+    logit_err = ((gl - wl).abs() * keep[..., None]).max().item()
+    alpha_err = ((ga - wa).abs() * keep[..., None]).max().item()
+    ties = diff.any(dim=1).nonzero().flatten().tolist()
+    for r in ties:
+        s = int(first[r])
+        gap = abs(wl[r, s, int(gs[r, s])] - wl[r, s, int(ws[r, s])]).item()
+        print(f"{label}: row {r} differs from the plain rollout from step {s}; logit gap {gap:.3e}")
+        if not gap < TIE_GAP:
+            raise AssertionError(f"{label}: row {r} differs from the plain rollout beyond a near-tie")
+    if not (logit_err < LOGIT_TOL and alpha_err < ALPHA_TOL):
+        raise AssertionError(f"{label}: logits {logit_err} or maps {alpha_err} disagree with the plain rollout")
+    return logit_err, alpha_err, ties
+
+
+def rollout_bound(lengths, L, P, E, Fd, V, steps):
+    """(bytes, ops) of a whole rollout whose rows ran ``lengths`` tokens,
+    each input read once and each output written once: the layer weights,
+    the vocab head, the memory K/V, the embedding and PE rows used, the
+    (R, steps) logits, maps and tokens.  Operations: 2 per weight per row
+    and token (layers and head), and the two attentions' scores and weighted
+    sums."""
+    R, row_steps = len(lengths), sum(lengths)
+    attn = sum(L * 4 * E * (s + 1 + P) for n in lengths for s in range(n))
+    n_ops = row_steps * 2 * (L * (6 * E * E + 2 * E * Fd) + E * V) + attn
+    n_bytes = 4 * (L * (6 * E * E + 2 * E * Fd + 9 * E + Fd) + V * E + V + 2 * L * R * P * E
+                   + row_steps * E + max(lengths) * E + R * steps * (V + P + 1))
+    return n_bytes, n_ops
+
+
+def eval_phase(dev, card, seed, word_map):
+    """Phase 7: the greedy eval step at full width, batch 32, 51 steps, in
+    the four decode modes, with the natural <end> and with an end id that
+    rows emit.  Returns the one-cell and rollout kernels' launches and the
+    rollout kernel's error, times and bound."""
+    import torch
+
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.ops.decode_step import (
+        _full_rollout_plain, fused_decode_step, fused_full_rollout, prepare_cross_memory,
+        prepare_decode_weights,
+    )
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    cfg, tc = ModelConfig(vocab_size=VOCAB), TrainConfig(batch_size=TRAIN_BS)
+    steps, L, E = tc.max_decode_len, cfg.num_layers, cfg.embed_dim
+    model = flagship_model(cfg, dev, seed)
+    dec = model.decoder
+    dec.capture_alphas = True  # so that the rollouts below return their maps
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(seed + 9), word_map, VOCAB).items()}
+    start = word_map["<start>"]
+    tokens = [0]
+    embed = dec.embed
+
+    def counted_embed(*a):  # one lookup per token in the rollouts that embed outside a kernel
+        tokens[0] += 1
+        return embed(*a)
+
+    def run(mode, one_cell, ids):
+        model.cfg = dataclasses.replace(cfg, decode_kernel=mode)
+        step = make_eval_step(model, tc, ids, one_cell=one_cell)
+        fused_convnext_mlp.launches = fused_decode_step.launches = 0
+        fused_decode_step.onecell_launches = fused_full_rollout.launches = 0
+        tokens[0] = 0
+        dec.embed = counted_embed
+        aux = step(batch)
+        torch.cuda.synchronize()
+        seen = (fused_convnext_mlp.launches, fused_decode_step.launches,
+                fused_decode_step.onecell_launches, fused_full_rollout.launches)
+        del dec.embed
+        ran = int(fused_full_rollout.steps_run) if mode == "mega" else tokens[0]
+        with torch.inference_mode():
+            roll = model.rollout(model.encode(batch["images"]), start, ids["<end>"], steps, one_cell=one_cell)
+        return step, aux, seen, ran, roll
+
+    out = {}
+    ids = word_map
+    for end_label in ("natural", "emitted"):
+        runs = {label: run(mode, one_cell, ids) for label, mode, one_cell in EVAL_MODES}
+        plain = runs["off"]
+        lengths = plain[1]["lengths"]
+        need = int(lengths.max())  # every loop stops once all rows have finished
+        for label, (_, aux, seen, ran, roll) in runs.items():
+            expect = {"off": (36, 0, 0, 0), "step": (36, L * need, 0, 0),
+                      "one_cell": (36, 0, need, 0), "mega": (36, 0, 0, 1)}[label]
+            print(f"eval ({end_label} <end> = {ids['<end>']}) {label}: launches (mlp_block, decode_step, "
+                  f"decode_onecell, decode_rollout) {seen}, {ran} tokens run, "
+                  f"{int((aux['lengths'] < steps).sum())} of {TRAIN_BS} rows finished before step {steps}; "
+                  f"loss {float(aux['loss']):.6f}, tokens {int(aux['tokens'])}, top5 {int(aux['top5_correct'])}")
+            if seen != expect or ran != need:
+                raise AssertionError(f"{label}: expected launches {expect} and {need} tokens, got {seen}, {ran}")
+            if not (torch.isfinite(roll[0]).all() and aux["sequences"].shape == (TRAIN_BS, steps)
+                    and math.isfinite(float(aux["loss"]))):
+                raise AssertionError(f"{label}: malformed eval output")
+            if label == "off":
+                continue
+            logit_err, alpha_err, ties = compare_rollouts(label, roll, plain[4])
+            print(f"  {label} vs off: logits {logit_err:.3e} (tol {LOGIT_TOL:g}), maps {alpha_err:.3e} "
+                  f"(tol {ALPHA_TOL:g}), {len(ties)} rows differ at a near-tie")
+            if ties:
+                print(f"  {label}: loss and counts not compared (a near-tie changed a sequence)")
+                continue
+            rel = abs(float(aux["loss"]) - float(plain[1]["loss"])) / abs(float(plain[1]["loss"]))
+            same = all(torch.equal(aux[k], plain[1][k]) for k in ("sequences", "lengths", "tokens", "top5_correct"))
+            if not (rel < 1e-4 and same):
+                raise AssertionError(f"{label}: eval metrics disagree with the plain mode (loss rel {rel})")
+        if end_label == "natural":
+            out["launches"] = {k: v[2] for k, v in runs.items()}
+            for label, mode, one_cell in EVAL_MODES:
+                step = runs[label][0]
+                model.cfg = dataclasses.replace(cfg, decode_kernel=mode)
+                with torch.inference_mode():
+                    enc_ms, enc = _host_ms(lambda: model.encode(batch["images"]))
+                    roll_ms, _ = _host_ms(lambda: model.rollout(enc, start, ids["<end>"], steps, one_cell=one_cell))
+                eval_ms, _ = _host_ms(lambda: step(batch))
+                print(f"eval bs={TRAIN_BS} {label}: encoder {enc_ms:.2f} ms, rollout {roll_ms:.2f} ms "
+                      f"({runs[label][3]} tokens), eval step {eval_ms:.2f} ms [{card}]")
+            # The next end id: one every row emits if there is one (of those,
+            # the one whose rows finish at the most different steps), else
+            # the most frequent token (never <pad>), so that rows finish early.
+            seqs = plain[1]["sequences"].long()
+            in_all = [v for v in range(1, VOCAB) if bool((seqs == v).any(dim=1).all())]
+            if in_all:
+                firsts = {v: (seqs == v).int().argmax(dim=1).tolist() for v in in_all}
+                end_id = min(firsts, key=lambda v: (-len(set(firsts[v])), max(firsts[v])))
+            else:
+                end_id = int(torch.bincount(seqs.flatten(), minlength=VOCAB)[1:].argmax()) + 1
+            ids = dict(word_map, **{"<end>": end_id})
+        elif not bool((lengths < steps).any()):
+            raise AssertionError(f"no row finished before step {steps} with <end> = {ids['<end>']}")
+
+    # The rollout kernel against its plain version on this batch's memory,
+    # with the natural <end>, and CUDA-event times of both.
+    with torch.inference_mode():
+        mem = dec.project_memory(model.encode(batch["images"]))
+        w = prepare_decode_weights(dec.layers, E)
+        mk, mv = prepare_cross_memory(dec.layers, mem, E)
+        args = (w, dec.embedding.weight, dec.fc_out.weight, dec.fc_out.bias, dec.pe, mk, mv,
+                start, word_map["<end>"], steps, cfg.num_heads)
+        got, want = fused_full_rollout(*args), _full_rollout_plain(*args)
+        logit_err, alpha_err, _ = compare_rollouts("decode_rollout kernel", got, want)
+        ends = want[1] == word_map["<end>"]
+        lengths = torch.where(ends.any(dim=1), ends.int().argmax(dim=1) + 1, steps).tolist()
+        t_kernel = _time_ms(lambda: fused_full_rollout(*args), iters=5, warmup=1)
+        t_plain = _time_ms(lambda: _full_rollout_plain(*args), iters=2, warmup=1)
+    bound_ms, bound_by = bound(*rollout_bound(lengths, L, 49, E, cfg.decoder_dim, VOCAB, steps))
+    print(f"decode_rollout R={TRAIN_BS} steps={steps} ({max(lengths)} run): max_abs_err logits {logit_err:.3e}, "
+          f"maps {alpha_err:.3e}; kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms per rollout, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    out["rollout"] = (max(logit_err, alpha_err), t_kernel, t_plain, bound_ms, bound_by)
+    return out
+
+
 def word_map_of(vocab):
     wm = {"<pad>": 0}
     wm.update({f"w{i}": i for i in range(1, vocab - 3)})
@@ -689,18 +909,15 @@ def main(argv=None):
                 print("  ptxas:", line.strip())
 
     # 3. Kernels against their plain versions.
-    gen = torch.Generator().manual_seed(args.seed)
     cfg = ModelConfig(vocab_size=VOCAB)
-    model = CaptionModel(cfg, device=dev, seed=args.seed)
-    with torch.no_grad():
-        # Order-one layer scales so every MLP tail shows in the features, and
-        # a peaked vocab head (as a trained captioner's) so that beam ties
-        # are improbable.
-        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
-            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
-        model.decoder.fc_out.weight.mul_(16.0)
+    model = flagship_model(cfg, dev, args.seed)
     mlp_err, mlp_ms, mlp_plain_ms, mlp_bound, mlp_by = check_mlp(dev, card)
-    dec_err, dec_ms, dec_plain_ms, dec_bound, dec_by = check_decode(dev, card, model.decoder.layers)
+    # The per-layer kernel at the beam's rows, the one-cell kernel at the
+    # greedy eval's.
+    dec_err, dec_ms, dec_plain_ms, dec_bound, dec_by = check_decode(
+        dev, card, model.decoder.layers, DECODE_ROWS)["decode_step"]
+    one_err, one_ms, one_plain_ms, one_bound, one_by = check_decode(
+        dev, card, model.decoder.layers, TRAIN_BS)["decode_onecell"]
     pool_err, pool_ms, pool_plain_ms, pool_lib_ms, pool_bound, pool_by = check_dropout(dev, card)
     bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, bwd_by = check_mlp_bwd(dev, card)
 
@@ -774,9 +991,15 @@ def main(argv=None):
     torch.cuda.empty_cache()
     _, _, bwd_launches = finetune_phase(dev, card, args.seed, word_map)
 
-    # mlp_block's launches: one serving encoder pass; the train paths' 36
-    # per step were checked in phases 5 and 6.  dropout_mask's: one per train
-    # step.  mlp_block_bwd's: one fine-tune step.
+    # 7. The greedy eval step at full width, in four decode modes.
+    torch.cuda.empty_cache()
+    ev = eval_phase(dev, card, args.seed, word_map)
+    roll_err, roll_ms, roll_plain_ms, roll_bound, roll_by = ev["rollout"]
+
+    # mlp_block's launches: one serving encoder pass; the train and eval
+    # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
+    # per train step.  mlp_block_bwd's: one fine-tune step.  decode_onecell's
+    # and decode_rollout's: one eval step in their modes, natural <end>.
     print(json.dumps({"kernels": [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
@@ -794,6 +1017,14 @@ def main(argv=None):
          "replaces": "tpu_captioner/ops/dropout_mask.py:39", "launches": pool_launches,
          "max_abs_err": pool_err, "ms": pool_ms, "plain_ms": pool_plain_ms,
          "bound_ms": pool_bound, "bound_by": pool_by, "library_ms": pool_lib_ms},
+        {"name": "decode_onecell", "route": "cuda", "source": "tpu_captioner_torch/csrc/decode_step.cu",
+         "replaces": "tpu_captioner/ops/decode_step.py:271", "launches": ev["launches"]["one_cell"][2],
+         "max_abs_err": one_err, "ms": one_ms, "plain_ms": one_plain_ms,
+         "bound_ms": one_bound, "bound_by": one_by, "library_ms": None},
+        {"name": "decode_rollout", "route": "cuda", "source": "tpu_captioner_torch/csrc/decode_step.cu",
+         "replaces": "tpu_captioner/ops/decode_step.py:570", "launches": ev["launches"]["mega"][3],
+         "max_abs_err": roll_err, "ms": roll_ms, "plain_ms": roll_plain_ms,
+         "bound_ms": roll_bound, "bound_by": roll_by, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

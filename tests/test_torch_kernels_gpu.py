@@ -14,7 +14,12 @@ The dropout pool's bits must be identical: both versions compute the same
 Philox4x32-10 words in integer arithmetic.  The MLP-tail backward's nine
 outputs agree within 1e-4 times each output's largest magnitude (sums over
 up to 4C products and, for the parameter gradients, over all N rows, in
-another order than cuBLAS); rows with sd 0 give d_x exactly 0.
+another order than cuBLAS); rows with sd 0 give d_x exactly 0.  The one-cell
+decode kernel runs the per-layer kernel's arithmetic, so it agrees with it
+within 1e-6.  The rollout kernel's sequences equal the plain rollout's except
+at a near-tie (the plain logits of the two tokens within 1e-4 at the first
+step where they differ); its logits agree within 1e-4 and its attention maps
+within 1e-5 up to that step.
 """
 
 import math
@@ -22,10 +27,13 @@ import math
 import pytest
 import torch
 
+from tpu_captioner_torch.models.transformer import sinusoidal_pe
 from tpu_captioner_torch.ops.decode_step import (
     DecodeWeights,
     _decode_step_plain,
+    _full_rollout_plain,
     fused_decode_step,
+    fused_full_rollout,
 )
 from tpu_captioner_torch.ops.dropout_mask import _mask_plain, random_mask_pool
 from tpu_captioner_torch.ops.mlp_block import (
@@ -129,6 +137,91 @@ def test_decode_kernel_matches_plain(cuda, shape, pos_at):
     for name, a, b, tol in zip(("x", "alpha", "k_new", "v_new"), got, want, (1e-4, 1e-5, 1e-4, 1e-4)):
         assert torch.isfinite(a).all(), name
         assert (a - b).abs().max().item() < tol, name
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [dict(L=3, R=10, T=8, P=4, E=64, H=4, Fd=48), dict(L=6, R=32, T=52, P=49, E=512, H=8, Fd=512)],
+)
+@pytest.mark.parametrize("pos_at", ["first", "middle", "last"])
+def test_onecell_kernel_matches_layer_kernel_and_plain(cuda, shape, pos_at):
+    T = shape["T"]
+    pos = {"first": 0, "middle": T // 2, "last": T - 1}[pos_at]
+    args = decode_args(*shape.values(), pos=pos, device=cuda)
+    before = (fused_decode_step.launches, fused_decode_step.onecell_launches)
+    got = fused_decode_step(*args, one_cell=True)
+    torch.cuda.synchronize()
+    assert (fused_decode_step.launches, fused_decode_step.onecell_launches) == (before[0], before[1] + 1)
+    per_layer = fused_decode_step(*args)
+    want = _decode_step_plain(*args)
+    for name, a, b, c, tol in zip(("x", "alpha", "k_new", "v_new"), got, per_layer, want, (1e-4, 1e-5, 1e-4, 1e-4)):
+        assert torch.isfinite(a).all(), name
+        assert (a - b).abs().max().item() <= 1e-6, name
+        assert (a - c).abs().max().item() < tol, name
+
+
+def rollout_args(R, steps, device, teacher, L=6, P=49, E=512, H=8, Fd=512, V=9490, seed=0):
+    """Full-width weights, memory K/V, tables and (steps, R) teacher tensors;
+    the vocab head scaled x16 so that its argmax has clear winners."""
+    w, _, _, _, _, mem_k, mem_v, _ = decode_args(L, R, steps, P, E, H, Fd, 0, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    tables = (
+        torch.randn(V, E, generator=g),
+        16 * (torch.rand(V, E, generator=g) * 2 - 1) / math.sqrt(E),
+        0.1 * torch.randn(V, generator=g),
+        sinusoidal_pe(steps, E),
+    )
+    mix = {}
+    if teacher:
+        mix = dict(teacher=torch.randint(0, V, (steps, R), generator=g),
+                   use_teacher=torch.rand(steps, R, generator=g) < 0.5)
+    return (w, *(t.to(device) for t in tables), mem_k, mem_v), {k: v.to(device) for k, v in mix.items()}
+
+
+def assert_rollouts_agree(got, want, tie_gap=1e-4):
+    """Per row: equal tokens up to the first step where they differ, which
+    must be a near-tie of the plain logits; logits and maps agree up to it."""
+    (gl, gs, ga), (wl, ws, wa) = got, want
+    for r in range(ws.shape[0]):
+        diff = (gs[r] != ws[r]).nonzero()
+        upto = ws.shape[1] if len(diff) == 0 else int(diff[0]) + 1
+        if len(diff):
+            s, a, b = upto - 1, int(gs[r, upto - 1]), int(ws[r, upto - 1])
+            assert abs(wl[r, s, a] - wl[r, s, b]).item() < tie_gap, (r, s)
+        assert (gl[r, :upto] - wl[r, :upto]).abs().max().item() < 1e-4, r
+        assert (ga[r, :upto] - wa[r, :upto]).abs().max().item() < 1e-5, r
+
+
+@pytest.mark.parametrize("rows", [4, 32])
+@pytest.mark.parametrize("steps", [1, 12, 51])
+@pytest.mark.parametrize("teacher", [False, True])
+@pytest.mark.parametrize("end", ["never", "emitted", "first"])
+def test_rollout_kernel_matches_plain(cuda, rows, steps, teacher, end):
+    """The whole-rollout kernel against ``_full_rollout_plain``: an end id no
+    row emits, the most frequent token of that rollout (some rows finish),
+    and one the head is biased to (every row finishes at step 0, so the
+    kernel must stop after one token)."""
+    args, mix = rollout_args(rows, steps, cuda, teacher, seed=rows + steps)
+    V, start = args[1].shape[0], args[1].shape[0] - 2
+    end_id = -1
+    if end == "emitted":
+        _, seqs, _ = _full_rollout_plain(*args, start, -1, steps, 8, **mix)
+        end_id = int(torch.bincount(seqs.flatten().long()).argmax())
+    elif end == "first":
+        end_id = 7
+        args[3][end_id] += 1e3
+    want = _full_rollout_plain(*args, start, end_id, steps, 8, **mix)
+    before = fused_full_rollout.launches
+    got = fused_full_rollout(*args, start, end_id, steps, 8, **mix)
+    torch.cuda.synchronize()
+    assert fused_full_rollout.launches == before + 1
+    assert got[1].dtype == torch.int32 and all(torch.isfinite(x).all() for x in (got[0], got[2]))
+    assert_rollouts_agree(got, want)
+    ends = want[1] == end_id
+    lengths = torch.where(ends.any(1), ends.int().argmax(1) + 1, steps)
+    assert int(fused_full_rollout.steps_run) == int(lengths.max())  # stopped once all rows finished
+    if end == "first":
+        assert int(fused_full_rollout.steps_run) == 1 and not got[0][:, 1:].any()
 
 
 @pytest.mark.parametrize("n", [1, 4, 4099, 1_000_003])  # ragged tails of 1, 0, 3 and 3

@@ -6,8 +6,11 @@
   build, the kernel wrappers given a non-CPU tensor, a model asked for
   ``cuda``, and ``chip_smoke.main()``.
 - The MLP-tail wrapper carries a gradient (its backward is a kernel too);
-  the decode-step wrapper is forward only and raises, on every device, when
-  autograd would need a gradient through it.
+  the decode wrappers (the step, per layer or one-cell, and the whole
+  rollout) are forward only and raise, on every device, when autograd would
+  need a gradient through them.
+- ``decode_kernel='mega'`` always reaches the whole-rollout kernel: it never
+  resolves to the per-token one.
 - The train step's branch that is not ported raises, naming its ROADMAP
   item; the fine-tune branch builds a step.
 """
@@ -136,3 +139,50 @@ def test_unported_train_branches_raise():
         make_train_step(model, TrainConfig(), {}, teacher_forcing=False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #11"):
         make_train_step(model, TrainConfig(), {}, teacher_forcing=False, train_encoder=True)
+
+
+def rollout_args(make, L=1, R=2, P=3, E=8, V=5, steps=2):
+    """``fused_full_rollout``'s tensor arguments, each from ``make(*shape)``."""
+    from tpu_captioner_torch.ops.decode_step import DecodeWeights
+
+    w = DecodeWeights(*(make(L, 1) for _ in DecodeWeights._fields))
+    return (w, make(V, E), make(V, E), make(V), make(steps, E), make(L, R, P, E), make(L, R, P, E))
+
+
+def test_rollout_wrappers_refuse_gradients_and_other_devices():
+    from tpu_captioner_torch.ops.decode_step import DecodeWeights, fused_decode_step, fused_full_rollout
+
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731 — neither cpu nor cuda
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_full_rollout(*rollout_args(meta), 0, 1, 2, 2)
+    w = DecodeWeights(*(meta(1, 1) for _ in DecodeWeights._fields))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_decode_step(w, meta(2, 8), 0, *(meta(1, 2, 4, 8),) * 4, 2, one_cell=True)
+    grad = lambda *s: torch.zeros(*s, requires_grad=True)  # noqa: E731
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_full_rollout(*rollout_args(grad), 0, 1, 2, 2)
+    w = DecodeWeights(*(grad(1, 1) for _ in DecodeWeights._fields))
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_decode_step(w, torch.zeros(2, 8), 0, *(torch.zeros(1, 2, 4, 8),) * 4, 2, one_cell=True)
+
+
+def test_mega_never_resolves_to_step(monkeypatch):
+    from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, ModelConfig
+    from tpu_captioner_torch.train.model import CaptionModel, decode_kernel_mode
+
+    assert {m: decode_kernel_mode(m) for m in DECODE_KERNEL_MODES} == {
+        "auto": "step", "on": "step", "step": "step", "mega": "mega", "off": "off"}
+    with pytest.raises(ValueError):
+        ModelConfig(decode_kernel="onecell")
+    # A vocabulary whose tables the JAX package would not fit in VMEM.
+    model = CaptionModel(
+        ModelConfig(vocab_size=47_000, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
+                    encoder_dim=8, embed_dim=8, num_heads=2, decoder_dim=8, num_layers=1,
+                    decode_kernel="mega"),
+        device="cpu",
+    )
+    called = []
+    for name in ("rollout", "fused_rollout", "mega_rollout"):
+        monkeypatch.setattr(model.decoder, name, lambda *a, _n=name, **k: called.append(_n))
+    model.rollout(torch.zeros(1, 4, 8), 1, 2, 3)
+    assert called == ["mega_rollout"]

@@ -3,9 +3,12 @@
 ``ModelConfig`` keeps the JAX package's fields, defaults and word2vec head
 rule, so a config serialised by one package builds the same model in the
 other.  The TPU switches become kernel selectors: ``use_pallas`` picks the
-fused ConvNeXt MLP kernel and ``decode_kernel`` the fused decode step.
+fused ConvNeXt MLP kernel and ``decode_kernel`` the fused decode kernels.
 ``'auto'`` and ``'on'`` launch the kernel for CUDA tensors and take the plain
 PyTorch version for CPU tensors; ``'off'`` takes the plain version everywhere.
+``decode_kernel`` also takes the JAX package's ``'step'`` (the per-token
+kernel, as ``'on'``) and ``'mega'`` (the whole greedy rollout in one launch);
+``train/model.py:decode_kernel_mode`` resolves it.
 
 ``dropout_masks`` picks how a train step draws its decoder dropout masks:
 ``'auto'`` and ``'pool'`` take one pooled draw per step
@@ -31,6 +34,7 @@ EMBEDDING_PRESETS = {
 
 DECODER_TYPES = ("lstm", "lstm_no_attention", "transformer", "transformer_attvis")
 KERNEL_MODES = ("auto", "on", "off")
+DECODE_KERNEL_MODES = ("auto", "on", "step", "mega", "off")
 DROPOUT_MASK_MODES = ("auto", "pool", "threefry")
 ENCODER_REMAT_MODES = ("auto", "on", "off", "save_mlp_in")
 
@@ -61,7 +65,7 @@ class ModelConfig:
     # Only 'float32' is ported; 'bfloat16' raises in CaptionModel.
     compute_dtype: str = "float32"
     use_pallas: str = "auto"  # fused ConvNeXt MLP kernel: 'auto' | 'on' | 'off'
-    decode_kernel: str = "auto"  # fused decode-step kernel: 'auto' | 'on' | 'off'
+    decode_kernel: str = "auto"  # one of DECODE_KERNEL_MODES
     # What the fine-tune step's trainable stages keep for the backward: one
     # of ENCODER_REMAT_MODES ('auto' resolves in train/model.py).
     encoder_remat: str = "auto"
@@ -70,11 +74,9 @@ class ModelConfig:
     def __post_init__(self):
         if self.decoder not in DECODER_TYPES:
             raise ValueError(f"decoder must be one of {DECODER_TYPES}, got {self.decoder!r}")
-        for name in ("use_pallas", "decode_kernel"):
-            if getattr(self, name) not in KERNEL_MODES:
-                raise ValueError(
-                    f"{name} must be one of {KERNEL_MODES}, got {getattr(self, name)!r}"
-                )
+        for name, modes in (("use_pallas", KERNEL_MODES), ("decode_kernel", DECODE_KERNEL_MODES)):
+            if getattr(self, name) not in modes:
+                raise ValueError(f"{name} must be one of {modes}, got {getattr(self, name)!r}")
         if self.dropout_masks not in DROPOUT_MASK_MODES:
             raise ValueError(
                 f"dropout_masks must be one of {DROPOUT_MASK_MODES}, got {self.dropout_masks!r}"

@@ -1,15 +1,25 @@
-// One layer of the KV-cached Transformer decode step, f32, for Hopper (sm_90a).
+// The KV-cached Transformer decode body, f32, for Hopper (sm_90a): one
+// decoder layer per launch, all L layers per launch, or a whole greedy
+// rollout per launch.
 //
-// Replaces the TPU kernel tpu_captioner/ops/decode_step.py:_kernel (launched
-// by fused_decode_step).  On the TPU one kernel walks the L layers as a
-// sequential grid axis with the hidden state carried in VMEM scratch.  Hopper
-// blocks run in no order, so the layer axis becomes L launches of this kernel
-// on one stream; the hidden state is carried in x_out between launches.
-// Per row and layer the launch computes, with post-norm LayerNorms (eps 1e-5):
-//   1. the packed QKV projection (k_new, v_new are written out for the
-//      caller's cache update);
+// Replaces three TPU kernels of tpu_captioner/ops/decode_step.py:
+// - _kernel (launched by fused_decode_step) -> decode_layer_kernel.  On the
+//   TPU one kernel walks the L layers as a sequential grid axis with the
+//   hidden state carried in VMEM scratch.  Hopper blocks run in no order, so
+//   the layer axis becomes L launches of this kernel on one stream; the
+//   hidden state is carried in x_out between launches;
+// - _kernel_onecell (fused_decode_step(one_cell=True)) ->
+//   decode_onecell_kernel: the same layer body looped over the L layers
+//   inside one launch, with a grid barrier between layers;
+// - _mega_kernel (fused_full_rollout) -> decode_rollout_kernel: that loop
+//   inside a loop over the tokens of a greedy rollout, with an embedding
+//   phase before it and vocab-head, argmax and feedback phases after it.
+//
+// Per row and layer the body computes, with post-norm LayerNorms (eps 1e-5):
+//   1. the packed QKV projection (the new k and v rows are written out: for
+//      the caller's cache update, or into the rollout's own cache);
 //   2. causal self-attention over cache positions < pos plus the new k/v at
-//      pos, merged without writing the cache (the caches are read-only);
+//      pos, merged without reading the cache slot at pos;
 //   3. out-projection, residual, LN1;
 //   4. cross-attention query, attention over the P memory rows, out-
 //      projection, residual, LN2; alpha += mean over heads of the cross
@@ -19,10 +29,11 @@
 // What bounds it on the H100: bytes and latency, not arithmetic.  At batch 8
 // x beam 5 (R = 40 rows) a layer is six matrix-vector-like products that
 // read 8 MB of f32 weights for 2.1 M multiply-adds per row, two small
-// attentions and three LayerNorms, each depending on the one before.
+// attentions and three LayerNorms, each depending on the one before.  A
+// rollout token adds the vocab head, E x V = 19.4 MB of f32 weights at V 9490.
 //
-// What the design does about it: the launch is cooperative and spans every
-// SM; the layer runs as 11 phases separated by grid-wide barriers, and each
+// What the design does about it: each launch is cooperative and spans every
+// SM; a layer runs as 11 phases separated by grid-wide barriers, and each
 // phase spreads its work over all warps of the grid:
 // - a product out = act(in W^T + b) is cut into block tasks of 16 rows x 32
 //   output columns: the block stages its 16 input rows in shared memory,
@@ -38,11 +49,31 @@
 // The product and LayerNorm bodies are not inlined, so the six products and
 // three LayerNorms of a layer share one copy of code in the instruction
 // cache (measured: 112 -> 101 us per layer at R = 40).
-// Intermediates produced inside the launch live in separate scratch buffers,
-// each written in one phase only and read only in later phases: the grid
-// barrier orders the writes before the reads (it invalidates L1), and no SM
-// can hold an older copy of a line it has not read before, so plain cached
-// loads are safe and let the warps of an SM share rows through L1.
+// Intermediates produced inside a launch live in scratch buffers that each
+// phase writes and only later phases read; the grid barrier orders the
+// writes before the reads and makes them visible to every SM.  The
+// multi-layer kernels rewrite the same buffers for every layer and token.
+// The rollout's control words (each row's token and finished flag, which
+// every block branches on) are read past L1 (__ldcg) all the same, so that
+// no block can act on a stale copy and leave the loop alone.
+//
+// The rollout kernel's extra phases, per token s:
+// - embed: x = embedding[tok] + pe[s], tok after the teacher mix
+//   (use_teacher[s] ? teacher[s] : tok), as the TPU kernel stores it.  A row
+//   gather: the TPU kernel's one-hot matmul only stood in for one;
+// - L layer bodies; layer l writes its new k/v rows into the (L, R, T, E)
+//   cache at position s, so no cache update runs outside the kernel;
+// - head: logits = x fc_w^T + fc_b for (R, V) with the product above;
+// - chunk partials, one warp per (row, 256 columns): copies the logits of
+//   rows still running to logits[:, s] and keeps the chunk's max and the
+//   first column that holds it;
+// - argmax and feedback, one warp per row: reduces the partials (on equal
+//   values the smaller column wins, so the result is torch.argmax's first
+//   maximum), writes seqs[:, s] and alphas[:, s] for rows still running,
+//   then tok = running ? pred : tok and fin |= running && pred == end_id.
+// Rows that finished earlier keep the zeros the caller allocated.  Every
+// block checks the finished flags before a token and the launch stops once
+// all rows have finished; it counts the tokens it ran in state[2R].
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -59,13 +90,15 @@ constexpr int kCG = 4;   // output columns per warp in a product task
 constexpr int kKChunk = 512;  // k values whose weights a warp loads at once
 constexpr int kLnPerLane = 32;  // LayerNorm rows up to 32 * 32 = 1024 wide
 constexpr float kLnEps = 1e-5f;
+constexpr int kHeadChunk = 256;  // vocab columns per argmax partial
 
 struct Args {
-  const float* x_in;   // (R, E) layer input
-  float* x_out;        // (R, E) layer output
+  const float* x_in;   // (R, E) input of the first layer of the launch
+  float* x_out;        // (R, E) output of the last layer of the launch
   float* alpha;        // (R, P)
-  float* k_new;        // (L, R, E)
-  float* v_new;        // (L, R, E)
+  float* k_new;        // new k row of (layer l, row r) at k_new + l * kv_ls + r * kv_rs
+  float* v_new;        // likewise
+  size_t kv_ls, kv_rs;
   const float *w_qkv, *b_qkv;  // (L, 3E, E), (L, 3E)
   const float *w_so, *b_so;    // (L, E, E), (L, E)
   const float *w_cq, *b_cq;    // (L, E, E), (L, E)
@@ -77,6 +110,25 @@ struct Args {
   const float *mem_k, *mem_v;      // (L, R, P, E)
   float* scratch;  // 8 (R, E) buffers, (R, 3E), (R, F), (R, H, P)
   int layer, L, R, T, P, E, H, F, pos;
+};
+
+// The rollout's tensors beside the layers'.  In `a`, x_in = x_out = x,
+// cache_k/v and k_new/v_new are both the rollout's own cache, and pos is
+// set per token.
+struct RolloutArgs {
+  Args a;
+  const float* embedding;  // (V, E)
+  const float *fc_w, *fc_b;  // (V, E), (V)
+  const float* pe;           // (steps, E)
+  const int *teacher, *use_teacher;  // (steps, R) each, or both null
+  float* logits;  // (R, steps, V), zeroed by the caller
+  int* seqs;      // (R, steps), zeroed
+  float* alphas;  // (R, steps, P), zeroed
+  float* head;    // (R, V) scratch
+  float* part_v;  // (R, chunks) scratch
+  int* part_i;    // (R, chunks) scratch
+  int* state;     // tok (R), fin (R), tokens run (1)
+  int V, steps, end_id;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -262,10 +314,13 @@ __device__ void warp_attention(const float* q_src, int dh, float scale, int n_po
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
-  cg::grid_group grid = cg::this_grid();
+// One decoder layer l at position pos for all R rows: the 11 phases, with a
+// grid barrier between each two and none after the last.  x_in may equal
+// x_out: x_in is last read three barriers before x_out is written.
+__device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos,
+                             const float* x_in, float* x_out, float* sm) {
   const int E = a.E, E3 = 3 * E, F = a.F, H = a.H, dh = E / H, R = a.R, P = a.P;
-  const int l = a.layer, pos = a.pos, T = a.T;
+  const int T = a.T;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float scale = rsqrtf((float)dh);
   const size_t RE = (size_t)R * E;
@@ -282,14 +337,13 @@ __global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
   float* hid = qkv + 3 * RE;       // (R, F)
   float* pbuf = hid + (size_t)R * F;  // (R, H, P) cross probabilities
 
-  extern __shared__ __align__(16) float sm[];
   const int TP = T > P ? T : P;
   float* xs = sm;                               // (kRT, max(E, F)) staged product rows
   float* sq = xs + kRT * (E > F ? E : F) + warp * (dh + TP);  // this warp's query row
   float* sp = sq + dh;                // and its probabilities
 
   // 1. QKV.
-  grid_linear(a.w_qkv + (size_t)l * E3 * E, a.b_qkv + (size_t)l * E3, a.x_in, qkv, R, E, E3, false, xs);
+  grid_linear(a.w_qkv + (size_t)l * E3 * E, a.b_qkv + (size_t)l * E3, x_in, qkv, R, E, E3, false, xs);
   grid.sync();
 
   // 2. Self-attention over positions 0..pos; pos itself is the new k/v,
@@ -297,9 +351,11 @@ __global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
   for (int task = global_warp(); task < R * H; task += grid_warps()) {
     const int r = task / H, h = task % H;
     const float* row = qkv + (size_t)r * E3;
+    float* kd = a.k_new + l * a.kv_ls + r * a.kv_rs + h * dh;
+    float* vd = a.v_new + l * a.kv_ls + r * a.kv_rs + h * dh;
     for (int d = lane; d < dh; d += 32) {
-      a.k_new[((size_t)l * R + r) * E + h * dh + d] = row[E + h * dh + d];
-      a.v_new[((size_t)l * R + r) * E + h * dh + d] = row[2 * E + h * dh + d];
+      kd[d] = row[E + h * dh + d];
+      vd[d] = row[2 * E + h * dh + d];
     }
     const float* ck = a.cache_k + ((size_t)l * R + r) * T * E + h * dh;
     const float* cv = a.cache_v + ((size_t)l * R + r) * T * E + h * dh;
@@ -316,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
   // 3. Out-projection, residual, LN1.
   grid_linear(a.w_so + (size_t)l * E * E, a.b_so + (size_t)l * E, ctx_s, sa, R, E, E, false, xs);
   grid.sync();
-  grid_add_ln(a.x_in, sa, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, R, E);
+  grid_add_ln(x_in, sa, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, R, E);
   grid.sync();
 
   // 4. Cross-attention against the memory K/V.
@@ -350,24 +406,192 @@ __global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
   grid.sync();
   grid_linear(a.w_f2 + (size_t)l * E * F, a.b_f2 + (size_t)l * E, hid, ff, R, F, E, false, xs);
   grid.sync();
-  grid_add_ln(x2, ff, a.ln3_w + (size_t)l * E, a.ln3_b + (size_t)l * E, a.x_out, R, E);
+  grid_add_ln(x2, ff, a.ln3_w + (size_t)l * E, a.ln3_b + (size_t)l * E, x_out, R, E);
 }
 
-int grid_size(size_t smem) {
+__global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float sm[];
+  decode_layer(a, grid, a.layer, a.pos, a.x_in, a.x_out, sm);
+}
+
+__global__ void __launch_bounds__(kThreads) decode_onecell_kernel(const Args a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float sm[];
+  for (int l = 0; l < a.L; ++l) {
+    if (l > 0) grid.sync();  // layer l - 1's x_out and alpha are complete
+    decode_layer(a, grid, l, a.pos, l == 0 ? a.x_in : a.x_out, a.x_out, sm);
+  }
+}
+
+// The input token of row r at step s: the teacher's where the mix says so.
+// Clamped into [0, V) so that no id can read outside the embedding.
+__device__ __forceinline__ int input_token(const RolloutArgs& ra, int s, int r, int tok) {
+  const int R = ra.a.R;
+  if (ra.use_teacher && ra.use_teacher[(size_t)s * R + r]) tok = ra.teacher[(size_t)s * R + r];
+  return min(max(tok, 0), ra.V - 1);
+}
+
+// Keep (v, i) if it beats (best, arg): a larger value, or an equal value at
+// a smaller column.
+__device__ __forceinline__ void argmax_merge(float& best, int& arg, float v, int i) {
+  if (v > best || (v == best && i < arg)) {
+    best = v;
+    arg = i;
+  }
+}
+
+__device__ __forceinline__ void warp_argmax(float& best, int& arg) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v = __shfl_xor_sync(0xffffffffu, best, o);
+    const int i = __shfl_xor_sync(0xffffffffu, arg, o);
+    argmax_merge(best, arg, v, i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) decode_rollout_kernel(const RolloutArgs ra) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int all_done;
+  Args a = ra.a;
+  const int R = a.R, E = a.E, P = a.P, V = ra.V, S = ra.steps;
+  const int lane = threadIdx.x & 31;
+  const int chunks = (V + kHeadChunk - 1) / kHeadChunk;
+  int* tok = ra.state;
+  int* fin = ra.state + R;
+  float* x = a.x_out;
+  float* cache_k = a.k_new;  // the same buffers as a.cache_k/v
+  float* cache_v = a.v_new;
+
+  for (int s = 0; s < S; ++s) {
+    // Every block reads the same flags, written before the last barrier, so
+    // all blocks leave the loop together.
+    if (threadIdx.x == 0) {
+      int done = 1;
+      for (int r = 0; r < R; ++r) done &= __ldcg(fin + r) != 0;
+      all_done = done;
+    }
+    __syncthreads();
+    if (all_done) break;
+
+    // Embed.
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < R * E; i += gridDim.x * kThreads) {
+      const int r = i / E, e = i % E;
+      x[i] = ra.embedding[(size_t)input_token(ra, s, r, __ldcg(tok + r)) * E + e] +
+             ra.pe[(size_t)s * E + e];
+    }
+    grid.sync();
+
+    // The L layers; layer l's new k/v rows go to the cache at position s.
+    a.k_new = cache_k + (size_t)s * E;
+    a.v_new = cache_v + (size_t)s * E;
+    for (int l = 0; l < a.L; ++l) {
+      decode_layer(a, grid, l, s, x, x, sm);
+      grid.sync();
+    }
+
+    // Head.
+    grid_linear(ra.fc_w, ra.fc_b, x, ra.head, R, E, V, false, sm);
+    grid.sync();
+
+    // Chunk partials; rows that finished earlier keep zero logits.
+    for (int task = global_warp(); task < R * chunks; task += grid_warps()) {
+      const int r = task / chunks, c0 = (task % chunks) * kHeadChunk;
+      if (__ldcg(fin + r)) continue;
+      const int c1 = min(V, c0 + kHeadChunk);
+      float best = -INFINITY;
+      int arg = V;
+      for (int c = c0 + lane; c < c1; c += 32) {  // ascending columns: strict > keeps the first
+        const float y = ra.head[(size_t)r * V + c];
+        ra.logits[((size_t)r * S + s) * V + c] = y;
+        if (y > best) {
+          best = y;
+          arg = c;
+        }
+      }
+      warp_argmax(best, arg);
+      if (lane == 0) {
+        ra.part_v[task] = best;
+        ra.part_i[task] = arg;
+      }
+    }
+    grid.sync();
+
+    // Argmax and feedback.
+    for (int r = global_warp(); r < R; r += grid_warps()) {
+      if (__ldcg(fin + r)) {  // frozen: keep the post-mix input token
+        if (lane == 0) tok[r] = input_token(ra, s, r, __ldcg(tok + r));
+        continue;
+      }
+      float best = -INFINITY;
+      int arg = V;
+      for (int c = lane; c < chunks; c += 32)
+        argmax_merge(best, arg, ra.part_v[(size_t)r * chunks + c], ra.part_i[(size_t)r * chunks + c]);
+      warp_argmax(best, arg);  // all lanes have read fin[r] before lane 0 writes it
+      for (int p = lane; p < P; p += 32) ra.alphas[((size_t)r * S + s) * P + p] = a.alpha[(size_t)r * P + p];
+      if (lane == 0) {
+        ra.seqs[(size_t)r * S + s] = arg;
+        tok[r] = arg;
+        fin[r] = arg == ra.end_id;
+      }
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) ra.state[2 * R] = s + 1;
+    grid.sync();
+  }
+}
+
+int grid_size(const void* kernel, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_layer_kernel, kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   return sms * (per_sm < 1 ? 1 : per_sm);  // all co-resident, as a cooperative launch needs
 }
+
+// Dynamic shared memory of a launch: the staged product rows and each
+// warp's query row and probabilities.
+size_t smem_bytes(int T, int P, int E, int H, int F) {
+  const int TP = T > P ? T : P;
+  return sizeof(float) * ((size_t)kRT * (E > F ? E : F) + (size_t)kWarps * (E / H + TP));
+}
+
+bool shapes_ok(int T, int E, int H, int F, int pos) {
+  return E % H == 0 && (E / H) % 4 == 0 && E % 4 == 0 && F % 4 == 0 && E <= 32 * kLnPerLane &&
+         pos >= 0 && pos < T;
+}
+
+// A cooperative launch of `kernel` over every co-resident block; `arg`
+// points to its one argument struct.
+int launch(const void* kernel, void* arg, size_t smem, void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {arg};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid_size(kernel, smem)), dim3(kThreads), params,
+                                    smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+long long round4(long long n) { return (n + 3) / 4 * 4; }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the caller allocates for one launch.
+// Floats of scratch the caller allocates for one layer or one-cell launch.
 long long tc_decode_scratch_floats(int R, int E, int H, int F, int P) {
   return (long long)R * (11LL * E + F + (long long)H * P);
+}
+
+// Floats of scratch for one rollout launch: the layer scratch, then x (R,
+// E), alpha (R, P), the head's logits (R, V) and the argmax partials, each
+// 16-byte aligned.
+long long tc_rollout_scratch_floats(int R, int E, int H, int F, int P, int V) {
+  const long long chunks = (V + kHeadChunk - 1) / kHeadChunk;
+  return round4(tc_decode_scratch_floats(R, E, H, F, P)) + round4((long long)R * E) +
+         round4((long long)R * P) + round4((long long)R * V) + 2 * round4((long long)R * chunks);
 }
 
 // One decoder layer for all R rows; the caller launches layers 0..L-1 in
@@ -381,24 +605,61 @@ int tc_decode_layer_forward(
     const float* ln3_w, const float* ln3_b, const float* cache_k, const float* cache_v,
     const float* mem_k, const float* mem_v, float* scratch, int layer, int L, int R, int T,
     int P, int E, int H, int F, int pos, void* stream) {
-  if (E % H != 0 || (E / H) % 4 != 0 || E % 4 != 0 || F % 4 != 0 || E > 32 * kLnPerLane ||
-      pos < 0 || pos >= T)
-    return (int)cudaErrorInvalidValue;
-  Args a{x_in, x_out, alpha, k_new, v_new, w_qkv, b_qkv, w_so, b_so, w_cq, b_cq,
-         w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
+  if (!shapes_ok(T, E, H, F, pos)) return (int)cudaErrorInvalidValue;
+  Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
+         w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, layer, L, R, T, P, E, H, F, pos};
-  const int TP = T > P ? T : P;
-  const size_t smem =
-      sizeof(float) * ((size_t)kRT * (E > F ? E : F) + (size_t)kWarps * (E / H + TP));
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(
-      (void*)decode_layer_kernel, dim3(grid_size(smem)), dim3(kThreads), params, smem,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch((const void*)decode_layer_kernel, &a, smem_bytes(T, P, E, H, F), stream);
+}
+
+// All L decoder layers for all R rows in one launch; the same arguments as
+// tc_decode_layer_forward without the layer index.
+int tc_decode_onecell_forward(
+    const float* x_in, float* x_out, float* alpha, float* k_new, float* v_new,
+    const float* w_qkv, const float* b_qkv, const float* w_so, const float* b_so,
+    const float* w_cq, const float* b_cq, const float* w_co, const float* b_co,
+    const float* w_f1, const float* b_f1, const float* w_f2, const float* b_f2,
+    const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
+    const float* ln3_w, const float* ln3_b, const float* cache_k, const float* cache_v,
+    const float* mem_k, const float* mem_v, float* scratch, int L, int R, int T, int P, int E,
+    int H, int F, int pos, void* stream) {
+  if (!shapes_ok(T, E, H, F, pos)) return (int)cudaErrorInvalidValue;
+  Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
+         w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
+         ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, T, P, E, H, F, pos};
+  return launch((const void*)decode_onecell_kernel, &a, smem_bytes(T, P, E, H, F), stream);
+}
+
+// A whole greedy rollout of `steps` tokens for R rows.  cache_k/v are
+// (L, R, steps, E) scratch, state is tok (R) set to the start id, fin (R)
+// zero and one int for the tokens run; logits, seqs and alphas are zeroed.
+// teacher and use_teacher are (steps, R) or both null.
+int tc_decode_rollout(
+    const float* embedding, const float* fc_w, const float* fc_b, const float* pe,
+    const int* teacher, const int* use_teacher, float* logits, int* seqs, float* alphas,
+    const float* w_qkv, const float* b_qkv, const float* w_so, const float* b_so,
+    const float* w_cq, const float* b_cq, const float* w_co, const float* b_co,
+    const float* w_f1, const float* b_f1, const float* w_f2, const float* b_f2,
+    const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
+    const float* ln3_w, const float* ln3_b, const float* mem_k, const float* mem_v,
+    float* cache_k, float* cache_v, int* state, float* scratch, int L, int R, int P, int E,
+    int H, int F, int V, int steps, int end_id, void* stream) {
+  if (!shapes_ok(steps, E, H, F, 0) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (V + kHeadChunk - 1) / kHeadChunk;
+  float* x = scratch + round4(tc_decode_scratch_floats(R, E, H, F, P));
+  float* alpha = x + round4((long long)R * E);
+  float* head = alpha + round4((long long)R * P);
+  float* part_v = head + round4((long long)R * V);
+  int* part_i = reinterpret_cast<int*>(part_v + round4((long long)R * chunks));
+  const size_t T = steps;
+  RolloutArgs ra{
+      Args{x, x, alpha, cache_k, cache_v, (size_t)R * T * E, T * E, w_qkv, b_qkv, w_so, b_so,
+           w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
+           ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0},
+      embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, head, part_v,
+      part_i, state, V, steps, end_id};
+  return launch((const void*)decode_rollout_kernel, &ra, smem_bytes(steps, P, E, H, F), stream);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

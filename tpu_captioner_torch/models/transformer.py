@@ -19,7 +19,19 @@ attention, without a Pallas kernel).  Its dropout sites, in the JAX order:
 the embedding (before +PE); then, per layer, the self-attention
 probabilities, the self-attention output, the cross-attention
 probabilities, the cross-attention output, the FFN hidden layer and the FFN
-output.  The rollouts are not ported yet.
+output.
+
+The greedy rollouts of eval come in three forms, as in the JAX package:
+``rollout`` over the plain ``decode_step``, ``fused_rollout`` over
+``ops/decode_step.py:fused_decode_step`` (one kernel launch per layer per
+token, or one per token with ``one_cell``), and ``mega_rollout``, the whole
+rollout as one ``fused_full_rollout`` launch.  All three stop once every row
+has emitted ``<end>`` when no teacher tokens are mixed in, and return
+(logits (B, T, V), sequences (B, T) int32, attention maps (B, T, P) or None),
+with the steps of rows that finished earlier zeroed.  Scheduled sampling
+draws its per-step masks with ``teacher_masks`` from a ``torch.Generator``;
+the JAX package's threefry draws cannot be reproduced, only their
+distribution.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_captioner_torch.core.config import ModelConfig
+from tpu_captioner_torch.core.loops import scan_early_exit
 from tpu_captioner_torch.models import torch_init
 from tpu_captioner_torch.models.layers import (
     attention_core,
@@ -43,6 +56,15 @@ from tpu_captioner_torch.models.layers import (
     pool_layer_scope,
     split_heads,
 )
+from tpu_captioner_torch.ops import decode_step as decode_ops
+
+
+def teacher_masks(
+    generator: torch.Generator, steps: int, batch: int, prob: float, device
+) -> torch.Tensor:
+    """(steps, batch) bool: where scheduled sampling feeds the ground-truth
+    token instead of the model's last prediction, each with ``prob``."""
+    return (torch.rand(steps, batch, generator=generator) < prob).to(device)
 
 
 def sinusoidal_pe(max_len: int, dim: int) -> torch.Tensor:
@@ -257,3 +279,143 @@ class TransformerDecoder(nn.Module):
             alphas.append(probs2.mean(dim=1))
         logits = self.fc_out(x)
         return logits, cache, torch.stack(alphas).mean(dim=0)
+
+    # -- greedy rollouts ----------------------------------------------------
+    def _teacher(self, teacher_tokens, teacher_prob, generator, steps, batch, device):
+        """(teacher (steps, B) ids, use (steps, B) bool), or (None, None)
+        when no teacher tokens are mixed in (as the JAX package, which needs
+        its rng for them)."""
+        if teacher_tokens is None or teacher_prob <= 0.0 or generator is None:
+            return None, None
+        use = teacher_masks(generator, steps, batch, teacher_prob, device)
+        return teacher_tokens[:, :steps].to(device).long().T, use
+
+    def _greedy_loop(self, step_fn, tok0, end_id, steps, teacher, use, early_exit):
+        """The rollout body shared by ``rollout`` and ``fused_rollout``:
+        ``step_fn(tok, t) -> (logits (B, V), alpha (B, P))`` for the input
+        token at step t; greedy feedback and finished-row masking around it."""
+        fin0 = torch.zeros_like(tok0, dtype=torch.bool)
+
+        def body(carry, t):
+            tok, finished = carry
+            if teacher is not None:
+                tok = torch.where(use[t], teacher[t], tok)
+            logits_t, alpha = step_fn(tok, t)
+            pred = logits_t.argmax(dim=-1)
+            act = ~finished
+            out = (
+                torch.where(act[:, None], logits_t, 0.0),
+                torch.where(act, pred, 0).to(torch.int32),
+                torch.where(act[:, None], alpha, 0.0),
+            )
+            return (torch.where(act, pred, tok), finished | (act & (pred == end_id))), out
+
+        done = (lambda c: c[1].all()) if early_exit else (lambda c: False)
+        _, (logits, seqs, alphas) = scan_early_exit(body, (tok0, fin0), range(steps), done)
+        return logits.transpose(0, 1), seqs.transpose(0, 1), alphas.transpose(0, 1)
+
+    def rollout(
+        self,
+        encoder_out: torch.Tensor,
+        start_id: int,
+        end_id: int,
+        max_decode_len: int,
+        *,
+        generator: Optional[torch.Generator] = None,
+        teacher_tokens: Optional[torch.Tensor] = None,
+        teacher_prob: float = 0.0,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """Greedy KV-cached generation over the plain ``decode_step``
+        (transformerDecoder.py:110-160).  ``teacher_tokens`` (B, >= T) with
+        ``teacher_prob`` and a ``generator`` mix ground-truth input tokens in
+        (scheduled sampling); without teacher tokens the loop stops once every
+        row has emitted ``end_id``."""
+        memory = self.precompute_memory(encoder_out)
+        B = memory.mem.shape[0]
+        dev = memory.mem.device
+        cache = self.init_cache(B, max_decode_len + 1)
+        teacher, use = self._teacher(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
+
+        def step_fn(tok, t):
+            logits_t, _, alpha = self.decode_step(tok, t, cache, memory)
+            return logits_t, alpha
+
+        tok0 = torch.full((B,), start_id, dtype=torch.long, device=dev)
+        logits, seqs, alphas = self._greedy_loop(
+            step_fn, tok0, end_id, max_decode_len, teacher, use, teacher_tokens is None
+        )
+        return logits, seqs, alphas if self.capture_alphas else None
+
+    def fused_rollout(
+        self,
+        encoder_out: torch.Tensor,
+        start_id: int,
+        end_id: int,
+        max_decode_len: int,
+        *,
+        generator: Optional[torch.Generator] = None,
+        teacher_tokens: Optional[torch.Tensor] = None,
+        teacher_prob: float = 0.0,
+        one_cell: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """``rollout`` with the decode body of each token in
+        ``fused_decode_step`` (L kernel launches per token, or one with
+        ``one_cell``), the cache rows persisted by ``apply_cache_update``,
+        then the vocab head and argmax in PyTorch."""
+        c = self.cfg
+        E = c.embed_dim
+        mem = self.project_memory(encoder_out)
+        B = mem.shape[0]
+        dev = mem.device
+        w = decode_ops.prepare_decode_weights(self.layers, E)
+        mem_k, mem_v = decode_ops.prepare_cross_memory(self.layers, mem, E)
+        ck = torch.zeros(c.num_layers, B, max_decode_len + 1, E, device=dev)
+        cv = torch.zeros_like(ck)
+        teacher, use = self._teacher(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
+
+        def step_fn(tok, t):
+            x = self.embed(tok, t)
+            x_out, alpha, k_new, v_new = decode_ops.fused_decode_step(
+                w, x.contiguous(), t, ck, cv, mem_k, mem_v, c.num_heads, one_cell=one_cell
+            )
+            decode_ops.apply_cache_update(ck, cv, k_new, v_new, t)
+            return self.fc_out(x_out), alpha
+
+        tok0 = torch.full((B,), start_id, dtype=torch.long, device=dev)
+        logits, seqs, alphas = self._greedy_loop(
+            step_fn, tok0, end_id, max_decode_len, teacher, use, teacher_tokens is None
+        )
+        return logits, seqs, alphas if self.capture_alphas else None
+
+    def mega_rollout(
+        self,
+        encoder_out: torch.Tensor,
+        start_id: int,
+        end_id: int,
+        max_decode_len: int,
+        *,
+        generator: Optional[torch.Generator] = None,
+        teacher_tokens: Optional[torch.Tensor] = None,
+        teacher_prob: float = 0.0,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """``rollout`` as one ``fused_full_rollout`` call: the embedding
+        lookup, every decode step, the vocab head, the argmax and the token
+        feedback in one kernel launch for CUDA tensors."""
+        c = self.cfg
+        E = c.embed_dim
+        mem = self.project_memory(encoder_out)
+        B = mem.shape[0]
+        w = decode_ops.prepare_decode_weights(self.layers, E)
+        mem_k, mem_v = decode_ops.prepare_cross_memory(self.layers, mem, E)
+        emb = self.embedding.weight
+        if c.embedding_path is not None:
+            # padding_idx semantics (transformerDecoder.py:74): the kernel
+            # gathers table rows verbatim, so pin the pad row here.
+            emb = emb.clone()
+            emb[0] = 0.0
+        teacher, use = self._teacher(teacher_tokens, teacher_prob, generator, max_decode_len, B, mem.device)
+        logits, seqs, alphas = decode_ops.fused_full_rollout(
+            w, emb.contiguous(), self.fc_out.weight, self.fc_out.bias, self.pe, mem_k, mem_v,
+            start_id, end_id, max_decode_len, c.num_heads, teacher=teacher, use_teacher=use,
+        )
+        return logits, seqs, alphas if self.capture_alphas else None

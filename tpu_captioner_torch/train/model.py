@@ -1,11 +1,11 @@
 """CaptionModel: encoder + Transformer decoder behind one interface
 (counterpart of ``tpu_captioner/train/model.py``).
 
-Covers what serving and the two teacher-forced train steps need: ``encode``
-(uint8 NHWC images -> (B, 7, 7, C), with stochastic depth in training,
-without autograd), ``encode_fine_tune`` (the same with autograd from a
-starting child on), ``tf_forward``, the decoder choice for the two
-Transformer families, and the kernel/plain selection.
+Covers what serving, the two teacher-forced train steps and the greedy eval
+step need: ``encode`` (uint8 NHWC images -> (B, 7, 7, C), with stochastic
+depth in training, without autograd), ``encode_fine_tune`` (the same with
+autograd from a starting child on), ``tf_forward``, ``rollout``, the decoder
+choice for the two Transformer families, and the kernel/plain selection.
 
 The fine-tune policies of the JAX package (``finetune_use_pallas``,
 ``finetune_encoder_remat``, tpu_captioner/train/model.py:30-62) were chosen
@@ -29,6 +29,25 @@ from tpu_captioner_torch.models.encoder import Encoder, preprocess_images
 from tpu_captioner_torch.models.transformer import TransformerDecoder
 
 SERVED_DECODERS = ("transformer", "transformer_attvis")
+
+
+def decode_kernel_mode(mode: str) -> str:
+    """The decode path a ``decode_kernel`` setting selects (counterpart of
+    ``CaptionModel._decode_kernel_mode``, tpu_captioner/train/model.py:251):
+    ``'off'`` the plain PyTorch decode, ``'step'`` the per-token kernel
+    (``'on'`` and ``'step'``), ``'mega'`` the whole-rollout kernel.
+    ``'auto'`` is ``'step'``, the JAX package's choice on its chip; the
+    wrappers run their plain versions for CPU tensors.  ``'mega'`` stays
+    ``'mega'`` at every size: the JAX package falls back to ``'step'`` when
+    its weights and vocab tables outgrow the TPU's VMEM, and the Hopper
+    kernel streams them from device memory, so it has no such limit."""
+    if mode == "off":
+        return "off"
+    if mode == "mega":
+        return "mega"
+    if mode in ("auto", "on", "step"):
+        return "step"
+    raise ValueError(f"unknown decode_kernel {mode!r}")
 
 
 def finetune_encoder_remat(remat: str, compute_dtype: str = "float32") -> str:
@@ -84,7 +103,7 @@ class CaptionModel(nn.Module):
     def use_decode_kernel(self) -> bool:
         """Beam search takes the fused decode step unless it is switched off
         (the wrapper itself runs the plain version for CPU tensors)."""
-        return self.cfg.decode_kernel != "off"
+        return decode_kernel_mode(self.cfg.decode_kernel) != "off"
 
     @torch.no_grad()
     def encode(
@@ -130,3 +149,26 @@ class CaptionModel(nn.Module):
             encoder_out, captions, captions == 0, train, generator
         )
         return logits[:, :-1], alphas[:, :-1] if alphas is not None else None
+
+    def rollout(
+        self, encoder_out: torch.Tensor, start_id: int, end_id: int, max_decode_len: int, *,
+        generator: Optional[torch.Generator] = None, teacher_tokens: Optional[torch.Tensor] = None,
+        teacher_prob: float = 0.0, one_cell: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """Greedy free-running decode -> (logits (B, T, V), sequences (B, T)
+        int32, attention maps (B, T, P) for ``transformer_attvis``, else
+        None), through the rollout ``decode_kernel_mode`` selects.
+        ``one_cell`` runs each token's layers in one kernel launch in the
+        ``'step'`` mode (the JAX package's ``TPU_CAPTIONER_DECODE_ONECELL``).
+        ``teacher_tokens``/``teacher_prob`` with a ``generator`` enable
+        scheduled sampling.  The kernel rollouts are forward only;
+        free-running training is not ported yet (ROADMAP.md Queue 1 #11)."""
+        dec = self.decoder
+        args = (encoder_out, start_id, end_id, max_decode_len)
+        kw = dict(generator=generator, teacher_tokens=teacher_tokens, teacher_prob=teacher_prob)
+        mode = decode_kernel_mode(self.cfg.decode_kernel)
+        if mode == "mega":
+            return dec.mega_rollout(*args, **kw)
+        if mode == "step":
+            return dec.fused_rollout(*args, one_cell=one_cell, **kw)
+        return dec.rollout(*args, **kw)

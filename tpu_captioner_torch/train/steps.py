@@ -1,9 +1,10 @@
-"""Train step (counterpart of ``tpu_captioner/train/steps.py``).
+"""Train and eval steps (counterpart of ``tpu_captioner/train/steps.py``).
 
 Ported: the teacher-forced step, with the encoder frozen, which the reference
 trains for its first ``fine_tune_epoch`` epochs (train.py:240-291), and
 fine-tuned from ``starting_layer`` on (``train_encoder=True``), which it
-trains after them:
+trains after them; and the greedy eval step (``make_eval_step``) behind every
+validation loss, top-5 and BLEU number (train.py:367-441).  The train step:
 - the loss is the cross-entropy over the tokens at ``t < caplen - 1`` of
   valid rows, divided by their count (``nn.CrossEntropyLoss`` over
   ``pack_padded_sequence`` tokens, train.py:266-276);
@@ -20,7 +21,11 @@ trains after them:
   is counted from the shapes (``pool_demand``), and the step checks that the
   forward consumed exactly that many bits.
 
-Not ported yet: free-running training (``rollout_loss``, ROADMAP.md Queue 1
+The eval step runs ``rollout_loss`` without dropout or stochastic depth: the
+encoder, the greedy rollout of ``cfg.max_decode_len`` steps that
+``ModelConfig.decode_kernel`` selects, and the cross-entropy and top-5 over
+``rollout_token_mask``'s tokens.  Not ported yet: free-running training
+(``rollout_loss`` with gradients and scheduled sampling, ROADMAP.md Queue 1
 #11).
 """
 
@@ -32,7 +37,7 @@ import torch
 
 from tpu_captioner_torch.core import prng
 from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
-from tpu_captioner_torch.eval.metrics import masked_cross_entropy, topk_correct
+from tpu_captioner_torch.eval.metrics import masked_cross_entropy, rollout_token_mask, topk_correct
 from tpu_captioner_torch.models.encoder import fine_tune_mask
 from tpu_captioner_torch.models.layers import MaskPool, mask_pool_scope
 from tpu_captioner_torch.ops import dropout_mask
@@ -113,6 +118,33 @@ def tf_loss(
     return loss, {"loss": loss.detach(), "tokens": tokens, "top5_correct": top5}
 
 
+def rollout_loss(
+    model,
+    batch: Dict[str, torch.Tensor],
+    word_ids: Dict[str, int],
+    max_decode_len: int,
+    *,
+    one_cell: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Deterministic free-running loss of ``batch`` (``images``, ``captions``
+    (B, >= max_decode_len + 1), ``valid``): the greedy rollout from
+    ``<start>``, scored against ``captions[:, 1:]`` over
+    ``rollout_token_mask``'s tokens.  Returns (loss, {loss, tokens,
+    top5_correct, sequences, lengths}).  The JAX package's doubly stochastic
+    term applies to the LSTM family only, which is not ported."""
+    dev = model.device
+    caps = batch["captions"].to(dev).long()
+    valid = batch["valid"].to(dev).bool()
+    end = word_ids["<end>"]
+    enc_out = model.encode(batch["images"])
+    logits, seqs, _ = model.rollout(enc_out, word_ids["<start>"], end, max_decode_len, one_cell=one_cell)
+    mask, targets, lengths = rollout_token_mask(seqs, caps, end, word_ids["<pad>"], max_decode_len, valid)
+    ce_sum, tokens = masked_cross_entropy(logits, targets, mask)
+    loss = ce_sum / tokens.clamp_min(1.0)
+    top5 = topk_correct(logits, targets, 5, mask)
+    return loss, {"loss": loss, "tokens": tokens, "top5_correct": top5, "sequences": seqs, "lengths": lengths}
+
+
 def make_train_step(
     model,
     cfg: TrainConfig,
@@ -158,5 +190,24 @@ def make_train_step(
         state.dec_opt.step()
         state.step += 1
         return state, metrics
+
+    return step
+
+
+def make_eval_step(
+    model, cfg: TrainConfig, word_ids: Dict[str, int], *, one_cell: bool = False
+) -> Callable:
+    """Returns ``step(batch) -> metrics``, the deterministic free-running
+    eval of validation and test (train.py:367-441): ``loss``, ``tokens``,
+    ``top5_correct``, ``sequences`` (B, ``cfg.max_decode_len``) int32 and
+    ``lengths`` (B,).  It runs under ``torch.inference_mode``, so it holds no
+    autograd state whatever ``requires_grad`` a train step has set.
+    ``one_cell`` runs each token's layers in one kernel launch when the model
+    decodes with the per-token kernel."""
+
+    @torch.inference_mode()
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        _, aux = rollout_loss(model, batch, word_ids, cfg.max_decode_len, one_cell=one_cell)
+        return aux
 
     return step
