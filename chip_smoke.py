@@ -6,9 +6,9 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from the four sources in
+2. build the CUDA kernels from the five sources in
    ``tpu_captioner_torch/csrc`` (one nvcc per source, all started together;
-   ``decode_step.cu`` holds three kernels);
+   ``decode_step.cu`` holds three kernels, ``dwconv.cu`` two);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with CUDA-event times of both and the least time the card could
    take (``bound_ms``): the fused ConvNeXt MLP tail at the four
@@ -20,15 +20,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    step's 29,366,272 bits for three seeds, whose bits must be identical,
    beside ``Tensor.bernoulli_`` as the library yardstick; the MLP-tail
    backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048 at
-   C = 1024, batch 32, stochastic-depth rows) and at a ragged N = 600;
+   C = 1024, batch 32, stochastic-depth rows) and at a ragged N = 600; the
+   depthwise conv's forward kernel at the four stage shapes at batch 8 and
+   32, its input gradient (the flipped filter) and its filter-gradient
+   kernels at the fine-tune step's trained stages, beside
+   ``F.conv2d(groups=C)`` and ``aten.convolution_backward`` as the library
+   yardsticks; then the three decode kernels at the reference's
+   pretrained-embedding widths, GloVe-200 (E=200, H=8) and word2vec-300
+   (E=300, H=6), whose head widths 25 and 50 take the scalar key loads;
 4. the serving path at full width: ConvNeXt-Base + 6-layer E=512
    Transformer, vocab 9490, random weights from a seed, saved as a reference
    ``.pth.tar`` and loaded back through the CLI's loader; beam 5, 50 steps
    over 8 seeded 256x256 images with the kernels, checking that every kernel
    launched (36 MLP launches per encoder pass, L decode launches per token),
    then the same batch through the plain versions on the card, which must
-   give the same captions; then encoder ms, beam ms and captions/s at batch 8
-   and 32;
+   give the same captions; the same at E=300, H=6 (word2vec-300's width,
+   random weights); then encoder ms, beam ms and captions/s at batch 8 and
+   32;
 5. the frozen-encoder teacher-forced train step at full width, batch 32,
    through ``make_train_step``: two steps from one state and one seed with
    the pool kernel (1 dropout_mask and 36 mlp_block launches per step), then
@@ -36,13 +44,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    a finite loss, an unchanged encoder; then ms per step, images/s and peak
    memory;
 6. the fine-tune train step (``train_encoder=True``, ``starting_layer`` 5)
-   at full width, batch 32: two steps from one state and one seed with the
-   kernels (1 dropout_mask, 36 mlp_block and 30 mlp_block_bwd launches per
-   step), then the same two steps on a ``use_pallas='off'`` copy on the
-   card, which must agree; children 0-4 unchanged and every trainable child
-   changed; then ms per step, images/s and peak memory with remat 'off' and
-   'on', the plain copy's ms per step, and a profiler window's kernel time
-   by group;
+   at full width, batch 32, with every kernel, both depthwise-conv kernels
+   among them (they follow ``use_pallas``, as the MLP tail does): two
+   steps from one state and one seed with the kernels (1 dropout_mask, 36
+   mlp_block, 30 mlp_block_bwd, 65 dwconv and 30 dwconv_grad launches per
+   step), then the same two steps on a copy with every kernel off
+   (``use_pallas`` 'off') on the card, which must agree; children 0-4
+   unchanged and every trainable child changed; then ms per step, images/s and peak memory with remat 'off' and
+   'on', the plain copy's ms per step, a profiler window's kernel time by
+   group, and the paired A/B that decides whether the depthwise-conv
+   kernels follow ``use_pallas``: fine-tune steps with each kernel against
+   the library in turns, and encoder passes for the forward kernel;
 7. the greedy eval step (``make_eval_step``) at full width, batch 32, 51
    steps, with phase 4's weights, in four decode modes: 'off' (plain),
    'step', 'step' with one_cell, and 'mega'.  Each mode's launches are
@@ -53,7 +65,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    with the natural <end>, then with an end id the first run's rows emit,
    so that rows finish and every loop stops early; then encoder, rollout
    and eval-step ms per mode, and the rollout kernel against its plain
-   version with CUDA-event times and its bound.
+   version with CUDA-event times and its bound; then one eval step at
+   E=200, H=8 (GloVe-200's width) in 'step' and 'mega' against 'off'.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths, max error, times and
@@ -66,6 +79,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -80,6 +94,16 @@ MLP_TOL = 1e-4  # order-one outputs of 4C-long f32 sums in another order; erff v
 MLP_BWD_TOL = 1e-4
 FT_START = 5  # the fine-tune step's starting_layer (TrainConfig's default)
 DECODE_TOL = {"x": 1e-4, "alpha": 1e-5, "k_new": 1e-4, "v_new": 1e-4}
+# The depthwise conv against its plain versions, relative to max(1, the plain
+# output's largest magnitude): 49 f32 products per output (forward and input
+# gradient); sums over every B x H x W pixel (filter gradient).
+DW_TOL, DW_GRAD_TOL = 1e-5, 1e-4
+WIDTHS = ((200, 8), (300, 6))  # (E, H) of GloVe-200 and word2vec-300
+# The depthwise-conv kernels' paired A/B: pairs, and the calls of each arm in
+# a pair, of which the fastest counts (a busy host only adds time).
+AB_PAIRS, AB_REPS = 12, 3
+# Every kernel switch off: the plain copies that the kernel paths are held against.
+ALL_OFF = dict(use_pallas="off", decode_kernel="off")
 SCORE_TOL = 1e-3  # beam scores, kernel path vs plain path
 TIE_GAP = 1e-4  # a differing caption is accepted only at a near-tie of this size
 VOCAB = 9490  # COCO vocab size (bench.py:92)
@@ -248,6 +272,148 @@ def check_mlp_bwd(dev, card):
     return worst_abs, ms, plain_ms, bound_ms, bound_by
 
 
+def _rel_err(got, want):
+    """(max abs error, max abs error / max(1, max |want|))."""
+    err = (got - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def check_dwconv(dev, card):
+    """The depthwise conv's kernels against their plain versions at the
+    ConvNeXt-Base stage shapes: the forward at batch 8 and 32; at the
+    fine-tune step's trained stages (C = 512 and 1024, batch 32) the input
+    gradient (the flipped filter) and the filter gradient, which must also
+    repeat bit for bit.  CUDA-event times of each kernel, its plain version
+    and the one PyTorch call computing the same function: ``F.conv2d(groups=
+    C)`` for the forward and input gradient, ``aten.convolution_backward``
+    with only the weight gradient for the filter gradient.  Returns, per
+    kernel, one fine-tune step's launches summed (36 forwards and 29 input
+    gradients; 30 filter gradients): (worst abs error, kernel ms, plain ms,
+    library ms, bound ms, bound by)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS
+    from tpu_captioner_torch.ops.dwconv import _dw_grad_plain, _dw_plain, dwconv_filter_grad, dwconv_forward
+
+    # Launches per fine-tune step at starting_layer 5: the input gradient of
+    # every trained block but child 5's first (its input is the frozen child
+    # 4's output), the filter gradient of every trained block.
+    d_x = {2: BASE_DEPTHS[2] - 1, 3: BASE_DEPTHS[3]}
+    d_w = {2: BASE_DEPTHS[2], 3: BASE_DEPTHS[3]}
+    sums = {k: [0.0, 0.0, 0.0, 0.0, 0, 0] for k in ("dwconv", "dwconv_grad")}  # err, ms, plain, library, bytes, ops
+    pass_ms = pass_bytes = pass_ops = 0
+
+    def add(kernel, n, err, times, shape):
+        b, h, w, c = shape
+        acc = sums[kernel]
+        acc[0] = max(acc[0], err)
+        for i, t in enumerate(times):
+            acc[1 + i] += n * t
+        acc[4] += n * 4 * (2 * b * h * w * c + 49 * c)  # two (B, H, W, C) tensors and the filter, once each
+        acc[5] += n * 2 * 49 * b * h * w * c
+
+    for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
+        g = torch.Generator().manual_seed(100 + c)
+        w = (0.1 * torch.randn(7, 7, c, generator=g)).to(dev)
+        wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()  # the (C, 1, 7, 7) layout of F.conv2d
+        wc_flip = w.flip(0, 1).permute(2, 0, 1).unsqueeze(1).contiguous()
+        for batch in (8, TRAIN_BS):
+            side = 64 >> s
+            shape = (batch, side, side, c)
+            x = torch.randn(*shape, generator=g).to(dev)
+            err, rel = _rel_err(dwconv_forward(x, w), _dw_plain(x, w))
+            if not rel < DW_TOL:
+                raise AssertionError(f"dwconv kernel disagrees at {shape}: {rel} >= {DW_TOL}")
+            t_kernel = _time_ms(lambda: dwconv_forward(x, w))
+            t_plain = _time_ms(lambda: _dw_plain(x, w))
+            t_lib = _time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, padding=3, groups=c))
+            print(f"dwconv forward {shape}: max_abs_err {err:.3e} (relative {rel:.3e}, tol {DW_TOL:g}); "
+                  f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, F.conv2d {t_lib:.4f} ms per launch [{card}]")
+            if batch != TRAIN_BS:
+                continue
+            add("dwconv", depth, err, (t_kernel, t_plain, t_lib), shape)
+            pass_ms += depth * t_kernel
+            pass_bytes += depth * 4 * (2 * x.numel() + 49 * c)
+            pass_ops += depth * 2 * 49 * x.numel()
+            if s not in d_x:
+                continue
+            cot = torch.randn(*shape, generator=g).to(dev)
+            err, rel = _rel_err(dwconv_forward(cot, w, flip=True), _dw_plain(cot, w.flip(0, 1)))
+            if not rel < DW_TOL:
+                raise AssertionError(f"dwconv input gradient disagrees at {shape}: {rel} >= {DW_TOL}")
+            times = (_time_ms(lambda: dwconv_forward(cot, w, flip=True)),
+                     _time_ms(lambda: _dw_plain(cot, w.flip(0, 1))),
+                     _time_ms(lambda: F.conv2d(cot.permute(0, 3, 1, 2), wc_flip, padding=3, groups=c)))
+            add("dwconv", d_x[s], err, times, shape)
+            print(f"dwconv input gradient {shape}: max_abs_err {err:.3e} (relative {rel:.3e}); kernel "
+                  f"{times[0]:.4f} ms, plain {times[1]:.4f} ms, F.conv2d {times[2]:.4f} ms per launch [{card}]")
+            got = dwconv_filter_grad(x, cot)
+            err, rel = _rel_err(got, _dw_grad_plain(x, cot))
+            repeat = torch.equal(got, dwconv_filter_grad(x, cot))
+            if not (rel < DW_GRAD_TOL and repeat):
+                raise AssertionError(f"dwconv_grad kernel at {shape}: relative error {rel} (tol {DW_GRAD_TOL}), "
+                                     f"bitwise repeatable {repeat}")
+            times = (_time_ms(lambda: dwconv_filter_grad(x, cot), iters=10),
+                     _time_ms(lambda: _dw_grad_plain(x, cot), iters=3, warmup=1),
+                     _time_ms(lambda: torch.ops.aten.convolution_backward(
+                         cot.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None, [1, 1], [3, 3], [1, 1],
+                         False, [0, 0], c, [False, True, False]), iters=10))
+            add("dwconv_grad", d_w[s], err, times, shape)
+            print(f"dwconv filter gradient {shape}: max_abs_err {err:.3e} (relative {rel:.3e}, tol "
+                  f"{DW_GRAD_TOL:g}), the same bits on a second run: {repeat}; kernel {times[0]:.4f} ms, "
+                  f"plain {times[1]:.4f} ms, convolution_backward (weight) {times[2]:.4f} ms per launch [{card}]")
+    pass_bound, pass_by = bound(pass_bytes, pass_ops)
+    print(f"dwconv forward per encoder pass at batch {TRAIN_BS} (36 launches): kernel {pass_ms:.4f} ms, "
+          f"bound {pass_bound:.4f} ms ({pass_by}) [{card}]")
+    out = {}
+    for kernel, (err, ms, plain_ms, lib_ms, n_bytes, n_ops) in sums.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        out[kernel] = (err, ms, plain_ms, lib_ms, bound_ms, bound_by)
+        print(f"{kernel} per fine-tune step ({'36 + 29' if kernel == 'dwconv' else '27 + 3'} launches): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return out
+
+
+def check_widths(dev, card, seed):
+    """The three decode kernels at the reference's pretrained-embedding
+    widths (``WIDTHS``): the per-layer and one-cell kernels at the beam's 40
+    rows (``check_decode``), and the rollout kernel against its plain
+    version at the eval step's 32 rows, 51 tokens, on memory projected from
+    a seeded encoder output.  Returns the two models (random weights from
+    the seed, ``flagship_model``) by E, for phases 4 and 7."""
+    import torch
+
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.ops.decode_step import (
+        _full_rollout_plain, fused_full_rollout, prepare_cross_memory, prepare_decode_weights,
+    )
+
+    models = {}
+    steps = TrainConfig().max_decode_len
+    for E, H in WIDTHS:
+        cfg = ModelConfig(vocab_size=VOCAB, embed_dim=E, num_heads=H)
+        model = flagship_model(cfg, dev, seed + E)
+        dec = model.decoder
+        res = check_decode(dev, card, dec.layers, DECODE_ROWS, heads=H)
+        enc = torch.randn(TRAIN_BS, 7, 7, cfg.encoder_dim, generator=torch.Generator().manual_seed(E)).to(dev)
+        with torch.inference_mode():
+            mem = dec.project_memory(enc)
+            mk, mv = prepare_cross_memory(dec.layers, mem, E)
+            args = (prepare_decode_weights(dec.layers, E), dec.embedding.weight, dec.fc_out.weight,
+                    dec.fc_out.bias, dec.pe, mk, mv, VOCAB - 2, VOCAB - 1, steps, H)
+            logit_err, alpha_err, ties = compare_rollouts(
+                f"decode_rollout E={E} H={H}", fused_full_rollout(*args), _full_rollout_plain(*args))
+            t_kernel = _time_ms(lambda: fused_full_rollout(*args), iters=3, warmup=1)
+        print(f"E={E} H={H} (head width {E // H}): decode_step {res['decode_step'][1]:.4f} ms, decode_onecell "
+              f"{res['decode_onecell'][1]:.4f} ms per step at R={DECODE_ROWS} (plain {res['decode_step'][2]:.4f}); "
+              f"decode_rollout R={TRAIN_BS} {steps} tokens: logits {logit_err:.3e}, maps {alpha_err:.3e}, "
+              f"{len(ties)} rows differ at a near-tie; kernel {t_kernel:.4f} ms per rollout [{card}]")
+        models[E] = model
+    return models
+
+
 def decode_bound(L, R, pos, P, E, Fd):
     """(bytes, ops) of one decode step at cache position ``pos``: per layer
     the six weight matrices and their biases, the pos cached self-attention
@@ -260,12 +426,12 @@ def decode_bound(L, R, pos, P, E, Fd):
     return n_bytes, n_ops
 
 
-def check_decode(dev, card, layers, rows):
+def check_decode(dev, card, layers, rows, heads=8):
     """The per-layer and one-cell kernels against the plain step at ``rows``
-    rows, cache length 52, several positions, with NaN in every cache slot
-    at or past ``pos``; the one-cell kernel also against the per-layer one
-    (the same arithmetic: within 1e-6).  Returns {kernel: (max error, mean
-    ms per step, mean plain ms, bound ms, bound by)}."""
+    rows and ``heads`` heads, cache length 52, several positions, with NaN in
+    every cache slot at or past ``pos``; the one-cell kernel also against the
+    per-layer one (the same arithmetic: within 1e-6).  Returns {kernel: (max
+    error, mean ms per step, mean plain ms, bound ms, bound by)}."""
     import torch
 
     from tpu_captioner_torch.ops.decode_step import (
@@ -273,7 +439,7 @@ def check_decode(dev, card, layers, rows):
     )
 
     L, E, P = len(layers), layers[0].linear1.in_features, 49
-    H = 8
+    H = heads
     w = prepare_decode_weights(layers, E)
     g = torch.Generator().manual_seed(1)
     f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
@@ -308,12 +474,12 @@ def check_decode(dev, card, layers, rows):
         if not same <= 1e-6:
             raise AssertionError(f"the one-cell and per-layer kernels differ by {same} at R={rows}, pos {pos}")
         plain_times.append(_time_ms(lambda: _decode_step_plain(*args)))
-        print(f"decode R={rows} T={DECODE_T} pos={pos}: max_abs_err vs plain: " + "; ".join(line)
+        print(f"decode R={rows} T={DECODE_T} E={E} H={H} pos={pos}: max_abs_err vs plain: " + "; ".join(line)
               + f" per step ({L} layers); one-cell vs per-layer {same:.3e}; plain {plain_times[-1]:.4f} ms [{card}]")
         b, o = decode_bound(L, rows, pos, P, E, Fd)
         n_bytes, n_ops = n_bytes + b, n_ops + o
     bound_ms, bound_by = bound(n_bytes / 4, n_ops / 4)
-    print(f"decode bound at R={rows}, mean over the four positions: {bound_ms:.4f} ms ({bound_by})")
+    print(f"decode bound at R={rows}, E={E}, mean over the four positions: {bound_ms:.4f} ms ({bound_by})")
     return {k: (worst[k], sum(times[k]) / len(times[k]), sum(plain_times) / len(plain_times), bound_ms, bound_by)
             for k in worst}
 
@@ -472,6 +638,8 @@ def train_phase(dev, card, seed, word_map):
 
 # Kernel-name substrings of each group in a profiler window, first match wins.
 KERNEL_GROUPS = (
+    ("dwconv_grad", ("dwconv_wgrad",)),
+    ("dwconv", ("dwconv_fwd_kernel",)),
     ("mlp_block_bwd", ("gemm_kernel", "prep_rows", "finish_rows", "column_partials",
                        "column_finish", "sum_splits")),
     ("mlp_block", ("mlp_block_kernel",)),
@@ -505,19 +673,94 @@ def _kernel_ms_by_group(step, state, batch, seeds):
     return state, groups, sorted(kernels, reverse=True)[:8]
 
 
+def set_dw(model, dw_kernel, dw_grad_kernel):
+    """Set every ConvNeXt block of ``model`` to the depthwise-conv kernels
+    chosen (both False: the grouped conv and its autograd)."""
+    from tpu_captioner_torch.models.convnext import CNBlock
+
+    for blk in model.modules():
+        if isinstance(blk, CNBlock):
+            blk.dw_kernel, blk.dw_grad_kernel = dw_kernel, dw_grad_kernel
+
+
+def dwconv_ab(dev, card, model, step, state, batch, seeds):
+    """The paired A/B that decides whether each depthwise-conv kernel
+    follows ``use_pallas``: for each kernel, AB_PAIRS pairs of fine-tune
+    steps on one model and state, kernel and library in turns, the order
+    within a pair alternating.  The filter gradient goes first, the forward
+    on the library in both arms (the library arm is the grouped conv and its
+    autograd); then the forward kernel (forward and input gradient), the
+    filter gradient on its kernel in both arms, so that cuDNN's weight
+    gradient (38 ms of the step, and the wider spread) is in neither.  For the forward kernel also AB_PAIRS pairs of eval encoder
+    passes at batch 32 (no backward).  Each arm of a pair
+    is the fastest of AB_REPS calls, host clock, each call synchronised.
+    A kernel is favoured when the median of the pairs' differences (library
+    - kernel) exceeds their spread (the largest difference less the
+    smallest).  ``seeds`` is an iterator of dropout seeds.  Leaves the model
+    on the library."""
+    import statistics
+
+    import torch
+
+    def run(choice, fn):
+        set_dw(model, *choice)
+        times = []
+        for _ in range(AB_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    state_box = [state]
+
+    def one_step():
+        state_box[0], _ = step(state_box[0], batch, next(seeds))
+
+    arms = {  # label: ((forward, filter gradient) of the kernel arm, of the library arm, what runs)
+        "filter-gradient kernel, fine-tune step": ((False, True), (False, False), one_step),
+        "forward kernel, fine-tune step": ((True, True), (False, True), one_step),
+        "forward kernel, encoder pass": ((True, False), (False, False), lambda: model.encode(batch["images"])),
+    }
+    favoured = {}
+    for label, (kernel, library, fn) in arms.items():
+        run(kernel, fn)  # warm-up of both arms
+        run(library, fn)
+        pairs = []
+        for i in range(AB_PAIRS):
+            order = (kernel, library) if i % 2 == 0 else (library, kernel)
+            t = {c: run(c, fn) for c in order}
+            pairs.append((t[kernel], t[library]))
+        diffs = [lib - k for k, lib in pairs]
+        gain, spread = statistics.median(diffs), max(diffs) - min(diffs)
+        favoured[label] = gain > spread
+        print(f"A/B {label}, {AB_PAIRS} pairs, fastest of {AB_REPS} calls per arm: kernel median "
+              f"{statistics.median(k for k, _ in pairs):.2f} ms, library median "
+              f"{statistics.median(lib for _, lib in pairs):.2f} ms; library - kernel per pair median "
+              f"{gain:.2f}, min {min(diffs):.2f}, max {max(diffs):.2f}, spread {spread:.2f} ms; "
+              f"kernel favoured (median > spread): {favoured[label]} [{card}]")
+        print("  pairs (kernel, library) ms: " + ", ".join(f"({k:.2f}, {lib:.2f})" for k, lib in pairs))
+    set_dw(model, False, False)
+    return state_box[0], favoured
+
+
 def finetune_phase(dev, card, seed, word_map):
-    """Phase 6: the fine-tune step at full width, batch 32, starting_layer 5."""
+    """Phase 6: the fine-tune step at full width, batch 32, starting_layer 5,
+    with both depthwise-conv kernels selected."""
     import torch
 
     from tpu_captioner_torch.core import prng
     from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
     from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc as dwconv
     from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
     from tpu_captioner_torch.train.model import CaptionModel
     from tpu_captioner_torch.train.state import TrainState
     from tpu_captioner_torch.train.steps import make_train_step
 
-    cfg, tc = ModelConfig(vocab_size=VOCAB), TrainConfig(batch_size=TRAIN_BS)
+    cfg = ModelConfig(vocab_size=VOCAB)
+    tc = TrainConfig(batch_size=TRAIN_BS)
     if tc.starting_layer != FT_START:
         raise AssertionError("the fine-tune step's starting_layer changed")
     model = CaptionModel(cfg, device=dev, seed=seed)
@@ -526,13 +769,18 @@ def finetune_phase(dev, card, seed, word_map):
         for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
             blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
     start = copy.deepcopy(model.state_dict())
-    plain = CaptionModel(dataclasses.replace(cfg, use_pallas="off"), device=dev)
+    plain = CaptionModel(dataclasses.replace(cfg, **ALL_OFF), device=dev)
     batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
     root = prng.root_seed(seed + 1)
     seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
 
     def counts():
-        return random_mask_pool.launches, fused_convnext_mlp.launches, fused_convnext_mlp_bwd.launches
+        return (random_mask_pool.launches, fused_convnext_mlp.launches, fused_convnext_mlp_bwd.launches,
+                dwconv.launches, dwconv.grad_launches)
+
+    def zero_counts():
+        random_mask_pool.launches = fused_convnext_mlp.launches = fused_convnext_mlp_bwd.launches = 0
+        dwconv.launches = dwconv.grad_launches = 0
 
     def two_steps(m, expect):
         m.load_state_dict(start)
@@ -540,21 +788,22 @@ def finetune_phase(dev, card, seed, word_map):
         step = make_train_step(m, tc, word_map, train_encoder=True)
         out, grads, seen = [], [], []
         for s in seeds:
-            random_mask_pool.launches = fused_convnext_mlp.launches = fused_convnext_mlp_bwd.launches = 0
+            zero_counts()
             state, met = step(state, batch, s)
             torch.cuda.synchronize()
             seen.append(counts())
             out.append({k: float(v) for k, v in met.items()})
             grads.append({k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None})
         if any(c != expect for c in seen):
-            raise AssertionError(f"expected (dropout_mask, mlp_block, mlp_block_bwd) launches {expect} "
-                                 f"per step, got {seen}")
+            raise AssertionError(f"expected (dropout_mask, mlp_block, mlp_block_bwd, dwconv, dwconv_grad) "
+                                 f"launches {expect} per step, got {seen}")
         return out, grads, {k: v.clone() for k, v in m.state_dict().items()}, seen[0]
 
-    got, grads, params, launches = two_steps(model, (1, 36, 30))
+    got, grads, params, launches = two_steps(model, (1, 36, 30, 65, 30))
     print(f"fine-tune step: {launches[0]} dropout_mask, {launches[1]} mlp_block, "
-          f"{launches[2]} mlp_block_bwd launches per step")
-    want, want_grads, want_params, _ = two_steps(plain, (1, 0, 0))
+          f"{launches[2]} mlp_block_bwd, {launches[3]} dwconv (36 forwards + 29 input gradients), "
+          f"{launches[4]} dwconv_grad launches per step")
+    want, want_grads, want_params, _ = two_steps(plain, (1, 0, 0, 0, 0))
     for i, (a, b) in enumerate(zip(got, want)):
         print(f"fine-tune step {i}: kernels {a}; plain {b}")
         if not (abs(a["loss"] - b["loss"]) <= 1e-4 and a["top5_correct"] == b["top5_correct"]
@@ -593,7 +842,7 @@ def finetune_phase(dev, card, seed, word_map):
     runs = (("off", model), ("on", model), ("plain, off", None))
     for label, m in runs:
         if m is None:
-            m = CaptionModel(dataclasses.replace(cfg, use_pallas="off"), device=dev)
+            m = CaptionModel(dataclasses.replace(cfg, **ALL_OFF), device=dev)
         m.cfg = dataclasses.replace(m.cfg, encoder_remat=label.split(", ")[-1])
         m.load_state_dict(start)
         state = TrainState.create(m, tc)
@@ -604,18 +853,18 @@ def finetune_phase(dev, card, seed, word_map):
         torch.cuda.reset_peak_memory_stats()
         times = []
         for i in range(TRAIN_TIMED_STEPS):
-            random_mask_pool.launches = fused_convnext_mlp.launches = fused_convnext_mlp_bwd.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             state, met = step(state, batch, prng.step_seed(root, "dropout", 2, i))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
-        if label == "on" and counts() != (1, 66, 30):
-            raise AssertionError(f"remat 'on': expected (1, 66, 30) launches per step, got {counts()}")
+        if label == "on" and counts() != (1, 66, 30, 95, 30):  # the 30 trained blocks' forwards run twice
+            raise AssertionError(f"remat 'on': expected (1, 66, 30, 95, 30) launches per step, got {counts()}")
         ms = sorted(times)[len(times) // 2]
         results[label] = ms
         print(f"fine-tune step bs={TRAIN_BS} starting_layer {FT_START}, "
-              f"{'plain tails' if label.startswith('plain') else 'kernels'}, remat {label.split(', ')[-1]!r}: "
+              f"{'all kernels off' if label.startswith('plain') else 'kernels'}, remat {label.split(', ')[-1]!r}: "
               f"median {ms:.2f} ms/step over {TRAIN_TIMED_STEPS} steps (min {min(times):.2f}, "
               f"max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory "
               f"{peak / 2**30:.2f} GiB; launches per step {counts()}; loss {float(met['loss']):.4f} [{card}]")
@@ -628,9 +877,12 @@ def finetune_phase(dev, card, seed, word_map):
                       groups.items(), key=lambda kv: -kv[1])) + f" [{card}]")
             for ms_k, name in top:
                 print(f"  {ms_k:8.2f} ms/step  {name}")
+            state, favoured = dwconv_ab(dev, card, m, step, state, batch, (
+                prng.step_seed(root, "dropout", 4, i) for i in itertools.count()))
+            set_dw(m, True, True)
         del state, step
         torch.cuda.empty_cache()
-    return launches
+    return launches, favoured
 
 
 EVAL_MODES = (  # (label, ModelConfig.decode_kernel, one_cell)
@@ -867,6 +1119,103 @@ def compare_captions(got, want, plain_model, images):
             raise AssertionError(f"image {j}: kernel and plain captions differ beyond a near-tie")
 
 
+def served_width(dev, model, images8, word_map):
+    """Phase 4 at word2vec-300's width (E=300, H=6; ``check_widths``'s
+    model): beam 5 over the 8 images with the kernels (36 MLP launches, L
+    decode launches per token), then through the plain versions on the card;
+    the captions must agree except at a near-tie."""
+    import numpy as np
+    import torch
+
+    from tpu_captioner_torch.cli.caption import caption_batch
+    from tpu_captioner_torch.ops.decode_step import fused_decode_step
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    cfg = model.cfg
+    plain = CaptionModel(dataclasses.replace(cfg, **ALL_OFF), device=dev)
+    plain.load_state_dict(model.state_dict())
+    tokens = [0]
+    embed = model.decoder.embed
+
+    def counted_embed(*a):
+        tokens[0] += 1
+        return embed(*a)
+
+    model.decoder.embed = counted_embed
+    fused_convnext_mlp.launches = fused_decode_step.launches = 0
+    got = caption_batch(model, images8.numpy(), word_map, BEAM)
+    torch.cuda.synchronize()
+    seen = (fused_convnext_mlp.launches, fused_decode_step.launches)
+    del model.decoder.embed
+    if seen != (36, cfg.num_layers * tokens[0]) or tokens[0] < 1:
+        raise AssertionError(f"E={cfg.embed_dim}: expected 36 mlp_block and {cfg.num_layers} decode launches "
+                             f"per token ({tokens[0]} tokens), got {seen}")
+    want = caption_batch(plain, images8.numpy(), word_map, BEAM)
+    for _, score, seq, alpha in got:
+        if not (alpha.shape == (len(seq), cfg.num_pixels) and np.isfinite(alpha).all() and np.isfinite(score)):
+            raise AssertionError("malformed caption output")
+    compare_captions(got, want, plain, images8.to(dev))
+    print(f"beam-{BEAM} at E={cfg.embed_dim}, H={cfg.num_heads}: {seen[1]} decode_step launches over "
+          f"{tokens[0]} tokens; kernel vs plain captions agree on {len(got)} images")
+
+
+def eval_width(dev, card, model, word_map):
+    """Phase 7 at GloVe-200's width (E=200, H=8; ``check_widths``'s model):
+    one eval step at batch 32 in 'step' and 'mega' against 'off', with an
+    end id that the plain rollout's rows emit: launches counted, rollouts
+    compared as in ``compare_rollouts``, and, without a near-tie, the loss
+    within 1e-4 relative and the sequences, lengths and counts equal."""
+    import torch
+
+    from tpu_captioner_torch.core.config import TrainConfig
+    from tpu_captioner_torch.ops.decode_step import fused_decode_step, fused_full_rollout
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    cfg, tc = model.cfg, TrainConfig(batch_size=TRAIN_BS)
+    steps, L = tc.max_decode_len, cfg.num_layers
+    model.decoder.capture_alphas = True  # so that the rollouts below return their maps
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(cfg.embed_dim), word_map,
+                                                   VOCAB).items()}
+    model.cfg = dataclasses.replace(cfg, decode_kernel="off")
+    first = make_eval_step(model, tc, word_map)(batch)
+    end_id = int(torch.bincount(first["sequences"].flatten().long(), minlength=VOCAB)[1:].argmax()) + 1
+    ids = dict(word_map, **{"<end>": end_id})
+    runs = {}
+    for mode in ("off", "step", "mega"):
+        model.cfg = dataclasses.replace(cfg, decode_kernel=mode)
+        fused_decode_step.launches = fused_full_rollout.launches = 0
+        t0 = time.perf_counter()
+        aux = make_eval_step(model, tc, ids)(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        seen = (fused_decode_step.launches, fused_full_rollout.launches)
+        with torch.inference_mode():
+            roll = model.rollout(model.encode(batch["images"]), word_map["<start>"], end_id, steps)
+        runs[mode] = (aux, roll, seen)
+        need = int(runs["off"][0]["lengths"].max())
+        expect = {"off": (0, 0), "step": (L * need, 0), "mega": (0, 1)}[mode]
+        print(f"eval E={cfg.embed_dim} H={cfg.num_heads} <end> = {end_id} {mode}: launches (decode_step, "
+              f"decode_rollout) {runs[mode][2]}, {int((aux['lengths'] < steps).sum())} of {TRAIN_BS} rows "
+              f"finished early; loss {float(aux['loss']):.6f}; eval step {ms:.2f} ms [{card}]")
+        if runs[mode][2] != expect or not torch.isfinite(roll[0]).all():
+            raise AssertionError(f"eval at E={cfg.embed_dim} {mode}: expected launches {expect}, "
+                                 f"got {runs[mode][2]}, or non-finite logits")
+        if mode == "off":
+            continue
+        logit_err, alpha_err, ties = compare_rollouts(f"eval E={cfg.embed_dim} {mode}", roll, runs["off"][1])
+        print(f"  {mode} vs off: logits {logit_err:.3e}, maps {alpha_err:.3e}, {len(ties)} rows differ at a "
+              f"near-tie")
+        if ties:
+            continue
+        want = runs["off"][0]
+        rel = abs(float(aux["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+        same = all(torch.equal(aux[k], want[k]) for k in ("sequences", "lengths", "tokens", "top5_correct"))
+        if not (rel < 1e-4 and same):
+            raise AssertionError(f"eval at E={cfg.embed_dim} {mode}: metrics disagree with 'off' (loss rel {rel})")
+    model.cfg = cfg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -883,6 +1232,7 @@ def main(argv=None):
     from tpu_captioner_torch.models.from_jax import save_reference_checkpoint
     from tpu_captioner_torch.ops import _build
     from tpu_captioner_torch.ops.decode_step import fused_decode_step
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
     from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
     from tpu_captioner_torch.train.model import CaptionModel
 
@@ -895,7 +1245,7 @@ def main(argv=None):
     pin_f32_precision()
 
     # 2. Build the kernels, one nvcc each, all at once.
-    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask")
+    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -920,6 +1270,8 @@ def main(argv=None):
         dev, card, model.decoder.layers, TRAIN_BS)["decode_onecell"]
     pool_err, pool_ms, pool_plain_ms, pool_lib_ms, pool_bound, pool_by = check_dropout(dev, card)
     bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, bwd_by = check_mlp_bwd(dev, card)
+    dw = check_dwconv(dev, card)
+    width_models = check_widths(dev, card, args.seed)
 
     # 4. The serving path through the CLI's loader, kernels on.
     word_map = word_map_of(VOCAB)
@@ -932,7 +1284,7 @@ def main(argv=None):
                                  embeddingName=None, device="cuda", seed=args.seed + 7)
         served = build_model_and_params(cli, word_map)
     plain = CaptionModel(
-        dataclasses.replace(served.cfg, use_pallas="off", decode_kernel="off"), device=dev
+        dataclasses.replace(served.cfg, **ALL_OFF), device=dev
     )
     plain.load_state_dict(served.state_dict())
     sd_want = model.state_dict()
@@ -947,16 +1299,16 @@ def main(argv=None):
         return embed(*a)
 
     served.decoder.embed = counted_embed
-    fused_convnext_mlp.launches = 0
-    fused_decode_step.launches = 0
+    fused_convnext_mlp.launches = fused_decode_step.launches = depthwise_conv7x7_nhwc.launches = 0
     got = caption_batch(served, images8.numpy(), word_map, BEAM)
     torch.cuda.synchronize()
     mlp_launches, dec_launches = fused_convnext_mlp.launches, fused_decode_step.launches
     del served.decoder.embed
-    print(f"main path: {mlp_launches} mlp_block launches (1 encoder pass), "
-          f"{dec_launches} decode_step launches over {steps[0]} tokens x {cfg.num_layers} layers")
-    if mlp_launches != 36:
-        raise AssertionError(f"expected 36 mlp_block launches per encoder pass, got {mlp_launches}")
+    print(f"main path: {mlp_launches} mlp_block and {depthwise_conv7x7_nhwc.launches} dwconv launches "
+          f"(1 encoder pass), {dec_launches} decode_step launches over {steps[0]} tokens x {cfg.num_layers} layers")
+    if (mlp_launches, depthwise_conv7x7_nhwc.launches) != (36, 36):
+        raise AssertionError(f"expected 36 mlp_block and 36 dwconv launches per encoder pass, got "
+                             f"{mlp_launches} and {depthwise_conv7x7_nhwc.launches}")
     if steps[0] < 1 or dec_launches != cfg.num_layers * steps[0]:
         raise AssertionError(f"expected {cfg.num_layers} decode launches per token")
 
@@ -969,6 +1321,7 @@ def main(argv=None):
     for j, (cap, score, seq, _) in enumerate(got[:2]):
         print(f"caption {j} (score {score:.4f}, {len(seq)} tokens): {cap[:80]}")
     print(f"beam-{BEAM} kernel vs plain on the card: captions agree on 8 images")
+    served_width(dev, width_models[300], images8, word_map)
 
     # Serving times, kernels on and off.
     for bs in (8, 32):
@@ -983,23 +1336,28 @@ def main(argv=None):
                   f"{bs / ((enc_ms + beam_ms) / 1e3):.2f} captions/s [{card}]")
 
     # 5. The frozen-encoder train step at full width.
-    del served, plain, model
+    del served, plain, model, width_models[300]
     torch.cuda.empty_cache()
     pool_launches, _ = train_phase(dev, card, args.seed, word_map)
 
     # 6. The fine-tune train step at full width.
     torch.cuda.empty_cache()
-    _, _, bwd_launches = finetune_phase(dev, card, args.seed, word_map)
+    ft_launches, favoured = finetune_phase(dev, card, args.seed, word_map)
+    bwd_launches, dw_launches, dw_grad_launches = ft_launches[2:]
 
     # 7. The greedy eval step at full width, in four decode modes.
     torch.cuda.empty_cache()
     ev = eval_phase(dev, card, args.seed, word_map)
     roll_err, roll_ms, roll_plain_ms, roll_bound, roll_by = ev["rollout"]
+    eval_width(dev, card, width_models.pop(200), word_map)
+    print("depthwise-conv A/B (kernel favoured: median gain > spread of the pairs): " + ", ".join(
+        f"{k}: {v}" for k, v in favoured.items()))
 
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
-    # per train step.  mlp_block_bwd's: one fine-tune step.  decode_onecell's
-    # and decode_rollout's: one eval step in their modes, natural <end>.
+    # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
+    # fine-tune step.  decode_onecell's and decode_rollout's: one eval step in
+    # their modes, natural <end>.
     print(json.dumps({"kernels": [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
@@ -1025,6 +1383,13 @@ def main(argv=None):
          "replaces": "tpu_captioner/ops/decode_step.py:570", "launches": ev["launches"]["mega"][3],
          "max_abs_err": roll_err, "ms": roll_ms, "plain_ms": roll_plain_ms,
          "bound_ms": roll_bound, "bound_by": roll_by, "library_ms": None},
+        *({"name": name, "route": "cuda", "source": "tpu_captioner_torch/csrc/dwconv.cu",
+           "replaces": replaces, "launches": launches, "max_abs_err": dw[name][0], "ms": dw[name][1],
+           "plain_ms": dw[name][2], "bound_ms": dw[name][4], "bound_by": dw[name][5],
+           "library_ms": dw[name][3]}
+          for name, replaces, launches in (
+              ("dwconv", "tpu_captioner/ops/dwconv.py:37", dw_launches),
+              ("dwconv_grad", "tpu_captioner/ops/dwconv.py:97", dw_grad_launches))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

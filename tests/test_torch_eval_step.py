@@ -280,3 +280,28 @@ def test_eval_step_after_a_fine_tune_train_step(eval_batch, jax_eval):
     got = make_eval_step(model, tc, word_ids)({k: t(v) for k, v in eval_batch.items()})
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
     np.testing.assert_array_equal(got["sequences"].numpy(), np.asarray(want["sequences"]))
+
+
+@pytest.mark.parametrize("mode", ["off", "auto", "mega"])
+def test_eval_step_matches_jax_at_glove_width(eval_batch, mode):
+    """The eval step at the GloVe-200 width (E=200, H=8: head width 25, which
+    the decode kernels take with scalar key loads) against JAX's, with an end
+    id that rows emit; the port's decode modes run their plain versions on
+    the CPU."""
+    from tpu_captioner.core.config import TrainConfig as JaxTrainConfig
+    from tpu_captioner.train.steps import make_eval_step as jax_make_eval_step
+
+    jmodel, params = jax_model_and_params(seed=6, embed_dim=200, num_heads=8)
+    tc = JaxTrainConfig(batch_size=B, max_decode_len=STEPS)
+    jbatch = {k: jnp.asarray(v) for k, v in eval_batch.items()}
+    first = jax_make_eval_step(jmodel, tc, WORD_IDS)(params, jbatch)
+    ids = dict(WORD_IDS, **{"<end>": int(np.bincount(np.asarray(first["sequences"]).ravel()).argmax())})
+    want = jax_make_eval_step(jmodel, tc, ids)(params, jbatch)
+    model = port_model(params, embed_dim=200, num_heads=8, decode_kernel=mode)
+    got = make_eval_step(model, TrainConfig(batch_size=B, max_decode_len=STEPS), ids)(
+        {k: t(v) for k, v in eval_batch.items()}
+    )
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
+    for key in ("tokens", "top5_correct", "sequences", "lengths"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    assert (got["lengths"] < STEPS).any()

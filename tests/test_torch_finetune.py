@@ -31,6 +31,7 @@ from tests.test_torch_helpers import (
     images,
     jax_model_and_params,
     port_model,
+    set_dw,
     t,
     to_numpy,
 )
@@ -151,7 +152,11 @@ def test_encoder_gradients_match_jax_block_math():
 # -- the whole step ---------------------------------------------------------------
 
 
-def test_fine_tune_step_matches_jax(monkeypatch):
+@pytest.mark.parametrize("dw", ["off", "on"])
+def test_fine_tune_step_matches_jax(monkeypatch, dw):
+    """The whole step, with the depthwise conv as the grouped conv and its
+    autograd (``dw`` 'off') and through ``ops/dwconv.py`` with both of its
+    kernels chosen (``dw`` 'on': the plain versions on CPU tensors)."""
     from tpu_captioner.core.config import TrainConfig as JaxTrainConfig
     from tpu_captioner.train import steps as jax_steps
     from tpu_captioner.train.model import CaptionModel as JaxCaptionModel
@@ -160,6 +165,7 @@ def test_fine_tune_step_matches_jax(monkeypatch):
 
     jmodel, params = jax_model_and_params(seed=4, dropout_masks="pool", use_pallas="off")
     model = port_model(params)
+    set_dw(model, dw == "on", dw == "on")
     cfg = model.cfg
     batch = make_batch()
     side = SMALL["encoded_image_size"]

@@ -61,6 +61,17 @@ def port_model(params, **overrides) -> CaptionModel:
     return model
 
 
+def set_dw(model, dw_kernel: bool, dw_grad_kernel: bool) -> None:
+    """Set every ConvNeXt block's two depthwise-conv choices (they follow
+    ``use_pallas`` otherwise): with both False the block runs the grouped
+    conv, else ``ops/dwconv.py`` with the two choices."""
+    from tpu_captioner_torch.models.convnext import CNBlock
+
+    for blk in model.modules():
+        if isinstance(blk, CNBlock):
+            blk.dw_kernel, blk.dw_grad_kernel = dw_kernel, dw_grad_kernel
+
+
 def images(n: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, (n, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)

@@ -19,7 +19,15 @@ decode kernel runs the per-layer kernel's arithmetic, so it agrees with it
 within 1e-6.  The rollout kernel's sequences equal the plain rollout's except
 at a near-tie (the plain logits of the two tokens within 1e-4 at the first
 step where they differ); its logits agree within 1e-4 and its attention maps
-within 1e-5 up to that step.
+within 1e-5 up to that step.  The decode kernels are also held at the
+reference's pretrained-embedding widths, GloVe-200 (E=200, H=8: head width 25)
+and word2vec-300 (E=300, H=6: head width 50), whose heads take the kernels'
+scalar key loads.  The depthwise conv's forward kernel (and the input
+gradient, the same kernel with the filter flipped) agrees with the grouped
+conv within 1e-5 times max(1, its largest magnitude): 49 f32 products per
+output, summed in another order than cuDNN's; the filter-gradient kernels
+within 1e-4 times the same (sums over all B x H x W pixels), with the same
+bits from run to run (partials summed in a fixed order, no atomics).
 """
 
 import math
@@ -36,6 +44,13 @@ from tpu_captioner_torch.ops.decode_step import (
     fused_full_rollout,
 )
 from tpu_captioner_torch.ops.dropout_mask import _mask_plain, random_mask_pool
+from tpu_captioner_torch.ops.dwconv import (
+    _dw_grad_plain,
+    _dw_plain,
+    depthwise_conv7x7_nhwc,
+    dwconv_filter_grad,
+    dwconv_forward,
+)
 from tpu_captioner_torch.ops.mlp_block import (
     SUPPORTED_C,
     _mlp_bwd_plain,
@@ -122,6 +137,8 @@ def decode_args(L, R, T, P, E, H, Fd, pos, device, seed=0):
     [
         dict(L=3, R=10, T=8, P=4, E=64, H=4, Fd=48),  # the CPU tests' config, ragged rows
         dict(L=6, R=40, T=52, P=49, E=512, H=8, Fd=512),  # beam 5 x batch 8, full width
+        dict(L=6, R=40, T=52, P=49, E=200, H=8, Fd=512),  # GloVe-200: head width 25
+        dict(L=6, R=40, T=52, P=49, E=300, H=6, Fd=512),  # word2vec-300: head width 50
     ],
 )
 @pytest.mark.parametrize("pos_at", ["first", "middle", "last"])
@@ -141,7 +158,8 @@ def test_decode_kernel_matches_plain(cuda, shape, pos_at):
 
 @pytest.mark.parametrize(
     "shape",
-    [dict(L=3, R=10, T=8, P=4, E=64, H=4, Fd=48), dict(L=6, R=32, T=52, P=49, E=512, H=8, Fd=512)],
+    [dict(L=3, R=10, T=8, P=4, E=64, H=4, Fd=48), dict(L=6, R=32, T=52, P=49, E=512, H=8, Fd=512),
+     dict(L=6, R=32, T=52, P=49, E=200, H=8, Fd=512), dict(L=6, R=32, T=52, P=49, E=300, H=6, Fd=512)],
 )
 @pytest.mark.parametrize("pos_at", ["first", "middle", "last"])
 def test_onecell_kernel_matches_layer_kernel_and_plain(cuda, shape, pos_at):
@@ -234,3 +252,94 @@ def test_dropout_kernel_matches_plain(cuda, n, keep):
     assert random_mask_pool.launches == before + 1
     assert got.dtype == torch.bool and got.shape == (n,)
     assert torch.equal(got, _mask_plain(seed, n, keep, cuda))
+
+
+@pytest.mark.parametrize("E,H", [(200, 8), (300, 6)])
+@pytest.mark.parametrize("end", ["never", "emitted"])
+def test_rollout_kernel_matches_plain_at_embedding_widths(cuda, E, H, end):
+    """The whole-rollout kernel at the GloVe-200 and word2vec-300 widths, 32
+    rows, 51 steps, with an end id no row emits and with one rows emit."""
+    steps = 51
+    args, mix = rollout_args(32, steps, cuda, False, E=E, H=H, seed=E)
+    V, start = args[1].shape[0], args[1].shape[0] - 2
+    end_id = -1
+    if end == "emitted":
+        _, seqs, _ = _full_rollout_plain(*args, start, -1, steps, H)
+        end_id = int(torch.bincount(seqs.flatten().long()).argmax())
+    want = _full_rollout_plain(*args, start, end_id, steps, H)
+    before = fused_full_rollout.launches
+    got = fused_full_rollout(*args, start, end_id, steps, H)
+    torch.cuda.synchronize()
+    assert fused_full_rollout.launches == before + 1
+    assert all(torch.isfinite(x).all() for x in (got[0], got[2]))
+    assert_rollouts_agree(got, want)
+
+
+# -- the depthwise conv -----------------------------------------------------------
+
+# (B, H, W, C): the four ConvNeXt-Base stages at batch 8 (serving) and 32
+# (train and eval), then a ragged C (not a multiple of 4: scalar code) and
+# odd H and W (partial tiles).
+DW_SHAPES = [(b, 64 >> s, 64 >> s, 128 << s) for b in (8, 32) for s in range(4)] + [
+    (2, 16, 16, 24), (3, 13, 11, 130), (1, 9, 7, 10), (5, 5, 3, 1024),
+]
+
+
+def dw_inputs(shape, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=g)
+    w = 0.1 * torch.randn(7, 7, shape[-1], generator=g)
+    return x.to(device), w.to(device)
+
+
+def within(got, want, rel):
+    return (got - want).abs().max().item() <= rel * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dwconv_forward_kernel_matches_plain(cuda, shape):
+    x, w = dw_inputs(shape, cuda, seed=shape[-1] + shape[1])
+    before = depthwise_conv7x7_nhwc.launches
+    got = dwconv_forward(x, w)
+    torch.cuda.synchronize()
+    assert depthwise_conv7x7_nhwc.launches == before + 1
+    want = _dw_plain(x, w)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert within(got, want, 1e-5)
+    flipped = dwconv_forward(x, w, flip=True)  # the input-gradient form
+    assert within(flipped, _dw_plain(x, w.flip(0, 1)), 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 16, 512), (32, 8, 8, 1024), (8, 64, 64, 128), (3, 13, 11, 130),
+                                   (2, 9, 7, 10)])
+def test_dwconv_filter_grad_kernel_matches_plain(cuda, shape):
+    x, _ = dw_inputs(shape, cuda, seed=shape[-1])
+    g = torch.randn(*shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = depthwise_conv7x7_nhwc.grad_launches
+    got = dwconv_filter_grad(x, g)
+    torch.cuda.synchronize()
+    assert depthwise_conv7x7_nhwc.grad_launches == before + 1
+    want = _dw_grad_plain(x, g)
+    assert got.shape == (7, 7, shape[-1]) and torch.isfinite(got).all()
+    assert within(got, want, 1e-4)
+    assert torch.equal(got, dwconv_filter_grad(x, g))  # a fixed summation order: the same bits
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 16, 512), (4, 8, 8, 1024), (2, 9, 7, 10)])
+def test_dwconv_autograd_matches_grouped_conv(cuda, shape):
+    """The op with both kernels against autograd through the grouped conv:
+    output, input gradient and filter gradient, with one launch of each
+    kernel per forward, input gradient and filter gradient."""
+    x, w = dw_inputs(shape, cuda, seed=7)
+    g = torch.randn(*shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    before = (depthwise_conv7x7_nhwc.launches, depthwise_conv7x7_nhwc.grad_launches)
+    y = depthwise_conv7x7_nhwc(x, w, True, True)
+    d_x, d_w = torch.autograd.grad(y, (x, w), g)
+    torch.cuda.synchronize()
+    assert (depthwise_conv7x7_nhwc.launches, depthwise_conv7x7_nhwc.grad_launches) == (
+        before[0] + 2, before[1] + 1)
+    y_ref = _dw_plain(x, w)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (x, w), g)
+    assert within(y, y_ref, 1e-5) and within(d_x, dx_ref, 1e-5) and within(d_w, dw_ref, 1e-4)

@@ -13,6 +13,8 @@
   resolves to the per-token one.
 - The train step's branch that is not ported raises, naming its ROADMAP
   item; the fine-tune branch builds a step.
+- The depthwise conv's wrappers refuse what their kernels do not take (other
+  devices, bf16, non-contiguous tensors, tensors on two devices).
 """
 
 import os
@@ -135,9 +137,9 @@ def test_unported_train_branches_raise():
     assert callable(make_train_step(model, TrainConfig(), {}, train_encoder=True))
     trained = {n.split(".")[1] for n, p in model.encoder.named_parameters() if p.requires_grad}
     assert trained == {"5", "6", "7"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
         make_train_step(model, TrainConfig(), {}, teacher_forcing=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
         make_train_step(model, TrainConfig(), {}, teacher_forcing=False, train_encoder=True)
 
 
@@ -186,3 +188,33 @@ def test_mega_never_resolves_to_step(monkeypatch):
         monkeypatch.setattr(model.decoder, name, lambda *a, _n=name, **k: called.append(_n))
     model.rollout(torch.zeros(1, 4, 8), 1, 2, 3)
     assert called == ["mega_rollout"]
+
+
+def test_dwconv_wrappers_refuse_other_devices_and_dtypes(cpu_only):
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc, dwconv_filter_grad, dwconv_forward
+
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    if nvcc is None:  # a CUDA request cannot build its kernels here: it raises
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load("dwconv")
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731 — neither cpu nor cuda
+    for fn in (depthwise_conv7x7_nhwc, dwconv_forward):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            fn(meta(1, 8, 8, 16), meta(7, 7, 16))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        dwconv_filter_grad(meta(1, 8, 8, 16), meta(1, 8, 8, 16))
+    x, w = torch.zeros(1, 8, 8, 16), torch.zeros(7, 7, 16)
+    with pytest.raises(ValueError, match="float32"):
+        depthwise_conv7x7_nhwc(x.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        dwconv_filter_grad(x, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise_conv7x7_nhwc(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="not cpu"):
+        depthwise_conv7x7_nhwc(x, meta(7, 7, 16))
+    with pytest.raises(ValueError, match="shape"):
+        dwconv_forward(x, torch.zeros(3, 3, 16))

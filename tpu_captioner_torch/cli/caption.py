@@ -104,7 +104,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.out:
         raise NotImplementedError(
-            "--out (attention PNG, infer/visualize.py) is not ported yet: ROADMAP.md Queue 1 #7"
+            "--out (attention PNG, infer/visualize.py) is not ported yet: ROADMAP.md Queue 1 #6"
         )
 
     with open(args.wordMap) as f:

@@ -44,7 +44,9 @@
 // - attention runs one warp per (row, head) at dh = E/H (the TPU kernel's
 //   0/1 head-selector matmul is a lane-layout device and is not carried
 //   over); only positions t <= pos are ever read, so an uninitialised cache
-//   slot can never reach a sum;
+//   slot can never reach a sum.  Each kernel is instantiated twice and the
+//   launch picks by head width: float4 key loads when dh % 4 == 0, scalar
+//   loads otherwise (GloVe-200: dh 25; word2vec-300: dh 50);
 // - LayerNorm runs one warp per row.
 // The product and LayerNorm bodies are not inlined, so the six products and
 // three LayerNorms of a layer share one copy of code in the instruction
@@ -271,8 +273,11 @@ __device__ __noinline__ void grid_add_ln(const float* x, const float* add, const
 // One query row per (row, head) over n_pos key/value rows, one warp per
 // pair.  q and the probabilities sit in this warp's shared-memory slice;
 // key(t)/val(t) give the t-th key/value row of the head.  Writes the context
-// (dh floats) and, when probs_out is set, the probabilities.
-template <class KeyFn, class ValFn>
+// (dh floats) and, when probs_out is set, the probabilities.  VEC is the
+// width of the key loads: 4 (float4) when dh % 4 == 0, so that every head
+// offset h * dh is 16-byte aligned, else 1 (scalar loads, any head width:
+// GloVe-200 gives dh = 25, word2vec-300 dh = 50).
+template <int VEC, class KeyFn, class ValFn>
 __device__ void warp_attention(const float* q_src, int dh, float scale, int n_pos,
                                KeyFn key, ValFn val, float* sq, float* sp, float* ctx,
                                float* probs_out) {
@@ -283,10 +288,15 @@ __device__ void warp_attention(const float* q_src, int dh, float scale, int n_po
   for (int t = lane; t < n_pos; t += 32) {
     const float* k = key(t);
     float s = 0.f;
+    if constexpr (VEC == 4) {
 #pragma unroll 8
-    for (int d = 0; d < dh; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(k + d);
-      s = dot4(s, make_float4(sq[d], sq[d + 1], sq[d + 2], sq[d + 3]), kv);
+      for (int d = 0; d < dh; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(k + d);
+        s = dot4(s, make_float4(sq[d], sq[d + 1], sq[d + 2], sq[d + 3]), kv);
+      }
+    } else {
+#pragma unroll 8
+      for (int d = 0; d < dh; ++d) s = fmaf(sq[d], k[d], s);
     }
     s *= scale;
     sp[t] = s;
@@ -316,7 +326,11 @@ __device__ void warp_attention(const float* q_src, int dh, float scale, int n_po
 
 // One decoder layer l at position pos for all R rows: the 11 phases, with a
 // grid barrier between each two and none after the last.  x_in may equal
-// x_out: x_in is last read three barriers before x_out is written.
+// x_out: x_in is last read three barriers before x_out is written.  VEC is
+// warp_attention's key load width.  Every other read at a head offset is
+// scalar (the query row into sq, the new k/v rows, the context writes), and
+// the products read whole rows, 16-byte aligned since E % 4 == 0.
+template <int VEC>
 __device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos,
                              const float* x_in, float* x_out, float* sm) {
   const int E = a.E, E3 = 3 * E, F = a.F, H = a.H, dh = E / H, R = a.R, P = a.P;
@@ -361,7 +375,7 @@ __device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos
     const float* cv = a.cache_v + ((size_t)l * R + r) * T * E + h * dh;
     const float* kn = row + E + h * dh;
     const float* vn = row + 2 * E + h * dh;
-    warp_attention(
+    warp_attention<VEC>(
         row + h * dh, dh, scale, pos + 1,
         [&](int t) { return t == pos ? kn : ck + (size_t)t * E; },
         [&](int t) { return t == pos ? vn : cv + (size_t)t * E; },
@@ -382,7 +396,7 @@ __device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos
     const int r = task / H, h = task % H;
     const float* mk = a.mem_k + ((size_t)l * R + r) * P * E + h * dh;
     const float* mv = a.mem_v + ((size_t)l * R + r) * P * E + h * dh;
-    warp_attention(
+    warp_attention<VEC>(
         q2 + (size_t)r * E + h * dh, dh, scale, P,
         [&](int t) { return mk + (size_t)t * E; },
         [&](int t) { return mv + (size_t)t * E; },
@@ -409,18 +423,20 @@ __device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos
   grid_add_ln(x2, ff, a.ln3_w + (size_t)l * E, a.ln3_b + (size_t)l * E, x_out, R, E);
 }
 
+template <int VEC>
 __global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float sm[];
-  decode_layer(a, grid, a.layer, a.pos, a.x_in, a.x_out, sm);
+  decode_layer<VEC>(a, grid, a.layer, a.pos, a.x_in, a.x_out, sm);
 }
 
+template <int VEC>
 __global__ void __launch_bounds__(kThreads) decode_onecell_kernel(const Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float sm[];
   for (int l = 0; l < a.L; ++l) {
     if (l > 0) grid.sync();  // layer l - 1's x_out and alpha are complete
-    decode_layer(a, grid, l, a.pos, l == 0 ? a.x_in : a.x_out, a.x_out, sm);
+    decode_layer<VEC>(a, grid, l, a.pos, l == 0 ? a.x_in : a.x_out, a.x_out, sm);
   }
 }
 
@@ -450,6 +466,7 @@ __device__ __forceinline__ void warp_argmax(float& best, int& arg) {
   }
 }
 
+template <int VEC>
 __global__ void __launch_bounds__(kThreads) decode_rollout_kernel(const RolloutArgs ra) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float sm[];
@@ -487,7 +504,7 @@ __global__ void __launch_bounds__(kThreads) decode_rollout_kernel(const RolloutA
     a.k_new = cache_k + (size_t)s * E;
     a.v_new = cache_v + (size_t)s * E;
     for (int l = 0; l < a.L; ++l) {
-      decode_layer(a, grid, l, s, x, x, sm);
+      decode_layer<VEC>(a, grid, l, s, x, x, sm);
       grid.sync();
     }
 
@@ -556,10 +573,16 @@ size_t smem_bytes(int T, int P, int E, int H, int F) {
   return sizeof(float) * ((size_t)kRT * (E > F ? E : F) + (size_t)kWarps * (E / H + TP));
 }
 
+// Any head width E / H; the products need E % 4 == 0 and F % 4 == 0 (float4
+// rows), the LayerNorms E <= 1024 (a row in one warp's registers).
 bool shapes_ok(int T, int E, int H, int F, int pos) {
-  return E % H == 0 && (E / H) % 4 == 0 && E % 4 == 0 && F % 4 == 0 && E <= 32 * kLnPerLane &&
-         pos >= 0 && pos < T;
+  return H > 0 && E % H == 0 && E % 4 == 0 && F % 4 == 0 && E <= 32 * kLnPerLane && pos >= 0 &&
+         pos < T;
 }
+
+// Which instance of a kernel template serves this head width: float4 key
+// loads when dh % 4 == 0, scalar ones otherwise.
+bool vec4_heads(int E, int H) { return (E / H) % 4 == 0; }
 
 // A cooperative launch of `kernel` over every co-resident block; `arg`
 // points to its one argument struct.
@@ -609,7 +632,9 @@ int tc_decode_layer_forward(
   Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
          w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, layer, L, R, T, P, E, H, F, pos};
-  return launch((const void*)decode_layer_kernel, &a, smem_bytes(T, P, E, H, F), stream);
+  const void* kernel = vec4_heads(E, H) ? (const void*)decode_layer_kernel<4>
+                                         : (const void*)decode_layer_kernel<1>;
+  return launch(kernel, &a, smem_bytes(T, P, E, H, F), stream);
 }
 
 // All L decoder layers for all R rows in one launch; the same arguments as
@@ -627,7 +652,9 @@ int tc_decode_onecell_forward(
   Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
          w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, T, P, E, H, F, pos};
-  return launch((const void*)decode_onecell_kernel, &a, smem_bytes(T, P, E, H, F), stream);
+  const void* kernel = vec4_heads(E, H) ? (const void*)decode_onecell_kernel<4>
+                                         : (const void*)decode_onecell_kernel<1>;
+  return launch(kernel, &a, smem_bytes(T, P, E, H, F), stream);
 }
 
 // A whole greedy rollout of `steps` tokens for R rows.  cache_k/v are
@@ -659,7 +686,9 @@ int tc_decode_rollout(
            ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0},
       embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, head, part_v,
       part_i, state, V, steps, end_id};
-  return launch((const void*)decode_rollout_kernel, &ra, smem_bytes(steps, P, E, H, F), stream);
+  const void* kernel = vec4_heads(E, H) ? (const void*)decode_rollout_kernel<4>
+                                         : (const void*)decode_rollout_kernel<1>;
+  return launch(kernel, &ra, smem_bytes(steps, P, E, H, F), stream);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

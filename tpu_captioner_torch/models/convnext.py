@@ -14,9 +14,15 @@ under torchvision's parameter names, so the reference Encoder's
   7  stage:  3 blocks, dim 1024
 
 Activations are NHWC (channels last) throughout; a conv sees them as an NCHW
-view with channels-last strides.  Each block: depthwise 7x7 conv + bias (the
-grouped conv, as on the JAX main path), then the fused tail of
-``ops/mlp_block.py``.  All LayerNorms use eps 1e-6.
+view with channels-last strides.  Each block: depthwise 7x7 conv + bias, then
+the fused tail of ``ops/mlp_block.py``.  A block that uses its kernels
+(``use_pallas`` not 'off') runs the conv through
+``ops/dwconv.py:depthwise_conv7x7_nhwc`` on the conv weight seen as (7, 7, C),
+with its forward kernel (forward and input gradient) and its filter-gradient
+kernel; a block that does not runs the grouped ``F.conv2d`` and its autograd,
+as on the JAX main path.  The block's ``dw_kernel`` and ``dw_grad_kernel``
+hold the two kernel choices; they follow ``use_kernel``, and only the paired
+A/B of ``chip_smoke.py`` sets them apart.  All LayerNorms use eps 1e-6.
 
 Stochastic depth (row mode, torchvision's): in training each block keeps an
 image with survival ``1 - p``, p ramped as ``0.5 * i / (blocks - 1)``, and
@@ -41,6 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpu_captioner_torch.models import torch_init
+from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
 from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
 
 BASE_DEPTHS = (3, 3, 27, 3)
@@ -82,6 +89,7 @@ class CNBlock(nn.Module):
         )
         self.layer_scale = nn.Parameter(torch.empty(dim, 1, 1, device=device))
         self.use_kernel = use_kernel
+        self.dw_kernel = self.dw_grad_kernel = use_kernel
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -95,7 +103,13 @@ class CNBlock(nn.Module):
         """(B, H, W, C) -> (B, H, W, C); ``sd_rows`` (B,) is the per-image
         stochastic-depth scale (ones when None)."""
         _, h, w, c = x.shape
-        y = conv_nhwc(x, self.block[0]).reshape(-1, c).contiguous()
+        conv = self.block[0]
+        if self.dw_kernel or self.dw_grad_kernel:
+            taps = conv.weight.view(c, 7 * 7).t().contiguous().view(7, 7, c)  # (C, 1, 7, 7) -> (7, 7, C)
+            y = depthwise_conv7x7_nhwc(x.contiguous(), taps, self.dw_kernel, self.dw_grad_kernel) + conv.bias
+        else:
+            y = conv_nhwc(x, conv)
+        y = y.reshape(-1, c).contiguous()
         ln, pw1, pw2 = self.block[2], self.block[3], self.block[5]
         tail = fused_convnext_mlp if self.use_kernel else _mlp_plain
         sd = y.new_ones(y.shape[0]) if sd_rows is None else sd_rows.repeat_interleave(h * w)

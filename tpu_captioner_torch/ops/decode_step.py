@@ -36,6 +36,7 @@ from tpu_captioner_torch.models.layers import attention_one_query, layer_norm, s
 from tpu_captioner_torch.ops import _build
 
 LN_EPS = 1e-5
+MAX_E = 1024  # csrc/decode_step.cu: 32 lanes x kLnPerLane LayerNorm values
 
 
 class DecodeWeights(NamedTuple):
@@ -166,8 +167,15 @@ def _weight_shapes(w: DecodeWeights, L: int, E: int, num_heads: int):
         shapes[name] = (getattr(w, name), (L, E, E), f32)
     for name in ("b_so", "b_cq", "b_co", "b_f2", "ln1_s", "ln1_b", "ln2_s", "ln2_b", "ln3_s", "ln3_b"):
         shapes[name] = (getattr(w, name), (L, E), f32)
-    if E % num_heads or (E // num_heads) % 4 or Fd % 4:
-        raise ValueError(f"kernel needs E/H and F divisible by 4 (E={E}, H={num_heads}, F={Fd})")
+    # Any head width: the kernels load keys as float4 when E/H % 4 == 0 and
+    # as scalars otherwise.  What stays: whole heads, float4 rows in the
+    # products (E and F % 4) and a LayerNorm row in one warp (E <= 1024).
+    if num_heads < 1 or E % num_heads:
+        raise ValueError(f"kernel needs E divisible by the heads (E={E}, H={num_heads})")
+    if E % 4 or Fd % 4:
+        raise ValueError(f"kernel needs E and F divisible by 4 for its float4 rows (E={E}, F={Fd})")
+    if E > MAX_E:
+        raise ValueError(f"kernel holds a LayerNorm row in one warp: E <= {MAX_E}, got {E}")
     return shapes
 
 

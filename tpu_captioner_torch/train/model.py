@@ -13,7 +13,32 @@ on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
 - no per-stage kernel choice: the fused MLP kernels run at every stage.  The
   JAX package put stage 4 on XLA because the TPU backward staged 48 MB of
   weight gradients in scoped VMEM; a Hopper kernel has no such limit;
-- ``finetune_encoder_remat`` below, decided on the H100.
+- ``finetune_encoder_remat`` below, decided on the H100;
+- the depthwise conv's two kernels (``ops/dwconv.py``) follow
+  ``use_pallas``, as the MLP tail does, where the JAX package ships both off
+  (its block passes ``use_pallas=False``; its filter gradient is XLA's
+  unless ``TPU_CAPTIONER_DW_GRAD=pallas``).  Decided by the paired A/B of
+  ``chip_smoke.py:dwconv_ab`` on an NVIDIA H100 80GB HBM3 at 700 W, each
+  kernel apart, at full width and batch 32: a kernel is taken when the
+  median of the pairs' differences exceeds their spread.  Medians, kernel
+  against library, of five runs:
+  - filter gradient, fine-tune step: run A 190.92 vs 227.61 ms and run B
+    201.63 vs 235.12 (8 pairs each, one step per arm; every pair favoured
+    the kernel); run C 193.81 vs 230.20 (12 pairs, fastest of 3 steps per
+    arm; gain 36.70, spread 15.99); run D 192.34 vs 228.85 (gain 36.51,
+    spread 13.79); run E 194.70 vs 229.68 (gain 34.72, spread 22.62);
+  - forward kernel, fine-tune step: run A 224.11 vs 227.84 (pairs 1.77 to
+    4.98); run B 227.54 vs 231.05 (pairs -23.42 to +7.89); run C, cuDNN's
+    weight gradient in both arms, 229.81 vs 230.82 (gain 1.93, spread
+    15.43: not favoured); runs D and E, the filter-gradient kernel in both
+    arms, 187.89 vs 191.74 (gain 3.98, spread 2.87) and 189.07 vs 193.16
+    (gain 4.01, spread 4.17: short of the rule by 0.16 ms).  Every pair of
+    runs A, D and E favoured the kernel (by 2.47 ms at least in D and E),
+    and so did every encoder-pass pair of all five runs, so it stays;
+  - forward kernel, encoder pass: run A 60.94 vs 62.95 (pairs 0.51 to
+    2.20); run B 61.20 vs 63.10 (1.71 to 2.09); run C 61.34 vs 63.28 (gain
+    1.86, spread 0.54); run D 60.98 vs 63.00 (gain 1.97, spread 0.69); run
+    E 60.93 vs 62.86 (gain 1.93, spread 0.54).
 """
 
 from __future__ import annotations
@@ -77,7 +102,7 @@ class CaptionModel(nn.Module):
         if cfg.decoder not in SERVED_DECODERS:
             raise NotImplementedError(
                 f"decoder {cfg.decoder!r} is not ported yet (LSTM families: "
-                "ROADMAP.md Queue 1 #10)"
+                "ROADMAP.md Queue 1 #2)"
             )
         device = torch.device(device)
         if device.type == "cuda":
@@ -162,7 +187,7 @@ class CaptionModel(nn.Module):
         ``'step'`` mode (the JAX package's ``TPU_CAPTIONER_DECODE_ONECELL``).
         ``teacher_tokens``/``teacher_prob`` with a ``generator`` enable
         scheduled sampling.  The kernel rollouts are forward only;
-        free-running training is not ported yet (ROADMAP.md Queue 1 #11)."""
+        free-running training is not ported yet (ROADMAP.md Queue 1 #8)."""
         dec = self.decoder
         args = (encoder_out, start_id, end_id, max_decode_len)
         kw = dict(generator=generator, teacher_tokens=teacher_tokens, teacher_prob=teacher_prob)

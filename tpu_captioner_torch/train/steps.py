@@ -163,7 +163,7 @@ def make_train_step(
     del word_ids
     if not teacher_forcing:
         raise NotImplementedError(
-            "free-running training (rollout_loss) is not ported yet: ROADMAP.md Queue 1 #11"
+            "free-running training (rollout_loss) is not ported yet: ROADMAP.md Queue 1 #8"
         )
     mask = fine_tune_mask(model.encoder, train_encoder, cfg.starting_layer)
     for name, p in model.encoder.named_parameters():
