@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from the five sources in
+2. build the CUDA kernels from the six sources in
    ``tpu_captioner_torch/csrc`` (one nvcc per source, all started together;
    ``decode_step.cu`` holds three kernels, ``dwconv.cu`` two);
 3. hold each kernel against its plain PyTorch version at the main paths'
@@ -25,7 +25,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    32, its input gradient (the flipped filter) and its filter-gradient
    kernels at the fine-tune step's trained stages, beside
    ``F.conv2d(groups=C)`` and ``aten.convolution_backward`` as the library
-   yardsticks; then the three decode kernels at the reference's
+   yardsticks; the LSTM step at the bs-8 beam's 40 rows, the bs-32 beam's
+   160 and the eval step's 32, at E = D = A = 512, C = 1024, and at E=300;
+   then the three decode kernels at the reference's
    pretrained-embedding widths, GloVe-200 (E=200, H=8) and word2vec-300
    (E=300, H=6), whose head widths 25 and 50 take the scalar key loads;
 4. the serving path at full width: ConvNeXt-Base + 6-layer E=512
@@ -66,7 +68,20 @@ Phases, in order; any failure raises and the exit code is not 0:
    so that rows finish and every loop stops early; then encoder, rollout
    and eval-step ms per mode, and the rollout kernel against its plain
    version with CUDA-event times and its bound; then one eval step at
-   E=200, H=8 (GloVe-200's width) in 'step' and 'mega' against 'off'.
+   E=200, H=8 (GloVe-200's width) in 'step' and 'mega' against 'off';
+8. the LSTM families at full width: ConvNeXt-Base + ``lstm`` with E = D = A
+   = 512, vocab 9490, random weights from a seed (the vocab head scaled as
+   in phase 4), ``decode_kernel='on'``.  (a) Beam 5, 50 steps, over phase
+   4's 8 images through the CLI's loader (``--lstmDecoder``): 36 MLP and 36
+   dwconv launches and one lstm_step launch per beam step; the captions must
+   equal an every-kernel-off copy's, except at a near-tie; encoder ms, beam
+   ms and captions/s at batch 8 and 32; then ``lstm_no_attention`` once
+   through the loader, with no lstm_step launch.  (b) The greedy eval step at
+   batch 32, 51 steps, kernel against 'off', as in phase 7, with the
+   doubly stochastic term in the loss, with the natural <end> and with one
+   the rows emit.  (c) The frozen train step of phase 5 on ``lstm`` (one
+   pool launch of 835,584 bits).  (d) The paired A/B that decides whether
+   ``'auto'`` takes the LSTM step kernel: bs-8 beam and bs-32 eval step.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths, max error, times and
@@ -548,8 +563,9 @@ def plain_mask_pool():
         dropout_mask.random_mask_pool = kernel
 
 
-def train_phase(dev, card, seed, word_map):
-    """Phase 5: the frozen-encoder train step at full width, batch 32."""
+def train_phase(dev, card, seed, word_map, cfg=None, pool_n=POOL_N):
+    """Phase 5 (and 8c for ``cfg``'s LSTM): the frozen-encoder train step at
+    full width, batch 32, whose pool draws ``pool_n`` bits."""
     import torch
 
     from tpu_captioner_torch.core import prng
@@ -560,9 +576,9 @@ def train_phase(dev, card, seed, word_map):
     from tpu_captioner_torch.train.state import TrainState
     from tpu_captioner_torch.train.steps import make_train_step, pool_demand
 
-    cfg, tc = ModelConfig(vocab_size=VOCAB), TrainConfig(batch_size=TRAIN_BS)
-    if pool_demand(cfg, TRAIN_BS, TRAIN_T, cfg.num_pixels) != POOL_N:
-        raise AssertionError("the flagship pool size changed")
+    cfg, tc = cfg or ModelConfig(vocab_size=VOCAB), TrainConfig(batch_size=TRAIN_BS)
+    if pool_demand(cfg, TRAIN_BS, TRAIN_T, cfg.num_pixels) != pool_n:
+        raise AssertionError(f"the {cfg.decoder} train step's pool size changed")
     model = CaptionModel(cfg, device=dev, seed=seed)
     gen = torch.Generator().manual_seed(seed + 3)
     with torch.no_grad():  # order-one layer scales, as in phase 3
@@ -586,7 +602,7 @@ def train_phase(dev, card, seed, word_map):
             grads.append({k: p.grad.clone() for k, p in model.decoder.named_parameters()})
             if count:
                 launches.append((random_mask_pool.launches, fused_convnext_mlp.launches))
-                print(f"train step: {launches[-1][0]} dropout_mask launches, "
+                print(f"{cfg.decoder} train step: {launches[-1][0]} dropout_mask launches ({pool_n} bits), "
                       f"{launches[-1][1]} mlp_block launches")
                 if launches[-1] != (1, 36):
                     raise AssertionError(f"expected 1 dropout_mask and 36 mlp_block launches, got {launches[-1]}")
@@ -597,7 +613,7 @@ def train_phase(dev, card, seed, word_map):
     with plain_mask_pool():
         want, _, want_params, _ = two_steps(count=False)
     for i, (a, b) in enumerate(zip(got, want)):
-        print(f"train step {i}: kernel pool {a}; plain pool {b}")
+        print(f"{cfg.decoder} train step {i}: kernel pool {a}; plain pool {b}")
         if not all(abs(a[k] - b[k]) <= 1e-5 for k in a) or not math.isfinite(a["loss"]):
             raise AssertionError(f"train step {i}: kernel and plain pools disagree or the loss is not finite")
     worst = 0.0
@@ -629,7 +645,7 @@ def train_phase(dev, card, seed, word_map):
     enc_ms, _ = _host_ms(lambda: model.encode(
         batch["images"], train=True, generator=prng.generator(seeds[0], dev)), repeats=5)
     ms = sorted(times)[len(times) // 2]
-    print(f"train step bs={TRAIN_BS} frozen encoder: median {ms:.2f} ms/step over {TRAIN_TIMED_STEPS} "
+    print(f"{cfg.decoder} train step bs={TRAIN_BS} frozen encoder: median {ms:.2f} ms/step over {TRAIN_TIMED_STEPS} "
           f"steps (min {min(times):.2f}, max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, "
           f"train-mode encoder {enc_ms:.2f} ms, peak memory {peak / 2**30:.2f} GiB; "
           f"loss {float(m['loss']):.4f} [{card}]")
@@ -683,27 +699,20 @@ def set_dw(model, dw_kernel, dw_grad_kernel):
             blk.dw_kernel, blk.dw_grad_kernel = dw_kernel, dw_grad_kernel
 
 
-def dwconv_ab(dev, card, model, step, state, batch, seeds):
-    """The paired A/B that decides whether each depthwise-conv kernel
-    follows ``use_pallas``: for each kernel, AB_PAIRS pairs of fine-tune
-    steps on one model and state, kernel and library in turns, the order
-    within a pair alternating.  The filter gradient goes first, the forward
-    on the library in both arms (the library arm is the grouped conv and its
-    autograd); then the forward kernel (forward and input gradient), the
-    filter gradient on its kernel in both arms, so that cuDNN's weight
-    gradient (38 ms of the step, and the wider spread) is in neither.  For the forward kernel also AB_PAIRS pairs of eval encoder
-    passes at batch 32 (no backward).  Each arm of a pair
-    is the fastest of AB_REPS calls, host clock, each call synchronised.
-    A kernel is favoured when the median of the pairs' differences (library
-    - kernel) exceeds their spread (the largest difference less the
-    smallest).  ``seeds`` is an iterator of dropout seeds.  Leaves the model
-    on the library."""
+def paired_ab(label, card, fn, use_kernel, use_other, other="plain"):
+    """AB_PAIRS pairs of calls of ``fn`` with the kernel (``use_kernel()``
+    selects it) and with the other arm (``use_other()``), the order within a
+    pair alternating; each arm of a pair is the fastest of AB_REPS calls,
+    host clock, each call synchronised (a busy host only adds time).  The
+    kernel is favoured when the median of the pairs' differences (other -
+    kernel) exceeds their spread (the largest difference less the smallest).
+    Returns (favoured, kernel median ms, other median ms, gain, spread)."""
     import statistics
 
     import torch
 
-    def run(choice, fn):
-        set_dw(model, *choice)
+    def run(choose):
+        choose()
         times = []
         for _ in range(AB_REPS):
             torch.cuda.synchronize()
@@ -713,6 +722,35 @@ def dwconv_ab(dev, card, model, step, state, batch, seeds):
             times.append((time.perf_counter() - t0) * 1e3)
         return min(times)
 
+    run(use_kernel)  # warm-up of both arms
+    run(use_other)
+    pairs = []
+    for i in range(AB_PAIRS):
+        order = (use_kernel, use_other) if i % 2 == 0 else (use_other, use_kernel)
+        t = {choose: run(choose) for choose in order}
+        pairs.append((t[use_kernel], t[use_other]))
+    diffs = [o - k for k, o in pairs]
+    gain, spread = statistics.median(diffs), max(diffs) - min(diffs)
+    k_med, o_med = statistics.median(k for k, _ in pairs), statistics.median(o for _, o in pairs)
+    print(f"A/B {label}, {AB_PAIRS} pairs, fastest of {AB_REPS} calls per arm: kernel median {k_med:.2f} ms, "
+          f"{other} median {o_med:.2f} ms; {other} - kernel per pair median {gain:.2f}, min {min(diffs):.2f}, "
+          f"max {max(diffs):.2f}, spread {spread:.2f} ms; kernel favoured (median > spread): {gain > spread} "
+          f"[{card}]")
+    print(f"  pairs (kernel, {other}) ms: " + ", ".join(f"({k:.2f}, {o:.2f})" for k, o in pairs))
+    return gain > spread, k_med, o_med, gain, spread
+
+
+def dwconv_ab(dev, card, model, step, state, batch, seeds):
+    """The paired A/B (``paired_ab``) that decides whether each
+    depthwise-conv kernel follows ``use_pallas``: fine-tune steps on one
+    model and state, kernel and library in turns.  The filter gradient goes
+    first, the forward on the library in both arms (the library arm is the
+    grouped conv and its autograd); then the forward kernel (forward and
+    input gradient), the filter gradient on its kernel in both arms, so that
+    cuDNN's weight gradient (38 ms of the step, and the wider spread) is in
+    neither.  For the forward kernel also eval encoder passes at batch 32 (no
+    backward).  ``seeds`` is an iterator of dropout seeds.  Leaves the model
+    on the library."""
     state_box = [state]
 
     def one_step():
@@ -725,22 +763,8 @@ def dwconv_ab(dev, card, model, step, state, batch, seeds):
     }
     favoured = {}
     for label, (kernel, library, fn) in arms.items():
-        run(kernel, fn)  # warm-up of both arms
-        run(library, fn)
-        pairs = []
-        for i in range(AB_PAIRS):
-            order = (kernel, library) if i % 2 == 0 else (library, kernel)
-            t = {c: run(c, fn) for c in order}
-            pairs.append((t[kernel], t[library]))
-        diffs = [lib - k for k, lib in pairs]
-        gain, spread = statistics.median(diffs), max(diffs) - min(diffs)
-        favoured[label] = gain > spread
-        print(f"A/B {label}, {AB_PAIRS} pairs, fastest of {AB_REPS} calls per arm: kernel median "
-              f"{statistics.median(k for k, _ in pairs):.2f} ms, library median "
-              f"{statistics.median(lib for _, lib in pairs):.2f} ms; library - kernel per pair median "
-              f"{gain:.2f}, min {min(diffs):.2f}, max {max(diffs):.2f}, spread {spread:.2f} ms; "
-              f"kernel favoured (median > spread): {favoured[label]} [{card}]")
-        print("  pairs (kernel, library) ms: " + ", ".join(f"({k:.2f}, {lib:.2f})" for k, lib in pairs))
+        favoured[label] = paired_ab(label, card, fn, lambda: set_dw(model, *kernel),
+                                    lambda: set_dw(model, *library), other="library")[0]
     set_dw(model, False, False)
     return state_box[0], favoured
 
@@ -889,10 +913,14 @@ EVAL_MODES = (  # (label, ModelConfig.decode_kernel, one_cell)
     ("off", "off", False), ("step", "step", False), ("one_cell", "step", True), ("mega", "mega", False),
 )
 LOGIT_TOL, ALPHA_TOL = 1e-4, 1e-5  # as DECODE_TOL's x and alpha: f32 sums in another order
+# The LSTM step kernel against its plain version: h, c and alpha are f32 sums
+# of up to E + D + C order-one products, in another order than cuBLAS's.
+LSTM_TOL = 1e-5
+LSTM_ROWS = (8 * BEAM, 32 * BEAM, TRAIN_BS)  # the bs-8 and bs-32 beams, the eval step
 
 
 def flagship_model(cfg, dev, seed):
-    """The served model of phases 3, 4 and 7: random weights from ``seed``,
+    """The served model of phases 3, 4, 7 and 8: random weights from ``seed``,
     order-one layer scales so that every MLP tail shows in the features, and
     a vocab head scaled x16 (peaked, as a trained captioner's) so that beam
     and argmax ties are improbable."""
@@ -905,7 +933,8 @@ def flagship_model(cfg, dev, seed):
     with torch.no_grad():
         for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
             blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
-        model.decoder.fc_out.weight.mul_(16.0)
+        head = model.decoder.fc if cfg.decoder in ("lstm", "lstm_no_attention") else model.decoder.fc_out
+        head.weight.mul_(16.0)
     return model
 
 
@@ -949,6 +978,20 @@ def rollout_bound(lengths, L, P, E, Fd, V, steps):
     n_bytes = 4 * (L * (6 * E * E + 2 * E * Fd + 9 * E + Fd) + V * E + V + 2 * L * R * P * E
                    + row_steps * E + max(lengths) * E + R * steps * (V + P + 1))
     return n_bytes, n_ops
+
+
+def emitted_end_id(seqs):
+    """An end id for a rerun in which rows finish early: one every row of
+    ``seqs`` emits if there is one (of those, the one whose rows finish at
+    the most different steps), else the most frequent token (never <pad>)."""
+    import torch
+
+    seqs = seqs.long()
+    in_all = [v for v in range(1, VOCAB) if bool((seqs == v).any(dim=1).all())]
+    if in_all:
+        firsts = {v: (seqs == v).int().argmax(dim=1).tolist() for v in in_all}
+        return min(firsts, key=lambda v: (-len(set(firsts[v])), max(firsts[v])))
+    return int(torch.bincount(seqs.flatten(), minlength=VOCAB)[1:].argmax()) + 1
 
 
 def eval_phase(dev, card, seed, word_map):
@@ -1039,17 +1082,7 @@ def eval_phase(dev, card, seed, word_map):
                 eval_ms, _ = _host_ms(lambda: step(batch))
                 print(f"eval bs={TRAIN_BS} {label}: encoder {enc_ms:.2f} ms, rollout {roll_ms:.2f} ms "
                       f"({runs[label][3]} tokens), eval step {eval_ms:.2f} ms [{card}]")
-            # The next end id: one every row emits if there is one (of those,
-            # the one whose rows finish at the most different steps), else
-            # the most frequent token (never <pad>), so that rows finish early.
-            seqs = plain[1]["sequences"].long()
-            in_all = [v for v in range(1, VOCAB) if bool((seqs == v).any(dim=1).all())]
-            if in_all:
-                firsts = {v: (seqs == v).int().argmax(dim=1).tolist() for v in in_all}
-                end_id = min(firsts, key=lambda v: (-len(set(firsts[v])), max(firsts[v])))
-            else:
-                end_id = int(torch.bincount(seqs.flatten(), minlength=VOCAB)[1:].argmax()) + 1
-            ids = dict(word_map, **{"<end>": end_id})
+            ids = dict(word_map, **{"<end>": emitted_end_id(plain[1]["sequences"])})
         elif not bool((lengths < steps).any()):
             raise AssertionError(f"no row finished before step {steps} with <end> = {ids['<end>']}")
 
@@ -1084,13 +1117,22 @@ def word_map_of(vocab):
 
 def prefix_logprob(model, enc_out_1, seq):
     """Cumulative log-prob of token sequence ``seq`` (starting with <start>)
-    under ``model``'s plain decode step: a beam candidate's score."""
+    under ``model``'s plain decode step (Transformer or LSTM with attention):
+    a beam candidate's score."""
     import torch
 
     dec = model.decoder
+    total = 0.0
+    if model.cfg.decoder == "lstm":
+        enc = enc_out_1.flatten(1, 2)
+        att1 = dec.attention.encoder_att(enc)
+        h, c = dec.init_hidden_state(enc)
+        for pos in range(len(seq) - 1):
+            h, c, _ = dec.step(h, c, dec.embedding(seq[pos : pos + 1]), enc, att1)
+            total += torch.log_softmax(dec.fc(h), -1)[0, seq[pos + 1]].item()
+        return total
     memory = dec.precompute_memory(enc_out_1)
     cache = dec.init_cache(1, len(seq))
-    total = 0.0
     for pos in range(len(seq) - 1):
         logits, cache, _ = dec.decode_step(seq[pos : pos + 1], pos, cache, memory)
         total += torch.log_softmax(logits.float(), -1)[0, seq[pos + 1]].item()
@@ -1216,6 +1258,243 @@ def eval_width(dev, card, model, word_map):
     model.cfg = cfg
 
 
+def lstm_bound(R, E, D, A, C, P):
+    """(bytes, ops) of one LSTM step over R rows: the weights, emb, h, c, enc
+    and att1 read once, h', c' and alpha written; 2 operations per
+    multiply-add of the five products, 4 per (pixel, attention unit) of the
+    scores (add, relu, multiply-add) and 2 per (pixel, channel) of the
+    context."""
+    n_weights = A * D + 2 * A + 1 + C * D + C + 4 * D * (E + C + D + 1)
+    n_bytes = 4 * (n_weights + R * (E + 2 * D + P * (C + A)) + R * (2 * D + P))
+    n_ops = 2 * R * (A * D + C * D + 4 * D * (E + C + D)) + R * P * (4 * A + 2 * C)
+    return n_bytes, n_ops
+
+
+def check_lstm(dev, card):
+    """The LSTM step kernel against its plain version at the main paths'
+    rows (``LSTM_ROWS``) at full width, E = D = A = 512, C = 1024, P = 49,
+    and at the bs-8 beam's rows with E = 300 (word2vec-300's width); seeded
+    weights U(+-1/sqrt(fan-in)), as the default Linear and LSTMCell draw
+    them.  CUDA-event times of both (weights and inputs stay in the 50 MB L2
+    from call to call, as in a decode loop) and the bound.  Returns (worst
+    error, kernel ms, plain ms, bound ms, bound by) at the bs-8 beam's rows
+    and E = 512."""
+    import torch
+
+    from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, _lstm_step_plain, fused_lstm_step
+
+    D, A, C, P = 512, 512, 1024, 49
+    worst, out = 0.0, None
+    for R, E in [(r, 512) for r in LSTM_ROWS] + [(LSTM_ROWS[0], 300)]:
+        g = torch.Generator().manual_seed(R + E)
+        u = lambda fan_in, *sh: ((torch.rand(*sh, generator=g) * 2 - 1) / math.sqrt(fan_in)).to(dev)  # noqa: E731
+        f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+        w = LstmStepWeights(u(D, A, D), u(D, A), u(A, A), u(A, 1), u(D, C, D), u(D, C),
+                            u(D, 4 * D, E), u(D, 4 * D, C), u(D, 4 * D, D), u(D, 4 * D))
+        args = (w, f(R, E), f(R, D), f(R, D), f(R, P, C), f(R, P, A))
+        got, want = fused_lstm_step(*args), _lstm_step_plain(*args)
+        errs = {k: (a - b).abs().max().item() for k, a, b in zip(("h", "c", "alpha"), got, want)}
+        if not (all(torch.isfinite(a).all() for a in got) and max(errs.values()) < LSTM_TOL):
+            raise AssertionError(f"lstm_step kernel disagrees at R={R}, E={E}: {errs} (tol {LSTM_TOL:g})")
+        t_kernel = _time_ms(lambda: fused_lstm_step(*args), iters=50)
+        t_plain = _time_ms(lambda: _lstm_step_plain(*args), iters=50)
+        bound_ms, bound_by = bound(*lstm_bound(R, E, D, A, C, P))
+        print(f"lstm_step R={R} E={E} D={D} A={A} C={C} P={P}: max_abs_err " +
+              ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {LSTM_TOL:g}); kernel "
+              f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms per step, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        worst = max(worst, *errs.values())
+        if out is None:
+            out = (t_kernel, t_plain, bound_ms, bound_by)
+    return (worst, *out)
+
+
+def lstm_serve(dev, card, seed, word_map, images8, rng):
+    """Phase 8a: beam-5 serving of ``lstm`` through the CLI's loader, with
+    the decode kernel on, against a copy with every kernel off; serving
+    times at batch 8 and 32; then ``lstm_no_attention`` once through the
+    loader.  Returns the served model and the main path's lstm_step
+    launches."""
+    import numpy as np
+    import torch
+
+    from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
+    from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.infer.beam import beam_search_encoded
+    from tpu_captioner_torch.models.from_jax import save_reference_checkpoint
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    def load(model, **flags):
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "BEST_checkpoint_lstm.pth.tar")
+            save_reference_checkpoint(model, ckpt)
+            cli = argparse.Namespace(checkpoint=ckpt, embeddingName=None, device=str(dev), seed=seed + 13, **flags)
+            loaded = build_model_and_params(cli, word_map)
+        want = model.state_dict()
+        if not all(torch.equal(v, want[k]) for k, v in loaded.state_dict().items()):
+            raise AssertionError("checkpoint round trip changed the weights")
+        return loaded
+
+    cfg = ModelConfig(decoder="lstm", vocab_size=VOCAB, decode_kernel="on")
+    served = load(flagship_model(cfg, dev, seed + 11), decoder=None, lstmDecoder=True)
+    served.cfg = dataclasses.replace(served.cfg, decode_kernel="on")
+    plain = CaptionModel(dataclasses.replace(served.cfg, **ALL_OFF), device=dev)
+    plain.load_state_dict(served.state_dict())
+    steps = [0]  # one embedding lookup per beam step
+    hook = served.decoder.embedding.register_forward_hook(lambda *a: steps.__setitem__(0, steps[0] + 1))
+    fused_convnext_mlp.launches = depthwise_conv7x7_nhwc.launches = fused_lstm_step.launches = 0
+    got = caption_batch(served, images8.numpy(), word_map, BEAM)
+    torch.cuda.synchronize()
+    seen = (fused_convnext_mlp.launches, depthwise_conv7x7_nhwc.launches, fused_lstm_step.launches)
+    hook.remove()
+    print(f"lstm main path: {seen[0]} mlp_block and {seen[1]} dwconv launches (1 encoder pass), {seen[2]} "
+          f"lstm_step launches over {steps[0]} beam steps")
+    if seen != (36, 36, steps[0]) or steps[0] < 1:
+        raise AssertionError(f"expected 36 mlp_block, 36 dwconv and one lstm_step launch per beam step "
+                             f"({steps[0]} steps), got {seen}")
+    want = caption_batch(plain, images8.numpy(), word_map, BEAM)
+    for _, score, seq, alpha in got:
+        if not (seq[0] == word_map["<start>"] and alpha.shape == (len(seq), cfg.num_pixels)
+                and np.isfinite(alpha).all() and np.isfinite(score)):
+            raise AssertionError("malformed lstm caption output")
+    compare_captions(got, want, plain, images8.to(dev))
+    for j, (cap, score, seq, _) in enumerate(got[:2]):
+        print(f"lstm caption {j} (score {score:.4f}, {len(seq)} tokens): {cap[:80]}")
+    print(f"lstm beam-{BEAM} kernel vs plain on the card: captions agree on {len(got)} images")
+    for bs in (8, 32):
+        imgs = torch.randint(0, 256, (bs, 256, 256, 3), generator=rng, dtype=torch.uint8).to(dev)
+        for label, m in (("kernels", served), ("plain", plain)):
+            m.encode(imgs)  # warm-up
+            enc_ms, enc = _host_ms(lambda: m.encode(imgs))
+            beam_ms, _ = _host_ms(lambda: beam_search_encoded(
+                m, enc, beam_size=BEAM, max_steps=MAX_STEPS,
+                start_id=word_map["<start>"], end_id=word_map["<end>"]))
+            print(f"lstm serve bs={bs} {label}: encoder {enc_ms:.2f} ms, beam {beam_ms:.2f} ms, "
+                  f"{bs / ((enc_ms + beam_ms) / 1e3):.2f} captions/s [{card}]")
+
+    no_att = ModelConfig(decoder="lstm_no_attention", vocab_size=VOCAB)
+    loaded = load(flagship_model(no_att, dev, seed + 14), decoder="lstm_no_attention", lstmDecoder=False)
+    fused_lstm_step.launches = 0
+    out = caption_batch(loaded, images8.numpy(), word_map, BEAM)
+    torch.cuda.synchronize()
+    for _, score, seq, alpha in out:
+        if not (seq[0] == word_map["<start>"] and 1 < len(seq) <= MAX_STEPS + 2 and np.isfinite(score)
+                and alpha.shape == (len(seq), no_att.num_pixels) and not alpha.any()):
+            raise AssertionError("malformed lstm_no_attention caption output")
+    if fused_lstm_step.launches:
+        raise AssertionError("lstm_no_attention launched the LSTM step kernel")
+    print(f"lstm_no_attention beam-{BEAM} through the CLI loader: {len(out)} captions, "
+          f"{fused_lstm_step.launches} lstm_step launches; caption 0: {out[0][0][:60]}")
+    del loaded, plain
+    return served, seen[2]
+
+
+def lstm_eval(dev, card, seed, model, word_map):
+    """Phase 8b: the greedy eval step of ``lstm`` at batch 32, 51 steps,
+    with the kernel ('on') against 'off': launches counted (36 MLP launches,
+    one lstm_step launch per token run), rollouts compared as in
+    ``compare_rollouts`` and, without a near-tie, the loss (with the
+    alpha_c term) within 1e-4 relative and the sequences, lengths and counts
+    equal.  With the natural <end>, then with one the rows emit, so that the
+    early exit fires.  Returns the batch."""
+    import torch
+
+    from tpu_captioner_torch.core.config import TrainConfig
+    from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    cfg, tc = model.cfg, TrainConfig(batch_size=TRAIN_BS)
+    steps = tc.max_decode_len
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(seed + 15), word_map,
+                                                   VOCAB).items()}
+    tokens = [0]
+    hook = model.decoder.embedding.register_forward_hook(lambda *a: tokens.__setitem__(0, tokens[0] + 1))
+
+    def run(mode, ids):
+        model.cfg = dataclasses.replace(cfg, decode_kernel=mode)
+        step = make_eval_step(model, tc, ids)
+        fused_convnext_mlp.launches = fused_lstm_step.launches = tokens[0] = 0
+        aux = step(batch)
+        torch.cuda.synchronize()
+        seen, ran = (fused_convnext_mlp.launches, fused_lstm_step.launches), tokens[0]
+        with torch.inference_mode():
+            roll = model.rollout(model.encode(batch["images"]), word_map["<start>"], ids["<end>"], steps)
+        return step, aux, seen, ran, roll
+
+    ids = word_map
+    for end_label in ("natural", "emitted"):
+        runs = {mode: run(mode, ids) for mode in ("off", "on")}
+        want = runs["off"][1]
+        need = int(want["lengths"].max())
+        for mode, (step, aux, seen, ran, roll) in runs.items():
+            expect = (36, 0 if mode == "off" else need)
+            print(f"lstm eval ({end_label} <end> = {ids['<end>']}) {mode}: launches (mlp_block, lstm_step) {seen}, "
+                  f"{ran} tokens run, {int((aux['lengths'] < steps).sum())} of {TRAIN_BS} rows finished before "
+                  f"step {steps}; loss {float(aux['loss']):.6f}, tokens {int(aux['tokens'])}, "
+                  f"top5 {int(aux['top5_correct'])}")
+            if seen != expect or ran != need:
+                raise AssertionError(f"lstm eval {mode}: expected launches {expect} and {need} tokens, got {seen}, {ran}")
+            if not (torch.isfinite(roll[0]).all() and aux["sequences"].shape == (TRAIN_BS, steps)
+                    and math.isfinite(float(aux["loss"]))):
+                raise AssertionError(f"lstm eval {mode}: malformed output")
+            if mode == "off":
+                continue
+            logit_err, alpha_err, ties = compare_rollouts(f"lstm eval {mode}", roll, runs["off"][4])
+            print(f"  {mode} vs off: logits {logit_err:.3e} (tol {LOGIT_TOL:g}), maps {alpha_err:.3e} "
+                  f"(tol {ALPHA_TOL:g}), {len(ties)} rows differ at a near-tie")
+            if ties:
+                print(f"  {mode}: loss and counts not compared (a near-tie changed a sequence)")
+                continue
+            rel = abs(float(aux["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+            same = all(torch.equal(aux[k], want[k]) for k in ("sequences", "lengths", "tokens", "top5_correct"))
+            if not (rel < 1e-4 and same):
+                raise AssertionError(f"lstm eval {mode}: metrics disagree with 'off' (loss rel {rel})")
+        if end_label == "natural":
+            for mode, (step, *_rest) in runs.items():
+                model.cfg = dataclasses.replace(cfg, decode_kernel=mode)
+                eval_ms, _ = _host_ms(lambda: step(batch))
+                print(f"lstm eval bs={TRAIN_BS} {mode}: eval step {eval_ms:.2f} ms ({runs[mode][3]} tokens) [{card}]")
+            ids = dict(word_map, **{"<end>": emitted_end_id(want["sequences"])})
+        elif not bool((want["lengths"] < steps).any()):
+            raise AssertionError(f"no lstm row finished before step {steps} with <end> = {ids['<end>']}")
+    hook.remove()
+    model.cfg = cfg
+    return batch
+
+
+def lstm_ab(card, model, images8, batch, word_map):
+    """Phase 8d: the paired A/B (``paired_ab``) that sets ``'auto'`` for
+    ``lstm``: the kernel against the plain step in the bs-8 beam (encoder
+    output computed once) and in the bs-32 eval step.  Returns whether each
+    context favours the kernel."""
+    import torch
+
+    from tpu_captioner_torch.core.config import TrainConfig
+    from tpu_captioner_torch.infer.beam import beam_search_encoded
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    cfg = model.cfg
+
+    def use(mode):
+        return lambda: setattr(model, "cfg", dataclasses.replace(cfg, decode_kernel=mode))
+
+    with torch.inference_mode():
+        enc8 = model.encode(images8)
+    step = make_eval_step(model, TrainConfig(batch_size=TRAIN_BS), word_map)
+    contexts = {
+        "lstm decode kernel, beam-5 bs 8": lambda: beam_search_encoded(
+            model, enc8, beam_size=BEAM, max_steps=MAX_STEPS,
+            start_id=word_map["<start>"], end_id=word_map["<end>"]),
+        "lstm decode kernel, eval step bs 32": lambda: step(batch),
+    }
+    favoured = {label: paired_ab(label, card, fn, use("on"), use("off"))[0] for label, fn in contexts.items()}
+    model.cfg = cfg
+    return favoured
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1245,7 +1524,7 @@ def main(argv=None):
     pin_f32_precision()
 
     # 2. Build the kernels, one nvcc each, all at once.
-    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv")
+    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv", "lstm_step")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -1271,6 +1550,7 @@ def main(argv=None):
     pool_err, pool_ms, pool_plain_ms, pool_lib_ms, pool_bound, pool_by = check_dropout(dev, card)
     bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, bwd_by = check_mlp_bwd(dev, card)
     dw = check_dwconv(dev, card)
+    lstm_err, lstm_ms, lstm_plain_ms, lstm_bound_ms, lstm_by = check_lstm(dev, card)
     width_models = check_widths(dev, card, args.seed)
 
     # 4. The serving path through the CLI's loader, kernels on.
@@ -1353,11 +1633,25 @@ def main(argv=None):
     print("depthwise-conv A/B (kernel favoured: median gain > spread of the pairs): " + ", ".join(
         f"{k}: {v}" for k, v in favoured.items()))
 
+    # 8. The LSTM families at full width: serving, eval step, train step, A/B.
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    lstm_model, lstm_launches = lstm_serve(dev, card, args.seed, word_map, images8, rng)
+    eval_batch = lstm_eval(dev, card, args.seed, lstm_model, word_map)
+    lstm_favoured = lstm_ab(card, lstm_model, images8.to(dev), eval_batch, word_map)
+    del lstm_model, eval_batch
+    torch.cuda.empty_cache()
+    lstm_pool = TRAIN_BS * (TRAIN_T - 1) * ModelConfig().decoder_dim
+    train_phase(dev, card, args.seed + 16, word_map, ModelConfig(decoder="lstm", vocab_size=VOCAB), lstm_pool)
+    print("lstm decode-kernel A/B (kernel favoured: median gain > spread of the pairs): " + ", ".join(
+        f"{k}: {v}" for k, v in lstm_favoured.items()) + f"; 'auto' may take the kernel for lstm: "
+          f"{all(lstm_favoured.values())}; phase 8 took {time.perf_counter() - t8:.1f} s")
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
     # fine-tune step.  decode_onecell's and decode_rollout's: one eval step in
-    # their modes, natural <end>.
+    # their modes, natural <end>.  lstm_step's: one lstm beam over 8 images.
     print(json.dumps({"kernels": [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
@@ -1390,6 +1684,10 @@ def main(argv=None):
           for name, replaces, launches in (
               ("dwconv", "tpu_captioner/ops/dwconv.py:37", dw_launches),
               ("dwconv_grad", "tpu_captioner/ops/dwconv.py:97", dw_grad_launches))),
+        {"name": "lstm_step", "route": "cuda", "source": "tpu_captioner_torch/csrc/lstm_step.cu",
+         "replaces": "tpu_captioner/ops/lstm_step.py:81", "launches": lstm_launches,
+         "max_abs_err": lstm_err, "ms": lstm_ms, "plain_ms": lstm_plain_ms,
+         "bound_ms": lstm_bound_ms, "bound_by": lstm_by, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -27,7 +27,13 @@ gradient, the same kernel with the filter flipped) agrees with the grouped
 conv within 1e-5 times max(1, its largest magnitude): 49 f32 products per
 output, summed in another order than cuDNN's; the filter-gradient kernels
 within 1e-4 times the same (sums over all B x H x W pixels), with the same
-bits from run to run (partials summed in a fixed order, no atomics).
+bits from run to run (partials summed in a fixed order, no atomics).  The
+LSTM step kernel's h, c and attention map agree with its plain version within
+1e-5 (sums of up to E + D + C products of order-one terms scaled by
+1/sqrt(fan-in), in another order than cuBLAS's), at the serving (40 rows),
+eval (32) and batch-32 beam (160) row counts and ragged ones, at E = 512, 300
+(word2vec) and 48, and at the JAX tests' odd small widths; it repeats bit for
+bit (no atomics).
 """
 
 import math
@@ -51,6 +57,7 @@ from tpu_captioner_torch.ops.dwconv import (
     dwconv_filter_grad,
     dwconv_forward,
 )
+from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, _lstm_step_plain, fused_lstm_step
 from tpu_captioner_torch.ops.mlp_block import (
     SUPPORTED_C,
     _mlp_bwd_plain,
@@ -343,3 +350,53 @@ def test_dwconv_autograd_matches_grouped_conv(cuda, shape):
     y_ref = _dw_plain(x, w)
     dx_ref, dw_ref = torch.autograd.grad(y_ref, (x, w), g)
     assert within(y, y_ref, 1e-5) and within(d_x, dx_ref, 1e-5) and within(d_w, dw_ref, 1e-4)
+
+
+def lstm_args(R, E, D, A, C, P, device, seed=0):
+    """``fused_lstm_step``'s arguments: weights U(+-1/sqrt(fan-in)) as the
+    default Linear and LSTMCell draw them, inputs N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda fan_in, *s: (torch.rand(*s, generator=g) * 2 - 1) / math.sqrt(fan_in)  # noqa: E731
+    f = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    w = LstmStepWeights(u(D, A, D), u(D, A), u(A, A), u(A, 1), u(D, C, D), u(D, C),
+                        u(D, 4 * D, E), u(D, 4 * D, C), u(D, 4 * D, D), 2 * u(D, 4 * D))
+    return (LstmStepWeights(*(x.to(device) for x in w)),
+            *(x.to(device) for x in (f(R, E), f(R, D), f(R, D), f(R, P, C), f(R, P, A))))
+
+
+def assert_lstm_step_matches_plain(args):
+    before = fused_lstm_step.launches
+    got = fused_lstm_step(*args)
+    torch.cuda.synchronize()
+    assert fused_lstm_step.launches == before + 1
+    want = _lstm_step_plain(*args)
+    for name, a, b in zip(("h", "c", "alpha"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert (a - b).abs().max().item() < 1e-5, name
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_lstm_step(*args)))
+
+
+@pytest.mark.parametrize("rows", [1, 32, 37, 40, 160])
+@pytest.mark.parametrize("E", [512, 300, 48])
+def test_lstm_step_kernel_matches_plain(cuda, rows, E):
+    """The model's widths D = A = 512, C = 1024, P = 49, with the
+    embedding width free."""
+    assert_lstm_step_matches_plain(lstm_args(rows, E, 512, 512, 1024, 49, cuda, seed=rows + E))
+
+
+@pytest.mark.parametrize("rows", [1, 5, 37])
+@pytest.mark.parametrize("widths", [(48, 56, 36, 40, 4), (7, 5, 3, 9, 3), (300, 33, 65, 130, 50)])
+def test_lstm_step_kernel_at_odd_widths(cuda, rows, widths):
+    """(E, D, A, C, P): ``tests/test_lstm_kernel.py``'s widths, widths that
+    are no multiple of 4, and P beyond a warp."""
+    assert_lstm_step_matches_plain(lstm_args(rows, *widths, cuda, seed=rows))
+
+
+def test_lstm_step_refuses_widths_beyond_shared_memory(cuda):
+    """16 staged rows of D + E floats must fit a block's shared memory: the
+    wrapper raises a ValueError, it does not fall back."""
+    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    R, E, D, A, C, P = 2, 3000, 1000, 8, 8, 4
+    w = LstmStepWeights(z(A, D), z(A), z(A), z(1), z(C, D), z(C), z(4 * D, E), z(4 * D, C), z(4 * D, D), z(4 * D))
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_lstm_step(w, z(R, E), z(R, D), z(R, D), z(R, P, C), z(R, P, A))

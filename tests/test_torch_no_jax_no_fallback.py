@@ -6,9 +6,9 @@
   build, the kernel wrappers given a non-CPU tensor, a model asked for
   ``cuda``, and ``chip_smoke.main()``.
 - The MLP-tail wrapper carries a gradient (its backward is a kernel too);
-  the decode wrappers (the step, per layer or one-cell, and the whole
-  rollout) are forward only and raise, on every device, when autograd would
-  need a gradient through them.
+  the decode wrappers (the step, per layer or one-cell, the whole rollout,
+  and the LSTM step) are forward only and raise, on every device, when
+  autograd would need a gradient through them.
 - ``decode_kernel='mega'`` always reaches the whole-rollout kernel: it never
   resolves to the per-token one.
 - The train step's branch that is not ported raises, naming its ROADMAP
@@ -90,13 +90,50 @@ def test_chip_smoke_raises_without_a_card(cpu_only, capsys):
 
 
 def test_bf16_and_lstm_are_refused():
+    """bf16 is refused, naming its ROADMAP item.  The LSTM families, once
+    refused here too, are ported: an ``lstm`` model builds on the CPU."""
     from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.models.lstm import DecoderWithAttention
     from tpu_captioner_torch.train.model import CaptionModel
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CaptionModel(ModelConfig(vocab_size=11, compute_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CaptionModel(ModelConfig(vocab_size=11, decoder="lstm"), device="cpu")
+    model = CaptionModel(
+        ModelConfig(vocab_size=11, decoder="lstm", encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
+                    encoder_dim=8, embed_dim=8, attention_dim=6, decoder_dim=8),
+        device="cpu",
+    )
+    assert isinstance(model.decoder, DecoderWithAttention) and model.device.type == "cpu"
+
+
+def test_lstm_step_refuses_gradients_and_other_devices(cpu_only):
+    """``fused_lstm_step`` raises for a tensor neither on the CPU nor on a
+    card, and on every device when autograd would need its gradient; its
+    build raises without nvcc."""
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, fused_lstm_step
+
+    def args(make, R=2, E=3, D=4, A=5, C=6, P=7):
+        w = LstmStepWeights(make(A, D), make(A), make(A), make(1), make(C, D), make(C),
+                            make(4 * D, E), make(4 * D, C), make(4 * D, D), make(4 * D))
+        return (w, make(R, E), make(R, D), make(R, D), make(R, P, C), make(R, P, A))
+
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731 — neither cpu nor cuda
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_lstm_step(*args(meta))
+    grad = lambda *s: torch.zeros(*s, requires_grad=True)  # noqa: E731
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_lstm_step(*args(grad))
+    with torch.no_grad():
+        h, c, alpha = fused_lstm_step(*args(grad))  # the plain version, without autograd
+    assert h.shape == c.shape == (2, 4) and torch.allclose(alpha.sum(dim=1), torch.ones(2))
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    if nvcc is None:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load("lstm_step")
 
 
 def test_mask_pool_refuses_other_devices():
@@ -172,7 +209,7 @@ def test_mega_never_resolves_to_step(monkeypatch):
     from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, ModelConfig
     from tpu_captioner_torch.train.model import CaptionModel, decode_kernel_mode
 
-    assert {m: decode_kernel_mode(m) for m in DECODE_KERNEL_MODES} == {
+    assert {m: decode_kernel_mode(m, "transformer") for m in DECODE_KERNEL_MODES} == {
         "auto": "step", "on": "step", "step": "step", "mega": "mega", "off": "off"}
     with pytest.raises(ValueError):
         ModelConfig(decode_kernel="onecell")

@@ -32,7 +32,8 @@ EMBEDDING_PRESETS = {
     "glove-wiki-gigaword-200": (200, "wordEmbeddings/glove-wiki-gigaword-200.npz"),
 }
 
-DECODER_TYPES = ("lstm", "lstm_no_attention", "transformer", "transformer_attvis")
+LSTM_DECODERS = ("lstm", "lstm_no_attention")
+DECODER_TYPES = (*LSTM_DECODERS, "transformer", "transformer_attvis")
 KERNEL_MODES = ("auto", "on", "off")
 DECODE_KERNEL_MODES = ("auto", "on", "step", "mega", "off")
 DROPOUT_MASK_MODES = ("auto", "pool", "threefry")

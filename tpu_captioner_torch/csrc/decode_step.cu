@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_reduce.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -133,18 +135,6 @@ struct RolloutArgs {
   int V, steps, end_id;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -156,19 +146,6 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
 // phase with fewer tasks than warps still spreads over the whole card.
 __device__ __forceinline__ int global_warp() { return (threadIdx.x >> 5) * gridDim.x + blockIdx.x; }
 __device__ __forceinline__ int grid_warps() { return gridDim.x * kWarps; }
-
-// One halving step of a reduce-scatter across lanes: of 2*HALF partial sums
-// a lane keeps the half its XOR partner does not, adding the partner's copy.
-template <int HALF, int XOR>
-__device__ __forceinline__ void reduce_half(float* v, int lane) {
-  const bool upper = lane & XOR;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = upper ? v[i] : v[i + HALF];
-    const float keep = upper ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, XOR);
-  }
-}
 
 // out[r, c] = act(in[r, :] . W[c, :] + b[c]); in (R, K) written earlier in
 // this launch, W (N, K) read-only, K % 4 == 0.  A block task is a tile of
@@ -221,11 +198,7 @@ __device__ __noinline__ void grid_linear(const float* __restrict__ W, const floa
     }
     // Reduce-scatter over the lanes: five halving steps (62 shuffles) leave
     // lane j with the sums of flat outputs 2j and 2j + 1.
-    reduce_half<32, 16>(v, lane);
-    reduce_half<16, 8>(v, lane);
-    reduce_half<8, 4>(v, lane);
-    reduce_half<4, 2>(v, lane);
-    reduce_half<2, 1>(v, lane);
+    reduce_scatter64(v, lane);
     static_assert(kRT * kCG == 64, "the reduce-scatter assumes 64 outputs per task");
 #pragma unroll
     for (int i = 0; i < 2; ++i) {

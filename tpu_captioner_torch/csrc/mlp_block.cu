@@ -41,6 +41,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "warp_reduce.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -49,12 +51,6 @@ constexpr int kThreads = 256;
 constexpr int kKC = 32;  // k-slice of W1 staged at a time
 constexpr int kJS = 16;  // hidden units of W2 staged at a time
 constexpr float kLnEps = 1e-6f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

@@ -40,6 +40,8 @@
 
 #include <cuda_runtime.h>
 
+#include "warp_reduce.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -48,12 +50,6 @@ constexpr int kPad = kBM + 4;  // row stride of the k-major shared tiles
 constexpr float kLnEps = 1e-6f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }

@@ -15,7 +15,11 @@ Reference semantics, per image (caption.py:96-155):
 
 The loop is a Python loop over device tensors, batched over images: each
 step runs the decoder once over all B*k rows.  Images whose beams have all
-finished keep stepping with their rows frozen by masks.
+finished keep stepping with their rows frozen by masks.  One adapter per
+decoder family supplies the step, as in the JAX package: the Transformer's
+KV-cached step, the LSTM's cell with attention (plain, or one
+``fused_lstm_step`` launch per step) and the LSTM's cell without attention
+(its maps are zeros).
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from tpu_captioner_torch.models.lstm import flatten_pixels
 from tpu_captioner_torch.ops.decode_step import (
     apply_cache_update,
     fused_decode_step,
     prepare_cross_memory,
     prepare_decode_weights,
 )
+from tpu_captioner_torch.ops.lstm_step import fused_lstm_step, prepare_lstm_weights
 
 
 class BeamResult(NamedTuple):
@@ -184,8 +190,67 @@ def _transformer_beam_fused(model, enc_out, beam_size, max_steps):
     return step_fn, gather_fn, (ck0, cv0)
 
 
+def _lstm_attention_beam(model, enc_out, beam_size, max_steps):
+    """LSTM with attention: the plain ``step`` or, with the decode kernel,
+    ``fused_lstm_step`` over all B*k rows (the CUDA kernel for CUDA
+    tensors).  Eval: no dropout before the head (caption.py:512)."""
+    dec = model.decoder
+    B, k = enc_out.shape[0], beam_size
+    V, P = model.cfg.vocab_size, model.cfg.num_pixels
+    enc = flatten_pixels(enc_out)
+    enc_k = enc.repeat_interleave(k, dim=0).contiguous()  # (B*k, P, C), image-major
+    att1 = dec.attention.encoder_att(enc).repeat_interleave(k, dim=0).contiguous()
+    h0, c0 = dec.init_hidden_state(enc_k)
+    if model.use_decode_kernel():
+        w = prepare_lstm_weights(dec)
+        cell = lambda h, c, emb: fused_lstm_step(w, emb, h, c, enc_k, att1)  # noqa: E731
+    else:
+        cell = lambda h, c, emb: dec.step(h, c, emb, enc_k, att1)  # noqa: E731
+
+    def step_fn(state, prev_words, _pos):
+        h, c, alpha = cell(*state, dec.embedding(prev_words.reshape(-1)))
+        return (h, c), dec.fc(h).view(B, k, V), alpha.view(B, k, P)
+
+    return step_fn, _gather_rows, (h0, c0)
+
+
+def _lstm_plain_beam(model, enc_out, beam_size, max_steps):
+    """LSTM without attention: the cell on the token embedding; the maps
+    are zeros."""
+    dec = model.decoder
+    B, k = enc_out.shape[0], beam_size
+    V, P = model.cfg.vocab_size, model.cfg.num_pixels
+    h0, c0 = dec.init_hidden_state(flatten_pixels(enc_out).repeat_interleave(k, dim=0))
+    zeros = h0.new_zeros(B, k, P)
+
+    def step_fn(state, prev_words, _pos):
+        h, c, _ = dec.step(*state, dec.embedding(prev_words.reshape(-1)))
+        return (h, c), dec.fc(h).view(B, k, V), zeros
+
+    return step_fn, _gather_rows, (h0, c0)
+
+
+def _gather_rows(state, rows):
+    h, c = state
+    return h[rows], c[rows]
+
+
+def _transformer_adapter(model, *args):
+    if model.use_decode_kernel():
+        return _transformer_beam_fused(model, *args)
+    return _transformer_beam(model, *args)
+
+
+_ADAPTERS = {
+    "lstm": _lstm_attention_beam,
+    "lstm_no_attention": _lstm_plain_beam,
+    "transformer": _transformer_adapter,
+    "transformer_attvis": _transformer_adapter,
+}
+
+
 def _beam_batched(model, enc_out, *, beam_size, max_steps, start_id, end_id) -> BeamResult:
-    adapter = _transformer_beam_fused if model.use_decode_kernel() else _transformer_beam
+    adapter = _ADAPTERS[model.cfg.decoder]
     step_fn, gather_fn, init_state = adapter(model, enc_out, beam_size, max_steps)
     return _beam_loop(
         step_fn, gather_fn, init_state,

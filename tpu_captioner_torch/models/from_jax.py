@@ -2,8 +2,9 @@
 
 ``state_dict_from_jax`` is the inverse of ``tpu_captioner/models/port_torch.py``:
 it unstacks the scanned stage and layer axes and transposes JAX layouts back
-to PyTorch's (Dense (in, out) -> Linear (out, in); conv (kh, kw, in, out) ->
-(out, in, kh, kw)).  It takes numpy arrays, so this package needs no JAX.
+to PyTorch's (Dense (in, out) -> Linear (out, in); LSTM w_ih (in, 4D) ->
+weight_ih (4D, in); conv (kh, kw, in, out) -> (out, in, kh, kw)), for every
+decoder family.  It takes numpy arrays, so this package needs no JAX.
 
 ``load_reference_checkpoint`` reads a reference ``.pth.tar`` (payload of the
 reference utils/utils.py: ``encoder``/``decoder`` state dicts plus epoch and
@@ -18,7 +19,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from tpu_captioner_torch.core.config import ModelConfig
+from tpu_captioner_torch.core.config import LSTM_DECODERS, ModelConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -86,6 +87,31 @@ def _decoder_from_jax(p: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _linear(p: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+    out[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _lstm_decoder_from_jax(p: Mapping) -> Dict[str, torch.Tensor]:
+    """DecoderWithAttention or DecoderWithoutAttention params -> reference
+    decoder state-dict keys (the inverse of ``port_lstm_attention_decoder``
+    and ``port_lstm_no_attention_decoder``): LSTM ``w_ih`` (in, 4D) becomes
+    ``decode_step.weight_ih`` (4D, in)."""
+    out: Dict[str, torch.Tensor] = {"embedding.weight": _t(p["embedding"])}
+    if "attention" in p:
+        for name in ("encoder_att", "decoder_att", "full_att"):
+            _linear(p["attention"][name], f"attention.{name}", out)
+        _linear(p["f_beta"], "f_beta", out)
+    for name in ("init_h", "init_c", "fc"):
+        _linear(p[name], name, out)
+    cell = p["lstm"]
+    out["decode_step.weight_ih"] = _t(np.asarray(cell["w_ih"]).T)
+    out["decode_step.weight_hh"] = _t(np.asarray(cell["w_hh"]).T)
+    out["decode_step.bias_ih"] = _t(cell["b_ih"])
+    out["decode_step.bias_hh"] = _t(cell["b_hh"])
+    return out
+
+
 def state_dict_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """JAX ``{'encoder': ..., 'decoder': ...}`` params (numpy leaves) ->
     ``CaptionModel`` state dict (CPU tensors)."""
@@ -93,9 +119,11 @@ def state_dict_from_jax(params_np: Mapping[str, Any], cfg: ModelConfig) -> Dict[
         f"encoder.{k}": v
         for k, v in _encoder_from_jax(params_np["encoder"], tuple(cfg.encoder_depths)).items()
     }
-    sd.update(
-        {f"decoder.{k}": v for k, v in _decoder_from_jax(params_np["decoder"], cfg.num_layers).items()}
-    )
+    if cfg.decoder in LSTM_DECODERS:
+        dec = _lstm_decoder_from_jax(params_np["decoder"])
+    else:
+        dec = _decoder_from_jax(params_np["decoder"], cfg.num_layers)
+    sd.update({f"decoder.{k}": v for k, v in dec.items()})
     return sd
 
 

@@ -1,8 +1,9 @@
 """Building blocks (counterpart of ``tpu_captioner/models/layers.py``).
 
 Weights here are in PyTorch's layout: a linear weight is (out, in), as
-``nn.Linear`` keeps it.  ``lstm_cell`` belongs to the LSTM families and is
-not ported yet.
+``nn.Linear`` keeps it, and ``lstm_cell`` takes an ``nn.LSTMCell``'s
+``weight_ih`` (4D, in) and ``weight_hh`` (4D, D), gates in the order i, f,
+g, o.
 
 Dropout draws its masks one of two ways.  Inside ``mask_pool_scope(pool)``
 every site takes the next range of a ``MaskPool``, the flat keep-pool one
@@ -39,6 +40,22 @@ def layer_norm(
     """LayerNorm over the last axis, computed in f32 (biased variance)."""
     y = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
     return y.to(x.dtype)
+
+
+def lstm_update(gates: torch.Tensor, c: torch.Tensor):
+    """The LSTMCell state update from its (..., 4D) gate pre-activations, in
+    the order i, f, g, o -> (h_new, c_new)."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def lstm_cell(
+    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
+):
+    """``torch.nn.LSTMCell`` -> (h_new, c_new)."""
+    return lstm_update(F.linear(x, w_ih, b_ih) + F.linear(h, w_hh, b_hh), c)
 
 
 def causal_mask(t: int, device=None) -> torch.Tensor:

@@ -9,7 +9,10 @@ PyTorch's own defaults, which the JAX package reproduces:
   +-2 value cut is 100 sigma, so it is drawn untruncated, as in JAX);
 - ``linear_default``: nn.Linear weight and bias, U(-1/sqrt(fan_in), +);
 - ``xavier_uniform``: nn.MultiheadAttention packed in-projection;
-- ``normal``: nn.Embedding, N(0, 1).
+- ``normal``: nn.Embedding, N(0, 1);
+- ``lstm_uniform``: nn.LSTMCell weights and biases, U(-1/sqrt(hidden), +);
+- ``uniform_pm``: U(-a, a), the LSTM decoders' embedding and vocab head
+  (+-0.1).
 """
 
 from __future__ import annotations
@@ -46,3 +49,8 @@ def xavier_uniform(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def normal(t: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return t.copy_(torch.randn(t.shape, generator=gen, dtype=t.dtype))
+
+
+@torch.no_grad()
+def lstm_uniform(t: torch.Tensor, hidden_size: int, gen: torch.Generator) -> torch.Tensor:
+    return uniform_pm(t, 1.0 / math.sqrt(hidden_size), gen)

@@ -67,6 +67,16 @@ def teacher_masks(
     return (torch.rand(steps, batch, generator=generator) < prob).to(device)
 
 
+def teacher_schedule(teacher_tokens, teacher_prob, generator, steps, batch, device):
+    """(teacher (steps, B) ids, use (steps, B) bool) for a rollout's
+    scheduled sampling, or (None, None) when no teacher tokens are mixed in
+    (as the JAX package, which needs its rng for them)."""
+    if teacher_tokens is None or teacher_prob <= 0.0 or generator is None:
+        return None, None
+    use = teacher_masks(generator, steps, batch, teacher_prob, device)
+    return teacher_tokens[:, :steps].to(device).long().T, use
+
+
 def sinusoidal_pe(max_len: int, dim: int) -> torch.Tensor:
     """(max_len, dim) sinusoidal table (transformerDecoder.py:14-27)."""
     pos = torch.arange(max_len, dtype=torch.float32)[:, None]
@@ -281,15 +291,6 @@ class TransformerDecoder(nn.Module):
         return logits, cache, torch.stack(alphas).mean(dim=0)
 
     # -- greedy rollouts ----------------------------------------------------
-    def _teacher(self, teacher_tokens, teacher_prob, generator, steps, batch, device):
-        """(teacher (steps, B) ids, use (steps, B) bool), or (None, None)
-        when no teacher tokens are mixed in (as the JAX package, which needs
-        its rng for them)."""
-        if teacher_tokens is None or teacher_prob <= 0.0 or generator is None:
-            return None, None
-        use = teacher_masks(generator, steps, batch, teacher_prob, device)
-        return teacher_tokens[:, :steps].to(device).long().T, use
-
     def _greedy_loop(self, step_fn, tok0, end_id, steps, teacher, use, early_exit):
         """The rollout body shared by ``rollout`` and ``fused_rollout``:
         ``step_fn(tok, t) -> (logits (B, V), alpha (B, P))`` for the input
@@ -334,7 +335,7 @@ class TransformerDecoder(nn.Module):
         B = memory.mem.shape[0]
         dev = memory.mem.device
         cache = self.init_cache(B, max_decode_len + 1)
-        teacher, use = self._teacher(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
+        teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
 
         def step_fn(tok, t):
             logits_t, _, alpha = self.decode_step(tok, t, cache, memory)
@@ -371,7 +372,7 @@ class TransformerDecoder(nn.Module):
         mem_k, mem_v = decode_ops.prepare_cross_memory(self.layers, mem, E)
         ck = torch.zeros(c.num_layers, B, max_decode_len + 1, E, device=dev)
         cv = torch.zeros_like(ck)
-        teacher, use = self._teacher(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
+        teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
 
         def step_fn(tok, t):
             x = self.embed(tok, t)
@@ -413,7 +414,7 @@ class TransformerDecoder(nn.Module):
             # gathers table rows verbatim, so pin the pad row here.
             emb = emb.clone()
             emb[0] = 0.0
-        teacher, use = self._teacher(teacher_tokens, teacher_prob, generator, max_decode_len, B, mem.device)
+        teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, max_decode_len, B, mem.device)
         logits, seqs, alphas = decode_ops.fused_full_rollout(
             w, emb.contiguous(), self.fc_out.weight, self.fc_out.bias, self.pe, mem_k, mem_v,
             start_id, end_id, max_decode_len, c.num_heads, teacher=teacher, use_teacher=use,

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds.  The build runs on first use, into ``build/kernels/`` at the
-root of the checkout, keyed by a hash of the source and the flags, so a fresh
-checkout builds its kernels itself.  A failed build raises with nvcc's stderr.
+root of the checkout, keyed by a hash of the flags, the source and the local
+headers it includes (``csrc/*.cuh``), so a fresh checkout builds its kernels
+itself and an edited header is never served from a stale library.  A failed
+build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
 import torch
 
@@ -38,11 +42,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin, PATH)")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path`` and every file it ``#include "..."``s, recursively, each
+    resolved beside the file that names it (as nvcc resolves them)."""
+    path = path.resolve()
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _LOCAL_INCLUDE.findall(seen[path]):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: the name plus a hash of source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name plus a hash of the flags,
+    the source and every local header it includes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in sorted(_sources(CSRC / f"{name}.cu", {}).items()):
+        digest.update(path.name.encode() + b"\0" + text)
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

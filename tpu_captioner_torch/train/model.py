@@ -1,11 +1,12 @@
-"""CaptionModel: encoder + Transformer decoder behind one interface
-(counterpart of ``tpu_captioner/train/model.py``).
+"""CaptionModel: encoder + one of the four decoder families behind one
+interface (counterpart of ``tpu_captioner/train/model.py``).
 
 Covers what serving, the two teacher-forced train steps and the greedy eval
 step need: ``encode`` (uint8 NHWC images -> (B, 7, 7, C), with stochastic
 depth in training, without autograd), ``encode_fine_tune`` (the same with
 autograd from a starting child on), ``tf_forward``, ``rollout``, the decoder
-choice for the two Transformer families, and the kernel/plain selection.
+choice (``transformer``, ``transformer_attvis``, ``lstm``,
+``lstm_no_attention``), and the kernel/plain selection.
 
 The fine-tune policies of the JAX package (``finetune_use_pallas``,
 ``finetune_encoder_remat``, tpu_captioner/train/model.py:30-62) were chosen
@@ -49,30 +50,51 @@ import torch
 import torch.nn as nn
 
 from tpu_captioner_torch.core.backend import pin_f32_precision, require_cuda
-from tpu_captioner_torch.core.config import ModelConfig
+from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, LSTM_DECODERS, ModelConfig
 from tpu_captioner_torch.models.encoder import Encoder, preprocess_images
+from tpu_captioner_torch.models.lstm import DecoderWithAttention, DecoderWithoutAttention
 from tpu_captioner_torch.models.transformer import TransformerDecoder
 
-SERVED_DECODERS = ("transformer", "transformer_attvis")
 
+def decode_kernel_mode(mode: str, decoder: str) -> str:
+    """The decode path a ``decode_kernel`` setting selects for a decoder
+    family (counterpart of ``CaptionModel._decode_kernel_mode``,
+    tpu_captioner/train/model.py:251): ``'off'`` the plain PyTorch decode,
+    ``'step'`` the per-token kernel, ``'mega'`` the whole-rollout kernel.
 
-def decode_kernel_mode(mode: str) -> str:
-    """The decode path a ``decode_kernel`` setting selects (counterpart of
-    ``CaptionModel._decode_kernel_mode``, tpu_captioner/train/model.py:251):
-    ``'off'`` the plain PyTorch decode, ``'step'`` the per-token kernel
-    (``'on'`` and ``'step'``), ``'mega'`` the whole-rollout kernel.
-    ``'auto'`` is ``'step'``, the JAX package's choice on its chip; the
-    wrappers run their plain versions for CPU tensors.  ``'mega'`` stays
-    ``'mega'`` at every size: the JAX package falls back to ``'step'`` when
-    its weights and vocab tables outgrow the TPU's VMEM, and the Hopper
-    kernel streams them from device memory, so it has no such limit."""
-    if mode == "off":
+    Transformer families: ``'on'`` and ``'step'`` are ``'step'``;
+    ``'auto'`` is ``'step'``, the JAX package's choice on its chip; ``'mega'``
+    stays ``'mega'`` at every size: the JAX package falls back to ``'step'``
+    when its weights and vocab tables outgrow the TPU's VMEM, and the Hopper
+    kernel streams them from device memory, so it has no such limit.
+
+    ``lstm``: every mode but ``'off'`` and ``'auto'`` selects the LSTM step
+    kernel (``ops/lstm_step.py``), as in the JAX package, where ``'auto'`` is
+    ``'off'`` for the LSTM.  ``'auto'`` stays ``'off'`` because the paired
+    A/B of ``chip_smoke.py:lstm_ab`` (12 pairs, fastest of 3 calls per arm,
+    the kernel taken only when the median of the pairs' differences exceeds
+    their spread in both contexts) did not favour the kernel in the bs-8
+    beam on an NVIDIA H100 80GB HBM3 at 700 W.  Medians, kernel against
+    plain, at full width (E = D = A = 512, vocab 9490):
+    - beam 5, 50 steps, 8 images: run A 89.14 vs 116.90 ms (gain 26.75,
+      spread 71.19); run B 95.59 vs 130.20 (gain 25.46, spread 48.18); run
+      C 62.91 vs 81.82 (gain 19.43, spread 33.89);
+    - eval step, batch 32, 51 tokens: run A 95.90 vs 124.38 (gain 27.37,
+      spread 28.82); run B 106.51 vs 136.02 (gain 26.89, spread 17.32:
+      favoured); run C 82.85 vs 102.45 (gain 19.21, spread 13.30:
+      favoured).
+    Run A's kernel ran one block per SM; runs B and C ran the shipped
+    kernel, two blocks per SM.
+
+    ``lstm_no_attention`` has no kernel: always ``'off'``.  The wrappers run
+    their plain versions for CPU tensors."""
+    if mode not in DECODE_KERNEL_MODES:
+        raise ValueError(f"unknown decode_kernel {mode!r}")
+    if mode == "off" or decoder == "lstm_no_attention":
         return "off"
-    if mode == "mega":
-        return "mega"
-    if mode in ("auto", "on", "step"):
-        return "step"
-    raise ValueError(f"unknown decode_kernel {mode!r}")
+    if decoder == "lstm":
+        return "off" if mode == "auto" else "step"
+    return "mega" if mode == "mega" else "step"
 
 
 def finetune_encoder_remat(remat: str, compute_dtype: str = "float32") -> str:
@@ -99,11 +121,6 @@ class CaptionModel(nn.Module):
                 f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
                 "(bf16 is a later item of ROADMAP.md Queue 1)"
             )
-        if cfg.decoder not in SERVED_DECODERS:
-            raise NotImplementedError(
-                f"decoder {cfg.decoder!r} is not ported yet (LSTM families: "
-                "ROADMAP.md Queue 1 #2)"
-            )
         device = torch.device(device)
         if device.type == "cuda":
             require_cuda()
@@ -113,9 +130,15 @@ class CaptionModel(nn.Module):
             cfg.encoded_image_size, tuple(cfg.encoder_depths), tuple(cfg.encoder_dims),
             use_kernel=cfg.use_pallas != "off", device=device,
         )
-        # The two families differ only in whether teacher forcing and the
-        # rollouts return attention maps; the decode step always does.
-        self.decoder = TransformerDecoder(cfg, device=device)
+        if cfg.decoder == "lstm":
+            self.decoder = DecoderWithAttention(cfg, device=device)
+        elif cfg.decoder == "lstm_no_attention":
+            self.decoder = DecoderWithoutAttention(cfg, device=device)
+        else:
+            # The two Transformer families differ only in whether teacher
+            # forcing and the rollouts return attention maps; the decode
+            # step always does.
+            self.decoder = TransformerDecoder(cfg, device=device)
         gen = torch.Generator().manual_seed(seed)
         self.encoder.convnext.reset_parameters(gen)
         self.decoder.reset_parameters(gen)
@@ -123,12 +146,17 @@ class CaptionModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.fc_out.weight.device
+        return self.decoder.embedding.weight.device
+
+    def decode_mode(self) -> str:
+        """``decode_kernel_mode`` of this model's setting and family."""
+        return decode_kernel_mode(self.cfg.decode_kernel, self.cfg.decoder)
 
     def use_decode_kernel(self) -> bool:
-        """Beam search takes the fused decode step unless it is switched off
-        (the wrapper itself runs the plain version for CPU tensors)."""
-        return decode_kernel_mode(self.cfg.decode_kernel) != "off"
+        """Beam search takes the family's fused decode step unless
+        ``decode_mode`` is ``'off'`` (the wrapper itself runs the plain
+        version for CPU tensors)."""
+        return self.decode_mode() != "off"
 
     @torch.no_grad()
     def encode(
@@ -168,8 +196,12 @@ class CaptionModel(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Teacher-forced logits aligned so ``logits[:, t]`` predicts
         ``captions[:, t + 1]``: (B, T-1, V), and the (B, T-1, P) attention
-        maps for ``transformer_attvis`` (else None).  <pad> (id 0) positions
-        are masked as keys (train.py:271)."""
+        maps for ``lstm`` and ``transformer_attvis`` (else None).  The LSTM
+        runs over ``captions[:, :-1]``; the Transformer predicts at every
+        position, with <pad> (id 0) masked as keys (train.py:271), and its
+        last position is dropped."""
+        if self.cfg.decoder in LSTM_DECODERS:
+            return self.decoder.tf_forward(encoder_out, captions, train, generator)
         logits, alphas = self.decoder.tf_forward(
             encoder_out, captions, captions == 0, train, generator
         )
@@ -181,17 +213,22 @@ class CaptionModel(nn.Module):
         teacher_prob: float = 0.0, one_cell: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """Greedy free-running decode -> (logits (B, T, V), sequences (B, T)
-        int32, attention maps (B, T, P) for ``transformer_attvis``, else
-        None), through the rollout ``decode_kernel_mode`` selects.
-        ``one_cell`` runs each token's layers in one kernel launch in the
-        ``'step'`` mode (the JAX package's ``TPU_CAPTIONER_DECODE_ONECELL``).
-        ``teacher_tokens``/``teacher_prob`` with a ``generator`` enable
-        scheduled sampling.  The kernel rollouts are forward only;
+        int32, attention maps (B, T, P) for ``lstm`` and
+        ``transformer_attvis``, else None), through the rollout
+        ``decode_mode`` selects.  ``one_cell`` runs each token's Transformer
+        layers in one kernel launch in the ``'step'`` mode (the JAX package's
+        ``TPU_CAPTIONER_DECODE_ONECELL``).  ``teacher_tokens``/``teacher_prob``
+        with a ``generator`` enable scheduled sampling.  Every rollout here is
+        deterministic (no dropout), so ``lstm`` takes its kernel rollout
+        whenever the mode is not ``'off'``, as the JAX package does in
+        deterministic rollouts.  The kernel rollouts are forward only;
         free-running training is not ported yet (ROADMAP.md Queue 1 #8)."""
         dec = self.decoder
         args = (encoder_out, start_id, end_id, max_decode_len)
         kw = dict(generator=generator, teacher_tokens=teacher_tokens, teacher_prob=teacher_prob)
-        mode = decode_kernel_mode(self.cfg.decode_kernel)
+        mode = self.decode_mode()
+        if self.cfg.decoder in LSTM_DECODERS:
+            return dec.fused_rollout(*args, **kw) if mode != "off" else dec.rollout(*args, **kw)
         if mode == "mega":
             return dec.mega_rollout(*args, **kw)
         if mode == "step":

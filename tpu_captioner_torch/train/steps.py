@@ -4,10 +4,12 @@ Ported: the teacher-forced step, with the encoder frozen, which the reference
 trains for its first ``fine_tune_epoch`` epochs (train.py:240-291), and
 fine-tuned from ``starting_layer`` on (``train_encoder=True``), which it
 trains after them; and the greedy eval step (``make_eval_step``) behind every
-validation loss, top-5 and BLEU number (train.py:367-441).  The train step:
+validation loss, top-5 and BLEU number (train.py:367-441); for all four
+decoder families.  The train step:
 - the loss is the cross-entropy over the tokens at ``t < caplen - 1`` of
   valid rows, divided by their count (``nn.CrossEntropyLoss`` over
-  ``pack_padded_sequence`` tokens, train.py:266-276);
+  ``pack_padded_sequence`` tokens, train.py:266-276), plus for ``lstm``
+  ``alpha_c`` times the doubly stochastic attention term (train.py:269);
 - frozen: the encoder runs without autograd, with stochastic depth on, and
   its parameters have ``requires_grad`` off;
 - fine-tune: ``fine_tune_mask`` sets ``requires_grad`` per parameter; the
@@ -24,9 +26,9 @@ validation loss, top-5 and BLEU number (train.py:367-441).  The train step:
 The eval step runs ``rollout_loss`` without dropout or stochastic depth: the
 encoder, the greedy rollout of ``cfg.max_decode_len`` steps that
 ``ModelConfig.decode_kernel`` selects, and the cross-entropy and top-5 over
-``rollout_token_mask``'s tokens.  Not ported yet: free-running training
-(``rollout_loss`` with gradients and scheduled sampling, ROADMAP.md Queue 1
-#11).
+``rollout_token_mask``'s tokens, with the LSTM's term over the rollout's
+maps.  Not ported yet: free-running training (``rollout_loss`` with
+gradients and scheduled sampling, ROADMAP.md Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from tpu_captioner_torch.core import prng
-from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+from tpu_captioner_torch.core.config import LSTM_DECODERS, ModelConfig, TrainConfig
 from tpu_captioner_torch.eval.metrics import masked_cross_entropy, rollout_token_mask, topk_correct
 from tpu_captioner_torch.models.encoder import fine_tune_mask
 from tpu_captioner_torch.models.layers import MaskPool, mask_pool_scope
@@ -49,10 +51,13 @@ _ENCODER, _DECODER = 0, 1
 
 
 def pool_demand(cfg: ModelConfig, batch: int, length: int, pixels: int) -> int:
-    """Keep-bits one teacher-forced decoder forward takes: the embedding's
-    (B, T, E), then per layer the self- and cross-attention probabilities
-    (B, H, T, T) and (B, H, T, P), three (B, T, E) outputs and the
-    (B, T, FFN) hidden layer."""
+    """Keep-bits one teacher-forced decoder forward over (B, T) captions
+    takes.  LSTM families: the (B, T-1, D) hidden states before the head.
+    Transformer families: the embedding's (B, T, E), then per layer the
+    self- and cross-attention probabilities (B, H, T, T) and (B, H, T, P),
+    three (B, T, E) outputs and the (B, T, FFN) hidden layer."""
+    if cfg.decoder in LSTM_DECODERS:
+        return batch * (length - 1) * cfg.decoder_dim
     e, h, f = cfg.embed_dim, cfg.num_heads, cfg.decoder_dim
     per_layer = batch * length * (h * length + h * pixels + 3 * e + f)
     return batch * length * e + cfg.num_layers * per_layer
@@ -71,6 +76,15 @@ def _pooled_tf_forward(model, enc_out: torch.Tensor, caps: torch.Tensor, seed: i
     if pool.offset != n:
         raise RuntimeError(f"dropout sites took {pool.offset} bits, pool_demand counted {n}")
     return out
+
+
+def doubly_stochastic(alphas: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The doubly stochastic attention term (train.py:269): the mean over
+    valid rows and the P pixels of (1 - sum over steps of alpha)^2, for
+    (B, T, P) maps already masked to the scored steps."""
+    per_pixel = (1.0 - alphas.sum(dim=1)) ** 2  # (B, P)
+    denom = valid.sum().clamp_min(1) * per_pixel.shape[1]
+    return (per_pixel * valid[:, None]).sum() / denom
 
 
 def tf_loss(
@@ -110,10 +124,9 @@ def tf_loss(
     targets = caps[:, 1:]
     ce_sum, tokens = masked_cross_entropy(logits, targets, tmask)
     loss = ce_sum / tokens.clamp_min(1.0)
-    if attvis_regularization and cfg.decoder == "transformer_attvis" and alpha_c and alphas is not None:
-        per_pixel = (1.0 - (alphas * tmask[..., None]).sum(dim=1)) ** 2  # (B, P)
-        denom = valid.sum().clamp_min(1) * per_pixel.shape[1]
-        loss = loss + alpha_c * (per_pixel * valid[:, None]).sum() / denom
+    regularised = cfg.decoder == "lstm" or (attvis_regularization and cfg.decoder == "transformer_attvis")
+    if regularised and alpha_c and alphas is not None:
+        loss = loss + alpha_c * doubly_stochastic(alphas * tmask[..., None], valid)
     top5 = topk_correct(logits.detach(), targets, 5, tmask)
     return loss, {"loss": loss.detach(), "tokens": tokens, "top5_correct": top5}
 
@@ -122,6 +135,7 @@ def rollout_loss(
     model,
     batch: Dict[str, torch.Tensor],
     word_ids: Dict[str, int],
+    alpha_c: float,
     max_decode_len: int,
     *,
     one_cell: bool = False,
@@ -129,18 +143,21 @@ def rollout_loss(
     """Deterministic free-running loss of ``batch`` (``images``, ``captions``
     (B, >= max_decode_len + 1), ``valid``): the greedy rollout from
     ``<start>``, scored against ``captions[:, 1:]`` over
-    ``rollout_token_mask``'s tokens.  Returns (loss, {loss, tokens,
-    top5_correct, sequences, lengths}).  The JAX package's doubly stochastic
-    term applies to the LSTM family only, which is not ported."""
+    ``rollout_token_mask``'s tokens, plus for ``lstm`` ``alpha_c`` times the
+    doubly stochastic term of the rollout's maps (steps after a row's
+    ``<end>`` hold zeros).  Returns (loss, {loss, tokens, top5_correct,
+    sequences, lengths})."""
     dev = model.device
     caps = batch["captions"].to(dev).long()
     valid = batch["valid"].to(dev).bool()
     end = word_ids["<end>"]
     enc_out = model.encode(batch["images"])
-    logits, seqs, _ = model.rollout(enc_out, word_ids["<start>"], end, max_decode_len, one_cell=one_cell)
+    logits, seqs, alphas = model.rollout(enc_out, word_ids["<start>"], end, max_decode_len, one_cell=one_cell)
     mask, targets, lengths = rollout_token_mask(seqs, caps, end, word_ids["<pad>"], max_decode_len, valid)
     ce_sum, tokens = masked_cross_entropy(logits, targets, mask)
     loss = ce_sum / tokens.clamp_min(1.0)
+    if model.cfg.decoder == "lstm" and alpha_c:
+        loss = loss + alpha_c * doubly_stochastic(alphas, valid)
     top5 = topk_correct(logits, targets, 5, mask)
     return loss, {"loss": loss, "tokens": tokens, "top5_correct": top5, "sequences": seqs, "lengths": lengths}
 
@@ -198,7 +215,8 @@ def make_eval_step(
     model, cfg: TrainConfig, word_ids: Dict[str, int], *, one_cell: bool = False
 ) -> Callable:
     """Returns ``step(batch) -> metrics``, the deterministic free-running
-    eval of validation and test (train.py:367-441): ``loss``, ``tokens``,
+    eval of validation and test (train.py:367-441), with ``cfg.alpha_c``'s
+    term for ``lstm``: ``loss``, ``tokens``,
     ``top5_correct``, ``sequences`` (B, ``cfg.max_decode_len``) int32 and
     ``lengths`` (B,).  It runs under ``torch.inference_mode``, so it holds no
     autograd state whatever ``requires_grad`` a train step has set.
@@ -207,7 +225,7 @@ def make_eval_step(
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        _, aux = rollout_loss(model, batch, word_ids, cfg.max_decode_len, one_cell=one_cell)
+        _, aux = rollout_loss(model, batch, word_ids, cfg.alpha_c, cfg.max_decode_len, one_cell=one_cell)
         return aux
 
     return step
