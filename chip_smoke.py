@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from the six sources in
+2. build the CUDA kernels from the seven sources in
    ``tpu_captioner_torch/csrc`` (one nvcc per source, all started together;
-   ``decode_step.cu`` holds three kernels, ``dwconv.cu`` two);
+   ``decode_step.cu`` holds three kernels, ``dwconv.cu`` two, ``mlp_block.cu``
+   the whole-tile and sub-tiled tail instances);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with CUDA-event times of both and the least time the card could
    take (``bound_ms``): the fused ConvNeXt MLP tail at the four
@@ -29,7 +30,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    160 and the eval step's 32, at E = D = A = 512, C = 1024, and at E=300;
    then the three decode kernels at the reference's
    pretrained-embedding widths, GloVe-200 (E=200, H=8) and word2vec-300
-   (E=300, H=6), whose head widths 25 and 50 take the scalar key loads;
+   (E=300, H=6), whose head widths 25 and 50 take the scalar key loads; the
+   whole-block kernel (``use_pallas='block'``) at the four stage shapes at
+   batch 8 and 32, with all-one and per-image scales, and at a ragged
+   (3, 14, 14, 512); the MLP tail's sub-tiled instances
+   (``TPU_CAPTIONER_MLP_SUB``) at each width's valid sub-tile rows against
+   the whole-tile instance and the plain version;
 4. the serving path at full width: ConvNeXt-Base + 6-layer E=512
    Transformer, vocab 9490, random weights from a seed, saved as a reference
    ``.pth.tar`` and loaded back through the CLI's loader; beam 5, 50 steps
@@ -82,6 +88,19 @@ Phases, in order; any failure raises and the exit code is not 0:
    the rows emit.  (c) The frozen train step of phase 5 on ``lstm`` (one
    pool launch of 835,584 bits).  (d) The paired A/B that decides whether
    ``'auto'`` takes the LSTM step kernel: bs-8 beam and bs-32 eval step.
+9. ``use_pallas='block'`` on phase 4's flagship weights: (a) beam 5 x 50 at
+   batch 8 through the CLI's loader (``--usePallas block``), 36 block
+   launches and no MLP-forward or dwconv launch per encoder pass, captions
+   equal to an every-kernel-off copy's (near-tie rule), serving times at
+   batch 8 and 32; (b) the eval step at batch 32 in 'step' against 'off'
+   (phase 7's rules); (c) two frozen steps against 'on' on the same pool
+   bits, loss and top-5 within 1e-5; (d) two fine-tune steps (remat 'off')
+   against an every-kernel-off copy (phase 6's rules), launches (1 pool, 36
+   block, 30 MLP backward, 59 dwconv, 30 dwconv_grad) counted, ms per step
+   and peak memory; (e) the default model with TPU_CAPTIONER_MLP_SUB=8:
+   sub-tiled launches at all four widths, captions equal to the whole-tile
+   run's; (f) recorded paired A/Bs of bs-32 encoder passes, 'block' against
+   'on' and sub-tiled against whole-tile.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths, max error, times and
@@ -769,6 +788,47 @@ def dwconv_ab(dev, card, model, step, state, batch, seeds):
     return state_box[0], favoured
 
 
+def fine_tune_agree(label, got, want, grads, want_grads, params, want_params, start, lr):
+    """Two fine-tune steps' metrics, step-1 gradients and updated parameters
+    against the plain path's: losses within 1e-4, top-5 and token counts
+    equal, gradients within 1e-3 in relative norm, parameters within 1e-2 x
+    lr where both steps' gradients are at least 1e-3 of the tensor's
+    largest; children below FT_START bit-identical to ``start``, every child
+    from it on changed."""
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        print(f"{label} step {i}: kernels {a}; plain {b}")
+        if not (abs(a["loss"] - b["loss"]) <= 1e-4 and a["top5_correct"] == b["top5_correct"]
+                and a["tokens"] == b["tokens"] and math.isfinite(a["loss"])):
+            raise AssertionError(f"{label} step {i}: kernel and plain paths disagree")
+    if set(grads[0]) != set(want_grads[0]):
+        raise AssertionError("the two paths trained different parameters")
+    grad_err = max(((grads[0][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                   for k, g in want_grads[0].items())
+    param_err = 0.0
+    for k, g0 in want_grads[0].items():
+        g1 = want_grads[1][k]
+        sure = (g0.abs() >= 1e-3 * g0.abs().max()) & (g1.abs() >= 1e-3 * g1.abs().max())
+        err = (params[k] - want_params[k]).abs()[sure]
+        param_err = max(param_err, err.max().item() if err.numel() else 0.0)
+    print(f"{label} step 1 gradients, kernels vs plain: worst |d|/|plain| {grad_err:.3e} (tol 1e-3); "
+          f"updated parameters: max abs diff {param_err:.3e} (tol {1e-2 * lr:g}) over "
+          f"{len(want_grads[0])} tensors")
+    if not (grad_err <= 1e-3 and param_err <= 1e-2 * lr):
+        raise AssertionError(f"{label} gradients or updated parameters disagree between the two paths")
+    changed = {}  # ConvNeXt child -> (tensors changed, tensors)
+    for k, v in start.items():
+        if k.startswith("encoder.convnext."):
+            i = int(k.split(".")[2])
+            n_changed, n = changed.get(i, (0, 0))
+            changed[i] = (n_changed + (not torch.equal(params[k], v)), n + 1)
+    print("encoder tensors changed per child (changed, all): " + str(dict(sorted(changed.items()))))
+    if any((i >= FT_START) != (c > 0) or (i < FT_START and c) for i, (c, _) in changed.items()):
+        raise AssertionError(f"children below {FT_START} must stay bit-identical and every child "
+                             "from it on must change")
+
+
 def finetune_phase(dev, card, seed, word_map):
     """Phase 6: the fine-tune step at full width, batch 32, starting_layer 5,
     with both depthwise-conv kernels selected."""
@@ -828,36 +888,7 @@ def finetune_phase(dev, card, seed, word_map):
           f"{launches[2]} mlp_block_bwd, {launches[3]} dwconv (36 forwards + 29 input gradients), "
           f"{launches[4]} dwconv_grad launches per step")
     want, want_grads, want_params, _ = two_steps(plain, (1, 0, 0, 0, 0))
-    for i, (a, b) in enumerate(zip(got, want)):
-        print(f"fine-tune step {i}: kernels {a}; plain {b}")
-        if not (abs(a["loss"] - b["loss"]) <= 1e-4 and a["top5_correct"] == b["top5_correct"]
-                and a["tokens"] == b["tokens"] and math.isfinite(a["loss"])):
-            raise AssertionError(f"fine-tune step {i}: kernel and plain paths disagree")
-    if set(grads[0]) != set(want_grads[0]):
-        raise AssertionError("the two paths trained different parameters")
-    grad_err = max(((grads[0][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
-                   for k, g in want_grads[0].items())
-    param_err, lr = 0.0, tc.encoder_lr
-    for k, g0 in want_grads[0].items():
-        g1 = want_grads[1][k]
-        sure = (g0.abs() >= 1e-3 * g0.abs().max()) & (g1.abs() >= 1e-3 * g1.abs().max())
-        err = (params[k] - want_params[k]).abs()[sure]
-        param_err = max(param_err, err.max().item() if err.numel() else 0.0)
-    print(f"fine-tune step 1 gradients, kernels vs plain: worst |d|/|plain| {grad_err:.3e} (tol 1e-3); "
-          f"updated parameters: max abs diff {param_err:.3e} (tol {1e-2 * lr:g}) over "
-          f"{len(want_grads[0])} tensors")
-    if not (grad_err <= 1e-3 and param_err <= 1e-2 * lr):
-        raise AssertionError("fine-tune gradients or updated parameters disagree between the two paths")
-    changed = {}  # ConvNeXt child -> (tensors changed, tensors)
-    for k, v in start.items():
-        if k.startswith("encoder.convnext."):
-            i = int(k.split(".")[2])
-            n_changed, n = changed.get(i, (0, 0))
-            changed[i] = (n_changed + (not torch.equal(params[k], v)), n + 1)
-    print("encoder tensors changed per child (changed, all): " + str(dict(sorted(changed.items()))))
-    if any((i >= FT_START) != (c > 0) or (i < FT_START and c) for i, (c, _) in changed.items()):
-        raise AssertionError(f"children below {FT_START} must stay bit-identical and every child "
-                             "from it on must change")
+    fine_tune_agree("fine-tune", got, want, grads, want_grads, params, want_params, start, tc.encoder_lr)
     del plain, want_grads, grads
     torch.cuda.empty_cache()
 
@@ -917,6 +948,35 @@ LOGIT_TOL, ALPHA_TOL = 1e-4, 1e-5  # as DECODE_TOL's x and alpha: f32 sums in an
 # of up to E + D + C order-one products, in another order than cuBLAS's.
 LSTM_TOL = 1e-5
 LSTM_ROWS = (8 * BEAM, 32 * BEAM, TRAIN_BS)  # the bs-8 and bs-32 beams, the eval step
+# The whole-block kernel against its plain version, relative to max(1, the
+# plain output's largest magnitude): the conv's 49 products and the tail's
+# 4C-long sums in another order than cuDNN's and cuBLAS's.
+BLOCK_TOL = 1e-4
+# The MLP tail's sub-tiled instances against the whole-tile one, relative as
+# above: the same products, the first one's rows in another grouping.
+PIPE_TOL = 1e-5
+MLP_SUBS = {128: (32, 16, 8), 256: (16, 8, 4), 512: (16, 8, 4), 1024: (8, 4)}  # ops/mlp_block.py:_pipeline_sub
+PIPE_SUB = 8  # valid at every width: phase 9's serving run and A/B
+
+
+def serve_times(card, prefix, models, rng, dev, word_map):
+    """Encoder ms, beam ms (beam 5, MAX_STEPS) and captions/s of each of
+    ``models`` ({label: model}) on seeded images at batch 8 and 32: medians
+    of 3 host-clock calls after a warm-up encoder pass."""
+    import torch
+
+    from tpu_captioner_torch.infer.beam import beam_search_encoded
+
+    for bs in (8, 32):
+        imgs = torch.randint(0, 256, (bs, 256, 256, 3), generator=rng, dtype=torch.uint8).to(dev)
+        for label, m in models.items():
+            m.encode(imgs)  # warm-up
+            enc_ms, enc = _host_ms(lambda: m.encode(imgs))
+            beam_ms, _ = _host_ms(lambda: beam_search_encoded(
+                m, enc, beam_size=BEAM, max_steps=MAX_STEPS,
+                start_id=word_map["<start>"], end_id=word_map["<end>"]))
+            print(f"{prefix} bs={bs} {label}: encoder {enc_ms:.2f} ms, beam {beam_ms:.2f} ms, "
+                  f"{bs / ((enc_ms + beam_ms) / 1e3):.2f} captions/s [{card}]")
 
 
 def flagship_model(cfg, dev, seed):
@@ -1319,7 +1379,6 @@ def lstm_serve(dev, card, seed, word_map, images8, rng):
 
     from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
     from tpu_captioner_torch.core.config import ModelConfig
-    from tpu_captioner_torch.infer.beam import beam_search_encoded
     from tpu_captioner_torch.models.from_jax import save_reference_checkpoint
     from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
     from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
@@ -1363,16 +1422,7 @@ def lstm_serve(dev, card, seed, word_map, images8, rng):
     for j, (cap, score, seq, _) in enumerate(got[:2]):
         print(f"lstm caption {j} (score {score:.4f}, {len(seq)} tokens): {cap[:80]}")
     print(f"lstm beam-{BEAM} kernel vs plain on the card: captions agree on {len(got)} images")
-    for bs in (8, 32):
-        imgs = torch.randint(0, 256, (bs, 256, 256, 3), generator=rng, dtype=torch.uint8).to(dev)
-        for label, m in (("kernels", served), ("plain", plain)):
-            m.encode(imgs)  # warm-up
-            enc_ms, enc = _host_ms(lambda: m.encode(imgs))
-            beam_ms, _ = _host_ms(lambda: beam_search_encoded(
-                m, enc, beam_size=BEAM, max_steps=MAX_STEPS,
-                start_id=word_map["<start>"], end_id=word_map["<end>"]))
-            print(f"lstm serve bs={bs} {label}: encoder {enc_ms:.2f} ms, beam {beam_ms:.2f} ms, "
-                  f"{bs / ((enc_ms + beam_ms) / 1e3):.2f} captions/s [{card}]")
+    serve_times(card, "lstm serve", {"kernels": served, "plain": plain}, rng, dev, word_map)
 
     no_att = ModelConfig(decoder="lstm_no_attention", vocab_size=VOCAB)
     loaded = load(flagship_model(no_att, dev, seed + 14), decoder="lstm_no_attention", lstmDecoder=False)
@@ -1495,6 +1545,433 @@ def lstm_ab(card, model, images8, batch, word_map):
     return favoured
 
 
+@contextlib.contextmanager
+def mlp_sub(value):
+    """Run the MLP-tail kernel's sub-tiled instance of ``value`` rows (None:
+    the whole-tile instance), as ``TPU_CAPTIONER_MLP_SUB`` selects it."""
+    old = os.environ.pop("TPU_CAPTIONER_MLP_SUB", None)
+    if value is not None:
+        os.environ["TPU_CAPTIONER_MLP_SUB"] = str(value)
+    try:
+        yield
+    finally:
+        os.environ.pop("TPU_CAPTIONER_MLP_SUB", None)
+        if old is not None:
+            os.environ["TPU_CAPTIONER_MLP_SUB"] = old
+
+
+def _stage_params(c, g, dev):
+    """Seeded LayerNorm, W1, b1, W2, b2 and layer scale of width ``c`` (order
+    one, as in ``check_mlp``)."""
+    import torch
+
+    f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+    return tuple(a.to(dev) for a in (
+        1 + 0.1 * f(c), 0.1 * f(c), 0.02 * f(4 * c, c), 0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c),
+    ))
+
+
+def block_bound(b, h, w, c):
+    """(bytes, ops) of one whole-block launch: x read and out written once,
+    the per-image scales, the taps, conv bias and tail weights once; the
+    tail's 16 N C^2 FLOP and the conv's 98 N C."""
+    n = b * h * w
+    return 4 * (2 * n * c + b + 49 * c + 8 * c * c + 9 * c), 16 * n * c * c + 98 * n * c
+
+
+def check_block(dev, card):
+    """The whole-block kernel against ``_block_plain`` at the four
+    ConvNeXt-Base stage shapes at batch 8 and 32, with all-one scales and
+    with per-image scales (0 and 1/survival at the stage's last ramped
+    rate), and at a ragged (3, 14, 14, 512) whose rows do not fill the last
+    tile: within BLOCK_TOL x max(1, max |plain|); images with scale 0 come
+    out as their input.  CUDA-event times of both (batch 8 all-one, batch 32
+    with scales, as each path runs them) and the bound.  Returns the worst
+    absolute error and the bs-32 encoder pass's (36 launches) kernel ms,
+    plain ms, bound ms and bound by."""
+    import torch
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS, sd_probs
+    from tpu_captioner_torch.ops.block_fused import _block_plain, fused_convnext_block
+
+    probs = sd_probs(BASE_DEPTHS)
+    worst, passes = 0.0, {}
+    cases = [(s, depth, c, batch) for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)) for batch in (8, TRAIN_BS)]
+    for s, depth, c, batch in cases + [(None, 0, 512, 3)]:
+        g = torch.Generator().manual_seed(200 + c + batch)
+        side = 14 if s is None else 64 >> s
+        shape = (batch, side, side, c)
+        x = torch.randn(*shape, generator=g).to(dev)
+        taps, dw_b = (0.1 * torch.randn(7, 7, c, generator=g)).to(dev), (0.1 * torch.randn(c, generator=g)).to(dev)
+        params = _stage_params(c, g, dev)
+        survival = 1.0 - probs[sum(BASE_DEPTHS[: s + 1]) - 1] if s is not None else 0.8
+        keep = torch.rand(batch, generator=g) < survival
+        keep[0], keep[1] = False, True
+        errs, timed = [], None
+        for sd in (torch.ones(batch), keep / survival):
+            args = (x, sd.to(dev), taps, dw_b, *params)
+            got, want = fused_convnext_block(*args), _block_plain(*args)
+            err, rel = _rel_err(got, want)
+            if not (rel < BLOCK_TOL and torch.isfinite(got).all()):
+                raise AssertionError(f"block_fused kernel disagrees at {shape}: {rel} >= {BLOCK_TOL}")
+            dropped = args[1] == 0
+            if not torch.equal(got[dropped], x[dropped]):
+                raise AssertionError(f"block_fused with sd 0 changed its input at {shape}")
+            errs.append(err)
+            if (batch == 8) == bool((sd == 1).all()):
+                timed = args
+        worst = max(worst, *errs)
+        if s is None:
+            print(f"block_fused ragged {shape} (N={3 * side * side}): max_abs_err {max(errs):.3e}")
+            continue
+        t_kernel = _time_ms(lambda: fused_convnext_block(*timed))
+        t_plain = _time_ms(lambda: _block_plain(*timed))
+        print(f"block_fused {shape}: max_abs_err {errs[0]:.3e}, with sd rows (survival {survival:.4f}) "
+              f"{errs[1]:.3e} (tol {BLOCK_TOL:g} x max(1, max |plain|)); kernel {t_kernel:.4f} ms, plain "
+              f"{t_plain:.4f} ms per launch [{card}]")
+        ms, plain_ms, n_bytes, n_ops = passes.get(batch, (0.0, 0.0, 0, 0))
+        b_bytes, b_ops = block_bound(*shape)
+        passes[batch] = (ms + depth * t_kernel, plain_ms + depth * t_plain, n_bytes + depth * b_bytes,
+                         n_ops + depth * b_ops)
+    for batch, (ms, plain_ms, n_bytes, n_ops) in passes.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f"block_fused per encoder pass at batch {batch} (36 blocks): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    ms, plain_ms, n_bytes, n_ops = passes[TRAIN_BS]
+    return (worst, ms, plain_ms, *bound(n_bytes, n_ops))
+
+
+def check_mlp_pipelined(dev, card):
+    """The MLP tail's sub-tiled instances (``TPU_CAPTIONER_MLP_SUB``), for
+    each width's valid sub-tile rows (``MLP_SUBS``), against the whole-tile
+    instance (within PIPE_TOL x max(1, its largest magnitude)) and against
+    ``_mlp_plain`` (MLP_TOL) at the stage shapes at batch 8 and 32, with
+    per-image scales; CUDA-event times of each instance at batch 32.
+    Returns the worst absolute error against the plain version and the
+    bs-32 encoder pass's kernel ms at PIPE_SUB (valid at every width),
+    plain ms and bound."""
+    import torch
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
+
+    worst, ms, plain_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0, 0
+    for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
+        g = torch.Generator().manual_seed(300 + c)
+        params = _stage_params(c, g, dev)
+        for batch in (8, TRAIN_BS):
+            n = batch * (64 >> s) ** 2
+            keep = (torch.rand(batch, generator=g) < 0.7).float()
+            keep[0], keep[1] = 0.0, 1.0
+            sd = (keep / 0.7).repeat_interleave(n // batch).to(dev)
+            args = (torch.randn(n, c, generator=g).to(dev), torch.randn(n, c, generator=g).to(dev), sd, *params)
+            with mlp_sub(None):
+                whole = fused_convnext_mlp(*args)
+                t_whole = _time_ms(lambda: fused_convnext_mlp(*args), iters=10) if batch == TRAIN_BS else None
+            want = _mlp_plain(*args)
+            line = []
+            for sub in MLP_SUBS[c]:
+                with mlp_sub(sub):
+                    before = fused_convnext_mlp.pipelined_launches
+                    got = fused_convnext_mlp(*args)
+                    if fused_convnext_mlp.pipelined_launches != before + 1:
+                        raise AssertionError(f"TPU_CAPTIONER_MLP_SUB={sub} did not select the sub-tiled "
+                                             f"instance at C={c}")
+                    _, rel_whole = _rel_err(got, whole)
+                    err, rel = _rel_err(got, want)
+                    if not (rel_whole < PIPE_TOL and rel < MLP_TOL):
+                        raise AssertionError(f"mlp_block SUB={sub} at C={c}, N={n}: {rel_whole} vs the whole-tile "
+                                             f"instance (tol {PIPE_TOL}), {rel} vs plain (tol {MLP_TOL})")
+                    worst = max(worst, err)
+                    if batch != TRAIN_BS:
+                        line.append(f"SUB={sub} {rel_whole:.2e} / {err:.2e}")
+                        continue
+                    t = _time_ms(lambda: fused_convnext_mlp(*args), iters=10)
+                    line.append(f"SUB={sub} {rel_whole:.2e} / {err:.2e}, {t:.4f} ms")
+                    if sub == PIPE_SUB:
+                        ms += depth * t
+            if batch == TRAIN_BS:
+                t_plain = _time_ms(lambda: _mlp_plain(*args), iters=10)
+                plain_ms += depth * t_plain
+                n_bytes += depth * 4 * (3 * n * c + n + 8 * c * c + 8 * c)
+                n_ops += depth * 16 * n * c * c
+                line.append(f"whole tile {t_whole:.4f} ms, plain {t_plain:.4f} ms")
+            print(f"mlp_block sub-tiled C={c} N={n} (vs whole tile relative / vs plain abs): "
+                  + "; ".join(line) + f" [{card}]")
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"mlp_block SUB={PIPE_SUB} per encoder pass at batch {TRAIN_BS} (36 launches): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return worst, ms, plain_ms, bound_ms, bound_by
+
+
+def set_mode(model, mode):
+    """Set every ConvNeXt block of ``model`` to ``mode`` (``'mlp'`` with both
+    depthwise-conv kernels, or ``'block'``)."""
+    from tpu_captioner_torch.models.convnext import CNBlock
+
+    for blk in model.modules():
+        if isinstance(blk, CNBlock):
+            blk.mode = mode
+            blk.use_kernel = blk.dw_kernel = blk.dw_grad_kernel = mode == "mlp"
+
+
+def block_counts():
+    """(block_fused, mlp_block forward, dwconv forward) launches."""
+    from tpu_captioner_torch.ops.block_fused import fused_convnext_block
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+
+    return fused_convnext_block.launches, fused_convnext_mlp.launches, depthwise_conv7x7_nhwc.launches
+
+
+def zero_block_counts():
+    from tpu_captioner_torch.ops.block_fused import fused_convnext_block
+    from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
+
+    fused_convnext_block.launches = fused_convnext_mlp.launches = fused_convnext_mlp.pipelined_launches = 0
+    fused_convnext_mlp_bwd.launches = depthwise_conv7x7_nhwc.launches = depthwise_conv7x7_nhwc.grad_launches = 0
+    random_mask_pool.launches = 0
+
+
+def block_serve(dev, card, seed, word_map, images8, rng):
+    """Phase 9a and 9e: beam 5 at batch 8 through the CLI's loader with
+    ``--usePallas block`` (36 block launches, no MLP-forward or dwconv
+    launch), against an every-kernel-off copy; serving times at batch 8 and
+    32; then the default model with TPU_CAPTIONER_MLP_SUB=PIPE_SUB, whose
+    sub-tiled launches are counted per width, against the whole-tile run.
+    Returns the served models ('block', default) and the block and
+    sub-tiled launches of one encoder pass."""
+    import torch
+
+    from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
+    from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.models.convnext import CNBlock
+    from tpu_captioner_torch.models.from_jax import save_reference_checkpoint
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    model = flagship_model(ModelConfig(vocab_size=VOCAB), dev, seed)  # phase 4's weights
+    served = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "BEST_checkpoint_block.pth.tar")
+        save_reference_checkpoint(model, ckpt, epoch=0)
+        for flag in ("block", "auto"):
+            cli = argparse.Namespace(checkpoint=ckpt, decoder=None, lstmDecoder=False, embeddingName=None,
+                                     device=str(dev), seed=seed + 7, usePallas=flag)
+            served[flag] = build_model_and_params(cli, word_map)
+    want_sd = model.state_dict()
+    for m in served.values():
+        if not all(torch.equal(v, want_sd[k]) for k, v in m.state_dict().items()):
+            raise AssertionError("checkpoint round trip changed the weights")
+    del model
+    block = served["block"]
+    plain = CaptionModel(dataclasses.replace(block.cfg, **ALL_OFF), device=dev)
+    plain.load_state_dict(block.state_dict())
+    zero_block_counts()
+    got = caption_batch(block, images8.numpy(), word_map, BEAM)
+    torch.cuda.synchronize()
+    seen = block_counts()
+    depths = dict(zip(block.cfg.encoder_dims, block.cfg.encoder_depths))  # width -> blocks (36 in all)
+    n_blocks = sum(depths.values())
+    print(f"use_pallas 'block' beam-{BEAM} bs 8 via the CLI loader: launches (block_fused, mlp_block forward, "
+          f"dwconv) {seen} per encoder pass")
+    if seen != (n_blocks, 0, 0):
+        raise AssertionError(f"'block': expected ({n_blocks}, 0, 0) launches per encoder pass, got {seen}")
+    want = caption_batch(plain, images8.numpy(), word_map, BEAM)
+    compare_captions(got, want, plain, images8.to(dev))
+    print(f"'block' beam-{BEAM} vs every kernel off: captions agree on {len(got)} images")
+    serve_times(card, "serve", {"'block'": block}, rng, dev, word_map)
+
+    # 9e: the default ('auto' = 'mlp') model, whole tile, then sub-tiled.
+    default = served["auto"]
+    with mlp_sub(None):
+        whole = caption_batch(default, images8.numpy(), word_map, BEAM)
+    per_width = {}
+
+    def count(blk, *_):
+        per_width[blk.block[3].in_features] = per_width.get(blk.block[3].in_features, 0) + (
+            fused_convnext_mlp.pipelined_launches - count.last)
+        count.last = fused_convnext_mlp.pipelined_launches
+
+    hooks = [blk.register_forward_hook(count) for blk in default.modules() if isinstance(blk, CNBlock)]
+    with mlp_sub(PIPE_SUB):
+        zero_block_counts()
+        count.last = 0
+        piped = caption_batch(default, images8.numpy(), word_map, BEAM)
+        torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    pipelined = fused_convnext_mlp.pipelined_launches
+    print(f"TPU_CAPTIONER_MLP_SUB={PIPE_SUB} beam-{BEAM} bs 8: {pipelined} sub-tiled of "
+          f"{fused_convnext_mlp.launches} mlp_block launches; by width {dict(sorted(per_width.items()))}")
+    if pipelined != n_blocks or fused_convnext_mlp.launches != n_blocks or per_width != depths:
+        raise AssertionError(f"expected {depths} sub-tiled launches per width, got {per_width}")
+    compare_captions(piped, whole, plain, images8.to(dev))
+    print(f"sub-tiled vs whole-tile MLP tail: captions agree on {len(piped)} images")
+    del plain
+    return block, default, seen[0], pipelined
+
+
+def block_eval(dev, card, seed, model, word_map):
+    """Phase 9b: the eval step at batch 32 in 'step' on the 'block' model
+    against an every-kernel-off copy, with phase 7's agreement rules (the
+    natural <end>)."""
+    import torch
+
+    from tpu_captioner_torch.core.config import TrainConfig
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    steps = tc.max_decode_len
+    plain = CaptionModel(dataclasses.replace(model.cfg, **ALL_OFF), device=dev)
+    plain.load_state_dict(model.state_dict())
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(seed + 9), word_map, VOCAB).items()}
+    model.cfg = dataclasses.replace(model.cfg, decode_kernel="step")
+    runs = {}
+    for label, m in (("block", model), ("off", plain)):
+        m.decoder.capture_alphas = True
+        zero_block_counts()
+        t0 = time.perf_counter()
+        aux = make_eval_step(m, tc, word_map)(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        seen = block_counts()
+        with torch.inference_mode():
+            roll = m.rollout(m.encode(batch["images"]), word_map["<start>"], word_map["<end>"], steps)
+        runs[label] = (aux, roll)
+        print(f"eval 'block' phase, {label}: launches (block_fused, mlp_block, dwconv) {seen}; loss "
+              f"{float(aux['loss']):.6f}, top5 {int(aux['top5_correct'])}; eval step {ms:.2f} ms [{card}]")
+        n_blocks = sum(m.cfg.encoder_depths)
+        if seen != ((n_blocks, 0, 0) if label == "block" else (0, 0, 0)) or not torch.isfinite(roll[0]).all():
+            raise AssertionError(f"eval {label}: unexpected launches {seen} or non-finite logits")
+    logit_err, alpha_err, ties = compare_rollouts("eval 'block'", runs["block"][1], runs["off"][1])
+    print(f"  'block' vs off: logits {logit_err:.3e}, maps {alpha_err:.3e}, {len(ties)} rows differ at a near-tie")
+    if not ties:
+        got, want = runs["block"][0], runs["off"][0]
+        rel = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+        same = all(torch.equal(got[k], want[k]) for k in ("sequences", "lengths", "tokens", "top5_correct"))
+        if not (rel < 1e-4 and same):
+            raise AssertionError(f"eval 'block': metrics disagree with 'off' (loss rel {rel})")
+    del plain
+
+
+def block_train(dev, card, seed, word_map):
+    """Phase 9c and 9d: two frozen steps with 'block' against 'on' on the
+    same pool bits (loss and top-5 within 1e-5); two fine-tune steps
+    (starting_layer 5, remat 'off') with 'block' against an every-kernel-off
+    copy, with phase 6's tolerances (``fine_tune_agree``), their launches
+    counted; then ms per fine-tune step and peak memory.  Returns the
+    fine-tune step's launches."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc as dwconv
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp_bwd
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    cfg = ModelConfig(vocab_size=VOCAB, use_pallas="block", encoder_remat="off")
+    gen = torch.Generator().manual_seed(seed + 17)
+    model = CaptionModel(cfg, device=dev, seed=seed + 17)
+    with torch.no_grad():  # order-one layer scales, as in phases 3 and 5
+        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+    start = copy.deepcopy(model.state_dict())
+    batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
+    root = prng.root_seed(seed + 17)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+
+    def counts():
+        return (random_mask_pool.launches, *block_counts(), fused_convnext_mlp_bwd.launches, dwconv.grad_launches)
+
+    def two_steps(m, train_encoder):
+        m.load_state_dict(start)
+        state = TrainState.create(m, tc)
+        step = make_train_step(m, tc, word_map, train_encoder=train_encoder)
+        out, grads, seen = [], [], []
+        for s in seeds:
+            zero_block_counts()
+            state, met = step(state, batch, s)
+            torch.cuda.synchronize()
+            seen.append(counts())
+            out.append({k: float(v) for k, v in met.items()})
+            grads.append({k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None})
+        return out, grads, {k: v.clone() for k, v in m.state_dict().items()}, seen
+
+    names = "(dropout_mask, block_fused, mlp_block, dwconv, mlp_block_bwd, dwconv_grad)"
+    n_blocks = sum(cfg.encoder_depths)  # 36; 30 of them train (stages at children 5 and 7)
+    trained = sum(d for s, d in enumerate(cfg.encoder_depths) if 2 * s + 1 >= FT_START)
+    # 9c: frozen steps, 'block' against 'on' (the same pool kernel's bits).
+    on = CaptionModel(dataclasses.replace(cfg, use_pallas="on"), device=dev)
+    got, _, _, seen = two_steps(model, False)
+    want, _, _, seen_on = two_steps(on, False)
+    print(f"frozen step 'block': launches {names} {seen[0]}; 'on': {seen_on[0]}")
+    if any(c != (1, n_blocks, 0, 0, 0, 0) for c in seen) or any(c != (1, 0, n_blocks, n_blocks, 0, 0)
+                                                                for c in seen_on):
+        raise AssertionError(f"frozen step launches: 'block' {seen}, 'on' {seen_on}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        print(f"frozen step {i}: 'block' {a}; 'on' {b}")
+        if not (abs(a["loss"] - b["loss"]) <= 1e-5 and abs(a["top5_correct"] - b["top5_correct"]) <= 1e-5
+                and math.isfinite(a["loss"])):
+            raise AssertionError(f"frozen step {i}: 'block' and 'on' disagree")
+    del on
+    # 9d: fine-tune steps, 'block' against every kernel off.
+    plain = CaptionModel(dataclasses.replace(cfg, **ALL_OFF), device=dev)
+    got, grads, params, seen = two_steps(model, True)
+    print(f"fine-tune step 'block': launches {names} {seen[0]} per step")
+    # The trained blocks' conv recomputed, and their input gradients but the
+    # first's (its input is the frozen child 4's output): 30 + 29.
+    expect = (1, n_blocks, 0, 2 * trained - 1, trained, trained)
+    if any(c != expect for c in seen):
+        raise AssertionError(f"fine-tune step 'block': expected launches {expect}, got {seen}")
+    want, want_grads, want_params, _ = two_steps(plain, True)
+    fine_tune_agree("fine-tune 'block'", got, want, grads, want_grads, params, want_params, start, tc.encoder_lr)
+    del plain, grads, want_grads
+    torch.cuda.empty_cache()
+    state = TrainState.create(model, tc)
+    step = make_train_step(model, tc, word_map, train_encoder=True)
+    for i in range(2):
+        state, _ = step(state, batch, prng.step_seed(root, "dropout", 1, i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        state, met = step(state, batch, prng.step_seed(root, "dropout", 2, i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(times)[len(times) // 2]
+    print(f"fine-tune step 'block' bs={TRAIN_BS} starting_layer {FT_START}, remat 'off': median {ms:.2f} ms/step "
+          f"over 5 steps (min {min(times):.2f}, max {max(times):.2f}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {float(met['loss']):.4f} [{card}]")
+    return seen[0]
+
+
+def block_ab(card, block, default, rng, dev):
+    """Phase 9f, recorded only: paired A/Bs (``paired_ab``) of bs-32 encoder
+    passes on one model, 'block' against 'on', and the sub-tiled MLP tail
+    (PIPE_SUB) against the whole-tile one.  ``'auto'`` does not change."""
+    import torch
+
+    imgs = torch.randint(0, 256, (TRAIN_BS, 256, 256, 3), generator=rng, dtype=torch.uint8).to(dev)
+    with torch.inference_mode():
+        paired_ab("'block' vs 'on', encoder pass bs 32", card, lambda: block.encode(imgs),
+                  lambda: set_mode(block, "block"), lambda: set_mode(block, "mlp"), other="'on'")
+        set_mode(block, "block")
+        with mlp_sub(None):
+            paired_ab(f"sub-tiled (SUB={PIPE_SUB}) vs whole-tile MLP tail, encoder pass bs 32", card,
+                      lambda: default.encode(imgs),
+                      lambda: os.environ.__setitem__("TPU_CAPTIONER_MLP_SUB", str(PIPE_SUB)),
+                      lambda: os.environ.pop("TPU_CAPTIONER_MLP_SUB", None), other="whole tile")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1507,7 +1984,6 @@ def main(argv=None):
     from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
     from tpu_captioner_torch.core.backend import device_info, pin_f32_precision, require_cuda
     from tpu_captioner_torch.core.config import ModelConfig
-    from tpu_captioner_torch.infer.beam import beam_search_encoded
     from tpu_captioner_torch.models.from_jax import save_reference_checkpoint
     from tpu_captioner_torch.ops import _build
     from tpu_captioner_torch.ops.decode_step import fused_decode_step
@@ -1524,7 +2000,7 @@ def main(argv=None):
     pin_f32_precision()
 
     # 2. Build the kernels, one nvcc each, all at once.
-    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv", "lstm_step")
+    names = ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv", "lstm_step", "block_fused")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -1551,6 +2027,8 @@ def main(argv=None):
     bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, bwd_by = check_mlp_bwd(dev, card)
     dw = check_dwconv(dev, card)
     lstm_err, lstm_ms, lstm_plain_ms, lstm_bound_ms, lstm_by = check_lstm(dev, card)
+    block_err, block_ms, block_plain_ms, block_bound, block_by = check_block(dev, card)
+    pipe_err, pipe_ms, pipe_plain_ms, pipe_bound, pipe_by = check_mlp_pipelined(dev, card)
     width_models = check_widths(dev, card, args.seed)
 
     # 4. The serving path through the CLI's loader, kernels on.
@@ -1604,16 +2082,7 @@ def main(argv=None):
     served_width(dev, width_models[300], images8, word_map)
 
     # Serving times, kernels on and off.
-    for bs in (8, 32):
-        imgs = torch.randint(0, 256, (bs, 256, 256, 3), generator=rng, dtype=torch.uint8).to(dev)
-        for label, m in (("kernels", served), ("plain", plain)):
-            m.encode(imgs)  # warm-up
-            enc_ms, enc = _host_ms(lambda: m.encode(imgs))
-            beam_ms, _ = _host_ms(lambda: beam_search_encoded(
-                m, enc, beam_size=BEAM, max_steps=MAX_STEPS,
-                start_id=word_map["<start>"], end_id=word_map["<end>"]))
-            print(f"serve bs={bs} {label}: encoder {enc_ms:.2f} ms, beam {beam_ms:.2f} ms, "
-                  f"{bs / ((enc_ms + beam_ms) / 1e3):.2f} captions/s [{card}]")
+    serve_times(card, "serve", {"kernels": served, "plain": plain}, rng, dev, word_map)
 
     # 5. The frozen-encoder train step at full width.
     del served, plain, model, width_models[300]
@@ -1647,11 +2116,25 @@ def main(argv=None):
         f"{k}: {v}" for k, v in lstm_favoured.items()) + f"; 'auto' may take the kernel for lstm: "
           f"{all(lstm_favoured.values())}; phase 8 took {time.perf_counter() - t8:.1f} s")
 
+    # 9. use_pallas='block' (and the sub-tiled MLP tail) on the flagship.
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    block_model, default_model, block_launches, pipe_launches = block_serve(
+        dev, card, args.seed, word_map, images8, rng)
+    block_eval(dev, card, args.seed, block_model, word_map)
+    block_ab(card, block_model, default_model, rng, dev)
+    del block_model, default_model
+    torch.cuda.empty_cache()
+    block_train(dev, card, args.seed, word_map)
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
     # fine-tune step.  decode_onecell's and decode_rollout's: one eval step in
     # their modes, natural <end>.  lstm_step's: one lstm beam over 8 images.
+    # block_fused's and the sub-tiled mlp_block's: one phase 9 serving
+    # encoder pass; their times per bs-32 encoder pass.
     print(json.dumps({"kernels": [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
@@ -1688,6 +2171,14 @@ def main(argv=None):
          "replaces": "tpu_captioner/ops/lstm_step.py:81", "launches": lstm_launches,
          "max_abs_err": lstm_err, "ms": lstm_ms, "plain_ms": lstm_plain_ms,
          "bound_ms": lstm_bound_ms, "bound_by": lstm_by, "library_ms": None},
+        {"name": "block_fused", "route": "cuda", "source": "tpu_captioner_torch/csrc/block_fused.cu",
+         "replaces": "tpu_captioner/ops/block_fused.py:53", "launches": block_launches,
+         "max_abs_err": block_err, "ms": block_ms, "plain_ms": block_plain_ms,
+         "bound_ms": block_bound, "bound_by": block_by, "library_ms": None},
+        {"name": "mlp_block_pipelined", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
+         "replaces": "tpu_captioner/ops/mlp_block.py:145", "launches": pipe_launches,
+         "max_abs_err": pipe_err, "ms": pipe_ms, "plain_ms": pipe_plain_ms,
+         "bound_ms": pipe_bound, "bound_by": pipe_by, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

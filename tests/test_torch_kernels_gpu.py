@@ -33,7 +33,15 @@ LSTM step kernel's h, c and attention map agree with its plain version within
 1/sqrt(fan-in), in another order than cuBLAS's), at the serving (40 rows),
 eval (32) and batch-32 beam (160) row counts and ragged ones, at E = 512, 300
 (word2vec) and 48, and at the JAX tests' odd small widths; it repeats bit for
-bit (no atomics).
+bit (no atomics).  The whole-block kernel agrees with its plain version
+within 1e-4 times max(1, its largest magnitude) (the conv's 49 products and
+the tail's sums in another order than cuDNN's and cuBLAS's) at the four
+ConvNeXt-Base stage shapes, at a batch whose rows do not fill the last tile
+(3, 14, 14, 512) and at odd sides; its gradients (the dwconv and MLP-tail
+backward kernels) agree with autograd of the plain version within 1e-4
+times the same.  The MLP tail's sub-tiled instances agree with the
+whole-tile one within 1e-5 times the same (one sum order per product, the
+hidden chunks in another grouping) and with the plain version within 1e-4.
 """
 
 import math
@@ -42,6 +50,7 @@ import pytest
 import torch
 
 from tpu_captioner_torch.models.transformer import sinusoidal_pe
+from tpu_captioner_torch.ops.block_fused import _block_plain, fused_convnext_block
 from tpu_captioner_torch.ops.decode_step import (
     DecodeWeights,
     _decode_step_plain,
@@ -62,6 +71,7 @@ from tpu_captioner_torch.ops.mlp_block import (
     SUPPORTED_C,
     _mlp_bwd_plain,
     _mlp_plain,
+    _pipeline_sub,
     fused_convnext_mlp,
     fused_convnext_mlp_bwd,
 )
@@ -400,3 +410,67 @@ def test_lstm_step_refuses_widths_beyond_shared_memory(cuda):
     w = LstmStepWeights(z(A, D), z(A), z(A), z(1), z(C, D), z(C), z(4 * D, E), z(4 * D, C), z(4 * D, D), z(4 * D))
     with pytest.raises(ValueError, match="shared memory"):
         fused_lstm_step(w, z(R, E), z(R, D), z(R, D), z(R, P, C), z(R, P, A))
+
+
+# The sub-tile rows each width takes (ops/mlp_block.py:_pipeline_sub).
+MLP_SUBS = [(128, 32), (128, 16), (128, 8), (256, 16), (256, 8), (256, 4), (512, 16), (512, 8), (512, 4),
+            (1024, 8), (1024, 4)]
+
+
+@pytest.mark.parametrize("c,sub", MLP_SUBS)
+@pytest.mark.parametrize("n", [1003, 4096])
+def test_pipelined_mlp_kernel_matches_monolithic_and_plain(cuda, monkeypatch, c, sub, n):
+    args = mlp_args(n, c, cuda, seed=c + sub, sd="mixed")
+    monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
+    whole = fused_convnext_mlp(*args)
+    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", str(sub))
+    assert _pipeline_sub(n, c) == sub
+    before = (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches)
+    got = fused_convnext_mlp(*args)
+    torch.cuda.synchronize()
+    assert (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches) == (before[0] + 1, before[1] + 1)
+    want = _mlp_plain(*args)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - whole).abs().max().item() <= 1e-5 * scale
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+def block_args(shape, device, seed=0, sd="mixed"):
+    b, _, _, c = shape
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    sd_scale = torch.ones(b) if sd == "ones" else (torch.arange(b) % 3 != 0).float() * 1.25
+    args = (f(*shape), sd_scale, 0.1 * f(7, 7, c), 0.1 * f(c), 1 + 0.1 * f(c), 0.1 * f(c),
+            0.02 * f(4 * c, c), 0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c))
+    return tuple(a.to(device) for a in args)
+
+
+BLOCK_SHAPES = [(8, 64, 64, 128), (8, 32, 32, 256), (8, 16, 16, 512), (8, 8, 8, 1024), (32, 8, 8, 1024),
+                (3, 14, 14, 512), (2, 9, 7, 128), (1, 5, 3, 1024)]
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+@pytest.mark.parametrize("sd", ["ones", "mixed"])
+def test_block_kernel_matches_plain(cuda, shape, sd):
+    args = block_args(shape, cuda, seed=shape[1] + shape[3], sd=sd)
+    before = fused_convnext_block.launches
+    got = fused_convnext_block(*args)
+    torch.cuda.synchronize()
+    assert fused_convnext_block.launches == before + 1
+    want = _block_plain(*args)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    dropped = args[1] == 0
+    assert torch.equal(got[dropped], args[0][dropped])  # sd 0: the block is skipped
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 16, 512), (2, 8, 8, 1024), (2, 9, 7, 128)])
+def test_block_autograd_matches_plain(cuda, shape):
+    args = block_args(shape, cuda, seed=7)
+    cot = torch.randn(*shape, generator=torch.Generator().manual_seed(8)).to(cuda)
+    got = torch.autograd.grad((fused_convnext_block(*(a.requires_grad_() for a in args)) * cot).sum(), args)
+    plain = [a.detach().clone().requires_grad_() for a in args]
+    want = torch.autograd.grad((_block_plain(*plain) * cot).sum(), plain)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), i
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), i

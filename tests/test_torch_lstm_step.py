@@ -145,6 +145,10 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
     assert _build.library_path("k") not in (first, second)
     monkeypatch.undo()
-    for name in ("lstm_step", "decode_step", "mlp_block", "mlp_block_bwd"):
+    # The MLP-tail and whole-block sources share the tail's header, which
+    # includes the warp reductions.
+    tail = {"mlp_tail.cuh"}
+    for name, extra in (("lstm_step", set()), ("decode_step", set()), ("mlp_block", tail),
+                        ("mlp_block_bwd", set()), ("block_fused", tail)):
         names = {p.name for p in _build._sources(_build.CSRC / f"{name}.cu", {})}
-        assert names == {f"{name}.cu", "warp_reduce.cuh"}, names
+        assert names == {f"{name}.cu", "warp_reduce.cuh", *extra}, names

@@ -1,9 +1,11 @@
 """The port's fused ConvNeXt MLP tail (plain version, which the CPU wrapper
 runs) against the JAX package: its XLA reference, and its Pallas kernel in
-interpret mode.  Tolerances: 1e-5 against the XLA reference (same exact-erf
-math, f32, other summation order); 2e-4 against the Pallas kernel, whose GELU
-uses the A&S erf (abs error 1.5e-7 before the 4C-wide product), as
-tests/test_mlp_block.py allows."""
+interpret mode, its whole-tile body and its sub-tiled ``_kernel_pipelined``
+(``TPU_CAPTIONER_MLP_SUB``); and the port's rule for the sub-tile rows.
+Tolerances: 1e-5 against the XLA reference (same exact-erf math, f32, other
+summation order); 2e-4 against the Pallas kernels, whose GELU uses the A&S
+erf (abs error 1.5e-7 before the 4C-wide product), as tests/test_mlp_block.py
+allows."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,21 +13,21 @@ import pytest
 import torch
 
 from tpu_captioner.ops.mlp_block import _reference_impl, fused_convnext_mlp as jax_mlp
-from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
+from tpu_captioner_torch.ops.mlp_block import SUPPORTED_C, _mlp_plain, _pipeline_sub, fused_convnext_mlp
 
 N, C = 192, 128
 
 
-def make_args(sd: str, seed: int = 0):
+def make_args(sd: str, seed: int = 0, n: int = N):
     """JAX-layout numpy args: w1 (C, 4C), w2 (4C, C)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     sd_scale = (
-        np.ones(N, np.float32) if sd == "ones"
-        else np.where(rng.random(N) < 0.7, 2.0, 0.0).astype(np.float32)
+        np.ones(n, np.float32) if sd == "ones"
+        else np.where(rng.random(n) < 0.7, 2.0, 0.0).astype(np.float32)
     )
     return (
-        f(N, C), f(N, C), sd_scale,
+        f(n, C), f(n, C), sd_scale,
         1.0 + 0.1 * f(C), 0.1 * f(C),
         0.05 * f(C, 4 * C), 0.1 * f(4 * C),
         0.05 * f(4 * C, C), 0.1 * f(C),
@@ -57,3 +59,40 @@ def test_cpu_wrapper_matches_pallas_kernel(sd):
     got = fused_convnext_mlp(*port_args(a)).numpy()
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
     assert fused_convnext_mlp.launches == before  # CPU tensors launch nothing
+
+
+# The sub-tile rows each width's tile takes (ops/mlp_block.py:_pipeline_sub).
+VALID_SUB = {128: (32, 16, 8), 256: (16, 8, 4), 512: (16, 8, 4), 1024: (8, 4)}
+
+
+@pytest.mark.parametrize("value", [None, "-8", "0", "2", "4", "6", "8", "12", "16", "32", "64", "128"])
+@pytest.mark.parametrize("c", SUPPORTED_C)
+def test_pipeline_sub_rule(monkeypatch, c, value):
+    if value is None:
+        monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
+    else:
+        monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", value)
+    want = int(value) if value is not None and int(value) in VALID_SUB[c] else 0
+    assert _pipeline_sub(1003, c) == want
+    assert 8 in VALID_SUB[c]  # one value selects the sub-tiled instance at every width
+
+
+@pytest.mark.parametrize("n", [512, 520])
+def test_cpu_wrapper_matches_pipelined_pallas_kernel(monkeypatch, n):
+    """With TPU_CAPTIONER_MLP_SUB=128 the JAX package runs its sub-tiled
+    ``_kernel_pipelined`` (520 adds a partial last tile); the port's CPU
+    wrapper runs the plain version, which the sub-tiled CUDA instances are
+    held against on the card."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from tpu_captioner.ops import mlp_block as jax_mlp_block
+
+    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", "128")
+    a = make_args("mixed", seed=n, n=n)
+    assert jax_mlp_block._pipeline_sub(n, min(512, n)) == 128
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_mlp(*map(jnp.asarray, a), True, True))
+    before = (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches)
+    got = fused_convnext_mlp(*port_args(a)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+    assert (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches) == before

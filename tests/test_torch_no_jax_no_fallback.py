@@ -15,6 +15,8 @@
   item; the fine-tune branch builds a step.
 - The depthwise conv's wrappers refuse what their kernels do not take (other
   devices, bf16, non-contiguous tensors, tensors on two devices).
+- The whole-block wrapper refuses other devices, dtypes, shapes and layouts
+  on every device, and on the card the widths its kernel is not built for.
 """
 
 import os
@@ -40,6 +42,7 @@ def test_port_imports_no_jax():
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "tpu_captioner"))
         assert not bad, bad
         assert len(names) >= 20, names
+        assert "tpu_captioner_torch.ops.block_fused" in names, names
         """
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -255,3 +258,40 @@ def test_dwconv_wrappers_refuse_other_devices_and_dtypes(cpu_only):
         depthwise_conv7x7_nhwc(x, meta(7, 7, 16))
     with pytest.raises(ValueError, match="shape"):
         dwconv_forward(x, torch.zeros(3, 3, 16))
+
+
+def test_block_wrapper_refuses_what_its_kernel_does_not_take(cpu_only):
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.block_fused import _check_block, fused_convnext_block
+
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    if nvcc is None:  # a CUDA request cannot build its kernel here: it raises
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load("block_fused")
+
+    def args(make, b=2, h=8, w=8, c=16):
+        return [make(b, h, w, c), make(b), make(7, 7, c), make(c), make(c), make(c),
+                make(4 * c, c), make(4 * c), make(c, 4 * c), make(c), make(c)]
+
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731 — neither cpu nor cuda
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_convnext_block(*args(meta))
+    ok = args(torch.zeros)
+    assert fused_convnext_block(*ok).shape == (2, 8, 8, 16)  # the plain version takes any width
+    for i, bad, match in (
+        (0, ok[0].bfloat16(), "float32"),
+        (0, ok[0].transpose(1, 2), "contiguous"),
+        (0, torch.zeros(2, 8, 16), r"\(B, H, W, C\)"),
+        (1, torch.zeros(3), "shape"),
+        (2, torch.zeros(3, 3, 16), "shape"),
+        (6, torch.zeros(16, 64), "shape"),
+        (2, meta(7, 7, 16), "not cpu"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            fused_convnext_block(*ok[:i], bad, *ok[i + 1:])
+    with pytest.raises(ValueError, match="supports C in"):  # what a CUDA tensor of this width meets
+        _check_block(*ok, kernel=True)
+    _check_block(*args(torch.zeros, c=128), kernel=True)

@@ -9,6 +9,9 @@
 Takes reference ``.pth.tar`` checkpoints (the Orbax directories belong to the
 JAX package).  Images are captioned in groups of 8, one encoder pass and one
 batched beam loop per group; ``--csv`` writes imageFile,generatedCaption rows.
+``--usePallas`` picks the ConvNeXt blocks' kernels (``ModelConfig.use_pallas``:
+``auto``, ``on``, ``mlp``, ``block`` or ``off``, or four of these joined by
+commas, one per stage).
 """
 
 from __future__ import annotations
@@ -48,8 +51,10 @@ def build_model_and_params(args, word_map: Dict[str, int]):
             "belong to the JAX package)"
         )
     decoder = args.decoder or ("lstm" if args.lstmDecoder else "transformer")
+    use_pallas = getattr(args, "usePallas", "auto")
     cfg = ModelConfig(
-        decoder=decoder, vocab_size=len(word_map), embedding_name=args.embeddingName
+        decoder=decoder, vocab_size=len(word_map), embedding_name=args.embeddingName,
+        use_pallas=tuple(use_pallas.split(",")) if "," in use_pallas else use_pallas,
     )
     model = CaptionModel(cfg, device=args.device, seed=args.seed)
     load_reference_checkpoint(model, args.checkpoint)
@@ -99,6 +104,8 @@ def main(argv=None):
     p.add_argument("--csv", type=str, default=None,
                    help="write imageFile,generatedCaption rows here")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--usePallas", type=str, default="auto",
+                   help="ConvNeXt block kernels: auto|on|mlp|block|off, or one per stage joined by commas")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the initial weights (the checkpoint replaces them)")
     args = p.parse_args(argv)

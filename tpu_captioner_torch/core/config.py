@@ -3,9 +3,18 @@
 ``ModelConfig`` keeps the JAX package's fields, defaults and word2vec head
 rule, so a config serialised by one package builds the same model in the
 other.  The TPU switches become kernel selectors: ``use_pallas`` picks the
-fused ConvNeXt MLP kernel and ``decode_kernel`` the fused decode kernels.
-``'auto'`` and ``'on'`` launch the kernel for CUDA tensors and take the plain
-PyTorch version for CPU tensors; ``'off'`` takes the plain version everywhere.
+ConvNeXt block kernels and ``decode_kernel`` the fused decode kernels.
+
+``use_pallas`` takes what the JAX package's ``CaptionModel`` resolves
+(tpu_captioner/train/model.py:82-99): one mode for every stage, or a tuple or
+list with one mode per stage.  ``stage_kernel_modes`` resolves it:
+- ``'auto'``, ``'on'``, ``'mlp'`` and ``True``: ``'mlp'``, the fused MLP-tail
+  kernels (``ops/mlp_block.py``) and the depthwise-conv kernels
+  (``ops/dwconv.py``).  ``'auto'`` is the JAX package's choice on its own chip;
+- ``'block'``: the whole block in one kernel (``ops/block_fused.py``);
+- ``'off'`` and ``False``: the plain PyTorch block.
+A kernel mode launches the kernels for CUDA tensors and takes their plain
+versions for CPU tensors; ``'off'`` takes the plain block everywhere.
 ``decode_kernel`` also takes the JAX package's ``'step'`` (the per-token
 kernel, as ``'on'``) and ``'mega'`` (the whole greedy rollout in one launch);
 ``train/model.py:decode_kernel_mode`` resolves it.
@@ -23,7 +32,7 @@ cannot be reproduced in PyTorch; only the distribution is the same.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 # Embedding-name -> (embed_dim, default artifact path), as in the JAX package
 # (reference train.py:74-79).
@@ -34,10 +43,34 @@ EMBEDDING_PRESETS = {
 
 LSTM_DECODERS = ("lstm", "lstm_no_attention")
 DECODER_TYPES = (*LSTM_DECODERS, "transformer", "transformer_attvis")
-KERNEL_MODES = ("auto", "on", "off")
+KERNEL_MODES = ("auto", "on", "mlp", "block", "off")  # and True / False, as in the JAX package
+STAGE_MODES = ("mlp", "block", "off")  # what each stage resolves to
 DECODE_KERNEL_MODES = ("auto", "on", "step", "mega", "off")
 DROPOUT_MASK_MODES = ("auto", "pool", "threefry")
 ENCODER_REMAT_MODES = ("auto", "on", "off", "save_mlp_in")
+
+
+def _stage_mode(mode) -> str:
+    if mode is True or (isinstance(mode, str) and mode in ("auto", "on", "mlp")):
+        return "mlp"
+    if mode is False or mode == "off":
+        return "off"
+    if mode == "block":
+        return "block"
+    raise ValueError(
+        f"use_pallas must be one of {KERNEL_MODES}, True, False, or a tuple of these with one per "
+        f"stage; got {mode!r}"
+    )
+
+
+def stage_kernel_modes(use_pallas, n_stages: int) -> Tuple[str, ...]:
+    """``use_pallas`` resolved to one of ``STAGE_MODES`` per ConvNeXt stage;
+    raises a ``ValueError`` for any other value or a tuple of another length."""
+    if isinstance(use_pallas, (tuple, list)):
+        if len(use_pallas) != n_stages:
+            raise ValueError(f"use_pallas needs one mode per stage ({n_stages}), got {use_pallas!r}")
+        return tuple(_stage_mode(m) for m in use_pallas)
+    return (_stage_mode(use_pallas),) * n_stages
 
 
 @dataclass
@@ -65,7 +98,7 @@ class ModelConfig:
 
     # Only 'float32' is ported; 'bfloat16' raises in CaptionModel.
     compute_dtype: str = "float32"
-    use_pallas: str = "auto"  # fused ConvNeXt MLP kernel: 'auto' | 'on' | 'off'
+    use_pallas: Any = "auto"  # one of KERNEL_MODES, or one per stage (stage_kernel_modes)
     decode_kernel: str = "auto"  # one of DECODE_KERNEL_MODES
     # What the fine-tune step's trainable stages keep for the backward: one
     # of ENCODER_REMAT_MODES ('auto' resolves in train/model.py).
@@ -75,9 +108,9 @@ class ModelConfig:
     def __post_init__(self):
         if self.decoder not in DECODER_TYPES:
             raise ValueError(f"decoder must be one of {DECODER_TYPES}, got {self.decoder!r}")
-        for name, modes in (("use_pallas", KERNEL_MODES), ("decode_kernel", DECODE_KERNEL_MODES)):
-            if getattr(self, name) not in modes:
-                raise ValueError(f"{name} must be one of {modes}, got {getattr(self, name)!r}")
+        stage_kernel_modes(self.use_pallas, len(self.encoder_depths))
+        if self.decode_kernel not in DECODE_KERNEL_MODES:
+            raise ValueError(f"decode_kernel must be one of {DECODE_KERNEL_MODES}, got {self.decode_kernel!r}")
         if self.dropout_masks not in DROPOUT_MASK_MODES:
             raise ValueError(
                 f"dropout_masks must be one of {DROPOUT_MASK_MODES}, got {self.dropout_masks!r}"

@@ -14,15 +14,21 @@ under torchvision's parameter names, so the reference Encoder's
   7  stage:  3 blocks, dim 1024
 
 Activations are NHWC (channels last) throughout; a conv sees them as an NCHW
-view with channels-last strides.  Each block: depthwise 7x7 conv + bias, then
-the fused tail of ``ops/mlp_block.py``.  A block that uses its kernels
-(``use_pallas`` not 'off') runs the conv through
-``ops/dwconv.py:depthwise_conv7x7_nhwc`` on the conv weight seen as (7, 7, C),
-with its forward kernel (forward and input gradient) and its filter-gradient
-kernel; a block that does not runs the grouped ``F.conv2d`` and its autograd,
-as on the JAX main path.  The block's ``dw_kernel`` and ``dw_grad_kernel``
-hold the two kernel choices; they follow ``use_kernel``, and only the paired
-A/B of ``chip_smoke.py`` sets them apart.  All LayerNorms use eps 1e-6.
+view with channels-last strides.  Each block runs in one of three modes
+(``core/config.py:STAGE_MODES``, one per stage, resolved from
+``ModelConfig.use_pallas``):
+- ``'mlp'``: depthwise 7x7 conv + bias through
+  ``ops/dwconv.py:depthwise_conv7x7_nhwc`` on the conv weight seen as
+  (7, 7, C), with its forward kernel (forward and input gradient) and its
+  filter-gradient kernel, then the fused tail of ``ops/mlp_block.py``;
+- ``'off'``: the grouped ``F.conv2d`` and its autograd, as on the JAX main
+  path, then the tail's plain version;
+- ``'block'``: the whole block in one kernel, ``ops/block_fused.py`` (its
+  backward through the dwconv and MLP-tail kernels).
+The block's ``use_kernel`` says whether the tail takes its kernel (``'mlp'``)
+and ``dw_kernel`` and ``dw_grad_kernel`` hold the two conv choices; they
+follow the mode, and only the paired A/B of ``chip_smoke.py`` sets them
+apart.  ``'block'`` reads none of the three.  All LayerNorms use eps 1e-6.
 
 Stochastic depth (row mode, torchvision's): in training each block keeps an
 image with survival ``1 - p``, p ramped as ``0.5 * i / (blocks - 1)``, and
@@ -46,7 +52,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpu_captioner_torch.core.config import STAGE_MODES, stage_kernel_modes
 from tpu_captioner_torch.models import torch_init
+from tpu_captioner_torch.ops.block_fused import fused_convnext_block
 from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
 from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
 
@@ -74,7 +82,7 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 
 class CNBlock(nn.Module):
-    def __init__(self, dim: int, use_kernel: bool, device=None):
+    def __init__(self, dim: int, mode="off", device=None):
         super().__init__()
         # Indices 1, 4 and 6 are torchvision's Permute/GELU/Permute; they hold
         # no parameters and keep the numbering of the reference keys.
@@ -88,8 +96,11 @@ class CNBlock(nn.Module):
             nn.Identity(),
         )
         self.layer_scale = nn.Parameter(torch.empty(dim, 1, 1, device=device))
-        self.use_kernel = use_kernel
-        self.dw_kernel = self.dw_grad_kernel = use_kernel
+        if mode not in STAGE_MODES:
+            raise ValueError(f"a ConvNeXt block's mode must be one of {STAGE_MODES}, got {mode!r}")
+        self.mode = mode
+        self.use_kernel = self.mode == "mlp"
+        self.dw_kernel = self.dw_grad_kernel = self.use_kernel
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -102,15 +113,21 @@ class CNBlock(nn.Module):
     def forward(self, x: torch.Tensor, sd_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, H, W, C) -> (B, H, W, C); ``sd_rows`` (B,) is the per-image
         stochastic-depth scale (ones when None)."""
-        _, h, w, c = x.shape
-        conv = self.block[0]
-        if self.dw_kernel or self.dw_grad_kernel:
+        b, h, w, c = x.shape
+        conv, ln, pw1, pw2 = self.block[0], self.block[2], self.block[3], self.block[5]
+        if self.mode == "block" or self.dw_kernel or self.dw_grad_kernel:
             taps = conv.weight.view(c, 7 * 7).t().contiguous().view(7, 7, c)  # (C, 1, 7, 7) -> (7, 7, C)
+        if self.mode == "block":
+            sd = x.new_ones(b) if sd_rows is None else sd_rows.contiguous()
+            return fused_convnext_block(
+                x.contiguous(), sd, taps, conv.bias, ln.weight, ln.bias, pw1.weight, pw1.bias,
+                pw2.weight, pw2.bias, self.layer_scale.view(-1),
+            )
+        if self.dw_kernel or self.dw_grad_kernel:
             y = depthwise_conv7x7_nhwc(x.contiguous(), taps, self.dw_kernel, self.dw_grad_kernel) + conv.bias
         else:
             y = conv_nhwc(x, conv)
         y = y.reshape(-1, c).contiguous()
-        ln, pw1, pw2 = self.block[2], self.block[3], self.block[5]
         tail = fused_convnext_mlp if self.use_kernel else _mlp_plain
         sd = y.new_ones(y.shape[0]) if sd_rows is None else sd_rows.repeat_interleave(h * w)
         out = tail(
@@ -131,7 +148,9 @@ class Stage(nn.Sequential):
     ``'save_mlp_in'`` run the blocks plainly: autograd then keeps each
     block's input (for the depthwise conv) and its dwconv output (for the
     fused tail), which is what the JAX package's ``save_mlp_in`` policy keeps
-    (tpu_captioner/models/convnext.py:156-160, :244-256)."""
+    (tpu_captioner/models/convnext.py:156-160, :244-256).  A ``'block'``
+    block keeps only its input and recomputes its conv in the backward; under
+    ``'on'`` its kernel runs twice per step."""
 
     def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None,
                 remat: str = "off"):
@@ -172,20 +191,24 @@ class Downsample(nn.Sequential):
 
 class ConvNeXtFeatures(nn.Sequential):
     """The 8-child feature pyramid: NHWC normalised images ->
-    (B, H/32, W/32, dims[-1])."""
+    (B, H/32, W/32, dims[-1]).  ``mode`` is a ``ModelConfig.use_pallas``
+    value, one for every stage or one per stage, as the JAX package's
+    ``pallas_mode`` (tpu_captioner/models/convnext.py:286-307), resolved by
+    ``stage_kernel_modes`` into each stage's block mode (``CNBlock``)."""
 
     def __init__(
         self,
         depths: Sequence[int] = BASE_DEPTHS,
         dims: Sequence[int] = BASE_DIMS,
-        use_kernel: bool = False,
+        mode="off",
         device=None,
     ):
+        modes = stage_kernel_modes(mode, len(depths))
         children = [Stem(dims[0], device)]
         for s, (depth, dim) in enumerate(zip(depths, dims)):
             if s > 0:
                 children.append(Downsample(dims[s - 1], dim, device))
-            children.append(Stage(*(CNBlock(dim, use_kernel, device) for _ in range(depth))))
+            children.append(Stage(*(CNBlock(dim, modes[s], device) for _ in range(depth))))
         super().__init__(*children)
         self.sd_probs = sd_probs(depths)
 

@@ -53,12 +53,13 @@ class Encoder(nn.Module):
         encoded_image_size: int = 7,
         depths=(3, 3, 27, 3),
         dims=(128, 256, 512, 1024),
-        use_kernel: bool = False,
+        mode="off",
         device=None,
     ):
+        """``mode``: a ``ModelConfig.use_pallas`` value (``ConvNeXtFeatures``)."""
         super().__init__()
         self.encoded_image_size = encoded_image_size
-        self.convnext = ConvNeXtFeatures(depths, dims, use_kernel, device)
+        self.convnext = ConvNeXtFeatures(depths, dims, mode, device)
 
     def forward(self, images: torch.Tensor, sd_rows=None, grad_from=None, remat="off") -> torch.Tensor:
         """Normalised f32 NHWC (B, H, W, 3) -> (B, enc, enc, dims[-1]);

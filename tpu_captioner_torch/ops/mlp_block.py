@@ -11,10 +11,12 @@ depth scale: all ones in eval.
 
 ``fused_convnext_mlp`` is a ``torch.autograd.Function`` (the JAX package's
 ``custom_vjp``).  Its forward launches ``csrc/mlp_block.cu`` for CUDA tensors
-and runs ``_mlp_plain`` for CPU tensors.  Its backward returns the cotangent
-itself as the residual's gradient and calls ``fused_convnext_mlp_bwd``, which
-launches ``csrc/mlp_block_bwd.cu`` for CUDA tensors and runs
-``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
+and runs ``_mlp_plain`` for CPU tensors.  ``TPU_CAPTIONER_MLP_SUB``, read at
+each call (``_pipeline_sub``), selects the kernel's sub-tiled instance, the
+counterpart of the JAX package's ``_kernel_pipelined``.  Its backward
+returns the cotangent itself as the residual's gradient and calls
+``fused_convnext_mlp_bwd``, which launches ``csrc/mlp_block_bwd.cu`` for
+CUDA tensors and runs ``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
 output), sd and the parameters, never the residual.
 """
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +33,10 @@ from tpu_captioner_torch.ops import _build
 
 LN_EPS = 1e-6
 SUPPORTED_C = (128, 256, 512, 1024)  # the widths the kernels are instantiated for
+# Rows per thread block of the forward kernel's tile, and hidden units per
+# chunk, at each width (csrc/mlp_block.cu:tc_mlp_block_forward).
+ROW_TILE = {128: 64, 256: 32, 512: 32, 1024: 16}
+HIDDEN_CHUNK = {128: 128, 256: 256, 512: 256, 1024: 256}
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -73,6 +80,32 @@ def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     )
 
 
+def _pipeline_sub(n: int, c: int) -> int:
+    """Sub-tile rows of the forward kernel at width ``c`` (the JAX package's
+    ``_pipeline_sub``, tpu_captioner/ops/mlp_block.py:191); 0 selects the
+    whole-tile instance.  Reads ``TPU_CAPTIONER_MLP_SUB`` at each call (JAX
+    reads it when it traces).  Returns 0 when the variable is unset or <= 0,
+    or when the value does not fit the width's tile: it must be a multiple of
+    4 that divides the tile's BM rows at least twice, with SUB x JC >= 1024
+    so that each of the 256 threads holds a 4-row tile of the sub-tile's
+    first product.  With the port's tiles (BM = 64/32/32/16, JC =
+    128/256/256/256 at C = 128/256/512/1024) the valid values are:
+
+    - C = 128: 32, 16, 8;
+    - C = 256: 16, 8, 4;
+    - C = 512: 16, 8, 4;
+    - C = 1024: 8, 4.
+
+    8 is valid at every width.  ``n`` is unused: a partial last tile runs the
+    same instance (JAX needs n for its tile size)."""
+    del n
+    sub = int(os.environ.get("TPU_CAPTIONER_MLP_SUB", "0"))
+    bm = ROW_TILE.get(c, 0)
+    if sub <= 0 or sub % 4 or not bm or bm % sub or bm // sub < 2 or sub * HIDDEN_CHUNK[c] < 1024:
+        return 0
+    return sub
+
+
 def _check(what, c, tensors):
     """Raise unless every ``name: (tensor, shape)`` entry is a contiguous,
     16-byte-aligned float32 tensor of that shape on the first one's device,
@@ -102,7 +135,7 @@ def _lib():
     lib = _build.load("mlp_block")
     lib.tc_mlp_block_forward.restype = ctypes.c_int
     lib.tc_mlp_block_forward.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return lib
 
@@ -119,8 +152,9 @@ def _bwd_lib():
 
 
 def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
-    """The forward: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors; any other device raises."""
+    """The forward: the CUDA kernel for CUDA tensors (its sub-tiled instance
+    when ``_pipeline_sub`` selects one), the plain version for CPU tensors;
+    any other device raises."""
     args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
     if x.device.type == "cpu":
         return _mlp_plain(*args)
@@ -132,12 +166,15 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
         **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
     })
     lib = _lib()
+    sub = _pipeline_sub(n, c)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tc_mlp_block_forward(*(t.data_ptr() for t in args), out.data_ptr(), n, c, stream)
+        err = lib.tc_mlp_block_forward(*(t.data_ptr() for t in args), out.data_ptr(), n, c, sub, stream)
     _build.check(lib, err, "mlp_block")
     fused_convnext_mlp.launches += 1
+    if sub:
+        fused_convnext_mlp.pipelined_launches += 1
     return out
 
 
@@ -199,9 +236,11 @@ def fused_convnext_mlp(
 ) -> torch.Tensor:
     """The fused tail, differentiable: the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors; any other device raises.
-    ``fused_convnext_mlp.launches`` counts forward kernel launches,
-    ``fused_convnext_mlp_bwd.launches`` backward ones."""
+    ``fused_convnext_mlp.launches`` counts forward kernel launches, of which
+    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled instance;
+    ``fused_convnext_mlp_bwd.launches`` counts backward ones."""
     return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
 
 
 fused_convnext_mlp.launches = 0
+fused_convnext_mlp.pipelined_launches = 0

@@ -8,12 +8,21 @@ autograd from a starting child on), ``tf_forward``, ``rollout``, the decoder
 choice (``transformer``, ``transformer_attvis``, ``lstm``,
 ``lstm_no_attention``), and the kernel/plain selection.
 
+``ModelConfig.use_pallas`` resolves per stage (``core/config.py:
+stage_kernel_modes``): ``'mlp'`` (``'auto'``, ``'on'``), the fused MLP-tail
+and depthwise-conv kernels; ``'block'``, the whole-block kernel of
+``ops/block_fused.py``, whose backward runs the dwconv and MLP-tail
+backward kernels; ``'off'``, the plain block.  A per-stage tuple sets each
+stage apart, as in the JAX package; ``'auto'`` stays ``'mlp'`` on every
+stage (``chip_smoke.py`` phase 9 records the block kernel against it).
+
 The fine-tune policies of the JAX package (``finetune_use_pallas``,
 ``finetune_encoder_remat``, tpu_captioner/train/model.py:30-62) were chosen
 on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
-- no per-stage kernel choice: the fused MLP kernels run at every stage.  The
-  JAX package put stage 4 on XLA because the TPU backward staged 48 MB of
-  weight gradients in scoped VMEM; a Hopper kernel has no such limit;
+- no fine-tune per-stage kernel choice: the fine-tune step runs the stages'
+  modes as ``use_pallas`` sets them.  The JAX package put stage 4 on XLA
+  because the TPU backward staged 48 MB of weight gradients in scoped VMEM;
+  a Hopper kernel has no such limit;
 - ``finetune_encoder_remat`` below, decided on the H100;
 - the depthwise conv's two kernels (``ops/dwconv.py``) follow
   ``use_pallas``, as the MLP tail does, where the JAX package ships both off
@@ -128,7 +137,7 @@ class CaptionModel(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(
             cfg.encoded_image_size, tuple(cfg.encoder_depths), tuple(cfg.encoder_dims),
-            use_kernel=cfg.use_pallas != "off", device=device,
+            mode=cfg.use_pallas, device=device,
         )
         if cfg.decoder == "lstm":
             self.decoder = DecoderWithAttention(cfg, device=device)
