@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 2. build the CUDA kernels from the seven sources in
    ``tpu_captioner_torch/csrc`` (one nvcc per source, all started together;
    ``decode_step.cu`` holds three kernels, ``dwconv.cu`` two, ``mlp_block.cu``
-   the whole-tile and sub-tiled tail instances);
+   the whole-tile path and the sub-tiled tail instances; ``mlp_block.cu``
+   and ``mlp_block_bwd.cu`` take their products from the tensor cores
+   through ``csrc/tf32x3_gemm.cuh``);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with CUDA-event times of both and the least time the card could
    take (``bound_ms``): the fused ConvNeXt MLP tail at the four
@@ -150,6 +152,13 @@ TRAIN_TIMED_STEPS = 12
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
+# f32-accurate matrix products on the tensor cores: three TF32 products per
+# f32 one (3xTF32, tpu_captioner_torch/csrc/tf32x3_gemm.cuh).  The least
+# time for f32 products, whatever implements them, bounds every kernel
+# whose operations are matrix products (the MLP tail, forward, sub-tiled
+# and backward; the block kernel; the whole-rollout decode kernel).
+F32_PRODUCT_OPS_PER_S = TF32_OPS_PER_S / 3
 # Integer operations of one Philox4x32-10 call: 10 rounds of two 32x32->64
 # multiplies (high and low halves: 4) and four xors, 9 key bumps of two
 # adds, and 4 threshold compares.
@@ -245,11 +254,11 @@ def check_mlp(dev, card):
                              n_bytes + depth * 4 * (3 * n * c + n + 8 * c * c + 8 * c),
                              n_ops + depth * 16 * n * c * c)
     for batch, (ms, plain_ms, n_bytes, n_ops) in passes.items():
-        bound_ms, bound_by = bound(n_bytes, n_ops)
+        bound_ms, bound_by = bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S)
         print(f"mlp_block per encoder pass at batch {batch} (36 blocks): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     ms, plain_ms, n_bytes, n_ops = passes[8]
-    return (worst, ms, plain_ms, *bound(n_bytes, n_ops))
+    return (worst, ms, plain_ms, *bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S))
 
 
 def check_mlp_bwd(dev, card):
@@ -300,7 +309,7 @@ def check_mlp_bwd(dev, card):
             # their gradients written once; 48 N C^2 flops (module note).
             n_bytes += depth * 4 * (3 * n * c + 2 * n + 16 * c * c + 16 * c)
             n_ops += depth * 48 * n * c * c
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S)
     print(f"mlp_block_bwd per fine-tune step (27 + 3 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     return worst_abs, ms, plain_ms, bound_ms, bound_by
@@ -672,12 +681,16 @@ def train_phase(dev, card, seed, word_map, cfg=None, pool_n=POOL_N):
 
 
 # Kernel-name substrings of each group in a profiler window, first match wins.
+# The MLP tail's two libraries share the tensor-core GEMM (gemm_kernel<Epi>):
+# the forward's instances are told apart by their epilogues, listed first;
+# split_kernel, which both libraries run, has a group of its own.
 KERNEL_GROUPS = (
     ("dwconv_grad", ("dwconv_wgrad",)),
     ("dwconv", ("dwconv_fwd_kernel",)),
+    ("mlp_block", ("mlp_block_kernel", "ln_rows", "HiddenEpi", "OutEpi")),
     ("mlp_block_bwd", ("gemm_kernel", "prep_rows", "finish_rows", "column_partials",
                        "column_finish", "sum_splits")),
-    ("mlp_block", ("mlp_block_kernel",)),
+    ("mlp tf32 split", ("split_kernel",)),
     ("dropout_mask", ("mask_pool_kernel",)),
     ("convolution backward", ("dgrad", "wgrad", "backward", "grad_weight", "grad_input")),
     ("convolution forward", ("conv", "cudnn", "fprop")),
@@ -686,7 +699,7 @@ KERNEL_GROUPS = (
 
 
 def _kernel_ms_by_group(step, state, batch, seeds):
-    """Device time of each kernel group, and of the eight longest kernels,
+    """Device time of each kernel group, and of the twelve longest kernels,
     over ``len(seeds)`` steps, from a ``torch.profiler`` window (kernel rows
     only), in ms per step."""
     import torch
@@ -705,7 +718,7 @@ def _kernel_ms_by_group(step, state, batch, seeds):
         group = next((g for g, subs in KERNEL_GROUPS if any(x.lower() in name for x in subs)), "other")
         groups[group] = groups.get(group, 0.0) + ms
         kernels.append((ms, e.key[:90]))
-    return state, groups, sorted(kernels, reverse=True)[:8]
+    return state, groups, sorted(kernels, reverse=True)[:12]
 
 
 def set_dw(model, dw_kernel, dw_grad_kernel):
@@ -953,7 +966,8 @@ LSTM_ROWS = (8 * BEAM, 32 * BEAM, TRAIN_BS)  # the bs-8 and bs-32 beams, the eva
 # 4C-long sums in another order than cuDNN's and cuBLAS's.
 BLOCK_TOL = 1e-4
 # The MLP tail's sub-tiled instances against the whole-tile one, relative as
-# above: the same products, the first one's rows in another grouping.
+# above: the same products, f32 FFMA in the one and f32-accurate tensor-core
+# products (3xTF32) in the other.
 PIPE_TOL = 1e-5
 MLP_SUBS = {128: (32, 16, 8), 256: (16, 8, 4), 512: (16, 8, 4), 1024: (8, 4)}  # ops/mlp_block.py:_pipeline_sub
 PIPE_SUB = 8  # valid at every width: phase 9's serving run and A/B
@@ -1160,7 +1174,8 @@ def eval_phase(dev, card, seed, word_map):
         lengths = torch.where(ends.any(dim=1), ends.int().argmax(dim=1) + 1, steps).tolist()
         t_kernel = _time_ms(lambda: fused_full_rollout(*args), iters=5, warmup=1)
         t_plain = _time_ms(lambda: _full_rollout_plain(*args), iters=2, warmup=1)
-    bound_ms, bound_by = bound(*rollout_bound(lengths, L, 49, E, cfg.decoder_dim, VOCAB, steps))
+    bound_ms, bound_by = bound(*rollout_bound(lengths, L, 49, E, cfg.decoder_dim, VOCAB, steps),
+                               F32_PRODUCT_OPS_PER_S)
     print(f"decode_rollout R={TRAIN_BS} steps={steps} ({max(lengths)} run): max_abs_err logits {logit_err:.3e}, "
           f"maps {alpha_err:.3e}; kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms per rollout, "
           f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
@@ -1634,11 +1649,11 @@ def check_block(dev, card):
         passes[batch] = (ms + depth * t_kernel, plain_ms + depth * t_plain, n_bytes + depth * b_bytes,
                          n_ops + depth * b_ops)
     for batch, (ms, plain_ms, n_bytes, n_ops) in passes.items():
-        bound_ms, bound_by = bound(n_bytes, n_ops)
+        bound_ms, bound_by = bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S)
         print(f"block_fused per encoder pass at batch {batch} (36 blocks): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     ms, plain_ms, n_bytes, n_ops = passes[TRAIN_BS]
-    return (worst, ms, plain_ms, *bound(n_bytes, n_ops))
+    return (worst, ms, plain_ms, *bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S))
 
 
 def check_mlp_pipelined(dev, card):
@@ -1698,7 +1713,7 @@ def check_mlp_pipelined(dev, card):
                 line.append(f"whole tile {t_whole:.4f} ms, plain {t_plain:.4f} ms")
             print(f"mlp_block sub-tiled C={c} N={n} (vs whole tile relative / vs plain abs): "
                   + "; ".join(line) + f" [{card}]")
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S)
     print(f"mlp_block SUB={PIPE_SUB} per encoder pass at batch {TRAIN_BS} (36 launches): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     return worst, ms, plain_ms, bound_ms, bound_by

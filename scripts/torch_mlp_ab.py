@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's MLP-tail forward kernel of several checkouts on one card.
+"""Time the PyTorch port's MLP-tail kernels of several checkouts on one card.
 
     python3 scripts/torch_mlp_ab.py ROOT [ROOT ...]
 
@@ -7,12 +7,15 @@ Each ROOT is a checkout of the repository: this one, or another commit
 unpacked with ``git archive`` into a git-ignored directory.  Each is timed in
 a process of its own, in the order given, so that ``A B B A`` pairs two
 commits on one card.  A process builds that checkout's ``mlp_block.cu`` and
-prints one JSON line of CUDA-event ms per launch of ``fused_convnext_mlp``
-(its whole-tile instance: ``TPU_CAPTIONER_MLP_SUB`` unset) at the four
-ConvNeXt-Base stage shapes at batch 32 (N = 32 x 64^2 .. 32 x 8^2 rows),
-with seeded inputs and per-image stochastic-depth rows, and the sum over
-one encoder pass (3, 3, 27 and 3 launches).  The last line is a table of
-each checkout's median, with the card's name and power limit.
+``mlp_block_bwd.cu`` and prints one JSON line of CUDA-event ms per launch:
+of ``fused_convnext_mlp`` (its whole-tile instance: ``TPU_CAPTIONER_MLP_SUB``
+unset) at the four ConvNeXt-Base stage shapes at batch 32 (N = 32 x 64^2 ..
+32 x 8^2 rows), and the sum over one encoder pass (3, 3, 27 and 3
+launches); of ``fused_convnext_mlp_bwd`` at the fine-tune step's two
+trainable stages at batch 32 (C = 512 and 1024), and the sum over one
+fine-tune step (27 and 3 launches).  Inputs are seeded, with per-image
+stochastic-depth rows.  The last line is a table of each checkout's median,
+with the card's name and power limit.
 """
 
 import json
@@ -31,7 +34,7 @@ def measure(root):
     import torch
 
     from tpu_captioner_torch.core.backend import pin_f32_precision, require_cuda
-    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
 
     dev = require_cuda()
     pin_f32_precision()
@@ -47,7 +50,7 @@ def measure(root):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    out, total = {}, 0.0
+    out, total, step = {}, 0.0, 0.0
     with torch.inference_mode():
         for s, (depth, c) in enumerate(zip(DEPTHS, DIMS)):
             g = torch.Generator().manual_seed(c)
@@ -60,7 +63,11 @@ def measure(root):
             ))
             out[f"C={c}"] = time_ms(lambda: fused_convnext_mlp(*args))
             total += depth * out[f"C={c}"]
+            if s >= 2:  # a stage the fine-tune step trains: the cotangent in the residual's place
+                out[f"bwd C={c}"] = time_ms(lambda: fused_convnext_mlp_bwd(args[1], args[0], *args[2:]), iters=10)
+                step += depth * out[f"bwd C={c}"]
     out["encoder_pass"] = total
+    out["finetune_step_bwd"] = step
     return out
 
 

@@ -10,6 +10,12 @@ a machine without it (``tests/conftest.py`` imports JAX, hence
 Tolerances: 1e-4 absolute for outputs of order one, which sum up to 4C
 (MLP) or E (decode) f32 products in another order than cuBLAS, with erff
 against torch's erf; 1e-5 for the attention map, a mean of probabilities.
+The MLP tail's whole-tile forward and its backward take their products from
+TF32 tensor cores through a hi/lo split of each operand (3xTF32,
+``csrc/tf32x3_gemm.cuh``) and are held to the same f32 tolerances: also at
+row counts that leave their 128-row tiles ragged, one per width, and with
+the inputs, weights and biases scaled by 1e3 (within 1e-4 times max(1, the
+largest magnitude)); rows with sd 0 return the residual bit for bit.
 The dropout pool's bits must be identical: both versions compute the same
 Philox4x32-10 words in integer arithmetic.  The MLP-tail backward's nine
 outputs agree within 1e-4 times each output's largest magnitude (sums over
@@ -125,6 +131,51 @@ def test_mlp_backward_kernel_matches_plain(cuda, n, c):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), i
     assert torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
     again = fused_convnext_mlp_bwd(g, x, sd, *params)  # no atomics: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# Row counts that leave the tensor-core MLP kernels' 128-row tiles ragged,
+# one per width (the whole-tile forward and the backward, csrc/tf32x3_gemm.cuh).
+TC_ROWS = {128: 4133, 256: 1100, 512: 777, 1024: 300}
+
+
+def scaled(args, scale, keep=()):
+    """``args`` with every tensor but those at the indices in ``keep`` times ``scale``."""
+    return tuple(a if i in keep else a * scale for i, a in enumerate(args))
+
+
+@pytest.mark.parametrize("c", SUPPORTED_C)
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_tensor_core_mlp_forward_at_ragged_rows(cuda, monkeypatch, c, scale):
+    monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
+    args = mlp_args(TC_ROWS[c], c, cuda, seed=c + 11, sd="mixed")
+    args = scaled(args, scale, keep=(2, 3, 4, 9))  # sd, ln_w, ln_b and gamma as they are
+    before = (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches)
+    got = fused_convnext_mlp(*args)
+    torch.cuda.synchronize()
+    assert (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches) == (before[0] + 1, before[1])
+    want = _mlp_plain(*args)
+    tol = 1e-4 * (1.0 if scale == 1.0 else max(1.0, want.abs().max().item()))
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() < tol
+    dropped = args[2] == 0
+    assert dropped.any() and torch.equal(got[dropped], args[1][dropped])  # sd 0: the residual, bit for bit
+
+
+@pytest.mark.parametrize("c", SUPPORTED_C)
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_tensor_core_mlp_backward_at_ragged_rows(cuda, c, scale):
+    n = TC_ROWS[c]
+    x, _, sd, *params = mlp_args(n, c, cuda, seed=n + c, sd="mixed")
+    g = torch.randn(n, c, generator=torch.Generator().manual_seed(c + 3)).to(cuda)
+    args = scaled((g, x, sd, *params), scale, keep=(2, 3, 4, 9))
+    got = fused_convnext_mlp_bwd(*args)
+    torch.cuda.synchronize()
+    want = _mlp_bwd_plain(*args)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), i
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), i
+    assert (sd == 0).any() and torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
+    again = fused_convnext_mlp_bwd(*args)  # no atomics: the same bits
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

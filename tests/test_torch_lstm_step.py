@@ -146,9 +146,10 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") not in (first, second)
     monkeypatch.undo()
     # The MLP-tail and whole-block sources share the tail's header, which
-    # includes the warp reductions.
-    tail = {"mlp_tail.cuh"}
-    for name, extra in (("lstm_step", set()), ("decode_step", set()), ("mlp_block", tail),
-                        ("mlp_block_bwd", set()), ("block_fused", tail)):
+    # includes the warp reductions; the MLP tail's two sources share the
+    # tensor-core GEMM's header.
+    tail, gemm = {"mlp_tail.cuh"}, {"tf32x3_gemm.cuh"}
+    for name, extra in (("lstm_step", set()), ("decode_step", set()), ("mlp_block", tail | gemm),
+                        ("mlp_block_bwd", gemm), ("block_fused", tail)):
         names = {p.name for p in _build._sources(_build.CSRC / f"{name}.cu", {})}
         assert names == {f"{name}.cu", "warp_reduce.cuh", *extra}, names

@@ -17,6 +17,11 @@
   devices, bf16, non-contiguous tensors, tensors on two devices).
 - The whole-block wrapper refuses other devices, dtypes, shapes and layouts
   on every device, and on the card the widths its kernel is not built for.
+- The MLP-tail kernels' tensor-core products: the 3xTF32 header is in both
+  libraries' build hash and holds the TF32 wgmma and the hi/lo rounding; no
+  source calls a library GEMM; neither wrapper catches a failed launch; a
+  build that cannot run raises; and ``ops/tf32.py``, the CPU model of the
+  split, is imported by no module of the port (only the tests use it).
 """
 
 import os
@@ -43,6 +48,7 @@ def test_port_imports_no_jax():
         assert not bad, bad
         assert len(names) >= 20, names
         assert "tpu_captioner_torch.ops.block_fused" in names, names
+        assert "tpu_captioner_torch.ops.tf32" in names, names
         """
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -295,3 +301,34 @@ def test_block_wrapper_refuses_what_its_kernel_does_not_take(cpu_only):
     with pytest.raises(ValueError, match="supports C in"):  # what a CUDA tensor of this width meets
         _check_block(*ok, kernel=True)
     _check_block(*args(torch.zeros, c=128), kernel=True)
+
+
+def test_mlp_tensor_core_sources_have_no_fallback(cpu_only):
+    import inspect
+    import pathlib
+
+    import tpu_captioner_torch
+    from tpu_captioner_torch.ops import _build, mlp_block
+
+    for name in ("mlp_block", "mlp_block_bwd"):
+        sources = {p.name: text.decode() for p, text in _build._sources(_build.CSRC / f"{name}.cu", {}).items()}
+        assert "tf32x3_gemm.cuh" in sources, sources.keys()
+        assert "tf32x3::gemm" in sources[f"{name}.cu"]
+    header = (_build.CSRC / "tf32x3_gemm.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in header
+    assert "cvt.rna.tf32.f32" in header and "cp.async.bulk.tensor" in header
+    for path in _build.CSRC.iterdir():
+        assert "cublas" not in path.read_text().lower(), path.name
+    for fn in (mlp_block._mlp_forward, mlp_block.fused_convnext_mlp_bwd):
+        assert "except" not in inspect.getsource(fn)
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    if nvcc is None:
+        for name in ("mlp_block", "mlp_block_bwd"):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                _build.build(name)
+    package = pathlib.Path(tpu_captioner_torch.__file__).parent
+    users = [p for p in package.rglob("*.py") if p.name != "tf32.py" and "ops.tf32" in p.read_text()]
+    assert not users, users

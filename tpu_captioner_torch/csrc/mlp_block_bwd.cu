@@ -14,18 +14,37 @@
 // What bounds it on the H100: arithmetic.  Per call 48*N*C^2 flops: 16 to
 // recompute the two forward products, 8 each for d_h = d_u W2, d_xn = d_a W1,
 // dW1 = d_a^T xn and dW2 = d_u^T h.  At both fine-tune stages at batch 32
-// (N*C^2 = 2.1e9) that is 103 GFLOP, 1.54 ms at the 67 TFLOP/s f32 peak,
-// against about 0.1 ms for its bytes even with the (N, 4C) intermediates
-// written to device memory and read back.  So the intermediates may live in
-// device memory, and what matters is the FFMA rate of the six products.
+// (N*C^2 = 2.1e9) that is 103 GFLOP: 0.62 ms at the 165 TFLOP/s of f32-
+// accurate tensor-core products (3xTF32, tf32x3_gemm.cuh), against about
+// 0.1 ms for its f32 bytes.  So the intermediates may live in device
+// memory, and what matters is the rate of the six products.
 //
 // What the design does about it:
-// - six products, each a launch of one register-tiled FFMA GEMM (128 x 128
-//   block tile, 8 x 8 per thread, k-slices of 8 double-buffered in shared
-//   memory through registers), with fused epilogues: bias + GELU + GELU'
-//   after the first, bias after the second, the product with GELU' after
-//   the third.  Plain f32 FFMA: TF32 would lose the agreement with the f32
-//   reference;
+// - six launches of the 3xTF32 wgmma GEMM of tf32x3_gemm.cuh (P = A B^T,
+//   both operands K-major, as two TF32 planes each), with fused epilogues:
+//   bias + GELU + GELU' after the first, bias after the second, the product
+//   with GELU' after the third.  Each operand's layout, fixed by the code
+//   that produces it (TF32 wgmma reads K-major operands only):
+//     1. a = xn W1^T: xn (N, C) and W1 (4C, C), K-major as they are;
+//     2. u = h W2^T: h (N, 4C), from product 1's epilogue, and W2 (C, 4C);
+//     3. d_h = d_u W2: d_u (N, C) and W2^T (4C, C), a transposed copy;
+//     4. d_xn = d_a W1: d_a (N, 4C), from product 3's epilogue, and W1^T
+//        (C, 4C), a transposed copy;
+//     5. dW1 = d_a^T xn and 6. dW2 = d_u^T h reduce over the rows, so both
+//        operands of each are stored row-contiguous: d_a^T and h^T (4C, N)
+//        written by the epilogues of products 3 and 1 beside the plain
+//        copies, xn^T and d_u^T (C, N) by `split`.
+//   The epilogues' transposed stores cover 8 consecutive rows (32 bytes)
+//   per column, so they waste no sector; one GEMM then serves all six
+//   products, where mma.sync for products 3-6 would need a second kernel.
+//   Each weight is split per call into its plain and transposed planes
+//   (16 C^2 floats per weight), never cached: the optimizer updates the
+//   weights in place every step.  Bytes beyond the f32 design's, per call:
+//   the weights' planes, 160 C^2; xn's and d_u's planes, read once more and
+//   written twice, 40 N C; h's and d_a's transposed planes, 64 N C, with
+//   their plain planes twice the f32 copies, 32 N C more.  About 0.6 GB
+//   per call at C = 512, N = 8192: 0.18 ms at 3.35 TB/s, against the
+//   products' 0.26 ms at 165 TFLOP/s;
 // - the TPU kernel carried the weight-gradient sums from one grid step to
 //   the next; Hopper blocks run in no order, so the two weight-gradient
 //   products split the row (reduction) dimension over enough blocks to fill
@@ -34,19 +53,20 @@
 //   fixed-order pass too.  No atomics, so a run repeats its bits;
 // - row kernels (one warp per row) do LayerNorm and its backward, d_u and
 //   d_sd;
-// - any N: rows past N are never read (loads are masked, not scaled: a
-//   padding row could hold NaN).
-// Later PRs: wgmma/TMA, and keeping the intermediates on chip.
+// - any N: rows past N are never read (TMA zero-fills past the extents,
+//   the row kernels mask: a padding row could hold NaN).  The transposed
+//   planes' rows are padded to a multiple of 4 floats for TMA's 16-byte
+//   strides; the padding is never read.
+// Later PRs: the intermediates on chip, and a tuned GEMM (PERF.md).
 
 #include <cuda_runtime.h>
 
+#include "tf32x3_gemm.cuh"
 #include "warp_reduce.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128, kBN = 128, kBK = 8;
-constexpr int kPad = kBM + 4;  // row stride of the k-major shared tiles
 constexpr float kLnEps = 1e-6f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
@@ -54,37 +74,46 @@ constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 
 // ------------------------------------------------------------- GEMM epilogues
-// Each takes a row m and four consecutive columns n..n+3 of the product.
+// Each takes a row m and two consecutive columns n, n + 1 of the product.
+// "Planes" are an operand's two TF32 planes (tf32x3_gemm.cuh), `plane`
+// floats apart; a "transposed" copy holds element (m, n) at n * ld_t + m.
 
 struct StoreEpi {  // out[m, n] = v (with blockIdx.z selecting a split's slab)
   float* out;
   int ld;
   long long slab;
-  __device__ void operator()(int m, int n, float4 v) const {
-    st4(out + blockIdx.z * slab + (size_t)m * ld + n, v);
+  __device__ void operator()(int m, int n, float2 v) const {
+    *reinterpret_cast<float2*>(out + blockIdx.z * slab + (size_t)m * ld + n) = v;
   }
 };
 
-struct GeluEpi {  // a = v + b1: h = gelu(a), gp = gelu'(a) = Phi(a) + a phi(a)
+// a = v + b1: h = gelu(a) as planes, plain and transposed, and
+// gp = gelu'(a) = Phi(a) + a phi(a).
+struct GeluEpi {
   const float* bias;
   float* h;
+  float* ht;
   float* gp;
-  int ld;
-  __device__ void operator()(int m, int n, float4 v) const {
-    const float4 b = ld4(bias + n);
-    float hv[4], gv[4];
+  long long plane, plane_t;
+  int ld, ld_t;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = ld2(bias + n);
+    float hv[2], gv[2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float a = at(v, e) + at(b, e);
+    for (int e = 0; e < 2; ++e) {
+      const float a = (e ? v.y : v.x) + (e ? b.y : b.x);
       const float cdf = 0.5f * (1.0f + erff(a * kInvSqrt2));
       hv[e] = a * cdf;
       gv[e] = cdf + a * (expf(-0.5f * a * a) * kInvSqrt2Pi);
     }
     const size_t o = (size_t)m * ld + n;
-    st4(h + o, make_float4(hv[0], hv[1], hv[2], hv[3]));
-    st4(gp + o, make_float4(gv[0], gv[1], gv[2], gv[3]));
+    tf32x3::store_split2(h, plane, o, hv[0], hv[1]);
+    tf32x3::store_split(ht, plane_t, (size_t)n * ld_t + m, hv[0]);
+    tf32x3::store_split(ht, plane_t, (size_t)(n + 1) * ld_t + m, hv[1]);
+    *reinterpret_cast<float2*>(gp + o) = make_float2(gv[0], gv[1]);
   }
 };
 
@@ -92,121 +121,28 @@ struct BiasEpi {  // out = v + bias
   const float* bias;
   float* out;
   int ld;
-  __device__ void operator()(int m, int n, float4 v) const {
-    const float4 b = ld4(bias + n);
-    st4(out + (size_t)m * ld + n, make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w));
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = ld2(bias + n);
+    *reinterpret_cast<float2*>(out + (size_t)m * ld + n) = make_float2(v.x + b.x, v.y + b.y);
   }
 };
 
-struct MulEpi {  // out = v * by (elementwise, same layout)
-  const float* by;
-  float* out;
-  int ld;
-  __device__ void operator()(int m, int n, float4 v) const {
+// d_a = v * gp (elementwise, same layout) as planes, plain and transposed.
+struct MulEpi {
+  const float* gp;
+  float* da;
+  float* dat;
+  long long plane, plane_t;
+  int ld, ld_t;
+  __device__ void operator()(int m, int n, float2 v) const {
     const size_t o = (size_t)m * ld + n;
-    const float4 s = ld4(by + o);
-    st4(out + o, make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w));
+    const float2 s = ld2(gp + o);
+    const float d0 = v.x * s.x, d1 = v.y * s.y;
+    tf32x3::store_split2(da, plane, o, d0, d1);
+    tf32x3::store_split(dat, plane_t, (size_t)n * ld_t + m, d0);
+    tf32x3::store_split(dat, plane_t, (size_t)(n + 1) * ld_t + m, d1);
   }
 };
-
-// -------------------------------------------------------------------- GEMM
-// P[m, n] = sum over k in this block's split of A(m, k) * B(k, n), where
-// A(m, k) = A[m * lda + k] if A_KM (k contiguous) else A[k * lda + m], and
-// B(k, n) = B[n * ldb + k] if B_KM (k contiguous) else B[k * ldb + n].
-// Contract (checked by the host): K % 8 == 0 when an operand is k-contiguous,
-// M % 4 == 0 when A is m-contiguous, N % 4 == 0; M may be ragged when A is
-// k-contiguous and K when both are not.  Block (x, y, z) owns columns
-// [128x, 128x + 128), rows [128y, 128y + 128) and the k range of split z.
-template <bool A_KM, bool B_KM, class Epi>
-__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(
-    const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
-    int lda, int ldb, int k_split, Epi epi) {
-  __shared__ __align__(16) float As[2][kBK][kPad];
-  __shared__ __align__(16) float Bs[2][kBK][kPad];
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int kb = blockIdx.z * k_split, ke = min(K, kb + k_split);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // One float4 of each operand per thread per k-slice of 8.
-  float4 ra, rb;
-  auto load = [&](int k0) {
-    if (A_KM) {
-      const int m = m0 + (t >> 1), k = k0 + (t & 1) * 4;
-      ra = (m < M && k < ke) ? __ldg(reinterpret_cast<const float4*>(A + (size_t)m * lda + k)) : zero;
-    } else {
-      const int k = k0 + (t >> 5), m = m0 + (t & 31) * 4;
-      ra = (k < ke && m < M) ? __ldg(reinterpret_cast<const float4*>(A + (size_t)k * lda + m)) : zero;
-    }
-    if (B_KM) {
-      const int n = n0 + (t >> 1), k = k0 + (t & 1) * 4;
-      rb = (n < N && k < ke) ? __ldg(reinterpret_cast<const float4*>(B + (size_t)n * ldb + k)) : zero;
-    } else {
-      const int k = k0 + (t >> 5), n = n0 + (t & 31) * 4;
-      rb = (k < ke && n < N) ? __ldg(reinterpret_cast<const float4*>(B + (size_t)k * ldb + n)) : zero;
-    }
-  };
-  auto store = [&](int buf) {
-    if (A_KM) {
-      const int m = t >> 1, kq = (t & 1) * 4;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) As[buf][kq + e][m] = at(ra, e);
-    } else {
-      st4(&As[buf][t >> 5][(t & 31) * 4], ra);
-    }
-    if (B_KM) {
-      const int n = t >> 1, kq = (t & 1) * 4;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Bs[buf][kq + e][n] = at(rb, e);
-    } else {
-      st4(&Bs[buf][t >> 5][(t & 31) * 4], rb);
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  if (kb < ke) {
-    load(kb);
-    store(0);
-    __syncthreads();
-  }
-  int buf = 0;
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-    const bool more = k0 + kBK < ke;
-    if (more) load(k0 + kBK);  // in flight while this slice is multiplied
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = ld4(&As[buf][k][ty * 4]), a1 = ld4(&As[buf][k][64 + ty * 4]);
-      const float4 b0 = ld4(&Bs[buf][k][tx * 4]), b1 = ld4(&Bs[buf][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // The other buffer was last read before the previous barrier.
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * 64 + tx * 4;
-      if (n < N)
-        epi(m, n, make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2], acc[i][4 * half + 3]));
-    }
-  }
-}
 
 // ----------------------------------------------------------------- row kernels
 // One warp per row; lane l holds columns 4l + 128q .. +3.
@@ -301,10 +237,11 @@ __global__ void __launch_bounds__(kThreads) finish_rows(
 // Block b sums rows [b * rows, (b + 1) * rows) into part[b][0 : 8C):
 // [0, C) d_ln_w = sum d_xn * xhat, [C, 2C) d_ln_b = sum d_xn,
 // [2C, 6C) d_b1 = sum d_a, [6C, 7C) d_b2 = sum d_u,
-// [7C, 8C) d_gamma = sum (g * sd) * u.
+// [7C, 8C) d_gamma = sum (g * sd) * u.  d_a is read as its two TF32
+// planes, `da_plane` floats apart.
 __global__ void __launch_bounds__(kThreads) column_partials(
     const float* __restrict__ dxn, const float* __restrict__ xhat, const float* __restrict__ da,
-    const float* __restrict__ du, const float* __restrict__ g, const float* __restrict__ sd,
+    long long da_plane, const float* __restrict__ du, const float* __restrict__ g, const float* __restrict__ sd,
     const float* __restrict__ u, float* __restrict__ part, int n, int c, int rows) {
   const int r0 = blockIdx.x * rows, r1 = min(n, r0 + rows);
   float* out = part + (size_t)blockIdx.x * 8 * c;
@@ -325,7 +262,10 @@ __global__ void __launch_bounds__(kThreads) column_partials(
   }
   for (int col = threadIdx.x; col < 4 * c; col += kThreads) {
     float s = 0.f;
-    for (int r = r0; r < r1; ++r) s += da[(size_t)r * 4 * c + col];
+    for (int r = r0; r < r1; ++r) {
+      const size_t o = (size_t)r * 4 * c + col;
+      s += da[o] + da[da_plane + o];
+    }
     out[2 * c + col] = s;
   }
 }
@@ -362,53 +302,63 @@ __global__ void __launch_bounds__(kThreads) sum_splits(
 // ------------------------------------------------------------------- host side
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-long long round4(long long v) { return (v + 3) / 4 * 4; }
+long long round32(long long v) { return (v + 31) / 32 * 32; }
 
 // Where the workspace's arrays start (floats), and how the reductions split.
 struct Plan {
   int splits, k_split;     // weight-gradient products: splits of the N rows
   int chunk_rows, chunks;  // column sums
-  long long xhat, xn, du, u, dxn, h, gp, da, rstd, colpart, wpart, total;
+  int ldn;                 // row stride of the transposed (., N) planes
+  long long w1s, w1t, w2s, w2t, xhat, xn, du, u, dxn, xns, xnt, dus, dut, hs, ht, gp, das, dat, rstd,
+      colpart, wpart, total;
 };
 
 Plan make_plan(int n, int c) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   Plan p;
-  // The weight-gradient products have (4C / 128) * (C / 128) output tiles;
-  // split their N-long reduction until there are about two blocks per SM,
-  // keeping at least 256 rows per split.
-  const int tiles = (4 * c / kBM) * (c / kBN);
-  int splits = ceil_div(2 * sms, tiles);
-  splits = max(1, min(splits, n / 256));
-  p.k_split = ceil_div(ceil_div(n, splits), kBK) * kBK;
+  // The weight-gradient products have (4C / 128) * (C / 128) output tiles,
+  // one block per SM each.  Split their N-long reduction into the number of
+  // parts that wastes the least of the last wave, keeping at least 256
+  // rows per split.
+  const long long tiles = (4LL * c / tf32x3::kBM) * (c / tf32x3::kBN);
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= max(1, n / 256); ++s) {
+    const long long cost = (long long)ceil_div(tiles * s, sms) * ceil_div(n, s);
+    if (best_cost < 0 || cost < best_cost) best = s, best_cost = cost;
+  }
+  p.k_split = (int)round32(ceil_div(n, best));
   p.splits = max(1, ceil_div(n, p.k_split));
   p.chunk_rows = max(16, ceil_div(n, 2 * sms));
   p.chunks = max(1, ceil_div(n, p.chunk_rows));
-  const long long nc = (long long)n * c, n4c = 4 * nc;
+  p.ldn = (n + 3) / 4 * 4;
+  const long long nc = (long long)n * c, n4c = 4 * nc, cc4 = 4LL * c * c, tc = (long long)c * p.ldn;
   long long off = 0;
-  auto take = [&](long long floats) { const long long at_ = off; off += round4(floats); return at_; };
+  auto take = [&](long long floats) { const long long at_ = off; off += round32(floats); return at_; };
+  p.w1s = take(2 * cc4);
+  p.w1t = take(2 * cc4);
+  p.w2s = take(2 * cc4);
+  p.w2t = take(2 * cc4);
   p.xhat = take(nc);
   p.xn = take(nc);
   p.du = take(nc);
   p.u = take(nc);
   p.dxn = take(nc);
-  p.h = take(n4c);
+  p.xns = take(2 * nc);
+  p.xnt = take(2 * tc);
+  p.dus = take(2 * nc);
+  p.dut = take(2 * tc);
+  p.hs = take(2 * n4c);
+  p.ht = take(8 * tc);
   p.gp = take(n4c);
-  p.da = take(n4c);
+  p.das = take(2 * n4c);
+  p.dat = take(8 * tc);
   p.rstd = take(n);
   p.colpart = take((long long)p.chunks * 8 * c);
-  p.wpart = take(p.splits > 1 ? (long long)p.splits * 4 * c * c : 0);
+  p.wpart = take(p.splits > 1 ? (long long)p.splits * cc4 : 0);
   p.total = off;
   return p;
-}
-
-template <bool A_KM, bool B_KM, class Epi>
-cudaError_t gemm(const float* A, const float* B, int M, int N, int K, int lda, int ldb,
-                 int splits, int k_split, Epi epi, cudaStream_t s) {
-  const dim3 grid(ceil_div(N, kBN), ceil_div(M, kBM), splits);
-  gemm_kernel<A_KM, B_KM, Epi><<<grid, kThreads, 0, s>>>(A, B, M, N, K, lda, ldb, k_split, epi);
-  return cudaGetLastError();
 }
 
 #define TC_TRY(expr)                          \
@@ -423,43 +373,63 @@ int backward(const float* g, const float* x, const float* sd, const float* lnw, 
              const float* gamma, float* dx, float* dsd, float* dlnw, float* dlnb, float* dw1,
              float* db1, float* dw2, float* db2, float* dgamma, float* work, int n,
              cudaStream_t s) {
+  using tf32x3::Operand;
+  using tf32x3::gemm;
+  using tf32x3::split;
   constexpr int C4 = 4 * C;
   const Plan p = make_plan(n, C);
+  const int ldn = p.ldn;
+  float *w1s = work + p.w1s, *w1t = work + p.w1t, *w2s = work + p.w2s, *w2t = work + p.w2t;
   float *xhat = work + p.xhat, *xn = work + p.xn, *du = work + p.du, *u = work + p.u;
-  float *dxn = work + p.dxn, *h = work + p.h, *gp = work + p.gp, *da = work + p.da;
-  float *rstd = work + p.rstd, *colpart = work + p.colpart, *wpart = work + p.wpart;
+  float *dxn = work + p.dxn, *xns = work + p.xns, *xnt = work + p.xnt, *dus = work + p.dus;
+  float *dut = work + p.dut, *hs = work + p.hs, *ht = work + p.ht, *gp = work + p.gp;
+  float *das = work + p.das, *dat = work + p.dat, *rstd = work + p.rstd;
+  float *colpart = work + p.colpart, *wpart = work + p.wpart;
   const int row_blocks = ceil_div(n, kThreads / 32);
+  const long long nc = (long long)n * C, cc4 = 4LL * C * C, tc = (long long)C * ldn;
 
+  // The weights' planes: W1 (4C, C) and W1^T (C, 4C), W2 (C, 4C) and W2^T (4C, C).
+  TC_TRY(split(w1, C4, C, w1s, w1t, C4, s));
+  TC_TRY(split(w2, C, C4, w2s, w2t, C, s));
   prep_rows<C><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
   TC_TRY(cudaGetLastError());
-  // a = xn W1^T + b1 -> h, gelu'(a)
-  TC_TRY((gemm<true, true>(xn, w1, n, C4, C, C, C, 1, C, GeluEpi{b1, h, gp, C4}, s)));
+  TC_TRY(split(xn, n, C, xns, xnt, ldn, s));
+  TC_TRY(split(du, n, C, dus, dut, ldn, s));
+
+  const Operand xn_op{xns, n, C, C, nc}, w1_op{w1s, C4, C, C, cc4}, h_op{hs, n, C4, C4, 4 * nc};
+  const Operand w2_op{w2s, C, C4, C4, cc4}, du_op{dus, n, C, C, nc}, w2t_op{w2t, C4, C, C, cc4};
+  const Operand da_op{das, n, C4, C4, 4 * nc}, w1t_op{w1t, C, C4, C4, cc4};
+  const Operand dat_op{dat, C4, n, ldn, 4 * tc}, xnt_op{xnt, C, n, ldn, tc};
+  const Operand dut_op{dut, C, n, ldn, tc}, ht_op{ht, C4, n, ldn, 4 * tc};
+  // a = xn W1^T + b1 -> h (planes, plain and transposed), gelu'(a)
+  TC_TRY(gemm(xn_op, w1_op, GeluEpi{b1, hs, ht, gp, 4 * nc, 4 * tc, C4, ldn}, s));
   // u = h W2^T + b2
-  TC_TRY((gemm<true, true>(h, w2, n, C, C4, C4, C4, 1, C4, BiasEpi{b2, u, C}, s)));
-  // d_a = (d_u W2) * gelu'(a)
-  TC_TRY((gemm<true, false>(du, w2, n, C4, C, C, C4, 1, C, MulEpi{gp, da, C4}, s)));
+  TC_TRY(gemm(h_op, w2_op, BiasEpi{b2, u, C}, s));
+  // d_a = (d_u W2) * gelu'(a) (planes, plain and transposed)
+  TC_TRY(gemm(du_op, w2t_op, MulEpi{gp, das, dat, 4 * nc, 4 * tc, C4, ldn}, s));
   // d_xn = d_a W1
-  TC_TRY((gemm<true, false>(da, w1, n, C, C4, C4, C, 1, C4, StoreEpi{dxn, C, 0}, s)));
+  TC_TRY(gemm(da_op, w1t_op, StoreEpi{dxn, C, 0}, s));
   finish_rows<C><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
   TC_TRY(cudaGetLastError());
 
   // dW1 = d_a^T xn (4C, C) and dW2 = d_u^T h (C, 4C), reduced over the rows.
-  const long long wsize = (long long)C4 * C;
+  const long long wsize = cc4;
   const int sum_blocks = ceil_div(wsize / 4, kThreads);
   float* out1 = p.splits > 1 ? wpart : dw1;
-  TC_TRY((gemm<false, false>(da, xn, C4, C, n, C4, C, p.splits, p.k_split, StoreEpi{out1, C, wsize}, s)));
+  TC_TRY(gemm(dat_op, xnt_op, p.splits, p.k_split, StoreEpi{out1, C, wsize}, s));
   if (p.splits > 1) {
     sum_splits<<<sum_blocks, kThreads, 0, s>>>(wpart, p.splits, wsize / 4, dw1);
     TC_TRY(cudaGetLastError());
   }
   float* out2 = p.splits > 1 ? wpart : dw2;
-  TC_TRY((gemm<false, false>(du, h, C, C4, n, C, C4, p.splits, p.k_split, StoreEpi{out2, C4, wsize}, s)));
+  TC_TRY(gemm(dut_op, ht_op, p.splits, p.k_split, StoreEpi{out2, C4, wsize}, s));
   if (p.splits > 1) {
     sum_splits<<<sum_blocks, kThreads, 0, s>>>(wpart, p.splits, wsize / 4, dw2);
     TC_TRY(cudaGetLastError());
   }
 
-  column_partials<<<p.chunks, kThreads, 0, s>>>(dxn, xhat, da, du, g, sd, u, colpart, n, C, p.chunk_rows);
+  column_partials<<<p.chunks, kThreads, 0, s>>>(dxn, xhat, das, 4 * nc, du, g, sd, u, colpart, n, C,
+                                                 p.chunk_rows);
   TC_TRY(cudaGetLastError());
   column_finish<<<ceil_div(8 * C, kThreads), kThreads, 0, s>>>(colpart, p.chunks, C, dlnw, dlnb, db1, db2, dgamma);
   return (int)cudaGetLastError();

@@ -1,5 +1,8 @@
-// The ConvNeXt block tail, shared by the MLP-tail kernel (mlp_block.cu) and
-// the whole-block kernel (block_fused.cu), f32, for Hopper (sm_90a).
+// The ConvNeXt block tail in f32 FFMA, shared by the MLP-tail kernel's
+// sub-tiled instances (mlp_block.cu, SUB > 0: PERF.md row 2) and the
+// whole-block kernel (block_fused.cu: row 9), for Hopper (sm_90a).  The
+// MLP-tail kernel's default whole-tile path (row 1) no longer runs it: it
+// takes its products from the tensor cores (3xTF32, tf32x3_gemm.cuh).
 //
 // A block owns BM rows whose LayerNorm output its prologue has written into
 // the k-major shared tile xs; `mlp_tail` then computes, for each row g,
@@ -52,7 +55,8 @@
 // instance per launch and SUB = 8 1.19-1.61 times: the extra staging and the
 // smaller tiles cost more than the interleave saves, so the instances stay
 // an option, off by default, as in the JAX package.
-// Later PRs: wgmma, TMA-fed weight tiles and bf16.
+// Later PRs: rows 2 and 9 onto the tensor-core products of
+// tf32x3_gemm.cuh, as row 1 went; then bf16.
 
 #pragma once
 

@@ -13,7 +13,11 @@ depth scale: all ones in eval.
 ``custom_vjp``).  Its forward launches ``csrc/mlp_block.cu`` for CUDA tensors
 and runs ``_mlp_plain`` for CPU tensors.  ``TPU_CAPTIONER_MLP_SUB``, read at
 each call (``_pipeline_sub``), selects the kernel's sub-tiled instance, the
-counterpart of the JAX package's ``_kernel_pipelined``.  Its backward
+counterpart of the JAX package's ``_kernel_pipelined``; unset, the forward
+runs the whole-tile path on the tensor cores.  Both the whole-tile forward
+and the backward take f32-accurate products from TF32 tensor cores through
+the 3xTF32 split (``csrc/tf32x3_gemm.cuh``; ``ops/tf32.py`` models its
+rounding on the CPU for the tests).  Its backward
 returns the cotangent itself as the residual's gradient and calls
 ``fused_convnext_mlp_bwd``, which launches ``csrc/mlp_block_bwd.cu`` for
 CUDA tensors and runs ``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
@@ -33,8 +37,11 @@ from tpu_captioner_torch.ops import _build
 
 LN_EPS = 1e-6
 SUPPORTED_C = (128, 256, 512, 1024)  # the widths the kernels are instantiated for
-# Rows per thread block of the forward kernel's tile, and hidden units per
-# chunk, at each width (csrc/mlp_block.cu:tc_mlp_block_forward).
+# Rows per thread block, and hidden units per chunk, of the sub-tiled
+# instances' f32 FFMA tile at each width (csrc/mlp_block.cu:
+# tc_mlp_block_forward, csrc/mlp_tail.cuh); the whole-tile path runs the
+# 3xTF32 tensor-core GEMM of csrc/tf32x3_gemm.cuh instead, in 128 x 128
+# tiles at every width.
 ROW_TILE = {128: 64, 256: 32, 512: 32, 1024: 16}
 HIDDEN_CHUNK = {128: 128, 256: 256, 512: 256, 1024: 256}
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -134,9 +141,11 @@ def _param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma):
 def _lib():
     lib = _build.load("mlp_block")
     lib.tc_mlp_block_forward.restype = ctypes.c_int
-    lib.tc_mlp_block_forward.argtypes = [ctypes.c_void_p] * 11 + [
+    lib.tc_mlp_block_forward.argtypes = [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.tc_mlp_block_forward_workspace.restype = ctypes.c_longlong
+    lib.tc_mlp_block_forward_workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -169,8 +178,11 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     sub = _pipeline_sub(n, c)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        work = x.new_empty(lib.tc_mlp_block_forward_workspace(n, c, sub))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tc_mlp_block_forward(*(t.data_ptr() for t in args), out.data_ptr(), n, c, sub, stream)
+        err = lib.tc_mlp_block_forward(
+            *(t.data_ptr() for t in (*args, out, work)), n, c, sub, stream
+        )
     _build.check(lib, err, "mlp_block")
     fused_convnext_mlp.launches += 1
     if sub:

@@ -1,0 +1,89 @@
+"""A plain PyTorch model of the MLP-tail kernels' 3xTF32 products.
+
+The whole-tile forward and the backward of the MLP tail
+(``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``) take their matrix
+products from the card's TF32 tensor cores through ``csrc/tf32x3_gemm.cuh``:
+each f32 operand ``v`` is split into ``hi = rna_tf32(v)`` and
+``lo = rna_tf32(v - hi)``, and each product accumulates ``hi.lo + lo.hi``
+and then ``hi.hi`` in f32.  This module computes the same on f32 tensors,
+on any device, so that the tests can hold the kernels' arithmetic against
+the JAX package on the CPU, where no kernel runs.  Nothing on the port's
+main path calls it: the wrappers run the kernels on the card and
+``_mlp_plain`` / ``_mlp_bwd_plain`` (full f32) on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+LN_EPS = 1e-6
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32's 10 explicit mantissa bits, to nearest
+    with ties away from zero: PTX ``cvt.rna.tf32.f32``.  On the sign-magnitude
+    bits that is adding half of the 13 dropped bits' unit and clearing them.
+    Infinities and NaNs pass through."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"round_tf32 takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)``: the two TF32 planes the kernels store for ``x``."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels compute it: the three TF32 products, each
+    exact in f32, the small terms first."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
+
+
+def matmul_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in one TF32 pass: what the split exists to avoid."""
+    return round_tf32(a) @ round_tf32(b)
+
+
+def mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, mm=matmul_3xtf32):
+    """The tail's forward as the whole-tile kernel computes it (the
+    arguments of ``ops/mlp_block.py:_mlp_plain``), with ``mm`` for its two
+    products."""
+    xn = F.layer_norm(x, (x.shape[-1],), ln_w, ln_b, LN_EPS)
+    h = F.gelu(mm(xn, w1.T) + b1)
+    return residual + sd[:, None] * ((mm(h, w2.T) + b2) * gamma)
+
+
+def mlp_backward(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, mm=matmul_3xtf32):
+    """The backward kernel's nine outputs (those of
+    ``ops/mlp_block.py:_mlp_bwd_plain``), with ``mm`` for its six products;
+    d_b1 sums d_a's two planes, as the kernel does."""
+    mu = x.mean(-1, keepdim=True)
+    r = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    xhat = (x - mu) * r
+    xn = xhat * ln_w + ln_b
+    a = mm(xn, w1.T) + b1
+    h = F.gelu(a)
+    u = mm(h, w2.T) + b2
+    d_y = g * sd[:, None]
+    d_u = d_y * gamma
+    gelu_grad = 0.5 * (1.0 + torch.erf(a * _INV_SQRT2)) + a * torch.exp(-0.5 * a * a) * _INV_SQRT_2PI
+    d_a = mm(d_u, w2) * gelu_grad
+    d_xn = mm(d_a, w1)
+    d_xhat = d_xn * ln_w
+    d_x = r * (d_xhat - d_xhat.mean(-1, keepdim=True) - xhat * (d_xhat * xhat).mean(-1, keepdim=True))
+    d_a_hi, d_a_lo = split_tf32(d_a)
+    return (
+        d_x, (g * (u * gamma)).sum(-1), (d_xn * xhat).sum(0), d_xn.sum(0),
+        mm(d_a.T, xn), (d_a_hi + d_a_lo).sum(0), mm(d_u.T, h), d_u.sum(0), (d_y * u).sum(0),
+    )
