@@ -17,9 +17,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    take (``bound_ms``): the fused ConvNeXt MLP tail at the four
    ConvNeXt-Base stages at batch 8 (serving) and 32 (the train step), with
    all-one and with stochastic-depth row scales (0 and 1/survival); the
-   per-layer decode step at 8 images x beam 5 = 40 rows and the one-cell
-   step at the greedy eval's 32 rows, cache length 52, each also against
-   the other; the dropout mask pool at the flagship train
+   per-layer decode step at 8 images x beam 5 = 40 rows and 32 x 5 = 160
+   rows and the one-cell step at the greedy eval's 32 rows, cache length
+   52, each also against the other, after the cost of one grid barrier of
+   their cooperative launch (``scripts/decode_barrier_probe.py``); the
+   dropout mask pool at the flagship train
    step's 29,366,272 bits for three seeds, whose bits must be identical,
    beside ``Tensor.bernoulli_`` as the library yardstick; the MLP-tail
    backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048 at
@@ -525,6 +527,22 @@ def check_decode(dev, card, layers, rows, heads=8):
     print(f"decode bound at R={rows}, E={E}, mean over the four positions: {bound_ms:.4f} ms ({bound_by})")
     return {k: (worst[k], sum(times[k]) / len(times[k]), sum(plain_times) / len(plain_times), bound_ms, bound_by)
             for k in worst}
+
+
+def barrier_probe(card):
+    """us per ``grid.sync()`` of a cooperative launch of one 256-thread
+    block per SM, as the decode kernels launch (a throwaway kernel built by
+    ``scripts/decode_barrier_probe.py``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("decode_barrier_probe",
+                                                  os.path.join(ROOT, "scripts", "decode_barrier_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    us = probe.barrier_us()
+    print(f"grid barrier of the decode kernels' launch (cg::grid_group::sync, one 256-thread block per SM): "
+          f"{us:.3f} us per barrier [{card}]")
+    return us
 
 
 def check_dropout(dev, card):
@@ -2032,10 +2050,15 @@ def main(argv=None):
     cfg = ModelConfig(vocab_size=VOCAB)
     model = flagship_model(cfg, dev, args.seed)
     mlp_err, mlp_ms, mlp_plain_ms, mlp_bound, mlp_by = check_mlp(dev, card)
-    # The per-layer kernel at the beam's rows, the one-cell kernel at the
-    # greedy eval's.
+    # The per-layer kernel at the bs-8 and bs-32 beams' rows, the one-cell
+    # kernel at the greedy eval's.
+    barrier_probe(card)
     dec_err, dec_ms, dec_plain_ms, dec_bound, dec_by = check_decode(
         dev, card, model.decoder.layers, DECODE_ROWS)["decode_step"]
+    r160 = check_decode(dev, card, model.decoder.layers, BEAM * TRAIN_BS)["decode_step"]
+    print(f"decode_step at R={BEAM * TRAIN_BS} (bs-32 beam): {r160[1]:.4f} ms per 6-layer step, plain "
+          f"{r160[2]:.4f}, bound {r160[3]:.4f} ({r160[4]}); at R={DECODE_ROWS}: {dec_ms:.4f} ms [{card}]")
+    dec_err = max(dec_err, r160[0])
     one_err, one_ms, one_plain_ms, one_bound, one_by = check_decode(
         dev, card, model.decoder.layers, TRAIN_BS)["decode_onecell"]
     pool_err, pool_ms, pool_plain_ms, pool_lib_ms, pool_bound, pool_by = check_dropout(dev, card)

@@ -9,11 +9,15 @@ a process of its own, in the order given, so that ``A B B A`` pairs two
 commits on one card.  A process builds that checkout's ``decode_step.cu``,
 makes the flagship decoder (E=512, H=8, 6 layers, vocab 9490; random weights
 from seed 0) and prints one JSON line of CUDA-event ms: the per-layer kernel
-(6 launches, one token of the beam's 40 rows) and the one-cell kernel (one
-launch, the greedy eval's 32 rows), each at cache length 52 and averaged over
+(6 launches, one token) at the bs-8 beam's 40 rows (``decode_step``) and the
+bs-32 beam's 160 (``decode_step_r160``), and the one-cell kernel (one launch,
+the greedy eval's 32 rows), each at cache length 52 and averaged over
 positions 0, 25 and 51, and one 51-token greedy rollout of the rollout kernel
 (32 rows).  The last line is a table of each checkout's median per kernel,
-with the card's name and power limit.
+with the card's name and power limit; with ``--pairs A B``, where the roots
+were given as A B B A ..., it also gives per kernel the median of the
+differences A - B of the pairs (run i of A against run i of B), their spread
+(max - min) and how many pairs B won.
 """
 
 import json
@@ -23,7 +27,7 @@ import subprocess
 import sys
 
 POSITIONS = (0, 25, 51)
-BEAM_ROWS, EVAL_ROWS, T, P, STEPS = 40, 32, 52, 49, 51
+BEAM_ROWS, BEAM32_ROWS, EVAL_ROWS, T, P, STEPS = 40, 160, 32, 52, 49, 51
 
 
 def measure(root):
@@ -60,7 +64,8 @@ def measure(root):
     out = {}
     with torch.inference_mode():
         w = prepare_decode_weights(dec.layers, E)
-        for name, rows, one_cell in (("decode_step", BEAM_ROWS, False), ("decode_onecell", EVAL_ROWS, True)):
+        for name, rows, one_cell in (("decode_step", BEAM_ROWS, False), ("decode_step_r160", BEAM32_ROWS, False),
+                                     ("decode_onecell", EVAL_ROWS, True)):
             times = []
             for pos in POSITIONS:
                 args = (w, f(rows, E), pos, f(L, rows, T, E), f(L, rows, T, E), f(L, rows, P, E),
@@ -80,7 +85,9 @@ def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
         print(json.dumps(measure(sys.argv[2])))
         return
-    roots = sys.argv[1:]
+    roots, pairs = sys.argv[1:], None
+    if roots[:1] == ["--pairs"]:
+        pairs, roots = roots[1:3], roots[3:]
     if not roots:
         raise SystemExit(__doc__)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -92,7 +99,15 @@ def main():
         print(f"{root}: {line}", flush=True)
         runs.setdefault(root, []).append(json.loads(line))
     table = {root: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for root, rs in runs.items()}
-    print(json.dumps({"card": card, "median_ms": table}))
+    summary = {"card": card, "median_ms": table}
+    if pairs:
+        a, b = (runs[root] for root in pairs)
+        summary["pairs"] = {}
+        for k in a[0]:
+            diffs = [x[k] - y[k] for x, y in zip(a, b)]
+            summary["pairs"][k] = {"n": len(diffs), "median_a_minus_b": statistics.median(diffs),
+                                   "spread": max(diffs) - min(diffs), "b_won": sum(d > 0 for d in diffs)}
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":

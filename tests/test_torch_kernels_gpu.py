@@ -310,6 +310,76 @@ def test_rollout_kernel_matches_plain(cuda, rows, steps, teacher, end):
         assert int(fused_full_rollout.steps_run) == 1 and not got[0][:, 1:].any()
 
 
+# The decode kernels at the beam's row counts: 1, 8, 40 (8 images x beam 5)
+# and 160 (32 x 5), at the reference's widths.
+DECODE_ROWS = [1, 8, 40, 160]
+DECODE_WIDTHS = [(512, 8), (300, 6), (200, 8)]
+
+
+@pytest.mark.parametrize("rows", DECODE_ROWS)
+@pytest.mark.parametrize("E,H", DECODE_WIDTHS)
+@pytest.mark.parametrize("pos", [0, 1, 51])
+def test_decode_kernels_at_beam_rows(cuda, rows, E, H, pos):
+    """The per-layer and one-cell kernels against the plain step at cache
+    length 52, positions 0, 1 and T - 1, with NaN in every cache slot at or
+    past pos; the one-cell kernel within 1e-6 of the per-layer one; each
+    kernel gives the same bits when run again."""
+    args = decode_args(6, rows, 52, 49, E, H, 512, pos, cuda, seed=rows + E + pos)
+    before = (fused_decode_step.launches, fused_decode_step.onecell_launches)
+    per_layer = fused_decode_step(*args)
+    one_cell = fused_decode_step(*args, one_cell=True)
+    torch.cuda.synchronize()
+    assert (fused_decode_step.launches, fused_decode_step.onecell_launches) == (before[0] + 6, before[1] + 1)
+    want = _decode_step_plain(*args)
+    for name, a, b, c, tol in zip(("x", "alpha", "k_new", "v_new"), per_layer, one_cell, want,
+                                  (1e-4, 1e-5, 1e-4, 1e-4)):
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), name
+        assert (a - c).abs().max().item() < tol, name
+        assert (a - b).abs().max().item() <= 1e-6, name
+    assert all(torch.equal(a, b) for a, b in zip(per_layer, fused_decode_step(*args)))
+    assert all(torch.equal(a, b) for a, b in zip(one_cell, fused_decode_step(*args, one_cell=True)))
+
+
+def staggered_end_id(seqs):
+    """The token whose first occurrences end the rows at the most different
+    steps (rows that never emit it run to the end)."""
+    steps = seqs.shape[1]
+    best, best_n = -1, 0
+    for tok in torch.unique(seqs).tolist():
+        hit = seqs == tok
+        ends = torch.where(hit.any(1), hit.int().argmax(1), steps)
+        n = len(set(ends.tolist()))
+        if n > best_n:
+            best, best_n = tok, n
+    return best
+
+
+@pytest.mark.parametrize("rows", DECODE_ROWS)
+@pytest.mark.parametrize("E,H", DECODE_WIDTHS)
+def test_rollout_kernel_at_beam_rows(cuda, rows, E, H):
+    """The whole-rollout kernel at 1, 8, 40 and 160 rows and the three
+    widths, 51 steps, with an end id that ends the rows at different
+    tokens: against the plain rollout, stopping after the longest row, and
+    the same bits when run again."""
+    steps = 51
+    args, _ = rollout_args(rows, steps, cuda, False, E=E, H=H, seed=rows + E)
+    V, start = args[1].shape[0], args[1].shape[0] - 2
+    _, seqs, _ = _full_rollout_plain(*args, start, -1, steps, H)
+    end_id = staggered_end_id(seqs)
+    want = _full_rollout_plain(*args, start, end_id, steps, H)
+    got = fused_full_rollout(*args, start, end_id, steps, H)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in (got[0], got[2]))
+    assert_rollouts_agree(got, want)
+    ends = want[1] == end_id
+    lengths = torch.where(ends.any(1), ends.int().argmax(1) + 1, steps)
+    if rows >= 8:
+        assert len(set(lengths.tolist())) > 1  # rows end at different tokens
+    assert int(fused_full_rollout.steps_run) == int(lengths.max())
+    again = fused_full_rollout(*args, start, end_id, steps, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("n", [1, 4, 4099, 1_000_003])  # ragged tails of 1, 0, 3 and 3
 @pytest.mark.parametrize("keep", [0.5, 0.9])
 def test_dropout_kernel_matches_plain(cuda, n, keep):

@@ -147,9 +147,11 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     monkeypatch.undo()
     # The MLP-tail and whole-block sources share the tail's header, which
     # includes the warp reductions; the MLP tail's two sources share the
-    # tensor-core GEMM's header.
-    tail, gemm = {"mlp_tail.cuh"}, {"tf32x3_gemm.cuh"}
-    for name, extra in (("lstm_step", set()), ("decode_step", set()), ("mlp_block", tail | gemm),
+    # tensor-core GEMM's header, which includes the mbarrier and bulk-copy
+    # helpers that the decode source includes too.
+    tail, bulk = {"mlp_tail.cuh"}, {"mbarrier.cuh"}
+    gemm = {"tf32x3_gemm.cuh"} | bulk
+    for name, extra in (("lstm_step", set()), ("decode_step", bulk), ("mlp_block", tail | gemm),
                         ("mlp_block_bwd", gemm), ("block_fused", tail)):
         names = {p.name for p in _build._sources(_build.CSRC / f"{name}.cu", {})}
         assert names == {f"{name}.cu", "warp_reduce.cuh", *extra}, names

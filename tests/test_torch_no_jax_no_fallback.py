@@ -22,8 +22,15 @@
   source calls a library GEMM; neither wrapper catches a failed launch; a
   build that cannot run raises; and ``ops/tf32.py``, the CPU model of the
   split, is imported by no module of the port (only the tests use it).
+- The decode kernels stage their weight slices and activation rows with
+  bulk copies on mbarriers (``csrc/mbarrier.cuh``, in ``decode_step.cu``'s
+  build hash with ``warp_reduce.cuh``); no decode wrapper catches a failed
+  launch, and a decode build that cannot run raises.
+- ``CaptionModel.rollout`` serves deterministic rollouts only: a rollout
+  with dropout raises, naming its ROADMAP item, before any decode path.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -332,3 +339,55 @@ def test_mlp_tensor_core_sources_have_no_fallback(cpu_only):
     package = pathlib.Path(tpu_captioner_torch.__file__).parent
     users = [p for p in package.rglob("*.py") if p.name != "tf32.py" and "ops.tf32" in p.read_text()]
     assert not users, users
+
+
+def test_decode_sources_stage_by_bulk_copy_and_have_no_fallback(cpu_only):
+    import inspect
+
+    from tpu_captioner_torch.ops import _build, decode_step
+
+    sources = {p.name: text.decode() for p, text in _build._sources(_build.CSRC / "decode_step.cu", {}).items()}
+    assert {"decode_step.cu", "mbarrier.cuh", "warp_reduce.cuh"} <= set(sources), sources.keys()
+    header, body = sources["mbarrier.cuh"], sources["decode_step.cu"]
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in header
+    assert "mbarrier.try_wait.parity" in header and "fence.proxy.async" in header
+    for call in ("bulk_load(", "mbar_expect_tx(", "mbar_wait(", "grid.sync()"):
+        assert call in body, call
+    # The hash follows the header: an edited mbarrier.cuh gives another library.
+    before = _build.library_path("decode_step")
+    path = _build.CSRC / "mbarrier.cuh"
+    text = path.read_bytes()
+    try:
+        path.write_bytes(text + b"\n// edited\n")
+        assert _build.library_path("decode_step") != before
+    finally:
+        path.write_bytes(text)
+    assert _build.library_path("decode_step") == before
+    for fn in (decode_step.fused_decode_step, decode_step.fused_full_rollout, decode_step._lib):
+        assert "except" not in inspect.getsource(fn), fn.__name__
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    if nvcc is None:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build("decode_step")
+
+
+def test_rollout_with_dropout_raises():
+    from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    model = CaptionModel(
+        ModelConfig(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
+                    encoder_dim=8, embed_dim=8, num_heads=2, decoder_dim=8, num_layers=1),
+        device="cpu",
+    )
+    enc = torch.zeros(1, 4, 8)
+    for mode in ("off", "step", "mega"):
+        model.cfg = dataclasses.replace(model.cfg, decode_kernel=mode)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
+            model.rollout(enc, 1, 2, 3, deterministic=False)
+        with torch.inference_mode():
+            logits, seqs, _ = model.rollout(enc, 1, 2, 3)  # deterministic, the default
+        assert logits.shape == (1, 3, 11) and seqs.shape == (1, 3)

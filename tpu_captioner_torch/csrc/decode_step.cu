@@ -10,10 +10,10 @@
 //   hidden state is carried in x_out between launches;
 // - _kernel_onecell (fused_decode_step(one_cell=True)) ->
 //   decode_onecell_kernel: the same layer body looped over the L layers
-//   inside one launch, with a grid barrier between layers;
+//   inside one launch;
 // - _mega_kernel (fused_full_rollout) -> decode_rollout_kernel: that loop
-//   inside a loop over the tokens of a greedy rollout, with an embedding
-//   phase before it and vocab-head, argmax and feedback phases after it.
+//   inside a loop over the tokens of a greedy rollout, with the embedding,
+//   the vocab head, the argmax and the token feedback around it.
 //
 // Per row and layer the body computes, with post-norm LayerNorms (eps 1e-5):
 //   1. the packed QKV projection (the new k and v rows are written out: for
@@ -27,60 +27,87 @@
 //   5. ReLU FFN, residual, LN3.
 //
 // What bounds it on the H100: bytes and latency, not arithmetic.  At batch 8
-// x beam 5 (R = 40 rows) a layer is six matrix-vector-like products that
+// x beam 5 (R = 40 rows) a layer is eight matrix-vector-like products that
 // read 8 MB of f32 weights for 2.1 M multiply-adds per row, two small
 // attentions and three LayerNorms, each depending on the one before.  A
-// rollout token adds the vocab head, E x V = 19.4 MB of f32 weights at V 9490.
+// rollout token adds the vocab head, E x V = 19.4 MB at V 9490.  The six
+// layers' weights and the head (67 MB) outgrow the 50 MB L2 and the card's
+// 30 MB of shared memory, so a rollout re-streams them every token: about
+// 20 us a token from device memory, whatever the kernel does.
 //
-// What the design does about it: each launch is cooperative and spans every
-// SM; a layer runs as 11 phases separated by grid-wide barriers, and each
-// phase spreads its work over all warps of the grid:
-// - a product out = act(in W^T + b) is cut into block tasks of 16 rows x 32
-//   output columns: the block stages its 16 input rows in shared memory,
-//   each warp loads its 4 weight rows (the nn.Linear (out, in) layout, 512
-//   contiguous bytes per row and warp) with all loads in flight, lanes split
-//   the k axis in float4 steps and a reduce-scatter of shuffles sums the
-//   lanes.  Each weight is read once per 16 rows;
-// - attention runs one warp per (row, head) at dh = E/H (the TPU kernel's
-//   0/1 head-selector matmul is a lane-layout device and is not carried
-//   over); only positions t <= pos are ever read, so an uninitialised cache
-//   slot can never reach a sum.  Each kernel is instantiated twice and the
-//   launch picks by head width: float4 key loads when dh % 4 == 0, scalar
-//   loads otherwise (GloVe-200: dh 25; word2vec-300: dh 50);
-// - LayerNorm runs one warp per row.
-// The product and LayerNorm bodies are not inlined, so the six products and
-// three LayerNorms of a layer share one copy of code in the instruction
-// cache (measured: 112 -> 101 us per layer at R = 40).
+// What the design does about it.  Each launch is cooperative: one block per
+// SM, 256 threads, phases separated by grid-wide barriers (cg::grid_group::
+// sync, 1.2 us each on the H100; a release/acquire arrival counter measured
+// 1.1, scripts/decode_barrier_probe.py).  Around the barriers:
+// - Persistent column ownership.  Every product of a layer is cut into the
+//   same column slices: block b owns output columns [b*ce, (b+1)*ce) of each
+//   E-wide product (q, k and v of the QKV projection, the two out-
+//   projections, the cross query, FFN2) and [b*cf, ...) of FFN1, for all of
+//   the R rows (in chunks of rc rows).  So each weight is read once per
+//   launch (per token in the rollout) and every SM multiplies in every
+//   product phase.  The per-layer kernel at R >= 32 splits the grid into two
+//   row groups that own the same columns, so each block stages half the
+//   rows; the rollout's head gives each block cv vocab columns.
+// - Weights staged ahead of the barriers.  A block's weight slice of one
+//   product, in pieces of uc columns, is a ring unit: contiguous rows of
+//   the nn.Linear (out, in) matrix, copied into shared memory by one bulk
+//   copy (cp.async.bulk) that completes on the unit's mbarrier.  A ring of
+//   `slots` units is kept full: when a product phase releases its units,
+//   thread 0 issues the next ones, so a layer's weights (and the next
+//   layer's, and in the rollout the head's in hc-column units) are in
+//   flight during the barriers and attentions before them, and a phase
+//   waits on its mbarrier, never on a load issued after the barrier.
+// - Activation rows staged by the copy engine.  After a barrier a product
+//   stages its input rows (rows other blocks wrote) with one bulk copy on a
+//   staging mbarrier: 0.85 us for 40 rows x 512 where float4 loads from
+//   every thread took 1.6 (2.2 and 6.1 us for 160 rows; the probe).  The
+//   rollout's embedding rows are gathered by the threads instead: a bulk
+//   copy would queue behind the weight copies in flight.
+// - Fewer barriers.  LN1, LN2 and LN3 run in the staging prologue of the
+//   product that consumes them: every block normalises the rows it staged,
+//   and the row's owner block (Owners) also writes them out, where they
+//   are needed later as a residual or as x_out.  Each product epilogue adds
+//   its residual, so a LayerNorm stages one buffer.  The alpha mean runs in
+//   FFN1's phase.  In the rollout the head's prologue is the last LN3; the
+//   head's epilogue keeps each row's best (value, first column) of the
+//   block's columns and merges it into a per-row 64-bit key with atomicMax
+//   (the key orders by value, then by the smaller column: torch.argmax's
+//   first maximum, whatever the order of the merges); the argmax, feedback
+//   and embedding run in the next token's first prologue.  Barriers: 8 per
+//   layer (after QKV, self-attention, out-projection, cross query, cross-
+//   attention, cross-out, FFN1, FFN2), so 8 per per-layer launch (was 10),
+//   8L per one-cell launch (was 11L - 1) and 8L + 1 per rollout token (was
+//   11L + 4: 70 at L = 6; now 49).
+// - Little code per phase.  Each phase's code runs once or twice and is
+//   fetched anew (the kernels outgrow the instruction caches), so the
+//   heavy parts are out-of-line functions shared by every phase: the
+//   product's 16 x 4 warp tile (tile_dot), the attention, the stagings.
+//   With one copy of the tile code a per-layer step at R = 40 took 13% less
+//   time than with a copy per product (scripts/decode_timeline.py).
+// Products: a warp multiplies a tile of 16 staged rows by 4 weight rows,
+// lanes splitting the k axis in float4 steps, and a reduce-scatter of
+// shuffles sums the lanes; an output's sum order depends only on K, so the
+// one-cell and per-layer kernels sum alike (they agree within 1e-6).  Attention runs one
+// warp per (row, head) at dh = E/H (the TPU kernel's 0/1 head-selector
+// matmul is a lane-layout device and is not carried over); only positions
+// t <= pos are ever read, so an uninitialised cache slot can never reach a
+// sum.  Each kernel is instantiated twice and the launch picks by head
+// width: float4 key loads when dh % 4 == 0, scalar loads otherwise (GloVe-
+// 200: dh 25; word2vec-300: dh 50).
 // Intermediates produced inside a launch live in scratch buffers that each
 // phase writes and only later phases read; the grid barrier orders the
-// writes before the reads and makes them visible to every SM.  The
-// multi-layer kernels rewrite the same buffers for every layer and token.
-// The rollout's control words (each row's token and finished flag, which
-// every block branches on) are read past L1 (__ldcg) all the same, so that
-// no block can act on a stale copy and leave the loop alone.
-//
-// The rollout kernel's extra phases, per token s:
-// - embed: x = embedding[tok] + pe[s], tok after the teacher mix
-//   (use_teacher[s] ? teacher[s] : tok), as the TPU kernel stores it.  A row
-//   gather: the TPU kernel's one-hot matmul only stood in for one;
-// - L layer bodies; layer l writes its new k/v rows into the (L, R, T, E)
-//   cache at position s, so no cache update runs outside the kernel;
-// - head: logits = x fc_w^T + fc_b for (R, V) with the product above;
-// - chunk partials, one warp per (row, 256 columns): copies the logits of
-//   rows still running to logits[:, s] and keeps the chunk's max and the
-//   first column that holds it;
-// - argmax and feedback, one warp per row: reduces the partials (on equal
-//   values the smaller column wins, so the result is torch.argmax's first
-//   maximum), writes seqs[:, s] and alphas[:, s] for rows still running,
-//   then tok = running ? pred : tok and fin |= running && pred == end_id.
-// Rows that finished earlier keep the zeros the caller allocated.  Every
-// block checks the finished flags before a token and the launch stops once
-// all rows have finished; it counts the tokens it ran in state[2R].
+// writes before the reads (a proxy fence on both sides orders them before a
+// bulk copy's reads).  The rollout keeps each row's token and finished flag
+// in every block's shared memory, computed alike from the same keys, so
+// every block branches alike; the launch stops once all rows have finished
+// and counts the tokens it ran in state[2R].
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "mbarrier.cuh"
 #include "warp_reduce.cuh"
 
 namespace cg = cooperative_groups;
@@ -89,12 +116,27 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRT = 16;  // rows per product task
-constexpr int kCG = 4;   // output columns per warp in a product task
-constexpr int kKChunk = 512;  // k values whose weights a warp loads at once
-constexpr int kLnPerLane = 32;  // LayerNorm rows up to 32 * 32 = 1024 wide
+constexpr int kRT = 16;        // rows of a warp tile
+constexpr int kCG = 4;         // weight rows (output columns) of a warp tile
+constexpr int kLnVec = 8;      // float4s of a LayerNorm row per lane: E <= 32 * 4 * 8 = 1024
 constexpr float kLnEps = 1e-5f;
-constexpr int kHeadChunk = 256;  // vocab columns per argmax partial
+constexpr int kMaxGroup = 16;  // ring units multiplied together
+
+// How a launch divides its work; computed by the wrapper
+// (tpu_captioner_torch/ops/decode_step.py:decode_plan), which sizes the
+// shared memory with the same layout as smem_layout_bytes below.
+struct Plan {
+  int grid;         // blocks
+  int row_groups;   // 1, or 2: blocks b and b + grid / 2 own the same columns, each half the rows
+  int ce, cf;       // output columns a block owns of each E-wide and of the F-wide product
+  int uc;           // of those, columns per ring unit
+  int cv, hc;       // vocab columns a block owns (rollout), and per ring unit
+  int rc;           // rows staged at once, a multiple of kRT
+  int slots;        // ring units in shared memory
+  int slot_floats;  // floats of a ring unit, a multiple of 32
+  int group;        // ring units multiplied together, at most slots and kMaxGroup
+};
+constexpr int kPlanInts = 11;
 
 struct Args {
   const float* x_in;   // (R, E) input of the first layer of the launch
@@ -112,27 +154,72 @@ struct Args {
   const float *ln1_w, *ln1_b, *ln2_w, *ln2_b, *ln3_w, *ln3_b;  // (L, E)
   const float *cache_k, *cache_v;  // (L, R, T, E)
   const float *mem_k, *mem_v;      // (L, R, P, E)
-  float* scratch;  // 8 (R, E) buffers, (R, 3E), (R, F), (R, H, P)
+  float* scratch;  // layer_scratch_floats: the buffers of decode_layer
   int layer, L, R, T, P, E, H, F, pos;
+  // The rollout's tensors (null or 0 in the other kernels).  There x_in =
+  // x_out = x, cache_k/v and k_new/v_new are both the rollout's own cache,
+  // and pos is set per token.
+  const float* embedding;            // (V, E)
+  const float *fc_w, *fc_b;          // (V, E), (V)
+  const float* pe;                   // (steps, E)
+  const int *teacher, *use_teacher;  // (steps, R) each, or both null
+  float* logits;                     // (R, steps, V), zeroed by the caller
+  int* seqs;                         // (R, steps), zeroed
+  float* alphas;                     // (R, steps, P), zeroed
+  unsigned long long* best;          // (2, R) argmax keys, by token parity
+  int* state;                        // tok (R), fin (R), tokens run (1)
+  int V, steps, end_id;
+  Plan plan;
+  int l0, Lr;        // the launch's first layer and layers per token
+  int ne, nf, upl;   // ring units per E-wide product, per FFN1 and per layer
+  int upt, units;    // ring units per token and in the whole launch
 };
 
-// The rollout's tensors beside the layers'.  In `a`, x_in = x_out = x,
-// cache_k/v and k_new/v_new are both the rollout's own cache, and pos is
-// set per token.
-struct RolloutArgs {
-  Args a;
-  const float* embedding;  // (V, E)
-  const float *fc_w, *fc_b;  // (V, E), (V)
-  const float* pe;           // (steps, E)
-  const int *teacher, *use_teacher;  // (steps, R) each, or both null
-  float* logits;  // (R, steps, V), zeroed by the caller
-  int* seqs;      // (R, steps), zeroed
-  float* alphas;  // (R, steps, P), zeroed
-  float* head;    // (R, V) scratch
-  float* part_v;  // (R, chunks) scratch
-  int* part_i;    // (R, chunks) scratch
-  int* state;     // tok (R), fin (R), tokens run (1)
-  int V, steps, end_id;
+// One block's view of the launch: its shared memory and its ring.  Every
+// thread keeps its own copy of the counters and updates it alike.
+struct Blk {
+  uint64_t* ubar;            // one mbarrier per ring slot
+  uint64_t* xbar;            // the staging mbarrier
+  float* ring;               // slots x slot_floats
+  float* xs;                 // rc staged rows
+  float* lnp;                // a LayerNorm's scale and shift, or the rollout's PE row (2E)
+  float* sq;                 // this warp's attention scratch: query row (dh), probabilities
+  unsigned long long* best;  // rollout: each row's best key over this block's head columns
+  int *tok, *fin;            // rollout: each row's token and finished flag
+  int issued, released;      // ring units issued, and released by their product phases
+  uint32_t xphase;           // parity of the staging barrier's next phase
+  int gc, bc, rpg, ra, rb;   // column blocks, this block's; rows per group, this block's [ra, rb)
+  int stamps;                // timeline stamps taken (scripts/decode_timeline.py)
+};
+
+#ifdef TC_DECODE_TIMELINE
+// Block 0's %globaltimer at the launch's start (what 0), a barrier's entry
+// (1) and exit (2), each staged row chunk (3), warp 0's last product of a
+// chunk (5), each released unit group (6), warp 0's weights ready for a
+// task (7) and the end (4), for
+// scripts/decode_timeline.py, which builds the library with this defined.
+constexpr int kMaxStamps = 1 << 16;
+__device__ unsigned long long tc_timeline[kMaxStamps];
+__device__ long long tc_timeline_clock[kMaxStamps];  // the SM's cycle counter beside it
+__device__ int tc_timeline_what[kMaxStamps];
+__device__ __forceinline__ void stamp(Blk& k, int what) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && k.stamps < kMaxStamps) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    tc_timeline[k.stamps] = t;
+    tc_timeline_clock[k.stamps] = clock64();
+    tc_timeline_what[k.stamps] = what;
+  }
+  ++k.stamps;
+}
+#else
+__device__ __forceinline__ void stamp(Blk&, int) {}
+#endif
+
+struct Unit {
+  const float* src;  // the block's weight rows, contiguous
+  int cols, K;       // weight rows (output columns) and their length
+  int col0;          // output column of the first row
 };
 
 __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
@@ -147,114 +234,442 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
 __device__ __forceinline__ int global_warp() { return (threadIdx.x >> 5) * gridDim.x + blockIdx.x; }
 __device__ __forceinline__ int grid_warps() { return gridDim.x * kWarps; }
 
-// out[r, c] = act(in[r, :] . W[c, :] + b[c]); in (R, K) written earlier in
-// this launch, W (N, K) read-only, K % 4 == 0.  A block task is a tile of
-// kRT rows x (8 warps x kCG) columns: the block stages the input rows in
-// shared memory (xs, kRT * K floats) with all its loads in flight, then each
-// warp loads its kCG weight rows kKChunk floats at a time, all in flight,
-// and multiplies them against the staged rows.
-__device__ __noinline__ void grid_linear(const float* __restrict__ W, const float* __restrict__ b,
-                            const float* in, float* out, int R, int K, int N, bool relu,
-                            float* xs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncb = (N + kCG * kWarps - 1) / (kCG * kWarps), nrt = (R + kRT - 1) / kRT;
-  for (int task = blockIdx.x; task < ncb * nrt; task += gridDim.x) {
-    const int r0 = (task / ncb) * kRT, c0 = (task % ncb) * kCG * kWarps + warp * kCG;
-    __syncthreads();  // the previous task's readers of xs are done
-    for (int i = 4 * threadIdx.x; i < kRT * K; i += 4 * kThreads) {
-      const int r = r0 + i / K;
-      *reinterpret_cast<float4*>(xs + i) =
-          r < R ? *reinterpret_cast<const float4*>(in + (size_t)r * K + i % K)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+__host__ __device__ __forceinline__ size_t round_up(size_t n, size_t m) { return (n + m - 1) / m * m; }
+
+// Which rows a block writes out (LayerNorm outputs, alpha, seqs, alphas):
+// row r's owner is block g * gc + (r - g * rpg) % gc of its row group g.
+struct Owners {
+  int rpg, gc;
+  __device__ __forceinline__ bool mine(int r) const {
+    const int g = r / rpg;
+    return g * gc + (r - g * rpg) % gc == (int)blockIdx.x;
+  }
+};
+
+__device__ __forceinline__ bool owns(const Blk& k, int r) { return Owners{k.rpg, k.gc}.mine(r); }
+
+__device__ __forceinline__ int clamp_cols(int n, int per) { return n < 0 ? 0 : (n < per ? n : per); }
+
+// Ring unit u: unit i = u % upt of its token.  A layer's units are q, k,
+// v, self-out, cross query, cross-out (ne each), FFN1 (nf), FFN2 (ne), each
+// product's in uc-column pieces of the block's slice; then the head's, in
+// hc-column pieces.
+__device__ Unit unit_of(const Args& a, const Blk& k, int u) {
+  const int i = u % a.upt, E = a.E, F = a.F, uc = a.plan.uc;
+  Unit t;
+  t.K = E;
+  if (i < a.upl * a.Lr) {
+    const size_t l = a.l0 + i / a.upl;
+    const int j = i % a.upl;
+    int p, q;
+    if (j < 6 * a.ne) {
+      p = j / a.ne;
+      q = j % a.ne;
+    } else if (j < 6 * a.ne + a.nf) {
+      p = 6;
+      q = j - 6 * a.ne;
+    } else {
+      p = 7;
+      q = j - 6 * a.ne - a.nf;
     }
-    __syncthreads();
-    if (c0 >= N) continue;
-    float v[kRT * kCG];  // flat (row, column) partial sums of this lane
+    const int per = p == 6 ? a.plan.cf : a.plan.ce, n = p == 6 ? F : E;
+    const int c0 = k.bc * per + q * uc;
+    t.cols = clamp_cols(min(n, k.bc * per + per) - c0, uc);
+    t.col0 = c0;
+    if (p == 6) {  // FFN1, (F, E)
+      t.src = a.w_f1 + (l * F + c0) * E;
+      return t;
+    }
+    const float* w;
+    if (p < 3) {  // q, k or v: rows p*E + c0.. of the (3E, E) QKV weight
+      w = a.w_qkv + (l * 3 + p) * E * E;
+      t.col0 = p * E + c0;
+    } else {
+      w = p == 3 ? a.w_so + l * E * E : p == 4 ? a.w_cq + l * E * E : p == 5 ? a.w_co + l * E * E
+                                                                             : a.w_f2 + l * E * F;
+      if (p == 7) t.K = F;
+    }
+    t.src = w + (size_t)c0 * t.K;
+    return t;
+  }
+  const int v0 = blockIdx.x * a.plan.cv, v1 = min(a.V, v0 + a.plan.cv);
+  t.col0 = v0 + (i - a.upl * a.Lr) * a.plan.hc;
+  t.cols = clamp_cols(v1 - t.col0, a.plan.hc);
+  t.src = a.fc_w + (size_t)t.col0 * E;
+  return t;
+}
+
+// Thread 0: copy unit u into its slot.  A unit with no columns only
+// arrives, so that every slot's barrier completes one phase per unit.
+__device__ void ring_issue(const Args& a, const Blk& k, int u) {
+  const int slot = u % a.plan.slots;
+  const Unit t = unit_of(a, k, u);
+  uint64_t* bar = k.ubar + slot;
+  if (t.cols > 0) {
+    const uint32_t bytes = 4u * t.cols * t.K;
+    mbar_expect_tx(bar, bytes);
+    bulk_load(k.ring + (size_t)slot * a.plan.slot_floats, t.src, bytes, bar);
+  } else {
+    mbar_arrive(bar);
+  }
+}
+
+__device__ __forceinline__ void ring_wait(const Args& a, const Blk& k, int u) {
+  mbar_wait(k.ubar + u % a.plan.slots, (u / a.plan.slots) & 1);
+}
+
+// Keep `slots` units issued ahead of the first unreleased one.  Called by
+// all threads after a __syncthreads that ends the reads of the slots reused.
+__device__ void ring_refill(const Args& a, Blk& k) {
+  const int upto = min(a.units, k.released + a.plan.slots);
+  if (threadIdx.x == 0 && k.issued < upto) {
+    fence_proxy_async_shared();  // the threads' reads of the reused slots come first
+    for (int u = k.issued; u < upto; ++u) ring_issue(a, k, u);
+  }
+  if (upto > k.issued) k.issued = upto;
+}
+
+// The units before `end` are consumed: thread 0 makes sure their copies
+// have landed (a block may own no rows of a product and never wait), then
+// their slots take the next units.
+__device__ void ring_release(const Args& a, Blk& k, int end) {
+  if (threadIdx.x == 0)
+    for (int u = k.released; u < end; ++u) ring_wait(a, k, u);
+  __syncthreads();
+  k.released = end;
+  ring_refill(a, k);
+}
+
+// Before the block exits: no copy may still be writing its shared memory.
+__device__ void ring_drain(const Args& a, const Blk& k) {
+  if (threadIdx.x == 0)
+    for (int u = k.released; u < k.issued; ++u) ring_wait(a, k, u);
+}
+
+// Floats of the layer body's scratch: qkv (R, 3E), eight (R, E) buffers,
+// hid (R, F) and the cross probabilities (R, H, P).
+__host__ __device__ long long layer_scratch_floats(int R, int E, int H, int F, int P) {
+  return (long long)R * (11LL * E + F + (long long)H * P);
+}
+
+// Dynamic shared memory of a launch: the mbarriers, the ring, the staged
+// rows, a LayerNorm's parameters, each warp's attention scratch and, in the
+// rollout, each row's key, token and flag.  ops/decode_step.py:decode_plan
+// computes the same sum.
+size_t smem_layout_bytes(const Plan& p, int R, int T, int P, int E, int H, int F, bool rollout) {
+  const int TP = T > P ? T : P;
+  size_t bytes = round_up(8 * (size_t)(p.slots + 1), 128) + 4 * (size_t)p.slots * p.slot_floats +
+                 4 * (size_t)p.rc * (E > F ? E : F) + 8 * (size_t)E +
+                 4 * round_up((size_t)kWarps * (E / H + TP), 2);
+  if (rollout) bytes += 16 * (size_t)R;
+  return bytes;
+}
+
+__device__ void blk_init(Args& a, Blk& k, unsigned char* smem) {
+  const Plan& p = a.plan;
+  const int E = a.E, F = a.F, dh = a.E / a.H, TP = a.T > a.P ? a.T : a.P;
+  k.ubar = reinterpret_cast<uint64_t*>(smem);
+  k.xbar = k.ubar + p.slots;
+  size_t off = round_up(8 * (size_t)(p.slots + 1), 128);
+  k.ring = reinterpret_cast<float*>(smem + off);
+  off += 4 * (size_t)p.slots * p.slot_floats;
+  k.xs = reinterpret_cast<float*>(smem + off);
+  off += 4 * (size_t)p.rc * (E > F ? E : F);
+  k.lnp = reinterpret_cast<float*>(smem + off);
+  off += 8 * (size_t)E;
+  k.sq = reinterpret_cast<float*>(smem + off) + (threadIdx.x >> 5) * (dh + TP);
+  off += 4 * round_up((size_t)kWarps * (dh + TP), 2);
+  k.best = reinterpret_cast<unsigned long long*>(smem + off);
+  k.tok = reinterpret_cast<int*>(k.best + a.R);
+  k.fin = k.tok + a.R;
+  k.gc = p.grid / p.row_groups;
+  k.bc = blockIdx.x % k.gc;
+  k.rpg = (a.R + p.row_groups - 1) / p.row_groups;
+  k.ra = min(a.R, (blockIdx.x / k.gc) * k.rpg);
+  k.rb = min(a.R, k.ra + k.rpg);
+  k.issued = k.released = 0;
+  k.xphase = 0;
+  k.stamps = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= p.slots; ++i) mbar_init(k.ubar + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  ring_refill(a, k);
+}
+
+// A grid-wide barrier.  Each thread first orders its generic writes before
+// the copy engine's reads of them after the barrier.
+__device__ __forceinline__ void grid_barrier(cg::grid_group& grid, Blk& k) {
+  stamp(k, 1);
+  fence_proxy_async_global();
+  grid.sync();
+  stamp(k, 2);
+}
+
+// Staging runs out of line with its arguments by value (one copy of the
+// code for every product; a reference to the block's state would put that
+// state in local memory).  Each returns after the rows have landed.
+
+// Rows r0..r0+rn of src (row length K, written by any block before the
+// last grid barrier, or an input) into xs with one bulk copy on xbar,
+// whose phase of parity `phase` this is.
+__device__ __noinline__ void stage_copy(float* xs, uint64_t* xbar, uint32_t phase, const float* src, int r0,
+                                        int rn, int K) {
+  if (threadIdx.x == 0) {
+    fence_proxy_async_global();
+    fence_proxy_async_shared();
+    const uint32_t bytes = 4u * rn * K;
+    mbar_expect_tx(xbar, bytes);
+    bulk_load(xs, src + (size_t)r0 * K, bytes, xbar);
+  }
+  mbar_wait(xbar, phase);
+}
+
+// One warp: LayerNorm of NR rows of E values, src[n] (shared or device
+// memory) with scale w and shift b, written to dst[n] and, when set, to
+// dst2[n].  A row is held in registers (E <= 32 * 4 * kLnVec) so that all
+// its loads are in flight at once, and NR rows go together so that their
+// reduction chains overlap (a warp issues in order); each row's arithmetic
+// is the same whatever NR.  src may equal dst.
+template <int NR>
+__device__ __forceinline__ void ln_rows(const float* const* src, float* const* dst, float* const* dst2,
+                                        const float* w, const float* b, int E) {
+  const int lane = threadIdx.x & 31;
+  float4 v[NR][kLnVec];
+  float s[NR], mu[NR], ss[NR], rstd[NR];
 #pragma unroll
-    for (int i = 0; i < kRT * kCG; ++i) v[i] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kKChunk) {
-      float4 w[kKChunk / 128][kCG];
+  for (int n = 0; n < NR; ++n) {
+    s[n] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kKChunk / 128; ++j) {
-        const int k = k0 + 128 * j + 4 * lane;
+    for (int j = 0; j < kLnVec; ++j) {
+      const int c = 4 * lane + 128 * j;
+      v[n][j] = c < E ? *reinterpret_cast<const float4*>(src[n] + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      s[n] += (v[n][j].x + v[n][j].y) + (v[n][j].z + v[n][j].w);
+    }
+  }
 #pragma unroll
-        for (int c = 0; c < kCG; ++c)
-          w[j][c] = k < K && c0 + c < N
-                        ? __ldg(reinterpret_cast<const float4*>(W + (size_t)(c0 + c) * K + k))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+  for (int n = 0; n < NR; ++n) mu[n] = warp_sum(s[n]) / E;
 #pragma unroll
-      for (int r = 0; r < kRT; ++r) {
+  for (int n = 0; n < NR; ++n) {
+    ss[n] = 0.f;
 #pragma unroll
-        for (int j = 0; j < kKChunk / 128; ++j) {
-          const int k = k0 + 128 * j + 4 * lane;
-          if (k < K) {
-            const float4 x = *reinterpret_cast<const float4*>(xs + r * K + k);
-#pragma unroll
-            for (int c = 0; c < kCG; ++c) v[r * kCG + c] = dot4(v[r * kCG + c], x, w[j][c]);
-          }
-        }
+    for (int j = 0; j < kLnVec; ++j) {
+      if (4 * lane + 128 * j < E) {
+        const float dx = v[n][j].x - mu[n], dy = v[n][j].y - mu[n], dz = v[n][j].z - mu[n], dw = v[n][j].w - mu[n];
+        ss[n] += (dx * dx + dy * dy) + (dz * dz + dw * dw);
       }
     }
-    // Reduce-scatter over the lanes: five halving steps (62 shuffles) leave
-    // lane j with the sums of flat outputs 2j and 2j + 1.
-    reduce_scatter64(v, lane);
-    static_assert(kRT * kCG == 64, "the reduce-scatter assumes 64 outputs per task");
+  }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int flat = 2 * lane + i, r = r0 + flat / kCG, c = c0 + flat % kCG;
-      if (r < R && c < N) {
-        const float y = v[i] + b[c];
-        out[(size_t)r * N + c] = relu ? fmaxf(y, 0.f) : y;
+  for (int n = 0; n < NR; ++n) rstd[n] = rsqrtf(warp_sum(ss[n]) / E + kLnEps);
+#pragma unroll
+  for (int j = 0; j < kLnVec; ++j) {
+    const int c = 4 * lane + 128 * j;
+    if (c < E) {
+      const float4 g = *reinterpret_cast<const float4*>(w + c);
+      const float4 o = *reinterpret_cast<const float4*>(b + c);
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        const float4 y = make_float4((v[n][j].x - mu[n]) * rstd[n] * g.x + o.x, (v[n][j].y - mu[n]) * rstd[n] * g.y + o.y,
+                                     (v[n][j].z - mu[n]) * rstd[n] * g.z + o.z, (v[n][j].w - mu[n]) * rstd[n] * g.w + o.w);
+        *reinterpret_cast<float4*>(dst[n] + c) = y;
+        if (dst2[n]) *reinterpret_cast<float4*>(dst2[n] + c) = y;
       }
     }
   }
 }
 
-// out[r] = LN(x[r] + add[r]) * w + b, one warp per row, the row held in
-// registers (E <= 32 * kLnPerLane) so that all its loads are in flight at once.
-__device__ __noinline__ void grid_add_ln(const float* x, const float* add, const float* __restrict__ w,
-                            const float* __restrict__ b, float* out, int R, int E) {
+// Stage rows r0..r0+rn of src (E wide) and the LayerNorm's w and b (into
+// lnp) with one bulk copy each, and normalise the rows in place, two rows
+// a warp at a time; the owner of a row also writes it to dst.
+__device__ __noinline__ void stage_ln(float* xs, float* lnp, uint64_t* xbar, uint32_t phase, const float* src,
+                                      const float* w, const float* b, float* dst, int r0, int rn, int E,
+                                      Owners own) {
+  if (threadIdx.x == 0) {
+    fence_proxy_async_global();
+    fence_proxy_async_shared();
+    const uint32_t rows = 4u * rn * E, par = 4u * E;
+    mbar_expect_tx(xbar, rows + 2 * par);
+    bulk_load(xs, src + (size_t)r0 * E, rows, xbar);
+    bulk_load(lnp, w, par, xbar);
+    bulk_load(lnp + E, b, par, xbar);
+  }
+  mbar_wait(xbar, phase);
+  auto row = [&](int i) { return xs + (size_t)i * E; };
+  auto out = [&](int i) { return own.mine(r0 + i) ? dst + (size_t)(r0 + i) * E : nullptr; };
+  int i = threadIdx.x >> 5;
+  for (; i + kWarps < rn; i += 2 * kWarps) {
+    float* const rows[2] = {row(i), row(i + kWarps)};
+    float* const outs[2] = {out(i), out(i + kWarps)};
+    ln_rows<2>(rows, rows, outs, lnp, lnp + E, E);
+  }
+  if (i < rn) {
+    float* const rows[1] = {row(i)};
+    float* const outs[1] = {out(i)};
+    ln_rows<1>(rows, rows, outs, lnp, lnp + E, E);
+  }
+}
+
+// The rollout's first prologue: x = embedding[tok] + pe for rows r0..r0+rn,
+// gathered by the threads (a bulk copy would queue behind the ring's
+// weight copies that the last product issued); the owner also writes x.
+__device__ __noinline__ void stage_embed(float* xs, const float* embedding, const float* pe, const int* tok,
+                                         float* x, int r0, int rn, int E, Owners own) {
+  const int q = E / 4;  // float4s of a row
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rn * q; i += kThreads) {
+    const int r = i / q, c = 4 * (i % q);
+    const float4 e = __ldg(reinterpret_cast<const float4*>(embedding + (size_t)tok[r0 + r] * E + c));
+    const float4 p = __ldg(reinterpret_cast<const float4*>(pe + c));
+    const float4 y = make_float4(e.x + p.x, e.y + p.y, e.z + p.z, e.w + p.w);
+    *reinterpret_cast<float4*>(xs + (size_t)r * E + c) = y;
+    if (own.mine(r0 + r)) *reinterpret_cast<float4*>(x + (size_t)(r0 + r) * E + c) = y;
+  }
+}
+
+// The staging functions for this block: each flips the staging barrier's
+// parity.
+__device__ __forceinline__ void stage_copy(Blk& k, const float* src, int r0, int rn, int K) {
+  stage_copy(k.xs, k.xbar, k.xphase, src, r0, rn, K);
+  k.xphase ^= 1;
+}
+
+__device__ __forceinline__ void stage_ln(const Args& a, Blk& k, const float* src, const float* w, const float* b,
+                                         float* dst, int r0, int rn) {
+  stage_ln(k.xs, k.lnp, k.xbar, k.xphase, src, w, b, dst, r0, rn, a.E, Owners{k.rpg, k.gc});
+  k.xphase ^= 1;
+}
+
+__device__ __forceinline__ void stage_embed(const Args& a, Blk& k, int s, float* x, int r0, int rn) {
+  stage_embed(k.xs, a.embedding, a.pe + (size_t)s * a.E, k.tok, x, r0, rn, a.E, Owners{k.rpg, k.gc});
+}
+
+// One warp's tile of 16 staged rows (xr, row length K) by 4 weight rows
+// (ws; rows past nc repeat the last and their sums are dropped): this
+// lane's sums of flat outputs 2 lane and 2 lane + 1 of the (row, column)
+// tile.  One out-of-line copy serves every product: the decode kernels are
+// bound by instruction fetch when each product carries its own unrolled
+// copy.  All 20 loads of a k step go before its 256 multiply-adds, since a
+// warp issues in order; lanes split k in float4 steps and a reduce-scatter
+// of shuffles (five halving steps, 62 shuffles) sums the lanes.
+__device__ __noinline__ float2 tile_dot(const float* ws, const float* xr, int K, int nc) {
   const int lane = threadIdx.x & 31;
-  for (int r = global_warp(); r < R; r += grid_warps()) {
-    const float* xr = x + (size_t)r * E;
-    const float* ar = add + (size_t)r * E;
-    float v[kLnPerLane];
-    float s = 0.f;
+  float v[kRT * kCG];  // flat (row, column) partial sums of this lane
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < E ? xr[c] + ar[c] : 0.f;
-      s += v[i];
-    }
-    const float mu = warp_sum(s) / E;
-    float ss = 0.f;
+  for (int i = 0; i < kRT * kCG; ++i) v[i] = 0.f;
+  for (int kk = 4 * lane; kk < K; kk += 128) {
+    float4 w[kCG], x[kRT];
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) {
-      const float d = lane + 32 * i < E ? v[i] - mu : 0.f;
-      ss += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / E + kLnEps);
+    for (int c = 0; c < kCG; ++c) w[c] = *reinterpret_cast<const float4*>(ws + (size_t)min(c, nc - 1) * K + kk);
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < E) out[(size_t)r * E + c] = (v[i] - mu) * rstd * w[c] + b[c];
+    for (int r = 0; r < kRT; ++r) x[r] = *reinterpret_cast<const float4*>(xr + (size_t)r * K + kk);
+#pragma unroll
+    for (int r = 0; r < kRT; ++r)
+#pragma unroll
+      for (int c = 0; c < kCG; ++c) v[r * kCG + c] = dot4(v[r * kCG + c], x[r], w[c]);
+  }
+  reduce_scatter64(v, lane);
+  static_assert(kRT * kCG == 64, "the reduce-scatter assumes 64 outputs per task");
+  return make_float2(v[0], v[1]);
+}
+
+// out[r, c] for the block's rows [ra, rb) and the columns of ring units
+// u0..u0+nu-1 (K-long weight rows): stage(r0, rn) puts input rows
+// r0..r0+rn in xs, then each warp task multiplies 16 staged rows by 4
+// weight rows of a unit (tile_dot), and epi(r, c, sum, pre(r, c)) takes
+// each output, where pre(r, c) gives its bias and residual from device
+// memory.  Rows past rn of the last tile are computed from whatever xs
+// holds and dropped.
+template <class Stage, class Pre, class Epi>
+__device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stage, Pre pre, Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int cols[kMaxGroup], col0[kMaxGroup], ncg = 0;
+  for (int j = 0; j < nu; ++j) {
+    const Unit t = unit_of(a, k, u0 + j);
+    cols[j] = t.cols;
+    col0[j] = t.col0;
+    ncg += (t.cols + kCG - 1) / kCG;
+  }
+  const int S = a.plan.slot_floats, NS = a.plan.slots;
+  for (int r0 = k.ra; r0 < k.rb; r0 += a.plan.rc) {
+    const int rn = min(a.plan.rc, k.rb - r0), nrt = (rn + kRT - 1) / kRT;
+    __syncthreads();  // the readers of xs are done
+    stage(r0, rn);
+    __syncthreads();
+    stamp(k, 3);
+    for (int task = warp; task < nrt * ncg; task += kWarps) {
+      const int rt = task % nrt;
+      int cgi = task / nrt, j = 0;
+      while (cgi >= (cols[j] + kCG - 1) / kCG) cgi -= (cols[j++] + kCG - 1) / kCG;
+      const int u = u0 + j, nc = min(kCG, cols[j] - cgi * kCG);
+      ring_wait(a, k, u);
+      stamp(k, 7);
+      const float2 sums = tile_dot(k.ring + (size_t)(u % NS) * S + (size_t)cgi * kCG * K,
+                                   k.xs + (size_t)rt * kRT * K, K, nc);
+      const float v[2] = {sums.x, sums.y};
+      // This lane's two outputs' epilogue operands; indices clamped into
+      // range so that both loads issue together, unpredicated.
+      float2 pv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int flat = 2 * lane + i, r = rt * kRT + flat / kCG, c = cgi * kCG + flat % kCG;
+        pv[i] = pre(r0 + min(r, rn - 1), col0[j] + min(c, cols[j] - 1));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int flat = 2 * lane + i, r = rt * kRT + flat / kCG, c = cgi * kCG + flat % kCG;
+        if (r < rn && c < cols[j]) epi(r0 + r, col0[j] + c, v[i], pv[i]);
+      }
     }
+    stamp(k, 5);
+  }
+}
+
+// A product phase over ring units ub..ue-1, `group` units at a time, each
+// group's units released when it is done.  When the block's rows fit one
+// chunk they are staged once for all the groups.
+template <class Stage, class Pre, class Epi>
+__device__ void product_units(const Args& a, Blk& k, int ub, int ue, int K, Stage stage, Pre pre, Epi epi) {
+  const bool one_chunk = k.rb - k.ra <= a.plan.rc;
+  bool staged = false;
+  for (int g0 = ub; g0 < ue; g0 += a.plan.group) {
+    const int n = min(a.plan.group, ue - g0);
+    product(a, k, g0, n, K,
+            [&](int r0, int rn) {
+              if (!(staged && one_chunk)) stage(r0, rn);
+              staged = true;
+            },
+            pre, epi);
+    ring_release(a, k, g0 + n);
+    stamp(k, 6);
   }
 }
 
 // One query row per (row, head) over n_pos key/value rows, one warp per
-// pair.  q and the probabilities sit in this warp's shared-memory slice;
-// key(t)/val(t) give the t-th key/value row of the head.  Writes the context
-// (dh floats) and, when probs_out is set, the probabilities.  VEC is the
-// width of the key loads: 4 (float4) when dh % 4 == 0, so that every head
-// offset h * dh is 16-byte aligned, else 1 (scalar loads, any head width:
-// GloVe-200 gives dh = 25, word2vec-300 dh = 50).
-template <int VEC, class KeyFn, class ValFn>
-__device__ void warp_attention(const float* q_src, int dh, float scale, int n_pos,
-                               KeyFn key, ValFn val, float* sq, float* sp, float* ctx,
-                               float* probs_out) {
+// pair.  q and the probabilities sit in this warp's shared-memory slice.
+// Key/value row t of the head is at kbase/vbase + t * stride for t < n_base,
+// and, when kx is set, row n_base is kx/vx (the self-attention's new k/v at
+// pos), so n_pos = n_base + (kx != null).  Writes the context (dh floats)
+// and, when probs_out is set, the probabilities.  Out of line: one copy
+// serves both attentions.  VEC is the width of the key and value loads: 4
+// (float4) when dh % 4 == 0, so that every head offset h * dh is 16-byte
+// aligned, else 1 (scalar loads, any head width: GloVe-200 gives dh = 25,
+// word2vec-300 dh = 50).  The rows come from device memory, so the loops
+// keep many loads in flight: a lane loads a whole key before it adds, and
+// at VEC 4 the weighted sum takes two positions a step (the half-warps),
+// each lane 4 dims, kAttT steps of loads before their multiply-adds; the
+// halves are added at the end.
+constexpr int kAttT = 8;
+
+template <int VEC>
+__device__ __noinline__ void warp_attention(const float* q_src, int dh, float scale, const float* kbase,
+                                            const float* vbase, size_t stride, int n_base, const float* kx,
+                                            const float* vx, float* sq, float* sp, float* ctx, float* probs_out) {
   const int lane = threadIdx.x & 31;
+  const int n_pos = n_base + (kx != nullptr);
+  auto key = [&](int t) { return t < n_base ? kbase + t * stride : kx; };
+  auto val = [&](int t) { return t < n_base ? vbase + t * stride : vx; };
   for (int d = lane; d < dh; d += 32) sq[d] = q_src[d];
   __syncwarp();
   float mx = -INFINITY;
@@ -262,7 +677,7 @@ __device__ void warp_attention(const float* q_src, int dh, float scale, int n_po
     const float* k = key(t);
     float s = 0.f;
     if constexpr (VEC == 4) {
-#pragma unroll 8
+#pragma unroll 16
       for (int d = 0; d < dh; d += 4) {
         const float4 kv = *reinterpret_cast<const float4*>(k + d);
         s = dot4(s, make_float4(sq[d], sq[d + 1], sq[d + 2], sq[d + 3]), kv);
@@ -288,50 +703,92 @@ __device__ void warp_attention(const float* q_src, int dh, float scale, int n_po
     if (probs_out) probs_out[t] = sp[t];
   }
   __syncwarp();
-  for (int d = lane; d < dh; d += 32) {
-    float a = 0.f;
+  if constexpr (VEC == 4) {
+    const int half = lane >> 4;
+    for (int d0 = 0; d0 < dh; d0 += 64) {  // the same trips in every lane: the shuffles below need all
+      const int d = d0 + 4 * (lane & 15);
+      const bool on = d < dh;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t0 = half; t0 < n_pos; t0 += 2 * kAttT) {
+        float4 vv[kAttT];
+#pragma unroll
+        for (int i = 0; i < kAttT; ++i) {
+          const int t = t0 + 2 * i;
+          vv[i] = on && t < n_pos ? *reinterpret_cast<const float4*>(val(t) + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < kAttT; ++i) {
+          const float p = t0 + 2 * i < n_pos ? sp[t0 + 2 * i] : 0.f;
+          acc.x = fmaf(p, vv[i].x, acc.x);
+          acc.y = fmaf(p, vv[i].y, acc.y);
+          acc.z = fmaf(p, vv[i].z, acc.z);
+          acc.w = fmaf(p, vv[i].w, acc.w);
+        }
+      }
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, 16);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, 16);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, 16);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, 16);
+      if (on && half == 0) *reinterpret_cast<float4*>(ctx + d) = acc;
+    }
+  } else {
+    for (int d = lane; d < dh; d += 32) {
+      float a = 0.f;
 #pragma unroll 8
-    for (int t = 0; t < n_pos; ++t) a = fmaf(sp[t], val(t)[d], a);
-    ctx[d] = a;
+      for (int t = 0; t < n_pos; ++t) a = fmaf(sp[t], val(t)[d], a);
+      ctx[d] = a;
+    }
   }
   __syncwarp();
 }
 
-// One decoder layer l at position pos for all R rows: the 11 phases, with a
-// grid barrier between each two and none after the last.  x_in may equal
-// x_out: x_in is last read three barriers before x_out is written.  VEC is
-// warp_attention's key load width.  Every other read at a head offset is
-// scalar (the query row into sq, the new k/v rows, the context writes), and
-// the products read whole rows, 16-byte aligned since E % 4 == 0.
+// How decode_layer's QKV phase gets its input rows.
+enum InKind { kInRows = 0, kInLn3 = 1, kInEmbed = 2 };
+
+// One decoder layer l at position pos for all R rows: eight phases, each
+// ended by a grid barrier.  The input rows are x_in (kInRows), the LN3 of
+// the previous layer's h3 (kInLn3) or the rollout's embedding of token s
+// (kInEmbed); in the last two the owners write them to x, the residual.
+// The layer's units are u0..u0+upl-1.  h3 = x2 + FFN2 is left for the
+// caller's LN3.  VEC is warp_attention's key load width.
 template <int VEC>
-__device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos,
-                             const float* x_in, float* x_out, float* sm) {
-  const int E = a.E, E3 = 3 * E, F = a.F, H = a.H, dh = E / H, R = a.R, P = a.P;
-  const int T = a.T;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l, int u0, int pos, InKind in,
+                             float* x, int s) {
+  const int E = a.E, E3 = 3 * E, F = a.F, H = a.H, dh = E / H, R = a.R, P = a.P, T = a.T;
+  const int lane = threadIdx.x & 31;
   const float scale = rsqrtf((float)dh);
   const size_t RE = (size_t)R * E;
-
-  float* ctx_s = a.scratch;        // (R, E) self-attention context
-  float* sa = ctx_s + RE;          // (R, E) self-attention output
-  float* x1 = sa + RE;             // (R, E) after LN1
-  float* q2 = x1 + RE;             // (R, E) cross query
-  float* ctx_c = q2 + RE;          // (R, E) cross context
-  float* ca = ctx_c + RE;          // (R, E) cross output
-  float* x2 = ca + RE;             // (R, E) after LN2
-  float* ff = x2 + RE;             // (R, E) FFN output
-  float* qkv = ff + RE;            // (R, 3E)
-  float* hid = qkv + 3 * RE;       // (R, F)
+  float* qkv = a.scratch;      // (R, 3E)
+  float* ctx_s = qkv + 3 * RE;  // (R, E) self-attention context
+  float* h1 = ctx_s + RE;       // x + self-attention output
+  float* x1 = h1 + RE;          // LN1
+  float* q2 = x1 + RE;          // cross query
+  float* ctx_c = q2 + RE;       // cross context
+  float* h2 = ctx_c + RE;       // x1 + cross output
+  float* x2 = h2 + RE;          // LN2
+  float* h3 = x2 + RE;          // x2 + FFN output
+  float* hid = h3 + RE;         // (R, F)
   float* pbuf = hid + (size_t)R * F;  // (R, H, P) cross probabilities
-
-  const int TP = T > P ? T : P;
-  float* xs = sm;                               // (kRT, max(E, F)) staged product rows
-  float* sq = xs + kRT * (E > F ? E : F) + warp * (dh + TP);  // this warp's query row
-  float* sp = sq + dh;                // and its probabilities
+  const float* res = in == kInRows ? a.x_in : x;  // the residual of LN1
+  float* sq = k.sq;
+  float* sp = sq + dh;
+  const int ne = a.ne, u_so = u0 + 3 * ne, u_cq = u_so + ne, u_co = u_cq + ne, u_f1 = u_co + ne,
+            u_f2 = u_f1 + a.nf;
 
   // 1. QKV.
-  grid_linear(a.w_qkv + (size_t)l * E3 * E, a.b_qkv + (size_t)l * E3, x_in, qkv, R, E, E3, false, xs);
-  grid.sync();
+  const float* bq = a.b_qkv + (size_t)l * E3;
+  product_units(a, k, u0, u_so, E,
+          [&](int r0, int rn) {
+            if (in == kInRows)
+              stage_copy(k, a.x_in, r0, rn, E);
+            else if (in == kInLn3)
+              stage_ln(a, k, h3, a.ln3_w + (size_t)(l - 1) * E, a.ln3_b + (size_t)(l - 1) * E, x, r0, rn);
+            else
+              stage_embed(a, k, s, x, r0, rn);
+          },
+          [&](int, int c) { return make_float2(bq[c], 0.f); },
+          [&](int r, int c, float y, float2 p) { qkv[(size_t)r * E3 + c] = y + p.x; });
+  grid_barrier(grid, k);
 
   // 2. Self-attention over positions 0..pos; pos itself is the new k/v,
   //    which also goes out for the cache update.
@@ -348,229 +805,277 @@ __device__ void decode_layer(const Args& a, cg::grid_group& grid, int l, int pos
     const float* cv = a.cache_v + ((size_t)l * R + r) * T * E + h * dh;
     const float* kn = row + E + h * dh;
     const float* vn = row + 2 * E + h * dh;
-    warp_attention<VEC>(
-        row + h * dh, dh, scale, pos + 1,
-        [&](int t) { return t == pos ? kn : ck + (size_t)t * E; },
-        [&](int t) { return t == pos ? vn : cv + (size_t)t * E; },
-        sq, sp, ctx_s + (size_t)r * E + h * dh, nullptr);
+    warp_attention<VEC>(row + h * dh, dh, scale, ck, cv, E, pos, kn, vn, sq, sp, ctx_s + (size_t)r * E + h * dh,
+                        nullptr);
   }
-  grid.sync();
+  grid_barrier(grid, k);
 
-  // 3. Out-projection, residual, LN1.
-  grid_linear(a.w_so + (size_t)l * E * E, a.b_so + (size_t)l * E, ctx_s, sa, R, E, E, false, xs);
-  grid.sync();
-  grid_add_ln(x_in, sa, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, R, E);
-  grid.sync();
+  // 3. Out-projection and residual.
+  const float* bso = a.b_so + (size_t)l * E;
+  product_units(a, k, u_so, u_cq, E, [&](int r0, int rn) { stage_copy(k, ctx_s, r0, rn, E); },
+                [&](int r, int c) { return make_float2(bso[c], res[(size_t)r * E + c]); },
+                [&](int r, int c, float y, float2 p) { h1[(size_t)r * E + c] = p.y + (y + p.x); });
+  grid_barrier(grid, k);
 
-  // 4. Cross-attention against the memory K/V.
-  grid_linear(a.w_cq + (size_t)l * E * E, a.b_cq + (size_t)l * E, x1, q2, R, E, E, false, xs);
-  grid.sync();
+  // 4. LN1 (prologue), cross query; then the cross-attention.
+  const float* bcq = a.b_cq + (size_t)l * E;
+  product_units(a, k, u_cq, u_co, E,
+                [&](int r0, int rn) { stage_ln(a, k, h1, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, r0, rn); },
+                [&](int, int c) { return make_float2(bcq[c], 0.f); },
+                [&](int r, int c, float y, float2 p) { q2[(size_t)r * E + c] = y + p.x; });
+  grid_barrier(grid, k);
   for (int task = global_warp(); task < R * H; task += grid_warps()) {
     const int r = task / H, h = task % H;
     const float* mk = a.mem_k + ((size_t)l * R + r) * P * E + h * dh;
     const float* mv = a.mem_v + ((size_t)l * R + r) * P * E + h * dh;
-    warp_attention<VEC>(
-        q2 + (size_t)r * E + h * dh, dh, scale, P,
-        [&](int t) { return mk + (size_t)t * E; },
-        [&](int t) { return mv + (size_t)t * E; },
-        sq, sp, ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
+    warp_attention<VEC>(q2 + (size_t)r * E + h * dh, dh, scale, mk, mv, E, P, nullptr, nullptr, sq, sp,
+                        ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
   }
-  grid.sync();
-  grid_linear(a.w_co + (size_t)l * E * E, a.b_co + (size_t)l * E, ctx_c, ca, R, E, E, false, xs);
-  grid.sync();
-  grid_add_ln(x1, ca, a.ln2_w + (size_t)l * E, a.ln2_b + (size_t)l * E, x2, R, E);
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < R * P; i += gridDim.x * kThreads) {
-    const int r = i / P, p = i % P;
-    float s = 0.f;
-    for (int h = 0; h < H; ++h) s += pbuf[((size_t)r * H + h) * P + p];
-    const float contrib = s / H / a.L;
-    a.alpha[i] = l == 0 ? contrib : a.alpha[i] + contrib;
-  }
-  grid.sync();
+  grid_barrier(grid, k);
+  const float* bco = a.b_co + (size_t)l * E;
+  product_units(a, k, u_co, u_f1, E, [&](int r0, int rn) { stage_copy(k, ctx_c, r0, rn, E); },
+                [&](int r, int c) { return make_float2(bco[c], x1[(size_t)r * E + c]); },
+                [&](int r, int c, float y, float2 p) { h2[(size_t)r * E + c] = p.y + (y + p.x); });
+  grid_barrier(grid, k);
 
-  // 5. FFN, residual, LN3.
-  grid_linear(a.w_f1 + (size_t)l * F * E, a.b_f1 + (size_t)l * F, x2, hid, R, E, F, true, xs);
-  grid.sync();
-  grid_linear(a.w_f2 + (size_t)l * E * F, a.b_f2 + (size_t)l * E, hid, ff, R, F, E, false, xs);
-  grid.sync();
-  grid_add_ln(x2, ff, a.ln3_w + (size_t)l * E, a.ln3_b + (size_t)l * E, x_out, R, E);
+  // 5. LN2 (prologue) and the alpha mean, FFN1, FFN2 and residual.
+  const float* bf1 = a.b_f1 + (size_t)l * F;
+  product_units(a, k, u_f1, u_f2, E,
+                [&](int r0, int rn) { stage_ln(a, k, h2, a.ln2_w + (size_t)l * E, a.ln2_b + (size_t)l * E, x2, r0, rn); },
+                [&](int, int c) { return make_float2(bf1[c], 0.f); },
+                [&](int r, int c, float y, float2 p) { hid[(size_t)r * F + c] = fmaxf(y + p.x, 0.f); });
+  for (int i = threadIdx.x; i < (k.rb - k.ra) * P; i += kThreads) {
+    const int r = k.ra + i / P, p = i % P;
+    if (!owns(k, r)) continue;
+    float sum = 0.f;
+    for (int h = 0; h < H; ++h) sum += pbuf[((size_t)r * H + h) * P + p];
+    const float contrib = sum / H / a.L;
+    a.alpha[(size_t)r * P + p] = l == 0 ? contrib : a.alpha[(size_t)r * P + p] + contrib;
+  }
+  grid_barrier(grid, k);
+  const float* bf2 = a.b_f2 + (size_t)l * E;
+  product_units(a, k, u_f2, u_f2 + ne, F, [&](int r0, int rn) { stage_copy(k, hid, r0, rn, F); },
+                [&](int r, int c) { return make_float2(bf2[c], x2[(size_t)r * E + c]); },
+                [&](int r, int c, float y, float2 p) { h3[(size_t)r * E + c] = p.y + (y + p.x); });
+  grid_barrier(grid, k);
+}
+
+// The owners' LN3 of layer l's h3 into x_out: the tail of the per-layer and
+// one-cell kernels (ln_rows, as the next layer's prologue computes it).
+__device__ void ln3_owned(const Args& a, const Blk& k, int l) {
+  const float* h3 = a.scratch + 10 * (size_t)a.R * a.E;
+  for (int r = k.ra + (threadIdx.x >> 5); r < k.rb; r += kWarps)
+    if (owns(k, r)) {
+      const float* const src[1] = {h3 + (size_t)r * a.E};
+      float* const dst[1] = {a.x_out + (size_t)r * a.E};
+      float* const none[1] = {nullptr};
+      ln_rows<1>(src, dst, none, a.ln3_w + (size_t)l * a.E, a.ln3_b + (size_t)l * a.E, a.E);
+    }
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(kThreads) decode_layer_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(const Args a0) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float sm[];
-  decode_layer<VEC>(a, grid, a.layer, a.pos, a.x_in, a.x_out, sm);
+  extern __shared__ __align__(128) unsigned char smem[];
+  Args a = a0;
+  Blk k;
+  blk_init(a, k, smem);
+  stamp(k, 0);
+  decode_layer<VEC>(a, k, grid, a.layer, 0, a.pos, kInRows, nullptr, 0);
+  ln3_owned(a, k, a.layer);
+  stamp(k, 4);
+  ring_drain(a, k);
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(kThreads) decode_onecell_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) decode_onecell_kernel(const Args a0) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float sm[];
-  for (int l = 0; l < a.L; ++l) {
-    if (l > 0) grid.sync();  // layer l - 1's x_out and alpha are complete
-    decode_layer<VEC>(a, grid, l, a.pos, l == 0 ? a.x_in : a.x_out, a.x_out, sm);
-  }
+  extern __shared__ __align__(128) unsigned char smem[];
+  Args a = a0;
+  Blk k;
+  blk_init(a, k, smem);
+  stamp(k, 0);
+  for (int l = 0; l < a.L; ++l)
+    decode_layer<VEC>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
+  ln3_owned(a, k, a.L - 1);
+  stamp(k, 4);
+  ring_drain(a, k);
 }
 
 // The input token of row r at step s: the teacher's where the mix says so.
 // Clamped into [0, V) so that no id can read outside the embedding.
-__device__ __forceinline__ int input_token(const RolloutArgs& ra, int s, int r, int tok) {
-  const int R = ra.a.R;
-  if (ra.use_teacher && ra.use_teacher[(size_t)s * R + r]) tok = ra.teacher[(size_t)s * R + r];
-  return min(max(tok, 0), ra.V - 1);
+__device__ __forceinline__ int input_token(const Args& a, int s, int r, int tok) {
+  if (a.use_teacher && a.use_teacher[(size_t)s * a.R + r]) tok = a.teacher[(size_t)s * a.R + r];
+  return min(max(tok, 0), a.V - 1);
 }
 
-// Keep (v, i) if it beats (best, arg): a larger value, or an equal value at
-// a smaller column.
-__device__ __forceinline__ void argmax_merge(float& best, int& arg, float v, int i) {
-  if (v > best || (v == best && i < arg)) {
-    best = v;
-    arg = i;
-  }
+// A key whose unsigned order is (value, then the smaller column): the map
+// of a float onto an unsigned int that keeps its order (-0 as +0), then
+// the column's complement.
+__device__ __forceinline__ unsigned long long argmax_key(float v, int c) {
+  if (v == 0.f) v = 0.f;
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (unsigned)c);
 }
 
-__device__ __forceinline__ void warp_argmax(float& best, int& arg) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v = __shfl_xor_sync(0xffffffffu, best, o);
-    const int i = __shfl_xor_sync(0xffffffffu, arg, o);
-    argmax_merge(best, arg, v, i);
+// Token t's argmax and feedback, in every block alike: for each row still
+// running, pred from the merged key; its owner writes seqs[:, t] and
+// alphas[:, t]; tok = pred and fin = pred == end_id.  A finished row keeps
+// its post-mix input token.
+__device__ void finish_token(const Args& a, Blk& k, int t) {
+  for (int r = threadIdx.x; r < a.R; r += kThreads) {
+    if (k.fin[r]) continue;
+    const unsigned long long key = __ldcg(a.best + (size_t)(t & 1) * a.R + r);
+    const int pred = (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFull));
+    if (owns(k, r)) {
+      a.seqs[(size_t)r * a.steps + t] = pred;
+      for (int p = 0; p < a.P; ++p)
+        a.alphas[((size_t)r * a.steps + t) * a.P + p] = a.alpha[(size_t)r * a.P + p];
+    }
+    k.tok[r] = pred;
+    k.fin[r] = pred == a.end_id;
   }
+  __syncthreads();
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(kThreads) decode_rollout_kernel(const RolloutArgs ra) {
+__global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args a0) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float sm[];
-  __shared__ int all_done;
-  Args a = ra.a;
-  const int R = a.R, E = a.E, P = a.P, V = ra.V, S = ra.steps;
-  const int lane = threadIdx.x & 31;
-  const int chunks = (V + kHeadChunk - 1) / kHeadChunk;
-  int* tok = ra.state;
-  int* fin = ra.state + R;
-  float* x = a.x_out;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Args a = a0;
+  Blk k;
+  blk_init(a, k, smem);
+  stamp(k, 0);
+  const int R = a.R, E = a.E, L = a.L, S = a.steps, V = a.V;
   float* cache_k = a.k_new;  // the same buffers as a.cache_k/v
   float* cache_v = a.v_new;
+  float* x = a.x_out;
+  const float* h3 = a.scratch + 10 * (size_t)R * E;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    k.tok[r] = a.state[r];
+    k.fin[r] = a.state[R + r];
+  }
+  __syncthreads();
 
-  for (int s = 0; s < S; ++s) {
-    // Every block reads the same flags, written before the last barrier, so
-    // all blocks leave the loop together.
-    if (threadIdx.x == 0) {
-      int done = 1;
-      for (int r = 0; r < R; ++r) done &= __ldcg(fin + r) != 0;
-      all_done = done;
+  int s = 0;
+  for (; s < S; ++s) {
+    if (s > 0) finish_token(a, k, s - 1);
+    int running = 0;
+    for (int r = threadIdx.x; r < R; r += kThreads) running |= !k.fin[r];
+    if (!__syncthreads_or(running)) break;
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      k.tok[r] = input_token(a, s, r, k.tok[r]);
+      if (owns(k, r)) a.best[(size_t)(s & 1) * R + r] = 0ull;
+      k.best[r] = 0ull;
     }
     __syncthreads();
-    if (all_done) break;
-
-    // Embed.
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < R * E; i += gridDim.x * kThreads) {
-      const int r = i / E, e = i % E;
-      x[i] = ra.embedding[(size_t)input_token(ra, s, r, __ldcg(tok + r)) * E + e] +
-             ra.pe[(size_t)s * E + e];
-    }
-    grid.sync();
 
     // The L layers; layer l's new k/v rows go to the cache at position s.
     a.k_new = cache_k + (size_t)s * E;
     a.v_new = cache_v + (size_t)s * E;
-    for (int l = 0; l < a.L; ++l) {
-      decode_layer<VEC>(a, grid, l, s, x, x, sm);
-      grid.sync();
-    }
+    for (int l = 0; l < L; ++l)
+      decode_layer<VEC>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
 
-    // Head.
-    grid_linear(ra.fc_w, ra.fc_b, x, ra.head, R, E, V, false, sm);
-    grid.sync();
-
-    // Chunk partials; rows that finished earlier keep zero logits.
-    for (int task = global_warp(); task < R * chunks; task += grid_warps()) {
-      const int r = task / chunks, c0 = (task % chunks) * kHeadChunk;
-      if (__ldcg(fin + r)) continue;
-      const int c1 = min(V, c0 + kHeadChunk);
-      float best = -INFINITY;
-      int arg = V;
-      for (int c = c0 + lane; c < c1; c += 32) {  // ascending columns: strict > keeps the first
-        const float y = ra.head[(size_t)r * V + c];
-        ra.logits[((size_t)r * S + s) * V + c] = y;
-        if (y > best) {
-          best = y;
-          arg = c;
-        }
-      }
-      warp_argmax(best, arg);
-      if (lane == 0) {
-        ra.part_v[task] = best;
-        ra.part_i[task] = arg;
-      }
-    }
-    grid.sync();
-
-    // Argmax and feedback.
-    for (int r = global_warp(); r < R; r += grid_warps()) {
-      if (__ldcg(fin + r)) {  // frozen: keep the post-mix input token
-        if (lane == 0) tok[r] = input_token(ra, s, r, __ldcg(tok + r));
-        continue;
-      }
-      float best = -INFINITY;
-      int arg = V;
-      for (int c = lane; c < chunks; c += 32)
-        argmax_merge(best, arg, ra.part_v[(size_t)r * chunks + c], ra.part_i[(size_t)r * chunks + c]);
-      warp_argmax(best, arg);  // all lanes have read fin[r] before lane 0 writes it
-      for (int p = lane; p < P; p += 32) ra.alphas[((size_t)r * S + s) * P + p] = a.alpha[(size_t)r * P + p];
-      if (lane == 0) {
-        ra.seqs[(size_t)r * S + s] = arg;
-        tok[r] = arg;
-        fin[r] = arg == ra.end_id;
-      }
-    }
-    if (blockIdx.x == 0 && threadIdx.x == 0) ra.state[2 * R] = s + 1;
-    grid.sync();
+    // The head; its prologue is the last LN3.  Rows still running write
+    // their logits and merge their keys.
+    product_units(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
+                  [&](int r0, int rn) {
+                    stage_ln(a, k, h3, a.ln3_w + (size_t)(L - 1) * E, a.ln3_b + (size_t)(L - 1) * E, x, r0, rn);
+                  },
+                  [&](int, int c) { return make_float2(a.fc_b[c], 0.f); },
+                  [&](int r, int c, float y, float2 p) {
+                    if (k.fin[r]) return;
+                    y += p.x;
+                    a.logits[((size_t)r * S + s) * V + c] = y;
+                    atomicMax(k.best + r, argmax_key(y, c));
+                  });
+    for (int r = threadIdx.x; r < R; r += kThreads)
+      if (k.best[r]) atomicMax(a.best + (size_t)(s & 1) * R + r, k.best[r]);
+    grid_barrier(grid, k);
   }
-}
-
-int grid_size(const void* kernel, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  return sms * (per_sm < 1 ? 1 : per_sm);  // all co-resident, as a cooperative launch needs
-}
-
-// Dynamic shared memory of a launch: the staged product rows and each
-// warp's query row and probabilities.
-size_t smem_bytes(int T, int P, int E, int H, int F) {
-  const int TP = T > P ? T : P;
-  return sizeof(float) * ((size_t)kRT * (E > F ? E : F) + (size_t)kWarps * (E / H + TP));
+  if (s == S) finish_token(a, k, S - 1);
+  if (blockIdx.x == 0) {
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      a.state[r] = k.tok[r];
+      a.state[R + r] = k.fin[r];
+    }
+    if (threadIdx.x == 0) a.state[2 * R] = s;
+  }
+  stamp(k, 4);
+  ring_drain(a, k);
 }
 
 // Any head width E / H; the products need E % 4 == 0 and F % 4 == 0 (float4
-// rows), the LayerNorms E <= 1024 (a row in one warp's registers).
+// rows, 16-byte bulk copies), the LayerNorms E <= 1024 (a row in one
+// warp's registers).
 bool shapes_ok(int T, int E, int H, int F, int pos) {
-  return H > 0 && E % H == 0 && E % 4 == 0 && F % 4 == 0 && E <= 32 * kLnPerLane && pos >= 0 &&
-         pos < T;
+  return H > 0 && E % H == 0 && E % 4 == 0 && F % 4 == 0 && E <= 32 * 4 * kLnVec && pos >= 0 && pos < T;
+}
+
+// The plan covers every output column once and each unit fits its slot.
+bool plan_ok(const Plan& p, int R, int E, int F, int V) {
+  if (p.grid < 1 || (p.row_groups != 1 && p.row_groups != 2) || p.grid % p.row_groups) return false;
+  const int gc = p.grid / p.row_groups;
+  const long long S = p.slot_floats;
+  bool ok = (long long)p.ce * gc >= E && (long long)p.cf * gc >= F && p.uc >= 1 && p.rc >= kRT &&
+            p.rc % kRT == 0 && p.slots >= 1 && S % 32 == 0 && (long long)p.uc * (E > F ? E : F) <= S &&
+            p.group >= 1 && p.group <= p.slots && p.group <= kMaxGroup && R >= 1;
+  if (V > 0) ok = ok && p.row_groups == 1 && (long long)p.cv * p.grid >= V && p.hc >= 1 && (long long)p.hc * E <= S;
+  return ok;
+}
+
+// The launch's ring units per product, layer, token and in all.
+void set_units(Args& a, int tokens) {
+  a.ne = (a.plan.ce + a.plan.uc - 1) / a.plan.uc;
+  a.nf = (a.plan.cf + a.plan.uc - 1) / a.plan.uc;
+  a.upl = 7 * a.ne + a.nf;
+  a.upt = a.upl * a.Lr + (a.V > 0 ? (a.plan.cv + a.plan.hc - 1) / a.plan.hc : 0);
+  a.units = a.upt * tokens;
+}
+
+Plan read_plan(const int* v) {
+  return Plan{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10]};
 }
 
 // Which instance of a kernel template serves this head width: float4 key
 // loads when dh % 4 == 0, scalar ones otherwise.
 bool vec4_heads(int E, int H) { return (E / H) % 4 == 0; }
 
-// A cooperative launch of `kernel` over every co-resident block; `arg`
-// points to its one argument struct.
-int launch(const void* kernel, void* arg, size_t smem, void* stream) {
+// A cooperative launch of `kernel` over the plan's blocks, all co-resident.
+int launch(const void* kernel, Args& a, size_t smem, void* stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  void* params[] = {arg};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid_size(kernel, smem)), dim3(kThreads), params,
-                                    smem, static_cast<cudaStream_t>(stream));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if ((long long)per_sm * sms < a.plan.grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(a.plan.grid), dim3(kThreads), params, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// The layer and one-cell launches: check, fill the launch fields, launch.
+int layer_launch(Args& a, const int* plan, int smem, bool one_cell, void* stream) {
+  if (!shapes_ok(a.T, a.E, a.H, a.F, a.pos)) return (int)cudaErrorInvalidValue;
+  a.plan = read_plan(plan);
+  if (!plan_ok(a.plan, a.R, a.E, a.F, 0) ||
+      smem_layout_bytes(a.plan, a.R, a.T, a.P, a.E, a.H, a.F, false) != (size_t)smem)
+    return (int)cudaErrorInvalidValue;
+  a.l0 = one_cell ? 0 : a.layer;
+  a.Lr = one_cell ? a.L : 1;
+  set_units(a, 1);
+  const bool v4 = vec4_heads(a.E, a.H);
+  const void* kernel = one_cell ? (v4 ? (const void*)decode_onecell_kernel<4> : (const void*)decode_onecell_kernel<1>)
+                                : (v4 ? (const void*)decode_layer_kernel<4> : (const void*)decode_layer_kernel<1>);
+  return launch(kernel, a, smem, stream);
+}
 
 }  // namespace
 
@@ -578,20 +1083,20 @@ extern "C" {
 
 // Floats of scratch the caller allocates for one layer or one-cell launch.
 long long tc_decode_scratch_floats(int R, int E, int H, int F, int P) {
-  return (long long)R * (11LL * E + F + (long long)H * P);
+  return layer_scratch_floats(R, E, H, F, P);
 }
 
 // Floats of scratch for one rollout launch: the layer scratch, then x (R,
-// E), alpha (R, P), the head's logits (R, V) and the argmax partials, each
-// 16-byte aligned.
-long long tc_rollout_scratch_floats(int R, int E, int H, int F, int P, int V) {
-  const long long chunks = (V + kHeadChunk - 1) / kHeadChunk;
-  return round4(tc_decode_scratch_floats(R, E, H, F, P)) + round4((long long)R * E) +
-         round4((long long)R * P) + round4((long long)R * V) + 2 * round4((long long)R * chunks);
+// E), alpha (R, P) and the (2, R) 64-bit argmax keys, each 16-byte aligned.
+long long tc_rollout_scratch_floats(int R, int E, int H, int F, int P) {
+  return round4(layer_scratch_floats(R, E, H, F, P)) + round4((long long)R * E) + round4((long long)R * P) +
+         4LL * R;
 }
 
 // One decoder layer for all R rows; the caller launches layers 0..L-1 in
-// order on one stream, layer l > 0 reading layer l-1's x_out.
+// order on one stream, layer l > 0 reading layer l-1's x_out.  plan holds
+// 10 ints (Plan's fields, from decode_plan) and smem the dynamic
+// shared memory they give.
 int tc_decode_layer_forward(
     const float* x_in, float* x_out, float* alpha, float* k_new, float* v_new,
     const float* w_qkv, const float* b_qkv, const float* w_so, const float* b_so,
@@ -600,14 +1105,11 @@ int tc_decode_layer_forward(
     const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
     const float* ln3_w, const float* ln3_b, const float* cache_k, const float* cache_v,
     const float* mem_k, const float* mem_v, float* scratch, int layer, int L, int R, int T,
-    int P, int E, int H, int F, int pos, void* stream) {
-  if (!shapes_ok(T, E, H, F, pos)) return (int)cudaErrorInvalidValue;
+    int P, int E, int H, int F, int pos, const int* plan, int smem, void* stream) {
   Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
          w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, layer, L, R, T, P, E, H, F, pos};
-  const void* kernel = vec4_heads(E, H) ? (const void*)decode_layer_kernel<4>
-                                         : (const void*)decode_layer_kernel<1>;
-  return launch(kernel, &a, smem_bytes(T, P, E, H, F), stream);
+  return layer_launch(a, plan, smem, false, stream);
 }
 
 // All L decoder layers for all R rows in one launch; the same arguments as
@@ -620,14 +1122,11 @@ int tc_decode_onecell_forward(
     const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
     const float* ln3_w, const float* ln3_b, const float* cache_k, const float* cache_v,
     const float* mem_k, const float* mem_v, float* scratch, int L, int R, int T, int P, int E,
-    int H, int F, int pos, void* stream) {
-  if (!shapes_ok(T, E, H, F, pos)) return (int)cudaErrorInvalidValue;
+    int H, int F, int pos, const int* plan, int smem, void* stream) {
   Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
          w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, T, P, E, H, F, pos};
-  const void* kernel = vec4_heads(E, H) ? (const void*)decode_onecell_kernel<4>
-                                         : (const void*)decode_onecell_kernel<1>;
-  return launch(kernel, &a, smem_bytes(T, P, E, H, F), stream);
+  return layer_launch(a, plan, smem, true, stream);
 }
 
 // A whole greedy rollout of `steps` tokens for R rows.  cache_k/v are
@@ -643,27 +1142,37 @@ int tc_decode_rollout(
     const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
     const float* ln3_w, const float* ln3_b, const float* mem_k, const float* mem_v,
     float* cache_k, float* cache_v, int* state, float* scratch, int L, int R, int P, int E,
-    int H, int F, int V, int steps, int end_id, void* stream) {
+    int H, int F, int V, int steps, int end_id, const int* plan, int smem, void* stream) {
   if (!shapes_ok(steps, E, H, F, 0) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int chunks = (V + kHeadChunk - 1) / kHeadChunk;
-  float* x = scratch + round4(tc_decode_scratch_floats(R, E, H, F, P));
+  const Plan p = read_plan(plan);
+  if (!plan_ok(p, R, E, F, V) || smem_layout_bytes(p, R, steps, P, E, H, F, true) != (size_t)smem)
+    return (int)cudaErrorInvalidValue;
+  float* x = scratch + round4(layer_scratch_floats(R, E, H, F, P));
   float* alpha = x + round4((long long)R * E);
-  float* head = alpha + round4((long long)R * P);
-  float* part_v = head + round4((long long)R * V);
-  int* part_i = reinterpret_cast<int*>(part_v + round4((long long)R * chunks));
+  auto* best = reinterpret_cast<unsigned long long*>(alpha + round4((long long)R * P));
   const size_t T = steps;
-  RolloutArgs ra{
-      Args{x, x, alpha, cache_k, cache_v, (size_t)R * T * E, T * E, w_qkv, b_qkv, w_so, b_so,
-           w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
-           ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0},
-      embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, head, part_v,
-      part_i, state, V, steps, end_id};
+  Args a{x, x, alpha, cache_k, cache_v, (size_t)R * T * E, T * E, w_qkv, b_qkv, w_so, b_so,
+         w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
+         ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0,
+         embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, best, state,
+         V, steps, end_id, p, 0, L};
+  set_units(a, steps);
   const void* kernel = vec4_heads(E, H) ? (const void*)decode_rollout_kernel<4>
                                          : (const void*)decode_rollout_kernel<1>;
-  return launch(kernel, &ra, smem_bytes(steps, P, E, H, F), stream);
+  return launch(kernel, a, smem, stream);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+#ifdef TC_DECODE_TIMELINE
+// The first n stamps of the last launch, the SM cycle counter at each, and
+// what each marks (scripts/decode_timeline.py).
+int tc_decode_timeline(unsigned long long* t, long long* clock, int* what, int n) {
+  cudaError_t err = cudaMemcpyFromSymbol(t, tc_timeline, sizeof(unsigned long long) * n);
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(clock, tc_timeline_clock, sizeof(long long) * n);
+  return (int)(err != cudaSuccess ? err : cudaMemcpyFromSymbol(what, tc_timeline_what, sizeof(int) * n));
+}
+#endif
 
 }  // extern "C"

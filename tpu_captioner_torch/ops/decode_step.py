@@ -17,16 +17,19 @@ Layouts (merged heads):
                    keeps them, vectors (L, D)
 
 Both launch ``csrc/decode_step.cu`` for CUDA tensors, cooperative launches
-over the whole card on the current stream: ``fused_decode_step`` one per
+of one block per SM on the current stream: ``fused_decode_step`` one per
 layer, or one per token with ``one_cell=True`` (the TPU's ``_kernel_onecell``);
-``fused_full_rollout`` one per rollout (the TPU's ``_mega_kernel``).  For CPU
-tensors they run their plain versions, ``_decode_step_plain`` and
-``_full_rollout_plain``.  Eval only: no dropout.
+``fused_full_rollout`` one per rollout (the TPU's ``_mega_kernel``).
+``decode_plan`` divides a launch's work (the output columns each block owns,
+the rows it stages at once, the ring of weight slices in its shared memory)
+and sizes its shared memory.  For CPU tensors they run their plain versions,
+``_decode_step_plain`` and ``_full_rollout_plain``.  Eval only: no dropout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -36,7 +39,81 @@ from tpu_captioner_torch.models.layers import attention_one_query, layer_norm, s
 from tpu_captioner_torch.ops import _build
 
 LN_EPS = 1e-5
-MAX_E = 1024  # csrc/decode_step.cu: 32 lanes x kLnPerLane LayerNorm values
+MAX_E = 1024  # csrc/decode_step.cu: 32 lanes x 4 x kLnVec LayerNorm values
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
+# csrc/decode_step.cu: warps of a block, rows of a warp tile, ring units a
+# product multiplies together, the largest row chunk, the ring's length.
+_WARPS, _ROW_TILE, _MAX_GROUP, _MAX_ROWS, _MAX_SLOTS = 8, 16, 16, 64, 32
+
+
+class DecodePlan(NamedTuple):
+    """How a decode launch divides its work (``csrc/decode_step.cu:Plan``,
+    in that order), and its dynamic shared memory."""
+
+    grid: int  # blocks, one per SM
+    row_groups: int  # 1, or 2: blocks b and b + grid/2 own the same columns, each half the rows
+    ce: int  # output columns a block owns of each E-wide product
+    cf: int  # ... of the F-wide product (FFN1)
+    uc: int  # of those, columns per ring unit
+    cv: int  # vocab columns a block owns in the rollout's head (else 0)
+    hc: int  # vocab columns per ring unit (else 0)
+    rc: int  # rows staged at once, a multiple of 16
+    slots: int  # ring units (a block's weight rows of one product) in shared memory
+    slot_floats: int  # floats of a ring unit
+    group: int  # ring units multiplied together
+    smem_bytes: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(kind: str, R: int, T: int, P: int, E: int, H: int, F: int, sms: int, V: int = 0) -> DecodePlan:
+    """The plan of a ``kind`` launch ('layer', 'onecell' or 'rollout') on a
+    card with ``sms`` SMs: each block owns ``ce`` (``cf``) columns of every
+    product and ``cv`` vocab columns; the per-layer kernel at R >= 32 splits
+    the grid into two row groups where that fits.  It takes the largest row
+    chunk (up to 64), then the widest ring units, that leave room for a ring
+    of 8 units (a layer's, at one unit per product; else 2, else 1), then as
+    many units as fit (all of the layer's in the per-layer kernel).  Raises ValueError when
+    the shapes do not fit a block's shared memory."""
+    rollout = kind == "rollout"
+    for need in (8, 2, 1):
+        for gr in (2, 1) if kind == "layer" and R >= 2 * _ROW_TILE and sms >= 2 else (1,):
+            plan = _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V if rollout else 0)
+            if plan is not None:
+                return plan
+    raise ValueError(f"decode kernel: R={R}, E={E}, F={F}, H={H}, T={T}, P={P} do not fit "
+                     f"{SMEM_LIMIT} bytes of shared memory per block")
+
+
+def _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V):
+    """``decode_plan`` at ``gr`` row groups with at least ``need`` ring
+    units; None when nothing fits."""
+    gc = sms // gr
+    ce, cf = _ceil(E, gc), _ceil(F, gc)
+    cv = _ceil(V, gc)
+    attn = 4 * _ceil(_WARPS * (E // H + max(T, P)), 2) * 2
+    state = 16 * R if V else 0
+    for rc in range(min(_ceil(_ceil(R, gr), _ROW_TILE) * _ROW_TILE, _MAX_ROWS), 0, -_ROW_TILE):
+        top = max(ce, cf)  # then whole warp tiles of 4 columns, then 3, 2, 1
+        for uc in (u for u in range(top, 0, -1) if u == top or u % 4 == 0 or u < 4):
+            slot = _ceil(uc * max(E, F), 32) * 32
+            upl = 7 * _ceil(ce, uc) + _ceil(cf, uc)
+            want = upl if kind == "layer" else _MAX_SLOTS
+            for slots in range(want, need - 1, -1):
+                smem = (_ceil(8 * (slots + 1), 128) * 128 + 4 * slots * slot + 4 * rc * max(E, F) + 8 * E
+                        + attn + state)
+                if smem <= SMEM_LIMIT:
+                    hc = min(cv, slot // E) if V else 0
+                    group = max(1, min(slots // 2, _MAX_GROUP))
+                    return DecodePlan(gc * gr, gr, ce, cf, uc, cv, hc, rc, slots, slot, group, smem)
+    return None
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class DecodeWeights(NamedTuple):
@@ -197,20 +274,22 @@ def _check(w: DecodeWeights, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads):
 def _lib():
     lib = _build.load("decode_step")
     lib.tc_decode_layer_forward.restype = ctypes.c_int
-    lib.tc_decode_layer_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p
-    ]
+    plan = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]  # plan, smem bytes, stream
+    lib.tc_decode_layer_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 9 + plan
     lib.tc_decode_onecell_forward.restype = ctypes.c_int
-    lib.tc_decode_onecell_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p
-    ]
+    lib.tc_decode_onecell_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + plan
     lib.tc_decode_rollout.restype = ctypes.c_int
-    lib.tc_decode_rollout.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.tc_decode_rollout.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 + plan
     lib.tc_decode_scratch_floats.restype = ctypes.c_longlong
     lib.tc_decode_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.tc_rollout_scratch_floats.restype = ctypes.c_longlong
-    lib.tc_rollout_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.tc_rollout_scratch_floats.argtypes = [ctypes.c_int] * 5
     return lib
+
+
+def _plan_args(plan: DecodePlan):
+    """The plan as the C entry points take it: Plan's ints, the smem bytes."""
+    return (ctypes.c_int * 11)(*plan[:11]), plan.smem_bytes
 
 
 def fused_decode_step(
@@ -255,11 +334,12 @@ def fused_decode_step(
         lib.tc_decode_scratch_floats(R, E, num_heads, Fd, P), device=x.device, dtype=torch.float32
     )
     rest = [t.data_ptr() for t in (x_out, alpha, k_new, v_new, *w, cache_k, cache_v, mem_k, mem_v, scratch)]
+    plan = _plan_args(decode_plan("onecell" if one_cell else "layer", R, T, P, E, num_heads, Fd, _sms(x.device)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if one_cell:
             err = lib.tc_decode_onecell_forward(
-                x.data_ptr(), *rest, L, R, T, P, E, num_heads, Fd, pos, stream
+                x.data_ptr(), *rest, L, R, T, P, E, num_heads, Fd, pos, *plan, stream
             )
             _build.check(lib, err, "decode_onecell")
             fused_decode_step.onecell_launches += 1
@@ -267,7 +347,7 @@ def fused_decode_step(
         for layer in range(L):
             layer_in = x if layer == 0 else x_out  # the hidden state carries in x_out
             err = lib.tc_decode_layer_forward(
-                layer_in.data_ptr(), *rest, layer, L, R, T, P, E, num_heads, Fd, pos, stream
+                layer_in.data_ptr(), *rest, layer, L, R, T, P, E, num_heads, Fd, pos, *plan, stream
             )
             _build.check(lib, err, "decode_step")
             fused_decode_step.launches += 1
@@ -393,8 +473,9 @@ def fused_full_rollout(
     state = torch.zeros(2 * R + 1, device=dev, dtype=torch.int32)  # tok, fin, tokens run
     state[:R] = start_id
     scratch = torch.empty(
-        lib.tc_rollout_scratch_floats(R, E, num_heads, Fd, P, V), device=dev, dtype=f32
+        lib.tc_rollout_scratch_floats(R, E, num_heads, Fd, P), device=dev, dtype=f32
     )
+    plan = _plan_args(decode_plan("rollout", R, steps, P, E, num_heads, Fd, _sms(dev), V))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = lib.tc_decode_rollout(
@@ -402,7 +483,7 @@ def fused_full_rollout(
             ptr(teacher), ptr(use_teacher), logits.data_ptr(), seqs.data_ptr(), alphas.data_ptr(),
             *(t.data_ptr() for t in w), mem_k.data_ptr(), mem_v.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), state.data_ptr(), scratch.data_ptr(),
-            L, R, P, E, num_heads, Fd, V, steps, int(end_id),
+            L, R, P, E, num_heads, Fd, V, steps, int(end_id), *plan,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "decode_rollout")

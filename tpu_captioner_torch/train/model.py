@@ -219,7 +219,7 @@ class CaptionModel(nn.Module):
     def rollout(
         self, encoder_out: torch.Tensor, start_id: int, end_id: int, max_decode_len: int, *,
         generator: Optional[torch.Generator] = None, teacher_tokens: Optional[torch.Tensor] = None,
-        teacher_prob: float = 0.0, one_cell: bool = False,
+        teacher_prob: float = 0.0, one_cell: bool = False, deterministic: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """Greedy free-running decode -> (logits (B, T, V), sequences (B, T)
         int32, attention maps (B, T, P) for ``lstm`` and
@@ -227,11 +227,16 @@ class CaptionModel(nn.Module):
         ``decode_mode`` selects.  ``one_cell`` runs each token's Transformer
         layers in one kernel launch in the ``'step'`` mode (the JAX package's
         ``TPU_CAPTIONER_DECODE_ONECELL``).  ``teacher_tokens``/``teacher_prob``
-        with a ``generator`` enable scheduled sampling.  Every rollout here is
-        deterministic (no dropout), so ``lstm`` takes its kernel rollout
-        whenever the mode is not ``'off'``, as the JAX package does in
-        deterministic rollouts.  The kernel rollouts are forward only;
-        free-running training is not ported yet (ROADMAP.md Queue 1 #8)."""
+        with a ``generator`` enable scheduled sampling.  The decode kernels
+        serve deterministic rollouts only (no dropout), as in the JAX
+        package; ``lstm`` takes its kernel rollout whenever the mode is not
+        ``'off'``.  ``deterministic=False`` (a rollout with dropout, for
+        free-running training) raises: not ported yet (ROADMAP.md Queue 1
+        #8).  The kernel rollouts are forward only."""
+        if not deterministic:
+            raise NotImplementedError(
+                "rollouts with dropout (free-running training) are not ported yet: ROADMAP.md Queue 1 #8"
+            )
         dec = self.decoder
         args = (encoder_out, start_id, end_id, max_decode_len)
         kw = dict(generator=generator, teacher_tokens=teacher_tokens, teacher_prob=teacher_prob)
