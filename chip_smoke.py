@@ -27,8 +27,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048 at
    C = 1024, batch 32, stochastic-depth rows) and at a ragged N = 600; the
    depthwise conv's forward kernel at the four stage shapes at batch 8 and
-   32, its input gradient (the flipped filter) and its filter-gradient
-   kernels at the fine-tune step's trained stages, beside
+   32, with the block's bias and without, its input gradient (the flipped
+   filter) and its filter-gradient kernel, with the bias gradient and
+   without, at the fine-tune step's trained stages, beside
    ``F.conv2d(groups=C)`` and ``aten.convolution_backward`` as the library
    yardsticks; the LSTM step at the bs-8 beam's 40 rows, the bs-32 beam's
    160 and the eval step's 32, at E = D = A = 512, C = 1024, and at E=300;
@@ -182,6 +183,28 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` in ms: ``iters`` calls captured in one CUDA
+    graph and replayed between CUDA events, so that Python's dispatch, which
+    takes longer than a depthwise-conv launch runs, does not count."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _host_ms(fn, repeats=3):
     """Median host-clock time of ``repeats`` calls, each ending in a
     synchronise, in ms; and the last call's result."""
@@ -325,16 +348,23 @@ def _rel_err(got, want):
 
 def check_dwconv(dev, card):
     """The depthwise conv's kernels against their plain versions at the
-    ConvNeXt-Base stage shapes: the forward at batch 8 and 32; at the
-    fine-tune step's trained stages (C = 512 and 1024, batch 32) the input
-    gradient (the flipped filter) and the filter gradient, which must also
-    repeat bit for bit.  CUDA-event times of each kernel, its plain version
-    and the one PyTorch call computing the same function: ``F.conv2d(groups=
-    C)`` for the forward and input gradient, ``aten.convolution_backward``
-    with only the weight gradient for the filter gradient.  Returns, per
-    kernel, one fine-tune step's launches summed (36 forwards and 29 input
-    gradients; 30 filter gradients): (worst abs error, kernel ms, plain ms,
-    library ms, bound ms, bound by)."""
+    ConvNeXt-Base stage shapes: the forward at batch 8 and 32, with the
+    block's bias in its epilogue, without, and with the flipped filter (the
+    input-gradient form); at the fine-tune step's trained stages (C = 512
+    and 1024, batch 32) the input gradient of a cotangent (timed) and the
+    filter gradient, with the bias gradient from
+    the same launch and without, which must also repeat bit for bit.
+    Device times (``_graph_ms``: the calls replayed from a CUDA graph) of
+    each kernel as the main path runs it (the forward with the bias, the
+    filter gradient with the bias gradient), its plain version and the one
+    PyTorch call computing the same function, and the kernel's eager time
+    (``_time_ms``: calls issued one by one, host dispatch included):
+    ``F.conv2d(groups=C)`` with the bias for the forward and without it for
+    the input gradient, ``aten.convolution_backward`` with the weight and
+    bias gradients for the filter gradient.  Returns, per kernel, one
+    fine-tune step's launches summed (36 forwards and 29 input gradients;
+    30 filter gradients): (worst abs error, kernel ms, plain ms, library ms,
+    bound ms, bound by)."""
     import torch
     import torch.nn.functional as F
 
@@ -349,37 +379,46 @@ def check_dwconv(dev, card):
     sums = {k: [0.0, 0.0, 0.0, 0.0, 0, 0] for k in ("dwconv", "dwconv_grad")}  # err, ms, plain, library, bytes, ops
     pass_ms = pass_bytes = pass_ops = 0
 
-    def add(kernel, n, err, times, shape):
+    def add(kernel, n, err, times, shape, bias):
         b, h, w, c = shape
         acc = sums[kernel]
         acc[0] = max(acc[0], err)
         for i, t in enumerate(times):
             acc[1 + i] += n * t
-        acc[4] += n * 4 * (2 * b * h * w * c + 49 * c)  # two (B, H, W, C) tensors and the filter, once each
+        # Two (B, H, W, C) tensors and the filter, once each, and the bias
+        # (or its gradient) where the launch has one.
+        acc[4] += n * 4 * (2 * b * h * w * c + 49 * c + (c if bias else 0))
         acc[5] += n * 2 * 49 * b * h * w * c
 
     for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
         g = torch.Generator().manual_seed(100 + c)
         w = (0.1 * torch.randn(7, 7, c, generator=g)).to(dev)
+        bias = torch.randn(c, generator=g).to(dev)
         wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()  # the (C, 1, 7, 7) layout of F.conv2d
         wc_flip = w.flip(0, 1).permute(2, 0, 1).unsqueeze(1).contiguous()
         for batch in (8, TRAIN_BS):
             side = 64 >> s
             shape = (batch, side, side, c)
             x = torch.randn(*shape, generator=g).to(dev)
-            err, rel = _rel_err(dwconv_forward(x, w), _dw_plain(x, w))
-            if not rel < DW_TOL:
-                raise AssertionError(f"dwconv kernel disagrees at {shape}: {rel} >= {DW_TOL}")
-            t_kernel = _time_ms(lambda: dwconv_forward(x, w))
-            t_plain = _time_ms(lambda: _dw_plain(x, w))
-            t_lib = _time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, padding=3, groups=c))
-            print(f"dwconv forward {shape}: max_abs_err {err:.3e} (relative {rel:.3e}, tol {DW_TOL:g}); "
-                  f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, F.conv2d {t_lib:.4f} ms per launch [{card}]")
+            err_nb, rel_nb = _rel_err(dwconv_forward(x, w), _dw_plain(x, w))
+            err, rel = _rel_err(dwconv_forward(x, w, bias=bias), _dw_plain(x, w, bias))
+            err_fl, rel_fl = _rel_err(dwconv_forward(x, w, flip=True), _dw_plain(x, w.flip(0, 1)))
+            if not max(rel, rel_nb, rel_fl) < DW_TOL:
+                raise AssertionError(f"dwconv kernel disagrees at {shape}: {rel_nb} without the bias, {rel} "
+                                     f"with it, {rel_fl} with the flipped filter (tol {DW_TOL})")
+            t_kernel = _graph_ms(lambda: dwconv_forward(x, w, bias=bias))
+            t_plain = _graph_ms(lambda: _dw_plain(x, w, bias))
+            t_lib = _graph_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, bias, padding=3, groups=c))
+            t_eager = _time_ms(lambda: dwconv_forward(x, w, bias=bias))
+            print(f"dwconv forward {shape}: max_abs_err {err_nb:.3e} without the bias, {err:.3e} with it, "
+                  f"{err_fl:.3e} with the flipped filter (relative {rel_nb:.3e}, {rel:.3e}, {rel_fl:.3e}, tol "
+                  f"{DW_TOL:g}); with the bias: kernel {t_kernel:.4f} ms "
+                  f"(eager {t_eager:.4f}), plain {t_plain:.4f} ms, F.conv2d {t_lib:.4f} ms per launch [{card}]")
             if batch != TRAIN_BS:
                 continue
-            add("dwconv", depth, err, (t_kernel, t_plain, t_lib), shape)
+            add("dwconv", depth, max(err, err_nb, err_fl), (t_kernel, t_plain, t_lib), shape, True)
             pass_ms += depth * t_kernel
-            pass_bytes += depth * 4 * (2 * x.numel() + 49 * c)
+            pass_bytes += depth * 4 * (2 * x.numel() + 49 * c + c)
             pass_ops += depth * 2 * 49 * x.numel()
             if s not in d_x:
                 continue
@@ -387,30 +426,37 @@ def check_dwconv(dev, card):
             err, rel = _rel_err(dwconv_forward(cot, w, flip=True), _dw_plain(cot, w.flip(0, 1)))
             if not rel < DW_TOL:
                 raise AssertionError(f"dwconv input gradient disagrees at {shape}: {rel} >= {DW_TOL}")
-            times = (_time_ms(lambda: dwconv_forward(cot, w, flip=True)),
-                     _time_ms(lambda: _dw_plain(cot, w.flip(0, 1))),
-                     _time_ms(lambda: F.conv2d(cot.permute(0, 3, 1, 2), wc_flip, padding=3, groups=c)))
-            add("dwconv", d_x[s], err, times, shape)
+            times = (_graph_ms(lambda: dwconv_forward(cot, w, flip=True)),
+                     _graph_ms(lambda: _dw_plain(cot, w.flip(0, 1))),
+                     _graph_ms(lambda: F.conv2d(cot.permute(0, 3, 1, 2), wc_flip, padding=3, groups=c)))
+            add("dwconv", d_x[s], err, times, shape, False)
             print(f"dwconv input gradient {shape}: max_abs_err {err:.3e} (relative {rel:.3e}); kernel "
                   f"{times[0]:.4f} ms, plain {times[1]:.4f} ms, F.conv2d {times[2]:.4f} ms per launch [{card}]")
             got = dwconv_filter_grad(x, cot)
-            err, rel = _rel_err(got, _dw_grad_plain(x, cot))
+            err_nb, rel_nb = _rel_err(got, _dw_grad_plain(x, cot))
             repeat = torch.equal(got, dwconv_filter_grad(x, cot))
+            got_w, got_b = dwconv_filter_grad(x, cot, bias_grad=True)
+            want_w, want_b = _dw_grad_plain(x, cot, True)
+            again_w, again_b = dwconv_filter_grad(x, cot, bias_grad=True)
+            repeat = repeat and torch.equal(got_w, again_w) and torch.equal(got_b, again_b)
+            (err_w, rel_w), (err_b, rel_b) = _rel_err(got_w, want_w), _rel_err(got_b, want_b)
+            rel, err = max(rel_nb, rel_w, rel_b), max(err_nb, err_w, err_b)
             if not (rel < DW_GRAD_TOL and repeat):
                 raise AssertionError(f"dwconv_grad kernel at {shape}: relative error {rel} (tol {DW_GRAD_TOL}), "
                                      f"bitwise repeatable {repeat}")
-            times = (_time_ms(lambda: dwconv_filter_grad(x, cot), iters=10),
-                     _time_ms(lambda: _dw_grad_plain(x, cot), iters=3, warmup=1),
-                     _time_ms(lambda: torch.ops.aten.convolution_backward(
-                         cot.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None, [1, 1], [3, 3], [1, 1],
-                         False, [0, 0], c, [False, True, False]), iters=10))
-            add("dwconv_grad", d_w[s], err, times, shape)
-            print(f"dwconv filter gradient {shape}: max_abs_err {err:.3e} (relative {rel:.3e}, tol "
-                  f"{DW_GRAD_TOL:g}), the same bits on a second run: {repeat}; kernel {times[0]:.4f} ms, "
-                  f"plain {times[1]:.4f} ms, convolution_backward (weight) {times[2]:.4f} ms per launch [{card}]")
+            times = (_graph_ms(lambda: dwconv_filter_grad(x, cot, bias_grad=True), iters=10),
+                     _graph_ms(lambda: _dw_grad_plain(x, cot, True), iters=3, warmup=1),
+                     _graph_ms(lambda: torch.ops.aten.convolution_backward(
+                         cot.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, [c], [1, 1], [3, 3], [1, 1],
+                         False, [0, 0], c, [False, True, True]), iters=10))
+            add("dwconv_grad", d_w[s], err, times, shape, True)
+            print(f"dwconv filter gradient {shape}: max_abs_err {err_nb:.3e} without the bias gradient, "
+                  f"{err_w:.3e} and {err_b:.3e} (d_bias) with it (relative {rel:.3e}, tol {DW_GRAD_TOL:g}), the "
+                  f"same bits on a second run: {repeat}; with the bias gradient: kernel {times[0]:.4f} ms, plain "
+                  f"{times[1]:.4f} ms, convolution_backward (weight, bias) {times[2]:.4f} ms per launch [{card}]")
     pass_bound, pass_by = bound(pass_bytes, pass_ops)
-    print(f"dwconv forward per encoder pass at batch {TRAIN_BS} (36 launches): kernel {pass_ms:.4f} ms, "
-          f"bound {pass_bound:.4f} ms ({pass_by}) [{card}]")
+    print(f"dwconv forward (with the bias) per encoder pass at batch {TRAIN_BS} (36 launches): kernel "
+          f"{pass_ms:.4f} ms, bound {pass_bound:.4f} ms ({pass_by}) [{card}]")
     out = {}
     for kernel, (err, ms, plain_ms, lib_ms, n_bytes, n_ops) in sums.items():
         bound_ms, bound_by = bound(n_bytes, n_ops)

@@ -31,9 +31,12 @@ and word2vec-300 (E=300, H=6: head width 50), whose heads take the kernels'
 scalar key loads.  The depthwise conv's forward kernel (and the input
 gradient, the same kernel with the filter flipped) agrees with the grouped
 conv within 1e-5 times max(1, its largest magnitude): 49 f32 products per
-output, summed in another order than cuDNN's; the filter-gradient kernels
-within 1e-4 times the same (sums over all B x H x W pixels), with the same
-bits from run to run (partials summed in a fixed order, no atomics).  The
+output, summed in another order than cuDNN's, with and without the bias in
+its epilogue; the filter-gradient kernel, and the bias gradient from the
+same launch, within 1e-4 times the same (sums over all B x H x W pixels),
+with the same bits from run to run (a cluster's sums in a fixed order, no
+atomics); both also through their instance without TMA (pointers off a
+16-byte boundary, C % 4 != 0).  The
 LSTM step kernel's h, c and attention map agree with its plain version within
 1e-5 (sums of up to E + D + C products of order-one terms scaled by
 1/sqrt(fan-in), in another order than cuBLAS's), at the serving (40 rows),
@@ -430,57 +433,98 @@ def dw_inputs(shape, device, seed=0):
     return x.to(device), w.to(device)
 
 
+def dw_bias(shape, device, seed=0):
+    return torch.randn(shape[-1], generator=torch.Generator().manual_seed(seed + 3)).to(device)
+
+
+def unaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary: the plan's instance without TMA."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def within(got, want, rel):
     return (got - want).abs().max().item() <= rel * max(1.0, want.abs().max().item())
 
 
+@pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("shape", DW_SHAPES)
-def test_dwconv_forward_kernel_matches_plain(cuda, shape):
+def test_dwconv_forward_kernel_matches_plain(cuda, shape, bias):
     x, w = dw_inputs(shape, cuda, seed=shape[-1] + shape[1])
+    b = dw_bias(shape, cuda, seed=shape[-1]) if bias else None
     before = depthwise_conv7x7_nhwc.launches
-    got = dwconv_forward(x, w)
+    got = dwconv_forward(x, w, bias=b)
     torch.cuda.synchronize()
     assert depthwise_conv7x7_nhwc.launches == before + 1
-    want = _dw_plain(x, w)
+    want = _dw_plain(x, w, b)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert within(got, want, 1e-5)
     flipped = dwconv_forward(x, w, flip=True)  # the input-gradient form
     assert within(flipped, _dw_plain(x, w.flip(0, 1)), 1e-5)
 
 
+@pytest.mark.parametrize("bias_grad", [False, True])
 @pytest.mark.parametrize("shape", [(32, 16, 16, 512), (32, 8, 8, 1024), (8, 64, 64, 128), (3, 13, 11, 130),
                                    (2, 9, 7, 10)])
-def test_dwconv_filter_grad_kernel_matches_plain(cuda, shape):
+def test_dwconv_filter_grad_kernel_matches_plain(cuda, shape, bias_grad):
     x, _ = dw_inputs(shape, cuda, seed=shape[-1])
     g = torch.randn(*shape, generator=torch.Generator().manual_seed(1)).to(cuda)
     before = depthwise_conv7x7_nhwc.grad_launches
-    got = dwconv_filter_grad(x, g)
+    got = dwconv_filter_grad(x, g, bias_grad=bias_grad)
     torch.cuda.synchronize()
     assert depthwise_conv7x7_nhwc.grad_launches == before + 1
-    want = _dw_grad_plain(x, g)
+    want = _dw_grad_plain(x, g, bias_grad)
+    again = dwconv_filter_grad(x, g, bias_grad=bias_grad)
+    if bias_grad:  # the bias gradient, the sum of g, from the same launch
+        (got, d_b), (want, want_b), (again, again_b) = got, want, again
+        assert d_b.shape == (shape[-1],) and within(d_b, want_b, 1e-4) and torch.equal(d_b, again_b)
     assert got.shape == (7, 7, shape[-1]) and torch.isfinite(got).all()
     assert within(got, want, 1e-4)
-    assert torch.equal(got, dwconv_filter_grad(x, g))  # a fixed summation order: the same bits
+    assert torch.equal(got, again)  # a fixed summation order: the same bits
 
 
+@pytest.mark.parametrize("shape", [(32, 16, 16, 512), (8, 8, 8, 1024), (4, 64, 64, 128), (2, 9, 7, 12)])
+def test_dwconv_kernels_without_tma_match_plain(cuda, shape):
+    """Pointers off a 16-byte boundary take the kernels' instance that
+    stages its boxes with the producer warp's own loads (the plan's
+    tma=False); it agrees with the plain versions as the TMA instance does."""
+    x, w = dw_inputs(shape, cuda, seed=4)
+    b, g = dw_bias(shape, cuda, seed=4), torch.randn(*shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    ux, uw, ug = unaligned(x), unaligned(w), unaligned(g)
+    assert ux.data_ptr() % 16 and ux.is_contiguous()
+    assert within(dwconv_forward(ux, uw, bias=b), _dw_plain(x, w, b), 1e-5)
+    assert within(dwconv_forward(ug, uw, flip=True), _dw_plain(g, w.flip(0, 1)), 1e-5)
+    d_w, d_b = dwconv_filter_grad(ux, ug, bias_grad=True)
+    want_w, want_b = _dw_grad_plain(x, g, True)
+    assert within(d_w, want_w, 1e-4) and within(d_b, want_b, 1e-4)
+    assert torch.equal(d_w, dwconv_filter_grad(x, g))  # the same sums in the same order as with TMA
+
+
+@pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("shape", [(32, 16, 16, 512), (4, 8, 8, 1024), (2, 9, 7, 10)])
-def test_dwconv_autograd_matches_grouped_conv(cuda, shape):
+def test_dwconv_autograd_matches_grouped_conv(cuda, shape, bias):
     """The op with both kernels against autograd through the grouped conv:
-    output, input gradient and filter gradient, with one launch of each
-    kernel per forward, input gradient and filter gradient."""
+    output, input gradient and filter gradient (and, with ``bias``, the
+    bias's gradient from the filter gradient's launch), with one launch of
+    each kernel per forward, input gradient and filter gradient."""
     x, w = dw_inputs(shape, cuda, seed=7)
+    b = dw_bias(shape, cuda, seed=7).requires_grad_(True) if bias else None
     g = torch.randn(*shape, generator=torch.Generator().manual_seed(2)).to(cuda)
     x.requires_grad_(True)
     w.requires_grad_(True)
+    leaves = (x, w, b) if bias else (x, w)
     before = (depthwise_conv7x7_nhwc.launches, depthwise_conv7x7_nhwc.grad_launches)
-    y = depthwise_conv7x7_nhwc(x, w, True, True)
-    d_x, d_w = torch.autograd.grad(y, (x, w), g)
+    y = depthwise_conv7x7_nhwc(x, w, True, True, b)
+    got = torch.autograd.grad(y, leaves, g)
     torch.cuda.synchronize()
     assert (depthwise_conv7x7_nhwc.launches, depthwise_conv7x7_nhwc.grad_launches) == (
         before[0] + 2, before[1] + 1)
-    y_ref = _dw_plain(x, w)
-    dx_ref, dw_ref = torch.autograd.grad(y_ref, (x, w), g)
-    assert within(y, y_ref, 1e-5) and within(d_x, dx_ref, 1e-5) and within(d_w, dw_ref, 1e-4)
+    y_ref = _dw_plain(x, w, b)
+    want = torch.autograd.grad(y_ref, leaves, g)
+    assert within(y, y_ref, 1e-5) and within(got[0], want[0], 1e-5) and within(got[1], want[1], 1e-4)
+    if bias:
+        assert within(got[2], want[2], 1e-4)
 
 
 def lstm_args(R, E, D, A, C, P, device, seed=0):

@@ -1,11 +1,13 @@
-// Shared-memory mbarriers and bulk copies (sm_90), shared by the kernels
-// that stage data with Hopper's copy engine: the 3xTF32 GEMM
-// (tf32x3_gemm.cuh: tensor TMA boxes) and the decode kernels
-// (decode_step.cu: contiguous weight slices and activation rows).
+// Shared-memory mbarriers, bulk copies and tensor-map boxes (sm_90), shared
+// by the kernels that stage data with Hopper's copy engine: the 3xTF32 GEMM
+// (tf32x3_gemm.cuh: tensor TMA boxes), the decode kernels (decode_step.cu:
+// contiguous weight slices and activation rows) and the depthwise conv
+// (dwconv.cu: halo'd NHWC tiles and filter slices).
 // Included inside no namespace: the functions sit in this header's own
 // anonymous namespace, so each kernel library keeps a private copy.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,6 +71,44 @@ __device__ __forceinline__ void fence_proxy_async_global() {
 
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One box of a 2-D / 4-D tensor map (coordinates innermost first, signed:
+// elements outside the tensor arrive as zeros and are never read) into
+// shared memory (128-byte aligned); completion adds the box's bytes to
+// `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace

@@ -19,8 +19,10 @@ view with channels-last strides.  Each block runs in one of three modes
 ``ModelConfig.use_pallas``):
 - ``'mlp'``: depthwise 7x7 conv + bias through
   ``ops/dwconv.py:depthwise_conv7x7_nhwc`` on the conv weight seen as
-  (7, 7, C), with its forward kernel (forward and input gradient) and its
-  filter-gradient kernel, then the fused tail of ``ops/mlp_block.py``;
+  (7, 7, C) and the conv bias, with its forward kernel (forward with the
+  bias in its epilogue, and input gradient) and its filter-gradient kernel
+  (filter and bias gradient in one launch), then the fused tail of
+  ``ops/mlp_block.py``;
 - ``'off'``: the grouped ``F.conv2d`` and its autograd, as on the JAX main
   path, then the tail's plain version;
 - ``'block'``: the whole block in one kernel, ``ops/block_fused.py`` (its
@@ -124,7 +126,7 @@ class CNBlock(nn.Module):
                 pw2.weight, pw2.bias, self.layer_scale.view(-1),
             )
         if self.dw_kernel or self.dw_grad_kernel:
-            y = depthwise_conv7x7_nhwc(x.contiguous(), taps, self.dw_kernel, self.dw_grad_kernel) + conv.bias
+            y = depthwise_conv7x7_nhwc(x.contiguous(), taps, self.dw_kernel, self.dw_grad_kernel, conv.bias)
         else:
             y = conv_nhwc(x, conv)
         y = y.reshape(-1, c).contiguous()

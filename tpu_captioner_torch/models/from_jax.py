@@ -150,12 +150,18 @@ def _load_part(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], what: st
 def load_reference_checkpoint(model, path: str) -> Dict[str, Any]:
     """Load a reference ``.pth.tar`` into ``model`` (a ``CaptionModel``) in
     place; returns the checkpoint's metadata.  A ``module.`` prefix (DDP) is
-    stripped; keys the port does not hold (buffers of the reference modules)
-    are ignored, as the JAX porter ignores them; a missing key raises."""
+    stripped; the attention-capture decoder's layer names
+    (``decoder_layers.N.*``) are read as ``transformer_decoder.layers.N.*``,
+    as the JAX porter reads both schemes
+    (tpu_captioner/models/port_torch.py:219-227); keys the port does not
+    hold (buffers of the reference modules) are ignored, as the JAX porter
+    ignores them; a missing key raises."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     strip = lambda sd: {re.sub(r"^module\.", "", k): v for k, v in dict(sd).items()}  # noqa: E731
+    decoder = {re.sub(r"^decoder_layers\.", "transformer_decoder.layers.", k): v
+               for k, v in strip(ckpt["decoder"]).items()}
     _load_part(model.encoder, strip(ckpt["encoder"]), "encoder")
-    _load_part(model.decoder, strip(ckpt["decoder"]), "decoder")
+    _load_part(model.decoder, decoder, "decoder")
     return {
         "epoch": ckpt.get("epoch"),
         "epochs_since_improvement": ckpt.get("epochsSinceImprovement"),

@@ -14,10 +14,11 @@ The JAX backward differentiates its reference, the conv and the tail; this
 one computes the same gradient from the port's own kernels, so that no plain
 version runs on the card.  It saves x, sd and the parameters (never the conv
 output, never the (N, 4C) hidden activation), recomputes the conv output t
-(``dwconv_forward``), takes the tail's gradients from
-``fused_convnext_mlp_bwd`` and then the conv's input and filter gradients
-(``dwconv_forward`` with the flipped filter, ``dwconv_filter_grad``):
-d_x = g + conv_input_grad(d_t), d_dw_b = sum of d_t.  On CPU tensors each of
+(``dwconv_forward`` with the bias in its epilogue), takes the tail's
+gradients from ``fused_convnext_mlp_bwd`` and then the conv's input and
+filter gradients (``dwconv_forward`` with the flipped filter,
+``dwconv_filter_grad``, whose launch also gives d_dw_b = the sum of d_t):
+d_x = g + conv_input_grad(d_t).  On CPU tensors each of
 these wrappers runs its plain version.
 ``fused_convnext_block.launches`` counts forward-kernel launches.
 """
@@ -109,7 +110,7 @@ class _FusedBlock(torch.autograd.Function):
         x, sd, dw_w, dw_b, *tail = ctx.saved_tensors
         b, h, w, c = x.shape
         g = g.contiguous()
-        t = dwconv_forward(x, dw_w) + dw_b  # the conv output, recomputed
+        t = dwconv_forward(x, dw_w, bias=dw_b)  # the conv output, recomputed
         d_t, d_sd_rows, *d_tail = fused_convnext_mlp_bwd(
             g.view(-1, c), t.view(-1, c), sd.repeat_interleave(h * w), *tail
         )
@@ -117,8 +118,13 @@ class _FusedBlock(torch.autograd.Function):
         need = ctx.needs_input_grad
         d_x = g + dwconv_forward(d_t, dw_w, flip=True) if need[0] else None
         d_sd = d_sd_rows.view(b, h * w).sum(1) if need[1] else None
-        d_dw_w = dwconv_filter_grad(x, d_t) if need[2] else None
-        d_dw_b = d_t.sum((0, 1, 2)) if need[3] else None
+        d_dw_w = d_dw_b = None
+        if need[2] and need[3]:  # the bias gradient from the filter gradient's launch
+            d_dw_w, d_dw_b = dwconv_filter_grad(x, d_t, bias_grad=True)
+        elif need[2]:
+            d_dw_w = dwconv_filter_grad(x, d_t)
+        elif need[3]:
+            d_dw_b = d_t.sum((0, 1, 2))
         return (d_x, d_sd, d_dw_w, d_dw_b, *(d if n else None for d, n in zip(d_tail, need[4:])))
 
 
