@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 2. build the CUDA kernels from the seven sources in
    ``tpu_captioner_torch/csrc`` (one nvcc per source, all started together;
    ``decode_step.cu`` holds three kernels, ``dwconv.cu`` two, ``mlp_block.cu``
-   the whole-tile path and the sub-tiled tail instances; ``mlp_block.cu``
-   and ``mlp_block_bwd.cu`` take their products from the tensor cores
-   through ``csrc/tf32x3_gemm.cuh``);
+   the whole-tile path and the sub-tiled tail instances; ``mlp_block.cu``,
+   ``mlp_block_bwd.cu`` and ``block_fused.cu`` take their products from
+   the tensor cores through ``csrc/tf32x3_gemm.cuh``);
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with CUDA-event times of both and the least time the card could
    take (``bound_ms``): the fused ConvNeXt MLP tail at the four
@@ -23,7 +23,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    their cooperative launch (``scripts/decode_barrier_probe.py``); the
    dropout mask pool at the flagship train
    step's 29,366,272 bits for three seeds, whose bits must be identical,
-   beside ``Tensor.bernoulli_`` as the library yardstick; the MLP-tail
+   beside ``Tensor.bernoulli_`` as the library yardstick, timed by CUDA-graph
+   replay, with a bound from the library's own instruction mix; the MLP-tail
    backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048 at
    C = 1024, batch 32, stochastic-depth rows) and at a ragged N = 600; the
    depthwise conv's forward kernel at the four stage shapes at batch 8 and
@@ -36,9 +37,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    then the three decode kernels at the reference's
    pretrained-embedding widths, GloVe-200 (E=200, H=8) and word2vec-300
    (E=300, H=6), whose head widths 25 and 50 take the scalar key loads; the
-   whole-block kernel (``use_pallas='block'``) at the four stage shapes at
-   batch 8 and 32, with all-one and per-image scales, and at a ragged
-   (3, 14, 14, 512); the MLP tail's sub-tiled instances
+   whole-block kernel (``use_pallas='block'``: the conv + LayerNorm launch
+   and the 3xTF32 products) at the four stage shapes at batch 8 and 32,
+   with all-one and per-image scales, at a ragged (3, 14, 14, 512) and at
+   (2, 9, 7, 128), timed by CUDA-graph replay, its library's SASS holding
+   tensor-core (HGMMA) and TMA (UTMALDG) instructions; the MLP tail's
+   sub-tiled instances
    (``TPU_CAPTIONER_MLP_SUB``) at each width's valid sub-tile rows against
    the whole-tile instance and the plain version;
 4. the serving path at full width: ConvNeXt-Base + 6-layer E=512
@@ -162,10 +166,27 @@ TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
 # whose operations are matrix products (the MLP tail, forward, sub-tiled
 # and backward; the block kernel; the whole-rollout decode kernel).
 F32_PRODUCT_OPS_PER_S = TF32_OPS_PER_S / 3
-# Integer operations of one Philox4x32-10 call: 10 rounds of two 32x32->64
-# multiplies (high and low halves: 4) and four xors, 9 key bumps of two
-# adds, and 4 threshold compares.
-PHILOX_OPS = 10 * (4 + 4) + 9 * 2 + 4
+# The dropout pool's operations in the card's own terms (PERF.md section 6,
+# "Bounds"; scripts/pool_probe.py).  One Philox4x32-10 call (four pool
+# elements) needs 19 32x32 -> 64-bit products: two a round, less the first
+# round's product of the counter's zero third word, which the compiler
+# drops.  cuobjdump -sass of the built library shows each as one
+# IMAD.WIDE.U32 giving both halves, two 32-bit results, beside one more
+# for the loop's index (20 in the loop).  The rest the call needs: 20 LOP3
+# (each two of a round's xors), 4 threshold compares, 4 to pack the bits
+# and the 4-byte store, 48 instructions in all.  The CUDA C++ Programming
+# Guide's throughput table gives compute capability 9.0 64 results per
+# clock per SM for 32-bit integer multiply and multiply-add (also add,
+# compare and bitwise), and an SM issues four warp instructions a clock.
+# On an H100 80GB HBM3 (700 W) chains of IMAD.HI.U32 issued 31.8 and of
+# IMAD.WIDE.U32 24.4 a clock per SM (pool_probe.py rates): a product's high
+# half takes two of the 64 result slots.  The least time is the
+# larger of the products' results at 64 a clock and the 48 instructions at
+# the issue rate, at the card's SM count and top SM clock.
+PHILOX_PRODUCTS = 19
+PHILOX_ISSUED = 48
+INT_RESULTS_PER_CLOCK_PER_SM = 64
+ISSUE_PER_CLOCK_PER_SM = 4 * 32
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -591,10 +612,84 @@ def barrier_probe(card):
     return us
 
 
+def library_sass(name):
+    """``cuobjdump -sass`` of ``csrc/<name>.cu``'s library (built if needed)."""
+    import subprocess
+
+    from tpu_captioner_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def loop_opcodes(sass_text, kernel):
+    """Opcode counts of ``kernel``'s longest loop in ``cuobjdump -sass``
+    text: the instructions from a backward branch's target to the branch
+    (targets as hex addresses or ``.L_x_n`` labels), predicates dropped."""
+    import collections
+    import re
+
+    lines, labels, pending, inside = [], {}, [], False
+    for line in sass_text.splitlines():
+        if "Function" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            lines.append((addr, m.group(2).strip()))
+    loops = []
+    for addr, ins in lines:
+        b = re.search(r"\bBRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", ins)
+        if b:
+            target = labels.get(b.group(1)) if b.group(1) else int(b.group(2), 16)
+            if target is not None and target < addr:
+                loops.append((target, addr))
+    if not loops:
+        raise RuntimeError(f"no loop in {kernel}")
+    start, end = max(loops, key=lambda r: r[1] - r[0])
+    return collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+                               for addr, ins in lines if start <= addr <= end)
+
+
+def max_sm_clock_hz():
+    """The card's top SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def pool_bound(n, sms, clock_hz):
+    """(bound_ms, bound_by, multiply ms, issue ms) of an n-element pool: the
+    larger of the bytes written and the Philox calls' operations priced at
+    the card's rates (see PHILOX_PRODUCTS)."""
+    calls = (n + 3) // 4
+    mul_ms = calls * 2 * PHILOX_PRODUCTS / (INT_RESULTS_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
+    issue_ms = calls * PHILOX_ISSUED / (ISSUE_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
+    bound_ms, bound_by = bound(n, 0)
+    if max(mul_ms, issue_ms) > bound_ms:
+        bound_ms, bound_by = max(mul_ms, issue_ms), "operations"
+    return bound_ms, bound_by, mul_ms, issue_ms
+
+
 def check_dropout(dev, card):
     """Kernel vs plain at the flagship pool size for three seeds: identical
-    bits and a keep rate within 5 sigma of 0.5; CUDA-event times of the
-    kernel, the plain version and ``Tensor.bernoulli_``."""
+    bits and a keep rate within 5 sigma of 0.5.  Device times (``_graph_ms``)
+    of the kernel, the plain version and ``Tensor.bernoulli_``, and the
+    kernel's eager time (``_time_ms``, host dispatch included); the bound
+    from the library's own instruction mix, whose loop must still issue the
+    IMAD.WIDE.U32 that the bound prices (and the loop index's one)."""
     import torch
 
     from tpu_captioner_torch.ops.dropout_mask import _mask_plain, random_mask_pool
@@ -611,16 +706,21 @@ def check_dropout(dev, card):
         if bad or not abs(rate - keep) < 5 * sigma:
             raise AssertionError(f"dropout_mask kernel wrong at seed {seed}: {bad} bits differ, rate {rate}")
         mismatches += bad
+    mix = loop_opcodes(library_sass("dropout_mask"), "mask_pool_kernel")
+    if mix["IMAD.WIDE.U32"] != PHILOX_PRODUCTS + 1:
+        raise AssertionError(f"the pool kernel's loop issues {mix['IMAD.WIDE.U32']} IMAD.WIDE.U32, not the "
+                             f"{PHILOX_PRODUCTS} products its bound prices and the index's: {dict(mix)}")
     seed = POOL_SEEDS[1]
-    t_kernel = _time_ms(lambda: random_mask_pool(seed, POOL_N, keep, dev), iters=50)
-    t_plain = _time_ms(lambda: _mask_plain(seed, POOL_N, keep, dev), iters=5)
-    t_lib = _time_ms(lambda: torch.empty(POOL_N, dtype=torch.bool, device=dev).bernoulli_(keep), iters=50)
-    # Bytes: the bools written, nothing read.  Operations: integer Philox
-    # work, over the 32-bit non-tensor rate (the data sheet gives no
-    # integer rate; the f32 one is the closest).
-    bound_ms, bound_by = bound(POOL_N, (POOL_N + 3) // 4 * PHILOX_OPS)
-    print(f"dropout_mask n={POOL_N}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
-          f"bernoulli_ {t_lib:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    t_kernel = _graph_ms(lambda: random_mask_pool(seed, POOL_N, keep, dev), iters=50)
+    t_eager = _time_ms(lambda: random_mask_pool(seed, POOL_N, keep, dev), iters=50)
+    t_plain = _graph_ms(lambda: _mask_plain(seed, POOL_N, keep, dev), iters=3, warmup=1)
+    t_lib = _graph_ms(lambda: torch.empty(POOL_N, dtype=torch.bool, device=dev).bernoulli_(keep), iters=50)
+    sms, clock = torch.cuda.get_device_properties(dev).multi_processor_count, max_sm_clock_hz()
+    bound_ms, bound_by, mul_ms, issue_ms = pool_bound(POOL_N, sms, clock)
+    print(f"dropout_mask n={POOL_N}: kernel {t_kernel:.4f} ms device (eager {t_eager:.4f}), plain "
+          f"{t_plain:.4f} ms, bernoulli_ {t_lib:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: multiplies "
+          f"{mul_ms:.4f}, issue {issue_ms:.4f}, bytes {POOL_N / HBM_BYTES_PER_S * 1e3:.4f}; {sms} SMs at "
+          f"{clock / 1e6:.0f} MHz), {bound_ms / t_kernel:.1%} of it [{card}]")
     return mismatches, t_kernel, t_plain, t_lib, bound_ms, bound_by
 
 
@@ -751,6 +851,7 @@ def train_phase(dev, card, seed, word_map, cfg=None, pool_n=POOL_N):
 KERNEL_GROUPS = (
     ("dwconv_grad", ("dwconv_wgrad",)),
     ("dwconv", ("dwconv_fwd_kernel",)),
+    ("block_fused conv + LayerNorm", ("conv_ln_kernel",)),
     ("mlp_block", ("mlp_block_kernel", "ln_rows", "HiddenEpi", "OutEpi")),
     ("mlp_block_bwd", ("gemm_kernel", "prep_rows", "finish_rows", "column_partials",
                        "column_finish", "sum_splits")),
@@ -1662,24 +1763,37 @@ def check_block(dev, card):
     """The whole-block kernel against ``_block_plain`` at the four
     ConvNeXt-Base stage shapes at batch 8 and 32, with all-one scales and
     with per-image scales (0 and 1/survival at the stage's last ramped
-    rate), and at a ragged (3, 14, 14, 512) whose rows do not fill the last
-    tile: within BLOCK_TOL x max(1, max |plain|); images with scale 0 come
-    out as their input.  CUDA-event times of both (batch 8 all-one, batch 32
-    with scales, as each path runs them) and the bound.  Returns the worst
-    absolute error and the bs-32 encoder pass's (36 launches) kernel ms,
-    plain ms, bound ms and bound by."""
+    rate), at a ragged (3, 14, 14, 512) whose pixels do not fill the last
+    tiles and at (2, 9, 7, 128), whose sides are no multiple of the tile:
+    within BLOCK_TOL x max(1, max |plain|); images with scale 0 come out as
+    their input bit for bit.  Device times (``_graph_ms``) of both, batch 8
+    all-one and batch 32 with scales as each path runs them, the kernel's
+    eager time beside (host dispatch of its five launches included), and
+    the bound.  The library must run the tensor cores (HGMMA) and TMA loads
+    (UTMALDG) and must not include the f32 FFMA tail (``mlp_tail.cuh``).
+    Returns the worst absolute error and the bs-32 encoder pass's (36
+    launches) kernel ms, plain ms, bound ms and bound by."""
+    import re
+
     import torch
 
     from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS, sd_probs
+    from tpu_captioner_torch.ops import _build
     from tpu_captioner_torch.ops.block_fused import _block_plain, fused_convnext_block
 
+    text = library_sass("block_fused")
+    hgmma, utma = len(re.findall(r"\bHGMMA\b", text)), len(re.findall(r"\bUTMALDG\b", text))
+    sources = sorted(p.name for p in _build._sources(_build.CSRC / "block_fused.cu", {}))
+    print(f"block_fused library: {hgmma} HGMMA, {utma} UTMALDG; sources {', '.join(sources)}")
+    if not (hgmma and utma) or "mlp_tail.cuh" in sources:
+        raise AssertionError("the block library must run HGMMA and UTMALDG and not include mlp_tail.cuh")
     probs = sd_probs(BASE_DEPTHS)
     worst, passes = 0.0, {}
-    cases = [(s, depth, c, batch) for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)) for batch in (8, TRAIN_BS)]
-    for s, depth, c, batch in cases + [(None, 0, 512, 3)]:
+    cases = [(s, depth, (batch, 64 >> s, 64 >> s, c))
+             for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)) for batch in (8, TRAIN_BS)]
+    for s, depth, shape in cases + [(None, 0, (3, 14, 14, 512)), (None, 0, (2, 9, 7, 128))]:
+        batch, c = shape[0], shape[-1]
         g = torch.Generator().manual_seed(200 + c + batch)
-        side = 14 if s is None else 64 >> s
-        shape = (batch, side, side, c)
         x = torch.randn(*shape, generator=g).to(dev)
         taps, dw_b = (0.1 * torch.randn(7, 7, c, generator=g)).to(dev), (0.1 * torch.randn(c, generator=g)).to(dev)
         params = _stage_params(c, g, dev)
@@ -1701,13 +1815,14 @@ def check_block(dev, card):
                 timed = args
         worst = max(worst, *errs)
         if s is None:
-            print(f"block_fused ragged {shape} (N={3 * side * side}): max_abs_err {max(errs):.3e}")
+            print(f"block_fused {shape} (N={batch * shape[1] * shape[2]}): max_abs_err {max(errs):.3e}")
             continue
-        t_kernel = _time_ms(lambda: fused_convnext_block(*timed))
-        t_plain = _time_ms(lambda: _block_plain(*timed))
+        t_kernel = _graph_ms(lambda: fused_convnext_block(*timed), iters=10)
+        t_eager = _time_ms(lambda: fused_convnext_block(*timed), iters=10)
+        t_plain = _graph_ms(lambda: _block_plain(*timed), iters=5)
         print(f"block_fused {shape}: max_abs_err {errs[0]:.3e}, with sd rows (survival {survival:.4f}) "
-              f"{errs[1]:.3e} (tol {BLOCK_TOL:g} x max(1, max |plain|)); kernel {t_kernel:.4f} ms, plain "
-              f"{t_plain:.4f} ms per launch [{card}]")
+              f"{errs[1]:.3e} (tol {BLOCK_TOL:g} x max(1, max |plain|)); kernel {t_kernel:.4f} ms device "
+              f"(eager {t_eager:.4f}), plain {t_plain:.4f} ms per launch [{card}]")
         ms, plain_ms, n_bytes, n_ops = passes.get(batch, (0.0, 0.0, 0, 0))
         b_bytes, b_ops = block_bound(*shape)
         passes[batch] = (ms + depth * t_kernel, plain_ms + depth * t_plain, n_bytes + depth * b_bytes,

@@ -96,12 +96,12 @@ def clusters():
 
         def run(plan):  # on the current stream: the graph's while it captures
             err = lib.tc_dwconv_wgrad(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(), *shape,
-                                      *plan.args(), D._stream(0))
+                                      *plan.args(), _build.raw_stream(0))
             _build.check(lib, err, "dwconv_wgrad")
 
         rows = []
         for k in range(D.CLUSTER, 0, -1):
-            plan = D.dwconv_plan(*shape, "wgrad", True, D._sms(0), k)
+            plan = D.dwconv_plan(*shape, "wgrad", True, _build.sm_count(0), k)
             rows.append({"cluster": k, "chunks": plan.chunks, "active": D._active_clusters(0, plan),
                          "us": round(graph_us(lambda: run(plan)), 2)})
         picked = D._wgrad_plan(0, *shape, True).parts
@@ -146,13 +146,14 @@ def split():
 def host():
     import torch
 
+    from tpu_captioner_torch.ops import _build
     from tpu_captioner_torch.ops import dwconv as D
 
     x, _, w, b = inputs((8, 8, 8, 1024))
     y = torch.empty_like(x)
-    plan, lib = D.dwconv_plan(8, 8, 8, 1024, "forward", True, D._sms(0)), D._lib()
+    plan, lib = D.dwconv_plan(8, 8, 8, 1024, "forward", True, _build.sm_count(0)), D._lib()
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 8, 8, 8, 1024, 0, *plan.args(),
-            D._stream(0))
+            _build.raw_stream(0))
 
     def us(fn, n=2000):
         for _ in range(50):
@@ -169,7 +170,7 @@ def host():
         "dwconv_forward with the bias": us(lambda: D.dwconv_forward(x, w, bias=b)),
         "tc_dwconv_forward alone": us(lambda: lib.tc_dwconv_forward(*args)),
         "torch.cuda.current_stream(dev).cuda_stream": us(lambda: torch.cuda.current_stream(x.device).cuda_stream),
-        "torch._C._cuda_getCurrentRawStream": us(lambda: D._stream(0)),
+        "torch._C._cuda_getCurrentRawStream": us(lambda: _build.raw_stream(0)),
     }, "card": card()}), flush=True)
 
 

@@ -610,8 +610,11 @@ def block_args(shape, device, seed=0, sd="mixed"):
     return tuple(a.to(device) for a in args)
 
 
-BLOCK_SHAPES = [(8, 64, 64, 128), (8, 32, 32, 256), (8, 16, 16, 512), (8, 8, 8, 1024), (32, 8, 8, 1024),
-                (3, 14, 14, 512), (2, 9, 7, 128), (1, 5, 3, 1024)]
+# The four stage shapes at batch 8 and 32, a batch whose tiles are ragged,
+# and sides that are no multiple of the 8-column tile.
+BLOCK_SHAPES = [(8, 64, 64, 128), (8, 32, 32, 256), (8, 16, 16, 512), (8, 8, 8, 1024), (32, 64, 64, 128),
+                (32, 32, 32, 256), (32, 16, 16, 512), (32, 8, 8, 1024), (3, 14, 14, 512), (2, 9, 7, 128),
+                (1, 5, 3, 1024)]
 
 
 @pytest.mark.parametrize("shape", BLOCK_SHAPES)
@@ -639,3 +642,39 @@ def test_block_autograd_matches_plain(cuda, shape):
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.isfinite(a).all(), i
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), i
+
+
+def test_block_kernel_refuses_what_it_does_not_take(cuda):
+    """A width without a kernel raises a ValueError on the card (no plain
+    fallback); the C side refuses a plan whose shared memory disagrees with
+    its own count, and ``_plan_on`` takes no more clusters than the card
+    runs at once."""
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.block_fused import _lib, _plan_on, block_plan
+
+    with pytest.raises(ValueError, match="supports C in"):
+        fused_convnext_block(*block_args((2, 8, 8, 192), cuda))
+    args = block_args((2, 8, 8, 512), cuda)
+    plan = block_plan(2, 8, 8, 512)
+    lib = _lib()
+    out, work = torch.empty_like(args[0]), args[0].new_empty(lib.tc_block_fused_workspace(128, 512))
+    bad = plan._replace(smem=plan.smem + 128)
+    err = lib.tc_block_fused_forward(*(t.data_ptr() for t in (*args, out, work)), 2, 8, 8, 512, *bad.args(),
+                                     _build.raw_stream(0))
+    assert err == 1  # cudaErrorInvalidValue, before any launch
+    big = _plan_on(0, 32, 8, 8, 1024)
+    assert big.parts <= lib.tc_block_fused_clusters(1024, big.units, big.smem)
+
+
+def test_block_forward_reruns_on_the_backward_thread(cuda):
+    """With activation checkpointing (the encoder's remat) the forward runs
+    again on autograd's own thread, which starts with no CUDA context: the
+    tensor maps must still encode."""
+    from torch.utils.checkpoint import checkpoint
+
+    args = [a.requires_grad_() for a in block_args((2, 16, 16, 512), cuda, seed=9)]
+    out = checkpoint(fused_convnext_block, *args, use_reentrant=False)
+    (g,) = torch.autograd.grad(out.square().sum(), args[0])
+    plain = [a.detach().clone().requires_grad_() for a in args]
+    (want,) = torch.autograd.grad(_block_plain(*plain).square().sum(), plain[0])
+    assert (g - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())

@@ -16,7 +16,9 @@
 - The depthwise conv's wrappers refuse what their kernels do not take (other
   devices, bf16, non-contiguous tensors, tensors on two devices).
 - The whole-block wrapper refuses other devices, dtypes, shapes and layouts
-  on every device, and on the card the widths its kernel is not built for.
+  on every device, and on the card the widths its kernel is not built for;
+  its library stages the conv by TMA (``csrc/dwconv_tile.cuh``), runs the
+  3xTF32 products (``csrc/mlp_products.cuh``) and not the FFMA tail.
 - The MLP-tail kernels' tensor-core products: the 3xTF32 header is in both
   libraries' build hash and holds the TF32 wgmma and the hi/lo rounding; no
   source calls a library GEMM; neither wrapper catches a failed launch; a
@@ -317,10 +319,13 @@ def test_mlp_tensor_core_sources_have_no_fallback(cpu_only):
     import tpu_captioner_torch
     from tpu_captioner_torch.ops import _build, mlp_block
 
-    for name in ("mlp_block", "mlp_block_bwd"):
+    for name in ("mlp_block", "mlp_block_bwd", "block_fused"):
         sources = {p.name: text.decode() for p, text in _build._sources(_build.CSRC / f"{name}.cu", {}).items()}
         assert "tf32x3_gemm.cuh" in sources, sources.keys()
-        assert "tf32x3::gemm" in sources[f"{name}.cu"]
+        # The products are launched by the library's own source or by the
+        # forward products' header that mlp_block.cu and block_fused.cu share.
+        callers = [n for n in (f"{name}.cu", "mlp_products.cuh") if "tf32x3::gemm" in sources.get(n, "")]
+        assert callers, name
     header = (_build.CSRC / "tf32x3_gemm.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in header
     assert "cvt.rna.tf32.f32" in header and "cp.async.bulk.tensor" in header
@@ -339,6 +344,33 @@ def test_mlp_tensor_core_sources_have_no_fallback(cpu_only):
     package = pathlib.Path(tpu_captioner_torch.__file__).parent
     users = [p for p in package.rglob("*.py") if p.name != "tf32.py" and "ops.tf32" in p.read_text()]
     assert not users, users
+
+
+def test_block_sources_run_the_tensor_core_tail_and_have_no_fallback(cpu_only):
+    """The whole-block library: its conv + LayerNorm launch stages halo'd
+    boxes by TMA through the depthwise conv's shared tile header, its
+    products are the MLP tail's 3xTF32 ones, and it no longer builds the
+    f32 FFMA tail; neither its wrapper nor its plan catches a failure."""
+    import inspect
+
+    from tpu_captioner_torch.ops import _build, block_fused
+
+    sources = {p.name: text.decode() for p, text in _build._sources(_build.CSRC / "block_fused.cu", {}).items()}
+    assert {"dwconv_tile.cuh", "mbarrier.cuh", "mlp_products.cuh", "tf32x3_gemm.cuh"} <= set(sources)
+    assert "mlp_tail.cuh" not in sources, sorted(sources)
+    assert "dwconv_tile.cuh" in {p.name for p in _build._sources(_build.CSRC / "dwconv.cu", {})}
+    body = sources["block_fused.cu"]
+    for call in ("tma_load_4d(", "mbar_wait(", "conv_patch(", "products<C>(", "bind_device(x)"):
+        assert call in body, call
+    for fn in (block_fused._block_forward, block_fused._plan_on, block_fused.block_plan, block_fused._lib):
+        assert "except" not in inspect.getsource(fn), fn.__name__
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    if nvcc is None:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build("block_fused")
 
 
 def test_decode_sources_stage_by_bulk_copy_and_have_no_fallback(cpu_only):

@@ -1,4 +1,4 @@
-// A whole ConvNeXt block in one launch, forward, f32, for Hopper (sm_90a).
+// A whole ConvNeXt block, forward, f32, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tpu_captioner/ops/block_fused.py:_kernel (launched
 // by _fused_pallas under fused_convnext_block).  For x (B, H, W, C), NHWC,
@@ -10,209 +10,339 @@
 // with LayerNorm eps 1e-6, the exact erf GELU, dw_w (7, 7, C), sd (B,) one
 // stochastic-depth scale per image, W1 (4C, C) and W2 (C, 4C).
 //
-// What bounds it on the H100: the tail's arithmetic (16*N*C^2 FFMA flops,
-// see mlp_tail.cuh); the conv adds 98*N*C flops, 98/(16*C) of the tail's:
-// 4.8% at C = 128, 1.2% at C = 512.  Device memory sees x read and out
-// written once, against five (N, C) transfers for the separate conv and
-// tail kernels (x read, t written, t and the residual read, out written).
+// What bounds it on the H100: the tail's two products, 16*N*C^2 flops at
+// the f32-accurate tensor-core rate (3xTF32: 165 TFLOP/s), 7.61 ms per bs-32
+// encoder pass; the conv adds 98*N*C flops, 98/(16*C) of them.  The TPU
+// kernel exists to keep t out of device memory, and so does this one.
 //
-// The design, written for this card rather than from the Pallas body:
-// - the TPU kernel's halo strips (_halo_strips, _pick_th) exist only to fit
-//   its VMEM tiles.  Here a thread block owns BM consecutive NHWC rows
-//   (pixels), as the MLP-tail kernel does, and its prologue computes each
-//   row's 49-tap conv straight from x in device memory, zero outside the
-//   image.  A thread takes kGW = 8 consecutive pixels of one channel, so
-//   neighbouring threads read neighbouring channels (coalesced).  When W is
-//   a multiple of 8 (every ConvNeXt-Base stage) the 8 pixels lie in one image
-//   row and each of the 7 tap rows is read as 14 values held in registers:
-//   12.25 loads per output instead of 49, which matters because with the
-//   tail's shared memory in use little L1 is left and the taps come from
-//   L2.  Other widths take a per-pixel path whose rows may cross image rows
-//   and images (the ragged shapes of the tests);
-// - the results go into the k-major shared tile xs, where the MLP-tail
-//   kernel stages LN(x), as float4 stores: with the BMP padding the stores
-//   of a warp are conflict-free;
-// - at C = 512 and 1024 the tail runs over 2- and 4-block clusters and every
-//   rank needs the whole LN row.  Each rank convolves C / S channels of the
-//   tile and gathers the others' through distributed shared memory, between
-//   two cluster barriers.  The simpler choice, every rank convolving the
-//   whole tile (98/(16*C) of the tail's flops, 1.2% at C = 512), also reads
-//   the taps S times from L2.  A first version that did so, with 4 pixels
-//   per thread and 49 loads per output, took 2.43 ms a launch at
-//   (32, 16, 16, 512) and 4.82 ms at (32, 8, 8, 1024); this one takes 1.39
-//   and 3.51 ms, against 1.36 and 3.43 ms for the MLP-tail kernel alone
-//   (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at 700 W);
-// - LayerNorm then runs in place: BM threads per channel group, two passes
-//   (mean, then the centred sum of squares) with the partial sums reduced
-//   through shared memory, and the tail runs exactly as in the MLP-tail
-//   kernel (mlp_tail.cuh, shared with mlp_block.cu), with x's own rows as
-//   the residual and the image's scale sd[g / (H*W)].
+// The design: a sequence of launches on one stream, what the MLP-tail path
+// runs (mlp_block.cu) with the conv folded into its LayerNorm launch.
+// - conv_ln_kernel (here): t and LN(t) of every pixel, written straight
+//   into the two TF32 planes (N, C) that the first product reads; t itself
+//   never reaches device memory.  A pixel's LayerNorm needs all C channels,
+//   a warp of the conv 32 channels of a 2 x 8 patch.  So a cluster of C /
+//   128 blocks splits the channels: rank r convolves channels [128 r, 128 r
+//   + 128) of every tile the cluster walks (th x 8 pixels of one image),
+//   with the depthwise conv's consumers (dwconv_tile.cuh: 49 taps of the
+//   lane's channel in registers, halo'd boxes by TMA through an mbarrier
+//   ring, the padding zero-filled by the copy engine).  Each rank takes its
+//   channels' mean and centred sum of squares of each pixel (two passes
+//   over registers: warp sums, then the four channel groups in shared
+//   memory), the ranks swap those two floats a pixel through distributed
+//   shared memory, and each merges them as Chan et al. do (M2 = sum M2_r +
+//   128 sum (mean_r - mean)^2): no one-pass sum of squares, which cancels
+//   in f32, and no tile of t crosses the cluster.  The tile's values stay
+//   in registers from the conv to the planes.
+// - mlp_products.cuh: the weights' TF32 split and the two products on the
+//   3xTF32 GEMM (tf32x3_gemm.cuh), as in the MLP-tail path: HiddenEpi
+//   writes gelu(.) into h's planes, OutEpi adds x itself as the residual
+//   with the image's scale sd[m / (H*W)].  Images with sd 0 come out as
+//   their input bit for bit.
+// Against the MLP-tail path plus the separate conv this saves t's write and
+// read (8*N*C bytes a block, ~0.47 ms per bs-32 pass at 3.35 TB/s) and the
+// LayerNorm launch.  The f32 FFMA tail (mlp_tail.cuh) that a single-launch
+// version of this kernel ran is not used: its products ran at a third of
+// the tensor cores' f32-accurate rate.
 
-#include "mlp_tail.cuh"
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "dwconv_tile.cuh"
+#include "mlp_products.cuh"
+#include "warp_reduce.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTaps = 7, kPad = 3;
-constexpr int kGW = 8;  // pixels of one channel a thread convolves together
+// The plan's constants (ops/block_fused.py:block_plan; every number is
+// re-checked here).
+constexpr int kCc = 128;                // channels per block: four 32-channel groups
+constexpr int kGroups = kCc / 32;
+constexpr int kTw = kS;                 // tile columns: one warp patch across
+constexpr int kBoxC = kTw + 2 * PAD;    // staged columns
+constexpr int kMaxTh = 8;               // tile rows: at most 4 warp patches down
+constexpr int kMaxP = kMaxTh * kTw;     // pixels a tile
+constexpr int kMaxThreads = 32 * kGroups * (kMaxTh / kR);
+constexpr int kMaxSlots = 4;
+constexpr int kSmemMax = 232448;
+constexpr int kHeader = 128 + 128;  // base alignment slack, then the mbarriers
+// Shared floats beside the ring: the groups' sums, the rank's means, the
+// swapped (mean, M2) pairs (two tiles' worth), the merged (mean, rstd).
+constexpr int kSmall = kGroups * kMaxP + kMaxP + 2 * 2 * kMaxP + 2 * kMaxP;
 
-template <class K>
-__global__ void __launch_bounds__(kThreads) block_fused_kernel(
-    const float* __restrict__ x, const float* __restrict__ sd,
-    const float* __restrict__ dww, const float* __restrict__ dwb,
-    const float* __restrict__ lnw, const float* __restrict__ lnb,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ gamma, float* __restrict__ out, int n, int H, int W) {
-  constexpr int C = K::C, BM = K::BM, BMP = K::BMP;
-  static_assert(BM % kGW == 0 && kThreads % BM == 0, "kGW-row groups; whole channel groups of BM threads");
-  constexpr int G = kThreads / BM;  // channel groups of the LayerNorm
-  static_assert((G + 2) * BM <= K::kHs, "the LayerNorm's partial sums fit the hidden tile");
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                   // (C, BMP) conv output, then LN of it, k-major
-  float* red = smem + K::kXs + K::kW1;  // the hidden tile, free until the tail
+struct Geom {
+  int B, H, W, C;
+  int th, slots, parts;
+  int tiles_w, per_img, tiles;  // tiles across, per image, in all
+  int per32, units;             // patches per 32 channels, consumer warps
+  int slot_floats;
+};
 
-  const int t = threadIdx.x;
-  const int q_rank = blockIdx.x % K::S;
-  const int row0 = (blockIdx.x / K::S) * BM;
-  const int hw = H * W;
+__host__ __device__ inline int slot_bytes(int th) { return 4 * (th + 2 * PAD) * kBoxC * kCc; }  // a halo'd box
 
-  // Depthwise conv + bias of this rank's channels (all of them without a
-  // cluster): item (group rg of kGW rows, channel c).
-  constexpr int CS = C / K::S;
-  for (int i = t; i < BM / kGW * CS; i += kThreads) {
-    const int c = q_rank * CS + i % CS, rg = i / CS, g0 = row0 + kGW * rg;
-    float acc[kGW];
-    if (W % kGW == 0) {
-      // The group is kGW pixels w0 .. w0 + kGW - 1 of one image row, all
-      // below n or all past it (n = B*H*W): each tap row's kGW + 6 inputs
-      // are read once for all of them.
-      const int h = g0 % hw / W, w0 = g0 % W;
-#pragma unroll
-      for (int e = 0; e < kGW; ++e) acc[e] = g0 < n ? dwb[c] : 0.f;
-      if (g0 < n) {
-#pragma unroll
-        for (int dy = 0; dy < kTaps; ++dy) {
-          const int y = h + dy - kPad;
-          if (y < 0 || y >= H) continue;
-          const long long row = (long long)g0 + (long long)(dy - kPad) * W - w0;  // pixel (y, 0)
-          float xv[kGW + kTaps - 1];
-#pragma unroll
-          for (int j = 0; j < kGW + kTaps - 1; ++j) {
-            const int col = w0 + j - kPad;
-            xv[j] = col >= 0 && col < W ? __ldg(x + (row + col) * C + c) : 0.f;
-          }
-#pragma unroll
-          for (int dx = 0; dx < kTaps; ++dx) {
-            const float wt = __ldg(dww + (dy * kTaps + dx) * C + c);
-#pragma unroll
-            for (int e = 0; e < kGW; ++e) acc[e] = fmaf(xv[e + dx], wt, acc[e]);
-          }
-        }
-      }
-    } else {
-      // Other widths: each row finds its own (b, h, w); rows may cross image
-      // rows and images inside the group.
-#pragma unroll
-      for (int e = 0; e < kGW; ++e) {
-        const int g = g0 + e, h = g % hw / W, w = g % W;
-        acc[e] = 0.f;
-        if (g >= n) continue;
-        acc[e] = dwb[c];
-        for (int dy = 0; dy < kTaps; ++dy) {
-          const int y = h + dy - kPad;
-          if (y < 0 || y >= H) continue;
-          for (int dx = 0; dx < kTaps; ++dx) {
-            const int xw = w + dx - kPad;
-            if (xw >= 0 && xw < W)
-              acc[e] = fmaf(__ldg(x + ((long long)g + (long long)(dy - kPad) * W + (dx - kPad)) * C + c),
-                            __ldg(dww + (dy * kTaps + dx) * C + c), acc[e]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < kGW; e += 4)
-      st4(xs + c * BMP + kGW * rg + e, make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]));
-  }
-  if constexpr (K::S > 1) {
-    // Gather the other ranks' channels through distributed shared memory.
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every rank's channels are written
-    for (int k = 1; k < K::S; ++k) {
-      const int src = (q_rank + k) % K::S;
-      const float* peer = cluster.map_shared_rank(xs, src);
-      for (int i = t; i < CS * BM / 4; i += kThreads) {
-        const int o = (src * CS + i / (BM / 4)) * BMP + 4 * (i % (BM / 4));
-        st4(xs + o, ld4(peer + o));
-      }
-    }
-    cluster.sync();  // no rank reuses its tile (the tail's epilogue) while a peer reads it
-  } else {
-    __syncthreads();
-  }
-
-  // LayerNorm in place: thread (r, grp) sums channels grp, grp + G, ...
-  const int r = t % BM, grp = t / BM;
-  float s = 0.f;
-  for (int c = grp; c < C; c += G) s += xs[c * BMP + r];
-  red[grp * BM + r] = s;
-  __syncthreads();
-  if (t < BM) {
-    float tot = 0.f;
-    for (int q = 0; q < G; ++q) tot += red[q * BM + t];
-    red[G * BM + t] = tot * (1.0f / C);
-  }
-  __syncthreads();
-  const float mu = red[G * BM + r];
-  float ss = 0.f;
-  for (int c = grp; c < C; c += G) {
-    const float d = xs[c * BMP + r] - mu;
-    ss += d * d;
-  }
-  red[grp * BM + r] = ss;
-  __syncthreads();
-  if (t < BM) {
-    float tot = 0.f;
-    for (int q = 0; q < G; ++q) tot += red[q * BM + t];
-    red[(G + 1) * BM + t] = rsqrtf(tot * (1.0f / C) + kLnEps);
-  }
-  __syncthreads();
-  const float rstd = red[(G + 1) * BM + r];
-  for (int c = grp; c < C; c += G) xs[c * BMP + r] = (xs[c * BMP + r] - mu) * rstd * lnw[c] + lnb[c];
-
-  mlp_tail<K>(smem, x, sd, hw, w1, b1, w2, b2, gamma, out, n, row0, q_rank);
+// The plan's derived numbers; false if the plan breaks a rule of the kernel
+// or disagrees with the shared memory it needs.
+bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int cluster, int slots, int parts,
+               int smem) {
+  if (B < 1 || H < 1 || W < 1 || cc != kCc || tw != kTw || C % kCc || C / kCc != cluster || cluster > 8)
+    return false;
+  if (th < kR || th > kMaxTh || th % kR || slots < 2 || slots > kMaxSlots || parts < 1) return false;
+  g.B = B, g.H = H, g.W = W, g.C = C, g.th = th, g.slots = slots, g.parts = parts;
+  g.tiles_w = (W + kTw - 1) / kTw;
+  g.per_img = (H + th - 1) / th * g.tiles_w;
+  g.tiles = B * g.per_img;
+  g.per32 = th / kR;
+  g.units = kGroups * g.per32;
+  g.slot_floats = slot_bytes(th) / 4;
+  const long long need = kHeader + 4LL * kSmall + (long long)slots * slot_bytes(th);
+  return need <= kSmemMax && need == smem && (long long)parts * cluster <= 65535;
 }
 
-template <class K>
-int launch(const float* x, const float* sd, const float* dww, const float* dwb, const float* lnw,
-           const float* lnb, const float* w1, const float* b1, const float* w2, const float* b2,
-           const float* gamma, float* out, int n, int h, int w, cudaStream_t stream) {
-  return launch_tail<K>(block_fused_kernel<K>, n, stream, x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2,
-                        gamma, out, n, h, w);
+// grid (parts x C / 128 blocks), clusters of C / 128 along x; 32 * units
+// threads, every warp a consumer.  Thread 0 also issues the ring's copies.
+template <int C>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    conv_ln_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ dww,
+                   const float* __restrict__ dwb, const float* __restrict__ lnw, const float* __restrict__ lnb,
+                   float* __restrict__ planes, Geom g) {
+  constexpr int S = C / kCc;
+  float* base = smem_base();
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  float* red = base + 32;  // (kGroups, kMaxP)
+  float* mean_l = red + kGroups * kMaxP;
+  float2* xchg = reinterpret_cast<float2*>(mean_l + kMaxP);  // (2, kMaxP)
+  float2* stats = xchg + 2 * kMaxP;
+  float* ring = reinterpret_cast<float*>(stats + kMaxP);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int rank = 0;
+  if constexpr (S > 1) rank = (int)cg::this_cluster().block_rank();
+  const int part = blockIdx.x / S, c = rank * kCc + warp / g.per32 * 32 + lane;
+  const int n_local = part < g.tiles ? (g.tiles - part + g.parts - 1) / g.parts : 0;
+  const int pixels = g.th * kTw, box_bytes = slot_bytes(g.th);
+  const Unit u = unit_of(g.per32, 1, warp, lane);
+  const long long plane = (long long)g.B * g.H * g.W * C;
+
+  auto origin = [&](int i, int& b, int& h0, int& w0) {
+    const int t = part + i * g.parts, r = t % g.per_img;
+    b = t / g.per_img, h0 = r / g.tiles_w * g.th, w0 = r % g.tiles_w * kTw;
+  };
+  auto fetch = [&](int i) {  // tile i's halo'd box of this rank's channels into slot i % slots
+    int b, h0, w0;
+    origin(i, b, h0, w0);
+    const int s = i % g.slots;
+    mbar_expect_tx(&full[s], box_bytes);
+    tma_load_4d(ring + s * g.slot_floats, &xmap, rank * kCc, w0 - PAD, h0 - PAD, b, &full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.slots; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < g.slots && i < n_local; ++i) fetch(i);
+
+  float wr[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) wr[t] = __ldg(dww + t * C + c);
+  const float bias = __ldg(dwb + c), ln_w = __ldg(lnw + c), ln_b = __ldg(lnb + c);
+  // The tile pixel of this lane's sums after reduce_scatter16: value (lane
+  // >> 1) & 15 of the patch, row / kS down and % kS across.
+  const int mine = (lane >> 1) & 15, my_pixel = (u.prow + mine / kS) * kTw + mine % kS;
+
+  for (int i = 0; i < n_local; ++i) {
+    const int s = i % g.slots;
+    mbar_wait(&full[s], (i / g.slots) & 1);
+    float acc[kR][kS];
+    conv_patch(ring + s * g.slot_floats + u.prow * kBoxC * kCc + u.lc, kBoxC, kCc, wr, acc);
+    float t[kR * kS], v[kR * kS];
+#pragma unroll
+    for (int k = 0; k < kR * kS; ++k) v[k] = t[k] = acc[k / kS][k % kS] + bias;
+
+    // Pass 1: the mean of each pixel over this rank's 128 channels.
+    reduce_scatter16(v, lane);
+    if (!(lane & 1)) red[warp / g.per32 * kMaxP + my_pixel] = v[0];
+    __syncthreads();  // the slot is consumed and the groups' sums are in
+    if (threadIdx.x == 0 && i + g.slots < n_local) {
+      fence_proxy_async_shared();  // the consumers' reads of the slot come before the copy's writes
+      fetch(i + g.slots);
+    }
+    if (threadIdx.x < pixels) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) sum += red[q * kMaxP + threadIdx.x];
+      mean_l[threadIdx.x] = sum * (1.0f / kCc);
+    }
+    __syncthreads();
+
+    // Pass 2: the centred sum of squares about that mean.
+#pragma unroll
+    for (int k = 0; k < kR * kS; ++k) {
+      const float d = t[k] - mean_l[(u.prow + k / kS) * kTw + k % kS];
+      v[k] = d * d;
+    }
+    reduce_scatter16(v, lane);
+    if (!(lane & 1)) red[warp / g.per32 * kMaxP + my_pixel] = v[0];
+    __syncthreads();
+    float2* mine_x = xchg + (i & 1) * kMaxP;  // two tiles' buffers: see the barrier below
+    if (threadIdx.x < pixels) {
+      float m2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) m2 += red[q * kMaxP + threadIdx.x];
+      mine_x[threadIdx.x] = make_float2(mean_l[threadIdx.x], m2);
+    }
+    // Every rank's pairs are in.  A rank writes buffer i & 1 again at tile
+    // i + 2, after this barrier of tile i + 1, which no rank passes before
+    // it has read tile i's pairs.
+    if constexpr (S > 1)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+    if (threadIdx.x < pixels) {
+      float2 p[S];
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        if constexpr (S > 1)
+          p[r] = cg::this_cluster().map_shared_rank(mine_x, r)[threadIdx.x];
+        else
+          p[r] = mine_x[threadIdx.x];
+      }
+      float mean = 0.f;
+#pragma unroll
+      for (int r = 0; r < S; ++r) mean += p[r].x;
+      mean *= 1.0f / S;
+      float m2 = 0.f;
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        const float d = p[r].x - mean;
+        m2 += p[r].y + kCc * (d * d);
+      }
+      stats[threadIdx.x] = make_float2(mean, rsqrtf(m2 * (1.0f / C) + kLnEps));
+    }
+    __syncthreads();
+
+    int b, h0, w0;
+    origin(i, b, h0, w0);
+#pragma unroll
+    for (int k = 0; k < kR * kS; ++k) {
+      const int h = h0 + u.prow + k / kS, w = w0 + k % kS;
+      if (h >= g.H || w >= g.W) continue;
+      const float2 st = stats[(u.prow + k / kS) * kTw + k % kS];
+      const size_t at = (((size_t)b * g.H + h) * g.W + w) * C + c;
+      tf32x3::store_split(planes, plane, at, (t[k] - st.x) * st.y * ln_w + ln_b);
+    }
+  }
+  if constexpr (S > 1) cg::this_cluster().sync();  // peers may still be reading this block's pairs
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+cudaLaunchConfig_t conv_ln_config(const Geom& g, int smem, int cluster, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.parts * cluster);
+  cfg.blockDim = dim3(32 * g.units);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+template <int C>
+cudaError_t allow_smem() {
+  static bool done = false;  // set once per instance, not at every launch
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(conv_ln_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kSmemMax);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int C>
+int forward(const float* x, const float* sd, const float* dww, const float* dwb, const float* lnw,
+            const float* lnb, const float* w1, const float* b1, const float* w2, const float* b2,
+            const float* gamma, float* out, float* work, const Geom& g, int smem, cudaStream_t s) {
+  const int n = g.B * g.H * g.W;
+  CUtensorMap xmap = {};
+  cudaError_t err = bind_device(x);
+  if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, C, kCc, kBoxC, g.th + 2 * PAD);
+  if (err == cudaSuccess) err = allow_smem<C>();
+  if (err == cudaSuccess) err = split_weights<C>(w1, w2, work, n, s);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = conv_ln_config(g, smem, C / kCc, s, attr);
+  err = cudaLaunchKernelEx(&cfg, conv_ln_kernel<C>, xmap, dww, dwb, lnw, lnb, work + make_plan(n, C).xs, g);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err == cudaSuccess) err = products<C>(x, sd, g.H * g.W, b1, b2, gamma, out, work, n, s);
+  return (int)err;
+}
+
+template <int C>
+int active_clusters(int units, int smem) {
+  cudaError_t err = allow_smem<C>();
+  if (err != cudaSuccess) return -(int)err;
+  Geom g = {};
+  g.parts = 1, g.units = units;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = conv_ln_config(g, smem, C / kCc, nullptr, attr);
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, conv_ln_kernel<C>, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The tiles of mlp_block.cu's monolithic instances, by width.
+// Floats of workspace tc_block_fused_forward needs for n = B*H*W pixels of
+// width c: the LayerNorm planes, h's planes and the weights' splits.
+long long tc_block_fused_workspace(int n, int c) { return make_plan(n, c).total; }
+
+// out = the block of x (B, H, W, C); work holds tc_block_fused_workspace(B
+// * H * W, C) floats.  (th, tw, cc, cluster, slots, parts, smem) is
+// ops/block_fused.py:block_plan(B, H, W, C); a plan that breaks a rule, a
+// width other than 128, 256, 512 or 1024, or an x off a 16-byte boundary
+// returns cudaErrorInvalidValue without a launch.  Five launches on
+// `stream`: the weights' two splits, the conv + LayerNorm, the two products.
 int tc_block_fused_forward(const float* x, const float* sd, const float* dww, const float* dwb,
                            const float* lnw, const float* lnb, const float* w1, const float* b1,
-                           const float* w2, const float* b2, const float* gamma, float* out,
-                           int b, int h, int w, int c, void* stream) {
+                           const float* w2, const float* b2, const float* gamma, float* out, float* work,
+                           int B, int H, int W, int C, int th, int tw, int cc, int cluster, int slots, int parts,
+                           int smem, void* stream) {
+  Geom g;
+  if (!make_geom(g, B, H, W, C, th, tw, cc, cluster, slots, parts, smem) || !aligned16(x))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = b * h * w;
+#define TC_ARGS x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, work, g, smem, s
+  switch (C) {
+    case 128: return forward<128>(TC_ARGS);
+    case 256: return forward<256>(TC_ARGS);
+    case 512: return forward<512>(TC_ARGS);
+    case 1024: return forward<1024>(TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC_ARGS
+}
+
+// How many clusters of C / 128 conv + LayerNorm blocks of `units` warps and
+// smem bytes the card runs at once (cudaOccupancyMaxActiveClusters), or
+// minus a cudaError_t.
+int tc_block_fused_clusters(int c, int units, int smem) {
+  if (units < 1 || 32 * units > kMaxThreads || smem > kSmemMax) return -(int)cudaErrorInvalidValue;
   switch (c) {
-    case 128:
-      return launch<Cfg<128, 64, 1, 128, 8, 4, 8, 4>>(x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, n, h, w, s);
-    case 256:
-      return launch<Cfg<256, 32, 1, 256, 8, 4, 8, 4>>(x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, n, h, w, s);
-    case 512:
-      return launch<Cfg<512, 32, 2, 256, 8, 4, 8, 8>>(x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, n, h, w, s);
-    case 1024:
-      return launch<Cfg<1024, 16, 4, 256, 4, 4, 8, 8>>(x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, n, h, w, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 128: return active_clusters<128>(units, smem);
+    case 256: return active_clusters<256>(units, smem);
+    case 512: return active_clusters<512>(units, smem);
+    case 1024: return active_clusters<1024>(units, smem);
+    default: return -(int)cudaErrorInvalidValue;
   }
 }
 

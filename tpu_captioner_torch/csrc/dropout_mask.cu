@@ -14,14 +14,16 @@
 // plain version (ops/dropout_mask.py:_mask_plain) computes the same bits in
 // PyTorch integer arithmetic.
 //
-// What bounds it: the bytes it writes.  The kernel reads nothing; at the
-// flagship train step (batch 32, T 52, six layers) it writes 29,366,272
-// one-byte bools, 8.8 us at 3.35 TB/s.  The Philox rounds are integer
-// multiplies and xors of the same order, about 7.3 M calls.  So the design
-// keeps every store full width: each thread makes one Philox call per group
-// of four outputs and writes the four bools as one aligned 4-byte store.  A
-// grid-stride loop covers any n; only the last, ragged group stores byte by
-// byte.
+// What bounds it: the integer multiplies.  At the flagship train step
+// (batch 32, T 52, six layers) it writes 29,366,272 one-byte bools, 8.8 us
+// at 3.35 TB/s, and makes 7.34 M Philox calls of 19 32x32 -> 64-bit
+// products each (the first round's second product is of the counter's zero
+// word), one IMAD.WIDE.U32 a product, two 32-bit results: at the 64 results
+// a clock per SM of the CUDA C++ Programming Guide, 16.7 us on 132 SMs at
+// 1.98 GHz (chip_smoke.py:pool_bound; the derivation is in PERF.md).  Each
+// thread makes one Philox call per group of four outputs and writes the
+// four bools as one aligned 4-byte store.  A grid-stride loop covers any n;
+// only the last, ragged group stores byte by byte.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -84,14 +86,12 @@ extern "C" {
 
 const char* tc_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// out: (n,) one-byte bools, 4-byte aligned.  Returns a cudaError_t code.
+// out: (n,) one-byte bools, 4-byte aligned; sms: the card's SM count (the
+// wrapper asks for it once per device).  Returns a cudaError_t code.
 int tc_dropout_mask_pool(unsigned int seed0, unsigned int seed1, unsigned int threshold, void* out,
-                         long long n, void* stream) {
+                         long long n, int sms, void* stream) {
   if (n <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long groups = (n + 3) / 4;
   const long long needed = (groups + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sms) * 8;  // 8 resident blocks of 256 per SM

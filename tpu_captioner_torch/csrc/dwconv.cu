@@ -57,23 +57,22 @@
 //   their own, so that every shared-memory offset of the inner loop is an
 //   immediate; other shapes take a TMA instance with both at run time, and
 //   C % 4 != 0 or an unaligned pointer the instance without TMA.
+// - Shared.  The tensor map, the consumer warp's patch and bind_device sit
+//   in dwconv_tile.cuh, which the whole-block kernel's conv + LayerNorm
+//   launch (block_fused.cu) runs too.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mbarrier.cuh"
+#include "dwconv_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int K = 7;    // filter size
-constexpr int PAD = 3;  // zero padding on each side
-constexpr int kTaps = K * K;
 constexpr int kRows = kTaps + 1;  // the filter gradient's rows: 49 taps, then the bias
-constexpr int kR = 2, kS = 8;     // a warp's output patch: kR rows x kS columns
 constexpr int kMaxTile = 16;      // tile rows and columns: at most 16 (TMA boxes of at most 22)
 constexpr int kMaxWarps = 16;     // consumer warps per block
 constexpr int kMaxThreads = 32 * (kMaxWarps + 1);
@@ -150,23 +149,6 @@ __device__ __forceinline__ void stage_box(const float* __restrict__ src, const G
   }
 }
 
-// A consumer warp's unit: channel group q (32 lanes), output rows
-// [prow, prow + kR) and columns [pcol, pcol + kS) of every tile.
-struct Unit {
-  int lc;  // the lane's channel within the chunk
-  int prow, pcol;
-};
-
-__device__ __forceinline__ Unit unit_of(const Geom& g, int warp, int lane) {
-  const int q = warp / g.per32, r = warp % g.per32;
-  return {q * 32 + lane, r / g.cols * kR, r % g.cols * kS};
-}
-
-__device__ __forceinline__ float* smem_base() {
-  extern __shared__ uint8_t smem_raw[];
-  return reinterpret_cast<float*>(smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127));
-}
-
 // grid (parts, channel chunks), 32 * (units + 1) threads: warps 0..units-1
 // consume, warp `units` produces.
 template <bool kTma, int kCc, int kTw>
@@ -229,7 +211,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     return;
   }
 
-  const Unit u = unit_of(g, warp, lane);
+  const Unit u = unit_of(g.per32, g.cols, warp, lane);
   const int c = c0 + u.lc;
   const bool valid = u.lc < cc && c < g.C;
   mbar_wait(wbar, 0);
@@ -243,25 +225,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     mbar_wait(&full[s], (i / g.slots) & 1);
     const float* xs = ring + s * g.slot_floats + (u.prow * box_c + u.pcol) * cc + u.lc;
     float acc[kR][kS];
-#pragma unroll
-    for (int r = 0; r < kR; ++r)
-#pragma unroll
-      for (int o = 0; o < kS; ++o) acc[r][o] = 0.f;
-#pragma unroll
-    for (int ir = 0; ir < kR + K - 1; ++ir) {  // staged input rows of the patch
-      float v[kS + K - 1];
-#pragma unroll
-      for (int k = 0; k < kS + K - 1; ++k) v[k] = xs[(ir * box_c + k) * cc];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int dy = ir - r;
-        if (dy < 0 || dy >= K) continue;
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx)
-#pragma unroll
-          for (int o = 0; o < kS; ++o) acc[r][o] = fmaf(v[o + dx], wr[dy * K + dx], acc[r][o]);
-      }
-    }
+    conv_patch(xs, box_c, cc, wr, acc);
     mbar_arrive(&empty[s]);
     int b, h0, w0;
     tile_origin(g, part + i * g.parts, b, h0, w0);
@@ -307,7 +271,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   float acc[kRows];  // the 49 tap sums, then the bias sum, of the lane's channel
 #pragma unroll
   for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
-  const Unit u = warp < g.units ? unit_of(g, warp, lane) : Unit{0, 0, 0};
+  const Unit u = warp < g.units ? unit_of(g.per32, g.cols, warp, lane) : Unit{0, 0, 0};
 
   if (warp == g.units) {  // the producer
     for (int i = 0; i < n_local; ++i) {
@@ -423,44 +387,6 @@ WgradKernel pick_wgrad(bool tma, int cc, int tw) {
   return dwconv_wgrad_kernel<true, 0, 0>;
 }
 
-// Make p's device current for this thread when no context is.  A thread
-// that has made no runtime call yet (autograd runs the backward on one of
-// its own) has none, and cuTensorMapEncodeTiled, a driver call, fails
-// without one.  The check is a driver call through the runtime's entry
-// point (no -lcuda), a thread-local read.
-cudaError_t bind_device(const void* p) {
-  using CtxGetCurrent = CUresult (*)(CUcontext*);
-  static CtxGetCurrent get_current = nullptr;
-  if (!get_current) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuCtxGetCurrent", &fn, cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return cudaErrorNotSupported;
-    get_current = reinterpret_cast<CtxGetCurrent>(fn);
-  }
-  CUcontext ctx = nullptr;
-  if (get_current(&ctx) == CUDA_SUCCESS && ctx != nullptr) return cudaSuccess;
-  cudaPointerAttributes a;
-  const cudaError_t err = cudaPointerGetAttributes(&a, p);
-  return err != cudaSuccess ? err : cudaSetDevice(a.device);
-}
-
-// A 4-D tensor map over the NHWC tensor p (C, W, H, B innermost first) with
-// boxes of (cc, box_w, box_h, 1); out-of-bounds elements read as zeros.
-cudaError_t nhwc_map(CUtensorMap* map, const float* p, const Geom& g, int box_w, int box_h) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)g.C, (cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.B};
-  const cuuint64_t strides[3] = {4ull * g.C, 4ull * g.C * g.W, 4ull * g.C * g.W * g.H};
-  const cuuint32_t box[4] = {(cuuint32_t)g.cc, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(p), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The filter (7, 7, C) as a 2-D map (C, 49) with boxes of (cc, 49).
 cudaError_t filter_map(CUtensorMap* map, const float* w, const Geom& g) {
   const EncodeTiled encode = encode_tiled();
@@ -529,7 +455,7 @@ int tc_dwconv_forward(const float* x, const float* w, const float* bias, float* 
   CUtensorMap xmap = {}, wmap = {};
   if (tma) {
     cudaError_t err = bind_device(x);
-    if (err == cudaSuccess) err = nhwc_map(&xmap, x, g, tw + 2 * PAD, th + 2 * PAD);
+    if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, g.C, g.cc, tw + 2 * PAD, th + 2 * PAD);
     if (err == cudaSuccess) err = filter_map(&wmap, w, g);
     if (err != cudaSuccess) return (int)err;
   }
@@ -551,8 +477,8 @@ int tc_dwconv_wgrad(const float* x, const float* gy, float* dw, float* db, int B
   CUtensorMap xmap = {}, gmap = {};
   if (tma) {
     cudaError_t err = bind_device(x);
-    if (err == cudaSuccess) err = nhwc_map(&xmap, x, g, tw + 2 * PAD, th + 2 * PAD);
-    if (err == cudaSuccess) err = nhwc_map(&gmap, gy, g, tw, th);
+    if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, g.C, g.cc, tw + 2 * PAD, th + 2 * PAD);
+    if (err == cudaSuccess) err = nhwc_map(&gmap, gy, g.B, g.H, g.W, g.C, g.cc, tw, th);
     if (err != cudaSuccess) return (int)err;
   }
   const WgradKernel kernel = pick_wgrad(tma, cc, tw);

@@ -14,27 +14,28 @@
 // the two products, 16*N*C^2 flops, at the f32-accurate tensor-core rate
 // (3xTF32, tf32x3_gemm.cuh: 165 TFLOP/s); 7.50 ms per bs-32 encoder pass.
 // The design: three launches and the weights' split per call.
-// - ln_rows: LayerNorm, one warp per row, writes LN(x) as its two TF32
-//   planes (N, C);
+// - ln_rows (here): LayerNorm, one warp per row, writes LN(x) as its two
+//   TF32 planes (N, C);
 // - gemm 1: h = gelu(LN(x) W1^T + b1), the GELU in the epilogue, which
 //   writes h's two planes (N, 4C) to device memory;
 // - gemm 2: out = res + sd * ((h W2^T + b2) * gamma), all in the epilogue.
-// The TPU kernel keeps h in VMEM.  Here it goes through device memory (and
-// mostly L2): a wgmma accumulator covers 64 rows, and a 64 x C f32 output
-// tile of the second product (256 KB at C = 1024) outgrows a warpgroup's
-// registers, so the two products are two launches of one GEMM, shared
-// with the backward.  Extra bytes per launch: h's planes written and read,
-// 64*N*C; the LN planes, 16*N*C; the weight planes, 64*C^2.  About 3.1 ms
-// per bs-32 encoder pass at 3.35 TB/s.  Rows with sd 0 return the residual
-// bit for bit: res + 0 * (finite) is res.
+// The two products, their epilogues, the workspace plan and the weights'
+// split are mlp_products.cuh's, which the whole-block kernel
+// (block_fused.cu) runs too.  The TPU kernel keeps h in VMEM.  Here it goes
+// through device memory (and mostly L2): a wgmma accumulator covers 64
+// rows, and a 64 x C f32 output tile of the second product (256 KB at C =
+// 1024) outgrows a warpgroup's registers, so the two products are two
+// launches of one GEMM, shared with the backward.  Extra bytes per launch:
+// h's planes written and read, 64*N*C; the LN planes, 16*N*C; the weight
+// planes, 64*C^2.  About 3.1 ms per bs-32 encoder pass at 3.35 TB/s.
 //
-// The sub-tiled instances (SUB > 0, TPU_CAPTIONER_MLP_SUB) keep the f32
-// FFMA tail of mlp_tail.cuh, shared with block_fused.cu: this file holds
-// their LayerNorm prologue, which reads the rows from device memory; the
-// tail itself, what bounds it and its design are in that header.
+// The sub-tiled instances (SUB > 0, TPU_CAPTIONER_MLP_SUB) run the f32
+// FFMA tail of mlp_tail.cuh, which nothing else runs: this file holds their
+// LayerNorm prologue, which reads the rows from device memory; the tail
+// itself, what bounds it and its design are in that header.
 
+#include "mlp_products.cuh"
 #include "mlp_tail.cuh"
-#include "tf32x3_gemm.cuh"
 
 namespace {
 
@@ -130,70 +131,16 @@ __global__ void __launch_bounds__(kThreads) ln_rows(const float* __restrict__ x,
   }
 }
 
-struct HiddenEpi {  // h = gelu(v + b1) into h's planes (N, 4C)
-  const float* b1;
-  float* h;
-  long long plane;
-  int ld;
-  __device__ void operator()(int m, int n, float2 v) const {
-    const float2 b = *reinterpret_cast<const float2*>(b1 + n);
-    tf32x3::store_split2(h, plane, (size_t)m * ld + n, gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
-  }
-};
-
-struct OutEpi {  // out = res + sd * ((v + b2) * gamma)
-  const float* res;
-  const float* sd;
-  const float* b2;
-  const float* gamma;
-  float* out;
-  int ld;
-  __device__ void operator()(int m, int n, float2 v) const {
-    const size_t o = (size_t)m * ld + n;
-    const float2 r = *reinterpret_cast<const float2*>(res + o), b = *reinterpret_cast<const float2*>(b2 + n);
-    const float2 g = *reinterpret_cast<const float2*>(gamma + n);
-    const float s = sd[m];
-    *reinterpret_cast<float2*>(out + o) = make_float2(r.x + s * ((v.x + b.x) * g.x), r.y + s * ((v.y + b.y) * g.y));
-  }
-};
-
-long long round32(long long v) { return (v + 31) / 32 * 32; }
-
-// Where the whole-tile path's planes start in its workspace (floats).
-struct Plan {
-  long long xs, h, w1s, w2s, total;
-};
-
-Plan make_plan(int n, int c) {
-  Plan p;
-  const long long nc = (long long)n * c, cc = (long long)c * c;
-  p.xs = 0;
-  p.h = p.xs + round32(2 * nc);
-  p.w1s = p.h + round32(8 * nc);
-  p.w2s = p.w1s + round32(8 * cc);
-  p.total = p.w2s + round32(8 * cc);
-  return p;
-}
-
 template <int C>
 int whole_tile(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
                const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma,
                float* out, float* work, int n, cudaStream_t s) {
-  using tf32x3::Operand;
-  constexpr int C4 = 4 * C;
-  const Plan p = make_plan(n, C);
-  float *xs = work + p.xs, *h = work + p.h, *w1s = work + p.w1s, *w2s = work + p.w2s;
-  cudaError_t err = tf32x3::split(w1, C4, C, w1s, nullptr, 0, s);
-  if (err == cudaSuccess) err = tf32x3::split(w2, C, C4, w2s, nullptr, 0, s);
+  cudaError_t err = split_weights<C>(w1, w2, work, n, s);
   if (err != cudaSuccess) return (int)err;
-  ln_rows<C><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(x, lnw, lnb, xs, n);
+  ln_rows<C><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(x, lnw, lnb, work + make_plan(n, C).xs,
+                                                                             n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long nc = (long long)n * C;
-  const Operand xo{xs, n, C, C, nc}, w1o{w1s, C4, C, C, 4LL * C * C};
-  const Operand ho{h, n, C4, C4, 4 * nc}, w2o{w2s, C, C4, C4, 4LL * C * C};
-  err = tf32x3::gemm(xo, w1o, HiddenEpi{b1, h, 4 * nc, C4}, s);
-  if (err == cudaSuccess) err = tf32x3::gemm(ho, w2o, OutEpi{res, sd, b2, gamma, out, C}, s);
-  return (int)err;
+  return (int)products<C>(res, sd, 1, b1, b2, gamma, out, work, n, s);
 }
 
 // The sub-tiled instances' tiles by width.  The narrow stages have rows to

@@ -1,0 +1,104 @@
+// The ConvNeXt block tail's two products on the 3xTF32 GEMM
+// (tf32x3_gemm.cuh), shared by the two paths that feed them LayerNorm rows
+// as TF32 planes: the MLP tail's whole-tile path (mlp_block.cu, whose
+// ln_rows normalises the depthwise conv's output) and the whole-block
+// kernel (block_fused.cu, whose conv + LayerNorm launch writes the planes
+// straight from the conv).  For rows m < n of the planes xs (N, C):
+//
+//     h   = gelu(xs W1^T + b1)                                (HiddenEpi)
+//     out = res + sd[m / per] * ((h W2^T + b2) * gamma)      (OutEpi)
+//
+// with the exact erf GELU: per = 1 takes one scale a row (the MLP tail's
+// sd), per = H * W one an image (the block's).  W1 is (4C, C) and W2 (C,
+// 4C), the nn.Linear layouts.  The weights are split into their TF32
+// planes at every call (the optimizer updates them in place).  h goes
+// through device memory as two planes (N, 4C): a wgmma accumulator covers
+// 64 rows, and a 64 x C f32 tile of the second product outgrows a
+// warpgroup's registers (see mlp_block.cu).  Rows with sd 0 return res bit
+// for bit: res + 0 * (finite) is res.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "tf32x3_gemm.cuh"
+
+namespace {
+
+constexpr float kLnEps = 1e-6f;
+
+__device__ __forceinline__ float gelu_exact(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+struct HiddenEpi {  // h = gelu(v + b1) into h's planes (N, 4C)
+  const float* b1;
+  float* h;
+  long long plane;
+  int ld;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + n);
+    tf32x3::store_split2(h, plane, (size_t)m * ld + n, gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
+  }
+};
+
+struct OutEpi {  // out = res + sd[m / per] * ((v + b2) * gamma)
+  const float* res;
+  const float* sd;
+  int per;  // rows per scale
+  const float* b2;
+  const float* gamma;
+  float* out;
+  int ld;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const size_t o = (size_t)m * ld + n;
+    const float2 r = *reinterpret_cast<const float2*>(res + o), b = *reinterpret_cast<const float2*>(b2 + n);
+    const float2 g = *reinterpret_cast<const float2*>(gamma + n);
+    const float s = sd[per == 1 ? m : m / per];
+    *reinterpret_cast<float2*>(out + o) = make_float2(r.x + s * ((v.x + b.x) * g.x), r.y + s * ((v.y + b.y) * g.y));
+  }
+};
+
+inline long long round32(long long v) { return (v + 31) / 32 * 32; }
+
+// Where the planes start in the workspace (floats): the LayerNorm rows
+// (2 N C), h (8 N C), W1's and W2's splits (8 C^2 each).
+struct Plan {
+  long long xs, h, w1s, w2s, total;
+};
+
+inline Plan make_plan(int n, int c) {
+  Plan p;
+  const long long nc = (long long)n * c, cc = (long long)c * c;
+  p.xs = 0;
+  p.h = p.xs + round32(2 * nc);
+  p.w1s = p.h + round32(8 * nc);
+  p.w2s = p.w1s + round32(8 * cc);
+  p.total = p.w2s + round32(8 * cc);
+  return p;
+}
+
+// W1's and W2's TF32 planes into the workspace of n rows.
+template <int C>
+cudaError_t split_weights(const float* w1, const float* w2, float* work, int n, cudaStream_t s) {
+  const Plan p = make_plan(n, C);
+  cudaError_t err = tf32x3::split(w1, 4 * C, C, work + p.w1s, nullptr, 0, s);
+  if (err == cudaSuccess) err = tf32x3::split(w2, C, 4 * C, work + p.w2s, nullptr, 0, s);
+  return err;
+}
+
+// The two products over the LayerNorm planes already in the workspace.
+template <int C>
+cudaError_t products(const float* res, const float* sd, int per, const float* b1, const float* b2,
+                     const float* gamma, float* out, float* work, int n, cudaStream_t s) {
+  using tf32x3::Operand;
+  constexpr int C4 = 4 * C;
+  const Plan p = make_plan(n, C);
+  const long long nc = (long long)n * C;
+  const Operand xo{work + p.xs, n, C, C, nc}, w1o{work + p.w1s, C4, C, C, 4LL * C * C};
+  const Operand ho{work + p.h, n, C4, C4, 4 * nc}, w2o{work + p.w2s, C, C4, C4, 4LL * C * C};
+  cudaError_t err = tf32x3::gemm(xo, w1o, HiddenEpi{b1, work + p.h, 4 * nc, C4}, s);
+  if (err == cudaSuccess) err = tf32x3::gemm(ho, w2o, OutEpi{res, sd, per, b2, gamma, out, C}, s);
+  return err;
+}
+
+}  // namespace

@@ -1,8 +1,8 @@
-// The ConvNeXt block tail in f32 FFMA, shared by the MLP-tail kernel's
-// sub-tiled instances (mlp_block.cu, SUB > 0: PERF.md row 2) and the
-// whole-block kernel (block_fused.cu: row 9), for Hopper (sm_90a).  The
-// MLP-tail kernel's default whole-tile path (row 1) no longer runs it: it
-// takes its products from the tensor cores (3xTF32, tf32x3_gemm.cuh).
+// The ConvNeXt block tail in f32 FFMA, for the MLP-tail kernel's sub-tiled
+// instances (mlp_block.cu, SUB > 0: PERF.md row 2), for Hopper (sm_90a).
+// The MLP-tail kernel's default whole-tile path (row 1) and the whole-block
+// kernel (block_fused.cu: row 9) no longer run it: they take their products
+// from the tensor cores (3xTF32, mlp_products.cuh on tf32x3_gemm.cuh).
 //
 // A block owns BM rows whose LayerNorm output its prologue has written into
 // the k-major shared tile xs; `mlp_tail` then computes, for each row g,
@@ -55,14 +55,15 @@
 // instance per launch and SUB = 8 1.19-1.61 times: the extra staging and the
 // smaller tiles cost more than the interleave saves, so the instances stay
 // an option, off by default, as in the JAX package.
-// Later PRs: rows 2 and 9 onto the tensor-core products of
-// tf32x3_gemm.cuh, as row 1 went; then bf16.
+// Later PRs: row 2 onto the tensor-core products of tf32x3_gemm.cuh, as
+// rows 1 and 9 went; then bf16.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "mlp_products.cuh"  // gelu_exact, kLnEps
 #include "warp_reduce.cuh"
 
 namespace cg = cooperative_groups;
@@ -72,7 +73,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kKC = 32;  // k-slice of W1 staged at a time
 constexpr int kJS = 16;  // hidden units of W2 staged at a time
-constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -84,10 +84,6 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
 
 __device__ __forceinline__ float at(float4 v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float gelu_exact(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
 // Rows per block BM, cluster size S, hidden chunk JC, the per-thread tiles

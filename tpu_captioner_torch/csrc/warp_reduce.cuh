@@ -42,4 +42,14 @@ __device__ __forceinline__ void reduce_scatter64(float* v, int lane) {
   reduce_half<2, 1>(v, lane);
 }
 
+// Sums over the warp's 32 lanes of 16 values each: lane j ends with the sum
+// of value (j >> 1) & 15 in v[0] (lanes 2i and 2i + 1 hold the same sum).
+__device__ __forceinline__ void reduce_scatter16(float* v, int lane) {
+  reduce_half<8, 16>(v, lane);
+  reduce_half<4, 8>(v, lane);
+  reduce_half<2, 4>(v, lane);
+  reduce_half<1, 2>(v, lane);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
 }  // namespace

@@ -1,5 +1,4 @@
-"""A whole ConvNeXt block in one kernel (counterpart of
-``tpu_captioner/ops/block_fused.py``).
+"""A whole ConvNeXt block (counterpart of ``tpu_captioner/ops/block_fused.py``).
 
     out = x + sd * gamma * MLP(LN(dwconv7x7(x) + dw_b))
 
@@ -10,6 +9,11 @@ port's ``nn.Linear`` layouts: w1 (4C, C), w2 (C, 4C).
 ``fused_convnext_block`` is a ``torch.autograd.Function`` (the JAX package's
 ``custom_vjp``).  Its forward launches ``csrc/block_fused.cu`` for CUDA
 tensors and runs ``_block_plain`` for CPU tensors; any other device raises.
+On the card a forward is one call of the C entry point, which launches the
+weights' TF32 split, the conv + LayerNorm kernel (tiles from
+``block_plan``) that writes LN(t) as the two TF32 planes of the first
+product, and the two 3xTF32 products; ``ops/tf32.py:block_forward`` models
+that arithmetic on the CPU for the tests.
 The JAX backward differentiates its reference, the conv and the tail; this
 one computes the same gradient from the port's own kernels, so that no plain
 version runs on the card.  It saves x, sd and the parameters (never the conv
@@ -20,19 +24,93 @@ filter gradients (``dwconv_forward`` with the flipped filter,
 ``dwconv_filter_grad``, whose launch also gives d_dw_b = the sum of d_t):
 d_x = g + conv_input_grad(d_t).  On CPU tensors each of
 these wrappers runs its plain version.
-``fused_convnext_block.launches`` counts forward-kernel launches.
+``fused_convnext_block.launches`` counts forward calls on the card, one per
+block.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from tpu_captioner_torch.ops import _build
 from tpu_captioner_torch.ops.dwconv import PAD, dwconv_filter_grad, dwconv_forward
-from tpu_captioner_torch.ops.mlp_block import LN_EPS, _check, _param_shapes, fused_convnext_mlp_bwd
+from tpu_captioner_torch.ops.mlp_block import LN_EPS, SUPPORTED_C, _check, _param_shapes, fused_convnext_mlp_bwd
+
+# The conv + LayerNorm kernel's tile plan (csrc/block_fused.cu re-checks every number).
+CHUNK = 128  # channels a block convolves; a cluster of C / CHUNK blocks spans C
+TILE_COLS = 8  # tile columns: one warp patch of 2 x 8 pixels across
+TILE_ROWS = (8, 4, 2)  # tile rows, largest first: a warp patch is 2 rows
+MAX_SLOTS = 4
+SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may have
+_HEADER = 128 + 128  # base alignment slack, then the mbarriers
+# Shared bytes beside the ring: per tile pixel the four channel groups' sums,
+# the block's mean, two tiles' swapped (mean, M2) pairs, the merged (mean, rstd).
+_SMALL = 4 * 64 * (CHUNK // 32 + 1 + 4 + 2)
+
+
+class BlockPlan(NamedTuple):
+    """A conv + LayerNorm launch: tiles of ``th`` x ``tw`` pixels of one
+    image, ``cc`` channels a block, clusters of ``cluster`` blocks that
+    together span C, a ring of ``slots`` halo'd boxes a block, ``parts``
+    clusters walking the tiles, and the dynamic shared memory."""
+
+    th: int
+    tw: int
+    cc: int
+    cluster: int
+    slots: int
+    parts: int
+    smem: int
+    units: int  # warps a block: 32-channel groups x 2 x 8 patches of a tile
+    tiles: int
+
+    def args(self):
+        """The C entry point's plan arguments."""
+        return self.th, self.tw, self.cc, self.cluster, self.slots, self.parts, self.smem
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(B: int, H: int, W: int, C: int, sms: int = 132, active: int = 0) -> BlockPlan:
+    """The conv + LayerNorm kernel's tiles for x (B, H, W, C) on a card with
+    ``sms`` SMs, of which ``active`` clusters of the plan's blocks run at
+    once (0: one block an SM).  A pixel's LayerNorm needs all C channels,
+    so a cluster of C / 128 blocks splits them (128 a block, four 32-channel
+    warp groups) and its blocks swap two floats a pixel.  A tile is th x 8
+    pixels of one image (TMA zero-fills the halo and the image's edge; a
+    ragged last tile computes pixels it never stores): the tallest of 8, 4
+    and 2 rows, at most the image's height rounded up to even, whose
+    blocks fill at least half the SMs (a block's warps each take one 2 x 8
+    patch of a tile, so shorter tiles spread a small batch over more SMs),
+    else 2.  Each block holds a ring of 2-4 halo'd
+    boxes ((th + 6) x 14 pixels x 128 channels) and the per-pixel sums.
+    Raises ValueError for a width the kernels are not built for
+    (``SUPPORTED_C``) or a plan that does not fit ``SMEM_LIMIT``.  Cached:
+    the wrapper asks for it at every launch."""
+    if C not in SUPPORTED_C:
+        raise ValueError(f"block_plan: the kernel supports C in {SUPPORTED_C}, got {C}")
+    if min(B, H, W) < 1:
+        raise ValueError(f"block_plan: empty shape {(B, H, W, C)}")
+    cluster = C // CHUNK
+    rows = [th for th in TILE_ROWS if th <= _ceil(H, 2) * 2] or [TILE_ROWS[-1]]
+    tiles_of = {th: B * _ceil(H, th) * _ceil(W, TILE_COLS) for th in rows}
+    th = next((t for t in rows if 2 * tiles_of[t] * cluster >= sms), rows[-1])
+    tiles = tiles_of[th]
+    parts = max(1, min(tiles, active or sms // cluster))
+    box = 4 * (th + 2 * PAD) * (TILE_COLS + 2 * PAD) * CHUNK
+    slots = min(MAX_SLOTS, (SMEM_LIMIT - _HEADER - _SMALL) // box, max(2, _ceil(tiles, parts)))
+    if slots < 2:
+        raise ValueError(f"block_plan: no plan fits {SMEM_LIMIT} bytes of shared memory for {(B, H, W, C)}")
+    units = CHUNK // 32 * (th // 2)
+    return BlockPlan(th, TILE_COLS, CHUNK, cluster, slots, parts, _HEADER + _SMALL + slots * box, units, tiles)
 
 
 def _block_plain(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
@@ -47,11 +125,31 @@ def _block_plain(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
     return x + sd[:, None, None, None] * y
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("block_fused")
     lib.tc_block_fused_forward.restype = ctypes.c_int
-    lib.tc_block_fused_forward.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tc_block_fused_forward.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    lib.tc_block_fused_workspace.restype = ctypes.c_longlong
+    lib.tc_block_fused_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tc_block_fused_clusters.restype = ctypes.c_int
+    lib.tc_block_fused_clusters.argtypes = [ctypes.c_int] * 3
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(device: int, b: int, h: int, w: int, c: int) -> BlockPlan:
+    """``block_plan`` on the card: as many clusters as it runs at once
+    (cudaOccupancyMaxActiveClusters; clusters share a GPC, so fewer than
+    132 / (C / 128) may fit)."""
+    plan = block_plan(b, h, w, c, _build.sm_count(device))
+    if plan.cluster == 1:
+        return plan
+    lib = _lib()
+    with torch.cuda.device(device):
+        active = lib.tc_block_fused_clusters(c, plan.units, plan.smem)
+    _build.check(lib, max(0, -active), "block_fused occupancy")
+    return block_plan(b, h, w, c, _build.sm_count(device), active)
 
 
 def _check_block(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, kernel=None):
@@ -83,17 +181,20 @@ def _check_block(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, kernel=No
 
 
 def _block_forward(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
-    """The forward: the CUDA kernel for CUDA tensors, the plain version for
+    """The forward: the CUDA kernels for CUDA tensors, the plain version for
     CPU tensors."""
     args = (x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
     if x.device.type == "cpu":
         return _block_plain(*args)
     b, h, w, c = x.shape
+    device = x.get_device()
+    plan = _plan_on(device, b, h, w, c)
     lib = _lib()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tc_block_fused_forward(*(t.data_ptr() for t in args), out.data_ptr(), b, h, w, c, stream)
+    with torch.cuda.device(device):
+        work = x.new_empty(lib.tc_block_fused_workspace(b * h * w, c))
+        err = lib.tc_block_fused_forward(*(t.data_ptr() for t in (*args, out, work)), b, h, w, c, *plan.args(),
+                                         _build.raw_stream(device))
     _build.check(lib, err, "block_fused")
     fused_convnext_block.launches += 1
     return out

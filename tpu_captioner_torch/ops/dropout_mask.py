@@ -13,12 +13,14 @@ from the TPU's: its hardware generator has no counterpart here.
 
 ``random_mask_pool`` launches ``csrc/dropout_mask.cu`` for CUDA and runs
 ``_mask_plain``, the same Philox in PyTorch int64 arithmetic, for the CPU;
-the two give identical bits.
+the two give identical bits.  The wrapper asks for the card's SM count once
+per device and passes the raw stream handle: no per-call device query.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -78,11 +80,12 @@ def _mask_plain(seed_words, n: int, keep: float, device="cpu") -> torch.Tensor:
     return (torch.stack(words, dim=1).reshape(-1)[: int(n)] < thr).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("dropout_mask")
     lib.tc_dropout_mask_pool.restype = ctypes.c_int
     lib.tc_dropout_mask_pool.argtypes = [
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ]
     return lib
@@ -104,10 +107,11 @@ def random_mask_pool(seed_words, n: int, keep: float, device="cuda") -> torch.Te
     if out.data_ptr() % 4:
         raise ValueError("the pool must be 4-byte aligned")
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    index = out.get_device()
+    with torch.cuda.device(index):
         err = lib.tc_dropout_mask_pool(
-            int(seed_words[0]), int(seed_words[1]), thr, out.data_ptr(), int(n), stream
+            int(seed_words[0]), int(seed_words[1]), thr, out.data_ptr(), int(n), _build.sm_count(index),
+            _build.raw_stream(index),
         )
     _build.check(lib, err, "dropout_mask")
     random_mask_pool.launches += 1

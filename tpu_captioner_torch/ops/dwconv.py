@@ -234,19 +234,6 @@ def _aligned(*tensors) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _stream(device: int) -> int:
-    """The current stream's handle on the card, through the raw accessor
-    (0.2 us a call on the host of an H100 machine): ``torch.cuda.
-    current_stream(...).cuda_stream`` took 5.6 us, as long as a bs-8
-    stage-4 launch runs (``scripts/dwconv_probe.py host``)."""
-    return torch._C._cuda_getCurrentRawStream(device)
-
-
-@functools.lru_cache(maxsize=None)
 def _active_clusters(device: int, plan: DwconvPlan) -> int:
     """Clusters of the plan's filter-gradient blocks the card runs at once."""
     lib = _lib()
@@ -263,13 +250,13 @@ def _plan_for(kind, x, *others) -> DwconvPlan:
     b, h, w, c = x.shape
     tma = c % 4 == 0 and _aligned(x, *others)
     if kind == "forward":
-        return dwconv_plan(b, h, w, c, kind, tma, _sms(x.get_device()))
+        return dwconv_plan(b, h, w, c, kind, tma, _build.sm_count(x.get_device()))
     return _wgrad_plan(x.get_device(), b, h, w, c, tma)
 
 
 @functools.lru_cache(maxsize=None)
 def _wgrad_plan(device, b, h, w, c, tma) -> DwconvPlan:
-    return fit_cluster(lambda k: dwconv_plan(b, h, w, c, "wgrad", tma, _sms(device), k),
+    return fit_cluster(lambda k: dwconv_plan(b, h, w, c, "wgrad", tma, _build.sm_count(device), k),
                        functools.partial(_active_clusters, device))
 
 
@@ -290,7 +277,7 @@ def dwconv_forward(x: torch.Tensor, w: torch.Tensor, flip: bool = False,
     with torch.cuda.device(x.device):
         err = lib.tc_dwconv_forward(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-            b, h, wd, c, int(flip), *plan.args(), _stream(x.get_device()),
+            b, h, wd, c, int(flip), *plan.args(), _build.raw_stream(x.get_device()),
         )
     _build.check(lib, err, "dwconv")
     depthwise_conv7x7_nhwc.launches += 1
@@ -315,7 +302,7 @@ def dwconv_filter_grad(x: torch.Tensor, g: torch.Tensor, bias_grad: bool = False
     with torch.cuda.device(x.device):
         err = lib.tc_dwconv_wgrad(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), None if db is None else db.data_ptr(),
-            b, h, w, c, *plan.args(), _stream(x.get_device()),
+            b, h, w, c, *plan.args(), _build.raw_stream(x.get_device()),
         )
     _build.check(lib, err, "dwconv_wgrad")
     depthwise_conv7x7_nhwc.grad_launches += 1

@@ -1,15 +1,18 @@
-"""A plain PyTorch model of the MLP-tail kernels' 3xTF32 products.
+"""A plain PyTorch model of the 3xTF32 products of the MLP-tail and
+whole-block kernels.
 
 The whole-tile forward and the backward of the MLP tail
-(``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``) take their matrix
-products from the card's TF32 tensor cores through ``csrc/tf32x3_gemm.cuh``:
+(``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``) and the whole-block
+kernel (``csrc/block_fused.cu``) take their matrix products from the card's
+TF32 tensor cores through ``csrc/tf32x3_gemm.cuh``:
 each f32 operand ``v`` is split into ``hi = rna_tf32(v)`` and
 ``lo = rna_tf32(v - hi)``, and each product accumulates ``hi.lo + lo.hi``
 and then ``hi.hi`` in f32.  This module computes the same on f32 tensors,
 on any device, so that the tests can hold the kernels' arithmetic against
 the JAX package on the CPU, where no kernel runs.  Nothing on the port's
 main path calls it: the wrappers run the kernels on the card and
-``_mlp_plain`` / ``_mlp_bwd_plain`` (full f32) on the CPU.
+``_mlp_plain`` / ``_mlp_bwd_plain`` / ``_block_plain`` (full f32) on the
+CPU.
 """
 
 from __future__ import annotations
@@ -87,3 +90,29 @@ def mlp_backward(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, mm=matmul_3xtf32):
         d_x, (g * (u * gamma)).sum(-1), (d_xn * xhat).sum(0), d_xn.sum(0),
         mm(d_a.T, xn), (d_a_hi + d_a_lo).sum(0), mm(d_u.T, h), d_u.sum(0), (d_y * u).sum(0),
     )
+
+
+def block_forward(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, chunk=128, mm=matmul_3xtf32):
+    """The whole-block kernel's forward as its launches compute it (the
+    arguments of ``ops/block_fused.py:_block_plain``): the conv with its
+    bias added after the 49 taps; each pixel's LayerNorm from the moments of
+    its channels in chunks of ``chunk`` (a block's share of a cluster: mean
+    and centred sum of squares M2), merged as the kernel merges them (the
+    mean of the chunk means; M2 the sum of the chunks' M2 plus ``chunk``
+    times the squared distance of each chunk's mean from the mean); then
+    the two products over LN(t)'s planes as ``mlp_forward`` runs them, with
+    x as the residual and one scale per image."""
+    b, h, w, c = x.shape
+    if c % chunk:
+        raise ValueError(f"block_forward: C={c} is not a multiple of the chunk {chunk}")
+    t = F.conv2d(x.permute(0, 3, 1, 2), dw_w.permute(2, 0, 1).unsqueeze(1), padding=dw_w.shape[0] // 2, groups=c)
+    t = t.permute(0, 2, 3, 1).reshape(-1, c) + dw_b
+    parts = t.reshape(-1, c // chunk, chunk)
+    mean_r = parts.sum(-1) * (1.0 / chunk)
+    m2_r = ((parts - mean_r[..., None]) ** 2).sum(-1)
+    mean = mean_r.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((m2_r + chunk * (mean_r - mean) ** 2).sum(-1, keepdim=True) / c + LN_EPS)
+    tn = (t - mean) * rstd * ln_w + ln_b
+    hidden = F.gelu(mm(tn, w1.T) + b1)
+    y = (mm(hidden, w2.T) + b2) * gamma
+    return (x.reshape(-1, c) + sd.repeat_interleave(h * w)[:, None] * y).reshape(b, h, w, c)
