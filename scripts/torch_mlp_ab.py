@@ -1,21 +1,38 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's MLP-tail kernels of several checkouts on one card.
 
-    python3 scripts/torch_mlp_ab.py ROOT [ROOT ...]
+    python3 scripts/torch_mlp_ab.py [--pairs A B] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository: this one, or another commit
 unpacked with ``git archive`` into a git-ignored directory.  Each is timed in
 a process of its own, in the order given, so that ``A B B A`` pairs two
 commits on one card.  A process builds that checkout's ``mlp_block.cu`` and
-``mlp_block_bwd.cu`` and prints one JSON line of CUDA-event ms per launch:
-of ``fused_convnext_mlp`` (its whole-tile instance: ``TPU_CAPTIONER_MLP_SUB``
-unset) at the four ConvNeXt-Base stage shapes at batch 32 (N = 32 x 64^2 ..
-32 x 8^2 rows), and the sum over one encoder pass (3, 3, 27 and 3
-launches); of ``fused_convnext_mlp_bwd`` at the fine-tune step's two
-trainable stages at batch 32 (C = 512 and 1024), and the sum over one
-fine-tune step (27 and 3 launches).  Inputs are seeded, with per-image
-stochastic-depth rows.  The last line is a table of each checkout's median,
-with the card's name and power limit.
+``mlp_block_bwd.cu`` and prints one JSON line of ms per launch (seeded
+inputs, per-image stochastic-depth rows):
+
+- ``C={c}``: CUDA-event ms of ``fused_convnext_mlp``'s whole-tile path
+  (``TPU_CAPTIONER_MLP_SUB`` unset) at the four ConvNeXt-Base stage shapes
+  at batch 32 (N = 32 x 64^2 .. 32 x 8^2 rows), launches issued one by one;
+  ``encoder_pass``: their sum over one encoder pass (3, 3, 27 and 3
+  launches);
+- ``bwd C={c}``, ``finetune_step_bwd``: the same for
+  ``fused_convnext_mlp_bwd`` at the fine-tune step's two trainable stages
+  at batch 32 (C = 512 and 1024; 27 and 3 launches a step);
+- ``sub``: the sub-tile rows this checkout's sub-tiled path ran at, the
+  first of 64, 8, 16, 32 and 4 that its own ``_pipeline_sub`` takes at every
+  width (the script asserts that each call raised ``pipelined_launches``: a
+  value a checkout rejects would time its whole tile);
+- ``sub C={c} bs{B}`` and ``whole C={c} bs{B}``: device ms of the
+  sub-tiled and the whole-tile path (calls captured in a CUDA graph and
+  replayed, so that Python's dispatch does not count) at each stage at
+  batch 8 and 32; ``sub pass bs{B}`` and ``whole pass bs{B}``: their sums
+  over one encoder pass.
+
+The last line is a table of each checkout's median per key, with the card's
+name and power limit; with ``--pairs A B``, where the roots were given as A
+B B A ..., it also gives per key the median of the differences A - B of the
+pairs (run i of A against run i of B), their spread (max - min) and how many
+pairs B won.
 """
 
 import json
@@ -25,6 +42,7 @@ import subprocess
 import sys
 
 DEPTHS, DIMS, BATCH = (3, 3, 27, 3), (128, 256, 512, 1024), 32
+SUB_CANDIDATES = (64, 8, 16, 32, 4)
 
 
 def measure(root):
@@ -34,6 +52,7 @@ def measure(root):
     import torch
 
     from tpu_captioner_torch.core.backend import pin_f32_precision, require_cuda
+    from tpu_captioner_torch.ops import mlp_block
     from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
 
     dev = require_cuda()
@@ -50,32 +69,80 @@ def measure(root):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    out, total, step = {}, 0.0, 0.0
+    def graph_ms(fn, iters=10, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def stage_args(s, c, batch):
+        g = torch.Generator().manual_seed(c + batch)
+        f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+        n = batch * (64 >> s) ** 2
+        sd = ((torch.rand(batch, generator=g) < 0.8) / 0.8).repeat_interleave(n // batch)
+        return tuple(a.to(dev) for a in (
+            f(n, c), f(n, c), sd, 1 + 0.1 * f(c), 0.1 * f(c),
+            0.02 * f(4 * c, c), 0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c),
+        ))
+
+    sub = next((v for v in SUB_CANDIDATES if all(_sub_takes(mlp_block, v, c) for c in DIMS)), None)
+    if sub is None:
+        raise SystemExit(f"{root}: no sub-tile rows of {SUB_CANDIDATES} valid at every width")
+    out, total, step = {"sub": sub}, 0.0, 0.0
+    sums = {}
     with torch.inference_mode():
         for s, (depth, c) in enumerate(zip(DEPTHS, DIMS)):
-            g = torch.Generator().manual_seed(c)
-            f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
-            n = BATCH * (64 >> s) ** 2
-            sd = ((torch.rand(BATCH, generator=g) < 0.8) / 0.8).repeat_interleave(n // BATCH)
-            args = tuple(a.to(dev) for a in (
-                f(n, c), f(n, c), sd, 1 + 0.1 * f(c), 0.1 * f(c),
-                0.02 * f(4 * c, c), 0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c),
-            ))
+            args = stage_args(s, c, BATCH)
             out[f"C={c}"] = time_ms(lambda: fused_convnext_mlp(*args))
             total += depth * out[f"C={c}"]
             if s >= 2:  # a stage the fine-tune step trains: the cotangent in the residual's place
                 out[f"bwd C={c}"] = time_ms(lambda: fused_convnext_mlp_bwd(args[1], args[0], *args[2:]), iters=10)
                 step += depth * out[f"bwd C={c}"]
+            for batch in (8, BATCH):
+                args = stage_args(s, c, batch)
+                for path in ("whole", "sub"):
+                    if path == "sub":
+                        os.environ["TPU_CAPTIONER_MLP_SUB"] = str(sub)
+                    before = fused_convnext_mlp.pipelined_launches
+                    t = graph_ms(lambda: fused_convnext_mlp(*args))
+                    ran_sub = fused_convnext_mlp.pipelined_launches > before
+                    os.environ.pop("TPU_CAPTIONER_MLP_SUB", None)
+                    if ran_sub != (path == "sub"):
+                        raise SystemExit(f"{root}: SUB={sub} at C={c} did not run the {path} path")
+                    out[f"{path} C={c} bs{batch}"] = t
+                    sums[f"{path} pass bs{batch}"] = sums.get(f"{path} pass bs{batch}", 0.0) + depth * t
     out["encoder_pass"] = total
     out["finetune_step_bwd"] = step
+    out.update(sums)
     return out
+
+
+def _sub_takes(mlp_block, value, c):
+    """Whether the checkout's ``_pipeline_sub`` selects ``value`` rows at width c."""
+    os.environ["TPU_CAPTIONER_MLP_SUB"] = str(value)
+    try:
+        return mlp_block._pipeline_sub(BATCH * 64, c) == value
+    finally:
+        os.environ.pop("TPU_CAPTIONER_MLP_SUB", None)
 
 
 def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
         print(json.dumps(measure(sys.argv[2])))
         return
-    roots = sys.argv[1:]
+    roots, pairs = sys.argv[1:], None
+    if roots[:1] == ["--pairs"]:
+        pairs, roots = roots[1:3], roots[3:]
     if not roots:
         raise SystemExit(__doc__)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,7 +154,17 @@ def main():
         print(f"{root}: {line}", flush=True)
         runs.setdefault(root, []).append(json.loads(line))
     table = {root: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for root, rs in runs.items()}
-    print(json.dumps({"card": card, "median_ms": table}))
+    summary = {"card": card, "median_ms": table}
+    if pairs:
+        a, b = (runs[root] for root in pairs)
+        summary["pairs"] = {}
+        for k in a[0]:
+            if k == "sub":
+                continue
+            diffs = [x[k] - y[k] for x, y in zip(a, b)]
+            summary["pairs"][k] = {"n": len(diffs), "median_a_minus_b": statistics.median(diffs),
+                                   "spread": max(diffs) - min(diffs), "b_won": sum(d > 0 for d in diffs)}
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":

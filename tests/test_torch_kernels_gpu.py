@@ -48,9 +48,12 @@ the tail's sums in another order than cuDNN's and cuBLAS's) at the four
 ConvNeXt-Base stage shapes, at a batch whose rows do not fill the last tile
 (3, 14, 14, 512) and at odd sides; its gradients (the dwconv and MLP-tail
 backward kernels) agree with autograd of the plain version within 1e-4
-times the same.  The MLP tail's sub-tiled instances agree with the
-whole-tile one within 1e-5 times the same (one sum order per product, the
-hidden chunks in another grouping) and with the plain version within 1e-4.
+times the same.  The MLP tail's sub-tiled kernel agrees with the
+whole-tile path within 1e-5 times the same (the same 3xTF32 products, the
+hidden chunks and the first product's stages in another grouping) and with
+the plain version within 1e-4, at partial last row tiles and at the
+cluster widths' bs-8 row counts, with sd-0 rows bit for bit and the same
+bits from a second call.
 """
 
 import math
@@ -578,8 +581,18 @@ def test_lstm_step_refuses_widths_beyond_shared_memory(cuda):
 
 
 # The sub-tile rows each width takes (ops/mlp_block.py:_pipeline_sub).
-MLP_SUBS = [(128, 32), (128, 16), (128, 8), (256, 16), (256, 8), (256, 4), (512, 16), (512, 8), (512, 4),
-            (1024, 8), (1024, 4)]
+MLP_SUBS = [(128, 64), (256, 64), (512, 64), (1024, 64)]
+
+
+def sub_tiled(args, monkeypatch, sub=64):
+    """The forward through the sub-tiled kernel: one launch, counted as one."""
+    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", str(sub))
+    assert _pipeline_sub(args[0].shape[0], args[0].shape[1]) == sub
+    before = (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches)
+    got = fused_convnext_mlp(*args)
+    torch.cuda.synchronize()
+    assert (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches) == (before[0] + 1, before[1] + 1)
+    return got
 
 
 @pytest.mark.parametrize("c,sub", MLP_SUBS)
@@ -588,16 +601,79 @@ def test_pipelined_mlp_kernel_matches_monolithic_and_plain(cuda, monkeypatch, c,
     args = mlp_args(n, c, cuda, seed=c + sub, sd="mixed")
     monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
     whole = fused_convnext_mlp(*args)
-    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", str(sub))
-    assert _pipeline_sub(n, c) == sub
-    before = (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches)
-    got = fused_convnext_mlp(*args)
-    torch.cuda.synchronize()
-    assert (fused_convnext_mlp.launches, fused_convnext_mlp.pipelined_launches) == (before[0] + 1, before[1] + 1)
+    got = sub_tiled(args, monkeypatch, sub)
     want = _mlp_plain(*args)
     scale = max(1.0, want.abs().max().item())
     assert (got - whole).abs().max().item() <= 1e-5 * scale
     assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+# Row counts of the sub-tiled kernel: a partial last row tile (and a last
+# tile with one row of its second sub-tile, and one with no row there), the
+# bs-8 stage shapes of the cluster widths (C = 512: 2048 rows, C = 1024:
+# 512), one tile alone, and the bs-32 stage shapes of C >= 256 with a
+# partial last tile, which take 256 output columns a block.
+FUSED_ROWS = [(128, 65), (128, 1003), (256, 130), (256, 777), (512, 2048), (512, 1003), (1024, 512),
+              (1024, 64), (1024, 1003), (256, 32767), (512, 8191), (1024, 2047)]
+
+
+@pytest.mark.parametrize("c,n", FUSED_ROWS)
+def test_fused_mlp_kernel_rows_and_repeats(cuda, monkeypatch, c, n):
+    """Against the plain version (1e-4) and the whole-tile path (1e-5), both
+    times max(1, the plain output's largest magnitude); rows with sd 0 come
+    out as their residual bit for bit; a second call gives the same bits (the
+    cluster's exchange of h has a fixed order)."""
+    args = mlp_args(n, c, cuda, seed=3 * c + n, sd="mixed")
+    monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
+    whole = fused_convnext_mlp(*args)
+    got = sub_tiled(args, monkeypatch)
+    again = sub_tiled(args, monkeypatch)
+    want = _mlp_plain(*args)
+    scale = max(1.0, want.abs().max().item())
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    assert (got - whole).abs().max().item() <= 1e-5 * scale
+    dropped = args[2] == 0
+    assert dropped.any() and torch.equal(got[dropped], args[1][dropped])
+    assert torch.equal(got, again)
+
+
+def test_fused_mlp_plan_is_the_packages(cuda):
+    """The C side's tiles (``tc_mlp_block_fused_plan``) are
+    ``ops/mlp_block.py:FUSED_TILES``: the cluster covers every output column
+    and hidden unit once and the shared memory fits a block; the launch
+    takes 256 columns a block at the bs-32 stage shapes of C >= 256 and 128
+    at bs 8 (``tc_mlp_block_fused_columns``)."""
+    import ctypes
+
+    from tpu_captioner_torch.ops.mlp_block import FUSED_TILES, SUB_ROWS, _lib
+
+    lib = _lib()
+    for (c, nc), (s, jcb) in FUSED_TILES.items():
+        out = (ctypes.c_int * 6)()
+        assert lib.tc_mlp_block_fused_plan(c, nc, out) == 0
+        assert list(out)[:3] == [s, jcb, s * jcb] and out[5] == SUB_ROWS
+        assert s * nc == c and 4 * c % (s * jcb) == 0 and out[4] <= 232448
+    assert lib.tc_mlp_block_fused_plan(192, 128, (ctypes.c_int * 6)()) == -1
+    assert lib.tc_mlp_block_fused_plan(128, 256, (ctypes.c_int * 6)()) == -1
+    for s, c in enumerate(SUPPORTED_C):
+        assert lib.tc_mlp_block_fused_columns(c, 32 * (64 >> s) ** 2) == (128 if c == 128 else 256)
+        assert lib.tc_mlp_block_fused_columns(c, 8 * (64 >> s) ** 2) == 128
+
+
+def test_fused_mlp_kernel_refuses_other_sub_rows(cuda):
+    """The C entry point takes sub 0 or 64 only: any other value returns
+    cudaErrorInvalidValue before a launch (the wrapper never passes one)."""
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.mlp_block import _lib
+
+    args = mlp_args(256, 128, cuda)
+    lib = _lib()
+    out, work = torch.empty_like(args[0]), args[0].new_empty(lib.tc_mlp_block_forward_workspace(256, 128, 64))
+    for sub in (8, 32, 128):
+        err = lib.tc_mlp_block_forward(*(t.data_ptr() for t in (*args, out, work)), 256, 128, sub,
+                                       _build.raw_stream(0))
+        assert err == 1  # cudaErrorInvalidValue
 
 
 def block_args(shape, device, seed=0, sd="mixed"):

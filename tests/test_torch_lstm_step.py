@@ -145,15 +145,14 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
     assert _build.library_path("k") not in (first, second)
     monkeypatch.undo()
-    # The MLP tail's sub-tiled instances include the FFMA tail's header; the
-    # MLP-tail and whole-block sources share the forward products' header,
-    # and with the backward the tensor-core GEMM's, which includes the
-    # mbarrier and bulk-copy helpers that the decode source includes too;
+    # The MLP-tail and whole-block sources share the forward products'
+    # header, and with the backward the tensor-core GEMM's, which includes
+    # the mbarrier and bulk-copy helpers that the decode source includes too;
     # the whole-block source shares the depthwise conv's tile header.
-    tail, bulk = {"mlp_tail.cuh"}, {"mbarrier.cuh"}
+    bulk = {"mbarrier.cuh"}
     gemm = {"tf32x3_gemm.cuh"} | bulk
     products = {"mlp_products.cuh"} | gemm
-    for name, extra in (("lstm_step", set()), ("decode_step", bulk), ("mlp_block", tail | products),
+    for name, extra in (("lstm_step", set()), ("decode_step", bulk), ("mlp_block", products),
                         ("mlp_block_bwd", gemm), ("block_fused", products | {"dwconv_tile.cuh"})):
         names = {p.name for p in _build._sources(_build.CSRC / f"{name}.cu", {})}
         assert names == {f"{name}.cu", "warp_reduce.cuh", *extra}, names

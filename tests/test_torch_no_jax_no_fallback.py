@@ -346,6 +346,28 @@ def test_mlp_tensor_core_sources_have_no_fallback(cpu_only):
     assert not users, users
 
 
+def test_mlp_sub_tiled_source_keeps_h_on_chip_and_has_no_fallback(cpu_only):
+    """The sub-tiled MLP tail is one launch of ``fused_kernel``: its first
+    product takes A from registers (wgmma's register form), the x slabs
+    and weight planes arrive by TMA, h goes to the peers' shared memory
+    (distributed shared memory) on cluster-scope mbarriers and never to
+    device memory; the f32 FFMA tail is gone; neither the wrapper nor the
+    rule catches a failure."""
+    import inspect
+
+    from tpu_captioner_torch.ops import _build, mlp_block
+
+    sources = {p.name: text.decode() for p, text in _build._sources(_build.CSRC / "mlp_block.cu", {}).items()}
+    assert "mlp_tail.cuh" not in sources and not (_build.CSRC / "mlp_tail.cuh").exists()
+    body = sources["mlp_block.cu"]
+    for call in ("fused_kernel", "wgmma_rs<JCB>(", "tma_load_2d(", "st.shared::cluster", "mbar_wait_cluster(",
+                 "mapa.shared::cluster", "setmaxnreg.inc", "cudaOccupancyMaxActiveClusters"):
+        assert call in body, call
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in sources["tf32x3_gemm.cuh"]
+    for fn in (mlp_block._pipeline_sub, mlp_block._mlp_forward, mlp_block._lib):
+        assert "except" not in inspect.getsource(fn), fn.__name__
+
+
 def test_block_sources_run_the_tensor_core_tail_and_have_no_fallback(cpu_only):
     """The whole-block library: its conv + LayerNorm launch stages halo'd
     boxes by TMA through the depthwise conv's shared tile header, its

@@ -1,107 +1,113 @@
 // Fused ConvNeXt block tail, forward, f32, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels tpu_captioner/ops/mlp_block.py:_kernel (SUB = 0)
-// and, as the SUB > 0 instances, _kernel_pipelined (both launched by
-// _fused_pallas under fused_convnext_mlp).  Per row of the (N, C)
-// depthwise-conv output it computes
+// and _kernel_pipelined (SUB = 64), both launched by _fused_pallas under
+// fused_convnext_mlp.  Per row of the (N, C) depthwise-conv output it
+// computes
 //
 //     out = res + sd * ((gelu(LN(x) W1^T + b1) W2^T + b2) * gamma)
 //
 // with LayerNorm eps 1e-6 and the exact erf GELU.  W1 is (4C, C) and W2 is
 // (C, 4C): the nn.Linear weights as the reference checkpoint stores them.
+// What bounds both paths on the H100: the two products, 16*N*C^2 flops, at
+// the f32-accurate tensor-core rate (3xTF32, tf32x3_gemm.cuh: 165 TFLOP/s);
+// 7.50 ms per bs-32 encoder pass.
 //
-// The whole-tile path (SUB = 0, the default).  What bounds it on the H100:
-// the two products, 16*N*C^2 flops, at the f32-accurate tensor-core rate
-// (3xTF32, tf32x3_gemm.cuh: 165 TFLOP/s); 7.50 ms per bs-32 encoder pass.
-// The design: three launches and the weights' split per call.
-// - ln_rows (here): LayerNorm, one warp per row, writes LN(x) as its two
-//   TF32 planes (N, C);
-// - gemm 1: h = gelu(LN(x) W1^T + b1), the GELU in the epilogue, which
-//   writes h's two planes (N, 4C) to device memory;
-// - gemm 2: out = res + sd * ((h W2^T + b2) * gamma), all in the epilogue.
-// The two products, their epilogues, the workspace plan and the weights'
-// split are mlp_products.cuh's, which the whole-block kernel
-// (block_fused.cu) runs too.  The TPU kernel keeps h in VMEM.  Here it goes
-// through device memory (and mostly L2): a wgmma accumulator covers 64
-// rows, and a 64 x C f32 output tile of the second product (256 KB at C =
-// 1024) outgrows a warpgroup's registers, so the two products are two
-// launches of one GEMM, shared with the backward.  Extra bytes per launch:
-// h's planes written and read, 64*N*C; the LN planes, 16*N*C; the weight
-// planes, 64*C^2.  About 3.1 ms per bs-32 encoder pass at 3.35 TB/s.
+// The whole-tile path (SUB = 0, the default).  Three launches and the
+// weights' split per call: ln_rows (here) writes LN(x) as its two TF32
+// planes (N, C); gemm 1 writes h = gelu(LN(x) W1^T + b1) as two planes (N,
+// 4C) to device memory; gemm 2 runs out = res + sd * (...) in its epilogue
+// (mlp_products.cuh, which the whole-block kernel runs too).  h goes
+// through device memory because the GEMM is one 128 x 128 output tile per
+// block and a 64 x C f32 tile of the second product outgrows a warpgroup's
+// registers.  Extra bytes per launch: h's planes written and read, 64*N*C;
+// the LN planes, 16*N*C; about 3.1 ms per bs-32 encoder pass at 3.35 TB/s.
 //
-// The sub-tiled instances (SUB > 0, TPU_CAPTIONER_MLP_SUB) run the f32
-// FFMA tail of mlp_tail.cuh, which nothing else runs: this file holds their
-// LayerNorm prologue, which reads the rows from device memory; the tail
-// itself, what bounds it and its design are in that header.
+// The sub-tiled path (SUB = 64, TPU_CAPTIONER_MLP_SUB): fused_kernel, one
+// launch after the weights' preparation, in which neither h nor LN(x) ever
+// reaches device memory.  The TPU kernel splits its row tile into sub-tiles
+// whose LN -> mm1 -> GELU -> mm2 chains are skewed, so that one sub-tile's
+// GELU runs beside the next one's product.  Here:
+// - A cluster of S blocks owns a row tile of two 64-row sub-tiles (the
+//   wgmma M) and walks the tiles persistently; each block's two consumer
+//   warpgroups take one sub-tile each, and its producer warp keeps TMA
+//   loads of the weight planes and of raw x in flight through a ring of
+//   32 KB slots on full / empty mbarriers (setmaxnreg moves registers from
+//   the producer to the consumers).  Block r owns NC = C / S output
+//   columns.
+// - The hidden dimension runs in chunks of JC units; block r computes JCB
+//   = JC / S of them: h_j = gelu(LN(x) W1[j]^T + b1[j]), a 64 x JCB
+//   accumulator.  LayerNorm is the first product's prologue: the rows' mean
+//   and rstd once per tile, then each thread normalises its A fragment from
+//   the staged x slab into registers and splits it into TF32 hi/lo, the
+//   first product taking A from registers.  ln_w is folded into W1's
+//   columns and W1 ln_b into b1 when the weights are prepared (prep_w1),
+//   and W1's columns are permuted within each 16-column group so that a
+//   thread's fragment is one float4 of x.
+// - GELU and the split of h_j run on the accumulator, and each block writes
+//   its JCB columns of the hi/lo planes into every peer's shared memory
+//   (distributed shared memory, in the 128-byte-swizzled layout the wgmma
+//   descriptors read), signalling an mbarrier in each peer; the second
+//   product then takes the whole chunk as its A operand from shared memory
+//   for the block's NC output columns, 128 at a time.  No product is
+//   computed twice.  A second mbarrier says when every peer has read the
+//   chunk, so its buffer can be rewritten.
+// - The skew is Hopper's: while one warpgroup runs its GELU epilogue (erff
+//   on the ALUs) and the split, the other's wgmmas keep the tensor cores
+//   busy; the ring paces the two within a few slots of each other.
+// - Both products run the 3xTF32 split (hi.lo + lo.hi, then hi.hi).  The
+//   tensor cores add into an accumulator with truncation, a bias that grows
+//   with K, so the second product adds each chunk (K = JC) from a fresh
+//   accumulator with round-to-nearest FADDs, and so does the first each
+//   32-deep stage where a block owns 128 columns.
+// The tiles (Fused<C, NC>), set by registers and shared memory: the output
+// accumulator is NC / 2 registers a thread and a partial of the second
+// product 64 more, so NC is 128 or 256; a per-stage partial of the first
+// product fits beside NC = 128, or beside NC = 256 where JCB is 32.  The h buffers (2 sub-tiles x 2
+// planes x 64 x JC floats) and the ring share the 227 KB: JC = 64 and 5
+// slots where a cluster is one block, else JC = 128 and 3 slots.  So JCB,
+// the first product's N, is 64 at S <= 2, 32 at S = 4 and 16 at S = 8;
+// wgmma time is per instruction more than per operation at small N
+// (PERF.md), which is why NC = 256 (S = C / 256) runs the wide
+// widths at half the instructions where the card has rows enough for it
+// (fused_columns).
+// Filling the card: one block per SM; clusters as many as
+// cudaOccupancyMaxActiveClusters says run at once, at most one per row
+// tile; NC = 256 where it needs fewer rounds of them than NC = 128.  bs 32
+// has 1024 / 256 / 64 / 16 tiles at C = 128 / 256 / 512 / 1024: single
+// blocks at C <= 256 (8 and 2 rounds of 132), clusters of 2 at C = 512 (one
+// round of 66), of 4 at C = 1024 (16 of them, one round; 64 SMs).  bs 8
+// has 256 / 64 / 16 / 4 tiles and takes NC = 128: C = 256 fills 128 SMs
+// (64 clusters of 2), C = 512 64 (clusters of 4) and C = 1024 32 (4
+// clusters of 8), leaving 4, 68 and 100 of the 132 idle; the tile is the
+// wgmma's 64 rows twice, so fewer rows cannot spread wider without
+// splitting the hidden sum across clusters.
+// What it reads again: x, once per chunk in every block of the cluster (S
+// x 4C / JC times a tile), and the weight planes once per tile from L2.
+
+#include <cooperative_groups.h>
 
 #include "mlp_products.cuh"
-#include "mlp_tail.cuh"
+#include "warp_reduce.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-template <class K>
-__global__ void __launch_bounds__(kThreads) mlp_block_kernel(
-    const float* __restrict__ x, const float* __restrict__ res,
-    const float* __restrict__ sd, const float* __restrict__ lnw,
-    const float* __restrict__ lnb, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, const float* __restrict__ gamma,
-    float* __restrict__ out, int n) {
-  constexpr int C = K::C, BM = K::BM, BMP = K::BMP;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;  // (C, BMP) LN(x), k-major
+constexpr int kLnThreads = 256;
 
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int q_rank = blockIdx.x % K::S;  // this block's share of the hidden dim
-  const int row0 = (blockIdx.x / K::S) * BM;
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-  // LayerNorm, one warp per row, two passes over registers.  Rows past n
-  // are normalised zeros and are never stored.
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    const int g = row0 + r;
-    float4 v[C / 128];
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < C / 128; ++q) {
-      v[q] = g < n ? ld4(x + (size_t)g * C + 4 * lane + 128 * q) : make_float4(0.f, 0.f, 0.f, 0.f);
-      s += (v[q].x + v[q].y) + (v[q].z + v[q].w);
-    }
-    const float mu = warp_sum(s) * (1.0f / C);
-    float ss = 0.f;
-#pragma unroll
-    for (int q = 0; q < C / 128; ++q) {
-      const float a = v[q].x - mu, b = v[q].y - mu, c = v[q].z - mu, d = v[q].w - mu;
-      ss += (a * a + b * b) + (c * c + d * d);
-    }
-    const float rstd = rsqrtf(warp_sum(ss) * (1.0f / C) + kLnEps);
-#pragma unroll
-    for (int q = 0; q < C / 128; ++q) {
-      const int c = 4 * lane + 128 * q;
-      const float4 w = ld4(lnw + c), b = ld4(lnb + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        xs[(c + e) * BMP + r] = (at(v[q], e) - mu) * rstd * at(w, e) + at(b, e);
-    }
-  }
-  mlp_tail<K>(smem, res, sd, 1, w1, b1, w2, b2, gamma, out, n, row0, q_rank);
-}
-
-template <class K>
-int launch(const float* x, const float* res, const float* sd, const float* lnw,
-           const float* lnb, const float* w1, const float* b1, const float* w2,
-           const float* b2, const float* gamma, float* out, int n, cudaStream_t stream) {
-  return launch_tail<K>(mlp_block_kernel<K>, n, stream, x, res, sd, lnw, lnb, w1, b1, w2, b2,
-                        gamma, out, n);
-}
+__device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
 
 // ------------------------------------------------ the whole-tile path (SUB = 0)
 
 // LayerNorm of each row into its two TF32 planes, xs (N, C) and xs + N*C.
 template <int C>
-__global__ void __launch_bounds__(kThreads) ln_rows(const float* __restrict__ x, const float* __restrict__ lnw,
-                                                   const float* __restrict__ lnb, float* __restrict__ xs,
-                                                   int n) {
-  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kLnThreads) ln_rows(const float* __restrict__ x, const float* __restrict__ lnw,
+                                                     const float* __restrict__ lnb, float* __restrict__ xs,
+                                                     int n) {
+  const int row = (blockIdx.x * kLnThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (row >= n) return;
   const size_t base = (size_t)row * C;
   float4 v[C / 128];
@@ -137,42 +143,569 @@ int whole_tile(const float* x, const float* res, const float* sd, const float* l
                float* out, float* work, int n, cudaStream_t s) {
   cudaError_t err = split_weights<C>(w1, w2, work, n, s);
   if (err != cudaSuccess) return (int)err;
-  ln_rows<C><<<(n + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(x, lnw, lnb, work + make_plan(n, C).xs,
-                                                                             n);
+  ln_rows<C><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(
+      x, lnw, lnb, work + make_plan(n, C).xs, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)products<C>(res, sd, 1, b1, b2, gamma, out, work, n, s);
 }
 
-// The sub-tiled instances' tiles by width.  The narrow stages have rows to
-// spare (bs 8: 32768 and 8192 rows) and take S = 1; the wide ones (2048 and
-// 512 rows) split the hidden dimension over a cluster so that there are 128
-// blocks to run.
-template <int C, int BM, int S, int JC, int TM1, int TN1, int TM2, int TN2>
-int launch_width(const float* x, const float* res, const float* sd, const float* lnw,
-                 const float* lnb, const float* w1, const float* b1, const float* w2,
-                 const float* b2, const float* gamma, float* out, float* work, int n, int sub,
-                 cudaStream_t s) {
-  if (sub == 0) return whole_tile<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
-#define TC_MLP_SUB(SUB)                                                                          \
-  launch<Cfg<C, BM, S, JC, TM1, TN1, TM2, TN2, SUB>>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, \
-                                                     out, n, s)
-  // The sub-tile rows each width takes (ops/mlp_block.py:_pipeline_sub):
-  // multiples of 4 that divide BM at least twice, with SUB * JC >= 1024 so
-  // that each thread holds a 4 x TN1S tile.
-  if constexpr (BM == 64) {
-    if (sub == 32) return TC_MLP_SUB(32);
-    if (sub == 16) return TC_MLP_SUB(16);
-    if (sub == 8) return TC_MLP_SUB(8);
-  } else if constexpr (BM == 32) {
-    if (sub == 16) return TC_MLP_SUB(16);
-    if (sub == 8) return TC_MLP_SUB(8);
-    if (sub == 4) return TC_MLP_SUB(4);
-  } else if constexpr (BM == 16) {
-    if (sub == 8) return TC_MLP_SUB(8);
-    if (sub == 4) return TC_MLP_SUB(4);
+// ------------------------------------------------ the sub-tiled path (SUB = 64)
+
+constexpr int kSub = 64;                  // sub-tile rows: the wgmma M
+constexpr int kFusedThreads = 384;        // two consumer warpgroups, one producer
+constexpr int kSlotFloats = 8192;         // a ring slot: 32 KB
+constexpr int kXSlab = kSub * tf32x3::kBK;  // floats of one sub-tile's 32-column x slab
+
+// The tiles of width C with NC output columns a block (ops/mlp_block.py:
+// FUSED_TILES holds the same numbers).
+template <int C, int NC_>
+struct Fused {
+  static constexpr int NC = NC_;                          // output columns a block
+  static constexpr int S = C / NC;                        // cluster: blocks per row tile
+  static constexpr int JC = S == 1 ? 64 : 128;            // hidden units per chunk
+  static constexpr int JCB = JC / S;                      // hidden units a block per chunk
+  static constexpr int kChunks = 4 * C / JC;
+  // The first product adds each 32-deep stage from a fresh accumulator
+  // where the registers allow it (128 output columns, or 32 hidden units a
+  // block: C = 1024 with 256 columns); else it runs one accumulator over K
+  // = C <= 512.
+  static constexpr bool kStagePartial = NC == 128 || JCB <= 32;
+  static constexpr int kSlots = JC == 64 ? 5 : 3;
+  static constexpr int kH = kSub * JC;                    // floats of one h plane of one sub-tile
+  static constexpr int kFloats = kSlots * kSlotFloats + 4 * kH + 2 * 2 * kSub;  // ring, h, stats
+  static constexpr int kSmem = 1024 + 4 * kFloats + 8 * (2 * kSlots + 4);     // + alignment, mbarriers
+  static constexpr int kRowsAtOnce = 2048 / C;            // LayerNorm statistics: rows a warp loads at once
+  static_assert(S * NC == C && (NC == 128 || NC == 256) && JC % tf32x3::kBK == 0 && 4 * C % JC == 0, "tiles");
+  static_assert(2 * tf32x3::kBK * JCB <= kSlotFloats / 2 && 2 * kXSlab <= kSlotFloats / 2 &&
+                    2 * tf32x3::kBK * 128 <= kSlotFloats,
+                "a slot holds a stage");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// Workspace of the sub-tiled path (floats): W1's prepared planes (8 C^2),
+// W2's planes (8 C^2), the folded b1 (4 C).
+struct FusedPlan {
+  long long w1p, w2p, b1f, total;
+};
+
+inline FusedPlan make_fused_plan(int c) {
+  FusedPlan p;
+  const long long cc = (long long)c * c;
+  p.w1p = 0;
+  p.w2p = round32(8 * cc);
+  p.b1f = p.w2p + round32(8 * cc);
+  p.total = p.b1f + round32(4LL * c);
+  return p;
+}
+
+// W1' = W1 * ln_w (column by column) as its two TF32 planes (4C, C), the
+// columns of each 16-group in the order the fused kernel's A fragments take
+// them: column 16 G + 4 u + e goes to k-slot 16 G + u + 4 e.  b1' = b1 + W1
+// ln_b.  One warp per row of W1.
+template <int C>
+__global__ void __launch_bounds__(256) prep_w1(const float* __restrict__ w1, const float* __restrict__ lnw,
+                                              const float* __restrict__ lnb, const float* __restrict__ b1,
+                                              float* __restrict__ w1p, float* __restrict__ b1f) {
+  const int row = (blockIdx.x * 256 + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= 4 * C) return;
+  const long long plane = 4LL * C * C;
+  const size_t base = (size_t)row * C;
+  float dot = 0.f;
+#pragma unroll
+  for (int q = 0; q < C / 128; ++q) {
+    const int c = 4 * lane + 128 * q;
+    const float4 v = ld4(w1 + base + c), lw = ld4(lnw + c), lb = ld4(lnb + c);
+    const int slot = (c & ~15) + ((c & 15) >> 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dot = fmaf(at(v, e), at(lb, e), dot);
+      tf32x3::store_split(w1p, plane, base + slot + 4 * e, at(v, e) * at(lw, e));
+    }
   }
-#undef TC_MLP_SUB
-  return (int)cudaErrorInvalidValue;
+  dot = warp_sum(dot);
+  if (lane == 0) b1f[row] = b1[row] + dot;
+}
+
+// ---------------------------------------------- cluster and barrier helpers
+
+__device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
+
+// The shared::cluster address of `addr` (this block's shared window) in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Two floats to a shared address of this block (cluster false) or of any
+// block of the cluster (a peer_addr).
+template <bool cluster>
+__device__ __forceinline__ void st_shared2(uint32_t addr, float a, float b) {
+  if constexpr (cluster)
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
+  else
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Order this thread's shared-memory accesses of the generic proxy with the
+// async proxy's (wgmma's operand reads): FENCE.VIEW.ASYNC.S alone, where the
+// unqualified fence.proxy.async adds a GPU-wide MEMBAR.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// tf32x3::round_tf32 for finite v in two integer operations: half of the
+// 13 dropped bits' unit added to the magnitude, then the bits cleared, which
+// is round to nearest with ties away from zero, as cvt.rna.tf32.f32 rounds
+// (ops/tf32.py:round_tf32).  ptxas expands cvt.rna.tf32.f32 into four
+// instructions with a test for infinities and NaNs, and the splits of x and
+// h are most of the consumers' ALU work.
+__device__ __forceinline__ float round_tf32_finite(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split_reg(float v, uint32_t& hi, uint32_t& lo) {
+  const float h = round_tf32_finite(v);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(round_tf32_finite(v - h));
+}
+
+// Where a consumer warpgroup's clocks go, for scripts/mlp_fused_probe.py
+// (built with TC_MLP_PHASES defined): thread 0 of each consumer warpgroup
+// of block 0 sums clock64 deltas by phase and leaves them here.
+#ifdef TC_MLP_PHASES
+constexpr int kPhases = 12;
+__device__ unsigned long long phase_clocks[2][kPhases];
+#define TC_PHASES_BEGIN long long tc_t0 = clock64(), tc_sum[kPhases] = {};
+#define TC_PHASE(i)                           \
+  {                                           \
+    const long long tc_t = clock64();         \
+    tc_sum[i] += tc_t - tc_t0;                \
+    tc_t0 = tc_t;                             \
+  }
+#define TC_PHASES_END \
+  if (blockIdx.x == 0 && tid == 0)  \
+    for (int i = 0; i < kPhases; ++i) phase_clocks[w][i] = tc_sum[i];
+#else
+#define TC_PHASES_BEGIN
+#define TC_PHASE(i)
+#define TC_PHASES_END
+#endif
+
+// grid: clusters x S blocks (clusters along x); pairs = ceil(n / 128) row
+// tiles, cluster i taking tiles i, i + clusters, ...
+template <int C, int NC>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+    fused_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w1map,
+                 const __grid_constant__ CUtensorMap w2map, const float* __restrict__ x,
+                 const float* __restrict__ res, const float* __restrict__ sd, const float* __restrict__ b1f,
+                 const float* __restrict__ b2, const float* __restrict__ gamma, float* __restrict__ out, int n,
+                 int pairs) {
+  using F = Fused<C, NC>;
+  constexpr int S = F::S, JCB = F::JCB, JC = F::JC, kSlots = F::kSlots, kBK = tf32x3::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  // Slots and h planes start on 1024-byte boundaries, where the 128-byte
+  // swizzle pattern starts over (the descriptors' base offset 0).
+  float* ring = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* hbuf = ring + kSlots * kSlotFloats;                   // (2 sub-tiles, hi / lo, JC / 32, 64, 32)
+  float2* stats = reinterpret_cast<float2*>(hbuf + 4 * F::kH);  // (2 sub-tiles, 64 rows): rstd, -mean rstd
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * kSub);
+  uint64_t* empty = full + kSlots;
+  uint64_t* hfull = empty + kSlots;  // per sub-tile: every rank has written the chunk here
+  uint64_t* hfree = hfull + 2;       // per sub-tile: every rank has read the chunk this block wrote
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  int rank = 0;
+  if constexpr (S > 1) rank = (int)cg::this_cluster().block_rank();
+  const int cluster_id = blockIdx.x / S, clusters = gridDim.x / S;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&hfull[w], S);
+      mbar_init(&hfree[w], S);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (S > 1)
+    cg::this_cluster().sync();  // peers arrive on this block's barriers
+  else
+    __syncthreads();
+
+  // One big branch per role, never rejoined, so that setmaxnreg can move
+  // registers from the producer to the consumers.
+  if (wg == 2) {  // the producer: the same slot sequence the consumers walk
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == 0) {
+      int it = 0;
+      auto next = [&](uint32_t bytes) {
+        const int s = it % kSlots;
+        if (it >= kSlots) mbar_wait(&empty[s], ((it / kSlots) & 1) ^ 1);
+        mbar_expect_tx(&full[s], bytes);
+        ++it;
+        return s;
+      };
+      for (int p = cluster_id; p < pairs; p += clusters)
+        for (int j = 0; j < F::kChunks; ++j) {
+          for (int kt = 0; kt < C / kBK; ++kt) {  // W1's rows of this block's units, both sub-tiles' x
+            const int s = next(4 * (2 * kBK * JCB + 2 * kXSlab));
+            float* slot = ring + s * kSlotFloats;
+            tf32x3::tma_load(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
+            tma_load_2d(slot + kSlotFloats / 2, &xmap, kt * kBK, p * 2 * kSub, &full[s]);
+            tma_load_2d(slot + kSlotFloats / 2 + kXSlab, &xmap, kt * kBK, p * 2 * kSub + kSub, &full[s]);
+          }
+          for (int half = 0; half < F::NC / 128; ++half)
+            for (int kt = 0; kt < JC / kBK; ++kt) {  // W2's rows of this block's output columns
+              const int s = next(4 * 2 * kBK * 128);
+              tf32x3::tma_load(ring + s * kSlotFloats, &w2map, j * JC + kt * kBK, rank * F::NC + half * 128,
+                               &full[s]);
+            }
+        }
+    }
+    __syncwarp();
+    if constexpr (S > 1) cg::this_cluster().sync();  // peers may still write this block's buffers
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int w = wg, wi = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+    const int ra = 16 * wi + g;  // this thread's rows of the sub-tile: ra and ra + 8
+    float* hh = hbuf + w * 2 * F::kH;
+    uint32_t hdst[S];  // this sub-tile's h buffer in every rank
+#pragma unroll
+    for (int r = 0; r < S; ++r) hdst[r] = S > 1 ? peer_addr(smem_u32(hh), r) : smem_u32(hh);
+    // A slot is free again once every consumer warp is done with it: one
+    // arrival a warp, not one a thread, each of which the barrier would
+    // take in turn.
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    int it = 0, chunk_no = 0;
+    TC_PHASES_BEGIN
+    for (int p = cluster_id; p < pairs; p += clusters) {
+      const int row0 = p * 2 * kSub + w * kSub;
+
+      // LayerNorm statistics, two passes over registers, kRowsAtOnce rows
+      // of the warp's 16 in flight.  Rows past n are zeros (and TMA
+      // zero-fills them in the slabs): never stored.
+      for (int i0 = 0; i0 < 16; i0 += F::kRowsAtOnce) {
+        float4 v[F::kRowsAtOnce][C / 128];
+#pragma unroll
+        for (int i = 0; i < F::kRowsAtOnce; ++i) {
+          const int m = row0 + 16 * wi + i0 + i;
+#pragma unroll
+          for (int u = 0; u < C / 128; ++u)
+            v[i][u] = m < n ? ld4(x + (size_t)m * C + 4 * lane + 128 * u) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < F::kRowsAtOnce; ++i) {
+          float s = 0.f;
+#pragma unroll
+          for (int u = 0; u < C / 128; ++u) s += (v[i][u].x + v[i][u].y) + (v[i][u].z + v[i][u].w);
+          const float mu = warp_sum(s) * (1.0f / C);
+          float ss = 0.f;
+#pragma unroll
+          for (int u = 0; u < C / 128; ++u) {
+            const float a = v[i][u].x - mu, b = v[i][u].y - mu, c = v[i][u].z - mu, d = v[i][u].w - mu;
+            ss += (a * a + b * b) + (c * c + d * d);
+          }
+          const float rstd = rsqrtf(warp_sum(ss) * (1.0f / C) + kLnEps);
+          if (lane == 0) stats[w * kSub + 16 * wi + i0 + i] = make_float2(rstd, -mu * rstd);
+        }
+      }
+      __syncwarp();
+      const float2 sa = stats[w * kSub + ra], sb = stats[w * kSub + ra + 8];
+      TC_PHASE(0)  // statistics
+
+      float acc[F::NC / 2];
+#pragma unroll
+      for (int i = 0; i < F::NC / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j < F::kChunks; ++j, ++chunk_no) {
+        // The first product: this block's JCB hidden units of the chunk.
+        float h[JCB / 2], hp[JCB / 2];
+#pragma unroll
+        for (int i = 0; i < JCB / 2; ++i) h[i] = hp[i] = 0.f;
+        for (int kt = 0; kt < C / kBK; ++kt, ++it) {
+          const int s = it % kSlots;
+          mbar_wait(&full[s], (it / kSlots) & 1);
+          TC_PHASE(1)  // the first product's slot
+          const float* slot = ring + s * kSlotFloats;
+          const float* xs = slot + kSlotFloats / 2 + w * kXSlab;
+          // A fragments of the four k-steps: k-step 2 G + e2 takes columns
+          // 16 G + 4 q + 2 e2 (k-slot q) and + 1 (k-slot q + 4), W1's
+          // permutation (prep_w1); the slab is 128-byte swizzled, so the
+          // float4 of row r, 16-byte chunk c sits at chunk c ^ (r % 8).
+          uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+          for (int G = 0; G < 2; ++G) {
+            const int ch = ((4 * G + q) ^ g) * 4;
+            const float4 va = ld4(xs + ra * kBK + ch), vb = ld4(xs + (ra + 8) * kBK + ch);
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const int t = 2 * G + e2;
+              split_reg(fmaf(at(va, 2 * e2), sa.x, sa.y), ahi[t][0], alo[t][0]);
+              split_reg(fmaf(at(vb, 2 * e2), sb.x, sb.y), ahi[t][1], alo[t][1]);
+              split_reg(fmaf(at(va, 2 * e2 + 1), sa.x, sa.y), ahi[t][2], alo[t][2]);
+              split_reg(fmaf(at(vb, 2 * e2 + 1), sb.x, sb.y), ahi[t][3], alo[t][3]);
+            }
+          }
+          // Into hp, which the stage starts afresh, or straight into h,
+          // which the chunk's first stage starts afresh.
+          float (&d)[JCB / 2] = F::kStagePartial ? hp : h;
+          const int fresh = F::kStagePartial ? 0 : kt;
+          tf32x3::fence_regs(d);
+          TC_PHASE(2)  // A fragments
+          tf32x3::wgmma_fence();
+          const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * JCB);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            tf32x3::wgmma_rs<JCB>(d, ahi[t], bl + 2 * t, fresh > 0 || t > 0);
+            tf32x3::wgmma_rs<JCB>(d, alo[t], bh + 2 * t, 1);
+            tf32x3::wgmma_rs<JCB>(d, ahi[t], bh + 2 * t, 1);
+          }
+          tf32x3::wgmma_commit();
+          tf32x3::wgmma_wait<0>();
+          tf32x3::fence_regs(d);
+          TC_PHASE(3)  // the first product's wgmmas
+          release(s);
+          if constexpr (F::kStagePartial) {
+#pragma unroll
+            for (int i = 0; i < JCB / 2; ++i) h[i] += hp[i];
+          }
+          TC_PHASE(4)  // release, partial added
+        }
+
+        // GELU and the split; the planes into every rank's buffer for this
+        // sub-tile, once every rank has read the previous chunk there.
+        if constexpr (S > 1)
+          if (chunk_no > 0) mbar_wait_cluster(&hfree[w], (chunk_no - 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < JCB / 8; ++jj) {
+          const int kk = rank * JCB + 8 * jj + 2 * q;  // hidden unit within the chunk
+          const float2 b = *reinterpret_cast<const float2*>(b1f + j * JC + kk);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const float v0 = gelu_exact(h[4 * jj + 2 * hr] + b.x), v1 = gelu_exact(h[4 * jj + 2 * hr + 1] + b.y);
+            const float h0 = round_tf32_finite(v0), h1 = round_tf32_finite(v1);
+            const float l0 = round_tf32_finite(v0 - h0), l1 = round_tf32_finite(v1 - h1);
+            const int row = ra + 8 * hr;
+            const uint32_t off = 4 * ((kk / kBK) * kSub * kBK + row * kBK + ((((kk % kBK) >> 2) ^ g) << 2) + (kk & 3));
+#pragma unroll
+            for (int r = 0; r < S; ++r) {
+              st_shared2<(S > 1)>(hdst[r] + off, h0, h1);
+              st_shared2<(S > 1)>(hdst[r] + off + 4 * F::kH, l0, l1);
+            }
+          }
+        }
+        TC_PHASE(5)  // GELU, split, stores
+        fence_proxy_async();  // the planes are read by wgmma, through the async proxy
+        if constexpr (S > 1) {
+          asm volatile("fence.acq_rel.cluster;" ::: "memory");
+          wg_sync(1 + w);
+          if (tid == 0)
+            for (int r = 0; r < S; ++r) mbar_arrive_cluster(peer_addr(smem_u32(&hfull[w]), r));
+          mbar_wait_cluster(&hfull[w], chunk_no & 1);
+          fence_proxy_async();
+        } else {
+          wg_sync(1 + w);
+        }
+
+        // The second product: the chunk's h (64 x JC) against W2's rows of
+        // this block's 128 output columns, into a fresh partial.
+        TC_PHASE(6)  // the exchange of h
+#pragma unroll
+        for (int half = 0; half < F::NC / 128; ++half) {  // 128 output columns at a time
+          float op[64];
+          for (int kt = 0; kt < JC / kBK; ++kt, ++it) {
+            const int s = it % kSlots;
+            mbar_wait(&full[s], (it / kSlots) & 1);
+            TC_PHASE(7)  // the second product's slot
+            const float* slot = ring + s * kSlotFloats;
+            tf32x3::fence_acc(op);
+            tf32x3::wgmma_fence();
+            const uint64_t ah = tf32x3::smem_desc(hh + kt * kSub * kBK);
+            const uint64_t al = tf32x3::smem_desc(hh + F::kH + kt * kSub * kBK);
+            const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * 128);
+#pragma unroll
+            for (int kk = 0; kk < kBK / 8; ++kk) {
+              tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
+              tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, 1);
+              tf32x3::wgmma_tf32(op, ah + 2 * kk, bh + 2 * kk, 1);
+            }
+            tf32x3::wgmma_commit();
+            tf32x3::wgmma_wait<0>();
+            tf32x3::fence_acc(op);
+            TC_PHASE(8)  // the second product's wgmmas
+            release(s);
+            TC_PHASE(9)  // release
+          }
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[64 * half + i] += op[i];
+        }
+        if constexpr (S > 1) {
+          wg_sync(1 + w);  // every warp's products have read the chunk
+          if (tid == 0)
+            for (int r = 0; r < S; ++r) mbar_arrive_cluster(peer_addr(smem_u32(&hfree[w]), r));
+        }
+        TC_PHASE(10)  // partial added, peers told
+      }
+
+      // out = res + sd * ((acc + b2) * gamma), as OutEpi: acc[64 half + 4j +
+      // 2hr + e] is row ra + 8 hr, column 128 half + 8 j + 2 q + e of the
+      // block's NC.
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = row0 + ra + 8 * hr;
+        if (m >= n) continue;
+        const float sm = sd[m];
+#pragma unroll
+        for (int half = 0; half < F::NC / 128; ++half) {
+          const int col0 = rank * F::NC + 128 * half + 2 * q;
+          float2 r[16];  // the residuals, all requested before the first is used
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj) r[jj] = *reinterpret_cast<const float2*>(res + (size_t)m * C + col0 + 8 * jj);
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj) {
+            const int col = col0 + 8 * jj, a = 64 * half + 4 * jj + 2 * hr;
+            const float2 b = *reinterpret_cast<const float2*>(b2 + col);
+            const float2 gm = *reinterpret_cast<const float2*>(gamma + col);
+            *reinterpret_cast<float2*>(out + (size_t)m * C + col) =
+                make_float2(r[jj].x + sm * ((acc[a] + b.x) * gm.x), r[jj].y + sm * ((acc[a + 1] + b.y) * gm.y));
+          }
+        }
+      }
+      TC_PHASE(11)  // epilogue
+    }
+    TC_PHASES_END
+    if constexpr (S > 1) cg::this_cluster().sync();
+  }
+}
+
+// x (n, C) as 32-column x 64-row boxes, 128-byte swizzled; rows past n
+// arrive as zeros.
+inline cudaError_t x_map(CUtensorMap* map, const float* x, int n, int c) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)c, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)c * 4};
+  const cuuint32_t box[2] = {tf32x3::kBK, kSub};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaLaunchConfig_t fused_config(int clusters, int S, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * S);
+  cfg.blockDim = dim3(kFusedThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = S > 1 ? 1 : 0;
+  return cfg;
+}
+
+// How many clusters of an instance the card runs at once (asked once).
+template <int C, int NC>
+cudaError_t active_clusters(int* out) {
+  using F = Fused<C, NC>;
+  static int cached = 0;
+  if (cached > 0) {
+    *out = cached;
+    return cudaSuccess;
+  }
+  cudaError_t err = cudaFuncSetAttribute(fused_kernel<C, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = fused_config(1, F::S, F::kSmem, nullptr, attr);
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  *out = cached = n;
+  return cudaSuccess;
+}
+
+// The output columns a block of the sub-tiled path takes for n rows of
+// width C: 256 where that runs the row tiles in fewer rounds of the
+// clusters the card holds at once, else 128 (twice the blocks to a tile).
+// At 256 a block does twice the work with fewer, wider wgmmas and half the
+// peers (PERF.md, row 2).
+template <int C>
+cudaError_t fused_columns(int n, int* nc) {
+  *nc = 128;
+  if constexpr (C > 128) {
+    int c128 = 0, c256 = 0;
+    cudaError_t err = active_clusters<C, 128>(&c128);
+    if (err == cudaSuccess) err = active_clusters<C, 256>(&c256);
+    if (err != cudaSuccess) return err;
+    const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
+    if ((pairs + c256 - 1) / c256 < (pairs + c128 - 1) / c128) *nc = 256;
+  }
+  return cudaSuccess;
+}
+
+template <int C, int NC>
+int sub_tiled(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
+              const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma, float* out,
+              float* work, int n, cudaStream_t s) {
+  using F = Fused<C, NC>;
+  const FusedPlan p = make_fused_plan(C);
+  int clusters = 0;
+  cudaError_t err = active_clusters<C, NC>(&clusters);
+  if (err != cudaSuccess) return (int)err;
+  prep_w1<C><<<C / 2, 256, 0, s>>>(w1, lnw, lnb, b1, work + p.w1p, work + p.b1f);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = tf32x3::split(w2, C, 4 * C, work + p.w2p, nullptr, 0, s)) != cudaSuccess) return (int)err;
+  CUtensorMap xm, w1m, w2m;
+  err = x_map(&xm, x, n, C);
+  if (err == cudaSuccess) err = tf32x3::make_map(&w1m, {work + p.w1p, 4 * C, C, C, 4LL * C * C}, F::JCB);
+  if (err == cudaSuccess) err = tf32x3::make_map(&w2m, {work + p.w2p, C, 4 * C, 4 * C, 4LL * C * C}, 128);
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fused_config(pairs < clusters ? pairs : clusters, F::S, F::kSmem, s, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC>, xm, w1m, w2m, x, res, sd, (const float*)(work + p.b1f), b2, gamma,
+                           out, n, pairs);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int C>
+int forward(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
+            const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma, float* out,
+            float* work, int n, int sub, cudaStream_t s) {
+  if (sub == 0) return whole_tile<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  if (sub != kSub) return (int)cudaErrorInvalidValue;
+  int nc = 0;
+  const cudaError_t err = fused_columns<C>(n, &nc);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (C > 128)
+    if (nc == 256) return sub_tiled<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  return sub_tiled<C, 128>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
 }
 
 }  // namespace
@@ -180,12 +713,51 @@ int launch_width(const float* x, const float* res, const float* sd, const float*
 extern "C" {
 
 // Floats of workspace tc_mlp_block_forward needs for n rows of width c:
-// the whole-tile path's TF32 planes; the sub-tiled instances need none.
-long long tc_mlp_block_forward_workspace(int n, int c, int sub) { return sub ? 0 : make_plan(n, c).total; }
+// the whole-tile path's TF32 planes, or the sub-tiled path's weight planes
+// and folded bias.
+long long tc_mlp_block_forward_workspace(int n, int c, int sub) {
+  return sub ? make_fused_plan(c).total : make_plan(n, c).total;
+}
 
-// `sub` is 0 (the whole-tile path, on the tensor cores) or a sub-tile row
-// count the width takes; any other value returns cudaErrorInvalidValue.
-// `work` holds tc_mlp_block_forward_workspace(n, c, sub) floats.
+// The sub-tiled path's tiles at width c with nc output columns a block
+// into out[0..5]: cluster size, hidden units a block per chunk, units per
+// chunk, ring slots, shared bytes, sub-tile rows; -1 for an instance the
+// library does not hold.
+int tc_mlp_block_fused_plan(int c, int nc, int* out) {
+#define TC_PLAN(W, N)                                                                                  \
+  if (c == W && nc == N) {                                                                             \
+    using F = Fused<W, N>;                                                                             \
+    out[0] = F::S, out[1] = F::JCB, out[2] = F::JC, out[3] = F::kSlots, out[4] = F::kSmem, out[5] = kSub; \
+    return 0;                                                                                          \
+  }
+  TC_PLAN(128, 128)
+  TC_PLAN(256, 128)
+  TC_PLAN(256, 256)
+  TC_PLAN(512, 128)
+  TC_PLAN(512, 256)
+  TC_PLAN(1024, 128)
+  TC_PLAN(1024, 256)
+#undef TC_PLAN
+  return -1;
+}
+
+// The output columns a block the sub-tiled path takes for n rows of width
+// c (fused_columns), or minus a cudaError_t.
+int tc_mlp_block_fused_columns(int c, int n) {
+  int nc = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (c) {
+    case 128: err = fused_columns<128>(n, &nc); break;
+    case 256: err = fused_columns<256>(n, &nc); break;
+    case 512: err = fused_columns<512>(n, &nc); break;
+    case 1024: err = fused_columns<1024>(n, &nc); break;
+  }
+  return err == cudaSuccess ? nc : -(int)err;
+}
+
+// `sub` is 0 (the whole-tile path) or 64 (the sub-tiled path); any other
+// value returns cudaErrorInvalidValue.  `work` holds
+// tc_mlp_block_forward_workspace(n, c, sub) floats.
 int tc_mlp_block_forward(const float* x, const float* res, const float* sd,
                          const float* lnw, const float* lnb, const float* w1,
                          const float* b1, const float* w2, const float* b2,
@@ -195,13 +767,23 @@ int tc_mlp_block_forward(const float* x, const float* res, const float* sd,
   if (n <= 0) return (int)cudaErrorInvalidValue;
 #define TC_ARGS x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, sub, s
   switch (c) {
-    case 128: return launch_width<128, 64, 1, 128, 8, 4, 8, 4>(TC_ARGS);
-    case 256: return launch_width<256, 32, 1, 256, 8, 4, 8, 4>(TC_ARGS);
-    case 512: return launch_width<512, 32, 2, 256, 8, 4, 8, 8>(TC_ARGS);
-    case 1024: return launch_width<1024, 16, 4, 256, 4, 4, 8, 8>(TC_ARGS);
+    case 128: return forward<128>(TC_ARGS);
+    case 256: return forward<256>(TC_ARGS);
+    case 512: return forward<512>(TC_ARGS);
+    case 1024: return forward<1024>(TC_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TC_ARGS
+}
+
+// Block 0's clocks by phase (TC_MLP_PHASES builds only; else -1).
+int tc_mlp_phase_clocks(unsigned long long* out) {
+#ifdef TC_MLP_PHASES
+  return (int)cudaMemcpyFromSymbol(out, phase_clocks, sizeof(phase_clocks));
+#else
+  (void)out;
+  return -1;
+#endif
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

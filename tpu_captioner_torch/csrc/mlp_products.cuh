@@ -11,11 +11,12 @@
 // with the exact erf GELU: per = 1 takes one scale a row (the MLP tail's
 // sd), per = H * W one an image (the block's).  W1 is (4C, C) and W2 (C,
 // 4C), the nn.Linear layouts.  The weights are split into their TF32
-// planes at every call (the optimizer updates them in place).  h goes
-// through device memory as two planes (N, 4C): a wgmma accumulator covers
-// 64 rows, and a 64 x C f32 tile of the second product outgrows a
-// warpgroup's registers (see mlp_block.cu).  Rows with sd 0 return res bit
-// for bit: res + 0 * (finite) is res.
+// planes at every call (the optimizer updates them in place).  Here h goes
+// through device memory as two planes (N, 4C), because each product is a
+// GEMM launch of 128 x 128 output tiles.  The MLP tail's sub-tiled path
+// (mlp_block.cu: fused_kernel) keeps h on chip instead: one launch whose
+// clusters share each hidden chunk through distributed shared memory.
+// Rows with sd 0 return res bit for bit: res + 0 * (finite) is res.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -12,12 +12,12 @@ depth scale: all ones in eval.
 ``fused_convnext_mlp`` is a ``torch.autograd.Function`` (the JAX package's
 ``custom_vjp``).  Its forward launches ``csrc/mlp_block.cu`` for CUDA tensors
 and runs ``_mlp_plain`` for CPU tensors.  ``TPU_CAPTIONER_MLP_SUB``, read at
-each call (``_pipeline_sub``), selects the kernel's sub-tiled instance, the
-counterpart of the JAX package's ``_kernel_pipelined``; unset, the forward
-runs the whole-tile path on the tensor cores.  Both the whole-tile forward
-and the backward take f32-accurate products from TF32 tensor cores through
-the 3xTF32 split (``csrc/tf32x3_gemm.cuh``; ``ops/tf32.py`` models its
-rounding on the CPU for the tests).  Its backward
+each call (``_pipeline_sub``), selects the sub-tiled kernel, the counterpart
+of the JAX package's ``_kernel_pipelined``: one launch that keeps the hidden
+activation on chip (``FUSED_TILES``); unset, the forward runs the
+whole-tile path.  Both forwards and the backward take f32-accurate products
+from TF32 tensor cores through the 3xTF32 split (``csrc/tf32x3_gemm.cuh``;
+``ops/tf32.py`` models their rounding on the CPU for the tests).  Its backward
 returns the cotangent itself as the residual's gradient and calls
 ``fused_convnext_mlp_bwd``, which launches ``csrc/mlp_block_bwd.cu`` for
 CUDA tensors and runs ``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
@@ -37,13 +37,18 @@ from tpu_captioner_torch.ops import _build
 
 LN_EPS = 1e-6
 SUPPORTED_C = (128, 256, 512, 1024)  # the widths the kernels are instantiated for
-# Rows per thread block, and hidden units per chunk, of the sub-tiled
-# instances' f32 FFMA tile at each width (csrc/mlp_block.cu:
-# tc_mlp_block_forward, csrc/mlp_tail.cuh); the whole-tile path runs the
-# 3xTF32 tensor-core GEMM of csrc/tf32x3_gemm.cuh instead, in 128 x 128
-# tiles at every width.
-ROW_TILE = {128: 64, 256: 32, 512: 32, 1024: 16}
-HIDDEN_CHUNK = {128: 128, 256: 256, 512: 256, 1024: 256}
+# The sub-tiled path's tiles (csrc/mlp_block.cu: Fused<C, NC>, which
+# tc_mlp_block_fused_plan reports), by width and output columns a block: a
+# cluster of S = C / NC blocks owns a row tile of two SUB_ROWS-row
+# sub-tiles, and each block computes JCB hidden units of every chunk of S *
+# JCB and NC columns of the output.  The launch takes NC = 256 where that
+# needs fewer rounds of the clusters the card runs at once
+# (tc_mlp_block_fused_columns: the bs-32 stage shapes at C >= 256).
+SUB_ROWS = 64  # the sub-tile rows: the wgmma's M
+FUSED_TILES = {  # (c, nc): (S, JCB)
+    (128, 128): (1, 64), (256, 128): (2, 64), (256, 256): (1, 64), (512, 128): (4, 32),
+    (512, 256): (2, 64), (1024, 128): (8, 16), (1024, 256): (4, 32),
+}
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -90,27 +95,19 @@ def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
 def _pipeline_sub(n: int, c: int) -> int:
     """Sub-tile rows of the forward kernel at width ``c`` (the JAX package's
     ``_pipeline_sub``, tpu_captioner/ops/mlp_block.py:191); 0 selects the
-    whole-tile instance.  Reads ``TPU_CAPTIONER_MLP_SUB`` at each call (JAX
-    reads it when it traces).  Returns 0 when the variable is unset or <= 0,
-    or when the value does not fit the width's tile: it must be a multiple of
-    4 that divides the tile's BM rows at least twice, with SUB x JC >= 1024
-    so that each of the 256 threads holds a 4-row tile of the sub-tile's
-    first product.  With the port's tiles (BM = 64/32/32/16, JC =
-    128/256/256/256 at C = 128/256/512/1024) the valid values are:
+    whole-tile path.  Reads ``TPU_CAPTIONER_MLP_SUB`` at each call (JAX
+    reads it when it traces).  Returns 0 when the variable is unset, or set
+    to a value the sub-tiled kernel does not take, as JAX falls back to its
+    whole tile.  The sub-tiled kernel's sub-tiles are the wgmma's 64 rows,
+    so the valid values are:
 
-    - C = 128: 32, 16, 8;
-    - C = 256: 16, 8, 4;
-    - C = 512: 16, 8, 4;
-    - C = 1024: 8, 4.
+    - C = 128, 256, 512 and 1024: 64.
 
-    8 is valid at every width.  ``n`` is unused: a partial last tile runs the
-    same instance (JAX needs n for its tile size)."""
+    ``n`` is unused: a partial last tile runs the same kernel (JAX needs n
+    for its tile size)."""
     del n
     sub = int(os.environ.get("TPU_CAPTIONER_MLP_SUB", "0"))
-    bm = ROW_TILE.get(c, 0)
-    if sub <= 0 or sub % 4 or not bm or bm % sub or bm // sub < 2 or sub * HIDDEN_CHUNK[c] < 1024:
-        return 0
-    return sub
+    return sub if sub == SUB_ROWS and c in SUPPORTED_C else 0
 
 
 def _check(what, c, tensors):
@@ -146,6 +143,10 @@ def _lib():
     ]
     lib.tc_mlp_block_forward_workspace.restype = ctypes.c_longlong
     lib.tc_mlp_block_forward_workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tc_mlp_block_fused_plan.restype = ctypes.c_int
+    lib.tc_mlp_block_fused_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.tc_mlp_block_fused_columns.restype = ctypes.c_int
+    lib.tc_mlp_block_fused_columns.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -161,9 +162,9 @@ def _bwd_lib():
 
 
 def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
-    """The forward: the CUDA kernel for CUDA tensors (its sub-tiled instance
-    when ``_pipeline_sub`` selects one), the plain version for CPU tensors;
-    any other device raises."""
+    """The forward: the CUDA kernel for CUDA tensors (the sub-tiled one when
+    ``_pipeline_sub`` selects it), the plain version for CPU tensors; any
+    other device raises."""
     args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
     if x.device.type == "cpu":
         return _mlp_plain(*args)
@@ -249,7 +250,7 @@ def fused_convnext_mlp(
     """The fused tail, differentiable: the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors; any other device raises.
     ``fused_convnext_mlp.launches`` counts forward kernel launches, of which
-    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled instance;
+    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled kernel;
     ``fused_convnext_mlp_bwd.launches`` counts backward ones."""
     return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
 

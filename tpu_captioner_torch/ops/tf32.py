@@ -1,7 +1,7 @@
 """A plain PyTorch model of the 3xTF32 products of the MLP-tail and
 whole-block kernels.
 
-The whole-tile forward and the backward of the MLP tail
+The MLP tail's forward, whole-tile and sub-tiled, and its backward
 (``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``) and the whole-block
 kernel (``csrc/block_fused.cu``) take their matrix products from the card's
 TF32 tensor cores through ``csrc/tf32x3_gemm.cuh``:
@@ -65,6 +65,28 @@ def mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, mm=matmul_3x
     xn = F.layer_norm(x, (x.shape[-1],), ln_w, ln_b, LN_EPS)
     h = F.gelu(mm(xn, w1.T) + b1)
     return residual + sd[:, None] * ((mm(h, w2.T) + b2) * gamma)
+
+
+def fused_mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, jc, stage=32):
+    """The tail's forward as the sub-tiled kernel (``csrc/mlp_block.cu:
+    fused_kernel``, ``TPU_CAPTIONER_MLP_SUB=64``) computes it: ln_w folded
+    into W1's columns and W1 ln_b into b1 (``prep_w1``); each row's
+    normalised x = x * rstd - mean * rstd; the hidden dimension in chunks
+    of ``jc`` units; the first product's sum over C in ``stage``-deep
+    partials added in f32; GELU and the split of each chunk, whose second
+    product is one partial added into the output's f32 accumulator; then
+    out = res + sd * ((acc + b2) * gamma).  Every product is 3xTF32."""
+    mu = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    xhat = x * rstd + (-mu * rstd)
+    w1f, b1f = w1 * ln_w, b1 + w1 @ ln_b
+    acc = torch.zeros_like(x)
+    for j in range(0, w1.shape[0], jc):
+        h = torch.zeros(x.shape[0], jc, dtype=x.dtype)
+        for k in range(0, x.shape[1], stage):
+            h = h + matmul_3xtf32(xhat[:, k:k + stage], w1f[j:j + jc, k:k + stage].T)
+        acc = acc + matmul_3xtf32(F.gelu(h + b1f[j:j + jc]), w2[:, j:j + jc].T)
+    return residual + sd[:, None] * ((acc + b2) * gamma)
 
 
 def mlp_backward(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, mm=matmul_3xtf32):
