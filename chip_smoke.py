@@ -33,7 +33,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    without, at the fine-tune step's trained stages, beside
    ``F.conv2d(groups=C)`` and ``aten.convolution_backward`` as the library
    yardsticks; the LSTM step at the bs-8 beam's 40 rows, the bs-32 beam's
-   160 and the eval step's 32, at E = D = A = 512, C = 1024, and at E=300;
+   160 and the eval step's 32, at E = D = A = 512, C = 1024, and at E=300,
+   a second call bit for bit, with device (CUDA-graph replay), eager,
+   L2-cold and host times;
    then the three decode kernels at the reference's
    pretrained-embedding widths, GloVe-200 (E=200, H=8) and word2vec-300
    (E=300, H=6), whose head widths 25 and 50 take the scalar key loads; the
@@ -1502,15 +1504,52 @@ def eval_width(dev, card, model, word_map):
 
 
 def lstm_bound(R, E, D, A, C, P):
-    """(bytes, ops) of one LSTM step over R rows: the weights, emb, h, c, enc
-    and att1 read once, h', c' and alpha written; 2 operations per
-    multiply-add of the five products, 4 per (pixel, attention unit) of the
-    scores (add, relu, multiply-add) and 2 per (pixel, channel) of the
-    context."""
+    """(bound_ms, bound_by) of one LSTM step over R rows: the larger of the
+    bytes (the weights, emb, h, c, enc and att1 read once, h', c' and alpha
+    written) over the memory rate and the operations over their rates: the
+    five products, 2 operations per multiply-add, at the f32 product rate of
+    the tensor cores (``F32_PRODUCT_OPS_PER_S``, as the MLP tail's and the
+    block's products are priced), plus the attention's FFMA work, 4
+    operations per (pixel, attention unit) of the scores (add, relu,
+    multiply-add) and 2 per (pixel, channel) of the context, at the f32
+    rate."""
     n_weights = A * D + 2 * A + 1 + C * D + C + 4 * D * (E + C + D + 1)
     n_bytes = 4 * (n_weights + R * (E + 2 * D + P * (C + A)) + R * (2 * D + P))
-    n_ops = 2 * R * (A * D + C * D + 4 * D * (E + C + D)) + R * P * (4 * A + 2 * C)
-    return n_bytes, n_ops
+    products = 2 * R * (A * D + C * D + 4 * D * (E + C + D))
+    attention = R * P * (4 * A + 2 * C)
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (products / F32_PRODUCT_OPS_PER_S + attention / F32_OPS_PER_S) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _cold_ms(fn, iters=20):
+    """Device ms of ``fn`` with L2 emptied before each call: a 128 MiB
+    buffer (over twice the 50 MB L2) zeroed between the calls of a CUDA
+    graph, less the zeroing's own time in a graph of its own."""
+    import torch
+
+    flush = torch.empty(32 << 20, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    return _graph_ms(both, iters=iters) - _graph_ms(flush.zero_, iters=iters)
+
+
+def _host_us(fn, iters=200):
+    """Host microseconds a call of ``fn``: the host's clock around ``iters``
+    calls issued back to back, no synchronise between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def check_lstm(dev, card):
@@ -1518,10 +1557,12 @@ def check_lstm(dev, card):
     rows (``LSTM_ROWS``) at full width, E = D = A = 512, C = 1024, P = 49,
     and at the bs-8 beam's rows with E = 300 (word2vec-300's width); seeded
     weights U(+-1/sqrt(fan-in)), as the default Linear and LSTMCell draw
-    them.  CUDA-event times of both (weights and inputs stay in the 50 MB L2
-    from call to call, as in a decode loop) and the bound.  Returns (worst
-    error, kernel ms, plain ms, bound ms, bound by) at the bs-8 beam's rows
-    and E = 512."""
+    them; a second call must repeat the first bit for bit.  Times of both:
+    device (CUDA-graph replay; weights and inputs stay in the 50 MB L2 from
+    call to call, as in a decode loop), eager (calls issued from Python),
+    L2-cold (``_cold_ms``) and host µs per call; and the bound.  Returns
+    (worst error, kernel ms, plain ms, bound ms, bound by) at the bs-8
+    beam's rows and E = 512, device times."""
     import torch
 
     from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, _lstm_step_plain, fused_lstm_step
@@ -1539,12 +1580,17 @@ def check_lstm(dev, card):
         errs = {k: (a - b).abs().max().item() for k, a, b in zip(("h", "c", "alpha"), got, want)}
         if not (all(torch.isfinite(a).all() for a in got) and max(errs.values()) < LSTM_TOL):
             raise AssertionError(f"lstm_step kernel disagrees at R={R}, E={E}: {errs} (tol {LSTM_TOL:g})")
-        t_kernel = _time_ms(lambda: fused_lstm_step(*args), iters=50)
-        t_plain = _time_ms(lambda: _lstm_step_plain(*args), iters=50)
-        bound_ms, bound_by = bound(*lstm_bound(R, E, D, A, C, P))
+        if not all(torch.equal(a, b) for a, b in zip(got, fused_lstm_step(*args))):
+            raise AssertionError(f"lstm_step kernel: a second call differs at R={R}, E={E}")
+        call = lambda: fused_lstm_step(*args)  # noqa: E731
+        t_kernel, t_eager, t_cold, host = _graph_ms(call, iters=50), _time_ms(call, iters=50), _cold_ms(call), \
+            _host_us(call)
+        t_plain = _graph_ms(lambda: _lstm_step_plain(*args), iters=50)
+        bound_ms, bound_by = lstm_bound(R, E, D, A, C, P)
         print(f"lstm_step R={R} E={E} D={D} A={A} C={C} P={P}: max_abs_err " +
-              ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {LSTM_TOL:g}); kernel "
-              f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms per step, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+              ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {LSTM_TOL:g}), second call bit for "
+              f"bit; kernel {t_kernel:.4f} ms device, {t_eager:.4f} eager, {t_cold:.4f} L2-cold, {host:.1f} us "
+              f"host a call; plain {t_plain:.4f} ms device; bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
         worst = max(worst, *errs.values())
         if out is None:
             out = (t_kernel, t_plain, bound_ms, bound_by)

@@ -41,8 +41,9 @@ LSTM step kernel's h, c and attention map agree with its plain version within
 1e-5 (sums of up to E + D + C products of order-one terms scaled by
 1/sqrt(fan-in), in another order than cuBLAS's), at the serving (40 rows),
 eval (32) and batch-32 beam (160) row counts and ragged ones, at E = 512, 300
-(word2vec) and 48, and at the JAX tests' odd small widths; it repeats bit for
-bit (no atomics).  The whole-block kernel agrees with its plain version
+(word2vec), 200 (GloVe, 160 rows) and 48, at 333 rows (three launches) and at
+the JAX tests' odd small widths; it repeats bit for bit (no atomic in its
+sums), and its library runs HGMMA and UTMALDG.  The whole-block kernel agrees with its plain version
 within 1e-4 times max(1, its largest magnitude) (the conv's 49 products and
 the tail's sums in another order than cuDNN's and cuBLAS's) at the four
 ConvNeXt-Base stage shapes, at a batch whose rows do not fill the last tile
@@ -571,13 +572,49 @@ def test_lstm_step_kernel_at_odd_widths(cuda, rows, widths):
 
 
 def test_lstm_step_refuses_widths_beyond_shared_memory(cuda):
-    """16 staged rows of D + E floats must fit a block's shared memory: the
-    wrapper raises a ValueError, it does not fall back."""
+    """A gate block keeps its share of w_ih_c in shared memory beside a ring
+    of two slots (``lstm_plan``): at C = 8192 with D = 1000 (63 gate tiles,
+    two K splits) the share alone is 1 MB, and the wrapper raises a
+    ValueError, it does not fall back."""
     z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
-    R, E, D, A, C, P = 2, 3000, 1000, 8, 8, 4
+    R, E, D, A, C, P = 2, 8, 1000, 8, 8192, 4
     w = LstmStepWeights(z(A, D), z(A), z(A), z(1), z(C, D), z(C), z(4 * D, E), z(4 * D, C), z(4 * D, D), z(4 * D))
     with pytest.raises(ValueError, match="shared memory"):
         fused_lstm_step(w, z(R, E), z(R, D), z(R, D), z(R, P, C), z(R, P, A))
+
+
+def test_lstm_step_kernel_at_glove_width(cuda):
+    """The bs-32 beam's 160 rows at GloVe-200's embedding width."""
+    assert_lstm_step_matches_plain(lstm_args(160, 200, 512, 512, 1024, 49, cuda, seed=7))
+
+
+def test_lstm_step_kernel_beyond_one_launch(cuda):
+    """333 rows: three launches of at most 160 rows, each reading the
+    weights once."""
+    args = lstm_args(333, 512, 512, 512, 1024, 49, cuda, seed=11)
+    before = fused_lstm_step.launches
+    got = fused_lstm_step(*args)
+    torch.cuda.synchronize()
+    assert fused_lstm_step.launches == before + 3
+    for name, a, b in zip(("h", "c", "alpha"), got, _lstm_step_plain(*args)):
+        assert a.shape == b.shape and (a - b).abs().max().item() < 1e-5, name
+
+
+def test_lstm_step_library_runs_tensor_cores_and_tma(cuda):
+    """The built library issues the tensor cores' wgmma (HGMMA) and TMA
+    loads (UTMALDG), and no floating-point atomic: its sums are in a fixed
+    order."""
+    import os
+    import re
+    import subprocess
+
+    from tpu_captioner_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build("lstm_step"))], capture_output=True, text=True,
+                          check=True).stdout
+    assert re.search(r"\bHGMMA\b", sass) and re.search(r"\bUTMALDG\b", sass)
+    assert not re.search(r"\b(?:RED|ATOM|ATOMG)\.\S*F32", sass)
 
 
 # The sub-tile rows each width takes (ops/mlp_block.py:_pipeline_sub).

@@ -15,337 +15,1223 @@
 // (out, in) layout: wd (A, D), wfb (C, D), w_ih_e (4D, E), w_ih_c (4D, C),
 // w_hh (4D, D); b = b_ih + b_hh.
 //
-// What bounds it on the H100: bytes.  At E = D = A = 512, C = 1024, P = 49
-// the weights are 19.9 MB and each row brings 301 KB of enc and att1, for
-// about 5.0 M multiply-adds per row: at R = 40 (8 images x beam 5) 32 MB
-// against 0.41 GFLOP, 9.6 us of memory traffic against 6 us of f32 FMA.
+// What bounds it on the H100: bytes, at every row count the main path runs.
+// At E = D = A = 512, C = 1024, P = 49 the weights are 19.9 MB and each row
+// brings 301 KB of enc and att1: 32.4 MB at R = 40 (the bs-8 beam), 29.9 at
+// R = 32 (the eval step), 69.8 at R = 160 (the bs-32 beam), 9.7 / 8.9 /
+// 20.8 us at 3.35 TB/s; the five products (1.59 GFLOP at R = 160) take 9.6
+// us at the 165 TFLOP/s of f32-accurate products on the tensor cores.
 //
-// What the design does about it: the TPU kernel tiles rows with every
-// weight resident in VMEM; here the whole step is one cooperative launch
-// over every co-resident block, in four phases with a grid barrier between
-// each two, each phase spreading its work over the whole card:
-// 1. the products of h and emb: a block task is kRT rows x 32 output
-//    columns of [wd | wfb | w_hh], the gate columns adding emb w_ih_e; the
-//    block stages its rows of h and emb in shared memory, each warp loads
-//    the weight rows of its 4 columns (contiguous k, lanes on consecutive
-//    k) with all loads of a chunk in flight, and a reduce-scatter of
-//    shuffles sums the lanes.  Each weight is read once per kRT rows;
-// 2. the scores, one warp per (row, pixel), lanes over A;
-// 3. per (row, 256 channels) block task: the softmax of the row's P scores
-//    in shared memory, then one thread per channel for the context and its
-//    gate (alpha is written by the first task of a row);
-//    phases 2 and 3 keep kInFlight loads per lane in flight: a loop of
-//    dependent loads waits out the memory latency once per element;
-// 4. the products of the gated context with w_ih_c, each warp owning one
-//    hidden unit d and its four gate rows d, D + d, 2D + d, 3D + d, so that
-//    the LSTM cell runs in the same warp: partial gate sums from phase 1
-//    added, c' and h' written.
-// Two blocks of 256 threads per SM (at most 128 registers a thread), so
-// that one block's products overlap the other's loads.
-// Loads are scalar, so no width needs an alignment: E is free (300 for
-// word2vec, 200 for GloVe) and so are D, A and C.  Scratch buffers written
-// in one phase are read only in later ones, past L1 (__ldcg); the grid
-// barrier orders the writes before the reads.
+// What the design does about it (ops/lstm_step.py:lstm_plan sizes it; the C
+// side recomputes the plan and refuses one that differs):
+// - Each weight byte is read from memory once a launch, raw f32, by TMA.  A
+//   launch is one block per SM.  The products run swap-AB on the 3xTF32
+//   tensor cores (tf32x3_gemm.cuh): 64 weight rows are the wgmma's M and the
+//   R rows (padded to an instance of NT = 16 .. 160) its N, so every row is
+//   in one tile and no weight is read again for another row tile.  The
+//   consumer warpgroup splits its weight fragments into TF32 hi / lo in
+//   registers (A from registers, as mlp_block.cu:fused_kernel does); the
+//   activations h, emb and the gated context are the B operand, as TF32
+//   hi / lo planes with their K columns permuted within groups of 16, so
+//   that a thread's fragment is one float4 of the weight tile.  The
+//   [wd | wfb] tiles, first on the path to the attention, take h's planes
+//   from their producer warpgroup, which splits h straight into the ring
+//   slot; the gate tiles take the planes of h, emb and the context from
+//   device memory by TMA (a few hundred KB, from L2), written by the launch
+//   itself.
+// - The tiles: 24 of [wd | wfb] (K = D) and 32 gate tiles (K = D + E, then
+//   C), each split over K across blocks (up to 4 ways).  A gate tile holds
+//   16 hidden units' four gates: its TMA box is 16 rows of each gate's
+//   block of the weight (a 3-D box over (K, D, 4)), so no weight is
+//   repacked.  The splits' partial tiles go to device memory.  The
+//   attention sums an [wd | wfb] tile's partials, in split order, as it
+//   loads att2 and fb; a gate tile's split blocks, once its counter says
+//   all partials are there, each sum their slice of the rows in split
+//   order (a reduce-scatter through L2) and apply the LSTM cell: no atomic
+//   in any sum, so a second call repeats the first bit for bit.  (Clusters
+//   would keep the partials in distributed shared memory, but the card runs
+//   30 clusters of 4 at once, fewer than the 32 gate tiles, and the flags
+//   below need every block co-resident, which a cooperative launch
+//   guarantees.)
+// - The h-side gates are off the attention's path: a block's warpgroups are
+//   a producer (TMA), a consumer (wgmma) and an attention warpgroup.  The
+//   consumers run the [wd | wfb] tiles first, then the h-side of their gate
+//   tile while the attention warpgroups of all blocks run the scores and
+//   the context; meanwhile the producer has prefetched the block's share of
+//   w_ih_c (64 rows x C / 4: 64 KB) into shared memory.  The gate tile then
+//   adds gctx w_ih_c^T from shared memory and applies the cell.
+// - Release / acquire flags instead of grid barriers, in a buffer of their
+//   own that the last block out zeroes for the next launch: the planes of h
+//   and emb in device memory (split by every block's attention warpgroup
+//   first, for the gate tiles), the [wd | wfb] partials (the scores wait
+//   for all of them), a row's scores (the last of a row's score tasks
+//   computes its softmax once), a row's alpha (the context tasks wait for
+//   it), and each 128-channel chunk of the context (the producers of the
+//   gate tiles wait for their chunks).
+// - The attention: scores from float4 loads of att1, att2 and wfull, 7
+//   pixels a warp task with all their loads in flight; the context from
+//   float4 loads of enc, 16 pixels in flight a lane.
+// Where the time goes (PERF.md, PR 14, scripts/lstm_probe.py timeline,
+// median block): at R = 40 att2 and fb are seen at 9 us, the context is
+// done at 23, the context stages at 29, the cells at 33; at R = 160 at 21,
+// 62, 79 and 88.  The chain of dependent phases, not the bytes, sets the
+// pace: a launch without its products and weight loads is 22% faster.
+// Widths that TMA cannot address (D, E or C not a multiple of 4) load the
+// weight tiles with plain loads by the producer warpgroup into the same
+// swizzled layout; the B planes are the launch's own scratch and always
+// take TMA.  Rows past R are zero-filled by TMA, and the planes' padding
+// columns are written as zeros, so no NaN of a padding slot reaches a sum.
+//
+// Built with TC_LSTM_SKIP set (scripts/lstm_probe.py), the kernel leaves out
+// parts of its work, for timing only: 1 the attention's loads and
+// arithmetic, 2 the wgmmas, 4 the weight loads.  TC_LSTM_TIMELINE stamps
+// each role's milestones (the probe's timeline).
 
-#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
 
+#include "tf32x3_gemm.cuh"
 #include "warp_reduce.cuh"
 
-namespace cg = cooperative_groups;
+#ifndef TC_LSTM_SKIP
+#define TC_LSTM_SKIP 0
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRT = 16;        // rows per product task
-constexpr int kCG = 4;         // output columns per warp in a product task
-constexpr int kKChunk = 128;   // k values whose weights a warp loads at once
-constexpr int kInFlight = 8;   // loads a lane keeps in flight in the attention phases
-constexpr int kChannels = kThreads;  // context channels per phase-3 task
-static_assert(kRT * kCG == 64, "the reduce-scatter sums 64 outputs per warp");
+namespace tf32x3 {
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23},"
+      " {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+}  // namespace tf32x3
+
+constexpr int kThreads = 384;         // producer, consumer and attention warpgroups
+constexpr int kBK = 32;               // K columns a ring stage
+constexpr int kTileM = 64;            // weight rows a tile: the wgmma's M
+constexpr int kGateUnits = 16;        // hidden units a gate tile (x 4 gates)
+constexpr int kAFloats = kTileM * kBK;  // a stage's weight box: 8 KB
+constexpr int kMaxStages = 4;
+constexpr int kMaxSplit = 4;
+constexpr int kMaxRows = 160;
+constexpr int kPix = 7;               // pixels a score task
+constexpr int kCtxCh = 128;           // channels a context task (4 a lane)
+constexpr int kCtxInFlight = 16;      // pixels of enc a lane has in flight
+constexpr int kSmemLimit = 232448;
+constexpr int kBarProducer = 1, kBarConsumer = 2, kBarAttention = 3;  // named barriers of 128 threads
+// Flags (ints of their own buffer, which no launch's data overlaps, zero
+// between launches): the split of h and emb, the [wd | wfb] partials
+// stored, blocks out; then a counter per gate tile, a count of score tasks
+// and a ready flag per row, a count of rows done per context chunk.
+constexpr int kFlagSplit = 0, kFlagAf = 1, kFlagExit = 2, kFlagHead = 4;
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline long long round32(long long n) { return (n + 31) / 32 * 32; }
+
+// The plan (ops/lstm_step.py:LstmPlan, in its field order).
+struct Plan {
+  int nt;         // rows of the products: R padded to an instance
+  int grid;       // blocks: one per SM
+  int s_af;       // K splits of an att2 / f_beta tile
+  int s_g;        // K splits of a gate tile
+  int stages;     // ring slots
+  int wc_stages;  // w_ih_c stages a gate block keeps in shared memory
+  int smem;       // dynamic shared memory, bytes
+};
+
+constexpr int kInstances[] = {16, 32, 48, 64, 96, 128, 160};
+
+// ops/lstm_step.py:lstm_plan.  Returns 0, or 1 (rows), 2 (more tiles than
+// blocks), 3 (shared memory), 4 (a width below 1).
+inline int make_plan(int R, int E, int D, int A, int C, int P, int sms, Plan* p) {
+  if (E < 1 || D < 1 || A < 1 || C < 1 || P < 1 || sms < 1) return 4;
+  if (R < 1 || R > kMaxRows) return 1;
+  int nt = 0;
+  for (int v : kInstances)
+    if (!nt && v >= R) nt = v;
+  const int kD = cdiv(D, kBK), kE = cdiv(E, kBK), kC = cdiv(C, kBK);
+  const int n_af = cdiv(A, kTileM) + cdiv(C, kTileM), n_g = cdiv(D, kGateUnits);
+  if (n_af > sms || n_g > sms) return 2;
+  const auto min2 = [](int a, int b) { return a < b ? a : b; };
+  p->nt = nt;
+  p->grid = sms;
+  p->s_af = min2(min2(kMaxSplit, sms / n_af), kD);
+  p->s_g = min2(min2(kMaxSplit, sms / n_g), min2(kC, kD + kE));
+  p->wc_stages = cdiv(kC, p->s_g);
+  const long long slot = 4LL * (kAFloats + 2 * nt * kBK);
+  const long long fixed = 1024 + 4LL * kAFloats * p->wc_stages + 8 * (2 * kMaxStages + 1) + 16;
+  const long long fit = (kSmemLimit - fixed) / slot;
+  p->stages = fit > kMaxStages ? kMaxStages : (int)(fit < 0 ? 0 : fit);
+  if (p->stages < 2) return 3;
+  p->smem = (int)(fixed + p->stages * slot);
+  return 0;
+}
+
+// Widths and what follows from them.
+struct Dims {
+  int R, E, D, A, C, P;
+  int Dp, Ep, Cp;      // widths of the B planes: 16-padded
+  int kD, kE, kC;      // 32-column stages over D, E, C
+  int n_att, n_af, n_g, nj;
+  int n_flags;
+};
+
+inline Dims make_dims(int R, int E, int D, int A, int C, int P) {
+  Dims d;
+  d.R = R, d.E = E, d.D = D, d.A = A, d.C = C, d.P = P;
+  d.Dp = cdiv(D, 16) * 16, d.Ep = cdiv(E, 16) * 16, d.Cp = cdiv(C, 16) * 16;
+  d.kD = cdiv(D, kBK), d.kE = cdiv(E, kBK), d.kC = cdiv(C, kBK);
+  d.n_att = cdiv(A, kTileM);
+  d.n_af = d.n_att + cdiv(C, kTileM);
+  d.n_g = cdiv(D, kGateUnits);
+  d.nj = cdiv(C, kCtxCh);
+  d.n_flags = kFlagHead + d.n_g + 2 * R + d.nj;
+  return d;
+}
 
 struct Args {
-  const float *emb, *h, *c, *enc, *att1;  // (R, E), (R, D), (R, D), (R, P, C), (R, P, A)
-  const float *wd, *bd;                   // (A, D), (A)
-  const float *wfull, *bfull;             // (A), (1)
-  const float *wfb, *bfb;                 // (C, D), (C)
-  const float *w_ih_e, *w_ih_c, *w_hh, *b;  // (4D, E), (4D, C), (4D, D), (4D)
-  float *h_out, *c_out, *alpha;           // (R, D), (R, D), (R, P)
-  float *att2, *fb, *gates, *score, *gctx;  // scratch (R, A), (R, C), (R, 4D), (R, P), (R, C)
-  int R, E, D, A, C, P;
+  const float *emb, *h, *c, *enc, *att1;
+  const float *wd, *bd, *wfull, *bfull, *wfb, *bfb, *w_ih_e, *w_ih_c, *w_hh, *b;
+  float *h_out, *c_out, *alpha;
+  // workspace: partial tiles, the B planes (hi, then lo), scores
+  float *part_af, *part_g, *hpl, *epl, *gpl, *score;
+  int* flags;  // the flags (their own buffer)
+  Dims d;
+  Plan plan;
+  int tma;  // weight tiles by TMA (else plain loads)
 };
+
+// The tensor maps: weights (unused without TMA) and the B planes.
+struct Maps {
+  CUtensorMap wd, wfb, whh, wie, wic, hpl, epl, gpl;
+};
+
+// What a block computes: an [wd | wfb] tile's K stages [af_k0, af_k1) (af
+// < 0: none; the units from the last block down) and a gate tile's h-side
+// stages [gh_k0, gh_k1) of [D | E] and context stages [gc_k0, gc_k1) (g <
+// 0: none).  ops/lstm_step.py:lstm_units.
+struct Work {
+  int af, af_unit, af_k0, af_k1, g, gh_k0, gh_k1, gc_k0, gc_k1;
+};
+
+__host__ __device__ inline Work work_of(const Dims& d, const Plan& p, int b) {
+  Work w{};
+  w.af = w.g = -1;
+  const int ua = p.grid - 1 - b;
+  if (ua < d.n_af * p.s_af) {
+    const int s = ua % p.s_af;
+    w.af = ua / p.s_af, w.af_unit = ua;
+    w.af_k0 = s * d.kD / p.s_af, w.af_k1 = (s + 1) * d.kD / p.s_af;
+  }
+  if (b < d.n_g * p.s_g) {
+    const int s = b % p.s_g, kh = d.kD + d.kE;
+    w.g = b / p.s_g;
+    w.gh_k0 = s * kh / p.s_g, w.gh_k1 = (s + 1) * kh / p.s_g;
+    w.gc_k0 = s * d.kC / p.s_g, w.gc_k1 = (s + 1) * d.kC / p.s_g;
+  }
+  return w;
+}
+
+// A ring stage: its weight (kind 0 wd, 1 wfb, 2 w_hh, 3 w_ih_e, 4 w_ih_c
+// from shared memory) and its 32-column stage k of that weight's K.
+struct Src {
+  int kind, k;
+};
+
+__device__ __forceinline__ Src src_of(const Dims& d, const Work& w, int i) {
+  const int naf = w.af_k1 - w.af_k0, nh = w.gh_k1 - w.gh_k0;
+  if (i < naf) return Src{w.af < d.n_att ? 0 : 1, w.af_k0 + i};
+  i -= naf;
+  if (i < nh) {
+    const int k = w.gh_k0 + i;
+    return k < d.kD ? Src{2, k} : Src{3, k - d.kD};
+  }
+  return Src{4, w.gc_k0 + i - nh};
+}
+
+// ------------------------------------------------------------ sync helpers
+
+__device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// Built with TC_LSTM_TIMELINE defined (scripts/lstm_probe.py timeline), the
+// first thread of each role stamps the global timer at its milestones.
+#ifdef TC_LSTM_TIMELINE
+constexpr int kMarks = 8;
+__device__ unsigned long long g_timeline[1024 * 3 * kMarks];
+#define TIMELINE(role, mark)                                                          \
+  do {                                                                                \
+    if ((threadIdx.x & 127) == 0) {                                                   \
+      unsigned long long t_;                                                          \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                          \
+      g_timeline[(blockIdx.x * 3 + (role)) * kMarks + (mark)] = t_;                   \
+    }                                                                                 \
+  } while (0)
+#else
+#define TIMELINE(role, mark)
+#endif
+
+__device__ __forceinline__ void wait_flag(const int* p, int target) {
+  while (ld_acquire(p) < target) __nanosleep(20);
+}
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// Rows r0 .. r0 + kRT - 1 of in (R, K) into xs (kRT x K), zeros past R.
-// `in` may have been written earlier in this launch: read past L1.
-__device__ void stage_rows(const float* in, int R, int K, int r0, float* xs) {
-  for (int i = threadIdx.x; i < kRT * K; i += kThreads) {
-    const int r = r0 + i / K;
-    xs[i] = r < R ? __ldcg(in + (size_t)r * K + i % K) : 0.f;
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 ldcg4(const float* p) { return __ldcg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
+
+// The K permutation of the B planes: within each group of 16 columns, slot
+// 8 e2 + u + 4 e holds column 4 u + 2 e2 + e, so that the thread of
+// fragment column q reads columns 4 q .. 4 q + 3 of its weight rows as one
+// float4 and gives k-step 2 G + e2 the pair 4 q + 2 e2 (slot q) and + 1
+// (slot q + 4) (ops/tf32.py:lstm_k_slots).  The slot of column col:
+__device__ __forceinline__ int slot_of_col(int col) {
+  const int c = col & 15;
+  return (col & ~15) + 8 * ((c >> 1) & 1) + (c >> 2) + 4 * (c & 1);
+}
+
+__device__ __forceinline__ void store_split(float* plane, long long lo_off, size_t at, float v) {
+  const float hi = tf32x3::round_tf32(v);
+  plane[at] = hi;
+  plane[at + lo_off] = tf32x3::round_tf32(v - hi);
+}
+
+// Columns c0 .. c0 + 15 of a row x of K values (x null: a row past R)
+// as four float4, zeros past K.
+__device__ __forceinline__ void load16(const float* x, int K, int c0, float4 (&v)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c = c0 + 4 * u;
+    if (x && K % 4 == 0 && c + 3 < K) {
+      v[u] = ldg4(x + c);
+    } else {
+      v[u].x = x && c < K ? x[c] : 0.f, v[u].y = x && c + 1 < K ? x[c + 1] : 0.f;
+      v[u].z = x && c + 2 < K ? x[c + 2] : 0.f, v[u].w = x && c + 3 < K ? x[c + 3] : 0.f;
+    }
   }
 }
 
-// v[r * kCG + j] += xs[r] . w[j] over k < K for the kRT staged rows xs
-// (row stride K) and this warp's kCG weight rows w[j] (null: zero).  Lanes
-// take consecutive k; each lane keeps its partial sums.
-__device__ __forceinline__ void accumulate(const float* xs, int K, const float* const* w, float* v) {
-  const int lane = threadIdx.x & 31;
-  for (int k0 = 0; k0 < K; k0 += kKChunk) {
-    float wv[kKChunk / 32][kCG];
+// Slots 4 kk .. 4 kk + 3 of a group of 16 in the B planes' order hold
+// columns kk, kk + 4, kk + 8, kk + 12 (a 4 x 4 transpose of load16's
+// float4s): their TF32 hi and lo parts.
+__device__ __forceinline__ void split4(const float4 (&v)[4], int kk, float4& hi, float4& lo) {
+  float* const h4 = &hi.x;
+  float* const l4 = &lo.x;
 #pragma unroll
-    for (int i = 0; i < kKChunk / 32; ++i) {
-      const int k = k0 + 32 * i + lane;
+  for (int u = 0; u < 4; ++u) {
+    const float e = at(v[u], kk);
+    h4[u] = tf32x3::round_tf32(e);
+    l4[u] = tf32x3::round_tf32(e - h4[u]);
+  }
+}
+
+// One row's group of 16 columns G of x (K wide) into its B planes at dst
+// (the lo plane lo_off floats after the hi plane).
+__device__ __forceinline__ void split_group(const float* x, int K, float* dst, long long lo_off, int G) {
+  float4 v[4];
+  load16(x, K, 16 * G, v);
 #pragma unroll
-      for (int j = 0; j < kCG; ++j) wv[i][j] = k < K && w[j] ? __ldg(w[j] + k) : 0.f;
+  for (int kk = 0; kk < 4; ++kk) {
+    float4 hi, lo;
+    split4(v, kk, hi, lo);
+    *reinterpret_cast<float4*>(dst + 4 * kk) = hi;
+    *reinterpret_cast<float4*>(dst + lo_off + 4 * kk) = lo;
+  }
+}
+
+// ------------------------------------------------------------- producer
+
+// A stage's weight box by TMA into dst (a 128-byte-swizzled 64 x 32 tile;
+// a gate tile's rows gate-major, 16 units each).
+__device__ __forceinline__ void issue_a(const Dims& d, const Maps& m, const Work& w, Src s, float* dst, uint64_t* bar) {
+  switch (s.kind) {
+    case 0: tma_load_2d(dst, &m.wd, s.k * kBK, w.af * kTileM, bar); break;
+    case 1: tma_load_2d(dst, &m.wfb, s.k * kBK, (w.af - d.n_att) * kTileM, bar); break;
+    case 2: tf32x3::tma_load(dst, &m.whh, s.k * kBK, w.g * kGateUnits, bar); break;
+    case 3: tf32x3::tma_load(dst, &m.wie, s.k * kBK, w.g * kGateUnits, bar); break;
+    default: tf32x3::tma_load(dst, &m.wic, s.k * kBK, w.g * kGateUnits, bar); break;
+  }
+}
+
+// The same box by plain loads of the producer warpgroup's 128 threads.
+__device__ void plain_a(const Args& a, const Work& w, Src s, float* dst, int tid) {
+  const Dims& d = a.d;
+  const float* src;
+  int K, rows = 0, row0 = 0;
+  switch (s.kind) {
+    case 0: src = a.wd, K = d.D, rows = d.A, row0 = w.af * kTileM; break;
+    case 1: src = a.wfb, K = d.D, rows = d.C, row0 = (w.af - d.n_att) * kTileM; break;
+    case 2: src = a.w_hh, K = d.D; break;
+    case 3: src = a.w_ih_e, K = d.E; break;
+    default: src = a.w_ih_c, K = d.C; break;
+  }
+  const bool gate = s.kind >= 2;
+  for (int idx = tid; idx < kAFloats; idx += 128) {
+    const int r = idx >> 5, col = idx & 31, k = s.k * kBK + col;
+    int row;
+    bool ok;
+    if (gate) {
+      const int u = w.g * kGateUnits + (r & 15);
+      ok = u < d.D, row = (r >> 4) * d.D + u;
+    } else {
+      row = row0 + r, ok = row < rows;
+    }
+    dst[(r << 5) + (((col >> 2) ^ (r & 7)) << 2) + (col & 3)] = ok && k < K ? __ldg(src + (size_t)row * K + k) : 0.f;
+  }
+}
+
+// A stage's B box: both planes of 32 K columns for the nt rows.
+__device__ __forceinline__ void issue_b(const Maps& m, Src s, float* dst, uint64_t* bar) {
+  const CUtensorMap* map = s.kind <= 2 ? &m.hpl : s.kind == 3 ? &m.epl : &m.gpl;
+  tf32x3::tma_load(dst, map, s.k * kBK, 0, bar);
+}
+
+// mbarrier.expect_tx without an arrival: the stage's thread-written half
+// arrives later.
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// The B operand of [wd | wfb] stages k0 .. k0 + n - 1 in ring slots 0 .. n
+// - 1, written by the producer warpgroup straight from h (an input of the
+// launch, so no flag to wait for): for each of the nt rows and a stage's
+// two groups of 16 columns, both planes in the 128-byte-swizzled layout TMA
+// would have written.  kBatch tasks a thread at once, their loads first.
+constexpr int kBatch = 2;
+
+__device__ void write_b(const Dims& d, const float* h, int k0, int n, float* ring, int slot_floats, int nt, int tid) {
+  const int tasks = n * 2 * nt;
+  for (int base = tid; base < tasks; base += 128 * kBatch) {
+    float4 v[kBatch][4];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int idx = base + 128 * b, st = idx / (2 * nt), row = (idx >> 1) % nt, G = idx & 1;
+      load16(idx < tasks && row < d.R ? h + (size_t)row * d.D : nullptr, d.D, (k0 + st) * kBK + 16 * G, v[b]);
     }
 #pragma unroll
-    for (int r = 0; r < kRT; ++r) {
+    for (int b = 0; b < kBatch; ++b) {
+      const int idx = base + 128 * b, st = idx / (2 * nt), row = (idx >> 1) % nt, G = idx & 1;
+      if (idx >= tasks) break;
+      float* dst = ring + st * slot_floats + kAFloats + row * kBK;
 #pragma unroll
-      for (int i = 0; i < kKChunk / 32; ++i) {
-        const int k = k0 + 32 * i + lane;
-        const float x = k < K ? xs[r * K + k] : 0.f;
-#pragma unroll
-        for (int j = 0; j < kCG; ++j) v[r * kCG + j] = fmaf(x, wv[i][j], v[r * kCG + j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 hi, lo;
+        split4(v[b], kk, hi, lo);
+        float* at_ = dst + ((((4 * G + kk) ^ (row & 7))) << 2);
+        *reinterpret_cast<float4*>(at_) = hi;
+        *reinterpret_cast<float4*>(at_ + nt * kBK) = lo;
       }
     }
   }
 }
 
-// Phase 1: att2 = h wd^T + bd, fb = h wfb^T + bfb and the gates' partial
-// sums emb w_ih_e^T + h w_hh^T + b, over the joint column space
-// [0, A) | [A, A + C) | [A + C, A + C + 4D).
-__device__ __noinline__ void phase_h_products(const Args& a, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int G = 4 * a.D, N = a.A + a.C + G;
-  const int ncb = (N + kCG * kWarps - 1) / (kCG * kWarps), nrt = (a.R + kRT - 1) / kRT;
-  float* xh = smem;               // kRT x D
-  float* xe = smem + kRT * a.D;   // kRT x E
-  for (int task = blockIdx.x; task < ncb * nrt; task += gridDim.x) {
-    const int r0 = (task / ncb) * kRT, c0 = (task % ncb) * kCG * kWarps + warp * kCG;
-    __syncthreads();  // the previous task's readers of the staged rows are done
-    stage_rows(a.h, a.R, a.D, r0, xh);
-    stage_rows(a.emb, a.R, a.E, r0, xe);
-    __syncthreads();
-    if (c0 >= N) continue;
-    const float* wh[kCG];
-    const float* we[kCG];
-    bool any_gate = false;
-#pragma unroll
-    for (int j = 0; j < kCG; ++j) {
-      const int n = c0 + j, g = n - a.A - a.C;
-      wh[j] = n >= N ? nullptr
-              : n < a.A ? a.wd + (size_t)n * a.D
-              : g < 0   ? a.wfb + (size_t)(n - a.A) * a.D
-                        : a.w_hh + (size_t)g * a.D;
-      we[j] = n < N && g >= 0 ? a.w_ih_e + (size_t)g * a.E : nullptr;
-      any_gate |= we[j] != nullptr;
+__device__ void producer(const Args& a, const Maps& m, const Work& w, float* ring, float* wc, uint64_t* full,
+                         uint64_t* empty, uint64_t* wc_full, int tid) {
+  const Plan& p = a.plan;
+  const Dims& d = a.d;
+  const bool lead = tid == 0, tma = a.tma;
+  const int slot_floats = kAFloats + 2 * p.nt * kBK;
+  const uint32_t a_bytes = (TC_LSTM_SKIP & 4) ? 0 : 4 * kAFloats, b_bytes = 4 * 2 * p.nt * kBK;
+  const int naf = w.af_k1 - w.af_k0, nh = w.gh_k1 - w.gh_k0, nc = w.gc_k1 - w.gc_k0;
+  const int total = naf + nh + nc;
+
+  // The block's share of w_ih_c, for after the attention.
+  if (nc > 0) {
+    if (tma) {
+      if (lead) {
+        mbar_expect_tx(wc_full, nc * a_bytes);
+        if (!(TC_LSTM_SKIP & 4))
+          for (int j = 0; j < nc; ++j) issue_a(d, m, w, Src{4, w.gc_k0 + j}, wc + j * kAFloats, wc_full);
+      }
+    } else {
+      for (int j = 0; j < nc; ++j) plain_a(a, w, Src{4, w.gc_k0 + j}, wc + j * kAFloats, tid);
+      wg_sync(kBarProducer);
+      if (lead) mbar_arrive(wc_full);
     }
-    float v[kRT * kCG];
-#pragma unroll
-    for (int i = 0; i < kRT * kCG; ++i) v[i] = 0.f;
-    accumulate(xh, a.D, wh, v);
-    if (any_gate) accumulate(xe, a.E, we, v);  // the same for the whole warp
-    reduce_scatter64(v, lane);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int flat = 2 * lane + i, r = r0 + flat / kCG, n = c0 + flat % kCG;
-      if (r >= a.R || n >= N) continue;
-      if (n < a.A) {
-        a.att2[(size_t)r * a.A + n] = v[i] + a.bd[n];
-      } else if (n < a.A + a.C) {
-        a.fb[(size_t)r * a.C + n - a.A] = v[i] + a.bfb[n - a.A];
+  }
+
+  // The [wd | wfb] stages whose slots are free now: weight boxes first,
+  // then every B half at once.
+  const int na = naf < p.stages ? naf : p.stages;
+  if (na > 0) {
+    if (tma) {
+      if (lead)
+        for (int i = 0; i < na; ++i) {
+          mbar_expect_tx_only(&full[i], a_bytes);
+          if (!(TC_LSTM_SKIP & 4)) issue_a(d, m, w, src_of(d, w, i), ring + i * slot_floats, &full[i]);
+        }
+    } else {
+      for (int i = 0; i < na; ++i) plain_a(a, w, src_of(d, w, i), ring + i * slot_floats, tid);
+    }
+    write_b(d, a.h, w.af_k0, na, ring, slot_floats, p.nt, tid);
+    fence_proxy_async_shared();  // wgmma reads the planes through the async proxy
+    wg_sync(kBarProducer);
+    if (lead)
+      for (int i = 0; i < na; ++i) mbar_arrive(&full[i]);
+  }
+
+  bool planes_ready = false, ctx_ready = false;
+  for (int i = na; i < total; ++i) {
+    const int s = i % p.stages;
+    float* slot = ring + s * slot_floats;
+    const Src src = src_of(d, w, i);
+    if (lead && i >= p.stages) mbar_wait(&empty[s], ((i / p.stages) & 1) ^ 1);
+    if (src.kind <= 1) {  // [wd | wfb]: the weight box by TMA (or loads), B written here from h
+      wg_sync(kBarProducer);  // the slot is free for every thread
+      if (tma) {
+        if (lead) {
+          mbar_expect_tx_only(&full[s], a_bytes);
+          if (!(TC_LSTM_SKIP & 4)) issue_a(d, m, w, src, slot, &full[s]);
+        }
       } else {
-        const int g = n - a.A - a.C;
-        a.gates[(size_t)r * G + g] = v[i] + a.b[g];
+        plain_a(a, w, src, slot, tid);
+      }
+      write_b(d, a.h, src.k, 1, slot, slot_floats, p.nt, tid);
+      fence_proxy_async_shared();  // wgmma reads the planes through the async proxy
+      wg_sync(kBarProducer);
+      if (lead) mbar_arrive(&full[s]);
+      continue;
+    }
+    if (src.kind == 4) {  // B only: the context planes of this block's channels, once written
+      if (lead) {
+        if (!ctx_ready) {
+          const int j0 = w.gc_k0 * kBK / kCtxCh, j1 = cdiv(w.gc_k1 * kBK < d.C ? w.gc_k1 * kBK : d.C, kCtxCh);
+          for (int j = j0; j < j1; ++j)
+            wait_flag(a.flags + kFlagHead + d.n_g + 2 * d.R + j, d.R);
+          fence_proxy_async_global();
+          TIMELINE(0, 2);
+          ctx_ready = true;
+        }
+        mbar_expect_tx(&full[s], b_bytes);
+        issue_b(m, src, slot + kAFloats, &full[s]);
+      }
+      continue;
+    }
+    // The gate's h-side: both halves by TMA (or the weights by loads), once every block has split h and emb.
+    if (lead && !planes_ready) {
+      wait_flag(a.flags + kFlagSplit, p.grid);
+      fence_proxy_async_global();  // the planes were written through the generic proxy
+      TIMELINE(0, 1);
+      planes_ready = true;
+    }
+    if (tma) {
+      if (lead) {
+        mbar_expect_tx(&full[s], a_bytes + b_bytes);
+        if (!(TC_LSTM_SKIP & 4)) issue_a(d, m, w, src, slot, &full[s]);
+        issue_b(m, src, slot + kAFloats, &full[s]);
+      }
+    } else {
+      wg_sync(kBarProducer);  // the lead has seen the slot free
+      plain_a(a, w, src, slot, tid);
+      wg_sync(kBarProducer);
+      if (lead) {
+        mbar_expect_tx(&full[s], b_bytes);
+        issue_b(m, src, slot + kAFloats, &full[s]);
       }
     }
   }
 }
 
-// Phase 2: score[r, p] = relu(att1[r, p] + att2[r]) . wfull + bfull, one
-// warp per (row, pixel); consecutive warps sit on different blocks.
-__device__ __noinline__ void phase_scores(const Args& a) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * kWarps;
-  const float bfull = a.bfull[0];
-  for (int pair = (threadIdx.x >> 5) * gridDim.x + blockIdx.x; pair < a.R * a.P; pair += warps) {
-    const int r = pair / a.P;
-    const float* e1 = a.att1 + (size_t)pair * a.A;
-    const float* e2 = a.att2 + (size_t)r * a.A;
-    float s = 0.f;
-    for (int i0 = lane; i0 < a.A; i0 += 32 * kInFlight) {
-      float x1[kInFlight], x2[kInFlight], wf[kInFlight];
+// ------------------------------------------------------------- consumer
+
+// The products' shape at NT rows: one wgmma of N = NT at NT <= 64, with a
+// fresh partial per k-step (four independent chains of three wgmmas); else
+// NT / 32 chunks of N = 32, a fresh partial per chunk (the chunks' chains
+// interleaved).  Each stage's partials are added into f32 registers with
+// round-to-nearest FADDs: the tensor cores truncate as they accumulate
+// (tf32x3_gemm.cuh).
+template <int NT>
+struct Rows {
+  static constexpr int kChunks = NT <= 64 ? 1 : NT / 32;
+  static constexpr int kW = NT <= 64 ? NT : 32;
+  static constexpr int kParts = NT <= 64 ? 4 : kChunks;
+  static constexpr int kAcc = kW / 2;
+  static_assert(NT % 16 == 0 && NT <= kMaxRows && (NT <= 64 || NT % 32 == 0), "rows");
+};
+
+// acc += this stage's products: the weight tile As (64 x 32, swizzled) from
+// registers, split into TF32 hi / lo; the B planes at Bs (hi: NT x 32,
+// then lo), swizzled.
+template <int NT>
+__device__ __forceinline__ void stage_mma(const float* As, const float* Bs, float (&acc)[Rows<NT>::kChunks][Rows<NT>::kAcc],
+                                          int wi, int g, int q) {
+  using K = Rows<NT>;
+  uint32_t ahi[4][4], alo[4][4];
+  const int ra = 16 * wi + g;
 #pragma unroll
-      for (int j = 0; j < kInFlight; ++j) {
-        const int i = i0 + 32 * j;
-        x1[j] = i < a.A ? __ldg(e1 + i) : 0.f;
-        x2[j] = i < a.A ? __ldcg(e2 + i) : 0.f;
-        wf[j] = i < a.A ? __ldg(a.wfull + i) : 0.f;
+  for (int G = 0; G < 2; ++G) {
+    const int ch = ((4 * G + q) ^ g) << 2;
+    const float4 va = ld4(As + ra * kBK + ch), vb = ld4(As + (ra + 8) * kBK + ch);
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int t = 2 * G + e2;
+      const float v[4] = {at(va, 2 * e2), at(vb, 2 * e2), at(va, 2 * e2 + 1), at(vb, 2 * e2 + 1)};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float hi = tf32x3::round_tf32(v[r]);
+        ahi[t][r] = __float_as_uint(hi);
+        alo[t][r] = __float_as_uint(tf32x3::round_tf32(v[r] - hi));
       }
-#pragma unroll
-      for (int j = 0; j < kInFlight; ++j) s = fmaf(fmaxf(x1[j] + x2[j], 0.f), wf[j], s);
     }
-    s = warp_sum(s);
-    if (lane == 0) a.score[pair] = s + bfull;
+  }
+  float d[K::kParts][K::kAcc];
+#pragma unroll
+  for (int i = 0; i < K::kParts; ++i) tf32x3::fence_regs(d[i]);
+  tf32x3::wgmma_fence();
+  const uint64_t bh = tf32x3::smem_desc(Bs), bl = tf32x3::smem_desc(Bs + NT * kBK);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int c = 0; c < K::kChunks; ++c) {
+      float(&dd)[K::kAcc] = d[K::kChunks == 1 ? t : c];
+      const uint64_t off = 2 * t + c * K::kW * 8;  // 32 bytes a k-step, 128 bytes a row, in 16-byte units
+      const int fresh = K::kChunks == 1 || t == 0;
+      tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bl + off, fresh ? 0 : 1);
+      tf32x3::wgmma_rs<K::kW>(dd, alo[t], bh + off, 1);
+      tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bh + off, 1);
+    }
+  }
+  tf32x3::wgmma_commit();
+  tf32x3::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < K::kParts; ++i) tf32x3::fence_regs(d[i]);
+  if constexpr (K::kChunks == 1) {
+#pragma unroll
+    for (int i = 0; i < K::kAcc; ++i) acc[0][i] += ((d[0][i] + d[1][i]) + d[2][i]) + d[3][i];
+  } else {
+#pragma unroll
+    for (int c = 0; c < K::kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < K::kAcc; ++i) acc[c][i] += d[c][i];
   }
 }
 
-// Phase 3: alpha = softmax(score[r]) and gctx[r, c] = sigmoid(fb[r, c]) *
-// sum_p alpha_p enc[r, p, c], a block task per (row, kChannels channels).
-__device__ __noinline__ void phase_context(const Args& a, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nch = (a.C + kChannels - 1) / kChannels;
-  float* sa = smem;  // P probabilities
-  for (int task = blockIdx.x; task < a.R * nch; task += gridDim.x) {
-    const int r = task / nch, c = (task % nch) * kChannels + threadIdx.x;
-    __syncthreads();  // the previous task's readers of sa are done
-    if (warp == 0) {
-      const float* sr = a.score + (size_t)r * a.P;
-      float mx = -INFINITY;
-      for (int p = lane; p < a.P; p += 32) mx = fmaxf(mx, __ldcg(sr + p));
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int p = lane; p < a.P; p += 32) {
-        const float e = expf(__ldcg(sr + p) - mx);
-        sa[p] = e;
-        sum += e;
-      }
-      const float inv = 1.0f / warp_sum(sum);
-      for (int p = lane; p < a.P; p += 32) sa[p] *= inv;
+// The consumer's partial tile into part (NT rows x 64 weight rows, the
+// weight row fastest): acc[c][4 j + 2 h + e] is weight row 16 wi + g + 8 h,
+// row n = c kW + 8 j + 2 q + e.
+template <int NT>
+__device__ __forceinline__ void store_partial(float* part, const float (&acc)[Rows<NT>::kChunks][Rows<NT>::kAcc], int wi,
+                                              int g, int q) {
+  using K = Rows<NT>;
+#pragma unroll
+  for (int c = 0; c < K::kChunks; ++c)
+#pragma unroll
+    for (int j = 0; j < K::kW / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          part[(c * K::kW + 8 * j + 2 * q + e) * kTileM + 16 * wi + g + 8 * h] = acc[c][4 * j + 2 * h + e];
+}
+
+// A tile's split blocks, once each has stored its partial, wait for all n
+// of them, then each reduces its own slice of the rows: a reduce-scatter
+// through L2, every sum in split order.
+__device__ __forceinline__ void all_stored(int* counter, int n, int tid) {
+  __threadfence();
+  wg_sync(kBarConsumer);
+  if (tid == 0) {
+    red_release_add(counter, 1);
+    wait_flag(counter, n);
+  }
+  wg_sync(kBarConsumer);
+}
+
+// The rows [n0, n1) of split s of n.
+__device__ __forceinline__ void slice(int R, int s, int n, int& n0, int& n1) {
+  n0 = s * R / n, n1 = (s + 1) * R / n;
+}
+
+template <int NT>
+__device__ void consumer(const Args& a, const Work& w, const float* ring, const float* wc, uint64_t* full,
+                         uint64_t* empty, uint64_t* wc_full, int tid) {
+  using K = Rows<NT>;
+  const Dims& d = a.d;
+  const Plan& p = a.plan;
+  const int wi = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int slot_floats = kAFloats + 2 * NT * kBK, tile = NT * kTileM;
+  float acc[K::kChunks][K::kAcc];
+  int it = 0;
+  const auto zero = [&]() {
+#pragma unroll
+    for (int c = 0; c < K::kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < K::kAcc; ++i) acc[c][i] = 0.f;
+  };
+  const auto run = [&](int n, const float* panels) {  // n ring stages; weights from panels, else the ring
+    for (int j = 0; j < n; ++j, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const float* slot = ring + s * slot_floats;
+      if (!(TC_LSTM_SKIP & 2)) stage_mma<NT>(panels ? panels + j * kAFloats : slot, slot + kAFloats, acc, wi, g, q);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncthreads();
-    if (task % nch == 0)
-      for (int p = threadIdx.x; p < a.P; p += kThreads) a.alpha[(size_t)r * a.P + p] = sa[p];
-    if (c < a.C) {
-      const float* er = a.enc + (size_t)r * a.P * a.C + c;
-      float ctx = 0.f;
-      for (int p0 = 0; p0 < a.P; p0 += kInFlight) {
-        float e[kInFlight];
+  };
+
+  if (w.af >= 0) {  // an [wd | wfb] tile's split: its partial, which the attention sums (att2_4, fb_4)
+    zero();
+    run(w.af_k1 - w.af_k0, nullptr);
+    TIMELINE(1, 1);
+    store_partial<NT>(a.part_af + (size_t)w.af_unit * tile, acc, wi, g, q);
+    __threadfence();
+    wg_sync(kBarConsumer);
+    if (tid == 0) red_release_add(a.flags + kFlagAf, 1);
+    TIMELINE(1, 2);
+  }
+  if (w.g >= 0) {  // a gate tile's split: h-side, then the context from shared memory; then its rows' cells
+    zero();
+    run(w.gh_k1 - w.gh_k0, nullptr);
+    TIMELINE(1, 4);
+    const int nc = w.gc_k1 - w.gc_k0;
+    if (nc > 0) {
+      mbar_wait(wc_full, 0);
+      run(nc, wc);
+    }
+    TIMELINE(1, 5);
+    store_partial<NT>(a.part_g + (size_t)blockIdx.x * tile, acc, wi, g, q);
+    all_stored(a.flags + kFlagHead + w.g, p.s_g, tid);
+    TIMELINE(1, 6);
+    const float* part = a.part_g + (size_t)w.g * p.s_g * tile;
+    int n0, n1;
+    slice(d.R, blockIdx.x % p.s_g, p.s_g, n0, n1);
+    for (int idx = n0 * 4 + tid; idx < n1 * 4; idx += 128) {  // 4 units a thread
+      const int n = idx >> 2, i0 = 4 * (idx & 3);
+      float4 u[kMaxSplit][4];  // every split's loads in flight at once
 #pragma unroll
-        for (int j = 0; j < kInFlight; ++j) e[j] = p0 + j < a.P ? __ldg(er + (size_t)(p0 + j) * a.C) : 0.f;
+      for (int s = 0; s < kMaxSplit; ++s)
 #pragma unroll
-        for (int j = 0; j < kInFlight; ++j)
-          if (p0 + j < a.P) ctx = fmaf(sa[p0 + j], e[j], ctx);
+        for (int gi = 0; gi < 4; ++gi)
+          u[s][gi] = s < p.s_g ? ldcg4(part + (size_t)s * tile + n * kTileM + gi * kGateUnits + i0)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 gv[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        gv[gi] = u[0][gi];
+#pragma unroll
+        for (int s = 1; s < kMaxSplit; ++s)
+          if (s < p.s_g) gv[gi].x += u[s][gi].x, gv[gi].y += u[s][gi].y, gv[gi].z += u[s][gi].z, gv[gi].w += u[s][gi].w;
       }
-      a.gctx[(size_t)r * a.C + c] = sigmoid(__ldcg(a.fb + (size_t)r * a.C + c)) * ctx;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = w.g * kGateUnits + i0 + e;
+        if (u >= d.D) continue;
+        const float gi_ = at(gv[0], e) + a.b[u], gf = at(gv[1], e) + a.b[d.D + u];
+        const float gg = at(gv[2], e) + a.b[2 * d.D + u], go = at(gv[3], e) + a.b[3 * d.D + u];
+        const size_t o = (size_t)n * d.D + u;
+        const float c_new = sigmoid(gf) * a.c[o] + sigmoid(gi_) * tanhf(gg);
+        a.c_out[o] = c_new;
+        a.h_out[o] = sigmoid(go) * tanhf(c_new);
+      }
+    }
+    TIMELINE(1, 7);
+  }
+}
+
+// ------------------------------------------------------------- attention
+
+// The B planes of h and emb, a group of 16 columns a thread (and zeros in
+// the context planes' padding columns), grid-strided over every block's
+// attention warpgroup.
+__device__ void split_planes(const Args& a, int tid) {
+  const Dims& d = a.d;
+  const int R = d.R, gh = d.Dp / 16, ge = d.Ep / 16, th = R * gh, te = R * ge, pad = d.Cp - d.C;
+  for (int idx = blockIdx.x * 128 + tid; idx < th + te + R * pad; idx += gridDim.x * 128) {
+    if (idx < th) {
+      const int n = idx / gh, G = idx % gh;
+      split_group(a.h + (size_t)n * d.D, d.D, a.hpl + (size_t)n * d.Dp + 16 * G, (long long)R * d.Dp, G);
+    } else if (idx < th + te) {
+      const int i = idx - th, n = i / ge, G = i % ge;
+      split_group(a.emb + (size_t)n * d.E, d.E, a.epl + (size_t)n * d.Ep + 16 * G, (long long)R * d.Ep, G);
+    } else {
+      const int i = idx - th - te, n = i / pad, at_ = n * d.Cp + slot_of_col(d.C + i % pad);
+      a.gpl[at_] = 0.f;
+      a.gpl[(size_t)R * d.Cp + at_] = 0.f;
     }
   }
 }
 
-// Phase 4: gates += gctx w_ih_c^T, then the cell.  A block task is kRT rows
-// x kWarps hidden units; warp w owns unit d and its gate rows g * D + d.
-__device__ __noinline__ void phase_cell(const Args& a, float* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int D = a.D, ndb = (D + kWarps - 1) / kWarps, nrt = (a.R + kRT - 1) / kRT;
-  float* xs = smem;                                          // kRT x C
-  float* tile = smem + kRT * a.C + warp * kRT * kCG;        // this warp's kRT x 4 sums
-  for (int task = blockIdx.x; task < ndb * nrt; task += gridDim.x) {
-    const int r0 = (task / ndb) * kRT, d = (task % ndb) * kWarps + warp;
-    __syncthreads();
-    stage_rows(a.gctx, a.R, a.C, r0, xs);
-    __syncthreads();
-    if (d >= D) continue;
-    const float* w[kCG];
+// Columns i .. i + 3 (4 | i, all in one tile) of row n of att2 (tile 0 ..
+// n_att - 1) or f_beta (the tiles after): the tile's split partials summed
+// in split order, then the bias, as a reduce of the tile would have.
+__device__ __forceinline__ float4 af_4(const Args& a, int tile0, const float* bias, int n, int i) {
+  const int tile = tile0 + (i >> 6), s_af = a.plan.s_af;
+  const size_t stride = (size_t)a.plan.nt * kTileM;
+  const float* p = a.part_af + (size_t)tile * s_af * stride + n * kTileM + (i & 63);
+  float4 u[kMaxSplit];  // every split's load in flight at once
 #pragma unroll
-    for (int j = 0; j < kCG; ++j) w[j] = a.w_ih_c + (size_t)(j * D + d) * a.C;
-    float v[kRT * kCG];
+  for (int s = 0; s < kMaxSplit; ++s) u[s] = s < s_af ? ldcg4(p + s * stride) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 v = u[0];
 #pragma unroll
-    for (int i = 0; i < kRT * kCG; ++i) v[i] = 0.f;
-    accumulate(xs, a.C, w, v);
-    reduce_scatter64(v, lane);
-    tile[2 * lane] = v[0];
-    tile[2 * lane + 1] = v[1];
+  for (int s = 1; s < kMaxSplit; ++s)
+    if (s < s_af) v.x += u[s].x, v.y += u[s].y, v.z += u[s].z, v.w += u[s].w;
+  const float4 b = ldg4(bias + i);
+  return make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+}
+
+// The same for one column.
+__device__ __forceinline__ float af_1(const Args& a, int tile0, const float* bias, int n, int i) {
+  const int tile = tile0 + (i >> 6), s_af = a.plan.s_af;
+  const size_t stride = (size_t)a.plan.nt * kTileM;
+  const float* p = a.part_af + (size_t)tile * s_af * stride + n * kTileM + (i & 63);
+  float u[kMaxSplit];
+#pragma unroll
+  for (int s = 0; s < kMaxSplit; ++s) u[s] = s < s_af ? __ldcg(p + s * stride) : 0.f;
+  float v = u[0];
+#pragma unroll
+  for (int s = 1; s < kMaxSplit; ++s)
+    if (s < s_af) v += u[s];
+  return v + bias[i];
+}
+
+// Scores of pixels p0 .. p0 + np - 1 of row r into s[] (every lane).
+__device__ __forceinline__ void scores(const Args& a, int r, int p0, int np, int lane, float (&s)[kPix]) {
+  const Dims& d = a.d;
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) s[j] = 0.f;
+  if (TC_LSTM_SKIP & 1) return;
+  const float* a1 = a.att1 + ((size_t)r * d.P + p0) * d.A;
+  if (d.A % 4 == 0) {
+    for (int i0 = 0; i0 < d.A; i0 += 512) {  // 4 float4 a lane
+      float4 x2[4], wf[4], x1[kPix][4];
+#pragma unroll
+      for (int j = 0; j < kPix; ++j)  // att1 from memory first: the longest wait
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + 4 * (lane + 32 * u);
+          x1[j][u] = j < np && i < d.A ? ldg4(a1 + (size_t)j * d.A + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 4 * (lane + 32 * u);
+        const bool ok = i < d.A;
+        x2[u] = ok ? af_4(a, 0, a.bd, r, i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        wf[u] = ok ? ldg4(a.wfull + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kPix; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          s[j] = fmaf(fmaxf(x1[j][u].x + x2[u].x, 0.f), wf[u].x, s[j]);
+          s[j] = fmaf(fmaxf(x1[j][u].y + x2[u].y, 0.f), wf[u].y, s[j]);
+          s[j] = fmaf(fmaxf(x1[j][u].z + x2[u].z, 0.f), wf[u].z, s[j]);
+          s[j] = fmaf(fmaxf(x1[j][u].w + x2[u].w, 0.f), wf[u].w, s[j]);
+        }
+    }
+  } else {
+    for (int j = 0; j < np; ++j)
+      for (int i = lane; i < d.A; i += 32)
+        s[j] = fmaf(fmaxf(__ldg(a1 + (size_t)j * d.A + i) + af_1(a, 0, a.bd, r, i), 0.f), __ldg(a.wfull + i), s[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) s[j] = warp_sum(s[j]);
+}
+
+// alpha[r] = softmax(score[r]), by one warp.
+__device__ void softmax_row(const Args& a, int r, int lane) {
+  const int P = a.d.P;
+  const float* sr = a.score + (size_t)r * P;
+  float mx = -INFINITY;
+  for (int p = lane; p < P; p += 32) mx = fmaxf(mx, __ldcg(sr + p));
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int p = lane; p < P; p += 32) sum += expf(__ldcg(sr + p) - mx);
+  const float inv = 1.0f / warp_sum(sum);
+  for (int p = lane; p < P; p += 32) a.alpha[(size_t)r * P + p] = expf(__ldcg(sr + p) - mx) * inv;
+}
+
+// gctx[r, c] = sigmoid(fb[r, c]) * sum_p alpha_p enc[r, p, c] for the
+// context chunk j, into the context planes.
+__device__ void context(const Args& a, int r, int j, int lane) {
+  const Dims& d = a.d;
+  const float* al = a.alpha + (size_t)r * d.P;
+  const long long lo = (long long)d.R * d.Cp;
+  if (d.C % 4 == 0) {
+    const int c = j * kCtxCh + 4 * lane;
+    const bool on = c < d.C;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!(TC_LSTM_SKIP & 1))
+      for (int p0 = 0; p0 < d.P; p0 += 32) {
+        const float av = p0 + lane < d.P ? __ldcg(al + p0 + lane) : 0.f;
+        const int pn = d.P - p0 < 32 ? d.P - p0 : 32;
+        for (int pp = 0; pp < pn; pp += kCtxInFlight) {
+          float4 e[kCtxInFlight];
+#pragma unroll
+          for (int u = 0; u < kCtxInFlight; ++u)
+            e[u] = on && pp + u < pn ? ldg4(a.enc + ((size_t)r * d.P + p0 + pp + u) * d.C + c)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < kCtxInFlight; ++u) {
+            const float wgt = __shfl_sync(0xffffffffu, av, (pp + u) & 31);
+            acc.x = fmaf(wgt, e[u].x, acc.x);
+            acc.y = fmaf(wgt, e[u].y, acc.y);
+            acc.z = fmaf(wgt, e[u].z, acc.z);
+            acc.w = fmaf(wgt, e[u].w, acc.w);
+          }
+        }
+      }
+    if (on) {
+      const float4 f = af_4(a, d.n_att, a.bfb, r, c);
+      const float v[4] = {sigmoid(f.x) * acc.x, sigmoid(f.y) * acc.y, sigmoid(f.z) * acc.z, sigmoid(f.w) * acc.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) store_split(a.gpl, lo, (size_t)r * d.Cp + slot_of_col(c + e), v[e]);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = j * kCtxCh + lane + 32 * u;
+      float acc = 0.f;
+      if (!(TC_LSTM_SKIP & 1))
+        for (int p = 0; p < d.P; ++p)
+          acc = fmaf(__ldcg(al + p), c < d.C ? __ldg(a.enc + ((size_t)r * d.P + p) * d.C + c) : 0.f, acc);
+      if (c < d.C) store_split(a.gpl, lo, (size_t)r * d.Cp + slot_of_col(c), sigmoid(af_1(a, d.n_att, a.bfb, r, c)) * acc);
+    }
+  }
+}
+
+__device__ void attention(const Args& a, int tid) {
+  const Dims& d = a.d;
+  const int lane = tid & 31, wi = tid >> 5;
+  int* row_cnt = a.flags + kFlagHead + d.n_g;
+  int* row_ready = row_cnt + d.R;
+  int* ctx_cnt = row_ready + d.R;
+
+  split_planes(a, tid);
+  TIMELINE(2, 1);
+  __threadfence();
+  wg_sync(kBarAttention);
+  if (tid == 0) {
+    red_release_add(a.flags + kFlagSplit, 1);
+    wait_flag(a.flags + kFlagAf, d.n_af * a.plan.s_af);  // every [wd | wfb] partial stored
+  }
+  wg_sync(kBarAttention);
+  TIMELINE(2, 2);
+
+  // Warp tasks, consecutive tasks on consecutive blocks.
+  const int nwarps = gridDim.x * 4, gw = wi * gridDim.x + blockIdx.x;
+  const int npg = cdiv(d.P, kPix);
+  const float bfull = __ldg(a.bfull);
+  for (int t = gw; t < d.R * npg; t += nwarps) {
+    const int r = t / npg, p0 = (t % npg) * kPix, np = d.P - p0 < kPix ? d.P - p0 : kPix;
+    float s[kPix];
+    scores(a, r, p0, np, lane, s);
+    int last = 0;
+    if (lane == 0) {  // its own stores, released by the count itself
+      for (int j = 0; j < np; ++j) a.score[(size_t)r * d.P + p0 + j] = s[j] + bfull;
+      last = atom_add_acq_rel(row_cnt + r, 1) == npg - 1;
+    }
+    if (__shfl_sync(0xffffffffu, last, 0)) {  // the row's last task: its softmax, once
+      __threadfence();
+      softmax_row(a, r, lane);
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) red_release_add(row_ready + r, 1);
+    }
+  }
+  TIMELINE(2, 3);
+  for (int t = gw; t < d.R * d.nj; t += nwarps) {
+    const int r = t / d.nj, j = t % d.nj;
+    if (lane == 0) wait_flag(row_ready + r, 1);
     __syncwarp();
-    const int r = r0 + lane;
-    if (lane < kRT && r < a.R) {
-      const float* gp = a.gates + (size_t)r * 4 * D + d;
-      const float gi = tile[lane * kCG + 0] + __ldcg(gp);
-      const float gf = tile[lane * kCG + 1] + __ldcg(gp + D);
-      const float gg = tile[lane * kCG + 2] + __ldcg(gp + 2 * D);
-      const float go = tile[lane * kCG + 3] + __ldcg(gp + 3 * D);
-      const float c_new = sigmoid(gf) * a.c[(size_t)r * D + d] + sigmoid(gi) * tanhf(gg);
-      a.c_out[(size_t)r * D + d] = c_new;
-      a.h_out[(size_t)r * D + d] = sigmoid(go) * tanhf(c_new);
+    context(a, r, j, lane);
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) red_release_add(ctx_cnt + j, 1);
+  }
+  TIMELINE(2, 4);
+}
+
+// ------------------------------------------------------------- the kernel
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1) lstm_step_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  // Slots and panels start on 1024-byte boundaries, where the 128-byte
+  // swizzle pattern starts over (the descriptors' base offset 0).
+  float* ring = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* wc = ring + a.plan.stages * (kAFloats + 2 * NT * kBK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(wc + a.plan.wc_stages * kAFloats);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* wc_full = empty + kMaxStages;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const Work w = work_of(a.d, a.plan, blockIdx.x);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.plan.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
     }
-    __syncwarp();  // the tile's readers are done before the next task writes it
+    mbar_init(wc_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // One branch per role, each with its own register budget (setmaxnreg).
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 64;");
+    TIMELINE(0, 0);
+    producer(a, maps, w, ring, wc, full, empty, wc_full, tid);
+    TIMELINE(0, 3);
+  } else if (wg == 1) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    TIMELINE(1, 0);
+    consumer<NT>(a, w, ring, wc, full, empty, wc_full, tid);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;");
+    TIMELINE(2, 0);
+    attention(a, tid);
+  }
+
+  // The last block out zeroes the flags for the next launch: every other
+  // block has passed all its waits.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atom_add_acq_rel(a.flags + kFlagExit, 1) == (int)gridDim.x - 1) {
+      for (int i = 0; i < a.d.n_flags; ++i) a.flags[i] = 0;
+      __threadfence();
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) lstm_step_kernel(Args a) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
-  phase_h_products(a, smem);
-  grid.sync();
-  phase_scores(a);
-  grid.sync();
-  phase_context(a, smem);
-  grid.sync();
-  phase_cell(a, smem);
+// ------------------------------------------------------------- host side
+
+cudaError_t encode(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                   const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(p), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-size_t smem_floats(int E, int D, int C, int P) {
-  const size_t products = (size_t)kRT * (D + E);
-  const size_t cell = (size_t)kRT * C + (size_t)kWarps * kRT * kCG;
-  const size_t m = products > cell ? products : cell;
-  return m > (size_t)P ? m : (size_t)P;
+// A weight (rows, K) as 32 x 64 boxes.
+cudaError_t weight_map(CUtensorMap* map, const float* w, int rows, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 4};
+  const cuuint32_t box[2] = {kBK, kTileM};
+  return encode(map, w, 2, dims, strides, box);
 }
 
-long long round4(long long n) { return (n + 3) / 4 * 4; }
+// A gate weight (4D, K) as (K, D, 4): boxes of 32 columns x 16 units x 4 gates.
+cudaError_t gate_map(CUtensorMap* map, const float* w, int D, int K) {
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)D, 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 4, (cuuint64_t)K * D * 4};
+  const cuuint32_t box[3] = {kBK, kGateUnits, 4};
+  return encode(map, w, 3, dims, strides, box);
+}
+
+// B planes (2, R, Kp) as boxes of 32 columns x nt rows x both planes; rows
+// past R arrive as zeros.
+cudaError_t plane_map(CUtensorMap* map, const float* p, int R, int Kp, int nt) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)R, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)Kp * 4, (cuuint64_t)R * Kp * 4};
+  const cuuint32_t box[3] = {kBK, (cuuint32_t)nt, 2};
+  return encode(map, p, 3, dims, strides, box);
+}
+
+// The workspace: the partial tiles, the planes and the scores, each
+// 128-byte aligned.  Returns its floats.
+long long carve(const Dims& d, const Plan& p, float* work, Args* a) {
+  const long long tile = (long long)p.nt * kTileM;
+  const long long sizes[6] = {d.n_af * p.s_af * tile, (long long)d.n_g * p.s_g * tile, 2LL * d.R * d.Dp,
+                              2LL * d.R * d.Ep, 2LL * d.R * d.Cp, (long long)d.R * d.P};
+  float** dst[6] = {&a->part_af, &a->part_g, &a->hpl, &a->epl, &a->gpl, &a->score};
+  long long at = 0;
+  for (int i = 0; i < 6; ++i) {
+    *dst[i] = work + at;
+    at += round32(sizes[i]);
+  }
+  return at;
+}
+
+template <int NT>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(lstm_step_kernel<NT>);
+}
+
+const void* instance(int nt) {
+  switch (nt) {
+    case 16: return kernel_of<16>();
+    case 32: return kernel_of<32>();
+    case 48: return kernel_of<48>();
+    case 64: return kernel_of<64>();
+    case 96: return kernel_of<96>();
+    case 128: return kernel_of<128>();
+    case 160: return kernel_of<160>();
+    default: return nullptr;
+  }
+}
+
+constexpr int kMaxDevices = 16;
+constexpr int kNumInstances = sizeof(kInstances) / sizeof(kInstances[0]);
+
+// Per device, asked once: the SM count; per instance, the shared-memory
+// attribute set and one block per SM confirmed.
+struct DeviceState {
+  int sms = 0;
+  bool ready[kNumInstances] = {};
+};
+DeviceState g_state[kMaxDevices];
+
+// Per device, the last launch's tensor maps and what they were made from.
+struct MapCache {
+  bool valid = false;
+  const void* ptrs[6];
+  int dims[8];
+  Maps maps;
+};
+MapCache g_maps[kMaxDevices];
+
+int instance_index(int nt) {
+  for (int i = 0; i < kNumInstances; ++i)
+    if (kInstances[i] == nt) return i;
+  return -1;
+}
+
+// The device's SM count, and the instance i's attribute and occupancy,
+// each asked once.
+cudaError_t ready(int dev, int i) {
+  DeviceState& st = g_state[dev];
+  if (!st.sms) {
+    cudaError_t err = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  if (!st.ready[i]) {
+    const void* k = instance(kInstances[i]);
+    cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    st.ready[i] = true;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t maps_for(int dev, const Args& a, Maps* out) {
+  MapCache& mc = g_maps[dev];
+  const void* ptrs[6] = {a.wd, a.wfb, a.w_hh, a.w_ih_e, a.w_ih_c, a.hpl};
+  const int dims[8] = {a.d.R, a.d.E, a.d.D, a.d.A, a.d.C, a.plan.nt, a.tma, (int)(a.gpl - a.hpl)};
+  if (mc.valid && !memcmp(mc.ptrs, ptrs, sizeof ptrs) && !memcmp(mc.dims, dims, sizeof dims)) {
+    *out = mc.maps;
+    return cudaSuccess;
+  }
+  Maps m;
+  memset(&m, 0, sizeof m);
+  const Dims& d = a.d;
+  cudaError_t err = cudaSuccess;
+  if (a.tma) {
+    if (err == cudaSuccess) err = weight_map(&m.wd, a.wd, d.A, d.D);
+    if (err == cudaSuccess) err = weight_map(&m.wfb, a.wfb, d.C, d.D);
+    if (err == cudaSuccess) err = gate_map(&m.whh, a.w_hh, d.D, d.D);
+    if (err == cudaSuccess) err = gate_map(&m.wie, a.w_ih_e, d.D, d.E);
+    if (err == cudaSuccess) err = gate_map(&m.wic, a.w_ih_c, d.D, d.C);
+  }
+  if (err == cudaSuccess) err = plane_map(&m.hpl, a.hpl, d.R, d.Dp, a.plan.nt);
+  if (err == cudaSuccess) err = plane_map(&m.epl, a.epl, d.R, d.Ep, a.plan.nt);
+  if (err == cudaSuccess) err = plane_map(&m.gpl, a.gpl, d.R, d.Cp, a.plan.nt);
+  if (err != cudaSuccess) return err;
+  mc.valid = true;
+  memcpy(mc.ptrs, ptrs, sizeof ptrs);
+  memcpy(mc.dims, dims, sizeof dims);
+  mc.maps = m;
+  *out = m;
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the caller allocates for one launch.
-long long tc_lstm_scratch_floats(int R, int D, int A, int C, int P) {
-  return round4((long long)R * A) + 2 * round4((long long)R * C) + round4(4LL * R * D) +
-         round4((long long)R * P);
+// One step.  `plan` is ops/lstm_step.py:lstm_plan's, which must equal this
+// side's for the card; `work` (work_floats floats) is the workspace and
+// `flags` (n_flags ints, zero, as every launch leaves them) the flags; `dev`
+// the card of every pointer.
+int tc_lstm_step(const float* emb, const float* h, const float* c, const float* enc, const float* att1,
+                 const float* wd, const float* bd, const float* wfull, const float* bfull, const float* wfb,
+                 const float* bfb, const float* w_ih_e, const float* w_ih_c, const float* w_hh, const float* b,
+                 float* h_out, float* c_out, float* alpha, float* work, long long work_floats, int* flags,
+                 int n_flags, int R, int E, int D, int A, int C, int P, const int* plan, int dev, void* stream) {
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int cur = 0;
+  cudaGetDevice(&cur);
+  if (cur != dev) cudaSetDevice(dev);
+  Args a{emb, h, c, enc, att1, wd, bd, wfull, bfull, wfb, bfb, w_ih_e, w_ih_c, w_hh, b, h_out, c_out, alpha};
+  Plan want;
+  memcpy(&a.plan, plan, sizeof a.plan);
+  const int inst = instance_index(a.plan.nt);
+  cudaError_t err = inst < 0 ? cudaErrorInvalidValue : ready(dev, inst);
+  // The caller's plan must be this side's for the card, and the workspace hold it.
+  if (err == cudaSuccess && (make_plan(R, E, D, A, C, P, g_state[dev].sms, &want) != 0 ||
+                             memcmp(&want, &a.plan, sizeof want) ||
+                             carve(make_dims(R, E, D, A, C, P), want, work, &a) > work_floats ||
+                             make_dims(R, E, D, A, C, P).n_flags > n_flags))
+    err = cudaErrorInvalidValue;
+  a.flags = flags;
+  if (err != cudaSuccess) {
+    if (cur != dev) cudaSetDevice(cur);
+    return (int)err;
+  }
+  a.d = make_dims(R, E, D, A, C, P);
+  a.tma = D % 4 == 0 && E % 4 == 0 && C % 4 == 0 && aligned16(wd) && aligned16(wfb) && aligned16(w_hh) &&
+          aligned16(w_ih_e) && aligned16(w_ih_c);
+  Maps maps;
+  err = maps_for(dev, a, &maps);
+  if (err == cudaSuccess) {
+    void* params[] = {&maps, &a};
+    err = cudaLaunchCooperativeKernel(instance(a.plan.nt), dim3(a.plan.grid), dim3(kThreads), params,
+                                      (size_t)a.plan.smem, static_cast<cudaStream_t>(stream));
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (cur != dev) cudaSetDevice(cur);
+  return (int)err;
 }
 
-// Dynamic shared memory of a launch, in bytes.
-long long tc_lstm_smem_bytes(int E, int D, int C, int P) {
-  return (long long)(sizeof(float) * smem_floats(E, D, C, P));
+#ifdef TC_LSTM_TIMELINE
+// The last launch's stamps (ns), kMarks per (block, role), into out (n).
+int tc_lstm_timeline(unsigned long long* out, int n) {
+  const int k = n < 1024 * 3 * kMarks ? n : 1024 * 3 * kMarks;
+  return (int)cudaMemcpyFromSymbol(out, g_timeline, k * sizeof(unsigned long long));
 }
+#endif
 
-int tc_lstm_step(const float* emb, const float* h, const float* c, const float* enc,
-                 const float* att1, const float* wd, const float* bd, const float* wfull,
-                 const float* bfull, const float* wfb, const float* bfb, const float* w_ih_e,
-                 const float* w_ih_c, const float* w_hh, const float* b, float* h_out,
-                 float* c_out, float* alpha, float* scratch, int R, int E, int D, int A, int C,
-                 int P, void* stream) {
-  if (R < 1 || E < 1 || D < 1 || A < 1 || C < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  Args a{emb, h, c, enc, att1, wd, bd, wfull, bfull, wfb, bfb, w_ih_e, w_ih_c, w_hh, b,
-         h_out, c_out, alpha, nullptr, nullptr, nullptr, nullptr, nullptr, R, E, D, A, C, P};
-  float* s = scratch;
-  a.att2 = s;
-  s += round4((long long)R * A);
-  a.fb = s;
-  s += round4((long long)R * C);
-  a.gates = s;
-  s += round4(4LL * R * D);
-  a.score = s;
-  s += round4((long long)R * P);
-  a.gctx = s;
-  const void* kernel = reinterpret_cast<const void*>(lstm_step_kernel);
-  const size_t smem = sizeof(float) * smem_floats(E, D, C, P);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(sms * per_sm), dim3(kThreads), params, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

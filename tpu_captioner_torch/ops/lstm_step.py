@@ -12,14 +12,17 @@ in the JAX package.
 Layouts: emb (R, E), h and c (R, D), enc (R, P, C), att1 (R, P, A);
 weights from ``prepare_lstm_weights`` in nn.Linear's (out, in) layout.
 For CUDA tensors one call is one cooperative launch of
-``csrc/lstm_step.cu``; for CPU tensors it runs ``_lstm_step_plain``, the same
-math in PyTorch.  Eval only: no dropout, no gradient.
+``csrc/lstm_step.cu`` (one per 160 rows beyond 160), planned by
+``lstm_plan``; for CPU tensors it runs ``_lstm_step_plain``, the same math in
+PyTorch.  Eval only: no dropout, no gradient.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import NamedTuple, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +32,15 @@ from tpu_captioner_torch.ops import _build
 from tpu_captioner_torch.ops.decode_step import _check_tensors
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on the H100
+MAX_ROWS = 160  # rows of one launch: the wgmma's N, padded to an instance
+ROW_INSTANCES = (16, 32, 48, 64, 96, 128, 160)  # the kernel's instances of N
+STAGE = 32  # K columns a ring stage
+TILE = 64  # weight rows a tile (the wgmma's M)
+GATE_UNITS = 16  # hidden units a gate tile, four gate rows each
+MAX_STAGES = 4
+MAX_SPLIT = 4
+CTX_CHANNELS = 128  # channels a context task
+FLAG_HEAD = 4  # the split, the [wd | wfb] partials stored, blocks out, a spare
 
 
 class LstmStepWeights(NamedTuple):
@@ -47,12 +59,116 @@ class LstmStepWeights(NamedTuple):
     b: torch.Tensor  # (4D,) bias_ih + bias_hh
 
 
+class LstmPlan(NamedTuple):
+    """One launch's plan (``csrc/lstm_step.cu:Plan``, in its field order)."""
+
+    rows: int  # the products' N: R padded to an instance
+    grid: int  # blocks: one per SM
+    af_split: int  # K splits of an att2 / f_beta tile
+    gate_split: int  # K splits of a gate tile
+    stages: int  # ring slots
+    wc_stages: int  # w_ih_c stages a gate block holds in shared memory
+    smem: int  # dynamic shared memory, bytes
+
+
+class LstmWork(NamedTuple):
+    """What one block computes: the [wd | wfb] tile ``af`` (None: none) over
+    32-column K stages ``af_k`` of D, and the gate tile ``gate`` (None: none)
+    over stages ``gate_hk`` of [D | E] (w_hh, then w_ih_e) and ``gate_ck`` of
+    C (w_ih_c)."""
+
+    af: Optional[int]
+    af_k: range
+    gate: Optional[int]
+    gate_hk: range
+    gate_ck: range
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lstm_plan(R: int, E: int, D: int, A: int, C: int, P: int, sms: int) -> LstmPlan:
+    """The plan of one launch on a card of ``sms`` SMs, one block each.
+    Tiles: ceil(A / 64) of wd and ceil(C / 64) of f_beta, each split over K
+    = D into ``af_split`` ranges of 32-column stages; ceil(D / 16) gate tiles
+    (16 hidden units x 4 gates), each split over K = D + E and K = C into
+    ``gate_split`` ranges.  A split is one block's; a gate block holds its
+    ``wc_stages`` stages of w_ih_c in shared memory beside a ring of
+    ``stages`` slots (a weight stage and the B planes of ``rows`` rows).
+    Raises ValueError for R beyond ``MAX_ROWS``, for more tiles than SMs,
+    and when the ring's two slots do not fit a block's shared memory."""
+    if min(E, D, A, C, P, sms) < 1:
+        raise ValueError(f"lstm_step: every width must be positive, got E={E}, D={D}, A={A}, C={C}, P={P}")
+    if not 1 <= R <= MAX_ROWS:
+        raise ValueError(f"lstm_step: one launch takes 1 to {MAX_ROWS} rows, got {R}")
+    rows = next(n for n in ROW_INSTANCES if n >= R)
+    kd, ke, kc = _cdiv(D, STAGE), _cdiv(E, STAGE), _cdiv(C, STAGE)
+    n_af, n_g = _cdiv(A, TILE) + _cdiv(C, TILE), _cdiv(D, GATE_UNITS)
+    if n_af > sms or n_g > sms:
+        raise ValueError(f"lstm_step: {n_af} attention and {n_g} gate tiles (A={A}, C={C}, D={D}) "
+                         f"exceed the card's {sms} blocks")
+    af_split = min(MAX_SPLIT, sms // n_af, kd)
+    gate_split = min(MAX_SPLIT, sms // n_g, kc, kd + ke)
+    wc_stages = _cdiv(kc, gate_split)
+    slot = 4 * (TILE * STAGE + 2 * rows * STAGE)
+    fixed = 1024 + 4 * TILE * STAGE * wc_stages + 8 * (2 * MAX_STAGES + 1) + 16
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
+    if stages < 2:
+        raise ValueError(
+            f"lstm_step keeps {wc_stages} stages of w_ih_c (C={C}, {gate_split} splits) and a ring of two "
+            f"{slot}-byte slots ({rows} rows) in shared memory: {fixed + 2 * slot} bytes > {SMEM_LIMIT}")
+    return LstmPlan(rows, sms, af_split, gate_split, stages, wc_stages, fixed + stages * slot)
+
+
+def lstm_units(plan: LstmPlan, E: int, D: int, A: int, C: int) -> List[LstmWork]:
+    """Each block's work (``csrc/lstm_step.cu:work_of``): the [wd | wfb]
+    splits from the last block down, the gate splits from block 0 up."""
+    kd, ke, kc = _cdiv(D, STAGE), _cdiv(E, STAGE), _cdiv(C, STAGE)
+    n_af, n_g = _cdiv(A, TILE) + _cdiv(C, TILE), _cdiv(D, GATE_UNITS)
+    out = []
+    for b in range(plan.grid):
+        ua, af, af_k = plan.grid - 1 - b, None, range(0)
+        if ua < n_af * plan.af_split:
+            s, af = ua % plan.af_split, ua // plan.af_split
+            af_k = range(s * kd // plan.af_split, (s + 1) * kd // plan.af_split)
+        gate, hk, ck = None, range(0), range(0)
+        if b < n_g * plan.gate_split:
+            s, gate = b % plan.gate_split, b // plan.gate_split
+            hk = range(s * (kd + ke) // plan.gate_split, (s + 1) * (kd + ke) // plan.gate_split)
+            ck = range(s * kc // plan.gate_split, (s + 1) * kc // plan.gate_split)
+        out.append(LstmWork(af, af_k, gate, hk, ck))
+    return out
+
+
+def workspace_floats(plan: LstmPlan, R: int, E: int, D: int, A: int, C: int, P: int) -> int:
+    """Floats of one launch's workspace (``csrc/lstm_step.cu:carve``): the
+    partial tiles, the B planes of h, emb and the context and the scores,
+    each rounded up to 32."""
+    r32 = lambda n: _cdiv(n, 32) * 32  # noqa: E731
+    p16 = lambda n: _cdiv(n, 16) * 16  # noqa: E731
+    n_af, n_g = _cdiv(A, TILE) + _cdiv(C, TILE), _cdiv(D, GATE_UNITS)
+    tile = plan.rows * TILE
+    sizes = (n_af * plan.af_split * tile, n_g * plan.gate_split * tile, 2 * R * p16(D), 2 * R * p16(E),
+             2 * R * p16(C), R * P)
+    return sum(r32(n) for n in sizes)
+
+
+def flag_count(R: int, D: int, C: int) -> int:
+    """Ints of one launch's flags (``csrc/lstm_step.cu:Dims::n_flags``): four
+    of the launch, one per gate tile, two per row, one per 128-channel
+    context chunk."""
+    return FLAG_HEAD + _cdiv(D, GATE_UNITS) + 2 * R + _cdiv(C, CTX_CHANNELS)
+
+
 @torch.no_grad()
 def prepare_lstm_weights(decoder) -> LstmStepWeights:
     """Repack a ``models.lstm.DecoderWithAttention``'s parameters into the
     kernel layout: two slices of ``weight_ih`` copied, the biases summed,
     the rest shared with the parameters, all detached.  Run once per rollout
-    or beam call, outside the token loop."""
+    or beam call, outside the token loop.  The gate rows stay in the
+    parameters' order: the kernel's TMA box takes a gate tile's 16 rows of
+    each gate at once."""
     att, cell = decoder.attention, decoder.decode_step
     e = decoder.embedding.weight.shape[1]
     packed = LstmStepWeights(
@@ -80,38 +196,72 @@ def _lstm_step_plain(w: LstmStepWeights, emb, h, c, enc, att1):
     return (*lstm_update(gates, c), alpha)
 
 
+_CHECKED: "collections.OrderedDict" = collections.OrderedDict()  # id -> (weights, widths) checked, newest last
+
+
 def _check(w: LstmStepWeights, emb, h, c, enc, att1) -> None:
+    """Each tensor's device, dtype, shape, contiguity and alignment: the
+    activations every call, the weights once per ``LstmStepWeights``
+    object and widths (a rollout's 51 steps share one; the two newest are
+    remembered, and held, so an id is never mistaken for another's)."""
     R, E = emb.shape
     D = h.shape[1]
     _, P, C = enc.shape
     A = att1.shape[2]
     f32 = torch.float32
-    shapes = {
+    _check_tensors(emb.device, {
         "emb": (emb, (R, E), f32), "h": (h, (R, D), f32), "c": (c, (R, D), f32),
         "enc": (enc, (R, P, C), f32), "att1": (att1, (R, P, A), f32),
+    })
+    key = (E, D, A, C, emb.device)
+    seen = _CHECKED.get(id(w))
+    if seen is not None and seen[0] is w and seen[1] == key:
+        return
+    _check_tensors(emb.device, {
         "wd": (w.wd, (A, D), f32), "bd": (w.bd, (A,), f32), "wfull": (w.wfull, (A,), f32),
         "bfull": (w.bfull, (1,), f32), "wfb": (w.wfb, (C, D), f32), "bfb": (w.bfb, (C,), f32),
         "w_ih_e": (w.w_ih_e, (4 * D, E), f32), "w_ih_c": (w.w_ih_c, (4 * D, C), f32),
         "w_hh": (w.w_hh, (4 * D, D), f32), "b": (w.b, (4 * D,), f32),
-    }
-    _check_tensors(emb.device, shapes)
-    smem = _lib().tc_lstm_smem_bytes(E, D, C, P)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"lstm_step stages 16 rows of h and emb (D + E = {D + E}) or of the context "
-            f"(C = {C}) in shared memory: {smem} bytes > {SMEM_LIMIT}"
-        )
+    })
+    _CHECKED[id(w)] = (w, key)
+    while len(_CHECKED) > 2:
+        _CHECKED.popitem(last=False)
 
 
-def _lib():
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its entry points declared, once per process."""
     lib = _build.load("lstm_step")
     lib.tc_lstm_step.restype = ctypes.c_int
-    lib.tc_lstm_step.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.tc_lstm_scratch_floats.restype = ctypes.c_longlong
-    lib.tc_lstm_scratch_floats.argtypes = [ctypes.c_int] * 5
-    lib.tc_lstm_smem_bytes.restype = ctypes.c_longlong
-    lib.tc_lstm_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.tc_lstm_step.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong, ctypes.c_void_p]
+                                 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(R, E, D, A, C, P, device: int):
+    """The plan for the card ``device``, its ctypes copy, the workspace's
+    floats and the flags' count, once per shape."""
+    plan = lstm_plan(R, E, D, A, C, P, _build.sm_count(device))
+    return (plan, (ctypes.c_int * len(plan))(*plan), workspace_floats(plan, R, E, D, A, C, P),
+            flag_count(R, D, C))
+
+
+_SCRATCH = {}  # device -> (workspace, flags)
+
+
+def _scratch(device: int, floats: int, flags: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's workspace and flags, each grown to at least ``floats``
+    and ``flags``.  The flags are made zero and every launch leaves them
+    zero; no launch's data overlaps them.  Calls on one card share both, so
+    they run one after another on one stream."""
+    work, flag = _SCRATCH.get(device, (None, None))
+    if work is None or work.numel() < floats:
+        work = torch.empty(floats, device=f"cuda:{device}", dtype=torch.float32)
+    if flag is None or flag.numel() < flags:
+        flag = torch.zeros(flags, device=f"cuda:{device}", dtype=torch.int32)
+    _SCRATCH[device] = work, flag
+    return work, flag
 
 
 def fused_lstm_step(
@@ -124,7 +274,8 @@ def fused_lstm_step(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (h_new (R, D), c_new (R, D), alpha (R, P)), f32:
     ``DecoderWithAttention.step``.  CUDA tensors: one kernel launch per
-    call; CPU tensors: the plain version; any other device raises.  Forward
+    call of up to ``MAX_ROWS`` rows (one per ``MAX_ROWS`` rows beyond);
+    CPU tensors: the plain version; any other device raises.  Forward
     only: raises on every device when autograd would need its gradient."""
     _build.refuse_autograd(
         "fused_lstm_step", (*w, emb, h, c, enc, att1),
@@ -135,18 +286,24 @@ def fused_lstm_step(
     if emb.device.type != "cuda":
         raise ValueError(f"fused_lstm_step runs on cpu or cuda tensors, got {emb.device}")
     _check(w, emb, h, c, enc, att1)
-    R, E = emb.shape
-    D, (_, P, C), A = h.shape[1], enc.shape, att1.shape[2]
-    lib = _lib()
+    R = emb.shape[0]
+    if R > MAX_ROWS:  # row slices at multiples of 160 stay 16-byte aligned
+        parts = [fused_lstm_step(w, *(x[i:i + MAX_ROWS] for x in (emb, h, c, enc, att1)))
+                 for i in range(0, R, MAX_ROWS)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+    E, D, (_, P, C), A = emb.shape[1], h.shape[1], enc.shape, att1.shape[2]
+    dev = emb.device.index
+    plan, plan_c, floats, flags = _launch_plan(R, E, D, A, C, P, dev)
+    work, flag = _scratch(dev, floats, flags)
     h_new, c_new = torch.empty_like(h), torch.empty_like(c)
     alpha = torch.empty(R, P, device=emb.device, dtype=torch.float32)
-    scratch = torch.empty(lib.tc_lstm_scratch_floats(R, D, A, C, P), device=emb.device, dtype=torch.float32)
-    ptrs = [t.data_ptr() for t in (emb, h, c, enc, att1, *w, h_new, c_new, alpha, scratch)]
-    with torch.cuda.device(emb.device):
-        err = lib.tc_lstm_step(*ptrs, R, E, D, A, C, P, torch.cuda.current_stream(emb.device).cuda_stream)
+    lib = _lib()
+    err = lib.tc_lstm_step(*(t.data_ptr() for t in (emb, h, c, enc, att1, *w, h_new, c_new, alpha, work)),
+                           work.numel(), flag.data_ptr(), flag.numel(), R, E, D, A, C, P, plan_c, dev,
+                           _build.raw_stream(dev))
     _build.check(lib, err, "lstm_step")
     fused_lstm_step.launches += 1
     return h_new, c_new, alpha
 
 
-fused_lstm_step.launches = 0  # kernel launches, one per call on CUDA tensors
+fused_lstm_step.launches = 0  # kernel launches, one per call of up to MAX_ROWS rows on CUDA tensors

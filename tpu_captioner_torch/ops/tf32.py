@@ -1,18 +1,19 @@
-"""A plain PyTorch model of the 3xTF32 products of the MLP-tail and
-whole-block kernels.
+"""A plain PyTorch model of the 3xTF32 products of the MLP-tail,
+whole-block and LSTM step kernels.
 
 The MLP tail's forward, whole-tile and sub-tiled, and its backward
-(``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``) and the whole-block
-kernel (``csrc/block_fused.cu``) take their matrix products from the card's
-TF32 tensor cores through ``csrc/tf32x3_gemm.cuh``:
+(``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``), the whole-block kernel
+(``csrc/block_fused.cu``) and the LSTM step (``csrc/lstm_step.cu``) take
+their matrix products from the card's TF32 tensor cores through
+``csrc/tf32x3_gemm.cuh``:
 each f32 operand ``v`` is split into ``hi = rna_tf32(v)`` and
 ``lo = rna_tf32(v - hi)``, and each product accumulates ``hi.lo + lo.hi``
 and then ``hi.hi`` in f32.  This module computes the same on f32 tensors,
 on any device, so that the tests can hold the kernels' arithmetic against
 the JAX package on the CPU, where no kernel runs.  Nothing on the port's
 main path calls it: the wrappers run the kernels on the card and
-``_mlp_plain`` / ``_mlp_bwd_plain`` / ``_block_plain`` (full f32) on the
-CPU.
+``_mlp_plain`` / ``_mlp_bwd_plain`` / ``_block_plain`` /
+``_lstm_step_plain`` (full f32) on the CPU.
 """
 
 from __future__ import annotations
@@ -138,3 +139,98 @@ def block_forward(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, chunk=12
     hidden = F.gelu(mm(tn, w1.T) + b1)
     y = (mm(hidden, w2.T) + b2) * gamma
     return (x.reshape(-1, c) + sd.repeat_interleave(h * w)[:, None] * y).reshape(b, h, w, c)
+
+
+def lstm_k_slots(k: int) -> torch.Tensor:
+    """The column each slot of the LSTM kernel's B planes holds, over k
+    columns padded to 16 (``csrc/lstm_step.cu:slot_of_col``): within each
+    group of 16, slot 8 e2 + u + 4 e holds column 4 u + 2 e2 + e, so that a
+    thread's weight fragment is one float4 and k-step 2 G + e2 of the wgmma
+    takes columns 4 q + 2 e2 and 4 q + 2 e2 + 1 of group G."""
+    sl = torch.arange(-(-k // 16) * 16)
+    s, e2 = sl % 8, (sl // 8) % 2
+    return (sl // 16) * 16 + 4 * (s % 4) + 2 * e2 + s // 4
+
+
+def lstm_step_forward(w, emb, h, c, enc, att1, plan):
+    """The LSTM step as ``csrc/lstm_step.cu`` computes it under ``plan``
+    (``ops/lstm_step.py:lstm_plan``; the arguments of ``_lstm_step_plain``):
+    every product 3xTF32 over 32-column stages whose columns are taken in
+    the B planes' slot order (``lstm_k_slots``), a stage's partial the sum
+    of its four 8-deep k-steps where the plan's rows are at most 64, else
+    one; a block's split the f32 sum of its stages in order; a tile the sum
+    of its splits in split order (``lstm_units``), then the bias.  A gate
+    tile t holds rows g * D + 16 t + i of each gate g (16 units, gate-major)
+    and adds the gated context's stages after the h-side ones; the cell
+    follows its gates.  The attention in f32 as the plain version."""
+    from tpu_captioner_torch.ops.lstm_step import GATE_UNITS, STAGE, TILE, lstm_units
+
+    R, E = emb.shape
+    D, (_, P, C), A = h.shape[1], enc.shape, att1.shape[2]
+    kd = -(-D // STAGE)
+    order = lstm_k_slots(STAGE)
+    per_kstep = plan.rows <= 64
+
+    def stage(x, wt, k):  # (R, M): stage k of x (R, K) against wt (M, K)
+        cols = k * STAGE + order
+        ok = cols < x.shape[1]
+        xs = torch.where(ok, x[:, cols.clamp(max=x.shape[1] - 1)], 0.0)
+        ws = torch.where(ok, wt[:, cols.clamp(max=wt.shape[1] - 1)], 0.0)
+        if not per_kstep:
+            return matmul_3xtf32(xs, ws.T)
+        d = [matmul_3xtf32(xs[:, 8 * t:8 * t + 8], ws[:, 8 * t:8 * t + 8].T) for t in range(4)]
+        return ((d[0] + d[1]) + d[2]) + d[3]
+
+    def rows_of(wt, idx):  # wt's rows idx, zeros where idx is None
+        out = torch.zeros(len(idx), wt.shape[1], dtype=wt.dtype)
+        for m, r in enumerate(idx):
+            if r is not None:
+                out[m] = wt[r]
+        return out
+
+    af_parts, gate_parts = {}, {}
+    for b, u in enumerate(lstm_units(plan, E, D, A, C)):
+        if u.af is not None:
+            af_parts.setdefault(u.af, {})[(plan.grid - 1 - b) % plan.af_split] = u.af_k
+        if u.gate is not None:
+            gate_parts.setdefault(u.gate, {})[b % plan.gate_split] = (u.gate_hk, u.gate_ck)
+
+    n_att = -(-A // TILE)
+    att2, fb = torch.empty(R, A), torch.empty(R, C)
+    for t, splits in af_parts.items():
+        wt, bias, out, width, row0 = ((w.wd, w.bd, att2, A, t * TILE) if t < n_att
+                                      else (w.wfb, w.bfb, fb, C, (t - n_att) * TILE))
+        tile = rows_of(wt, [r if r < width else None for r in range(row0, row0 + TILE)])
+        v = torch.zeros(R, TILE)
+        for s in range(plan.af_split):
+            part = torch.zeros(R, TILE)
+            for k in splits[s]:
+                part = part + stage(h, tile, k)
+            v = v + part
+        n = min(TILE, width - row0)
+        out[:, row0:row0 + n] = v[:, :n] + bias[row0:row0 + n]
+
+    score = (torch.relu(att1 + att2[:, None, :]) * w.wfull).sum(dim=-1) + w.bfull
+    alpha = torch.softmax(score, dim=1)
+    gctx = torch.sigmoid(fb) * (alpha[:, :, None] * enc).sum(dim=1)
+
+    gates = torch.empty(R, 4 * D)
+    for t, splits in gate_parts.items():
+        idx = [g * D + t * GATE_UNITS + i if t * GATE_UNITS + i < D else None
+               for g in range(4) for i in range(GATE_UNITS)]
+        whh, wie, wic = (rows_of(x, idx) for x in (w.w_hh, w.w_ih_e, w.w_ih_c))
+        v = torch.zeros(R, TILE)
+        for s in range(plan.gate_split):
+            hk, ck = splits[s]
+            part = torch.zeros(R, TILE)
+            for k in hk:
+                part = part + (stage(h, whh, k) if k < kd else stage(emb, wie, k - kd))
+            for k in ck:
+                part = part + stage(gctx, wic, k)
+            v = v + part
+        for m, r in enumerate(idx):
+            if r is not None:
+                gates[:, r] = v[:, m] + w.b[r]
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new, alpha

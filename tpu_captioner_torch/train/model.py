@@ -92,8 +92,15 @@ def decode_kernel_mode(mode: str, decoder: str) -> str:
       spread 28.82); run B 106.51 vs 136.02 (gain 26.89, spread 17.32:
       favoured); run C 82.85 vs 102.45 (gain 19.21, spread 13.30:
       favoured).
-    Run A's kernel ran one block per SM; runs B and C ran the shipped
-    kernel, two blocks per SM.
+    Run A's kernel ran one block per SM; runs B and C ran PR 7's kernel,
+    two blocks per SM.  Against the redesigned kernel (PR 14's run J: the
+    products on the 3xTF32 tensor cores, 0.0388 ms a step at R = 40):
+    - beam 5, 8 images: 67.55 vs 94.72 ms (gain 19.13, spread 48.27);
+    - eval step, batch 32: 44.22 vs 63.25 (gain 21.67, spread 20.72:
+      favoured).
+    The beam is host-bound and its pairs spread wider than the gain, so
+    ``'auto'`` stays ``'off'`` until the bench (ROADMAP Queue 1 #3)
+    decides it in pairs of its own.
 
     ``lstm_no_attention`` has no kernel: always ``'off'``.  The wrappers run
     their plain versions for CPU tensors."""
