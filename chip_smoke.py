@@ -114,10 +114,30 @@ Phases, in order; any failure raises and the exit code is not 0:
    sub-tiled launches at all four widths, captions equal to the whole-tile
    run's; (f) recorded paired A/Bs of bs-32 encoder passes, 'block' against
    'on' and sub-tiled against whole-tile.
+10. the training entry point at full width (``training_phase``): (a) a
+   learnable synthetic dataset (``data/build.py``) at 256x256, TRAIN 64,
+   VAL 32, TEST 32 images, whose word map has the 9490 entries of phase 4;
+   (b) ``cli.train`` through ``main``, batch 32, one free-running epoch:
+   36 mlp_block and 36 dwconv launches and no pool per step, L decode_step
+   launches per token of validation; a finite loss, the checkpoint, its
+   BEST_ copy and the CSV; (c) the Trainer over two teacher-forced epochs
+   with ``fine_tune_epoch=1``: 1 pool launch per frozen step, (1, 36, 30,
+   65, 30) per fine-tune step as phase 6, children 0-4 unchanged; then a
+   resume from the epoch-0 checkpoint whose two Adam states equal the
+   saved ones; (d) ``cli.test`` on (b)'s checkpoint; (e) two free-running
+   frozen steps against an every-kernel-off copy: losses within 1e-4,
+   parameters within 1e-2 x lr; (f) ms per free-running step, images/s,
+   peak memory, the device's idle share of a step (a profiler window), the
+   Trainer's batch and data times.  Validation in (b) and (c) raises the
+   head's bias on one caption word by ``EVAL_MARGIN``, so each of its
+   rollouts runs all 51 tokens (L x 51 decode_step launches an eval step)
+   and its BLEU-1 must equal the one counted from the records
+   (``one_word_bleu1``); (e) compares the rollouts under phase 7's near-tie
+   rule.
 
 The line before the last is a JSON object of the kernels (route, source, the
-TPU kernel each replaces, launches on the main paths, max error, times and
-bounds); the last line is ``{"ok": true, "device": {...}}``.  Needs the
+TPU kernel each replaces, launches on the main paths and on phase 10's
+training path, max error, times and bounds); the last line is ``{"ok": true, "device": {...}}``.  Needs the
 repository beside it and one card; imports no JAX.
 """
 
@@ -861,33 +881,42 @@ KERNEL_GROUPS = (
                        "column_finish", "sum_splits")),
     ("mlp tf32 split", ("split_kernel",)),
     ("dropout_mask", ("mask_pool_kernel",)),
-    ("convolution backward", ("dgrad", "wgrad", "backward", "grad_weight", "grad_input")),
-    ("convolution forward", ("conv", "cudnn", "fprop")),
+    ("convolution backward", ("dgrad", "wgrad", "conv_depthwise2d_backward", "conv_depthwise2d_grad_weight")),
+    ("convolution forward", ("fprop", "cudnn", "convolve", "conv2d", "conv_depthwise2d")),
     ("cuBLAS gemm", ("gemm", "sm90_xmma", "cutlass")),
 )
 
 
 def _kernel_ms_by_group(step, state, batch, seeds):
-    """Device time of each kernel group, and of the twelve longest kernels,
-    over ``len(seeds)`` steps, from a ``torch.profiler`` window (kernel rows
-    only), in ms per step."""
+    """A ``torch.profiler`` window over ``len(seeds)`` steps, per step: the
+    kernels' device time by ``KERNEL_GROUPS`` group (ms), the twelve longest
+    kernels, the kernels' launches and the host clock's wall time (ms, the
+    window synchronised).  Kernel rows only: a user annotation on the
+    device's timeline (``Optimizer.step``) spans kernels already counted.
+    It records the device's activity only: a step of tens of thousands of
+    launches gives the host-side profile millions of events, whose summary
+    took minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for s in seeds:
             state, _ = step(state, batch, s)
         torch.cuda.synchronize()
-    groups, kernels = {}, []
+        wall = (time.perf_counter() - t0) * 1e3 / len(seeds)
+    groups, kernels, launches = {}, [], 0
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         name, ms = e.key.lower(), e.self_device_time_total / 1e3 / len(seeds)
         group = next((g for g, subs in KERNEL_GROUPS if any(x.lower() in name for x in subs)), "other")
         groups[group] = groups.get(group, 0.0) + ms
         kernels.append((ms, e.key[:90]))
-    return state, groups, sorted(kernels, reverse=True)[:12]
+        launches += e.count
+    return state, groups, sorted(kernels, reverse=True)[:12], launches // len(seeds), wall
 
 
 def set_dw(model, dw_kernel, dw_grad_kernel):
@@ -1106,7 +1135,7 @@ def finetune_phase(dev, card, seed, word_map):
               f"max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory "
               f"{peak / 2**30:.2f} GiB; launches per step {counts()}; loss {float(met['loss']):.4f} [{card}]")
         if label == "off":
-            state, groups, top = _kernel_ms_by_group(
+            state, groups, top, _, _ = _kernel_ms_by_group(
                 step, state, batch, [prng.step_seed(root, "dropout", 3, i) for i in range(2)])
             total = sum(groups.values())
             print(f"fine-tune step kernel time by group (torch.profiler, kernel rows, ms per step; "
@@ -2234,6 +2263,421 @@ def block_ab(card, block, default, rng, dev):
                       lambda: os.environ.pop("TPU_CAPTIONER_MLP_SUB", None), other="whole tile")
 
 
+TRAIN_DATA = {"TRAIN": 64, "VAL": 32, "TEST": 32}  # phase 10's synthetic images per split
+TRAIN_DATA_NAME = "synthetic_5_cap_per_img_1_min_word_freq"
+# Phase 10: validation raises the vocab head's bias on EVAL_WORD, a word of
+# class 0's synthetic caption, by EVAL_MARGIN, so that word is every greedy
+# argmax: each rollout runs max_decode_len tokens and the corpus BLEU-1 is
+# known in advance.  A logit less its bias is a head row (norm ~0.58 at init,
+# Adam moving each element by at most ~3 lr a step) times a LayerNorm'd row
+# of norm sqrt(512): two logits' biases aside differ by under 40 in the
+# phase's 30 steps.
+EVAL_WORD, EVAL_MARGIN = "w0", 100.0
+FREE_TIMED_STEPS = 5
+
+
+def kernel_counts():
+    """Every kernel's launch count, by the name of its ``kernels`` entry."""
+    from tpu_captioner_torch.ops.block_fused import fused_convnext_block
+    from tpu_captioner_torch.ops.decode_step import fused_decode_step, fused_full_rollout
+    from tpu_captioner_torch.ops.dropout_mask import random_mask_pool
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
+
+    return {
+        "mlp_block": fused_convnext_mlp.launches, "mlp_block_bwd": fused_convnext_mlp_bwd.launches,
+        "decode_step": fused_decode_step.launches, "dropout_mask": random_mask_pool.launches,
+        "decode_onecell": fused_decode_step.onecell_launches, "decode_rollout": fused_full_rollout.launches,
+        "dwconv": depthwise_conv7x7_nhwc.launches, "dwconv_grad": depthwise_conv7x7_nhwc.grad_launches,
+        "lstm_step": fused_lstm_step.launches, "block_fused": fused_convnext_block.launches,
+        "mlp_block_pipelined": fused_convnext_mlp.pipelined_launches,
+    }
+
+
+def zero_kernel_counts():
+    from tpu_captioner_torch.ops.decode_step import fused_decode_step, fused_full_rollout
+    from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
+
+    zero_block_counts()
+    fused_decode_step.launches = fused_decode_step.onecell_launches = fused_full_rollout.launches = 0
+    fused_lstm_step.launches = 0
+
+
+def count_delta(before, after, names=("dropout_mask", "mlp_block", "mlp_block_bwd", "dwconv", "dwconv_grad")):
+    return tuple(after[k] - before[k] for k in names)
+
+
+@contextlib.contextmanager
+def counted_trainer_steps(record, eval_word):
+    """Count each train step's and each eval step's launches of the Trainers
+    built inside the ``with``: per train step (dropout_mask, mlp_block,
+    mlp_block_bwd, dwconv, dwconv_grad) in ``record['train']`` with the
+    step's kind; per eval step (mlp_block, decode_step launches, tokens run,
+    the shortest row's length) in ``record['eval']``.  Counts are read
+    around each call, not zeroed.  Each eval step runs with the head's
+    bias on ``eval_word`` (an id) raised by ``EVAL_MARGIN`` and restored
+    after it."""
+    import torch
+
+    from tpu_captioner_torch.train import loop
+
+    make_train, make_eval = loop.make_train_step, loop.make_eval_step
+
+    def train_step(model, cfg, word_ids, *, teacher_forcing=True, train_encoder=False):
+        step = make_train(model, cfg, word_ids, teacher_forcing=teacher_forcing, train_encoder=train_encoder)
+        kind = ("TF" if teacher_forcing else "free-running") + (", fine-tune" if train_encoder else ", frozen")
+
+        def counted(state, batch, seed):
+            before = kernel_counts()
+            out = step(state, batch, seed)
+            record["train"].append((kind, count_delta(before, kernel_counts())))
+            return out
+
+        return counted
+
+    def eval_step(model, cfg, word_ids, **kw):
+        step = make_eval(model, cfg, word_ids, **kw)
+        dec, tokens = model.decoder, [0]
+        embed = dec.embed
+
+        def counted_embed(*a):  # one lookup per token of the per-token kernel rollout
+            tokens[0] += 1
+            return embed(*a)
+
+        def counted(batch):
+            before, tokens[0] = kernel_counts(), 0
+            bias = dec.fc_out.bias
+            kept = bias[eval_word].item()
+            with torch.no_grad():
+                bias[eval_word] = kept + EVAL_MARGIN
+            dec.embed = counted_embed
+            try:
+                out = step(batch)
+            finally:
+                del dec.embed
+                with torch.no_grad():
+                    bias[eval_word] = kept
+            after = kernel_counts()
+            record["eval"].append((after["mlp_block"] - before["mlp_block"],
+                                   after["decode_step"] - before["decode_step"], tokens[0],
+                                   int(out["lengths"].min())))
+            return out
+
+        return counted
+
+    loop.make_train_step, loop.make_eval_step = train_step, eval_step
+    try:
+        yield
+    finally:
+        loop.make_train_step, loop.make_eval_step = make_train, make_eval
+
+
+def one_word_bleu1(dataset, word, steps, start, pad):
+    """Corpus BLEU-1 of hypotheses that repeat ``word`` ``steps`` times, one
+    per row of ``dataset`` (references: the row's image's captions without
+    ``start`` and ``pad``), counted here from the records: the clipped
+    count of ``word`` over the hypotheses' length, times the brevity
+    penalty of the closest reference lengths."""
+    from tpu_captioner_torch.data.dataset import iterate_batches
+
+    clipped = ref_len = rows = 0
+    for b in iterate_batches(dataset, TRAIN_BS, shuffle=False):
+        for caps in b.all_captions[b.valid]:
+            refs = [[w for w in cap if w not in (start, pad)] for cap in caps]
+            clipped += min(steps, max(r.count(word) for r in refs))
+            ref_len += min((len(r) for r in refs), key=lambda n: (abs(n - steps), n))
+            rows += 1
+    hyp_len = rows * steps
+    return clipped / hyp_len * (1.0 if hyp_len > ref_len else math.exp(1 - ref_len / hyp_len))
+
+
+def check_counts(label, record, expect_train, layers, steps):
+    """Every train step of ``record`` launched as ``expect_train[kind]``
+    says; every eval step 36 mlp_block launches and ``layers`` decode
+    launches per token over ``steps`` tokens, every row of it that long.
+    Returns the distinct per-step counts."""
+    seen = {}
+    for kind, c in record["train"]:
+        seen.setdefault(kind, set()).add(c)
+        if c != expect_train[kind]:
+            raise AssertionError(f"{label}: a {kind} step launched (dropout_mask, mlp_block, mlp_block_bwd, "
+                                 f"dwconv, dwconv_grad) {c}, expected {expect_train[kind]}")
+    for mlp, dec, tokens, shortest in record["eval"]:
+        if mlp != 36 or tokens != steps or shortest != steps or dec != layers * tokens:
+            raise AssertionError(f"{label}: an eval step launched {mlp} mlp_block and {dec} decode_step over "
+                                 f"{tokens} tokens, its shortest row {shortest} tokens long (expected 36, "
+                                 f"{layers} per token, and {steps} tokens in every row)")
+    print(f"{label}: per-step launches (dropout_mask, mlp_block, mlp_block_bwd, dwconv, dwconv_grad) "
+          + "; ".join(f"{k} x{sum(1 for kk, _ in record['train'] if kk == k)}: {sorted(v)}" for k, v in seen.items())
+          + f"; {len(record['eval'])} eval steps, decode_step launches per token {layers}, tokens "
+          + str([t for _, _, t, _ in record["eval"]]) + ", every row that long")
+    return seen
+
+
+def training_phase(dev, card, seed):
+    """Phase 10: the training entry point on the card, at full width (the
+    flagship: ConvNeXt-Base, 6-layer E=512 Transformer, f32).  (a) a
+    learnable synthetic dataset at 256x256 whose word map has VOCAB
+    entries; (b) ``cli.train`` through ``main``, batch 32, one free-running
+    epoch, every step's and validation's launches counted; (c) the Trainer
+    with ``fine_tune_epoch=1`` over two teacher-forced epochs, then a resume
+    from the epoch-0 checkpoint; (d) ``cli.test`` on (b)'s checkpoint; (e)
+    two free-running frozen steps with the kernels against an
+    every-kernel-off copy; (f) ms per free-running step, images/s, peak
+    memory, the device's idle share of a step under ``torch.profiler``, and
+    the Trainer's batch and data times.  (b) and (c) are the
+    main path: every count is zeroed before (b) and read after (c), and
+    their totals are returned by kernel name."""
+    import csv as csv_module
+    import shutil
+
+    import torch
+
+    from tpu_captioner_torch.cli import test as cli_test, train as cli_train
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.data.build import build_synthetic_dataset
+    from tpu_captioner_torch.data.dataset import CaptionDataset, iterate_batches
+    from tpu_captioner_torch.train import loop
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    t10 = time.perf_counter()
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="smoke_train_")
+    try:
+        # (a) The data.
+        ds = os.path.join(tmp, "ds")
+        word_map = build_synthetic_dataset(ds, num_images=dict(TRAIN_DATA), vocab_words=VOCAB - 4,
+                                           max_len=TRAIN_T - 2, image_size=256, learnable=True)
+        if len(word_map) != VOCAB:
+            raise AssertionError(f"the synthetic word map has {len(word_map)} entries, not {VOCAB}")
+        n_train = 5 * TRAIN_DATA["TRAIN"] // TRAIN_BS
+        print(f"phase 10a: learnable synthetic dataset, {TRAIN_DATA} images at 256x256, 5 captions each, "
+              f"word map {len(word_map)} entries ({time.perf_counter() - t10:.1f} s)")
+
+        # (b) cli.train through main: free-running, batch 32, one epoch.
+        os.chdir(tmp)
+        zero_kernel_counts()
+        record_b = {"train": [], "eval": []}
+        with counted_trainer_steps(record_b, word_map[EVAL_WORD]):
+            trainer_b = cli_train.main(["--dataFolder", ds, "--dataName", TRAIN_DATA_NAME, "--batchSize",
+                                        str(TRAIN_BS), "--epochs", "1", "--device", dev.type])
+        torch.cuda.synchronize()
+        layers, steps = trainer_b.exp.model.num_layers, trainer_b.exp.train.max_decode_len
+        check_counts("phase 10b cli.train (free-running)", record_b,
+                     {"free-running, frozen": (0, 36, 0, 36, 0)}, layers, steps)
+        bleu1 = one_word_bleu1(CaptionDataset(ds, TRAIN_DATA_NAME, "VAL"), word_map[EVAL_WORD], steps,
+                               word_map["<start>"], word_map["<pad>"])
+        if len(record_b["train"]) != n_train or len(record_b["eval"]) != 5 * TRAIN_DATA["VAL"] // TRAIN_BS:
+            raise AssertionError(f"phase 10b ran {len(record_b['train'])} train and {len(record_b['eval'])} "
+                                 "eval steps")
+        (row_b,) = trainer_b.results
+        name = trainer_b.checkpoint_name()
+        ckpt_b = os.path.join(tmp, "checkpoints", name)
+        best_b = os.path.join(tmp, "checkpoints", f"BEST_{name}")
+        csv_b = os.path.join(tmp, "results", "metrics-transformer(trainingNoTF-inferenceNoTF-Finetuning5-None).csv")
+        with open(csv_b) as f:
+            rows = list(csv_module.DictReader(f))
+        if not (all(math.isfinite(row_b[k]) for k in ("trainLoss", "valLoss")) and bleu1 > 0
+                and abs(row_b["bleu1"] - bleu1) <= 1e-12 * bleu1 and os.path.isdir(best_b)
+                and sorted(os.listdir(ckpt_b)) == sorted(os.listdir(best_b)) == ["meta.json", "state.pt"]
+                and len(rows) == 1 and list(rows[0]) == list(loop.RESULT_KEYS)
+                and float(rows[0]["trainLoss"]) == row_b["trainLoss"]):
+            raise AssertionError(f"phase 10b: row {row_b}, checkpoint or CSV missing or malformed")
+        print(f"phase 10b: row {row_b} (BLEU-1 of {steps} x {EVAL_WORD!r} counted from the records: {bleu1!r}); "
+              f"checkpoint {sorted(os.listdir(ckpt_b))}, BEST_ copy, CSV "
+              f"{os.path.basename(csv_b)} ({time.perf_counter() - t10:.1f} s)")
+        del trainer_b
+        torch.cuda.empty_cache()
+
+        # (c) The Trainer directly: TF, the unlock at epoch 1, then a resume.
+        saved = {}
+        real_save = loop.save_checkpoint
+
+        def save(directory, name, state, meta, is_best=False):
+            base = real_save(directory, name, state, meta, is_best)
+            if meta["epoch"] == 0:
+                shutil.copytree(base, os.path.join(tmp, "epoch0"))
+                saved["dec_opt"] = copy.deepcopy(state.dec_opt.state_dict())
+                saved["enc_opt"] = copy.deepcopy(state.enc_opt.state_dict())
+                saved["encoder"] = {k: v.clone() for k, v in state.model.encoder.state_dict().items()}
+            return base
+
+        def experiment(**kw):
+            return ExperimentConfig(model=ModelConfig(), train=TrainConfig(
+                batch_size=TRAIN_BS, epochs=2, fine_tune_epoch=1, teacher_forcing=True, print_freq=1000,
+                checkpoint_dir=os.path.join(tmp, "c", "ckpt"), results_dir=os.path.join(tmp, "c", "results"), **kw))
+
+        record_c = {"train": [], "eval": []}
+        loop.save_checkpoint = save
+        try:
+            with counted_trainer_steps(record_c, word_map[EVAL_WORD]):
+                trainer_c = loop.Trainer(experiment(), ds, TRAIN_DATA_NAME, device=dev, verbose=False)
+                rows_c = trainer_c.run()
+        finally:
+            loop.save_checkpoint = real_save
+        torch.cuda.synchronize()
+        totals = kernel_counts()  # phase 10's main path: (b) and (c)
+        check_counts("phase 10c Trainer (TF, unlock at epoch 1)", record_c,
+                     {"TF, frozen": (1, 36, 0, 36, 0), "TF, fine-tune": (1, 36, 30, 65, 30)}, layers, steps)
+        kinds = [k for k, _ in record_c["train"]]
+        if kinds != ["TF, frozen"] * n_train + ["TF, fine-tune"] * n_train:
+            raise AssertionError(f"phase 10c steps {kinds}")
+        if not all(abs(r["bleu1"] - bleu1) <= 1e-12 * bleu1 and math.isfinite(r["trainLoss"]) for r in rows_c):
+            raise AssertionError(f"phase 10c: rows {rows_c}, BLEU-1 counted from the records {bleu1!r}")
+        encoder = trainer_c.model.encoder.state_dict()
+        unchanged = {i: all(torch.equal(v, saved["encoder"][k]) for k, v in encoder.items()
+                            if int(k.split(".")[1]) == i) for i in range(8)}
+        if [i for i, same in unchanged.items() if same] != list(range(FT_START)):
+            raise AssertionError(f"phase 10c: children unchanged by epoch 1: {unchanged}")
+        print(f"phase 10c: rows {rows_c}; children unchanged by the fine-tune epoch {sorted(i for i, s in unchanged.items() if s)}")
+        del trainer_c
+        torch.cuda.empty_cache()
+        resumed = loop.Trainer(experiment(checkpoint=os.path.join(tmp, "epoch0")), ds, TRAIN_DATA_NAME,
+                               device=dev, verbose=False)
+
+        def same(a, b):
+            if isinstance(a, torch.Tensor):
+                return torch.equal(a, b)
+            if isinstance(a, dict):
+                return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+            if isinstance(a, (list, tuple)):
+                return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+            return a == b
+
+        if not (resumed.start_epoch == 1 and same(resumed.state.dec_opt.state_dict(), saved["dec_opt"])
+                and same(resumed.state.enc_opt.state_dict(), saved["enc_opt"]) and saved["dec_opt"]["state"]):
+            raise AssertionError("phase 10c: the resumed Adam states differ from the saved ones")
+        print(f"phase 10c: resumed at epoch {resumed.start_epoch}: both Adam states equal the epoch-0 ones "
+              f"({len(saved['dec_opt']['state'])} decoder tensors with state) ({time.perf_counter() - t10:.1f} s)")
+        del resumed, saved
+        torch.cuda.empty_cache()
+
+        # (d) cli.test on (b)'s checkpoint.
+        test_row = cli_test.main(["--dataFolder", ds, "--dataName", TRAIN_DATA_NAME, "--batchSize", str(TRAIN_BS),
+                                  "--checkpoint", best_b, "--device", dev.type])
+        test_csv = os.path.join(tmp, "results", "test-transformer-Finetuning5-None.csv")
+        if not (all(math.isfinite(v) for v in test_row.values()) and os.path.exists(test_csv)):
+            raise AssertionError(f"phase 10d: test row {test_row}")
+        print(f"phase 10d: cli.test on the BEST_ checkpoint of 10b: {test_row}")
+
+        # (e) Two free-running frozen steps, kernels against every kernel off.
+        tc = TrainConfig(batch_size=TRAIN_BS, teacher_forcing=False)
+        batch = next(iterate_batches(CaptionDataset(ds, TRAIN_DATA_NAME, "TRAIN"), TRAIN_BS, seed=tc.seed))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.as_dict().items()}
+        cfg = ModelConfig(vocab_size=VOCAB)
+        model = CaptionModel(cfg, device=dev, seed=seed + 21)
+        gen = torch.Generator().manual_seed(seed + 21)
+        with torch.no_grad():  # order-one layer scales, as in phase 5
+            for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+                blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+        start = copy.deepcopy(model.state_dict())
+        root = prng.root_seed(seed + 22)
+        seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+
+        def two_steps(m):
+            """Two steps from ``start``: their metrics, decoder gradients and
+            (logits, sequences) of their rollouts, and the parameters after."""
+            m.load_state_dict(start)
+            state = TrainState.create(m, tc)
+            step = make_train_step(m, tc, word_map, teacher_forcing=False)
+            out, grads, rolls = [], [], []
+
+            def rollout(*a, **k):
+                logits, seqs, alphas = CaptionModel.rollout(m, *a, **k)
+                rolls.append((logits.detach(), seqs, torch.zeros(seqs.shape + (1,), device=seqs.device)))
+                return logits, seqs, alphas
+
+            m.rollout = rollout
+            for s in seeds:
+                state, met = step(state, batch, s)
+                out.append({k: float(v) for k, v in met.items()})
+                grads.append({k: p.grad.clone() for k, p in m.decoder.named_parameters() if p.grad is not None})
+            del m.rollout
+            return out, grads, rolls, {k: v.clone() for k, v in m.decoder.state_dict().items()}
+
+        got, grads, rolls, params = two_steps(model)
+        plain = CaptionModel(dataclasses.replace(cfg, **ALL_OFF), device=dev)
+        want, want_grads, want_rolls, want_params = two_steps(plain)
+        del plain
+        forked = False
+        for i, (a, b) in enumerate(zip(got, want)):
+            print(f"phase 10e free-running step {i}: kernels {a}; plain {b}")
+            if forked:
+                print(f"  step {i}: not compared (a near-tie changed a sequence of an earlier step)")
+                continue
+            logit_err, _, ties = compare_rollouts(f"phase 10e step {i}", rolls[i], want_rolls[i])
+            print(f"  rollout vs plain: logits {logit_err:.3e} (tol {LOGIT_TOL:g}), {len(ties)} rows differ at a "
+                  f"near-tie, {int((want_rolls[i][1] != 0).sum())} tokens emitted, "
+                  f"{len(torch.unique(want_rolls[i][1]))} distinct")
+            if ties:
+                forked = True
+                print(f"  step {i}: loss, counts and parameters not compared (a near-tie changed a sequence)")
+                continue
+            if not (abs(a["loss"] - b["loss"]) <= 1e-4 and a["tokens"] == b["tokens"]
+                    and a["top5_correct"] == b["top5_correct"] and math.isfinite(a["loss"])):
+                raise AssertionError(f"phase 10e step {i}: kernels and plain disagree")
+        if not forked:
+            worst = 0.0
+            for k, p in params.items():
+                if k not in grads[0]:
+                    continue
+                sure = (want_grads[0][k].abs() >= 1e-7) & (want_grads[1][k].abs() >= 1e-7)
+                err = (p - want_params[k]).abs()[sure]
+                worst = max(worst, err.max().item() if err.numel() else 0.0)
+            print(f"phase 10e: updated decoder parameters, kernels vs plain: max abs diff {worst:.3e} "
+                  f"(tol {1e-2 * tc.decoder_lr:g})")
+            if not worst <= 1e-2 * tc.decoder_lr:
+                raise AssertionError("phase 10e: updated parameters disagree")
+        del rolls, want_rolls
+
+        # (f) Time per free-running step; the Trainer's batch and data times.
+        state = TrainState.create(model, tc)
+        step = make_train_step(model, tc, word_map, teacher_forcing=False)
+        state, _ = step(state, batch, seeds[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(FREE_TIMED_STEPS):
+            t0 = time.perf_counter()
+            state, met = step(state, batch, prng.step_seed(root, "dropout", 1, i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        ms = sorted(times)[len(times) // 2]
+        print(f"phase 10f: free-running step bs={TRAIN_BS}, frozen encoder, 51 tokens: median {ms:.2f} ms/step "
+              f"over {FREE_TIMED_STEPS} steps (min {min(times):.2f}, max {max(times):.2f}), "
+              f"{TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory {peak / 2**30:.2f} GiB, loss "
+              f"{float(met['loss']):.4f} [{card}]")
+        state, groups, top, launches, wall_ms = _kernel_ms_by_group(
+            step, state, batch, [prng.step_seed(root, "dropout", 2, 0)])
+        busy_ms = sum(groups.values())
+        print(f"phase 10f: free-running step under torch.profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms of "
+              f"kernels ({launches} launches) per step: the device idles {1 - busy_ms / wall_ms:.1%} of the step; "
+              "kernel ms by group: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+              + f" [{card}]")
+        for ms_k, name in top:
+            print(f"  {ms_k:8.2f} ms/step  {name}")
+        for label, row in (("10b free-running", row_b), ("10c TF epoch 0", rows_c[0]), ("10c TF epoch 1 (fine-tune)",
+                                                                                      rows_c[1])):
+            print(f"phase 10f: Trainer {label}: batch_time {row['trainBatchTime'] * 1e3:.2f} ms, data_time "
+                  f"{row['trainDataTime'] * 1e3:.3f} ms per batch (host clock, steps not synchronised) [{card}]")
+        del model, state, step
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv", "dwconv_grad")
+               if totals[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 10: kernels of the training path never launched: {missing}")
+    print(f"phase 10 launches over (b) and (c): {totals}; phase 10 took {time.perf_counter() - t10:.1f} s")
+    return totals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2395,14 +2839,20 @@ def main(argv=None):
     block_train(dev, card, args.seed, word_map)
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
 
+    # 10. The training entry point: data, cli.train, the Trainer, cli.test.
+    torch.cuda.empty_cache()
+    training = training_phase(dev, card, args.seed)
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
     # fine-tune step.  decode_onecell's and decode_rollout's: one eval step in
     # their modes, natural <end>.  lstm_step's: one lstm beam over 8 images.
     # block_fused's and the sub-tiled mlp_block's: one phase 9 serving
-    # encoder pass; their times per bs-32 encoder pass.
-    print(json.dumps({"kernels": [
+    # encoder pass; their times per bs-32 encoder pass.  launches_training:
+    # phase 10's main path, cli.train's free-running epoch and the Trainer's
+    # two teacher-forced epochs (the unlock at epoch 1), with validation.
+    kernels = [
         {"name": "mlp_block", "route": "cuda", "source": "tpu_captioner_torch/csrc/mlp_block.cu",
          "replaces": "tpu_captioner/ops/mlp_block.py:126", "launches": mlp_launches,
          "max_abs_err": mlp_err, "ms": mlp_ms, "plain_ms": mlp_plain_ms,
@@ -2446,7 +2896,10 @@ def main(argv=None):
          "replaces": "tpu_captioner/ops/mlp_block.py:145", "launches": pipe_launches,
          "max_abs_err": pipe_err, "ms": pipe_ms, "plain_ms": pipe_plain_ms,
          "bound_ms": pipe_bound, "bound_by": pipe_by, "library_ms": None},
-    ]}))
+    ]
+    for k in kernels:
+        k["launches_training"] = training[k["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -54,7 +54,8 @@ whole-tile path within 1e-5 times the same (the same 3xTF32 products, the
 hidden chunks and the first product's stages in another grouping) and with
 the plain version within 1e-4, at partial last row tiles and at the
 cluster widths' bs-8 row counts, with sd-0 rows bit for bit and the same
-bits from a second call.
+bits from a second call.  The training loader's batches, copied from
+pinned memory on a side stream, equal the host's arrays bit for bit.
 """
 
 import math
@@ -791,3 +792,30 @@ def test_block_forward_reruns_on_the_backward_thread(cuda):
     plain = [a.detach().clone().requires_grad_() for a in args]
     (want,) = torch.autograd.grad(_block_plain(*plain).square().sum(), plain[0])
     assert (g - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_loader_copies_the_host_batches_to_the_card(cuda, tmp_path):
+    """``DeviceLoader`` on the card: every batch of an epoch, copied from
+    pinned memory on its side stream and waited for by the consumer's
+    stream, equals ``iterate_batches``' host arrays; a consumer that stops
+    early leaves no thread behind."""
+    import threading
+
+    from tpu_captioner_torch.data.build import build_synthetic_dataset
+    from tpu_captioner_torch.data.dataset import CaptionDataset, iterate_batches
+    from tpu_captioner_torch.data.loader import DeviceLoader
+
+    build_synthetic_dataset(str(tmp_path), num_images={"TRAIN": 9, "VAL": 2, "TEST": 2}, image_size=64)
+    ds = CaptionDataset(str(tmp_path), "synthetic_5_cap_per_img_1_min_word_freq", "TRAIN")
+    loader = DeviceLoader(ds, 8, device=cuda, seed=3)
+    got = [{k: v.clone() for k, v in b.items()} for b in loader.epoch(2)]
+    want = list(iterate_batches(ds, 8, epoch=2, seed=3))
+    assert len(got) == len(want) == len(loader) == 6
+    for g, w in zip(got, want):
+        for k, v in w.as_dict().items():
+            assert g[k].is_cuda and torch.equal(g[k].cpu(), torch.from_numpy(v)), k
+    before = threading.active_count()
+    it = loader.epoch(0)
+    next(it)
+    it.close()
+    assert threading.active_count() == before

@@ -11,8 +11,13 @@
   autograd would need a gradient through them.
 - ``decode_kernel='mega'`` always reaches the whole-rollout kernel: it never
   resolves to the per-token one.
-- The train step's branch that is not ported raises, naming its ROADMAP
-  item; the fine-tune branch builds a step.
+- Every train-step branch builds a step (teacher-forced and free-running,
+  frozen and fine-tune); what the training entry point does not port yet
+  raises, naming its ROADMAP item: more than one device (Queue 1 #9), the
+  ``.npz`` form of ``--pretrainedEncoder`` (Queue 1 #7).  The training
+  modules (data, loader, checkpoints, Trainer, CLIs) catch no failure, but
+  for the loader's queue timeouts and its thread's error, raised again in
+  the consumer.
 - The depthwise conv's wrappers refuse what their kernels do not take (other
   devices, bf16, non-contiguous tensors, tensors on two devices).
 - The whole-block wrapper refuses other devices, dtypes, shapes and layouts
@@ -28,8 +33,8 @@
   bulk copies on mbarriers (``csrc/mbarrier.cuh``, in ``decode_step.cu``'s
   build hash with ``warp_reduce.cuh``); no decode wrapper catches a failed
   launch, and a decode build that cannot run raises.
-- ``CaptionModel.rollout`` serves deterministic rollouts only: a rollout
-  with dropout raises, naming its ROADMAP item, before any decode path.
+- ``CaptionModel.rollout`` with dropout (free-running training) takes the
+  plain rollout in every decode mode and raises without a generator.
 """
 
 import dataclasses
@@ -55,8 +60,13 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "tpu_captioner"))
         assert not bad, bad
-        assert len(names) >= 20, names
+        assert len(names) >= 30, names
         assert "tpu_captioner_torch.ops.block_fused" in names, names
+        for new in ("data.vocab", "data.build", "data.dataset", "data.loader", "models.embeddings",
+                    "train.checkpoint", "train.loop", "cli.common", "cli.train", "cli.test", "cli.build_data"):
+            assert "tpu_captioner_torch." + new in names, new
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("pandas", "nltk", "PIL", "h5py"))
+        assert not bad, bad
         assert "tpu_captioner_torch.ops.tf32" in names, names
         """
     )
@@ -179,8 +189,13 @@ def test_kernel_wrappers_refuse_to_drop_gradients():
         fused_decode_step(w, torch.zeros(2, 8), 0, *(torch.zeros(1, 2, 4, 8),) * 4, 2)
 
 
-def test_unported_train_branches_raise():
+def test_unported_train_branches_raise(tmp_path):
+    """The free-running branches, once refused here, are ported: they build
+    steps.  What stays unported raises with its ROADMAP item: more than one
+    device, in the loader and the CLI's device count, and the .npz form of
+    the pretrained encoder."""
     from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.data.loader import DeviceLoader, resolve_num_devices
     from tpu_captioner_torch.train.model import CaptionModel
     from tpu_captioner_torch.train.steps import make_train_step
 
@@ -192,10 +207,19 @@ def test_unported_train_branches_raise():
     assert callable(make_train_step(model, TrainConfig(), {}, train_encoder=True))
     trained = {n.split(".")[1] for n, p in model.encoder.named_parameters() if p.requires_grad}
     assert trained == {"5", "6", "7"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
-        make_train_step(model, TrainConfig(), {}, teacher_forcing=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
-        make_train_step(model, TrainConfig(), {}, teacher_forcing=False, train_encoder=True)
+    ids = {"<pad>": 0, "<start>": 9, "<end>": 10}
+    assert callable(make_train_step(model, TrainConfig(), ids, teacher_forcing=False))
+    assert not any(p.requires_grad for p in model.encoder.parameters())
+    assert callable(make_train_step(model, TrainConfig(), ids, teacher_forcing=False, train_encoder=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
+        resolve_num_devices(2, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
+        DeviceLoader([], 4, device="cpu", num_devices=8)
+    from tpu_captioner_torch.train.loop import Trainer
+
+    trainer = Trainer.__new__(Trainer)  # only the backbone check runs
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #7"):
+        trainer._load_backbone(str(tmp_path / "convnext.npz"))
 
 
 def rollout_args(make, L=1, R=2, P=3, E=8, V=5, steps=2):
@@ -429,19 +453,44 @@ def test_decode_sources_stage_by_bulk_copy_and_have_no_fallback(cpu_only):
 
 
 def test_rollout_with_dropout_raises():
+    """A rollout with dropout, once refused, is ported: without a generator
+    it raises (no draw from global state); with one it takes the plain
+    rollout in every decode mode and of every family, with autograd."""
     from tpu_captioner_torch.core.config import ModelConfig
     from tpu_captioner_torch.train.model import CaptionModel
 
-    model = CaptionModel(
-        ModelConfig(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
-                    encoder_dim=8, embed_dim=8, num_heads=2, decoder_dim=8, num_layers=1),
-        device="cpu",
-    )
-    enc = torch.zeros(1, 4, 8)
-    for mode in ("off", "step", "mega"):
-        model.cfg = dataclasses.replace(model.cfg, decode_kernel=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #8"):
-            model.rollout(enc, 1, 2, 3, deterministic=False)
-        with torch.inference_mode():
-            logits, seqs, _ = model.rollout(enc, 1, 2, 3)  # deterministic, the default
-        assert logits.shape == (1, 3, 11) and seqs.shape == (1, 3)
+    for decoder in ("transformer", "lstm", "lstm_no_attention"):
+        model = CaptionModel(
+            ModelConfig(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8), decoder=decoder,
+                        encoder_dim=8, embed_dim=8, num_heads=2, decoder_dim=8, attention_dim=6, num_layers=1),
+            device="cpu",
+        )
+        enc = torch.zeros(1, 4, 8)
+        for mode in ("off", "step", "mega"):
+            model.cfg = dataclasses.replace(model.cfg, decode_kernel=mode)
+            with pytest.raises(ValueError, match="generator"):
+                model.rollout(enc, 1, 2, 3, deterministic=False)
+            logits, seqs, _ = model.rollout(enc, 1, 2, 3, deterministic=False, generator=torch.Generator())
+            assert logits.shape == (1, 3, 11) and seqs.shape == (1, 3) and logits.requires_grad
+            with torch.inference_mode():
+                logits, seqs, _ = model.rollout(enc, 1, 2, 3)  # deterministic, the default
+            assert logits.shape == (1, 3, 11) and seqs.shape == (1, 3)
+
+
+def test_training_modules_catch_no_failure():
+    """No ``except`` in the training entry point's modules but the loader's
+    queue timeouts and its thread's error, which the consumer raises."""
+    import importlib
+    import inspect
+    import re
+
+    allowed = {"tpu_captioner_torch.data.loader": ["except queue.Full:", "except Exception as e:",
+                                                   "except queue.Empty:"]}
+    for name in ("data.vocab", "data.build", "data.dataset", "data.loader", "models.embeddings",
+                 "train.checkpoint", "train.loop", "train.steps", "train.state", "cli.common", "cli.train",
+                 "cli.test", "cli.build_data"):
+        mod = "tpu_captioner_torch." + name
+        found = re.findall(r"except\b[^\n#]*:", inspect.getsource(importlib.import_module(mod)))
+        assert found == allowed.get(mod, []), (mod, found)
+    loader = inspect.getsource(importlib.import_module("tpu_captioner_torch.data.loader"))
+    assert "err.append(e)" in loader and "raise err[0]" in loader

@@ -2,29 +2,28 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The JAX package beside it is the reference this port is held against.  This
-package imports ``torch`` and numpy only, never JAX.  What is ported so far is
-the serving path, ``python -m tpu_captioner_torch.cli.caption``, the
-teacher-forced train step, ``train.steps.make_train_step``, with the encoder
-frozen or fine-tuned from a starting child on, and the greedy eval step,
-``train.steps.make_eval_step``:
+package imports ``torch`` and numpy only, never JAX.  Ported so far: serving,
+``python -m tpu_captioner_torch.cli.caption``; training, ``cli.build_data``
+-> ``cli.train`` (the ``Trainer``: teacher-forced, free-running and
+scheduled-sampling steps, the encoder unlock, LR decay, early stop,
+checkpoints and resume) -> ``cli.test``; for the four decoder families:
 
-- ``core``   — ``ModelConfig``, ``TrainConfig``, a CUDA probe, step seeds,
-               the early-exit scan;
+- ``core``   — the configs, a CUDA probe, step seeds, the early-exit scan;
+- ``data``   — word maps, the record writers (synthetic, Karpathy, reference
+               HDF5), the dataset and the one-card prefetching loader;
 - ``models`` — ConvNeXt-Base encoder (NHWC, stochastic depth in training,
-               remat and the fine-tune mask),
-               the Transformer decoder (teacher forcing, the decode pieces
-               and the greedy rollouts), and the weight bridge from JAX
-               params and reference ``.pth.tar`` checkpoints;
-- ``ops``    — the six hand-written Hopper kernels of those paths (fused
-               ConvNeXt MLP tail forward and backward; the KV-cached decode
-               step per layer or one launch per token, and the whole greedy
-               rollout; dropout mask pool), each beside its plain PyTorch
-               version;
-- ``eval``   — token metrics, rollout masks and corpus BLEU;
+               remat and the fine-tune mask), the Transformer and LSTM
+               decoders (teacher forcing, the decode pieces, the greedy
+               rollouts, the free-running rollouts with dropout), word
+               embeddings, and the weight bridge from JAX params and
+               reference ``.pth.tar`` checkpoints;
+- ``ops``    — the hand-written Hopper kernels of those paths, each beside
+               its plain PyTorch version;
+- ``eval``   — token metrics, the meter, rollout masks and corpus BLEU;
 - ``train``  — ``CaptionModel``, optimizers and ``TrainState``, the train and
-               eval steps;
+               eval steps, checkpoints and the ``Trainer``;
 - ``infer``  — batched beam search;
-- ``cli``    — the captioning CLI.
+- ``cli``    — ``caption``, ``build_data``, ``train`` and ``test``.
 """
 
 __version__ = "0.1.0"

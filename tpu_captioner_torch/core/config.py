@@ -26,12 +26,13 @@ CPU); ``'threefry'`` draws each site with ``torch.bernoulli`` from the
 step's generator.  Threefry's own bits, which the JAX package draws there,
 cannot be reproduced in PyTorch; only the distribution is the same.
 
-``TrainConfig`` keeps the JAX package's training knobs and defaults.
+``TrainConfig`` keeps the JAX package's training knobs and defaults;
+``ExperimentConfig`` joins it to the model's and the number of cards.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 # Embedding-name -> (embed_dim, default artifact path), as in the JAX package
@@ -159,3 +160,10 @@ class TrainConfig:
     checkpoint: Optional[str] = None  # resume path
     results_dir: str = "results"
     checkpoint_dir: str = "checkpoints"
+
+
+@dataclass
+class ExperimentConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    num_devices: int = 0  # cards to train on; 0 = every visible card

@@ -1,6 +1,7 @@
 """Token metrics (counterpart of ``tpu_captioner/eval/metrics.py``).
 
 The JAX package's semantics:
+- ``AverageMeter``, the host meter of the training loop (utils/utils.py:163);
 - ``masked_cross_entropy`` and ``topk_correct`` (utils/utils.py:239-254);
 - ``decode_lengths_from_sequences`` and ``rollout_token_mask``, which express
   the reference's ``preprocessDecoderOutputForMetrics`` (utils/utils.py:
@@ -15,6 +16,26 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+class AverageMeter:
+    """Most recent value, sum, count and average of a metric
+    (utils/utils.py:163-180)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count if self.count else 0.0
 
 
 def decode_lengths_from_sequences(

@@ -8,8 +8,12 @@ g, o.
 Dropout draws its masks one of two ways.  Inside ``mask_pool_scope(pool)``
 every site takes the next range of a ``MaskPool``, the flat keep-pool one
 train step draws at once (``ops/dropout_mask.py``); outside, each site draws
-with ``torch.bernoulli`` from the generator it is given.  The pool's layout
-is the JAX package's, so both packages fed one bit array drop the same
+with ``torch.bernoulli`` from the generator it is given (``draw_mask``).
+The free-running rollouts draw once per token and site, and name each draw
+by ``site``: the token and the site's fold-in ids in the JAX package's key
+chain (``tpu_captioner/models/transformer.py:_rng_at``).  The draw itself
+ignores the name; it lets a test hand both packages the same masks.  The
+pool's layout is the JAX package's, so both packages fed one bit array drop the same
 elements: the JAX decoder traces its layer loop once under ``lax.scan``, so
 each site inside ``pool_layer_scope(i, L)`` reserves L stripes and layer i
 takes the stripe at ``offset + i * size``.  The port loops over layers in
@@ -23,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,13 +77,16 @@ def attention_one_query(
     q: torch.Tensor,  # (R, H, Dh) — one query row per sequence
     k: torch.Tensor,  # (R, H, Tk, Dh)
     v: torch.Tensor,  # (R, H, Tk, Dh)
+    drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Scaled dot-product attention for a single query position over all Tk
     key/value rows given; a KV-cached caller passes only the positions
-    written so far.  Returns (context (R, H, Dh), probs (R, H, Tk))."""
+    written so far.  ``drop`` (dropout of the probabilities, in training)
+    applies to the context only.  Returns (context (R, H, Dh), probs
+    before dropout (R, H, Tk))."""
     scores = torch.einsum("rhd,rhtd->rht", q / math.sqrt(q.shape[-1]), k)
     probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("rht,rhtd->rhd", probs, v)
+    ctx = torch.einsum("rht,rhtd->rhd", probs if drop is None else drop(probs), v)
     return ctx, probs
 
 
@@ -151,11 +158,23 @@ def pool_layer_scope(index: int, count: int):
             pool.offset = start
 
 
+def draw_mask(
+    shape: Sequence[int], keep: float, generator: torch.Generator, device, site: Tuple[int, ...] = ()
+) -> torch.Tensor:
+    """A bool keep-mask of ``shape`` on ``device``, each element True with
+    probability ``keep``, drawn from ``generator``.  ``site`` names the draw
+    (see the module note) and does not change it."""
+    del site
+    probs = torch.full(tuple(shape), keep, device=device)
+    return torch.bernoulli(probs, generator=generator).bool()
+
+
 def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool,
+    site: Tuple[int, ...] = (),
 ) -> torch.Tensor:
     """Inverted dropout: ``where(mask, x / keep, 0)``.  The mask comes from
-    the active ``MaskPool``, else from ``torch.bernoulli`` on ``generator``."""
+    the active ``MaskPool``, else from ``draw_mask`` on ``generator``."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
@@ -165,8 +184,7 @@ def dropout(
     else:
         if generator is None:
             raise ValueError("train-mode dropout outside a mask pool needs a generator")
-        probs = torch.full(x.shape, keep, device=x.device)
-        mask = torch.bernoulli(probs, generator=generator).bool()
+        mask = draw_mask(x.shape, keep, generator, x.device, site)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -23,7 +23,11 @@ attention) ``fused_rollout`` over ``ops/lstm_step.py:fused_lstm_step``, are
 deterministic: no dropout.  They mix teacher tokens in when given
 (scheduled sampling), freeze the state of rows that have emitted ``<end>``
 and zero their outputs, and stop once every row has finished when no
-teacher tokens are mixed in.  They return (logits (B, T, V), sequences
+teacher tokens are mixed in.  ``rollout(train=True)`` is the free-running
+rollout of training: the plain step with dropout on each step's new hidden
+state before the head (tpu_captioner/models/lstm.py:253, 445), drawn once
+per token from the rollout's generator, autograd through the loop, and
+every step run.  They return (logits (B, T, V), sequences
 (B, T) int32, attention maps (B, T, P), or None without attention).
 """
 
@@ -106,20 +110,25 @@ class _LstmDecoder(nn.Module):
 
     def _rollout(
         self, h0: torch.Tensor, c0: torch.Tensor, step_fn: Callable, start_id: int, end_id: int,
-        steps: int, generator, teacher_tokens, teacher_prob: float,
+        steps: int, generator, teacher_tokens, teacher_prob: float, train: bool = False,
     ):
         """The greedy loop around ``step_fn(h, c, emb) -> (h_new, c_new,
         alpha or None)`` (decoder.py:119-163): the teacher mix, the head and
-        argmax, the finished-row freeze and zeroed outputs, the early exit."""
+        argmax, the finished-row freeze and zeroed outputs, the early exit
+        (not in ``train``).  ``train`` drops the head's input out; the draw
+        of token t is named ``(t,)``: the JAX package takes the t-th key of
+        its split, with no fold."""
         B, dev = h0.shape[0], h0.device
         teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, steps, B, dev)
+        if train and generator is None:
+            raise ValueError("a training rollout needs a generator for its dropout")
 
         def body(carry, t):
             h, c, tok, finished = carry
             if teacher is not None:
                 tok = torch.where(use[t], teacher[t], tok)
             h_new, c_new, alpha = step_fn(h, c, self.embedding(tok))
-            logits = self.fc(h_new)
+            logits = self.fc(dropout(h_new, self.cfg.dropout, generator, train, site=(t,)))
             pred = logits.argmax(dim=-1)
             act = ~finished
             outs = (torch.where(act[:, None], logits, 0.0), torch.where(act, pred, 0).to(torch.int32))
@@ -133,7 +142,7 @@ class _LstmDecoder(nn.Module):
 
         tok0 = torch.full((B,), start_id, dtype=torch.long, device=dev)
         fin0 = torch.zeros(B, dtype=torch.bool, device=dev)
-        done = (lambda carry: carry[3].all()) if teacher is None else (lambda carry: False)
+        done = (lambda carry: carry[3].all()) if teacher is None and not train else (lambda carry: False)
         _, outs = scan_early_exit(body, (h0, c0, tok0, fin0), range(steps), done)
         outs = [o.transpose(0, 1) for o in outs]
         return outs[0], outs[1], outs[2] if len(outs) > 2 else None
@@ -198,15 +207,15 @@ class DecoderWithAttention(_LstmDecoder):
     def rollout(
         self, encoder_out: torch.Tensor, start_id: int, end_id: int, max_decode_len: int, *,
         generator: Optional[torch.Generator] = None, teacher_tokens: Optional[torch.Tensor] = None,
-        teacher_prob: float = 0.0,
+        teacher_prob: float = 0.0, train: bool = False,
     ):
-        """Greedy decode over the plain ``step``."""
+        """Greedy decode over the plain ``step``; ``train`` as ``_rollout``."""
         enc = flatten_pixels(encoder_out)
         att1 = self.attention.encoder_att(enc)
         h0, c0 = self.init_hidden_state(enc)
         return self._rollout(
             h0, c0, lambda h, c, emb: self.step(h, c, emb, enc, att1),
-            start_id, end_id, max_decode_len, generator, teacher_tokens, teacher_prob,
+            start_id, end_id, max_decode_len, generator, teacher_tokens, teacher_prob, train,
         )
 
     def fused_rollout(
@@ -255,10 +264,10 @@ class DecoderWithoutAttention(_LstmDecoder):
     def rollout(
         self, encoder_out: torch.Tensor, start_id: int, end_id: int, max_decode_len: int, *,
         generator: Optional[torch.Generator] = None, teacher_tokens: Optional[torch.Tensor] = None,
-        teacher_prob: float = 0.0,
+        teacher_prob: float = 0.0, train: bool = False,
     ):
-        """Greedy decode; the maps are None."""
+        """Greedy decode; the maps are None; ``train`` as ``_rollout``."""
         h0, c0 = self.init_hidden_state(flatten_pixels(encoder_out))
         return self._rollout(
-            h0, c0, self.step, start_id, end_id, max_decode_len, generator, teacher_tokens, teacher_prob
+            h0, c0, self.step, start_id, end_id, max_decode_len, generator, teacher_tokens, teacher_prob, train
         )

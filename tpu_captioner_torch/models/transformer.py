@@ -32,12 +32,19 @@ with the steps of rows that finished earlier zeroed.  Scheduled sampling
 draws its per-step masks with ``teacher_masks`` from a ``torch.Generator``;
 the JAX package's threefry draws cannot be reproduced, only their
 distribution.
+
+``rollout(train=True)`` is the free-running rollout of training: the plain
+decode step with dropout at every site of ``tf_forward``, drawn once per
+token and site from the rollout's generator (``decode_step``'s ``drop``), with
+autograd through the whole loop; it runs every step, as the JAX package's
+``lax.scan`` does.  Its KV caches grow by concatenation, not in place, so
+autograd keeps each step's keys.  The kernel rollouts stay deterministic.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -64,7 +71,7 @@ def teacher_masks(
 ) -> torch.Tensor:
     """(steps, batch) bool: where scheduled sampling feeds the ground-truth
     token instead of the model's last prediction, each with ``prob``."""
-    return (torch.rand(steps, batch, generator=generator) < prob).to(device)
+    return (torch.rand(steps, batch, generator=generator, device=generator.device) < prob).to(device)
 
 
 def teacher_schedule(teacher_tokens, teacher_prob, generator, steps, batch, device):
@@ -258,37 +265,56 @@ class TransformerDecoder(nn.Module):
         return Cache(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
 
     def decode_step(
-        self, tokens: torch.Tensor, pos: int, cache: Cache, memory: Memory
-    ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+        self, tokens: torch.Tensor, pos: int, cache, memory: Memory,
+        drop: Optional[Callable[[torch.Tensor, Tuple[int, ...]], torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
         """One KV-cached decode step (plain PyTorch).  ``tokens`` (B,) is the
-        token at position ``pos``.  Writes this step's k/v into ``cache`` IN
-        PLACE, then attends over positions <= pos.  Returns (logits (B, V),
-        cache, cross-attention alpha (B, P) averaged over layers and heads)."""
+        token at position ``pos``.  A ``Cache`` gets this step's k/v written
+        IN PLACE; a list of per-layer (B, H, pos, Dh) (keys, values), as a
+        training rollout keeps, is returned grown by this step's rows, out of
+        place, so autograd keeps each step's keys.  The step attends over
+        positions <= pos.  ``drop(v, site)`` is training's dropout at the
+        sites of ``tf_forward``, each named by the token and its fold-in ids
+        (tpu_captioner/models/transformer.py:146-178, 354-395): the
+        embedding 100; in layer i, (200, i) then the self-attention
+        probabilities 1 and output 2, the cross-attention probabilities 3 and
+        output 4, the FFN hidden layer (5, 0) and output 6.  Returns (logits
+        (B, V), cache, cross-attention alpha (B, P) averaged over layers and
+        heads)."""
         c = self.cfg
         e, h = c.embed_dim, c.num_heads
-        x = self.embed(tokens, pos)  # (B, E)
-        alphas = []
+
+        def d(v, *site):
+            return v if drop is None else drop(v, (pos, *site))
+
+        x = self.embed(tokens, pos) if drop is None else d(self._lookup(tokens), 100) + self.pe[pos]  # (B, E)
+        alphas, grown = [], []
         for i, lyr in enumerate(self.layers):
             sa = lyr.self_attn
             q, k_new, v_new = F.linear(x, sa.in_proj_weight, sa.in_proj_bias).chunk(3, dim=-1)
-            cache.k[i, :, :, pos] = split_heads(k_new[:, None], h)[:, :, 0]
-            cache.v[i, :, :, pos] = split_heads(v_new[:, None], h)[:, :, 0]
+            k_new, v_new = split_heads(k_new[:, None], h), split_heads(v_new[:, None], h)
+            if isinstance(cache, Cache):
+                cache.k[i, :, :, pos] = k_new[:, :, 0]
+                cache.v[i, :, :, pos] = v_new[:, :, 0]
+                k_all, v_all = cache.k[i, :, :, : pos + 1], cache.v[i, :, :, : pos + 1]
+            else:
+                k_all, v_all = torch.cat([cache[i][0], k_new], dim=2), torch.cat([cache[i][1], v_new], dim=2)
+                grown.append((k_all, v_all))
             ctx, _ = attention_one_query(
-                split_heads(q[:, None], h)[:, :, 0],
-                cache.k[i, :, :, : pos + 1], cache.v[i, :, :, : pos + 1],
+                split_heads(q[:, None], h)[:, :, 0], k_all, v_all, lambda pr: d(pr, 200, i, 1)
             )
-            x = layer_norm(x + sa.out_proj(ctx.flatten(1)), lyr.norm1.weight, lyr.norm1.bias)
+            x = layer_norm(x + d(sa.out_proj(ctx.flatten(1)), 200, i, 2), lyr.norm1.weight, lyr.norm1.bias)
             ca = lyr.multihead_attn
             q2 = F.linear(x, ca.in_proj_weight[:e], ca.in_proj_bias[:e])
             ctx2, probs2 = attention_one_query(
-                split_heads(q2[:, None], h)[:, :, 0], memory.k[i], memory.v[i]
+                split_heads(q2[:, None], h)[:, :, 0], memory.k[i], memory.v[i], lambda pr: d(pr, 200, i, 3)
             )
-            x = layer_norm(x + ca.out_proj(ctx2.flatten(1)), lyr.norm2.weight, lyr.norm2.bias)
-            ff = lyr.linear2(torch.relu(lyr.linear1(x)))
-            x = layer_norm(x + ff, lyr.norm3.weight, lyr.norm3.bias)
+            x = layer_norm(x + d(ca.out_proj(ctx2.flatten(1)), 200, i, 4), lyr.norm2.weight, lyr.norm2.bias)
+            hid = d(torch.relu(lyr.linear1(x)), 200, i, 5, 0)
+            x = layer_norm(x + d(lyr.linear2(hid), 200, i, 6), lyr.norm3.weight, lyr.norm3.bias)
             alphas.append(probs2.mean(dim=1))
         logits = self.fc_out(x)
-        return logits, cache, torch.stack(alphas).mean(dim=0)
+        return logits, cache if isinstance(cache, Cache) else grown, torch.stack(alphas).mean(dim=0)
 
     # -- greedy rollouts ----------------------------------------------------
     def _greedy_loop(self, step_fn, tok0, end_id, steps, teacher, use, early_exit):
@@ -325,25 +351,37 @@ class TransformerDecoder(nn.Module):
         generator: Optional[torch.Generator] = None,
         teacher_tokens: Optional[torch.Tensor] = None,
         teacher_prob: float = 0.0,
+        train: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """Greedy KV-cached generation over the plain ``decode_step``
         (transformerDecoder.py:110-160).  ``teacher_tokens`` (B, >= T) with
         ``teacher_prob`` and a ``generator`` mix ground-truth input tokens in
         (scheduled sampling); without teacher tokens the loop stops once every
-        row has emitted ``end_id``."""
+        row has emitted ``end_id``.  ``train`` grows the caches out of place,
+        drops out from ``generator`` and runs every step."""
         memory = self.precompute_memory(encoder_out)
         B = memory.mem.shape[0]
         dev = memory.mem.device
-        cache = self.init_cache(B, max_decode_len + 1)
         teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
+        if train:
+            if generator is None:
+                raise ValueError("a training rollout needs a generator for its dropout")
+            empty = memory.k.new_zeros(B, self.cfg.num_heads, 0, self.cfg.embed_dim // self.cfg.num_heads)
+            cache = [(empty, empty)] * len(self.layers)
+
+            def drop(v, site):
+                return dropout(v, self.cfg.dropout, generator, True, site=site)
+        else:
+            cache, drop = self.init_cache(B, max_decode_len + 1), None
 
         def step_fn(tok, t):
-            logits_t, _, alpha = self.decode_step(tok, t, cache, memory)
+            nonlocal cache
+            logits_t, cache, alpha = self.decode_step(tok, t, cache, memory, drop)
             return logits_t, alpha
 
         tok0 = torch.full((B,), start_id, dtype=torch.long, device=dev)
         logits, seqs, alphas = self._greedy_loop(
-            step_fn, tok0, end_id, max_decode_len, teacher, use, teacher_tokens is None
+            step_fn, tok0, end_id, max_decode_len, teacher, use, teacher_tokens is None and not train
         )
         return logits, seqs, alphas if self.capture_alphas else None
 

@@ -1,9 +1,9 @@
 """CaptionModel: encoder + one of the four decoder families behind one
 interface (counterpart of ``tpu_captioner/train/model.py``).
 
-Covers what serving, the two teacher-forced train steps and the greedy eval
-step need: ``encode`` (uint8 NHWC images -> (B, 7, 7, C), with stochastic
-depth in training, without autograd), ``encode_fine_tune`` (the same with
+Covers what serving, the train steps (teacher-forced and free-running) and
+the greedy eval step need: ``encode`` (uint8 NHWC images -> (B, 7, 7, C),
+with stochastic depth in training, without autograd), ``encode_fine_tune`` (the same with
 autograd from a starting child on), ``tf_forward``, ``rollout``, the decoder
 choice (``transformer``, ``transformer_attvis``, ``lstm``,
 ``lstm_no_attention``), and the kernel/plain selection.
@@ -127,10 +127,13 @@ def finetune_encoder_remat(remat: str, compute_dtype: str = "float32") -> str:
 
 class CaptionModel(nn.Module):
     """Built on ``device`` with weights drawn from ``seed`` (a checkpoint
-    load overwrites them).  Training and eval are chosen per call (``train``
+    load overwrites them).  ``pretrained_embeddings`` (vocab, E), a word
+    table of ``models/embeddings.py``, replaces the Transformer families'
+    embedding, as the JAX package's ``init_params`` does (the LSTM families
+    ignore it there too).  Training and eval are chosen per call (``train``
     arguments), not by ``nn.Module.train``."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0, pretrained_embeddings=None):
         super().__init__()
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
@@ -158,6 +161,14 @@ class CaptionModel(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         self.encoder.convnext.reset_parameters(gen)
         self.decoder.reset_parameters(gen)
+        if pretrained_embeddings is not None and cfg.decoder not in LSTM_DECODERS:
+            table = torch.as_tensor(pretrained_embeddings, dtype=torch.float32)
+            if tuple(table.shape) != (cfg.vocab_size, cfg.embed_dim):
+                raise ValueError(
+                    f"pretrained embedding shape {tuple(table.shape)} != ({cfg.vocab_size}, {cfg.embed_dim})"
+                )
+            with torch.no_grad():
+                self.decoder.embedding.weight.copy_(table)
         self.eval()
 
     @property
@@ -237,16 +248,16 @@ class CaptionModel(nn.Module):
         with a ``generator`` enable scheduled sampling.  The decode kernels
         serve deterministic rollouts only (no dropout), as in the JAX
         package; ``lstm`` takes its kernel rollout whenever the mode is not
-        ``'off'``.  ``deterministic=False`` (a rollout with dropout, for
-        free-running training) raises: not ported yet (ROADMAP.md Queue 1
-        #8).  The kernel rollouts are forward only."""
-        if not deterministic:
-            raise NotImplementedError(
-                "rollouts with dropout (free-running training) are not ported yet: ROADMAP.md Queue 1 #8"
-            )
+        ``'off'``.  ``deterministic=False`` is the free-running rollout of
+        training: the plain rollout of every family with dropout drawn from
+        ``generator`` and autograd through the loop, whatever
+        ``decode_mode`` says (tpu_captioner/train/model.py:195-247).  The
+        kernel rollouts are forward only."""
         dec = self.decoder
         args = (encoder_out, start_id, end_id, max_decode_len)
         kw = dict(generator=generator, teacher_tokens=teacher_tokens, teacher_prob=teacher_prob)
+        if not deterministic:
+            return dec.rollout(*args, train=True, **kw)
         mode = self.decode_mode()
         if self.cfg.decoder in LSTM_DECODERS:
             return dec.fused_rollout(*args, **kw) if mode != "off" else dec.rollout(*args, **kw)

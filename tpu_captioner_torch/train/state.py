@@ -5,7 +5,9 @@ The reference's semantics (train.py:110-174, utils/utils.py:183-236):
   and eps 1e-8;
 - gradients clamped ELEMENTWISE to +-grad_clip before the update (the
   reference's clip_gradient is a clamp, not a norm clip);
-- learning rates are mutable (``scale_lr``, the x0.8 decay).
+- learning rates are mutable (``scale_lr``, the x0.8 decay);
+- the encoder unlock starts a FRESH encoder Adam
+  (``TrainState.reinit_encoder_optimizer``, train.py:161-165).
 
 ``torch.optim.Adam`` computes optax's ``adam`` update: both keep the biased
 moments, divide by the bias corrections 1 - b^t and add eps outside the
@@ -70,3 +72,9 @@ class TrainState:
             make_optimizer(model.decoder.parameters(), cfg.decoder_lr),
             make_optimizer(model.encoder.parameters(), cfg.encoder_lr),
         )
+
+    def reinit_encoder_optimizer(self, lr: float) -> "TrainState":
+        """A fresh encoder Adam at ``lr`` for the fine-tune unlock
+        (train.py:164), in place."""
+        self.enc_opt = make_optimizer(self.model.encoder.parameters(), lr)
+        return self

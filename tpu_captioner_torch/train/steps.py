@@ -1,15 +1,22 @@
 """Train and eval steps (counterpart of ``tpu_captioner/train/steps.py``).
 
-Ported: the teacher-forced step, with the encoder frozen, which the reference
-trains for its first ``fine_tune_epoch`` epochs (train.py:240-291), and
-fine-tuned from ``starting_layer`` on (``train_encoder=True``), which it
-trains after them; and the greedy eval step (``make_eval_step``) behind every
-validation loss, top-5 and BLEU number (train.py:367-441); for all four
-decoder families.  The train step:
-- the loss is the cross-entropy over the tokens at ``t < caplen - 1`` of
-  valid rows, divided by their count (``nn.CrossEntropyLoss`` over
-  ``pack_padded_sequence`` tokens, train.py:266-276), plus for ``lstm``
-  ``alpha_c`` times the doubly stochastic attention term (train.py:269);
+Ported: the train step, teacher-forced or free-running
+(``teacher_forcing=False``, train.py:293-361), with the encoder frozen, which
+the reference trains for its first ``fine_tune_epoch`` epochs
+(train.py:240-291), and fine-tuned from ``starting_layer`` on
+(``train_encoder=True``), which it trains after them; and the greedy eval
+step (``make_eval_step``) behind every validation loss, top-5 and BLEU
+number (train.py:367-441); for all four decoder families.  The train step:
+- teacher-forced, the loss is the cross-entropy over the tokens at
+  ``t < caplen - 1`` of valid rows, divided by their count
+  (``nn.CrossEntropyLoss`` over ``pack_padded_sequence`` tokens,
+  train.py:266-276), plus for ``lstm`` ``alpha_c`` times the doubly
+  stochastic attention term (train.py:269);
+- free-running, it is ``rollout_loss`` with dropout and gradients: the
+  plain greedy rollout of ``cfg.max_decode_len`` steps, dropout drawn once
+  per token and site (``CaptionModel.rollout(deterministic=False)``), with
+  ``cfg.scheduled_sampling_prob`` of the inputs taken from the captions;
+  the step launches no dropout pool;
 - frozen: the encoder runs without autograd, with stochastic depth on, and
   its parameters have ``requires_grad`` off;
 - fine-tune: ``fine_tune_mask`` sets ``requires_grad`` per parameter; the
@@ -27,8 +34,7 @@ The eval step runs ``rollout_loss`` without dropout or stochastic depth: the
 encoder, the greedy rollout of ``cfg.max_decode_len`` steps that
 ``ModelConfig.decode_kernel`` selects, and the cross-entropy and top-5 over
 ``rollout_token_mask``'s tokens, with the LSTM's term over the rollout's
-maps.  Not ported yet: free-running training (``rollout_loss`` with
-gradients and scheduled sampling, ROADMAP.md Queue 1 #8).
+maps.
 """
 
 from __future__ import annotations
@@ -108,11 +114,12 @@ def tf_loss(
     valid = batch["valid"].to(dev).bool()
     if train and seed is None:
         raise ValueError("a training loss needs a seed")
-    enc_gen = prng.generator(prng.fold_in(seed, _ENCODER), dev) if train else None
-    if grad_from is None:
-        enc_out = model.encode(batch["images"], train=train, generator=enc_gen)
+    if train:
+        enc_out = _train_encode(model, batch["images"], seed, grad_from)
+    elif grad_from is None:
+        enc_out = model.encode(batch["images"])
     else:
-        enc_out = model.encode_fine_tune(batch["images"], grad_from, generator=enc_gen)
+        enc_out = model.encode_fine_tune(batch["images"], grad_from)
     cfg = model.cfg
     if train and cfg.dropout > 0.0 and cfg.dropout_masks in ("auto", "pool"):
         logits, alphas = _pooled_tf_forward(model, enc_out, caps, prng.fold_in(seed, _DECODER))
@@ -131,6 +138,15 @@ def tf_loss(
     return loss, {"loss": loss.detach(), "tokens": tokens, "top5_correct": top5}
 
 
+def _train_encode(model, images, seed: int, grad_from: Optional[int]) -> torch.Tensor:
+    """The encoder of a training loss: stochastic depth drawn from the step
+    seed's encoder fold; autograd from ``grad_from`` on, or none."""
+    enc_gen = prng.generator(prng.fold_in(seed, _ENCODER), model.device)
+    if grad_from is None:
+        return model.encode(images, train=True, generator=enc_gen)
+    return model.encode_fine_tune(images, grad_from, generator=enc_gen)
+
+
 def rollout_loss(
     model,
     batch: Dict[str, torch.Tensor],
@@ -139,27 +155,50 @@ def rollout_loss(
     max_decode_len: int,
     *,
     one_cell: bool = False,
+    train: bool = False,
+    seed: Optional[int] = None,
+    grad_from: Optional[int] = None,
+    scheduled_sampling_prob: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Deterministic free-running loss of ``batch`` (``images``, ``captions``
+    """Free-running loss of ``batch`` (``images``, ``captions``
     (B, >= max_decode_len + 1), ``valid``): the greedy rollout from
     ``<start>``, scored against ``captions[:, 1:]`` over
     ``rollout_token_mask``'s tokens, plus for ``lstm`` ``alpha_c`` times the
     doubly stochastic term of the rollout's maps (steps after a row's
-    ``<end>`` hold zeros).  Returns (loss, {loss, tokens, top5_correct,
-    sequences, lengths})."""
+    ``<end>`` hold zeros).  Deterministic by default (eval, through the
+    rollout ``decode_kernel`` selects).  ``train`` runs the training form
+    (tpu_captioner/train/steps.py:155-198): stochastic depth and dropout
+    from the 64-bit step ``seed``, the plain rollout with autograd, the
+    encoder with autograd from ``grad_from`` (as ``tf_loss``), and with
+    ``scheduled_sampling_prob`` above 0 that share of the inputs taken from
+    the captions.  Returns (loss, {loss, tokens, top5_correct, sequences,
+    lengths}), the metrics detached."""
     dev = model.device
     caps = batch["captions"].to(dev).long()
     valid = batch["valid"].to(dev).bool()
     end = word_ids["<end>"]
-    enc_out = model.encode(batch["images"])
-    logits, seqs, alphas = model.rollout(enc_out, word_ids["<start>"], end, max_decode_len, one_cell=one_cell)
+    args = (word_ids["<start>"], end, max_decode_len)
+    if train:
+        if seed is None:
+            raise ValueError("a training loss needs a seed")
+        enc_out = _train_encode(model, batch["images"], seed, grad_from)
+        logits, seqs, alphas = model.rollout(
+            enc_out, *args, deterministic=False,
+            generator=prng.generator(prng.fold_in(seed, _DECODER), dev),
+            teacher_tokens=caps if scheduled_sampling_prob > 0 else None,
+            teacher_prob=scheduled_sampling_prob,
+        )
+    else:
+        enc_out = model.encode(batch["images"])
+        logits, seqs, alphas = model.rollout(enc_out, *args, one_cell=one_cell)
     mask, targets, lengths = rollout_token_mask(seqs, caps, end, word_ids["<pad>"], max_decode_len, valid)
     ce_sum, tokens = masked_cross_entropy(logits, targets, mask)
     loss = ce_sum / tokens.clamp_min(1.0)
     if model.cfg.decoder == "lstm" and alpha_c:
         loss = loss + alpha_c * doubly_stochastic(alphas, valid)
-    top5 = topk_correct(logits, targets, 5, mask)
-    return loss, {"loss": loss, "tokens": tokens, "top5_correct": top5, "sequences": seqs, "lengths": lengths}
+    top5 = topk_correct(logits.detach(), targets, 5, mask)
+    return loss, {"loss": loss.detach(), "tokens": tokens, "top5_correct": top5, "sequences": seqs,
+                  "lengths": lengths}
 
 
 def make_train_step(
@@ -173,29 +212,39 @@ def make_train_step(
     """Returns ``step(state, batch, seed) -> (state, metrics)``, which
     updates ``state`` (a ``TrainState`` of ``model``) in place.  ``seed`` is
     a 64-bit step seed (``core.prng.step_seed``); ``metrics`` holds ``loss``,
-    ``tokens`` and ``top5_correct``.  ``train_encoder`` trains the ConvNeXt
-    children from ``cfg.starting_layer`` on.  After a step the trained
-    parameters' ``.grad`` hold the clamped gradients that were applied.
-    ``word_ids`` serves the free-running branch, which is not ported yet."""
-    del word_ids
-    if not teacher_forcing:
-        raise NotImplementedError(
-            "free-running training (rollout_loss) is not ported yet: ROADMAP.md Queue 1 #8"
-        )
+    ``tokens`` and ``top5_correct``.  ``teacher_forcing`` picks ``tf_loss``,
+    else ``rollout_loss`` in its training form with ``word_ids``' ids and
+    ``cfg.scheduled_sampling_prob``.  ``train_encoder`` trains the ConvNeXt
+    children from ``cfg.starting_layer`` on; the step sets the encoder's
+    ``requires_grad`` to that choice when it is made and again when a call
+    finds it changed, so frozen and fine-tune steps may share a model.
+    After a step the trained parameters' ``.grad`` hold the clamped
+    gradients that were applied."""
     mask = fine_tune_mask(model.encoder, train_encoder, cfg.starting_layer)
-    for name, p in model.encoder.named_parameters():
-        p.requires_grad_(mask[name])
-    enc_params = [p for name, p in model.encoder.named_parameters() if mask[name]]
+    flags = [(p, mask[name]) for name, p in model.encoder.named_parameters()]
+    for p, on in flags:
+        p.requires_grad_(on)
+    enc_params = [p for p, on in flags if on]
     grad_from = cfg.starting_layer if train_encoder else None
     dec_params = list(model.decoder.parameters())
     freeze_embedding = model.cfg.embedding_path is not None and not model.cfg.fine_tune_embeddings
 
+    def loss_for(batch, seed):
+        if teacher_forcing:
+            return tf_loss(model, batch, cfg.alpha_c, True, seed, cfg.attvis_regularization, grad_from)
+        return rollout_loss(
+            model, batch, word_ids, cfg.alpha_c, cfg.max_decode_len, train=True, seed=seed,
+            grad_from=grad_from, scheduled_sampling_prob=cfg.scheduled_sampling_prob,
+        )
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int):
+        for p, on in flags:
+            if p.requires_grad != on:
+                p.requires_grad_(on)
         state.dec_opt.zero_grad(set_to_none=True)
         state.enc_opt.zero_grad(set_to_none=True)
-        loss, metrics = tf_loss(
-            model, batch, cfg.alpha_c, True, seed, cfg.attvis_regularization, grad_from
-        )
+        loss, metrics = loss_for(batch, seed)
+        metrics = {k: metrics[k] for k in ("loss", "tokens", "top5_correct")}
         loss.backward()
         if freeze_embedding:
             # nn.Embedding.from_pretrained(freeze=True) (transformerDecoder.py:74).
