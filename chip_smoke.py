@@ -134,10 +134,32 @@ Phases, in order; any failure raises and the exit code is not 0:
    and its BLEU-1 must equal the one counted from the records
    (``one_word_bleu1``); (e) compares the rollouts under phase 7's near-tie
    rule.
+11. ``compute_dtype='bfloat16'`` serving (``check_bf16_kernels``,
+   ``bf16_phase``): (a) the three bf16 instances against their plain
+   versions at the flagship's shapes, each bf16 output within one bf16 ulp
+   of the plain value and the decode arm's f32 x_out and alpha within
+   2e-3 x max(1, max |plain|): the depthwise conv's forward (with the
+   block's bias and without) and the MLP tail at the four stages at batch 8
+   and 32, timed by CUDA-graph replay beside ``F.conv2d(groups=C)`` in
+   bf16; the per-layer decode step's bf16 arm at 40, 160 and 32 rows,
+   cache length 52, four positions, CUDA-event times; (b) a bf16 flagship
+   saved with ``save_checkpoint`` and loaded through ``cli.caption``'s
+   loader, beam 5 x 50 at batch 8 and 32 through ``caption_batch``: the
+   bf16 instances' launches (36 + 36 per encoder pass, L per token), the
+   captions against the all-plain bf16 path's (``plain_versions``: every
+   kernel wrapper replaced by its plain version on the card) at that
+   path's noise floor (``bf16_agree``: the plain decode against itself with
+   f64 sums), the share equal to the f32 model's reported; encoder ms, beam
+   ms and captions/s beside the f32 model's, the weights' casts alone; (c)
+   the eval step at batch 32, 51 tokens, 'step' against the all-plain path
+   with phase 7's rules at the noise floor's tolerances, and against 'off'
+   (the f32 plain decode) reported.  The decode arm's six-layer step is held
+   to the same noise floor, each of its layer launches to 2e-3 and one ulp.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths and on phase 10's
-training path, max error, times and bounds); the last line is ``{"ok": true, "device": {...}}``.  Needs the
+training path, max error, times and bounds; the bf16 instances as entries
+of their own, ``*_bf16``); the last line is ``{"ok": true, "device": {...}}``.  Needs the
 repository beside it and one card; imports no JAX.
 """
 
@@ -1211,12 +1233,12 @@ def flagship_model(cfg, dev, seed):
     return model
 
 
-def compare_rollouts(label, got, want):
+def compare_rollouts(label, got, want, logit_tol=LOGIT_TOL, alpha_tol=ALPHA_TOL, tie_gap=TIE_GAP):
     """Greedy rollouts (logits, seqs, alphas) against the plain one: per row
     equal tokens up to the first step where they differ, which must be a
-    near-tie (the plain logits of the two tokens within TIE_GAP); logits and
-    maps within LOGIT_TOL and ALPHA_TOL up to that step.  Returns (max logit
-    error, max map error, rows that differ)."""
+    near-tie (the plain logits of the two tokens within ``tie_gap``); logits and
+    maps within ``logit_tol`` and ``alpha_tol`` up to that step.  Returns
+    (max logit error, max map error, rows that differ)."""
     import torch
 
     (gl, gs, ga), (wl, ws, wa) = got, want
@@ -1231,9 +1253,9 @@ def compare_rollouts(label, got, want):
         s = int(first[r])
         gap = abs(wl[r, s, int(gs[r, s])] - wl[r, s, int(ws[r, s])]).item()
         print(f"{label}: row {r} differs from the plain rollout from step {s}; logit gap {gap:.3e}")
-        if not gap < TIE_GAP:
+        if not gap < tie_gap:
             raise AssertionError(f"{label}: row {r} differs from the plain rollout beyond a near-tie")
-    if not (logit_err < LOGIT_TOL and alpha_err < ALPHA_TOL):
+    if not (logit_err < logit_tol and alpha_err < alpha_tol):
         raise AssertionError(f"{label}: logits {logit_err} or maps {alpha_err} disagree with the plain rollout")
     return logit_err, alpha_err, ties
 
@@ -2292,6 +2314,8 @@ def kernel_counts():
         "dwconv": depthwise_conv7x7_nhwc.launches, "dwconv_grad": depthwise_conv7x7_nhwc.grad_launches,
         "lstm_step": fused_lstm_step.launches, "block_fused": fused_convnext_block.launches,
         "mlp_block_pipelined": fused_convnext_mlp.pipelined_launches,
+        "mlp_block_bf16": fused_convnext_mlp.bf16_launches, "dwconv_bf16": depthwise_conv7x7_nhwc.bf16_launches,
+        "decode_step_bf16": fused_decode_step.bf16_launches,
     }
 
 
@@ -2299,9 +2323,13 @@ def zero_kernel_counts():
     from tpu_captioner_torch.ops.decode_step import fused_decode_step, fused_full_rollout
     from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
 
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+
     zero_block_counts()
     fused_decode_step.launches = fused_decode_step.onecell_launches = fused_full_rollout.launches = 0
     fused_lstm_step.launches = 0
+    fused_convnext_mlp.bf16_launches = depthwise_conv7x7_nhwc.bf16_launches = fused_decode_step.bf16_launches = 0
 
 
 def count_delta(before, after, names=("dropout_mask", "mlp_block", "mlp_block_bwd", "dwconv", "dwconv_grad")):
@@ -2678,6 +2706,557 @@ def training_phase(dev, card, seed):
     return totals
 
 
+# Phase 11: compute_dtype='bfloat16' serving.  A bf16 output against its
+# plain version: one bf16 ulp of the plain value (2^(floor(log2 |plain|) -
+# 7)), at least 2^-8 (the ulp of values in [0.5, 1)): sums of f32 terms in
+# another order may round to the neighbouring bf16 value, and no further.
+# The decode arm's f32 outputs of one launch (x_out, alpha):
+# BF16_F32_TOL x max(1, the plain output's largest magnitude), the class of
+# one bf16 rounding of an operand (2^-8) that another summation order can
+# flip inside a product.  Over several layers and tokens such flips feed the
+# next products' roundings, and two correct implementations part further:
+# the plain version with its sums in f64 (``_decode_step_plain_bf16(...,
+# sums=float64)``) parts from itself in f32 by 1.4e-3 to 3.0e-3 over six
+# layers (NVIDIA H100 80GB HBM3, 700 W).  So the six-layer step, the
+# beam's scores of its candidates (``beam_lockstep``; its decisions to a
+# near-tie of twice that) and the eval step's rollouts are held to
+# BF16_NOISE times that noise floor, measured in the same run on the same
+# inputs (at least BF16_F32_TOL, and a differing greedy token to a
+# near-tie of that size).
+BF16_F32_TOL = 2e-3
+BF16_NOISE = 2.0
+BF16_OPS_PER_S = 989e12  # bf16 products on the tensor cores, dense
+# An f32 row times a bf16 weight, f32-accurate (the MLP tail's bf16
+# instance), at the card's best: the row split into three bf16 pieces (hi,
+# mid, lo: 24 bits), each product with the bf16 weight exact, summed in f32,
+# i.e. three bf16 products per product (the kernel runs two TF32 ones, the
+# row's hi and lo planes against the weight's only plane: 247.5 TFLOP/s).
+BF16_BY_F32_OPS_PER_S = BF16_OPS_PER_S / 3
+BF16_SHAPES = tuple((b, 64 >> s, 64 >> s, c) for b in (8, 32) for s, c in enumerate((128, 256, 512, 1024)))
+
+
+def bf16_ulp_err(got, want):
+    """(max abs error, max error in units of the plain value's bf16 ulp,
+    floored at 2^-8) of a bf16 output against its plain version."""
+    import torch
+
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -8))) - 7).clamp_min(2.0 ** -8)
+    diff = (got.float() - want).abs()
+    return diff.max().item(), (diff / ulp).max().item()
+
+
+@contextlib.contextmanager
+def plain_versions(decode_sums=None):
+    """The serving path's kernel wrappers replaced by their plain versions
+    on the card (as phase 5 swaps the pool for ``_mask_plain``): the MLP
+    tail's forward, the depthwise conv's forward and the per-token decode
+    step, each by dtype (the bf16 arm's own plain version in bf16, its sums
+    in ``decode_sums`` when given: float64 for the noise floor).  The
+    kernels' path is held against what runs inside."""
+    import torch
+
+    from tpu_captioner_torch.infer import beam
+    from tpu_captioner_torch.ops import decode_step, dwconv, mlp_block
+
+    saved = mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step
+
+    def mlp(*args):
+        return (mlp_block._mlp_plain_bf16 if args[0].dtype == torch.bfloat16 else mlp_block._mlp_plain)(*args)
+
+    def dw(x, w, flip=False, bias=None):
+        return dwconv._dw_plain(x, w.flip(0, 1) if flip else w, bias)
+
+    def dec(w, x, pos, ck, cv, mk, mv, heads, *, one_cell=False, precise=None):
+        bf16 = w.w_qkv.dtype == torch.bfloat16
+        if bf16:
+            return decode_step._decode_step_plain_bf16(w, x, int(pos), ck, cv, mk, mv, heads,
+                                                       decode_sums or torch.float32)
+        return decode_step._decode_step_plain(w, x, int(pos), ck, cv, mk, mv, heads)
+
+    mlp_block._mlp_forward, dwconv.dwconv_forward = mlp, dw
+    decode_step.fused_decode_step = beam.fused_decode_step = dec
+    try:
+        yield
+    finally:
+        mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step = saved
+        beam.fused_decode_step = saved[2]
+
+
+def check_bf16_kernels(dev, card, layers):
+    """Phase 11a: the three bf16 instances against their plain versions on
+    the card, at the flagship's shapes: the depthwise conv's forward (with
+    the block's bias, and without) and the MLP tail at the four
+    ConvNeXt-Base stages at batch 8 and 32, each output within one bf16 ulp,
+    timed by CUDA-graph replay (the conv beside ``F.conv2d(groups=C)`` in
+    bf16 with the bias); the per-layer decode step's bf16 arm on
+    ``layers``' weights at the bs-8 and bs-32 beams' 40 and 160 rows and the
+    eval step's 32, cache length 52, four positions, with NaN in every
+    cache slot at or past pos: x_out and alpha within BF16_F32_TOL, k_new
+    and v_new within one ulp; CUDA-event times (as phase 3's decode).
+    Returns {kernel: (worst error, ms, plain ms, library ms, bound ms,
+    bound by)}: per bs-32 encoder pass (36 launches) for the conv and the
+    tail, per 6-layer step at R = 40 for the decode arm."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS
+    from tpu_captioner_torch.ops.decode_step import (
+        _decode_step_plain_bf16, cast_weight_matrices, fused_decode_step, prepare_decode_weights,
+    )
+    from tpu_captioner_torch.ops.dwconv import _dw_plain, dwconv_forward
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain_bf16, fused_convnext_mlp
+
+    bf = torch.bfloat16
+    sums = {"dwconv_bf16": [0.0, 0.0, 0.0, 0.0, 0, 0], "mlp_block_bf16": [0.0, 0.0, 0.0, None, 0, 0]}
+    for b, h, w, c in BF16_SHAPES:
+        depth = BASE_DEPTHS[(128, 256, 512, 1024).index(c)]
+        g = torch.Generator().manual_seed(300 + c + b)
+        f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+        x, res = f(b, h, w, c).to(dev, bf), f(b * h * w, c).to(dev, bf)
+        taps, bias = (0.1 * f(7, 7, c)).to(dev, bf), (0.1 * f(c)).to(dev, bf)
+        err, ulps = bf16_ulp_err(dwconv_forward(x, taps, bias=bias), _dw_plain(x, taps, bias))
+        err_nb, ulps_nb = bf16_ulp_err(dwconv_forward(x, taps), _dw_plain(x, taps))
+        if not max(ulps, ulps_nb) <= 1.0:
+            raise AssertionError(f"dwconv bf16 kernel disagrees at {(b, h, w, c)}: {ulps} ulps with the bias, "
+                                 f"{ulps_nb} without")
+        wc = taps.permute(2, 0, 1).unsqueeze(1).contiguous()
+        t_dw = (_graph_ms(lambda: dwconv_forward(x, taps, bias=bias)), _graph_ms(lambda: _dw_plain(x, taps, bias)),
+                _graph_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, bias, padding=3, groups=c)))
+        rows = x.view(-1, c)
+        vec = tuple(v.to(dev) for v in (1 + 0.1 * f(c), 0.1 * f(c)))
+        args = (rows, res, torch.ones(b * h * w, device=dev), *vec, (0.02 * f(4 * c, c)).to(dev, bf),
+                (0.1 * f(4 * c)).to(dev), (0.02 * f(c, 4 * c)).to(dev, bf), (0.1 * f(c)).to(dev),
+                (0.5 * f(c)).to(dev))
+        m_err, m_ulps = bf16_ulp_err(fused_convnext_mlp(*args), _mlp_plain_bf16(*args))
+        if not m_ulps <= 1.0:
+            raise AssertionError(f"mlp_block bf16 kernel disagrees at N={b * h * w}, C={c}: {m_ulps} ulps")
+        t_mlp = (_graph_ms(lambda: fused_convnext_mlp(*args)), _graph_ms(lambda: _mlp_plain_bf16(*args)))
+        print(f"bf16 dwconv {(b, h, w, c)}: max_abs_err {err:.3e} with the bias ({ulps:.2f} ulp), {err_nb:.3e} "
+              f"without ({ulps_nb:.2f} ulp); kernel {t_dw[0]:.4f} ms, plain {t_dw[1]:.4f}, F.conv2d bf16 "
+              f"{t_dw[2]:.4f} per launch | bf16 mlp_block N={b * h * w}: max_abs_err {m_err:.3e} "
+              f"({m_ulps:.2f} ulp); kernel {t_mlp[0]:.4f} ms, plain {t_mlp[1]:.4f} per launch [{card}]")
+        if b != TRAIN_BS:
+            continue
+        n = b * h * w * c
+        for name, e, times, n_bytes, n_ops in (
+            # x in, y out, the filter and the bias: 2 bytes each; 49 FMAs an output.
+            ("dwconv_bf16", max(err, err_nb), t_dw, 2 * (2 * n + 50 * c), 2 * 49 * n),
+            # x, residual and out in bf16, the matrices in bf16, the vectors
+            # f32 (LayerNorm, biases, gamma) and sd; two N x C x 4C products.
+            ("mlp_block_bf16", m_err, t_mlp, 2 * (3 * n + 8 * c * c) + 4 * (8 * c + b * h * w),
+             16 * b * h * w * c * c),
+        ):
+            acc = sums[name]
+            acc[0] = max(acc[0], e)
+            for i, t in enumerate(times):
+                acc[1 + i] += depth * t
+            acc[4] += depth * n_bytes
+            acc[5] += depth * n_ops
+    out = {}
+    for name, (err, ms, plain_ms, lib_ms, n_bytes, n_ops) in sums.items():
+        rate = BF16_BY_F32_OPS_PER_S if name == "mlp_block_bf16" else F32_OPS_PER_S
+        bound_ms, bound_by = bound(n_bytes, n_ops, rate)
+        out[name] = (err, ms, plain_ms, lib_ms, bound_ms, bound_by)
+        lib = "" if lib_ms is None else f", F.conv2d bf16 {lib_ms:.4f} ms"
+        print(f"{name} per bs-{TRAIN_BS} encoder pass (36 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{lib}, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+
+    # The decode arm: each layer's launch alone (one layer's weights, caches
+    # and memory), then the six-layer step against the plain version and
+    # against the noise floor (the plain version with its sums in f64).
+    L, E, P, H = len(layers), layers[0].linear1.in_features, 49, 8
+    Fd = layers[0].linear1.out_features
+    w = cast_weight_matrices(prepare_decode_weights(layers, E), bf)
+    g = torch.Generator().manual_seed(11)
+    f = lambda *sh: torch.randn(*sh, generator=g).to(dev, bf)  # noqa: E731
+
+    def rel(a, b_):
+        return (a.double() - b_.double()).abs().max().item() / max(1.0, b_.abs().max().item())
+
+    for rows in (DECODE_ROWS, BEAM * TRAIN_BS, TRAIN_BS):
+        worst, times, plain_times, n_bytes, n_ops = 0.0, [], [], 0, 0
+        for pos in (0, 1, 25, DECODE_T - 1):
+            ck, cv = f(L, rows, DECODE_T, E), f(L, rows, DECODE_T, E)
+            ck[:, :, pos:] = float("nan")
+            cv[:, :, pos:] = float("nan")
+            mk, mv, x = f(L, rows, P, E), f(L, rows, P, E), f(rows, E)
+            args = (w, x, pos, ck, cv, mk, mv, H)
+            launch = [0.0, 0.0, 0.0]  # worst x, alpha (relative), k/v ulps over the layers' launches
+            for l in range(L):
+                one = tuple(t[l : l + 1].contiguous() for t in (ck, cv, mk, mv))
+                a1 = (type(w)(*(t[l : l + 1].contiguous() for t in w)), x, pos, *one, H)
+                got, want = fused_decode_step(*a1), _decode_step_plain_bf16(*a1)
+                if not (all(torch.isfinite(t.float()).all() for t in got)
+                        and [t.dtype for t in got] == [torch.float32, torch.float32, bf, bf]):
+                    raise AssertionError(f"decode bf16 arm: non-finite or mistyped outputs at R={rows}, pos {pos}")
+                errs = (rel(got[0], want[0]), rel(got[1], want[1]),
+                        max(bf16_ulp_err(got[2], want[2])[1], bf16_ulp_err(got[3], want[3])[1]))
+                launch = [max(u, v) for u, v in zip(launch, errs)]
+                worst = max(worst, *((got[i] - want[i]).float().abs().max().item() for i in range(4)))
+            if not (launch[0] < BF16_F32_TOL and launch[1] < BF16_F32_TOL and launch[2] <= 1.0):
+                raise AssertionError(f"decode bf16 arm, one layer's launch at R={rows}, pos {pos}: x {launch[0]}, "
+                                     f"alpha {launch[1]} (tol {BF16_F32_TOL}), k/v {launch[2]} ulps")
+            got, want = fused_decode_step(*args), _decode_step_plain_bf16(*args)
+            ref = _decode_step_plain_bf16(*args, sums=torch.float64)
+            step = (rel(got[0], want[0]), rel(got[1], want[1]))
+            floor = (rel(want[0], ref[0]), rel(want[1], ref[1]))
+            if not all(e <= max(BF16_F32_TOL, BF16_NOISE * n) for e, n in zip(step, floor)):
+                raise AssertionError(f"decode bf16 arm, {L}-layer step at R={rows}, pos {pos}: x {step[0]}, alpha "
+                                     f"{step[1]} against the noise floor {floor}")
+            times.append(_time_ms(lambda: fused_decode_step(*args)))
+            plain_times.append(_time_ms(lambda: _decode_step_plain_bf16(*args), iters=5, warmup=1))
+            print(f"bf16 decode_step R={rows} pos={pos}: one layer's launch: x {launch[0]:.3e}, alpha {launch[1]:.3e} "
+                  f"(relative, tol {BF16_F32_TOL:g}), k/v {launch[2]:.2f} ulp (tol 1); {L}-layer step: x "
+                  f"{step[0]:.3e}, alpha {step[1]:.3e}, k/v {bf16_ulp_err(got[2], want[2])[1]:.2f} ulp; noise floor "
+                  f"(plain, f32 vs f64 sums) x {floor[0]:.3e}, alpha {floor[1]:.3e}; kernel {times[-1]:.4f} ms, "
+                  f"plain {plain_times[-1]:.4f} ms per {L}-layer step [{card}]")
+            # Per layer: the bf16 matrices, the f32 vectors, pos cached k/v
+            # rows and P memory rows in bf16, k/v new out in bf16; x in (bf16)
+            # and out (f32), alpha; the products at the bf16 rate.
+            n_bytes += (L * (2 * (6 * E * E + 2 * E * Fd) + 4 * (9 * E + Fd) + 2 * rows * (2 * pos + 2 * P + 2) * E)
+                        + rows * (6 * E + 4 * P))
+            n_ops += L * rows * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
+        bound_ms, bound_by = bound(n_bytes / 4, n_ops / 4, BF16_OPS_PER_S)
+        ms, plain_ms = sum(times) / len(times), sum(plain_times) / len(plain_times)
+        print(f"bf16 decode_step at R={rows}, mean over the four positions: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) per step [{card}]")
+        if rows == DECODE_ROWS:
+            out["decode_step_bf16"] = (worst, ms, plain_ms, None, bound_ms, bound_by)
+        else:
+            out["decode_step_bf16"] = (max(worst, out["decode_step_bf16"][0]), *out["decode_step_bf16"][1:])
+    return out
+
+
+def tf_scores(model, enc, seqs):
+    """Each token sequence's cumulative log-prob under the beam's step of
+    ``model`` (``_transformer_beam_fused``, beam 1), teacher-forced: ``enc``
+    holds one encoder row per sequence.  Float64 sums of the steps."""
+    import torch
+
+    from tpu_captioner_torch.infer.beam import _transformer_beam_fused
+
+    n, T = len(seqs), max(len(s) for s in seqs)
+    toks = torch.zeros(n, T, dtype=torch.long, device=enc.device)
+    for i, q in enumerate(seqs):
+        toks[i, : len(q)] = torch.as_tensor(q, device=enc.device)
+    lens = torch.as_tensor([len(q) for q in seqs], device=enc.device)
+    with torch.inference_mode():
+        step_fn, _, state = _transformer_beam_fused(model, enc, 1, T)
+        total = torch.zeros(n, dtype=torch.float64, device=enc.device)
+        for pos in range(T - 1):
+            state, logits, _ = step_fn(state, toks[:, pos : pos + 1], pos)
+            logp = torch.log_softmax(logits[:, 0].float(), -1).gather(1, toks[:, pos + 1 : pos + 2])[:, 0]
+            total += torch.where(pos + 1 < lens, logp, 0.0).double()
+    return total
+
+
+def beam_lockstep(model, enc, start_id, end_id):
+    """The kernels' beam over ``enc`` (beam BEAM x MAX_STEPS by the rules of
+    ``infer/beam.py:_beam_loop``, at its B x BEAM rows) run in lock step
+    with the all-plain step (``plain_versions()``) and the all-plain step
+    with f64 sums, both fed the kernels' beam's tokens and reshuffles, so
+    that the three score the same candidates.  Returns (the kernels'
+    sequences (B, MAX_STEPS + 2), their lengths, drift, noise, gap): drift
+    is the largest difference between the kernels' and the plain step's
+    cumulative scores of a candidate the beam kept; noise the same between
+    the plain step and its f64 self, on the kept candidates and the best
+    dropped one; gap the most by which the plain step ranks a candidate the
+    beam dropped above one it kept at a step, or a completed caption above
+    the one it picked."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_captioner_torch.infer.beam import _transformer_beam_fused
+
+    B, k, V = enc.shape[0], BEAM, model.cfg.vocab_size
+    dev, inf = enc.device, float("inf")
+    arms = (contextlib.nullcontext, plain_versions, lambda: plain_versions(torch.float64))
+    adapters = [_transformer_beam_fused(model, enc, k, MAX_STEPS) for _ in arms]
+    states = [a[2] for a in adapters]
+    slots, ar = torch.arange(k, device=dev), torch.arange(B, device=dev)
+    words = torch.full((B, k), start_id, dtype=torch.long, device=dev)
+    cum = torch.zeros(len(arms), B, k, device=dev)
+    alive = (slots == 0).expand(B, k).clone()
+    live = torch.full((B,), k, dtype=torch.long, device=dev)
+    seqs = torch.zeros(B, k, MAX_STEPS + 2, dtype=torch.long, device=dev)
+    seqs[:, :, 0] = start_id
+    best = torch.full((B,), -inf, device=dev)  # the kernels' best completed score
+    best_seq, best_len = torch.zeros_like(seqs[:, 0]), torch.zeros_like(live)
+    pick_p = torch.full((B,), -inf, device=dev)  # the plain score of the kernels' pick
+    done_p = torch.full((B,), -inf, device=dev)  # the best plain score of a completed caption
+    drift = noise = gap = 0.0
+    t = 1
+    while t <= MAX_STEPS + 1 and bool((live > 0).any()):
+        frozen = live == 0
+        cand = []
+        for i, (arm, (step_fn, _, _)) in enumerate(zip(arms, adapters)):
+            with arm():
+                states[i], logits, _ = step_fn(states[i], words, t - 1)
+            logp = F.log_softmax(logits.float(), dim=-1)
+            cand.append(torch.where(alive[:, :, None], cum[i][:, :, None] + logp, -inf).view(B, k * V))
+        top, idx = cand[0].topk(k, dim=1)
+        kept = (slots[None, :] < live[:, None]) & ~frozen[:, None]
+        act = kept.any(1)
+        sel = [c.gather(1, idx) for c in cand]
+        dropped = cand[1].scatter(1, idx, torch.where(kept, -inf, sel[1]))
+        j = dropped.argmax(1, keepdim=True)
+        best_dropped = dropped.gather(1, j)[:, 0]
+        gap = max(gap, torch.where(act, best_dropped - torch.where(kept, sel[1], inf).amin(1), -inf).max().item())
+        drift = max(drift, torch.where(kept, (sel[0] - sel[1]).abs(), 0.0).max().item())
+        noise = max(noise, torch.where(kept, (sel[1] - sel[2]).abs(), 0.0).max().item(),
+                    torch.where(act & torch.isfinite(best_dropped),
+                                (cand[1] - cand[2]).gather(1, j)[:, 0].abs(), 0.0).max().item())
+
+        nw, prev = idx % V, idx // V
+        is_end = nw == end_id
+        new_seqs = seqs.gather(1, prev[:, :, None].expand_as(seqs))
+        new_seqs[:, :, t] = nw
+        new_seqs = torch.where(frozen[:, None, None], seqs, new_seqs)
+        comp = torch.where(kept & is_end, top, -inf)
+        b = comp.argmax(1)
+        improved = comp[ar, b] > best
+        best = torch.where(improved, comp[ar, b], best)
+        pick_p = torch.where(improved, sel[1][ar, b], pick_p)
+        best_seq = torch.where(improved[:, None], new_seqs[ar, b], best_seq)
+        best_len = torch.where(improved, torch.full_like(best_len, t + 1), best_len)
+        done_p = torch.maximum(done_p, torch.where(kept & is_end, sel[1], -inf).amax(1))
+
+        alive = kept & ~is_end
+        rows = (ar[:, None] * k + prev).reshape(-1)
+        words = torch.where(frozen[:, None], words, nw)
+        for i, (_, gather_fn, _) in enumerate(adapters):
+            cum[i] = torch.where(frozen[:, None], cum[i], torch.where(alive, sel[i], -inf))
+            states[i] = gather_fn(states[i], rows)
+        live = alive.sum(1)
+        seqs = new_seqs
+        t += 1
+    none = torch.isneginf(best)  # no caption completed: the best live beam
+    fb = cum[0].argmax(1)
+    seq = torch.where(none[:, None], seqs[ar, fb], best_seq)
+    length = torch.where(none, torch.full_like(best_len, t), best_len)
+    final = torch.where(none, cum[1].amax(1), done_p) - torch.where(none, cum[1][ar, fb], pick_p)
+    if not torch.isfinite(final).all():
+        raise AssertionError("beam_lockstep: a picked caption without a finite plain score")
+    return seq, length, drift, noise, max(gap, final.max().item())
+
+
+def parted_at(a, b):
+    """[(image, first differing token)] of two ``caption_batch`` results."""
+    return [(j, next((i for i in range(min(len(x), len(y))) if x[i] != y[i]), min(len(x), len(y))))
+            for j, ((_, _, x, _), (_, _, y, _)) in enumerate(zip(a, b))
+            if not (len(x) == len(y) and (x == y).all())]
+
+
+def prefix_gaps(model, enc, a, b, parts):
+    """For each (image, token) of ``parts``: the gap between the all-plain
+    step's scores of the two captions' prefixes up to that token."""
+    import torch
+
+    if not parts:
+        return []
+    seqs = [r[j][2][: s + 1] for r in (a, b) for j, s in parts]
+    with plain_versions():
+        sc = tf_scores(model, enc[[j for j, _ in parts] * 2], seqs)
+    return [abs(sc[i] - sc[len(parts) + i]).item() for i in range(len(parts))]
+
+
+def bf16_agree(model, dev, bs, imgs, word_map, got, want):
+    """Phase 11b's agreement of the kernels' path with the all-plain path on
+    a bf16 model.  The encoder features within 2^-6 x max(1, max |plain|)
+    (four bf16 ulps of the largest value).  The captions: the kernels' beam
+    replayed by ``beam_lockstep`` must end on ``got``'s captions; the plain
+    step's scores of the candidates it kept within BF16_NOISE times the
+    noise floor (the plain step against its f64 self on the same
+    candidates; at least BF16_F32_TOL); and each of its decisions (the
+    candidates kept at a step, the caption picked among the completed ones)
+    the plain step's, except at a near-tie under twice that tolerance: phase
+    4's near-tie rule in the beam's form, with the bf16 noise floor as the
+    gap (two correct bf16 decodes part by tenths of a nat over 51 tokens).
+    Reported beside it: which captions equal the all-plain path's
+    (``want``), and the all-plain path with f64 sums against ``want`` as
+    the witness of how often and how far two correct bf16 beams part, each
+    with the plain prefix-score gap where a pair parts."""
+    import torch
+
+    from tpu_captioner_torch.cli.caption import caption_batch
+
+    with torch.inference_mode():
+        images = torch.from_numpy(imgs).to(dev)
+        enc = model.encode(images)
+        with plain_versions():
+            enc_plain = model.encode(images)
+    enc_err = (enc.float() - enc_plain.float()).abs().max().item() / max(1.0, enc_plain.float().abs().max().item())
+    if not enc_err <= 2.0 ** -6:
+        raise AssertionError(f"bf16 serving bs={bs}: encoder features off by {enc_err} of the largest")
+    with torch.inference_mode():
+        seq, length, drift, noise, gap = beam_lockstep(model, enc, word_map["<start>"], word_map["<end>"])
+    seq, length = seq.cpu().numpy(), length.cpu().numpy()
+    if not all(int(length[j]) == len(c[2]) and (seq[j, : len(c[2])] == c[2]).all() for j, c in enumerate(got)):
+        raise AssertionError(f"bf16 serving bs={bs}: the lock-step replay did not end on the kernels' captions")
+    with plain_versions(torch.float64):
+        ref = caption_batch(model, imgs, word_map, BEAM)
+    tol = max(BF16_F32_TOL, BF16_NOISE * noise)
+    lines = []
+    for label, a in (("kernels", got), ("all-plain with f64 sums", ref)):
+        parts = parted_at(a, want)
+        gaps = prefix_gaps(model, enc, a, want, parts)
+        lines.append(f"{label} vs all-plain: {bs - len(parts)} of {bs} captions equal ("
+                     + (", ".join(f"image {j} parts at token {s_}, prefix gap {g:.3e}"
+                                  for (j, s_), g in zip(parts, gaps)) or "all") + ")")
+    print(f"bf16 serving bs={bs}: encoder features {enc_err:.3e} of the largest (tol {2.0 ** -6:g}); the kernels' "
+          f"beam in lock step at {bs * BEAM} rows: scores of the kept candidates, kernels vs all-plain {drift:.3e} "
+          f"(tol {tol:.3e}; noise floor {noise:.3e}), the plain step's largest disagreement with a decision "
+          f"{gap:.3e} (tol {2 * tol:.3e}); " + "; ".join(lines))
+    if not (drift <= tol and gap < 2 * tol):
+        raise AssertionError(f"bf16 serving bs={bs}: the kernels' beam scores its candidates {drift} off the "
+                             f"all-plain step (tol {tol}) or decides {gap} against it (tol {2 * tol})")
+
+
+def bf16_phase(dev, card, seed, word_map, images8, rng):
+    """Phase 11b-d: a bf16 flagship (phase 4's weights) saved with
+    ``save_checkpoint`` and loaded through ``cli.caption``'s loader (its
+    ``meta.json`` says bfloat16); beam 5 x 50 at batch 8 and 32 through
+    ``caption_batch``, counting the bf16 instances' launches (36 mlp_block
+    and 36 dwconv per encoder pass, L decode_step per token), captions
+    that agree with the all-plain bf16 path's (``plain_versions``) at its
+    noise floor (``bf16_agree``), the share equal to the f32 model's
+    reported; encoder ms, beam ms and captions/s beside the f32 model's, and
+    the weights' casts per encoder pass; then the eval step at batch 32, 51
+    tokens, in 'step' against the all-plain path with phase 7's rules at the
+    noise floor's tolerances, and against the f32 plain decode ('off')
+    reported.  Returns the bf16 instances' launches on the bs-8 serving
+    run."""
+    import torch
+
+    from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.ops.decode_step import fused_decode_step
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.train.checkpoint import save_checkpoint
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(vocab_size=VOCAB, compute_dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        model = flagship_model(cfg, dev, seed)
+        meta = {"epoch": 0, "epochs_since_improvement": 0, "bleu4": 0.0, "results": [],
+                "config": dataclasses.asdict(ExperimentConfig(model=cfg, train=TrainConfig()))}
+        path = save_checkpoint(tmp, "checkpoint_bf16_smoke", TrainState.create(model, TrainConfig()), meta)
+        served = build_model_and_params(argparse.Namespace(checkpoint=path, device=str(dev), seed=seed + 7), word_map)
+    want_sd = model.state_dict()
+    if not (served.cfg.compute_dtype == "bfloat16" and served.dtype == torch.bfloat16
+            and all(torch.equal(v, want_sd[k]) for k, v in served.state_dict().items())):
+        raise AssertionError("the bf16 checkpoint did not load as the bf16 model it was saved from")
+    del model
+    f32 = flagship_model(ModelConfig(vocab_size=VOCAB), dev, seed)
+    images = {8: images8.numpy(), TRAIN_BS: torch.randint(0, 256, (TRAIN_BS, 256, 256, 3), generator=rng,
+                                                          dtype=torch.uint8).numpy()}
+    launches = None
+    for bs, imgs in images.items():
+        steps = [0]
+        embed = served.decoder.embed
+
+        def counted_embed(*a):  # one lookup per generated token
+            steps[0] += 1
+            return embed(*a)
+
+        served.decoder.embed = counted_embed
+        fused_convnext_mlp.bf16_launches = depthwise_conv7x7_nhwc.bf16_launches = fused_decode_step.bf16_launches = 0
+        got = caption_batch(served, imgs, word_map, BEAM)
+        torch.cuda.synchronize()
+        seen = (fused_convnext_mlp.bf16_launches, depthwise_conv7x7_nhwc.bf16_launches,
+                fused_decode_step.bf16_launches)
+        del served.decoder.embed
+        print(f"bf16 serving bs={bs}: bf16 launches (mlp_block, dwconv, decode_step) {seen} over {steps[0]} tokens")
+        if seen != (36, 36, served.cfg.num_layers * steps[0]) or steps[0] < 1:
+            raise AssertionError(f"bf16 serving bs={bs}: expected (36, 36, L x tokens) bf16 launches, got {seen}")
+        if launches is None:
+            launches = {"mlp_block_bf16": seen[0], "dwconv_bf16": seen[1], "decode_step_bf16": seen[2]}
+        for cap, score, seq, alpha in got:
+            if not (seq[0] == word_map["<start>"] and alpha.shape == (len(seq), cfg.num_pixels)
+                    and np_isfinite(alpha) and math.isfinite(score)):
+                raise AssertionError("malformed bf16 caption output")
+        with plain_versions():
+            want = caption_batch(served, imgs, word_map, BEAM)
+        bf16_agree(served, dev, bs, imgs, word_map, got, want)
+        ref = caption_batch(f32, imgs, word_map, BEAM)
+        same = sum(len(a[2]) == len(r[2]) and bool((a[2] == r[2]).all()) for a, r in zip(got, ref))
+        print(f"bf16 serving bs={bs}: {same} of {bs} captions equal to the f32 model's ({same / bs:.4f}); "
+              f"caption 0: {got[0][0][:60]!r} (f32: {ref[0][0][:60]!r})")
+    serve_times(card, "serve bf16 phase", {"bf16": served, "f32": f32}, rng, dev, word_map)
+    # The weights' casts to bf16 at use, alone: every conv's weight and bias
+    # (stem, downsamples, the blocks' depthwise convs) and the blocks' two
+    # matrices.
+    params = [t for m in served.encoder.modules() for t in (
+        (m.weight, m.bias) if isinstance(m, torch.nn.Conv2d) else (m.weight,) if isinstance(m, torch.nn.Linear)
+        else ())]
+    cast_ms = _time_ms(lambda: [p.to(torch.bfloat16) for p in params])
+    print(f"bf16 encoder: the weights' casts alone {cast_ms:.4f} ms per encoder pass ({len(params)} casts of "
+          f"{sum(p.numel() for p in params)} values) [{card}]")
+
+    # 11c: the eval step, 'step' against the all-plain path (and that path
+    # with the decode's sums in f64, the noise floor), and against 'off'.
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(seed + 9), word_map, VOCAB).items()}
+    served.decoder.capture_alphas = True
+    start, end, steps = word_map["<start>"], word_map["<end>"], tc.max_decode_len
+    runs = {}
+    for label, mode, sums in (("step", "step", None), ("all-plain", "step", torch.float32),
+                              ("all-plain f64", "step", torch.float64), ("off", "off", None)):
+        served.cfg = dataclasses.replace(cfg, decode_kernel=mode)
+        step = make_eval_step(served, tc, word_map)
+        with plain_versions(sums) if sums is not None else contextlib.nullcontext():
+            fused_convnext_mlp.bf16_launches = fused_decode_step.bf16_launches = 0
+            aux = step(batch)
+            torch.cuda.synchronize()
+            seen = (fused_convnext_mlp.bf16_launches, fused_decode_step.bf16_launches)
+            with torch.inference_mode():
+                roll = served.rollout(served.encode(batch["images"]), start, end, steps)
+        need = int(aux["lengths"].max())
+        expect = {"step": (36, served.cfg.num_layers * need), "off": (36, 0)}.get(label, (0, 0))
+        print(f"bf16 eval {label}: bf16 launches (mlp_block, decode_step) {seen}; loss {float(aux['loss']):.6f}, "
+              f"tokens {int(aux['tokens'])}, top5 {int(aux['top5_correct'])}")
+        if seen != expect or not (torch.isfinite(roll[0]).all() and math.isfinite(float(aux["loss"]))):
+            raise AssertionError(f"bf16 eval {label}: expected launches {expect}, got {seen}, or a non-finite output")
+        runs[label] = (step, aux, roll)
+    served.cfg = dataclasses.replace(cfg, decode_kernel="step")
+    inf = float("inf")
+    noise_logit, noise_alpha, _ = compare_rollouts("noise floor", runs["all-plain f64"][2], runs["all-plain"][2],
+                                                   inf, inf, inf)
+    logit_tol = max(BF16_F32_TOL * max(1.0, runs["all-plain"][2][0].abs().max().item()), BF16_NOISE * noise_logit)
+    alpha_tol = max(BF16_F32_TOL, BF16_NOISE * noise_alpha)
+    logit_err, alpha_err, ties = compare_rollouts("bf16 eval 'step'", runs["step"][2], runs["all-plain"][2],
+                                                  logit_tol, alpha_tol, logit_tol)
+    loss, want_loss = float(runs["step"][1]["loss"]), float(runs["all-plain"][1]["loss"])
+    loss_floor = abs(float(runs["all-plain f64"][1]["loss"]) - want_loss) / abs(want_loss)
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    print(f"bf16 eval 'step' vs all-plain: logits {logit_err:.3e} (tol {logit_tol:.3e}; noise floor "
+          f"{noise_logit:.3e}), maps {alpha_err:.3e} (tol {alpha_tol:.3e}; floor {noise_alpha:.3e}), loss "
+          f"{loss_err:.3e} relative (floor {loss_floor:.3e}), {len(ties)} rows differ at a near-tie")
+    if not ties and not (loss_err <= max(BF16_F32_TOL, BF16_NOISE * loss_floor) and all(
+            torch.equal(runs["step"][1][k], runs["all-plain"][1][k]) for k in ("sequences", "tokens"))):
+        raise AssertionError(f"bf16 eval 'step' disagrees with the all-plain path: loss {loss} vs {want_loss}")
+    gs, ws = runs["step"][2][1], runs["off"][2][1]
+    print(f"bf16 eval 'step' vs 'off' (the f32 plain decode, reported): sequences equal in "
+          f"{(gs == ws).all(dim=1).float().mean().item():.4f} of rows, logits differ by up to "
+          f"{(runs['step'][2][0] - runs['off'][2][0]).abs().max().item():.3e}, loss {loss:.6f} vs "
+          f"{float(runs['off'][1]['loss']):.6f}")
+    eval_ms, _ = _host_ms(lambda: runs["step"][0](batch))
+    print(f"bf16 eval bs={TRAIN_BS} 'step': eval step {eval_ms:.2f} ms [{card}]; phase 11 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def np_isfinite(a):
+    import numpy as np
+
+    return bool(np.isfinite(a).all())
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2843,6 +3422,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     training = training_phase(dev, card, args.seed)
 
+    # 11. compute_dtype='bfloat16' serving: the bf16 instances, the CLI's
+    # loader and beam, the eval step.
+    torch.cuda.empty_cache()
+    bf16 = check_bf16_kernels(dev, card, flagship_model(cfg, dev, args.seed).decoder.layers)
+    bf16_launches = bf16_phase(dev, card, args.seed, word_map, images8, rng)
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
@@ -2896,6 +3481,17 @@ def main(argv=None):
          "replaces": "tpu_captioner/ops/mlp_block.py:145", "launches": pipe_launches,
          "max_abs_err": pipe_err, "ms": pipe_ms, "plain_ms": pipe_plain_ms,
          "bound_ms": pipe_bound, "bound_by": pipe_by, "library_ms": None},
+        # The bf16 instances (phase 11): launches on the bs-8 bf16 serving
+        # run; times per bs-32 encoder pass (dwconv, mlp_block) and per
+        # 6-layer step at R = 40 (decode_step).
+        *({"name": name, "route": "cuda", "source": f"tpu_captioner_torch/csrc/{source}", "replaces": replaces,
+           "launches": bf16_launches[name], "max_abs_err": bf16[name][0], "ms": bf16[name][1],
+           "plain_ms": bf16[name][2], "bound_ms": bf16[name][4], "bound_by": bf16[name][5],
+           "library_ms": bf16[name][3]}
+          for name, source, replaces in (
+              ("mlp_block_bf16", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:126"),
+              ("dwconv_bf16", "dwconv.cu", "tpu_captioner/ops/dwconv.py:37"),
+              ("decode_step_bf16", "decode_step.cu", "tpu_captioner/ops/decode_step.py:185"))),
     ]
     for k in kernels:
         k["launches_training"] = training[k["name"]]

@@ -26,7 +26,10 @@ inputs, per-image stochastic-depth rows):
   sub-tiled and the whole-tile path (calls captured in a CUDA graph and
   replayed, so that Python's dispatch does not count) at each stage at
   batch 8 and 32; ``sub pass bs{B}`` and ``whole pass bs{B}``: their sums
-  over one encoder pass.
+  over one encoder pass;
+- ``bf16 C={c}`` and ``bf16 pass``, where the checkout has the bf16
+  instance: the same device ms of ``fused_convnext_mlp`` on bf16 x,
+  residual, W1 and W2 at batch 32, and their sum over one encoder pass.
 
 The last line is a table of each checkout's median per key, with the card's
 name and power limit; with ``--pairs A B``, where the roots were given as A
@@ -100,11 +103,19 @@ def measure(root):
         raise SystemExit(f"{root}: no sub-tile rows of {SUB_CANDIDATES} valid at every width")
     out, total, step = {"sub": sub}, 0.0, 0.0
     sums = {}
+    bf16 = hasattr(fused_convnext_mlp, "bf16_launches")
     with torch.inference_mode():
         for s, (depth, c) in enumerate(zip(DEPTHS, DIMS)):
             args = stage_args(s, c, BATCH)
             out[f"C={c}"] = time_ms(lambda: fused_convnext_mlp(*args))
             total += depth * out[f"C={c}"]
+            if bf16:  # x, residual, W1 and W2 in bf16
+                a16 = tuple(a.to(torch.bfloat16) if i in (0, 1, 5, 7) else a for i, a in enumerate(args))
+                before = fused_convnext_mlp.bf16_launches
+                out[f"bf16 C={c}"] = graph_ms(lambda: fused_convnext_mlp(*a16))
+                if fused_convnext_mlp.bf16_launches == before:
+                    raise SystemExit(f"{root}: the bf16 call at C={c} did not launch the bf16 instance")
+                sums["bf16 pass"] = sums.get("bf16 pass", 0.0) + depth * out[f"bf16 C={c}"]
             if s >= 2:  # a stage the fine-tune step trains: the cotangent in the residual's place
                 out[f"bwd C={c}"] = time_ms(lambda: fused_convnext_mlp_bwd(args[1], args[0], *args[2:]), iters=10)
                 step += depth * out[f"bwd C={c}"]
@@ -159,7 +170,7 @@ def main():
         a, b = (runs[root] for root in pairs)
         summary["pairs"] = {}
         for k in a[0]:
-            if k == "sub":
+            if k == "sub" or k not in b[0]:
                 continue
             diffs = [x[k] - y[k] for x, y in zip(a, b)]
             summary["pairs"][k] = {"n": len(diffs), "median_a_minus_b": statistics.median(diffs),

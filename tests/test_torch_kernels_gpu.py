@@ -56,6 +56,15 @@ the plain version within 1e-4, at partial last row tiles and at the
 cluster widths' bs-8 row counts, with sd-0 rows bit for bit and the same
 bits from a second call.  The training loader's batches, copied from
 pinned memory on a side stream, equal the host's arrays bit for bit.
+The bf16 instances (``compute_dtype='bfloat16'`` serving): the depthwise
+conv's forward (with and without the bias, and through its instance
+without TMA) and the MLP tail's whole tile against their plain versions
+within one bf16 ulp of the plain value (at least 2^-8): f32 sums in another
+order may round to the neighbouring bf16 value; the decode arm's single
+layer launch within 2e-3 times max(1, the largest magnitude) for x_out and
+alpha and one ulp for k_new and v_new (one bf16 rounding of an operand that
+another sum order can flip inside a product), at the beams' and the eval
+step's rows.  A CUDA model pins cuBLAS's bf16 reductions to f32.
 """
 
 import math
@@ -819,3 +828,96 @@ def test_loader_copies_the_host_batches_to_the_card(cuda, tmp_path):
     next(it)
     it.close()
     assert threading.active_count() == before
+
+
+def within_bf16_ulp(got, want):
+    """Within one bf16 ulp of the plain value, at least 2^-8, elementwise."""
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -8))) - 7).clamp_min(2.0 ** -8)
+    return bool(((got.float() - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 128), (32, 32, 32, 256), (32, 16, 16, 512), (8, 8, 8, 1024),
+                                   (2, 9, 7, 24)])
+def test_dwconv_bf16_kernel_matches_plain(cuda, shape, bias):
+    g = torch.Generator().manual_seed(shape[-1] + shape[0])
+    x = torch.randn(*shape, generator=g).to(cuda, torch.bfloat16)
+    w = (0.1 * torch.randn(7, 7, shape[-1], generator=g)).to(cuda, torch.bfloat16)
+    b = (0.1 * torch.randn(shape[-1], generator=g)).to(cuda, torch.bfloat16) if bias else None
+    before = depthwise_conv7x7_nhwc.launches, depthwise_conv7x7_nhwc.bf16_launches
+    got = dwconv_forward(x, w, bias=b)
+    torch.cuda.synchronize()
+    assert (depthwise_conv7x7_nhwc.launches, depthwise_conv7x7_nhwc.bf16_launches) == tuple(n + 1 for n in before)
+    assert got.dtype == torch.bfloat16 and within_bf16_ulp(got, _dw_plain(x, w, b))
+    # The instance without TMA: a pointer off a 16-byte boundary (held
+    # against the plain version of the aligned copy: the grouped conv itself
+    # faults on a bf16 tensor 2 bytes off).
+    xu = unaligned(x)
+    got_u = dwconv_forward(xu, w, bias=b)
+    torch.cuda.synchronize()
+    assert xu.data_ptr() % 16 and within_bf16_ulp(got_u, _dw_plain(x, w, b))
+
+
+@pytest.mark.parametrize("c", SUPPORTED_C)
+@pytest.mark.parametrize("n", [1003, 8192])
+def test_mlp_bf16_kernel_matches_plain(cuda, c, n):
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain_bf16
+
+    x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(n, c, cuda, seed=c + n, sd="mixed")
+    bf = torch.bfloat16
+    args = (x.to(bf), res.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
+    before = fused_convnext_mlp.bf16_launches
+    got = fused_convnext_mlp(*args)
+    torch.cuda.synchronize()
+    assert fused_convnext_mlp.bf16_launches == before + 1
+    assert got.dtype == bf and within_bf16_ulp(got, _mlp_plain_bf16(*args))
+    skipped = sd == 0
+    assert torch.equal(got[skipped], args[1][skipped])  # sd 0: the residual, bit for bit
+
+
+def test_mlp_bf16_refuses_the_sub_tiled_path(cuda, monkeypatch):
+    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", "64")
+    x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(256, 128, cuda)
+    bf = torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5d"):
+        fused_convnext_mlp(x.to(bf), res.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
+
+
+@pytest.mark.parametrize("rows", [40, 160, 32])
+@pytest.mark.parametrize("pos", [0, 51])
+def test_decode_bf16_layer_launch_matches_plain(cuda, rows, pos):
+    from tpu_captioner_torch.ops.decode_step import _decode_step_plain_bf16, cast_weight_matrices
+
+    E, H, Fd, P, T = 512, 8, 512, 49, 52
+    g = torch.Generator().manual_seed(rows + pos)
+    f = lambda *s, scale=1.0: (scale * torch.randn(*s, generator=g)).to(cuda)  # noqa: E731
+    shapes = {"w_qkv": (1, 3 * E, E), "b_qkv": (1, 3 * E), "w_f1": (1, Fd, E), "b_f1": (1, Fd), "w_f2": (1, E, Fd)}
+    w = DecodeWeights(*(f(*shapes.get(n, (1, E, E) if n in ("w_so", "w_cq", "w_co") else (1, E)),
+                          scale=0.04 if n.startswith("w_") else 0.1) for n in DecodeWeights._fields))
+    w = cast_weight_matrices(w._replace(ln1_s=1 + w.ln1_s, ln2_s=1 + w.ln2_s, ln3_s=1 + w.ln3_s), torch.bfloat16)
+    bf = torch.bfloat16
+    ck, cv = f(1, rows, T, E).to(bf), f(1, rows, T, E).to(bf)
+    ck[:, :, pos:] = float("nan")
+    cv[:, :, pos:] = float("nan")
+    args = (w, f(rows, E).to(bf), pos, ck, cv, f(1, rows, P, E).to(bf), f(1, rows, P, E).to(bf), H)
+    before = fused_decode_step.bf16_launches
+    got = fused_decode_step(*args)
+    torch.cuda.synchronize()
+    assert fused_decode_step.bf16_launches == before + 1
+    want = _decode_step_plain_bf16(*args)
+    assert [t.dtype for t in got] == [torch.float32, torch.float32, bf, bf]
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.isfinite(a).all() and within(a, b, 2e-3)
+    for a, b in zip(got[2:], want[2:]):
+        assert within_bf16_ulp(a, b)
+
+
+def test_cuda_model_pins_bf16_reductions_to_f32(cuda):
+    from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    CaptionModel(ModelConfig(vocab_size=11, encoder_depths=(1, 1, 1, 1), embed_dim=64, decoder_dim=64,
+                             num_layers=1, compute_dtype="bfloat16"), device=cuda)
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False

@@ -19,7 +19,10 @@
   for the loader's queue timeouts and its thread's error, raised again in
   the consumer.
 - The depthwise conv's wrappers refuse what their kernels do not take (other
-  devices, bf16, non-contiguous tensors, tensors on two devices).
+  devices, a dtype without an instance: float16 for the forward, bf16 for
+  the filter gradient, mixed dtypes; non-contiguous tensors, tensors on two
+  devices).  bf16 serves the Transformer families; what it does not port
+  raises naming its ROADMAP item.
 - The whole-block wrapper refuses other devices, dtypes, shapes and layouts
   on every device, and on the card the widths its kernel is not built for;
   its library stages the conv by TMA (``csrc/dwconv_tile.cuh``), runs the
@@ -118,14 +121,36 @@ def test_chip_smoke_raises_without_a_card(cpu_only, capsys):
 
 
 def test_bf16_and_lstm_are_refused():
-    """bf16 is refused, naming its ROADMAP item.  The LSTM families, once
-    refused here too, are ported: an ``lstm`` model builds on the CPU."""
-    from tpu_captioner_torch.core.config import ModelConfig
+    """bf16 serves the Transformer families: a bf16 model builds.  What bf16
+    does not port raises NotImplementedError naming its ROADMAP item: the
+    LSTM families (#5c), ``use_pallas='block'`` (#5d), the ``'mega'`` and
+    one-cell decode modes (#5e) and a train step (#5b).  The LSTM families,
+    once refused in f32 too, are ported: an ``lstm`` model builds on the
+    CPU."""
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
     from tpu_captioner_torch.models.lstm import DecoderWithAttention
     from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.steps import make_train_step
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CaptionModel(ModelConfig(vocab_size=11, compute_dtype="bfloat16"), device="cpu")
+    tiny = dict(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8), encoder_dim=8,
+                embed_dim=8, decoder_dim=8, num_heads=2, num_layers=1, max_len=6, compute_dtype="bfloat16")
+    for decoder in ("transformer", "transformer_attvis"):
+        assert CaptionModel(ModelConfig(decoder=decoder, **tiny), device="cpu").dtype == torch.bfloat16
+    for decoder in ("lstm", "lstm_no_attention"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5c"):
+            CaptionModel(ModelConfig(decoder=decoder, attention_dim=6, **tiny), device="cpu")
+    for use_pallas in ("block", ("mlp", "mlp", "block", "off")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5d"):
+            CaptionModel(ModelConfig(use_pallas=use_pallas, **tiny), device="cpu")
+    enc = torch.zeros(2, 7, 7, 8, dtype=torch.bfloat16)
+    for mode, one_cell in (("mega", False), ("step", True)):
+        model = CaptionModel(ModelConfig(decode_kernel=mode, **tiny), device="cpu")
+        with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5e"):
+            model.rollout(enc, 1, 2, 3, one_cell=one_cell)
+    for train_encoder in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5b"):
+            make_train_step(model, TrainConfig(), {"<start>": 1, "<end>": 2, "<pad>": 0},
+                            train_encoder=train_encoder)
     model = CaptionModel(
         ModelConfig(vocab_size=11, decoder="lstm", encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
                     encoder_dim=8, embed_dim=8, attention_dim=6, decoder_dim=8),
@@ -287,10 +312,15 @@ def test_dwconv_wrappers_refuse_other_devices_and_dtypes(cpu_only):
     with pytest.raises(ValueError, match="cpu or cuda"):
         dwconv_filter_grad(meta(1, 8, 8, 16), meta(1, 8, 8, 16))
     x, w = torch.zeros(1, 8, 8, 16), torch.zeros(7, 7, 16)
-    with pytest.raises(ValueError, match="float32"):
-        depthwise_conv7x7_nhwc(x.bfloat16(), w.bfloat16())
+    for fn in (depthwise_conv7x7_nhwc, dwconv_forward):  # a dtype with no instance
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fn(x.half(), w.half())
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fn(x.bfloat16(), w)
     with pytest.raises(ValueError, match="float32"):
         dwconv_filter_grad(x, x.bfloat16())
+    with pytest.raises(ValueError, match="float32"):  # the bf16 filter gradient belongs to bf16 training
+        dwconv_filter_grad(x.bfloat16(), x.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         depthwise_conv7x7_nhwc(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="not cpu"):

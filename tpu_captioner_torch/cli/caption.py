@@ -6,12 +6,17 @@
         --wordMap inputFiles/WORDMAP_coco_5_cap_per_img_5_min_word_freq.json \
         --beamSize 5 --device cuda
 
-Takes reference ``.pth.tar`` checkpoints (the Orbax directories belong to the
-JAX package).  Images are captioned in groups of 8, one encoder pass and one
-batched beam loop per group; ``--csv`` writes imageFile,generatedCaption rows.
-``--usePallas`` picks the ConvNeXt blocks' kernels (``ModelConfig.use_pallas``:
-``auto``, ``on``, ``mlp``, ``block`` or ``off``, or four of these joined by
-commas, one per stage).
+``--checkpoint`` takes a checkpoint directory of the port's own training
+(``train/checkpoint.py:save_checkpoint``, e.g. ``checkpoints/BEST_...``): the
+model is rebuilt from its ``meta.json`` config, as the JAX CLI rebuilds its
+own, ``compute_dtype`` included, so a bf16 training run captions in bf16.  It
+also takes a reference ``.pth.tar`` (the model then follows the flags; the
+Orbax directories belong to the JAX package).  Images are captioned in
+groups of 8, one encoder pass and one batched beam loop per group; ``--csv``
+writes imageFile,generatedCaption rows.  ``--usePallas`` picks the ConvNeXt
+blocks' kernels (``ModelConfig.use_pallas``: ``auto``, ``on``, ``mlp``,
+``block`` or ``off``, or four of these joined by commas, one per stage); a
+checkpoint directory's own setting holds unless the flag is given.
 """
 
 from __future__ import annotations
@@ -38,23 +43,47 @@ def load_image(path: str, size: int = 256) -> np.ndarray:
     return np.asarray(img, dtype=np.uint8)
 
 
+def _use_pallas(flag: str):
+    return tuple(flag.split(",")) if "," in flag else flag
+
+
 def build_model_and_params(args, word_map: Dict[str, int]):
-    """Build the ``CaptionModel`` the flags describe on ``args.device`` and
-    load ``args.checkpoint`` (a reference ``.pth.tar``) into it."""
+    """Build the ``CaptionModel`` on ``args.device`` and load
+    ``args.checkpoint`` into it.  A ``save_checkpoint`` directory rebuilds
+    the training run's model from ``meta.json``'s ``config["model"]`` with
+    ``vocab_size`` from the word map (tpu_captioner/cli/caption.py:31-65;
+    JSON gives lists where the config held tuples) and loads ``state.pt``'s
+    ``model`` weights to the host, then onto the device.  A reference
+    ``.pth.tar`` takes the model the flags describe."""
     from tpu_captioner_torch.core.config import ModelConfig
     from tpu_captioner_torch.models.from_jax import load_reference_checkpoint
+    from tpu_captioner_torch.train.checkpoint import META_FILE, STATE_FILE
     from tpu_captioner_torch.train.model import CaptionModel
 
+    use_pallas = getattr(args, "usePallas", None)
+    if os.path.isdir(args.checkpoint):
+        with open(os.path.join(args.checkpoint, META_FILE)) as f:
+            raw = dict(json.load(f)["config"]["model"])
+        raw["vocab_size"] = len(word_map)
+        for key in ("encoder_depths", "encoder_dims"):
+            raw[key] = tuple(raw[key])
+        if isinstance(raw["use_pallas"], list):
+            raw["use_pallas"] = tuple(raw["use_pallas"])
+        if use_pallas is not None:
+            raw["use_pallas"] = _use_pallas(use_pallas)
+        model = CaptionModel(ModelConfig(**raw), device=args.device, seed=args.seed)
+        payload = torch.load(os.path.join(args.checkpoint, STATE_FILE), map_location="cpu", weights_only=True)
+        model.load_state_dict(payload["model"])
+        return model
     if not args.checkpoint.endswith(".pth.tar"):
-        raise NotImplementedError(
-            "the port loads reference .pth.tar checkpoints only (Orbax directories "
-            "belong to the JAX package)"
+        raise ValueError(
+            f"--checkpoint {args.checkpoint!r} is neither a checkpoint directory of the port's training "
+            "(state.pt, meta.json) nor a reference .pth.tar (Orbax directories belong to the JAX package)"
         )
     decoder = args.decoder or ("lstm" if args.lstmDecoder else "transformer")
-    use_pallas = getattr(args, "usePallas", "auto")
     cfg = ModelConfig(
         decoder=decoder, vocab_size=len(word_map), embedding_name=args.embeddingName,
-        use_pallas=tuple(use_pallas.split(",")) if "," in use_pallas else use_pallas,
+        use_pallas=_use_pallas(use_pallas or "auto"),
     )
     model = CaptionModel(cfg, device=args.device, seed=args.seed)
     load_reference_checkpoint(model, args.checkpoint)
@@ -93,7 +122,8 @@ def caption_batch(
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--img", "-i", required=True, help="image file or directory")
-    p.add_argument("--checkpoint", "-m", required=True, help="reference .pth.tar")
+    p.add_argument("--checkpoint", "-m", required=True,
+                   help="a checkpoint directory of the port's training (cli.train), or a reference .pth.tar")
     p.add_argument("--wordMap", "-wm", required=True)
     p.add_argument("--beamSize", "-b", type=int, default=5)
     p.add_argument("--dont_smooth", dest="smooth", action="store_false")
@@ -104,8 +134,9 @@ def main(argv=None):
     p.add_argument("--csv", type=str, default=None,
                    help="write imageFile,generatedCaption rows here")
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--usePallas", type=str, default="auto",
-                   help="ConvNeXt block kernels: auto|on|mlp|block|off, or one per stage joined by commas")
+    p.add_argument("--usePallas", type=str, default=None,
+                   help="ConvNeXt block kernels: auto|on|mlp|block|off, or one per stage joined by commas "
+                        "(default: a checkpoint directory's own, else auto)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the initial weights (the checkpoint replaces them)")
     args = p.parse_args(argv)

@@ -36,6 +36,9 @@ def device_info() -> str:
 def pin_f32_precision() -> None:
     """Full-f32 matmuls and convolutions: no TF32 in cuBLAS or cuDNN.  Without
     the cuDNN switch the stem, downsample and depthwise convs run in TF32 and
-    the f32 comparison with the JAX package drifts."""
+    the f32 comparison with the JAX package drifts.  bf16 products sum in
+    f32, as XLA's do: cuBLAS may otherwise reduce a bf16 GEMM's partial sums
+    in bf16 (its default)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

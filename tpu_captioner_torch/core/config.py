@@ -49,6 +49,7 @@ STAGE_MODES = ("mlp", "block", "off")  # what each stage resolves to
 DECODE_KERNEL_MODES = ("auto", "on", "step", "mega", "off")
 DROPOUT_MASK_MODES = ("auto", "pool", "threefry")
 ENCODER_REMAT_MODES = ("auto", "on", "off", "save_mlp_in")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def _stage_mode(mode) -> str:
@@ -97,7 +98,8 @@ class ModelConfig:
     pretrained_encoder: Optional[str] = None
     fine_tune_embeddings: bool = True
 
-    # Only 'float32' is ported; 'bfloat16' raises in CaptionModel.
+    # 'float32', or 'bfloat16' (COMPUTE_DTYPES): the encoder computes in
+    # it; train/model.py lists what bf16 serves and what it refuses.
     compute_dtype: str = "float32"
     use_pallas: Any = "auto"  # one of KERNEL_MODES, or one per stage (stage_kernel_modes)
     decode_kernel: str = "auto"  # one of DECODE_KERNEL_MODES
@@ -116,6 +118,8 @@ class ModelConfig:
             raise ValueError(
                 f"dropout_masks must be one of {DROPOUT_MASK_MODES}, got {self.dropout_masks!r}"
             )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {self.compute_dtype!r}")
         if self.encoder_remat not in ENCODER_REMAT_MODES:
             raise ValueError(
                 f"encoder_remat must be one of {ENCODER_REMAT_MODES}, got {self.encoder_remat!r}"

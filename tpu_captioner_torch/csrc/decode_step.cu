@@ -101,8 +101,24 @@
 // in every block's shared memory, computed alike from the same keys, so
 // every block branches alike; the launch stops once all rows have finished
 // and counts the tokens it ran in state[2R].
+//
+// The bf16 arm (tc_decode_layer_forward_bf16, decode_layer_kernel<VEC,
+// true>): _kernel with precise=False, the JAX kernel's arm on its own chip
+// (tpu_captioner/ops/decode_step.py:233-237, 370-371), on the weight
+// matrices of cast_weight_matrices(w, bfloat16) and bf16 caches and memory
+// K/V.  The ring holds the weights as bf16 (half the bytes a launch
+// streams, and twice the units a slot count holds); the hidden state,
+// the staged rows and every intermediate stay f32.  Every product of the
+// JAX layer rounds both operands to bf16 and sums in f32: tile_dot rounds
+// each staged row value to bf16 as it loads it and multiplies it by the
+// bf16 weight exactly in an f32 FMA; the attention sums bf16(k * q / sqrt
+// (dh)) over each head's dims (the head-selector product, :150, 165) and
+// weights each value by bf16(p) (:155, 169), with the new k and v at pos
+// unrounded, as the JAX kernel merges them; alpha averages the unrounded
+// cross probabilities.  k_new and v_new are written as bf16.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -133,11 +149,14 @@ struct Plan {
   int cv, hc;       // vocab columns a block owns (rollout), and per ring unit
   int rc;           // rows staged at once, a multiple of kRT
   int slots;        // ring units in shared memory
-  int slot_floats;  // floats of a ring unit, a multiple of 32
+  int slot_floats;  // elements of a ring unit (floats, or bf16 in the bf16 arm), a multiple of 32
   int group;        // ring units multiplied together, at most slots and kMaxGroup
 };
 constexpr int kPlanInts = 11;
 
+// In the bf16 arm the weight matrices, k_new / v_new, the caches and the
+// memory K/V hold bf16 (the pointers are cast where they are read); the
+// rest is f32 in every arm.
 struct Args {
   const float* x_in;   // (R, E) input of the first layer of the launch
   float* x_out;        // (R, E) output of the last layer of the launch
@@ -173,14 +192,39 @@ struct Args {
   int l0, Lr;        // the launch's first layer and layers per token
   int ne, nf, upl;   // ring units per E-wide product, per FFN1 and per layer
   int upt, units;    // ring units per token and in the whole launch
+  int wsize;         // bytes of a weight element: 4, or 2 in the bf16 arm
 };
+
+// The element type of the weights, caches and memory K/V of an arm.
+template <bool BF>
+struct Elem {
+  using T = float;
+};
+template <>
+struct Elem<true> {
+  using T = __nv_bfloat16;
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// Four consecutive elements as a float4: one 16-byte load of floats, or
+// one 8-byte load of bf16 widened.
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 // One block's view of the launch: its shared memory and its ring.  Every
 // thread keeps its own copy of the counters and updates it alike.
 struct Blk {
   uint64_t* ubar;            // one mbarrier per ring slot
   uint64_t* xbar;            // the staging mbarrier
-  float* ring;               // slots x slot_floats
+  unsigned char* ring;       // slots x slot_floats elements of the weights' type
   float* xs;                 // rc staged rows
   float* lnp;                // a LayerNorm's scale and shift, or the rollout's PE row (2E)
   float* sq;                 // this warp's attention scratch: query row (dh), probabilities
@@ -217,10 +261,15 @@ __device__ __forceinline__ void stamp(Blk&, int) {}
 #endif
 
 struct Unit {
-  const float* src;  // the block's weight rows, contiguous
-  int cols, K;       // weight rows (output columns) and their length
-  int col0;          // output column of the first row
+  const unsigned char* src;  // the block's weight rows, contiguous
+  int cols, K;               // weight rows (output columns) and their length
+  int col0;                  // output column of the first row
 };
+
+// Element `off` of the weights at w, whose elements are a.wsize bytes.
+__device__ __forceinline__ const unsigned char* weight_at(const Args& a, const float* w, size_t off) {
+  return reinterpret_cast<const unsigned char*>(w) + off * a.wsize;
+}
 
 __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   acc = fmaf(a.x, b.x, acc);
@@ -277,25 +326,27 @@ __device__ Unit unit_of(const Args& a, const Blk& k, int u) {
     t.cols = clamp_cols(min(n, k.bc * per + per) - c0, uc);
     t.col0 = c0;
     if (p == 6) {  // FFN1, (F, E)
-      t.src = a.w_f1 + (l * F + c0) * E;
+      t.src = weight_at(a, a.w_f1, (l * F + c0) * E);
       return t;
     }
     const float* w;
+    size_t off;
     if (p < 3) {  // q, k or v: rows p*E + c0.. of the (3E, E) QKV weight
-      w = a.w_qkv + (l * 3 + p) * E * E;
+      w = a.w_qkv;
+      off = (l * 3 + p) * E * E;
       t.col0 = p * E + c0;
     } else {
-      w = p == 3 ? a.w_so + l * E * E : p == 4 ? a.w_cq + l * E * E : p == 5 ? a.w_co + l * E * E
-                                                                             : a.w_f2 + l * E * F;
+      w = p == 3 ? a.w_so : p == 4 ? a.w_cq : p == 5 ? a.w_co : a.w_f2;
+      off = p == 7 ? l * E * F : l * E * E;
       if (p == 7) t.K = F;
     }
-    t.src = w + (size_t)c0 * t.K;
+    t.src = weight_at(a, w, off + (size_t)c0 * t.K);
     return t;
   }
   const int v0 = blockIdx.x * a.plan.cv, v1 = min(a.V, v0 + a.plan.cv);
   t.col0 = v0 + (i - a.upl * a.Lr) * a.plan.hc;
   t.cols = clamp_cols(v1 - t.col0, a.plan.hc);
-  t.src = a.fc_w + (size_t)t.col0 * E;
+  t.src = weight_at(a, a.fc_w, (size_t)t.col0 * E);
   return t;
 }
 
@@ -306,9 +357,9 @@ __device__ void ring_issue(const Args& a, const Blk& k, int u) {
   const Unit t = unit_of(a, k, u);
   uint64_t* bar = k.ubar + slot;
   if (t.cols > 0) {
-    const uint32_t bytes = 4u * t.cols * t.K;
+    const uint32_t bytes = (uint32_t)a.wsize * t.cols * t.K;
     mbar_expect_tx(bar, bytes);
-    bulk_load(k.ring + (size_t)slot * a.plan.slot_floats, t.src, bytes, bar);
+    bulk_load(k.ring + (size_t)slot * a.plan.slot_floats * a.wsize, t.src, bytes, bar);
   } else {
     mbar_arrive(bar);
   }
@@ -352,13 +403,13 @@ __host__ __device__ long long layer_scratch_floats(int R, int E, int H, int F, i
   return (long long)R * (11LL * E + F + (long long)H * P);
 }
 
-// Dynamic shared memory of a launch: the mbarriers, the ring, the staged
-// rows, a LayerNorm's parameters, each warp's attention scratch and, in the
-// rollout, each row's key, token and flag.  ops/decode_step.py:decode_plan
-// computes the same sum.
-size_t smem_layout_bytes(const Plan& p, int R, int T, int P, int E, int H, int F, bool rollout) {
+// Dynamic shared memory of a launch: the mbarriers, the ring (of wsize-byte
+// weight elements), the staged rows, a LayerNorm's parameters, each warp's
+// attention scratch and, in the rollout, each row's key, token and flag.
+// ops/decode_step.py:decode_plan computes the same sum.
+size_t smem_layout_bytes(const Plan& p, int R, int T, int P, int E, int H, int F, bool rollout, int wsize) {
   const int TP = T > P ? T : P;
-  size_t bytes = round_up(8 * (size_t)(p.slots + 1), 128) + 4 * (size_t)p.slots * p.slot_floats +
+  size_t bytes = round_up(8 * (size_t)(p.slots + 1), 128) + (size_t)wsize * p.slots * p.slot_floats +
                  4 * (size_t)p.rc * (E > F ? E : F) + 8 * (size_t)E +
                  4 * round_up((size_t)kWarps * (E / H + TP), 2);
   if (rollout) bytes += 16 * (size_t)R;
@@ -371,8 +422,8 @@ __device__ void blk_init(Args& a, Blk& k, unsigned char* smem) {
   k.ubar = reinterpret_cast<uint64_t*>(smem);
   k.xbar = k.ubar + p.slots;
   size_t off = round_up(8 * (size_t)(p.slots + 1), 128);
-  k.ring = reinterpret_cast<float*>(smem + off);
-  off += 4 * (size_t)p.slots * p.slot_floats;
+  k.ring = smem + off;
+  off += (size_t)a.wsize * p.slots * p.slot_floats;
   k.xs = reinterpret_cast<float*>(smem + off);
   off += 4 * (size_t)p.rc * (E > F ? E : F);
   k.lnp = reinterpret_cast<float*>(smem + off);
@@ -552,8 +603,13 @@ __device__ __forceinline__ void stage_embed(const Args& a, Blk& k, int s, float*
 // bound by instruction fetch when each product carries its own unrolled
 // copy.  All 20 loads of a k step go before its 256 multiply-adds, since a
 // warp issues in order; lanes split k in float4 steps and a reduce-scatter
-// of shuffles (five halving steps, 62 shuffles) sums the lanes.
-__device__ __noinline__ float2 tile_dot(const float* ws, const float* xr, int K, int nc) {
+// of shuffles (five halving steps, 62 shuffles) sums the lanes.  W: the
+// weights' type; with bf16 weights (the bf16 arm) each staged value is
+// rounded to bf16 as it is loaded, so that each product is the exact
+// product of two bf16 values, summed in f32.
+template <class W>
+__device__ __noinline__ float2 tile_dot(const W* ws, const float* xr, int K, int nc) {
+  constexpr bool kBf16 = sizeof(W) == 2;
   const int lane = threadIdx.x & 31;
   float v[kRT * kCG];  // flat (row, column) partial sums of this lane
 #pragma unroll
@@ -561,9 +617,13 @@ __device__ __noinline__ float2 tile_dot(const float* ws, const float* xr, int K,
   for (int kk = 4 * lane; kk < K; kk += 128) {
     float4 w[kCG], x[kRT];
 #pragma unroll
-    for (int c = 0; c < kCG; ++c) w[c] = *reinterpret_cast<const float4*>(ws + (size_t)min(c, nc - 1) * K + kk);
+    for (int c = 0; c < kCG; ++c) w[c] = load4(ws + (size_t)min(c, nc - 1) * K + kk);
 #pragma unroll
-    for (int r = 0; r < kRT; ++r) x[r] = *reinterpret_cast<const float4*>(xr + (size_t)r * K + kk);
+    for (int r = 0; r < kRT; ++r) {
+      x[r] = *reinterpret_cast<const float4*>(xr + (size_t)r * K + kk);
+      if constexpr (kBf16)
+        x[r] = make_float4(round_bf16(x[r].x), round_bf16(x[r].y), round_bf16(x[r].z), round_bf16(x[r].w));
+    }
 #pragma unroll
     for (int r = 0; r < kRT; ++r)
 #pragma unroll
@@ -580,8 +640,8 @@ __device__ __noinline__ float2 tile_dot(const float* ws, const float* xr, int K,
 // weight rows of a unit (tile_dot), and epi(r, c, sum, pre(r, c)) takes
 // each output, where pre(r, c) gives its bias and residual from device
 // memory.  Rows past rn of the last tile are computed from whatever xs
-// holds and dropped.
-template <class Stage, class Pre, class Epi>
+// holds and dropped.  W: the weights' type in the ring.
+template <class W, class Stage, class Pre, class Epi>
 __device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stage, Pre pre, Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int cols[kMaxGroup], col0[kMaxGroup], ncg = 0;
@@ -605,7 +665,7 @@ __device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stag
       const int u = u0 + j, nc = min(kCG, cols[j] - cgi * kCG);
       ring_wait(a, k, u);
       stamp(k, 7);
-      const float2 sums = tile_dot(k.ring + (size_t)(u % NS) * S + (size_t)cgi * kCG * K,
+      const float2 sums = tile_dot(reinterpret_cast<const W*>(k.ring) + (size_t)(u % NS) * S + (size_t)cgi * kCG * K,
                                    k.xs + (size_t)rt * kRT * K, K, nc);
       const float v[2] = {sums.x, sums.y};
       // This lane's two outputs' epilogue operands; indices clamped into
@@ -629,13 +689,13 @@ __device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stag
 // A product phase over ring units ub..ue-1, `group` units at a time, each
 // group's units released when it is done.  When the block's rows fit one
 // chunk they are staged once for all the groups.
-template <class Stage, class Pre, class Epi>
+template <class W, class Stage, class Pre, class Epi>
 __device__ void product_units(const Args& a, Blk& k, int ub, int ue, int K, Stage stage, Pre pre, Epi epi) {
   const bool one_chunk = k.rb - k.ra <= a.plan.rc;
   bool staged = false;
   for (int g0 = ub; g0 < ue; g0 += a.plan.group) {
     const int n = min(a.plan.group, ue - g0);
-    product(a, k, g0, n, K,
+    product<W>(a, k, g0, n, K,
             [&](int r0, int rn) {
               if (!(staged && one_chunk)) stage(r0, rn);
               staged = true;
@@ -742,6 +802,106 @@ __device__ __noinline__ void warp_attention(const float* q_src, int dh, float sc
   __syncwarp();
 }
 
+// One score of the bf16 arm: the sum over a head's dh dims of bf16(q[d] *
+// k[d]), q already scaled by 1/sqrt(dh) (f32), k bf16 (the cache or the
+// memory) or f32 (the new k at pos).
+template <int VEC, class P>
+__device__ __forceinline__ float score_bf16(const float* sq, const P* k, int dh) {
+  float s = 0.f;
+  if constexpr (VEC == 4) {
+#pragma unroll 8
+    for (int d = 0; d < dh; d += 4) {
+      const float4 kv = load4(k + d);
+      s += round_bf16(sq[d] * kv.x);
+      s += round_bf16(sq[d + 1] * kv.y);
+      s += round_bf16(sq[d + 2] * kv.z);
+      s += round_bf16(sq[d + 3] * kv.w);
+    }
+  } else {
+#pragma unroll 8
+    for (int d = 0; d < dh; ++d) s += round_bf16(sq[d] * to_f32(k[d]));
+  }
+  return s;
+}
+
+// warp_attention in the bf16 arm (the JAX kernel's precise=False rounding,
+// the module note): keys and values below n_base in bf16 at kbase/vbase,
+// the new k/v at pos in f32 (kx/vx); q scaled before the products, each
+// product rounded to bf16, the softmax in f32, probs_out unrounded and each
+// probability rounded to bf16 before it weights its value.
+template <int VEC>
+__device__ __noinline__ void warp_attention_bf16(const float* q_src, int dh, float scale,
+                                                 const __nv_bfloat16* kbase, const __nv_bfloat16* vbase,
+                                                 size_t stride, int n_base, const float* kx, const float* vx,
+                                                 float* sq, float* sp, float* ctx, float* probs_out) {
+  const int lane = threadIdx.x & 31;
+  const int n_pos = n_base + (kx != nullptr);
+  for (int d = lane; d < dh; d += 32) sq[d] = q_src[d] * scale;
+  __syncwarp();
+  float mx = -INFINITY;
+  for (int t = lane; t < n_pos; t += 32) {
+    const float s = t < n_base ? score_bf16<VEC>(sq, kbase + t * stride, dh) : score_bf16<VEC>(sq, kx, dh);
+    sp[t] = s;
+    mx = fmaxf(mx, s);
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int t = lane; t < n_pos; t += 32) {
+    const float e = expf(sp[t] - mx);
+    sp[t] = e;
+    sum += e;
+  }
+  const float inv = 1.0f / warp_sum(sum);
+  for (int t = lane; t < n_pos; t += 32) {
+    const float p = sp[t] * inv;
+    if (probs_out) probs_out[t] = p;
+    sp[t] = round_bf16(p);
+  }
+  __syncwarp();
+  if constexpr (VEC == 4) {
+    const int half = lane >> 4;
+    for (int d0 = 0; d0 < dh; d0 += 64) {  // the same trips in every lane: the shuffles below need all
+      const int d = d0 + 4 * (lane & 15);
+      const bool on = d < dh;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t0 = half; t0 < n_pos; t0 += 2 * kAttT) {
+        float4 vv[kAttT];
+#pragma unroll
+        for (int i = 0; i < kAttT; ++i) {
+          const int t = t0 + 2 * i;
+          vv[i] = !on || t >= n_pos ? make_float4(0.f, 0.f, 0.f, 0.f)
+                  : t < n_base      ? load4(vbase + t * stride + d)
+                                    : load4(vx + d);
+        }
+#pragma unroll
+        for (int i = 0; i < kAttT; ++i) {
+          const float p = t0 + 2 * i < n_pos ? sp[t0 + 2 * i] : 0.f;
+          acc.x = fmaf(p, vv[i].x, acc.x);
+          acc.y = fmaf(p, vv[i].y, acc.y);
+          acc.z = fmaf(p, vv[i].z, acc.z);
+          acc.w = fmaf(p, vv[i].w, acc.w);
+        }
+      }
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, 16);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, 16);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, 16);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, 16);
+      if (on && half == 0) *reinterpret_cast<float4*>(ctx + d) = acc;
+    }
+  } else {
+    for (int d = lane; d < dh; d += 32) {
+      float a = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < n_pos; ++t) a = fmaf(sp[t], t < n_base ? to_f32(vbase[t * stride + d]) : vx[d], a);
+      ctx[d] = a;
+    }
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
 // How decode_layer's QKV phase gets its input rows.
 enum InKind { kInRows = 0, kInLn3 = 1, kInEmbed = 2 };
 
@@ -750,10 +910,12 @@ enum InKind { kInRows = 0, kInLn3 = 1, kInEmbed = 2 };
 // the previous layer's h3 (kInLn3) or the rollout's embedding of token s
 // (kInEmbed); in the last two the owners write them to x, the residual.
 // The layer's units are u0..u0+upl-1.  h3 = x2 + FFN2 is left for the
-// caller's LN3.  VEC is warp_attention's key load width.
-template <int VEC>
+// caller's LN3.  VEC is warp_attention's key load width; BF selects the
+// bf16 arm (the module note).
+template <int VEC, bool BF>
 __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l, int u0, int pos, InKind in,
                              float* x, int s) {
+  using W = typename Elem<BF>::T;
   const int E = a.E, E3 = 3 * E, F = a.F, H = a.H, dh = E / H, R = a.R, P = a.P, T = a.T;
   const int lane = threadIdx.x & 31;
   const float scale = rsqrtf((float)dh);
@@ -777,7 +939,7 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
 
   // 1. QKV.
   const float* bq = a.b_qkv + (size_t)l * E3;
-  product_units(a, k, u0, u_so, E,
+  product_units<W>(a, k, u0, u_so, E,
           [&](int r0, int rn) {
             if (in == kInRows)
               stage_copy(k, a.x_in, r0, rn, E);
@@ -795,52 +957,60 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
   for (int task = global_warp(); task < R * H; task += grid_warps()) {
     const int r = task / H, h = task % H;
     const float* row = qkv + (size_t)r * E3;
-    float* kd = a.k_new + l * a.kv_ls + r * a.kv_rs + h * dh;
-    float* vd = a.v_new + l * a.kv_ls + r * a.kv_rs + h * dh;
+    W* kd = reinterpret_cast<W*>(a.k_new) + l * a.kv_ls + r * a.kv_rs + h * dh;
+    W* vd = reinterpret_cast<W*>(a.v_new) + l * a.kv_ls + r * a.kv_rs + h * dh;
     for (int d = lane; d < dh; d += 32) {
-      kd[d] = row[E + h * dh + d];
-      vd[d] = row[2 * E + h * dh + d];
+      store_elem(kd + d, row[E + h * dh + d]);
+      store_elem(vd + d, row[2 * E + h * dh + d]);
     }
-    const float* ck = a.cache_k + ((size_t)l * R + r) * T * E + h * dh;
-    const float* cv = a.cache_v + ((size_t)l * R + r) * T * E + h * dh;
+    const W* ck = reinterpret_cast<const W*>(a.cache_k) + ((size_t)l * R + r) * T * E + h * dh;
+    const W* cv = reinterpret_cast<const W*>(a.cache_v) + ((size_t)l * R + r) * T * E + h * dh;
     const float* kn = row + E + h * dh;
     const float* vn = row + 2 * E + h * dh;
-    warp_attention<VEC>(row + h * dh, dh, scale, ck, cv, E, pos, kn, vn, sq, sp, ctx_s + (size_t)r * E + h * dh,
-                        nullptr);
+    if constexpr (BF)
+      warp_attention_bf16<VEC>(row + h * dh, dh, scale, ck, cv, E, pos, kn, vn, sq, sp,
+                               ctx_s + (size_t)r * E + h * dh, nullptr);
+    else
+      warp_attention<VEC>(row + h * dh, dh, scale, ck, cv, E, pos, kn, vn, sq, sp, ctx_s + (size_t)r * E + h * dh,
+                          nullptr);
   }
   grid_barrier(grid, k);
 
   // 3. Out-projection and residual.
   const float* bso = a.b_so + (size_t)l * E;
-  product_units(a, k, u_so, u_cq, E, [&](int r0, int rn) { stage_copy(k, ctx_s, r0, rn, E); },
+  product_units<W>(a, k, u_so, u_cq, E, [&](int r0, int rn) { stage_copy(k, ctx_s, r0, rn, E); },
                 [&](int r, int c) { return make_float2(bso[c], res[(size_t)r * E + c]); },
                 [&](int r, int c, float y, float2 p) { h1[(size_t)r * E + c] = p.y + (y + p.x); });
   grid_barrier(grid, k);
 
   // 4. LN1 (prologue), cross query; then the cross-attention.
   const float* bcq = a.b_cq + (size_t)l * E;
-  product_units(a, k, u_cq, u_co, E,
+  product_units<W>(a, k, u_cq, u_co, E,
                 [&](int r0, int rn) { stage_ln(a, k, h1, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, r0, rn); },
                 [&](int, int c) { return make_float2(bcq[c], 0.f); },
                 [&](int r, int c, float y, float2 p) { q2[(size_t)r * E + c] = y + p.x; });
   grid_barrier(grid, k);
   for (int task = global_warp(); task < R * H; task += grid_warps()) {
     const int r = task / H, h = task % H;
-    const float* mk = a.mem_k + ((size_t)l * R + r) * P * E + h * dh;
-    const float* mv = a.mem_v + ((size_t)l * R + r) * P * E + h * dh;
-    warp_attention<VEC>(q2 + (size_t)r * E + h * dh, dh, scale, mk, mv, E, P, nullptr, nullptr, sq, sp,
-                        ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
+    const W* mk = reinterpret_cast<const W*>(a.mem_k) + ((size_t)l * R + r) * P * E + h * dh;
+    const W* mv = reinterpret_cast<const W*>(a.mem_v) + ((size_t)l * R + r) * P * E + h * dh;
+    if constexpr (BF)
+      warp_attention_bf16<VEC>(q2 + (size_t)r * E + h * dh, dh, scale, mk, mv, E, P, nullptr, nullptr, sq, sp,
+                               ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
+    else
+      warp_attention<VEC>(q2 + (size_t)r * E + h * dh, dh, scale, mk, mv, E, P, nullptr, nullptr, sq, sp,
+                          ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
   }
   grid_barrier(grid, k);
   const float* bco = a.b_co + (size_t)l * E;
-  product_units(a, k, u_co, u_f1, E, [&](int r0, int rn) { stage_copy(k, ctx_c, r0, rn, E); },
+  product_units<W>(a, k, u_co, u_f1, E, [&](int r0, int rn) { stage_copy(k, ctx_c, r0, rn, E); },
                 [&](int r, int c) { return make_float2(bco[c], x1[(size_t)r * E + c]); },
                 [&](int r, int c, float y, float2 p) { h2[(size_t)r * E + c] = p.y + (y + p.x); });
   grid_barrier(grid, k);
 
   // 5. LN2 (prologue) and the alpha mean, FFN1, FFN2 and residual.
   const float* bf1 = a.b_f1 + (size_t)l * F;
-  product_units(a, k, u_f1, u_f2, E,
+  product_units<W>(a, k, u_f1, u_f2, E,
                 [&](int r0, int rn) { stage_ln(a, k, h2, a.ln2_w + (size_t)l * E, a.ln2_b + (size_t)l * E, x2, r0, rn); },
                 [&](int, int c) { return make_float2(bf1[c], 0.f); },
                 [&](int r, int c, float y, float2 p) { hid[(size_t)r * F + c] = fmaxf(y + p.x, 0.f); });
@@ -854,7 +1024,7 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
   }
   grid_barrier(grid, k);
   const float* bf2 = a.b_f2 + (size_t)l * E;
-  product_units(a, k, u_f2, u_f2 + ne, F, [&](int r0, int rn) { stage_copy(k, hid, r0, rn, F); },
+  product_units<W>(a, k, u_f2, u_f2 + ne, F, [&](int r0, int rn) { stage_copy(k, hid, r0, rn, F); },
                 [&](int r, int c) { return make_float2(bf2[c], x2[(size_t)r * E + c]); },
                 [&](int r, int c, float y, float2 p) { h3[(size_t)r * E + c] = p.y + (y + p.x); });
   grid_barrier(grid, k);
@@ -873,7 +1043,7 @@ __device__ void ln3_owned(const Args& a, const Blk& k, int l) {
     }
 }
 
-template <int VEC>
+template <int VEC, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(const Args a0) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char smem[];
@@ -881,7 +1051,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(const Args a0
   Blk k;
   blk_init(a, k, smem);
   stamp(k, 0);
-  decode_layer<VEC>(a, k, grid, a.layer, 0, a.pos, kInRows, nullptr, 0);
+  decode_layer<VEC, BF>(a, k, grid, a.layer, 0, a.pos, kInRows, nullptr, 0);
   ln3_owned(a, k, a.layer);
   stamp(k, 4);
   ring_drain(a, k);
@@ -896,7 +1066,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_onecell_kernel(const Args 
   blk_init(a, k, smem);
   stamp(k, 0);
   for (int l = 0; l < a.L; ++l)
-    decode_layer<VEC>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
+    decode_layer<VEC, false>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
   ln3_owned(a, k, a.L - 1);
   stamp(k, 4);
   ring_drain(a, k);
@@ -975,11 +1145,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args 
     a.k_new = cache_k + (size_t)s * E;
     a.v_new = cache_v + (size_t)s * E;
     for (int l = 0; l < L; ++l)
-      decode_layer<VEC>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
+      decode_layer<VEC, false>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
 
     // The head; its prologue is the last LN3.  Rows still running write
     // their logits and merge their keys.
-    product_units(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
+    product_units<float>(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
                   [&](int r0, int rn) {
                     stage_ln(a, k, h3, a.ln3_w + (size_t)(L - 1) * E, a.ln3_b + (size_t)(L - 1) * E, x, r0, rn);
                   },
@@ -1006,11 +1176,12 @@ __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args 
   ring_drain(a, k);
 }
 
-// Any head width E / H; the products need E % 4 == 0 and F % 4 == 0 (float4
-// rows, 16-byte bulk copies), the LayerNorms E <= 1024 (a row in one
-// warp's registers).
-bool shapes_ok(int T, int E, int H, int F, int pos) {
-  return H > 0 && E % H == 0 && E % 4 == 0 && F % 4 == 0 && E <= 32 * 4 * kLnVec && pos >= 0 && pos < T;
+// Any head width E / H; the products need E and F to be whole 16-byte
+// rows of wsize-byte weights (float4 rows, 16-byte bulk copies: % 4, or %
+// 8 in bf16), the LayerNorms E <= 1024 (a row in one warp's registers).
+bool shapes_ok(int T, int E, int H, int F, int pos, int wsize) {
+  const int row = 16 / wsize;
+  return H > 0 && E % H == 0 && E % row == 0 && F % row == 0 && E <= 32 * 4 * kLnVec && pos >= 0 && pos < T;
 }
 
 // The plan covers every output column once and each unit fits its slot.
@@ -1062,18 +1233,22 @@ int launch(const void* kernel, Args& a, size_t smem, void* stream) {
 long long round4(long long n) { return (n + 3) / 4 * 4; }
 
 // The layer and one-cell launches: check, fill the launch fields, launch.
-int layer_launch(Args& a, const int* plan, int smem, bool one_cell, void* stream) {
-  if (!shapes_ok(a.T, a.E, a.H, a.F, a.pos)) return (int)cudaErrorInvalidValue;
+// bf16: the per-layer kernel's bf16 arm (no one-cell instance).
+int layer_launch(Args& a, const int* plan, int smem, bool one_cell, bool bf16, void* stream) {
+  a.wsize = bf16 ? 2 : 4;
+  if ((bf16 && one_cell) || !shapes_ok(a.T, a.E, a.H, a.F, a.pos, a.wsize)) return (int)cudaErrorInvalidValue;
   a.plan = read_plan(plan);
   if (!plan_ok(a.plan, a.R, a.E, a.F, 0) ||
-      smem_layout_bytes(a.plan, a.R, a.T, a.P, a.E, a.H, a.F, false) != (size_t)smem)
+      smem_layout_bytes(a.plan, a.R, a.T, a.P, a.E, a.H, a.F, false, a.wsize) != (size_t)smem)
     return (int)cudaErrorInvalidValue;
   a.l0 = one_cell ? 0 : a.layer;
   a.Lr = one_cell ? a.L : 1;
   set_units(a, 1);
   const bool v4 = vec4_heads(a.E, a.H);
-  const void* kernel = one_cell ? (v4 ? (const void*)decode_onecell_kernel<4> : (const void*)decode_onecell_kernel<1>)
-                                : (v4 ? (const void*)decode_layer_kernel<4> : (const void*)decode_layer_kernel<1>);
+  const void* kernel =
+      one_cell ? (v4 ? (const void*)decode_onecell_kernel<4> : (const void*)decode_onecell_kernel<1>)
+      : bf16   ? (v4 ? (const void*)decode_layer_kernel<4, true> : (const void*)decode_layer_kernel<1, true>)
+               : (v4 ? (const void*)decode_layer_kernel<4, false> : (const void*)decode_layer_kernel<1, false>);
   return launch(kernel, a, smem, stream);
 }
 
@@ -1109,7 +1284,28 @@ int tc_decode_layer_forward(
   Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
          w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, layer, L, R, T, P, E, H, F, pos};
-  return layer_launch(a, plan, smem, false, stream);
+  return layer_launch(a, plan, smem, false, false, stream);
+}
+
+// The bf16 arm of one decoder layer: the same arguments, with the six
+// weight matrices, k_new / v_new, the caches and the memory K/V in bf16 and
+// the rest (x_in, x_out, alpha, the biases, the LayerNorms, the scratch) in
+// f32; the plan is decode_plan(..., esize=2).
+int tc_decode_layer_forward_bf16(
+    const float* x_in, float* x_out, float* alpha, void* k_new, void* v_new,
+    const void* w_qkv, const float* b_qkv, const void* w_so, const float* b_so,
+    const void* w_cq, const float* b_cq, const void* w_co, const float* b_co,
+    const void* w_f1, const float* b_f1, const void* w_f2, const float* b_f2,
+    const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
+    const float* ln3_w, const float* ln3_b, const void* cache_k, const void* cache_v,
+    const void* mem_k, const void* mem_v, float* scratch, int layer, int L, int R, int T,
+    int P, int E, int H, int F, int pos, const int* plan, int smem, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };  // Args' pointer type (see Args)
+  Args a{x_in, x_out, alpha, static_cast<float*>(k_new), static_cast<float*>(v_new), (size_t)R * E, (size_t)E,
+         f(w_qkv), b_qkv, f(w_so), b_so, f(w_cq), b_cq, f(w_co), b_co, f(w_f1), b_f1, f(w_f2), b_f2,
+         ln1_w, ln1_b, ln2_w, ln2_b, ln3_w, ln3_b, f(cache_k), f(cache_v), f(mem_k), f(mem_v), scratch,
+         layer, L, R, T, P, E, H, F, pos};
+  return layer_launch(a, plan, smem, false, true, stream);
 }
 
 // All L decoder layers for all R rows in one launch; the same arguments as
@@ -1126,7 +1322,7 @@ int tc_decode_onecell_forward(
   Args a{x_in, x_out, alpha, k_new, v_new, (size_t)R * E, (size_t)E, w_qkv, b_qkv, w_so, b_so,
          w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, T, P, E, H, F, pos};
-  return layer_launch(a, plan, smem, true, stream);
+  return layer_launch(a, plan, smem, true, false, stream);
 }
 
 // A whole greedy rollout of `steps` tokens for R rows.  cache_k/v are
@@ -1143,10 +1339,10 @@ int tc_decode_rollout(
     const float* ln3_w, const float* ln3_b, const float* mem_k, const float* mem_v,
     float* cache_k, float* cache_v, int* state, float* scratch, int L, int R, int P, int E,
     int H, int F, int V, int steps, int end_id, const int* plan, int smem, void* stream) {
-  if (!shapes_ok(steps, E, H, F, 0) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
+  if (!shapes_ok(steps, E, H, F, 0, 4) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
     return (int)cudaErrorInvalidValue;
   const Plan p = read_plan(plan);
-  if (!plan_ok(p, R, E, F, V) || smem_layout_bytes(p, R, steps, P, E, H, F, true) != (size_t)smem)
+  if (!plan_ok(p, R, E, F, V) || smem_layout_bytes(p, R, steps, P, E, H, F, true, 4) != (size_t)smem)
     return (int)cudaErrorInvalidValue;
   float* x = scratch + round4(layer_scratch_floats(R, E, H, F, P));
   float* alpha = x + round4((long long)R * E);
@@ -1157,6 +1353,7 @@ int tc_decode_rollout(
          ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0,
          embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, best, state,
          V, steps, end_id, p, 0, L};
+  a.wsize = 4;
   set_units(a, steps);
   const void* kernel = vec4_heads(E, H) ? (const void*)decode_rollout_kernel<4>
                                          : (const void*)decode_rollout_kernel<1>;

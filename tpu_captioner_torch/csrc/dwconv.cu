@@ -1,7 +1,7 @@
 // The ConvNeXt block's 7x7 depthwise convolution, NHWC, stride 1, pad 3, f32,
 // for Hopper (sm_90a): the forward (also the input gradient, with the filter
 // flipped), with an optional bias, and the filter gradient, with an optional
-// bias gradient.
+// bias gradient; and the forward's bf16 instance, for the bf16 encoder.
 //
 // Replaces two TPU kernels of tpu_captioner/ops/dwconv.py:
 // - _dw_kernel (:37) -> dwconv_fwd_kernel:
@@ -12,6 +12,13 @@
 // - _dwg_kernel (:97) -> dwconv_wgrad_kernel:
 //     dw[dy,dx,c] = sum_{b,h,w} x_pad[b,h+dy,w+dx,c] * g[b,h,w,c]
 //     d_bias[c]   = sum_{b,h,w} g[b,h,w,c]              (when asked for)
+//   _dw_kernel's bf16 arm (bf16 x and filter, f32 sums, a bf16 output) ->
+//   dwconv_fwd_kernel<__nv_bfloat16, ...>: the same kernel with bf16 boxes
+//   and filter in shared memory (TMA copies them as they are stored; C % 8
+//   == 0), widened to f32 as the consumers read them, and the JAX block's
+//   two roundings in the epilogue: y = bf16(bf16(sum) + bias)
+//   (tpu_captioner/models/convnext.py:154-155).  Half the bytes of the f32
+//   forward, and the same 49 multiply-adds.
 //
 // What bounds them on the H100: bytes.  The forward moves each input and
 // output value once and does 49 multiply-adds per output: a bs-32 encoder
@@ -63,6 +70,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,12 +89,13 @@ constexpr int kMaxCluster = 8;  // filter-gradient blocks per channel chunk: a p
 constexpr int kSmemMax = 232448;
 constexpr int kHeader = 128 + 256;  // base alignment slack, then the barriers
 
-// Bytes of a shared-memory region holding n bytes: 32 floats of slack (lanes
-// past cc read, and ignore, up to 31 floats past the last pixel), rounded to
-// 128 bytes (TMA destinations).
+// Bytes of a shared-memory region holding n bytes: 128 bytes of slack (lanes
+// past cc read, and ignore, up to 31 elements past the last pixel), rounded
+// to 128 bytes (TMA destinations).
 int region(long long n) { return (int)((n + 128 + 127) / 128 * 128); }
 
-// The launch's shape, from the plan; everything in floats unless named.
+// The launch's shape, from the plan; the regions in elements of the staged
+// type (floats, or bf16 in the bf16 forward) unless named.
 struct Geom {
   int B, H, W, C;
   int th, tw, cc, slots, parts;
@@ -98,12 +107,15 @@ struct Geom {
 };
 
 // The plan's derived numbers and the shared memory it needs; false if the
-// plan breaks a rule of these kernels or of TMA.
+// plan breaks a rule of these kernels or of TMA.  esize: the bytes of a
+// staged element, 4, or 2 for the bf16 forward.
 bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int slots, int parts, bool tma,
-               bool wgrad, int smem) {
+               bool wgrad, int smem, int esize = 4) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || cc < 1 || parts < 1 || slots < 2 || slots > kMaxSlots) return false;
   if (th % kR || tw % kS || th < kR || tw < kS || th > kMaxTile || tw > kMaxTile) return false;
-  if (tma && (C % 4 || cc % 4 || cc > 256)) return false;
+  if ((esize != 4 && esize != 2) || (wgrad && esize != 4)) return false;
+  const int row = 16 / esize;  // elements of a 16-byte box row
+  if (tma && (C % row || cc % row || cc > 256)) return false;
   if (wgrad && parts > kMaxCluster) return false;
   g.B = B, g.H = H, g.W = W, g.C = C, g.th = th, g.tw = tw, g.cc = cc, g.slots = slots, g.parts = parts;
   g.tiles_w = (W + tw - 1) / tw;
@@ -113,10 +125,10 @@ bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int 
   g.per32 = th / kR * g.cols;
   g.units = (cc + 31) / 32 * g.per32;
   if (g.units > kMaxWarps) return false;
-  const int x_bytes = region(4LL * (th + 2 * PAD) * (tw + 2 * PAD) * cc);
+  const int x_bytes = region((long long)esize * (th + 2 * PAD) * (tw + 2 * PAD) * cc);
   const int g_bytes = wgrad ? region(4LL * th * tw * cc) : 0;
-  const int w_bytes = wgrad ? 0 : region(4LL * kTaps * cc);
-  g.w_floats = w_bytes / 4, g.x_floats = x_bytes / 4, g.slot_floats = (x_bytes + g_bytes) / 4;
+  const int w_bytes = wgrad ? 0 : region((long long)esize * kTaps * cc);
+  g.w_floats = w_bytes / esize, g.x_floats = x_bytes / esize, g.slot_floats = (x_bytes + g_bytes) / esize;
   long long ring = (long long)slots * (x_bytes + g_bytes);
   if (wgrad) {  // the block's reduction reuses the ring
     const long long red = 4LL * kRows * (32 * g.units + cc);
@@ -136,32 +148,41 @@ __device__ __forceinline__ void tile_origin(const Geom& g, int t, int& b, int& h
 // The producer warp's own loads (kTma = false): rows [h0, h0 + rows) x
 // columns [w0, w0 + cols) x channels [c0, c0 + cc) of image b into dst, as
 // the tensor map's box would land; zeros outside the image and past C.
-__device__ __forceinline__ void stage_box(const float* __restrict__ src, const Geom& g, int b, int h0, int w0,
-                                          int c0, int rows, int cols, float* dst, int lane) {
+template <class T>
+__device__ __forceinline__ void stage_box(const T* __restrict__ src, const Geom& g, int b, int h0, int w0,
+                                          int c0, int rows, int cols, T* dst, int lane) {
   const int n = rows * cols * g.cc;
   for (int i = lane; i < n; i += 32) {
     const int c = i % g.cc, p = i / g.cc;
     const int h = h0 + p / cols, w = w0 + p % cols;
-    float v = 0.f;
+    T v = T(0.f);
     if (h >= 0 && h < g.H && w >= 0 && w < g.W && c0 + c < g.C)
-      v = __ldg(src + (((size_t)b * g.H + h) * g.W + w) * g.C + c0 + c);
+      v = src[(((size_t)b * g.H + h) * g.W + w) * g.C + c0 + c];
     dst[i] = v;
   }
 }
 
+// An output of the forward: f32 sum + bias, or in bf16 the JAX block's two
+// roundings, bf16(bf16(sum) + bias) (bv is the bf16 bias, 0 without one).
+__device__ __forceinline__ void store_out(float* p, float acc, float bv) { *p = acc + bv; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float acc, float bv) {
+  *p = __float2bfloat16(__bfloat162float(__float2bfloat16(acc)) + bv);
+}
+
 // grid (parts, channel chunks), 32 * (units + 1) threads: warps 0..units-1
-// consume, warp `units` produces.
-template <bool kTma, int kCc, int kTw>
+// consume, warp `units` produces.  T: the element type of x, w, bias and y
+// (float, or __nv_bfloat16), staged as it is stored.
+template <class T, bool kTma, int kCc, int kTw>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     dwconv_fwd_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-                      const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
-                      float* __restrict__ y, int flip, Geom g) {
+                      const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
+                      T* __restrict__ y, int flip, Geom g) {
   float* base = smem_base();
   uint64_t* full = reinterpret_cast<uint64_t*>(base);
   uint64_t* empty = full + kMaxSlots;
   uint64_t* wbar = empty + kMaxSlots;
-  float* ws = base + 64;  // (49, cc) filter slice
-  float* ring = ws + g.w_floats;
+  T* ws = reinterpret_cast<T*>(base + 64);  // (49, cc) filter slice
+  T* ring = ws + g.w_floats;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cc = kCc ? kCc : g.cc, tw = kTw ? kTw : g.tw;  // compile-time where specialised
   const int c0 = blockIdx.y * cc, part = blockIdx.x;
@@ -181,7 +202,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   if (warp == g.units) {  // the producer
     if (kTma) {
       if (lane == 0) {
-        mbar_expect_tx(wbar, 4 * kTaps * cc);
+        mbar_expect_tx(wbar, sizeof(T) * kTaps * cc);
         tma_load_2d(ws, &wmap, c0, 0, wbar);
         for (int i = 0; i < n_local; ++i) {
           const int s = i % g.slots;
@@ -189,14 +210,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           int b, h0, w0;
           tile_origin(g, part + i * g.parts, b, h0, w0);
           fence_proxy_async_shared();  // consumers' reads of the slot come before the copy's writes
-          mbar_expect_tx(&full[s], 4 * box_r * box_c * cc);
+          mbar_expect_tx(&full[s], sizeof(T) * box_r * box_c * cc);
           tma_load_4d(ring + s * g.slot_floats, &xmap, c0, w0 - PAD, h0 - PAD, b, &full[s]);
         }
       }
     } else {
       for (int i = lane; i < kTaps * g.cc; i += 32) {
         const int c = c0 + i % g.cc;
-        ws[i] = c < g.C ? __ldg(w + (size_t)(i / g.cc) * g.C + c) : 0.f;
+        ws[i] = c < g.C ? w[(size_t)(i / g.cc) * g.C + c] : T(0.f);
       }
       mbar_arrive(wbar);
       for (int i = 0; i < n_local; ++i) {
@@ -217,13 +238,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   mbar_wait(wbar, 0);
   float wr[kTaps];
 #pragma unroll
-  for (int t = 0; t < kTaps; ++t) wr[t] = ws[(flip ? kTaps - 1 - t : t) * cc + u.lc];
-  const float bv = bias != nullptr && valid ? __ldg(bias + c) : 0.f;
+  for (int t = 0; t < kTaps; ++t) wr[t] = to_f32(ws[(flip ? kTaps - 1 - t : t) * cc + u.lc]);
+  const float bv = bias != nullptr && valid ? to_f32(bias[c]) : 0.f;
 
   for (int i = 0; i < n_local; ++i) {
     const int s = i % g.slots;
     mbar_wait(&full[s], (i / g.slots) & 1);
-    const float* xs = ring + s * g.slot_floats + (u.prow * box_c + u.pcol) * cc + u.lc;
+    const T* xs = ring + s * g.slot_floats + (u.prow * box_c + u.pcol) * cc + u.lc;
     float acc[kR][kS];
     conv_patch(xs, box_c, cc, wr, acc);
     mbar_arrive(&empty[s]);
@@ -234,10 +255,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int r = 0; r < kR; ++r) {
       const int h = h0 + u.prow + r;
       if (h >= g.H) break;
-      float* out = y + (((size_t)b * g.H + h) * g.W + w0 + u.pcol) * g.C + c;
+      T* out = y + (((size_t)b * g.H + h) * g.W + w0 + u.pcol) * g.C + c;
 #pragma unroll
       for (int o = 0; o < kS; ++o)
-        if (w0 + u.pcol + o < g.W) out[(size_t)o * g.C] = acc[r][o] + bv;
+        if (w0 + u.pcol + o < g.W) store_out(out + (size_t)o * g.C, acc[r][o], bv);
     }
   }
 }
@@ -368,15 +389,18 @@ bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 // Each kernel's instances (see the note at the top).
 constexpr int kInstances = 4;
 
-using FwdKernel = decltype(&dwconv_fwd_kernel<false, 0, 0>);
+template <class T>
+using FwdKernel = decltype(&dwconv_fwd_kernel<T, false, 0, 0>);
 using WgradKernel = decltype(&dwconv_wgrad_kernel<false, 0, 0>);
 
-// The forward at stages 1-3 (32 channels, 16 columns) and 4 (128, 8).
-FwdKernel pick_fwd(bool tma, int cc, int tw) {
-  if (!tma) return dwconv_fwd_kernel<false, 0, 0>;
-  if (cc == 32 && tw == 16) return dwconv_fwd_kernel<true, 32, 16>;
-  if (cc == 128 && tw == 8) return dwconv_fwd_kernel<true, 128, 8>;
-  return dwconv_fwd_kernel<true, 0, 0>;
+// The forward at stages 1-3 (32 channels, 16 columns) and 4 (128, 8), in
+// f32 and in bf16 alike.
+template <class T>
+FwdKernel<T> pick_fwd(bool tma, int cc, int tw) {
+  if (!tma) return dwconv_fwd_kernel<T, false, 0, 0>;
+  if (cc == 32 && tw == 16) return dwconv_fwd_kernel<T, true, 32, 16>;
+  if (cc == 128 && tw == 8) return dwconv_fwd_kernel<T, true, 128, 8>;
+  return dwconv_fwd_kernel<T, true, 0, 0>;
 }
 
 // The filter gradient at stages 1-3 (32 channels, 16 columns) and 4 (64, 8).
@@ -387,15 +411,16 @@ WgradKernel pick_wgrad(bool tma, int cc, int tw) {
   return dwconv_wgrad_kernel<true, 0, 0>;
 }
 
-// The filter (7, 7, C) as a 2-D map (C, 49) with boxes of (cc, 49).
-cudaError_t filter_map(CUtensorMap* map, const float* w, const Geom& g) {
+// The filter (7, 7, C) of esize-byte elements as a 2-D map (C, 49) with
+// boxes of (cc, 49).
+cudaError_t filter_map(CUtensorMap* map, const void* w, const Geom& g, int esize) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)g.C, (cuuint64_t)kTaps};
-  const cuuint64_t strides[1] = {4ull * g.C};
+  const cuuint64_t strides[1] = {(cuuint64_t)esize * g.C};
   const cuuint32_t box[2] = {(cuuint32_t)g.cc, (cuuint32_t)kTaps};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims, strides, box,
+  const CUresult r = encode(map, map_type(esize), 2, const_cast<void*>(w), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -435,6 +460,28 @@ int launch(Kernel kernel, dim3 grid, const Geom& g, int smem, int cluster, void*
   return (int)cudaGetLastError();
 }
 
+// The forward of T elements: check the plan, make the maps, launch.
+template <class T>
+int forward(const T* x, const T* w, const T* bias, T* y, int B, int H, int W, int C, int flip, int th, int tw,
+            int cc, int slots, int parts, int tma, int smem, void* stream) {
+  constexpr int esize = sizeof(T);
+  Geom g;
+  if (!make_geom(g, B, H, W, C, th, tw, cc, slots, parts, tma, false, smem, esize) ||
+      (long long)((C + cc - 1) / cc) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (tma && !(aligned16(x) && aligned16(w))) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap = {}, wmap = {};
+  if (tma) {
+    cudaError_t err = bind_device(x);
+    if (err == cudaSuccess)
+      err = nhwc_map(&xmap, x, g.B, g.H, g.W, g.C, g.cc, tw + 2 * PAD, th + 2 * PAD, esize);
+    if (err == cudaSuccess) err = filter_map(&wmap, w, g, esize);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const FwdKernel<T> kernel = pick_fwd<T>(tma, cc, tw);
+  return launch(kernel, dim3(parts, (C + cc - 1) / cc), g, smem, 1, stream, xmap, wmap, x, w, bias, y, flip, g);
+}
+
 }  // namespace
 
 extern "C" {
@@ -447,20 +494,17 @@ extern "C" {
 // cudaErrorInvalidValue without a launch.
 int tc_dwconv_forward(const float* x, const float* w, const float* bias, float* y, int B, int H, int W, int C,
                       int flip, int th, int tw, int cc, int slots, int parts, int tma, int smem, void* stream) {
-  Geom g;
-  if (!make_geom(g, B, H, W, C, th, tw, cc, slots, parts, tma, false, smem) ||
-      (long long)((C + cc - 1) / cc) > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (tma && !(aligned16(x) && aligned16(w))) return (int)cudaErrorInvalidValue;
-  CUtensorMap xmap = {}, wmap = {};
-  if (tma) {
-    cudaError_t err = bind_device(x);
-    if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, g.C, g.cc, tw + 2 * PAD, th + 2 * PAD);
-    if (err == cudaSuccess) err = filter_map(&wmap, w, g);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const FwdKernel kernel = pick_fwd(tma, cc, tw);
-  return launch(kernel, dim3(parts, (C + cc - 1) / cc), g, smem, 1, stream, xmap, wmap, x, w, bias, y, flip, g);
+  return forward(x, w, bias, y, B, H, W, C, flip, th, tw, cc, slots, parts, tma, smem, stream);
+}
+
+// The same of bf16 x, w, bias and y, the sums in f32, each output rounded
+// twice (bf16(bf16(sum) + bias)); the plan is dwconv_plan(..., esize=2).
+int tc_dwconv_forward_bf16(const void* x, const void* w, const void* bias, void* y, int B, int H, int W, int C,
+                           int flip, int th, int tw, int cc, int slots, int parts, int tma, int smem,
+                           void* stream) {
+  using bf = __nv_bfloat16;
+  return forward(static_cast<const bf*>(x), static_cast<const bf*>(w), static_cast<const bf*>(bias),
+                 static_cast<bf*>(y), B, H, W, C, flip, th, tw, cc, slots, parts, tma, smem, stream);
 }
 
 // dw (7, 7, C) = the filter gradient of the conv for input x and cotangent g,

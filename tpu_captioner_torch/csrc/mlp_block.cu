@@ -84,6 +84,17 @@
 // splitting the hidden sum across clusters.
 // What it reads again: x, once per chunk in every block of the cluster (S
 // x 4C / JC times a tile), and the weight planes once per tile from L2.
+//
+// The bf16 instance (tc_mlp_block_forward_bf16, the whole-tile path only):
+// the TPU kernel _kernel with bf16 x, residual, W1 and W2 and
+// mxu_dtype=float32, which the JAX bf16 encoder calls (precise=True,
+// tpu_captioner/models/convnext.py:163-171).  ln_rows reads bf16 rows, the
+// split reads bf16 weights (a bf16 value is a TF32 value: its lo plane is
+// zero, so the GEMM reads the weights' hi planes alone and runs two TF32
+// products a k-step, hi.hi and lo.hi of the f32 rows, exact f32 products),
+// and the second product's epilogue reads the bf16 residual and rounds the
+// f32 sum to bf16 once.  Half the bytes of x, the residual and the output;
+// two thirds of the f32 instance's tensor-core products.
 
 #include <cooperative_groups.h>
 
@@ -97,14 +108,21 @@ namespace {
 constexpr int kLnThreads = 256;
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {  // four bf16 (8 bytes), widened
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 __device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
 
 // ------------------------------------------------ the whole-tile path (SUB = 0)
 
-// LayerNorm of each row into its two TF32 planes, xs (N, C) and xs + N*C.
-template <int C>
-__global__ void __launch_bounds__(kLnThreads) ln_rows(const float* __restrict__ x, const float* __restrict__ lnw,
+// LayerNorm of each row of x (f32 or bf16) into its two TF32 planes, xs
+// (N, C) and xs + N*C.
+template <int C, class T>
+__global__ void __launch_bounds__(kLnThreads) ln_rows(const T* __restrict__ x, const float* __restrict__ lnw,
                                                      const float* __restrict__ lnb, float* __restrict__ xs,
                                                      int n) {
   const int row = (blockIdx.x * kLnThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
@@ -137,13 +155,14 @@ __global__ void __launch_bounds__(kLnThreads) ln_rows(const float* __restrict__ 
   }
 }
 
-template <int C>
-int whole_tile(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
-               const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma,
-               float* out, float* work, int n, cudaStream_t s) {
+// x, res, the weights and out of T: f32, or bf16 (the bf16 instance).
+template <int C, class T>
+int whole_tile(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb,
+               const T* w1, const float* b1, const T* w2, const float* b2, const float* gamma,
+               T* out, float* work, int n, cudaStream_t s) {
   cudaError_t err = split_weights<C>(w1, w2, work, n, s);
   if (err != cudaSuccess) return (int)err;
-  ln_rows<C><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(
+  ln_rows<C, T><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(
       x, lnw, lnb, work + make_plan(n, C).xs, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)products<C>(res, sd, 1, b1, b2, gamma, out, work, n, s);
@@ -784,6 +803,27 @@ int tc_mlp_phase_clocks(unsigned long long* out) {
   (void)out;
   return -1;
 #endif
+}
+
+// The bf16 instance: x, res, w1, w2 and out bf16, the rest as
+// tc_mlp_block_forward; the whole-tile path only (sub must be 0: the
+// sub-tiled path takes f32).
+int tc_mlp_block_forward_bf16(const void* x, const void* res, const float* sd, const float* lnw,
+                              const float* lnb, const void* w1, const float* b1, const void* w2, const float* b2,
+                              const float* gamma, void* out, float* work, int n, int c, int sub, void* stream) {
+  using bf = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || sub != 0) return (int)cudaErrorInvalidValue;
+#define TC_ARGS static_cast<const bf*>(x), static_cast<const bf*>(res), sd, lnw, lnb, static_cast<const bf*>(w1), \
+                b1, static_cast<const bf*>(w2), b2, gamma, static_cast<bf*>(out), work, n, s
+  switch (c) {
+    case 128: return whole_tile<128>(TC_ARGS);
+    case 256: return whole_tile<256>(TC_ARGS);
+    case 512: return whole_tile<512>(TC_ARGS);
+    case 1024: return whole_tile<1024>(TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC_ARGS
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -17,6 +17,10 @@
 // (mlp_block.cu: fused_kernel) keeps h on chip instead: one launch whose
 // clusters share each hidden chunk through distributed shared memory.
 // Rows with sd 0 return res bit for bit: res + 0 * (finite) is res.
+// The MLP tail's bf16 instance reads bf16 res and writes bf16 out (T) and
+// splits bf16 weights (exact in TF32: their lo planes are zero, so each
+// product reads the weight's hi plane alone and runs two TF32 products, not
+// three); the sums, h and the epilogues stay f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,20 +46,30 @@ struct HiddenEpi {  // h = gelu(v + b1) into h's planes (N, 4C)
   }
 };
 
-struct OutEpi {  // out = res + sd[m / per] * ((v + b2) * gamma)
-  const float* res;
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+template <class T = float>
+struct OutEpi {  // out = res + sd[m / per] * ((v + b2) * gamma), res and out of T
+  const T* res;
   const float* sd;
   int per;  // rows per scale
   const float* b2;
   const float* gamma;
-  float* out;
+  T* out;
   int ld;
   __device__ void operator()(int m, int n, float2 v) const {
     const size_t o = (size_t)m * ld + n;
-    const float2 r = *reinterpret_cast<const float2*>(res + o), b = *reinterpret_cast<const float2*>(b2 + n);
+    const float2 r = load2(res + o), b = *reinterpret_cast<const float2*>(b2 + n);
     const float2 g = *reinterpret_cast<const float2*>(gamma + n);
     const float s = sd[per == 1 ? m : m / per];
-    *reinterpret_cast<float2*>(out + o) = make_float2(r.x + s * ((v.x + b.x) * g.x), r.y + s * ((v.y + b.y) * g.y));
+    store2(out + o, make_float2(r.x + s * ((v.x + b.x) * g.x), r.y + s * ((v.y + b.y) * g.y)));
   }
 };
 
@@ -78,27 +92,29 @@ inline Plan make_plan(int n, int c) {
   return p;
 }
 
-// W1's and W2's TF32 planes into the workspace of n rows.
-template <int C>
-cudaError_t split_weights(const float* w1, const float* w2, float* work, int n, cudaStream_t s) {
+// W1's and W2's TF32 planes (from f32 or bf16 weights) into the workspace
+// of n rows.
+template <int C, class W>
+cudaError_t split_weights(const W* w1, const W* w2, float* work, int n, cudaStream_t s) {
   const Plan p = make_plan(n, C);
   cudaError_t err = tf32x3::split(w1, 4 * C, C, work + p.w1s, nullptr, 0, s);
   if (err == cudaSuccess) err = tf32x3::split(w2, C, 4 * C, work + p.w2s, nullptr, 0, s);
   return err;
 }
 
-// The two products over the LayerNorm planes already in the workspace.
-template <int C>
-cudaError_t products(const float* res, const float* sd, int per, const float* b1, const float* b2,
-                     const float* gamma, float* out, float* work, int n, cudaStream_t s) {
+// The two products over the LayerNorm planes already in the workspace; res
+// and out of T, and the weights' too (bf16 T: their hi planes alone).
+template <int C, class T>
+cudaError_t products(const T* res, const float* sd, int per, const float* b1, const float* b2,
+                     const float* gamma, T* out, float* work, int n, cudaStream_t s) {
   using tf32x3::Operand;
-  constexpr int C4 = 4 * C;
+  constexpr int C4 = 4 * C, kWPlanes = sizeof(T) == 4 ? 2 : 1;
   const Plan p = make_plan(n, C);
   const long long nc = (long long)n * C;
   const Operand xo{work + p.xs, n, C, C, nc}, w1o{work + p.w1s, C4, C, C, 4LL * C * C};
   const Operand ho{work + p.h, n, C4, C4, 4 * nc}, w2o{work + p.w2s, C, C4, C4, 4LL * C * C};
-  cudaError_t err = tf32x3::gemm(xo, w1o, HiddenEpi{b1, work + p.h, 4 * nc, C4}, s);
-  if (err == cudaSuccess) err = tf32x3::gemm(ho, w2o, OutEpi{res, sd, per, b2, gamma, out, C}, s);
+  cudaError_t err = tf32x3::gemm<kWPlanes>(xo, w1o, HiddenEpi{b1, work + p.h, 4 * nc, C4}, s);
+  if (err == cudaSuccess) err = tf32x3::gemm<kWPlanes>(ho, w2o, OutEpi<T>{res, sd, per, b2, gamma, out, C}, s);
   return err;
 }
 

@@ -30,12 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_captioner_torch.models.lstm import flatten_pixels
-from tpu_captioner_torch.ops.decode_step import (
-    apply_cache_update,
-    fused_decode_step,
-    prepare_cross_memory,
-    prepare_decode_weights,
-)
+from tpu_captioner_torch.ops.decode_step import apply_cache_update, fused_decode_step
 from tpu_captioner_torch.ops.lstm_step import fused_lstm_step, prepare_lstm_weights
 
 
@@ -162,20 +157,20 @@ def _transformer_beam(model, enc_out, beam_size, max_steps):
 
 def _transformer_beam_fused(model, enc_out, beam_size, max_steps):
     """Kernel adapter: the whole decode body as ``fused_decode_step`` over all
-    B*k rows (the CUDA kernel for CUDA tensors)."""
+    B*k rows (the CUDA kernel for CUDA tensors), in the arm of the model's
+    dtype (``CaptionModel.dtype``, through ``kernel_operands``: a bf16
+    model's weights, memory K/V and caches in bf16, as
+    tpu_captioner/infer/beam.py:298-348 takes them on its chip)."""
     dec = model.decoder
     c = model.cfg
     B, k = enc_out.shape[0], beam_size
-    V, P, E = c.vocab_size, c.num_pixels, c.embed_dim
+    V, P = c.vocab_size, c.num_pixels
     mem = dec.project_memory(enc_out).repeat_interleave(k, dim=0)  # (B*k, P, E)
-    kw = prepare_decode_weights(dec.layers, E)
-    mem_k, mem_v = prepare_cross_memory(dec.layers, mem, E)
-    ck0 = torch.zeros(c.num_layers, B * k, max_steps + 2, E, device=mem.device)
-    cv0 = torch.zeros_like(ck0)
+    kw, mem_k, mem_v, ck0, cv0 = dec.kernel_operands(mem, max_steps + 2, model.dtype)
 
     def step_fn(state, prev_words, pos):
         ck, cv = state
-        x = dec.embed(prev_words.reshape(-1), pos)
+        x = dec.embed(prev_words.reshape(-1), pos).to(ck.dtype)
         x_out, alpha, k_new, v_new = fused_decode_step(
             kw, x.contiguous(), pos, ck, cv, mem_k, mem_v, c.num_heads
         )

@@ -38,6 +38,18 @@ scales a kept image by ``1 / survival``; the per-row scale is the fused
 tail's ``sd``.  ``draw_sd`` draws the scales from a generator; without them
 (eval) every scale is one.
 
+bf16 (``ModelConfig.compute_dtype``; eval only): the blocks run on bf16
+activations with each weight cast to bf16 at use, the parameters staying
+f32 as in the JAX package (tpu_captioner/models/convnext.py:46-48,
+144-180, 185-215), and round where its bf16 blocks round: the stem and
+downsample convs in bf16 with the bias added after the conv, their
+LayerNorms in f32 and then cast; the depthwise conv's output rounded to
+bf16 and then again after its bias; in ``'mlp'`` the fused tail on bf16
+rows, residual and matrices with f32 vectors, LayerNorm and sums (the
+JAX kernel branch, ``precise=True``); in ``'off'`` the JAX XLA branch's
+bf16 ops one by one (LayerNorm cast to bf16, products, biases, the erfc
+GELU, layer scale, residual).  The two branches round differently.
+
 Fine-tuning (``ConvNeXtFeatures.forward(..., grad_from=i)``): children below
 ``i`` run under ``no_grad``, so the backward stops at child ``i``'s input;
 the others run with autograd, through the fused tail's backward kernel.
@@ -75,12 +87,31 @@ def sd_probs(depths: Sequence[int]) -> List[float]:
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Apply ``conv`` to an NHWC tensor; returns NHWC."""
+    """Apply ``conv`` to an NHWC tensor; returns NHWC.  A bf16 x convolves
+    with the weight cast to bf16 and adds the bias, cast too, after the
+    conv: two roundings, as flax's bf16 ``nn.Conv`` and the JAX block's
+    depthwise conv round."""
+    bf16 = x.dtype == torch.bfloat16
     y = F.conv2d(
-        x.permute(0, 3, 1, 2), conv.weight, conv.bias,
+        x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None if bf16 else conv.bias,
         stride=conv.stride, padding=conv.padding, groups=conv.groups,
-    )
-    return y.permute(0, 2, 3, 1)
+    ).permute(0, 2, 3, 1)
+    return y + conv.bias.to(x.dtype) if bf16 else y
+
+
+def layer_norm_as(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``ln`` of x in f32, returned in x's dtype (the JAX package's f32
+    LayerNorms in a bf16 encoder)."""
+    return ln(x) if x.dtype == torch.float32 else ln(x.float()).to(x.dtype)
+
+
+_SQRT_HALF_BF16 = 0.70703125  # sqrt(0.5) rounded to bf16
+
+
+def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=False) on a bf16 tensor, each op rounding to
+    bf16: 0.5 * x * erfc(-x * bf16(sqrt(1/2)))."""
+    return (0.5 * x) * torch.erfc(-x * _SQRT_HALF_BF16)
 
 
 class CNBlock(nn.Module):
@@ -115,6 +146,8 @@ class CNBlock(nn.Module):
     def forward(self, x: torch.Tensor, sd_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, H, W, C) -> (B, H, W, C); ``sd_rows`` (B,) is the per-image
         stochastic-depth scale (ones when None)."""
+        if x.dtype == torch.bfloat16:
+            return self._forward_bf16(x, sd_rows)
         b, h, w, c = x.shape
         conv, ln, pw1, pw2 = self.block[0], self.block[2], self.block[3], self.block[5]
         if self.mode == "block" or self.dw_kernel or self.dw_grad_kernel:
@@ -138,6 +171,36 @@ class CNBlock(nn.Module):
             self.layer_scale.view(-1),
         )
         return out.view(x.shape)
+
+    def _forward_bf16(self, x: torch.Tensor, sd_rows: Optional[torch.Tensor]) -> torch.Tensor:
+        """The block on bf16 x, its weights cast to bf16 at use: the conv and
+        its bias rounded one after the other, then ``'mlp'``'s fused tail or
+        ``'off'``'s bf16 ops (the module docstring)."""
+        if self.mode == "block":
+            raise NotImplementedError(
+                "use_pallas='block' in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
+        b, h, w, c = x.shape
+        dt = x.dtype
+        conv, ln, pw1, pw2 = self.block[0], self.block[2], self.block[3], self.block[5]
+        if self.dw_kernel or self.dw_grad_kernel:
+            taps = conv.weight.view(c, 7 * 7).t().contiguous().view(7, 7, c).to(dt)
+            y = depthwise_conv7x7_nhwc(x.contiguous(), taps, self.dw_kernel, self.dw_grad_kernel, conv.bias.to(dt))
+        else:
+            y = conv_nhwc(x, conv)
+        sd = torch.ones(b, device=x.device) if sd_rows is None else sd_rows.float()
+        gamma = self.layer_scale.view(-1)
+        if self.use_kernel:
+            out = fused_convnext_mlp(
+                y.reshape(-1, c).contiguous(), x.reshape(-1, c).contiguous(),
+                sd.repeat_interleave(h * w).contiguous(), ln.weight, ln.bias,
+                pw1.weight.to(dt), pw1.bias, pw2.weight.to(dt), pw2.bias, gamma,
+            )
+            return out.view(x.shape)
+        t = layer_norm_as(ln, y)
+        u = gelu_bf16(F.linear(t, pw1.weight.to(dt)) + pw1.bias.to(dt))
+        u = F.linear(u, pw2.weight.to(dt)) + pw2.bias.to(dt)
+        u = (u * gamma.to(dt)) * sd.to(dt)[:, None, None, None]
+        return x + u
 
 
 class Stage(nn.Sequential):
@@ -177,7 +240,7 @@ class Stem(nn.Sequential):
         )
 
     def forward(self, x):
-        return self[1](conv_nhwc(x, self[0]))
+        return layer_norm_as(self[1], conv_nhwc(x, self[0]))
 
 
 class Downsample(nn.Sequential):
@@ -188,7 +251,7 @@ class Downsample(nn.Sequential):
         )
 
     def forward(self, x):
-        return conv_nhwc(self[0](x), self[1]).contiguous()
+        return conv_nhwc(layer_norm_as(self[0], x), self[1]).contiguous()
 
 
 class ConvNeXtFeatures(nn.Sequential):

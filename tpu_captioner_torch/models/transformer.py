@@ -39,6 +39,14 @@ token and site from the rollout's generator (``decode_step``'s ``drop``), with
 autograd through the whole loop; it runs every step, as the JAX package's
 ``lax.scan`` does.  Its KV caches grow by concatenation, not in place, so
 autograd keeps each step's keys.  The kernel rollouts stay deterministic.
+
+A bf16 model (``compute_dtype='bfloat16'``) hands its decoder bf16 encoder
+features; ``project_memory`` upcasts them, so every plain path computes in
+f32, as the JAX package's bf16 model does (its f32 weights promote the
+product).  The per-token kernel takes its bf16 arm there
+(``kernel_operands``): bf16 weight matrices, memory K/V and caches, the
+embedded token cast to bf16, logits from its f32 output
+(tpu_captioner/models/transformer.py:519-552).
 """
 
 from __future__ import annotations
@@ -181,7 +189,8 @@ class TransformerDecoder(nn.Module):
 
     # -- shared pieces ------------------------------------------------------
     def project_memory(self, encoder_out: torch.Tensor) -> torch.Tensor:
-        """(B, 7, 7, C) or (B, P, C) -> (B, P, E)."""
+        """(B, 7, 7, C) or (B, P, C), f32 or bf16 -> (B, P, E) f32."""
+        encoder_out = encoder_out.float()
         if encoder_out.dim() == 4:
             encoder_out = encoder_out.flatten(1, 2)
         if hasattr(self, "encoder_proj"):
@@ -199,6 +208,19 @@ class TransformerDecoder(nn.Module):
     def embed(self, tokens: torch.Tensor, positions) -> torch.Tensor:
         """Token embedding + PE (eval: no dropout)."""
         return self._lookup(tokens) + self.pe[positions]
+
+    def kernel_operands(self, mem: torch.Tensor, steps: int, dt: torch.dtype):
+        """(weights, mem_k, mem_v, cache_k, cache_v) of ``fused_decode_step``
+        for the projected memory (R, P, E) and caches of ``steps``
+        positions: the weight matrices, the memory K/V (projected in f32)
+        and the zeroed caches in ``dt``, the storage dtype that picks the
+        kernel's arm (the model's dtype, ``CaptionModel.dtype``); the
+        vectors f32."""
+        E = self.cfg.embed_dim
+        w = decode_ops.cast_weight_matrices(decode_ops.prepare_decode_weights(self.layers, E), dt)
+        mem_k, mem_v = decode_ops.prepare_cross_memory(self.layers, mem, E)
+        ck = torch.zeros(self.cfg.num_layers, mem.shape[0], steps, E, device=mem.device, dtype=dt)
+        return w, mem_k.to(dt), mem_v.to(dt), ck, torch.zeros_like(ck)
 
     # -- teacher forcing ----------------------------------------------------
     def _mha_full(self, m: MultiheadAttention, q_in, kv_in, mask, train, generator):
@@ -392,6 +414,7 @@ class TransformerDecoder(nn.Module):
         end_id: int,
         max_decode_len: int,
         *,
+        dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         teacher_tokens: Optional[torch.Tensor] = None,
         teacher_prob: float = 0.0,
@@ -399,21 +422,19 @@ class TransformerDecoder(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """``rollout`` with the decode body of each token in
         ``fused_decode_step`` (L kernel launches per token, or one with
-        ``one_cell``), the cache rows persisted by ``apply_cache_update``,
-        then the vocab head and argmax in PyTorch."""
+        ``one_cell``) in the arm of ``dtype`` (``kernel_operands``; a
+        ``CaptionModel`` passes its own), the
+        cache rows persisted by ``apply_cache_update``, then the vocab head
+        and argmax in PyTorch."""
         c = self.cfg
-        E = c.embed_dim
         mem = self.project_memory(encoder_out)
         B = mem.shape[0]
         dev = mem.device
-        w = decode_ops.prepare_decode_weights(self.layers, E)
-        mem_k, mem_v = decode_ops.prepare_cross_memory(self.layers, mem, E)
-        ck = torch.zeros(c.num_layers, B, max_decode_len + 1, E, device=dev)
-        cv = torch.zeros_like(ck)
+        w, mem_k, mem_v, ck, cv = self.kernel_operands(mem, max_decode_len + 1, dtype)
         teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, max_decode_len, B, dev)
 
         def step_fn(tok, t):
-            x = self.embed(tok, t)
+            x = self.embed(tok, t).to(ck.dtype)
             x_out, alpha, k_new, v_new = decode_ops.fused_decode_step(
                 w, x.contiguous(), t, ck, cv, mem_k, mem_v, c.num_heads, one_cell=one_cell
             )

@@ -24,12 +24,29 @@ layer, or one per token with ``one_cell=True`` (the TPU's ``_kernel_onecell``);
 the rows it stages at once, the ring of weight slices in its shared memory)
 and sizes its shared memory.  For CPU tensors they run their plain versions,
 ``_decode_step_plain`` and ``_full_rollout_plain``.  Eval only: no dropout.
+
+The weight matrices' dtype picks ``fused_decode_step``'s instance, each
+an arm of the JAX package's ``precise`` keyword
+(tpu_captioner/ops/decode_step.py:370-371): f32 weights, JAX's
+``precise=True``, multiply f32 operands in f32; bf16 weights
+(``cast_weight_matrices(w, bfloat16)``) with bf16 x, caches and memory K/V,
+JAX's ``precise=False``, round both operands of every product to bf16 and
+sum in f32 (JAX's ``mxu_dtype=bfloat16``, :233-237), the head-selector sums
+included (:150, 155, 165, 169): each q.k product and each softmax
+probability is rounded to bf16 before it is summed per head; its k_new and
+v_new are bf16 and x_out and alpha f32, as the JAX kernel's.  Its plain
+version is ``_decode_step_plain_bf16``; its kernel,
+``decode_layer_kernel``'s bf16 instance.  The wrapper accepts JAX's
+``precise`` only as a check of the weights' dtype (a mismatch raises
+``ValueError``); the one-cell and whole-rollout kernels take f32 only
+(ROADMAP.md Queue 1 #5e).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -59,7 +76,7 @@ class DecodePlan(NamedTuple):
     hc: int  # vocab columns per ring unit (else 0)
     rc: int  # rows staged at once, a multiple of 16
     slots: int  # ring units (a block's weight rows of one product) in shared memory
-    slot_floats: int  # floats of a ring unit
+    slot_floats: int  # elements of a ring unit: floats, or bf16 values in the bf16 arm
     group: int  # ring units multiplied together
     smem_bytes: int
 
@@ -69,26 +86,32 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def decode_plan(kind: str, R: int, T: int, P: int, E: int, H: int, F: int, sms: int, V: int = 0) -> DecodePlan:
+def decode_plan(kind: str, R: int, T: int, P: int, E: int, H: int, F: int, sms: int, V: int = 0,
+                esize: int = 4) -> DecodePlan:
     """The plan of a ``kind`` launch ('layer', 'onecell' or 'rollout') on a
     card with ``sms`` SMs: each block owns ``ce`` (``cf``) columns of every
     product and ``cv`` vocab columns; the per-layer kernel at R >= 32 splits
     the grid into two row groups where that fits.  It takes the largest row
     chunk (up to 64), then the widest ring units, that leave room for a ring
     of 8 units (a layer's, at one unit per product; else 2, else 1), then as
-    many units as fit (all of the layer's in the per-layer kernel).  Raises ValueError when
+    many units as fit (all of the layer's in the per-layer kernel).
+    ``esize`` is the bytes of a weight element, 4, or 2 for the per-layer
+    kernel's bf16 arm: the ring holds the weights as they are stored, so
+    ``slot_floats`` counts elements of that size.  Raises ValueError when
     the shapes do not fit a block's shared memory."""
     rollout = kind == "rollout"
+    if esize not in (2, 4) or (esize == 2 and kind != "layer"):
+        raise ValueError(f"decode_plan: weights of 4 bytes, or 2 for the per-layer kernel, got {esize} for {kind!r}")
     for need in (8, 2, 1):
         for gr in (2, 1) if kind == "layer" and R >= 2 * _ROW_TILE and sms >= 2 else (1,):
-            plan = _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V if rollout else 0)
+            plan = _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V if rollout else 0, esize)
             if plan is not None:
                 return plan
     raise ValueError(f"decode kernel: R={R}, E={E}, F={F}, H={H}, T={T}, P={P} do not fit "
                      f"{SMEM_LIMIT} bytes of shared memory per block")
 
 
-def _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V):
+def _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V, esize):
     """``decode_plan`` at ``gr`` row groups with at least ``need`` ring
     units; None when nothing fits."""
     gc = sms // gr
@@ -103,7 +126,7 @@ def _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V):
             upl = 7 * _ceil(ce, uc) + _ceil(cf, uc)
             want = upl if kind == "layer" else _MAX_SLOTS
             for slots in range(want, need - 1, -1):
-                smem = (_ceil(8 * (slots + 1), 128) * 128 + 4 * slots * slot + 4 * rc * max(E, F) + 8 * E
+                smem = (_ceil(8 * (slots + 1), 128) * 128 + esize * slots * slot + 4 * rc * max(E, F) + 8 * E
                         + attn + state)
                 if smem <= SMEM_LIMIT:
                     hc = min(cv, slot // E) if V else 0
@@ -218,6 +241,74 @@ def _decode_step_plain(
     return x, alpha, torch.stack(k_news), torch.stack(v_news)
 
 
+_MATRICES = ("w_qkv", "w_so", "w_cq", "w_co", "w_f1", "w_f2")
+
+
+def cast_weight_matrices(w: DecodeWeights, dtype: torch.dtype) -> DecodeWeights:
+    """The six weight matrices in ``dtype``, the biases and LayerNorm
+    parameters as they are (tpu_captioner/ops/decode_step.py:552)."""
+    return w._replace(**{f: getattr(w, f).to(dtype).contiguous() for f in _MATRICES})
+
+
+def _decode_step_plain_bf16(
+    w: DecodeWeights, x, pos: int, cache_k, cache_v, mem_k, mem_v, num_heads: int, sums=torch.float32
+):
+    """Plain PyTorch version of the bf16 arm: the JAX kernel's
+    ``_layer_step`` with bf16 multiplicands (tpu_captioner/ops/decode_step.py:
+    125-182), on bf16 x, matrices, caches and memory K/V.  The hidden state
+    stays f32 between products; every product rounds both operands to bf16;
+    the scores sum bf16(k q / sqrt(dh)) over each head's dims (the new k at
+    ``pos`` unrounded, in f32), the context sums v times bf16(p); alpha
+    averages the unrounded cross probabilities.  Returns x_out and alpha in
+    f32, k_new and v_new in the caches' dtype.  ``sums`` is the dtype the
+    sums run in: float64 gives the same roundings to bf16 with other f32
+    sums, the noise floor another correct implementation lands within
+    (``chip_smoke.py`` phase 11)."""
+    L, R, _, E = cache_k.shape
+    P, H = mem_k.shape[2], num_heads
+    dh = E // H
+    scale = 1.0 / math.sqrt(dh)
+    x = x.to(sums)
+    alpha = x.new_zeros(R, P)
+    k_news, v_news = [], []
+
+    def bf(t):  # rounded to bf16, then summed in `sums`
+        return t.to(torch.bfloat16).to(sums)
+
+    def mm(a, m):  # a (..., K) times the (N, K) matrix m transposed: JAX's ``mm`` with bf16 multiplicands
+        return F.linear(bf(a), m.to(sums))
+
+    def vec(v):
+        return v.to(sums)
+
+    def ln(v, s, b):
+        return F.layer_norm(v, (E,), vec(s), vec(b), LN_EPS)
+
+    def attend(q, keys, vals):  # q (R, E) scaled; keys, vals (R, n, E)
+        n = keys.shape[1]
+        scores = bf(keys * q[:, None, :]).view(R, n, H, dh).sum(-1)
+        probs = torch.softmax(scores, dim=1)  # (R, n, H)
+        ctx = (vals.view(R, n, H, dh) * bf(probs)[..., None]).sum(1)
+        return ctx.reshape(R, E), probs
+
+    for l in range(L):
+        qkv = mm(x, w.w_qkv[l]) + vec(w.b_qkv[l])
+        q, k_new, v_new = qkv[:, :E] * scale, qkv[:, E : 2 * E], qkv[:, 2 * E :]
+        ctx, _ = attend(q, torch.cat([cache_k[l, :, :pos].to(sums), k_new[:, None]], 1),
+                        torch.cat([cache_v[l, :, :pos].to(sums), v_new[:, None]], 1))
+        x = ln(x + mm(ctx, w.w_so[l]) + vec(w.b_so[l]), w.ln1_s[l], w.ln1_b[l])
+        q2 = (mm(x, w.w_cq[l]) + vec(w.b_cq[l])) * scale
+        ctx2, probs2 = attend(q2, mem_k[l].to(sums), mem_v[l].to(sums))
+        alpha = alpha + probs2.mean(dim=2) / L
+        x = ln(x + (mm(ctx2, w.w_co[l]) + vec(w.b_co[l])), w.ln2_s[l], w.ln2_b[l])
+        h = torch.relu(mm(x, w.w_f1[l]) + vec(w.b_f1[l]))
+        x = ln(x + (mm(h, w.w_f2[l]) + vec(w.b_f2[l])), w.ln3_s[l], w.ln3_b[l])
+        k_news.append(k_new.to(cache_k.dtype))
+        v_news.append(v_new.to(cache_v.dtype))
+    f32 = torch.float32
+    return x.to(f32), alpha.to(f32), torch.stack(k_news), torch.stack(v_news)
+
+
 def _check_tensors(device, shapes) -> None:
     """Each ``name: (tensor, shape)`` on ``device``, of its dtype and shape,
     contiguous and 16-byte aligned: what the kernels read."""
@@ -232,16 +323,18 @@ def _check_tensors(device, shapes) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _weight_shapes(w: DecodeWeights, L: int, E: int, num_heads: int):
+def _weight_shapes(w: DecodeWeights, L: int, E: int, num_heads: int, mat=torch.float32):
+    """The weights' shapes and dtypes: the matrices of dtype ``mat``, the
+    vectors f32."""
     Fd = w.w_f1.shape[1]
     f32 = torch.float32
     shapes = {
-        "w_qkv": (w.w_qkv, (L, 3 * E, E), f32), "b_qkv": (w.b_qkv, (L, 3 * E), f32),
-        "w_f1": (w.w_f1, (L, Fd, E), f32), "b_f1": (w.b_f1, (L, Fd), f32),
-        "w_f2": (w.w_f2, (L, E, Fd), f32),
+        "w_qkv": (w.w_qkv, (L, 3 * E, E), mat), "b_qkv": (w.b_qkv, (L, 3 * E), f32),
+        "w_f1": (w.w_f1, (L, Fd, E), mat), "b_f1": (w.b_f1, (L, Fd), f32),
+        "w_f2": (w.w_f2, (L, E, Fd), mat),
     }
     for name in ("w_so", "w_cq", "w_co"):
-        shapes[name] = (getattr(w, name), (L, E, E), f32)
+        shapes[name] = (getattr(w, name), (L, E, E), mat)
     for name in ("b_so", "b_cq", "b_co", "b_f2", "ln1_s", "ln1_b", "ln2_s", "ln2_b", "ln3_s", "ln3_b"):
         shapes[name] = (getattr(w, name), (L, E), f32)
     # Any head width: the kernels load keys as float4 when E/H % 4 == 0 and
@@ -249,22 +342,24 @@ def _weight_shapes(w: DecodeWeights, L: int, E: int, num_heads: int):
     # products (E and F % 4) and a LayerNorm row in one warp (E <= 1024).
     if num_heads < 1 or E % num_heads:
         raise ValueError(f"kernel needs E divisible by the heads (E={E}, H={num_heads})")
-    if E % 4 or Fd % 4:
-        raise ValueError(f"kernel needs E and F divisible by 4 for its float4 rows (E={E}, F={Fd})")
+    row = 4 if mat == f32 else 8  # elements of a 16-byte bulk-copy granule
+    if E % row or Fd % row:
+        raise ValueError(f"kernel needs E and F divisible by {row} for its 16-byte rows (E={E}, F={Fd})")
     if E > MAX_E:
         raise ValueError(f"kernel holds a LayerNorm row in one warp: E <= {MAX_E}, got {E}")
     return shapes
 
 
-def _check(w: DecodeWeights, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads):
+def _check(w: DecodeWeights, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads, dt=torch.float32):
+    """The kernel's operands: the matrices, x, caches and memory K/V of
+    storage dtype ``dt``, the vectors f32."""
     L, R, T, E = cache_k.shape
     P = mem_k.shape[2]
-    f32 = torch.float32
-    shapes = _weight_shapes(w, L, E, num_heads)
+    shapes = _weight_shapes(w, L, E, num_heads, dt)
     shapes.update({
-        "x": (x, (R, E), f32), "cache_k": (cache_k, (L, R, T, E), f32),
-        "cache_v": (cache_v, (L, R, T, E), f32),
-        "mem_k": (mem_k, (L, R, P, E), f32), "mem_v": (mem_v, (L, R, P, E), f32),
+        "x": (x, (R, E), dt), "cache_k": (cache_k, (L, R, T, E), dt),
+        "cache_v": (cache_v, (L, R, T, E), dt),
+        "mem_k": (mem_k, (L, R, P, E), dt), "mem_v": (mem_v, (L, R, P, E), dt),
     })
     _check_tensors(x.device, shapes)
     if not 0 <= pos < T:
@@ -273,9 +368,10 @@ def _check(w: DecodeWeights, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads):
 
 def _lib():
     lib = _build.load("decode_step")
-    lib.tc_decode_layer_forward.restype = ctypes.c_int
     plan = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]  # plan, smem bytes, stream
-    lib.tc_decode_layer_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 9 + plan
+    for fn in (lib.tc_decode_layer_forward, lib.tc_decode_layer_forward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 9 + plan
     lib.tc_decode_onecell_forward.restype = ctypes.c_int
     lib.tc_decode_onecell_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + plan
     lib.tc_decode_rollout.restype = ctypes.c_int
@@ -303,6 +399,7 @@ def fused_decode_step(
     num_heads: int,
     *,
     one_cell: bool = False,
+    precise: bool = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (x_out (R, E), alpha (R, P) — cross-attention probabilities
     averaged over heads and layers, k_new (L, R, E), v_new (L, R, E)).  The
@@ -310,31 +407,47 @@ def fused_decode_step(
     ``apply_cache_update``.  CUDA tensors launch the kernel once per layer,
     or once for all layers with ``one_cell``; CPU tensors take the plain
     version (the same function either way); any other device raises.
-    Forward only: raises on every device when autograd would need its
-    gradient."""
+    The weights' dtype picks the instance, f32 or the bf16 arm (the module
+    docstring); ``precise``, when given, must be that arm's (True for f32,
+    False for bf16) or ValueError is raised, as it is for weights of
+    another dtype; the bf16 arm with ``one_cell`` raises
+    NotImplementedError.  Forward only: raises on every device
+    when autograd would need its gradient."""
     _build.refuse_autograd(
         "fused_decode_step", (*w, x, cache_k, cache_v, mem_k, mem_v),
         "not planned (decoding runs under torch.inference_mode)",
     )
     pos = int(pos)
+    dt = w.w_qkv.dtype
+    if dt not in (torch.float32, torch.bfloat16) or precise not in (None, dt == torch.float32):
+        raise ValueError(f"fused_decode_step has no instance for {dt} weights with precise={precise}: "
+                         "float32 with precise=True, or bfloat16 with precise=False")
+    bf16 = dt == torch.bfloat16
+    if bf16 and one_cell:
+        raise NotImplementedError("the one-cell decode kernel in bf16 is not ported yet: ROADMAP.md Queue 1 #5e")
     if x.device.type == "cpu":
-        return _decode_step_plain(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads)
+        plain = _decode_step_plain_bf16 if bf16 else _decode_step_plain
+        return plain(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_step runs on cpu or cuda tensors, got {x.device}")
-    _check(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads)
+    _check(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads, dt)
     L, R, T, E = cache_k.shape
     P = mem_k.shape[2]
     Fd = w.w_f1.shape[1]
     lib = _lib()
+    if bf16:
+        x = x.float()  # the kernels carry the hidden state in f32 (x_out) from layer to layer
     x_out = torch.empty_like(x)
     alpha = torch.empty(R, P, device=x.device, dtype=torch.float32)
-    k_new = torch.empty(L, R, E, device=x.device, dtype=torch.float32)
+    k_new = torch.empty(L, R, E, device=x.device, dtype=dt)
     v_new = torch.empty_like(k_new)
     scratch = torch.empty(
         lib.tc_decode_scratch_floats(R, E, num_heads, Fd, P), device=x.device, dtype=torch.float32
     )
     rest = [t.data_ptr() for t in (x_out, alpha, k_new, v_new, *w, cache_k, cache_v, mem_k, mem_v, scratch)]
-    plan = _plan_args(decode_plan("onecell" if one_cell else "layer", R, T, P, E, num_heads, Fd, _sms(x.device)))
+    plan = _plan_args(decode_plan("onecell" if one_cell else "layer", R, T, P, E, num_heads, Fd, _sms(x.device),
+                                  esize=k_new.element_size()))
+    layer_forward = lib.tc_decode_layer_forward_bf16 if bf16 else lib.tc_decode_layer_forward
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if one_cell:
@@ -346,16 +459,19 @@ def fused_decode_step(
             return x_out, alpha, k_new, v_new
         for layer in range(L):
             layer_in = x if layer == 0 else x_out  # the hidden state carries in x_out
-            err = lib.tc_decode_layer_forward(
+            err = layer_forward(
                 layer_in.data_ptr(), *rest, layer, L, R, T, P, E, num_heads, Fd, pos, *plan, stream
             )
             _build.check(lib, err, "decode_step")
             fused_decode_step.launches += 1
+            if bf16:
+                fused_decode_step.bf16_launches += 1
     return x_out, alpha, k_new, v_new
 
 
 fused_decode_step.launches = 0  # per-layer kernel launches
 fused_decode_step.onecell_launches = 0  # one-cell kernel launches
+fused_decode_step.bf16_launches = 0  # per-layer launches of the bf16 arm
 
 
 def apply_cache_update(cache_k, cache_v, k_new, v_new, pos: int):

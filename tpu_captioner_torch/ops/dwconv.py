@@ -20,11 +20,18 @@ package's ``custom_vjp``):
   convolution's own weight and bias gradient (``aten.convolution_backward``:
   cuDNN on the card).
 The input gradient is skipped when x needs none.  Any other device raises.
+
+In bf16 (the bf16 encoder's serving path) the forward takes bf16 x, filter
+and bias, sums the 49 products in f32 and rounds twice, as the JAX bf16
+block does (tpu_captioner/ops/dwconv.py:45-46, models/convnext.py:154-155):
+y = bf16(bf16(sum) + bias).  Its kernel is ``dwconv.cu``'s bf16 instance of
+the forward; ``_dw_plain`` rounds the same way.  The filter gradient takes
+f32 only: bf16 training is not ported (ROADMAP.md Queue 1 #5b).
 Both kernels take their tile plan from ``dwconv_plan``; a shape or a card
 the plan does not fit raises ``ValueError``, never a fallback.
 ``depthwise_conv7x7_nhwc.launches`` counts forward-kernel launches (forward
-and input gradient), ``depthwise_conv7x7_nhwc.grad_launches`` filter-gradient
-launches.
+and input gradient), of which ``.bf16_launches`` ran the bf16 instance;
+``depthwise_conv7x7_nhwc.grad_launches`` filter-gradient launches.
 """
 
 from __future__ import annotations
@@ -57,8 +64,8 @@ def _ceil(a: int, b: int) -> int:
 
 
 def _region(n_bytes: int) -> int:
-    """Shared bytes of a region holding n_bytes: 32 floats of slack (lanes
-    past the chunk read, and ignore, up to 31 floats past its end), rounded
+    """Shared bytes of a region holding n_bytes: 128 bytes of slack (lanes
+    past the chunk read, and ignore, up to 31 elements past its end), rounded
     up to 128 bytes (a TMA destination's alignment)."""
     return _ceil(n_bytes + 128, 128) * 128
 
@@ -87,7 +94,7 @@ class DwconvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def dwconv_plan(B: int, H: int, W: int, C: int, kind: str = "forward", tma: bool = True,
-                sms: int = 132, cluster: int = CLUSTER) -> DwconvPlan:
+                sms: int = 132, cluster: int = CLUSTER, esize: int = 4) -> DwconvPlan:
     """The tile plan of a ``kind`` launch ('forward', also the input
     gradient, or 'wgrad') on a card with ``sms`` SMs.  An image of at most
     16 x 16 is one tile (its halo lies outside the image: TMA zero-fills it
@@ -102,15 +109,20 @@ def dwconv_plan(B: int, H: int, W: int, C: int, kind: str = "forward", tma: bool
     most 8, the portable size; ``fit_cluster`` picks it).  ``tma`` takes the
     copy engine's boxes, which need C % 4 == 0 (16-byte rows): the wrapper
     asks for it when the pointers are 16-byte aligned too, and otherwise
-    takes the same kernel with the producer warp's own loads.  Raises
-    ValueError for a shape it does not fit.  Cached: a wrapper asks for
-    its plan at every launch."""
+    takes the same kernel with the producer warp's own loads.  ``esize``
+    is the bytes of an element: 4 (f32), or 2 for the bf16 forward, whose
+    boxes and filter slice stay bf16 in shared memory (TMA then needs C % 8
+    == 0).  Raises ValueError for a shape it does not fit.  Cached: a
+    wrapper asks for its plan at every launch."""
     if kind not in ("forward", "wgrad"):
         raise ValueError(f"dwconv_plan: kind must be 'forward' or 'wgrad', got {kind!r}")
     if min(B, H, W, C) < 1:
         raise ValueError(f"dwconv_plan: empty shape {(B, H, W, C)}")
-    if tma and C % 4:
-        raise ValueError(f"dwconv_plan: TMA boxes need C % 4 == 0 (16-byte rows), got C={C}")
+    if esize not in (2, 4) or (esize == 2 and kind != "forward"):
+        raise ValueError(f"dwconv_plan: elements of 4 bytes, or 2 for the forward, got {esize} for {kind!r}")
+    row = 16 // esize  # elements of a 16-byte row
+    if tma and C % row:
+        raise ValueError(f"dwconv_plan: TMA boxes need C % {row} == 0 (16-byte rows), got C={C}")
     if not 1 <= cluster <= CLUSTER:
         raise ValueError(f"dwconv_plan: a cluster has 1 to {CLUSTER} blocks, got {cluster}")
     wgrad = kind == "wgrad"
@@ -120,7 +132,7 @@ def dwconv_plan(B: int, H: int, W: int, C: int, kind: str = "forward", tma: bool
         th = tw = WHOLE
     per32 = (th // PATCH_ROWS) * (tw // PATCH_COLS)
     tiles = B * _ceil(H, th) * _ceil(W, tw)
-    widest = _ceil(C, 4) * 4 if tma else C
+    widest = _ceil(C, row) * row if tma else C
     for groups in (4, 2, 1):
         cc = min(32 * groups, widest)
         units = _ceil(cc, 32) * per32
@@ -128,9 +140,9 @@ def dwconv_plan(B: int, H: int, W: int, C: int, kind: str = "forward", tma: bool
             continue  # too many warps, or no more channels than the next narrower chunk
         chunks = _ceil(C, cc)
         parts = cluster if wgrad else max(1, min(tiles, sms // chunks))
-        x_box = _region(4 * (th + 2 * PAD) * (tw + 2 * PAD) * cc)
+        x_box = _region(esize * (th + 2 * PAD) * (tw + 2 * PAD) * cc)
         slot = x_box + (_region(4 * th * tw * cc) if wgrad else 0)
-        filt = 0 if wgrad else _region(4 * K * K * cc)
+        filt = 0 if wgrad else _region(esize * K * K * cc)
         fit = (SMEM_LIMIT - _HEADER - filt) // slot
         slots = min(MAX_SLOTS, fit, max(2, _ceil(tiles, parts)))
         if slots < 2:
@@ -163,9 +175,13 @@ def fit_cluster(plan_of, active) -> DwconvPlan:
 def _dw_plain(x, w, bias=None):
     """Plain PyTorch version of the forward kernel: the grouped conv on the
     NHWC tensor's NCHW view, with the bias when one is given.  x (B, H, W,
-    C), w (7, 7, C), bias (C,) or None -> (B, H, W, C)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(2, 0, 1).unsqueeze(1), bias, padding=PAD, groups=x.shape[-1])
-    return y.permute(0, 2, 3, 1).contiguous()
+    C), w (7, 7, C), bias (C,) or None -> (B, H, W, C).  In bf16 the bias is
+    added after the conv's output is rounded, and rounded again."""
+    bf16 = x.dtype == torch.bfloat16
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(2, 0, 1).unsqueeze(1), None if bf16 else bias,
+                 padding=PAD, groups=x.shape[-1])
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y + bias if bf16 and bias is not None else y
 
 
 def _dw_grad_plain(x, g, bias_grad=False):
@@ -193,10 +209,11 @@ def _dw_grad_library(x, g, w, bias_grad=False):
     return (dw, db) if bias_grad else dw
 
 
-def _check(what, x, other, other_name, other_shape, bias=None):
+def _check(what, x, other, other_name, other_shape, bias=None, dtypes=(torch.float32,)):
     """Raise unless x (B, H, W, C), ``other`` and the bias (when given) are
-    contiguous float32 tensors on one device, ``other`` of ``other_shape``
-    and the bias of (C,), on the CPU or a card."""
+    contiguous tensors of x's dtype, one of ``dtypes``, on one device,
+    ``other`` of ``other_shape`` and the bias of (C,), on the CPU or a
+    card."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {x.device}")
     if x.dim() != 4:
@@ -205,12 +222,14 @@ def _check(what, x, other, other_name, other_shape, bias=None):
     if bias is not None:
         named.append(("bias", bias, (x.shape[-1],)))
     for name, t, shape in named:
-        if t.dtype == torch.float32 and t.device == x.device and t.is_contiguous() and t.shape == shape:
+        if t.dtype == x.dtype and t.device == x.device and t.is_contiguous() and t.shape == shape \
+                and x.dtype in dtypes:
             continue  # the common case, in one test (the check runs at every launch)
         if t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, not {x.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != x.dtype:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise ValueError(f"{what}: {name} must be {names}, as x, got {t.dtype} (x {x.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if tuple(t.shape) != tuple(shape):
@@ -220,8 +239,9 @@ def _check(what, x, other, other_name, other_shape, bias=None):
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("dwconv")
-    lib.tc_dwconv_forward.restype = ctypes.c_int
-    lib.tc_dwconv_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    for fn in (lib.tc_dwconv_forward, lib.tc_dwconv_forward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.tc_dwconv_wgrad.restype = ctypes.c_int
     lib.tc_dwconv_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.tc_dwconv_wgrad_clusters.restype = ctypes.c_int
@@ -248,9 +268,10 @@ def _plan_for(kind, x, *others) -> DwconvPlan:
     pointer is 16-byte aligned, else the producer warp's own loads; the
     filter gradient's cluster size fitted to the card (``fit_cluster``)."""
     b, h, w, c = x.shape
-    tma = c % 4 == 0 and _aligned(x, *others)
+    esize = x.element_size()
+    tma = c % (16 // esize) == 0 and _aligned(x, *others)
     if kind == "forward":
-        return dwconv_plan(b, h, w, c, kind, tma, _build.sm_count(x.get_device()))
+        return dwconv_plan(b, h, w, c, kind, tma, _build.sm_count(x.get_device()), esize=esize)
     return _wgrad_plan(x.get_device(), b, h, w, c, tma)
 
 
@@ -264,23 +285,27 @@ def dwconv_forward(x: torch.Tensor, w: torch.Tensor, flip: bool = False,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The conv of x (B, H, W, C) with w (7, 7, C), or with w flipped in both
     spatial axes (``flip``: the input gradient for a cotangent x), plus
-    ``bias`` (C,) when given.  CUDA tensors launch the forward kernel on the
+    ``bias`` (C,) when given, all float32 or all bfloat16 (the bf16 instance
+    rounds as ``_dw_plain``).  CUDA tensors launch the forward kernel on the
     current stream with ``dwconv_plan``'s tiles; CPU tensors run
     ``_dw_plain``; any other device raises."""
-    _check("dwconv_forward", x, w, "w", (K, K, x.shape[-1]), bias)
+    _check("dwconv_forward", x, w, "w", (K, K, x.shape[-1]), bias, _FORWARD_DTYPES)
     if x.device.type == "cpu":
         return _dw_plain(x, w.flip(0, 1) if flip else w, bias)
     b, h, wd, c = x.shape
     plan = _plan_for("forward", x, w)
     lib = _lib()
     y = torch.empty_like(x)
+    launch = lib.tc_dwconv_forward_bf16 if x.dtype == torch.bfloat16 else lib.tc_dwconv_forward
     with torch.cuda.device(x.device):
-        err = lib.tc_dwconv_forward(
+        err = launch(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
             b, h, wd, c, int(flip), *plan.args(), _build.raw_stream(x.get_device()),
         )
     _build.check(lib, err, "dwconv")
     depthwise_conv7x7_nhwc.launches += 1
+    if x.dtype == torch.bfloat16:
+        depthwise_conv7x7_nhwc.bf16_launches += 1
     return y
 
 
@@ -309,6 +334,9 @@ def dwconv_filter_grad(x: torch.Tensor, g: torch.Tensor, bias_grad: bool = False
     return (dw, db) if bias_grad else dw
 
 
+_FORWARD_DTYPES = (torch.float32, torch.bfloat16)  # the forward kernel's instances
+
+
 class _DepthwiseConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, use_kernel, grad_kernel, bias):
@@ -319,6 +347,9 @@ class _DepthwiseConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "the depthwise conv's bf16 gradients (bf16 training) are not ported yet: ROADMAP.md Queue 1 #5b")
         g = g.contiguous()
         need_x, need_w, _, _, need_b = ctx.needs_input_grad
         d_x = d_w = d_b = None
@@ -344,13 +375,15 @@ def depthwise_conv7x7_nhwc(
     bias: Optional[torch.Tensor] = None,  # (C,)
 ) -> torch.Tensor:
     """y[b,h,w,c] = sum_{dy,dx} x_pad[b,h+dy,w+dx,c] * w[dy,dx,c] (+ bias[c]),
-    differentiable in x, w and the bias.  ``use_kernel`` is the JAX
-    ``use_pallas`` (forward and input gradient), ``grad_kernel`` the JAX
+    differentiable in x, w and the bias in float32 (a bf16 conv's filter
+    gradient is refused, ``dwconv_filter_grad``).  ``use_kernel`` is the
+    JAX ``use_pallas`` (forward and input gradient), ``grad_kernel`` the JAX
     ``TPU_CAPTIONER_DW_GRAD=pallas`` (filter and bias gradient).  Refuses
-    tensors that are not contiguous float32 on one device."""
-    _check("depthwise_conv7x7_nhwc", x, w, "w", (K, K, x.shape[-1]), bias)
+    tensors that are not contiguous float32, or bfloat16, on one device."""
+    _check("depthwise_conv7x7_nhwc", x, w, "w", (K, K, x.shape[-1]), bias, _FORWARD_DTYPES)
     return _DepthwiseConv.apply(x, w, bool(use_kernel), bool(grad_kernel), bias)
 
 
 depthwise_conv7x7_nhwc.launches = 0  # forward-kernel launches: forward and input gradient
+depthwise_conv7x7_nhwc.bf16_launches = 0  # of those, the bf16 instance's
 depthwise_conv7x7_nhwc.grad_launches = 0  # filter-gradient launches

@@ -22,6 +22,17 @@ returns the cotangent itself as the residual's gradient and calls
 ``fused_convnext_mlp_bwd``, which launches ``csrc/mlp_block_bwd.cu`` for
 CUDA tensors and runs ``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
 output), sd and the parameters, never the residual.
+
+bf16 (the bf16 encoder's serving path): x, the residual, the output and
+the two matrices in bf16, the vectors in f32.  The whole-tile kernel's
+bf16 instance is the JAX kernel's ``precise=True`` arm on bf16 operands
+(tpu_captioner/ops/mlp_block.py:126-142, called so by models/convnext.py:
+163-171): LayerNorm, products, GELU and residual in f32 (a bf16 weight's
+TF32 planes are itself and zero: the 3xTF32 products are exact on it),
+the output rounded to bf16 once.  ``_mlp_plain_bf16`` is its plain version.
+The sub-tiled path, the ``precise=False`` arm (bf16 products, reached by
+no JAX model path) and the bf16 backward are not ported (ROADMAP.md Queue
+1 #5d, #5f, #5b).
 """
 
 from __future__ import annotations
@@ -59,6 +70,13 @@ def _mlp_plain(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     h = F.gelu(F.linear(xn, w1, b1))  # exact erf GELU
     y = F.linear(h, w2, b2) * gamma
     return residual + sd[:, None] * y
+
+
+def _mlp_plain_bf16(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain version of the bf16-I/O kernel: ``_mlp_plain`` on the operands
+    upcast to f32 (exactly), the result rounded to bf16."""
+    return _mlp_plain(x.float(), residual.float(), sd, ln_w, ln_b, w1.float(), b1, w2.float(), b2,
+                      gamma).to(torch.bfloat16)
 
 
 def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
@@ -110,16 +128,18 @@ def _pipeline_sub(n: int, c: int) -> int:
     return sub if sub == SUB_ROWS and c in SUPPORTED_C else 0
 
 
-def _check(what, c, tensors):
+def _check(what, c, tensors, bf16=()):
     """Raise unless every ``name: (tensor, shape)`` entry is a contiguous,
-    16-byte-aligned float32 tensor of that shape on the first one's device,
-    and ``c`` is a width the kernel is built for."""
+    16-byte-aligned tensor of that shape on the first one's device, bfloat16
+    where its name is in ``bf16`` and float32 elsewhere, and ``c`` is a
+    width the kernel is built for."""
     device = next(iter(tensors.values()))[0].device
     for name, (t, shape) in tensors.items():
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+        want = torch.bfloat16 if name in bf16 else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{what}: {name} must be {str(want)[6:]}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -137,10 +157,9 @@ def _param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma):
 
 def _lib():
     lib = _build.load("mlp_block")
-    lib.tc_mlp_block_forward.restype = ctypes.c_int
-    lib.tc_mlp_block_forward.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    for fn in (lib.tc_mlp_block_forward, lib.tc_mlp_block_forward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.tc_mlp_block_forward_workspace.restype = ctypes.c_longlong
     lib.tc_mlp_block_forward_workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.tc_mlp_block_fused_plan.restype = ctypes.c_int
@@ -161,33 +180,43 @@ def _bwd_lib():
     return lib
 
 
+_BF16_IO = ("x", "residual", "w1", "w2")  # the bf16 instance's bf16 operands; the output too
+
+
 def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     """The forward: the CUDA kernel for CUDA tensors (the sub-tiled one when
-    ``_pipeline_sub`` selects it), the plain version for CPU tensors; any
-    other device raises."""
+    ``_pipeline_sub`` selects it; the bf16 instance when x is bf16), the
+    plain version for CPU tensors; any other device raises."""
     args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return _mlp_plain(*args)
+        return _mlp_plain_bf16(*args) if bf16 else _mlp_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convnext_mlp runs on cpu or cuda tensors, got {x.device}")
     n, c = x.shape
     _check("fused_convnext_mlp", c, {
         "x": (x, (n, c)), "residual": (residual, (n, c)), "sd": (sd, (n,)),
         **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
-    })
+    }, _BF16_IO if bf16 else ())
     lib = _lib()
     sub = _pipeline_sub(n, c)
+    if bf16 and sub:
+        raise NotImplementedError(
+            "the sub-tiled MLP tail (TPU_CAPTIONER_MLP_SUB) in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
+    launch = lib.tc_mlp_block_forward_bf16 if bf16 else lib.tc_mlp_block_forward
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        work = x.new_empty(lib.tc_mlp_block_forward_workspace(n, c, sub))
+        work = sd.new_empty(lib.tc_mlp_block_forward_workspace(n, c, sub))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tc_mlp_block_forward(
+        err = launch(
             *(t.data_ptr() for t in (*args, out, work)), n, c, sub, stream
         )
     _build.check(lib, err, "mlp_block")
     fused_convnext_mlp.launches += 1
     if sub:
         fused_convnext_mlp.pipelined_launches += 1
+    if bf16:
+        fused_convnext_mlp.bf16_launches += 1
     return out
 
 
@@ -233,6 +262,9 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if g.dtype == torch.bfloat16:
+            raise NotImplementedError("the MLP tail's bf16 backward (bf16 training) is not ported yet: "
+                                      "ROADMAP.md Queue 1 #5b")
         d_x, d_sd, *d_params = fused_convnext_mlp_bwd(g.contiguous(), *ctx.saved_tensors)
         grads = (d_x, g, d_sd, *d_params)
         return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
@@ -247,13 +279,17 @@ def fused_convnext_mlp(
     w2: torch.Tensor, b2: torch.Tensor,  # (C, 4C), (C,)
     gamma: torch.Tensor,  # (C,) layer scale
 ) -> torch.Tensor:
-    """The fused tail, differentiable: the CUDA kernels for CUDA tensors, the
-    plain versions for CPU tensors; any other device raises.
+    """The fused tail, differentiable in f32: the CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors; any other device raises.
+    bf16 x, residual, w1 and w2 (the rest f32) give a bf16 output, forward
+    only.
     ``fused_convnext_mlp.launches`` counts forward kernel launches, of which
-    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled kernel;
+    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled kernel and
+    ``.bf16_launches`` the bf16 instance;
     ``fused_convnext_mlp_bwd.launches`` counts backward ones."""
     return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
 
 
 fused_convnext_mlp.launches = 0
 fused_convnext_mlp.pipelined_launches = 0
+fused_convnext_mlp.bf16_launches = 0

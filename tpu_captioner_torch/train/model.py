@@ -49,6 +49,22 @@ on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
     2.20); run B 61.20 vs 63.10 (1.71 to 2.09); run C 61.34 vs 63.28 (gain
     1.86, spread 0.54); run D 60.98 vs 63.00 (gain 1.97, spread 0.69); run
     E 60.93 vs 62.86 (gain 1.93, spread 0.54).
+- bf16 (``compute_dtype='bfloat16'``) serves the Transformer families:
+  ``encode`` returns the bf16 (B, 7, 7, C) features, as the JAX encoder
+  does, and the decoder upcasts them to f32 where it reads them
+  (``project_memory``; JAX promotes bf16 @ f32 to f32 implicitly, PyTorch
+  refuses mixed-dtype products).  The decode kernel's arm follows the
+  model's dtype, not the backend: with a bf16 model the beam and the
+  per-token rollout take the bf16 arm (``precise=False``: bf16 weight
+  matrices, caches and memory K/V, bf16 products), which the JAX package
+  takes on its own chip whatever the model's dtype
+  (tpu_captioner/infer/beam.py:325, models/transformer.py:532); an f32
+  model keeps the f32 arm and every f32 result it had (JAX takes its f32
+  arm in interpret mode only, on the CPU).  The plain decode path stays f32
+  in both, as the JAX package's XLA path is.  What bf16 does not serve
+  raises ``NotImplementedError`` naming its ROADMAP item (Queue 1 #5b-#5e):
+  a train step, the LSTM families, ``use_pallas='block'`` and the
+  sub-tiled tail, the one-cell and ``'mega'`` decode modes.
 """
 
 from __future__ import annotations
@@ -59,7 +75,7 @@ import torch
 import torch.nn as nn
 
 from tpu_captioner_torch.core.backend import pin_f32_precision, require_cuda
-from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, LSTM_DECODERS, ModelConfig
+from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, LSTM_DECODERS, ModelConfig, stage_kernel_modes
 from tpu_captioner_torch.models.encoder import Encoder, preprocess_images
 from tpu_captioner_torch.models.lstm import DecoderWithAttention, DecoderWithoutAttention
 from tpu_captioner_torch.models.transformer import TransformerDecoder
@@ -135,11 +151,14 @@ class CaptionModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0, pretrained_embeddings=None):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
-                "(bf16 is a later item of ROADMAP.md Queue 1)"
-            )
+        if cfg.compute_dtype == "bfloat16":
+            if cfg.decoder in LSTM_DECODERS:
+                raise NotImplementedError(
+                    f"compute_dtype='bfloat16' with the {cfg.decoder} decoder is not ported yet: "
+                    "ROADMAP.md Queue 1 #5c")
+            if "block" in stage_kernel_modes(cfg.use_pallas, len(cfg.encoder_depths)):
+                raise NotImplementedError(
+                    "use_pallas='block' in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
         device = torch.device(device)
         if device.type == "cuda":
             require_cuda()
@@ -175,6 +194,11 @@ class CaptionModel(nn.Module):
     def device(self) -> torch.device:
         return self.decoder.embedding.weight.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: the encoder's, and the decode kernels' arm."""
+        return torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else torch.float32
+
     def decode_mode(self) -> str:
         """``decode_kernel_mode`` of this model's setting and family."""
         return decode_kernel_mode(self.cfg.decode_kernel, self.cfg.decoder)
@@ -190,13 +214,13 @@ class CaptionModel(nn.Module):
         self, images_u8: torch.Tensor, train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """uint8 NHWC (B, H, W, 3) -> (B, enc, enc, C) f32, without autograd:
-        the frozen encoder.  ``no_grad``, not ``inference_mode``, so the
+        """uint8 NHWC (B, H, W, 3) -> (B, enc, enc, C) of the compute dtype,
+        without autograd: the frozen encoder.  ``no_grad``, not ``inference_mode``, so the
         decoder may save the output for its backward (serving calls this
         under its own ``inference_mode``).  ``train`` draws stochastic depth
         from ``generator``: the reference keeps the encoder in train mode
         while it is frozen (train.py:242)."""
-        x = preprocess_images(images_u8.to(self.device))
+        x = preprocess_images(images_u8.to(self.device), self.dtype)
         if not train:
             return self.encoder(x)
         if generator is None:
@@ -212,7 +236,7 @@ class CaptionModel(nn.Module):
         the remat mode ``finetune_encoder_remat`` resolves from the config.
         ``generator`` draws stochastic depth (train mode); None runs every
         block with scale one."""
-        x = preprocess_images(images_u8.to(self.device))
+        x = preprocess_images(images_u8.to(self.device), self.dtype)
         sd_rows = None if generator is None else self.encoder.convnext.draw_sd(x.shape[0], generator)
         remat = finetune_encoder_remat(self.cfg.encoder_remat, self.cfg.compute_dtype)
         return self.encoder(x, sd_rows, grad_from=starting_layer, remat=remat)
@@ -259,10 +283,13 @@ class CaptionModel(nn.Module):
         if not deterministic:
             return dec.rollout(*args, train=True, **kw)
         mode = self.decode_mode()
+        if self.dtype == torch.bfloat16 and (mode == "mega" or (mode == "step" and one_cell)):
+            raise NotImplementedError(
+                "the one-cell and 'mega' decode modes in bf16 are not ported yet: ROADMAP.md Queue 1 #5e")
         if self.cfg.decoder in LSTM_DECODERS:
             return dec.fused_rollout(*args, **kw) if mode != "off" else dec.rollout(*args, **kw)
         if mode == "mega":
             return dec.mega_rollout(*args, **kw)
         if mode == "step":
-            return dec.fused_rollout(*args, one_cell=one_cell, **kw)
+            return dec.fused_rollout(*args, dtype=self.dtype, one_cell=one_cell, **kw)
         return dec.rollout(*args, **kw)

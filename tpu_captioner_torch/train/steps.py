@@ -220,6 +220,10 @@ def make_train_step(
     finds it changed, so frozen and fine-tune steps may share a model.
     After a step the trained parameters' ``.grad`` hold the clamped
     gradients that were applied."""
+    if model.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bf16 training (the train steps, on the bf16 arms of the MLP-tail and depthwise-conv backward "
+            "kernels) is not ported yet: ROADMAP.md Queue 1 #5b")
     mask = fine_tune_mask(model.encoder, train_encoder, cfg.starting_layer)
     flags = [(p, mask[name]) for name, p in model.encoder.named_parameters()]
     for p, on in flags:
@@ -270,7 +274,8 @@ def make_eval_step(
     ``lengths`` (B,).  It runs under ``torch.inference_mode``, so it holds no
     autograd state whatever ``requires_grad`` a train step has set.
     ``one_cell`` runs each token's layers in one kernel launch when the model
-    decodes with the per-token kernel."""
+    decodes with the per-token kernel.  A bf16 model evaluates in ``'off'``
+    and ``'step'`` (``CaptionModel.rollout`` refuses the rest)."""
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
