@@ -155,12 +155,41 @@ Phases, in order; any failure raises and the exit code is not 0:
    with phase 7's rules at the noise floor's tolerances, and against 'off'
    (the f32 plain decode) reported.  The decode arm's six-layer step is held
    to the same noise floor, each of its layer launches to 2e-3 and one ulp.
+12. ``compute_dtype='bfloat16'`` training (``check_bf16_train_kernels``,
+   ``bf16_train_phase``, ``bf16_entry_phase``): (a) the MLP tail's bf16
+   backward at the fine-tune step's shapes (N = 8192 at C = 512, N = 2048
+   at C = 1024, sd rows of 0 and 1/survival) and at a ragged N = 600, d_x
+   within one bf16 ulp of the plain version and the f32 gradients within
+   1e-4 x max(1, max |plain|); the depthwise conv's bf16 filter and bias
+   gradient (1e-4, the same bits twice) and its bf16 input gradient (the
+   forward instance with the filter flipped, one ulp) at stages 3 and 4,
+   batch 32; device times by CUDA-graph replay beside the plain versions,
+   the f32 instances on the widened inputs and ``aten.convolution_backward``
+   / ``F.conv2d`` in bf16; (b) the full-width bf16 frozen and fine-tune
+   steps at batch 32 against the same steps with every kernel wrapper
+   replaced by its plain version (``plain_versions``) and against the f32
+   steps on the same weights, pool bits and stochastic-depth rows: per
+   trained tensor the kernels within a quarter of all-plain bf16's distance
+   from f32 or within twice the noise floor (all-plain with the encoder's
+   sums in f64 against all-plain), losses within 1e-3 relative, the
+   parameters after Adam's first step within 1e-2 x lr above the noise,
+   children 0-4 unchanged, launches
+   (1, 36, 0, 36, 0) and (1, 36, 30, 65, 30) per step (pool, bf16 MLP
+   forward, backward, dwconv, filter gradient); ms per step and peak memory
+   beside f32's, a profiler window, and the paired remat A/B that decides
+   ``finetune_encoder_remat('auto', 'bfloat16')``; (c) ``cli.train
+   --computeDtype bfloat16`` (one free-running epoch) and the Trainer (two
+   teacher-forced epochs, the unlock at 1) on phase 10's synthetic data,
+   every step's launches and validation's bf16 decode launches counted,
+   ``meta.json`` saying bfloat16, then ``cli.caption``'s loader and
+   ``cli.test`` on the checkpoint.
 
 The line before the last is a JSON object of the kernels (route, source, the
-TPU kernel each replaces, launches on the main paths and on phase 10's
-training path, max error, times and bounds; the bf16 instances as entries
-of their own, ``*_bf16``); the last line is ``{"ok": true, "device": {...}}``.  Needs the
-repository beside it and one card; imports no JAX.
+TPU kernel each replaces, launches on the main paths and on the training
+path, phase 10's or for the bf16 instances phase 12c's, max error, times and
+bounds; the bf16 instances as entries of their own, ``*_bf16``); the last
+line is ``{"ok": true, "device": {...}}``.  Needs the repository beside it
+and one card; imports no JAX.
 """
 
 import argparse
@@ -2316,6 +2345,8 @@ def kernel_counts():
         "mlp_block_pipelined": fused_convnext_mlp.pipelined_launches,
         "mlp_block_bf16": fused_convnext_mlp.bf16_launches, "dwconv_bf16": depthwise_conv7x7_nhwc.bf16_launches,
         "decode_step_bf16": fused_decode_step.bf16_launches,
+        "mlp_block_bwd_bf16": fused_convnext_mlp_bwd.bf16_launches,
+        "dwconv_grad_bf16": depthwise_conv7x7_nhwc.bf16_grad_launches,
     }
 
 
@@ -2324,12 +2355,13 @@ def zero_kernel_counts():
     from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
 
     from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
-    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
 
     zero_block_counts()
     fused_decode_step.launches = fused_decode_step.onecell_launches = fused_full_rollout.launches = 0
     fused_lstm_step.launches = 0
     fused_convnext_mlp.bf16_launches = depthwise_conv7x7_nhwc.bf16_launches = fused_decode_step.bf16_launches = 0
+    fused_convnext_mlp_bwd.bf16_launches = depthwise_conv7x7_nhwc.bf16_grad_launches = 0
 
 
 def count_delta(before, after, names=("dropout_mask", "mlp_block", "mlp_block_bwd", "dwconv", "dwconv_grad")):
@@ -2747,25 +2779,58 @@ def bf16_ulp_err(got, want):
 
 
 @contextlib.contextmanager
-def plain_versions(decode_sums=None):
-    """The serving path's kernel wrappers replaced by their plain versions
-    on the card (as phase 5 swaps the pool for ``_mask_plain``): the MLP
-    tail's forward, the depthwise conv's forward and the per-token decode
-    step, each by dtype (the bf16 arm's own plain version in bf16, its sums
-    in ``decode_sums`` when given: float64 for the noise floor).  The
-    kernels' path is held against what runs inside."""
+def plain_versions(decode_sums=None, encoder_sums=None):
+    """The serving and training paths' kernel wrappers replaced by their
+    plain versions on the card (as phase 5 swaps the pool for
+    ``_mask_plain``): the MLP tail's forward and backward, the depthwise
+    conv's forward (also the input gradient) and filter gradient, and the
+    per-token decode step, each by dtype (the bf16 arm's own plain version
+    in bf16, its sums in ``decode_sums`` when given: float64 for the noise
+    floor).  ``encoder_sums=torch.float64`` takes the bf16 encoder's plain
+    versions with their sums in f64 (each output rounded where the bf16
+    instance rounds it): the bf16 steps' noise floor.  The kernels' path
+    is held against what runs inside."""
     import torch
 
     from tpu_captioner_torch.infer import beam
     from tpu_captioner_torch.ops import decode_step, dwconv, mlp_block
 
     saved = mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step
+    saved_bwd = mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad
+    bf = torch.bfloat16
+    wide = encoder_sums is not None  # the bf16 plain versions with their sums in encoder_sums
 
     def mlp(*args):
-        return (mlp_block._mlp_plain_bf16 if args[0].dtype == torch.bfloat16 else mlp_block._mlp_plain)(*args)
+        if args[0].dtype != bf:
+            return mlp_block._mlp_plain(*args)
+        if not wide:
+            return mlp_block._mlp_plain_bf16(*args)
+        return mlp_block._mlp_plain(*(t.to(encoder_sums) for t in args)).to(bf)
+
+    def mlp_bwd(*args):
+        if args[1].dtype != bf:
+            return mlp_block._mlp_bwd_plain(*args)
+        if not wide:
+            return mlp_block._mlp_bwd_plain_bf16(*args)
+        d_x, *rest = mlp_block._mlp_bwd_plain(*(t.to(encoder_sums) for t in args))
+        return (d_x.to(bf), *(t.float() for t in rest))
 
     def dw(x, w, flip=False, bias=None):
-        return dwconv._dw_plain(x, w.flip(0, 1) if flip else w, bias)
+        w = w.flip(0, 1) if flip else w
+        if x.dtype != bf or not wide:
+            return dwconv._dw_plain(x, w, bias)
+        y = dwconv._dw_plain(x.to(encoder_sums), w.to(encoder_sums)).to(bf)
+        return y if bias is None else y + bias
+
+    def dw_grad(x, g, bias_grad=False):
+        if x.dtype != bf or not wide:
+            return dwconv._dw_grad_plain(x, g, bias_grad)
+        h, w_ = x.shape[1:3]
+        xp = torch.nn.functional.pad(x.to(encoder_sums), (0, 0, 3, 3, 3, 3))
+        g = g.to(encoder_sums)
+        taps = [(xp[:, dy: dy + h, dx: dx + w_] * g).sum(dim=(0, 1, 2)) for dy in range(7) for dx in range(7)]
+        dw_ = torch.stack(taps).reshape(7, 7, -1).float()
+        return (dw_, g.sum(dim=(0, 1, 2)).float()) if bias_grad else dw_
 
     def dec(w, x, pos, ck, cv, mk, mv, heads, *, one_cell=False, precise=None):
         bf16 = w.w_qkv.dtype == torch.bfloat16
@@ -2775,11 +2840,13 @@ def plain_versions(decode_sums=None):
         return decode_step._decode_step_plain(w, x, int(pos), ck, cv, mk, mv, heads)
 
     mlp_block._mlp_forward, dwconv.dwconv_forward = mlp, dw
+    mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = mlp_bwd, dw_grad
     decode_step.fused_decode_step = beam.fused_decode_step = dec
     try:
         yield
     finally:
         mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step = saved
+        mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = saved_bwd
         beam.fused_decode_step = saved[2]
 
 
@@ -3250,6 +3317,470 @@ def bf16_phase(dev, card, seed, word_map, images8, rng):
     return launches
 
 
+# Phase 12: compute_dtype='bfloat16' training.  (a) holds the two new bf16
+# backward instances and the flipped bf16 conv against their plain versions
+# at the fine-tune step's shapes: a bf16 output within one bf16 ulp (as
+# phase 11), an f32 sum within BF16_TRAIN_TOL x max(1, max |plain|) (f32
+# sums over every row or pixel in another order, as phase 3's f32 backward).
+# (b) holds the full-width bf16 steps with the kernels against the same
+# steps with every kernel wrapper replaced by its plain version
+# (``plain_versions``) on the same pool bits and stochastic-depth rows.  The
+# rule first written (PERF.md): per trained tensor, the kernels' step-1
+# gradient within BF16_TRAIN_SHARE of the all-plain bf16 gradient's
+# distance from the f32 step on the same weights.  On an NVIDIA H100 80GB
+# HBM3 (700 W) that read 0.36 in the frozen step: one-ulp flips of the bf16
+# features (each block's output within an ulp of the plain version's) carry
+# through the 36 blocks' residuals, as two correct bf16 decodes part
+# (phase 11).  So
+# each gradient is also held to the noise floor measured in the same run:
+# the all-plain step with the encoder's sums in f64 against the all-plain
+# step, times BF16_NOISE (phase 11's factor); a tensor passes within the
+# larger of the two bounds, and both readings are printed.  Losses within
+# BF16_TRAIN_LOSS relative.
+BF16_TRAIN_TOL = 1e-4
+BF16_TRAIN_SHARE = 0.25
+BF16_TRAIN_LOSS = 1e-3
+FT_STAGES = ((2, TRAIN_BS * 16 * 16, 512), (3, TRAIN_BS * 8 * 8, 1024))  # (stage, N, C) of the trained blocks
+
+
+def check_bf16_train_kernels(dev, card):
+    """Phase 12a: the MLP tail's bf16 backward at the fine-tune step's two
+    trained stages (N = 8192 at C = 512, N = 2048 at C = 1024, per-image sd
+    rows of 0 and 1/survival) and at a ragged N = 600, C = 128; the
+    depthwise conv's bf16 filter and bias gradient and its bf16 input
+    gradient (the forward instance with the filter flipped) at stages 3 and
+    4, batch 32.  Device times by CUDA-graph replay beside the plain
+    versions, the f32 instances on the same inputs widened, and the library
+    call (``aten.convolution_backward`` and ``F.conv2d`` in bf16; none for
+    the tail).  Returns {name: (worst abs error, ms, plain ms, library ms,
+    bound ms, bound by)} per fine-tune step: 27 + 3 backward and filter
+    gradient launches, 26 + 3 input gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, sd_probs
+    from tpu_captioner_torch.ops.dwconv import _dw_grad_plain, _dw_plain, dwconv_filter_grad, dwconv_forward
+    from tpu_captioner_torch.ops.mlp_block import _mlp_bwd_plain_bf16, fused_convnext_mlp_bwd
+
+    bf = torch.bfloat16
+    probs = sd_probs(BASE_DEPTHS)
+    acc = {k: [0.0, 0.0, 0.0, 0.0, 0.0, 0, 0.0] for k in ("mlp_block_bwd_bf16", "dwconv_grad_bf16", "dwconv_bf16 input gradient")}
+    f32_ms = {"mlp_block_bwd_bf16": 0.0, "dwconv_grad_bf16": 0.0}  # the f32 instances, same inputs widened
+    for s, n, c in FT_STAGES + ((0, 600, 128),):
+        depth = BASE_DEPTHS[s] if s else 0
+        g = torch.Generator().manual_seed(c + 17)
+        f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+        params = [a.to(dev) for a in (1 + 0.1 * f(c), 0.1 * f(c), 0.02 * f(4 * c, c), 0.1 * f(4 * c),
+                                      0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c))]
+        params[2], params[4] = params[2].to(bf), params[4].to(bf)
+        survival = 1.0 - probs[sum(BASE_DEPTHS[: s + 1]) - 1]
+        units = TRAIN_BS if depth else n
+        keep = torch.rand(units, generator=g) < survival
+        keep[0], keep[1] = False, True
+        sd = (keep / survival).repeat_interleave(n // units).to(dev)
+        args = (f(n, c).to(dev, bf), f(n, c).to(dev, bf), sd, *params)
+        got, want = fused_convnext_mlp_bwd(*args), _mlp_bwd_plain_bf16(*args)
+        dx_err, dx_ulps = bf16_ulp_err(got[0], want[0])
+        errs = [_rel_err(a, b) for a, b in zip(got[1:], want[1:])]
+        if not (dx_ulps <= 1.0 and max(e[1] for e in errs) < BF16_TRAIN_TOL and got[0].dtype == bf
+                and torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
+                and all(torch.isfinite(a.float()).all() for a in got)):
+            raise AssertionError(f"mlp_block_bwd bf16 kernel disagrees at N={n}, C={c}: d_x {dx_ulps} ulps, "
+                                 f"f32 outputs {[e[1] for e in errs]}")
+        worst = max(dx_err, *(e[0] for e in errs))
+        wide = tuple(a.float() if a.dtype == bf else a for a in args)
+        t = (_graph_ms(lambda: fused_convnext_mlp_bwd(*args), iters=10),
+             _graph_ms(lambda: _mlp_bwd_plain_bf16(*args), iters=3, warmup=1))
+        t_f32 = _graph_ms(lambda: fused_convnext_mlp_bwd(*wide), iters=10)
+        print(f"bf16 mlp_block_bwd N={n} C={c}: d_x {dx_err:.3e} ({dx_ulps:.2f} ulp), f32 outputs max relative "
+              f"{max(e[1] for e in errs):.3e} (tol {BF16_TRAIN_TOL:g}); kernel {t[0]:.4f} ms, plain {t[1]:.4f}, "
+              f"f32 instance {t_f32:.4f} per launch [{card}]")
+        if depth:
+            a = acc["mlp_block_bwd_bf16"]
+            a[0] = max(a[0], worst)
+            a[1] += depth * t[0]
+            a[2] += depth * t[1]
+            # g, x in and d_x out in bf16, sd in and d_sd out, the bf16
+            # matrices in and their f32 gradients out, the vectors and their
+            # gradients; products: 32 N C^2 with a bf16 weight (329.67
+            # TFLOP/s), 16 N C^2 of f32 activations (165).
+            a[4] += depth * (2 * 3 * n * c + 4 * 2 * n + 2 * 8 * c * c + 4 * 8 * c * c + 4 * 2 * 8 * c)
+            a[6] += depth * (32 * n * c * c / BF16_BY_F32_OPS_PER_S + 16 * n * c * c / F32_PRODUCT_OPS_PER_S) * 1e3
+            f32_ms["mlp_block_bwd_bf16"] += depth * t_f32
+            # The depthwise conv of this stage: filter and bias gradient,
+            # input gradient (all but child 5's first block: 26 + 3).
+            side = 16 if c == 512 else 8
+            shape = (TRAIN_BS, side, side, c)
+            x, cot = f(*shape).to(dev, bf), f(*shape).to(dev, bf)
+            w = (0.1 * f(7, 7, c)).to(dev, bf)
+            dw, db = dwconv_filter_grad(x, cot, bias_grad=True)
+            again = dwconv_filter_grad(x, cot, bias_grad=True)
+            pw, pb = _dw_grad_plain(x, cot, True)
+            (ew, rw), (eb, rb) = _rel_err(dw, pw), _rel_err(db, pb)
+            repeat = torch.equal(dw, again[0]) and torch.equal(db, again[1])
+            if not (max(rw, rb) < BF16_TRAIN_TOL and repeat and dw.dtype == torch.float32):
+                raise AssertionError(f"dwconv_grad bf16 kernel at {shape}: relative {rw}, {rb} (tol "
+                                     f"{BF16_TRAIN_TOL}), the same bits twice: {repeat}")
+            wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+            wc_flip = w.flip(0, 1).permute(2, 0, 1).unsqueeze(1).contiguous()
+            xw, cw = x.float(), cot.float()
+            tg = (_graph_ms(lambda: dwconv_filter_grad(x, cot, bias_grad=True), iters=10),
+                  _graph_ms(lambda: _dw_grad_plain(x, cot, True), iters=3, warmup=1),
+                  _graph_ms(lambda: torch.ops.aten.convolution_backward(
+                      cot.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, [c], [1, 1], [3, 3], [1, 1], False,
+                      [0, 0], c, [False, True, True]), iters=10))
+            tg_f32 = _graph_ms(lambda: dwconv_filter_grad(xw, cw, bias_grad=True), iters=10)
+            dx = dwconv_forward(cot, w, flip=True)
+            dx_err, dx_ulps = bf16_ulp_err(dx, _dw_plain(cot, w.flip(0, 1)))
+            if not dx_ulps <= 1.0:
+                raise AssertionError(f"dwconv bf16 input gradient at {shape}: {dx_ulps} ulps")
+            ti = (_graph_ms(lambda: dwconv_forward(cot, w, flip=True)),
+                  _graph_ms(lambda: _dw_plain(cot, w.flip(0, 1))),
+                  _graph_ms(lambda: F.conv2d(cot.permute(0, 3, 1, 2), wc_flip, padding=3, groups=c)))
+            print(f"bf16 dwconv_grad {shape}: dw {ew:.3e}, d_bias {eb:.3e} (relative {rw:.3e}, {rb:.3e}, tol "
+                  f"{BF16_TRAIN_TOL:g}), the same bits twice: {repeat}; kernel {tg[0]:.4f} ms, plain {tg[1]:.4f}, "
+                  f"convolution_backward bf16 {tg[2]:.4f}, f32 instance {tg_f32:.4f} per launch | bf16 input "
+                  f"gradient: {dx_err:.3e} ({dx_ulps:.2f} ulp); kernel {ti[0]:.4f} ms, plain {ti[1]:.4f}, "
+                  f"F.conv2d bf16 {ti[2]:.4f} per launch [{card}]")
+            m = x.numel()
+            for name, launches, e, times, n_bytes in (
+                # x and g read in bf16, dw and the bias gradient written in f32.
+                ("dwconv_grad_bf16", depth, max(ew, eb), tg, 2 * 2 * m + 4 * 50 * c),
+                # g read, dx written in bf16, the filter in bf16.
+                ("dwconv_bf16 input gradient", depth - 1 if c == 512 else depth, dx_err, ti, 2 * 2 * m + 2 * 49 * c),
+            ):
+                a = acc[name]
+                a[0] = max(a[0], e)
+                for i, tt in enumerate(times):
+                    a[1 + i] += launches * tt
+                a[4] += launches * n_bytes
+                a[5] += launches * 2 * 49 * m
+            f32_ms["dwconv_grad_bf16"] += depth * tg_f32
+    out = {}
+    for name, (err, ms, plain_ms, lib_ms, n_bytes, n_ops, ops_ms) in acc.items():
+        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops_ms if name == "mlp_block_bwd_bf16" else n_ops / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        lib = None if name == "mlp_block_bwd_bf16" else lib_ms
+        out[name] = (err, ms, plain_ms, lib, bound_ms, bound_by)
+        extra = f", the f32 instance {f32_ms[name]:.4f} ms" if name in f32_ms else ""
+        print(f"{name} per bf16 fine-tune step: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              + ("" if lib is None else f", library {lib:.4f} ms") + f", bound {bound_ms:.4f} ms ({bound_by}; "
+              f"bytes {by_bytes:.4f}, operations {by_ops:.4f}){extra} [{card}]")
+    return out
+
+
+def bf16_train_agree(label, got, want, grads, want_grads, floor_grads, f32_grads, params, want_params, start, after,
+                     lr):
+    """Phase 12b's rule on two bf16 steps, kernels (``got``) against
+    all-plain (``want``): losses within BF16_TRAIN_LOSS relative, token and
+    top-5 counts equal; per trained tensor the kernels' step-1 gradient
+    within the larger of BF16_TRAIN_SHARE x all-plain's distance from the
+    f32 step's gradient and BF16_NOISE x the noise floor (all-plain with
+    f64 sums against all-plain, ``floor_grads``); the parameters after the
+    first step (Adam's first step moves each by about lr * sign(g)) within
+    1e-2 x lr where all-plain's gradient exceeds twice the tensor's largest
+    kernel-vs-plain difference (the run's noise: below it the signs may
+    differ).  Returns the count of encoder tensors changed per ConvNeXt
+    child after both steps (``after``)."""
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        print(f"{label} step {i}: kernels {a}; all-plain {b}")
+        if not (abs(a["loss"] - b["loss"]) <= BF16_TRAIN_LOSS * abs(b["loss"]) and a["tokens"] == b["tokens"]
+                and a["top5_correct"] == b["top5_correct"] and math.isfinite(a["loss"])):
+            raise AssertionError(f"{label} step {i}: the kernels' and the all-plain bf16 steps disagree")
+    if set(grads) != set(want_grads) or set(grads) - set(f32_grads) or set(grads) - set(floor_grads):
+        raise AssertionError(f"{label}: the paths trained different parameters")
+    share = floor_share = 0.0
+    failed, param_err, checked, total = [], 0.0, 0, 0
+    for k, g in want_grads.items():
+        d_kern = (grads[k] - g).norm().item()
+        d_f32 = (g - f32_grads[k]).norm().item()
+        d_floor = (floor_grads[k] - g).norm().item()
+        share = max(share, d_kern / max(d_f32, 1e-30))
+        floor_share = max(floor_share, d_kern / max(d_floor, 1e-30))
+        if d_kern > max(BF16_TRAIN_SHARE * d_f32, BF16_NOISE * d_floor):
+            failed.append((k, d_kern, d_f32, d_floor))
+        sure = g.abs() > 2 * (grads[k] - g).abs().max()
+        err = (params[k] - want_params[k]).abs()[sure]
+        param_err = max(param_err, err.max().item() if err.numel() else 0.0)
+        checked, total = checked + int(sure.sum()), total + g.numel()
+    print(f"{label} step-1 gradients over {len(want_grads)} tensors: the kernels' distance from all-plain bf16 at "
+          f"most {share:.3e} of all-plain's distance from the f32 step (rule {BF16_TRAIN_SHARE}) and at most "
+          f"{floor_share:.3e} of the noise floor (all-plain with f64 sums; rule {BF16_NOISE}); parameters after the "
+          f"first step within {param_err:.3e} of all-plain's (tol {1e-2 * lr:g}) on {checked} of {total} elements "
+          f"above the noise")
+    if failed or not (param_err <= 1e-2 * lr and checked > total // 4):
+        raise AssertionError(f"{label}: gradients or parameters break the bf16 rule: {failed[:5]}")
+    changed = {}  # ConvNeXt child -> tensors changed by the two steps
+    for k, v in start.items():
+        if k.startswith("encoder.convnext."):
+            i = int(k.split(".")[2])
+            changed[i] = changed.get(i, 0) + (not torch.equal(after[k], v))
+    return changed
+
+
+def remat_ab(card, model, tc, word_map, batch, root):
+    """The paired A/B that decides the bf16 fine-tune step's remat 'auto':
+    AB_PAIRS pairs, one step of each arm a pair ('off', 'on'; the order
+    alternating), device time by CUDA events around the step beside the
+    host clock.  'on' is taken only if the median of the pairs' device-time
+    differences ('off' - 'on') exceeds their spread (the rule in PERF.md,
+    written before the run).  Returns (choice, medians)."""
+    import statistics
+
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    state = TrainState.create(model, tc)
+    step = make_train_step(model, tc, word_map, train_encoder=True)
+    seeds = (prng.step_seed(root, "dropout", 7, i) for i in itertools.count())
+
+    def run(remat):
+        nonlocal state
+        model.cfg = dataclasses.replace(model.cfg, encoder_remat=remat)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = step(state, batch, next(seeds))
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    for remat in ("off", "on", "off", "on"):  # warm-up of both arms
+        run(remat)
+    pairs = []
+    for i in range(AB_PAIRS):
+        order = ("off", "on") if i % 2 == 0 else ("on", "off")
+        t = {r: run(r) for r in order}
+        pairs.append((t["off"], t["on"]))
+    diffs = [off[0] - on[0] for off, on in pairs]
+    gain, spread = statistics.median(diffs), max(diffs) - min(diffs)
+    med = {r: (statistics.median(p[j][0] for p in pairs), statistics.median(p[j][1] for p in pairs))
+           for j, r in enumerate(("off", "on"))}
+    choice = "on" if gain > spread else "off"
+    print(f"bf16 remat A/B, {AB_PAIRS} pairs, one fine-tune step per arm at bs {TRAIN_BS}: 'off' median "
+          f"{med['off'][0]:.2f} ms device ({med['off'][1]:.2f} host), 'on' {med['on'][0]:.2f} ({med['on'][1]:.2f}); "
+          f"'off' - 'on' per pair median {gain:.2f}, min {min(diffs):.2f}, max {max(diffs):.2f}, spread "
+          f"{spread:.2f} ms: 'auto' -> {choice!r} [{card}]")
+    print("  pairs ('off', 'on') device ms: " + ", ".join(f"({a[0]:.2f}, {b[0]:.2f})" for a, b in pairs))
+    model.cfg = dataclasses.replace(model.cfg, encoder_remat="auto")
+    return choice, med
+
+
+def bf16_train_phase(dev, card, seed, word_map):
+    """Phase 12b: the full-width bf16 frozen and fine-tune steps at batch 32
+    against the all-plain bf16 steps (``plain_versions``), their f64-sum
+    noise floor and the f32 steps on the same weights, pool bits and
+    stochastic-depth rows (one seed per
+    step, both paths); launches per fine-tune step; ms per step and peak
+    memory beside f32's; the remat A/B.  Returns the bf16 launches of one
+    fine-tune step and the remat choice."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.train.model import CaptionModel, finetune_encoder_remat
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    t12 = time.perf_counter()
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    cfg = ModelConfig(vocab_size=VOCAB, compute_dtype="bfloat16")
+    model = CaptionModel(cfg, device=dev, seed=seed + 30)
+    gen = torch.Generator().manual_seed(seed + 30)
+    with torch.no_grad():  # order-one layer scales, as in phase 6
+        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+    start = copy.deepcopy(model.state_dict())
+    f32 = CaptionModel(ModelConfig(vocab_size=VOCAB), device=dev)
+    f32.load_state_dict(start)
+    batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
+    root = prng.root_seed(seed + 31)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+    names = ("dropout_mask", "mlp_block_bf16", "mlp_block_bwd_bf16", "dwconv_bf16", "dwconv_grad_bf16")
+
+    def two_steps(m, train_encoder, plain=False, sums=None):
+        """Two steps from ``start``: metrics and launches per step, step 1's
+        gradients and parameters, the state after both; ``plain`` runs the
+        plain versions (the encoder's sums in ``sums`` when given)."""
+        m.load_state_dict(start)
+        state = TrainState.create(m, tc)
+        step = make_train_step(m, tc, word_map, train_encoder=train_encoder)
+        out, seen = [], []
+        with plain_versions(encoder_sums=sums) if plain else contextlib.nullcontext():
+            for i, s in enumerate(seeds):
+                zero_kernel_counts()
+                state, met = step(state, batch, s)
+                torch.cuda.synchronize()
+                counts = kernel_counts()
+                seen.append(tuple(counts[k] for k in names))
+                out.append({k: float(v) for k, v in met.items()})
+                if i == 0:
+                    grads = {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None}
+                    first = {k: m.state_dict()[k].clone() for k in grads}
+        return out, grads, first, {k: v.clone() for k, v in m.state_dict().items()}, seen
+
+    launches = {}
+    for label, train_encoder, expect in (("frozen", False, (1, 36, 0, 36, 0)), ("fine-tune", True, (1, 36, 30, 65, 30))):
+        got, grads, params, after, seen = two_steps(model, train_encoder)
+        if any(c != expect for c in seen):
+            raise AssertionError(f"bf16 {label} step: expected {names} launches {expect} per step, got {seen}")
+        want, want_grads, want_params, _, plain_seen = two_steps(model, train_encoder, plain=True)
+        _, floor_grads, _, _, floor_seen = two_steps(model, train_encoder, plain=True, sums=torch.float64)
+        if any(c[1:] != (0, 0, 0, 0) for c in plain_seen + floor_seen):
+            raise AssertionError(f"bf16 {label} step, all-plain: a bf16 kernel launched ({plain_seen}, {floor_seen})")
+        _, f32_grads, _, _, _ = two_steps(f32, train_encoder)
+        changed = bf16_train_agree(f"bf16 {label}", got, want, grads, want_grads, floor_grads, f32_grads, params,
+                                   want_params, start, after, tc.encoder_lr)
+        print(f"bf16 {label} step: launches per step {dict(zip(names, seen[0]))}; encoder tensors changed per "
+              f"child {dict(sorted(changed.items()))}")
+        if any((i >= FT_START and train_encoder) != (c > 0) for i, c in changed.items()):
+            raise AssertionError(f"bf16 {label}: children below {FT_START} must stay bit-identical, the rest change")
+        launches[label] = seen[0]
+        del grads, want_grads, floor_grads, f32_grads, params, want_params, after
+        torch.cuda.empty_cache()
+
+    # ms per step and peak memory, bf16 beside f32, frozen and fine-tune.
+    for label, train_encoder in (("frozen", False), ("fine-tune", True)):
+        for m in (model, f32):
+            m.load_state_dict(start)
+            state = TrainState.create(m, tc)
+            step = make_train_step(m, tc, word_map, train_encoder=train_encoder)
+            for i in range(3):
+                state, _ = step(state, batch, prng.step_seed(root, "dropout", 1, i))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in range(TRAIN_TIMED_STEPS):
+                t0 = time.perf_counter()
+                state, met = step(state, batch, prng.step_seed(root, "dropout", 2, i))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = sorted(times)[len(times) // 2]
+            print(f"{'bf16' if m is model else 'f32'} {label} step bs={TRAIN_BS}: median {ms:.2f} ms/step over "
+                  f"{TRAIN_TIMED_STEPS} steps (min {min(times):.2f}, max {max(times):.2f}), "
+                  f"{TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB, loss {float(met['loss']):.4f} [{card}]")
+            if m is model and train_encoder:
+                state, groups, top, n_launch, wall_ms = _kernel_ms_by_group(
+                    step, state, batch, [prng.step_seed(root, "dropout", 3, i) for i in range(2)])
+                busy = sum(groups.values())
+                print(f"bf16 fine-tune step under torch.profiler: {wall_ms:.2f} ms wall, {busy:.2f} ms of kernels "
+                      f"({n_launch} launches); kernel ms by group: " + ", ".join(
+                          f"{k} {v:.2f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])) + f" [{card}]")
+                for ms_k, name in top:
+                    print(f"  {ms_k:8.2f} ms/step  {name}")
+            del state, step
+            torch.cuda.empty_cache()
+    del f32
+    torch.cuda.empty_cache()
+    model.load_state_dict(start)
+    choice, _ = remat_ab(card, model, tc, word_map, batch, root)
+    resolved = finetune_encoder_remat("auto", "bfloat16")
+    print(f"bf16 remat: the A/B chose {choice!r}; finetune_encoder_remat('auto', 'bfloat16') is {resolved!r}; "
+          f"phase 12b took {time.perf_counter() - t12:.1f} s")
+    if resolved != choice:
+        raise AssertionError(f"finetune_encoder_remat('auto', 'bfloat16') is {resolved!r}, the A/B chose {choice!r}")
+    return launches["fine-tune"]
+
+
+def bf16_entry_phase(dev, card, seed):
+    """Phase 12c: the training entry point in bf16 on phase 10's synthetic
+    data (rebuilt): ``cli.train --computeDtype bfloat16`` through ``main``,
+    one free-running epoch; the Trainer over two teacher-forced epochs with
+    the unlock at 1; both with validation through the bf16 eval step (its
+    head's bias raised on one word, as in phase 10); every step's launches
+    counted; finite losses; ``meta.json`` says bfloat16; ``cli.caption``'s
+    loader and ``caption_batch`` and ``cli.test`` on the checkpoint.  Every
+    count is zeroed before the first run and read after the second: the
+    main path's totals, by kernel name."""
+    import shutil
+
+    import torch
+
+    from tpu_captioner_torch.cli import test as cli_test, train as cli_train
+    from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.data.build import build_synthetic_dataset
+    from tpu_captioner_torch.data.dataset import CaptionDataset
+    from tpu_captioner_torch.train import loop
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="smoke_bf16_train_")
+    try:
+        ds = os.path.join(tmp, "ds")
+        word_map = build_synthetic_dataset(ds, num_images=dict(TRAIN_DATA), vocab_words=VOCAB - 4,
+                                           max_len=TRAIN_T - 2, image_size=256, learnable=True)
+        os.chdir(tmp)
+        zero_kernel_counts()
+        record = {"train": [], "eval": []}
+        with counted_trainer_steps(record, word_map[EVAL_WORD]):
+            free = cli_train.main(["--dataFolder", ds, "--dataName", TRAIN_DATA_NAME, "--batchSize", str(TRAIN_BS),
+                                   "--epochs", "1", "--device", dev.type, "--computeDtype", "bfloat16"])
+            exp = ExperimentConfig(model=ModelConfig(compute_dtype="bfloat16"), train=TrainConfig(
+                batch_size=TRAIN_BS, epochs=2, fine_tune_epoch=1, teacher_forcing=True, print_freq=1000,
+                checkpoint_dir=os.path.join(tmp, "c", "ckpt"), results_dir=os.path.join(tmp, "c", "results")))
+            tf = loop.Trainer(exp, ds, TRAIN_DATA_NAME, device=dev, verbose=False)
+            rows = tf.run()
+        torch.cuda.synchronize()
+        totals = kernel_counts()
+        layers, steps = free.exp.model.num_layers, free.exp.train.max_decode_len
+        check_counts("phase 12c bf16 cli.train + Trainer", record, {
+            "free-running, frozen": (0, 36, 0, 36, 0), "TF, frozen": (1, 36, 0, 36, 0),
+            "TF, fine-tune": (1, 36, 30, 65, 30)}, layers, steps)
+        bleu1 = one_word_bleu1(CaptionDataset(ds, TRAIN_DATA_NAME, "VAL"), word_map[EVAL_WORD], steps,
+                               word_map["<start>"], word_map["<pad>"])
+        all_rows = free.results + rows
+        if not (free.model.dtype == tf.model.dtype == torch.bfloat16 and len(all_rows) == 3 and all(
+                math.isfinite(r["trainLoss"]) and math.isfinite(r["valLoss"])
+                and abs(r["bleu1"] - bleu1) <= 1e-12 * bleu1 for r in all_rows)):
+            raise AssertionError(f"phase 12c: rows {all_rows} (BLEU-1 counted from the records {bleu1!r})")
+        ckpt = os.path.join(tmp, "checkpoints", free.checkpoint_name())
+        metas = [os.path.join(ckpt, "meta.json"), os.path.join(exp.train.checkpoint_dir, tf.checkpoint_name(),
+                                                               "meta.json")]
+        for path in metas:
+            with open(path) as f:
+                if json.load(f)["config"]["model"]["compute_dtype"] != "bfloat16":
+                    raise AssertionError(f"phase 12c: {path} does not say bfloat16")
+        print(f"phase 12c: rows {all_rows}; meta.json says bfloat16 ({time.perf_counter() - t0:.1f} s)")
+        del free, tf
+        torch.cuda.empty_cache()
+
+        best = os.path.join(tmp, "checkpoints", f"BEST_{os.path.basename(ckpt)}")
+        served = build_model_and_params(argparse.Namespace(checkpoint=best, device=str(dev), seed=seed), word_map)
+        images = torch.randint(0, 256, (8, 256, 256, 3), generator=torch.Generator().manual_seed(seed + 40),
+                               dtype=torch.uint8).numpy()
+        caps = caption_batch(served, images, word_map, BEAM)
+        if not (served.dtype == torch.bfloat16 and len(caps) == 8 and all(
+                seq[0] == word_map["<start>"] and math.isfinite(score) and np_isfinite(alpha)
+                for _, score, seq, alpha in caps)):
+            raise AssertionError("phase 12c: cli.caption's loader did not serve the bf16 checkpoint")
+        del served
+        row = cli_test.main(["--dataFolder", ds, "--dataName", TRAIN_DATA_NAME, "--batchSize", str(TRAIN_BS),
+                             "--checkpoint", best, "--device", dev.type, "--computeDtype", "bfloat16"])
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"phase 12c: cli.test row {row}")
+        print(f"phase 12c: cli.caption on the BEST_ checkpoint: {caps[0][0][:60]!r}; cli.test: {row} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in ("dropout_mask", "mlp_block_bf16", "mlp_block_bwd_bf16", "dwconv_bf16", "dwconv_grad_bf16",
+                           "decode_step_bf16") if totals[k] == 0]
+    if missing or any(totals[k] != totals[k.replace("_bf16", "")] for k in (
+            "mlp_block_bf16", "mlp_block_bwd_bf16", "dwconv_bf16", "dwconv_grad_bf16", "decode_step_bf16")):
+        raise AssertionError(f"phase 12c: bf16 kernels never launched {missing}, or an f32 instance ran: {totals}")
+    print(f"phase 12c launches: {totals}; phase 12c took {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def np_isfinite(a):
     import numpy as np
 
@@ -3428,6 +3959,16 @@ def main(argv=None):
     bf16 = check_bf16_kernels(dev, card, flagship_model(cfg, dev, args.seed).decoder.layers)
     bf16_launches = bf16_phase(dev, card, args.seed, word_map, images8, rng)
 
+    # 12. compute_dtype='bfloat16' training: the backward instances, the
+    # full-width steps against all-plain and f32, the entry point.
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    bf16_train = check_bf16_train_kernels(dev, card)
+    ft_bf16 = bf16_train_phase(dev, card, args.seed, word_map)
+    torch.cuda.empty_cache()
+    bf16_training = bf16_entry_phase(dev, card, args.seed)
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
@@ -3492,9 +4033,18 @@ def main(argv=None):
               ("mlp_block_bf16", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:126"),
               ("dwconv_bf16", "dwconv.cu", "tpu_captioner/ops/dwconv.py:37"),
               ("decode_step_bf16", "decode_step.cu", "tpu_captioner/ops/decode_step.py:185"))),
+        # The bf16 backward instances (phase 12): launches per bf16 fine-tune
+        # step (12b), times per step (12a).
+        *({"name": name, "route": "cuda", "source": f"tpu_captioner_torch/csrc/{source}", "replaces": replaces,
+           "launches": launches, "max_abs_err": bf16_train[name][0], "ms": bf16_train[name][1],
+           "plain_ms": bf16_train[name][2], "bound_ms": bf16_train[name][4], "bound_by": bf16_train[name][5],
+           "library_ms": bf16_train[name][3]}
+          for name, source, replaces, launches in (
+              ("mlp_block_bwd_bf16", "mlp_block_bwd.cu", "tpu_captioner/ops/mlp_block.py:275", ft_bf16[2]),
+              ("dwconv_grad_bf16", "dwconv.cu", "tpu_captioner/ops/dwconv.py:97", ft_bf16[4]))),
     ]
-    for k in kernels:
-        k["launches_training"] = training[k["name"]]
+    for k in kernels:  # the bf16 instances' training path is phase 12c's, the rest phase 10's
+        k["launches_training"] = (bf16_training if k["name"].endswith("_bf16") else training)[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

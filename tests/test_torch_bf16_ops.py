@@ -215,21 +215,6 @@ def jax_tree(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
 
 
-def test_bf16_backward_is_refused():
-    """The tail's and the conv's bf16 gradients belong to bf16 training
-    (ROADMAP.md Queue 1 #5b): their backward raises, naming it."""
-    x = torch.zeros(1, 8, 8, 16, dtype=BF, requires_grad=True)
-    taps = torch.zeros(7, 7, 16, dtype=BF)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5b"):
-        depthwise_conv7x7_nhwc(x, taps, True, True).sum().backward()
-    rows = torch.zeros(4, 16, dtype=BF, requires_grad=True)
-    vec = torch.zeros(16)
-    args = (rows, rows.detach(), torch.ones(4), vec, vec, torch.zeros(64, 16, dtype=BF), torch.zeros(64),
-            torch.zeros(16, 64, dtype=BF), vec, vec)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5b"):
-        fused_convnext_mlp(*args).float().sum().backward()
-
-
 @pytest.mark.parametrize("E,H", [(512, 8), (200, 8), (304, 8)])
 def test_bf16_decode_plan_sizes_the_ring_by_element(E, H):
     """The bf16 arm's per-layer plan: ring units of bf16 weight rows (2 bytes
@@ -252,14 +237,20 @@ def test_bf16_decode_plan_sizes_the_ring_by_element(E, H):
 
 @pytest.mark.parametrize("shape", [(8, 64, 64, 128), (32, 16, 16, 512), (32, 8, 8, 1024), (2, 9, 7, 24)])
 def test_bf16_dwconv_plan(shape):
-    """The bf16 forward's plan: TMA boxes of bf16 rows need C % 8 == 0 and
-    take no more shared memory than the f32 plan; the filter gradient has
-    no bf16 plan."""
+    """The bf16 plans: TMA boxes of bf16 rows need C % 8 == 0.  The
+    forward's takes no more shared memory than the f32 plan; the filter
+    gradient's bf16 boxes hold at least as many channels a chunk (128 at
+    stage 4, against f32's 64) and at least as many ring slots, within a
+    block's shared memory; elements of another size are refused."""
     from tpu_captioner_torch.ops.dwconv import SMEM_LIMIT, dwconv_plan
 
-    plan, f32 = dwconv_plan(*shape, esize=2), dwconv_plan(*shape)
-    assert plan.tma and plan.smem <= min(f32.smem, SMEM_LIMIT) and (plan.th, plan.tw) == (f32.th, f32.tw)
-    with pytest.raises(ValueError, match="C % 8"):
-        dwconv_plan(2, 9, 7, 20, esize=2)
-    with pytest.raises(ValueError, match="for the forward"):
-        dwconv_plan(*shape, kind="wgrad", esize=2)
+    for kind in ("forward", "wgrad"):
+        plan, f32 = dwconv_plan(*shape, kind=kind, esize=2), dwconv_plan(*shape, kind=kind)
+        assert plan.tma and plan.smem <= SMEM_LIMIT and (plan.th, plan.tw) == (f32.th, f32.tw)
+        assert plan.cc >= f32.cc and plan.parts == f32.parts and plan.slots >= f32.slots
+        if kind == "forward":
+            assert plan.smem <= f32.smem
+        with pytest.raises(ValueError, match="C % 8"):
+            dwconv_plan(2, 9, 7, 20, kind=kind, esize=2)
+    with pytest.raises(ValueError, match="4 or 2 bytes"):
+        dwconv_plan(*shape, kind="wgrad", esize=1)

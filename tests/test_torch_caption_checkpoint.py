@@ -111,8 +111,10 @@ def test_the_checkpoint_gives_the_model_its_config(trained, tmp_path):
 def test_cli_test_evaluates_in_bf16_and_training_refuses(trained, tmp_path, monkeypatch, capsys):
     """``cli.test --computeDtype bfloat16`` builds a bf16 model through the
     ``Trainer`` and evaluates the TEST split greedily (the eval step's
-    ``'step'`` mode, the decode kernel's bf16 arm); the same Trainer refuses
-    to train, at its first train step and not when it is built."""
+    ``'step'`` mode, the decode kernel's bf16 arm).  The same Trainer, which
+    refused to train before bf16 training was ported (ROADMAP.md Queue 1
+    #5b), now trains: one bf16 epoch, a finite loss, a checkpoint whose
+    ``meta.json`` says bfloat16."""
     from tpu_captioner_torch.cli import test as cli_test
 
     d, _, _ = trained
@@ -132,5 +134,7 @@ def test_cli_test_evaluates_in_bf16_and_training_refuses(trained, tmp_path, monk
     exp.train.epochs, exp.train.checkpoint_dir = 1, str(tmp_path / "ckpt")
     trainer = loop.Trainer(exp, str(d / "data"), BASE, device="cpu", verbose=False)
     assert trainer.model.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5b"):
-        trainer.run()
+    (row,) = trainer.run()
+    assert np.isfinite(row["trainLoss"]) and np.isfinite(row["valLoss"])
+    with open(tmp_path / "ckpt" / trainer.checkpoint_name() / META_FILE) as f:
+        assert json.load(f)["config"]["model"]["compute_dtype"] == "bfloat16"

@@ -64,7 +64,16 @@ order may round to the neighbouring bf16 value; the decode arm's single
 layer launch within 2e-3 times max(1, the largest magnitude) for x_out and
 alpha and one ulp for k_new and v_new (one bf16 rounding of an operand that
 another sum order can flip inside a product), at the beams' and the eval
-step's rows.  A CUDA model pins cuBLAS's bf16 reductions to f32.
+step's rows.  A CUDA model pins cuBLAS's bf16 reductions to f32.  The bf16
+backward instances (bf16 training): the MLP tail's backward on bf16 g, x
+and weights, d_x within one bf16 ulp of its plain version (0 where sd is
+0) and its eight f32 gradients within 1e-4 times max(1, the largest
+magnitude), as the f32 instance's, the same bits twice; the depthwise
+conv's bf16 filter and bias gradient within 1e-4 times the same, the same
+bits twice, also through its instance without TMA, and its bf16 input
+gradient (the forward instance with the filter flipped) within one ulp; a
+bf16 block's backward through the autograd functions launches each bf16
+instance and rounds each cast weight's gradient to bf16 once.
 """
 
 import math
@@ -921,3 +930,88 @@ def test_cuda_model_pins_bf16_reductions_to_f32(cuda):
     CaptionModel(ModelConfig(vocab_size=11, encoder_depths=(1, 1, 1, 1), embed_dim=64, decoder_dim=64,
                              num_layers=1, compute_dtype="bfloat16"), device=cuda)
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+
+
+# bf16 training: the backward instances.
+
+
+@pytest.mark.parametrize("n,c", [(8192, 512), (2048, 1024)] + [(1003, c) for c in SUPPORTED_C] + [(7, 1024)])
+def test_mlp_bf16_backward_kernel_matches_plain(cuda, n, c):
+    """The bf16 backward on bf16 g, x, w1 and w2: d_x within one bf16 ulp of
+    the plain version (0 on rows with sd 0), the eight f32 gradients within
+    1e-4 x max(1, max |plain|), as the f32 instance's."""
+    from tpu_captioner_torch.ops.mlp_block import _mlp_bwd_plain_bf16
+
+    g, x, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(n, c, cuda, seed=n + c, sd="mixed")
+    bf = torch.bfloat16
+    args = (g.to(bf), x.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
+    before = fused_convnext_mlp_bwd.launches, fused_convnext_mlp_bwd.bf16_launches
+    got = fused_convnext_mlp_bwd(*args)
+    torch.cuda.synchronize()
+    assert (fused_convnext_mlp_bwd.launches, fused_convnext_mlp_bwd.bf16_launches) == tuple(k + 1 for k in before)
+    want = _mlp_bwd_plain_bf16(*args)
+    assert got[0].dtype == bf and all(a.dtype == torch.float32 for a in got[1:])
+    assert within_bf16_ulp(got[0], want[0])
+    assert torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.isfinite(a).all() and within(a, b, 1e-4)
+    again = fused_convnext_mlp_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("bias_grad", [False, True])
+@pytest.mark.parametrize("shape", [(32, 16, 16, 512), (32, 8, 8, 1024), (8, 64, 64, 128), (2, 9, 7, 24)])
+def test_dwconv_bf16_filter_grad_kernel_matches_plain(cuda, shape, bias_grad):
+    """The bf16 filter (and bias) gradient: f32 sums of bf16 x and g within
+    1e-4 x max(1, max |plain|), the same bits twice, also through the
+    instance without TMA; the input gradient (the bf16 forward with the
+    filter flipped) within one bf16 ulp."""
+    g = torch.Generator().manual_seed(sum(shape))
+    bf = torch.bfloat16
+    x = torch.randn(*shape, generator=g).to(cuda, bf)
+    cot = torch.randn(*shape, generator=g).to(cuda, bf)
+    w = (0.1 * torch.randn(7, 7, shape[-1], generator=g)).to(cuda, bf)
+    before = depthwise_conv7x7_nhwc.grad_launches, depthwise_conv7x7_nhwc.bf16_grad_launches
+    got = dwconv_filter_grad(x, cot, bias_grad)
+    torch.cuda.synchronize()
+    assert (depthwise_conv7x7_nhwc.grad_launches, depthwise_conv7x7_nhwc.bf16_grad_launches) == tuple(
+        k + 1 for k in before)
+    want = _dw_grad_plain(x, cot, bias_grad)
+    got, want = (got, want) if bias_grad else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and within(a, b, 1e-4)
+    again = dwconv_filter_grad(x, cot, bias_grad)
+    assert all(torch.equal(a, b) for a, b in zip(got, again if bias_grad else (again,)))
+    xu, cu = unaligned(x), unaligned(cot)
+    got_u = dwconv_filter_grad(xu, cu, bias_grad)
+    got_u = got_u if bias_grad else (got_u,)
+    for a, b in zip(got_u, want):
+        assert within(a, b, 1e-4)
+    dx = dwconv_forward(cot, w, flip=True)
+    torch.cuda.synchronize()
+    assert dx.dtype == bf and within_bf16_ulp(dx, _dw_plain(cot, w.flip(0, 1)))
+
+
+def test_bf16_autograd_runs_the_backward_instances(cuda):
+    """A bf16 block's backward through the autograd functions on the card:
+    one bf16 launch of each backward kernel and of the flipped conv, each
+    bf16 input's gradient bf16, the f32 vectors' f32."""
+    from tpu_captioner_torch.models.convnext import CNBlock
+
+    blk = CNBlock(512, "mlp", device=cuda)
+    blk.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        blk.layer_scale.fill_(0.5)
+    x = torch.randn(4, 16, 16, 512, device=cuda).to(torch.bfloat16).requires_grad_()
+    counts = lambda: (fused_convnext_mlp_bwd.bf16_launches, depthwise_conv7x7_nhwc.bf16_grad_launches,  # noqa: E731
+                      depthwise_conv7x7_nhwc.bf16_launches)
+    before = counts()
+    out = blk(x)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 2)  # the forward and the input gradient
+    assert out.dtype == x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad.float()).all()
+    for name, p in blk.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
+        if name in ("block.0.weight", "block.0.bias", "block.3.weight", "block.5.weight"):
+            assert torch.equal(p.grad, p.grad.to(torch.bfloat16).float()), name  # rounded to bf16 once

@@ -19,10 +19,10 @@
   for the loader's queue timeouts and its thread's error, raised again in
   the consumer.
 - The depthwise conv's wrappers refuse what their kernels do not take (other
-  devices, a dtype without an instance: float16 for the forward, bf16 for
-  the filter gradient, mixed dtypes; non-contiguous tensors, tensors on two
-  devices).  bf16 serves the Transformer families; what it does not port
-  raises naming its ROADMAP item.
+  devices, a dtype without an instance: float16, mixed dtypes;
+  non-contiguous tensors, tensors on two devices).  bf16 serves and trains
+  the Transformer families; what it does not port raises naming its
+  ROADMAP item.
 - The whole-block wrapper refuses other devices, dtypes, shapes and layouts
   on every device, and on the card the widths its kernel is not built for;
   its library stages the conv by TMA (``csrc/dwconv_tile.cuh``), runs the
@@ -121,12 +121,12 @@ def test_chip_smoke_raises_without_a_card(cpu_only, capsys):
 
 
 def test_bf16_and_lstm_are_refused():
-    """bf16 serves the Transformer families: a bf16 model builds.  What bf16
-    does not port raises NotImplementedError naming its ROADMAP item: the
-    LSTM families (#5c), ``use_pallas='block'`` (#5d), the ``'mega'`` and
-    one-cell decode modes (#5e) and a train step (#5b).  The LSTM families,
-    once refused in f32 too, are ported: an ``lstm`` model builds on the
-    CPU."""
+    """bf16 serves and trains the Transformer families: a bf16 model builds,
+    and so do its train steps (bf16 training, once refused as #5b, is
+    ported).  What bf16 does not port raises NotImplementedError naming its
+    ROADMAP item: the LSTM families (#5c), ``use_pallas='block'`` (#5d),
+    the ``'mega'`` and one-cell decode modes (#5e).  The LSTM families, once
+    refused in f32 too, are ported: an ``lstm`` model builds on the CPU."""
     from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
     from tpu_captioner_torch.models.lstm import DecoderWithAttention
     from tpu_captioner_torch.train.model import CaptionModel
@@ -147,10 +147,10 @@ def test_bf16_and_lstm_are_refused():
         model = CaptionModel(ModelConfig(decode_kernel=mode, **tiny), device="cpu")
         with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5e"):
             model.rollout(enc, 1, 2, 3, one_cell=one_cell)
-    for train_encoder in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5b"):
-            make_train_step(model, TrainConfig(), {"<start>": 1, "<end>": 2, "<pad>": 0},
-                            train_encoder=train_encoder)
+    for teacher_forcing in (True, False):
+        for train_encoder in (False, True):
+            assert callable(make_train_step(model, TrainConfig(), {"<start>": 1, "<end>": 2, "<pad>": 0},
+                                            teacher_forcing=teacher_forcing, train_encoder=train_encoder))
     model = CaptionModel(
         ModelConfig(vocab_size=11, decoder="lstm", encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
                     encoder_dim=8, embed_dim=8, attention_dim=6, decoder_dim=8),
@@ -317,10 +317,10 @@ def test_dwconv_wrappers_refuse_other_devices_and_dtypes(cpu_only):
             fn(x.half(), w.half())
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             fn(x.bfloat16(), w)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         dwconv_filter_grad(x, x.bfloat16())
-    with pytest.raises(ValueError, match="float32"):  # the bf16 filter gradient belongs to bf16 training
-        dwconv_filter_grad(x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):  # bf16 training takes bf16, float16 has no instance
+        dwconv_filter_grad(x.half(), x.half())
     with pytest.raises(ValueError, match="contiguous"):
         depthwise_conv7x7_nhwc(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="not cpu"):

@@ -1,7 +1,7 @@
 // The ConvNeXt block's 7x7 depthwise convolution, NHWC, stride 1, pad 3, f32,
 // for Hopper (sm_90a): the forward (also the input gradient, with the filter
 // flipped), with an optional bias, and the filter gradient, with an optional
-// bias gradient; and the forward's bf16 instance, for the bf16 encoder.
+// bias gradient; and both kernels' bf16 instances, for the bf16 encoder.
 //
 // Replaces two TPU kernels of tpu_captioner/ops/dwconv.py:
 // - _dw_kernel (:37) -> dwconv_fwd_kernel:
@@ -18,14 +18,24 @@
 //   == 0), widened to f32 as the consumers read them, and the JAX block's
 //   two roundings in the epilogue: y = bf16(bf16(sum) + bias)
 //   (tpu_captioner/models/convnext.py:154-155).  Half the bytes of the f32
-//   forward, and the same 49 multiply-adds.
+//   forward, and the same 49 multiply-adds.  With flip = 1 and no bias it
+//   is the bf16 block's input gradient, conv(g, flipped w) rounded once
+//   (tpu_captioner/ops/dwconv.py:174-181 on bf16 operands).
+//   _dwg_kernel's bf16 arm (bf16 x and g, f32 sums, an f32 result that the
+//   caller rounds to bf16 once, as `.astype(w.dtype)` at :180 does) ->
+//   dwconv_wgrad_kernel<__nv_bfloat16, ...>: bf16 x and g boxes by TMA,
+//   widened as the consumers read them, the same f32 sums in the same
+//   fixed order, the bias gradient beside them; dw and db written in f32.
+//   Half the bytes of the f32 gradient, the same FMAs: at stages 3 and 4
+//   its 98 FLOP an output at 67 TFLOP/s outlast its bytes.
 //
 // What bounds them on the H100: bytes.  The forward moves each input and
 // output value once and does 49 multiply-adds per output: a bs-32 encoder
 // pass (36 convolutions) moves about 1.56 GB against 19 GFLOP, 0.47 ms at
 // 3.35 TB/s against 0.29 ms at 67 TFLOP/s, so the FMAs are not free either:
 // at stage 3 they take 70% of the time the bytes take.  The filter gradient
-// reads x and g once, 0.96 GB per fine-tune step (30 convolutions).  On an
+// reads x and g once, 0.96 GB per fine-tune step (30 convolutions; bf16 half
+// of it, and then the FMAs, 0.175 ms a step, bound it).  On an
 // H100 80GB HBM3 (700 W) at stage 3, bs 32, copies of these kernels that
 // issue no tile copies ran 95% (forward) and 82% (filter gradient) as long
 // as they do, copies with a seventh of the FMAs 66% (scripts/dwconv_probe.py
@@ -63,7 +73,8 @@
 // - Instances.  The main path's (chunk, tile columns) get TMA instances of
 //   their own, so that every shared-memory offset of the inner loop is an
 //   immediate; other shapes take a TMA instance with both at run time, and
-//   C % 4 != 0 or an unaligned pointer the instance without TMA.
+//   C % 4 != 0 (C % 8 in bf16) or an unaligned pointer the instance without
+//   TMA.  Each kernel has them for f32 and for bf16 elements.
 // - Shared.  The tensor map, the consumer warp's patch and bind_device sit
 //   in dwconv_tile.cuh, which the whole-block kernel's conv + LayerNorm
 //   launch (block_fused.cu) runs too.
@@ -95,7 +106,7 @@ constexpr int kHeader = 128 + 256;  // base alignment slack, then the barriers
 int region(long long n) { return (int)((n + 128 + 127) / 128 * 128); }
 
 // The launch's shape, from the plan; the regions in elements of the staged
-// type (floats, or bf16 in the bf16 forward) unless named.
+// type (floats, or bf16 in the bf16 instances) unless named.
 struct Geom {
   int B, H, W, C;
   int th, tw, cc, slots, parts;
@@ -108,12 +119,12 @@ struct Geom {
 
 // The plan's derived numbers and the shared memory it needs; false if the
 // plan breaks a rule of these kernels or of TMA.  esize: the bytes of a
-// staged element, 4, or 2 for the bf16 forward.
+// staged element, 4, or 2 for the bf16 instances.
 bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int slots, int parts, bool tma,
                bool wgrad, int smem, int esize = 4) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || cc < 1 || parts < 1 || slots < 2 || slots > kMaxSlots) return false;
   if (th % kR || tw % kS || th < kR || tw < kS || th > kMaxTile || tw > kMaxTile) return false;
-  if ((esize != 4 && esize != 2) || (wgrad && esize != 4)) return false;
+  if (esize != 4 && esize != 2) return false;
   const int row = 16 / esize;  // elements of a 16-byte box row
   if (tma && (C % row || cc % row || cc > 256)) return false;
   if (wgrad && parts > kMaxCluster) return false;
@@ -126,7 +137,7 @@ bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int 
   g.units = (cc + 31) / 32 * g.per32;
   if (g.units > kMaxWarps) return false;
   const int x_bytes = region((long long)esize * (th + 2 * PAD) * (tw + 2 * PAD) * cc);
-  const int g_bytes = wgrad ? region(4LL * th * tw * cc) : 0;
+  const int g_bytes = wgrad ? region((long long)esize * th * tw * cc) : 0;
   const int w_bytes = wgrad ? 0 : region((long long)esize * kTaps * cc);
   g.w_floats = w_bytes / esize, g.x_floats = x_bytes / esize, g.slot_floats = (x_bytes + g_bytes) / esize;
   long long ring = (long long)slots * (x_bytes + g_bytes);
@@ -265,15 +276,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 // grid (parts, channel chunks), clusters of `parts` blocks along x: the
 // blocks of a cluster split one chunk's tiles.  Threads as the forward's.
-template <bool kTma, int kCc, int kTw>
+// T: the element type of x and g (float, or __nv_bfloat16), staged as it
+// is stored and widened as read; the sums, dw and db are f32.
+template <class T, bool kTma, int kCc, int kTw>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     dwconv_wgrad_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
-                        const float* __restrict__ x, const float* __restrict__ gy, float* __restrict__ dw,
+                        const T* __restrict__ x, const T* __restrict__ gy, float* __restrict__ dw,
                         float* __restrict__ db, Geom g) {
   float* base = smem_base();
   uint64_t* full = reinterpret_cast<uint64_t*>(base);
   uint64_t* empty = full + kMaxSlots;
-  float* ring = base + 64;
+  T* ring = reinterpret_cast<T*>(base + 64);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cc = kCc ? kCc : g.cc, tw = kTw ? kTw : g.tw;  // compile-time where specialised
   const int c0 = blockIdx.y * cc, part = blockIdx.x;
@@ -300,11 +313,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (i >= g.slots) mbar_wait(&empty[s], (i / g.slots - 1) & 1);
       int b, h0, w0;
       tile_origin(g, part + i * g.parts, b, h0, w0);
-      float* xs = ring + s * g.slot_floats;
+      T* xs = ring + s * g.slot_floats;
       if (kTma) {
         if (lane == 0) {
           fence_proxy_async_shared();
-          mbar_expect_tx(&full[s], 4 * cc * (box_r * box_c + g.th * tw));
+          mbar_expect_tx(&full[s], sizeof(T) * cc * (box_r * box_c + g.th * tw));
           tma_load_4d(xs, &xmap, c0, w0 - PAD, h0 - PAD, b, &full[s]);
           tma_load_4d(xs + g.x_floats, &gmap, c0, w0, h0, b, &full[s]);
         }
@@ -319,21 +332,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int i = 0; i < n_local; ++i) {
       const int s = i % g.slots;
       mbar_wait(&full[s], (i / g.slots) & 1);
-      const float* xs = ring + s * g.slot_floats + (u.prow * box_c + u.pcol) * cc + u.lc;
-      const float* gs = ring + s * g.slot_floats + g.x_floats + (u.prow * tw + u.pcol) * cc + u.lc;
+      const T* xs = ring + s * g.slot_floats + (u.prow * box_c + u.pcol) * cc + u.lc;
+      const T* gs = ring + s * g.slot_floats + g.x_floats + (u.prow * tw + u.pcol) * cc + u.lc;
       float gv[kR][kS];
 #pragma unroll
       for (int r = 0; r < kR; ++r)
 #pragma unroll
         for (int o = 0; o < kS; ++o) {
-          gv[r][o] = gs[(r * tw + o) * cc];
+          gv[r][o] = to_f32(gs[(r * tw + o) * cc]);
           acc[kTaps] += gv[r][o];
         }
 #pragma unroll
       for (int ir = 0; ir < kR + K - 1; ++ir) {
         float v[kS + K - 1];
 #pragma unroll
-        for (int k = 0; k < kS + K - 1; ++k) v[k] = xs[(ir * box_c + k) * cc];
+        for (int k = 0; k < kS + K - 1; ++k) v[k] = to_f32(xs[(ir * box_c + k) * cc]);
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
           const int dy = ir - r;
@@ -350,9 +363,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   // The block's sums: warps' registers to red (units, kRows, 32), then
   // part_sum[row, lc] = the sum over the units of lc's channel group, in
-  // unit order.  Both reuse the ring: every box has been consumed.
+  // unit order.  Both reuse the ring (as floats): every box has been consumed.
   __syncthreads();
-  float* red = ring;
+  float* red = base + 64;
   float* part_sum = red + kRows * 32 * g.units;  // (kRows, cc)
   if (warp < g.units) {
 #pragma unroll
@@ -391,7 +404,8 @@ constexpr int kInstances = 4;
 
 template <class T>
 using FwdKernel = decltype(&dwconv_fwd_kernel<T, false, 0, 0>);
-using WgradKernel = decltype(&dwconv_wgrad_kernel<false, 0, 0>);
+template <class T>
+using WgradKernel = decltype(&dwconv_wgrad_kernel<T, false, 0, 0>);
 
 // The forward at stages 1-3 (32 channels, 16 columns) and 4 (128, 8), in
 // f32 and in bf16 alike.
@@ -403,12 +417,15 @@ FwdKernel<T> pick_fwd(bool tma, int cc, int tw) {
   return dwconv_fwd_kernel<T, true, 0, 0>;
 }
 
-// The filter gradient at stages 1-3 (32 channels, 16 columns) and 4 (64, 8).
-WgradKernel pick_wgrad(bool tma, int cc, int tw) {
-  if (!tma) return dwconv_wgrad_kernel<false, 0, 0>;
-  if (cc == 32 && tw == 16) return dwconv_wgrad_kernel<true, 32, 16>;
-  if (cc == 64 && tw == 8) return dwconv_wgrad_kernel<true, 64, 8>;
-  return dwconv_wgrad_kernel<true, 0, 0>;
+// The filter gradient at stages 1-3 (32 channels, 16 columns) and 4 (64, 8
+// in f32; in bf16 a box of 128 channels fits and the plan takes it).
+template <class T>
+WgradKernel<T> pick_wgrad(bool tma, int cc, int tw) {
+  constexpr int kStage4 = sizeof(T) == 4 ? 64 : 128;
+  if (!tma) return dwconv_wgrad_kernel<T, false, 0, 0>;
+  if (cc == 32 && tw == 16) return dwconv_wgrad_kernel<T, true, 32, 16>;
+  if (cc == kStage4 && tw == 8) return dwconv_wgrad_kernel<T, true, kStage4, 8>;
+  return dwconv_wgrad_kernel<T, true, 0, 0>;
 }
 
 // The filter (7, 7, C) of esize-byte elements as a 2-D map (C, 49) with
@@ -482,6 +499,49 @@ int forward(const T* x, const T* w, const T* bias, T* y, int B, int H, int W, in
   return launch(kernel, dim3(parts, (C + cc - 1) / cc), g, smem, 1, stream, xmap, wmap, x, w, bias, y, flip, g);
 }
 
+// The filter gradient of T elements: check the plan, make the maps, launch.
+template <class T>
+int wgrad(const T* x, const T* gy, float* dw, float* db, int B, int H, int W, int C, int th, int tw, int cc,
+          int slots, int parts, int tma, int smem, void* stream) {
+  constexpr int esize = sizeof(T);
+  Geom g;
+  if (!make_geom(g, B, H, W, C, th, tw, cc, slots, parts, tma, true, smem, esize) ||
+      (long long)((C + cc - 1) / cc) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (tma && !(aligned16(x) && aligned16(gy))) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap = {}, gmap = {};
+  if (tma) {
+    cudaError_t err = bind_device(x);
+    if (err == cudaSuccess)
+      err = nhwc_map(&xmap, x, g.B, g.H, g.W, g.C, g.cc, tw + 2 * PAD, th + 2 * PAD, esize);
+    if (err == cudaSuccess) err = nhwc_map(&gmap, gy, g.B, g.H, g.W, g.C, g.cc, tw, th, esize);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const WgradKernel<T> kernel = pick_wgrad<T>(tma, cc, tw);
+  return launch(kernel, dim3(parts, (C + cc - 1) / cc), g, smem, parts, stream, xmap, gmap, x, gy, dw, db, g);
+}
+
+// Clusters of `parts` blocks of `kernel` the card runs at once.
+template <class Kernel>
+int active_clusters(Kernel kernel, int units, int parts, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(parts);
+  cfg.blockDim = dim3(32 * (units + 1));
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -513,45 +573,28 @@ int tc_dwconv_forward_bf16(const void* x, const void* w, const void* bias, void*
 // cluster size, 8.  One launch: no scratch.
 int tc_dwconv_wgrad(const float* x, const float* gy, float* dw, float* db, int B, int H, int W, int C, int th,
                     int tw, int cc, int slots, int parts, int tma, int smem, void* stream) {
-  Geom g;
-  if (!make_geom(g, B, H, W, C, th, tw, cc, slots, parts, tma, true, smem) ||
-      (long long)((C + cc - 1) / cc) > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (tma && !(aligned16(x) && aligned16(gy))) return (int)cudaErrorInvalidValue;
-  CUtensorMap xmap = {}, gmap = {};
-  if (tma) {
-    cudaError_t err = bind_device(x);
-    if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, g.C, g.cc, tw + 2 * PAD, th + 2 * PAD);
-    if (err == cudaSuccess) err = nhwc_map(&gmap, gy, g.B, g.H, g.W, g.C, g.cc, tw, th);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const WgradKernel kernel = pick_wgrad(tma, cc, tw);
-  return launch(kernel, dim3(parts, (C + cc - 1) / cc), g, smem, parts, stream, xmap, gmap, x, gy, dw, db, g);
+  return wgrad(x, gy, dw, db, B, H, W, C, th, tw, cc, slots, parts, tma, smem, stream);
+}
+
+// The same of bf16 x and g, the sums and dw, db in f32; the plan is
+// dwconv_plan(..., "wgrad", tma, esize=2).
+int tc_dwconv_wgrad_bf16(const void* x, const void* gy, float* dw, float* db, int B, int H, int W, int C,
+                         int th, int tw, int cc, int slots, int parts, int tma, int smem, void* stream) {
+  using bf = __nv_bfloat16;
+  return wgrad(static_cast<const bf*>(x), static_cast<const bf*>(gy), dw, db, B, H, W, C, th, tw, cc, slots,
+               parts, tma, smem, stream);
 }
 
 // How many clusters of `parts` filter-gradient blocks of `units` consumer
-// warps and smem bytes, of the instance for (tma, cc, tw), the card runs at
-// once (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
-int tc_dwconv_wgrad_clusters(int units, int parts, int smem, int tma, int cc, int tw) {
-  if (units < 1 || units > kMaxWarps || parts < 1 || parts > kMaxCluster || smem > kSmemMax)
+// warps and smem bytes, of the instance for (tma, cc, tw) and esize-byte
+// elements (4, or 2 for bf16), the card runs at once
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+int tc_dwconv_wgrad_clusters(int units, int parts, int smem, int tma, int cc, int tw, int esize) {
+  if (units < 1 || units > kMaxWarps || parts < 1 || parts > kMaxCluster || smem > kSmemMax ||
+      (esize != 4 && esize != 2))
     return -(int)cudaErrorInvalidValue;
-  const WgradKernel kernel = pick_wgrad(tma, cc, tw);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(parts);
-  cfg.blockDim = dim3(32 * (units + 1));
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = parts;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err != cudaSuccess ? -(int)err : n;
+  return esize == 4 ? active_clusters(pick_wgrad<float>(tma, cc, tw), units, parts, smem)
+                    : active_clusters(pick_wgrad<__nv_bfloat16>(tma, cc, tw), units, parts, smem);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,4 +1,4 @@
-// Fused ConvNeXt block tail, backward, f32, for Hopper (sm_90a).
+// Fused ConvNeXt block tail, backward, f32 and bf16, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tpu_captioner/ops/mlp_block.py:275 _bwd_kernel
 // (launched by _bwd_pallas -> _bwd_pallas_one under the custom VJP of
@@ -57,9 +57,30 @@
 //   the row kernels mask: a padding row could hold NaN).  The transposed
 //   planes' rows are padded to a multiple of 4 floats for TMA's 16-byte
 //   strides; the padding is never read.
+//
+// The bf16 instance (tc_mlp_block_backward_bf16): the TPU kernel's arm on
+// bf16 g, x, W1 and W2 with mxu_dtype=float32 (_bwd_pallas_one, which the
+// JAX bf16 encoder's custom VJP calls with precise=True,
+// tpu_captioner/ops/mlp_block.py:497-515).  prep_rows widens bf16 x and g
+// as it reads them and recomputes the forward in f32 from them (not from the
+// forward's bf16 output); finish_rows rounds d_x to bf16 once; the column
+// sums read bf16 g.  The weights are bf16 values, exact in TF32: their lo
+// planes are zero, so `split` writes their hi planes alone (plain and
+// transposed), the workspace holds no lo plane of them, and the four
+// products that take a weight as B (the two recomputed forward products,
+// d_h = d_u W2 and d_xn = d_a W1) read B's hi plane alone: two TF32
+// products a k-step, not three (tf32x3::gemm<1>).  The two weight-gradient
+// products multiply f32 activations and keep three.  Every gradient but
+// d_x is written in f32; the caller rounds d_W1 and d_W2 to bf16 once, as
+// JAX's `.astype(w1.dtype)` does (:476).  Per call it reads half the bytes
+// of g and x and writes half of d_x; the products' bound falls to 32 N C^2
+// flops at 329.67 TFLOP/s (an f32 row times a bf16 weight, f32-accurate:
+// three exact bf16 products, 989 / 3) plus 16 N C^2 at 165.
 // Later PRs: the intermediates on chip, and a tuned GEMM (PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "tf32x3_gemm.cuh"
 #include "warp_reduce.cuh"
@@ -72,7 +93,22 @@ constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {  // four bf16 (8 bytes), widened
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {  // four values rounded to bf16 once
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
 __device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 
@@ -149,10 +185,10 @@ struct MulEpi {
 
 // LayerNorm forward (the forward kernel's two passes over registers) and the
 // cotangent of u: xhat, xn = xhat * ln_w + ln_b, d_u = (g * sd) * gamma, and
-// 1 / sqrt(var + eps).
-template <int C>
+// 1 / sqrt(var + eps); x and g of T (f32, or bf16 widened as read).
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads) prep_rows(
-    const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ sd,
+    const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ sd,
     const float* __restrict__ lnw, const float* __restrict__ lnb, const float* __restrict__ gamma,
     float* __restrict__ xhat, float* __restrict__ xn, float* __restrict__ du,
     float* __restrict__ rstd, int n) {
@@ -195,12 +231,12 @@ __global__ void __launch_bounds__(kThreads) prep_rows(
 
 // LayerNorm backward and d_sd: d_xhat = d_xn * ln_w,
 // d_x = r * (d_xhat - mean(d_xhat) - xhat * mean(d_xhat * xhat)),
-// d_sd = sum(g * (u * gamma)).
-template <int C>
+// d_sd = sum(g * (u * gamma)); g and d_x of T (bf16 d_x rounded once).
+template <int C, class T>
 __global__ void __launch_bounds__(kThreads) finish_rows(
     const float* __restrict__ dxn, const float* __restrict__ xhat, const float* __restrict__ rstd,
-    const float* __restrict__ lnw, const float* __restrict__ g, const float* __restrict__ u,
-    const float* __restrict__ gamma, float* __restrict__ dx, float* __restrict__ dsd, int n) {
+    const float* __restrict__ lnw, const T* __restrict__ g, const float* __restrict__ u,
+    const float* __restrict__ gamma, T* __restrict__ dx, float* __restrict__ dsd, int n) {
   const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (row >= n) return;
   const size_t base = (size_t)row * C;
@@ -238,10 +274,11 @@ __global__ void __launch_bounds__(kThreads) finish_rows(
 // [0, C) d_ln_w = sum d_xn * xhat, [C, 2C) d_ln_b = sum d_xn,
 // [2C, 6C) d_b1 = sum d_a, [6C, 7C) d_b2 = sum d_u,
 // [7C, 8C) d_gamma = sum (g * sd) * u.  d_a is read as its two TF32
-// planes, `da_plane` floats apart.
+// planes, `da_plane` floats apart; g is of T.
+template <class T>
 __global__ void __launch_bounds__(kThreads) column_partials(
     const float* __restrict__ dxn, const float* __restrict__ xhat, const float* __restrict__ da,
-    long long da_plane, const float* __restrict__ du, const float* __restrict__ g, const float* __restrict__ sd,
+    long long da_plane, const float* __restrict__ du, const T* __restrict__ g, const float* __restrict__ sd,
     const float* __restrict__ u, float* __restrict__ part, int n, int c, int rows) {
   const int r0 = blockIdx.x * rows, r1 = min(n, r0 + rows);
   float* out = part + (size_t)blockIdx.x * 8 * c;
@@ -253,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) column_partials(
       lw += dn * xhat[o];
       lb += dn;
       b2 += du[o];
-      gm += (g[o] * sd[r]) * u[o];
+      gm += (to_f32(g[o]) * sd[r]) * u[o];
     }
     out[col] = lw;
     out[c + col] = lb;
@@ -313,7 +350,9 @@ struct Plan {
       colpart, wpart, total;
 };
 
-Plan make_plan(int n, int c) {
+// wplanes: the TF32 planes a weight keeps, 2 for f32 weights, 1 for bf16
+// ones (their lo planes are zero and are neither written nor read).
+Plan make_plan(int n, int c, int wplanes) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   Plan p;
@@ -336,10 +375,10 @@ Plan make_plan(int n, int c) {
   const long long nc = (long long)n * c, n4c = 4 * nc, cc4 = 4LL * c * c, tc = (long long)c * p.ldn;
   long long off = 0;
   auto take = [&](long long floats) { const long long at_ = off; off += round32(floats); return at_; };
-  p.w1s = take(2 * cc4);
-  p.w1t = take(2 * cc4);
-  p.w2s = take(2 * cc4);
-  p.w2t = take(2 * cc4);
+  p.w1s = take(wplanes * cc4);
+  p.w1t = take(wplanes * cc4);
+  p.w2s = take(wplanes * cc4);
+  p.w2t = take(wplanes * cc4);
   p.xhat = take(nc);
   p.xn = take(nc);
   p.du = take(nc);
@@ -367,17 +406,19 @@ Plan make_plan(int n, int c) {
     if (e_ != cudaSuccess) return (int)e_;    \
   } while (0)
 
-template <int C>
-int backward(const float* g, const float* x, const float* sd, const float* lnw, const float* lnb,
-             const float* w1, const float* b1, const float* w2, const float* b2,
-             const float* gamma, float* dx, float* dsd, float* dlnw, float* dlnb, float* dw1,
+// g, x, the weights and d_x of T: f32, or bf16 (the bf16 instance, whose
+// weights keep their hi planes alone: kW = 1).
+template <int C, class T>
+int backward(const T* g, const T* x, const float* sd, const float* lnw, const float* lnb,
+             const T* w1, const float* b1, const T* w2, const float* b2,
+             const float* gamma, T* dx, float* dsd, float* dlnw, float* dlnb, float* dw1,
              float* db1, float* dw2, float* db2, float* dgamma, float* work, int n,
              cudaStream_t s) {
   using tf32x3::Operand;
   using tf32x3::gemm;
   using tf32x3::split;
-  constexpr int C4 = 4 * C;
-  const Plan p = make_plan(n, C);
+  constexpr int C4 = 4 * C, kW = sizeof(T) == 4 ? 2 : 1;
+  const Plan p = make_plan(n, C, kW);
   const int ldn = p.ldn;
   float *w1s = work + p.w1s, *w1t = work + p.w1t, *w2s = work + p.w2s, *w2t = work + p.w2t;
   float *xhat = work + p.xhat, *xn = work + p.xn, *du = work + p.du, *u = work + p.u;
@@ -391,7 +432,7 @@ int backward(const float* g, const float* x, const float* sd, const float* lnw, 
   // The weights' planes: W1 (4C, C) and W1^T (C, 4C), W2 (C, 4C) and W2^T (4C, C).
   TC_TRY(split(w1, C4, C, w1s, w1t, C4, s));
   TC_TRY(split(w2, C, C4, w2s, w2t, C, s));
-  prep_rows<C><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
+  prep_rows<C, T><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
   TC_TRY(cudaGetLastError());
   TC_TRY(split(xn, n, C, xns, xnt, ldn, s));
   TC_TRY(split(du, n, C, dus, dut, ldn, s));
@@ -401,18 +442,20 @@ int backward(const float* g, const float* x, const float* sd, const float* lnw, 
   const Operand da_op{das, n, C4, C4, 4 * nc}, w1t_op{w1t, C, C4, C4, cc4};
   const Operand dat_op{dat, C4, n, ldn, 4 * tc}, xnt_op{xnt, C, n, ldn, tc};
   const Operand dut_op{dut, C, n, ldn, tc}, ht_op{ht, C4, n, ldn, 4 * tc};
+  // The four products with a weight as B (its hi plane alone when kW = 1).
   // a = xn W1^T + b1 -> h (planes, plain and transposed), gelu'(a)
-  TC_TRY(gemm(xn_op, w1_op, GeluEpi{b1, hs, ht, gp, 4 * nc, 4 * tc, C4, ldn}, s));
+  TC_TRY(gemm<kW>(xn_op, w1_op, GeluEpi{b1, hs, ht, gp, 4 * nc, 4 * tc, C4, ldn}, s));
   // u = h W2^T + b2
-  TC_TRY(gemm(h_op, w2_op, BiasEpi{b2, u, C}, s));
+  TC_TRY(gemm<kW>(h_op, w2_op, BiasEpi{b2, u, C}, s));
   // d_a = (d_u W2) * gelu'(a) (planes, plain and transposed)
-  TC_TRY(gemm(du_op, w2t_op, MulEpi{gp, das, dat, 4 * nc, 4 * tc, C4, ldn}, s));
+  TC_TRY(gemm<kW>(du_op, w2t_op, MulEpi{gp, das, dat, 4 * nc, 4 * tc, C4, ldn}, s));
   // d_xn = d_a W1
-  TC_TRY(gemm(da_op, w1t_op, StoreEpi{dxn, C, 0}, s));
-  finish_rows<C><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
+  TC_TRY(gemm<kW>(da_op, w1t_op, StoreEpi{dxn, C, 0}, s));
+  finish_rows<C, T><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
   TC_TRY(cudaGetLastError());
 
-  // dW1 = d_a^T xn (4C, C) and dW2 = d_u^T h (C, 4C), reduced over the rows.
+  // dW1 = d_a^T xn (4C, C) and dW2 = d_u^T h (C, 4C), reduced over the rows:
+  // f32 activations on both sides, three TF32 products a k-step.
   const long long wsize = cc4;
   const int sum_blocks = ceil_div(wsize / 4, kThreads);
   float* out1 = p.splits > 1 ? wpart : dw1;
@@ -428,7 +471,7 @@ int backward(const float* g, const float* x, const float* sd, const float* lnw, 
     TC_TRY(cudaGetLastError());
   }
 
-  column_partials<<<p.chunks, kThreads, 0, s>>>(dxn, xhat, das, 4 * nc, du, g, sd, u, colpart, n, C,
+  column_partials<T><<<p.chunks, kThreads, 0, s>>>(dxn, xhat, das, 4 * nc, du, g, sd, u, colpart, n, C,
                                                  p.chunk_rows);
   TC_TRY(cudaGetLastError());
   column_finish<<<ceil_div(8 * C, kThreads), kThreads, 0, s>>>(colpart, p.chunks, C, dlnw, dlnb, db1, db2, dgamma);
@@ -440,7 +483,10 @@ int backward(const float* g, const float* x, const float* sd, const float* lnw, 
 extern "C" {
 
 // Floats of workspace tc_mlp_block_backward needs for n rows of width c.
-long long tc_mlp_block_backward_workspace(int n, int c) { return make_plan(n, c).total; }
+long long tc_mlp_block_backward_workspace(int n, int c) { return make_plan(n, c, 2).total; }
+
+// The same for tc_mlp_block_backward_bf16 (the weights without lo planes).
+long long tc_mlp_block_backward_bf16_workspace(int n, int c) { return make_plan(n, c, 1).total; }
 
 int tc_mlp_block_backward(const float* g, const float* x, const float* sd, const float* lnw,
                           const float* lnb, const float* w1, const float* b1, const float* w2,
@@ -450,6 +496,30 @@ int tc_mlp_block_backward(const float* g, const float* x, const float* sd, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaErrorInvalidValue;
 #define TC_ARGS g, x, sd, lnw, lnb, w1, b1, w2, b2, gamma, dx, dsd, dlnw, dlnb, dw1, db1, dw2, db2, dgamma, work, n, s
+  switch (c) {
+    case 128: return backward<128>(TC_ARGS);
+    case 256: return backward<256>(TC_ARGS);
+    case 512: return backward<512>(TC_ARGS);
+    case 1024: return backward<1024>(TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC_ARGS
+}
+
+// The bf16 instance: g, x, w1, w2 and dx bf16, the rest (sd, the vectors,
+// every other gradient and the workspace) f32, as tc_mlp_block_backward;
+// the workspace is tc_mlp_block_backward_bf16_workspace floats.
+int tc_mlp_block_backward_bf16(const void* g, const void* x, const float* sd, const float* lnw,
+                               const float* lnb, const void* w1, const float* b1, const void* w2,
+                               const float* b2, const float* gamma, void* dx, float* dsd,
+                               float* dlnw, float* dlnb, float* dw1, float* db1, float* dw2,
+                               float* db2, float* dgamma, float* work, int n, int c, void* stream) {
+  using bf = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+#define TC_ARGS static_cast<const bf*>(g), static_cast<const bf*>(x), sd, lnw, lnb, static_cast<const bf*>(w1), b1, \
+                static_cast<const bf*>(w2), b2, gamma, static_cast<bf*>(dx), dsd, dlnw, dlnb, dw1, db1, dw2, db2, \
+                dgamma, work, n, s
   switch (c) {
     case 128: return backward<128>(TC_ARGS);
     case 256: return backward<256>(TC_ARGS);

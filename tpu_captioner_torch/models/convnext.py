@@ -38,17 +38,26 @@ scales a kept image by ``1 / survival``; the per-row scale is the fused
 tail's ``sd``.  ``draw_sd`` draws the scales from a generator; without them
 (eval) every scale is one.
 
-bf16 (``ModelConfig.compute_dtype``; eval only): the blocks run on bf16
-activations with each weight cast to bf16 at use, the parameters staying
-f32 as in the JAX package (tpu_captioner/models/convnext.py:46-48,
-144-180, 185-215), and round where its bf16 blocks round: the stem and
-downsample convs in bf16 with the bias added after the conv, their
-LayerNorms in f32 and then cast; the depthwise conv's output rounded to
-bf16 and then again after its bias; in ``'mlp'`` the fused tail on bf16
-rows, residual and matrices with f32 vectors, LayerNorm and sums (the
-JAX kernel branch, ``precise=True``); in ``'off'`` the JAX XLA branch's
-bf16 ops one by one (LayerNorm cast to bf16, products, biases, the erfc
-GELU, layer scale, residual).  The two branches round differently.
+bf16 (``ModelConfig.compute_dtype``; serving and training): the blocks
+run on bf16 activations with each weight cast to bf16 at use, the
+parameters staying f32 as in the JAX package (tpu_captioner/models/
+convnext.py:46-48, 144-180, 185-215), and round where its bf16 blocks
+round: the stem and downsample convs in bf16 with the bias added after
+the conv, their LayerNorms in f32 as flax computes them
+(``flax_layer_norm_as``) and then cast; the depthwise conv's output
+rounded to bf16 and then again after its bias; in ``'mlp'`` the fused
+tail on bf16 rows, residual and matrices with f32 vectors, LayerNorm and
+sums (the JAX kernel branch, ``precise=True``); in ``'off'`` the JAX XLA
+branch's bf16 ops one by one (LayerNorm cast to bf16, products, biases,
+the erfc GELU, layer scale, residual).  The two branches round
+differently.  Under autograd each op's backward rounds where the VJP of
+the JAX op does: the kernels' backward instances (the module notes of
+``ops/mlp_block.py`` and ``ops/dwconv.py``), the casts' backward (a
+weight's bf16 gradient widened to f32, an f32 gradient rounded to bf16
+where an op widened bf16), and ``gelu_bf16``'s hand-written backward.
+One place rounds otherwise: JAX's bf16 bias adds and layer-scale product
+sum their cotangent in bf16 (XLA on the CPU accumulates such a reduction
+in bf16), where PyTorch and the kernels sum in f32 and round once.
 
 Fine-tuning (``ConvNeXtFeatures.forward(..., grad_from=i)``): children below
 ``i`` run under ``no_grad``, so the backward stops at child ``i``'s input;
@@ -100,18 +109,63 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 
 def layer_norm_as(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """``ln`` of x in f32, returned in x's dtype (the JAX package's f32
-    LayerNorms in a bf16 encoder)."""
+    """``ln`` of x in f32, returned in x's dtype: the bf16 block's
+    LayerNorm in ``'off'`` (tpu_captioner/models/layers.py:76-81, which
+    widens x once)."""
     return ln(x) if x.dtype == torch.float32 else ln(x.float()).to(x.dtype)
 
 
+def flax_layer_norm_as(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """The stem's and the downsamples' LayerNorm (flax ``nn.LayerNorm`` with
+    dtype f32, tpu_captioner/models/convnext.py:46-48) of x, returned in
+    x's dtype.  On f32 x it is ``ln``.  On bf16 x it computes as flax does:
+    the statistics from one widened copy of x, E[x^2] - E[x]^2, and the
+    normalisation from another (flax's ``x - mean`` promotes x again), so
+    that the backward rounds x's two gradient terms to bf16 apart and adds
+    them in bf16, as JAX's does."""
+    if x.dtype == torch.float32:
+        return ln(x)
+    stats = x.float()
+    mu = stats.mean(-1, keepdim=True)
+    var = ((stats * stats).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    y = (x.float() - mu) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
+    return y.to(x.dtype)
+
+
 _SQRT_HALF_BF16 = 0.70703125  # sqrt(0.5) rounded to bf16
+_ERFC_SLOPE_BF16 = -1.125  # -2 / sqrt(pi) rounded to bf16 (JAX's erfc derivative constant)
+
+
+class _GeluBf16(torch.autograd.Function):
+    """jax.nn.gelu(approximate=False) on bf16, forward and backward op by op
+    as JAX's bf16 ops and their VJPs round (each op rounds to bf16).  The
+    forward: t1 = 0.5 x, t3 = -x * bf16(sqrt(1/2)), y = t1 * erfc(t3).  The
+    backward: JAX's erfc derivative, c * (g * exp(-t3^2)), transposed
+    (tpu_captioner's jax: ``ad.defjvp(erfc_p, ...)``), so d_t3 = (d_t4 * c)
+    * exp(-t3^2), and d_x = -(d_t3 * s) + 0.5 * (g * erfc(t3)), where d_t4
+    = g * t1.  PyTorch's own erfc backward rounds elsewhere (a quarter of
+    the elements one ulp apart)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        t1 = 0.5 * x
+        t3 = -x * _SQRT_HALF_BF16
+        t4 = torch.erfc(t3)
+        ctx.save_for_backward(t1, t3, t4)
+        return t1 * t4
+
+    @staticmethod
+    def backward(ctx, g):
+        t1, t3, t4 = ctx.saved_tensors
+        d_t3 = ((g * t1) * _ERFC_SLOPE_BF16) * torch.exp(-(t3 * t3))
+        return -(d_t3 * _SQRT_HALF_BF16) + 0.5 * (g * t4)
 
 
 def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.gelu(approximate=False) on a bf16 tensor, each op rounding to
-    bf16: 0.5 * x * erfc(-x * bf16(sqrt(1/2)))."""
-    return (0.5 * x) * torch.erfc(-x * _SQRT_HALF_BF16)
+    bf16: 0.5 * x * erfc(-x * bf16(sqrt(1/2))); its backward rounds as
+    JAX's VJP does (``_GeluBf16``)."""
+    return _GeluBf16.apply(x)
 
 
 class CNBlock(nn.Module):
@@ -240,7 +294,7 @@ class Stem(nn.Sequential):
         )
 
     def forward(self, x):
-        return layer_norm_as(self[1], conv_nhwc(x, self[0]))
+        return flax_layer_norm_as(self[1], conv_nhwc(x, self[0]))
 
 
 class Downsample(nn.Sequential):
@@ -251,7 +305,7 @@ class Downsample(nn.Sequential):
         )
 
     def forward(self, x):
-        return conv_nhwc(layer_norm_as(self[0], x), self[1]).contiguous()
+        return conv_nhwc(flax_layer_norm_as(self[0], x), self[1]).contiguous()
 
 
 class ConvNeXtFeatures(nn.Sequential):

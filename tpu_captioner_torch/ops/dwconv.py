@@ -21,17 +21,26 @@ package's ``custom_vjp``):
   cuDNN on the card).
 The input gradient is skipped when x needs none.  Any other device raises.
 
-In bf16 (the bf16 encoder's serving path) the forward takes bf16 x, filter
-and bias, sums the 49 products in f32 and rounds twice, as the JAX bf16
-block does (tpu_captioner/ops/dwconv.py:45-46, models/convnext.py:154-155):
-y = bf16(bf16(sum) + bias).  Its kernel is ``dwconv.cu``'s bf16 instance of
-the forward; ``_dw_plain`` rounds the same way.  The filter gradient takes
-f32 only: bf16 training is not ported (ROADMAP.md Queue 1 #5b).
+In bf16 (the bf16 encoder, serving and training) the forward takes bf16
+x, filter and bias, sums the 49 products in f32 and rounds twice, as the
+JAX bf16 block does (tpu_captioner/ops/dwconv.py:45-46, models/convnext.py:
+154-155): y = bf16(bf16(sum) + bias).  Its kernel is ``dwconv.cu``'s bf16
+instance of the forward; ``_dw_plain`` rounds the same way.  The input
+gradient is that instance with the filter flipped and no bias, rounded
+once, as JAX's bf16 conv of the cotangent (:174-181).  The filter gradient
+takes bf16 x and cotangent and sums in f32 (``dwconv.cu``'s bf16 instance
+of the gradient kernel; ``_dw_grad_plain`` widens them); it returns f32 dw
+and bias gradient, which autograd rounds once to the bf16 filter's and
+bias's dtype, as JAX's ``.astype(w.dtype)`` (:180) and its bf16 bias add
+round them, before the casts' backward widens them to the f32 parameters.
+JAX sums the bias gradient in bf16 (the transpose of the bf16 add); the
+port's f32 sum rounded once can differ from it by a few ulps of the sum.
 Both kernels take their tile plan from ``dwconv_plan``; a shape or a card
 the plan does not fit raises ``ValueError``, never a fallback.
 ``depthwise_conv7x7_nhwc.launches`` counts forward-kernel launches (forward
 and input gradient), of which ``.bf16_launches`` ran the bf16 instance;
-``depthwise_conv7x7_nhwc.grad_launches`` filter-gradient launches.
+``depthwise_conv7x7_nhwc.grad_launches`` filter-gradient launches, of which
+``.bf16_grad_launches`` ran the bf16 instance.
 """
 
 from __future__ import annotations
@@ -110,16 +119,16 @@ def dwconv_plan(B: int, H: int, W: int, C: int, kind: str = "forward", tma: bool
     copy engine's boxes, which need C % 4 == 0 (16-byte rows): the wrapper
     asks for it when the pointers are 16-byte aligned too, and otherwise
     takes the same kernel with the producer warp's own loads.  ``esize``
-    is the bytes of an element: 4 (f32), or 2 for the bf16 forward, whose
-    boxes and filter slice stay bf16 in shared memory (TMA then needs C % 8
-    == 0).  Raises ValueError for a shape it does not fit.  Cached: a
-    wrapper asks for its plan at every launch."""
+    is the bytes of an element: 4 (f32), or 2 for the bf16 instances, whose
+    boxes (and the forward's filter slice) stay bf16 in shared memory (TMA
+    then needs C % 8 == 0).  Raises ValueError for a shape it does not fit.
+    Cached: a wrapper asks for its plan at every launch."""
     if kind not in ("forward", "wgrad"):
         raise ValueError(f"dwconv_plan: kind must be 'forward' or 'wgrad', got {kind!r}")
     if min(B, H, W, C) < 1:
         raise ValueError(f"dwconv_plan: empty shape {(B, H, W, C)}")
-    if esize not in (2, 4) or (esize == 2 and kind != "forward"):
-        raise ValueError(f"dwconv_plan: elements of 4 bytes, or 2 for the forward, got {esize} for {kind!r}")
+    if esize not in (2, 4):
+        raise ValueError(f"dwconv_plan: elements of 4 or 2 bytes, got {esize}")
     row = 16 // esize  # elements of a 16-byte row
     if tma and C % row:
         raise ValueError(f"dwconv_plan: TMA boxes need C % {row} == 0 (16-byte rows), got C={C}")
@@ -141,7 +150,7 @@ def dwconv_plan(B: int, H: int, W: int, C: int, kind: str = "forward", tma: bool
         chunks = _ceil(C, cc)
         parts = cluster if wgrad else max(1, min(tiles, sms // chunks))
         x_box = _region(esize * (th + 2 * PAD) * (tw + 2 * PAD) * cc)
-        slot = x_box + (_region(4 * th * tw * cc) if wgrad else 0)
+        slot = x_box + (_region(esize * th * tw * cc) if wgrad else 0)
         filt = 0 if wgrad else _region(esize * K * K * cc)
         fit = (SMEM_LIMIT - _HEADER - filt) // slot
         slots = min(MAX_SLOTS, fit, max(2, _ceil(tiles, parts)))
@@ -188,7 +197,9 @@ def _dw_grad_plain(x, g, bias_grad=False):
     """Plain PyTorch version of the filter-gradient kernel, the JAX
     ``_dw_grad_xla`` (tpu_captioner/ops/dwconv.py:140-154) written out:
     dw[dy,dx,c] = sum over (b, h, w) of x_pad[b,h+dy,w+dx,c] * g[b,h,w,c];
-    with ``bias_grad``, (dw, the sum of g over (b, h, w))."""
+    with ``bias_grad``, (dw, the sum of g over (b, h, w)).  bf16 x and g are
+    widened to f32 (exactly) and summed in f32: the results are f32."""
+    x, g = x.float(), g.float()
     h, w = x.shape[1:3]
     xp = F.pad(x, (0, 0, PAD, PAD, PAD, PAD))
     taps = [(xp[:, dy : dy + h, dx : dx + w] * g).sum(dim=(0, 1, 2)) for dy in range(K) for dx in range(K)]
@@ -242,10 +253,11 @@ def _lib():
     for fn in (lib.tc_dwconv_forward, lib.tc_dwconv_forward_bf16):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    lib.tc_dwconv_wgrad.restype = ctypes.c_int
-    lib.tc_dwconv_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    for fn in (lib.tc_dwconv_wgrad, lib.tc_dwconv_wgrad_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.tc_dwconv_wgrad_clusters.restype = ctypes.c_int
-    lib.tc_dwconv_wgrad_clusters.argtypes = [ctypes.c_int] * 6
+    lib.tc_dwconv_wgrad_clusters.argtypes = [ctypes.c_int] * 7
     return lib
 
 
@@ -254,11 +266,13 @@ def _aligned(*tensors) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _active_clusters(device: int, plan: DwconvPlan) -> int:
-    """Clusters of the plan's filter-gradient blocks the card runs at once."""
+def _active_clusters(device: int, esize: int, plan: DwconvPlan) -> int:
+    """Clusters of the plan's filter-gradient blocks (of ``esize``-byte
+    elements) the card runs at once."""
     lib = _lib()
     with torch.cuda.device(device):
-        n = lib.tc_dwconv_wgrad_clusters(plan.units, plan.parts, plan.smem, int(plan.tma), plan.cc, plan.tw)
+        n = lib.tc_dwconv_wgrad_clusters(plan.units, plan.parts, plan.smem, int(plan.tma), plan.cc, plan.tw,
+                                         esize)
     _build.check(lib, max(0, -n), "dwconv_wgrad occupancy")
     return n
 
@@ -272,13 +286,13 @@ def _plan_for(kind, x, *others) -> DwconvPlan:
     tma = c % (16 // esize) == 0 and _aligned(x, *others)
     if kind == "forward":
         return dwconv_plan(b, h, w, c, kind, tma, _build.sm_count(x.get_device()), esize=esize)
-    return _wgrad_plan(x.get_device(), b, h, w, c, tma)
+    return _wgrad_plan(x.get_device(), b, h, w, c, tma, esize)
 
 
 @functools.lru_cache(maxsize=None)
-def _wgrad_plan(device, b, h, w, c, tma) -> DwconvPlan:
-    return fit_cluster(lambda k: dwconv_plan(b, h, w, c, "wgrad", tma, _build.sm_count(device), k),
-                       functools.partial(_active_clusters, device))
+def _wgrad_plan(device, b, h, w, c, tma, esize) -> DwconvPlan:
+    return fit_cluster(lambda k: dwconv_plan(b, h, w, c, "wgrad", tma, _build.sm_count(device), k, esize),
+                       functools.partial(_active_clusters, device, esize))
 
 
 def dwconv_forward(x: torch.Tensor, w: torch.Tensor, flip: bool = False,
@@ -289,7 +303,7 @@ def dwconv_forward(x: torch.Tensor, w: torch.Tensor, flip: bool = False,
     rounds as ``_dw_plain``).  CUDA tensors launch the forward kernel on the
     current stream with ``dwconv_plan``'s tiles; CPU tensors run
     ``_dw_plain``; any other device raises."""
-    _check("dwconv_forward", x, w, "w", (K, K, x.shape[-1]), bias, _FORWARD_DTYPES)
+    _check("dwconv_forward", x, w, "w", (K, K, x.shape[-1]), bias, _DTYPES)
     if x.device.type == "cpu":
         return _dw_plain(x, w.flip(0, 1) if flip else w, bias)
     b, h, wd, c = x.shape
@@ -311,30 +325,35 @@ def dwconv_forward(x: torch.Tensor, w: torch.Tensor, flip: bool = False,
 
 def dwconv_filter_grad(x: torch.Tensor, g: torch.Tensor, bias_grad: bool = False):
     """The filter gradient (7, 7, C) of the conv for input x and cotangent g,
-    both (B, H, W, C); with ``bias_grad``, (dw, the bias gradient (C,): the
-    sum of g over (B, H, W)) from the same launch.  CUDA tensors launch the
-    gradient kernel (one launch, a cluster of blocks per channel chunk, a
-    fixed summation order) on the current stream; CPU tensors run
-    ``_dw_grad_plain``; any other device raises."""
-    _check("dwconv_filter_grad", x, g, "g", tuple(x.shape))
+    both (B, H, W, C), float32 or both bfloat16; with ``bias_grad``, (dw,
+    the bias gradient (C,): the sum of g over (B, H, W)) from the same
+    launch, both float32 (bf16 inputs summed in f32).  CUDA tensors launch
+    the gradient kernel of their dtype (one launch, a cluster of blocks per
+    channel chunk, a fixed summation order) on the current stream; CPU
+    tensors run ``_dw_grad_plain``; any other device raises."""
+    _check("dwconv_filter_grad", x, g, "g", tuple(x.shape), None, _DTYPES)
     if x.device.type == "cpu":
         return _dw_grad_plain(x, g, bias_grad)
     b, h, w, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
     plan = _plan_for("wgrad", x, g)
     lib = _lib()
-    dw = x.new_empty(K, K, c)
-    db = x.new_empty(c) if bias_grad else None
+    dw = torch.empty(K, K, c, device=x.device)
+    db = torch.empty(c, device=x.device) if bias_grad else None
+    launch = lib.tc_dwconv_wgrad_bf16 if bf16 else lib.tc_dwconv_wgrad
     with torch.cuda.device(x.device):
-        err = lib.tc_dwconv_wgrad(
+        err = launch(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), None if db is None else db.data_ptr(),
             b, h, w, c, *plan.args(), _build.raw_stream(x.get_device()),
         )
     _build.check(lib, err, "dwconv_wgrad")
     depthwise_conv7x7_nhwc.grad_launches += 1
+    if bf16:
+        depthwise_conv7x7_nhwc.bf16_grad_launches += 1
     return (dw, db) if bias_grad else dw
 
 
-_FORWARD_DTYPES = (torch.float32, torch.bfloat16)  # the forward kernel's instances
+_DTYPES = (torch.float32, torch.bfloat16)  # each kernel's instances
 
 
 class _DepthwiseConv(torch.autograd.Function):
@@ -346,10 +365,10 @@ class _DepthwiseConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # In bf16 the input gradient is bf16 (the forward instance, rounded
+        # once); the filter and bias gradients come back in f32, and autograd
+        # rounds each once to its input's bf16.
         x, w = ctx.saved_tensors
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "the depthwise conv's bf16 gradients (bf16 training) are not ported yet: ROADMAP.md Queue 1 #5b")
         g = g.contiguous()
         need_x, need_w, _, _, need_b = ctx.needs_input_grad
         d_x = d_w = d_b = None
@@ -375,15 +394,16 @@ def depthwise_conv7x7_nhwc(
     bias: Optional[torch.Tensor] = None,  # (C,)
 ) -> torch.Tensor:
     """y[b,h,w,c] = sum_{dy,dx} x_pad[b,h+dy,w+dx,c] * w[dy,dx,c] (+ bias[c]),
-    differentiable in x, w and the bias in float32 (a bf16 conv's filter
-    gradient is refused, ``dwconv_filter_grad``).  ``use_kernel`` is the
+    differentiable in x, w and the bias, in float32 or in bfloat16 (the
+    module note says where bf16 rounds).  ``use_kernel`` is the
     JAX ``use_pallas`` (forward and input gradient), ``grad_kernel`` the JAX
     ``TPU_CAPTIONER_DW_GRAD=pallas`` (filter and bias gradient).  Refuses
     tensors that are not contiguous float32, or bfloat16, on one device."""
-    _check("depthwise_conv7x7_nhwc", x, w, "w", (K, K, x.shape[-1]), bias, _FORWARD_DTYPES)
+    _check("depthwise_conv7x7_nhwc", x, w, "w", (K, K, x.shape[-1]), bias, _DTYPES)
     return _DepthwiseConv.apply(x, w, bool(use_kernel), bool(grad_kernel), bias)
 
 
 depthwise_conv7x7_nhwc.launches = 0  # forward-kernel launches: forward and input gradient
 depthwise_conv7x7_nhwc.bf16_launches = 0  # of those, the bf16 instance's
 depthwise_conv7x7_nhwc.grad_launches = 0  # filter-gradient launches
+depthwise_conv7x7_nhwc.bf16_grad_launches = 0  # of those, the bf16 instance's

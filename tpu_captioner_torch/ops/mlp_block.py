@@ -23,16 +23,22 @@ returns the cotangent itself as the residual's gradient and calls
 CUDA tensors and runs ``_mlp_bwd_plain`` for CPU tensors.  The backward saves x (the dwconv
 output), sd and the parameters, never the residual.
 
-bf16 (the bf16 encoder's serving path): x, the residual, the output and
-the two matrices in bf16, the vectors in f32.  The whole-tile kernel's
-bf16 instance is the JAX kernel's ``precise=True`` arm on bf16 operands
-(tpu_captioner/ops/mlp_block.py:126-142, called so by models/convnext.py:
-163-171): LayerNorm, products, GELU and residual in f32 (a bf16 weight's
-TF32 planes are itself and zero: the 3xTF32 products are exact on it),
-the output rounded to bf16 once.  ``_mlp_plain_bf16`` is its plain version.
-The sub-tiled path, the ``precise=False`` arm (bf16 products, reached by
-no JAX model path) and the bf16 backward are not ported (ROADMAP.md Queue
-1 #5d, #5f, #5b).
+bf16 (the bf16 encoder, serving and training): x, the residual, the
+output and the two matrices in bf16, the vectors in f32.  The whole-tile
+kernel's bf16 instance is the JAX kernel's ``precise=True`` arm on bf16
+operands (tpu_captioner/ops/mlp_block.py:126-142, called so by
+models/convnext.py:163-171): LayerNorm, products, GELU and residual in f32
+(a bf16 weight's TF32 planes are itself and zero: the 3xTF32 products are
+exact on it), the output rounded to bf16 once.  ``_mlp_plain_bf16`` is its
+plain version.  The backward's bf16 instance is the JAX backward's arm on
+bf16 g, x, W1 and W2 (:409-476, 497-515): the forward recomputed in f32
+from bf16 x, d_x rounded to bf16 once, every other gradient f32; the
+residual's gradient is g itself (bf16).  The weight gradients come back in
+f32, and autograd rounds each once to the bf16 matrix it belongs to, as
+JAX's ``.astype(w1.dtype)`` (:476) does, before the casts' backward widens
+them to the f32 parameters.  ``_mlp_bwd_plain_bf16`` is its plain version.
+The sub-tiled path and the ``precise=False`` arm (bf16 products, reached
+by no JAX model path) are not ported (ROADMAP.md Queue 1 #5d, #5f).
 """
 
 from __future__ import annotations
@@ -110,6 +116,14 @@ def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     )
 
 
+def _mlp_bwd_plain_bf16(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain version of the bf16 backward instance: ``_mlp_bwd_plain`` on
+    g, x, w1 and w2 widened to f32 (exactly), d_x rounded to bf16; the other
+    eight outputs f32."""
+    d_x, *rest = _mlp_bwd_plain(g.float(), x.float(), sd, ln_w, ln_b, w1.float(), b1, w2.float(), b2, gamma)
+    return (d_x.to(torch.bfloat16), *rest)
+
+
 def _pipeline_sub(n: int, c: int) -> int:
     """Sub-tile rows of the forward kernel at width ``c`` (the JAX package's
     ``_pipeline_sub``, tpu_captioner/ops/mlp_block.py:191); 0 selects the
@@ -171,16 +185,17 @@ def _lib():
 
 def _bwd_lib():
     lib = _build.load("mlp_block_bwd")
-    lib.tc_mlp_block_backward.restype = ctypes.c_int
-    lib.tc_mlp_block_backward.argtypes = [ctypes.c_void_p] * 20 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.tc_mlp_block_backward_workspace.restype = ctypes.c_longlong
-    lib.tc_mlp_block_backward_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    for fn in (lib.tc_mlp_block_backward, lib.tc_mlp_block_backward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.tc_mlp_block_backward_workspace, lib.tc_mlp_block_backward_bf16_workspace):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
 _BF16_IO = ("x", "residual", "w1", "w2")  # the bf16 instance's bf16 operands; the output too
+_BF16_BWD = ("g", "x", "w1", "w2")  # the bf16 backward's bf16 operands; d_x too
 
 
 def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
@@ -222,36 +237,42 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
 
 def fused_convnext_mlp_bwd(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     """Gradients of the tail without its residual, for the cotangent ``g``
-    (N, C): the nine outputs of ``_mlp_bwd_plain``.  CUDA tensors launch
-    ``csrc/mlp_block_bwd.cu`` on the current stream; CPU tensors take the
-    plain version; any other device raises."""
+    (N, C): the nine outputs of ``_mlp_bwd_plain``.  bf16 g, x, w1 and w2
+    (the rest f32) take the bf16 instance: d_x bf16, the other eight f32
+    (``_mlp_bwd_plain_bf16``).  CUDA tensors launch ``csrc/mlp_block_bwd.cu``
+    on the current stream; CPU tensors take the plain version; any other
+    device raises."""
     args = (g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return _mlp_bwd_plain(*args)
+        return _mlp_bwd_plain_bf16(*args) if bf16 else _mlp_bwd_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convnext_mlp_bwd runs on cpu or cuda tensors, got {x.device}")
     n, c = x.shape
     _check("fused_convnext_mlp_bwd", c, {
         "g": (g, (n, c)), "x": (x, (n, c)), "sd": (sd, (n,)),
         **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
-    })
+    }, _BF16_BWD if bf16 else ())
     lib = _bwd_lib()
+    f32 = sd.new_empty
     outs = (
-        torch.empty_like(x), x.new_empty(n), x.new_empty(c), x.new_empty(c),
-        torch.empty_like(w1), x.new_empty(4 * c), torch.empty_like(w2), x.new_empty(c), x.new_empty(c),
+        torch.empty_like(x), f32(n), f32(c), f32(c), f32(4 * c, c), f32(4 * c), f32(c, 4 * c), f32(c), f32(c),
     )
+    launch, workspace = ((lib.tc_mlp_block_backward_bf16, lib.tc_mlp_block_backward_bf16_workspace) if bf16
+                         else (lib.tc_mlp_block_backward, lib.tc_mlp_block_backward_workspace))
     with torch.cuda.device(x.device):
-        work = x.new_empty(lib.tc_mlp_block_backward_workspace(n, c))
+        work = f32(workspace(n, c))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tc_mlp_block_backward(
-            *(t.data_ptr() for t in (*args, *outs, work)), n, c, stream
-        )
+        err = launch(*(t.data_ptr() for t in (*args, *outs, work)), n, c, stream)
     _build.check(lib, err, "mlp_block_bwd")
     fused_convnext_mlp_bwd.launches += 1
+    if bf16:
+        fused_convnext_mlp_bwd.bf16_launches += 1
     return outs
 
 
 fused_convnext_mlp_bwd.launches = 0
+fused_convnext_mlp_bwd.bf16_launches = 0  # of those, the bf16 instance's
 
 
 class _FusedMLP(torch.autograd.Function):
@@ -262,9 +283,8 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if g.dtype == torch.bfloat16:
-            raise NotImplementedError("the MLP tail's bf16 backward (bf16 training) is not ported yet: "
-                                      "ROADMAP.md Queue 1 #5b")
+        # bf16: d_x and the residual's g are bf16; d_w1 and d_w2 come back in
+        # f32, and autograd rounds each once to its bf16 input's dtype.
         d_x, d_sd, *d_params = fused_convnext_mlp_bwd(g.contiguous(), *ctx.saved_tensors)
         grads = (d_x, g, d_sd, *d_params)
         return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
@@ -279,14 +299,15 @@ def fused_convnext_mlp(
     w2: torch.Tensor, b2: torch.Tensor,  # (C, 4C), (C,)
     gamma: torch.Tensor,  # (C,) layer scale
 ) -> torch.Tensor:
-    """The fused tail, differentiable in f32: the CUDA kernels for CUDA
-    tensors, the plain versions for CPU tensors; any other device raises.
-    bf16 x, residual, w1 and w2 (the rest f32) give a bf16 output, forward
-    only.
+    """The fused tail, differentiable: the CUDA kernels for CUDA tensors,
+    the plain versions for CPU tensors; any other device raises.  bf16 x,
+    residual, w1 and w2 (the rest f32) give a bf16 output, and a backward
+    through the bf16 instances (the module note says where they round).
     ``fused_convnext_mlp.launches`` counts forward kernel launches, of which
     ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled kernel and
     ``.bf16_launches`` the bf16 instance;
-    ``fused_convnext_mlp_bwd.launches`` counts backward ones."""
+    ``fused_convnext_mlp_bwd.launches`` counts backward ones, of which
+    ``.bf16_launches`` ran the bf16 instance."""
     return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
 
 

@@ -61,9 +61,14 @@ on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
   (tpu_captioner/infer/beam.py:325, models/transformer.py:532); an f32
   model keeps the f32 arm and every f32 result it had (JAX takes its f32
   arm in interpret mode only, on the CPU).  The plain decode path stays f32
-  in both, as the JAX package's XLA path is.  What bf16 does not serve
-  raises ``NotImplementedError`` naming its ROADMAP item (Queue 1 #5b-#5e):
-  a train step, the LSTM families, ``use_pallas='block'`` and the
+  in both, as the JAX package's XLA path is.  bf16 also trains the
+  Transformer families (the frozen, fine-tune and free-running steps):
+  the parameters and both Adams stay f32 (the JAX package's master
+  weights), each weight is cast to bf16 at use and its gradient comes back
+  through the cast, and the encoder's backward runs the bf16 instances of
+  the MLP tail's and the depthwise conv's backward kernels.  What bf16
+  does not port raises ``NotImplementedError`` naming its ROADMAP item
+  (Queue 1 #5c-#5e): the LSTM families, ``use_pallas='block'`` and the
   sub-tiled tail, the one-cell and ``'mega'`` decode modes.
 """
 
@@ -131,14 +136,26 @@ def decode_kernel_mode(mode: str, decoder: str) -> str:
 
 def finetune_encoder_remat(remat: str, compute_dtype: str = "float32") -> str:
     """Remat mode of the fine-tune step's trainable stages (the one home of
-    this policy).  Explicit modes pass through.  ``'auto'`` resolves to
-    ``'off'`` for float32, the only ported dtype: on an NVIDIA H100 80GB
-    HBM3 at 700 W (``chip_smoke.py`` phase 6) the full-width fine-tune step
-    at batch 32 took 229.29 ms with ``'off'`` (peak 5.21 GiB) against
-    280.97 ms with ``'on'`` (peak 4.76 GiB), which recomputes the 30
-    trainable blocks' forwards; both fit in 80 GB many times over."""
-    del compute_dtype  # only float32 is ported; the choice above was measured there
-    return "off" if remat == "auto" else remat
+    this policy).  Explicit modes pass through.  ``'auto'`` resolves per
+    dtype, each decided on an NVIDIA H100 80GB HBM3 at 700 W
+    (``chip_smoke.py``), full width, batch 32:
+    - float32: ``'off'`` (phase 6): 229.29 ms a step with ``'off'`` (peak
+      5.21 GiB) against 280.97 ms with ``'on'`` (peak 4.76 GiB), which
+      recomputes the 30 trainable blocks' forwards;
+    - bfloat16: ``'off'`` (the JAX package's ``'save_mlp_in'``, which keeps
+      each block's dwconv output, is what ``'off'`` keeps here:
+      ``models/convnext.py:Stage``), by phase 12's paired A/B, whose rule
+      was set before the run: ``'on'`` only if the median of 12 pairs'
+      step-time differences favours it by more than their spread.  Medians
+      of one step per arm a pair, device time by CUDA events (host clock in
+      parentheses): ``'off'`` 102.44 ms (102.52) against ``'on'`` 136.33 ms
+      (136.46); ``'off'`` - ``'on'`` per pair median -35.42 ms, spread
+      54.03 (peak memory of ``'off'`` 4.42 GiB).
+    Both fit in 80 GB many times over."""
+    return _FINETUNE_REMAT_AUTO[compute_dtype] if remat == "auto" else remat
+
+
+_FINETUNE_REMAT_AUTO = {"float32": "off", "bfloat16": "off"}
 
 
 class CaptionModel(nn.Module):

@@ -220,10 +220,6 @@ def make_train_step(
     finds it changed, so frozen and fine-tune steps may share a model.
     After a step the trained parameters' ``.grad`` hold the clamped
     gradients that were applied."""
-    if model.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bf16 training (the train steps, on the bf16 arms of the MLP-tail and depthwise-conv backward "
-            "kernels) is not ported yet: ROADMAP.md Queue 1 #5b")
     mask = fine_tune_mask(model.encoder, train_encoder, cfg.starting_layer)
     flags = [(p, mask[name]) for name, p in model.encoder.named_parameters()]
     for p, on in flags:
