@@ -183,13 +183,34 @@ Phases, in order; any failure raises and the exit code is not 0:
    every step's launches and validation's bf16 decode launches counted,
    ``meta.json`` saying bfloat16, then ``cli.caption``'s loader and
    ``cli.test`` on the checkpoint.
+13. bf16 in the decoders (``check_bf16_lstm``, ``check_bf16_decode_modes``,
+   ``bf16_lstm_serve``, ``bf16_eval_modes``, ``bf16_lstm_train``): (a) the
+   LSTM step's bf16 instance at 40, 160 and 32 rows (E = D = A = 512, C =
+   1024, P = 49) and at 40 rows with E = 300 against its plain version
+   (alpha within 1e-5, h and c within the larger of 2e-3 x max(1, max
+   |plain|) and twice the noise floor, the plain version with f64 sums
+   against it; a second call bit for bit), the one-cell bf16 instance at 32
+   rows equal to the per-layer bf16 launches bit for bit, the rollout's
+   bf16 instance at 32 rows over 51 tokens against its plain version under
+   phase 11's noise-floor rules; device times and bounds; (b) bf16 ``lstm``
+   (decode kernel on) and ``lstm_no_attention`` beams 5 x 50 at batch 8 and
+   32, each bf16 instance's launches counted, the captions held to the
+   all-plain bf16 path by phase 11's lock-step replay, captions/s beside
+   the f32 models'; (c) the eval step at batch 32, 51 tokens, of a bf16
+   Transformer in ``'mega'`` and one-cell and of a bf16 ``lstm`` in
+   ``'on'``, against the all-plain bf16 path at its noise floor, reported
+   against ``'off'``, eval-step ms beside f32's; (d) the bf16 ``lstm``
+   frozen and fine-tune teacher-forced steps and its free-running frozen
+   step against all-plain under phase 12b's rules, then ``cli.train
+   --computeDtype bfloat16 --decoder lstm`` for one epoch, ``cli.caption``'s
+   loader and ``cli.test`` on its checkpoint.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths and on the training
-path, phase 10's or for the bf16 instances phase 12c's, max error, times and
-bounds; the bf16 instances as entries of their own, ``*_bf16``); the last
-line is ``{"ok": true, "device": {...}}``.  Needs the repository beside it
-and one card; imports no JAX.
+path, phase 10's or for the bf16 instances phase 12c's or 13d's, max error,
+times and bounds; the bf16 instances as entries of their own, ``*_bf16``);
+the last line is ``{"ok": true, "device": {...}}``.  Needs the repository
+beside it and one card; imports no JAX.
 """
 
 import argparse
@@ -1289,18 +1310,19 @@ def compare_rollouts(label, got, want, logit_tol=LOGIT_TOL, alpha_tol=ALPHA_TOL,
     return logit_err, alpha_err, ties
 
 
-def rollout_bound(lengths, L, P, E, Fd, V, steps):
+def rollout_bound(lengths, L, P, E, Fd, V, steps, esize=4):
     """(bytes, ops) of a whole rollout whose rows ran ``lengths`` tokens,
     each input read once and each output written once: the layer weights,
     the vocab head, the memory K/V, the embedding and PE rows used, the
-    (R, steps) logits, maps and tokens.  Operations: 2 per weight per row
-    and token (layers and head), and the two attentions' scores and weighted
-    sums."""
+    (R, steps) logits, maps and tokens; the weight matrices, the head, the
+    memory K/V and the embedding rows at ``esize`` bytes (2 in the bf16
+    instance), the rest at 4.  Operations: 2 per weight per row and token
+    (layers and head), and the two attentions' scores and weighted sums."""
     R, row_steps = len(lengths), sum(lengths)
     attn = sum(L * 4 * E * (s + 1 + P) for n in lengths for s in range(n))
     n_ops = row_steps * 2 * (L * (6 * E * E + 2 * E * Fd) + E * V) + attn
-    n_bytes = 4 * (L * (6 * E * E + 2 * E * Fd + 9 * E + Fd) + V * E + V + 2 * L * R * P * E
-                   + row_steps * E + max(lengths) * E + R * steps * (V + P + 1))
+    n_bytes = (esize * (L * (6 * E * E + 2 * E * Fd) + V * E + 2 * L * R * P * E + row_steps * E)
+               + 4 * (L * (9 * E + Fd) + V + max(lengths) * E + R * steps * (V + P + 1)))
     return n_bytes, n_ops
 
 
@@ -2347,6 +2369,9 @@ def kernel_counts():
         "decode_step_bf16": fused_decode_step.bf16_launches,
         "mlp_block_bwd_bf16": fused_convnext_mlp_bwd.bf16_launches,
         "dwconv_grad_bf16": depthwise_conv7x7_nhwc.bf16_grad_launches,
+        "lstm_step_bf16": fused_lstm_step.bf16_launches,
+        "decode_onecell_bf16": fused_decode_step.onecell_bf16_launches,
+        "decode_rollout_bf16": fused_full_rollout.bf16_launches,
     }
 
 
@@ -2359,7 +2384,8 @@ def zero_kernel_counts():
 
     zero_block_counts()
     fused_decode_step.launches = fused_decode_step.onecell_launches = fused_full_rollout.launches = 0
-    fused_lstm_step.launches = 0
+    fused_lstm_step.launches = fused_lstm_step.bf16_launches = 0
+    fused_decode_step.onecell_bf16_launches = fused_full_rollout.bf16_launches = 0
     fused_convnext_mlp.bf16_launches = depthwise_conv7x7_nhwc.bf16_launches = fused_decode_step.bf16_launches = 0
     fused_convnext_mlp_bwd.bf16_launches = depthwise_conv7x7_nhwc.bf16_grad_launches = 0
 
@@ -2778,25 +2804,33 @@ def bf16_ulp_err(got, want):
     return diff.max().item(), (diff / ulp).max().item()
 
 
+def bf16_rel(a, b):
+    """max |a - b| over max(1, max |b|), in f64."""
+    return (a.double() - b.double()).abs().max().item() / max(1.0, b.abs().max().item())
+
+
 @contextlib.contextmanager
-def plain_versions(decode_sums=None, encoder_sums=None):
+def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
     """The serving and training paths' kernel wrappers replaced by their
     plain versions on the card (as phase 5 swaps the pool for
     ``_mask_plain``): the MLP tail's forward and backward, the depthwise
-    conv's forward (also the input gradient) and filter gradient, and the
-    per-token decode step, each by dtype (the bf16 arm's own plain version
-    in bf16, its sums in ``decode_sums`` when given: float64 for the noise
-    floor).  ``encoder_sums=torch.float64`` takes the bf16 encoder's plain
+    conv's forward (also the input gradient) and filter gradient, the
+    per-token decode step (per-layer and one-cell), the whole-rollout
+    decode and the LSTM step, each by dtype (the bf16 arm's own plain
+    version in bf16, its sums in ``decode_sums`` when given: float64 for the
+    noise floor).  ``encoder_sums=torch.float64`` takes the bf16 encoder's plain
     versions with their sums in f64 (each output rounded where the bf16
-    instance rounds it): the bf16 steps' noise floor.  The kernels' path
-    is held against what runs inside."""
+    instance rounds it): the bf16 steps' noise floor.  ``encoder=False``
+    keeps the encoder's kernels, so that a decode is compared on the same
+    features.  The kernels' path is held against what runs inside."""
     import torch
 
     from tpu_captioner_torch.infer import beam
-    from tpu_captioner_torch.ops import decode_step, dwconv, mlp_block
+    from tpu_captioner_torch.ops import decode_step, dwconv, lstm_step, mlp_block
 
     saved = mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step
     saved_bwd = mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad
+    saved_dec = decode_step.fused_full_rollout, lstm_step.fused_lstm_step
     bf = torch.bfloat16
     wide = encoder_sums is not None  # the bf16 plain versions with their sums in encoder_sums
 
@@ -2839,15 +2873,29 @@ def plain_versions(decode_sums=None, encoder_sums=None):
                                                        decode_sums or torch.float32)
         return decode_step._decode_step_plain(w, x, int(pos), ck, cv, mk, mv, heads)
 
-    mlp_block._mlp_forward, dwconv.dwconv_forward = mlp, dw
-    mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = mlp_bwd, dw_grad
+    def roll(w, *args, **kw):
+        if w.w_qkv.dtype == torch.bfloat16:
+            return decode_step._full_rollout_plain_bf16(w, *args, **kw, sums=decode_sums or torch.float32)
+        return decode_step._full_rollout_plain(w, *args, **kw)
+
+    def lstm(w, *args):
+        if w.wd.dtype == torch.bfloat16:
+            return lstm_step._lstm_step_plain_bf16(w, *args, sums=decode_sums or torch.float32)
+        return lstm_step._lstm_step_plain(w, *args)
+
+    if encoder:
+        mlp_block._mlp_forward, dwconv.dwconv_forward = mlp, dw
+        mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = mlp_bwd, dw_grad
     decode_step.fused_decode_step = beam.fused_decode_step = dec
+    decode_step.fused_full_rollout, lstm_step.fused_lstm_step = roll, lstm
+    beam.fused_lstm_step = lstm
     try:
         yield
     finally:
         mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step = saved
         mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = saved_bwd
-        beam.fused_decode_step = saved[2]
+        decode_step.fused_full_rollout, lstm_step.fused_lstm_step = saved_dec
+        beam.fused_decode_step, beam.fused_lstm_step = saved[2], saved_dec[1]
 
 
 def check_bf16_kernels(dev, card, layers):
@@ -2938,9 +2986,6 @@ def check_bf16_kernels(dev, card, layers):
     g = torch.Generator().manual_seed(11)
     f = lambda *sh: torch.randn(*sh, generator=g).to(dev, bf)  # noqa: E731
 
-    def rel(a, b_):
-        return (a.double() - b_.double()).abs().max().item() / max(1.0, b_.abs().max().item())
-
     for rows in (DECODE_ROWS, BEAM * TRAIN_BS, TRAIN_BS):
         worst, times, plain_times, n_bytes, n_ops = 0.0, [], [], 0, 0
         for pos in (0, 1, 25, DECODE_T - 1):
@@ -2957,7 +3002,7 @@ def check_bf16_kernels(dev, card, layers):
                 if not (all(torch.isfinite(t.float()).all() for t in got)
                         and [t.dtype for t in got] == [torch.float32, torch.float32, bf, bf]):
                     raise AssertionError(f"decode bf16 arm: non-finite or mistyped outputs at R={rows}, pos {pos}")
-                errs = (rel(got[0], want[0]), rel(got[1], want[1]),
+                errs = (bf16_rel(got[0], want[0]), bf16_rel(got[1], want[1]),
                         max(bf16_ulp_err(got[2], want[2])[1], bf16_ulp_err(got[3], want[3])[1]))
                 launch = [max(u, v) for u, v in zip(launch, errs)]
                 worst = max(worst, *((got[i] - want[i]).float().abs().max().item() for i in range(4)))
@@ -2966,8 +3011,8 @@ def check_bf16_kernels(dev, card, layers):
                                      f"alpha {launch[1]} (tol {BF16_F32_TOL}), k/v {launch[2]} ulps")
             got, want = fused_decode_step(*args), _decode_step_plain_bf16(*args)
             ref = _decode_step_plain_bf16(*args, sums=torch.float64)
-            step = (rel(got[0], want[0]), rel(got[1], want[1]))
-            floor = (rel(want[0], ref[0]), rel(want[1], ref[1]))
+            step = (bf16_rel(got[0], want[0]), bf16_rel(got[1], want[1]))
+            floor = (bf16_rel(want[0], ref[0]), bf16_rel(want[1], ref[1]))
             if not all(e <= max(BF16_F32_TOL, BF16_NOISE * n) for e, n in zip(step, floor)):
                 raise AssertionError(f"decode bf16 arm, {L}-layer step at R={rows}, pos {pos}: x {step[0]}, alpha "
                                      f"{step[1]} against the noise floor {floor}")
@@ -2995,13 +3040,20 @@ def check_bf16_kernels(dev, card, layers):
     return out
 
 
+def kernel_beam(model):
+    """The beam adapter of ``model``'s family with its decode kernel (the
+    wrappers' plain versions inside ``plain_versions``)."""
+    from tpu_captioner_torch.infer.beam import _lstm_attention_beam, _lstm_plain_beam, _transformer_beam_fused
+
+    return {"lstm": _lstm_attention_beam, "lstm_no_attention": _lstm_plain_beam}.get(
+        model.cfg.decoder, _transformer_beam_fused)
+
+
 def tf_scores(model, enc, seqs):
     """Each token sequence's cumulative log-prob under the beam's step of
-    ``model`` (``_transformer_beam_fused``, beam 1), teacher-forced: ``enc``
-    holds one encoder row per sequence.  Float64 sums of the steps."""
+    ``model`` (``kernel_beam``, beam 1), teacher-forced: ``enc`` holds one
+    encoder row per sequence.  Float64 sums of the steps."""
     import torch
-
-    from tpu_captioner_torch.infer.beam import _transformer_beam_fused
 
     n, T = len(seqs), max(len(s) for s in seqs)
     toks = torch.zeros(n, T, dtype=torch.long, device=enc.device)
@@ -3009,7 +3061,7 @@ def tf_scores(model, enc, seqs):
         toks[i, : len(q)] = torch.as_tensor(q, device=enc.device)
     lens = torch.as_tensor([len(q) for q in seqs], device=enc.device)
     with torch.inference_mode():
-        step_fn, _, state = _transformer_beam_fused(model, enc, 1, T)
+        step_fn, _, state = kernel_beam(model)(model, enc, 1, T)
         total = torch.zeros(n, dtype=torch.float64, device=enc.device)
         for pos in range(T - 1):
             state, logits, _ = step_fn(state, toks[:, pos : pos + 1], pos)
@@ -3034,12 +3086,10 @@ def beam_lockstep(model, enc, start_id, end_id):
     import torch
     import torch.nn.functional as F
 
-    from tpu_captioner_torch.infer.beam import _transformer_beam_fused
-
     B, k, V = enc.shape[0], BEAM, model.cfg.vocab_size
     dev, inf = enc.device, float("inf")
     arms = (contextlib.nullcontext, plain_versions, lambda: plain_versions(torch.float64))
-    adapters = [_transformer_beam_fused(model, enc, k, MAX_STEPS) for _ in arms]
+    adapters = [kernel_beam(model)(model, enc, k, MAX_STEPS) for _ in arms]
     states = [a[2] for a in adapters]
     slots, ar = torch.arange(k, device=dev), torch.arange(B, device=dev)
     words = torch.full((B, k), start_id, dtype=torch.long, device=dev)
@@ -3340,6 +3390,11 @@ def bf16_phase(dev, card, seed, word_map, images8, rng):
 BF16_TRAIN_TOL = 1e-4
 BF16_TRAIN_SHARE = 0.25
 BF16_TRAIN_LOSS = 1e-3
+# Adam's first step is lr * g / (|g| + 1e-8): within 1% of lr * sign(g) for
+# |g| above 99 eps.  Gradients below that (run C, PR 18: the bf16 lstm's
+# free-running step has elements near 1e-8) are held by the gradient rule
+# alone; their updates are not lr * sign(g), so 1e-2 x lr cannot hold them.
+ADAM_SIGN_FLOOR = 1e-6
 FT_STAGES = ((2, TRAIN_BS * 16 * 16, 512), (3, TRAIN_BS * 8 * 8, 1024))  # (stage, N, C) of the trained blocks
 
 
@@ -3471,7 +3526,7 @@ def check_bf16_train_kernels(dev, card):
 
 
 def bf16_train_agree(label, got, want, grads, want_grads, floor_grads, f32_grads, params, want_params, start, after,
-                     lr):
+                     lr, min_share=0.25):
     """Phase 12b's rule on two bf16 steps, kernels (``got``) against
     all-plain (``want``): losses within BF16_TRAIN_LOSS relative, token and
     top-5 counts equal; per trained tensor the kernels' step-1 gradient
@@ -3481,8 +3536,10 @@ def bf16_train_agree(label, got, want, grads, want_grads, floor_grads, f32_grads
     first step (Adam's first step moves each by about lr * sign(g)) within
     1e-2 x lr where all-plain's gradient exceeds twice the tensor's largest
     kernel-vs-plain difference (the run's noise: below it the signs may
-    differ).  Returns the count of encoder tensors changed per ConvNeXt
-    child after both steps (``after``)."""
+    differ) and ADAM_SIGN_FLOOR (below it the step lr * g / (|g| + eps) is
+    not lr * sign(g)), on more than ``min_share`` of the elements.  Returns
+    the count of encoder tensors changed per ConvNeXt child after both
+    steps (``after``)."""
     import torch
 
     for i, (a, b) in enumerate(zip(got, want)):
@@ -3493,7 +3550,7 @@ def bf16_train_agree(label, got, want, grads, want_grads, floor_grads, f32_grads
     if set(grads) != set(want_grads) or set(grads) - set(f32_grads) or set(grads) - set(floor_grads):
         raise AssertionError(f"{label}: the paths trained different parameters")
     share = floor_share = 0.0
-    failed, param_err, checked, total = [], 0.0, 0, 0
+    failed, param_err, checked, total, worst = [], 0.0, 0, 0, None
     for k, g in want_grads.items():
         d_kern = (grads[k] - g).norm().item()
         d_f32 = (g - f32_grads[k]).norm().item()
@@ -3502,16 +3559,17 @@ def bf16_train_agree(label, got, want, grads, want_grads, floor_grads, f32_grads
         floor_share = max(floor_share, d_kern / max(d_floor, 1e-30))
         if d_kern > max(BF16_TRAIN_SHARE * d_f32, BF16_NOISE * d_floor):
             failed.append((k, d_kern, d_f32, d_floor))
-        sure = g.abs() > 2 * (grads[k] - g).abs().max()
+        sure = (g.abs() > 2 * (grads[k] - g).abs().max()) & (g.abs() > ADAM_SIGN_FLOOR)
         err = (params[k] - want_params[k]).abs()[sure]
-        param_err = max(param_err, err.max().item() if err.numel() else 0.0)
+        if err.numel() and err.max().item() > param_err:
+            param_err, worst = err.max().item(), k
         checked, total = checked + int(sure.sum()), total + g.numel()
     print(f"{label} step-1 gradients over {len(want_grads)} tensors: the kernels' distance from all-plain bf16 at "
           f"most {share:.3e} of all-plain's distance from the f32 step (rule {BF16_TRAIN_SHARE}) and at most "
           f"{floor_share:.3e} of the noise floor (all-plain with f64 sums; rule {BF16_NOISE}); parameters after the "
-          f"first step within {param_err:.3e} of all-plain's (tol {1e-2 * lr:g}) on {checked} of {total} elements "
-          f"above the noise")
-    if failed or not (param_err <= 1e-2 * lr and checked > total // 4):
+          f"first step within {param_err:.3e} of all-plain's (tol {1e-2 * lr:g}; worst {worst}) on {checked} of "
+          f"{total} elements above the noise and {ADAM_SIGN_FLOOR:g}")
+    if failed or not (param_err <= 1e-2 * lr and checked > min_share * total):
         raise AssertionError(f"{label}: gradients or parameters break the bf16 rule: {failed[:5]}")
     changed = {}  # ConvNeXt child -> tensors changed by the two steps
     for k, v in start.items():
@@ -3573,6 +3631,38 @@ def remat_ab(card, model, tc, word_map, batch, root):
     return choice, med
 
 
+BF16_STEP_KERNELS = ("dropout_mask", "mlp_block_bf16", "mlp_block_bwd_bf16", "dwconv_bf16", "dwconv_grad_bf16")
+
+
+def bf16_two_steps(m, start, tc, word_map, batch, seeds, train_encoder, teacher_forcing=True, plain=False,
+                   sums=None):
+    """Two train steps of ``m`` from the state dict ``start``, one per seed:
+    metrics and the launches of ``BF16_STEP_KERNELS`` per step, step 1's
+    gradients and parameters, the state after both; ``plain`` runs the
+    plain versions (the encoder's sums in ``sums`` when given)."""
+    import torch
+
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    m.load_state_dict(start)
+    state = TrainState.create(m, tc)
+    step = make_train_step(m, tc, word_map, teacher_forcing=teacher_forcing, train_encoder=train_encoder)
+    out, seen = [], []
+    with plain_versions(encoder_sums=sums) if plain else contextlib.nullcontext():
+        for i, s in enumerate(seeds):
+            zero_kernel_counts()
+            state, met = step(state, batch, s)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            seen.append(tuple(counts[k] for k in BF16_STEP_KERNELS))
+            out.append({k: float(v) for k, v in met.items()})
+            if i == 0:
+                grads = {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None}
+                first = {k: m.state_dict()[k].clone() for k in grads}
+    return out, grads, first, {k: v.clone() for k, v in m.state_dict().items()}, seen
+
+
 def bf16_train_phase(dev, card, seed, word_map):
     """Phase 12b: the full-width bf16 frozen and fine-tune steps at batch 32
     against the all-plain bf16 steps (``plain_versions``), their f64-sum
@@ -3603,28 +3693,10 @@ def bf16_train_phase(dev, card, seed, word_map):
     batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
     root = prng.root_seed(seed + 31)
     seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
-    names = ("dropout_mask", "mlp_block_bf16", "mlp_block_bwd_bf16", "dwconv_bf16", "dwconv_grad_bf16")
+    names = BF16_STEP_KERNELS
 
     def two_steps(m, train_encoder, plain=False, sums=None):
-        """Two steps from ``start``: metrics and launches per step, step 1's
-        gradients and parameters, the state after both; ``plain`` runs the
-        plain versions (the encoder's sums in ``sums`` when given)."""
-        m.load_state_dict(start)
-        state = TrainState.create(m, tc)
-        step = make_train_step(m, tc, word_map, train_encoder=train_encoder)
-        out, seen = [], []
-        with plain_versions(encoder_sums=sums) if plain else contextlib.nullcontext():
-            for i, s in enumerate(seeds):
-                zero_kernel_counts()
-                state, met = step(state, batch, s)
-                torch.cuda.synchronize()
-                counts = kernel_counts()
-                seen.append(tuple(counts[k] for k in names))
-                out.append({k: float(v) for k, v in met.items()})
-                if i == 0:
-                    grads = {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None}
-                    first = {k: m.state_dict()[k].clone() for k in grads}
-        return out, grads, first, {k: v.clone() for k, v in m.state_dict().items()}, seen
+        return bf16_two_steps(m, start, tc, word_map, batch, seeds, train_encoder, plain=plain, sums=sums)
 
     launches = {}
     for label, train_encoder, expect in (("frozen", False, (1, 36, 0, 36, 0)), ("fine-tune", True, (1, 36, 30, 65, 30))):
@@ -3778,6 +3850,420 @@ def bf16_entry_phase(dev, card, seed):
             "mlp_block_bf16", "mlp_block_bwd_bf16", "dwconv_bf16", "dwconv_grad_bf16", "decode_step_bf16")):
         raise AssertionError(f"phase 12c: bf16 kernels never launched {missing}, or an f32 instance ran: {totals}")
     print(f"phase 12c launches: {totals}; phase 12c took {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+# Phase 13: bf16 in the decoders.  (a) holds the three new bf16 instances
+# against their plain versions at full width (PERF.md, PR 18, rules written
+# before the runs): the LSTM step's with alpha within LSTM_TOL and h and c
+# within the larger of BF16_F32_TOL x max(1, max |plain|) and BF16_NOISE x
+# the noise floor (the plain version with f64 sums against it); the
+# one-cell instance equal to the per-layer bf16 launches bit for bit; the
+# rollout instance against its plain version under phase 11's noise-floor
+# rules.  (b)-(d) run the bf16 LSTM families and decode modes end to end.
+def lstm_bf16_bound(R, E, D, A, C, P):
+    """``lstm_bound`` of the bf16 instance: the five matrices, emb, enc and
+    att1 at 2 bytes, the rest at 4; the products at the bf16 rate, the
+    attention's FFMA work at the f32 rate."""
+    n_mat = A * D + C * D + 4 * D * (E + C + D)
+    n_bytes = 2 * (n_mat + R * (E + P * (C + A))) + 4 * (2 * A + 1 + C + 4 * D + R * 2 * D + R * (2 * D + P))
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (2 * R * n_mat / BF16_OPS_PER_S + R * P * (4 * A + 2 * C) / F32_OPS_PER_S) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_bf16_lstm(dev, card):
+    """Phase 13a: the LSTM step's bf16 instance at the rows of the bs-8 and
+    bs-32 beams and the eval step (LSTM_ROWS) at E = D = A = 512, C = 1024,
+    P = 49, and at the bs-8 beam's rows with E = 300; the same bits from a
+    second call.  Device times (CUDA-graph replay) of the kernel and of its
+    plain version, and the bound.  Returns (worst error, ms, plain ms,
+    library ms, bound ms, bound by) at the bs-8 beam's rows, E = 512."""
+    import torch
+
+    from tpu_captioner_torch.ops.lstm_step import (
+        LstmStepWeights, _lstm_step_plain_bf16, cast_lstm_weight_matrices, fused_lstm_step,
+    )
+
+    D, A, C, P = 512, 512, 1024, 49
+    bf = torch.bfloat16
+    worst, out = 0.0, None
+    for R, E in [(r, 512) for r in LSTM_ROWS] + [(LSTM_ROWS[0], 300)]:
+        g = torch.Generator().manual_seed(R + E + 1)
+        u = lambda fan_in, *sh: ((torch.rand(*sh, generator=g) * 2 - 1) / math.sqrt(fan_in)).to(dev)  # noqa: E731
+        f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+        w = cast_lstm_weight_matrices(LstmStepWeights(
+            u(D, A, D), u(D, A), u(A, A), u(A, 1), u(D, C, D), u(D, C), u(D, 4 * D, E), u(D, 4 * D, C),
+            u(D, 4 * D, D), u(D, 4 * D)), bf)
+        args = (w, f(R, E).to(bf), f(R, D), f(R, D), f(R, P, C).to(bf), f(R, P, A).to(bf))
+        got, want = fused_lstm_step(*args), _lstm_step_plain_bf16(*args)
+        ref = _lstm_step_plain_bf16(*args, sums=torch.float64)
+        hc = [bf16_rel(a, b) for a, b in zip(got[:2], want[:2])]
+        floor = [bf16_rel(a, b) for a, b in zip(ref[:2], want[:2])]
+        alpha = (got[2] - want[2]).abs().max().item()
+        tol = max(BF16_F32_TOL, BF16_NOISE * max(floor))
+        if not (all(torch.isfinite(a).all() for a in got) and max(hc) <= tol and alpha < LSTM_TOL):
+            raise AssertionError(f"lstm_step bf16 kernel disagrees at R={R}, E={E}: h, c {hc} (tol {tol}), alpha "
+                                 f"{alpha} (tol {LSTM_TOL})")
+        if not all(torch.equal(a, b) for a, b in zip(got, fused_lstm_step(*args))):
+            raise AssertionError(f"lstm_step bf16 kernel: a second call differs at R={R}, E={E}")
+        t_kernel = _graph_ms(lambda: fused_lstm_step(*args), iters=50)
+        t_plain = _graph_ms(lambda: _lstm_step_plain_bf16(*args), iters=50)
+        bound_ms, bound_by = lstm_bf16_bound(R, E, D, A, C, P)
+        print(f"lstm_step bf16 R={R} E={E}: h {hc[0]:.3e}, c {hc[1]:.3e} of max(1, max |plain|) (tol {tol:.3e}; "
+              f"noise floor {max(floor):.3e}), alpha {alpha:.3e} (tol {LSTM_TOL:g}), second call bit for bit; "
+              f"kernel {t_kernel:.4f} ms device, plain {t_plain:.4f}; bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        worst = max(worst, *((a - b).abs().max().item() for a, b in zip(got, want)))
+        if out is None:
+            out = (t_kernel, t_plain, None, bound_ms, bound_by)
+    return (worst, *out)
+
+
+def check_bf16_decode_modes(dev, card, model, word_map):
+    """Phase 13a: the one-cell bf16 instance at the eval step's 32 rows on
+    ``model``'s layers (cast to bf16), cache length 52, at three positions
+    with NaN at and past pos: equal to the per-layer bf16 launches bit for
+    bit, against the plain bf16 step reported; and the rollout's bf16
+    instance at 32 rows over 51 tokens on ``model``'s bf16 operands (as
+    ``mega_rollout`` casts them) against ``_full_rollout_plain_bf16`` under
+    phase 11's rules (tolerances from the plain version with f64 sums).
+    CUDA-event times and bounds.  Returns {kernel: (error, ms, plain ms,
+    library ms, bound ms, bound by)}."""
+    import torch
+
+    from tpu_captioner_torch.core.config import TrainConfig
+    from tpu_captioner_torch.ops.decode_step import (
+        _decode_step_plain_bf16, _full_rollout_plain_bf16, cast_weight_matrices, fused_decode_step,
+        fused_full_rollout, prepare_decode_weights,
+    )
+
+    bf = torch.bfloat16
+    dec = model.decoder
+    L, E, P, H = model.cfg.num_layers, model.cfg.embed_dim, 49, model.cfg.num_heads
+    Fd, R = model.cfg.decoder_dim, TRAIN_BS
+    w = cast_weight_matrices(prepare_decode_weights(dec.layers, E), bf)
+    g = torch.Generator().manual_seed(13)
+    f = lambda *sh: torch.randn(*sh, generator=g).to(dev, bf)  # noqa: E731
+    out = {}
+    worst, times, plain_times, n_bytes, n_ops = 0.0, [], [], 0, 0
+    for pos in (0, 25, DECODE_T - 1):
+        ck, cv = f(L, R, DECODE_T, E), f(L, R, DECODE_T, E)
+        ck[:, :, pos:] = float("nan")
+        cv[:, :, pos:] = float("nan")
+        args = (w, f(R, E), pos, ck, cv, f(L, R, P, E), f(L, R, P, E), H)
+        got, per_layer = fused_decode_step(*args, one_cell=True), fused_decode_step(*args)
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, per_layer)):
+            raise AssertionError(f"decode_onecell bf16 differs from the per-layer bf16 launches at pos {pos}")
+        want, ref = _decode_step_plain_bf16(*args), _decode_step_plain_bf16(*args, sums=torch.float64)
+        errs = (bf16_rel(got[0], want[0]), bf16_rel(got[1], want[1]))
+        floor = (bf16_rel(ref[0], want[0]), bf16_rel(ref[1], want[1]))
+        worst = max(worst, *((a - b).float().abs().max().item() for a, b in zip(got, want)))
+        times.append(_time_ms(lambda: fused_decode_step(*args, one_cell=True)))
+        plain_times.append(_time_ms(lambda: _decode_step_plain_bf16(*args), iters=5, warmup=1))
+        print(f"decode_onecell bf16 R={R} pos={pos}: equal to the {L} per-layer bf16 launches bit for bit; vs plain "
+              f"x {errs[0]:.3e}, alpha {errs[1]:.3e} (noise floor {floor[0]:.3e}, {floor[1]:.3e}); kernel "
+              f"{times[-1]:.4f} ms, plain {plain_times[-1]:.4f} ms per {L}-layer step [{card}]")
+        n_bytes += (L * (2 * (6 * E * E + 2 * E * Fd) + 4 * (9 * E + Fd) + 2 * R * (2 * pos + 2 * P + 2) * E)
+                    + R * (6 * E + 4 * P))
+        n_ops += L * R * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
+    bound_ms, bound_by = bound(n_bytes / 3, n_ops / 3, BF16_OPS_PER_S)
+    out["decode_onecell_bf16"] = (worst, sum(times) / len(times), sum(plain_times) / len(plain_times), None,
+                                  bound_ms, bound_by)
+
+    # The rollout on a batch's bf16 operands, natural <end>.
+    steps = TrainConfig().max_decode_len
+    imgs = torch.randint(0, 256, (R, 256, 256, 3), generator=torch.Generator().manual_seed(14),
+                         dtype=torch.uint8).to(dev)
+    with torch.inference_mode():
+        mem = dec.project_memory(model.encode(imgs))
+        wr, mk, mv, _, _ = dec.kernel_operands(mem, 0, bf)
+        wr = wr._replace(**{k: v.to(bf).float() for k, v in wr._asdict().items() if v.dtype == torch.float32})
+        args = (wr, dec.embedding.weight.to(bf), dec.fc_out.weight.to(bf), dec.fc_out.bias, dec.pe, mk, mv,
+                word_map["<start>"], word_map["<end>"], steps, H)
+        got, want = fused_full_rollout(*args), _full_rollout_plain_bf16(*args)
+        ref = _full_rollout_plain_bf16(*args, sums=torch.float64)
+        inf = float("inf")
+        noise_logit, noise_alpha, _ = compare_rollouts("decode_rollout bf16 noise floor", ref, want, inf, inf, inf)
+        logit_tol = max(BF16_F32_TOL * max(1.0, want[0].abs().max().item()), BF16_NOISE * noise_logit)
+        alpha_tol = max(BF16_F32_TOL, BF16_NOISE * noise_alpha)
+        logit_err, alpha_err, ties = compare_rollouts("decode_rollout bf16", got, want, logit_tol, alpha_tol,
+                                                      logit_tol)
+        ends = want[1] == word_map["<end>"]
+        lengths = torch.where(ends.any(dim=1), ends.int().argmax(dim=1) + 1, steps).tolist()
+        t_kernel = _time_ms(lambda: fused_full_rollout(*args), iters=5, warmup=1)
+        t_plain = _time_ms(lambda: _full_rollout_plain_bf16(*args), iters=2, warmup=1)
+    bound_ms, bound_by = bound(*rollout_bound(lengths, L, P, E, Fd, VOCAB, steps, esize=2), BF16_OPS_PER_S)
+    print(f"decode_rollout bf16 R={R} steps={steps} ({max(lengths)} run): logits {logit_err:.3e} (tol "
+          f"{logit_tol:.3e}; noise floor {noise_logit:.3e}), maps {alpha_err:.3e} (tol {alpha_tol:.3e}; floor "
+          f"{noise_alpha:.3e}), {len(ties)} rows differ at a near-tie; kernel {t_kernel:.4f} ms, plain "
+          f"{t_plain:.4f} ms per rollout, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    out["decode_rollout_bf16"] = (max(logit_err, alpha_err), t_kernel, t_plain, None, bound_ms, bound_by)
+    return out
+
+
+def bf16_lstm_serve(dev, card, seed, word_map, images8, rng):
+    """Phase 13b: a bf16 ``lstm`` flagship (phase 8's weights) with the
+    decode kernel on, beam 5 x 50 at batch 8 and 32 through
+    ``caption_batch``: the bf16 instances' launches (36 + 36 per encoder
+    pass, one lstm_step per beam step), the captions held to the all-plain
+    bf16 path by ``bf16_agree`` (the lock-step replay at the noise floor);
+    ``lstm_no_attention`` in bf16 against its all-plain path the same way;
+    captions/s beside the f32 models'.  Returns the lstm_step bf16
+    launches of the bs-8 run."""
+    import torch
+
+    from tpu_captioner_torch.cli.caption import caption_batch
+    from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
+    from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp
+
+    images = {8: images8.numpy(), TRAIN_BS: torch.randint(0, 256, (TRAIN_BS, 256, 256, 3), generator=rng,
+                                                          dtype=torch.uint8).numpy()}
+    launches = None
+    for kind, s in (("lstm", seed + 11), ("lstm_no_attention", seed + 14)):
+        cfg = ModelConfig(decoder=kind, vocab_size=VOCAB, decode_kernel="on", compute_dtype="bfloat16")
+        model = flagship_model(cfg, dev, s)
+        f32 = flagship_model(dataclasses.replace(cfg, compute_dtype="float32"), dev, s)
+        for bs, imgs in images.items():
+            steps = [0]  # one embedding lookup per beam step
+            hook = model.decoder.embedding.register_forward_hook(lambda *a: steps.__setitem__(0, steps[0] + 1))
+            zero_kernel_counts()
+            got = caption_batch(model, imgs, word_map, BEAM)
+            torch.cuda.synchronize()
+            hook.remove()
+            seen = (fused_convnext_mlp.bf16_launches, depthwise_conv7x7_nhwc.bf16_launches,
+                    fused_lstm_step.bf16_launches, fused_lstm_step.launches)
+            expect = (36, 36) + ((steps[0], steps[0]) if kind == "lstm" else (0, 0))
+            print(f"bf16 {kind} serving bs={bs}: bf16 launches (mlp_block, dwconv, lstm_step), lstm_step launches "
+                  f"{seen} over {steps[0]} beam steps")
+            if seen != expect or steps[0] < 1:
+                raise AssertionError(f"bf16 {kind} serving bs={bs}: expected launches {expect}, got {seen}")
+            if launches is None:
+                launches = seen[2]
+            for _, score, seq, alpha in got:
+                if not (seq[0] == word_map["<start>"] and alpha.shape == (len(seq), cfg.num_pixels)
+                        and np_isfinite(alpha) and math.isfinite(score)):
+                    raise AssertionError(f"malformed bf16 {kind} caption output")
+            with plain_versions():
+                want = caption_batch(model, imgs, word_map, BEAM)
+            bf16_agree(model, dev, bs, imgs, word_map, got, want)
+            ref = caption_batch(f32, imgs, word_map, BEAM)
+            same = sum(len(a[2]) == len(r[2]) and bool((a[2] == r[2]).all()) for a, r in zip(got, ref))
+            print(f"bf16 {kind} serving bs={bs}: {same} of {bs} captions equal to the f32 model's; caption 0: "
+                  f"{got[0][0][:60]!r} (f32: {ref[0][0][:60]!r})")
+        serve_times(card, f"{kind} serve bf16 phase", {"bf16": model, "f32": f32}, rng, dev, word_map)
+        del model, f32
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_eval_agree(label, runs, kernel, plain, floor):
+    """Phase 11c's rule for the eval step's rollout in mode ``kernel``
+    against its all-plain bf16 path ``plain`` (``runs[mode] = (step, aux,
+    roll)``), the tolerances from ``floor`` (the all-plain path with f64
+    sums): logits within the larger of BF16_F32_TOL x max(1, max |plain|)
+    and BF16_NOISE x the floor, maps likewise, sequences equal except at a
+    near-tie; without one, the loss within the larger of BF16_F32_TOL and
+    BF16_NOISE x the floor relative, and equal sequences and counts."""
+    import torch
+
+    inf = float("inf")
+    noise_logit, noise_alpha, _ = compare_rollouts(f"{label} noise floor", runs[floor][2], runs[plain][2],
+                                                   inf, inf, inf)
+    logit_tol = max(BF16_F32_TOL * max(1.0, runs[plain][2][0].abs().max().item()), BF16_NOISE * noise_logit)
+    alpha_tol = max(BF16_F32_TOL, BF16_NOISE * noise_alpha)
+    logit_err, alpha_err, ties = compare_rollouts(f"{label} {kernel}", runs[kernel][2], runs[plain][2],
+                                                  logit_tol, alpha_tol, logit_tol)
+    loss, want = float(runs[kernel][1]["loss"]), float(runs[plain][1]["loss"])
+    loss_floor = abs(float(runs[floor][1]["loss"]) - want) / abs(want)
+    loss_err = abs(loss - want) / abs(want)
+    print(f"{label} {kernel} vs all-plain: logits {logit_err:.3e} (tol {logit_tol:.3e}; noise floor "
+          f"{noise_logit:.3e}), maps {alpha_err:.3e} (tol {alpha_tol:.3e}; floor {noise_alpha:.3e}), loss "
+          f"{loss_err:.3e} relative (floor {loss_floor:.3e}), {len(ties)} rows differ at a near-tie")
+    if not ties and not (loss_err <= max(BF16_F32_TOL, BF16_NOISE * loss_floor) and all(
+            torch.equal(runs[kernel][1][k], runs[plain][1][k]) for k in ("sequences", "tokens"))):
+        raise AssertionError(f"{label} {kernel} disagrees with the all-plain path: loss {loss} vs {want}")
+
+
+def bf16_eval_modes(dev, card, seed, word_map):
+    """Phase 13c: the greedy eval step at batch 32, 51 tokens, of a bf16
+    Transformer (phase 4's weights) in ``'mega'`` and one-cell and of a bf16
+    ``lstm`` (phase 8's) in ``'on'``, each against its all-plain bf16 decode
+    (``bf16_eval_agree``; ``plain_versions(encoder=False)``: the same bf16
+    features, from the encoder's kernels, in every arm, so that the decode
+    alone is compared and the noise floor is the decode's) and reported
+    against ``'off'``; launches counted; eval-step ms per mode beside the
+    f32 model's.  Returns the bf16 launches of the kernel modes' runs."""
+    import torch
+
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(seed + 9), word_map, VOCAB).items()}
+    start, end, steps = word_map["<start>"], word_map["<end>"], tc.max_decode_len
+    launches = {}
+    for family, s, modes in (("transformer", seed, (("mega", "mega", False), ("one_cell", "step", True))),
+                             ("lstm", seed + 11, (("on", "on", False),))):
+        cfg = ModelConfig(decoder=family, vocab_size=VOCAB, compute_dtype="bfloat16")
+        model = flagship_model(cfg, dev, s)
+        f32 = flagship_model(dataclasses.replace(cfg, compute_dtype="float32"), dev, s)
+        if family == "transformer":
+            model.decoder.capture_alphas = f32.decoder.capture_alphas = True
+        for label, mode, one_cell in modes:
+            runs = {}
+            for arm, m, mode_, sums in ((label, model, mode, None), ("all-plain", model, mode, torch.float32),
+                                        ("all-plain f64", model, mode, torch.float64), ("off", model, "off", None),
+                                        ("f32 " + label, f32, mode, None), ("f32 off", f32, "off", None)):
+                m.cfg = dataclasses.replace(m.cfg, decode_kernel=mode_)
+                step = make_eval_step(m, tc, word_map, one_cell=one_cell)
+                with plain_versions(sums, encoder=False) if sums is not None else contextlib.nullcontext():
+                    zero_kernel_counts()
+                    aux = step(batch)
+                    torch.cuda.synchronize()
+                    counts = kernel_counts()
+                    with torch.inference_mode():
+                        roll = m.rollout(m.encode(batch["images"]), start, end, steps, one_cell=one_cell)
+                need = int(aux["lengths"].max())
+                seen = tuple(counts[k] for k in ("lstm_step_bf16", "decode_onecell_bf16", "decode_rollout_bf16",
+                                                 "mlp_block_bf16"))
+                if m is model and arm == label:
+                    expect = {"mega": (0, 0, 1, 36), "one_cell": (0, need, 0, 36), "on": (need, 0, 0, 36)}[label]
+                    launches[label] = seen
+                else:
+                    expect = (0, 0, 0, 36 if m is model else 0)
+                print(f"bf16 eval {family} {arm}: bf16 launches (lstm_step, decode_onecell, decode_rollout, "
+                      f"mlp_block) {seen}, {need} tokens; loss {float(aux['loss']):.6f}, tokens {int(aux['tokens'])}, "
+                      f"top5 {int(aux['top5_correct'])}")
+                if seen != expect or not (torch.isfinite(roll[0]).all() and math.isfinite(float(aux["loss"]))):
+                    raise AssertionError(f"bf16 eval {family} {arm}: expected bf16 launches {expect}, got {seen}, "
+                                         f"or a non-finite output")
+                runs[arm] = (step, aux, roll)
+            bf16_eval_agree(f"bf16 eval {family}", runs, label, "all-plain", "all-plain f64")
+            gs, ws = runs[label][2][1], runs["off"][2][1]
+            print(f"bf16 eval {family} {label} vs 'off' (the f32 plain decode on the bf16 features, reported): "
+                  f"sequences equal in {(gs == ws).all(dim=1).float().mean().item():.4f} of rows, loss "
+                  f"{float(runs[label][1]['loss']):.6f} vs {float(runs['off'][1]['loss']):.6f}")
+            for arm, m, mode_ in ((label, model, mode), ("off", model, "off"), ("f32 " + label, f32, mode),
+                                  ("f32 off", f32, "off")):
+                m.cfg = dataclasses.replace(m.cfg, decode_kernel=mode_)
+                eval_ms, _ = _host_ms(lambda: runs[arm][0](batch))
+                print(f"bf16 eval {family} bs={TRAIN_BS} {arm}: eval step {eval_ms:.2f} ms [{card}]")
+        del model, f32
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_lstm_train(dev, card, seed, word_map):
+    """Phase 13d: the full-width bf16 ``lstm`` frozen and fine-tune
+    teacher-forced steps and its free-running frozen step at batch 32
+    against the all-plain bf16 steps, their f64-sum noise floor and the f32
+    steps on the same weights (``bf16_train_agree``: phase 12b's rules);
+    launches per step; then ``cli.train --computeDtype bfloat16 --decoder
+    lstm`` for one epoch on phase 10's synthetic data, ``cli.caption``'s
+    loader and ``cli.test`` on its checkpoint, every count zeroed before and
+    read after.  Returns those counts."""
+    import shutil
+
+    import torch
+
+    from tpu_captioner_torch.cli import test as cli_test, train as cli_train
+    from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.data.build import build_synthetic_dataset
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    cfg = ModelConfig(decoder="lstm", vocab_size=VOCAB, compute_dtype="bfloat16")
+    model = flagship_model(cfg, dev, seed + 32)
+    start = copy.deepcopy(model.state_dict())
+    f32 = CaptionModel(dataclasses.replace(cfg, compute_dtype="float32"), device=dev)
+    gen = torch.Generator().manual_seed(seed + 32)
+    batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
+    root = prng.root_seed(seed + 33)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+    # A free-running step's greedy feedback makes its gradients
+    # discontinuous in the features: where the kernels' and the all-plain
+    # encoders' features (an ulp apart) part a token, the rows' losses and
+    # the embedding and head gradients on them part too, and most of the
+    # 4.9 M embedding and 4.9 M head elements stay under the noise (run D,
+    # PR 18: 13.6% of the elements above it, against 34.7% in the frozen
+    # teacher-forced step).  Its parameters are held where they are above
+    # the noise, on more than an eighth of the elements.
+    for label, tf, train_encoder, expect, share in (("frozen", True, False, (1, 36, 0, 36, 0), 0.25),
+                                                    ("fine-tune", True, True, (1, 36, 30, 65, 30), 0.25),
+                                                    ("free-running frozen", False, False, (0, 36, 0, 36, 0), 0.125)):
+        run = lambda m, **kw: bf16_two_steps(m, start, tc, word_map, batch, seeds, train_encoder,  # noqa: E731
+                                             teacher_forcing=tf, **kw)
+        got, grads, params, after, seen = run(model)
+        if any(c != expect for c in seen):
+            raise AssertionError(f"bf16 lstm {label} step: expected {BF16_STEP_KERNELS} launches {expect}, got {seen}")
+        want, want_grads, want_params, _, plain_seen = run(model, plain=True)
+        _, floor_grads, _, _, _ = run(model, plain=True, sums=torch.float64)
+        _, f32_grads, _, _, _ = run(f32)
+        changed = bf16_train_agree(f"bf16 lstm {label}", got, want, grads, want_grads, floor_grads, f32_grads,
+                                   params, want_params, start, after, tc.encoder_lr, share)
+        print(f"bf16 lstm {label} step: launches per step {dict(zip(BF16_STEP_KERNELS, seen[0]))}; encoder tensors "
+              f"changed per child {dict(sorted(changed.items()))}")
+        if any((i >= FT_START and train_encoder) != (c > 0) for i, c in changed.items()):
+            raise AssertionError(f"bf16 lstm {label}: children below {FT_START} must stay bit-identical")
+        del grads, want_grads, floor_grads, f32_grads, params, want_params, after
+        torch.cuda.empty_cache()
+    del model, f32
+    torch.cuda.empty_cache()
+    print(f"phase 13d steps took {time.perf_counter() - t0:.1f} s")
+
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="smoke_bf16_lstm_")
+    try:
+        ds = os.path.join(tmp, "ds")
+        wm = build_synthetic_dataset(ds, num_images=dict(TRAIN_DATA), vocab_words=VOCAB - 4, max_len=TRAIN_T - 2,
+                                     image_size=256, learnable=True)
+        os.chdir(tmp)
+        zero_kernel_counts()
+        free = cli_train.main(["--dataFolder", ds, "--dataName", TRAIN_DATA_NAME, "--batchSize", str(TRAIN_BS),
+                               "--epochs", "1", "--device", dev.type, "--computeDtype", "bfloat16",
+                               "--decoder", "lstm"])
+        torch.cuda.synchronize()
+        totals = kernel_counts()
+        rows = free.results
+        ckpt = os.path.join(tmp, "checkpoints", free.checkpoint_name())
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            meta = json.load(f)["config"]["model"]
+        if not (free.model.dtype == torch.bfloat16 and meta["compute_dtype"] == "bfloat16"
+                and meta["decoder"] == "lstm" and len(rows) == 1
+                and all(math.isfinite(r["trainLoss"]) and math.isfinite(r["valLoss"]) for r in rows)):
+            raise AssertionError(f"phase 13d: cli.train rows {rows}, meta {meta}")
+        del free
+        torch.cuda.empty_cache()
+        best = os.path.join(tmp, "checkpoints", f"BEST_{os.path.basename(ckpt)}")
+        served = build_model_and_params(argparse.Namespace(checkpoint=best, device=str(dev), seed=seed), wm)
+        images = torch.randint(0, 256, (8, 256, 256, 3), generator=torch.Generator().manual_seed(seed + 41),
+                               dtype=torch.uint8).numpy()
+        caps = caption_batch(served, images, wm, BEAM)
+        if not (served.dtype == torch.bfloat16 and served.cfg.decoder == "lstm" and len(caps) == 8 and all(
+                seq[0] == wm["<start>"] and math.isfinite(score) and np_isfinite(alpha)
+                for _, score, seq, alpha in caps)):
+            raise AssertionError("phase 13d: cli.caption's loader did not serve the bf16 lstm checkpoint")
+        del served
+        row = cli_test.main(["--dataFolder", ds, "--dataName", TRAIN_DATA_NAME, "--batchSize", str(TRAIN_BS),
+                             "--checkpoint", best, "--device", dev.type, "--computeDtype", "bfloat16",
+                             "--decoder", "lstm"])
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"phase 13d: cli.test row {row}")
+        print(f"phase 13d: cli.train --computeDtype bfloat16 --decoder lstm rows {rows}; cli.caption on the BEST_ "
+              f"checkpoint: {caps[0][0][:60]!r}; cli.test: {row}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(totals[k] != totals[k.replace("_bf16", "")] for k in ("mlp_block_bf16", "dwconv_bf16")) or \
+            totals["mlp_block_bf16"] == 0:
+        raise AssertionError(f"phase 13d: the bf16 encoder never launched, or an f32 instance ran: {totals}")
+    print(f"phase 13d launches (cli.train one free-running epoch with validation): {totals}; phase 13d took "
+          f"{time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -3969,6 +4455,21 @@ def main(argv=None):
     bf16_training = bf16_entry_phase(dev, card, args.seed)
     print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    # 13. bf16 in the decoders: the three new bf16 instances, the bf16 LSTM
+    # families' serving, the bf16 eval modes, the bf16 LSTM training.
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    dec_bf16 = {"lstm_step_bf16": check_bf16_lstm(dev, card),
+                **check_bf16_decode_modes(dev, card, flagship_model(cfg, dev, args.seed), word_map)}
+    torch.cuda.empty_cache()
+    dec_bf16_launches = {"lstm_step_bf16": bf16_lstm_serve(dev, card, args.seed, word_map, images8, rng)}
+    modes = bf16_eval_modes(dev, card, args.seed, word_map)
+    dec_bf16_launches["decode_onecell_bf16"] = modes["one_cell"][1]
+    dec_bf16_launches["decode_rollout_bf16"] = modes["mega"][2]
+    torch.cuda.empty_cache()
+    dec_bf16_training = bf16_lstm_train(dev, card, args.seed, word_map)
+    print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
@@ -4042,9 +4543,29 @@ def main(argv=None):
           for name, source, replaces, launches in (
               ("mlp_block_bwd_bf16", "mlp_block_bwd.cu", "tpu_captioner/ops/mlp_block.py:275", ft_bf16[2]),
               ("dwconv_grad_bf16", "dwconv.cu", "tpu_captioner/ops/dwconv.py:97", ft_bf16[4]))),
+        # The bf16 decoder instances (phase 13): launches of the bf16 lstm
+        # beam over 8 images (13b) and of one bf16 eval step in the one-cell
+        # and 'mega' modes (13c); times at R = 40 (lstm_step), per 6-layer
+        # step at R = 32 (one-cell) and per rollout at R = 32 (13a).
+        *({"name": name, "route": "cuda", "source": f"tpu_captioner_torch/csrc/{source}", "replaces": replaces,
+           "launches": dec_bf16_launches[name], "max_abs_err": dec_bf16[name][0], "ms": dec_bf16[name][1],
+           "plain_ms": dec_bf16[name][2], "bound_ms": dec_bf16[name][4], "bound_by": dec_bf16[name][5],
+           "library_ms": dec_bf16[name][3]}
+          for name, source, replaces in (
+              ("lstm_step_bf16", "lstm_step.cu", "tpu_captioner/ops/lstm_step.py:81"),
+              ("decode_onecell_bf16", "decode_step.cu", "tpu_captioner/ops/decode_step.py:271"),
+              ("decode_rollout_bf16", "decode_step.cu", "tpu_captioner/ops/decode_step.py:570"))),
     ]
-    for k in kernels:  # the bf16 instances' training path is phase 12c's, the rest phase 10's
-        k["launches_training"] = (bf16_training if k["name"].endswith("_bf16") else training)[k["name"]]
+    # The training path of the bf16 instances of phases 11-12 is phase 12c's
+    # (the bf16 Transformer), of the bf16 decoder instances phase 13d's
+    # (cli.train of a bf16 lstm), where they launch none: the LSTM trains
+    # its decoder on the plain path, its validation's decode_kernel 'auto'
+    # is 'off' (train/model.py:decode_kernel_mode), and no Transformer
+    # decodes there; the rest phase 10's.
+    for k in kernels:
+        paths = dec_bf16_training if k["name"] in dec_bf16 else bf16_training if k["name"].endswith("_bf16") \
+            else training
+        k["launches_training"] = paths[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -183,8 +183,8 @@ def test_decode_bf16_arm_matches_jax_precise_false(decode_setup, pos):
 
 def test_decode_wrapper_takes_only_its_instances(decode_setup):
     """f32 storage with precise=True and bf16 storage with precise=False
-    have instances; the other pairings raise ValueError, and the bf16 arm's
-    one-cell form NotImplementedError naming its ROADMAP item."""
+    have instances; the other pairings raise ValueError.  The bf16 arm's
+    one-cell form runs and equals the per-layer form bit for bit."""
     _, _, model = decode_setup
     E, H = SMALL["embed_dim"], SMALL["num_heads"]
     dec = model.decoder
@@ -202,8 +202,8 @@ def test_decode_wrapper_takes_only_its_instances(decode_setup):
         fused_decode_step(*args, precise=False)
         with pytest.raises(ValueError, match="no instance"):
             fused_decode_step(*args, precise=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5e"):
-            fused_decode_step(*args, one_cell=True)
+        for a, b in zip(fused_decode_step(*args, one_cell=True), fused_decode_step(*args)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
         w16 = cast_weight_matrices(w32, torch.float16)
         with pytest.raises(ValueError, match="no instance"):
             fused_decode_step(w16, x.half(), 0, ck.half(), ck.half(), mk.half(), mv.half(), H)
@@ -219,8 +219,9 @@ def jax_tree(tree):
 def test_bf16_decode_plan_sizes_the_ring_by_element(E, H):
     """The bf16 arm's per-layer plan: ring units of bf16 weight rows (2 bytes
     an element, so the ring holds more weights than the f32 plan's), every
-    column owned once, the shared memory within a block's; the one-cell
-    and rollout kernels have no bf16 instance."""
+    column owned once, the shared memory within a block's; the one-cell and
+    rollout kernels' bf16 plans likewise (at the greedy eval's 32 rows and
+    the beams' 40 and 160; the rollout's head of vocab 9490 too)."""
     from tpu_captioner_torch.ops.decode_step import SMEM_LIMIT, decode_plan
     from tests.test_torch_decode_plan import check_plan
 
@@ -231,8 +232,14 @@ def test_bf16_decode_plan_sizes_the_ring_by_element(E, H):
         # At 2 bytes an element the ring holds more of a layer's weights.
         assert plan.slots * plan.slot_floats >= f32.slots * f32.slot_floats and plan.smem_bytes <= SMEM_LIMIT
     for kind in ("onecell", "rollout"):
-        with pytest.raises(ValueError, match="per-layer"):
-            decode_plan(kind, 32, 52, 49, 512, 8, 512, 132, 9490 if kind == "rollout" else 0, esize=2)
+        V = 9490 if kind == "rollout" else 0
+        for R in (32, 40, 160):
+            plan = decode_plan(kind, R, 52, 49, E, H, 512, 132, V, esize=2)
+            check_plan(plan, kind, R, E, 512, 132)
+            f32 = decode_plan(kind, R, 52, 49, E, H, 512, 132, V)
+            assert plan.slots * plan.slot_floats >= f32.slots * f32.slot_floats and plan.smem_bytes <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="4 or 2 bytes"):
+        decode_plan("layer", 32, 52, 49, E, H, 512, 132, esize=1)
 
 
 @pytest.mark.parametrize("shape", [(8, 64, 64, 128), (32, 16, 16, 512), (32, 8, 8, 1024), (2, 9, 7, 24)])

@@ -1,7 +1,8 @@
 """bf16 training through the entry point, on the CPU at tiny widths:
 ``cli.train --computeDtype bfloat16 --teacherForcing --device cpu`` over two
 epochs with the encoder unlocked at the second (``fine_tune_epoch`` 1, the
-reference's schedule moved up), on a learnable synthetic dataset.
+reference's schedule moved up), on a learnable synthetic dataset, for the
+Transformer and both LSTM families (``--decoder``).
 
 - Every step is a bf16 step: the features are bf16, the frozen epoch's
   steps leave the encoder unchanged, the fine-tune epoch's train children 5
@@ -24,6 +25,7 @@ import os
 import shutil
 
 import numpy as np
+import pytest
 import torch
 
 from tests.test_torch_caption_checkpoint import write_images
@@ -37,10 +39,14 @@ from tpu_captioner_torch.train import loop
 
 FLAGS = TINY + ["--device", "cpu", "--computeDtype", "bfloat16"]
 CKPT = f"checkpoint_Transformer_Finetuning5_0.0001_None_{NAME}"
+CKPT_LSTM = f"checkpoint_LSTM_Finetuning5_0.0001_{NAME}"
 
 
-def test_bf16_cli_train_unlock_caption_test_and_resume(workdir, monkeypatch, capsys):  # noqa: F811
+@pytest.mark.parametrize("decoder", ["transformer", "lstm", "lstm_no_attention"])
+def test_bf16_cli_train_unlock_caption_test_and_resume(workdir, monkeypatch, capsys, decoder):  # noqa: F811
     monkeypatch.setattr(common, "TrainConfig", functools.partial(TrainConfig, fine_tune_epoch=1))
+    flags = FLAGS + ["--decoder", decoder]
+    ckpt = CKPT if decoder == "transformer" else CKPT_LSTM
     saved, steps = {}, []
     real_save, real_make = loop.save_checkpoint, loop.make_train_step
 
@@ -68,9 +74,9 @@ def test_bf16_cli_train_unlock_caption_test_and_resume(workdir, monkeypatch, cap
 
     monkeypatch.setattr(loop, "save_checkpoint", save)
     monkeypatch.setattr(loop, "make_train_step", make_train_step)
-    trainer = cli_train.main(FLAGS + ["--epochs", "2", "--teacherForcing"])
+    trainer = cli_train.main(flags + ["--epochs", "2", "--teacherForcing"])
     model = trainer.model
-    assert model.dtype == torch.bfloat16 and trainer.fine_tune_encoder
+    assert model.dtype == torch.bfloat16 and trainer.fine_tune_encoder and model.cfg.decoder == decoder
     assert all(p.dtype == torch.float32 for p in model.parameters())
     per_epoch = len(trainer.train_loader)
     assert [s[0] for s in steps] == [False] * per_epoch + [True] * per_epoch
@@ -83,12 +89,12 @@ def test_bf16_cli_train_unlock_caption_test_and_resume(workdir, monkeypatch, cap
     assert len(rows) == 2 and all(np.isfinite(r["trainLoss"]) and np.isfinite(r["valLoss"]) for r in rows)
     with torch.inference_mode():
         assert model.encode(torch.zeros(1, 32, 32, 3, dtype=torch.uint8)).dtype == torch.bfloat16
-    for d in (CKPT, f"BEST_{CKPT}"):
+    for d in (ckpt, f"BEST_{ckpt}"):
         with open(workdir / "checkpoints" / d / "meta.json") as f:
             assert json.load(f)["config"]["model"]["compute_dtype"] == "bfloat16", d
 
     # cli.caption on the BEST_ directory: the trainer's model's beam.
-    best = workdir / "checkpoints" / f"BEST_{CKPT}"
+    best = workdir / "checkpoints" / f"BEST_{ckpt}"
     folder = write_images(workdir)
     word_map_path = workdir / "ds" / f"WORDMAP_{NAME}.json"
     capsys.readouterr()
@@ -110,12 +116,12 @@ def test_bf16_cli_train_unlock_caption_test_and_resume(workdir, monkeypatch, cap
         words = [rev[int(i)] for i in res.sequence[j, : int(res.length[j])]]
         want = " ".join(w for w in words if w not in ("<start>", "<end>"))
         assert line == f"{path}: {want}  (score {float(res.score[j]):.3f})"
-    row = cli_test.main(FLAGS + ["--checkpoint", str(best)])
+    row = cli_test.main(flags + ["--checkpoint", str(best)])
     assert np.isfinite(row["testLoss"]) and row["testLoss"] > 0
 
     # Resume from the epoch-0 checkpoint: both Adams bit for bit, then the same epoch 1.
     steps.clear()
-    resumed = cli_train.main(FLAGS + ["--epochs", "2", "--teacherForcing", "--checkpoint", str(workdir / "epoch0")])
+    resumed = cli_train.main(flags + ["--epochs", "2", "--teacherForcing", "--checkpoint", str(workdir / "epoch0")])
     assert [s[0] for s in steps] == [True] * per_epoch
     strip = lambda r: {k: v for k, v in r.items() if k not in TIMES}  # noqa: E731
     assert strip(resumed.results[1]) == strip(rows[1]) and strip(resumed.results[0]) == strip(rows[0])

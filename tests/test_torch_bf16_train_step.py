@@ -66,6 +66,12 @@ STEPS = 10  # free-running rollout length
 NO_EXCESS = {"xla_allow_excess_precision": False}
 RATIO = 2.0
 REDUCED_SLACK = 1.5
+# The LSTM's score bias feeds a softmax over the pixels, which is shift
+# invariant: its gradient is zero in exact arithmetic, both frameworks'
+# values are rounding noise (1.3e-7 in JAX's bf16 fine-tune step), near
+# Adam's eps of 1e-8, where a first step is not lr * sign(g).  Its gradient
+# is held to the rule; its update is not compared.
+ZERO_GRAD = ("attention.full_att.bias",)
 
 
 def reduced_in_bf16(name: str, mode: str) -> bool:
@@ -86,11 +92,12 @@ def cast_at_use(name: str, mode: str) -> bool:
     return reduced_in_bf16(name, mode)
 
 
-def setup(monkeypatch, mode, seed=4, dropout=0.5):
+def setup(monkeypatch, mode, seed=4, dropout=0.5, **overrides):
     """JAX bf16 and f32 models and the port's bf16 model on one set of
     weights, both pools patched to the same numpy bits, both encoders
     deterministic.  The free-running step draws dropout per token from
-    each package's own generator, so it runs with ``dropout`` 0."""
+    each package's own generator, so it runs with ``dropout`` 0.
+    ``overrides`` change ``SMALL`` in all three (the decoder family)."""
     from jax.experimental.pallas import tpu as pltpu
 
     from tpu_captioner.core.config import ModelConfig as JaxModelConfig
@@ -98,10 +105,10 @@ def setup(monkeypatch, mode, seed=4, dropout=0.5):
 
     with pltpu.force_tpu_interpret_mode():
         jbf, params = jax_model_and_params(seed=seed, dropout_masks="pool", use_pallas=mode, encoder_remat="off",
-                                           dropout=dropout, **BF16)
+                                           dropout=dropout, **BF16, **overrides)
     jf32 = JaxCaptionModel(JaxModelConfig(**{**SMALL, "dropout_masks": "pool", "use_pallas": "off",
-                                             "dropout": dropout}))
-    model = port_model(params, use_pallas=mode, dropout=dropout, **BF16)
+                                             "dropout": dropout, **overrides}))
+    model = port_model(params, use_pallas=mode, dropout=dropout, **BF16, **overrides)
     cfg = model.cfg
     side = SMALL["encoded_image_size"]
     bits = np.random.default_rng(11).random(pool_demand(cfg, B, SMALL["max_len"], side * side)) < 1.0 - cfg.dropout
@@ -171,8 +178,8 @@ def port_step(model, batch, teacher_forcing, train_encoder):
     return state, m, tc
 
 
-def check_step(monkeypatch, mode, teacher_forcing, train_encoder):
-    jbf, jf32, params, model = setup(monkeypatch, mode, dropout=0.5 if teacher_forcing else 0.0)
+def check_step(monkeypatch, mode, teacher_forcing, train_encoder, **overrides):
+    jbf, jf32, params, model = setup(monkeypatch, mode, dropout=0.5 if teacher_forcing else 0.0, **overrides)
     batch = make_batch()
     cfg = model.cfg
     enc_before = {k: v.clone() for k, v in model.encoder.state_dict().items()}
@@ -219,7 +226,7 @@ def check_step(monkeypatch, mode, teacher_forcing, train_encoder):
             continue
         checked = total = 0
         for k, p in mod.named_parameters():
-            if p.grad is None:
+            if p.grad is None or k in ZERO_GRAD:
                 continue
             sure = want_b[part][k].abs() > 2 * noise[part, k]
             err = (p.detach() - want_p[part][k]).abs()[sure]

@@ -73,7 +73,17 @@ conv's bf16 filter and bias gradient within 1e-4 times the same, the same
 bits twice, also through its instance without TMA, and its bf16 input
 gradient (the forward instance with the filter flipped) within one ulp; a
 bf16 block's backward through the autograd functions launches each bf16
-instance and rounds each cast weight's gradient to bf16 once.
+instance and rounds each cast weight's gradient to bf16 once.  The bf16
+decoder instances: the LSTM step's (bf16 weight matrices, emb, enc and
+att1) with alpha within 1e-5 and h, c within the larger of 2e-3 times
+max(1, the largest magnitude) and twice the noise floor (the plain bf16 arm
+with f64 sums against itself: a one-ulp flip of a bf16-rounded activation
+moves a gate), at the beams' and the eval step's rows and at widths that
+take its loads without TMA, the same bits twice, and a dtype set that is
+neither instance's refused; the one-cell decode instance equal to the
+per-layer bf16 launches bit for bit; the rollout instance against its
+plain version, sequences equal except at a near-tie and logits and maps
+within the same bound up to a row's first difference.
 """
 
 import math
@@ -1015,3 +1025,151 @@ def test_bf16_autograd_runs_the_backward_instances(cuda):
         assert p.grad is not None and p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
         if name in ("block.0.weight", "block.0.bias", "block.3.weight", "block.5.weight"):
             assert torch.equal(p.grad, p.grad.to(torch.bfloat16).float()), name  # rounded to bf16 once
+
+
+# The bf16 decoder instances.
+def bf16_floor(got, want, ref, rel=2e-3):
+    """got within the larger of rel x max(1, max |want|) and twice the noise
+    floor |want - ref| (the plain version with f64 sums)."""
+    floor = (want.double() - ref.double()).abs().max().item()
+    tol = max(rel * max(1.0, want.abs().max().item()), 2 * floor)
+    return (got.double() - want.double()).abs().max().item() <= tol
+
+
+def lstm_bf16_args(*shape, device, seed=0):
+    from tpu_captioner_torch.ops.lstm_step import cast_lstm_weight_matrices
+
+    w, emb, h, c, enc, att1 = lstm_args(*shape, device=device, seed=seed)
+    bf = torch.bfloat16
+    return cast_lstm_weight_matrices(w, bf), emb.to(bf), h, c, enc.to(bf), att1.to(bf)
+
+
+@pytest.mark.parametrize("rows", [1, 32, 37, 40, 160])
+@pytest.mark.parametrize("widths", [(512, 512, 512, 1024, 49), (300, 512, 512, 1024, 49), (48, 56, 36, 40, 4),
+                                    (7, 5, 3, 9, 3), (300, 33, 65, 130, 50)])
+def test_lstm_step_bf16_kernel_matches_plain(cuda, rows, widths):
+    """(E, D, A, C, P): the model's widths with E = 512 and 300, and the
+    odd widths (D, E or C not a multiple of 8 load the weights without
+    TMA)."""
+    from tpu_captioner_torch.ops.lstm_step import _lstm_step_plain_bf16
+
+    args = lstm_bf16_args(rows, *widths, device=cuda, seed=rows + widths[0])
+    before = fused_lstm_step.launches, fused_lstm_step.bf16_launches
+    got = fused_lstm_step(*args)
+    torch.cuda.synchronize()
+    assert (fused_lstm_step.launches, fused_lstm_step.bf16_launches) == (before[0] + 1, before[1] + 1)
+    want, ref = _lstm_step_plain_bf16(*args), _lstm_step_plain_bf16(*args, sums=torch.float64)
+    assert all(t.dtype == torch.float32 and torch.isfinite(t).all() for t in got)
+    assert (got[2] - want[2]).abs().max().item() < 1e-5
+    assert bf16_floor(got[0], want[0], ref[0]) and bf16_floor(got[1], want[1], ref[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_lstm_step(*args)))
+
+
+def test_lstm_step_bf16_kernel_beyond_one_launch(cuda):
+    from tpu_captioner_torch.ops.lstm_step import _lstm_step_plain_bf16
+
+    args = lstm_bf16_args(333, 512, 512, 512, 1024, 49, device=cuda, seed=5)
+    before = fused_lstm_step.bf16_launches
+    got = fused_lstm_step(*args)
+    torch.cuda.synchronize()
+    assert fused_lstm_step.bf16_launches == before + 3
+    want, ref = _lstm_step_plain_bf16(*args), _lstm_step_plain_bf16(*args, sums=torch.float64)
+    assert bf16_floor(got[0], want[0], ref[0]) and (got[2] - want[2]).abs().max().item() < 1e-5
+
+
+def test_lstm_step_refuses_mixed_dtypes(cuda):
+    """bf16 weights with an f32 enc, and f16 weights, have no instance."""
+    from tpu_captioner_torch.ops.lstm_step import cast_lstm_weight_matrices
+
+    w, emb, h, c, enc, att1 = lstm_bf16_args(8, 64, 64, 64, 128, 49, device=cuda)
+    with pytest.raises(ValueError, match="enc must be torch.bfloat16"):
+        fused_lstm_step(w, emb, h, c, enc.float(), att1)
+    w32 = LstmStepWeights(*(t.float() for t in w))
+    with pytest.raises(ValueError, match="no instance"):
+        fused_lstm_step(cast_lstm_weight_matrices(w32, torch.float16), emb.half(), h, c, enc.half(), att1.half())
+
+
+def decode_bf16(args):
+    """``decode_args`` with the matrices, x, caches and memory K/V in bf16."""
+    from tpu_captioner_torch.ops.decode_step import cast_weight_matrices
+
+    w, x, pos, ck, cv, mk, mv, H = args
+    bf = torch.bfloat16
+    return (cast_weight_matrices(w, bf), x.to(bf), pos, ck.to(bf), cv.to(bf), mk.to(bf), mv.to(bf), H)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [dict(L=3, R=10, T=8, P=4, E=64, H=4, Fd=48), dict(L=6, R=32, T=52, P=49, E=512, H=8, Fd=512),
+     dict(L=6, R=40, T=52, P=49, E=200, H=8, Fd=512)],  # GloVe-200: head width 25, scalar key loads
+)
+@pytest.mark.parametrize("pos_at", ["first", "last"])
+def test_onecell_bf16_kernel_equals_layer_launches(cuda, shape, pos_at):
+    from tpu_captioner_torch.ops.decode_step import _decode_step_plain_bf16
+
+    T = shape["T"]
+    pos = {"first": 0, "last": T - 1}[pos_at]
+    args = decode_bf16(decode_args(*shape.values(), pos=pos, device=cuda))
+    before = fused_decode_step.onecell_launches, fused_decode_step.onecell_bf16_launches
+    got = fused_decode_step(*args, one_cell=True)
+    torch.cuda.synchronize()
+    assert (fused_decode_step.onecell_launches, fused_decode_step.onecell_bf16_launches) == tuple(
+        b + 1 for b in before)
+    per_layer = fused_decode_step(*args)
+    assert [t.dtype for t in got] == [t.dtype for t in per_layer]
+    assert all(torch.equal(a, b) for a, b in zip(got, per_layer))
+    want, ref = _decode_step_plain_bf16(*args), _decode_step_plain_bf16(*args, sums=torch.float64)
+    assert bf16_floor(got[0], want[0], ref[0]) and bf16_floor(got[1], want[1], ref[1])
+
+
+def assert_bf16_rollouts_agree(got, want, ref):
+    """Per row: the tokens equal up to the first step where they differ,
+    which must be a near-tie of the plain logits (within the logits'
+    bound); logits and maps within their bound (``bf16_floor``'s, with the
+    noise floor of the rows where all three agree) up to it."""
+    (gl, gs, ga), (wl, ws, wa), (rl, rs, ra) = got, want, ref
+    same = (ws == rs).all(1)
+    floor_l = (wl[same] - rl[same]).abs().max().item() if same.any() else 0.0
+    floor_a = (wa[same] - ra[same]).abs().max().item() if same.any() else 0.0
+    tol_l = max(2e-3 * max(1.0, wl.abs().max().item()), 2 * floor_l)
+    tol_a = max(2e-3, 2 * floor_a)
+    for r in range(ws.shape[0]):
+        diff = (gs[r] != ws[r]).nonzero()
+        upto = ws.shape[1] if len(diff) == 0 else int(diff[0]) + 1
+        if len(diff):
+            s, a, b = upto - 1, int(gs[r, upto - 1]), int(ws[r, upto - 1])
+            assert abs(wl[r, s, a] - wl[r, s, b]).item() < tol_l, (r, s)
+        assert (gl[r, :upto] - wl[r, :upto]).abs().max().item() <= tol_l, r
+        assert (ga[r, :upto] - wa[r, :upto]).abs().max().item() <= tol_a, r
+
+
+@pytest.mark.parametrize("rows", [4, 32])
+@pytest.mark.parametrize("steps", [1, 12, 51])
+@pytest.mark.parametrize("teacher", [False, True])
+def test_rollout_bf16_kernel_matches_plain(cuda, rows, steps, teacher):
+    from tpu_captioner_torch.ops.decode_step import _full_rollout_plain_bf16, cast_weight_matrices
+
+    (w, emb, fc_w, fc_b, pe, mk, mv), mix = rollout_args(rows, steps, cuda, teacher, seed=rows + steps)
+    bf = torch.bfloat16
+    args = (cast_weight_matrices(w, bf), emb.to(bf), fc_w.to(bf), fc_b, pe, mk.to(bf), mv.to(bf))
+    V, start = emb.shape[0], emb.shape[0] - 2
+    before = fused_full_rollout.launches, fused_full_rollout.bf16_launches
+    got = fused_full_rollout(*args, start, -1, steps, 8, **mix)
+    torch.cuda.synchronize()
+    assert (fused_full_rollout.launches, fused_full_rollout.bf16_launches) == tuple(b + 1 for b in before)
+    assert got[1].dtype == torch.int32 and all(x.dtype == torch.float32 and torch.isfinite(x).all()
+                                               for x in (got[0], got[2]))
+    want = _full_rollout_plain_bf16(*args, start, -1, steps, 8, **mix)
+    ref = _full_rollout_plain_bf16(*args, start, -1, steps, 8, **mix, sums=torch.float64)
+    assert_bf16_rollouts_agree(got, want, ref)
+    assert int(fused_full_rollout.steps_run) == steps
+
+
+def test_rollout_bf16_refuses_mixed_dtypes(cuda):
+    from tpu_captioner_torch.ops.decode_step import cast_weight_matrices
+
+    (w, emb, fc_w, fc_b, pe, mk, mv), _ = rollout_args(4, 3, cuda, False)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="embedding must be torch.bfloat16"):
+        fused_full_rollout(cast_weight_matrices(w, bf), emb, fc_w.to(bf), fc_b, pe, mk.to(bf), mv.to(bf),
+                           1, 2, 3, 8)

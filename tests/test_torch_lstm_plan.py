@@ -49,7 +49,12 @@ def cdiv(a, b):
 @pytest.mark.parametrize("widths", [MODEL, *ODD])
 def test_plan_covers_every_column_and_stage_once(R, widths):
     E, D, A, C, P = widths
-    plan = lstm_plan(R, E, D, A, C, P, SMS)
+    assert_plan_covers(lstm_plan(R, E, D, A, C, P, SMS), R, E, D, A, C, P)
+
+
+def assert_plan_covers(plan, R, E, D, A, C, P):
+    """Rows in one launch, the ring within shared memory, and every (tile,
+    K stage) pair and output column owned by exactly one block."""
     assert plan.rows >= R and plan.rows % 16 == 0 and plan.rows <= MAX_ROWS  # one launch: every row in the tile
     assert plan.grid == SMS and 2 <= plan.stages and plan.smem <= SMEM_LIMIT
     kd, ke, kc = cdiv(D, STAGE), cdiv(E, STAGE), cdiv(C, STAGE)

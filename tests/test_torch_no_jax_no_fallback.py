@@ -121,12 +121,14 @@ def test_chip_smoke_raises_without_a_card(cpu_only, capsys):
 
 
 def test_bf16_and_lstm_are_refused():
-    """bf16 serves and trains the Transformer families: a bf16 model builds,
-    and so do its train steps (bf16 training, once refused as #5b, is
-    ported).  What bf16 does not port raises NotImplementedError naming its
-    ROADMAP item: the LSTM families (#5c), ``use_pallas='block'`` (#5d),
-    the ``'mega'`` and one-cell decode modes (#5e).  The LSTM families, once
-    refused in f32 too, are ported: an ``lstm`` model builds on the CPU."""
+    """bf16 serves, evaluates and trains all four decoder families: a bf16
+    model of each builds, and so do its four train steps (the LSTM
+    families, once refused as #5c, are ported); a bf16 Transformer's
+    ``'mega'`` and one-cell rollouts run (once refused as #5e), with finite
+    f32 logits.  What bf16 does not port raises NotImplementedError naming
+    its ROADMAP item: ``use_pallas='block'`` (#5d).  The LSTM families,
+    once refused in f32 too, are ported: an ``lstm`` model builds on the
+    CPU."""
     from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
     from tpu_captioner_torch.models.lstm import DecoderWithAttention
     from tpu_captioner_torch.train.model import CaptionModel
@@ -134,23 +136,23 @@ def test_bf16_and_lstm_are_refused():
 
     tiny = dict(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8), encoder_dim=8,
                 embed_dim=8, decoder_dim=8, num_heads=2, num_layers=1, max_len=6, compute_dtype="bfloat16")
-    for decoder in ("transformer", "transformer_attvis"):
-        assert CaptionModel(ModelConfig(decoder=decoder, **tiny), device="cpu").dtype == torch.bfloat16
-    for decoder in ("lstm", "lstm_no_attention"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5c"):
-            CaptionModel(ModelConfig(decoder=decoder, attention_dim=6, **tiny), device="cpu")
+    word_ids = {"<start>": 1, "<end>": 2, "<pad>": 0}
+    for decoder in ("transformer", "transformer_attvis", "lstm", "lstm_no_attention"):
+        model = CaptionModel(ModelConfig(decoder=decoder, attention_dim=6, **tiny), device="cpu")
+        assert model.dtype == torch.bfloat16
+        for teacher_forcing in (True, False):
+            for train_encoder in (False, True):
+                assert callable(make_train_step(model, TrainConfig(), word_ids, teacher_forcing=teacher_forcing,
+                                                train_encoder=train_encoder))
     for use_pallas in ("block", ("mlp", "mlp", "block", "off")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5d"):
             CaptionModel(ModelConfig(use_pallas=use_pallas, **tiny), device="cpu")
     enc = torch.zeros(2, 7, 7, 8, dtype=torch.bfloat16)
     for mode, one_cell in (("mega", False), ("step", True)):
         model = CaptionModel(ModelConfig(decode_kernel=mode, **tiny), device="cpu")
-        with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5e"):
-            model.rollout(enc, 1, 2, 3, one_cell=one_cell)
-    for teacher_forcing in (True, False):
-        for train_encoder in (False, True):
-            assert callable(make_train_step(model, TrainConfig(), {"<start>": 1, "<end>": 2, "<pad>": 0},
-                                            teacher_forcing=teacher_forcing, train_encoder=train_encoder))
+        with torch.inference_mode():
+            logits, seqs, _ = model.rollout(enc, 1, 2, 3, one_cell=one_cell)
+        assert logits.dtype == torch.float32 and torch.isfinite(logits).all() and seqs.shape == (2, 3)
     model = CaptionModel(
         ModelConfig(vocab_size=11, decoder="lstm", encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8),
                     encoder_dim=8, embed_dim=8, attention_dim=6, decoder_dim=8),

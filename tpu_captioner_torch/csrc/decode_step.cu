@@ -116,6 +116,17 @@
 // weights each value by bf16(p) (:155, 169), with the new k and v at pos
 // unrounded, as the JAX kernel merges them; alpha averages the unrounded
 // cross probabilities.  k_new and v_new are written as bf16.
+// The one-cell and rollout kernels have the same bf16 instances
+// (decode_onecell_kernel<VEC, true>, decode_rollout_kernel<VEC, true>:
+// _kernel_onecell and _mega_kernel with precise=False, the latter on
+// storage_dtype=bf16 operands, tpu_captioner/models/transformer.py:391-395):
+// the same layer body, so the one-cell instance's outputs equal L launches
+// of the per-layer instance bit for bit.  The rollout's caches are bf16
+// (each token's new k and v enter its own attention unrounded and are
+// rounded as they are stored), its embedding table and vocab head bf16:
+// x = embedding[tok] + pe in f32 (a bf16 row is exact), and the head rounds
+// x to bf16 against the bf16 fc_w, sums in f32 and adds the f32 fc_b; the
+// argmax runs on the f32 logits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -565,13 +576,15 @@ __device__ __noinline__ void stage_ln(float* xs, float* lnp, uint64_t* xbar, uin
 // The rollout's first prologue: x = embedding[tok] + pe for rows r0..r0+rn,
 // gathered by the threads (a bulk copy would queue behind the ring's
 // weight copies that the last product issued); the owner also writes x.
-__device__ __noinline__ void stage_embed(float* xs, const float* embedding, const float* pe, const int* tok,
+// W: the table's element type.
+template <class W>
+__device__ __noinline__ void stage_embed(float* xs, const W* embedding, const float* pe, const int* tok,
                                          float* x, int r0, int rn, int E, Owners own) {
   const int q = E / 4;  // float4s of a row
 #pragma unroll 4
   for (int i = threadIdx.x; i < rn * q; i += kThreads) {
     const int r = i / q, c = 4 * (i % q);
-    const float4 e = __ldg(reinterpret_cast<const float4*>(embedding + (size_t)tok[r0 + r] * E + c));
+    const float4 e = load4(embedding + (size_t)tok[r0 + r] * E + c);  // a bf16 row widened exactly
     const float4 p = __ldg(reinterpret_cast<const float4*>(pe + c));
     const float4 y = make_float4(e.x + p.x, e.y + p.y, e.z + p.z, e.w + p.w);
     *reinterpret_cast<float4*>(xs + (size_t)r * E + c) = y;
@@ -592,8 +605,10 @@ __device__ __forceinline__ void stage_ln(const Args& a, Blk& k, const float* src
   k.xphase ^= 1;
 }
 
+template <class W>
 __device__ __forceinline__ void stage_embed(const Args& a, Blk& k, int s, float* x, int r0, int rn) {
-  stage_embed(k.xs, a.embedding, a.pe + (size_t)s * a.E, k.tok, x, r0, rn, a.E, Owners{k.rpg, k.gc});
+  stage_embed(k.xs, reinterpret_cast<const W*>(a.embedding), a.pe + (size_t)s * a.E, k.tok, x, r0, rn, a.E,
+              Owners{k.rpg, k.gc});
 }
 
 // One warp's tile of 16 staged rows (xr, row length K) by 4 weight rows
@@ -946,7 +961,7 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
             else if (in == kInLn3)
               stage_ln(a, k, h3, a.ln3_w + (size_t)(l - 1) * E, a.ln3_b + (size_t)(l - 1) * E, x, r0, rn);
             else
-              stage_embed(a, k, s, x, r0, rn);
+              stage_embed<W>(a, k, s, x, r0, rn);
           },
           [&](int, int c) { return make_float2(bq[c], 0.f); },
           [&](int r, int c, float y, float2 p) { qkv[(size_t)r * E3 + c] = y + p.x; });
@@ -1057,7 +1072,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(const Args a0
   ring_drain(a, k);
 }
 
-template <int VEC>
+template <int VEC, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) decode_onecell_kernel(const Args a0) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1066,7 +1081,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_onecell_kernel(const Args 
   blk_init(a, k, smem);
   stamp(k, 0);
   for (int l = 0; l < a.L; ++l)
-    decode_layer<VEC, false>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
+    decode_layer<VEC, BF>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
   ln3_owned(a, k, a.L - 1);
   stamp(k, 4);
   ring_drain(a, k);
@@ -1109,8 +1124,9 @@ __device__ void finish_token(const Args& a, Blk& k, int t) {
   __syncthreads();
 }
 
-template <int VEC>
+template <int VEC, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args a0) {
+  using W = typename Elem<BF>::T;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char smem[];
   Args a = a0;
@@ -1118,8 +1134,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args 
   blk_init(a, k, smem);
   stamp(k, 0);
   const int R = a.R, E = a.E, L = a.L, S = a.steps, V = a.V;
-  float* cache_k = a.k_new;  // the same buffers as a.cache_k/v
-  float* cache_v = a.v_new;
+  W* cache_k = reinterpret_cast<W*>(a.k_new);  // the same buffers as a.cache_k/v
+  W* cache_v = reinterpret_cast<W*>(a.v_new);
   float* x = a.x_out;
   const float* h3 = a.scratch + 10 * (size_t)R * E;
   for (int r = threadIdx.x; r < R; r += kThreads) {
@@ -1142,14 +1158,14 @@ __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args 
     __syncthreads();
 
     // The L layers; layer l's new k/v rows go to the cache at position s.
-    a.k_new = cache_k + (size_t)s * E;
-    a.v_new = cache_v + (size_t)s * E;
+    a.k_new = reinterpret_cast<float*>(cache_k + (size_t)s * E);
+    a.v_new = reinterpret_cast<float*>(cache_v + (size_t)s * E);
     for (int l = 0; l < L; ++l)
-      decode_layer<VEC, false>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
+      decode_layer<VEC, BF>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
 
     // The head; its prologue is the last LN3.  Rows still running write
     // their logits and merge their keys.
-    product_units<float>(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
+    product_units<W>(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
                   [&](int r0, int rn) {
                     stage_ln(a, k, h3, a.ln3_w + (size_t)(L - 1) * E, a.ln3_b + (size_t)(L - 1) * E, x, r0, rn);
                   },
@@ -1233,10 +1249,10 @@ int launch(const void* kernel, Args& a, size_t smem, void* stream) {
 long long round4(long long n) { return (n + 3) / 4 * 4; }
 
 // The layer and one-cell launches: check, fill the launch fields, launch.
-// bf16: the per-layer kernel's bf16 arm (no one-cell instance).
+// bf16: the kernels' bf16 instances.
 int layer_launch(Args& a, const int* plan, int smem, bool one_cell, bool bf16, void* stream) {
   a.wsize = bf16 ? 2 : 4;
-  if ((bf16 && one_cell) || !shapes_ok(a.T, a.E, a.H, a.F, a.pos, a.wsize)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(a.T, a.E, a.H, a.F, a.pos, a.wsize)) return (int)cudaErrorInvalidValue;
   a.plan = read_plan(plan);
   if (!plan_ok(a.plan, a.R, a.E, a.F, 0) ||
       smem_layout_bytes(a.plan, a.R, a.T, a.P, a.E, a.H, a.F, false, a.wsize) != (size_t)smem)
@@ -1245,10 +1261,41 @@ int layer_launch(Args& a, const int* plan, int smem, bool one_cell, bool bf16, v
   a.Lr = one_cell ? a.L : 1;
   set_units(a, 1);
   const bool v4 = vec4_heads(a.E, a.H);
-  const void* kernel =
-      one_cell ? (v4 ? (const void*)decode_onecell_kernel<4> : (const void*)decode_onecell_kernel<1>)
-      : bf16   ? (v4 ? (const void*)decode_layer_kernel<4, true> : (const void*)decode_layer_kernel<1, true>)
-               : (v4 ? (const void*)decode_layer_kernel<4, false> : (const void*)decode_layer_kernel<1, false>);
+  const void* const kernels[2][2][2] = {  // [one_cell][bf16][v4]
+      {{(const void*)decode_layer_kernel<1, false>, (const void*)decode_layer_kernel<4, false>},
+       {(const void*)decode_layer_kernel<1, true>, (const void*)decode_layer_kernel<4, true>}},
+      {{(const void*)decode_onecell_kernel<1, false>, (const void*)decode_onecell_kernel<4, false>},
+       {(const void*)decode_onecell_kernel<1, true>, (const void*)decode_onecell_kernel<4, true>}}};
+  return launch(kernels[one_cell][bf16][v4], a, smem, stream);
+}
+
+// The rollout launch of either instance: check, fill, launch.  The
+// pointers of the bf16 instance's bf16 tensors are cast (see Args).
+int rollout_launch(const float* embedding, const float* fc_w, const float* fc_b, const float* pe,
+                   const int* teacher, const int* use_teacher, float* logits, int* seqs, float* alphas,
+                   const float* const* w, const float* mem_k, const float* mem_v, float* cache_k, float* cache_v,
+                   int* state, float* scratch, int L, int R, int P, int E, int H, int F, int V, int steps,
+                   int end_id, const int* plan, int smem, bool bf16, void* stream) {
+  const int wsize = bf16 ? 2 : 4;
+  if (!shapes_ok(steps, E, H, F, 0, wsize) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = read_plan(plan);
+  if (!plan_ok(p, R, E, F, V) || smem_layout_bytes(p, R, steps, P, E, H, F, true, wsize) != (size_t)smem)
+    return (int)cudaErrorInvalidValue;
+  float* x = scratch + round4(layer_scratch_floats(R, E, H, F, P));
+  float* alpha = x + round4((long long)R * E);
+  auto* best = reinterpret_cast<unsigned long long*>(alpha + round4((long long)R * P));
+  const size_t T = steps;
+  Args a{x, x, alpha, cache_k, cache_v, (size_t)R * T * E, T * E, w[0], w[1], w[2], w[3],
+         w[4], w[5], w[6], w[7], w[8], w[9], w[10], w[11], w[12], w[13], w[14], w[15], w[16],
+         w[17], cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0,
+         embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, best, state,
+         V, steps, end_id, p, 0, L};
+  a.wsize = wsize;
+  set_units(a, steps);
+  const bool v4 = vec4_heads(E, H);
+  const void* kernel = bf16 ? (v4 ? (const void*)decode_rollout_kernel<4, true> : (const void*)decode_rollout_kernel<1, true>)
+                            : (v4 ? (const void*)decode_rollout_kernel<4, false> : (const void*)decode_rollout_kernel<1, false>);
   return launch(kernel, a, smem, stream);
 }
 
@@ -1325,6 +1372,26 @@ int tc_decode_onecell_forward(
   return layer_launch(a, plan, smem, true, false, stream);
 }
 
+// The one-cell bf16 instance: tc_decode_onecell_forward's arguments with
+// tc_decode_layer_forward_bf16's dtypes; the plan is decode_plan('onecell',
+// ..., esize=2).
+int tc_decode_onecell_forward_bf16(
+    const float* x_in, float* x_out, float* alpha, void* k_new, void* v_new,
+    const void* w_qkv, const float* b_qkv, const void* w_so, const float* b_so,
+    const void* w_cq, const float* b_cq, const void* w_co, const float* b_co,
+    const void* w_f1, const float* b_f1, const void* w_f2, const float* b_f2,
+    const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
+    const float* ln3_w, const float* ln3_b, const void* cache_k, const void* cache_v,
+    const void* mem_k, const void* mem_v, float* scratch, int L, int R, int T, int P, int E,
+    int H, int F, int pos, const int* plan, int smem, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };  // Args' pointer type (see Args)
+  Args a{x_in, x_out, alpha, static_cast<float*>(k_new), static_cast<float*>(v_new), (size_t)R * E, (size_t)E,
+         f(w_qkv), b_qkv, f(w_so), b_so, f(w_cq), b_cq, f(w_co), b_co, f(w_f1), b_f1, f(w_f2), b_f2,
+         ln1_w, ln1_b, ln2_w, ln2_b, ln3_w, ln3_b, f(cache_k), f(cache_v), f(mem_k), f(mem_v), scratch,
+         0, L, R, T, P, E, H, F, pos};
+  return layer_launch(a, plan, smem, true, true, stream);
+}
+
 // A whole greedy rollout of `steps` tokens for R rows.  cache_k/v are
 // (L, R, steps, E) scratch, state is tok (R) set to the start id, fin (R)
 // zero and one int for the tokens run; logits, seqs and alphas are zeroed.
@@ -1339,25 +1406,33 @@ int tc_decode_rollout(
     const float* ln3_w, const float* ln3_b, const float* mem_k, const float* mem_v,
     float* cache_k, float* cache_v, int* state, float* scratch, int L, int R, int P, int E,
     int H, int F, int V, int steps, int end_id, const int* plan, int smem, void* stream) {
-  if (!shapes_ok(steps, E, H, F, 0, 4) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Plan p = read_plan(plan);
-  if (!plan_ok(p, R, E, F, V) || smem_layout_bytes(p, R, steps, P, E, H, F, true, 4) != (size_t)smem)
-    return (int)cudaErrorInvalidValue;
-  float* x = scratch + round4(layer_scratch_floats(R, E, H, F, P));
-  float* alpha = x + round4((long long)R * E);
-  auto* best = reinterpret_cast<unsigned long long*>(alpha + round4((long long)R * P));
-  const size_t T = steps;
-  Args a{x, x, alpha, cache_k, cache_v, (size_t)R * T * E, T * E, w_qkv, b_qkv, w_so, b_so,
-         w_cq, b_cq, w_co, b_co, w_f1, b_f1, w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w,
-         ln3_b, cache_k, cache_v, mem_k, mem_v, scratch, 0, L, R, steps, P, E, H, F, 0,
-         embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, best, state,
-         V, steps, end_id, p, 0, L};
-  a.wsize = 4;
-  set_units(a, steps);
-  const void* kernel = vec4_heads(E, H) ? (const void*)decode_rollout_kernel<4>
-                                         : (const void*)decode_rollout_kernel<1>;
-  return launch(kernel, a, smem, stream);
+  const float* const w[18] = {w_qkv, b_qkv, w_so, b_so, w_cq, b_cq, w_co, b_co, w_f1, b_f1,
+                              w_f2, b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w, ln3_b};
+  return rollout_launch(embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, w, mem_k, mem_v,
+                        cache_k, cache_v, state, scratch, L, R, P, E, H, F, V, steps, end_id, plan, smem, false,
+                        stream);
+}
+
+// The rollout's bf16 instance: the same arguments, with the embedding
+// table, fc_w, the six weight matrices, the memory K/V and the (L, R,
+// steps, E) caches in bf16 and the rest f32; the plan is
+// decode_plan('rollout', ..., esize=2).
+int tc_decode_rollout_bf16(
+    const void* embedding, const void* fc_w, const float* fc_b, const float* pe,
+    const int* teacher, const int* use_teacher, float* logits, int* seqs, float* alphas,
+    const void* w_qkv, const float* b_qkv, const void* w_so, const float* b_so,
+    const void* w_cq, const float* b_cq, const void* w_co, const float* b_co,
+    const void* w_f1, const float* b_f1, const void* w_f2, const float* b_f2,
+    const float* ln1_w, const float* ln1_b, const float* ln2_w, const float* ln2_b,
+    const float* ln3_w, const float* ln3_b, const void* mem_k, const void* mem_v,
+    void* cache_k, void* cache_v, int* state, float* scratch, int L, int R, int P, int E,
+    int H, int F, int V, int steps, int end_id, const int* plan, int smem, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };  // Args' pointer type (see Args)
+  const float* const w[18] = {f(w_qkv), b_qkv, f(w_so), b_so, f(w_cq), b_cq, f(w_co), b_co, f(w_f1), b_f1,
+                              f(w_f2), b_f2, ln1_w, ln1_b, ln2_w, ln2_b, ln3_w, ln3_b};
+  return rollout_launch(f(embedding), f(fc_w), fc_b, pe, teacher, use_teacher, logits, seqs, alphas, w, f(mem_k),
+                        f(mem_v), static_cast<float*>(cache_k), static_cast<float*>(cache_v), state, scratch, L, R,
+                        P, E, H, F, V, steps, end_id, plan, smem, true, stream);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

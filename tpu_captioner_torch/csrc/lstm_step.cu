@@ -86,8 +86,24 @@
 // parts of its work, for timing only: 1 the attention's loads and
 // arithmetic, 2 the wgmmas, 4 the weight loads.  TC_LSTM_TIMELINE stamps
 // each role's milestones (the probe's timeline).
+//
+// The bf16 instance (tc_lstm_step_bf16, lstm_step_kernel<NT, true>): _kernel
+// with mxu_dtype=bfloat16 (tpu_captioner/ops/lstm_step.py:75-93, precise=
+// False), the JAX package's arm on its own chip, on the weights of
+// cast_lstm_weight_matrices(w, bfloat16) (wd, wfb, w_ih_e, w_ih_c, w_hh in
+// bf16; wfull and the biases f32) with bf16 emb, enc and att1; h, c and the
+// outputs f32.  Every product rounds its activation operand (h, emb, the
+// gated context) to bf16 and sums the exact bf16 x bf16 products in f32: a
+// bf16 value is exact in TF32, so the same tf32 wgmma runs with the bf16
+// weight widened in registers as A and one B plane holding the rounded
+// activation, one product a k-step where the f32 instance runs three.  The
+// ring holds the weight boxes as stored (bf16, unswizzled: 4 KB a stage,
+// half the f32 instance's bytes) and the gate blocks' share of w_ih_c
+// likewise.  The attention widens enc and att1 as it reads them and keeps
+// its sums, the softmax and alpha in f32.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -139,6 +155,15 @@ constexpr int kBarProducer = 1, kBarConsumer = 2, kBarAttention = 3;  // named b
 // and a ready flag per row, a count of rows done per context chunk.
 constexpr int kFlagSplit = 0, kFlagAf = 1, kFlagExit = 2, kFlagHead = 4;
 
+// What an instance's ring stage holds: its weight box (kA floats: f32, or
+// as many bf16 values in half the bytes) and kPlanes B planes of NT x 32
+// floats (TF32 hi and lo, or the bf16-rounded activations alone).
+template <bool BF>
+struct Arm {
+  static constexpr int kA = BF ? kAFloats / 2 : kAFloats;
+  static constexpr int kPlanes = BF ? 1 : 2;
+};
+
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline long long round32(long long n) { return (n + 31) / 32 * 32; }
 
@@ -155,9 +180,10 @@ struct Plan {
 
 constexpr int kInstances[] = {16, 32, 48, 64, 96, 128, 160};
 
-// ops/lstm_step.py:lstm_plan.  Returns 0, or 1 (rows), 2 (more tiles than
-// blocks), 3 (shared memory), 4 (a width below 1).
-inline int make_plan(int R, int E, int D, int A, int C, int P, int sms, Plan* p) {
+// ops/lstm_step.py:lstm_plan (esize 2 for the bf16 instance).  Returns 0,
+// or 1 (rows), 2 (more tiles than blocks), 3 (shared memory), 4 (a width
+// below 1).
+inline int make_plan(int R, int E, int D, int A, int C, int P, int sms, bool bf16, Plan* p) {
   if (E < 1 || D < 1 || A < 1 || C < 1 || P < 1 || sms < 1) return 4;
   if (R < 1 || R > kMaxRows) return 1;
   int nt = 0;
@@ -172,8 +198,9 @@ inline int make_plan(int R, int E, int D, int A, int C, int P, int sms, Plan* p)
   p->s_af = min2(min2(kMaxSplit, sms / n_af), kD);
   p->s_g = min2(min2(kMaxSplit, sms / n_g), min2(kC, kD + kE));
   p->wc_stages = cdiv(kC, p->s_g);
-  const long long slot = 4LL * (kAFloats + 2 * nt * kBK);
-  const long long fixed = 1024 + 4LL * kAFloats * p->wc_stages + 8 * (2 * kMaxStages + 1) + 16;
+  const int a_floats = bf16 ? Arm<true>::kA : Arm<false>::kA, planes = bf16 ? Arm<true>::kPlanes : Arm<false>::kPlanes;
+  const long long slot = 4LL * (a_floats + planes * nt * kBK);
+  const long long fixed = 1024 + 4LL * a_floats * p->wc_stages + 8 * (2 * kMaxStages + 1) + 16;
   const long long fit = (kSmemLimit - fixed) / slot;
   p->stages = fit > kMaxStages ? kMaxStages : (int)(fit < 0 ? 0 : fit);
   if (p->stages < 2) return 3;
@@ -203,6 +230,8 @@ inline Dims make_dims(int R, int E, int D, int A, int C, int P) {
   return d;
 }
 
+// In the bf16 instance emb, enc, att1, wd, wfb, w_ih_e, w_ih_c and w_hh
+// hold bf16 (the pointers are cast where they are read).
 struct Args {
   const float *emb, *h, *c, *enc, *att1;
   const float *wd, *bd, *wfull, *bfull, *wfb, *bfb, *w_ih_e, *w_ih_c, *w_hh, *b;
@@ -311,6 +340,28 @@ __device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpre
 __device__ __forceinline__ float4 ldcg4(const float* p) { return __ldcg(reinterpret_cast<const float4*>(p)); }
 __device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
 
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Elements i .. i + 3 (4 | i) and element i of an activation the
+// instance stores as f32 or bf16 (BF), through the read-only path.
+template <bool BF>
+__device__ __forceinline__ float4 ldx4(const float* p, size_t i) {
+  if constexpr (BF) return widen4(__ldg(reinterpret_cast<const uint2*>(reinterpret_cast<const __nv_bfloat16*>(p) + i)));
+  else return ldg4(p + i);
+}
+
+template <bool BF>
+__device__ __forceinline__ float ldx1(const float* p, size_t i) {
+  if constexpr (BF) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+  else return __ldg(p + i);
+}
+
 // The K permutation of the B planes: within each group of 16 columns, slot
 // 8 e2 + u + 4 e holds column 4 u + 2 e2 + e, so that the thread of
 // fragment column q reads columns 4 q .. 4 q + 3 of its weight rows as one
@@ -321,52 +372,70 @@ __device__ __forceinline__ int slot_of_col(int col) {
   return (col & ~15) + 8 * ((c >> 1) & 1) + (c >> 2) + 4 * (c & 1);
 }
 
+// A B-operand value into its planes: TF32 hi and lo, or (BF) the value
+// rounded to bf16 in the one plane.
+template <bool BF>
 __device__ __forceinline__ void store_split(float* plane, long long lo_off, size_t at, float v) {
-  const float hi = tf32x3::round_tf32(v);
-  plane[at] = hi;
-  plane[at + lo_off] = tf32x3::round_tf32(v - hi);
+  if constexpr (BF) {
+    plane[at] = round_bf16(v);
+  } else {
+    const float hi = tf32x3::round_tf32(v);
+    plane[at] = hi;
+    plane[at + lo_off] = tf32x3::round_tf32(v - hi);
+  }
 }
 
-// Columns c0 .. c0 + 15 of a row x of K values (x null: a row past R)
-// as four float4, zeros past K.
-__device__ __forceinline__ void load16(const float* x, int K, int c0, float4 (&v)[4]) {
+// Columns c0 .. c0 + 15 of a row of K values (element `row` of x onward,
+// f32 or, with XB, bf16; valid false: a row past R) as four float4,
+// zeros past K.
+template <bool XB>
+__device__ __forceinline__ void load16(const float* x, size_t row, bool valid, int K, int c0, float4 (&v)[4]) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int c = c0 + 4 * u;
-    if (x && K % 4 == 0 && c + 3 < K) {
-      v[u] = ldg4(x + c);
+    if (valid && K % 4 == 0 && c + 3 < K) {
+      v[u] = ldx4<XB>(x, row + c);
     } else {
-      v[u].x = x && c < K ? x[c] : 0.f, v[u].y = x && c + 1 < K ? x[c + 1] : 0.f;
-      v[u].z = x && c + 2 < K ? x[c + 2] : 0.f, v[u].w = x && c + 3 < K ? x[c + 3] : 0.f;
+      v[u].x = valid && c < K ? ldx1<XB>(x, row + c) : 0.f, v[u].y = valid && c + 1 < K ? ldx1<XB>(x, row + c + 1) : 0.f;
+      v[u].z = valid && c + 2 < K ? ldx1<XB>(x, row + c + 2) : 0.f;
+      v[u].w = valid && c + 3 < K ? ldx1<XB>(x, row + c + 3) : 0.f;
     }
   }
 }
 
 // Slots 4 kk .. 4 kk + 3 of a group of 16 in the B planes' order hold
 // columns kk, kk + 4, kk + 8, kk + 12 (a 4 x 4 transpose of load16's
-// float4s): their TF32 hi and lo parts.
+// float4s): their TF32 hi and lo parts, or (BF) their bf16 values in hi.
+template <bool BF>
 __device__ __forceinline__ void split4(const float4 (&v)[4], int kk, float4& hi, float4& lo) {
   float* const h4 = &hi.x;
   float* const l4 = &lo.x;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const float e = at(v[u], kk);
-    h4[u] = tf32x3::round_tf32(e);
-    l4[u] = tf32x3::round_tf32(e - h4[u]);
+    if constexpr (BF) {
+      h4[u] = round_bf16(e);
+      l4[u] = 0.f;
+    } else {
+      h4[u] = tf32x3::round_tf32(e);
+      l4[u] = tf32x3::round_tf32(e - h4[u]);
+    }
   }
 }
 
-// One row's group of 16 columns G of x (K wide) into its B planes at dst
-// (the lo plane lo_off floats after the hi plane).
-__device__ __forceinline__ void split_group(const float* x, int K, float* dst, long long lo_off, int G) {
+// One row's group of 16 columns G of x (K wide, from element `row`, bf16
+// with XB) into its B planes at dst (the lo plane lo_off floats after the
+// hi plane; the bf16 instance, BF, writes the hi plane alone).
+template <bool BF, bool XB>
+__device__ __forceinline__ void split_group(const float* x, size_t row, int K, float* dst, long long lo_off, int G) {
   float4 v[4];
-  load16(x, K, 16 * G, v);
+  load16<XB>(x, row, true, K, 16 * G, v);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     float4 hi, lo;
-    split4(v, kk, hi, lo);
+    split4<BF>(v, kk, hi, lo);
     *reinterpret_cast<float4*>(dst + 4 * kk) = hi;
-    *reinterpret_cast<float4*>(dst + lo_off + 4 * kk) = lo;
+    if constexpr (!BF) *reinterpret_cast<float4*>(dst + lo_off + 4 * kk) = lo;
   }
 }
 
@@ -384,7 +453,9 @@ __device__ __forceinline__ void issue_a(const Dims& d, const Maps& m, const Work
   }
 }
 
-// The same box by plain loads of the producer warpgroup's 128 threads.
+// The same box by plain loads of the producer warpgroup's 128 threads (the
+// bf16 instance's unswizzled, as its tensor maps write it).
+template <bool BF>
 __device__ void plain_a(const Args& a, const Work& w, Src s, float* dst, int tid) {
   const Dims& d = a.d;
   const float* src;
@@ -407,11 +478,15 @@ __device__ void plain_a(const Args& a, const Work& w, Src s, float* dst, int tid
     } else {
       row = row0 + r, ok = row < rows;
     }
-    dst[(r << 5) + (((col >> 2) ^ (r & 7)) << 2) + (col & 3)] = ok && k < K ? __ldg(src + (size_t)row * K + k) : 0.f;
+    if constexpr (BF)
+      reinterpret_cast<__nv_bfloat16*>(dst)[idx] =
+          ok && k < K ? reinterpret_cast<const __nv_bfloat16*>(src)[(size_t)row * K + k] : __float2bfloat16(0.f);
+    else
+      dst[(r << 5) + (((col >> 2) ^ (r & 7)) << 2) + (col & 3)] = ok && k < K ? __ldg(src + (size_t)row * K + k) : 0.f;
   }
 }
 
-// A stage's B box: both planes of 32 K columns for the nt rows.
+// A stage's B box: the planes of 32 K columns for the nt rows.
 __device__ __forceinline__ void issue_b(const Maps& m, Src s, float* dst, uint64_t* bar) {
   const CUtensorMap* map = s.kind <= 2 ? &m.hpl : s.kind == 3 ? &m.epl : &m.gpl;
   tf32x3::tma_load(dst, map, s.k * kBK, 0, bar);
@@ -427,9 +502,11 @@ __device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t byte
 // - 1, written by the producer warpgroup straight from h (an input of the
 // launch, so no flag to wait for): for each of the nt rows and a stage's
 // two groups of 16 columns, both planes in the 128-byte-swizzled layout TMA
-// would have written.  kBatch tasks a thread at once, their loads first.
+// would have written (the bf16 instance: the hi plane of the bf16-rounded
+// values alone).  kBatch tasks a thread at once, their loads first.
 constexpr int kBatch = 2;
 
+template <bool BF>
 __device__ void write_b(const Dims& d, const float* h, int k0, int n, float* ring, int slot_floats, int nt, int tid) {
   const int tasks = n * 2 * nt;
   for (int base = tid; base < tasks; base += 128 * kBatch) {
@@ -437,32 +514,34 @@ __device__ void write_b(const Dims& d, const float* h, int k0, int n, float* rin
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int idx = base + 128 * b, st = idx / (2 * nt), row = (idx >> 1) % nt, G = idx & 1;
-      load16(idx < tasks && row < d.R ? h + (size_t)row * d.D : nullptr, d.D, (k0 + st) * kBK + 16 * G, v[b]);
+      load16<false>(h, (size_t)row * d.D, idx < tasks && row < d.R, d.D, (k0 + st) * kBK + 16 * G, v[b]);
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int idx = base + 128 * b, st = idx / (2 * nt), row = (idx >> 1) % nt, G = idx & 1;
       if (idx >= tasks) break;
-      float* dst = ring + st * slot_floats + kAFloats + row * kBK;
+      float* dst = ring + st * slot_floats + Arm<BF>::kA + row * kBK;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         float4 hi, lo;
-        split4(v[b], kk, hi, lo);
+        split4<BF>(v[b], kk, hi, lo);
         float* at_ = dst + ((((4 * G + kk) ^ (row & 7))) << 2);
         *reinterpret_cast<float4*>(at_) = hi;
-        *reinterpret_cast<float4*>(at_ + nt * kBK) = lo;
+        if constexpr (!BF) *reinterpret_cast<float4*>(at_ + nt * kBK) = lo;
       }
     }
   }
 }
 
+template <bool BF>
 __device__ void producer(const Args& a, const Maps& m, const Work& w, float* ring, float* wc, uint64_t* full,
                          uint64_t* empty, uint64_t* wc_full, int tid) {
+  using Ar = Arm<BF>;
   const Plan& p = a.plan;
   const Dims& d = a.d;
   const bool lead = tid == 0, tma = a.tma;
-  const int slot_floats = kAFloats + 2 * p.nt * kBK;
-  const uint32_t a_bytes = (TC_LSTM_SKIP & 4) ? 0 : 4 * kAFloats, b_bytes = 4 * 2 * p.nt * kBK;
+  const int slot_floats = Ar::kA + Ar::kPlanes * p.nt * kBK;
+  const uint32_t a_bytes = (TC_LSTM_SKIP & 4) ? 0 : 4 * Ar::kA, b_bytes = 4 * Ar::kPlanes * p.nt * kBK;
   const int naf = w.af_k1 - w.af_k0, nh = w.gh_k1 - w.gh_k0, nc = w.gc_k1 - w.gc_k0;
   const int total = naf + nh + nc;
 
@@ -472,10 +551,10 @@ __device__ void producer(const Args& a, const Maps& m, const Work& w, float* rin
       if (lead) {
         mbar_expect_tx(wc_full, nc * a_bytes);
         if (!(TC_LSTM_SKIP & 4))
-          for (int j = 0; j < nc; ++j) issue_a(d, m, w, Src{4, w.gc_k0 + j}, wc + j * kAFloats, wc_full);
+          for (int j = 0; j < nc; ++j) issue_a(d, m, w, Src{4, w.gc_k0 + j}, wc + j * Ar::kA, wc_full);
       }
     } else {
-      for (int j = 0; j < nc; ++j) plain_a(a, w, Src{4, w.gc_k0 + j}, wc + j * kAFloats, tid);
+      for (int j = 0; j < nc; ++j) plain_a<BF>(a, w, Src{4, w.gc_k0 + j}, wc + j * Ar::kA, tid);
       wg_sync(kBarProducer);
       if (lead) mbar_arrive(wc_full);
     }
@@ -492,9 +571,9 @@ __device__ void producer(const Args& a, const Maps& m, const Work& w, float* rin
           if (!(TC_LSTM_SKIP & 4)) issue_a(d, m, w, src_of(d, w, i), ring + i * slot_floats, &full[i]);
         }
     } else {
-      for (int i = 0; i < na; ++i) plain_a(a, w, src_of(d, w, i), ring + i * slot_floats, tid);
+      for (int i = 0; i < na; ++i) plain_a<BF>(a, w, src_of(d, w, i), ring + i * slot_floats, tid);
     }
-    write_b(d, a.h, w.af_k0, na, ring, slot_floats, p.nt, tid);
+    write_b<BF>(d, a.h, w.af_k0, na, ring, slot_floats, p.nt, tid);
     fence_proxy_async_shared();  // wgmma reads the planes through the async proxy
     wg_sync(kBarProducer);
     if (lead)
@@ -515,9 +594,9 @@ __device__ void producer(const Args& a, const Maps& m, const Work& w, float* rin
           if (!(TC_LSTM_SKIP & 4)) issue_a(d, m, w, src, slot, &full[s]);
         }
       } else {
-        plain_a(a, w, src, slot, tid);
+        plain_a<BF>(a, w, src, slot, tid);
       }
-      write_b(d, a.h, src.k, 1, slot, slot_floats, p.nt, tid);
+      write_b<BF>(d, a.h, src.k, 1, slot, slot_floats, p.nt, tid);
       fence_proxy_async_shared();  // wgmma reads the planes through the async proxy
       wg_sync(kBarProducer);
       if (lead) mbar_arrive(&full[s]);
@@ -534,7 +613,7 @@ __device__ void producer(const Args& a, const Maps& m, const Work& w, float* rin
           ctx_ready = true;
         }
         mbar_expect_tx(&full[s], b_bytes);
-        issue_b(m, src, slot + kAFloats, &full[s]);
+        issue_b(m, src, slot + Ar::kA, &full[s]);
       }
       continue;
     }
@@ -549,15 +628,15 @@ __device__ void producer(const Args& a, const Maps& m, const Work& w, float* rin
       if (lead) {
         mbar_expect_tx(&full[s], a_bytes + b_bytes);
         if (!(TC_LSTM_SKIP & 4)) issue_a(d, m, w, src, slot, &full[s]);
-        issue_b(m, src, slot + kAFloats, &full[s]);
+        issue_b(m, src, slot + Ar::kA, &full[s]);
       }
     } else {
       wg_sync(kBarProducer);  // the lead has seen the slot free
-      plain_a(a, w, src, slot, tid);
+      plain_a<BF>(a, w, src, slot, tid);
       wg_sync(kBarProducer);
       if (lead) {
         mbar_expect_tx(&full[s], b_bytes);
-        issue_b(m, src, slot + kAFloats, &full[s]);
+        issue_b(m, src, slot + Ar::kA, &full[s]);
       }
     }
   }
@@ -582,8 +661,10 @@ struct Rows {
 
 // acc += this stage's products: the weight tile As (64 x 32, swizzled) from
 // registers, split into TF32 hi / lo; the B planes at Bs (hi: NT x 32,
-// then lo), swizzled.
-template <int NT>
+// then lo), swizzled.  The bf16 instance (BF): As holds bf16 (unswizzled),
+// widened exactly into the hi registers, and Bs the one plane of bf16
+// values: one wgmma a k-step, each product exact.
+template <int NT, bool BF>
 __device__ __forceinline__ void stage_mma(const float* As, const float* Bs, float (&acc)[Rows<NT>::kChunks][Rows<NT>::kAcc],
                                           int wi, int g, int q) {
   using K = Rows<NT>;
@@ -591,17 +672,24 @@ __device__ __forceinline__ void stage_mma(const float* As, const float* Bs, floa
   const int ra = 16 * wi + g;
 #pragma unroll
   for (int G = 0; G < 2; ++G) {
-    const int ch = ((4 * G + q) ^ g) << 2;
-    const float4 va = ld4(As + ra * kBK + ch), vb = ld4(As + (ra + 8) * kBK + ch);
+    float4 va, vb;
+    if constexpr (BF) {
+      const __nv_bfloat16* a16 = reinterpret_cast<const __nv_bfloat16*>(As) + 16 * G + 4 * q;
+      va = widen4(*reinterpret_cast<const uint2*>(a16 + ra * kBK));
+      vb = widen4(*reinterpret_cast<const uint2*>(a16 + (ra + 8) * kBK));
+    } else {
+      const int ch = ((4 * G + q) ^ g) << 2;
+      va = ld4(As + ra * kBK + ch), vb = ld4(As + (ra + 8) * kBK + ch);
+    }
 #pragma unroll
     for (int e2 = 0; e2 < 2; ++e2) {
       const int t = 2 * G + e2;
       const float v[4] = {at(va, 2 * e2), at(vb, 2 * e2), at(va, 2 * e2 + 1), at(vb, 2 * e2 + 1)};
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float hi = tf32x3::round_tf32(v[r]);
+        const float hi = BF ? v[r] : tf32x3::round_tf32(v[r]);
         ahi[t][r] = __float_as_uint(hi);
-        alo[t][r] = __float_as_uint(tf32x3::round_tf32(v[r] - hi));
+        alo[t][r] = __float_as_uint(BF ? 0.f : tf32x3::round_tf32(v[r] - hi));
       }
     }
   }
@@ -617,9 +705,13 @@ __device__ __forceinline__ void stage_mma(const float* As, const float* Bs, floa
       float(&dd)[K::kAcc] = d[K::kChunks == 1 ? t : c];
       const uint64_t off = 2 * t + c * K::kW * 8;  // 32 bytes a k-step, 128 bytes a row, in 16-byte units
       const int fresh = K::kChunks == 1 || t == 0;
-      tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bl + off, fresh ? 0 : 1);
-      tf32x3::wgmma_rs<K::kW>(dd, alo[t], bh + off, 1);
-      tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bh + off, 1);
+      if constexpr (BF) {
+        tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bh + off, fresh ? 0 : 1);
+      } else {
+        tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bl + off, fresh ? 0 : 1);
+        tf32x3::wgmma_rs<K::kW>(dd, alo[t], bh + off, 1);
+        tf32x3::wgmma_rs<K::kW>(dd, ahi[t], bh + off, 1);
+      }
     }
   }
   tf32x3::wgmma_commit();
@@ -673,14 +765,15 @@ __device__ __forceinline__ void slice(int R, int s, int n, int& n0, int& n1) {
   n0 = s * R / n, n1 = (s + 1) * R / n;
 }
 
-template <int NT>
+template <int NT, bool BF>
 __device__ void consumer(const Args& a, const Work& w, const float* ring, const float* wc, uint64_t* full,
                          uint64_t* empty, uint64_t* wc_full, int tid) {
   using K = Rows<NT>;
+  using Ar = Arm<BF>;
   const Dims& d = a.d;
   const Plan& p = a.plan;
   const int wi = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
-  const int slot_floats = kAFloats + 2 * NT * kBK, tile = NT * kTileM;
+  const int slot_floats = Ar::kA + Ar::kPlanes * NT * kBK, tile = NT * kTileM;
   float acc[K::kChunks][K::kAcc];
   int it = 0;
   const auto zero = [&]() {
@@ -694,7 +787,7 @@ __device__ void consumer(const Args& a, const Work& w, const float* ring, const 
       const int s = it % p.stages;
       mbar_wait(&full[s], (it / p.stages) & 1);
       const float* slot = ring + s * slot_floats;
-      if (!(TC_LSTM_SKIP & 2)) stage_mma<NT>(panels ? panels + j * kAFloats : slot, slot + kAFloats, acc, wi, g, q);
+      if (!(TC_LSTM_SKIP & 2)) stage_mma<NT, BF>(panels ? panels + j * Ar::kA : slot, slot + Ar::kA, acc, wi, g, q);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
@@ -763,17 +856,18 @@ __device__ void consumer(const Args& a, const Work& w, const float* ring, const 
 
 // The B planes of h and emb, a group of 16 columns a thread (and zeros in
 // the context planes' padding columns), grid-strided over every block's
-// attention warpgroup.
+// attention warpgroup.  The bf16 instance reads a bf16 emb.
+template <bool BF>
 __device__ void split_planes(const Args& a, int tid) {
   const Dims& d = a.d;
   const int R = d.R, gh = d.Dp / 16, ge = d.Ep / 16, th = R * gh, te = R * ge, pad = d.Cp - d.C;
   for (int idx = blockIdx.x * 128 + tid; idx < th + te + R * pad; idx += gridDim.x * 128) {
     if (idx < th) {
       const int n = idx / gh, G = idx % gh;
-      split_group(a.h + (size_t)n * d.D, d.D, a.hpl + (size_t)n * d.Dp + 16 * G, (long long)R * d.Dp, G);
+      split_group<BF, false>(a.h, (size_t)n * d.D, d.D, a.hpl + (size_t)n * d.Dp + 16 * G, (long long)R * d.Dp, G);
     } else if (idx < th + te) {
       const int i = idx - th, n = i / ge, G = i % ge;
-      split_group(a.emb + (size_t)n * d.E, d.E, a.epl + (size_t)n * d.Ep + 16 * G, (long long)R * d.Ep, G);
+      split_group<BF, BF>(a.emb, (size_t)n * d.E, d.E, a.epl + (size_t)n * d.Ep + 16 * G, (long long)R * d.Ep, G);
     } else {
       const int i = idx - th - te, n = i / pad, at_ = n * d.Cp + slot_of_col(d.C + i % pad);
       a.gpl[at_] = 0.f;
@@ -815,13 +909,15 @@ __device__ __forceinline__ float af_1(const Args& a, int tile0, const float* bia
   return v + bias[i];
 }
 
-// Scores of pixels p0 .. p0 + np - 1 of row r into s[] (every lane).
+// Scores of pixels p0 .. p0 + np - 1 of row r into s[] (every lane); att1
+// f32, or bf16 widened (BF).
+template <bool BF>
 __device__ __forceinline__ void scores(const Args& a, int r, int p0, int np, int lane, float (&s)[kPix]) {
   const Dims& d = a.d;
 #pragma unroll
   for (int j = 0; j < kPix; ++j) s[j] = 0.f;
   if (TC_LSTM_SKIP & 1) return;
-  const float* a1 = a.att1 + ((size_t)r * d.P + p0) * d.A;
+  const size_t a1 = ((size_t)r * d.P + p0) * d.A;  // element of att1
   if (d.A % 4 == 0) {
     for (int i0 = 0; i0 < d.A; i0 += 512) {  // 4 float4 a lane
       float4 x2[4], wf[4], x1[kPix][4];
@@ -830,7 +926,7 @@ __device__ __forceinline__ void scores(const Args& a, int r, int p0, int np, int
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int i = i0 + 4 * (lane + 32 * u);
-          x1[j][u] = j < np && i < d.A ? ldg4(a1 + (size_t)j * d.A + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+          x1[j][u] = j < np && i < d.A ? ldx4<BF>(a.att1, a1 + (size_t)j * d.A + i) : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -852,7 +948,8 @@ __device__ __forceinline__ void scores(const Args& a, int r, int p0, int np, int
   } else {
     for (int j = 0; j < np; ++j)
       for (int i = lane; i < d.A; i += 32)
-        s[j] = fmaf(fmaxf(__ldg(a1 + (size_t)j * d.A + i) + af_1(a, 0, a.bd, r, i), 0.f), __ldg(a.wfull + i), s[j]);
+        s[j] = fmaf(fmaxf(ldx1<BF>(a.att1, a1 + (size_t)j * d.A + i) + af_1(a, 0, a.bd, r, i), 0.f), __ldg(a.wfull + i),
+                    s[j]);
   }
 #pragma unroll
   for (int j = 0; j < kPix; ++j) s[j] = warp_sum(s[j]);
@@ -872,7 +969,9 @@ __device__ void softmax_row(const Args& a, int r, int lane) {
 }
 
 // gctx[r, c] = sigmoid(fb[r, c]) * sum_p alpha_p enc[r, p, c] for the
-// context chunk j, into the context planes.
+// context chunk j, into the context planes; enc f32, or bf16 widened (BF),
+// the planes as store_split<BF> writes them.
+template <bool BF>
 __device__ void context(const Args& a, int r, int j, int lane) {
   const Dims& d = a.d;
   const float* al = a.alpha + (size_t)r * d.P;
@@ -889,7 +988,7 @@ __device__ void context(const Args& a, int r, int j, int lane) {
           float4 e[kCtxInFlight];
 #pragma unroll
           for (int u = 0; u < kCtxInFlight; ++u)
-            e[u] = on && pp + u < pn ? ldg4(a.enc + ((size_t)r * d.P + p0 + pp + u) * d.C + c)
+            e[u] = on && pp + u < pn ? ldx4<BF>(a.enc, ((size_t)r * d.P + p0 + pp + u) * d.C + c)
                                      : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
           for (int u = 0; u < kCtxInFlight; ++u) {
@@ -905,7 +1004,7 @@ __device__ void context(const Args& a, int r, int j, int lane) {
       const float4 f = af_4(a, d.n_att, a.bfb, r, c);
       const float v[4] = {sigmoid(f.x) * acc.x, sigmoid(f.y) * acc.y, sigmoid(f.z) * acc.z, sigmoid(f.w) * acc.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store_split(a.gpl, lo, (size_t)r * d.Cp + slot_of_col(c + e), v[e]);
+      for (int e = 0; e < 4; ++e) store_split<BF>(a.gpl, lo, (size_t)r * d.Cp + slot_of_col(c + e), v[e]);
     }
   } else {
 #pragma unroll
@@ -914,12 +1013,14 @@ __device__ void context(const Args& a, int r, int j, int lane) {
       float acc = 0.f;
       if (!(TC_LSTM_SKIP & 1))
         for (int p = 0; p < d.P; ++p)
-          acc = fmaf(__ldcg(al + p), c < d.C ? __ldg(a.enc + ((size_t)r * d.P + p) * d.C + c) : 0.f, acc);
-      if (c < d.C) store_split(a.gpl, lo, (size_t)r * d.Cp + slot_of_col(c), sigmoid(af_1(a, d.n_att, a.bfb, r, c)) * acc);
+          acc = fmaf(__ldcg(al + p), c < d.C ? ldx1<BF>(a.enc, ((size_t)r * d.P + p) * d.C + c) : 0.f, acc);
+      if (c < d.C)
+        store_split<BF>(a.gpl, lo, (size_t)r * d.Cp + slot_of_col(c), sigmoid(af_1(a, d.n_att, a.bfb, r, c)) * acc);
     }
   }
 }
 
+template <bool BF>
 __device__ void attention(const Args& a, int tid) {
   const Dims& d = a.d;
   const int lane = tid & 31, wi = tid >> 5;
@@ -927,7 +1028,7 @@ __device__ void attention(const Args& a, int tid) {
   int* row_ready = row_cnt + d.R;
   int* ctx_cnt = row_ready + d.R;
 
-  split_planes(a, tid);
+  split_planes<BF>(a, tid);
   TIMELINE(2, 1);
   __threadfence();
   wg_sync(kBarAttention);
@@ -945,7 +1046,7 @@ __device__ void attention(const Args& a, int tid) {
   for (int t = gw; t < d.R * npg; t += nwarps) {
     const int r = t / npg, p0 = (t % npg) * kPix, np = d.P - p0 < kPix ? d.P - p0 : kPix;
     float s[kPix];
-    scores(a, r, p0, np, lane, s);
+    scores<BF>(a, r, p0, np, lane, s);
     int last = 0;
     if (lane == 0) {  // its own stores, released by the count itself
       for (int j = 0; j < np; ++j) a.score[(size_t)r * d.P + p0 + j] = s[j] + bfull;
@@ -964,7 +1065,7 @@ __device__ void attention(const Args& a, int tid) {
     const int r = t / d.nj, j = t % d.nj;
     if (lane == 0) wait_flag(row_ready + r, 1);
     __syncwarp();
-    context(a, r, j, lane);
+    context<BF>(a, r, j, lane);
     __threadfence();
     __syncwarp();
     if (lane == 0) red_release_add(ctx_cnt + j, 1);
@@ -974,14 +1075,14 @@ __device__ void attention(const Args& a, int tid) {
 
 // ------------------------------------------------------------- the kernel
 
-template <int NT>
+template <int NT, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) lstm_step_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args a) {
   extern __shared__ uint8_t smem_raw[];
   // Slots and panels start on 1024-byte boundaries, where the 128-byte
   // swizzle pattern starts over (the descriptors' base offset 0).
   float* ring = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  float* wc = ring + a.plan.stages * (kAFloats + 2 * NT * kBK);
-  uint64_t* full = reinterpret_cast<uint64_t*>(wc + a.plan.wc_stages * kAFloats);
+  float* wc = ring + a.plan.stages * (Arm<BF>::kA + Arm<BF>::kPlanes * NT * kBK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(wc + a.plan.wc_stages * Arm<BF>::kA);
   uint64_t* empty = full + kMaxStages;
   uint64_t* wc_full = empty + kMaxStages;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
@@ -1001,16 +1102,16 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_step_kernel(const __grid_con
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 64;");
     TIMELINE(0, 0);
-    producer(a, maps, w, ring, wc, full, empty, wc_full, tid);
+    producer<BF>(a, maps, w, ring, wc, full, empty, wc_full, tid);
     TIMELINE(0, 3);
   } else if (wg == 1) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     TIMELINE(1, 0);
-    consumer<NT>(a, w, ring, wc, full, empty, wc_full, tid);
+    consumer<NT, BF>(a, w, ring, wc, full, empty, wc_full, tid);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 208;");
     TIMELINE(2, 0);
-    attention(a, tid);
+    attention<BF>(a, tid);
   }
 
   // The last block out zeroes the flags for the next launch: every other
@@ -1028,38 +1129,42 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_step_kernel(const __grid_con
 // ------------------------------------------------------------- host side
 
 cudaError_t encode(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                   const cuuint32_t* box) {
+                   const cuuint32_t* box, bool bf16 = false) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(p), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                        const_cast<void*>(p), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        bf16 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A weight (rows, K) as 32 x 64 boxes.
-cudaError_t weight_map(CUtensorMap* map, const float* w, int rows, int K) {
+// A weight (rows, K) of f32 or bf16 elements as 32 x 64 boxes.
+cudaError_t weight_map(CUtensorMap* map, const float* w, int rows, int K, bool bf16) {
+  const cuuint64_t es = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * es};
   const cuuint32_t box[2] = {kBK, kTileM};
-  return encode(map, w, 2, dims, strides, box);
+  return encode(map, w, 2, dims, strides, box, bf16);
 }
 
 // A gate weight (4D, K) as (K, D, 4): boxes of 32 columns x 16 units x 4 gates.
-cudaError_t gate_map(CUtensorMap* map, const float* w, int D, int K) {
+cudaError_t gate_map(CUtensorMap* map, const float* w, int D, int K, bool bf16) {
+  const cuuint64_t es = bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)D, 4};
-  const cuuint64_t strides[2] = {(cuuint64_t)K * 4, (cuuint64_t)K * D * 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * es, (cuuint64_t)K * D * es};
   const cuuint32_t box[3] = {kBK, kGateUnits, 4};
-  return encode(map, w, 3, dims, strides, box);
+  return encode(map, w, 3, dims, strides, box, bf16);
 }
 
-// B planes (2, R, Kp) as boxes of 32 columns x nt rows x both planes; rows
-// past R arrive as zeros.
-cudaError_t plane_map(CUtensorMap* map, const float* p, int R, int Kp, int nt) {
+// B planes (2, R, Kp) as boxes of 32 columns x nt rows x `planes` planes
+// (both, or the bf16 instance's hi plane alone); rows past R arrive as
+// zeros.
+cudaError_t plane_map(CUtensorMap* map, const float* p, int R, int Kp, int nt, int planes) {
   const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)R, 2};
   const cuuint64_t strides[2] = {(cuuint64_t)Kp * 4, (cuuint64_t)R * Kp * 4};
-  const cuuint32_t box[3] = {kBK, (cuuint32_t)nt, 2};
+  const cuuint32_t box[3] = {kBK, (cuuint32_t)nt, (cuuint32_t)planes};
   return encode(map, p, 3, dims, strides, box);
 }
 
@@ -1079,19 +1184,20 @@ long long carve(const Dims& d, const Plan& p, float* work, Args* a) {
 }
 
 template <int NT>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(lstm_step_kernel<NT>);
+const void* kernel_of(bool bf16) {
+  return bf16 ? reinterpret_cast<const void*>(lstm_step_kernel<NT, true>)
+              : reinterpret_cast<const void*>(lstm_step_kernel<NT, false>);
 }
 
-const void* instance(int nt) {
+const void* instance(int nt, bool bf16) {
   switch (nt) {
-    case 16: return kernel_of<16>();
-    case 32: return kernel_of<32>();
-    case 48: return kernel_of<48>();
-    case 64: return kernel_of<64>();
-    case 96: return kernel_of<96>();
-    case 128: return kernel_of<128>();
-    case 160: return kernel_of<160>();
+    case 16: return kernel_of<16>(bf16);
+    case 32: return kernel_of<32>(bf16);
+    case 48: return kernel_of<48>(bf16);
+    case 64: return kernel_of<64>(bf16);
+    case 96: return kernel_of<96>(bf16);
+    case 128: return kernel_of<128>(bf16);
+    case 160: return kernel_of<160>(bf16);
     default: return nullptr;
   }
 }
@@ -1099,11 +1205,11 @@ const void* instance(int nt) {
 constexpr int kMaxDevices = 16;
 constexpr int kNumInstances = sizeof(kInstances) / sizeof(kInstances[0]);
 
-// Per device, asked once: the SM count; per instance, the shared-memory
-// attribute set and one block per SM confirmed.
+// Per device, asked once: the SM count; per instance (f32, then bf16), the
+// shared-memory attribute set and one block per SM confirmed.
 struct DeviceState {
   int sms = 0;
-  bool ready[kNumInstances] = {};
+  bool ready[2][kNumInstances] = {};
 };
 DeviceState g_state[kMaxDevices];
 
@@ -1111,7 +1217,7 @@ DeviceState g_state[kMaxDevices];
 struct MapCache {
   bool valid = false;
   const void* ptrs[6];
-  int dims[8];
+  int dims[9];
   Maps maps;
 };
 MapCache g_maps[kMaxDevices];
@@ -1124,29 +1230,29 @@ int instance_index(int nt) {
 
 // The device's SM count, and the instance i's attribute and occupancy,
 // each asked once.
-cudaError_t ready(int dev, int i) {
+cudaError_t ready(int dev, int i, bool bf16) {
   DeviceState& st = g_state[dev];
   if (!st.sms) {
     cudaError_t err = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  if (!st.ready[i]) {
-    const void* k = instance(kInstances[i]);
+  if (!st.ready[bf16][i]) {
+    const void* k = instance(kInstances[i], bf16);
     cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return err;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, kSmemLimit);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    st.ready[i] = true;
+    st.ready[bf16][i] = true;
   }
   return cudaSuccess;
 }
 
-cudaError_t maps_for(int dev, const Args& a, Maps* out) {
+cudaError_t maps_for(int dev, const Args& a, bool bf16, Maps* out) {
   MapCache& mc = g_maps[dev];
   const void* ptrs[6] = {a.wd, a.wfb, a.w_hh, a.w_ih_e, a.w_ih_c, a.hpl};
-  const int dims[8] = {a.d.R, a.d.E, a.d.D, a.d.A, a.d.C, a.plan.nt, a.tma, (int)(a.gpl - a.hpl)};
+  const int dims[9] = {a.d.R, a.d.E, a.d.D, a.d.A, a.d.C, a.plan.nt, a.tma, (int)(a.gpl - a.hpl), bf16};
   if (mc.valid && !memcmp(mc.ptrs, ptrs, sizeof ptrs) && !memcmp(mc.dims, dims, sizeof dims)) {
     *out = mc.maps;
     return cudaSuccess;
@@ -1154,17 +1260,18 @@ cudaError_t maps_for(int dev, const Args& a, Maps* out) {
   Maps m;
   memset(&m, 0, sizeof m);
   const Dims& d = a.d;
+  const int planes = bf16 ? Arm<true>::kPlanes : Arm<false>::kPlanes;
   cudaError_t err = cudaSuccess;
   if (a.tma) {
-    if (err == cudaSuccess) err = weight_map(&m.wd, a.wd, d.A, d.D);
-    if (err == cudaSuccess) err = weight_map(&m.wfb, a.wfb, d.C, d.D);
-    if (err == cudaSuccess) err = gate_map(&m.whh, a.w_hh, d.D, d.D);
-    if (err == cudaSuccess) err = gate_map(&m.wie, a.w_ih_e, d.D, d.E);
-    if (err == cudaSuccess) err = gate_map(&m.wic, a.w_ih_c, d.D, d.C);
+    if (err == cudaSuccess) err = weight_map(&m.wd, a.wd, d.A, d.D, bf16);
+    if (err == cudaSuccess) err = weight_map(&m.wfb, a.wfb, d.C, d.D, bf16);
+    if (err == cudaSuccess) err = gate_map(&m.whh, a.w_hh, d.D, d.D, bf16);
+    if (err == cudaSuccess) err = gate_map(&m.wie, a.w_ih_e, d.D, d.E, bf16);
+    if (err == cudaSuccess) err = gate_map(&m.wic, a.w_ih_c, d.D, d.C, bf16);
   }
-  if (err == cudaSuccess) err = plane_map(&m.hpl, a.hpl, d.R, d.Dp, a.plan.nt);
-  if (err == cudaSuccess) err = plane_map(&m.epl, a.epl, d.R, d.Ep, a.plan.nt);
-  if (err == cudaSuccess) err = plane_map(&m.gpl, a.gpl, d.R, d.Cp, a.plan.nt);
+  if (err == cudaSuccess) err = plane_map(&m.hpl, a.hpl, d.R, d.Dp, a.plan.nt, planes);
+  if (err == cudaSuccess) err = plane_map(&m.epl, a.epl, d.R, d.Ep, a.plan.nt, planes);
+  if (err == cudaSuccess) err = plane_map(&m.gpl, a.gpl, d.R, d.Cp, a.plan.nt, planes);
   if (err != cudaSuccess) return err;
   mc.valid = true;
   memcpy(mc.ptrs, ptrs, sizeof ptrs);
@@ -1175,6 +1282,46 @@ cudaError_t maps_for(int dev, const Args& a, Maps* out) {
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// One step of either instance: check the plan and the workspace, make or
+// reuse the tensor maps, launch.
+int step_launch(Args& a, long long work_floats, int* flags, int n_flags, int R, int E, int D, int A, int C, int P,
+                const int* plan, int dev, bool bf16, void* stream, float* work) {
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int cur = 0;
+  cudaGetDevice(&cur);
+  if (cur != dev) cudaSetDevice(dev);
+  Plan want;
+  memcpy(&a.plan, plan, sizeof a.plan);
+  const int inst = instance_index(a.plan.nt);
+  cudaError_t err = inst < 0 ? cudaErrorInvalidValue : ready(dev, inst, bf16);
+  // The caller's plan must be this side's for the card, and the workspace hold it.
+  if (err == cudaSuccess && (make_plan(R, E, D, A, C, P, g_state[dev].sms, bf16, &want) != 0 ||
+                             memcmp(&want, &a.plan, sizeof want) ||
+                             carve(make_dims(R, E, D, A, C, P), want, work, &a) > work_floats ||
+                             make_dims(R, E, D, A, C, P).n_flags > n_flags))
+    err = cudaErrorInvalidValue;
+  a.flags = flags;
+  if (err != cudaSuccess) {
+    if (cur != dev) cudaSetDevice(cur);
+    return (int)err;
+  }
+  a.d = make_dims(R, E, D, A, C, P);
+  // TMA needs 16-byte rows of the weights: K % 4 f32 or K % 8 bf16 values.
+  const int row = bf16 ? 8 : 4;
+  a.tma = D % row == 0 && E % row == 0 && C % row == 0 && aligned16(a.wd) && aligned16(a.wfb) &&
+          aligned16(a.w_hh) && aligned16(a.w_ih_e) && aligned16(a.w_ih_c);
+  Maps maps;
+  err = maps_for(dev, a, bf16, &maps);
+  if (err == cudaSuccess) {
+    void* params[] = {&maps, &a};
+    err = cudaLaunchCooperativeKernel(instance(a.plan.nt, bf16), dim3(a.plan.grid), dim3(kThreads), params,
+                                      (size_t)a.plan.smem, static_cast<cudaStream_t>(stream));
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (cur != dev) cudaSetDevice(cur);
+  return (int)err;
+}
 
 }  // namespace
 
@@ -1189,39 +1336,22 @@ int tc_lstm_step(const float* emb, const float* h, const float* c, const float* 
                  const float* bfb, const float* w_ih_e, const float* w_ih_c, const float* w_hh, const float* b,
                  float* h_out, float* c_out, float* alpha, float* work, long long work_floats, int* flags,
                  int n_flags, int R, int E, int D, int A, int C, int P, const int* plan, int dev, void* stream) {
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int cur = 0;
-  cudaGetDevice(&cur);
-  if (cur != dev) cudaSetDevice(dev);
   Args a{emb, h, c, enc, att1, wd, bd, wfull, bfull, wfb, bfb, w_ih_e, w_ih_c, w_hh, b, h_out, c_out, alpha};
-  Plan want;
-  memcpy(&a.plan, plan, sizeof a.plan);
-  const int inst = instance_index(a.plan.nt);
-  cudaError_t err = inst < 0 ? cudaErrorInvalidValue : ready(dev, inst);
-  // The caller's plan must be this side's for the card, and the workspace hold it.
-  if (err == cudaSuccess && (make_plan(R, E, D, A, C, P, g_state[dev].sms, &want) != 0 ||
-                             memcmp(&want, &a.plan, sizeof want) ||
-                             carve(make_dims(R, E, D, A, C, P), want, work, &a) > work_floats ||
-                             make_dims(R, E, D, A, C, P).n_flags > n_flags))
-    err = cudaErrorInvalidValue;
-  a.flags = flags;
-  if (err != cudaSuccess) {
-    if (cur != dev) cudaSetDevice(cur);
-    return (int)err;
-  }
-  a.d = make_dims(R, E, D, A, C, P);
-  a.tma = D % 4 == 0 && E % 4 == 0 && C % 4 == 0 && aligned16(wd) && aligned16(wfb) && aligned16(w_hh) &&
-          aligned16(w_ih_e) && aligned16(w_ih_c);
-  Maps maps;
-  err = maps_for(dev, a, &maps);
-  if (err == cudaSuccess) {
-    void* params[] = {&maps, &a};
-    err = cudaLaunchCooperativeKernel(instance(a.plan.nt), dim3(a.plan.grid), dim3(kThreads), params,
-                                      (size_t)a.plan.smem, static_cast<cudaStream_t>(stream));
-    if (err == cudaSuccess) err = cudaGetLastError();
-  }
-  if (cur != dev) cudaSetDevice(cur);
-  return (int)err;
+  return step_launch(a, work_floats, flags, n_flags, R, E, D, A, C, P, plan, dev, false, stream, work);
+}
+
+// The bf16 instance: the same arguments, with emb, enc, att1 and the five
+// weight matrices (wd, wfb, w_ih_e, w_ih_c, w_hh) in bf16 and the rest f32;
+// the plan is lstm_plan(..., esize=2).
+int tc_lstm_step_bf16(const void* emb, const float* h, const float* c, const void* enc, const void* att1,
+                      const void* wd, const float* bd, const float* wfull, const float* bfull, const void* wfb,
+                      const float* bfb, const void* w_ih_e, const void* w_ih_c, const void* w_hh, const float* b,
+                      float* h_out, float* c_out, float* alpha, float* work, long long work_floats, int* flags,
+                      int n_flags, int R, int E, int D, int A, int C, int P, const int* plan, int dev, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };  // Args' pointer type (see Args)
+  Args a{f(emb), h, c, f(enc), f(att1), f(wd), bd, wfull, bfull, f(wfb), bfb, f(w_ih_e), f(w_ih_c), f(w_hh), b,
+         h_out, c_out, alpha};
+  return step_launch(a, work_floats, flags, n_flags, R, E, D, A, C, P, plan, dev, true, stream, work);
 }
 
 #ifdef TC_LSTM_TIMELINE

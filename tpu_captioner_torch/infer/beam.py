@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from tpu_captioner_torch.models.lstm import flatten_pixels
 from tpu_captioner_torch.ops.decode_step import apply_cache_update, fused_decode_step
-from tpu_captioner_torch.ops.lstm_step import fused_lstm_step, prepare_lstm_weights
+from tpu_captioner_torch.ops.lstm_step import fused_lstm_step
 
 
 class BeamResult(NamedTuple):
@@ -188,19 +188,29 @@ def _transformer_beam_fused(model, enc_out, beam_size, max_steps):
 def _lstm_attention_beam(model, enc_out, beam_size, max_steps):
     """LSTM with attention: the plain ``step`` or, with the decode kernel,
     ``fused_lstm_step`` over all B*k rows (the CUDA kernel for CUDA
-    tensors).  Eval: no dropout before the head (caption.py:512)."""
+    tensors) in the arm of the model's dtype (``kernel_operands``: a bf16
+    model's weight matrices, features, their projection and the embedded
+    tokens in bf16, as tpu_captioner/infer/beam.py:185-230 takes them on its
+    chip).  The plain step runs in f32 on widened features.  Eval: no
+    dropout before the head (caption.py:512)."""
     dec = model.decoder
     B, k = enc_out.shape[0], beam_size
     V, P = model.cfg.vocab_size, model.cfg.num_pixels
     enc = flatten_pixels(enc_out)
-    enc_k = enc.repeat_interleave(k, dim=0).contiguous()  # (B*k, P, C), image-major
-    att1 = dec.attention.encoder_att(enc).repeat_interleave(k, dim=0).contiguous()
-    h0, c0 = dec.init_hidden_state(enc_k)
+    h0, c0 = dec.init_hidden_state(enc.repeat_interleave(k, dim=0))
+
+    def rows(t):  # (B, ...) -> (B*k, ...), image-major
+        return t.repeat_interleave(k, dim=0).contiguous()
+
     if model.use_decode_kernel():
-        w = prepare_lstm_weights(dec)
-        cell = lambda h, c, emb: fused_lstm_step(w, emb, h, c, enc_k, att1)  # noqa: E731
+        dt = model.dtype
+        w, enc_s, att1 = dec.kernel_operands(enc, dt)
+        enc_s, att1 = rows(enc_s), rows(att1)
+        cell = lambda h, c, emb: fused_lstm_step(w, emb.to(dt), h, c, enc_s, att1)  # noqa: E731
     else:
-        cell = lambda h, c, emb: dec.step(h, c, emb, enc_k, att1)  # noqa: E731
+        enc_s = rows(enc.float())
+        att1 = rows(dec.attention.encoder_att(enc.float()))
+        cell = lambda h, c, emb: dec.step(h, c, emb, enc_s, att1)  # noqa: E731
 
     def step_fn(state, prev_words, _pos):
         h, c, alpha = cell(*state, dec.embedding(prev_words.reshape(-1)))

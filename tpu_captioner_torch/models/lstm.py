@@ -29,6 +29,19 @@ state before the head (tpu_captioner/models/lstm.py:253, 445), drawn once
 per token from the rollout's generator, autograd through the loop, and
 every step run.  They return (logits (B, T, V), sequences
 (B, T) int32, attention maps (B, T, P), or None without attention).
+
+A bf16 model (``compute_dtype='bfloat16'``) hands its decoder bf16 encoder
+features, and the decoder's parameters stay f32, as in the JAX package,
+whose f32 weights promote each product with the features to f32.  PyTorch
+refuses mixed-dtype products, so the features are widened where JAX
+promotes them (the widening's backward rounds their cotangent to bf16, as
+JAX's convert does), and the initial state's mean pixel is rounded to bf16
+as ``jnp.mean`` of bf16 pixels returns it (tpu_captioner/models/
+lstm.py:103-105).  The plain paths then compute in f32.  ``fused_rollout``
+takes the kernel's arm of its ``dtype`` (a ``CaptionModel`` passes its
+own): in bf16, ``cast_lstm_weight_matrices`` of the weights with the bf16
+features, their bf16-rounded ``encoder_att`` projection and the embedded
+token in bf16 (tpu_captioner/models/lstm.py:321-337).
 """
 
 from __future__ import annotations
@@ -104,9 +117,13 @@ class _LstmDecoder(nn.Module):
         return (self.init_h, self.init_c)
 
     def init_hidden_state(self, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(h0, c0) from the mean pixel of ``enc`` (B, P, C) (decoder.py:63-67)."""
-        mean = enc.mean(dim=1)
-        return self.init_h(mean), self.init_c(mean)
+        """(h0, c0) from the mean pixel of ``enc`` (B, P, C), f32 or bf16
+        (decoder.py:63-67); a bf16 mean is summed in f32 and rounded to
+        bf16, as ``jnp.mean`` returns it, and widened for each of its two
+        products apart, so that each one's cotangent is rounded to bf16 and
+        the two are added in bf16, as JAX's two promotions do."""
+        mean = enc.float().mean(dim=1).to(enc.dtype)
+        return self.init_h(mean.float()), self.init_c(mean.float())
 
     def _rollout(
         self, h0: torch.Tensor, c0: torch.Tensor, step_fn: Callable, start_id: int, end_id: int,
@@ -182,8 +199,9 @@ class DecoderWithAttention(_LstmDecoder):
         decode-length mask."""
         enc = flatten_pixels(encoder_out)
         att, cell = self.attention, self.decode_step
-        att1 = att.encoder_att(enc)
         h, c = self.init_hidden_state(enc)
+        enc = enc.float()
+        att1 = att.encoder_att(enc)
         embs = self.embedding(captions[:, :-1])  # (B, T, E)
         E, A, C = embs.shape[-1], att1.shape[-1], enc.shape[-1]
         emb_gates = F.linear(embs, cell.weight_ih[:, :E])  # (B, T, 4D)
@@ -211,26 +229,36 @@ class DecoderWithAttention(_LstmDecoder):
     ):
         """Greedy decode over the plain ``step``; ``train`` as ``_rollout``."""
         enc = flatten_pixels(encoder_out)
-        att1 = self.attention.encoder_att(enc)
         h0, c0 = self.init_hidden_state(enc)
+        enc = enc.float()
+        att1 = self.attention.encoder_att(enc)
         return self._rollout(
             h0, c0, lambda h, c, emb: self.step(h, c, emb, enc, att1),
             start_id, end_id, max_decode_len, generator, teacher_tokens, teacher_prob, train,
         )
 
+    def kernel_operands(self, enc: torch.Tensor, dt: torch.dtype):
+        """(weights, enc, att1) of ``fused_lstm_step`` in the arm of the
+        storage dtype ``dt`` for the features ``enc`` (R, P, C), f32 or bf16:
+        the five weight matrices, the features and their ``encoder_att``
+        projection (computed in f32) in ``dt``, the rest f32."""
+        w = lstm_ops.cast_lstm_weight_matrices(lstm_ops.prepare_lstm_weights(self), dt)
+        att1 = self.attention.encoder_att(enc.float())
+        return w, enc.to(dt).contiguous(), att1.to(dt).contiguous()
+
     def fused_rollout(
         self, encoder_out: torch.Tensor, start_id: int, end_id: int, max_decode_len: int, *,
-        generator: Optional[torch.Generator] = None, teacher_tokens: Optional[torch.Tensor] = None,
-        teacher_prob: float = 0.0,
+        dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None,
+        teacher_tokens: Optional[torch.Tensor] = None, teacher_prob: float = 0.0,
     ):
         """``rollout`` with each token's attention and cell in
-        ``fused_lstm_step`` (one kernel launch per token on the card)."""
-        enc = flatten_pixels(encoder_out).contiguous()
-        att1 = self.attention.encoder_att(enc)
+        ``fused_lstm_step`` (one kernel launch per token on the card), in the
+        arm of ``dtype`` (``kernel_operands``; the embedded token in it too)."""
+        enc = flatten_pixels(encoder_out)
         h0, c0 = self.init_hidden_state(enc)
-        w = lstm_ops.prepare_lstm_weights(self)
+        w, enc_s, att1 = self.kernel_operands(enc, dtype)
         return self._rollout(
-            h0, c0, lambda h, c, emb: lstm_ops.fused_lstm_step(w, emb, h, c, enc, att1),
+            h0, c0, lambda h, c, emb: lstm_ops.fused_lstm_step(w, emb.to(dtype), h, c, enc_s, att1),
             start_id, end_id, max_decode_len, generator, teacher_tokens, teacher_prob,
         )
 

@@ -46,7 +46,9 @@ f32, as the JAX package's bf16 model does (its f32 weights promote the
 product).  The per-token kernel takes its bf16 arm there
 (``kernel_operands``): bf16 weight matrices, memory K/V and caches, the
 embedded token cast to bf16, logits from its f32 output
-(tpu_captioner/models/transformer.py:519-552).
+(tpu_captioner/models/transformer.py:519-552); ``mega_rollout`` its bf16
+instance on what JAX's ``storage_dtype=bfloat16`` casts (:391-395): those
+and the embedding table and ``fc_w``.
 """
 
 from __future__ import annotations
@@ -454,19 +456,25 @@ class TransformerDecoder(nn.Module):
         end_id: int,
         max_decode_len: int,
         *,
+        dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         teacher_tokens: Optional[torch.Tensor] = None,
         teacher_prob: float = 0.0,
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """``rollout`` as one ``fused_full_rollout`` call: the embedding
         lookup, every decode step, the vocab head, the argmax and the token
-        feedback in one kernel launch for CUDA tensors."""
+        feedback in one kernel launch for CUDA tensors, in the arm of
+        ``dtype`` (a ``CaptionModel`` passes its own): in bf16 the weight
+        matrices, memory K/V (projected in f32), embedding table and
+        ``fc_w`` are cast, and the layers' biases and LayerNorm parameters
+        rounded to bf16 (kept f32 for the kernel), as JAX's
+        ``storage_dtype`` casts every layer weight
+        (tpu_captioner/models/transformer.py:391-395); ``fc_b`` stays f32."""
         c = self.cfg
-        E = c.embed_dim
         mem = self.project_memory(encoder_out)
         B = mem.shape[0]
-        w = decode_ops.prepare_decode_weights(self.layers, E)
-        mem_k, mem_v = decode_ops.prepare_cross_memory(self.layers, mem, E)
+        w, mem_k, mem_v, _, _ = self.kernel_operands(mem, 0, dtype)
+        w = w._replace(**{f: v.to(dtype).float() for f, v in w._asdict().items() if v.dtype == torch.float32})
         emb = self.embedding.weight
         if c.embedding_path is not None:
             # padding_idx semantics (transformerDecoder.py:74): the kernel
@@ -475,7 +483,7 @@ class TransformerDecoder(nn.Module):
             emb[0] = 0.0
         teacher, use = teacher_schedule(teacher_tokens, teacher_prob, generator, max_decode_len, B, mem.device)
         logits, seqs, alphas = decode_ops.fused_full_rollout(
-            w, emb.contiguous(), self.fc_out.weight, self.fc_out.bias, self.pe, mem_k, mem_v,
+            w, emb.to(dtype).contiguous(), self.fc_out.weight.to(dtype), self.fc_out.bias, self.pe, mem_k, mem_v,
             start_id, end_id, max_decode_len, c.num_heads, teacher=teacher, use_teacher=use,
         )
         return logits, seqs, alphas if self.capture_alphas else None

@@ -35,11 +35,15 @@ sum in f32 (JAX's ``mxu_dtype=bfloat16``, :233-237), the head-selector sums
 included (:150, 155, 165, 169): each q.k product and each softmax
 probability is rounded to bf16 before it is summed per head; its k_new and
 v_new are bf16 and x_out and alpha f32, as the JAX kernel's.  Its plain
-version is ``_decode_step_plain_bf16``; its kernel,
-``decode_layer_kernel``'s bf16 instance.  The wrapper accepts JAX's
-``precise`` only as a check of the weights' dtype (a mismatch raises
-``ValueError``); the one-cell and whole-rollout kernels take f32 only
-(ROADMAP.md Queue 1 #5e).
+version is ``_decode_step_plain_bf16``; its kernels, the bf16 instances of
+``decode_layer_kernel`` and (``one_cell``) ``decode_onecell_kernel``, whose
+outputs are the same bits.  The wrapper accepts JAX's ``precise`` only as a
+check of the weights' dtype (a mismatch raises ``ValueError``).
+``fused_full_rollout`` takes the same two arms by the weights' dtype: the
+bf16 one on the operands JAX's ``storage_dtype=bfloat16`` casts (the six
+matrices, memory K/V, embedding table and ``fc_w``; ``fc_b`` and the PE
+table f32), with bf16 caches, the vocab head's products rounded like the
+layers', f32 logits; its plain version is ``_full_rollout_plain_bf16``.
 """
 
 from __future__ import annotations
@@ -95,13 +99,13 @@ def decode_plan(kind: str, R: int, T: int, P: int, E: int, H: int, F: int, sms: 
     chunk (up to 64), then the widest ring units, that leave room for a ring
     of 8 units (a layer's, at one unit per product; else 2, else 1), then as
     many units as fit (all of the layer's in the per-layer kernel).
-    ``esize`` is the bytes of a weight element, 4, or 2 for the per-layer
-    kernel's bf16 arm: the ring holds the weights as they are stored, so
-    ``slot_floats`` counts elements of that size.  Raises ValueError when
-    the shapes do not fit a block's shared memory."""
+    ``esize`` is the bytes of a weight element, 4, or 2 for the kernels'
+    bf16 instances: the ring holds the weights (and the rollout's head) as
+    they are stored, so ``slot_floats`` counts elements of that size.
+    Raises ValueError when the shapes do not fit a block's shared memory."""
     rollout = kind == "rollout"
-    if esize not in (2, 4) or (esize == 2 and kind != "layer"):
-        raise ValueError(f"decode_plan: weights of 4 bytes, or 2 for the per-layer kernel, got {esize} for {kind!r}")
+    if esize not in (2, 4):
+        raise ValueError(f"decode_plan: weights of 4 or 2 bytes, got {esize} for {kind!r}")
     for need in (8, 2, 1):
         for gr in (2, 1) if kind == "layer" and R >= 2 * _ROW_TILE and sms >= 2 else (1,):
             plan = _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V if rollout else 0, esize)
@@ -372,10 +376,12 @@ def _lib():
     for fn in (lib.tc_decode_layer_forward, lib.tc_decode_layer_forward_bf16):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 9 + plan
-    lib.tc_decode_onecell_forward.restype = ctypes.c_int
-    lib.tc_decode_onecell_forward.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + plan
-    lib.tc_decode_rollout.restype = ctypes.c_int
-    lib.tc_decode_rollout.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 + plan
+    for fn in (lib.tc_decode_onecell_forward, lib.tc_decode_onecell_forward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + plan
+    for fn in (lib.tc_decode_rollout, lib.tc_decode_rollout_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 9 + plan
     lib.tc_decode_scratch_floats.restype = ctypes.c_longlong
     lib.tc_decode_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.tc_rollout_scratch_floats.restype = ctypes.c_longlong
@@ -410,9 +416,8 @@ def fused_decode_step(
     The weights' dtype picks the instance, f32 or the bf16 arm (the module
     docstring); ``precise``, when given, must be that arm's (True for f32,
     False for bf16) or ValueError is raised, as it is for weights of
-    another dtype; the bf16 arm with ``one_cell`` raises
-    NotImplementedError.  Forward only: raises on every device
-    when autograd would need its gradient."""
+    another dtype.  Forward only: raises on every device when autograd
+    would need its gradient."""
     _build.refuse_autograd(
         "fused_decode_step", (*w, x, cache_k, cache_v, mem_k, mem_v),
         "not planned (decoding runs under torch.inference_mode)",
@@ -423,8 +428,6 @@ def fused_decode_step(
         raise ValueError(f"fused_decode_step has no instance for {dt} weights with precise={precise}: "
                          "float32 with precise=True, or bfloat16 with precise=False")
     bf16 = dt == torch.bfloat16
-    if bf16 and one_cell:
-        raise NotImplementedError("the one-cell decode kernel in bf16 is not ported yet: ROADMAP.md Queue 1 #5e")
     if x.device.type == "cpu":
         plain = _decode_step_plain_bf16 if bf16 else _decode_step_plain
         return plain(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads)
@@ -451,11 +454,12 @@ def fused_decode_step(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if one_cell:
-            err = lib.tc_decode_onecell_forward(
-                x.data_ptr(), *rest, L, R, T, P, E, num_heads, Fd, pos, *plan, stream
-            )
+            onecell = lib.tc_decode_onecell_forward_bf16 if bf16 else lib.tc_decode_onecell_forward
+            err = onecell(x.data_ptr(), *rest, L, R, T, P, E, num_heads, Fd, pos, *plan, stream)
             _build.check(lib, err, "decode_onecell")
             fused_decode_step.onecell_launches += 1
+            if bf16:
+                fused_decode_step.onecell_bf16_launches += 1
             return x_out, alpha, k_new, v_new
         for layer in range(L):
             layer_in = x if layer == 0 else x_out  # the hidden state carries in x_out
@@ -472,6 +476,7 @@ def fused_decode_step(
 fused_decode_step.launches = 0  # per-layer kernel launches
 fused_decode_step.onecell_launches = 0  # one-cell kernel launches
 fused_decode_step.bf16_launches = 0  # per-layer launches of the bf16 arm
+fused_decode_step.onecell_bf16_launches = 0  # one-cell launches of the bf16 arm (also in .onecell_launches)
 
 
 def apply_cache_update(cache_k, cache_v, k_new, v_new, pos: int):
@@ -521,6 +526,48 @@ def _full_rollout_plain(
     return logits, seqs, alphas
 
 
+def _full_rollout_plain_bf16(
+    w: DecodeWeights, embedding, fc_w, fc_b, pe, mem_k, mem_v, start_id: int, end_id: int,
+    steps: int, num_heads: int, *, teacher=None, use_teacher=None, sums=torch.float32,
+):
+    """Plain PyTorch version of the rollout kernel's bf16 instance: JAX's
+    ``_mega_kernel`` with ``mxu_dtype=bfloat16`` on ``storage_dtype=bf16``
+    operands (tpu_captioner/ops/decode_step.py:570-735): per token, x =
+    embedding[tok] + pe[s] in f32 (the bf16 row is exact, x not rounded),
+    ``_decode_step_plain_bf16`` with the caches in bf16 (the new k and v
+    rounded as they are stored), logits ``bf16(x) fc_w^T + fc_b`` in f32,
+    the first argmax; the rest as ``_full_rollout_plain``.  ``sums`` as in
+    ``_decode_step_plain_bf16``."""
+    L, R, P, E = mem_k.shape
+    V = fc_w.shape[0]
+    dev = mem_k.device
+    f32 = torch.float32
+    cache_k = mem_k.new_zeros(L, R, steps, E)
+    cache_v = torch.zeros_like(cache_k)
+    tok = torch.full((R,), start_id, dtype=torch.long, device=dev)
+    fin = torch.zeros(R, dtype=torch.bool, device=dev)
+    logits = torch.zeros(R, steps, V, device=dev, dtype=f32)
+    seqs = torch.zeros(R, steps, dtype=torch.int32, device=dev)
+    alphas = torch.zeros(R, steps, P, device=dev, dtype=f32)
+    for s in range(steps):
+        if bool(fin.all()):
+            break
+        if use_teacher is not None:
+            tok = torch.where(use_teacher[s].bool(), teacher[s].long(), tok)
+        x = embedding[tok].to(sums) + pe[s].to(sums)
+        x, alpha, k_new, v_new = _decode_step_plain_bf16(w, x, s, cache_k, cache_v, mem_k, mem_v, num_heads, sums)
+        apply_cache_update(cache_k, cache_v, k_new, v_new, s)
+        logits_s = (F.linear(x.to(torch.bfloat16).to(sums), fc_w.to(sums)) + fc_b.to(sums)).to(f32)
+        pred = logits_s.argmax(dim=-1)
+        act = ~fin
+        logits[:, s] = torch.where(act[:, None], logits_s, 0.0)
+        seqs[:, s] = torch.where(act, pred, 0).to(torch.int32)
+        alphas[:, s] = torch.where(act[:, None], alpha, 0.0)
+        tok = torch.where(act, pred, tok)
+        fin = fin | (act & (pred == end_id))
+    return logits, seqs, alphas
+
+
 def fused_full_rollout(
     w: DecodeWeights,
     embedding: torch.Tensor,  # (V, E), the pad row already zeroed where the model pins it
@@ -544,7 +591,10 @@ def fused_full_rollout(
     sampling).  CUDA tensors launch the kernel once, which also stops once
     every row has finished and leaves the tokens it ran in
     ``fused_full_rollout.steps_run`` (a 0-d tensor on the card); CPU tensors
-    take the plain version; any other device raises.  Forward only."""
+    take the plain version; any other device raises.  The weight matrices'
+    dtype picks the arm (the module docstring): f32, or bf16 with
+    ``embedding``, ``fc_w``, ``mem_k`` and ``mem_v`` in bf16; another dtype
+    raises ValueError.  Forward only."""
     _build.refuse_autograd(
         "fused_full_rollout", (*w, embedding, fc_w, fc_b, pe, mem_k, mem_v),
         "not planned (decoding runs under torch.inference_mode)",
@@ -552,8 +602,15 @@ def fused_full_rollout(
     if (teacher is None) != (use_teacher is None):
         raise ValueError("teacher and use_teacher go together")
     steps = int(steps)
+    dt = w.w_qkv.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_full_rollout has no instance for {dt} weights: float32, or bfloat16")
+    bf16 = dt == torch.bfloat16
     if mem_k.device.type == "cpu":
-        return _full_rollout_plain(
+        for name, t in (("embedding", embedding), ("fc_w", fc_w), ("mem_k", mem_k), ("mem_v", mem_v)):
+            if t.dtype != dt:
+                raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+        return (_full_rollout_plain_bf16 if bf16 else _full_rollout_plain)(
             w, embedding, fc_w, fc_b, pe, mem_k, mem_v, start_id, end_id, steps, num_heads,
             teacher=teacher, use_teacher=use_teacher,
         )
@@ -570,11 +627,11 @@ def fused_full_rollout(
         teacher = teacher.to(dev, torch.int32).contiguous()
         use_teacher = use_teacher.to(dev, torch.int32).contiguous()
     f32 = torch.float32
-    shapes = _weight_shapes(w, L, E, num_heads)
+    shapes = _weight_shapes(w, L, E, num_heads, dt)
     shapes.update({
-        "embedding": (embedding, (V, E), f32), "fc_w": (fc_w, (V, E), f32), "fc_b": (fc_b, (V,), f32),
+        "embedding": (embedding, (V, E), dt), "fc_w": (fc_w, (V, E), dt), "fc_b": (fc_b, (V,), f32),
         "pe": (pe, (steps, E), f32),
-        "mem_k": (mem_k, (L, R, P, E), f32), "mem_v": (mem_v, (L, R, P, E), f32),
+        "mem_k": (mem_k, (L, R, P, E), dt), "mem_v": (mem_v, (L, R, P, E), dt),
     })
     if teacher is not None:
         shapes["teacher"] = (teacher, (steps, R), torch.int32)
@@ -584,17 +641,18 @@ def fused_full_rollout(
     logits = torch.zeros(R, steps, V, device=dev, dtype=f32)
     seqs = torch.zeros(R, steps, device=dev, dtype=torch.int32)
     alphas = torch.zeros(R, steps, P, device=dev, dtype=f32)
-    cache_k = torch.empty(L, R, steps, E, device=dev, dtype=f32)  # slot s is written before it is read
+    cache_k = torch.empty(L, R, steps, E, device=dev, dtype=dt)  # slot s is written before it is read
     cache_v = torch.empty_like(cache_k)
     state = torch.zeros(2 * R + 1, device=dev, dtype=torch.int32)  # tok, fin, tokens run
     state[:R] = start_id
     scratch = torch.empty(
         lib.tc_rollout_scratch_floats(R, E, num_heads, Fd, P), device=dev, dtype=f32
     )
-    plan = _plan_args(decode_plan("rollout", R, steps, P, E, num_heads, Fd, _sms(dev), V))
+    plan = _plan_args(decode_plan("rollout", R, steps, P, E, num_heads, Fd, _sms(dev), V, esize=dt.itemsize))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rollout = lib.tc_decode_rollout_bf16 if bf16 else lib.tc_decode_rollout
     with torch.cuda.device(dev):
-        err = lib.tc_decode_rollout(
+        err = rollout(
             embedding.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(), pe.data_ptr(),
             ptr(teacher), ptr(use_teacher), logits.data_ptr(), seqs.data_ptr(), alphas.data_ptr(),
             *(t.data_ptr() for t in w), mem_k.data_ptr(), mem_v.data_ptr(),
@@ -604,9 +662,12 @@ def fused_full_rollout(
         )
     _build.check(lib, err, "decode_rollout")
     fused_full_rollout.launches += 1
+    if bf16:
+        fused_full_rollout.bf16_launches += 1
     fused_full_rollout.steps_run = state[2 * R]
     return logits, seqs, alphas
 
 
 fused_full_rollout.launches = 0
+fused_full_rollout.bf16_launches = 0  # launches of the bf16 instance (also in .launches)
 fused_full_rollout.steps_run = None

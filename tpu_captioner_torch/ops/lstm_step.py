@@ -15,6 +15,16 @@ For CUDA tensors one call is one cooperative launch of
 ``csrc/lstm_step.cu`` (one per 160 rows beyond 160), planned by
 ``lstm_plan``; for CPU tensors it runs ``_lstm_step_plain``, the same math in
 PyTorch.  Eval only: no dropout, no gradient.
+
+The weights' dtype picks the instance, each an arm of the JAX package's
+``precise`` keyword (tpu_captioner/ops/lstm_step.py:148-157): f32 weights
+(every tensor f32) multiply f32 operands in f32; the five matrices of
+``cast_lstm_weight_matrices(w, bfloat16)`` with bf16 emb, enc and att1 (h,
+c, wfull and the biases f32), JAX's ``precise=False``, round each product's
+activation operand to bf16 and sum the exact bf16 products in f32 (JAX's
+``mxu_dtype=bfloat16``), with enc and att1 consumed in f32 and the softmax,
+alpha, h and c in f32.  Its plain version is ``_lstm_step_plain_bf16``; its
+kernel, ``lstm_step_kernel``'s bf16 instance.
 """
 
 from __future__ import annotations
@@ -88,7 +98,7 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def lstm_plan(R: int, E: int, D: int, A: int, C: int, P: int, sms: int) -> LstmPlan:
+def lstm_plan(R: int, E: int, D: int, A: int, C: int, P: int, sms: int, esize: int = 4) -> LstmPlan:
     """The plan of one launch on a card of ``sms`` SMs, one block each.
     Tiles: ceil(A / 64) of wd and ceil(C / 64) of f_beta, each split over K
     = D into ``af_split`` ranges of 32-column stages; ceil(D / 16) gate tiles
@@ -97,7 +107,13 @@ def lstm_plan(R: int, E: int, D: int, A: int, C: int, P: int, sms: int) -> LstmP
     ``wc_stages`` stages of w_ih_c in shared memory beside a ring of
     ``stages`` slots (a weight stage and the B planes of ``rows`` rows).
     Raises ValueError for R beyond ``MAX_ROWS``, for more tiles than SMs,
-    and when the ring's two slots do not fit a block's shared memory."""
+    and when the ring's two slots do not fit a block's shared memory.
+    ``esize`` is the bytes of a weight element, 4, or 2 for the bf16
+    instance: its ring stages and w_ih_c stages hold the weights as stored,
+    and its stages one B plane (the bf16-rounded activations) where the f32
+    instance's hold two (TF32 hi and lo)."""
+    if esize not in (2, 4):
+        raise ValueError(f"lstm_step: weights of 4 or 2 bytes, got {esize}")
     if min(E, D, A, C, P, sms) < 1:
         raise ValueError(f"lstm_step: every width must be positive, got E={E}, D={D}, A={A}, C={C}, P={P}")
     if not 1 <= R <= MAX_ROWS:
@@ -111,8 +127,9 @@ def lstm_plan(R: int, E: int, D: int, A: int, C: int, P: int, sms: int) -> LstmP
     af_split = min(MAX_SPLIT, sms // n_af, kd)
     gate_split = min(MAX_SPLIT, sms // n_g, kc, kd + ke)
     wc_stages = _cdiv(kc, gate_split)
-    slot = 4 * (TILE * STAGE + 2 * rows * STAGE)
-    fixed = 1024 + 4 * TILE * STAGE * wc_stages + 8 * (2 * MAX_STAGES + 1) + 16
+    planes = 2 if esize == 4 else 1
+    slot = esize * TILE * STAGE + 4 * planes * rows * STAGE
+    fixed = 1024 + esize * TILE * STAGE * wc_stages + 8 * (2 * MAX_STAGES + 1) + 16
     stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
     if stages < 2:
         raise ValueError(
@@ -196,33 +213,84 @@ def _lstm_step_plain(w: LstmStepWeights, emb, h, c, enc, att1):
     return (*lstm_update(gates, c), alpha)
 
 
+_MATRICES = ("wd", "wfb", "w_ih_e", "w_ih_c", "w_hh")
+
+
+def cast_lstm_weight_matrices(w: LstmStepWeights, dtype: torch.dtype) -> LstmStepWeights:
+    """The five weight matrices in ``dtype``; ``wfull`` (a multiply-reduce,
+    not a product) and the biases as they are (tpu_captioner/ops/
+    lstm_step.py:70)."""
+    return w._replace(**{f: getattr(w, f).to(dtype).contiguous() for f in _MATRICES})
+
+
+def _lstm_step_plain_bf16(w: LstmStepWeights, emb, h, c, enc, att1, sums=torch.float32):
+    """Plain PyTorch version of the bf16 instance: the JAX kernel's
+    ``_kernel`` with ``mxu_dtype=bfloat16`` (tpu_captioner/ops/
+    lstm_step.py:81-126) on the bf16 matrices, emb, enc and att1.  Every
+    product rounds its activation operand (h for att2, f_beta and w_hh;
+    emb; the gated context for w_ih_c) to bf16 and sums exact products;
+    att1 and enc are read in f32 (the score and context sums), the softmax
+    runs in f32 and alpha is not rounded.  Returns h_new, c_new and alpha in
+    f32.  ``sums`` is the dtype the sums run in: float64 gives the same
+    roundings to bf16 with other sums, the noise floor another correct
+    implementation lands within (``chip_smoke.py`` phase 13)."""
+
+    def bf(t):  # rounded to bf16, then summed in `sums`
+        return t.to(torch.bfloat16).to(sums)
+
+    def mm(a, m):  # JAX's ``mm`` with bf16 multiplicands: exact products, sums in `sums`
+        return F.linear(bf(a), m.to(sums))
+
+    h, c = h.to(sums), c.to(sums)
+    vec = {f: getattr(w, f).to(sums) for f in ("bd", "wfull", "bfull", "bfb", "b")}
+    att2 = mm(h, w.wd) + vec["bd"]
+    score = (torch.relu(att1.to(sums) + att2[:, None, :]) * vec["wfull"]).sum(dim=-1) + vec["bfull"]
+    alpha = torch.softmax(score, dim=1)
+    ctx = torch.sigmoid(mm(h, w.wfb) + vec["bfb"]) * (alpha[:, :, None] * enc.to(sums)).sum(dim=1)
+    gates = mm(emb, w.w_ih_e) + mm(ctx, w.w_ih_c) + mm(h, w.w_hh) + vec["b"]
+    h_new, c_new = lstm_update(gates, c)
+    f32 = torch.float32
+    return h_new.to(f32), c_new.to(f32), alpha.to(f32)
+
+
 _CHECKED: "collections.OrderedDict" = collections.OrderedDict()  # id -> (weights, widths) checked, newest last
 
 
-def _check(w: LstmStepWeights, emb, h, c, enc, att1) -> None:
-    """Each tensor's device, dtype, shape, contiguity and alignment: the
-    activations every call, the weights once per ``LstmStepWeights``
-    object and widths (a rollout's 51 steps share one; the two newest are
-    remembered, and held, so an id is never mistaken for another's)."""
+def _operands(w: LstmStepWeights, emb, h, c, enc, att1, dt):
+    """(activations, weights): each ``name: (tensor, shape, dtype)`` of the
+    instance of storage dtype ``dt``: the five matrices, emb, enc and att1
+    in ``dt``, the rest f32."""
     R, E = emb.shape
     D = h.shape[1]
     _, P, C = enc.shape
     A = att1.shape[2]
     f32 = torch.float32
-    _check_tensors(emb.device, {
-        "emb": (emb, (R, E), f32), "h": (h, (R, D), f32), "c": (c, (R, D), f32),
-        "enc": (enc, (R, P, C), f32), "att1": (att1, (R, P, A), f32),
-    })
-    key = (E, D, A, C, emb.device)
+    activations = {
+        "emb": (emb, (R, E), dt), "h": (h, (R, D), f32), "c": (c, (R, D), f32),
+        "enc": (enc, (R, P, C), dt), "att1": (att1, (R, P, A), dt),
+    }
+    weights = {
+        "wd": (w.wd, (A, D), dt), "bd": (w.bd, (A,), f32), "wfull": (w.wfull, (A,), f32),
+        "bfull": (w.bfull, (1,), f32), "wfb": (w.wfb, (C, D), dt), "bfb": (w.bfb, (C,), f32),
+        "w_ih_e": (w.w_ih_e, (4 * D, E), dt), "w_ih_c": (w.w_ih_c, (4 * D, C), dt),
+        "w_hh": (w.w_hh, (4 * D, D), dt), "b": (w.b, (4 * D,), f32),
+    }
+    return activations, weights
+
+
+def _check(w: LstmStepWeights, emb, h, c, enc, att1, dt=torch.float32) -> None:
+    """Each tensor's device, dtype, shape, contiguity and alignment
+    (``_operands``): the activations every call, the weights once per
+    ``LstmStepWeights`` object and widths (a rollout's 51 steps share one;
+    the two newest are remembered, and held, so an id is never mistaken for
+    another's)."""
+    activations, weights = _operands(w, emb, h, c, enc, att1, dt)
+    _check_tensors(emb.device, activations)
+    key = (emb.shape[1], h.shape[1], att1.shape[2], enc.shape[2], emb.device, dt)
     seen = _CHECKED.get(id(w))
     if seen is not None and seen[0] is w and seen[1] == key:
         return
-    _check_tensors(emb.device, {
-        "wd": (w.wd, (A, D), f32), "bd": (w.bd, (A,), f32), "wfull": (w.wfull, (A,), f32),
-        "bfull": (w.bfull, (1,), f32), "wfb": (w.wfb, (C, D), f32), "bfb": (w.bfb, (C,), f32),
-        "w_ih_e": (w.w_ih_e, (4 * D, E), f32), "w_ih_c": (w.w_ih_c, (4 * D, C), f32),
-        "w_hh": (w.w_hh, (4 * D, D), f32), "b": (w.b, (4 * D,), f32),
-    })
+    _check_tensors(emb.device, weights)
     _CHECKED[id(w)] = (w, key)
     while len(_CHECKED) > 2:
         _CHECKED.popitem(last=False)
@@ -232,17 +300,18 @@ def _check(w: LstmStepWeights, emb, h, c, enc, att1) -> None:
 def _lib() -> ctypes.CDLL:
     """The built library with its entry points declared, once per process."""
     lib = _build.load("lstm_step")
-    lib.tc_lstm_step.restype = ctypes.c_int
-    lib.tc_lstm_step.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong, ctypes.c_void_p]
-                                 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+    for fn in (lib.tc_lstm_step, lib.tc_lstm_step_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_longlong, ctypes.c_void_p]
+                       + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_plan(R, E, D, A, C, P, device: int):
+def _launch_plan(R, E, D, A, C, P, device: int, esize: int = 4):
     """The plan for the card ``device``, its ctypes copy, the workspace's
-    floats and the flags' count, once per shape."""
-    plan = lstm_plan(R, E, D, A, C, P, _build.sm_count(device))
+    floats and the flags' count, once per shape and instance."""
+    plan = lstm_plan(R, E, D, A, C, P, _build.sm_count(device), esize)
     return (plan, (ctypes.c_int * len(plan))(*plan), workspace_floats(plan, R, E, D, A, C, P),
             flag_count(R, D, C))
 
@@ -275,17 +344,25 @@ def fused_lstm_step(
     """Returns (h_new (R, D), c_new (R, D), alpha (R, P)), f32:
     ``DecoderWithAttention.step``.  CUDA tensors: one kernel launch per
     call of up to ``MAX_ROWS`` rows (one per ``MAX_ROWS`` rows beyond);
-    CPU tensors: the plain version; any other device raises.  Forward
-    only: raises on every device when autograd would need its gradient."""
+    CPU tensors: the plain version; any other device raises.  The weight
+    matrices' dtype picks the instance (the module docstring): f32, or the
+    bf16 arm; weights of another dtype raise ValueError, as do operands
+    whose dtypes are not the instance's set.  Forward only: raises on every
+    device when autograd would need its gradient."""
     _build.refuse_autograd(
         "fused_lstm_step", (*w, emb, h, c, enc, att1),
         "not planned (decoding runs under torch.inference_mode)",
     )
+    dt = w.wd.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_lstm_step has no instance for {dt} weights: float32, or bfloat16 (precise=False)")
+    bf16 = dt == torch.bfloat16
     if emb.device.type == "cpu":
-        return _lstm_step_plain(w, emb, h, c, enc, att1)
+        _check_dtypes(w, emb, h, c, enc, att1, dt)
+        return (_lstm_step_plain_bf16 if bf16 else _lstm_step_plain)(w, emb, h, c, enc, att1)
     if emb.device.type != "cuda":
         raise ValueError(f"fused_lstm_step runs on cpu or cuda tensors, got {emb.device}")
-    _check(w, emb, h, c, enc, att1)
+    _check(w, emb, h, c, enc, att1, dt)
     R = emb.shape[0]
     if R > MAX_ROWS:  # row slices at multiples of 160 stay 16-byte aligned
         parts = [fused_lstm_step(w, *(x[i:i + MAX_ROWS] for x in (emb, h, c, enc, att1)))
@@ -293,17 +370,28 @@ def fused_lstm_step(
         return tuple(torch.cat(p) for p in zip(*parts))
     E, D, (_, P, C), A = emb.shape[1], h.shape[1], enc.shape, att1.shape[2]
     dev = emb.device.index
-    plan, plan_c, floats, flags = _launch_plan(R, E, D, A, C, P, dev)
+    plan, plan_c, floats, flags = _launch_plan(R, E, D, A, C, P, dev, w.wd.element_size())
     work, flag = _scratch(dev, floats, flags)
     h_new, c_new = torch.empty_like(h), torch.empty_like(c)
     alpha = torch.empty(R, P, device=emb.device, dtype=torch.float32)
     lib = _lib()
-    err = lib.tc_lstm_step(*(t.data_ptr() for t in (emb, h, c, enc, att1, *w, h_new, c_new, alpha, work)),
-                           work.numel(), flag.data_ptr(), flag.numel(), R, E, D, A, C, P, plan_c, dev,
-                           _build.raw_stream(dev))
+    step = lib.tc_lstm_step_bf16 if bf16 else lib.tc_lstm_step
+    err = step(*(t.data_ptr() for t in (emb, h, c, enc, att1, *w, h_new, c_new, alpha, work)),
+               work.numel(), flag.data_ptr(), flag.numel(), R, E, D, A, C, P, plan_c, dev, _build.raw_stream(dev))
     _build.check(lib, err, "lstm_step")
     fused_lstm_step.launches += 1
+    if bf16:
+        fused_lstm_step.bf16_launches += 1
     return h_new, c_new, alpha
 
 
+def _check_dtypes(w: LstmStepWeights, emb, h, c, enc, att1, dt) -> None:
+    """The instance's dtype set on the CPU, where no layout matters."""
+    for group in _operands(w, emb, h, c, enc, att1, dt):
+        for name, (t, _, want) in group.items():
+            if t.dtype != want:
+                raise ValueError(f"{name} must be {want}, got {t.dtype}")
+
+
 fused_lstm_step.launches = 0  # kernel launches, one per call of up to MAX_ROWS rows on CUDA tensors
+fused_lstm_step.bf16_launches = 0  # launches of the bf16 instance (also in .launches)

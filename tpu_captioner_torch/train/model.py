@@ -49,27 +49,28 @@ on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
     2.20); run B 61.20 vs 63.10 (1.71 to 2.09); run C 61.34 vs 63.28 (gain
     1.86, spread 0.54); run D 60.98 vs 63.00 (gain 1.97, spread 0.69); run
     E 60.93 vs 62.86 (gain 1.93, spread 0.54).
-- bf16 (``compute_dtype='bfloat16'``) serves the Transformer families:
-  ``encode`` returns the bf16 (B, 7, 7, C) features, as the JAX encoder
-  does, and the decoder upcasts them to f32 where it reads them
-  (``project_memory``; JAX promotes bf16 @ f32 to f32 implicitly, PyTorch
-  refuses mixed-dtype products).  The decode kernel's arm follows the
-  model's dtype, not the backend: with a bf16 model the beam and the
-  per-token rollout take the bf16 arm (``precise=False``: bf16 weight
-  matrices, caches and memory K/V, bf16 products), which the JAX package
-  takes on its own chip whatever the model's dtype
-  (tpu_captioner/infer/beam.py:325, models/transformer.py:532); an f32
-  model keeps the f32 arm and every f32 result it had (JAX takes its f32
-  arm in interpret mode only, on the CPU).  The plain decode path stays f32
-  in both, as the JAX package's XLA path is.  bf16 also trains the
-  Transformer families (the frozen, fine-tune and free-running steps):
-  the parameters and both Adams stay f32 (the JAX package's master
-  weights), each weight is cast to bf16 at use and its gradient comes back
-  through the cast, and the encoder's backward runs the bf16 instances of
-  the MLP tail's and the depthwise conv's backward kernels.  What bf16
-  does not port raises ``NotImplementedError`` naming its ROADMAP item
-  (Queue 1 #5c-#5e): the LSTM families, ``use_pallas='block'`` and the
-  sub-tiled tail, the one-cell and ``'mega'`` decode modes.
+- bf16 (``compute_dtype='bfloat16'``) serves, evaluates and trains all
+  four decoder families: ``encode`` returns the bf16 (B, 7, 7, C)
+  features, as the JAX encoder does, and the decoder widens them to f32
+  where it reads them (``project_memory``, and the LSTM's reads; JAX
+  promotes bf16 @ f32 to f32 implicitly, PyTorch refuses mixed-dtype
+  products).  The decode kernels' arm follows the model's dtype, not the
+  backend: with a bf16 model the beam and every kernel rollout (the
+  Transformer's per-layer, one-cell and ``'mega'``, the LSTM step) take
+  the bf16 arm (``precise=False``: bf16 weight matrices, caches, memory
+  K/V or features, bf16 products), which the JAX package takes on its own
+  chip whatever the model's dtype (tpu_captioner/infer/beam.py:209, 325,
+  models/transformer.py:532, models/lstm.py:329); an f32 model keeps the
+  f32 arm and every f32 result it had (JAX takes its f32 arm in interpret
+  mode only, on the CPU).  The plain decode path stays f32 in both, as
+  the JAX package's XLA path is.  Training: the parameters and both Adams
+  stay f32 (the JAX package's master weights), each encoder weight is
+  cast to bf16 at use and its gradient comes back through the cast, and
+  the encoder's backward runs the bf16 instances of the MLP tail's and the
+  depthwise conv's backward kernels; the decoders train on the plain path.
+  What bf16 does not port raises ``NotImplementedError`` naming its
+  ROADMAP item (Queue 1 #5d): ``use_pallas='block'`` and the sub-tiled
+  tail.
 """
 
 from __future__ import annotations
@@ -168,14 +169,8 @@ class CaptionModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0, pretrained_embeddings=None):
         super().__init__()
-        if cfg.compute_dtype == "bfloat16":
-            if cfg.decoder in LSTM_DECODERS:
-                raise NotImplementedError(
-                    f"compute_dtype='bfloat16' with the {cfg.decoder} decoder is not ported yet: "
-                    "ROADMAP.md Queue 1 #5c")
-            if "block" in stage_kernel_modes(cfg.use_pallas, len(cfg.encoder_depths)):
-                raise NotImplementedError(
-                    "use_pallas='block' in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
+        if cfg.compute_dtype == "bfloat16" and "block" in stage_kernel_modes(cfg.use_pallas, len(cfg.encoder_depths)):
+            raise NotImplementedError("use_pallas='block' in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
         device = torch.device(device)
         if device.type == "cuda":
             require_cuda()
@@ -300,13 +295,10 @@ class CaptionModel(nn.Module):
         if not deterministic:
             return dec.rollout(*args, train=True, **kw)
         mode = self.decode_mode()
-        if self.dtype == torch.bfloat16 and (mode == "mega" or (mode == "step" and one_cell)):
-            raise NotImplementedError(
-                "the one-cell and 'mega' decode modes in bf16 are not ported yet: ROADMAP.md Queue 1 #5e")
         if self.cfg.decoder in LSTM_DECODERS:
-            return dec.fused_rollout(*args, **kw) if mode != "off" else dec.rollout(*args, **kw)
+            return dec.fused_rollout(*args, dtype=self.dtype, **kw) if mode != "off" else dec.rollout(*args, **kw)
         if mode == "mega":
-            return dec.mega_rollout(*args, **kw)
+            return dec.mega_rollout(*args, dtype=self.dtype, **kw)
         if mode == "step":
             return dec.fused_rollout(*args, dtype=self.dtype, one_cell=one_cell, **kw)
         return dec.rollout(*args, **kw)

@@ -270,8 +270,8 @@ def make_eval_step(
     ``lengths`` (B,).  It runs under ``torch.inference_mode``, so it holds no
     autograd state whatever ``requires_grad`` a train step has set.
     ``one_cell`` runs each token's layers in one kernel launch when the model
-    decodes with the per-token kernel.  A bf16 model evaluates in ``'off'``
-    and ``'step'`` (``CaptionModel.rollout`` refuses the rest)."""
+    decodes with the per-token kernel.  A bf16 model evaluates in every
+    decode mode, each kernel in its bf16 arm."""
 
     @torch.inference_mode()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
