@@ -204,10 +204,26 @@ Phases, in order; any failure raises and the exit code is not 0:
    step against all-plain under phase 12b's rules, then ``cli.train
    --computeDtype bfloat16 --decoder lstm`` for one epoch, ``cli.caption``'s
    loader and ``cli.test`` on its checkpoint.
+14. the last bf16 instances, ``use_pallas='block'`` and the sub-tiled MLP
+   tail (``check_bf16_block_kernels``, ``bf16_block_serve``,
+   ``bf16_block_train``): (a) the bf16 whole-block instance and the bf16
+   sub-tiled tail against their plain versions at the four stages at batch
+   8 and 32, within one bf16 ulp (the sub-tiled one also of the whole-tile
+   bf16 instance), device times by CUDA-graph replay beside the plain
+   versions and the f32 instances, per launch and per encoder pass; (b) a
+   bf16 'block' flagship saved with ``save_checkpoint`` and served through
+   ``cli.caption``'s loader, beam 5 x 50 at batch 8 and 32 beside the same
+   checkpoint in 'mlp', 36 bf16 block launches a pass, the captions held to
+   the all-plain bf16 'block' path by phase 11's lock-step rule; the eval
+   step at batch 32 against all-plain; (c) the bf16 'block' frozen and
+   fine-tune steps at batch 32 against all-plain by phase 12b's rules, ms
+   per step, peak memory and launches per step; (d) a bf16 encoder pass and
+   a fine-tune step with ``TPU_CAPTIONER_MLP_SUB=64`` (36 sub-tiled bf16
+   launches each) and a bf16 per-stage mix ('mlp', 'mlp', 'block', 'block').
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths and on the training
-path, phase 10's or for the bf16 instances phase 12c's or 13d's, max error,
+path, phase 10's or for the bf16 instances phase 12c's, 13d's or 14's, max error,
 times and bounds; the bf16 instances as entries of their own, ``*_bf16``);
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repository
 beside it and one card; imports no JAX.
@@ -2095,6 +2111,7 @@ def zero_block_counts():
     from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp, fused_convnext_mlp_bwd
 
     fused_convnext_block.launches = fused_convnext_mlp.launches = fused_convnext_mlp.pipelined_launches = 0
+    fused_convnext_block.bf16_launches = fused_convnext_mlp.pipelined_bf16_launches = 0
     fused_convnext_mlp_bwd.launches = depthwise_conv7x7_nhwc.launches = depthwise_conv7x7_nhwc.grad_launches = 0
     random_mask_pool.launches = 0
 
@@ -2372,6 +2389,8 @@ def kernel_counts():
         "lstm_step_bf16": fused_lstm_step.bf16_launches,
         "decode_onecell_bf16": fused_decode_step.onecell_bf16_launches,
         "decode_rollout_bf16": fused_full_rollout.bf16_launches,
+        "block_fused_bf16": fused_convnext_block.bf16_launches,
+        "mlp_block_pipelined_bf16": fused_convnext_mlp.pipelined_bf16_launches,
     }
 
 
@@ -2813,7 +2832,8 @@ def bf16_rel(a, b):
 def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
     """The serving and training paths' kernel wrappers replaced by their
     plain versions on the card (as phase 5 swaps the pool for
-    ``_mask_plain``): the MLP tail's forward and backward, the depthwise
+    ``_mask_plain``): the MLP tail's forward and backward, the whole
+    block's forward (its backward's wrappers with the others), the depthwise
     conv's forward (also the input gradient) and filter gradient, the
     per-token decode step (per-layer and one-cell), the whole-rollout
     decode and the LSTM step, each by dtype (the bf16 arm's own plain
@@ -2826,11 +2846,13 @@ def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
     import torch
 
     from tpu_captioner_torch.infer import beam
-    from tpu_captioner_torch.ops import decode_step, dwconv, lstm_step, mlp_block
+    from tpu_captioner_torch.ops import block_fused, decode_step, dwconv, lstm_step, mlp_block
 
     saved = mlp_block._mlp_forward, dwconv.dwconv_forward, decode_step.fused_decode_step
     saved_bwd = mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad
     saved_dec = decode_step.fused_full_rollout, lstm_step.fused_lstm_step
+    saved_block = (block_fused._block_forward, block_fused.dwconv_forward, block_fused.dwconv_filter_grad,
+                   block_fused.fused_convnext_mlp_bwd)
     bf = torch.bfloat16
     wide = encoder_sums is not None  # the bf16 plain versions with their sums in encoder_sums
 
@@ -2842,12 +2864,18 @@ def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
         return mlp_block._mlp_plain(*(t.to(encoder_sums) for t in args)).to(bf)
 
     def mlp_bwd(*args):
-        if args[1].dtype != bf:
-            return mlp_block._mlp_bwd_plain(*args)
         if not wide:
-            return mlp_block._mlp_bwd_plain_bf16(*args)
+            return (mlp_block._mlp_bwd_plain_bf16 if args[1].dtype == bf else mlp_block._mlp_bwd_plain)(*args)
+        # bf16 x, or (the bf16 'block' backward) f32 x and weights widened from bf16.
         d_x, *rest = mlp_block._mlp_bwd_plain(*(t.to(encoder_sums) for t in args))
-        return (d_x.to(bf), *(t.float() for t in rest))
+        return (d_x.to(args[1].dtype), *(t.float() for t in rest))
+
+    def block(*args):
+        if args[0].dtype != bf:
+            return block_fused._block_plain(*args)
+        if not wide:
+            return block_fused._block_plain_bf16(*args)
+        return block_fused._block_plain(*(t.to(encoder_sums) for t in args)).to(bf)
 
     def dw(x, w, flip=False, bias=None):
         w = w.flip(0, 1) if flip else w
@@ -2886,6 +2914,8 @@ def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
     if encoder:
         mlp_block._mlp_forward, dwconv.dwconv_forward = mlp, dw
         mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = mlp_bwd, dw_grad
+        (block_fused._block_forward, block_fused.dwconv_forward, block_fused.dwconv_filter_grad,
+         block_fused.fused_convnext_mlp_bwd) = block, dw, dw_grad, mlp_bwd
     decode_step.fused_decode_step = beam.fused_decode_step = dec
     decode_step.fused_full_rollout, lstm_step.fused_lstm_step = roll, lstm
     beam.fused_lstm_step = lstm
@@ -2896,6 +2926,8 @@ def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
         mlp_block.fused_convnext_mlp_bwd, dwconv.dwconv_filter_grad = saved_bwd
         decode_step.fused_full_rollout, lstm_step.fused_lstm_step = saved_dec
         beam.fused_decode_step, beam.fused_lstm_step = saved[2], saved_dec[1]
+        (block_fused._block_forward, block_fused.dwconv_forward, block_fused.dwconv_filter_grad,
+         block_fused.fused_convnext_mlp_bwd) = saved_block
 
 
 def check_bf16_kernels(dev, card, layers):
@@ -3635,9 +3667,9 @@ BF16_STEP_KERNELS = ("dropout_mask", "mlp_block_bf16", "mlp_block_bwd_bf16", "dw
 
 
 def bf16_two_steps(m, start, tc, word_map, batch, seeds, train_encoder, teacher_forcing=True, plain=False,
-                   sums=None):
+                   sums=None, names=BF16_STEP_KERNELS):
     """Two train steps of ``m`` from the state dict ``start``, one per seed:
-    metrics and the launches of ``BF16_STEP_KERNELS`` per step, step 1's
+    metrics and the launches of ``names`` per step, step 1's
     gradients and parameters, the state after both; ``plain`` runs the
     plain versions (the encoder's sums in ``sums`` when given)."""
     import torch
@@ -3655,7 +3687,7 @@ def bf16_two_steps(m, start, tc, word_map, batch, seeds, train_encoder, teacher_
             state, met = step(state, batch, s)
             torch.cuda.synchronize()
             counts = kernel_counts()
-            seen.append(tuple(counts[k] for k in BF16_STEP_KERNELS))
+            seen.append(tuple(counts[k] for k in names))
             out.append({k: float(v) for k, v in met.items()})
             if i == 0:
                 grads = {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None}
@@ -4267,6 +4299,384 @@ def bf16_lstm_train(dev, card, seed, word_map):
     return totals
 
 
+# Phase 14: the last bf16 instances, the whole block (``use_pallas='block'``)
+# and the sub-tiled MLP tail (``TPU_CAPTIONER_MLP_SUB``).  (a) holds each
+# against its plain version at the four stage shapes at batch 8 and 32:
+# within one bf16 ulp (as phase 11), and the sub-tiled output within one
+# ulp of the whole-tile bf16 instance.  (b) and (c) hold the bf16 'block'
+# model's beam, eval step and train steps to the all-plain bf16 'block'
+# path (``plain_versions``) by phase 11's and 12b's rules.  (d) runs the
+# sub-tiled bf16 tail through an encoder pass and a fine-tune step, and a
+# per-stage mix.  The rules were written in PERF.md before the run.
+BF16_MIX = ("mlp", "mlp", "block", "block")
+BF16_BLOCK_KERNELS = ("dropout_mask", "block_fused_bf16", "mlp_block_bwd", "mlp_block_bwd_bf16", "dwconv_bf16",
+                      "dwconv_grad_bf16", "mlp_block")
+
+
+def bf16_block_bound(b, h, w, c):
+    """(bytes, ops) of one bf16 whole-block launch: x read and out written
+    in bf16, the taps and the two matrices in bf16, the f32 vectors (conv
+    bias, LayerNorm, b1, b2, layer scale) and the per-image scales; the
+    tail's 16 N C^2 and the conv's 98 N C, all priced at the f32-accurate
+    rate of a bf16 weight (``BF16_BY_F32_OPS_PER_S``), as row 1's bf16
+    instance."""
+    n = b * h * w
+    return 2 * (2 * n * c + 49 * c + 8 * c * c) + 4 * (9 * c + b), 16 * n * c * c + 98 * n * c
+
+
+def check_bf16_block_kernels(dev, card):
+    """Phase 14a: the bf16 whole-block instance against ``_block_plain_bf16``
+    and the bf16 sub-tiled MLP tail against ``_mlp_plain_bf16`` and the
+    whole-tile bf16 instance, at the four ConvNeXt-Base stage shapes at
+    batch 8 and 32 with per-image scales (0 and 1/survival): each within one
+    bf16 ulp, sd-0 images and rows their input bit for bit, the sub-tiled
+    output the same bits twice.  Device times by CUDA-graph replay per
+    launch and per encoder pass (36 launches) beside the plain versions and
+    the f32 instances on the same inputs widened.  Returns {name: (worst
+    abs error, ms, plain ms, None, bound ms, bound by)} per bs-32 pass."""
+    import torch
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS
+    from tpu_captioner_torch.ops.block_fused import _block_plain_bf16, fused_convnext_block
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain_bf16, fused_convnext_mlp
+
+    bf = torch.bfloat16
+    names = ("block_fused_bf16", "mlp_block_pipelined_bf16")
+    acc = {(k, b): [0.0, 0.0, 0.0, 0.0, 0, 0] for k in names for b in (8, TRAIN_BS)}  # err, ms, plain, f32, bytes, ops
+    for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
+        for b in (8, TRAIN_BS):
+            h = w = 64 >> s
+            n = b * h * w
+            g = torch.Generator().manual_seed(400 + c + b)
+            f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
+            keep = (torch.rand(b, generator=g) < 0.8).float()
+            keep[0], keep[1] = 0.0, 1.0
+            sd = (keep / 0.8).to(dev)
+            ln_w, ln_b, w1, b1, w2, b2, gamma = _stage_params(c, g, dev)
+            x = f(b, h, w, c).to(dev, bf)
+            taps, dw_b = (0.1 * f(7, 7, c)).to(dev, bf), (0.1 * f(c)).to(dev)
+            blk = (x, sd, taps, dw_b, ln_w, ln_b, w1.to(bf), b1, w2.to(bf), b2, gamma)
+            got, want = fused_convnext_block(*blk), _block_plain_bf16(*blk)
+            err, ulps = bf16_ulp_err(got, want)
+            dropped = sd == 0
+            if not (ulps <= 1.0 and got.dtype == bf and torch.equal(got[dropped], x[dropped])):
+                raise AssertionError(f"block_fused bf16 kernel disagrees at {(b, h, w, c)}: {ulps} ulps")
+            wide = tuple(a.float() for a in blk)
+            t_blk = (_graph_ms(lambda: fused_convnext_block(*blk), iters=10),
+                     _graph_ms(lambda: _block_plain_bf16(*blk), iters=3, warmup=1),
+                     _graph_ms(lambda: fused_convnext_block(*wide), iters=10))
+            rows = (x.view(n, c), f(n, c).to(dev, bf), sd.repeat_interleave(h * w), ln_w, ln_b, w1.to(bf), b1,
+                    w2.to(bf), b2, gamma)
+            with mlp_sub(None):
+                whole = fused_convnext_mlp(*rows)
+                t_whole = _graph_ms(lambda: fused_convnext_mlp(*rows), iters=10)
+            with mlp_sub(PIPE_SUB):
+                before = fused_convnext_mlp.pipelined_bf16_launches
+                sub, again = fused_convnext_mlp(*rows), fused_convnext_mlp(*rows)
+                if fused_convnext_mlp.pipelined_bf16_launches != before + 2:
+                    raise AssertionError(f"TPU_CAPTIONER_MLP_SUB={PIPE_SUB} did not run the sub-tiled bf16 instance "
+                                         f"at C={c}")
+                t_sub = _graph_ms(lambda: fused_convnext_mlp(*rows), iters=10)
+                wide_rows = tuple(a.float() for a in rows)
+                t_sub_f32 = _graph_ms(lambda: fused_convnext_mlp(*wide_rows), iters=10)
+            plain = _mlp_plain_bf16(*rows)
+            m_err, m_ulps = bf16_ulp_err(sub, plain)
+            _, w_ulps = bf16_ulp_err(sub, whole)
+            dropped_rows = rows[2] == 0
+            if not (m_ulps <= 1.0 and w_ulps <= 1.0 and torch.equal(sub, again)
+                    and torch.equal(sub[dropped_rows], rows[1][dropped_rows])):
+                raise AssertionError(f"mlp_block sub-tiled bf16 kernel at N={n}, C={c}: {m_ulps} ulps of the plain "
+                                     f"version, {w_ulps} of the whole tile, the same bits twice: "
+                                     f"{torch.equal(sub, again)}")
+            t_plain = _graph_ms(lambda: _mlp_plain_bf16(*rows), iters=3, warmup=1)
+            print(f"bf16 block_fused {(b, h, w, c)}: max_abs_err {err:.3e} ({ulps:.2f} ulp); kernel {t_blk[0]:.4f} ms, "
+                  f"plain {t_blk[1]:.4f}, f32 instance {t_blk[2]:.4f} per launch | bf16 mlp_block SUB={PIPE_SUB} "
+                  f"N={n}: {m_err:.3e} ({m_ulps:.2f} ulp of plain, {w_ulps:.2f} of the whole tile); kernel "
+                  f"{t_sub:.4f} ms, plain {t_plain:.4f}, whole-tile bf16 {t_whole:.4f}, sub-tiled f32 {t_sub_f32:.4f} "
+                  f"per launch [{card}]")
+            nb, no = bf16_block_bound(b, h, w, c)
+            for name, e, times, n_bytes, n_ops in (
+                ("block_fused_bf16", err, (t_blk[0], t_blk[1], t_blk[2]), nb, no),
+                # x, residual and out in bf16, the matrices in bf16, the
+                # vectors and sd in f32; two N x C x 4C products.
+                ("mlp_block_pipelined_bf16", m_err, (t_sub, t_plain, t_sub_f32),
+                 2 * (3 * n * c + 8 * c * c) + 4 * (8 * c + n), 16 * n * c * c),
+            ):
+                a = acc[name, b]
+                a[0] = max(a[0], e)
+                for i, tt in enumerate(times):
+                    a[1 + i] += depth * tt
+                a[4] += depth * n_bytes
+                a[5] += depth * n_ops
+    out = {}
+    for (name, b), (err, ms, plain_ms, f32_ms, n_bytes, n_ops) in acc.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops, BF16_BY_F32_OPS_PER_S)
+        print(f"{name} per bs-{b} encoder pass (36 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, f32 "
+              f"instance {f32_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it) [{card}]")
+        if b == TRAIN_BS:
+            out[name] = (max(err, acc[name, 8][0]), ms, plain_ms, None, bound_ms, bound_by)
+    return out
+
+
+def bf16_block_serve(dev, card, seed, word_map, images8, rng):
+    """Phase 14b: a bf16 flagship in ``'block'`` (phase 4's weights) saved
+    with ``save_checkpoint`` and loaded through ``cli.caption``'s loader,
+    and the same checkpoint loaded with ``--usePallas mlp``; beam 5 x 50 at
+    batch 8 and 32: 36 bf16 block launches and no MLP-forward or dwconv
+    launch per encoder pass, L bf16 decode launches per token, captions held
+    to the all-plain bf16 'block' path by ``bf16_agree`` (phase 11's
+    noise-floor rule), the share equal to the bf16 'mlp' model's reported;
+    serving times of both.  Then the eval step at batch 32 in 'block'
+    against all-plain (``bf16_eval_agree``).  Returns the bf16 block
+    launches of that eval step."""
+    import torch
+
+    from tpu_captioner_torch.cli.caption import build_model_and_params, caption_batch
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.models.convnext import CNBlock
+    from tpu_captioner_torch.train.checkpoint import save_checkpoint
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(vocab_size=VOCAB, compute_dtype="bfloat16", use_pallas="block")
+    with tempfile.TemporaryDirectory() as tmp:
+        model = flagship_model(cfg, dev, seed)
+        meta = {"epoch": 0, "epochs_since_improvement": 0, "bleu4": 0.0, "results": [],
+                "config": dataclasses.asdict(ExperimentConfig(model=cfg, train=TrainConfig()))}
+        path = save_checkpoint(tmp, "checkpoint_bf16_block_smoke", TrainState.create(model, TrainConfig()), meta)
+        served = build_model_and_params(argparse.Namespace(checkpoint=path, device=str(dev), seed=seed + 7), word_map)
+        mlp = build_model_and_params(argparse.Namespace(checkpoint=path, device=str(dev), seed=seed + 7,
+                                                        usePallas="mlp"), word_map)
+    want_sd = model.state_dict()
+    modes = {m: {b.mode for b in m.modules() if isinstance(b, CNBlock)} for m in (served, mlp)}
+    if not (served.dtype == mlp.dtype == torch.bfloat16 and modes[served] == {"block"} and modes[mlp] == {"mlp"}
+            and all(torch.equal(v, want_sd[k]) for m in (served, mlp) for k, v in m.state_dict().items())):
+        raise AssertionError(f"the bf16 'block' checkpoint did not load as saved ({modes[served]}, {modes[mlp]})")
+    del model
+    names = ("block_fused_bf16", "mlp_block_bf16", "dwconv_bf16", "decode_step_bf16")
+    for bs, imgs in ((8, images8.numpy()), (TRAIN_BS, torch.randint(0, 256, (TRAIN_BS, 256, 256, 3), generator=rng,
+                                                                      dtype=torch.uint8).numpy())):
+        steps = [0]
+        embed = served.decoder.embed
+
+        def counted_embed(*a):  # one lookup per generated token
+            steps[0] += 1
+            return embed(*a)
+
+        served.decoder.embed = counted_embed
+        zero_kernel_counts()
+        got = caption_batch(served, imgs, word_map, BEAM)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        seen = tuple(counts[k] for k in names)
+        del served.decoder.embed
+        print(f"bf16 'block' serving bs={bs}: bf16 launches {dict(zip(names, seen))} over {steps[0]} tokens")
+        if seen != (36, 0, 0, served.cfg.num_layers * steps[0]) or steps[0] < 1:
+            raise AssertionError(f"bf16 'block' serving bs={bs}: expected (36, 0, 0, L x tokens) launches, got {seen}")
+        for cap, score, seq, alpha in got:
+            if not (seq[0] == word_map["<start>"] and alpha.shape == (len(seq), cfg.num_pixels)
+                    and np_isfinite(alpha) and math.isfinite(score)):
+                raise AssertionError("malformed bf16 'block' caption output")
+        with plain_versions():
+            want = caption_batch(served, imgs, word_map, BEAM)
+        bf16_agree(served, dev, bs, imgs, word_map, got, want)
+        ref = caption_batch(mlp, imgs, word_map, BEAM)
+        same = sum(len(a[2]) == len(r[2]) and bool((a[2] == r[2]).all()) for a, r in zip(got, ref))
+        print(f"bf16 'block' serving bs={bs}: {same} of {bs} captions equal to the bf16 'mlp' model's "
+              f"({same / bs:.4f}; the two round the conv differently)")
+    serve_times(card, "serve bf16 phase 14", {"bf16 'block'": served, "bf16 'mlp'": mlp}, rng, dev, word_map)
+    del mlp
+    torch.cuda.empty_cache()
+
+    # The eval step at batch 32 in 'block', against all-plain (and its f64 floor).
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    batch = {k: v.to(dev) for k, v in train_batch(torch.Generator().manual_seed(seed + 9), word_map, VOCAB).items()}
+    served.decoder.capture_alphas = True
+    served.cfg = dataclasses.replace(served.cfg, decode_kernel="step")
+    step = make_eval_step(served, tc, word_map)
+    runs, launches = {}, None
+    # The floor's sums in f64 in the encoder too: one-ulp flips of the 36
+    # blocks' bf16 outputs reach the decode through the features.
+    for arm, sums in (("'block'", None), ("all-plain", torch.float32), ("all-plain f64", torch.float64)):
+        wide = sums if sums == torch.float64 else None
+        with plain_versions(sums, encoder_sums=wide) if sums is not None else contextlib.nullcontext():
+            zero_kernel_counts()
+            aux = step(batch)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            with torch.inference_mode():
+                roll = served.rollout(served.encode(batch["images"]), word_map["<start>"], word_map["<end>"],
+                                      tc.max_decode_len)
+        need = int(aux["lengths"].max())
+        seen = tuple(counts[k] for k in names)
+        expect = (36, 0, 0, served.cfg.num_layers * need) if sums is None else (0, 0, 0, 0)
+        print(f"bf16 'block' eval {arm}: bf16 launches {dict(zip(names, seen))}; loss {float(aux['loss']):.6f}, "
+              f"tokens {int(aux['tokens'])}, top5 {int(aux['top5_correct'])}")
+        if seen != expect or not (torch.isfinite(roll[0]).all() and math.isfinite(float(aux["loss"]))):
+            raise AssertionError(f"bf16 'block' eval {arm}: expected launches {expect}, got {seen}, or a non-finite "
+                                 f"output")
+        runs[arm] = (step, aux, roll)
+        if sums is None:
+            launches = seen[0]
+    bf16_eval_agree("bf16 'block' eval", runs, "'block'", "all-plain", "all-plain f64")
+    eval_ms, _ = _host_ms(lambda: step(batch))
+    print(f"bf16 'block' eval bs={TRAIN_BS} 'step': eval step {eval_ms:.2f} ms [{card}]; phase 14b took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def bf16_block_train(dev, card, seed, word_map, rng):
+    """Phase 14c and 14d.  (c) The full-width bf16 frozen and fine-tune
+    steps at batch 32 in 'block' against the all-plain bf16 'block' steps
+    (``plain_versions``), their f64-sum noise floor and the f32 'block'
+    steps on the same weights, pool bits and stochastic-depth rows
+    (``bf16_train_agree``: phase 12b's rules); launches per step, ms per
+    step and peak memory.  (d) On the same model: a bf16 encoder pass and a
+    fine-tune step in 'mlp' with TPU_CAPTIONER_MLP_SUB=PIPE_SUB (36
+    sub-tiled bf16 launches each, the features within 2^-6 of the
+    whole-tile pass's, the step's loss within BF16_TRAIN_LOSS of the
+    whole-tile step's), and a bf16 encoder pass and fine-tune step in the
+    per-stage mix BF16_MIX (30 block and 6 MLP-tail bf16 launches a pass,
+    the features within 2^-6 of all-plain's).  Returns the bf16 block
+    launches of a fine-tune step and the sub-tiled ones of a pass and of a
+    fine-tune step."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(batch_size=TRAIN_BS)
+    cfg = ModelConfig(vocab_size=VOCAB, compute_dtype="bfloat16", use_pallas="block")
+    model = CaptionModel(cfg, device=dev, seed=seed + 40)
+    gen = torch.Generator().manual_seed(seed + 40)
+    with torch.no_grad():  # order-one layer scales, as in phase 12b
+        for blk in (m for m in model.modules() if hasattr(m, "layer_scale")):
+            blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+    start = copy.deepcopy(model.state_dict())
+    f32 = CaptionModel(dataclasses.replace(cfg, compute_dtype="float32"), device=dev)
+    f32.load_state_dict(start)
+    batch = {k: v.to(dev) for k, v in train_batch(gen, word_map, VOCAB).items()}
+    root = prng.root_seed(seed + 41)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(2)]
+    names = BF16_BLOCK_KERNELS
+    trained = 30  # the blocks of children 5 and 7 (starting_layer 5)
+
+    def two_steps(m, train_encoder, plain=False, sums=None):
+        return bf16_two_steps(m, start, tc, word_map, batch, seeds, train_encoder, plain=plain, sums=sums,
+                              names=names)
+
+    launches = {}
+    for label, train_encoder, expect in (("frozen", False, (1, 36, 0, 0, 0, 0, 0)),
+                                         ("fine-tune", True, (1, 36, trained, 0, 2 * trained - 1, trained, 0))):
+        got, grads, params, after, seen = two_steps(model, train_encoder)
+        if any(c != expect for c in seen):
+            raise AssertionError(f"bf16 'block' {label} step: expected {names} launches {expect} per step, got {seen}")
+        want, want_grads, want_params, _, plain_seen = two_steps(model, train_encoder, plain=True)
+        _, floor_grads, _, _, floor_seen = two_steps(model, train_encoder, plain=True, sums=torch.float64)
+        if any(c[1:] != (0,) * (len(names) - 1) for c in plain_seen + floor_seen):
+            raise AssertionError(f"bf16 'block' {label} step, all-plain: a kernel launched ({plain_seen}, "
+                                 f"{floor_seen})")
+        _, f32_grads, _, _, _ = two_steps(f32, train_encoder)
+        changed = bf16_train_agree(f"bf16 'block' {label}", got, want, grads, want_grads, floor_grads, f32_grads,
+                                   params, want_params, start, after, tc.encoder_lr)
+        print(f"bf16 'block' {label} step: launches per step {dict(zip(names, seen[0]))}; encoder tensors changed "
+              f"per child {dict(sorted(changed.items()))}")
+        if any((i >= FT_START and train_encoder) != (c > 0) for i, c in changed.items()):
+            raise AssertionError(f"bf16 'block' {label}: children below {FT_START} must stay bit-identical, the rest "
+                                 f"change")
+        launches[label] = seen[0]
+        del grads, want_grads, floor_grads, f32_grads, params, want_params, after
+        torch.cuda.empty_cache()
+    del f32
+    torch.cuda.empty_cache()
+    for label, train_encoder in (("frozen", False), ("fine-tune", True)):
+        model.load_state_dict(start)
+        state = TrainState.create(model, tc)
+        step = make_train_step(model, tc, word_map, train_encoder=train_encoder)
+        for i in range(2):
+            state, _ = step(state, batch, prng.step_seed(root, "dropout", 1, i))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(5):
+            t1 = time.perf_counter()
+            state, met = step(state, batch, prng.step_seed(root, "dropout", 2, i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        print(f"bf16 'block' {label} step bs={TRAIN_BS}: median {ms:.2f} ms/step over 5 steps (min {min(times):.2f}, "
+              f"max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {sum(launches[label]) } kernel launches "
+              f"{dict(zip(names, launches[label]))} per step, loss {float(met['loss']):.4f} [{card}]")
+        del state, step
+        torch.cuda.empty_cache()
+    print(f"phase 14c took {time.perf_counter() - t0:.1f} s")
+
+    # 14d: the sub-tiled bf16 tail ('mlp', TPU_CAPTIONER_MLP_SUB) and the per-stage mix.
+    t0 = time.perf_counter()
+    imgs = torch.randint(0, 256, (TRAIN_BS, 256, 256, 3), generator=rng, dtype=torch.uint8).to(dev)
+    model.load_state_dict(start)
+    set_mode(model, "mlp")
+    with torch.inference_mode():
+        with mlp_sub(None):
+            whole = model.encode(imgs)
+        with mlp_sub(PIPE_SUB):
+            zero_kernel_counts()
+            piped = model.encode(imgs)
+            torch.cuda.synchronize()
+            pass_counts = kernel_counts()
+    sub_err = bf16_rel(piped.float(), whole.float())
+    print(f"bf16 'mlp' encoder pass bs={TRAIN_BS} with TPU_CAPTIONER_MLP_SUB={PIPE_SUB}: "
+          f"{pass_counts['mlp_block_pipelined_bf16']} sub-tiled bf16 of {pass_counts['mlp_block_bf16']} bf16 tail "
+          f"launches; features {sub_err:.3e} of the largest from the whole-tile pass's (tol {2.0 ** -6:g})")
+    if not (pass_counts["mlp_block_pipelined_bf16"] == pass_counts["mlp_block_bf16"] == 36 and sub_err <= 2.0 ** -6):
+        raise AssertionError(f"the sub-tiled bf16 encoder pass: {pass_counts}, features {sub_err}")
+    ft = {}
+    for arm, sub in (("whole tile", None), ("sub-tiled", PIPE_SUB)):
+        with mlp_sub(sub):
+            out, _, _, _, seen = bf16_two_steps(model, start, tc, word_map, batch, seeds[:1], True,
+                                                names=("mlp_block_bf16", "mlp_block_pipelined_bf16",
+                                                       "mlp_block_bwd_bf16"))
+        ft[arm] = (out[0], seen[0])
+    loss_rel = abs(ft["sub-tiled"][0]["loss"] - ft["whole tile"][0]["loss"]) / abs(ft["whole tile"][0]["loss"])
+    print(f"bf16 'mlp' fine-tune step: launches (mlp_block_bf16, mlp_block_pipelined_bf16, mlp_block_bwd_bf16) "
+          f"sub-tiled {ft['sub-tiled'][1]}, whole tile {ft['whole tile'][1]}; loss {ft['sub-tiled'][0]['loss']:.6f} vs "
+          f"{ft['whole tile'][0]['loss']:.6f} ({loss_rel:.3e} relative, tol {BF16_TRAIN_LOSS:g})")
+    if not (ft["sub-tiled"][1] == (36, 36, 30) and ft["whole tile"][1] == (36, 0, 30)
+            and loss_rel <= BF16_TRAIN_LOSS):
+        raise AssertionError(f"the sub-tiled bf16 fine-tune step: {ft}")
+    for s, mode in enumerate(BF16_MIX):  # stage s is the encoder's child 2 s + 1
+        set_mode(model.encoder.convnext[2 * s + 1], mode)
+    model.load_state_dict(start)
+    with torch.inference_mode():
+        zero_kernel_counts()
+        mixed = model.encode(imgs)
+        torch.cuda.synchronize()
+        mix_counts = kernel_counts()
+        with plain_versions():
+            mixed_plain = model.encode(imgs)
+    mix_err = bf16_rel(mixed.float(), mixed_plain.float())
+    mix_seen = tuple(mix_counts[k] for k in ("block_fused_bf16", "mlp_block_bf16", "dwconv_bf16"))
+    out, _, _, _, seen = bf16_two_steps(model, start, tc, word_map, batch, seeds[:1], True,
+                                        names=("block_fused_bf16", "mlp_block_bf16", "mlp_block_bwd",
+                                               "mlp_block_bwd_bf16", "dwconv_grad_bf16"))
+    print(f"bf16 per-stage mix {BF16_MIX} encoder pass bs={TRAIN_BS}: launches (block_fused_bf16, mlp_block_bf16, "
+          f"dwconv_bf16) {mix_seen}; features {mix_err:.3e} of the largest from all-plain's (tol {2.0 ** -6:g}); "
+          f"fine-tune step launches (block_fused_bf16, mlp_block_bf16, mlp_block_bwd, mlp_block_bwd_bf16, "
+          f"dwconv_grad_bf16) {seen[0]}, loss {out[0]['loss']:.6f}; phase 14d took {time.perf_counter() - t0:.1f} s")
+    if not (mix_seen == (30, 6, 6) and mix_err <= 2.0 ** -6 and seen[0] == (30, 6, 30, 0, 30)
+            and math.isfinite(out[0]["loss"])):
+        raise AssertionError(f"the bf16 per-stage mix: launches {mix_seen}, {seen[0]}, features {mix_err}")
+    del model
+    torch.cuda.empty_cache()
+    return launches["fine-tune"][1], pass_counts["mlp_block_pipelined_bf16"], ft["sub-tiled"][1][1]
+
+
 def np_isfinite(a):
     import numpy as np
 
@@ -4470,6 +4880,18 @@ def main(argv=None):
     dec_bf16_training = bf16_lstm_train(dev, card, args.seed, word_map)
     print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
+    # 14. The last bf16 instances: the whole block and the sub-tiled MLP
+    # tail, alone, through serving and the eval step, the train steps, the
+    # sub-tiled bf16 pass and a per-stage mix.
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    last_bf16 = check_bf16_block_kernels(dev, card)
+    block_bf16_launches = bf16_block_serve(dev, card, args.seed, word_map, images8, rng)
+    torch.cuda.empty_cache()
+    block_bf16_training, pipe_bf16_launches, pipe_bf16_training = bf16_block_train(dev, card, args.seed, word_map,
+                                                                                     rng)
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
@@ -4555,6 +4977,18 @@ def main(argv=None):
               ("lstm_step_bf16", "lstm_step.cu", "tpu_captioner/ops/lstm_step.py:81"),
               ("decode_onecell_bf16", "decode_step.cu", "tpu_captioner/ops/decode_step.py:271"),
               ("decode_rollout_bf16", "decode_step.cu", "tpu_captioner/ops/decode_step.py:570"))),
+        # The last bf16 instances (phase 14): launches of the bs-32 bf16
+        # 'block' eval step's encoder pass (14b) and of the bs-32 bf16 encoder
+        # pass with TPU_CAPTIONER_MLP_SUB set (14d); times per bs-32 encoder
+        # pass (14a).
+        *({"name": name, "route": "cuda", "source": f"tpu_captioner_torch/csrc/{source}", "replaces": replaces,
+           "launches": launches, "max_abs_err": last_bf16[name][0], "ms": last_bf16[name][1],
+           "plain_ms": last_bf16[name][2], "bound_ms": last_bf16[name][4], "bound_by": last_bf16[name][5],
+           "library_ms": last_bf16[name][3]}
+          for name, source, replaces, launches in (
+              ("block_fused_bf16", "block_fused.cu", "tpu_captioner/ops/block_fused.py:53", block_bf16_launches),
+              ("mlp_block_pipelined_bf16", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:145",
+               pipe_bf16_launches))),
     ]
     # The training path of the bf16 instances of phases 11-12 is phase 12c's
     # (the bf16 Transformer), of the bf16 decoder instances phase 13d's
@@ -4562,9 +4996,13 @@ def main(argv=None):
     # its decoder on the plain path, its validation's decode_kernel 'auto'
     # is 'off' (train/model.py:decode_kernel_mode), and no Transformer
     # decodes there; the rest phase 10's.
+    # The last bf16 instances' training path is phase 14's train steps:
+    # the bf16 'block' fine-tune step (14c) and the bf16 fine-tune step
+    # with TPU_CAPTIONER_MLP_SUB set (14d).
+    last_training = {"block_fused_bf16": block_bf16_training, "mlp_block_pipelined_bf16": pipe_bf16_training}
     for k in kernels:
-        paths = dec_bf16_training if k["name"] in dec_bf16 else bf16_training if k["name"].endswith("_bf16") \
-            else training
+        paths = (last_training if k["name"] in last_training else dec_bf16_training if k["name"] in dec_bf16
+                 else bf16_training if k["name"].endswith("_bf16") else training)
         k["launches_training"] = paths[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

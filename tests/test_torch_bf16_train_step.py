@@ -11,6 +11,9 @@ The references.  JAX's bf16 loss and gradients come from its own
 fifth of a bf16 GELU's outputs by an ulp: no port can follow that).  Its
 ``'mlp'`` blocks run the Pallas kernels in interpret mode.  The f32
 reference is the same JAX step on the same weights in f32 (``'off'``).
+``mode`` is a ``use_pallas`` value, one for every stage or one per stage
+(``tests/test_torch_bf16_block.py`` runs ``'block'`` and a per-stage mix);
+JAX's Pallas kernels (the tail, the whole block) run in interpret mode.
 
 The rule: the port must be a bf16 port, not an f32 one.  For the loss
 and each trained tensor's gradient (clamped to +-grad_clip), the port's
@@ -22,7 +25,8 @@ free-running fine-tune 'mlp' 411 (equal).
 
 The exception: a gradient that JAX takes by summing a bf16 cotangent over
 rows (the transpose of a bf16 bias add or layer-scale product: every
-conv's bias; in ``'off'`` also each block's b1, b2 and layer scale).  XLA
+conv's bias but a ``'block'`` block's, whose f32 bias JAX adds to the f32
+conv sum; in ``'off'`` also each block's b1, b2 and layer scale).  XLA
 on the CPU accumulates that sum in bf16, tens of ulps of the exact sum
 apart (``tests/test_torch_bf16_train_ops.py``); the port sums in f32 and
 rounds once, as PyTorch's sums and the kernels do.  Those tensors are held
@@ -74,19 +78,30 @@ REDUCED_SLACK = 1.5
 ZERO_GRAD = ("attention.full_att.bias",)
 
 
-def reduced_in_bf16(name: str, mode: str) -> bool:
+def block_mode(name: str, mode) -> str:
+    """The mode of the stage that holds the block tensor ``name``
+    (``convnext.{child}.{block}...``; stage s is child 2 s + 1): ``mode``
+    itself, or its entry for that stage."""
+    return mode if isinstance(mode, str) else mode[(child(name) - 1) // 2]
+
+
+def reduced_in_bf16(name: str, mode) -> bool:
     """Trained tensors whose JAX bf16 gradient is a bf16 sum over rows: the
-    conv biases (each block's depthwise conv, child 6's downsample conv)
-    and, in ``'off'``, each block's b1, b2 and layer scale."""
-    if name.endswith(("block.0.bias", "convnext.6.1.bias")):
+    conv biases (each block's depthwise conv but in ``'block'``, child 6's
+    downsample conv) and, in ``'off'``, each block's b1, b2 and layer
+    scale."""
+    if name.endswith("convnext.6.1.bias"):
         return True
-    return mode == "off" and name.endswith(("block.3.bias", "block.5.bias", "layer_scale"))
+    if name.endswith("block.0.bias"):
+        return block_mode(name, mode) != "block"
+    return name.endswith(("block.3.bias", "block.5.bias", "layer_scale")) and block_mode(name, mode) == "off"
 
 
-def cast_at_use(name: str, mode: str) -> bool:
+def cast_at_use(name: str, mode) -> bool:
     """Trained encoder tensors the bf16 model casts to bf16 where it uses
-    them: the convs' weights and biases, the blocks' matrices and, in
-    ``'off'``, their b1, b2 and layer scale."""
+    them: the convs' weights and biases (a ``'block'`` block's conv bias
+    stays f32), the blocks' matrices and, in ``'off'``, their b1, b2 and
+    layer scale."""
     if name.endswith(("block.0.weight", "block.3.weight", "block.5.weight", "convnext.6.1.weight")):
         return True
     return reduced_in_bf16(name, mode)
@@ -183,7 +198,7 @@ def check_step(monkeypatch, mode, teacher_forcing, train_encoder, **overrides):
     batch = make_batch()
     cfg = model.cfg
     enc_before = {k: v.clone() for k, v in model.encoder.state_dict().items()}
-    loss_b, aux_b, g_b = jax_loss_and_grads(jbf, params, batch, teacher_forcing, mode == "mlp")
+    loss_b, aux_b, g_b = jax_loss_and_grads(jbf, params, batch, teacher_forcing, mode != "off")
     loss_f, _, g_f = jax_loss_and_grads(jf32, params, batch, teacher_forcing, False)
     state, m, tc = port_step(model, batch, teacher_forcing, train_encoder)
     loss = float(m["loss"])

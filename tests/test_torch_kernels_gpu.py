@@ -83,7 +83,15 @@ take its loads without TMA, the same bits twice, and a dtype set that is
 neither instance's refused; the one-cell decode instance equal to the
 per-layer bf16 launches bit for bit; the rollout instance against its
 plain version, sequences equal except at a near-tie and logits and maps
-within the same bound up to a row's first difference.
+within the same bound up to a row's first difference.  The last bf16
+instances: the whole block's (bf16 x, taps, w1, w2) within one bf16 ulp of
+its plain version at the four stage shapes, a ragged batch and odd sides,
+sd-0 images bit for bit, and its backward on the card against the same
+composition on the CPU (bf16 gradients within one ulp of the largest,
+f32 ones within 1e-4 times max(1, the largest)); the sub-tiled MLP tail's
+within one ulp of its plain version and of the whole-tile bf16 instance,
+sd-0 rows bit for bit, the same bits twice; both refuse an x off a
+16-byte boundary.
 """
 
 import math
@@ -805,7 +813,7 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda):
                                      _build.raw_stream(0))
     assert err == 1  # cudaErrorInvalidValue, before any launch
     big = _plan_on(0, 32, 8, 8, 1024)
-    assert big.parts <= lib.tc_block_fused_clusters(1024, big.units, big.smem)
+    assert big.parts <= lib.tc_block_fused_clusters(1024, big.units, big.smem, 4)
 
 
 def test_block_forward_reruns_on_the_backward_thread(cuda):
@@ -895,12 +903,42 @@ def test_mlp_bf16_kernel_matches_plain(cuda, c, n):
     assert torch.equal(got[skipped], args[1][skipped])  # sd 0: the residual, bit for bit
 
 
-def test_mlp_bf16_refuses_the_sub_tiled_path(cuda, monkeypatch):
-    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", "64")
-    x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(256, 128, cuda)
+# The sub-tiled kernel's bf16 instance: each width at a ragged row count
+# and at its bs-8 and bs-32 stage shapes (128 and 256 output columns a
+# block), and one row tile alone.
+FUSED_BF16_ROWS = [(128, 1003), (128, 32768), (256, 777), (256, 8192), (256, 32767), (512, 2048), (512, 8191),
+                   (1024, 512), (1024, 2047), (1024, 64)]
+
+
+def bf16_mlp_args(n, c, device, seed):
+    x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(n, c, device, seed=seed, sd="mixed")
     bf = torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5d"):
-        fused_convnext_mlp(x.to(bf), res.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
+    return (x.to(bf), res.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
+
+
+@pytest.mark.parametrize("c,n", FUSED_BF16_ROWS)
+def test_mlp_bf16_sub_tiled_kernel_matches_plain(cuda, monkeypatch, c, n):
+    """``TPU_CAPTIONER_MLP_SUB=64`` on bf16 operands: one launch of the
+    sub-tiled bf16 instance, within one bf16 ulp of the plain version and
+    of the whole-tile bf16 instance, sd-0 rows the residual bit for bit,
+    the same bits from a second call; an x off a 16-byte boundary is
+    refused."""
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain_bf16
+
+    args = bf16_mlp_args(n, c, cuda, seed=5 * c + n)
+    monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
+    whole = fused_convnext_mlp(*args)
+    before = fused_convnext_mlp.pipelined_bf16_launches
+    got = sub_tiled(args, monkeypatch)
+    again = sub_tiled(args, monkeypatch)
+    assert fused_convnext_mlp.pipelined_bf16_launches == before + 2
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert within_bf16_ulp(got, _mlp_plain_bf16(*args)) and within_bf16_ulp(got, whole)
+    dropped = args[2] == 0
+    assert dropped.any() and torch.equal(got[dropped], args[1][dropped])
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_convnext_mlp(unaligned(args[0]), *args[1:])
 
 
 @pytest.mark.parametrize("rows", [40, 160, 32])
@@ -1025,6 +1063,85 @@ def test_bf16_autograd_runs_the_backward_instances(cuda):
         assert p.grad is not None and p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
         if name in ("block.0.weight", "block.0.bias", "block.3.weight", "block.5.weight"):
             assert torch.equal(p.grad, p.grad.to(torch.bfloat16).float()), name  # rounded to bf16 once
+
+
+# The whole-block kernel's bf16 instance.
+
+
+def bf16_block_args(shape, device, seed, sd="mixed"):
+    """x, the taps, w1 and w2 bf16, the rest f32: what the bf16 encoder
+    passes in ``'block'``."""
+    args = list(block_args(shape, device, seed=seed, sd=sd))
+    for i in (0, 2, 6, 8):
+        args[i] = args[i].to(torch.bfloat16)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+@pytest.mark.parametrize("sd", ["ones", "mixed"])
+def test_block_bf16_kernel_matches_plain(cuda, shape, sd):
+    """Within one bf16 ulp of ``_block_plain_bf16`` at the four stage shapes
+    at batch 8 and 32, a ragged batch and odd sides; sd-0 images are their
+    input bit for bit; one launch, counted as bf16; an x off a 16-byte
+    boundary is refused."""
+    from tpu_captioner_torch.ops.block_fused import _block_plain_bf16
+
+    args = bf16_block_args(shape, cuda, seed=shape[1] + shape[3], sd=sd)
+    before = fused_convnext_block.launches, fused_convnext_block.bf16_launches
+    got = fused_convnext_block(*args)
+    torch.cuda.synchronize()
+    assert (fused_convnext_block.launches, fused_convnext_block.bf16_launches) == tuple(k + 1 for k in before)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert within_bf16_ulp(got, _block_plain_bf16(*args))
+    dropped = args[1] == 0
+    assert torch.equal(got[dropped], args[0][dropped])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_convnext_block(unaligned(args[0]), *args[1:])
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 16, 512), (2, 8, 8, 1024), (2, 9, 7, 128)])
+def test_block_bf16_autograd_matches_the_cpu_composition(cuda, shape):
+    """The bf16 block's backward on the card (the bf16 conv recomputed, the
+    tail's f32 backward kernel, the bf16 input- and filter-gradient
+    kernels) against the same composition on the CPU, where each wrapper
+    runs its plain version: the bf16 gradients within one bf16 ulp of
+    max(1, max |CPU|), the f32 ones within 1e-4 of the same; the launches
+    of each kernel counted."""
+    args = bf16_block_args(shape, cuda, seed=11)
+    cot = torch.randn(*shape, generator=torch.Generator().manual_seed(12)).to(cuda, torch.bfloat16)
+    counts = lambda: (fused_convnext_mlp_bwd.launches, fused_convnext_mlp_bwd.bf16_launches,  # noqa: E731
+                      depthwise_conv7x7_nhwc.bf16_launches, depthwise_conv7x7_nhwc.bf16_grad_launches)
+    ins = [a.detach().clone().requires_grad_() for a in args]
+    before = counts()
+    got = torch.autograd.grad(fused_convnext_block(*ins), ins, cot)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 2, 1)
+    cpu = [a.detach().cpu().clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(fused_convnext_block(*cpu), cpu, cot.cpu())
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == args[i].dtype and torch.isfinite(a.float()).all(), i
+        b, scale = b.float(), max(1.0, b.float().abs().max().item())
+        tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if a.dtype == torch.bfloat16 else 1e-4 * scale
+        assert (a.float().cpu() - b).abs().max().item() <= tol, i
+
+
+def test_block_bf16_plan_and_occupancy(cuda):
+    """The bf16 instance's plan (2-byte boxes) on the card: no more clusters
+    than its instance runs at once; the C side refuses a plan priced at the
+    f32 box."""
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.block_fused import _lib, _plan_on, block_plan
+
+    lib = _lib()
+    big = _plan_on(0, 32, 8, 8, 1024, 2)
+    assert big.parts <= lib.tc_block_fused_clusters(1024, big.units, big.smem, 2)
+    args = bf16_block_args((2, 8, 8, 512), cuda, seed=1)
+    out, work = torch.empty_like(args[0]), args[1].new_empty(lib.tc_block_fused_workspace(128, 512))
+    wrong = block_plan(2, 8, 8, 512)  # the f32 plan
+    assert wrong.smem != block_plan(2, 8, 8, 512, esize=2).smem
+    err = lib.tc_block_fused_forward_bf16(*(t.data_ptr() for t in (*args, out, work)), 2, 8, 8, 512, *wrong.args(),
+                                          _build.raw_stream(0))
+    assert err == 1  # cudaErrorInvalidValue, before any launch
 
 
 # The bf16 decoder instances.

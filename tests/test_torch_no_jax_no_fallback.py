@@ -125,13 +125,20 @@ def test_bf16_and_lstm_are_refused():
     model of each builds, and so do its four train steps (the LSTM
     families, once refused as #5c, are ported); a bf16 Transformer's
     ``'mega'`` and one-cell rollouts run (once refused as #5e), with finite
-    f32 logits.  What bf16 does not port raises NotImplementedError naming
-    its ROADMAP item: ``use_pallas='block'`` (#5d).  The LSTM families,
-    once refused in f32 too, are ported: an ``lstm`` model builds on the
-    CPU."""
+    f32 logits.  ``use_pallas='block'`` and per-stage lists holding it, once
+    refused as #5d, are ported: such a bf16 model builds, encodes to finite
+    bf16 features and takes a fine-tune step whose trained encoder
+    gradients are finite, and no source of the package refuses anything as
+    #5d.  The LSTM families, once refused in f32 too, are ported: an
+    ``lstm`` model builds on the CPU."""
+    import math
+    import pathlib
+
+    from tpu_captioner_torch.core import prng
     from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
     from tpu_captioner_torch.models.lstm import DecoderWithAttention
     from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
     from tpu_captioner_torch.train.steps import make_train_step
 
     tiny = dict(vocab_size=11, encoder_depths=(1, 1, 1, 1), encoder_dims=(8, 8, 8, 8), encoder_dim=8,
@@ -144,9 +151,22 @@ def test_bf16_and_lstm_are_refused():
             for train_encoder in (False, True):
                 assert callable(make_train_step(model, TrainConfig(), word_ids, teacher_forcing=teacher_forcing,
                                                 train_encoder=train_encoder))
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(0))
+    captions = torch.tensor([[1, 5, 2, 0, 0, 0], [1, 6, 7, 8, 2, 0]])
+    batch = {"images": images, "captions": captions, "caplens": torch.tensor([3, 5]),
+             "valid": torch.tensor([True, True])}
     for use_pallas in ("block", ("mlp", "mlp", "block", "off")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #5d"):
-            CaptionModel(ModelConfig(use_pallas=use_pallas, **tiny), device="cpu")
+        model = CaptionModel(ModelConfig(use_pallas=use_pallas, **tiny), device="cpu")
+        with torch.inference_mode():
+            feats = model.encode(images)
+        assert feats.dtype == torch.bfloat16 and feats.shape == (2, 7, 7, 8) and torch.isfinite(feats.float()).all()
+        tc = TrainConfig(batch_size=2, max_decode_len=4)
+        state = TrainState.create(model, tc)
+        state, m = make_train_step(model, tc, word_ids, train_encoder=True)(state, batch, prng.step_seed(prng.root_seed(1), "dropout", 0, 0))
+        grads = [p.grad for p in model.encoder.parameters() if p.grad is not None]
+        assert math.isfinite(float(m["loss"])) and grads and all(torch.isfinite(g).all() for g in grads)
+    root = pathlib.Path(__file__).resolve().parents[1] / "tpu_captioner_torch"
+    assert not [p for p in root.rglob("*") if p.suffix in (".py", ".cu", ".cuh") and "#5d" in p.read_text()]
     enc = torch.zeros(2, 7, 7, 8, dtype=torch.bfloat16)
     for mode, one_cell in (("mega", False), ("step", True)):
         model = CaptionModel(ModelConfig(decode_kernel=mode, **tiny), device="cpu")

@@ -1,4 +1,4 @@
-// A whole ConvNeXt block, forward, f32, for Hopper (sm_90a).
+// A whole ConvNeXt block, forward, f32 and bf16, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tpu_captioner/ops/block_fused.py:_kernel (launched
 // by _fused_pallas under fused_convnext_block).  For x (B, H, W, C), NHWC,
@@ -43,9 +43,27 @@
 // LayerNorm launch.  The f32 FFMA tail (mlp_tail.cuh) that a single-launch
 // version of this kernel ran is not used: its products ran at a third of
 // the tensor cores' f32-accurate rate.
+//
+// The bf16 instance (tc_block_fused_forward_bf16): the TPU kernel on the
+// operands the JAX bf16 encoder hands it (tpu_captioner/models/
+// convnext.py:142-149): x, the taps, W1 and W2 bf16; the conv bias, the
+// LayerNorm, b1, b2, the layer scale and sd f32; out bf16.  As the TPU
+// kernel does (block_fused.py:64-71), the 49 products of bf16 values are
+// summed in f32 and the f32 bias added, t is never rounded, and LayerNorm,
+// products, GELU and residual run in f32; out is rounded to bf16 once.  So
+// the ring holds bf16 boxes (half the bytes: the plan's slots are priced at
+// 2 bytes an element), each value widened as the consumer reads it
+// (dwconv_tile.cuh: conv_patch<bf16>), the taps are widened once into
+// registers, the products read the bf16 weights' hi planes alone (a bf16
+// value is a TF32 value: two TF32 products a k-step, exact f32 products),
+// and OutEpi reads the bf16 residual and rounds the f32 sum once.  What
+// bounds it: the same products, at the f32-accurate rate of a bf16 weight
+// (three bf16 products per product, 329.67 TFLOP/s); half the f32
+// instance's bytes of x and out.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,15 +96,17 @@ struct Geom {
   int th, slots, parts;
   int tiles_w, per_img, tiles;  // tiles across, per image, in all
   int per32, units;             // patches per 32 channels, consumer warps
-  int slot_floats;
+  int slot_elems;               // elements (f32 or bf16) of a halo'd box
 };
 
-__host__ __device__ inline int slot_bytes(int th) { return 4 * (th + 2 * PAD) * kBoxC * kCc; }  // a halo'd box
+// A halo'd box of esize-byte elements.
+__host__ __device__ inline int slot_bytes(int th, int esize) { return esize * (th + 2 * PAD) * kBoxC * kCc; }
 
-// The plan's derived numbers; false if the plan breaks a rule of the kernel
-// or disagrees with the shared memory it needs.
+// The plan's derived numbers for x of esize-byte elements; false if the
+// plan breaks a rule of the kernel or disagrees with the shared memory it
+// needs.
 bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int cluster, int slots, int parts,
-               int smem) {
+               int smem, int esize) {
   if (B < 1 || H < 1 || W < 1 || cc != kCc || tw != kTw || C % kCc || C / kCc != cluster || cluster > 8)
     return false;
   if (th < kR || th > kMaxTh || th % kR || slots < 2 || slots > kMaxSlots || parts < 1) return false;
@@ -96,16 +116,17 @@ bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int 
   g.tiles = B * g.per_img;
   g.per32 = th / kR;
   g.units = kGroups * g.per32;
-  g.slot_floats = slot_bytes(th) / 4;
-  const long long need = kHeader + 4LL * kSmall + (long long)slots * slot_bytes(th);
+  g.slot_elems = slot_bytes(th, esize) / esize;
+  const long long need = kHeader + 4LL * kSmall + (long long)slots * slot_bytes(th, esize);
   return need <= kSmemMax && need == smem && (long long)parts * cluster <= 65535;
 }
 
 // grid (parts x C / 128 blocks), clusters of C / 128 along x; 32 * units
 // threads, every warp a consumer.  Thread 0 also issues the ring's copies.
-template <int C>
+// x and the taps of T: f32, or bf16 (widened as read).
+template <int C, class T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    conv_ln_kernel(const __grid_constant__ CUtensorMap xmap, const float* __restrict__ dww,
+    conv_ln_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ dww,
                    const float* __restrict__ dwb, const float* __restrict__ lnw, const float* __restrict__ lnb,
                    float* __restrict__ planes, Geom g) {
   constexpr int S = C / kCc;
@@ -115,13 +136,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   float* mean_l = red + kGroups * kMaxP;
   float2* xchg = reinterpret_cast<float2*>(mean_l + kMaxP);  // (2, kMaxP)
   float2* stats = xchg + 2 * kMaxP;
-  float* ring = reinterpret_cast<float*>(stats + kMaxP);
+  T* ring = reinterpret_cast<T*>(stats + kMaxP);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int rank = 0;
   if constexpr (S > 1) rank = (int)cg::this_cluster().block_rank();
   const int part = blockIdx.x / S, c = rank * kCc + warp / g.per32 * 32 + lane;
   const int n_local = part < g.tiles ? (g.tiles - part + g.parts - 1) / g.parts : 0;
-  const int pixels = g.th * kTw, box_bytes = slot_bytes(g.th);
+  const int pixels = g.th * kTw, box_bytes = slot_bytes(g.th, sizeof(T));
   const Unit u = unit_of(g.per32, 1, warp, lane);
   const long long plane = (long long)g.B * g.H * g.W * C;
 
@@ -134,7 +155,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     origin(i, b, h0, w0);
     const int s = i % g.slots;
     mbar_expect_tx(&full[s], box_bytes);
-    tma_load_4d(ring + s * g.slot_floats, &xmap, rank * kCc, w0 - PAD, h0 - PAD, b, &full[s]);
+    tma_load_4d(ring + s * g.slot_elems, &xmap, rank * kCc, w0 - PAD, h0 - PAD, b, &full[s]);
   };
 
   if (threadIdx.x == 0) {
@@ -147,7 +168,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   float wr[kTaps];
 #pragma unroll
-  for (int t = 0; t < kTaps; ++t) wr[t] = __ldg(dww + t * C + c);
+  for (int t = 0; t < kTaps; ++t) wr[t] = to_f32(dww[t * C + c]);
   const float bias = __ldg(dwb + c), ln_w = __ldg(lnw + c), ln_b = __ldg(lnb + c);
   // The tile pixel of this lane's sums after reduce_scatter16: value (lane
   // >> 1) & 15 of the patch, row / kS down and % kS across.
@@ -157,7 +178,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int s = i % g.slots;
     mbar_wait(&full[s], (i / g.slots) & 1);
     float acc[kR][kS];
-    conv_patch(ring + s * g.slot_floats + u.prow * kBoxC * kCc + u.lc, kBoxC, kCc, wr, acc);
+    conv_patch(ring + s * g.slot_elems + u.prow * kBoxC * kCc + u.lc, kBoxC, kCc, wr, acc);
     float t[kR * kS], v[kR * kS];
 #pragma unroll
     for (int k = 0; k < kR * kS; ++k) v[k] = t[k] = acc[k / kS][k % kS] + bias;
@@ -255,38 +276,39 @@ cudaLaunchConfig_t conv_ln_config(const Geom& g, int smem, int cluster, cudaStre
   return cfg;
 }
 
-template <int C>
+template <int C, class T>
 cudaError_t allow_smem() {
   static bool done = false;  // set once per instance, not at every launch
   if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(conv_ln_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t err = cudaFuncSetAttribute(conv_ln_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                kSmemMax);
   done = err == cudaSuccess;
   return err;
 }
 
-template <int C>
-int forward(const float* x, const float* sd, const float* dww, const float* dwb, const float* lnw,
-            const float* lnb, const float* w1, const float* b1, const float* w2, const float* b2,
-            const float* gamma, float* out, float* work, const Geom& g, int smem, cudaStream_t s) {
+// x, the taps, the weights and out of T (f32, or bf16: the bf16 instance).
+template <int C, class T>
+int forward(const T* x, const float* sd, const T* dww, const float* dwb, const float* lnw, const float* lnb,
+            const T* w1, const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work,
+            const Geom& g, int smem, cudaStream_t s) {
   const int n = g.B * g.H * g.W;
   CUtensorMap xmap = {};
   cudaError_t err = bind_device(x);
-  if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, C, kCc, kBoxC, g.th + 2 * PAD);
-  if (err == cudaSuccess) err = allow_smem<C>();
+  if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, C, kCc, kBoxC, g.th + 2 * PAD, sizeof(T));
+  if (err == cudaSuccess) err = allow_smem<C, T>();
   if (err == cudaSuccess) err = split_weights<C>(w1, w2, work, n, s);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = conv_ln_config(g, smem, C / kCc, s, attr);
-  err = cudaLaunchKernelEx(&cfg, conv_ln_kernel<C>, xmap, dww, dwb, lnw, lnb, work + make_plan(n, C).xs, g);
+  err = cudaLaunchKernelEx(&cfg, conv_ln_kernel<C, T>, xmap, dww, dwb, lnw, lnb, work + make_plan(n, C).xs, g);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess) err = products<C>(x, sd, g.H * g.W, b1, b2, gamma, out, work, n, s);
   return (int)err;
 }
 
-template <int C>
+template <int C, class T>
 int active_clusters(int units, int smem) {
-  cudaError_t err = allow_smem<C>();
+  cudaError_t err = allow_smem<C, T>();
   if (err != cudaSuccess) return -(int)err;
   Geom g = {};
   g.parts = 1, g.units = units;
@@ -294,8 +316,40 @@ int active_clusters(int units, int smem) {
   cudaLaunchConfig_t cfg = conv_ln_config(g, smem, C / kCc, nullptr, attr);
   cfg.numAttrs = 1;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, conv_ln_kernel<C>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, conv_ln_kernel<C, T>, &cfg);
   return err != cudaSuccess ? -(int)err : n;
+}
+
+// The plan checked, then the instance of width C.
+template <class T>
+int dispatch(const T* x, const float* sd, const T* dww, const float* dwb, const float* lnw, const float* lnb,
+             const T* w1, const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work,
+             int B, int H, int W, int C, int th, int tw, int cc, int cluster, int slots, int parts, int smem,
+             void* stream) {
+  Geom g;
+  if (!make_geom(g, B, H, W, C, th, tw, cc, cluster, slots, parts, smem, sizeof(T)) || !aligned16(x))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TC_ARGS x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, work, g, smem, s
+  switch (C) {
+    case 128: return forward<128>(TC_ARGS);
+    case 256: return forward<256>(TC_ARGS);
+    case 512: return forward<512>(TC_ARGS);
+    case 1024: return forward<1024>(TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC_ARGS
+}
+
+template <class T>
+int clusters_of(int c, int units, int smem) {
+  switch (c) {
+    case 128: return active_clusters<128, T>(units, smem);
+    case 256: return active_clusters<256, T>(units, smem);
+    case 512: return active_clusters<512, T>(units, smem);
+    case 1024: return active_clusters<1024, T>(units, smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -317,33 +371,31 @@ int tc_block_fused_forward(const float* x, const float* sd, const float* dww, co
                            const float* w2, const float* b2, const float* gamma, float* out, float* work,
                            int B, int H, int W, int C, int th, int tw, int cc, int cluster, int slots, int parts,
                            int smem, void* stream) {
-  Geom g;
-  if (!make_geom(g, B, H, W, C, th, tw, cc, cluster, slots, parts, smem) || !aligned16(x))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TC_ARGS x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, work, g, smem, s
-  switch (C) {
-    case 128: return forward<128>(TC_ARGS);
-    case 256: return forward<256>(TC_ARGS);
-    case 512: return forward<512>(TC_ARGS);
-    case 1024: return forward<1024>(TC_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TC_ARGS
+  return dispatch(x, sd, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, work, B, H, W, C, th, tw, cc, cluster,
+                  slots, parts, smem, stream);
+}
+
+// The bf16 instance: x, dww, w1, w2 and out bf16, the rest f32, as
+// tc_block_fused_forward; the plan is block_plan(..., esize=2).
+int tc_block_fused_forward_bf16(const void* x, const float* sd, const void* dww, const float* dwb,
+                                const float* lnw, const float* lnb, const void* w1, const float* b1,
+                                const void* w2, const float* b2, const float* gamma, void* out, float* work,
+                                int B, int H, int W, int C, int th, int tw, int cc, int cluster, int slots, int parts,
+                                int smem, void* stream) {
+  using bf = __nv_bfloat16;
+  return dispatch(static_cast<const bf*>(x), sd, static_cast<const bf*>(dww), dwb, lnw, lnb,
+                  static_cast<const bf*>(w1), b1, static_cast<const bf*>(w2), b2, gamma, static_cast<bf*>(out), work,
+                  B, H, W, C, th, tw, cc, cluster, slots, parts, smem, stream);
 }
 
 // How many clusters of C / 128 conv + LayerNorm blocks of `units` warps and
-// smem bytes the card runs at once (cudaOccupancyMaxActiveClusters), or
-// minus a cudaError_t.
-int tc_block_fused_clusters(int c, int units, int smem) {
-  if (units < 1 || 32 * units > kMaxThreads || smem > kSmemMax) return -(int)cudaErrorInvalidValue;
-  switch (c) {
-    case 128: return active_clusters<128>(units, smem);
-    case 256: return active_clusters<256>(units, smem);
-    case 512: return active_clusters<512>(units, smem);
-    case 1024: return active_clusters<1024>(units, smem);
-    default: return -(int)cudaErrorInvalidValue;
-  }
+// smem bytes the card runs at once (cudaOccupancyMaxActiveClusters), for x
+// of esize-byte elements (4: f32, 2: the bf16 instance), or minus a
+// cudaError_t.
+int tc_block_fused_clusters(int c, int units, int smem, int esize) {
+  if (units < 1 || 32 * units > kMaxThreads || smem > kSmemMax || (esize != 2 && esize != 4))
+    return -(int)cudaErrorInvalidValue;
+  return esize == 2 ? clusters_of<__nv_bfloat16>(c, units, smem) : clusters_of<float>(c, units, smem);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,4 +1,4 @@
-// Fused ConvNeXt block tail, forward, f32, for Hopper (sm_90a).
+// Fused ConvNeXt block tail, forward, f32 and bf16, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels tpu_captioner/ops/mlp_block.py:_kernel (SUB = 0)
 // and _kernel_pipelined (SUB = 64), both launched by _fused_pallas under
@@ -85,16 +85,31 @@
 // What it reads again: x, once per chunk in every block of the cluster (S
 // x 4C / JC times a tile), and the weight planes once per tile from L2.
 //
-// The bf16 instance (tc_mlp_block_forward_bf16, the whole-tile path only):
-// the TPU kernel _kernel with bf16 x, residual, W1 and W2 and
+// The bf16 instances (tc_mlp_block_forward_bf16): the TPU kernels _kernel
+// and _kernel_pipelined with bf16 x, residual, W1 and W2 and
 // mxu_dtype=float32, which the JAX bf16 encoder calls (precise=True,
-// tpu_captioner/models/convnext.py:163-171).  ln_rows reads bf16 rows, the
-// split reads bf16 weights (a bf16 value is a TF32 value: its lo plane is
-// zero, so the GEMM reads the weights' hi planes alone and runs two TF32
-// products a k-step, hi.hi and lo.hi of the f32 rows, exact f32 products),
-// and the second product's epilogue reads the bf16 residual and rounds the
-// f32 sum to bf16 once.  Half the bytes of x, the residual and the output;
-// two thirds of the f32 instance's tensor-core products.
+// tpu_captioner/models/convnext.py:163-171; _pipeline_sub picks the
+// sub-tiled body for any dtype).  LayerNorm, products, GELU and residual in
+// f32, the f32 sum rounded to bf16 once.
+// - The whole tile (SUB = 0): ln_rows reads bf16 rows, the split reads bf16
+//   weights (a bf16 value is a TF32 value: its lo plane is zero, so the
+//   GEMM reads the weights' hi planes alone and runs two TF32 products a
+//   k-step, hi.hi and lo.hi of the f32 rows, exact f32 products), and the
+//   second product's epilogue reads the bf16 residual and rounds once.
+// - The sub-tiled path (SUB = 64): fused_kernel<C, NC, bf16>.  x arrives by
+//   TMA as bf16 slabs (32 columns x 64 rows, 64-byte rows with the 64-byte
+//   swizzle: a thread's four columns are 8 bytes of a 16-byte chunk, the
+//   chunk index XORed with bits 7-8 of the address, so a warp's fragment
+//   loads are free of bank conflicts, as the f32 slab's are), and the prologue
+//   widens each value as it normalises it; the statistics read bf16 rows.
+//   prep_w1 folds ln_w into W1 as the f32 instance does: W1 * ln_w is no
+//   bf16 value, so W1' keeps both TF32 planes and the first product its
+//   three TF32 products (f32-accurate, as the TPU kernel's f32 LayerNorm
+//   then product).  W2 holds bf16 values: only its hi plane is loaded, and
+//   the second product runs two TF32 products a k-step.  The epilogue reads
+//   the bf16 residual and rounds once.  The ring, the h buffers and the
+//   tiles are the f32 instance's (a bf16 slab uses half its region).
+// Half the bytes of x, the residual and the output.
 
 #include <cooperative_groups.h>
 
@@ -220,9 +235,9 @@ inline FusedPlan make_fused_plan(int c) {
 // W1' = W1 * ln_w (column by column) as its two TF32 planes (4C, C), the
 // columns of each 16-group in the order the fused kernel's A fragments take
 // them: column 16 G + 4 u + e goes to k-slot 16 G + u + 4 e.  b1' = b1 + W1
-// ln_b.  One warp per row of W1.
-template <int C>
-__global__ void __launch_bounds__(256) prep_w1(const float* __restrict__ w1, const float* __restrict__ lnw,
+// ln_b.  One warp per row of W1 (f32 or bf16, widened).
+template <int C, class T>
+__global__ void __launch_bounds__(256) prep_w1(const T* __restrict__ w1, const float* __restrict__ lnw,
                                               const float* __restrict__ lnb, const float* __restrict__ b1,
                                               float* __restrict__ w1p, float* __restrict__ b1f) {
   const int row = (blockIdx.x * 256 + threadIdx.x) >> 5, lane = threadIdx.x & 31;
@@ -327,17 +342,31 @@ __device__ unsigned long long phase_clocks[2][kPhases];
 #define TC_PHASES_END
 #endif
 
+// Where a thread's four x columns 16 G + 4 q .. + 3 of row r (r % 8 = g)
+// sit in a staged slab of 32 columns: f32 rows of 128 bytes with the
+// 128-byte swizzle (16-byte chunk c at c ^ (r % 8)); bf16 rows of 64 bytes
+// with the 64-byte swizzle (chunk c of the 128-byte line r / 2 at c ^ (r /
+// 2 % 4); the four columns are half a chunk).
+__device__ __forceinline__ int slab_at(const float*, int r, int G, int q, int g) {
+  return r * tf32x3::kBK + (((4 * G + q) ^ g) << 2);
+}
+__device__ __forceinline__ int slab_at(const __nv_bfloat16*, int r, int G, int q, int) {
+  return r * tf32x3::kBK + ((((2 * G + (q >> 1)) ^ ((r >> 1) & 3)) << 3) | ((q & 1) << 2));
+}
+
 // grid: clusters x S blocks (clusters along x); pairs = ceil(n / 128) row
-// tiles, cluster i taking tiles i, i + clusters, ...
-template <int C, int NC>
+// tiles, cluster i taking tiles i, i + clusters, ...  x, res and out of T:
+// f32, or bf16 (W2's lo plane then zero and not loaded).
+template <int C, int NC, class T>
 __global__ void __launch_bounds__(kFusedThreads, 1)
     fused_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w1map,
-                 const __grid_constant__ CUtensorMap w2map, const float* __restrict__ x,
-                 const float* __restrict__ res, const float* __restrict__ sd, const float* __restrict__ b1f,
-                 const float* __restrict__ b2, const float* __restrict__ gamma, float* __restrict__ out, int n,
+                 const __grid_constant__ CUtensorMap w2map, const T* __restrict__ x,
+                 const T* __restrict__ res, const float* __restrict__ sd, const float* __restrict__ b1f,
+                 const float* __restrict__ b2, const float* __restrict__ gamma, T* __restrict__ out, int n,
                  int pairs) {
   using F = Fused<C, NC>;
   constexpr int S = F::S, JCB = F::JCB, JC = F::JC, kSlots = F::kSlots, kBK = tf32x3::kBK;
+  constexpr int kW2Planes = sizeof(T) == 4 ? 2 : 1;  // a bf16 W2's lo plane is zero
   extern __shared__ uint8_t smem_raw[];
   // Slots and h planes start on 1024-byte boundaries, where the 128-byte
   // swizzle pattern starts over (the descriptors' base offset 0).
@@ -385,7 +414,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       for (int p = cluster_id; p < pairs; p += clusters)
         for (int j = 0; j < F::kChunks; ++j) {
           for (int kt = 0; kt < C / kBK; ++kt) {  // W1's rows of this block's units, both sub-tiles' x
-            const int s = next(4 * (2 * kBK * JCB + 2 * kXSlab));
+            const int s = next(4 * 2 * kBK * JCB + (int)sizeof(T) * 2 * kXSlab);
             float* slot = ring + s * kSlotFloats;
             tf32x3::tma_load(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
             tma_load_2d(slot + kSlotFloats / 2, &xmap, kt * kBK, p * 2 * kSub, &full[s]);
@@ -393,7 +422,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           }
           for (int half = 0; half < F::NC / 128; ++half)
             for (int kt = 0; kt < JC / kBK; ++kt) {  // W2's rows of this block's output columns
-              const int s = next(4 * 2 * kBK * 128);
+              const int s = next(4 * kW2Planes * kBK * 128);
               tf32x3::tma_load(ring + s * kSlotFloats, &w2map, j * JC + kt * kBK, rank * F::NC + half * 128,
                                &full[s]);
             }
@@ -466,16 +495,14 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           mbar_wait(&full[s], (it / kSlots) & 1);
           TC_PHASE(1)  // the first product's slot
           const float* slot = ring + s * kSlotFloats;
-          const float* xs = slot + kSlotFloats / 2 + w * kXSlab;
+          const T* xs = reinterpret_cast<const T*>(slot + kSlotFloats / 2 + w * kXSlab);
           // A fragments of the four k-steps: k-step 2 G + e2 takes columns
           // 16 G + 4 q + 2 e2 (k-slot q) and + 1 (k-slot q + 4), W1's
-          // permutation (prep_w1); the slab is 128-byte swizzled, so the
-          // float4 of row r, 16-byte chunk c sits at chunk c ^ (r % 8).
+          // permutation (prep_w1); the slab is swizzled (slab_at).
           uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
           for (int G = 0; G < 2; ++G) {
-            const int ch = ((4 * G + q) ^ g) * 4;
-            const float4 va = ld4(xs + ra * kBK + ch), vb = ld4(xs + (ra + 8) * kBK + ch);
+            const float4 va = ld4(xs + slab_at(xs, ra, G, q, g)), vb = ld4(xs + slab_at(xs, ra + 8, G, q, g));
 #pragma unroll
             for (int e2 = 0; e2 < 2; ++e2) {
               const int t = 2 * G + e2;
@@ -564,8 +591,8 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
             const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * 128);
 #pragma unroll
             for (int kk = 0; kk < kBK / 8; ++kk) {
-              tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
-              tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, 1);
+              if constexpr (kW2Planes == 2) tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
+              tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, kW2Planes == 2 || kt > 0 || kk > 0);
               tf32x3::wgmma_tf32(op, ah + 2 * kk, bh + 2 * kk, 1);
             }
             tf32x3::wgmma_commit();
@@ -599,14 +626,14 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           const int col0 = rank * F::NC + 128 * half + 2 * q;
           float2 r[16];  // the residuals, all requested before the first is used
 #pragma unroll
-          for (int jj = 0; jj < 16; ++jj) r[jj] = *reinterpret_cast<const float2*>(res + (size_t)m * C + col0 + 8 * jj);
+          for (int jj = 0; jj < 16; ++jj) r[jj] = load2(res + (size_t)m * C + col0 + 8 * jj);
 #pragma unroll
           for (int jj = 0; jj < 16; ++jj) {
             const int col = col0 + 8 * jj, a = 64 * half + 4 * jj + 2 * hr;
             const float2 b = *reinterpret_cast<const float2*>(b2 + col);
             const float2 gm = *reinterpret_cast<const float2*>(gamma + col);
-            *reinterpret_cast<float2*>(out + (size_t)m * C + col) =
-                make_float2(r[jj].x + sm * ((acc[a] + b.x) * gm.x), r[jj].y + sm * ((acc[a + 1] + b.y) * gm.y));
+            store2(out + (size_t)m * C + col,
+                   make_float2(r[jj].x + sm * ((acc[a] + b.x) * gm.x), r[jj].y + sm * ((acc[a + 1] + b.y) * gm.y)));
           }
         }
       }
@@ -617,17 +644,21 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
   }
 }
 
-// x (n, C) as 32-column x 64-row boxes, 128-byte swizzled; rows past n
-// arrive as zeros.
-inline cudaError_t x_map(CUtensorMap* map, const float* x, int n, int c) {
+// x (n, C) as 32-column x 64-row boxes: f32 rows of 128 bytes with the
+// 128-byte swizzle, bf16 rows of 64 bytes with the 64-byte swizzle
+// (slab_at); rows past n arrive as zeros.
+template <class T>
+inline cudaError_t x_map(CUtensorMap* map, const T* x, int n, int c) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
+  constexpr bool f32 = sizeof(T) == 4;
   const cuuint64_t dims[2] = {(cuuint64_t)c, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)c * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)c * sizeof(T)};
   const cuuint32_t box[2] = {tf32x3::kBK, kSub};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            const_cast<T*>(x), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -648,7 +679,7 @@ cudaLaunchConfig_t fused_config(int clusters, int S, int smem, cudaStream_t s, c
 }
 
 // How many clusters of an instance the card runs at once (asked once).
-template <int C, int NC>
+template <int C, int NC, class T>
 cudaError_t active_clusters(int* out) {
   using F = Fused<C, NC>;
   static int cached = 0;
@@ -656,13 +687,14 @@ cudaError_t active_clusters(int* out) {
     *out = cached;
     return cudaSuccess;
   }
-  cudaError_t err = cudaFuncSetAttribute(fused_kernel<C, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_kernel<C, NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = fused_config(1, F::S, F::kSmem, nullptr, attr);
   cfg.numAttrs = 1;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC, T>, &cfg);
   if (err != cudaSuccess) return err;
   if (n < 1) return cudaErrorInvalidConfiguration;
   *out = cached = n;
@@ -674,13 +706,13 @@ cudaError_t active_clusters(int* out) {
 // clusters the card holds at once, else 128 (twice the blocks to a tile).
 // At 256 a block does twice the work with fewer, wider wgmmas and half the
 // peers (PERF.md, row 2).
-template <int C>
+template <int C, class T = float>
 cudaError_t fused_columns(int n, int* nc) {
   *nc = 128;
   if constexpr (C > 128) {
     int c128 = 0, c256 = 0;
-    cudaError_t err = active_clusters<C, 128>(&c128);
-    if (err == cudaSuccess) err = active_clusters<C, 256>(&c256);
+    cudaError_t err = active_clusters<C, 128, T>(&c128);
+    if (err == cudaSuccess) err = active_clusters<C, 256, T>(&c256);
     if (err != cudaSuccess) return err;
     const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
     if ((pairs + c256 - 1) / c256 < (pairs + c128 - 1) / c128) *nc = 256;
@@ -688,39 +720,41 @@ cudaError_t fused_columns(int n, int* nc) {
   return cudaSuccess;
 }
 
-template <int C, int NC>
-int sub_tiled(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
-              const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma, float* out,
-              float* work, int n, cudaStream_t s) {
+// x, res, the weights and out of T: f32, or bf16 (the bf16 instance).
+template <int C, int NC, class T>
+int sub_tiled(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
+              const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n,
+              cudaStream_t s) {
   using F = Fused<C, NC>;
   const FusedPlan p = make_fused_plan(C);
   int clusters = 0;
-  cudaError_t err = active_clusters<C, NC>(&clusters);
+  cudaError_t err = active_clusters<C, NC, T>(&clusters);
   if (err != cudaSuccess) return (int)err;
-  prep_w1<C><<<C / 2, 256, 0, s>>>(w1, lnw, lnb, b1, work + p.w1p, work + p.b1f);
+  prep_w1<C, T><<<C / 2, 256, 0, s>>>(w1, lnw, lnb, b1, work + p.w1p, work + p.b1f);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = tf32x3::split(w2, C, 4 * C, work + p.w2p, nullptr, 0, s)) != cudaSuccess) return (int)err;
   CUtensorMap xm, w1m, w2m;
   err = x_map(&xm, x, n, C);
   if (err == cudaSuccess) err = tf32x3::make_map(&w1m, {work + p.w1p, 4 * C, C, C, 4LL * C * C}, F::JCB);
-  if (err == cudaSuccess) err = tf32x3::make_map(&w2m, {work + p.w2p, C, 4 * C, 4 * C, 4LL * C * C}, 128);
+  if (err == cudaSuccess)
+    err = tf32x3::make_map(&w2m, {work + p.w2p, C, 4 * C, 4 * C, 4LL * C * C}, 128, sizeof(T) == 4 ? 2 : 1);
   if (err != cudaSuccess) return (int)err;
   const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fused_config(pairs < clusters ? pairs : clusters, F::S, F::kSmem, s, attr);
-  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC>, xm, w1m, w2m, x, res, sd, (const float*)(work + p.b1f), b2, gamma,
-                           out, n, pairs);
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, T>, xm, w1m, w2m, x, res, sd, (const float*)(work + p.b1f), b2,
+                           gamma, out, n, pairs);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int C>
-int forward(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
-            const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma, float* out,
-            float* work, int n, int sub, cudaStream_t s) {
+template <int C, class T>
+int forward(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
+            const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n, int sub,
+            cudaStream_t s) {
   if (sub == 0) return whole_tile<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
   if (sub != kSub) return (int)cudaErrorInvalidValue;
   int nc = 0;
-  const cudaError_t err = fused_columns<C>(n, &nc);
+  const cudaError_t err = fused_columns<C, T>(n, &nc);
   if (err != cudaSuccess) return (int)err;
   if constexpr (C > 128)
     if (nc == 256) return sub_tiled<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
@@ -805,22 +839,22 @@ int tc_mlp_phase_clocks(unsigned long long* out) {
 #endif
 }
 
-// The bf16 instance: x, res, w1, w2 and out bf16, the rest as
-// tc_mlp_block_forward; the whole-tile path only (sub must be 0: the
-// sub-tiled path takes f32).
+// The bf16 instances: x, res, w1, w2 and out bf16, the rest as
+// tc_mlp_block_forward, `sub` 0 (the whole tile) or 64 (the sub-tiled
+// path), the workspace tc_mlp_block_forward_workspace(n, c, sub) floats.
 int tc_mlp_block_forward_bf16(const void* x, const void* res, const float* sd, const float* lnw,
                               const float* lnb, const void* w1, const float* b1, const void* w2, const float* b2,
                               const float* gamma, void* out, float* work, int n, int c, int sub, void* stream) {
   using bf = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || sub != 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
 #define TC_ARGS static_cast<const bf*>(x), static_cast<const bf*>(res), sd, lnw, lnb, static_cast<const bf*>(w1), \
-                b1, static_cast<const bf*>(w2), b2, gamma, static_cast<bf*>(out), work, n, s
+                b1, static_cast<const bf*>(w2), b2, gamma, static_cast<bf*>(out), work, n, sub, s
   switch (c) {
-    case 128: return whole_tile<128>(TC_ARGS);
-    case 256: return whole_tile<256>(TC_ARGS);
-    case 512: return whole_tile<512>(TC_ARGS);
-    case 1024: return whole_tile<1024>(TC_ARGS);
+    case 128: return forward<128>(TC_ARGS);
+    case 256: return forward<256>(TC_ARGS);
+    case 512: return forward<512>(TC_ARGS);
+    case 1024: return forward<1024>(TC_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TC_ARGS

@@ -49,8 +49,10 @@ rounded to bf16 and then again after its bias; in ``'mlp'`` the fused
 tail on bf16 rows, residual and matrices with f32 vectors, LayerNorm and
 sums (the JAX kernel branch, ``precise=True``); in ``'off'`` the JAX XLA
 branch's bf16 ops one by one (LayerNorm cast to bf16, products, biases,
-the erfc GELU, layer scale, residual).  The two branches round
-differently.  Under autograd each op's backward rounds where the VJP of
+the erfc GELU, layer scale, residual); in ``'block'`` the whole block on
+bf16 x, taps and matrices with the f32 conv bias, vectors and sums, the
+conv never rounded (tpu_captioner/models/convnext.py:142-149;
+``ops/block_fused.py``).  The three branches round differently.  Under autograd each op's backward rounds where the VJP of
 the JAX op does: the kernels' backward instances (the module notes of
 ``ops/mlp_block.py`` and ``ops/dwconv.py``), the casts' backward (a
 weight's bf16 gradient widened to f32, an f32 gradient rounded to bf16
@@ -227,22 +229,27 @@ class CNBlock(nn.Module):
         return out.view(x.shape)
 
     def _forward_bf16(self, x: torch.Tensor, sd_rows: Optional[torch.Tensor]) -> torch.Tensor:
-        """The block on bf16 x, its weights cast to bf16 at use: the conv and
-        its bias rounded one after the other, then ``'mlp'``'s fused tail or
-        ``'off'``'s bf16 ops (the module docstring)."""
-        if self.mode == "block":
-            raise NotImplementedError(
-                "use_pallas='block' in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
+        """The block on bf16 x, its weights cast to bf16 at use: in
+        ``'block'`` the whole block on bf16 x, taps and matrices with the
+        f32 vectors, as JAX passes them; else the conv and its bias rounded
+        one after the other, then ``'mlp'``'s fused tail or ``'off'``'s bf16
+        ops (the module docstring)."""
         b, h, w, c = x.shape
         dt = x.dtype
         conv, ln, pw1, pw2 = self.block[0], self.block[2], self.block[3], self.block[5]
-        if self.dw_kernel or self.dw_grad_kernel:
+        sd = torch.ones(b, device=x.device) if sd_rows is None else sd_rows.float()
+        gamma = self.layer_scale.view(-1)
+        if self.mode == "block" or self.dw_kernel or self.dw_grad_kernel:
             taps = conv.weight.view(c, 7 * 7).t().contiguous().view(7, 7, c).to(dt)
+        if self.mode == "block":
+            return fused_convnext_block(
+                x.contiguous(), sd.contiguous(), taps, conv.bias, ln.weight, ln.bias, pw1.weight.to(dt), pw1.bias,
+                pw2.weight.to(dt), pw2.bias, gamma,
+            )
+        if self.dw_kernel or self.dw_grad_kernel:
             y = depthwise_conv7x7_nhwc(x.contiguous(), taps, self.dw_kernel, self.dw_grad_kernel, conv.bias.to(dt))
         else:
             y = conv_nhwc(x, conv)
-        sd = torch.ones(b, device=x.device) if sd_rows is None else sd_rows.float()
-        gamma = self.layer_scale.view(-1)
         if self.use_kernel:
             out = fused_convnext_mlp(
                 y.reshape(-1, c).contiguous(), x.reshape(-1, c).contiguous(),

@@ -26,6 +26,27 @@ d_x = g + conv_input_grad(d_t).  On CPU tensors each of
 these wrappers runs its plain version.
 ``fused_convnext_block.launches`` counts forward calls on the card, one per
 block.
+
+bf16 (the bf16 encoder in ``'block'``): x, the taps, w1 and w2 bf16, the
+rest f32, as the JAX bf16 block hands them to its kernel
+(tpu_captioner/models/convnext.py:142-149); any other mix raises
+``ValueError``, on the CPU too.  The forward is the JAX kernel's
+arithmetic on those operands (tpu_captioner/ops/block_fused.py:53-83):
+the conv's f32 sum of bf16 products plus the f32 bias, never rounded,
+then LayerNorm, products, GELU and residual in f32, out rounded to bf16
+once (``_block_plain_bf16``; ``csrc/block_fused.cu``'s bf16 instance,
+counted also in ``fused_convnext_block.bf16_launches``).  The JAX backward
+is the VJP of its reference on those operands (:36-50, :181-183), and
+this one rounds where that VJP rounds: t is recomputed as the bf16 conv
+(``dwconv_forward``'s bf16 instance, rounded once) widened plus the f32
+bias; the tail's gradients are f32 arithmetic on g, w1 and w2 widened
+(``fused_convnext_mlp_bwd``'s f32 instance), d_w1 and d_w2 come back in
+f32 and autograd rounds each once to bf16; the conv's cotangent d_t is
+rounded to bf16 once for the conv's bf16 input and filter gradients
+(d_dw_w rounded once by autograd), d_dw_b is the f32 sum of the unrounded
+d_t (a PyTorch sum over the pixels: the filter-gradient launch's own
+bias sum would read the rounded d_t), and d_x = bf16(g + the conv's input
+gradient).
 """
 
 from __future__ import annotations
@@ -79,7 +100,7 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def block_plan(B: int, H: int, W: int, C: int, sms: int = 132, active: int = 0) -> BlockPlan:
+def block_plan(B: int, H: int, W: int, C: int, sms: int = 132, active: int = 0, esize: int = 4) -> BlockPlan:
     """The conv + LayerNorm kernel's tiles for x (B, H, W, C) on a card with
     ``sms`` SMs, of which ``active`` clusters of the plan's blocks run at
     once (0: one block an SM).  A pixel's LayerNorm needs all C channels,
@@ -91,21 +112,24 @@ def block_plan(B: int, H: int, W: int, C: int, sms: int = 132, active: int = 0) 
     blocks fill at least half the SMs (a block's warps each take one 2 x 8
     patch of a tile, so shorter tiles spread a small batch over more SMs),
     else 2.  Each block holds a ring of 2-4 halo'd
-    boxes ((th + 6) x 14 pixels x 128 channels) and the per-pixel sums.
-    Raises ValueError for a width the kernels are not built for
+    boxes ((th + 6) x 14 pixels x 128 channels of ``esize`` bytes: 4 for
+    f32 x, 2 for the bf16 instance, whose boxes stay bf16) and the
+    per-pixel sums.  Raises ValueError for a width the kernels are not built for
     (``SUPPORTED_C``) or a plan that does not fit ``SMEM_LIMIT``.  Cached:
     the wrapper asks for it at every launch."""
     if C not in SUPPORTED_C:
         raise ValueError(f"block_plan: the kernel supports C in {SUPPORTED_C}, got {C}")
     if min(B, H, W) < 1:
         raise ValueError(f"block_plan: empty shape {(B, H, W, C)}")
+    if esize not in (2, 4):
+        raise ValueError(f"block_plan: elements of 4 or 2 bytes, got {esize}")
     cluster = C // CHUNK
     rows = [th for th in TILE_ROWS if th <= _ceil(H, 2) * 2] or [TILE_ROWS[-1]]
     tiles_of = {th: B * _ceil(H, th) * _ceil(W, TILE_COLS) for th in rows}
     th = next((t for t in rows if 2 * tiles_of[t] * cluster >= sms), rows[-1])
     tiles = tiles_of[th]
     parts = max(1, min(tiles, active or sms // cluster))
-    box = 4 * (th + 2 * PAD) * (TILE_COLS + 2 * PAD) * CHUNK
+    box = esize * (th + 2 * PAD) * (TILE_COLS + 2 * PAD) * CHUNK
     slots = min(MAX_SLOTS, (SMEM_LIMIT - _HEADER - _SMALL) // box, max(2, _ceil(tiles, parts)))
     if slots < 2:
         raise ValueError(f"block_plan: no plan fits {SMEM_LIMIT} bytes of shared memory for {(B, H, W, C)}")
@@ -125,36 +149,50 @@ def _block_plain(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
     return x + sd[:, None, None, None] * y
 
 
+def _block_plain_bf16(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain version of the bf16 instance: ``_block_plain`` on x, the taps,
+    w1 and w2 widened to f32 (exactly), the result rounded to bf16 once, as
+    the JAX kernel computes on bf16 operands (the conv's sum and its bias
+    in f32, t never rounded)."""
+    return _block_plain(x.float(), sd, dw_w.float(), dw_b, ln_w, ln_b, w1.float(), b1, w2.float(), b2,
+                        gamma).to(torch.bfloat16)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("block_fused")
-    lib.tc_block_fused_forward.restype = ctypes.c_int
-    lib.tc_block_fused_forward.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    for fn in (lib.tc_block_fused_forward, lib.tc_block_fused_forward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.tc_block_fused_workspace.restype = ctypes.c_longlong
     lib.tc_block_fused_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tc_block_fused_clusters.restype = ctypes.c_int
-    lib.tc_block_fused_clusters.argtypes = [ctypes.c_int] * 3
+    lib.tc_block_fused_clusters.argtypes = [ctypes.c_int] * 4
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_on(device: int, b: int, h: int, w: int, c: int) -> BlockPlan:
-    """``block_plan`` on the card: as many clusters as it runs at once
-    (cudaOccupancyMaxActiveClusters; clusters share a GPC, so fewer than
-    132 / (C / 128) may fit)."""
-    plan = block_plan(b, h, w, c, _build.sm_count(device))
+def _plan_on(device: int, b: int, h: int, w: int, c: int, esize: int = 4) -> BlockPlan:
+    """``block_plan`` on the card for x of ``esize``-byte elements: as many
+    clusters as it runs at once (cudaOccupancyMaxActiveClusters; clusters
+    share a GPC, so fewer than 132 / (C / 128) may fit)."""
+    plan = block_plan(b, h, w, c, _build.sm_count(device), esize=esize)
     if plan.cluster == 1:
         return plan
     lib = _lib()
     with torch.cuda.device(device):
-        active = lib.tc_block_fused_clusters(c, plan.units, plan.smem)
+        active = lib.tc_block_fused_clusters(c, plan.units, plan.smem, esize)
     _build.check(lib, max(0, -active), "block_fused occupancy")
-    return block_plan(b, h, w, c, _build.sm_count(device), active)
+    return block_plan(b, h, w, c, _build.sm_count(device), active, esize)
+
+
+_BF16_SET = ("x", "dw_w", "w1", "w2")  # the bf16 instance's bf16 operands; the output too
 
 
 def _check_block(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, kernel=None):
     """Raise unless x is (B, H, W, C) on the CPU or a card and every tensor
-    is a contiguous float32 tensor of its shape on x's device.  For the
+    is a contiguous tensor of its shape on x's device: all float32, or (x
+    bf16) x, dw_w, w1 and w2 bfloat16 and the rest float32.  For the
     kernel (``kernel``; default: x is on a card) also 16-byte alignment and
     C in ``SUPPORTED_C`` (``ops/mlp_block.py:_check``); the plain version on
     the CPU takes any width."""
@@ -168,35 +206,40 @@ def _check_block(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma, kernel=No
         "x": (x, tuple(x.shape)), "sd": (sd, (b,)), "dw_w": (dw_w, (7, 7, c)), "dw_b": (dw_b, (c,)),
         **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
     }
+    bf16 = _BF16_SET if x.dtype == torch.bfloat16 else ()
     if kernel if kernel is not None else x.device.type == "cuda":
-        _check(what, c, tensors)
+        _check(what, c, tensors, bf16)
         return
     for name, (t, shape) in tensors.items():
         if t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, not {x.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+        want = torch.bfloat16 if name in bf16 else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{what}: {name} must be {str(want)[6:]}, got {t.dtype}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous with shape {shape}, got {tuple(t.shape)}")
 
 
 def _block_forward(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
-    """The forward: the CUDA kernels for CUDA tensors, the plain version for
-    CPU tensors."""
+    """The forward: the CUDA kernels for CUDA tensors (the bf16 instance
+    when x is bf16), the plain version for CPU tensors."""
     args = (x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return _block_plain(*args)
+        return _block_plain_bf16(*args) if bf16 else _block_plain(*args)
     b, h, w, c = x.shape
     device = x.get_device()
-    plan = _plan_on(device, b, h, w, c)
+    plan = _plan_on(device, b, h, w, c, x.element_size())
     lib = _lib()
     out = torch.empty_like(x)
+    launch = lib.tc_block_fused_forward_bf16 if bf16 else lib.tc_block_fused_forward
     with torch.cuda.device(device):
-        work = x.new_empty(lib.tc_block_fused_workspace(b * h * w, c))
-        err = lib.tc_block_fused_forward(*(t.data_ptr() for t in (*args, out, work)), b, h, w, c, *plan.args(),
-                                         _build.raw_stream(device))
+        work = sd.new_empty(lib.tc_block_fused_workspace(b * h * w, c))
+        err = launch(*(t.data_ptr() for t in (*args, out, work)), b, h, w, c, *plan.args(), _build.raw_stream(device))
     _build.check(lib, err, "block_fused")
     fused_convnext_block.launches += 1
+    if bf16:
+        fused_convnext_block.bf16_launches += 1
     return out
 
 
@@ -208,24 +251,31 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, sd, dw_w, dw_b, *tail = ctx.saved_tensors
+        x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma = ctx.saved_tensors
         b, h, w, c = x.shape
         g = g.contiguous()
-        t = dwconv_forward(x, dw_w, bias=dw_b)  # the conv output, recomputed
+        bf16 = x.dtype == torch.bfloat16
+        need = ctx.needs_input_grad
+        if bf16:  # the module note says where each gradient rounds
+            t = dwconv_forward(x, dw_w).float() + dw_b  # bf16(conv) + f32 bias, as JAX's VJP recomputes it
+            tail = (ln_w, ln_b, w1.float(), b1, w2.float(), b2, gamma)
+            g_rows = g.float()
+        else:
+            t = dwconv_forward(x, dw_w, bias=dw_b)  # the conv output, recomputed
+            tail, g_rows = (ln_w, ln_b, w1, b1, w2, b2, gamma), g
         d_t, d_sd_rows, *d_tail = fused_convnext_mlp_bwd(
-            g.view(-1, c), t.view(-1, c), sd.repeat_interleave(h * w), *tail
+            g_rows.view(-1, c), t.view(-1, c), sd.repeat_interleave(h * w), *tail
         )
         d_t = d_t.view(b, h, w, c)
-        need = ctx.needs_input_grad
-        d_x = g + dwconv_forward(d_t, dw_w, flip=True) if need[0] else None
+        d_conv = d_t.to(torch.bfloat16) if bf16 else d_t  # the conv's cotangent
+        d_x = g + dwconv_forward(d_conv, dw_w, flip=True) if need[0] else None
         d_sd = d_sd_rows.view(b, h * w).sum(1) if need[1] else None
         d_dw_w = d_dw_b = None
-        if need[2] and need[3]:  # the bias gradient from the filter gradient's launch
-            d_dw_w, d_dw_b = dwconv_filter_grad(x, d_t, bias_grad=True)
-        elif need[2]:
-            d_dw_w = dwconv_filter_grad(x, d_t)
-        elif need[3]:
-            d_dw_b = d_t.sum((0, 1, 2))
+        if need[2] and need[3] and not bf16:  # the bias gradient from the filter gradient's launch
+            d_dw_w, d_dw_b = dwconv_filter_grad(x, d_conv, bias_grad=True)
+        else:
+            d_dw_w = dwconv_filter_grad(x, d_conv) if need[2] else None
+            d_dw_b = d_t.sum((0, 1, 2)) if need[3] else None
         return (d_x, d_sd, d_dw_w, d_dw_b, *(d if n else None for d, n in zip(d_tail, need[4:])))
 
 
@@ -239,12 +289,15 @@ def fused_convnext_block(
     gamma: torch.Tensor,  # (C,) layer scale
 ) -> torch.Tensor:
     """The whole block, differentiable: the CUDA kernels for CUDA tensors,
-    the plain versions for CPU tensors.  Raises a ``ValueError`` for another
-    device, dtype, shape or layout, and, for CUDA tensors, a width the
-    kernel is not built for (C not in ``ops/mlp_block.py:SUPPORTED_C``):
-    never a fallback to the plain version."""
+    the plain versions for CPU tensors; f32, or bf16 x, dw_w, w1 and w2
+    with the rest f32 (a bf16 output; the module note says where bf16
+    rounds).  Raises a ``ValueError`` for another device, dtype mix, shape
+    or layout, and, for CUDA tensors, a width the kernel is not built for
+    (C not in ``ops/mlp_block.py:SUPPORTED_C``): never a fallback to the
+    plain version."""
     _check_block(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
     return _FusedBlock.apply(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma)
 
 
 fused_convnext_block.launches = 0
+fused_convnext_block.bf16_launches = 0  # of those, the bf16 instance's

@@ -24,21 +24,23 @@ CUDA tensors and runs ``_mlp_bwd_plain`` for CPU tensors.  The backward saves x 
 output), sd and the parameters, never the residual.
 
 bf16 (the bf16 encoder, serving and training): x, the residual, the
-output and the two matrices in bf16, the vectors in f32.  The whole-tile
-kernel's bf16 instance is the JAX kernel's ``precise=True`` arm on bf16
-operands (tpu_captioner/ops/mlp_block.py:126-142, called so by
-models/convnext.py:163-171): LayerNorm, products, GELU and residual in f32
-(a bf16 weight's TF32 planes are itself and zero: the 3xTF32 products are
-exact on it), the output rounded to bf16 once.  ``_mlp_plain_bf16`` is its
-plain version.  The backward's bf16 instance is the JAX backward's arm on
+output and the two matrices in bf16, the vectors in f32.  The forward's
+bf16 instances, the whole tile and (``TPU_CAPTIONER_MLP_SUB``) the
+sub-tiled kernel, are the JAX kernels' ``precise=True`` arm on bf16
+operands (tpu_captioner/ops/mlp_block.py:126-189, called so by
+models/convnext.py:163-171; JAX's ``_pipeline_sub`` picks the sub-tiled
+body for any dtype): LayerNorm, products, GELU and residual in f32 (a bf16
+weight's TF32 planes are itself and zero: the 3xTF32 products are exact on
+it), the output rounded to bf16 once.  ``_mlp_plain_bf16`` is the plain
+version of both.  The backward's bf16 instance is the JAX backward's arm on
 bf16 g, x, W1 and W2 (:409-476, 497-515): the forward recomputed in f32
 from bf16 x, d_x rounded to bf16 once, every other gradient f32; the
 residual's gradient is g itself (bf16).  The weight gradients come back in
 f32, and autograd rounds each once to the bf16 matrix it belongs to, as
 JAX's ``.astype(w1.dtype)`` (:476) does, before the casts' backward widens
 them to the f32 parameters.  ``_mlp_bwd_plain_bf16`` is its plain version.
-The sub-tiled path and the ``precise=False`` arm (bf16 products, reached
-by no JAX model path) are not ported (ROADMAP.md Queue 1 #5d, #5f).
+The ``precise=False`` arm (bf16 products, reached by no JAX model path)
+is not ported (ROADMAP.md Queue 1 #5f).
 """
 
 from __future__ import annotations
@@ -215,9 +217,6 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     }, _BF16_IO if bf16 else ())
     lib = _lib()
     sub = _pipeline_sub(n, c)
-    if bf16 and sub:
-        raise NotImplementedError(
-            "the sub-tiled MLP tail (TPU_CAPTIONER_MLP_SUB) in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
     launch = lib.tc_mlp_block_forward_bf16 if bf16 else lib.tc_mlp_block_forward
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -232,6 +231,8 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
         fused_convnext_mlp.pipelined_launches += 1
     if bf16:
         fused_convnext_mlp.bf16_launches += 1
+        if sub:
+            fused_convnext_mlp.pipelined_bf16_launches += 1
     return out
 
 
@@ -304,8 +305,9 @@ def fused_convnext_mlp(
     residual, w1 and w2 (the rest f32) give a bf16 output, and a backward
     through the bf16 instances (the module note says where they round).
     ``fused_convnext_mlp.launches`` counts forward kernel launches, of which
-    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled kernel and
-    ``.bf16_launches`` the bf16 instance;
+    ``fused_convnext_mlp.pipelined_launches`` ran the sub-tiled kernel,
+    ``.bf16_launches`` a bf16 instance and ``.pipelined_bf16_launches`` the
+    sub-tiled kernel's bf16 instance;
     ``fused_convnext_mlp_bwd.launches`` counts backward ones, of which
     ``.bf16_launches`` ran the bf16 instance."""
     return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
@@ -314,3 +316,4 @@ def fused_convnext_mlp(
 fused_convnext_mlp.launches = 0
 fused_convnext_mlp.pipelined_launches = 0
 fused_convnext_mlp.bf16_launches = 0
+fused_convnext_mlp.pipelined_bf16_launches = 0

@@ -67,10 +67,12 @@ on a 16 GB TPU v5e.  The port drops the first and decides the second anew:
   stay f32 (the JAX package's master weights), each encoder weight is
   cast to bf16 at use and its gradient comes back through the cast, and
   the encoder's backward runs the bf16 instances of the MLP tail's and the
-  depthwise conv's backward kernels; the decoders train on the plain path.
-  What bf16 does not port raises ``NotImplementedError`` naming its
-  ROADMAP item (Queue 1 #5d): ``use_pallas='block'`` and the sub-tiled
-  tail.
+  depthwise conv's backward kernels (in ``'block'``: the tail's f32
+  backward on the widened bf16 operands, as JAX's VJP computes it, and the
+  conv's bf16 ones; ``ops/block_fused.py``); the decoders train on the
+  plain path.  Every ``use_pallas`` value, a per-stage list holding
+  ``'block'`` among them, and the sub-tiled tail
+  (``TPU_CAPTIONER_MLP_SUB``) run in bf16.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ import torch
 import torch.nn as nn
 
 from tpu_captioner_torch.core.backend import pin_f32_precision, require_cuda
-from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, LSTM_DECODERS, ModelConfig, stage_kernel_modes
+from tpu_captioner_torch.core.config import DECODE_KERNEL_MODES, LSTM_DECODERS, ModelConfig
 from tpu_captioner_torch.models.encoder import Encoder, preprocess_images
 from tpu_captioner_torch.models.lstm import DecoderWithAttention, DecoderWithoutAttention
 from tpu_captioner_torch.models.transformer import TransformerDecoder
@@ -152,7 +154,11 @@ def finetune_encoder_remat(remat: str, compute_dtype: str = "float32") -> str:
       parentheses): ``'off'`` 102.44 ms (102.52) against ``'on'`` 136.33 ms
       (136.46); ``'off'`` - ``'on'`` per pair median -35.42 ms, spread
       54.03 (peak memory of ``'off'`` 4.42 GiB).
-    Both fit in 80 GB many times over."""
+    Both fit in 80 GB many times over.  The choice holds in ``'block'``
+    too, in both dtypes, with no A/B of its own: a ``'block'`` block keeps
+    only its input and its operands for the backward (the conv output and
+    the hidden activation are recomputed there, ``ops/block_fused.py``), so
+    ``'on'`` keeps no less and adds one forward launch per trained block."""
     return _FINETUNE_REMAT_AUTO[compute_dtype] if remat == "auto" else remat
 
 
@@ -169,8 +175,6 @@ class CaptionModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0, pretrained_embeddings=None):
         super().__init__()
-        if cfg.compute_dtype == "bfloat16" and "block" in stage_kernel_modes(cfg.use_pallas, len(cfg.encoder_depths)):
-            raise NotImplementedError("use_pallas='block' in bf16 is not ported yet: ROADMAP.md Queue 1 #5d")
         device = torch.device(device)
         if device.type == "cuda":
             require_cuda()
