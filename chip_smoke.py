@@ -220,6 +220,30 @@ Phases, in order; any failure raises and the exit code is not 0:
    per step, peak memory and launches per step; (d) a bf16 encoder pass and
    a fine-tune step with ``TPU_CAPTIONER_MLP_SUB=64`` (36 sub-tiled bf16
    launches each) and a bf16 per-stage mix ('mlp', 'mlp', 'block', 'block').
+15. the rest of what a one-card user of the JAX package has, on phase 10's
+   records and ``BEST_`` checkpoint (``native_phase``, ``one_image_phase``,
+   ``trace_phase``, ``backbone_phase``): (a) the native host runtime
+   (``native/``) built from the checkout, its BLEU equal to the pure-Python
+   scorer's on a 25,000-hypothesis corpus and its gather equal to numpy's
+   at batch 32 on the memmapped records, host times of both; (b) the
+   one-image caption: the MLP tail and the depthwise conv at batch 1 per
+   encoder pass (device times, bounds), a one-image beam 5 x 50 (R = 5 rows)
+   of the flagship Transformer and of ``lstm`` with the LSTM step kernel
+   through ``caption_batch``, each against all-plain (``plain_versions``) by
+   phase 4's near-tie rule, launches counted, maps and their upsampled
+   grids (``infer/visualize.py``) within 1e-5; the per-layer decode step and
+   the LSTM step at R = 5 against their plain versions, device times by
+   CUDA-graph replay and bounds; where PIL is present (the host packages
+   are printed after the card), ``cli.caption`` on phase 10b's checkpoint
+   for one seeded PNG (with ``--out`` where matplotlib is present too) and
+   for a directory of 32, images/s with and without the checkpoint's load;
+   (c) a Trainer with
+   ``profile_dir`` over one teacher-forced frozen epoch: its trace of steps
+   2-6 holds their kernels (5 dropout_mask, 180 dwconv, 180 mlp_block
+   launches' kernels), and the validation corpora score the same natively;
+   (d) a full-size torchvision-keyed ConvNeXt-Base ``.pth`` through
+   ``cli.build_data port-backbone``: Trainers from the ``.pth`` and the
+   ``.npz`` hold equal encoders.
 
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths and on the training
@@ -234,6 +258,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import itertools
 import json
 import math
@@ -650,12 +675,14 @@ def decode_bound(L, R, pos, P, E, Fd):
     return n_bytes, n_ops
 
 
-def check_decode(dev, card, layers, rows, heads=8):
+def check_decode(dev, card, layers, rows, heads=8, timer=None):
     """The per-layer and one-cell kernels against the plain step at ``rows``
     rows and ``heads`` heads, cache length 52, several positions, with NaN in
     every cache slot at or past ``pos``; the one-cell kernel also against the
-    per-layer one (the same arithmetic: within 1e-6).  Returns {kernel: (max
-    error, mean ms per step, mean plain ms, bound ms, bound by)}."""
+    per-layer one (the same arithmetic: within 1e-6).  Times by ``timer``
+    (default ``_time_ms``: CUDA events around eager calls; or ``_graph_ms``).
+    Returns {kernel: (max error, mean ms per step, mean plain ms, bound ms,
+    bound by)}."""
     import torch
 
     from tpu_captioner_torch.ops.decode_step import (
@@ -663,7 +690,7 @@ def check_decode(dev, card, layers, rows, heads=8):
     )
 
     L, E, P = len(layers), layers[0].linear1.in_features, 49
-    H = heads
+    H, timer = heads, timer or _time_ms
     w = prepare_decode_weights(layers, E)
     g = torch.Generator().manual_seed(1)
     f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
@@ -692,12 +719,12 @@ def check_decode(dev, card, layers, rows, heads=8):
                     raise AssertionError(f"{kernel} kernel disagrees on {name} at R={rows}, pos {pos}: {e}")
             worst[kernel] = max(worst[kernel], *errs.values())
             one_cell = kernel == "decode_onecell"
-            times[kernel].append(_time_ms(lambda: fused_decode_step(*args, one_cell=one_cell)))
+            times[kernel].append(timer(lambda: fused_decode_step(*args, one_cell=one_cell)))
             line.append(f"{kernel} " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                         + f", {times[kernel][-1]:.4f} ms")
         if not same <= 1e-6:
             raise AssertionError(f"the one-cell and per-layer kernels differ by {same} at R={rows}, pos {pos}")
-        plain_times.append(_time_ms(lambda: _decode_step_plain(*args)))
+        plain_times.append(timer(lambda: _decode_step_plain(*args)))
         print(f"decode R={rows} T={DECODE_T} E={E} H={H} pos={pos}: max_abs_err vs plain: " + "; ".join(line)
               + f" per step ({L} layers); one-cell vs per-layer {same:.3e}; plain {plain_times[-1]:.4f} ms [{card}]")
         b, o = decode_bound(L, rows, pos, P, E, Fd)
@@ -975,6 +1002,12 @@ KERNEL_GROUPS = (
 )
 
 
+def kernel_group(name):
+    """The ``KERNEL_GROUPS`` group of a kernel's name ("other" if none)."""
+    name = name.lower()
+    return next((g for g, subs in KERNEL_GROUPS if any(x.lower() in name for x in subs)), "other")
+
+
 def _kernel_ms_by_group(step, state, batch, seeds):
     """A ``torch.profiler`` window over ``len(seeds)`` steps, per step: the
     kernels' device time by ``KERNEL_GROUPS`` group (ms), the twelve longest
@@ -999,8 +1032,8 @@ def _kernel_ms_by_group(step, state, batch, seeds):
         if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
-        name, ms = e.key.lower(), e.self_device_time_total / 1e3 / len(seeds)
-        group = next((g for g, subs in KERNEL_GROUPS if any(x.lower() in name for x in subs)), "other")
+        ms = e.self_device_time_total / 1e3 / len(seeds)
+        group = kernel_group(e.key)
         groups[group] = groups.get(group, 0.0) + ms
         kernels.append((ms, e.key[:90]))
         launches += e.count
@@ -1670,24 +1703,25 @@ def _host_us(fn, iters=200):
     return (t1 - t0) / iters * 1e6
 
 
-def check_lstm(dev, card):
+def check_lstm(dev, card, cases=None):
     """The LSTM step kernel against its plain version at the main paths'
     rows (``LSTM_ROWS``) at full width, E = D = A = 512, C = 1024, P = 49,
-    and at the bs-8 beam's rows with E = 300 (word2vec-300's width); seeded
+    and at the bs-8 beam's rows with E = 300 (word2vec-300's width), or at
+    ``cases`` ((R, E) pairs); seeded
     weights U(+-1/sqrt(fan-in)), as the default Linear and LSTMCell draw
     them; a second call must repeat the first bit for bit.  Times of both:
     device (CUDA-graph replay; weights and inputs stay in the 50 MB L2 from
     call to call, as in a decode loop), eager (calls issued from Python),
     L2-cold (``_cold_ms``) and host µs per call; and the bound.  Returns
-    (worst error, kernel ms, plain ms, bound ms, bound by) at the bs-8
-    beam's rows and E = 512, device times."""
+    (worst error, kernel ms, plain ms, bound ms, bound by) at the first
+    case (the bs-8 beam's rows and E = 512), device times."""
     import torch
 
     from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, _lstm_step_plain, fused_lstm_step
 
     D, A, C, P = 512, 512, 1024, 49
     worst, out = 0.0, None
-    for R, E in [(r, 512) for r in LSTM_ROWS] + [(LSTM_ROWS[0], 300)]:
+    for R, E in cases or [(r, 512) for r in LSTM_ROWS] + [(LSTM_ROWS[0], 300)]:
         g = torch.Generator().manual_seed(R + E)
         u = lambda fan_in, *sh: ((torch.rand(*sh, generator=g) * 2 - 1) / math.sqrt(fan_in)).to(dev)  # noqa: E731
         f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
@@ -2520,7 +2554,7 @@ def check_counts(label, record, expect_train, layers, steps):
     return seen
 
 
-def training_phase(dev, card, seed):
+def training_phase(dev, card, seed, keep=None):
     """Phase 10: the training entry point on the card, at full width (the
     flagship: ConvNeXt-Base, 6-layer E=512 Transformer, f32).  (a) a
     learnable synthetic dataset at 256x256 whose word map has VOCAB
@@ -2533,7 +2567,9 @@ def training_phase(dev, card, seed):
     memory, the device's idle share of a step under ``torch.profiler``, and
     the Trainer's batch and data times.  (b) and (c) are the
     main path: every count is zeroed before (b) and read after (c), and
-    their totals are returned by kernel name."""
+    their totals are returned by kernel name.  With ``keep`` (a directory),
+    (a)'s records and (b)'s ``BEST_`` checkpoint are moved there as ``ds``
+    and ``best`` for phase 15; the rest is removed."""
     import csv as csv_module
     import shutil
 
@@ -2772,6 +2808,9 @@ def training_phase(dev, card, seed):
                   f"{row['trainDataTime'] * 1e3:.3f} ms per batch (host clock, steps not synchronised) [{card}]")
         del model, state, step
         torch.cuda.empty_cache()
+        if keep is not None:
+            shutil.move(ds, os.path.join(keep, "ds"))
+            shutil.move(best_b, os.path.join(keep, "best"))
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4677,6 +4716,402 @@ def bf16_block_train(dev, card, seed, word_map, rng):
     return launches["fine-tune"][1], pass_counts["mlp_block_pipelined_bf16"], ft["sub-tiled"][1][1]
 
 
+# Phase 15: what a one-card user of the JAX package has besides the model's
+# paths: the native host runtime, the attention visualiser on a one-image
+# beam, the Trainer's trace window and the .npz backbone.
+NATIVE_HYPS = 25_000  # COCO's validation images, 5 reference captions each (the reference's val split)
+GATHER_REPEATS = 20
+PACKAGES = ("PIL", "matplotlib", "pandas", "scipy")  # host packages phase 15 reports
+CLI_IMAGES = 32  # the directory of images cli.caption captions in phase 15b
+
+
+def bleu_corpus(rng, n, vocab):
+    """``n`` hypotheses with 5 references each, 8 to 16 tokens, words drawn
+    from a Zipf law (as caption words fall), each hypothesis its first
+    reference with 30% of the words replaced: BLEU-4 well above 0."""
+    import numpy as np
+
+    def sentence(k):
+        return [int(w) for w in np.minimum(rng.zipf(1.3, k), vocab - 4)]
+
+    refs = [[sentence(rng.integers(8, 17)) for _ in range(5)] for _ in range(n)]
+    hyps = []
+    for r in refs:
+        swap = rng.random(len(r[0])) < 0.3
+        hyps.append([int(rng.integers(1, vocab - 4)) if s else w for w, s in zip(r[0], swap)])
+    return refs, hyps
+
+
+def check_bleu(label, refs, hyps):
+    """The native BLEU-1..4 against the pure-Python scorer on one corpus,
+    equal to the last bit; host ms of each (the native one the median of 3)."""
+    from tpu_captioner_torch.eval.bleu import bleu_1_to_4 as plain_bleu
+    from tpu_captioner_torch.native.bleu_native import bleu_1_to_4
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = bleu_1_to_4(refs, hyps)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want = plain_bleu(refs, hyps)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError(f"{label}: native BLEU {got} != Python {want}")
+    native_ms = sorted(times)[1]
+    print(f"{label}: {len(hyps)} hypotheses, BLEU-1..4 {tuple(round(b, 6) for b in got)} native = Python bit for "
+          f"bit; host ms native {native_ms:.2f}, Python {plain_ms:.2f} ({plain_ms / native_ms:.1f}x)")
+    return native_ms, plain_ms
+
+
+def native_phase(card, ds):
+    """Phase 15a: the native host runtime built from the checkout; its BLEU
+    against the pure-Python scorer on a COCO-validation-sized synthetic
+    corpus; its batch gather (with its default threads and with one) against
+    numpy's fancy indexing, bit for bit, on phase 10a's memmapped TRAIN
+    records at batch 32, with host times."""
+    import numpy as np
+
+    from tpu_captioner_torch.data.dataset import CaptionDataset
+    from tpu_captioner_torch.native import lib
+    from tpu_captioner_torch.native.gather import gather_batch_native
+
+    t0 = time.perf_counter()
+    path = lib.build()
+    lib.get_lib()
+    print(f"phase 15a: native runtime {os.path.relpath(path, ROOT)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s ({' '.join((lib.COMPILER,) + lib.FLAGS)})")
+    rng = np.random.default_rng(1520)
+    check_bleu("phase 15a BLEU, synthetic corpus", *bleu_corpus(rng, NATIVE_HYPS, VOCAB))
+
+    data = CaptionDataset(ds, TRAIN_DATA_NAME, "TRAIN")
+    times = {"native": [], "native, 1 thread": [], "numpy": []}
+    for _ in range(GATHER_REPEATS):
+        idx = rng.permutation(len(data))[:TRAIN_BS]
+        args = (data.images, data.captions, data.caplens, idx // data.cpi, idx)
+        t0 = time.perf_counter()
+        got = gather_batch_native(*args)
+        t1 = time.perf_counter()
+        one = gather_batch_native(*args, n_threads=1)
+        t2 = time.perf_counter()
+        want = (np.ascontiguousarray(data.images[idx // data.cpi]), data.captions[idx], data.caplens[idx])
+        t3 = time.perf_counter()
+        for k, t in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[k].append(t * 1e3)
+        if not all(a.dtype == b.dtype == c.dtype and np.array_equal(a, b) and np.array_equal(c, b)
+                   for a, b, c in zip(got, want, one)):
+            raise AssertionError("phase 15a: the native gather differs from numpy's")
+    print(f"phase 15a gather: batch {TRAIN_BS} of {data.images.shape[1:]} uint8 images from the memmapped "
+          f"records, {GATHER_REPEATS} batches equal to numpy bit for bit; host ms median (min) "
+          + ", ".join(f"{k} {sorted(v)[GATHER_REPEATS // 2]:.3f} ({min(v):.3f})" for k, v in times.items())
+          + f" ({os.cpu_count()} cores seen)")
+
+
+def encoder_pass_bs1(dev, card):
+    """Rows 1 and 10 at the one-image caption's shapes: the MLP tail and the
+    depthwise conv (with the block's bias) at the four ConvNeXt-Base stages
+    at batch 1 against their plain versions, device times by CUDA-graph
+    replay, summed over one encoder pass's 36 blocks with their bounds (as
+    ``check_mlp`` and ``check_dwconv`` price them), and F.conv2d's."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS
+    from tpu_captioner_torch.ops.dwconv import _dw_plain, dwconv_forward
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
+
+    sums = {k: [0.0, 0.0, 0.0, None, 0, 0] for k in ("mlp_block", "dwconv")}  # err, ms, plain, library, bytes, ops
+    sums["dwconv"][3] = 0.0
+    for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
+        g = torch.Generator().manual_seed(150 + c)
+        f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+        side = 64 >> s
+        n = side * side
+        args = (f(n, c), f(n, c), torch.ones(n, device=dev), 1 + 0.1 * f(c), 0.1 * f(c), 0.02 * f(4 * c, c),
+                0.1 * f(4 * c), 0.02 * f(c, 4 * c), 0.1 * f(c), 0.5 * f(c))
+        err = (fused_convnext_mlp(*args) - _mlp_plain(*args)).abs().max().item()
+        if not err < MLP_TOL:
+            raise AssertionError(f"phase 15b: mlp_block disagrees at batch 1, C={c}: {err}")
+        t = (_graph_ms(lambda: fused_convnext_mlp(*args)), _graph_ms(lambda: _mlp_plain(*args)))
+        acc = sums["mlp_block"]
+        acc[0] = max(acc[0], err)
+        acc[1] += depth * t[0]
+        acc[2] += depth * t[1]
+        acc[4] += depth * 4 * (3 * n * c + n + 8 * c * c + 8 * c)
+        acc[5] += depth * 16 * n * c * c
+        x, w, bias = f(1, side, side, c), 0.1 * f(7, 7, c), f(c)
+        wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+        err, rel = _rel_err(dwconv_forward(x, w, bias=bias), _dw_plain(x, w, bias))
+        if not rel < DW_TOL:
+            raise AssertionError(f"phase 15b: dwconv disagrees at batch 1, C={c}: {rel}")
+        td = (_graph_ms(lambda: dwconv_forward(x, w, bias=bias)), _graph_ms(lambda: _dw_plain(x, w, bias)),
+              _graph_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wc, bias, padding=3, groups=c)))
+        acc = sums["dwconv"]
+        acc[0] = max(acc[0], err)
+        for i, v in enumerate(td):
+            acc[1 + i] += depth * v
+        acc[4] += depth * 4 * (2 * n * c + 49 * c + c)
+        acc[5] += depth * 2 * 49 * n * c
+        print(f"phase 15b batch 1 C={c} ({side}x{side}): mlp_block {t[0]:.4f} ms (plain {t[1]:.4f}), dwconv "
+              f"{td[0]:.4f} ms (plain {td[1]:.4f}, F.conv2d {td[2]:.4f}) per launch, device [{card}]")
+    for k, (err, ms, plain_ms, lib_ms, n_bytes, n_ops) in sums.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops, F32_PRODUCT_OPS_PER_S if k == "mlp_block" else F32_OPS_PER_S)
+        print(f"phase 15b {k} per batch-1 encoder pass (36 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              + ("" if lib_ms is None else f", F.conv2d {lib_ms:.4f}")
+              + f", bound {bound_ms:.4f} ms ({bound_by}), max abs err {err:.3e} [{card}]")
+
+
+def one_image_beam(dev, card, family, model, image, word_map):
+    """One image through ``caption_batch`` (the CLI's path) with the kernels,
+    then with every kernel replaced by its plain version (``plain_versions``):
+    launches counted (36 MLP-tail and 36 dwconv, and L decode_step or one
+    lstm_step per beam step, R = 5 rows), captions held by the near-tie
+    rule, scores within SCORE_TOL and, for equal captions, the maps and
+    their upsampled grids (``infer/visualize.py:upsample_alpha``) within
+    ALPHA_TOL; then the caption's host time."""
+    import numpy as np
+    import torch
+
+    from tpu_captioner_torch.cli.caption import caption_batch
+    from tpu_captioner_torch.infer.visualize import upsample_alpha
+
+    lstm = family == "lstm"
+    steps = [0]  # one embedding lookup per beam step
+    hook = model.decoder.embedding.register_forward_hook(lambda *a: steps.__setitem__(0, steps[0] + 1))
+    zero_kernel_counts()
+    got = caption_batch(model, image, word_map, BEAM)
+    torch.cuda.synchronize()
+    hook.remove()
+    counts = kernel_counts()
+    dec = "lstm_step" if lstm else "decode_step"
+    seen = (counts["mlp_block"], counts["dwconv"], counts[dec])
+    want_launches = (36, 36, (1 if lstm else model.cfg.num_layers) * steps[0])
+    if seen != want_launches or steps[0] < 1:
+        raise AssertionError(f"phase 15b {family}: launches (mlp_block, dwconv, {dec}) {seen}, expected "
+                             f"{want_launches} over {steps[0]} beam steps")
+    with plain_versions():
+        want = caption_batch(model, image, word_map, BEAM)
+        compare_captions(got, want, model, torch.from_numpy(image).to(dev))
+    (cap, score, seq, alpha), (_, plain_score, plain_seq, plain_alpha) = got[0], want[0]
+    if not (seq[0] == word_map["<start>"] and alpha.dtype == np.float32
+            and alpha.shape == (len(seq), model.cfg.num_pixels) and np.isfinite(alpha).all()):
+        raise AssertionError(f"phase 15b {family}: malformed caption output")
+    line = f"phase 15b {family} one-image beam {BEAM} x {MAX_STEPS} (R = {BEAM} rows): {len(seq)} tokens"
+    if len(seq) == len(plain_seq) and (seq == plain_seq).all():
+        e = model.cfg.encoded_image_size
+        grid_err = max(np.abs(upsample_alpha(a.reshape(e, e)) - upsample_alpha(b.reshape(e, e))).max()
+                       for a, b in zip(alpha, plain_alpha))
+        alpha_err = np.abs(alpha - plain_alpha).max()
+        if not (alpha_err < ALPHA_TOL and grid_err < ALPHA_TOL):
+            raise AssertionError(f"phase 15b {family}: maps {alpha_err}, upsampled {grid_err} >= {ALPHA_TOL}")
+        line += (f", caption equal to all-plain's, score {score:.4f} vs {plain_score:.4f}, maps within "
+                 f"{alpha_err:.3e}, upsampled grids within {grid_err:.3e} (tol {ALPHA_TOL:g})")
+    else:
+        line += ", differs from all-plain's at a near-tie (maps not compared)"
+    host_ms, _ = _host_ms(lambda: caption_batch(model, image, word_map, BEAM))
+    print(line + f"; launches (mlp_block, dwconv, {dec}) {seen}; {host_ms:.2f} ms a caption from a uint8 "
+          f"array ({1e3 / host_ms:.2f} images/s, host clock) [{card}]: {cap[:60]!r}")
+
+
+def caption_cli(dev, card, keep, best):
+    """Phase 15b's file path, where PIL is present: ``cli.caption.main`` on
+    phase 10b's ``BEST_`` checkpoint for one seeded PNG (with ``--out``
+    where matplotlib is present too: the grid written and read back), then
+    for a directory of CLI_IMAGES PNGs; images/s of each call, the files'
+    decode and the checkpoint's load included, and the load alone
+    (``build_model_and_params``)."""
+    import numpy as np
+
+    if not importlib.util.find_spec("PIL"):
+        print("phase 15b: cli.caption on image files not run: PIL is missing on this machine")
+        return
+    from PIL import Image
+
+    from tpu_captioner_torch.cli import caption
+
+    draw = importlib.util.find_spec("matplotlib") is not None
+    folder = os.path.join(keep, "images")
+    os.makedirs(folder)
+    rng = np.random.default_rng(1530)
+    for i in range(CLI_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)).save(os.path.join(folder, f"{i:02d}.png"))
+    wm = os.path.join(keep, "ds", f"WORDMAP_{TRAIN_DATA_NAME}.json")
+    common = ["--checkpoint", best, "--wordMap", wm, "--device", dev.type]
+    out = os.path.join(keep, "att.png")
+    t0 = time.perf_counter()
+    caption.main(["--img", os.path.join(folder, "00.png")] + (["--out", out] if draw else []) + common)
+    one_s = time.perf_counter() - t0
+    if draw:
+        import matplotlib.image
+
+        grid = matplotlib.image.imread(out)
+        if not (grid.ndim == 3 and grid.shape[0] > 100 and grid.shape[1] > 100):
+            raise AssertionError(f"phase 15b: the attention grid {out} has shape {grid.shape}")
+    t0 = time.perf_counter()
+    caption.main(["--img", folder, "--out", os.path.join(keep, "dir.png")] + common)
+    dir_s = time.perf_counter() - t0
+    if os.path.exists(os.path.join(keep, "dir.png")):
+        raise AssertionError("phase 15b: cli.caption drew a grid for a directory")
+    with open(wm) as f:
+        word_map = json.load(f)
+    load_s, _ = _host_ms(lambda: caption.build_model_and_params(argparse.Namespace(
+        checkpoint=best, device=dev.type, seed=0), word_map), repeats=1)
+    load_s /= 1e3
+    print(f"phase 15b cli.caption on PNG files{' --out' if draw else ' (no --out: matplotlib is missing)'}: one "
+          f"image {one_s:.2f} s a call ({1 / one_s:.3f} images/s); a directory of {CLI_IMAGES}: {dir_s:.2f} s "
+          f"({CLI_IMAGES / dir_s:.2f} images/s); each call loads the checkpoint, {load_s:.2f} s alone: "
+          f"{1 / (one_s - load_s):.2f} and {CLI_IMAGES / (dir_s - load_s):.2f} images/s without it (host clock, "
+          f"the PNGs' decode included) [{card}]")
+
+
+def one_image_phase(dev, card, seed, word_map, keep, best):
+    """Phase 15b: the one-image caption at full width.  Rows 1 and 10 at
+    batch 1 (``encoder_pass_bs1``); ConvNeXt-Base + the 6-layer E=512
+    Transformer and ConvNeXt-Base + ``lstm`` with the LSTM step kernel on,
+    each through ``one_image_beam`` against all-plain; rows 4 and 7 at R =
+    5 rows against their plain versions, device times by CUDA-graph replay
+    with their bounds; then ``caption_cli`` where PIL is present."""
+    import numpy as np
+
+    from tpu_captioner_torch.core.config import ModelConfig
+
+    encoder_pass_bs1(dev, card)
+    image = np.random.default_rng(seed + 1531).integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    for family, cfg in (("transformer", ModelConfig(vocab_size=VOCAB)),
+                        ("lstm", ModelConfig(decoder="lstm", vocab_size=VOCAB, decode_kernel="on"))):
+        model = flagship_model(cfg, dev, seed + 31)
+        one_image_beam(dev, card, family, model, image, word_map)
+        if family == "transformer":
+            err, *times = check_decode(dev, card, model.decoder.layers, BEAM, timer=_graph_ms)["decode_step"]
+            print("phase 15b decode_step at R = {}: {:.4f} ms per 6-layer step device (CUDA-graph replay), plain "
+                  "{:.4f}, bound {:.4f} ({}), max abs err {:.3e} [{}]".format(BEAM, *times, err, card))
+        del model
+    err, *times = check_lstm(dev, card, cases=((BEAM, 512),))
+    print("phase 15b lstm_step at R = {}: {:.4f} ms device (CUDA-graph replay), plain {:.4f}, bound {:.4f} ({}), "
+          "max abs err {:.3e} [{}]".format(BEAM, *times, err, card))
+    caption_cli(dev, card, keep, best)
+
+
+def trace_phase(dev, card, ds):
+    """Phase 15c: a Trainer with ``profile_dir`` over one teacher-forced
+    frozen epoch (batch 32) on phase 10a's records.  Its trace of steps 2-6
+    parses and holds ProfilerStep#2-#6; its kernel events, grouped as
+    ``_kernel_ms_by_group`` groups them, hold the launches the wrappers
+    counted over those steps: 5 dropout_mask and 180 dwconv kernels, and
+    the 180 mlp_block launches' kernels (a whole number of each).  The
+    validation's BLEU corpora (phase 10a's VAL records) score the same with
+    the native and the Python scorer."""
+    import math
+    import shutil
+
+    import torch
+
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.data.vocab import load_word_map
+    from tpu_captioner_torch.train import loop
+
+    tmp = tempfile.mkdtemp(prefix="smoke_trace_")
+    try:
+        word_map = load_word_map(os.path.join(ds, f"WORDMAP_{TRAIN_DATA_NAME}.json"))
+        exp = ExperimentConfig(model=ModelConfig(), train=TrainConfig(
+            batch_size=TRAIN_BS, epochs=1, teacher_forcing=True, print_freq=1000,
+            checkpoint_dir=os.path.join(tmp, "ckpt"), results_dir=os.path.join(tmp, "results")))
+        corpora, real_bleu = [], loop.bleu_1_to_4
+        loop.bleu_1_to_4 = lambda refs, hyps: corpora.append((refs, hyps)) or real_bleu(refs, hyps)
+        record = {"train": [], "eval": []}
+        t0 = time.perf_counter()
+        try:
+            with counted_trainer_steps(record, word_map[EVAL_WORD]):
+                trainer = loop.Trainer(exp, ds, TRAIN_DATA_NAME, device=dev, verbose=False,
+                                       profile_dir=os.path.join(tmp, "trace"))
+                (row,) = trainer.run()
+        finally:
+            loop.bleu_1_to_4 = real_bleu
+        run_s = time.perf_counter() - t0
+        del trainer
+        torch.cuda.empty_cache()
+        ((refs, hyps),) = corpora
+        check_bleu("phase 15c BLEU, the validation corpora", refs, hyps)
+        if row["bleu1"] != real_bleu(refs, hyps)[0]:
+            raise AssertionError("phase 15c: the row's BLEU-1 is not the corpora's")
+        traces = os.listdir(os.path.join(tmp, "trace"))
+        if traces != ["trace_epoch0_steps2-6.pt.trace.json"] or not math.isfinite(row["trainLoss"]):
+            raise AssertionError(f"phase 15c: traces {traces}, row {row}")
+        path = os.path.join(tmp, "trace", traces[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        # The host's spans (the card's timeline repeats them as gpu_user_annotation).
+        steps = sorted(e["name"] for e in events
+                       if e.get("cat") == "user_annotation" and e["name"].startswith("ProfilerStep#"))
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[kernel_group(e["name"])] = kernels.get(kernel_group(e["name"]), 0) + 1
+        counted = [c for _, c in record["train"][2:7]]
+        launches = dict(zip(("dropout_mask", "mlp_block", "mlp_block_bwd", "dwconv", "dwconv_grad"),
+                            (sum(c[k] for c in counted) for k in range(5))))
+        per_mlp = kernels.get("mlp_block", 0) / max(launches["mlp_block"], 1)
+        print(f"phase 15c: Trainer(profile_dir=) one TF frozen epoch, {len(record['train'])} steps, "
+              f"{run_s:.1f} s; trace {traces[0]} ({os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events), "
+              f"steps {steps}; kernel events by group {dict(sorted(kernels.items()))}; wrapper launches over "
+              f"steps 2-6 {launches}; {per_mlp:g} kernels per mlp_block launch [{card}]")
+        if not (steps == [f"ProfilerStep#{i}" for i in range(2, 7)] and len(counted) == 5
+                and (launches["dropout_mask"], launches["mlp_block"], launches["dwconv"]) == (5, 180, 180)
+                and kernels.get("dropout_mask") == 5 and kernels.get("dwconv") == 180
+                and per_mlp >= 1 and per_mlp == int(per_mlp)):
+            raise AssertionError("phase 15c: the trace does not hold steps 2-6's kernels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def backbone_phase(dev, card, seed, ds):
+    """Phase 15d: a seeded full-size torchvision-keyed ConvNeXt-Base state
+    dict (``features.*`` and the classifier) saved as a ``.pth``, turned into
+    an ``.npz`` by ``cli.build_data port-backbone``; Trainers from either
+    file hold equal encoder states, equal to the seeded weights."""
+    import shutil
+
+    import torch
+
+    from tpu_captioner_torch.cli import build_data
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.train import loop
+    from tpu_captioner_torch.train.model import CaptionModel
+
+    tmp = tempfile.mkdtemp(prefix="smoke_backbone_")
+    try:
+        donor = CaptionModel(ModelConfig(vocab_size=VOCAB), device=dev, seed=seed + 41).encoder.state_dict()
+        sd = {"features." + k[len("convnext."):]: v.cpu() for k, v in donor.items()}
+        g = torch.Generator().manual_seed(seed + 42)
+        sd.update({"classifier.0.weight": torch.ones(1024), "classifier.0.bias": torch.zeros(1024),
+                   "classifier.2.weight": torch.randn(1000, 1024, generator=g), "classifier.2.bias": torch.zeros(1000)})
+        pth, npz = os.path.join(tmp, "convnext_base.pth"), os.path.join(tmp, "convnext_base.npz")
+        torch.save(sd, pth)
+        t0 = time.perf_counter()
+        build_data.main(["port-backbone", "--src", pth, "--out", npz])
+        convert_s = time.perf_counter() - t0
+        states = {}
+        for label, path in (("pth", pth), ("npz", npz)):
+            exp = ExperimentConfig(model=ModelConfig(pretrained_encoder=path), train=TrainConfig(
+                batch_size=TRAIN_BS, checkpoint_dir=os.path.join(tmp, "ckpt"), results_dir=os.path.join(tmp, "res")))
+            t0 = time.perf_counter()
+            trainer = loop.Trainer(exp, ds, TRAIN_DATA_NAME, device=dev, verbose=False)
+            states[label] = ({k: v.cpu() for k, v in trainer.model.encoder.state_dict().items()},
+                             time.perf_counter() - t0)
+            del trainer
+            torch.cuda.empty_cache()
+        same = all(torch.equal(v, states["npz"][0][k]) and torch.equal(v, donor[k].cpu())
+                   for k, v in states["pth"][0].items())
+        if not (same and set(states["pth"][0]) == set(donor)):
+            raise AssertionError("phase 15d: the encoders from the .pth and the .npz differ")
+        print(f"phase 15d: port-backbone {os.path.getsize(pth) / 2**20:.1f} MiB .pth -> "
+              f"{os.path.getsize(npz) / 2**20:.1f} MiB .npz in {convert_s:.2f} s; Trainers from each hold the "
+              f"same {len(donor)} encoder tensors, bit for bit (start-up {states['pth'][1]:.2f} s / "
+              f"{states['npz'][1]:.2f} s, host clock) [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def np_isfinite(a):
     import numpy as np
 
@@ -4709,6 +5144,8 @@ def main(argv=None):
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    print("host packages: " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'missing'}" for m in PACKAGES))
     pin_f32_precision()
 
     # 2. Build the kernels, one nvcc each, all at once.
@@ -4846,8 +5283,11 @@ def main(argv=None):
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
 
     # 10. The training entry point: data, cli.train, the Trainer, cli.test.
+    # Its records and BEST_ checkpoint stay for phase 15 (removed at exit if
+    # a phase between fails).
     torch.cuda.empty_cache()
-    training = training_phase(dev, card, args.seed)
+    keep = tempfile.TemporaryDirectory(prefix="smoke_keep_")
+    training = training_phase(dev, card, args.seed, keep=keep.name)
 
     # 11. compute_dtype='bfloat16' serving: the bf16 instances, the CLI's
     # loader and beam, the eval step.
@@ -4891,6 +5331,21 @@ def main(argv=None):
     block_bf16_training, pipe_bf16_launches, pipe_bf16_training = bf16_block_train(dev, card, args.seed, word_map,
                                                                                      rng)
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # 15. The rest of a one-card user's surfaces: the native host runtime,
+    # the one-image beam (R = 5) and cli.caption --out, the Trainer's trace
+    # window, the .npz backbone.
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    ds = os.path.join(keep.name, "ds")
+    native_phase(card, ds)
+    one_image_phase(dev, card, args.seed, word_map, keep.name, os.path.join(keep.name, "best"))
+    torch.cuda.empty_cache()
+    trace_phase(dev, card, ds)
+    torch.cuda.empty_cache()
+    backbone_phase(dev, card, args.seed, ds)
+    keep.cleanup()
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
 
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one

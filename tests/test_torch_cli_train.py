@@ -2,13 +2,15 @@
 ``build_data synthetic`` -> ``train --epochs 1 --device cpu`` (free-running,
 the default, and ``--teacherForcing``) -> ``test`` on the checkpoint it wrote
 and on a reference ``.pth.tar``.  Each writes its files; the card is the
-default device, and a host without one refuses it."""
+default device, and a host without one refuses it; ``build_data
+port-backbone`` writes a torchvision checkpoint's arrays as an ``.npz``."""
 
 import csv
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,6 +77,11 @@ def test_the_card_is_the_default_and_one_card_only(workdir):
             cli_train.main(TINY + ["--epochs", "1"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
         cli_train.main(TINY + ["--epochs", "1", "--device", "cpu", "--numDevices", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #7"):
-        build_data.main(["port-backbone", "--src", "a.pth", "--out", "b.npz"])
+    # port-backbone, once refused as Queue 1 #7: a wrapped torchvision-keyed
+    # state dict becomes an .npz of its arrays, which trains nothing.
+    sd = {"features.0.0.weight": torch.randn(8, 3, 4, 4), "classifier.2.bias": torch.arange(3.0)}
+    torch.save({"model": sd}, workdir / "a.pth")
+    build_data.main(["port-backbone", "--src", "a.pth", "--out", "b.npz"])
+    with np.load(workdir / "b.npz") as arrays:
+        assert arrays.files == list(sd) and all(np.array_equal(arrays[k], v.numpy()) for k, v in sd.items())
     assert not os.path.exists(workdir / "checkpoints")

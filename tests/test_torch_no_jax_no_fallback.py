@@ -12,12 +12,13 @@
 - ``decode_kernel='mega'`` always reaches the whole-rollout kernel: it never
   resolves to the per-token one.
 - Every train-step branch builds a step (teacher-forced and free-running,
-  frozen and fine-tune); what the training entry point does not port yet
-  raises, naming its ROADMAP item: more than one device (Queue 1 #9), the
-  ``.npz`` form of ``--pretrainedEncoder`` (Queue 1 #7).  The training
-  modules (data, loader, checkpoints, Trainer, CLIs) catch no failure, but
-  for the loader's queue timeouts and its thread's error, raised again in
-  the consumer.
+  frozen and fine-tune), and the ``.npz`` form of ``--pretrainedEncoder``
+  loads; what the training entry point does not port yet raises, naming its
+  ROADMAP item: more than one device (Queue 1 #9).  The training modules
+  (data, loader, checkpoints, Trainer, CLIs) catch no failure, but for the
+  loader's queue timeouts and its thread's error, raised again in the
+  consumer.  The native runtime (``native/``) raises when it does not
+  build: nothing falls back to Python.
 - The depthwise conv's wrappers refuse what their kernels do not take (other
   devices, a dtype without an instance: float16, mixed dtypes;
   non-contiguous tensors, tensors on two devices).  bf16 serves and trains
@@ -66,9 +67,11 @@ def test_port_imports_no_jax():
         assert len(names) >= 30, names
         assert "tpu_captioner_torch.ops.block_fused" in names, names
         for new in ("data.vocab", "data.build", "data.dataset", "data.loader", "models.embeddings",
-                    "train.checkpoint", "train.loop", "cli.common", "cli.train", "cli.test", "cli.build_data"):
+                    "train.checkpoint", "train.loop", "cli.common", "cli.train", "cli.test", "cli.build_data",
+                    "native.lib", "native.bleu_native", "native.gather", "infer.visualize", "cli.graphs"):
             assert "tpu_captioner_torch." + new in names, new
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("pandas", "nltk", "PIL", "h5py"))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "pandas", "nltk", "PIL", "h5py", "matplotlib", "scipy"))
         assert not bad, bad
         assert "tpu_captioner_torch.ops.tf32" in names, names
         """
@@ -238,9 +241,13 @@ def test_kernel_wrappers_refuse_to_drop_gradients():
 
 def test_unported_train_branches_raise(tmp_path):
     """The free-running branches, once refused here, are ported: they build
-    steps.  What stays unported raises with its ROADMAP item: more than one
-    device, in the loader and the CLI's device count, and the .npz form of
-    the pretrained encoder."""
+    steps; so is the .npz form of the pretrained encoder, once refused as
+    Queue 1 #7: it loads.  What stays unported raises with its ROADMAP
+    item: more than one device, in the loader and the CLI's device count."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
     from tpu_captioner_torch.core.config import ModelConfig, TrainConfig
     from tpu_captioner_torch.data.loader import DeviceLoader, resolve_num_devices
     from tpu_captioner_torch.train.model import CaptionModel
@@ -264,9 +271,14 @@ def test_unported_train_branches_raise(tmp_path):
         DeviceLoader([], 4, device="cpu", num_devices=8)
     from tpu_captioner_torch.train.loop import Trainer
 
-    trainer = Trainer.__new__(Trainer)  # only the backbone check runs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #7"):
-        trainer._load_backbone(str(tmp_path / "convnext.npz"))
+    trainer = Trainer.__new__(Trainer)  # only the backbone load runs
+    trainer.model, trainer.exp, trainer.verbose = model, SimpleNamespace(model=model.cfg), False
+    donor = CaptionModel(model.cfg, device="cpu", seed=5)
+    np.savez(tmp_path / "convnext.npz", **{"features." + k[len("convnext."):]: v.numpy()
+                                          for k, v in donor.encoder.state_dict().items()})
+    trainer._load_backbone(str(tmp_path / "convnext.npz"))
+    want = donor.encoder.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in model.encoder.state_dict().items())
 
 
 def rollout_args(make, L=1, R=2, P=3, E=8, V=5, steps=2):

@@ -229,7 +229,8 @@ def test_schedule_matches_jax(data_dir, tmp_path, monkeypatch):
 def test_pretrained_encoder_loads_as_jax_and_checks_its_size(data_dir, tmp_path):
     """A torchvision ``convnext_base``-style state dict (``features.*`` and
     the classifier) initialises the backbone with the weights JAX's loader
-    reads from it; a file for other depths, and the .npz form, raise."""
+    reads from it, and so does its .npz (``build_data port-backbone``); a
+    file for other depths raises, in either form."""
     from tpu_captioner.models.port_torch import load_pretrained_backbone
 
     donor = CaptionModel(ModelConfig(vocab_size=5, **TINY), device="cpu", seed=9)
@@ -246,9 +247,15 @@ def test_pretrained_encoder_loads_as_jax_and_checks_its_size(data_dir, tmp_path)
     deeper = dataclasses.replace(exp.model, encoder_depths=(1, 1, 2, 1))
     with pytest.raises(ValueError, match="does not match the configured backbone"):
         loop.Trainer(dataclasses.replace(exp, model=deeper), data_dir, BASE, device="cpu", verbose=False)
+    # The .npz form (build_data port-backbone), once refused as Queue 1 #7,
+    # loads the same weights, and a wrong-depth one raises as the .pth does.
+    loop.convert_backbone_to_npz(str(tmp_path / "convnext.pth"), str(tmp_path / "convnext.npz"))
     npz = dataclasses.replace(exp.model, pretrained_encoder=str(tmp_path / "convnext.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #7"):
-        loop.Trainer(dataclasses.replace(exp, model=npz), data_dir, BASE, device="cpu", verbose=False)
+    from_npz = loop.Trainer(dataclasses.replace(exp, model=npz), data_dir, BASE, device="cpu", verbose=False)
+    assert_same(from_npz.model.encoder.state_dict(), donor.encoder.state_dict())
+    with pytest.raises(ValueError, match="does not match the configured backbone"):
+        loop.Trainer(dataclasses.replace(exp, model=dataclasses.replace(npz, encoder_depths=(1, 1, 2, 1))),
+                     data_dir, BASE, device="cpu", verbose=False)
 
 
 def test_corpora_and_meter_match_jax():

@@ -20,10 +20,12 @@ checkpoints and resume) -> ``cli.test``; for the four decoder families:
 - ``ops``    — the hand-written Hopper kernels of those paths, each beside
                its plain PyTorch version;
 - ``eval``   — token metrics, the meter, rollout masks and corpus BLEU;
+- ``native`` — the host runtime in C++ (corpus BLEU's counts, the batch
+               gather), built with g++ on first use;
 - ``train``  — ``CaptionModel``, optimizers and ``TrainState``, the train and
                eval steps, checkpoints and the ``Trainer``;
-- ``infer``  — batched beam search;
-- ``cli``    — ``caption``, ``build_data``, ``train`` and ``test``.
+- ``infer``  — batched beam search and the attention grid;
+- ``cli``    — ``caption``, ``build_data``, ``train``, ``test`` and ``graphs``.
 """
 
 __version__ = "0.1.0"

@@ -12,8 +12,13 @@ createInputFiles.py).
     python -m tpu_captioner_torch.cli.build_data embeddings --raw glove.txt \
         --wordMap inputFiles/WORDMAP_....json --embedDim 200 --out glove.npz
 
+    python -m tpu_captioner_torch.cli.build_data port-backbone \
+        --src convnext_base.pth --out convnext_base.npz
+
 ``build`` needs PIL and ``convert`` h5py; ``synthetic`` needs neither.
-``port-backbone`` is not ported yet (ROADMAP.md Queue 1 #7).
+``port-backbone`` writes a torchvision ``convnext_base`` checkpoint's state
+dict as an ``.npz`` of numpy arrays, which ``--pretrainedEncoder`` takes as
+it takes the checkpoint.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def main(argv=None):
                    help="class-coded images with content-derived captions (val BLEU can reach ~1.0)")
     s.add_argument("--numClasses", type=int, default=16)
 
-    pb = sub.add_parser("port-backbone", help="torchvision convnext .pth -> .npz (not ported yet)")
+    pb = sub.add_parser("port-backbone", help="torchvision convnext .pth -> .npz")
     pb.add_argument("--src", required=True)
     pb.add_argument("--out", required=True)
 
@@ -80,7 +85,9 @@ def main(argv=None):
             learnable=args.learnable, n_classes=args.numClasses,
         )
     elif args.cmd == "port-backbone":
-        raise NotImplementedError("build_data port-backbone is not ported yet: ROADMAP.md Queue 1 #7")
+        from tpu_captioner_torch.train.loop import convert_backbone_to_npz
+
+        convert_backbone_to_npz(args.src, args.out)
     elif args.cmd == "embeddings":
         from tpu_captioner_torch.models.embeddings import extract_embeddings_npz
 

@@ -4,7 +4,7 @@
     python -m tpu_captioner_torch.cli.caption --img photo.jpg \
         --checkpoint BEST_checkpoint_coco_5_cap_per_img_5_min_word_freq.pth.tar \
         --wordMap inputFiles/WORDMAP_coco_5_cap_per_img_5_min_word_freq.json \
-        --beamSize 5 --device cuda
+        --beamSize 5 --out attention.png --device cuda
 
 ``--checkpoint`` takes a checkpoint directory of the port's own training
 (``train/checkpoint.py:save_checkpoint``, e.g. ``checkpoints/BEST_...``): the
@@ -13,7 +13,11 @@ own, ``compute_dtype`` included, so a bf16 training run captions in bf16.  It
 also takes a reference ``.pth.tar`` (the model then follows the flags; the
 Orbax directories belong to the JAX package).  Images are captioned in
 groups of 8, one encoder pass and one batched beam loop per group; ``--csv``
-writes imageFile,generatedCaption rows.  ``--usePallas`` picks the ConvNeXt
+writes imageFile,generatedCaption rows.  For one image, ``--out`` draws
+the attention grid (``infer/visualize.py``: each word over the image with
+its upsampled map, smoothed unless ``--dont_smooth``), as the JAX CLI does;
+the maps are the model's ``encoded_image_size`` square (JAX assumes 7).
+``--usePallas`` picks the ConvNeXt
 blocks' kernels (``ModelConfig.use_pallas``: ``auto``, ``on``, ``mlp``,
 ``block`` or ``off``, or four of these joined by commas, one per stage); a
 checkpoint directory's own setting holds unless the flag is given.
@@ -140,10 +144,6 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the initial weights (the checkpoint replaces them)")
     args = p.parse_args(argv)
-    if args.out:
-        raise NotImplementedError(
-            "--out (attention PNG, infer/visualize.py) is not ported yet: ROADMAP.md Queue 1 #6"
-        )
 
     with open(args.wordMap) as f:
         word_map = json.load(f)
@@ -157,11 +157,16 @@ def main(argv=None):
     for s in range(0, len(paths), GROUP):
         chunk = paths[s : s + GROUP]
         images = np.stack([load_image(path) for path in chunk])
-        for path, (caption, score, _, _) in zip(
-            chunk, caption_batch(model, images, word_map, args.beamSize)
+        for path, image, (caption, score, seq, alphas) in zip(
+            chunk, images, caption_batch(model, images, word_map, args.beamSize)
         ):
             print(f"{os.path.basename(path)}: {caption}  (score {score:.3f})")
             rows.append({"imageFile": os.path.basename(path), "generatedCaption": caption})
+            if args.out and len(paths) == 1:
+                from tpu_captioner_torch.infer.visualize import visualize_att
+
+                visualize_att(image, seq, alphas, {v: k for k, v in word_map.items()}, smooth=args.smooth,
+                              enc_image_size=model.cfg.encoded_image_size, out_path=args.out)
     if args.csv:
         with open(args.csv, "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=["imageFile", "generatedCaption"])

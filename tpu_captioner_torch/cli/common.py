@@ -29,7 +29,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="pretrained embedding preset (word2vec-google-news-300 | glove-wiki-gigaword-200)")
     p.add_argument("--pretrainedEncoder", type=str, default=None,
                    help="init the ConvNeXt backbone from a torchvision convnext_base state dict "
-                        "(.pth/.pth.tar); the reference always trains from IMAGENET1K_V1")
+                        "(.pth/.pth.tar) or its .npz (build_data port-backbone); the reference always "
+                        "trains from IMAGENET1K_V1")
     p.add_argument("--batchSize", type=int, default=32)
     p.add_argument("--numDevices", type=int, default=0,
                    help="cards to train on (0 = every visible card; more than one is not ported yet)")

@@ -9,10 +9,10 @@ ImageNet normalisation run on the device (``models/encoder.py:
 preprocess_images``).  Batches have one shape: a short final batch is padded
 with the epoch's first rows (wrap-around) and flagged in ``valid``.
 
-The gather is numpy fancy indexing of the memmapped records; the JAX
-package's threaded native gather (``native/``) is not ported yet
-(ROADMAP.md Queue 1 #7).  h5py is imported only for reference-format HDF5
-records.
+Memmapped records are gathered by the native threaded gather
+(``native/gather.py``, as the JAX package's), equal to numpy's fancy
+indexing bit for bit; reference-format HDF5 records are read per row, and
+h5py is imported only for them.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from dataclasses import dataclass
 from typing import Dict, Iterator
 
 import numpy as np
+
+from tpu_captioner_torch.native.gather import gather_batch_native
 
 # ImageNet statistics of the reference transform (train.py:152).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -110,9 +112,11 @@ class CaptionDataset:
         img_idx = indices // self.cpi
         if self.images is None:
             images = self._gather_images_h5(img_idx)
+            captions, caplens = self.captions[indices], self.caplens[indices]
         else:
-            images = np.ascontiguousarray(self.images[img_idx])
-        captions, caplens = self.captions[indices], self.caplens[indices]
+            images, captions, caplens = gather_batch_native(
+                self.images, self.captions, self.caplens, img_idx, indices
+            )
         valid = np.ones(len(indices), dtype=bool)
         if self.split == "TRAIN":
             return Batch(images, captions, caplens, valid)

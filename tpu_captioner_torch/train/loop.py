@@ -13,7 +13,12 @@
 - a checkpoint every epoch, with a ``BEST_`` copy when BLEU-4 improves;
 - validation decodes greedily (``max_decode_len`` 51) and scores corpus
   BLEU-1..4 against references without ``<start>``/``<pad>``, hypotheses
-  cut after the first ``<end>`` (train.py:414-437).
+  cut after the first ``<end>`` (train.py:414-437), with the native scorer
+  (``native/bleu_native.py``, equal to ``eval/bleu.py``);
+- with ``profile_dir`` set, steps 2-6 of the first epoch this Trainer runs
+  are traced with ``torch.profiler`` (host activity, and the card's when it
+  runs there) into one Chrome-trace file that TensorBoard and Perfetto open,
+  as the JAX Trainer traces them with ``jax.profiler``.
 
 Loss and top-5 are token-weighted.  Each step's metrics stay on the device
 and are folded on the host every ``FOLD_EVERY`` steps and at the epoch's
@@ -38,14 +43,15 @@ from tpu_captioner_torch.core.config import LSTM_DECODERS, ExperimentConfig
 from tpu_captioner_torch.data.dataset import CaptionDataset
 from tpu_captioner_torch.data.loader import DeviceLoader, resolve_num_devices
 from tpu_captioner_torch.data.vocab import load_word_map, special_ids
-from tpu_captioner_torch.eval.bleu import bleu_1_to_4
 from tpu_captioner_torch.eval.metrics import AverageMeter
+from tpu_captioner_torch.native.bleu_native import bleu_1_to_4
 from tpu_captioner_torch.train.checkpoint import checkpoint_name, restore_checkpoint, save_checkpoint
 from tpu_captioner_torch.train.model import CaptionModel
 from tpu_captioner_torch.train.state import TrainState, scale_lr
 from tpu_captioner_torch.train.steps import make_eval_step, make_train_step
 
 FOLD_EVERY = 1024  # steps whose metrics wait on the device before a fold
+TRACE_STEPS = (2, 6)  # the first epoch's steps traced with profile_dir, both included (after the warm-up)
 RESULT_KEYS = ("epoch", "trainLoss", "trainTop5Acc", "trainBatchTime", "trainDataTime", "valLoss",
                "valTop5Acc", "bleu1", "bleu2", "bleu3", "bleu4")
 
@@ -109,6 +115,16 @@ def _load_torch_state_dict(path: str) -> Dict[str, Any]:
     return dict(obj)
 
 
+def convert_backbone_to_npz(src: str, out: str) -> None:
+    """A torchvision ``convnext_base`` checkpoint as an ``.npz`` of its
+    unwrapped state dict's arrays (``build_data port-backbone``; the JAX
+    package's ``models/port_torch.py:convert_backbone_to_npz``).  The
+    Trainer's ``pretrained_encoder`` takes either file."""
+    sd = _load_torch_state_dict(src)
+    np.savez(out, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                     for k, v in sd.items()})
+
+
 @dataclasses.dataclass
 class Trainer:
     exp: ExperimentConfig
@@ -116,6 +132,9 @@ class Trainer:
     data_name: str
     device: Any = "cuda"
     verbose: bool = True
+    # A directory for a torch.profiler trace of steps TRACE_STEPS of the
+    # first epoch this Trainer runs (the JAX Trainer's profile_dir).
+    profile_dir: Optional[str] = None
 
     def __post_init__(self):
         exp, tc = self.exp, self.exp.train
@@ -162,14 +181,14 @@ class Trainer:
 
     def _load_backbone(self, path: str) -> None:
         """Pretrained ConvNeXt weights (reference models/encoder.py:18) from a
-        torchvision ``convnext_base`` state dict, checked against the
+        torchvision ``convnext_base`` state dict, or the ``.npz`` of its
+        arrays that ``build_data port-backbone`` writes, checked against the
         configured backbone so a wrong-size file fails at start-up."""
         if path.endswith(".npz"):
-            raise NotImplementedError(
-                "the .npz form of --pretrainedEncoder (build_data port-backbone) is not ported yet: "
-                "ROADMAP.md Queue 1 #7; pass the torchvision state dict"
-            )
-        sd = _load_torch_state_dict(path)
+            with np.load(path) as arrays:
+                sd = {k: torch.from_numpy(arrays[k]) for k in arrays.files}
+        else:
+            sd = _load_torch_state_dict(path)
         if any(k.startswith("features.") for k in sd):
             sd = {k[len("features."):]: v for k, v in sd.items() if k.startswith("features.")}
         loaded = {f"convnext.{k}": v for k, v in sd.items()}
@@ -212,21 +231,59 @@ class Trainer:
         batch_time, data_time = AverageMeter(), AverageMeter()
         sums = _TokenSums()
         n_batches = len(self.train_loader)
+        trace = None
         start = time.time()
         for i, batch in enumerate(self.train_loader.epoch(epoch)):
             data_time.update(time.time() - start)
+            if self.profile_dir is not None and epoch == self.start_epoch and TRACE_STEPS[0] <= i <= TRACE_STEPS[1]:
+                trace = self._trace_step(trace, i)
             self.state, metrics = step_fn(self.state, batch, prng.step_seed(self._root, "dropout", epoch, i))
+            if trace is not None and i == TRACE_STEPS[1]:
+                self._end_trace(trace, epoch, i)
+                trace = None
             sums.add(metrics)
             batch_time.update(time.time() - start)
             start = time.time()
             if self.verbose and i % tc.print_freq == 0:
                 print(f"{'TF' if tc.teacher_forcing else 'No TF'}, Epoch {epoch}, Batch {i + 1}/{n_batches}",
                       flush=True)
+        if trace is not None:  # an epoch shorter than the window
+            self._end_trace(trace, epoch, i)
         loss, top5 = sums.means()
         out = {"loss": loss, "top5": top5, "batch_time": batch_time.avg, "data_time": data_time.avg}
         if self.verbose:
             print(f"Epoch {epoch}: Training Loss = {loss:.4f}, Top-5 Accuracy = {top5:.4f}", flush=True)
         return out
+
+    def _trace_step(self, trace, i: int):
+        """Start the trace at the window's first step, then mark step ``i``
+        (a ``ProfilerStep#i`` span on the host's timeline)."""
+        from torch.profiler import ProfilerAction, ProfilerActivity, profile
+
+        if trace is None:
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize(self.device)  # the window holds the traced steps' work alone
+            # A schedule that records every step: the profiler then marks them.
+            trace = profile(activities=activities, schedule=lambda step: ProfilerAction.RECORD)
+            trace.step_num = i
+            trace.start()
+        else:
+            trace.step()
+        return trace
+
+    def _end_trace(self, trace, epoch: int, last: int) -> None:
+        """Wait for the traced steps' work, stop the trace and write it as
+        ``profile_dir/trace_epoch<e>_steps<a>-<b>.pt.trace.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        trace.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_epoch{epoch}_steps{TRACE_STEPS[0]}-{last}.pt.trace.json")
+        trace.export_chrome_trace(path)
+        if self.verbose:
+            print(f"Wrote the trace of steps {TRACE_STEPS[0]}-{last} of epoch {epoch} to {path}", flush=True)
 
     def evaluate(self, loader: DeviceLoader, epoch: int = 0) -> Dict[str, float]:
         """Greedy free-running evaluation with BLEU (train.py:367-441
