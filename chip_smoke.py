@@ -244,10 +244,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    (d) a full-size torchvision-keyed ConvNeXt-Base ``.pth`` through
    ``cli.build_data port-backbone``: Trainers from the ``.pth`` and the
    ``.npz`` hold equal encoders.
+16. data parallelism on ``torch.distributed`` (``world_of_one_phase``,
+   ``two_ranks_phase``): (a) ``parallel/dryrun.py``'s five paths (the
+   frozen, fine-tune and free-running steps, the eval step, beam 3) at full
+   width, batch 32, in a world of one over NCCL, every count zeroed before
+   and read after (the data-parallel main path), against the same function
+   without a group: values and weights bit for bit; each step's ms with and
+   without the group and the gradient all-reduce's own; (b) two ranks, two
+   processes on the one card over gloo: three fine-tune steps at batch 16
+   each with the dropout pool and stochastic depth, the ranks' weights bit
+   for bit equal after each, against one process at batch 32 on the same
+   global batch (losses 1e-5 relative, gradients 1e-3 x max(1, max |g|),
+   parameters 1e-2 x lr), then a two-rank Trainer epoch on phase 10's
+   records (one CSV row, one checkpoint tree, BLEU equal to the one-process
+   corpus') and a resume that loads on both ranks; each rank's peak memory.
 
 The line before the last is a JSON object of the kernels (route, source, the
-TPU kernel each replaces, launches on the main paths and on the training
-path, phase 10's or for the bf16 instances phase 12c's, 13d's or 14's, max error,
+TPU kernel each replaces, launches on the main paths, on the training
+path, phase 10's or for the bf16 instances phase 12c's, 13d's or 14's, and
+on the data-parallel path, phase 16a's, max error,
 times and bounds; the bf16 instances as entries of their own, ``*_bf16``);
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repository
 beside it and one card; imports no JAX.
@@ -2463,8 +2478,8 @@ def counted_trainer_steps(record, eval_word):
 
     make_train, make_eval = loop.make_train_step, loop.make_eval_step
 
-    def train_step(model, cfg, word_ids, *, teacher_forcing=True, train_encoder=False):
-        step = make_train(model, cfg, word_ids, teacher_forcing=teacher_forcing, train_encoder=train_encoder)
+    def train_step(model, cfg, word_ids, *, teacher_forcing=True, train_encoder=False, **kw):
+        step = make_train(model, cfg, word_ids, teacher_forcing=teacher_forcing, train_encoder=train_encoder, **kw)
         kind = ("TF" if teacher_forcing else "free-running") + (", fine-tune" if train_encoder else ", frozen")
 
         def counted(state, batch, seed):
@@ -5112,6 +5127,332 @@ def backbone_phase(dev, card, seed, ds):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 16: data parallelism on torch.distributed.  16a: the five paths of
+# parallel/dryrun.py in a world of one over NCCL, against the same functions
+# without a group (bit for bit: an all-reduce over one rank is the
+# identity), and the steps' times in both.  16b: two ranks on the one card
+# over gloo (NCCL refuses two ranks on one GPU) against one process on the
+# same global batch, then a two-rank Trainer epoch on phase 10's records.
+DP_WARM, DP_TIMED = 2, 5  # 16a: untimed calls, then timed ones (the median counts)
+DP_STEPS = 3  # 16b: fine-tune steps on two ranks against one process
+DP_BS = TRAIN_BS // 2  # 16b: rows per rank
+
+
+def _median_ms(fn, warm=DP_WARM, timed=DP_TIMED):
+    """Median host-clock ms of ``timed`` synchronised calls of ``fn``, after
+    ``warm`` calls."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def dp_step_times(dev, model, mesh, batch, seed):
+    """16a's readings on ``mesh`` (with or without a group): ms of a frozen
+    step, a fine-tune step and an eval step at batch 32, the all-reduce of a
+    fine-tune step's gradients alone, and each step's launches."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import TrainConfig
+    from tpu_captioner_torch.parallel.collectives import all_reduce_gradients
+    from tpu_captioner_torch.parallel.dryrun import rank_rows, word_ids
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_eval_step, make_train_step
+
+    rows, ids, tc = rank_rows(batch, mesh, dev), word_ids(VOCAB), TrainConfig(batch_size=TRAIN_BS)
+    state = TrainState.create(model, tc, mesh)
+    root, calls = prng.root_seed(seed), itertools.count()
+    ms, launches = {}, {}
+    for name, step in (("frozen", make_train_step(model, tc, ids, mesh=mesh)),
+                       ("fine_tune", make_train_step(model, tc, ids, train_encoder=True, mesh=mesh))):
+        def run(step=step):
+            step(state, rows, prng.step_seed(root, "dropout", 1, next(calls)))
+
+        before = kernel_counts()
+        run()
+        torch.cuda.synchronize()
+        launches[name] = count_delta(before, kernel_counts())
+        ms[name] = _median_ms(run)
+    params = [p for p in model.parameters() if p.grad is not None]  # the last fine-tune step's
+    ms["all_reduce"] = _median_ms(lambda: all_reduce_gradients(params, mesh))
+    evaluate = make_eval_step(model, tc, ids, mesh=mesh)
+    before = kernel_counts()
+    evaluate(rows)
+    torch.cuda.synchronize()
+    after = kernel_counts()
+    launches["eval"] = (after["mlp_block"] - before["mlp_block"], after["decode_step"] - before["decode_step"])
+    ms["eval"] = _median_ms(lambda: evaluate(rows))
+    return ms, launches
+
+
+def world_of_one_phase(dev, card, seed):
+    """Phase 16a: ``parallel/dryrun.py``'s five paths (frozen, fine-tune and
+    free-running steps, the eval step, beam 3) at full width (the flagship,
+    batch 32, 256x256, 51 tokens) inside a world of one over NCCL
+    (``single_rank_group``, backend ``cpu:gloo,cuda:nccl``), with every
+    count zeroed before and read after (the data-parallel main path), then
+    the same function without a group from the same seed: the values and
+    every weight after the steps must be equal bit for bit.  cuDNN is held
+    to its deterministic algorithms in both arms (a backward-filter
+    algorithm may sum with atomics), so a difference is the collectives'.
+    Then the steps' times with and without the group and the all-reduce's
+    own time.  Returns the launches of the main path by kernel name."""
+    import torch
+
+    from tpu_captioner_torch.core.config import ModelConfig
+    from tpu_captioner_torch.parallel.dryrun import PATHS, global_batch, report, run_paths
+    from tpu_captioner_torch.parallel.mesh import Mesh, single_rank_group
+
+    t16 = time.perf_counter()
+    cfg = ModelConfig(vocab_size=VOCAB)
+    args = (cfg, TRAIN_BS, 256, TRAIN_T - 1, seed)
+    batch = global_batch(TRAIN_BS, 256, TRAIN_T, VOCAB, seed + 2)
+    alone = Mesh(1, 0, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with single_rank_group("cuda") as mesh:
+            zero_kernel_counts()
+            got, model = run_paths(mesh, *args)
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            report(1, got)
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+            grouped_ms, step_launches = dp_step_times(dev, model, mesh, batch, seed + 3)
+        del model
+        torch.cuda.empty_cache()
+        want, model = run_paths(alone, *args)
+        differ = [p for p in PATHS if got[p] != want[p]]
+        differ += [k for k, v in model.state_dict().items() if not torch.equal(v, weights[k])]
+        if differ:
+            del model
+            again, model = run_paths(alone, *args)
+            repeat = [p for p in PATHS if again[p] != want[p]]
+            raise AssertionError(f"phase 16a: a world of one over NCCL and no group differ in {differ[:8]} "
+                                 f"({len(differ)} values and tensors): with the group {got}, without {want}; "
+                                 f"without twice, these differ: {repeat}")
+        print(f"phase 16a: the five paths in a world of one over NCCL equal the same functions without a group "
+              f"bit for bit: {len(PATHS)} values and {len(weights)} weight tensors after the steps")
+        alone_ms, _ = dp_step_times(dev, model, alone, batch, seed + 3)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del model, weights
+    torch.cuda.empty_cache()
+    print(f"phase 16a: launches per step on the data-parallel path, (dropout_mask, mlp_block, mlp_block_bwd, dwconv, "
+          f"dwconv_grad): frozen {step_launches['frozen']}, fine-tune {step_launches['fine_tune']}; eval step "
+          f"(mlp_block, decode_step) {step_launches['eval']}")
+    if step_launches["frozen"] != (1, 36, 0, 36, 0) or step_launches["fine_tune"] != (1, 36, 30, 65, 30):
+        raise AssertionError(f"phase 16a: per-step launches {step_launches}, expected phase 5's and 6's")
+    for name in ("frozen", "fine_tune", "eval"):
+        print(f"phase 16a: {name} step at batch {TRAIN_BS}: {grouped_ms[name]:.2f} ms in a world of one over NCCL, "
+              f"{alone_ms[name]:.2f} ms without a group (host clock, synchronised, median of {DP_TIMED} after "
+              f"{DP_WARM}) [{card}]")
+    print(f"phase 16a: all_reduce_gradients of a fine-tune step's gradients alone: {grouped_ms['all_reduce']:.3f} ms "
+          f"over NCCL (world of one), {alone_ms['all_reduce']:.4f} ms without a group [{card}]")
+    missing = [k for k in ("mlp_block", "mlp_block_bwd", "decode_step", "dropout_mask", "dwconv", "dwconv_grad")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 16a: kernels of the data-parallel path never launched: {missing}")
+    print(f"phase 16a launches over the five paths: {launches}; phase 16a took {time.perf_counter() - t16:.1f} s")
+    return launches
+
+
+def say(text):
+    """``text`` and its newline in one write: the ranks share stdout."""
+    print(text + "\n", end="", flush=True)
+
+
+def one_process_bleu(ds, word_id):
+    """BLEU-1..4 of the one-process corpus of a validation whose every
+    hypothesis is ``max_decode_len`` x ``word_id`` (the EVAL_MARGIN
+    rollouts): the VAL split in one process's order, batch 32."""
+    import numpy as np
+
+    from tpu_captioner_torch.data.dataset import CaptionDataset, iterate_batches
+    from tpu_captioner_torch.data.vocab import load_word_map
+    from tpu_captioner_torch.native.bleu_native import bleu_1_to_4
+    from tpu_captioner_torch.train.loop import build_references_and_hypotheses
+
+    wm = load_word_map(os.path.join(ds, f"WORDMAP_{TRAIN_DATA_NAME}.json"))
+    refs, hyps = [], []
+    for b in iterate_batches(CaptionDataset(ds, TRAIN_DATA_NAME, "VAL"), TRAIN_BS, shuffle=False):
+        seqs = np.full((TRAIN_BS, TRAIN_T - 1), word_id, np.int32)
+        r, h = build_references_and_hypotheses(b.all_captions, seqs, np.full(TRAIN_BS, TRAIN_T - 1), b.valid,
+                                               wm["<start>"], wm["<pad>"])
+        refs += r
+        hyps += h
+    return bleu_1_to_4(refs, hyps)
+
+
+def two_rank_rank(mesh, card, seed, ds, out_dir):
+    """Phase 16b on one of two ranks, both on the one card over gloo: (a)
+    three fine-tune steps at batch 16 a rank (dropout pool and stochastic
+    depth on), the ranks' weights equal bit for bit after each, held on
+    rank 0 against one process at batch 32 on the same global batch; (b) a
+    two-rank Trainer epoch on phase 10's records, then a resume."""
+    import torch
+
+    from tpu_captioner_torch.core import prng
+    from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+    from tpu_captioner_torch.data.vocab import load_word_map
+    from tpu_captioner_torch.parallel.collectives import barrier
+    from tpu_captioner_torch.parallel.dryrun import rank_rows, replicas_agree
+    from tpu_captioner_torch.train import loop
+    from tpu_captioner_torch.train.model import CaptionModel
+    from tpu_captioner_torch.train.state import TrainState
+    from tpu_captioner_torch.train.steps import make_train_step
+
+    dev, rank = mesh.device, mesh.rank
+    label = f"phase 16b rank {rank}"
+    word_map = word_map_of(VOCAB)
+    cfg = ModelConfig(vocab_size=VOCAB)
+    root = prng.root_seed(seed + 41)
+    seeds = [prng.step_seed(root, "dropout", 0, i) for i in range(DP_STEPS)]
+    batch = train_batch(torch.Generator().manual_seed(seed + 42), word_map, VOCAB)
+
+    def model():
+        m = CaptionModel(cfg, device=dev, seed=seed + 40)
+        gen = torch.Generator().manual_seed(seed + 43)
+        with torch.no_grad():  # order-one layer scales, as in phase 6
+            for blk in (b for b in m.modules() if hasattr(b, "layer_scale")):
+                blk.layer_scale.copy_(0.1 * torch.rand(blk.layer_scale.shape, generator=gen))
+        return m
+
+    def steps(m, rows, bs, on):
+        tc = TrainConfig(batch_size=bs)
+        state = TrainState.create(m, tc, on)
+        step = make_train_step(m, tc, word_map, train_encoder=True, mesh=on)
+        metrics, grads, ms = [], [], []
+        for i, s in enumerate(seeds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, rows, s)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in met.items()})
+            grads.append({n: p.grad.clone() for n, p in m.named_parameters() if p.grad is not None})
+            if on is not None and not replicas_agree(m.state_dict().values(), on):
+                raise AssertionError(f"{label}: the ranks' weights differ after step {i}")
+        return metrics, grads, {k: v.clone() for k, v in m.state_dict().items()}, ms, tc.decoder_lr
+
+    # (a) Three fine-tune steps.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    got, got_grads, got_params, ms, lr = steps(model(), rank_rows(batch, mesh, dev), DP_BS, mesh)
+    launches = count_delta({k: 0 for k in kernel_counts()}, kernel_counts())
+    say(f"{label}: {DP_STEPS} fine-tune steps at batch {DP_BS} a rank, global batch {TRAIN_BS}: ms per step "
+          f"{[round(x, 2) for x in ms]} (host clock, synchronised; the two ranks share the card); launches "
+          f"(dropout_mask, mlp_block, mlp_block_bwd, dwconv, dwconv_grad) {launches}; the ranks' weights equal "
+          f"bit for bit after every step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",)
+    if launches != tuple(DP_STEPS * n for n in (1, 36, 30, 65, 30)):
+        raise AssertionError(f"{label}: launches {launches}, expected phase 6's per step")
+    if rank == 0:
+        want, want_grads, want_params, _, _ = steps(model(), {k: v.to(dev) for k, v in batch.items()}, TRAIN_BS,
+                                                    None)
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got, want))
+        counts_equal = all(a["tokens"] == b["tokens"] and a["top5_correct"] == b["top5_correct"]
+                           for a, b in zip(got, want))
+        grad_err, worst = 0.0, ""
+        for g, wg in zip(got_grads, want_grads):
+            for k, w in wg.items():
+                err = (g[k] - w).abs().max().item() / max(1.0, w.abs().max().item())
+                grad_err, worst = max((grad_err, worst), (err, k))
+        # Adam's step is scale-free: a gradient that differs by a fraction f
+        # between the runs moves its parameter by at most ~f x lr a step, and
+        # one near the two runs' summation noise up to 2 x lr.  The
+        # parameters are compared where every step's two gradients agree
+        # within 1/300 of the element's own (three steps: 1e-2 x lr), and
+        # those elements must be at least a quarter of the trained ones.
+        param_err, checked, total = 0.0, 0, 0
+        for k in want_grads[0]:
+            sure = torch.stack([(g[k] - wg[k]).abs() * 300 <= wg[k].abs()
+                                for g, wg in zip(got_grads, want_grads)]).all(0)
+            err = (got_params[k] - want_params[k]).abs()[sure]
+            param_err = max(param_err, err.max().item() if err.numel() else 0.0)
+            checked, total = checked + int(sure.sum()), total + sure.numel()
+        say(f"{label}: two ranks against one process at batch {TRAIN_BS}, {DP_STEPS} steps: losses "
+              f"{[a['loss'] for a in got]} vs {[b['loss'] for b in want]}, worst relative {loss_err:.3e} (tol 1e-5); "
+              f"tokens and top-5 equal: {counts_equal}; gradients worst |d| / max(1, max |g|) {grad_err:.3e} "
+              f"(tol 1e-3; {worst}) over {len(want_grads[0])} tensors; parameters max |d| {param_err:.3e} (tol "
+              f"{1e-2 * lr:g}) over {checked} of {total} trained elements ({checked / total:.1%})")
+        if not (loss_err <= 1e-5 and counts_equal and grad_err <= 1e-3 and param_err <= 1e-2 * lr
+                and set(got_grads[0]) == set(want_grads[0]) and checked > total // 4):
+            raise AssertionError(f"{label}: two ranks and one process disagree")
+        del want_grads, want_params
+    del got_grads, got_params
+    torch.cuda.empty_cache()
+    say(f"{label}: 16b(a) took {time.perf_counter() - t0:.1f} s")
+
+    # (b) A two-rank Trainer epoch on phase 10's records, then a resume.
+    t0 = time.perf_counter()
+    ds_words = load_word_map(os.path.join(ds, f"WORDMAP_{TRAIN_DATA_NAME}.json"))
+
+    def experiment(**kw):
+        return ExperimentConfig(model=ModelConfig(), train=TrainConfig(
+            batch_size=DP_BS, epochs=1, teacher_forcing=True, print_freq=1000,
+            checkpoint_dir=os.path.join(out_dir, "ckpt"), results_dir=os.path.join(out_dir, "results"), **kw))
+
+    record = {"train": [], "eval": []}
+    with counted_trainer_steps(record, ds_words[EVAL_WORD]):
+        trainer = loop.Trainer(experiment(), ds, TRAIN_DATA_NAME, device=dev, verbose=False, mesh=mesh)
+        (row,) = trainer.run()
+    torch.cuda.synchronize()
+    check_counts(f"{label} Trainer (TF, frozen)", record, {"TF, frozen": (1, 36, 0, 36, 0)},
+                 trainer.exp.model.num_layers, trainer.exp.train.max_decode_len)
+    n_train, n_val = 5 * TRAIN_DATA["TRAIN"] // TRAIN_BS, 5 * TRAIN_DATA["VAL"] // TRAIN_BS
+    if (len(record["train"]), len(record["eval"]), len(trainer.train_loader)) != (n_train, n_val, n_train):
+        raise AssertionError(f"{label}: {len(record['train'])} train and {len(record['eval'])} eval steps")
+    name = trainer.checkpoint_name()
+    if rank == 0:
+        want_bleu = one_process_bleu(ds, ds_words[EVAL_WORD])
+        got_bleu = tuple(row[f"bleu{i}"] for i in range(1, 5))
+        (csv_name,) = os.listdir(os.path.join(out_dir, "results"))
+        with open(os.path.join(out_dir, "results", csv_name)) as f:
+            csv_rows = f.read().splitlines()
+        tree = {d: sorted(os.listdir(os.path.join(out_dir, "ckpt", d))) for d in os.listdir(os.path.join(out_dir,
+                                                                                                         "ckpt"))}
+        say(f"{label} Trainer: row {row}; BLEU-1..4 {got_bleu} against the one-process corpus' {want_bleu}; "
+              f"CSV {csv_name} ({len(csv_rows) - 1} row); checkpoints {tree}; batch_time "
+              f"{row['trainBatchTime'] * 1e3:.2f} ms, data_time {row['trainDataTime'] * 1e3:.3f} ms per batch "
+              f"(rank 0's host clock) [{card}]")
+        if not (got_bleu == tuple(want_bleu) and want_bleu[0] > 0 and len(csv_rows) == 2
+                and set(tree) <= {name, f"BEST_{name}"} and name in tree
+                and all(v == ["meta.json", "state.pt"] for v in tree.values())
+                and all(math.isfinite(row[k]) for k in ("trainLoss", "valLoss"))):
+            raise AssertionError(f"{label}: the two-rank Trainer's row, CSV or checkpoints are wrong")
+    barrier(mesh)
+    resumed = loop.Trainer(experiment(checkpoint=os.path.join(out_dir, "ckpt", name)), ds, TRAIN_DATA_NAME,
+                           device=dev, verbose=False, mesh=mesh)
+    kept = trainer.model.state_dict()
+    same = all(torch.equal(v, kept[k]) for k, v in resumed.model.state_dict().items())
+    if not (resumed.start_epoch == 1 and same and replicas_agree(resumed.model.state_dict().values(), mesh)):
+        raise AssertionError(f"{label}: the resume did not load the epoch-0 checkpoint")
+    say(f"{label}: resumed at epoch {resumed.start_epoch} with the saved weights, the ranks equal; 16b(b) took "
+          f"{time.perf_counter() - t0:.1f} s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card}]")
+
+
+def two_ranks_phase(card, seed, ds):
+    """Phase 16b: ``two_rank_rank`` on two processes, both on cuda:0, over
+    gloo; the kernels are built (phase 2) before they start."""
+    from tpu_captioner_torch.parallel.mesh import spawn
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_ranks_") as out_dir:
+        spawn(two_rank_rank, 2, "cuda:0", backend="gloo", args=(card, seed, ds, out_dir))
+    print(f"phase 16b took {time.perf_counter() - t0:.1f} s")
+
+
 def np_isfinite(a):
     import numpy as np
 
@@ -5344,8 +5685,18 @@ def main(argv=None):
     trace_phase(dev, card, ds)
     torch.cuda.empty_cache()
     backbone_phase(dev, card, args.seed, ds)
-    keep.cleanup()
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    # 16. Data parallelism: the five paths in a world of one over NCCL at
+    # full width, then two ranks on the one card over gloo, on phase 10's
+    # records.
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    dp_launches = world_of_one_phase(dev, card, args.seed)
+    torch.cuda.empty_cache()
+    two_ranks_phase(card, args.seed, ds)
+    keep.cleanup()
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
@@ -5459,6 +5810,7 @@ def main(argv=None):
         paths = (last_training if k["name"] in last_training else dec_bf16_training if k["name"] in dec_bf16
                  else bf16_training if k["name"].endswith("_bf16") else training)
         k["launches_training"] = paths[k["name"]]
+        k["launches_data_parallel"] = dp_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

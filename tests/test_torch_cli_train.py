@@ -72,11 +72,19 @@ def test_build_train_test_on_the_cpu(workdir, strategy):
 
 
 def test_the_card_is_the_default_and_one_card_only(workdir):
+    """The card is the default and a host without one refuses it.  More
+    than one device (once refused as ROADMAP.md Queue 1 #9) runs one rank
+    per device: run plainly, ``cli.train`` and ``cli.test`` spawn them (two
+    gloo processes with ``--device cpu``), and rank 0 writes one results
+    CSV and one checkpoint tree; under a group of two, ``--numDevices 2``
+    trains on both ranks and 3 raises ValueError
+    (``tests/torch_parallel_workers.py:cli_train_rank``)."""
+    from tests.torch_parallel_workers import cli_train_rank
+    from tpu_captioner_torch.parallel.mesh import spawn
+
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_train.main(TINY + ["--epochs", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
-        cli_train.main(TINY + ["--epochs", "1", "--device", "cpu", "--numDevices", "2"])
     # port-backbone, once refused as Queue 1 #7: a wrapped torchvision-keyed
     # state dict becomes an .npz of its arrays, which trains nothing.
     sd = {"features.0.0.weight": torch.randn(8, 3, 4, 4), "classifier.2.bias": torch.arange(3.0)}
@@ -85,3 +93,17 @@ def test_the_card_is_the_default_and_one_card_only(workdir):
     with np.load(workdir / "b.npz") as arrays:
         assert arrays.files == list(sd) and all(np.array_equal(arrays[k], v.numpy()) for k, v in sd.items())
     assert not os.path.exists(workdir / "checkpoints")
+
+    flags = TINY + ["--device", "cpu", "--numDevices", "2"]
+    assert cli_train.main(flags + ["--epochs", "1"]) is None
+    (row,) = read_csv(workdir / "results" / "metrics-transformer(trainingNoTF-inferenceNoTF-Finetuning5-None).csv")
+    assert list(row) == METRICS and float(row["trainLoss"]) > 0 and float(row["bleu1"]) >= 0
+    name = f"checkpoint_Transformer_Finetuning5_0.0001_None_{NAME}"
+    assert sorted(os.listdir(workdir / "checkpoints")) == [f"BEST_{name}", name]
+    assert cli_test.main(flags + ["--checkpoint", f"checkpoints/{name}"]) is None
+    (tested,) = read_csv(workdir / "results" / "test-transformer-Finetuning5-None.csv")
+    assert float(tested["testLoss"]) > 0
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="2 cards asked for"):
+            cli_train.main(TINY + ["--epochs", "1", "--numDevices", "2"])
+    spawn(cli_train_rank, 2, "cpu", args=(TINY + ["--device", "cpu", "--epochs", "1"],))

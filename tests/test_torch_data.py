@@ -207,11 +207,20 @@ def test_loader_shutdown_and_errors():
 
 
 def test_more_than_one_device_raises(records):
+    """More than one device takes that many ranks.  A process alone raises
+    ValueError for them; under a group of two (two gloo processes), 0 and 2
+    resolve to 2, 3 raises ValueError, and each rank's loader yields its
+    rows of every global batch (``tests/torch_parallel_workers.py:
+    loader_rank``)."""
+    from tests.torch_parallel_workers import loader_rank
+    from tpu_captioner_torch.parallel.mesh import spawn
+
     assert resolve_num_devices(0, "cpu") == resolve_num_devices(1, "cpu") == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
+    with pytest.raises(ValueError, match="this process is alone"):
         resolve_num_devices(2, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
+    with pytest.raises(ValueError, match="this process is alone"):
         DeviceLoader(dataset.CaptionDataset(records, BASE, "VAL"), 4, device="cpu", num_devices=4)
+    spawn(loader_rank, 2, "cpu", args=(records, BASE))
 
 
 @pytest.fixture(scope="module")

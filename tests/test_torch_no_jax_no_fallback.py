@@ -13,12 +13,14 @@
   resolves to the per-token one.
 - Every train-step branch builds a step (teacher-forced and free-running,
   frozen and fine-tune), and the ``.npz`` form of ``--pretrainedEncoder``
-  loads; what the training entry point does not port yet raises, naming its
-  ROADMAP item: more than one device (Queue 1 #9).  The training modules
-  (data, loader, checkpoints, Trainer, CLIs) catch no failure, but for the
-  loader's queue timeouts and its thread's error, raised again in the
-  consumer.  The native runtime (``native/``) raises when it does not
-  build: nothing falls back to Python.
+  loads; more than one device (once refused as Queue 1 #9) takes a group of
+  that many ranks, and a count the group does not have raises ValueError.
+  The training modules (data, loader, checkpoints, Trainer, CLIs) and the
+  data-parallel ones (``parallel/``: the group, the collectives, the dry
+  run) catch no failure, but for the loader's queue timeouts and its
+  thread's error, raised again in the consumer.  The native runtime
+  (``native/``) raises when it does not build: nothing falls back to
+  Python.
 - The depthwise conv's wrappers refuse what their kernels do not take (other
   devices, a dtype without an instance: float16, mixed dtypes;
   non-contiguous tensors, tensors on two devices).  bf16 serves and trains
@@ -68,7 +70,8 @@ def test_port_imports_no_jax():
         assert "tpu_captioner_torch.ops.block_fused" in names, names
         for new in ("data.vocab", "data.build", "data.dataset", "data.loader", "models.embeddings",
                     "train.checkpoint", "train.loop", "cli.common", "cli.train", "cli.test", "cli.build_data",
-                    "native.lib", "native.bleu_native", "native.gather", "infer.visualize", "cli.graphs"):
+                    "native.lib", "native.bleu_native", "native.gather", "infer.visualize", "cli.graphs",
+                    "parallel.mesh", "parallel.collectives", "parallel.dryrun"):
             assert "tpu_captioner_torch." + new in names, new
         bad = sorted(m for m in sys.modules if m.split(".")[0] in (
             "pandas", "nltk", "PIL", "h5py", "matplotlib", "scipy"))
@@ -242,8 +245,10 @@ def test_kernel_wrappers_refuse_to_drop_gradients():
 def test_unported_train_branches_raise(tmp_path):
     """The free-running branches, once refused here, are ported: they build
     steps; so is the .npz form of the pretrained encoder, once refused as
-    Queue 1 #7: it loads.  What stays unported raises with its ROADMAP
-    item: more than one device, in the loader and the CLI's device count."""
+    Queue 1 #7: it loads.  More than one device, once refused as Queue 1
+    #9, needs a group of that many ranks: alone, the loader and the
+    device count raise ValueError; under a group of two, 2 resolves and
+    the loader's global batch doubles, and 3 raises ValueError."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -265,10 +270,14 @@ def test_unported_train_branches_raise(tmp_path):
     assert callable(make_train_step(model, TrainConfig(), ids, teacher_forcing=False))
     assert not any(p.requires_grad for p in model.encoder.parameters())
     assert callable(make_train_step(model, TrainConfig(), ids, teacher_forcing=False, train_encoder=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
+    with pytest.raises(ValueError, match="this process is alone"):
         resolve_num_devices(2, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 #9"):
+    with pytest.raises(ValueError, match="this process is alone"):
         DeviceLoader([], 4, device="cpu", num_devices=8)
+    from tests.torch_parallel_workers import device_count_rank
+    from tpu_captioner_torch.parallel.mesh import spawn
+
+    spawn(device_count_rank, 2, "cpu")
     from tpu_captioner_torch.train.loop import Trainer
 
     trainer = Trainer.__new__(Trainer)  # only the backbone load runs
@@ -542,8 +551,10 @@ def test_rollout_with_dropout_raises():
 
 
 def test_training_modules_catch_no_failure():
-    """No ``except`` in the training entry point's modules but the loader's
-    queue timeouts and its thread's error, which the consumer raises."""
+    """No ``except`` in the training entry point's modules and the
+    data-parallel ones but the loader's queue timeouts and its thread's
+    error, which the consumer raises: a failed rank or collective, and a
+    failed dry run, raise."""
     import importlib
     import inspect
     import re
@@ -552,7 +563,7 @@ def test_training_modules_catch_no_failure():
                                                    "except queue.Empty:"]}
     for name in ("data.vocab", "data.build", "data.dataset", "data.loader", "models.embeddings",
                  "train.checkpoint", "train.loop", "train.steps", "train.state", "cli.common", "cli.train",
-                 "cli.test", "cli.build_data"):
+                 "cli.test", "cli.build_data", "parallel.mesh", "parallel.collectives", "parallel.dryrun"):
         mod = "tpu_captioner_torch." + name
         found = re.findall(r"except\b[^\n#]*:", inspect.getsource(importlib.import_module(mod)))
         assert found == allowed.get(mod, []), (mod, found)

@@ -6,11 +6,12 @@ package imports ``torch`` and numpy only, never JAX.  Ported so far: serving,
 ``python -m tpu_captioner_torch.cli.caption``; training, ``cli.build_data``
 -> ``cli.train`` (the ``Trainer``: teacher-forced, free-running and
 scheduled-sampling steps, the encoder unlock, LR decay, early stop,
-checkpoints and resume) -> ``cli.test``; for the four decoder families:
+checkpoints and resume) -> ``cli.test``, on one card or data-parallel on
+several; for the four decoder families:
 
 - ``core``   — the configs, a CUDA probe, step seeds, the early-exit scan;
 - ``data``   — word maps, the record writers (synthetic, Karpathy, reference
-               HDF5), the dataset and the one-card prefetching loader;
+               HDF5), the dataset and the prefetching loader of a rank's rows;
 - ``models`` — ConvNeXt-Base encoder (NHWC, stochastic depth in training,
                remat and the fine-tune mask), the Transformer and LSTM
                decoders (teacher forcing, the decode pieces, the greedy
@@ -25,6 +26,8 @@ checkpoints and resume) -> ``cli.test``; for the four decoder families:
 - ``train``  — ``CaptionModel``, optimizers and ``TrainState``, the train and
                eval steps, checkpoints and the ``Trainer``;
 - ``infer``  — batched beam search and the attention grid;
+- ``parallel`` — data parallelism on ``torch.distributed``: the group of
+               ranks, the collectives and the multi-rank dry run;
 - ``cli``    — ``caption``, ``build_data``, ``train``, ``test`` and ``graphs``.
 """
 

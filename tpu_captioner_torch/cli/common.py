@@ -2,13 +2,18 @@
 reference's argparse surface (train.py:59-79, trainMultiGPU.py:63-87,
 test.py:63-81) mapped onto ``ExperimentConfig``, with the JAX package's
 flags and ``config_from_args``, plus ``--device`` (default ``cuda``: the
-card, unless the caller asks for the CPU)."""
+card, unless the caller asks for the CPU), and ``run_data_parallel``, which
+serves one card and many from one entry point (tpu_captioner/cli/train.py:1-12)."""
 
 from __future__ import annotations
 
 import argparse
+from typing import Any, Callable
+
+import torch
 
 from tpu_captioner_torch.core.config import ExperimentConfig, ModelConfig, TrainConfig
+from tpu_captioner_torch.parallel.mesh import local_device_count, make_mesh, maybe_initialize_distributed, spawn
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
@@ -33,7 +38,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "trains from IMAGENET1K_V1")
     p.add_argument("--batchSize", type=int, default=32)
     p.add_argument("--numDevices", type=int, default=0,
-                   help="cards to train on (0 = every visible card; more than one is not ported yet)")
+                   help="cards to run on, one process each (0 = every visible card, or every rank of "
+                        "a torchrun launch; --device cpu: processes on the CPU)")
     p.add_argument("--computeDtype", type=str, default="float32", choices=["float32", "bfloat16"])
     # Reduced-model overrides (default: the reference's ConvNeXt-Base and
     # 6-layer Transformer).
@@ -93,3 +99,26 @@ def config_from_args(args) -> ExperimentConfig:
         **train_kw,
     )
     return ExperimentConfig(model=model, train=train, num_devices=args.numDevices)
+
+
+def _rank(mesh, run: Callable, args, exp: ExperimentConfig) -> None:
+    run(args, exp, mesh)
+
+
+def run_data_parallel(run: Callable, args, exp: ExperimentConfig) -> Any:
+    """``run(args, exp, mesh)`` on every rank.  Launched by ``torchrun``:
+    this process joins the group and runs its rank.  Else, with more than
+    one device asked for (``--numDevices``; 0 is every visible card), one
+    process per card is spawned (``--device cpu``: that many gloo
+    processes on the CPU), and None is returned once every rank has ended;
+    with one, ``run`` runs here alone.  ``run`` must be importable by name."""
+    device = torch.device(args.device)
+    if maybe_initialize_distributed(device):
+        return run(args, exp, make_mesh(exp.num_devices, device))
+    n = exp.num_devices or (local_device_count() if device.type == "cuda" else 1)
+    if n <= 1:
+        return run(args, exp, make_mesh(exp.num_devices, device))
+    if device.type == "cuda" and n > local_device_count():
+        raise ValueError(f"{n} cards asked for; this host has {local_device_count()}")
+    spawn(_rank, n, device, args=(run, args, exp))
+    return None

@@ -13,13 +13,15 @@ import torch
 
 
 def require_cuda() -> torch.device:
-    """The first CUDA device; raises when PyTorch sees no card."""
+    """The current CUDA device: a data-parallel rank's own card
+    (``parallel/mesh.py`` selects it), else the first; raises when PyTorch
+    sees no card."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: torch.cuda.is_available() is False "
             f"(torch {torch.__version__}, built for CUDA {torch.version.cuda})"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def device_info() -> str:

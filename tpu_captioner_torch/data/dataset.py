@@ -11,8 +11,9 @@ with the epoch's first rows (wrap-around) and flagged in ``valid``.
 
 Memmapped records are gathered by the native threaded gather
 (``native/gather.py``, as the JAX package's), equal to numpy's fancy
-indexing bit for bit; reference-format HDF5 records are read per row, and
-h5py is imported only for them.
+indexing bit for bit, whose library is built when the dataset is opened;
+reference-format HDF5 records are read per row, and h5py is imported only
+for them.
 """
 
 from __future__ import annotations
@@ -20,11 +21,12 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
 from tpu_captioner_torch.native.gather import gather_batch_native
+from tpu_captioner_torch.native.lib import get_lib
 
 # ImageNet statistics of the reference transform (train.py:152).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -70,6 +72,7 @@ class CaptionDataset:
             with open(os.path.join(data_folder, f"{split}_META_{data_name}.json")) as f:
                 self.cpi = int(json.load(f)["captions_per_image"])
             n_images = self.images.shape[0]
+            get_lib()  # the gather's library: built here, not in the first batch's data time
         elif os.path.exists(h5):
             # Reference-format records (utils/utils.py:102-160): NCHW uint8
             # HDF5 images, read per batch and turned NHWC.
@@ -135,26 +138,37 @@ def epoch_indices(n: int, epoch: int, seed: int = 42, shuffle: bool = True) -> n
 
 def iterate_batches(
     dataset: CaptionDataset,
-    batch_size: int,
+    global_batch: int,
     epoch: int = 0,
     seed: int = 42,
     shuffle: bool = True,
     pad_final: bool = True,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Iterator[Batch]:
-    """Batches of ``batch_size`` rows in ``epoch_indices`` order.  The final
-    short batch is padded with the epoch's first rows, marked not ``valid``
-    (or dropped without ``pad_final``)."""
+    """Batches of ``global_batch`` rows in ``epoch_indices`` order.  The
+    final short batch is padded with the epoch's first rows, marked not
+    ``valid`` (or dropped without ``pad_final``).  ``shard=(index, count)``
+    gathers only rank ``index``'s contiguous ``global_batch // count`` rows
+    of every global batch (the reference's DistributedSampler split,
+    trainMultiGPU.py:240-245); every rank walks the same order, so the
+    shards are disjoint and complete, and each flags its share of the
+    padding."""
+    index, count = shard
+    if global_batch % count != 0:
+        raise ValueError(f"global_batch {global_batch} not divisible by {count}")
+    per = global_batch // count
     idx = epoch_indices(len(dataset), epoch, seed, shuffle)
-    for s in range(0, len(idx), batch_size):
-        chunk = idx[s : s + batch_size]
-        pad = batch_size - len(chunk)
+    for s in range(0, len(idx), global_batch):
+        chunk = idx[s : s + global_batch]
+        pad = global_batch - len(chunk)
         if pad > 0:
             if not pad_final:
                 break
             chunk = np.concatenate([chunk, idx[:pad]])
-        batch = dataset.gather(chunk)
+        batch = dataset.gather(chunk[index * per : (index + 1) * per])
         if pad > 0:
-            batch.valid[batch_size - pad :] = False
+            # The padding is the global batch's tail: this rank's rows in it.
+            batch.valid[max(0, global_batch - pad - index * per) :] = False
         yield batch
 
 

@@ -1,4 +1,4 @@
-"""Host-to-device input pipeline for one card (counterpart of
+"""Host-to-device input pipeline of a rank's card (counterpart of
 ``tpu_captioner/data/loader.py``).
 
 A background thread gathers batches (``data/dataset.py:iterate_batches``)
@@ -14,7 +14,10 @@ Shutdown as ``prefetch_to_device`` of the JAX package: a consumer that stops
 early (an exception mid-epoch, a closed generator) signals the thread, drains
 the queue and joins it, so no batch stays referenced.
 
-One card only: asking for more raises (multi-GPU is ROADMAP.md Queue 1 #9).
+Data parallel: ``DeviceLoader`` under a ``parallel.mesh.Mesh`` of N ranks
+walks global batches of ``batch_size * N`` rows and gathers and copies only
+this rank's contiguous share onto its card (``ShardedLoader`` of the JAX
+package).
 """
 
 from __future__ import annotations
@@ -22,28 +25,12 @@ from __future__ import annotations
 import queue
 import threading
 import warnings
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
 
-from tpu_captioner_torch.core.backend import require_cuda
 from tpu_captioner_torch.data.dataset import Batch, CaptionDataset, iterate_batches
-
-
-def resolve_num_devices(requested: int, device) -> int:
-    """Cards a run asks for: ``requested``, or every visible card for 0 (1
-    on the CPU).  A card asked for on a host without one raises, and so
-    does more than one: multi-GPU is not ported yet."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        require_cuda()
-    n = requested or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    if n > 1:
-        raise NotImplementedError(
-            f"{n} devices asked for: multi-GPU training is not ported yet (ROADMAP.md Queue 1 #9); "
-            "pass --numDevices 1"
-        )
-    return n
+from tpu_captioner_torch.parallel.mesh import Mesh, make_mesh, resolve_num_devices  # noqa: F401 (re-exported)
 
 
 def _host_tensors(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -134,10 +121,12 @@ def _drain(q: "queue.Queue") -> None:
 
 
 class DeviceLoader:
-    """Epoch loader for one device (counterpart of ``ShardedLoader``): the
-    seed-and-epoch shuffle, fixed-size batches with a padded final one, and
-    two batches prepared on ``device`` ahead of the step (the JAX
-    package's default prefetch)."""
+    """Epoch loader of one rank (counterpart of ``ShardedLoader``): the
+    seed-and-epoch shuffle, fixed-size global batches of ``batch_size``
+    rows per rank with a padded final one, this rank's rows of each, and
+    two batches prepared on its card ahead of the step (the JAX package's
+    default prefetch).  Without ``mesh``, ``make_mesh(num_devices, device)``
+    gives it: the initialised group's, else a world of one."""
 
     def __init__(
         self,
@@ -147,17 +136,20 @@ class DeviceLoader:
         seed: int = 42,
         shuffle: bool = True,
         num_devices: int = 1,
+        mesh: Optional[Mesh] = None,
     ):
-        resolve_num_devices(num_devices, device)
+        self.mesh = mesh if mesh is not None else make_mesh(num_devices, device)
         self.dataset = dataset
         self.batch_size = batch_size
-        self.device = torch.device(device)
+        self.global_batch = batch_size * self.mesh.size
+        self.device = self.mesh.device
         self.seed = seed
         self.shuffle = shuffle
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return (len(self.dataset) + self.global_batch - 1) // self.global_batch
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
-        host = iterate_batches(self.dataset, self.batch_size, epoch=epoch, seed=self.seed, shuffle=self.shuffle)
+        host = iterate_batches(self.dataset, self.global_batch, epoch=epoch, seed=self.seed, shuffle=self.shuffle,
+                               shard=(self.mesh.rank, self.mesh.size))
         return prefetch_to_device(host, self.device)

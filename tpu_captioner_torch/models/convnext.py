@@ -79,6 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_captioner_torch.core.config import STAGE_MODES, stage_kernel_modes
 from tpu_captioner_torch.models import torch_init
+from tpu_captioner_torch.models.layers import shard_rows
 from tpu_captioner_torch.ops.block_fused import fused_convnext_block
 from tpu_captioner_torch.ops.dwconv import depthwise_conv7x7_nhwc
 from tpu_captioner_torch.ops.mlp_block import _mlp_plain, fused_convnext_mlp
@@ -340,12 +341,17 @@ class ConvNeXtFeatures(nn.Sequential):
 
     def draw_sd(self, batch: int, generator: torch.Generator) -> List[torch.Tensor]:
         """Training-mode stochastic-depth scales: one (B,) tensor per block,
-        on the generator's device, each entry 0 or ``1 / survival``."""
+        on the generator's device, each entry 0 or ``1 / survival``; inside
+        ``models.layers.row_shard_scope`` this rank's rows of the global
+        batch's draw."""
         rows = []
         for p in self.sd_probs:
             survival = 1.0 - p
-            probs = torch.full((batch,), survival, device=generator.device)
-            rows.append(torch.bernoulli(probs, generator=generator) / survival)
+
+            def draw(n: int, survival=survival) -> torch.Tensor:
+                return torch.bernoulli(torch.full((n,), survival, device=generator.device), generator=generator)
+
+            rows.append(shard_rows(draw, batch) / survival)
         return rows
 
     def forward(self, x: torch.Tensor, sd_rows: Optional[Sequence[torch.Tensor]] = None,

@@ -20,6 +20,16 @@ takes the stripe at ``offset + i * size``.  The port loops over layers in
 Python and rewinds the pool at the end of every layer but the last, so each
 layer walks the same site offsets.  The scopes are ``ContextVar``s: they
 hold for the code run inside the ``with``, in this thread.
+
+Data parallelism (``parallel/``): inside ``row_shard_scope(index, count)``
+a rank holds rows ``[index * b, (index + 1) * b)`` of a global batch of
+``count * b``, and every random site draws for the global batch and keeps
+this rank's rows (``shard_rows``): ``draw_mask`` on axis 0, a ``MaskPool``
+site its rank's range of a ``count`` times larger stripe, stochastic depth
+(``models/convnext.py``) and the scheduled-sampling coin
+(``models/transformer.py:teacher_masks``).  So the ranks together drop,
+skip and sample what one process does on the global batch, as the JAX
+mesh step, one global program, does.
 """
 
 from __future__ import annotations
@@ -96,10 +106,41 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
+_ROW_SHARD: contextvars.ContextVar = contextvars.ContextVar("row_shard", default=(0, 1))
+
+
+@contextlib.contextmanager
+def row_shard_scope(index: int, count: int):
+    """Mark the code inside as rank ``index`` of ``count``, each holding
+    its contiguous rows of the global batch (see the module note)."""
+    if not 0 <= index < count:
+        raise ValueError(f"row shard {index} of {count}")
+    token = _ROW_SHARD.set((int(index), int(count)))
+    try:
+        yield
+    finally:
+        _ROW_SHARD.reset(token)
+
+
+def row_shard() -> Tuple[int, int]:
+    """(index, count) of the active ``row_shard_scope``; (0, 1) outside."""
+    return _ROW_SHARD.get()
+
+
+def shard_rows(draw: Callable[[int], torch.Tensor], rows: int, dim: int = 0) -> torch.Tensor:
+    """``draw(count * rows)``, a draw for the global batch with the batch on
+    ``dim``, cut to this rank's ``rows`` there."""
+    index, count = row_shard()
+    full = draw(count * rows)
+    return full if count == 1 else full.narrow(dim, index * rows, rows)
+
+
 class MaskPool:
     """Flat pool of dropout keep-bits, consumed in call order.  Sites inside
-    ``pool_layer_scope`` reserve a stripe per layer (see the module note).
-    Overdraw and a site whose rate differs from the pool's raise."""
+    ``pool_layer_scope`` reserve a stripe per layer (see the module note);
+    inside ``row_shard_scope`` a site's stripe covers the global batch and
+    this rank takes its rows' range.  Overdraw and a site whose rate differs
+    from the pool's raise."""
 
     def __init__(self, bits: torch.Tensor, keep: float):
         if bits.dim() != 1 or bits.dtype != torch.bool:
@@ -115,14 +156,16 @@ class MaskPool:
                 "drawn at ONE rate"
             )
         n = math.prod(shape)
+        index, count = row_shard()
+        stripe = n * count  # the global batch's elements; the batch is axis 0
         layer = _POOL_LAYER.get()
-        reserve = n if layer is None else n * layer[1]
+        reserve = stripe if layer is None else stripe * layer[1]
         if self.offset + reserve > self.bits.shape[0]:
             raise ValueError(
                 f"dropout mask pool exhausted: need {reserve} at offset {self.offset}, "
                 f"pool holds {self.bits.shape[0]}"
             )
-        start = self.offset + (0 if layer is None else layer[0] * n)
+        start = self.offset + (0 if layer is None else layer[0] * stripe) + index * n
         self.offset += reserve
         return self.bits[start : start + n].view(*shape)
 
@@ -162,11 +205,16 @@ def draw_mask(
     shape: Sequence[int], keep: float, generator: torch.Generator, device, site: Tuple[int, ...] = ()
 ) -> torch.Tensor:
     """A bool keep-mask of ``shape`` on ``device``, each element True with
-    probability ``keep``, drawn from ``generator``.  ``site`` names the draw
-    (see the module note) and does not change it."""
+    probability ``keep``, drawn from ``generator`` (for the global batch on
+    axis 0 inside ``row_shard_scope``).  ``site`` names the draw (see the
+    module note) and does not change it."""
     del site
-    probs = torch.full(tuple(shape), keep, device=device)
-    return torch.bernoulli(probs, generator=generator).bool()
+    rest = tuple(shape[1:])
+
+    def draw(rows: int) -> torch.Tensor:
+        return torch.bernoulli(torch.full((rows, *rest), keep, device=device), generator=generator).bool()
+
+    return shard_rows(draw, shape[0])
 
 
 def dropout(

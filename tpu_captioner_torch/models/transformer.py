@@ -71,6 +71,7 @@ from tpu_captioner_torch.models.layers import (
     layer_norm,
     merge_heads,
     pool_layer_scope,
+    shard_rows,
     split_heads,
 )
 from tpu_captioner_torch.ops import decode_step as decode_ops
@@ -80,8 +81,13 @@ def teacher_masks(
     generator: torch.Generator, steps: int, batch: int, prob: float, device
 ) -> torch.Tensor:
     """(steps, batch) bool: where scheduled sampling feeds the ground-truth
-    token instead of the model's last prediction, each with ``prob``."""
-    return (torch.rand(steps, batch, generator=generator, device=generator.device) < prob).to(device)
+    token instead of the model's last prediction, each with ``prob``; inside
+    ``models.layers.row_shard_scope`` this rank's columns of the global
+    batch's draw."""
+    def draw(rows: int) -> torch.Tensor:
+        return torch.rand(steps, rows, generator=generator, device=generator.device)
+
+    return (shard_rows(draw, batch, dim=1) < prob).to(device)
 
 
 def teacher_schedule(teacher_tokens, teacher_prob, generator, steps, batch, device):

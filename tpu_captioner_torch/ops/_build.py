@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -113,6 +113,25 @@ def refuse_autograd(what: str, tensors, todo: str) -> None:
             f"{what} is forward only: call it under torch.no_grad() or "
             f"torch.inference_mode(); its backward is {todo}"
         )
+
+
+def require_current_device(what: str, tensors, current: Optional[int] = None) -> None:
+    """Raise ``ValueError`` unless every CUDA tensor of ``tensors`` lies on
+    the current CUDA device (``current``, else ``torch.cuda.
+    current_device()``).  The kernels launch through ctypes on the runtime's
+    current device: a tensor on another card would fail late, or be read
+    and written from the wrong one."""
+    for t in tensors:
+        index = t.device.index if t.device.type == "cuda" else None
+        if index is None:
+            continue
+        if current is None:
+            current = torch.cuda.current_device()
+        if index != current:
+            raise ValueError(
+                f"{what}: a tensor on cuda:{index}, but the current device is cuda:{current}; "
+                f"call torch.cuda.set_device({index}) first (a data-parallel rank selects its card)"
+            )
 
 
 @functools.lru_cache(maxsize=None)

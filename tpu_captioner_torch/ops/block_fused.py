@@ -227,6 +227,7 @@ def _block_forward(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
     bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
         return _block_plain_bf16(*args) if bf16 else _block_plain(*args)
+    _build.require_current_device("fused_convnext_block", args)
     b, h, w, c = x.shape
     device = x.get_device()
     plan = _plan_on(device, b, h, w, c, x.element_size())

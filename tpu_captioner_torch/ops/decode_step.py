@@ -434,6 +434,7 @@ def fused_decode_step(
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_step runs on cpu or cuda tensors, got {x.device}")
     _check(w, x, pos, cache_k, cache_v, mem_k, mem_v, num_heads, dt)
+    _build.require_current_device("fused_decode_step", (x, cache_k, cache_v, mem_k, mem_v))
     L, R, T, E = cache_k.shape
     P = mem_k.shape[2]
     Fd = w.w_f1.shape[1]
@@ -616,6 +617,7 @@ def fused_full_rollout(
         )
     if mem_k.device.type != "cuda":
         raise ValueError(f"fused_full_rollout runs on cpu or cuda tensors, got {mem_k.device}")
+    _build.require_current_device("fused_full_rollout", (embedding, fc_w, fc_b, pe, mem_k, mem_v))
     L, R, P, E = mem_k.shape
     V = fc_w.shape[0]
     Fd = w.w_f1.shape[1]

@@ -102,6 +102,7 @@ def random_mask_pool(seed_words, n: int, keep: float, device="cuda") -> torch.Te
         raise ValueError(f"random_mask_pool runs on cpu or cuda, got {device}")
     thr = _check(seed_words, n, keep)
     out = torch.empty(int(n), dtype=torch.bool, device=device)
+    _build.require_current_device("random_mask_pool", (out,))
     if n == 0:
         return out
     if out.data_ptr() % 4:

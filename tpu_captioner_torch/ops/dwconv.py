@@ -306,6 +306,7 @@ def dwconv_forward(x: torch.Tensor, w: torch.Tensor, flip: bool = False,
     _check("dwconv_forward", x, w, "w", (K, K, x.shape[-1]), bias, _DTYPES)
     if x.device.type == "cpu":
         return _dw_plain(x, w.flip(0, 1) if flip else w, bias)
+    _build.require_current_device("dwconv_forward", (x, w))
     b, h, wd, c = x.shape
     plan = _plan_for("forward", x, w)
     lib = _lib()
@@ -334,6 +335,7 @@ def dwconv_filter_grad(x: torch.Tensor, g: torch.Tensor, bias_grad: bool = False
     _check("dwconv_filter_grad", x, g, "g", tuple(x.shape), None, _DTYPES)
     if x.device.type == "cpu":
         return _dw_grad_plain(x, g, bias_grad)
+    _build.require_current_device("dwconv_filter_grad", (x, g))
     b, h, w, c = x.shape
     bf16 = x.dtype == torch.bfloat16
     plan = _plan_for("wgrad", x, g)

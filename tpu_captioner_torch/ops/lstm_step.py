@@ -363,6 +363,7 @@ def fused_lstm_step(
     if emb.device.type != "cuda":
         raise ValueError(f"fused_lstm_step runs on cpu or cuda tensors, got {emb.device}")
     _check(w, emb, h, c, enc, att1, dt)
+    _build.require_current_device("fused_lstm_step", (emb, h, c, enc, att1))
     R = emb.shape[0]
     if R > MAX_ROWS:  # row slices at multiples of 160 stay 16-byte aligned
         parts = [fused_lstm_step(w, *(x[i:i + MAX_ROWS] for x in (emb, h, c, enc, att1)))

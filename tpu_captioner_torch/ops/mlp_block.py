@@ -215,6 +215,7 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
         "x": (x, (n, c)), "residual": (residual, (n, c)), "sd": (sd, (n,)),
         **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
     }, _BF16_IO if bf16 else ())
+    _build.require_current_device("fused_convnext_mlp", args)
     lib = _lib()
     sub = _pipeline_sub(n, c)
     launch = lib.tc_mlp_block_forward_bf16 if bf16 else lib.tc_mlp_block_forward
@@ -254,6 +255,7 @@ def fused_convnext_mlp_bwd(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
         "g": (g, (n, c)), "x": (x, (n, c)), "sd": (sd, (n,)),
         **_param_shapes(c, ln_w, ln_b, w1, b1, w2, b2, gamma),
     }, _BF16_BWD if bf16 else ())
+    _build.require_current_device("fused_convnext_mlp_bwd", args)
     lib = _bwd_lib()
     f32 = sd.new_empty
     outs = (

@@ -7,6 +7,9 @@ and ``meta.json`` with the JAX package's keys (epoch,
 ``epochs_since_improvement``, ``bleu4``, the per-epoch ``results`` rows and
 the experiment ``config``).  A new best BLEU-4 copies the directory to
 ``BEST_<name>``.  ``restore_checkpoint`` loads every tensor back bit for bit.
+Data parallel: rank 0 alone calls ``save_checkpoint`` while the other
+ranks wait for it at a barrier (``Trainer.run``), and every rank restores
+from the shared path.
 Reference ``.pth.tar`` files (weights only) load through
 ``models/from_jax.py:load_reference_checkpoint``.
 """

@@ -24,7 +24,19 @@ Loss and top-5 are token-weighted.  Each step's metrics stay on the device
 and are folded on the host every ``FOLD_EVERY`` steps and at the epoch's
 end, so a step adds no synchronise of its own; ``batch_time`` and
 ``data_time`` are host-clock times, as the JAX package's (the device runs
-behind the host).  One device only: more raises (ROADMAP.md Queue 1 #9).
+behind the host).
+
+Data parallel (``mesh``, a ``parallel.mesh.Mesh`` of N ranks, one process
+each; counterpart of the JAX Trainer over its ``'data'`` mesh): the global
+batch is ``batch_size * N``, each rank loads and steps on its rows, and
+loss and top-5 are global.  Validation gathers each batch's fixed-shape
+outputs to every rank, and rank 0 alone builds the corpora and scores BLEU,
+then broadcasts the four scores, so the early stop, the LR decay and the
+unlock, decided from them, stay in lock step.  Rank 0 alone writes the
+results CSV, the checkpoints (the other ranks wait at a barrier) and the
+trace, and prints; ``batch_time`` and ``data_time`` are each rank's own,
+and rank 0's are the ones reported.  The native host library is built when
+the Trainer is, not inside the first batch's ``data_time``.
 """
 
 from __future__ import annotations
@@ -41,13 +53,16 @@ import torch
 from tpu_captioner_torch.core import prng
 from tpu_captioner_torch.core.config import LSTM_DECODERS, ExperimentConfig
 from tpu_captioner_torch.data.dataset import CaptionDataset
-from tpu_captioner_torch.data.loader import DeviceLoader, resolve_num_devices
+from tpu_captioner_torch.data.loader import DeviceLoader
 from tpu_captioner_torch.data.vocab import load_word_map, special_ids
 from tpu_captioner_torch.eval.metrics import AverageMeter
 from tpu_captioner_torch.native.bleu_native import bleu_1_to_4
+from tpu_captioner_torch.native.lib import get_lib
+from tpu_captioner_torch.parallel.collectives import barrier, broadcast_scalar, gather_eval_outputs, is_coordinator
+from tpu_captioner_torch.parallel.mesh import Mesh, make_mesh
 from tpu_captioner_torch.train.checkpoint import checkpoint_name, restore_checkpoint, save_checkpoint
 from tpu_captioner_torch.train.model import CaptionModel
-from tpu_captioner_torch.train.state import TrainState, scale_lr
+from tpu_captioner_torch.train.state import TrainState, broadcast_parameters, scale_lr
 from tpu_captioner_torch.train.steps import make_eval_step, make_train_step
 
 FOLD_EVERY = 1024  # steps whose metrics wait on the device before a fold
@@ -135,11 +150,20 @@ class Trainer:
     # A directory for a torch.profiler trace of steps TRACE_STEPS of the
     # first epoch this Trainer runs (the JAX Trainer's profile_dir).
     profile_dir: Optional[str] = None
+    # This rank's place among the data-parallel ranks (None: the initialised
+    # process group's, else a world of one).
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         exp, tc = self.exp, self.exp.train
-        self.device = torch.device(self.device)
-        num_devices = resolve_num_devices(exp.num_devices, self.device)
+        if self.mesh is None:
+            self.mesh = make_mesh(exp.num_devices, self.device)
+        elif exp.num_devices not in (0, self.mesh.size):
+            raise ValueError(f"{exp.num_devices} devices asked for on a mesh of {self.mesh.size} ranks")
+        self.device = self.mesh.device
+        self.coordinator = is_coordinator(self.mesh)
+        self.verbose = self.verbose and self.coordinator
+        get_lib()  # the native BLEU and gather: built now, not in the first batch
         self.word_map = load_word_map(os.path.join(self.data_folder, f"WORDMAP_{self.data_name}.json"))
         self.word_ids = special_ids(self.word_map)
         exp.model.vocab_size = len(self.word_map)
@@ -153,7 +177,7 @@ class Trainer:
         self.model = CaptionModel(exp.model, device=self.device, seed=tc.seed, pretrained_embeddings=pretrained)
         if exp.model.pretrained_encoder:
             self._load_backbone(exp.model.pretrained_encoder)
-        self.state = TrainState.create(self.model, tc)
+        self.state = TrainState.create(self.model, tc, self.mesh)
 
         # Host bookkeeping (reference globals, train.py:47-57).
         self.start_epoch = 0
@@ -165,13 +189,14 @@ class Trainer:
         self._steps: Dict[Any, Any] = {}
         if tc.checkpoint:
             self.state, meta = restore_checkpoint(tc.checkpoint, self.state)
+            broadcast_parameters(self.model, self.mesh)
             self.start_epoch = meta["epoch"] + 1
             self.epochs_since_improvement = meta["epochs_since_improvement"]
             self.best_bleu4 = meta["bleu4"]
             self.results = meta.get("results", [])
             self.fine_tune_encoder = self.start_epoch > tc.fine_tune_epoch  # train.py:128-134
 
-        kw = dict(device=self.device, seed=tc.seed, num_devices=num_devices)
+        kw = dict(seed=tc.seed, mesh=self.mesh)
         self.train_loader = DeviceLoader(
             CaptionDataset(self.data_folder, self.data_name, "TRAIN"), tc.batch_size, shuffle=True, **kw
         )
@@ -215,13 +240,14 @@ class Trainer:
         key = (self.exp.train.teacher_forcing, self.fine_tune_encoder)
         if key not in self._steps:
             self._steps[key] = make_train_step(
-                self.model, self.exp.train, self.word_ids, teacher_forcing=key[0], train_encoder=key[1]
+                self.model, self.exp.train, self.word_ids, teacher_forcing=key[0], train_encoder=key[1],
+                mesh=self.mesh,
             )
         return self._steps[key]
 
     def _eval_step(self):
         if "eval" not in self._steps:
-            self._steps["eval"] = make_eval_step(self.model, self.exp.train, self.word_ids)
+            self._steps["eval"] = make_eval_step(self.model, self.exp.train, self.word_ids, mesh=self.mesh)
         return self._steps["eval"]
 
     # -- epochs -------------------------------------------------------------
@@ -235,7 +261,8 @@ class Trainer:
         start = time.time()
         for i, batch in enumerate(self.train_loader.epoch(epoch)):
             data_time.update(time.time() - start)
-            if self.profile_dir is not None and epoch == self.start_epoch and TRACE_STEPS[0] <= i <= TRACE_STEPS[1]:
+            if (self.profile_dir is not None and self.coordinator and epoch == self.start_epoch
+                    and TRACE_STEPS[0] <= i <= TRACE_STEPS[1]):
                 trace = self._trace_step(trace, i)
             self.state, metrics = step_fn(self.state, batch, prng.step_seed(self._root, "dropout", epoch, i))
             if trace is not None and i == TRACE_STEPS[1]:
@@ -287,22 +314,29 @@ class Trainer:
 
     def evaluate(self, loader: DeviceLoader, epoch: int = 0) -> Dict[str, float]:
         """Greedy free-running evaluation with BLEU (train.py:367-441
-        validate, test.py:144-215 test)."""
+        validate, test.py:144-215 test); under a mesh, ``loader`` holds
+        this rank's rows and BLEU is rank 0's score of every rank's,
+        broadcast."""
         eval_step = self._eval_step()
         sums = _TokenSums()
         references, hypotheses = [], []
         sid, pid = self.word_ids["<start>"], self.word_ids["<pad>"]
         for batch in loader.epoch(epoch):
             aux = eval_step(batch)
-            refs, hyps = build_references_and_hypotheses(
-                batch["all_captions"].cpu().numpy(), aux["sequences"].cpu().numpy(),
-                aux["lengths"].cpu().numpy(), batch["valid"].cpu().numpy(), sid, pid,
+            gathered = gather_eval_outputs(
+                aux["sequences"].cpu().numpy(), aux["lengths"].cpu().numpy(),
+                batch["all_captions"].cpu().numpy(), batch["valid"].cpu().numpy(), self.mesh,
             )
-            references.extend(refs)
-            hypotheses.extend(hyps)
+            if self.coordinator:
+                seqs, lengths, all_caps, valid = gathered
+                refs, hyps = build_references_and_hypotheses(all_caps, seqs, lengths, valid, sid, pid)
+                references.extend(refs)
+                hypotheses.extend(hyps)
             sums.add(aux)
         loss, top5 = sums.means()
-        b1, b2, b3, b4 = bleu_1_to_4(references, hypotheses)
+        scores = bleu_1_to_4(references, hypotheses) if self.coordinator else (0.0,) * 4
+        # The early stop, LR decay and unlock follow BLEU-4: every rank the same (trainMultiGPU.py:325).
+        b1, b2, b3, b4 = (broadcast_scalar(b, self.mesh) for b in scores)
         out = {"loss": loss, "top5": top5, "bleu1": b1, "bleu2": b2, "bleu3": b3, "bleu4": b4}
         if self.verbose:
             print(f"Eval: Loss = {loss:.4f}, Top-5 = {top5:.4f}, B1 = {b1:.4f}, B2 = {b2:.4f}, "
@@ -345,19 +379,22 @@ class Trainer:
                 self.epochs_since_improvement += 1
                 if self.verbose:
                     print(f"\nEpochs since last improvement: {self.epochs_since_improvement}\n", flush=True)
-            save_checkpoint(
-                tc.checkpoint_dir, self.checkpoint_name(), self.state,
-                {
-                    "epoch": epoch,
-                    "epochs_since_improvement": self.epochs_since_improvement,
-                    "bleu4": val["bleu4"],
-                    "results": self.results,
-                    # Self-describing: a consumer rebuilds the model from it.
-                    "config": dataclasses.asdict(self.exp),
-                },
-                is_best=is_best,
-            )
-        self.write_results_csv()
+            if self.coordinator:  # the other ranks wait at the barrier
+                save_checkpoint(
+                    tc.checkpoint_dir, self.checkpoint_name(), self.state,
+                    {
+                        "epoch": epoch,
+                        "epochs_since_improvement": self.epochs_since_improvement,
+                        "bleu4": val["bleu4"],
+                        "results": self.results,
+                        # Self-describing: a consumer rebuilds the model from it.
+                        "config": dataclasses.asdict(self.exp),
+                    },
+                    is_best=is_best,
+                )
+            barrier(self.mesh)
+        if self.coordinator:
+            self.write_results_csv()
         return self.results
 
     def write_results_csv(self) -> Optional[str]:

@@ -13,17 +13,23 @@ The reference's semantics (train.py:110-174, utils/utils.py:183-236):
 moments, divide by the bias corrections 1 - b^t and add eps outside the
 square root.  Only float rounding differs.  Unlike the JAX state, this one
 is updated in place.
+
+Data parallel: every rank holds a whole copy; ``TrainState.create`` and
+``broadcast_parameters`` after a restore give every rank rank 0's weights,
+so ranks cannot start apart, and the summed gradients keep them together.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
 from tpu_captioner_torch.core.config import TrainConfig
+from tpu_captioner_torch.parallel.collectives import broadcast_tensors
+from tpu_captioner_torch.parallel.mesh import Mesh
 
 
 def make_optimizer(params: Iterable[torch.Tensor], lr: float) -> torch.optim.Adam:
@@ -56,6 +62,11 @@ def zero_frozen(module: nn.Module, trainable: Mapping[str, bool]) -> None:
             p.grad.zero_()
 
 
+def broadcast_parameters(model: nn.Module, mesh: Optional[Mesh]) -> None:
+    """Rank 0's parameters and buffers on every rank of ``mesh``, in place."""
+    broadcast_tensors(model.state_dict().values(), mesh)
+
+
 @dataclass
 class TrainState:
     """The model, both optimizers and the count of steps taken."""
@@ -66,7 +77,9 @@ class TrainState:
     step: int = 0
 
     @classmethod
-    def create(cls, model: nn.Module, cfg: TrainConfig) -> "TrainState":
+    def create(cls, model: nn.Module, cfg: TrainConfig, mesh: Optional[Mesh] = None) -> "TrainState":
+        """Fresh Adams over ``model``, whose weights become rank 0's."""
+        broadcast_parameters(model, mesh)
         return cls(
             model,
             make_optimizer(model.decoder.parameters(), cfg.decoder_lr),
