@@ -258,9 +258,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    parameters 1e-2 x lr), then a two-rank Trainer epoch on phase 10's
    records (one CSV row, one checkpoint tree, BLEU equal to the one-process
    corpus') and a resume that loads on both ranks; each rank's peak memory.
+17. the MLP tail's ``precise=False`` arm, bf16 products on bf16 wgmma
+   (``bf16_products_phase``), which no model path reaches: (a) its four
+   forward instances (the whole tile and ``TPU_CAPTIONER_MLP_SUB=64``'s
+   sub-tiled kernel, f32 and bf16 data) at the four ConvNeXt-Base stage
+   shapes at batch 8 and 32 with per-image stochastic-depth scales, against
+   the plain version (f32 data in mean and at its largest, bf16 data within
+   one ulp, sd-0 rows the residual bit for bit) and more than ten times the
+   tolerance apart from the precise=True instance, each launch on its own
+   counter; (b) its two backward instances at the fine-tune step's shapes
+   and at a ragged N = 600, all nine outputs against the plain version, d_x
+   zero on sd-0 rows, two calls bit for bit; device times by CUDA-graph
+   replay per bs-32 encoder pass and per fine-tune step beside the plain
+   version and the precise=True instance.
 
 The line before the last is a JSON object of the kernels (route, source, the
-TPU kernel each replaces, launches on the main paths, on the training
+TPU kernel each replaces, launches on the main paths (0 for the
+``precise=False`` arm's six instances, ``*_bf16_products*``), on the training
 path, phase 10's or for the bf16 instances phase 12c's, 13d's or 14's, and
 on the data-parallel path, phase 16a's, max error,
 times and bounds; the bf16 instances as entries of their own, ``*_bf16``);
@@ -2440,6 +2454,7 @@ def kernel_counts():
         "decode_rollout_bf16": fused_full_rollout.bf16_launches,
         "block_fused_bf16": fused_convnext_block.bf16_launches,
         "mlp_block_pipelined_bf16": fused_convnext_mlp.pipelined_bf16_launches,
+        **bf16_products_counts(),
     }
 
 
@@ -2456,6 +2471,7 @@ def zero_kernel_counts():
     fused_decode_step.onecell_bf16_launches = fused_full_rollout.bf16_launches = 0
     fused_convnext_mlp.bf16_launches = depthwise_conv7x7_nhwc.bf16_launches = fused_decode_step.bf16_launches = 0
     fused_convnext_mlp_bwd.bf16_launches = depthwise_conv7x7_nhwc.bf16_grad_launches = 0
+    zero_bf16_products_counts()
 
 
 def count_delta(before, after, names=("dropout_mask", "mlp_block", "mlp_block_bwd", "dwconv", "dwconv_grad")):
@@ -2910,14 +2926,18 @@ def plain_versions(decode_sums=None, encoder_sums=None, encoder=True):
     bf = torch.bfloat16
     wide = encoder_sums is not None  # the bf16 plain versions with their sums in encoder_sums
 
-    def mlp(*args):
+    def mlp(*args, precise=True):
+        if not precise:
+            return mlp_block._mlp_plain_bf16_products(*args)
         if args[0].dtype != bf:
             return mlp_block._mlp_plain(*args)
         if not wide:
             return mlp_block._mlp_plain_bf16(*args)
         return mlp_block._mlp_plain(*(t.to(encoder_sums) for t in args)).to(bf)
 
-    def mlp_bwd(*args):
+    def mlp_bwd(*args, precise=True):
+        if not precise:
+            return mlp_block._mlp_bwd_plain_bf16_products(*args)
         if not wide:
             return (mlp_block._mlp_bwd_plain_bf16 if args[1].dtype == bf else mlp_block._mlp_bwd_plain)(*args)
         # bf16 x, or (the bf16 'block' backward) f32 x and weights widened from bf16.
@@ -5453,6 +5473,229 @@ def two_ranks_phase(card, seed, ds):
     print(f"phase 16b took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 17: the MLP tail's precise=False arm (bf16 products: each product's
+# operands rounded to bf16, the exact products summed in f32), the TPU
+# kernels with mxu_dtype=bfloat16, against its plain versions.  Kernel and
+# plain version compute LayerNorm's statistics and the f32 sums in other
+# orders, so an operand an f32 ulp apart now and then rounds to the
+# neighbouring bf16 value and moves its row's outputs by up to an operand
+# ulp times a weight column (PERF.md section 6).  So, over the rows with sd !=
+# 0, the forward on f32 data is held in mean to BF16P_MEAN_TOL times the
+# mean magnitude of the MLP branch (|plain - residual|) and at its largest
+# to BF16P_MAX_TOL x max(1, max |plain|); on bf16 data every element within
+# one bf16 ulp of the plain value; rows with sd 0 the residual bit for bit.
+# Each output must lie more than BF16P_SEPARATION x BF16P_MEAN_TOL (the same
+# measure) from the precise=True kernel's output on the same inputs.  The
+# backward's nine outputs within BF16P_BWD_TOL x max(1, max |plain|) at their
+# largest (a bf16 d_x one ulp apart is up to 2^-7 of the largest value) and
+# BF16P_BWD_MEAN_TOL of that in mean (bf16 d_x aside: its own rounding is
+# 2^-9 relative).  tests/test_torch_kernels_gpu.py holds the
+# same rules.
+BF16P_MEAN_TOL, BF16P_MAX_TOL, BF16P_SEPARATION = 5e-5, 1e-2, 10
+BF16P_BWD_TOL, BF16P_BWD_MEAN_TOL = 1e-2, 5e-5
+BF16P_FORWARD = {  # kernels-line name: (TPU_CAPTIONER_MLP_SUB, bf16 data)
+    "mlp_block_bf16_products": (None, False), "mlp_block_bf16_products_bf16": (None, True),
+    "mlp_block_pipelined_bf16_products": (PIPE_SUB, False),
+    "mlp_block_pipelined_bf16_products_bf16": (PIPE_SUB, True),
+}
+BF16P_BACKWARD = {"mlp_block_bwd_bf16_products": False, "mlp_block_bwd_bf16_products_bf16": True}
+
+
+def bf16_products_counts():
+    """The arm's launches by the name of its kernels-line entry."""
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp as f, fused_convnext_mlp_bwd as b
+
+    whole_bf16 = f.bf16_product_bf16_launches - f.pipelined_bf16_product_bf16_launches
+    return {
+        "mlp_block_bf16_products": f.bf16_product_launches - f.pipelined_bf16_product_launches - whole_bf16,
+        "mlp_block_bf16_products_bf16": whole_bf16,
+        "mlp_block_pipelined_bf16_products": f.pipelined_bf16_product_launches - f.pipelined_bf16_product_bf16_launches,
+        "mlp_block_pipelined_bf16_products_bf16": f.pipelined_bf16_product_bf16_launches,
+        "mlp_block_bwd_bf16_products": b.bf16_product_launches - b.bf16_product_bf16_launches,
+        "mlp_block_bwd_bf16_products_bf16": b.bf16_product_bf16_launches,
+    }
+
+
+def zero_bf16_products_counts():
+    from tpu_captioner_torch.ops.mlp_block import fused_convnext_mlp as f, fused_convnext_mlp_bwd as b
+
+    f.bf16_product_launches = f.pipelined_bf16_product_launches = 0
+    f.bf16_product_bf16_launches = f.pipelined_bf16_product_bf16_launches = 0
+    b.bf16_product_launches = b.bf16_product_bf16_launches = 0
+
+
+def bf16_products_forward(dev, card):
+    """Phase 17a: the arm's four forward instances (the whole tile and the
+    sub-tiled kernel, f32 and bf16 data) against ``_mlp_plain_bf16_products``
+    at the four ConvNeXt-Base stage shapes at batch 8 and 32, with each
+    stage's per-image scales (0 or 1/survival at its last block's ramped
+    rate, as ``check_mlp`` draws them), by the rules above; each call's
+    launch counted on its instance's counter alone.  Device times by
+    CUDA-graph replay per launch at batch 32, summed over a bs-32 encoder
+    pass (36 launches), beside the plain version and the precise=True
+    instance on the same inputs.  Returns {name: (worst abs error, ms,
+    plain ms, None, bound ms, bound by)}."""
+    import torch
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS, sd_probs
+    from tpu_captioner_torch.ops.mlp_block import _mlp_plain_bf16_products, fused_convnext_mlp
+
+    probs = sd_probs(BASE_DEPTHS)
+    acc = {k: [0.0, 0.0, 0.0, 0.0, 0, 0] for k in BF16P_FORWARD}  # err, ms, plain, precise, bytes, ops
+    plain_ms = {}
+    for s, (depth, c) in enumerate(zip(BASE_DEPTHS, BASE_DIMS)):
+        g = torch.Generator().manual_seed(1700 + c)
+        params = _stage_params(c, g, dev)
+        survival = 1.0 - probs[sum(BASE_DEPTHS[: s + 1]) - 1]  # the stage's last block
+        for batch in (8, TRAIN_BS):
+            n = batch * (64 >> s) ** 2
+            keep = torch.rand(batch, generator=g) < survival
+            keep[0], keep[1] = False, True  # one image dropped, one kept
+            sd = (keep / survival).repeat_interleave(n // batch).to(dev)
+            x, res = torch.randn(n, c, generator=g).to(dev), torch.randn(n, c, generator=g).to(dev)
+            kept = sd != 0
+            for name, (sub, bf16) in BF16P_FORWARD.items():
+                dt = torch.bfloat16 if bf16 else torch.float32
+                ln_w, ln_b, w1, b1, w2, b2, gamma = params
+                args = (x.to(dt), res.to(dt), sd, ln_w, ln_b, w1.to(dt), b1, w2.to(dt), b2, gamma)
+                want = _mlp_plain_bf16_products(*args)
+                with mlp_sub(sub):
+                    before = bf16_products_counts()
+                    got = fused_convnext_mlp(*args, precise=False)
+                    torch.cuda.synchronize()
+                    delta = {k: v - before[k] for k, v in bf16_products_counts().items()}
+                    precise = fused_convnext_mlp(*args)
+                if delta != {k: int(k == name) for k in delta}:
+                    raise AssertionError(f"phase 17a {name} at C={c}, N={n}: launches {delta}")
+                g32, w32, r32 = got[kept].float(), want[kept].float(), args[1][kept].float()
+                branch = (w32 - r32).abs().mean().item()
+                diff = (g32 - w32).abs()
+                err, mean_rel = diff.max().item(), diff.mean().item() / branch
+                apart = (g32 - precise[kept].float()).abs().mean().item() / branch
+                if bf16:
+                    ok = bf16_ulp_err(got, want)[1] <= 1.0
+                else:
+                    ok = mean_rel <= BF16P_MEAN_TOL and err <= BF16P_MAX_TOL * max(1.0, w32.abs().max().item())
+                if not (ok and got.dtype == dt and torch.isfinite(got).all()
+                        and torch.equal(got[~kept], args[1][~kept]) and apart > BF16P_SEPARATION * BF16P_MEAN_TOL):
+                    raise AssertionError(
+                        f"phase 17a {name} at C={c}, N={n}: max abs err {err:.3e}, mean / branch {mean_rel:.3e} "
+                        f"(tol {BF16P_MEAN_TOL:g}), {bf16_ulp_err(got, want)[1] if bf16 else 0:.2f} ulp, apart from "
+                        f"precise=True by {apart:.3e} (must exceed {BF16P_SEPARATION * BF16P_MEAN_TOL:g})")
+                line = (f"phase 17a {name} batch {batch} C={c} N={n}: max abs err {err:.3e}, mean err / branch "
+                        f"{mean_rel:.3e}, precise=True apart by {apart:.3e} of the branch")
+                a = acc[name]
+                a[0] = max(a[0], err)
+                if batch == TRAIN_BS:
+                    with mlp_sub(sub):
+                        t_kernel = _graph_ms(lambda: fused_convnext_mlp(*args, precise=False), iters=10)
+                        t_precise = _graph_ms(lambda: fused_convnext_mlp(*args), iters=10)
+                    if (c, bf16) not in plain_ms:
+                        plain_ms[c, bf16] = _graph_ms(lambda: _mlp_plain_bf16_products(*args), iters=3, warmup=1)
+                    t_plain = plain_ms[c, bf16]
+                    esize = 2 if bf16 else 4
+                    for i, t in enumerate((t_kernel, t_plain, t_precise)):
+                        a[1 + i] += depth * t
+                    # x, residual and out, the matrices in the data's dtype;
+                    # sd and the vectors f32; two N x C x 4C products.
+                    a[4] += depth * (esize * (3 * n * c + 8 * c * c) + 4 * (n + 8 * c))
+                    a[5] += depth * 16 * n * c * c
+                    line += f"; kernel {t_kernel:.4f} ms, plain {t_plain:.4f}, precise=True {t_precise:.4f} per launch"
+                print(line + f" [{card}]")
+    out = {}
+    for name, (err, ms, plain, precise_ms, n_bytes, n_ops) in acc.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        print(f"phase 17a {name} per bs-{TRAIN_BS} encoder pass (36 launches): kernel {ms:.4f} ms, plain {plain:.4f} "
+              f"ms, precise=True instance {precise_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{bound_ms / ms:.1%} of it) [{card}]")
+        out[name] = (err, ms, plain, None, bound_ms, bound_by)
+    return out
+
+
+def bf16_products_backward(dev, card):
+    """Phase 17b: the arm's two backward instances (f32 and bf16 data)
+    against ``_mlp_bwd_plain_bf16_products`` at the fine-tune step's two
+    trainable stages at batch 32 (sd rows of 0 and 1/survival) and at a
+    ragged N = 600, C = 128 (per-row sd), by the rules above; d_x zero on
+    rows with sd 0, the same bits twice.  Times by CUDA-graph replay per
+    fine-tune step (27 + 3 launches) beside the plain version and the
+    precise=True instance.  Returns {name: (worst abs error, ms, plain ms,
+    None, bound ms, bound by)}."""
+    import torch
+
+    from tpu_captioner_torch.models.convnext import BASE_DEPTHS, BASE_DIMS, sd_probs
+    from tpu_captioner_torch.ops.mlp_block import _mlp_bwd_plain_bf16_products, fused_convnext_mlp_bwd
+
+    probs = sd_probs(BASE_DEPTHS)
+    out = {}
+    for name, bf16 in BF16P_BACKWARD.items():
+        dt = torch.bfloat16 if bf16 else torch.float32
+        worst, ms, plain_ms, precise_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+        for s, n in ((2, TRAIN_BS * 16 * 16), (3, TRAIN_BS * 8 * 8), (0, 600)):
+            c = BASE_DIMS[s]
+            g = torch.Generator().manual_seed(1701 + c)
+            ln_w, ln_b, w1, b1, w2, b2, gamma = _stage_params(c, g, dev)
+            survival = 1.0 - probs[sum(BASE_DEPTHS[: s + 1]) - 1]
+            units = TRAIN_BS if n % TRAIN_BS == 0 else n
+            keep = torch.rand(units, generator=g) < survival
+            keep[0], keep[1] = False, True
+            sd = (keep / survival).repeat_interleave(n // units).to(dev)
+            args = (torch.randn(n, c, generator=g).to(dev, dt), torch.randn(n, c, generator=g).to(dev, dt), sd,
+                    ln_w, ln_b, w1.to(dt), b1, w2.to(dt), b2, gamma)
+            before = bf16_products_counts()
+            got = fused_convnext_mlp_bwd(*args, precise=False)
+            again = fused_convnext_mlp_bwd(*args, precise=False)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in bf16_products_counts().items()}
+            if delta != {k: 2 * int(k == name) for k in delta}:
+                raise AssertionError(f"phase 17b {name} at C={c}, N={n}: launches {delta}")
+            want = _mlp_bwd_plain_bf16_products(*args)
+            errs, rels = [], []
+            for i, (a, b) in enumerate(zip(got, want)):
+                diff, scale = (a.float() - b.float()).abs(), max(1.0, b.abs().max().item())
+                errs.append(diff.max().item())
+                rels.append(diff.max().item() / scale)
+                mean_ok = (i == 0 and bf16) or diff.mean().item() <= BF16P_BWD_MEAN_TOL * scale
+                if not (a.dtype == b.dtype and torch.isfinite(a).all() and rels[-1] <= BF16P_BWD_TOL and mean_ok):
+                    raise AssertionError(f"phase 17b {name} output {i} at C={c}, N={n}: max err / max(1, max |plain|) "
+                                         f"{rels[-1]:.3e}, mean {diff.mean().item() / scale:.3e}")
+            if not (torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
+                    and all(torch.equal(a, b) for a, b in zip(got, again))):
+                raise AssertionError(f"phase 17b {name} at C={c}, N={n}: d_x nonzero on sd-0 rows, or two calls differ")
+            worst = max(worst, *errs)
+            line = (f"phase 17b {name} C={c} N={n}: max abs err {max(errs):.3e}, max err / max(1, max |plain|) "
+                    f"{max(rels):.3e} (tol {BF16P_BWD_TOL:g}; by output " + " ".join(f"{r:.1e}" for r in rels) + ")")
+            if n % TRAIN_BS == 0:  # a fine-tune stage: depth launches per step
+                depth = BASE_DEPTHS[s]
+                t = (_graph_ms(lambda: fused_convnext_mlp_bwd(*args, precise=False), iters=5),
+                     _graph_ms(lambda: _mlp_bwd_plain_bf16_products(*args), iters=3, warmup=1),
+                     _graph_ms(lambda: fused_convnext_mlp_bwd(*args), iters=5))
+                ms, plain_ms, precise_ms = ms + depth * t[0], plain_ms + depth * t[1], precise_ms + depth * t[2]
+                esize = 2 if bf16 else 4
+                # g, x and d_x, the matrices in the data's dtype; sd, d_sd,
+                # the vectors and the gradients of all seven parameters f32;
+                # 48 N C^2 flops (csrc/mlp_block_bwd.cu).
+                n_bytes += depth * (esize * (3 * n * c + 8 * c * c) + 4 * (2 * n + 8 * c * c + 16 * c))
+                n_ops += depth * 48 * n * c * c
+                line += f"; kernel {t[0]:.4f} ms, plain {t[1]:.4f}, precise=True {t[2]:.4f} per launch"
+            print(line + f" [{card}]")
+        bound_ms, bound_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        print(f"phase 17b {name} per fine-tune step (27 + 3 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"precise=True instance {precise_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{bound_ms / ms:.1%} of it) [{card}]")
+        out[name] = (worst, ms, plain_ms, None, bound_ms, bound_by)
+    return out
+
+
+def bf16_products_phase(dev, card):
+    """Phase 17: 17a and 17b; {name: (worst abs error, ms, plain ms, None,
+    bound ms, bound by)} of the six instances."""
+    t17 = time.perf_counter()
+    out = {**bf16_products_forward(dev, card), **bf16_products_backward(dev, card)}
+    print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    return out
+
+
 def np_isfinite(a):
     import numpy as np
 
@@ -5553,9 +5796,11 @@ def main(argv=None):
 
     served.decoder.embed = counted_embed
     fused_convnext_mlp.launches = fused_decode_step.launches = depthwise_conv7x7_nhwc.launches = 0
+    zero_bf16_products_counts()
     got = caption_batch(served, images8.numpy(), word_map, BEAM)
     torch.cuda.synchronize()
     mlp_launches, dec_launches = fused_convnext_mlp.launches, fused_decode_step.launches
+    bf16p_launches = bf16_products_counts()  # the precise=False arm: no model path reaches it
     del served.decoder.embed
     print(f"main path: {mlp_launches} mlp_block and {depthwise_conv7x7_nhwc.launches} dwconv launches "
           f"(1 encoder pass), {dec_launches} decode_step launches over {steps[0]} tokens x {cfg.num_layers} layers")
@@ -5698,6 +5943,11 @@ def main(argv=None):
     keep.cleanup()
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
+    # 17. The MLP tail's precise=False arm (bf16 products): the six
+    # instances against their plain versions and the precise=True ones.
+    torch.cuda.empty_cache()
+    bf16p = bf16_products_phase(dev, card)
+
     # mlp_block's launches: one serving encoder pass; the train and eval
     # paths' 36 per step were checked in phases 5 to 7.  dropout_mask's: one
     # per train step.  mlp_block_bwd's, dwconv's and dwconv_grad's: one
@@ -5795,6 +6045,20 @@ def main(argv=None):
               ("block_fused_bf16", "block_fused.cu", "tpu_captioner/ops/block_fused.py:53", block_bf16_launches),
               ("mlp_block_pipelined_bf16", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:145",
                pipe_bf16_launches))),
+        # The precise=False arm (phase 17): launches on phase 4's serving
+        # run (no model path passes precise=False: 0); times per bs-32
+        # encoder pass (17a) and per fine-tune step (17b).
+        *({"name": name, "route": "cuda", "source": f"tpu_captioner_torch/csrc/{source}", "replaces": replaces,
+           "launches": bf16p_launches[name], "max_abs_err": bf16p[name][0], "ms": bf16p[name][1],
+           "plain_ms": bf16p[name][2], "bound_ms": bf16p[name][4], "bound_by": bf16p[name][5],
+           "library_ms": bf16p[name][3]}
+          for name, source, replaces in (
+              ("mlp_block_bf16_products", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:126"),
+              ("mlp_block_bf16_products_bf16", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:126"),
+              ("mlp_block_pipelined_bf16_products", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:145"),
+              ("mlp_block_pipelined_bf16_products_bf16", "mlp_block.cu", "tpu_captioner/ops/mlp_block.py:145"),
+              ("mlp_block_bwd_bf16_products", "mlp_block_bwd.cu", "tpu_captioner/ops/mlp_block.py:275"),
+              ("mlp_block_bwd_bf16_products_bf16", "mlp_block_bwd.cu", "tpu_captioner/ops/mlp_block.py:275"))),
     ]
     # The training path of the bf16 instances of phases 11-12 is phase 12c's
     # (the bf16 Transformer), of the bf16 decoder instances phase 13d's

@@ -120,7 +120,9 @@ from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, _lstm_step_plain,
 from tpu_captioner_torch.ops.mlp_block import (
     SUPPORTED_C,
     _mlp_bwd_plain,
+    _mlp_bwd_plain_bf16_products,
     _mlp_plain,
+    _mlp_plain_bf16_products,
     _pipeline_sub,
     fused_convnext_mlp,
     fused_convnext_mlp_bwd,
@@ -221,6 +223,110 @@ def test_tensor_core_mlp_backward_at_ragged_rows(cuda, c, scale):
     assert (sd == 0).any() and torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
     again = fused_convnext_mlp_bwd(*args)  # no atomics: the same bits
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The precise=False arm (bf16 products) against its plain versions.  Kernel
+# and plain version compute LayerNorm's statistics and the products' f32
+# sums in other orders, so an operand an f32 ulp apart now and then rounds to
+# the neighbouring bf16 value, which moves its row's outputs by up to an
+# operand ulp times a weight column.  So the forward on f32 data is held,
+# over the rows with sd != 0, in mean to BF16P_MEAN_TOL times the mean
+# magnitude of the MLP branch (|plain - residual|), and at its largest to
+# BF16P_MAX_TOL x max(1, max |plain|); on bf16 data every element within one
+# bf16 ulp of the plain value; rows with sd 0 the residual bit for bit.  It
+# must lie more than 10 x BF16P_MEAN_TOL (same measure) from the
+# precise=True kernel on the same inputs.  The backward's nine outputs
+# within BF16P_BWD_TOL x max(1, max |plain|) at their largest (a bf16 d_x
+# one ulp apart is up to 2^-7 of the largest value), and in mean within
+# BF16P_BWD_MEAN_TOL of that (bf16 d_x aside: its own rounding is 2^-9
+# relative).
+BF16P_MEAN_TOL, BF16P_MAX_TOL, BF16P_BWD_TOL, BF16P_BWD_MEAN_TOL = 5e-5, 1e-2, 1e-2, 5e-5
+
+
+def bf16_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of want (at least 2^-8)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -8))) - 7).clamp_min(2.0 ** -8)
+    return ((got - want).abs() / ulp).max().item()
+
+
+def bf16_product_args(n, c, device, dtype, seed):
+    args = list(mlp_args(n, c, device, seed=seed, sd="mixed"))
+    if dtype == torch.bfloat16:
+        for i in (0, 1, 5, 7):
+            args[i] = args[i].to(dtype)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("c", SUPPORTED_C)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sub", [0, 64])
+def test_bf16_product_forward_matches_plain(cuda, monkeypatch, c, dtype, sub):
+    if sub:
+        monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", str(sub))
+    else:
+        monkeypatch.delenv("TPU_CAPTIONER_MLP_SUB", raising=False)
+    args = bf16_product_args(TC_ROWS[c], c, cuda, dtype, seed=c + 5)
+    names = ("launches", "bf16_product_launches", "pipelined_bf16_product_launches", "bf16_product_bf16_launches",
+             "pipelined_bf16_product_bf16_launches", "pipelined_launches", "bf16_launches")
+    before = [getattr(fused_convnext_mlp, k) for k in names]
+    got = fused_convnext_mlp(*args, precise=False)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert [getattr(fused_convnext_mlp, k) - b for k, b in zip(names, before)] == [
+        1, 1, int(bool(sub)), int(bf16), int(bool(sub) and bf16), 0, 0]
+    want = _mlp_plain_bf16_products(*args)
+    res, sd = args[1], args[2]
+    kept = sd != 0
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (~kept).any() and torch.equal(got[~kept], res[~kept])  # sd 0: the residual, bit for bit
+    g, w, r = got[kept].float(), want[kept].float(), res[kept].float()
+    branch = (w - r).abs().mean().item()
+    if bf16:
+        assert bf16_ulps(g, w) <= 1.0
+    else:
+        assert (g - w).abs().mean().item() <= BF16P_MEAN_TOL * branch
+        assert (g - w).abs().max().item() <= BF16P_MAX_TOL * max(1.0, w.abs().max().item())
+    precise = fused_convnext_mlp(*args)
+    assert (g - precise[kept].float()).abs().mean().item() > 10 * BF16P_MEAN_TOL * branch
+
+
+@pytest.mark.parametrize("c", SUPPORTED_C)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_product_backward_matches_plain(cuda, c, dtype):
+    n = TC_ROWS[c]
+    x, _, sd, *params = bf16_product_args(n, c, cuda, dtype, seed=n + c)
+    g = torch.randn(n, c, generator=torch.Generator().manual_seed(c + 7)).to(cuda).to(dtype)
+    before = fused_convnext_mlp_bwd.launches, fused_convnext_mlp_bwd.bf16_product_launches
+    got = fused_convnext_mlp_bwd(g, x, sd, *params, precise=False)
+    torch.cuda.synchronize()
+    assert (fused_convnext_mlp_bwd.launches, fused_convnext_mlp_bwd.bf16_product_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _mlp_bwd_plain_bf16_products(g, x, sd, *params)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.isfinite(a).all(), i
+        err, scale = (a.float() - b.float()).abs(), max(1.0, b.abs().max().item())
+        assert err.max().item() <= BF16P_BWD_TOL * scale, i
+        if not (i == 0 and dtype == torch.bfloat16):
+            assert err.mean().item() <= BF16P_BWD_MEAN_TOL * scale, i
+    assert (sd == 0).any() and torch.equal(got[0][sd == 0], torch.zeros_like(got[0][sd == 0]))
+    again = fused_convnext_mlp_bwd(g, x, sd, *params, precise=False)  # no atomics: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bf16_product_autograd_launches_the_arm(cuda):
+    """Autograd through ``fused_convnext_mlp(..., precise=False)`` launches
+    the arm's forward and backward instances and none of the others'."""
+    c = 256
+    leaves = [a.clone().requires_grad_() for a in bf16_product_args(300, c, cuda, torch.float32, seed=1)]
+    counts = lambda: (fused_convnext_mlp.bf16_product_launches, fused_convnext_mlp_bwd.bf16_product_launches,  # noqa: E731
+                      fused_convnext_mlp_bwd.launches)
+    before = counts()
+    out = fused_convnext_mlp(*leaves, precise=False)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1]
+    want = _mlp_bwd_plain_bf16_products(torch.ones_like(out), leaves[0].detach(), *(a.detach() for a in leaves[2:]))
+    assert (leaves[0].grad - want[0]).abs().max().item() <= BF16P_BWD_TOL * max(1.0, want[0].abs().max().item())
 
 
 def decode_args(L, R, T, P, E, H, Fd, pos, device, seed=0):

@@ -426,6 +426,19 @@ def test_mlp_tensor_core_sources_have_no_fallback(cpu_only):
     header = (_build.CSRC / "tf32x3_gemm.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in header
     assert "cvt.rna.tf32.f32" in header and "cp.async.bulk.tensor" in header
+    # The precise=False arm: the whole tile's and the backward's products on
+    # the bf16 wgmma GEMM, fed by TMA.
+    for name, entry in (("mlp_block", "tc_mlp_block_forward_bf16_products("),
+                        ("mlp_block_bwd", "tc_mlp_block_backward_bf16_products(")):
+        sources = {p.name: text.decode() for p, text in _build._sources(_build.CSRC / f"{name}.cu", {}).items()}
+        assert "bf16_gemm.cuh" in sources and entry in sources[f"{name}.cu"], name
+    bf16_header = (_build.CSRC / "bf16_gemm.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in bf16_header
+    assert "tma_load_2d(" in bf16_header and "CU_TENSOR_MAP_DATA_TYPE_BFLOAT16" in bf16_header
+    assert "bf16mm::gemm(xo, w1o" in (_build.CSRC / "mlp_block.cu").read_text()
+    bwd = (_build.CSRC / "mlp_block_bwd.cu").read_text()
+    body = bwd[bwd.index("int backward_bf16("):bwd.index("int backward_bf16_any(")]
+    assert body.count("TC_TRY(gemm(") == 6 and "using bf16mm::gemm;" in body and "tf32x3" not in body
     for path in _build.CSRC.iterdir():
         assert "cublas" not in path.read_text().lower(), path.name
     for fn in (mlp_block._mlp_forward, mlp_block.fused_convnext_mlp_bwd):
@@ -461,6 +474,14 @@ def test_mlp_sub_tiled_source_keeps_h_on_chip_and_has_no_fallback(cpu_only):
                  "mapa.shared::cluster", "setmaxnreg.inc", "cudaOccupancyMaxActiveClusters"):
         assert call in body, call
     assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in sources["tf32x3_gemm.cuh"]
+    # The precise=False instance (kBP): A from registers on bf16 wgmma, the
+    # chunk of h exchanged as one bf16 plane through the peers' shared
+    # memory, W1 unfolded (ln_w and ln_b applied in the prologue).
+    for call in ("fused_kernel<C, NC, T, true>", "bf16mm::wgmma_rs<JCB>(", "st_shared_b32<(S > 1)>(hdst[r]",
+                 "st.shared::cluster.b32", "bf16mm::wgmma_ss128(", "prep_w1_bf16<C, T>"):
+        assert call in body, call
+    for n in (64, 32, 16):  # the register form at every JCB
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" in sources["bf16_gemm.cuh"]
     for fn in (mlp_block._pipeline_sub, mlp_block._mlp_forward, mlp_block._lib):
         assert "except" not in inspect.getsource(fn), fn.__name__
 

@@ -1,4 +1,5 @@
-// Fused ConvNeXt block tail, forward, f32 and bf16, for Hopper (sm_90a).
+// Fused ConvNeXt block tail, forward, f32 and bf16, both precise arms, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernels tpu_captioner/ops/mlp_block.py:_kernel (SUB = 0)
 // and _kernel_pipelined (SUB = 64), both launched by _fused_pallas under
@@ -110,9 +111,35 @@
 //   the bf16 residual and rounds once.  The ring, the h buffers and the
 //   tiles are the f32 instance's (a bf16 slab uses half its region).
 // Half the bytes of x, the residual and the output.
+//
+// The precise=False arm (tc_mlp_block_forward_bf16_products): the same TPU
+// kernels with mxu_dtype=bfloat16, on f32 or bf16 data: each product's two
+// operands rounded to bf16, bf16(LN(x) * ln_w + ln_b) . bf16(W1) and
+// bf16(gelu(a)) . bf16(W2), the exact products summed in f32 on bf16 wgmma
+// (bf16_gemm.cuh: one product a k16 step, 989 TFLOP/s, where 3xTF32 runs six
+// at 165 on the same depth); LayerNorm, GELU and the residual in f32.
+// What bounds it: the products, 16*N*C^2 flops at 989 TFLOP/s, 1.25 ms per
+// bs-32 encoder pass (f32 data's bytes 0.80 ms).
+// - The whole tile (SUB = 0, whole_tile_bf16): ln_rows_bf16 writes the
+//   rounded LayerNorm rows as one bf16 (N, C) array, the first GEMM's
+//   epilogue writes bf16(h) (N, 4C), the second runs OutEpi; f32 weights are
+//   rounded once a call, bf16 ones read where they lie.  h's bytes through
+//   device memory: 16*N*C, a quarter of the TF32 planes'.
+// - The sub-tiled path (SUB = 64, sub_tiled_bf16): fused_kernel<C, NC, T,
+//   true>.  W1 cannot take ln_w as prep_w1 folds it (the TPU kernel rounds
+//   LN(x) * ln_w + ln_b and W1 apart; a folded W1 * ln_w rounds another
+//   value), so the prologue applies ln_w and ln_b to its fragment in f32 and
+//   rounds; W1 is rounded alone (prep_w1_bf16) with its columns permuted so
+//   that a thread's k16 fragment is again one float4 of the x slab.  Its
+//   32-column box has 64-byte rows, read with the 64-byte swizzle.  The
+//   chunk of h is exchanged as one bf16 plane in 128-byte rows; the second
+//   product reads W2's 64-column bf16 boxes.  A stage of the first product
+//   is 2 wgmmas where the TF32 instance issues 12, of the second 4 a 64-deep
+//   stage where it issues 24, and the consumers split nothing into planes.
 
 #include <cooperative_groups.h>
 
+#include "bf16_gemm.cuh"
 #include "mlp_products.cuh"
 #include "warp_reduce.cuh"
 
@@ -181,6 +208,109 @@ int whole_tile(const T* x, const T* res, const float* sd, const float* lnw, cons
       x, lnw, lnb, work + make_plan(n, C).xs, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)products<C>(res, sd, 1, b1, b2, gamma, out, work, n, s);
+}
+
+// ----------------------- the precise=False arm's whole tile (bf16 products)
+
+using bf16mm::bf16;
+
+// LayerNorm of each row of x (f32 or bf16) times ln_w plus ln_b, in f32,
+// rounded to bf16 once: xb (N, C), the first product's A.
+template <int C, class T>
+__global__ void __launch_bounds__(kLnThreads) ln_rows_bf16(const T* __restrict__ x, const float* __restrict__ lnw,
+                                                          const float* __restrict__ lnb, bf16* __restrict__ xb,
+                                                          int n) {
+  const int row = (blockIdx.x * kLnThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= n) return;
+  const size_t base = (size_t)row * C;
+  float4 v[C / 128];
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < C / 128; ++q) {
+    v[q] = ld4(x + base + 4 * lane + 128 * q);
+    s += (v[q].x + v[q].y) + (v[q].z + v[q].w);
+  }
+  const float mu = warp_sum(s) * (1.0f / C);
+  float ss = 0.f;
+#pragma unroll
+  for (int q = 0; q < C / 128; ++q) {
+    const float a = v[q].x - mu, b = v[q].y - mu, c = v[q].z - mu, d = v[q].w - mu;
+    ss += (a * a + b * b) + (c * c + d * d);
+  }
+  const float rstd = rsqrtf(warp_sum(ss) * (1.0f / C) + kLnEps);
+#pragma unroll
+  for (int q = 0; q < C / 128; ++q) {
+    const int c = 4 * lane + 128 * q;
+    const float4 w = ld4(lnw + c), b = ld4(lnb + c);
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = (at(v[q], e) - mu) * rstd * at(w, e) + at(b, e);
+    *reinterpret_cast<uint2*>(xb + base + c) = make_uint2(bf16mm::pack2(o[0], o[1]), bf16mm::pack2(o[2], o[3]));
+  }
+}
+
+struct HiddenEpiBf16 {  // h = gelu(v + b1), rounded to bf16, into hb (N, 4C)
+  const float* b1;
+  bf16* hb;
+  int ld;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + n);
+    *reinterpret_cast<uint32_t*>(hb + (size_t)m * ld + n) = bf16mm::pack2(gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
+  }
+};
+
+// Where the whole tile's bf16 arrays start in the workspace (floats): the
+// LayerNorm rows (N C bf16), h (4 N C bf16), the rounded W1 and W2 (4 C^2
+// bf16 each; a bf16 weight is read where it lies).
+struct PlanBf16 {
+  long long xb, hb, w1b, w2b, total;
+};
+
+inline PlanBf16 make_plan_bf16(int n, int c) {
+  PlanBf16 p;
+  const long long nc = (long long)n * c, cc = (long long)c * c;
+  p.xb = 0;
+  p.hb = p.xb + round32(nc / 2);
+  p.w1b = p.hb + round32(2 * nc);
+  p.w2b = p.w1b + round32(2 * cc);
+  p.total = p.w2b + round32(2 * cc);
+  return p;
+}
+
+// The weights as bf16: rounded into the workspace from f32, or themselves.
+template <class T>
+const bf16* weight_bf16(const T* w, int rows, int cols, float* dst, cudaStream_t s, cudaError_t* err) {
+  if constexpr (sizeof(T) == 2) {
+    return reinterpret_cast<const bf16*>(w);
+  } else {
+    bf16* out = reinterpret_cast<bf16*>(dst);
+    if (*err == cudaSuccess) *err = bf16mm::to_bf16(w, rows, cols, out, (bf16*)nullptr, 0, s);
+    return out;
+  }
+}
+
+// The TPU kernel _kernel with mxu_dtype=bfloat16: x, res, the weights and
+// out of T (f32, or bf16).  Three launches besides the weights' rounding:
+// ln_rows_bf16; h = bf16(gelu(xb W1b^T + b1)) (N, 4C) through device
+// memory; out = res + sd * ((hb W2b^T + b2) * gamma) (OutEpi, rounded once).
+template <int C, class T>
+int whole_tile_bf16(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
+                    const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n,
+                    cudaStream_t s) {
+  using bf16mm::Operand;
+  const PlanBf16 p = make_plan_bf16(n, C);
+  cudaError_t err = cudaSuccess;
+  const bf16* w1b = weight_bf16(w1, 4 * C, C, work + p.w1b, s, &err);
+  const bf16* w2b = weight_bf16(w2, C, 4 * C, work + p.w2b, s, &err);
+  if (err != cudaSuccess) return (int)err;
+  bf16* xb = reinterpret_cast<bf16*>(work + p.xb);
+  bf16* hb = reinterpret_cast<bf16*>(work + p.hb);
+  ln_rows_bf16<C, T><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(x, lnw, lnb, xb, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const Operand xo{xb, n, C, C}, w1o{w1b, 4 * C, C, C}, ho{hb, n, 4 * C, 4 * C}, w2o{w2b, C, 4 * C, 4 * C};
+  err = bf16mm::gemm(xo, w1o, HiddenEpiBf16{b1, hb, 4 * C}, s);
+  if (err == cudaSuccess) err = bf16mm::gemm(ho, w2o, OutEpi<T>{res, sd, 1, b2, gamma, out, C}, s);
+  return (int)err;
 }
 
 // ------------------------------------------------ the sub-tiled path (SUB = 64)
@@ -260,6 +390,20 @@ __global__ void __launch_bounds__(256) prep_w1(const T* __restrict__ w1, const f
   if (lane == 0) b1f[row] = b1[row] + dot;
 }
 
+// The precise=False arm's W1: rounded to bf16 (4C, C), nothing folded (the
+// TPU kernel rounds LN(x) * ln_w + ln_b and W1 apart), the columns of each
+// 16-group in the order the bf16 A fragments take them: column 16 G + 4 u
+// + e goes to k-slot 16 G + 2 u + (e & 1) + 8 (e >> 1), so that a thread's
+// fragment of a k16 step is again one float4 of x.  One thread an element.
+template <int C, class T>
+__global__ void __launch_bounds__(256) prep_w1_bf16(const T* __restrict__ w1, bf16* __restrict__ w1p) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= 4LL * C * C) return;
+  const int c = (int)(i % C);
+  const int slot = (c & ~15) | (((c & 15) >> 2) << 1) | (c & 1) | (((c >> 1) & 1) << 3);
+  w1p[i - c + slot] = __float2bfloat16_rn(bf16mm::load_f32(w1 + i));
+}
+
 // ---------------------------------------------- cluster and barrier helpers
 
 __device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
@@ -279,6 +423,15 @@ __device__ __forceinline__ void st_shared2(uint32_t addr, float a, float b) {
     asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
   else
     asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// Two bf16 (one register) to a shared address, as st_shared2.
+template <bool cluster>
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  if constexpr (cluster)
+    asm volatile("st.shared::cluster.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+  else
+    asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
@@ -356,17 +509,24 @@ __device__ __forceinline__ int slab_at(const __nv_bfloat16*, int r, int G, int q
 
 // grid: clusters x S blocks (clusters along x); pairs = ceil(n / 128) row
 // tiles, cluster i taking tiles i, i + clusters, ...  x, res and out of T:
-// f32, or bf16 (W2's lo plane then zero and not loaded).
-template <int C, int NC, class T>
+// f32, or bf16 (W2's lo plane then zero and not loaded).  kBP: the
+// precise=False arm (bf16 products; see the notes of sub_tiled_bf16), whose
+// prologue applies lnw and lnb (b1f is then b1 itself); the other instances
+// ignore lnw and lnb (folded into W1 and b1f).
+template <int C, int NC, class T, bool kBP = false>
 __global__ void __launch_bounds__(kFusedThreads, 1)
     fused_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w1map,
                  const __grid_constant__ CUtensorMap w2map, const T* __restrict__ x,
-                 const T* __restrict__ res, const float* __restrict__ sd, const float* __restrict__ b1f,
+                 const T* __restrict__ res, const float* __restrict__ sd, const float* __restrict__ lnw,
+                 const float* __restrict__ lnb, const float* __restrict__ b1f,
                  const float* __restrict__ b2, const float* __restrict__ gamma, T* __restrict__ out, int n,
                  int pairs) {
   using F = Fused<C, NC>;
   constexpr int S = F::S, JCB = F::JCB, JC = F::JC, kSlots = F::kSlots, kBK = tf32x3::kBK;
   constexpr int kW2Planes = sizeof(T) == 4 ? 2 : 1;  // a bf16 W2's lo plane is zero
+  // K columns of a W2 stage: 32 of f32 planes, or 64 of bf16 (128-byte rows
+  // either way).
+  constexpr int kW2K = kBP ? 64 : kBK;
   extern __shared__ uint8_t smem_raw[];
   // Slots and h planes start on 1024-byte boundaries, where the 128-byte
   // swizzle pattern starts over (the descriptors' base offset 0).
@@ -414,17 +574,25 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       for (int p = cluster_id; p < pairs; p += clusters)
         for (int j = 0; j < F::kChunks; ++j) {
           for (int kt = 0; kt < C / kBK; ++kt) {  // W1's rows of this block's units, both sub-tiles' x
-            const int s = next(4 * 2 * kBK * JCB + (int)sizeof(T) * 2 * kXSlab);
+            const int s = next((kBP ? 2 : 4 * 2) * kBK * JCB + (int)sizeof(T) * 2 * kXSlab);
             float* slot = ring + s * kSlotFloats;
-            tf32x3::tma_load(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
+            if constexpr (kBP)
+              tma_load_2d(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
+            else
+              tf32x3::tma_load(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
             tma_load_2d(slot + kSlotFloats / 2, &xmap, kt * kBK, p * 2 * kSub, &full[s]);
             tma_load_2d(slot + kSlotFloats / 2 + kXSlab, &xmap, kt * kBK, p * 2 * kSub + kSub, &full[s]);
           }
           for (int half = 0; half < F::NC / 128; ++half)
-            for (int kt = 0; kt < JC / kBK; ++kt) {  // W2's rows of this block's output columns
-              const int s = next(4 * kW2Planes * kBK * 128);
-              tf32x3::tma_load(ring + s * kSlotFloats, &w2map, j * JC + kt * kBK, rank * F::NC + half * 128,
-                               &full[s]);
+            for (int kt = 0; kt < JC / kW2K; ++kt) {  // W2's rows of this block's output columns
+              if constexpr (kBP) {
+                const int s = next(2 * kW2K * 128);
+                tma_load_2d(ring + s * kSlotFloats, &w2map, j * JC + kt * kW2K, rank * F::NC + half * 128, &full[s]);
+              } else {
+                const int s = next(4 * kW2Planes * kBK * 128);
+                tf32x3::tma_load(ring + s * kSlotFloats, &w2map, j * JC + kt * kBK, rank * F::NC + half * 128,
+                                 &full[s]);
+              }
             }
         }
     }
@@ -496,35 +664,65 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           TC_PHASE(1)  // the first product's slot
           const float* slot = ring + s * kSlotFloats;
           const T* xs = reinterpret_cast<const T*>(slot + kSlotFloats / 2 + w * kXSlab);
-          // A fragments of the four k-steps: k-step 2 G + e2 takes columns
-          // 16 G + 4 q + 2 e2 (k-slot q) and + 1 (k-slot q + 4), W1's
-          // permutation (prep_w1); the slab is swizzled (slab_at).
-          uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-          for (int G = 0; G < 2; ++G) {
-            const float4 va = ld4(xs + slab_at(xs, ra, G, q, g)), vb = ld4(xs + slab_at(xs, ra + 8, G, q, g));
-#pragma unroll
-            for (int e2 = 0; e2 < 2; ++e2) {
-              const int t = 2 * G + e2;
-              split_reg(fmaf(at(va, 2 * e2), sa.x, sa.y), ahi[t][0], alo[t][0]);
-              split_reg(fmaf(at(vb, 2 * e2), sb.x, sb.y), ahi[t][1], alo[t][1]);
-              split_reg(fmaf(at(va, 2 * e2 + 1), sa.x, sa.y), ahi[t][2], alo[t][2]);
-              split_reg(fmaf(at(vb, 2 * e2 + 1), sb.x, sb.y), ahi[t][3], alo[t][3]);
-            }
-          }
           // Into hp, which the stage starts afresh, or straight into h,
           // which the chunk's first stage starts afresh.
           float (&d)[JCB / 2] = F::kStagePartial ? hp : h;
           const int fresh = F::kStagePartial ? 0 : kt;
-          tf32x3::fence_regs(d);
-          TC_PHASE(2)  // A fragments
-          tf32x3::wgmma_fence();
-          const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * JCB);
+          if constexpr (kBP) {
+            // A fragments of the two k16 steps: k-step G takes columns 16 G
+            // + 4 q .. + 3 of rows ra and ra + 8, LayerNorm'd with ln_w and
+            // ln_b and rounded to bf16 (k-slots 2 q, 2 q + 1, 2 q + 8, 2 q +
+            // 9: W1's permutation, prep_w1_bf16).
+            uint32_t a[2][4];
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            tf32x3::wgmma_rs<JCB>(d, ahi[t], bl + 2 * t, fresh > 0 || t > 0);
-            tf32x3::wgmma_rs<JCB>(d, alo[t], bh + 2 * t, 1);
-            tf32x3::wgmma_rs<JCB>(d, ahi[t], bh + 2 * t, 1);
+            for (int G = 0; G < 2; ++G) {
+              const int col = kt * kBK + 16 * G + 4 * q;
+              const float4 va = ld4(xs + slab_at(xs, ra, G, q, g)), vb = ld4(xs + slab_at(xs, ra + 8, G, q, g));
+              const float4 lw = ld4(lnw + col), lb = ld4(lnb + col);
+              float xa[4], xb[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                xa[e] = fmaf(fmaf(at(va, e), sa.x, sa.y), at(lw, e), at(lb, e));
+                xb[e] = fmaf(fmaf(at(vb, e), sb.x, sb.y), at(lw, e), at(lb, e));
+              }
+              a[G][0] = bf16mm::pack2(xa[0], xa[1]);
+              a[G][1] = bf16mm::pack2(xb[0], xb[1]);
+              a[G][2] = bf16mm::pack2(xa[2], xa[3]);
+              a[G][3] = bf16mm::pack2(xb[2], xb[3]);
+            }
+            tf32x3::fence_regs(d);
+            TC_PHASE(2)  // A fragments
+            bf16mm::wgmma_fence();
+            const uint64_t bd = bf16mm::desc64(slot);
+#pragma unroll
+            for (int t = 0; t < 2; ++t) bf16mm::wgmma_rs<JCB>(d, a[t], bd + 2 * t, fresh > 0 || t > 0);
+          } else {
+            // A fragments of the four k-steps: k-step 2 G + e2 takes columns
+            // 16 G + 4 q + 2 e2 (k-slot q) and + 1 (k-slot q + 4), W1's
+            // permutation (prep_w1); the slab is swizzled (slab_at).
+            uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+            for (int G = 0; G < 2; ++G) {
+              const float4 va = ld4(xs + slab_at(xs, ra, G, q, g)), vb = ld4(xs + slab_at(xs, ra + 8, G, q, g));
+#pragma unroll
+              for (int e2 = 0; e2 < 2; ++e2) {
+                const int t = 2 * G + e2;
+                split_reg(fmaf(at(va, 2 * e2), sa.x, sa.y), ahi[t][0], alo[t][0]);
+                split_reg(fmaf(at(vb, 2 * e2), sb.x, sb.y), ahi[t][1], alo[t][1]);
+                split_reg(fmaf(at(va, 2 * e2 + 1), sa.x, sa.y), ahi[t][2], alo[t][2]);
+                split_reg(fmaf(at(vb, 2 * e2 + 1), sb.x, sb.y), ahi[t][3], alo[t][3]);
+              }
+            }
+            tf32x3::fence_regs(d);
+            TC_PHASE(2)  // A fragments
+            tf32x3::wgmma_fence();
+            const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * JCB);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              tf32x3::wgmma_rs<JCB>(d, ahi[t], bl + 2 * t, fresh > 0 || t > 0);
+              tf32x3::wgmma_rs<JCB>(d, alo[t], bh + 2 * t, 1);
+              tf32x3::wgmma_rs<JCB>(d, ahi[t], bh + 2 * t, 1);
+            }
           }
           tf32x3::wgmma_commit();
           tf32x3::wgmma_wait<0>();
@@ -549,14 +747,23 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             const float v0 = gelu_exact(h[4 * jj + 2 * hr] + b.x), v1 = gelu_exact(h[4 * jj + 2 * hr + 1] + b.y);
-            const float h0 = round_tf32_finite(v0), h1 = round_tf32_finite(v1);
-            const float l0 = round_tf32_finite(v0 - h0), l1 = round_tf32_finite(v1 - h1);
             const int row = ra + 8 * hr;
-            const uint32_t off = 4 * ((kk / kBK) * kSub * kBK + row * kBK + ((((kk % kBK) >> 2) ^ g) << 2) + (kk & 3));
+            if constexpr (kBP) {
+              // One bf16 plane: 64-unit slabs of 128-byte rows, 128-byte swizzle.
+              const uint32_t off = 2 * ((kk >> 6) * kSub * 64 + row * 64) + ((((kk & 63) >> 3) ^ g) << 4) +
+                                   ((kk & 7) << 1);
+              const uint32_t v = bf16mm::pack2(v0, v1);
 #pragma unroll
-            for (int r = 0; r < S; ++r) {
-              st_shared2<(S > 1)>(hdst[r] + off, h0, h1);
-              st_shared2<(S > 1)>(hdst[r] + off + 4 * F::kH, l0, l1);
+              for (int r = 0; r < S; ++r) st_shared_b32<(S > 1)>(hdst[r] + off, v);
+            } else {
+              const float h0 = round_tf32_finite(v0), h1 = round_tf32_finite(v1);
+              const float l0 = round_tf32_finite(v0 - h0), l1 = round_tf32_finite(v1 - h1);
+              const uint32_t off = 4 * ((kk / kBK) * kSub * kBK + row * kBK + ((((kk % kBK) >> 2) ^ g) << 2) + (kk & 3));
+#pragma unroll
+              for (int r = 0; r < S; ++r) {
+                st_shared2<(S > 1)>(hdst[r] + off, h0, h1);
+                st_shared2<(S > 1)>(hdst[r] + off + 4 * F::kH, l0, l1);
+              }
             }
           }
         }
@@ -579,21 +786,28 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 #pragma unroll
         for (int half = 0; half < F::NC / 128; ++half) {  // 128 output columns at a time
           float op[64];
-          for (int kt = 0; kt < JC / kBK; ++kt, ++it) {
+          for (int kt = 0; kt < JC / kW2K; ++kt, ++it) {
             const int s = it % kSlots;
             mbar_wait(&full[s], (it / kSlots) & 1);
             TC_PHASE(7)  // the second product's slot
             const float* slot = ring + s * kSlotFloats;
             tf32x3::fence_acc(op);
             tf32x3::wgmma_fence();
-            const uint64_t ah = tf32x3::smem_desc(hh + kt * kSub * kBK);
-            const uint64_t al = tf32x3::smem_desc(hh + F::kH + kt * kSub * kBK);
-            const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * 128);
+            if constexpr (kBP) {
+              const bf16* hb = reinterpret_cast<const bf16*>(hh) + kt * kSub * kW2K;
 #pragma unroll
-            for (int kk = 0; kk < kBK / 8; ++kk) {
-              if constexpr (kW2Planes == 2) tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
-              tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, kW2Planes == 2 || kt > 0 || kk > 0);
-              tf32x3::wgmma_tf32(op, ah + 2 * kk, bh + 2 * kk, 1);
+              for (int kk = 0; kk < kW2K / 16; ++kk)
+                bf16mm::wgmma_ss128(op, bf16mm::desc128(hb) + 2 * kk, bf16mm::desc128(slot) + 2 * kk, kt > 0 || kk > 0);
+            } else {
+              const uint64_t ah = tf32x3::smem_desc(hh + kt * kSub * kBK);
+              const uint64_t al = tf32x3::smem_desc(hh + F::kH + kt * kSub * kBK);
+              const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * 128);
+#pragma unroll
+              for (int kk = 0; kk < kBK / 8; ++kk) {
+                if constexpr (kW2Planes == 2) tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
+                tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, kW2Planes == 2 || kt > 0 || kk > 0);
+                tf32x3::wgmma_tf32(op, ah + 2 * kk, bh + 2 * kk, 1);
+              }
             }
             tf32x3::wgmma_commit();
             tf32x3::wgmma_wait<0>();
@@ -679,7 +893,7 @@ cudaLaunchConfig_t fused_config(int clusters, int S, int smem, cudaStream_t s, c
 }
 
 // How many clusters of an instance the card runs at once (asked once).
-template <int C, int NC, class T>
+template <int C, int NC, class T, bool kBP = false>
 cudaError_t active_clusters(int* out) {
   using F = Fused<C, NC>;
   static int cached = 0;
@@ -688,13 +902,13 @@ cudaError_t active_clusters(int* out) {
     return cudaSuccess;
   }
   cudaError_t err =
-      cudaFuncSetAttribute(fused_kernel<C, NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+      cudaFuncSetAttribute(fused_kernel<C, NC, T, kBP>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = fused_config(1, F::S, F::kSmem, nullptr, attr);
   cfg.numAttrs = 1;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC, T>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC, T, kBP>, &cfg);
   if (err != cudaSuccess) return err;
   if (n < 1) return cudaErrorInvalidConfiguration;
   *out = cached = n;
@@ -706,13 +920,13 @@ cudaError_t active_clusters(int* out) {
 // clusters the card holds at once, else 128 (twice the blocks to a tile).
 // At 256 a block does twice the work with fewer, wider wgmmas and half the
 // peers (PERF.md, row 2).
-template <int C, class T = float>
+template <int C, class T = float, bool kBP = false>
 cudaError_t fused_columns(int n, int* nc) {
   *nc = 128;
   if constexpr (C > 128) {
     int c128 = 0, c256 = 0;
-    cudaError_t err = active_clusters<C, 128, T>(&c128);
-    if (err == cudaSuccess) err = active_clusters<C, 256, T>(&c256);
+    cudaError_t err = active_clusters<C, 128, T, kBP>(&c128);
+    if (err == cudaSuccess) err = active_clusters<C, 256, T, kBP>(&c256);
     if (err != cudaSuccess) return err;
     const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
     if ((pairs + c256 - 1) / c256 < (pairs + c128 - 1) / c128) *nc = 256;
@@ -742,8 +956,63 @@ int sub_tiled(const T* x, const T* res, const float* sd, const float* lnw, const
   const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fused_config(pairs < clusters ? pairs : clusters, F::S, F::kSmem, s, attr);
-  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, T>, xm, w1m, w2m, x, res, sd, (const float*)(work + p.b1f), b2,
-                           gamma, out, n, pairs);
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, T>, xm, w1m, w2m, x, res, sd, lnw, lnb,
+                           (const float*)(work + p.b1f), b2, gamma, out, n, pairs);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Workspace of the precise=False arm's sub-tiled path (floats): W1 rounded
+// and permuted (4 C^2 bf16), W2 rounded (4 C^2 bf16; a bf16 W2 is read
+// where it lies).
+struct FusedPlanBf16 {
+  long long w1p, w2b, total;
+};
+
+inline FusedPlanBf16 make_fused_plan_bf16(int c) {
+  FusedPlanBf16 p;
+  const long long cc = (long long)c * c;
+  p.w1p = 0;
+  p.w2b = round32(2 * cc);
+  p.total = p.w2b + round32(2 * cc);
+  return p;
+}
+
+// The TPU kernel _kernel_pipelined with mxu_dtype=bfloat16:
+// fused_kernel<C, NC, T, true>, the tiles, the ring, the clusters and the
+// exchange of h of the other instances, with bf16 wgmma products:
+// - W1 is rounded to bf16 apart from ln_w (prep_w1_bf16): the prologue
+//   normalises its A fragment from the staged x slab, applies ln_w and
+//   ln_b in f32 and rounds to bf16, the TPU kernel's rounding point; two
+//   m64nJCBk16 wgmmas a 32-column stage, A from registers, W1's 32-column
+//   box (64-byte rows) read with the 64-byte swizzle;
+// - h_j = gelu(...) is rounded to bf16 and exchanged as one plane (a
+//   quarter of the f32 planes' bytes) in 64-unit slabs of 128-byte rows;
+// - the second product reads W2's 64-column bf16 boxes (128-byte rows) and
+//   runs four m64n128k16 wgmmas a stage.
+template <int C, int NC, class T>
+int sub_tiled_bf16(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
+                   const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n,
+                   cudaStream_t s) {
+  using F = Fused<C, NC>;
+  const FusedPlanBf16 p = make_fused_plan_bf16(C);
+  int clusters = 0;
+  cudaError_t err = active_clusters<C, NC, T, true>(&clusters);
+  if (err != cudaSuccess) return (int)err;
+  bf16* w1p = reinterpret_cast<bf16*>(work + p.w1p);
+  prep_w1_bf16<C, T><<<C * C / 64, 256, 0, s>>>(w1, w1p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bf16* w2b = weight_bf16(w2, C, 4 * C, work + p.w2b, s, &err);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap xm, w1m, w2m;
+  err = x_map(&xm, x, n, C);
+  if (err == cudaSuccess) err = bf16mm::make_map(&w1m, {w1p, 4 * C, C, C}, 32, F::JCB);
+  if (err == cudaSuccess) err = bf16mm::make_map(&w2m, {w2b, C, 4 * C, 4 * C}, 64, 128);
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fused_config(pairs < clusters ? pairs : clusters, F::S, F::kSmem, s, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, T, true>, xm, w1m, w2m, x, res, sd, lnw, lnb, b1, b2, gamma,
+                           out, n, pairs);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -759,6 +1028,38 @@ int forward(const T* x, const T* res, const float* sd, const float* lnw, const f
   if constexpr (C > 128)
     if (nc == 256) return sub_tiled<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
   return sub_tiled<C, 128>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+}
+
+// The precise=False arm: the whole tile (sub 0) or the sub-tiled path (64).
+template <int C, class T>
+int forward_bf16(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
+                 const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n,
+                 int sub, cudaStream_t s) {
+  if (sub == 0) return whole_tile_bf16<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  if (sub != kSub) return (int)cudaErrorInvalidValue;
+  int nc = 0;
+  const cudaError_t err = fused_columns<C, T, true>(n, &nc);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (C > 128)
+    if (nc == 256) return sub_tiled_bf16<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  return sub_tiled_bf16<C, 128>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+}
+
+// forward_bf16 at width c, on data of T.
+template <class T>
+int forward_bf16_any(const void* x, const void* res, const float* sd, const float* lnw, const float* lnb,
+                     const void* w1, const float* b1, const void* w2, const float* b2, const float* gamma, void* out,
+                     float* work, int n, int c, int sub, cudaStream_t s) {
+#define TC_ARGS static_cast<const T*>(x), static_cast<const T*>(res), sd, lnw, lnb, static_cast<const T*>(w1), b1, \
+                static_cast<const T*>(w2), b2, gamma, static_cast<T*>(out), work, n, sub, s
+  switch (c) {
+    case 128: return forward_bf16<128>(TC_ARGS);
+    case 256: return forward_bf16<256>(TC_ARGS);
+    case 512: return forward_bf16<512>(TC_ARGS);
+    case 1024: return forward_bf16<1024>(TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC_ARGS
 }
 
 }  // namespace
@@ -858,6 +1159,26 @@ int tc_mlp_block_forward_bf16(const void* x, const void* res, const float* sd, c
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TC_ARGS
+}
+
+// Floats of workspace tc_mlp_block_forward_bf16_products needs.
+long long tc_mlp_block_forward_bf16_products_workspace(int n, int c, int sub) {
+  return sub ? make_fused_plan_bf16(c).total : make_plan_bf16(n, c).total;
+}
+
+// The precise=False arm (bf16 products): x, res, w1, w2 and out f32
+// (data_bf16 0) or bf16 (data_bf16 1), the rest as tc_mlp_block_forward,
+// `sub` 0 (the whole tile) or 64 (the sub-tiled path), the workspace
+// tc_mlp_block_forward_bf16_products_workspace(n, c, sub) floats.
+int tc_mlp_block_forward_bf16_products(const void* x, const void* res, const float* sd, const float* lnw,
+                                       const float* lnb, const void* w1, const float* b1, const void* w2,
+                                       const float* b2, const float* gamma, void* out, float* work, int n, int c,
+                                       int sub, int data_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  return data_bf16 ? forward_bf16_any<__nv_bfloat16>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, c,
+                                                      sub, s)
+                   : forward_bf16_any<float>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, c, sub, s);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

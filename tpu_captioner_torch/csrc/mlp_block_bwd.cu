@@ -1,4 +1,5 @@
-// Fused ConvNeXt block tail, backward, f32 and bf16, for Hopper (sm_90a).
+// Fused ConvNeXt block tail, backward, f32 and bf16, both precise arms, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel tpu_captioner/ops/mlp_block.py:275 _bwd_kernel
 // (launched by _bwd_pallas -> _bwd_pallas_one under the custom VJP of
@@ -76,12 +77,18 @@
 // of g and x and writes half of d_x; the products' bound falls to 32 N C^2
 // flops at 329.67 TFLOP/s (an f32 row times a bf16 weight, f32-accurate:
 // three exact bf16 products, 989 / 3) plus 16 N C^2 at 165.
+// The precise=False arm (tc_mlp_block_backward_bf16_products, f32 or bf16
+// data): the TPU kernel's mm with mxu_dtype=bfloat16 (:291-296), each of the
+// six products on bf16 operands rounded where it rounds them, summed in f32
+// on bf16 wgmma (bf16_gemm.cuh, backward_bf16 below); 48*N*C^2 flops at 989
+// TFLOP/s, 3.13 ms per fine-tune step.
 // Later PRs: the intermediates on chip, and a tuned GEMM (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_gemm.cuh"
 #include "tf32x3_gemm.cuh"
 #include "warp_reduce.cuh"
 
@@ -180,6 +187,55 @@ struct MulEpi {
   }
 };
 
+// The precise=False arm's epilogues: the products' bf16 operands, rounded
+// once from the f32 values.
+using bf16mm::bf16;
+using bf16mm::pack2;
+
+// a = v + b1: h = gelu(a) rounded to bf16, plain (N, 4C) and transposed,
+// and gp = gelu'(a) in f32.
+struct GeluEpiBf16 {
+  const float* bias;
+  bf16* h;
+  bf16* ht;
+  float* gp;
+  int ld, ld_t;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = ld2(bias + n);
+    float hv[2], gv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = (e ? v.y : v.x) + (e ? b.y : b.x);
+      const float cdf = 0.5f * (1.0f + erff(a * kInvSqrt2));
+      hv[e] = a * cdf;
+      gv[e] = cdf + a * (expf(-0.5f * a * a) * kInvSqrt2Pi);
+    }
+    const size_t o = (size_t)m * ld + n;
+    *reinterpret_cast<uint32_t*>(h + o) = pack2(hv[0], hv[1]);
+    ht[(size_t)n * ld_t + m] = __float2bfloat16_rn(hv[0]);
+    ht[(size_t)(n + 1) * ld_t + m] = __float2bfloat16_rn(hv[1]);
+    *reinterpret_cast<float2*>(gp + o) = make_float2(gv[0], gv[1]);
+  }
+};
+
+// d_a = v * gp: in f32 over gp itself (the column sums read it), and
+// rounded to bf16, plain and transposed.
+struct MulEpiBf16 {
+  float* gp;
+  bf16* da;
+  bf16* dat;
+  int ld, ld_t;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const size_t o = (size_t)m * ld + n;
+    const float2 s = ld2(gp + o);
+    const float d0 = v.x * s.x, d1 = v.y * s.y;
+    *reinterpret_cast<float2*>(gp + o) = make_float2(d0, d1);
+    *reinterpret_cast<uint32_t*>(da + o) = pack2(d0, d1);
+    dat[(size_t)n * ld_t + m] = __float2bfloat16_rn(d0);
+    dat[(size_t)(n + 1) * ld_t + m] = __float2bfloat16_rn(d1);
+  }
+};
+
 // ----------------------------------------------------------------- row kernels
 // One warp per row; lane l holds columns 4l + 128q .. +3.
 
@@ -274,8 +330,8 @@ __global__ void __launch_bounds__(kThreads) finish_rows(
 // [0, C) d_ln_w = sum d_xn * xhat, [C, 2C) d_ln_b = sum d_xn,
 // [2C, 6C) d_b1 = sum d_a, [6C, 7C) d_b2 = sum d_u,
 // [7C, 8C) d_gamma = sum (g * sd) * u.  d_a is read as its two TF32
-// planes, `da_plane` floats apart; g is of T.
-template <class T>
+// planes, `da_plane` floats apart (kDaPlanes 2), or as f32 (1); g is of T.
+template <class T, int kDaPlanes = 2>
 __global__ void __launch_bounds__(kThreads) column_partials(
     const float* __restrict__ dxn, const float* __restrict__ xhat, const float* __restrict__ da,
     long long da_plane, const float* __restrict__ du, const T* __restrict__ g, const float* __restrict__ sd,
@@ -301,7 +357,7 @@ __global__ void __launch_bounds__(kThreads) column_partials(
     float s = 0.f;
     for (int r = r0; r < r1; ++r) {
       const size_t o = (size_t)r * 4 * c + col;
-      s += da[o] + da[da_plane + o];
+      s += kDaPlanes == 2 ? da[o] + da[da_plane + o] : da[o];
     }
     out[2 * c + col] = s;
   }
@@ -478,6 +534,147 @@ int backward(const T* g, const T* x, const float* sd, const float* lnw, const fl
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- the precise=False arm (bf16 products)
+// The TPU kernel _bwd_kernel with mxu_dtype=bfloat16: its mm (:291-296)
+// rounds both operands of each of the six products to bf16 and sums in
+// f32.  The structure is backward()'s, with the bf16 GEMM of bf16_gemm.cuh
+// (P = A B^T, K-major bf16 operands, one exact product a k-step) and the
+// operands rounded where the TPU kernel rounds them: xn and d_u by to_bf16
+// (plain and transposed) from prep_rows' f32 rows; h and d_a by the
+// epilogues of products 1 and 3; the weights by to_bf16 (a bf16 weight is
+// read where it lies, its transpose made by to_bf16).  The f32 sums the
+// TPU kernel takes of unrounded values stay f32: d_xn, u, gelu'(a), d_a
+// for d_b1, and the row kernels.  d_W1 and d_W2 are f32; the caller
+// rounds them to a bf16 weight's dtype once, as JAX's .astype(w1.dtype)
+// (:476).
+
+struct PlanBf16 {
+  int splits, k_split, chunk_rows, chunks, ldn;
+  long long w1b, w1t, w2b, w2t, xhat, xn, du, u, dxn, xnb, xnt, dub, dut, hb, ht, gp, dab, dat, rstd, colpart,
+      wpart, total;
+};
+
+PlanBf16 make_plan_bf16(int n, int c) {
+  const Plan q = make_plan(n, c, 1);  // the splits and chunks of the f32 design
+  PlanBf16 p;
+  p.k_split = (q.k_split + bf16mm::kBK - 1) / bf16mm::kBK * bf16mm::kBK;
+  p.splits = max(1, ceil_div(n, p.k_split));
+  p.chunk_rows = q.chunk_rows;
+  p.chunks = q.chunks;
+  p.ldn = (n + 7) / 8 * 8;  // 16-byte rows of the transposed bf16 copies
+  const long long nc = (long long)n * c, cc4 = 4LL * c * c, tc = (long long)c * p.ldn;
+  long long off = 0;
+  auto take = [&](long long floats) { const long long at_ = off; off += round32(floats); return at_; };
+  p.w1b = take(cc4 / 2);
+  p.w1t = take(cc4 / 2);
+  p.w2b = take(cc4 / 2);
+  p.w2t = take(cc4 / 2);
+  p.xhat = take(nc);
+  p.xn = take(nc);
+  p.du = take(nc);
+  p.u = take(nc);
+  p.dxn = take(nc);
+  p.xnb = take(nc / 2);
+  p.xnt = take(tc / 2);
+  p.dub = take(nc / 2);
+  p.dut = take(tc / 2);
+  p.hb = take(2 * nc);
+  p.ht = take(2 * tc);
+  p.gp = take(4 * nc);
+  p.dab = take(2 * nc);
+  p.dat = take(2 * tc);
+  p.rstd = take(n);
+  p.colpart = take((long long)p.chunks * 8 * c);
+  p.wpart = take(p.splits > 1 ? (long long)p.splits * cc4 : 0);
+  p.total = off;
+  return p;
+}
+
+template <int C, class T>
+int backward_bf16(const T* g, const T* x, const float* sd, const float* lnw, const float* lnb, const T* w1,
+                  const float* b1, const T* w2, const float* b2, const float* gamma, T* dx, float* dsd, float* dlnw,
+                  float* dlnb, float* dw1, float* db1, float* dw2, float* db2, float* dgamma, float* work, int n,
+                  cudaStream_t s) {
+  using bf16mm::Operand;
+  using bf16mm::gemm;
+  using bf16mm::to_bf16;
+  constexpr int C4 = 4 * C;
+  const PlanBf16 p = make_plan_bf16(n, C);
+  const int ldn = p.ldn;
+  auto arr = [&](long long at_) { return reinterpret_cast<bf16*>(work + at_); };  // a bf16 array of the workspace
+  bf16 *w1t = arr(p.w1t), *w2t = arr(p.w2t), *xnb = arr(p.xnb), *xnt = arr(p.xnt), *dub = arr(p.dub);
+  bf16 *dut = arr(p.dut), *hb = arr(p.hb), *ht = arr(p.ht), *dab = arr(p.dab), *dat = arr(p.dat);
+  float *xhat = work + p.xhat, *xn = work + p.xn, *du = work + p.du, *u = work + p.u, *dxn = work + p.dxn;
+  float *gp = work + p.gp, *rstd = work + p.rstd, *colpart = work + p.colpart, *wpart = work + p.wpart;
+  const int row_blocks = ceil_div(n, kThreads / 32);
+  const long long cc4 = 4LL * C * C;
+
+  // The weights in bf16: W1 (4C, C) and W1^T (C, 4C), W2 (C, 4C) and W2^T
+  // (4C, C); a bf16 weight's plain copy is itself.
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const bf16* w1b = kBf16 ? reinterpret_cast<const bf16*>(w1) : arr(p.w1b);
+  const bf16* w2b = kBf16 ? reinterpret_cast<const bf16*>(w2) : arr(p.w2b);
+  TC_TRY(to_bf16(w1, C4, C, kBf16 ? nullptr : arr(p.w1b), w1t, C4, s));
+  TC_TRY(to_bf16(w2, C, C4, kBf16 ? nullptr : arr(p.w2b), w2t, C, s));
+  prep_rows<C, T><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
+  TC_TRY(cudaGetLastError());
+  TC_TRY(to_bf16(xn, n, C, xnb, xnt, ldn, s));
+  TC_TRY(to_bf16(du, n, C, dub, dut, ldn, s));
+
+  const Operand xn_op{xnb, n, C, C}, w1_op{w1b, C4, C, C}, h_op{hb, n, C4, C4}, w2_op{w2b, C, C4, C4};
+  const Operand du_op{dub, n, C, C}, w2t_op{w2t, C4, C, C}, da_op{dab, n, C4, C4}, w1t_op{w1t, C, C4, C4};
+  const Operand dat_op{dat, C4, n, ldn}, xnt_op{xnt, C, n, ldn}, dut_op{dut, C, n, ldn}, ht_op{ht, C4, n, ldn};
+  // a = xn W1^T + b1 -> bf16(h) (plain and transposed), gelu'(a)
+  TC_TRY(gemm(xn_op, w1_op, GeluEpiBf16{b1, hb, ht, gp, C4, ldn}, s));
+  // u = h W2^T + b2
+  TC_TRY(gemm(h_op, w2_op, BiasEpi{b2, u, C}, s));
+  // d_a = (d_u W2) * gelu'(a): f32 over gp, bf16 plain and transposed
+  TC_TRY(gemm(du_op, w2t_op, MulEpiBf16{gp, dab, dat, C4, ldn}, s));
+  // d_xn = d_a W1
+  TC_TRY(gemm(da_op, w1t_op, StoreEpi{dxn, C, 0}, s));
+  finish_rows<C, T><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
+  TC_TRY(cudaGetLastError());
+
+  // dW1 = d_a^T xn (4C, C) and dW2 = d_u^T h (C, 4C), reduced over the rows.
+  const int sum_blocks = ceil_div(cc4 / 4, kThreads);
+  float* out1 = p.splits > 1 ? wpart : dw1;
+  TC_TRY(gemm(dat_op, xnt_op, p.splits, p.k_split, StoreEpi{out1, C, cc4}, s));
+  if (p.splits > 1) {
+    sum_splits<<<sum_blocks, kThreads, 0, s>>>(wpart, p.splits, cc4 / 4, dw1);
+    TC_TRY(cudaGetLastError());
+  }
+  float* out2 = p.splits > 1 ? wpart : dw2;
+  TC_TRY(gemm(dut_op, ht_op, p.splits, p.k_split, StoreEpi{out2, C4, cc4}, s));
+  if (p.splits > 1) {
+    sum_splits<<<sum_blocks, kThreads, 0, s>>>(wpart, p.splits, cc4 / 4, dw2);
+    TC_TRY(cudaGetLastError());
+  }
+
+  column_partials<T, 1><<<p.chunks, kThreads, 0, s>>>(dxn, xhat, gp, 0, du, g, sd, u, colpart, n, C, p.chunk_rows);
+  TC_TRY(cudaGetLastError());
+  column_finish<<<ceil_div(8 * C, kThreads), kThreads, 0, s>>>(colpart, p.chunks, C, dlnw, dlnb, db1, db2, dgamma);
+  return (int)cudaGetLastError();
+}
+
+// backward_bf16 at width c, on data of T.
+template <class T>
+int backward_bf16_any(const void* g, const void* x, const float* sd, const float* lnw, const float* lnb,
+                      const void* w1, const float* b1, const void* w2, const float* b2, const float* gamma, void* dx,
+                      float* dsd, float* dlnw, float* dlnb, float* dw1, float* db1, float* dw2, float* db2,
+                      float* dgamma, float* work, int n, int c, cudaStream_t s) {
+#define TC_ARGS static_cast<const T*>(g), static_cast<const T*>(x), sd, lnw, lnb, static_cast<const T*>(w1), b1, \
+                static_cast<const T*>(w2), b2, gamma, static_cast<T*>(dx), dsd, dlnw, dlnb, dw1, db1, dw2, db2, \
+                dgamma, work, n, s
+  switch (c) {
+    case 128: return backward_bf16<128>(TC_ARGS);
+    case 256: return backward_bf16<256>(TC_ARGS);
+    case 512: return backward_bf16<512>(TC_ARGS);
+    case 1024: return backward_bf16<1024>(TC_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TC_ARGS
+}
+
 }  // namespace
 
 extern "C" {
@@ -528,6 +725,26 @@ int tc_mlp_block_backward_bf16(const void* g, const void* x, const float* sd, co
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TC_ARGS
+}
+
+// Floats of workspace tc_mlp_block_backward_bf16_products needs.
+long long tc_mlp_block_backward_bf16_products_workspace(int n, int c) { return make_plan_bf16(n, c).total; }
+
+// The precise=False arm (bf16 products): g, x, w1, w2 and dx f32
+// (data_bf16 0) or bf16 (data_bf16 1), the rest f32 as
+// tc_mlp_block_backward; the workspace
+// tc_mlp_block_backward_bf16_products_workspace floats.
+int tc_mlp_block_backward_bf16_products(const void* g, const void* x, const float* sd, const float* lnw,
+                                        const float* lnb, const void* w1, const float* b1, const void* w2,
+                                        const float* b2, const float* gamma, void* dx, float* dsd, float* dlnw,
+                                        float* dlnb, float* dw1, float* db1, float* dw2, float* db2, float* dgamma,
+                                        float* work, int n, int c, int data_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  return data_bf16 ? backward_bf16_any<__nv_bfloat16>(g, x, sd, lnw, lnb, w1, b1, w2, b2, gamma, dx, dsd, dlnw,
+                                                       dlnb, dw1, db1, dw2, db2, dgamma, work, n, c, s)
+                   : backward_bf16_any<float>(g, x, sd, lnw, lnb, w1, b1, w2, b2, gamma, dx, dsd, dlnw, dlnb, dw1,
+                                              db1, dw2, db2, dgamma, work, n, c, s);
 }
 
 const char* tc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

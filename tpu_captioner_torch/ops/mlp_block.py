@@ -39,8 +39,21 @@ residual's gradient is g itself (bf16).  The weight gradients come back in
 f32, and autograd rounds each once to the bf16 matrix it belongs to, as
 JAX's ``.astype(w1.dtype)`` (:476) does, before the casts' backward widens
 them to the f32 parameters.  ``_mlp_bwd_plain_bf16`` is its plain version.
-The ``precise=False`` arm (bf16 products, reached by no JAX model path)
-is not ported (ROADMAP.md Queue 1 #5f).
+
+``precise=False`` (the JAX op's keyword, tpu_captioner/ops/mlp_block.py:
+252-268 and 497-505; no model path passes it): the TPU kernels with
+``mxu_dtype=bfloat16``, for f32 or bf16 data.  Each product's two operands
+are rounded to bf16 and the exact products summed in f32, the TPU
+kernels' rounding points: bf16(LN(x) * ln_w + ln_b) . bf16(W1), then
+bf16(gelu(a)) . bf16(W2) in the forward; in the backward the two
+recomputed products, bf16(d_u) . bf16(W2), bf16(d_a) . bf16(W1), and the
+weight gradients bf16(xn)^T bf16(d_a) and bf16(h)^T bf16(d_u); every other
+step (LayerNorm and its backward, GELU and GELU', the bias, row and column
+sums) in f32 on unrounded values.  CUDA tensors launch the arm's
+instances in the same two libraries (the whole tile, the sub-tiled kernel
+where ``_pipeline_sub`` selects it, the backward), on bf16 wgmma
+(``csrc/bf16_gemm.cuh``); CPU tensors run ``_mlp_plain_bf16_products``
+and ``_mlp_bwd_plain_bf16_products``.
 """
 
 from __future__ import annotations
@@ -87,35 +100,79 @@ def _mlp_plain_bf16(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
                       gamma).to(torch.bfloat16)
 
 
-def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+def _bf16_operand(t):
+    """``t`` rounded to bf16 (nearest, ties to even) and widened back to
+    f32 (f64 for an f64 ``t``) exactly: a product operand of the
+    ``precise=False`` arm."""
+    return t.to(torch.bfloat16).to(torch.float64 if t.dtype == torch.float64 else torch.float32)
+
+
+def _widen(t):
+    """bf16 widened to f32 (exactly); f32 or f64 as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _mlp_plain_bf16_products(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain version of the ``precise=False`` arm's forward
+    (tpu_captioner/ops/mlp_block.py:126-142 with mxu_dtype=bfloat16), for
+    f32 or bf16 x, residual, w1 and w2: LayerNorm in f32 with the TPU
+    kernel's formula, each product's operands rounded to bf16 and the exact
+    products summed in f32, the exact erf GELU, the output rounded to x's
+    dtype once (f64 inputs: the same roundings, the sums in f64)."""
+    x = _widen(x)
+    mu = x.mean(-1, keepdim=True)
+    xn = (x - mu) * torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + LN_EPS) * ln_w + ln_b
+    h = F.gelu(F.linear(_bf16_operand(xn), _bf16_operand(w1), b1))
+    u = F.linear(_bf16_operand(h), _bf16_operand(w2), b2)
+    return (_widen(residual) + sd[:, None] * (u * gamma)).to(residual.dtype)
+
+
+def _mlp_bwd_plain(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, operand=None):
     """Plain PyTorch version of the backward kernel, written with the TPU
     kernel's formulas (tpu_captioner/ops/mlp_block.py:301-339).  ``g`` is the
     cotangent of the tail's output.  Returns (d_x, d_sd, d_ln_w, d_ln_b,
     d_w1 (4C, C), d_b1, d_w2 (C, 4C), d_b2, d_gamma): the weight gradients
-    in the port's ``nn.Linear`` layouts."""
+    in the port's ``nn.Linear`` layouts.  ``operand``, where given, rounds
+    each operand of the six products (the TPU kernel's ``mm``, :291-296)."""
+    op = operand or (lambda t: t)
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
     r = torch.rsqrt(var + LN_EPS)
     xhat = (x - mu) * r
     xn = xhat * ln_w + ln_b
-    a = F.linear(xn, w1, b1)
+    w1, w2, xn_op = op(w1), op(w2), op(xn)
+    a = F.linear(xn_op, w1, b1)
     h = F.gelu(a)
-    u = F.linear(h, w2, b2)
+    h_op = op(h)
+    u = F.linear(h_op, w2, b2)
     d_y = g * sd[:, None]  # cotangent of u * gamma, rows scaled by stochastic depth
     d_sd = (g * (u * gamma)).sum(-1)
     d_u = d_y * gamma
-    d_h = d_u @ w2  # (N, C) x (C, 4C)
+    d_u_op = op(d_u)
+    d_h = d_u_op @ w2  # (N, C) x (C, 4C)
     # gelu'(a) = Phi(a) + a * phi(a)
     d_a = d_h * (0.5 * (1.0 + torch.erf(a * _INV_SQRT2)) + a * torch.exp(-0.5 * a * a) * _INV_SQRT_2PI)
-    d_xn = d_a @ w1  # (N, 4C) x (4C, C)
+    d_a_op = op(d_a)
+    d_xn = d_a_op @ w1  # (N, 4C) x (4C, C)
     d_xhat = d_xn * ln_w
     m1 = d_xhat.mean(-1, keepdim=True)
     m2 = (d_xhat * xhat).mean(-1, keepdim=True)
     d_x = r * (d_xhat - m1 - xhat * m2)
     return (
         d_x, d_sd, (d_xn * xhat).sum(0), d_xn.sum(0),
-        d_a.T @ xn, d_a.sum(0), d_u.T @ h, d_u.sum(0), (d_y * u).sum(0),
+        d_a_op.T @ xn_op, d_a.sum(0), d_u_op.T @ h_op, d_u.sum(0), (d_y * u).sum(0),
     )
+
+
+def _mlp_bwd_plain_bf16_products(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain version of the ``precise=False`` arm's backward
+    (tpu_captioner/ops/mlp_block.py:275-349 with mxu_dtype=bfloat16), for
+    f32 or bf16 g, x, w1 and w2: ``_mlp_bwd_plain`` on them widened to f32
+    with each product operand rounded to bf16, d_x rounded to x's dtype
+    once; the other eight outputs f32."""
+    d_x, *rest = _mlp_bwd_plain(_widen(g), _widen(x), sd, ln_w, ln_b, _widen(w1), b1, _widen(w2), b2, gamma,
+                                operand=_bf16_operand)
+    return (d_x.to(x.dtype), *rest)
 
 
 def _mlp_bwd_plain_bf16(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
@@ -176,8 +233,11 @@ def _lib():
     for fn in (lib.tc_mlp_block_forward, lib.tc_mlp_block_forward_bf16):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.tc_mlp_block_forward_workspace.restype = ctypes.c_longlong
-    lib.tc_mlp_block_forward_workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tc_mlp_block_forward_bf16_products.restype = ctypes.c_int
+    lib.tc_mlp_block_forward_bf16_products.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.tc_mlp_block_forward_workspace, lib.tc_mlp_block_forward_bf16_products_workspace):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.tc_mlp_block_fused_plan.restype = ctypes.c_int
     lib.tc_mlp_block_fused_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.tc_mlp_block_fused_columns.restype = ctypes.c_int
@@ -190,7 +250,10 @@ def _bwd_lib():
     for fn in (lib.tc_mlp_block_backward, lib.tc_mlp_block_backward_bf16):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.tc_mlp_block_backward_workspace, lib.tc_mlp_block_backward_bf16_workspace):
+    lib.tc_mlp_block_backward_bf16_products.restype = ctypes.c_int
+    lib.tc_mlp_block_backward_bf16_products.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for fn in (lib.tc_mlp_block_backward_workspace, lib.tc_mlp_block_backward_bf16_workspace,
+               lib.tc_mlp_block_backward_bf16_products_workspace):
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
@@ -200,13 +263,21 @@ _BF16_IO = ("x", "residual", "w1", "w2")  # the bf16 instance's bf16 operands; t
 _BF16_BWD = ("g", "x", "w1", "w2")  # the bf16 backward's bf16 operands; d_x too
 
 
-def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+def _check_precise(what, precise):
+    if not isinstance(precise, bool):
+        raise TypeError(f"{what}: precise must be a bool, got {precise!r}")
+
+
+def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, precise=True):
     """The forward: the CUDA kernel for CUDA tensors (the sub-tiled one when
-    ``_pipeline_sub`` selects it; the bf16 instance when x is bf16), the
-    plain version for CPU tensors; any other device raises."""
+    ``_pipeline_sub`` selects it; the bf16 instance when x is bf16; the
+    bf16-product arm when ``precise`` is False), the plain version for CPU
+    tensors; any other device raises."""
     args = (x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
     bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
+        if not precise:
+            return _mlp_plain_bf16_products(*args)
         return _mlp_plain_bf16(*args) if bf16 else _mlp_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convnext_mlp runs on cpu or cuda tensors, got {x.device}")
@@ -218,16 +289,25 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     _build.require_current_device("fused_convnext_mlp", args)
     lib = _lib()
     sub = _pipeline_sub(n, c)
-    launch = lib.tc_mlp_block_forward_bf16 if bf16 else lib.tc_mlp_block_forward
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        work = sd.new_empty(lib.tc_mlp_block_forward_workspace(n, c, sub))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(
-            *(t.data_ptr() for t in (*args, out, work)), n, c, sub, stream
-        )
+        if precise:
+            launch = lib.tc_mlp_block_forward_bf16 if bf16 else lib.tc_mlp_block_forward
+            work = sd.new_empty(lib.tc_mlp_block_forward_workspace(n, c, sub))
+            err = launch(*(t.data_ptr() for t in (*args, out, work)), n, c, sub, stream)
+        else:
+            work = sd.new_empty(lib.tc_mlp_block_forward_bf16_products_workspace(n, c, sub))
+            err = lib.tc_mlp_block_forward_bf16_products(
+                *(t.data_ptr() for t in (*args, out, work)), n, c, sub, int(bf16), stream)
     _build.check(lib, err, "mlp_block")
     fused_convnext_mlp.launches += 1
+    if not precise:
+        fused_convnext_mlp.bf16_product_launches += 1
+        fused_convnext_mlp.pipelined_bf16_product_launches += bool(sub)
+        fused_convnext_mlp.bf16_product_bf16_launches += bf16
+        fused_convnext_mlp.pipelined_bf16_product_bf16_launches += bool(sub) and bf16
+        return out
     if sub:
         fused_convnext_mlp.pipelined_launches += 1
     if bf16:
@@ -237,16 +317,20 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     return out
 
 
-def fused_convnext_mlp_bwd(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+def fused_convnext_mlp_bwd(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, precise=True):
     """Gradients of the tail without its residual, for the cotangent ``g``
     (N, C): the nine outputs of ``_mlp_bwd_plain``.  bf16 g, x, w1 and w2
     (the rest f32) take the bf16 instance: d_x bf16, the other eight f32
-    (``_mlp_bwd_plain_bf16``).  CUDA tensors launch ``csrc/mlp_block_bwd.cu``
-    on the current stream; CPU tensors take the plain version; any other
-    device raises."""
+    (``_mlp_bwd_plain_bf16``).  ``precise`` False takes the bf16-product
+    arm (``_mlp_bwd_plain_bf16_products``), for either dtype.  CUDA tensors
+    launch ``csrc/mlp_block_bwd.cu`` on the current stream; CPU tensors take
+    the plain version; any other device raises."""
+    _check_precise("fused_convnext_mlp_bwd", precise)
     args = (g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
     bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
+        if not precise:
+            return _mlp_bwd_plain_bf16_products(*args)
         return _mlp_bwd_plain_bf16(*args) if bf16 else _mlp_bwd_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convnext_mlp_bwd runs on cpu or cuda tensors, got {x.device}")
@@ -261,36 +345,47 @@ def fused_convnext_mlp_bwd(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     outs = (
         torch.empty_like(x), f32(n), f32(c), f32(c), f32(4 * c, c), f32(4 * c), f32(c, 4 * c), f32(c), f32(c),
     )
-    launch, workspace = ((lib.tc_mlp_block_backward_bf16, lib.tc_mlp_block_backward_bf16_workspace) if bf16
-                         else (lib.tc_mlp_block_backward, lib.tc_mlp_block_backward_workspace))
     with torch.cuda.device(x.device):
-        work = f32(workspace(n, c))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(*(t.data_ptr() for t in (*args, *outs, work)), n, c, stream)
+        if precise:
+            launch, workspace = ((lib.tc_mlp_block_backward_bf16, lib.tc_mlp_block_backward_bf16_workspace) if bf16
+                                 else (lib.tc_mlp_block_backward, lib.tc_mlp_block_backward_workspace))
+            work = f32(workspace(n, c))
+            err = launch(*(t.data_ptr() for t in (*args, *outs, work)), n, c, stream)
+        else:
+            work = f32(lib.tc_mlp_block_backward_bf16_products_workspace(n, c))
+            err = lib.tc_mlp_block_backward_bf16_products(
+                *(t.data_ptr() for t in (*args, *outs, work)), n, c, int(bf16), stream)
     _build.check(lib, err, "mlp_block_bwd")
     fused_convnext_mlp_bwd.launches += 1
-    if bf16:
+    if not precise:
+        fused_convnext_mlp_bwd.bf16_product_launches += 1
+        fused_convnext_mlp_bwd.bf16_product_bf16_launches += bf16
+    elif bf16:
         fused_convnext_mlp_bwd.bf16_launches += 1
     return outs
 
 
 fused_convnext_mlp_bwd.launches = 0
 fused_convnext_mlp_bwd.bf16_launches = 0  # of those, the bf16 instance's
+fused_convnext_mlp_bwd.bf16_product_launches = 0  # of those, the precise=False arm's
+fused_convnext_mlp_bwd.bf16_product_bf16_launches = 0  # of the arm's, on bf16 data
 
 
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    def forward(ctx, x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, precise):
         ctx.save_for_backward(x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
-        return _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+        ctx.precise = precise
+        return _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, precise=precise)
 
     @staticmethod
     def backward(ctx, g):
         # bf16: d_x and the residual's g are bf16; d_w1 and d_w2 come back in
         # f32, and autograd rounds each once to its bf16 input's dtype.
-        d_x, d_sd, *d_params = fused_convnext_mlp_bwd(g.contiguous(), *ctx.saved_tensors)
+        d_x, d_sd, *d_params = fused_convnext_mlp_bwd(g.contiguous(), *ctx.saved_tensors, precise=ctx.precise)
         grads = (d_x, g, d_sd, *d_params)
-        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
+        return (*(d if need else None for d, need in zip(grads, ctx.needs_input_grad)), None)
 
 
 def fused_convnext_mlp(
@@ -301,6 +396,7 @@ def fused_convnext_mlp(
     w1: torch.Tensor, b1: torch.Tensor,  # (4C, C), (4C,)
     w2: torch.Tensor, b2: torch.Tensor,  # (C, 4C), (C,)
     gamma: torch.Tensor,  # (C,) layer scale
+    precise: bool = True,  # False: the bf16-product arm (module note)
 ) -> torch.Tensor:
     """The fused tail, differentiable: the CUDA kernels for CUDA tensors,
     the plain versions for CPU tensors; any other device raises.  bf16 x,
@@ -311,11 +407,23 @@ def fused_convnext_mlp(
     ``.bf16_launches`` a bf16 instance and ``.pipelined_bf16_launches`` the
     sub-tiled kernel's bf16 instance;
     ``fused_convnext_mlp_bwd.launches`` counts backward ones, of which
-    ``.bf16_launches`` ran the bf16 instance."""
-    return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    ``.bf16_launches`` ran the bf16 instance.  ``precise`` False (a bool,
+    else TypeError) runs the bf16-product arm: its launches count in
+    ``.launches`` and in ``.bf16_product_launches`` alone (not in the
+    counters above), of which ``.pipelined_bf16_product_launches`` ran the
+    sub-tiled kernel and ``.bf16_product_bf16_launches`` (and
+    ``.pipelined_bf16_product_bf16_launches``) took bf16 data; the
+    backward's in ``fused_convnext_mlp_bwd.launches``,
+    ``.bf16_product_launches`` and ``.bf16_product_bf16_launches``."""
+    _check_precise("fused_convnext_mlp", precise)
+    return _FusedMLP.apply(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, precise)
 
 
 fused_convnext_mlp.launches = 0
 fused_convnext_mlp.pipelined_launches = 0
 fused_convnext_mlp.bf16_launches = 0
 fused_convnext_mlp.pipelined_bf16_launches = 0
+fused_convnext_mlp.bf16_product_launches = 0
+fused_convnext_mlp.pipelined_bf16_product_launches = 0
+fused_convnext_mlp.bf16_product_bf16_launches = 0
+fused_convnext_mlp.pipelined_bf16_product_bf16_launches = 0
