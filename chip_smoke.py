@@ -272,6 +272,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    replay per bs-32 encoder pass and per fine-tune step beside the plain
    version and the precise=True instance.
 
+Beside each step time of phases 5 and 8c (the frozen step of each family),
+6 (the fine-tune step), 7 (the eval step in each decode mode, at the tokens
+its loops ran), 12b (bf16 and f32, frozen and fine-tune) and 14c (bf16
+'block'), a line gives the step's model FLOPs (``eval/flops.py``) as
+``model_tflops_per_step`` and its ``mfu`` against the card's published
+peak for the step's compute dtype, with the card's name and power limit; a
+count of 0, a share above 1 or an H100 SXM part without a peak fails.
+
 The line before the last is a JSON object of the kernels (route, source, the
 TPU kernel each replaces, launches on the main paths (0 for the
 ``precise=False`` arm's six instances, ``*_bf16_products*``), on the training
@@ -295,6 +303,11 @@ import os
 import sys
 import tempfile
 import time
+
+from tpu_captioner_torch.eval.flops import (
+    BF16_BY_F32_OPS_PER_S, BF16_OPS_PER_S, F32_OPS_PER_S, F32_PRODUCT_OPS_PER_S, HBM_BYTES_PER_S, TF32_OPS_PER_S,
+    eval_step_flops, mfu, peak_flops_per_chip, train_step_flops,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MLP_TOL = 1e-4  # order-one outputs of 4C-long f32 sums in another order; erff vs torch's erf
@@ -322,16 +335,12 @@ POOL_N = 29_366_272  # keep-bits of one flagship train step (batch 32, T 52, 6 l
 POOL_SEEDS = ((0, 0), (0x9E3779B9, 7), (0xFFFFFFFF, 0x12345678))
 TRAIN_BS, TRAIN_T = 32, 52
 TRAIN_TIMED_STEPS = 12
-# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
-TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
-# f32-accurate matrix products on the tensor cores: three TF32 products per
-# f32 one (3xTF32, tpu_captioner_torch/csrc/tf32x3_gemm.cuh).  The least
-# time for f32 products, whatever implements them, bounds every kernel
-# whose operations are matrix products (the MLP tail, forward, sub-tiled
-# and backward; the block kernel; the whole-rollout decode kernel).
-F32_PRODUCT_OPS_PER_S = TF32_OPS_PER_S / 3
+# The card's rates (NVIDIA H100 SXM data sheet, at 700 W) come from the one
+# table of them, the port's eval/flops.py, which the MFU readings use too.
+# F32_PRODUCT_OPS_PER_S, the least time for f32 products whatever
+# implements them, bounds every kernel whose operations are matrix products
+# (the MLP tail, forward, sub-tiled and backward; the block kernel; the
+# whole-rollout decode kernel).
 # The dropout pool's operations in the card's own terms (PERF.md section 6,
 # "Bounds"; scripts/pool_probe.py).  One Philox4x32-10 call (four pool
 # elements) needs 19 32x32 -> 64-bit products: two a round, less the first
@@ -412,6 +421,45 @@ def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     the operations over the peak rate."""
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def step_flops(cfg, image_size, train_encoder=False, decode_len=None):
+    """Model FLOPs (eval/flops.py) of one batch-TRAIN_BS step of ``cfg``'s
+    model on ``image_size`` square images: the teacher-forced train step of
+    TRAIN_T tokens (the encoder frozen, or its children from FT_START on
+    trained), or, given ``decode_len``, the greedy eval step of that many
+    tokens."""
+    widths = dict(decoder=cfg.decoder, image_size=image_size, depths=cfg.encoder_depths, dims=cfg.encoder_dims,
+                  embed_dim=cfg.embed_dim, decoder_dim=cfg.decoder_dim, num_layers=cfg.num_layers,
+                  encoded_image_size=cfg.encoded_image_size)
+    if decode_len is not None:
+        return eval_step_flops(TRAIN_BS, cfg.vocab_size, decode_len=decode_len, **widths)
+    return train_step_flops(TRAIN_BS, cfg.vocab_size, train_encoder=train_encoder, starting_layer=FT_START,
+                            seq_len=TRAIN_T, **widths)
+
+
+def mfu_line(label, flops, ms, dtype, card):
+    """Print a step's ``model_tflops_per_step`` and ``mfu`` (``flops`` in
+    ``ms``) against the card's published peak for the step's compute dtype
+    (eval/flops.py), with the card's name and power limit.  Fails on a count
+    of 0, on a share above 1 (a wrong count or a wrong peak) and on an H100
+    SXM part that the table lacks; another card's share is not measured."""
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    if flops <= 0:
+        raise AssertionError(f"{label}: a model FLOP count of {flops}")
+    peak = peak_flops_per_chip(dtype, name)
+    if peak is None:
+        if "H100" in name and not any(part in name for part in ("PCIe", "NVL")):
+            raise AssertionError(f"{label}: eval/flops.py has no peak for the H100 SXM part {name!r}")
+        reading = f"mfu: not measured (no published peak for {name})"
+    else:
+        share = mfu(flops, ms / 1e3, dtype, name)
+        if not 0 < share <= 1.0:
+            raise AssertionError(f"{label}: mfu {share} outside (0, 1]: a wrong count or a wrong peak")
+        reading = f"mfu {share:.4f} of {peak / 1e12:.2f} TFLOP/s ({dtype})"
+    print(f"{label}: model_tflops_per_step {flops / 1e12:.4f} in {ms:.2f} ms, {reading} [{card}]")
 
 
 def check_mlp(dev, card):
@@ -1009,6 +1057,8 @@ def train_phase(dev, card, seed, word_map, cfg=None, pool_n=POOL_N):
           f"steps (min {min(times):.2f}, max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, "
           f"train-mode encoder {enc_ms:.2f} ms, peak memory {peak / 2**30:.2f} GiB; "
           f"loss {float(m['loss']):.4f} [{card}]")
+    mfu_line(f"{cfg.decoder} train step bs={TRAIN_BS} frozen encoder", step_flops(cfg, batch["images"].shape[1]), ms,
+             cfg.compute_dtype, card)
     return launches[0]
 
 
@@ -1284,6 +1334,8 @@ def finetune_phase(dev, card, seed, word_map):
               f"median {ms:.2f} ms/step over {TRAIN_TIMED_STEPS} steps (min {min(times):.2f}, "
               f"max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory "
               f"{peak / 2**30:.2f} GiB; launches per step {counts()}; loss {float(met['loss']):.4f} [{card}]")
+        mfu_line(f"fine-tune step bs={TRAIN_BS} starting_layer {FT_START}, remat {label!r}",
+                 step_flops(cfg, batch["images"].shape[1], train_encoder=True), ms, cfg.compute_dtype, card)
         if label == "off":
             state, groups, top, _, _ = _kernel_ms_by_group(
                 step, state, batch, [prng.step_seed(root, "dropout", 3, i) for i in range(2)])
@@ -1506,6 +1558,9 @@ def eval_phase(dev, card, seed, word_map):
                 eval_ms, _ = _host_ms(lambda: step(batch))
                 print(f"eval bs={TRAIN_BS} {label}: encoder {enc_ms:.2f} ms, rollout {roll_ms:.2f} ms "
                       f"({runs[label][3]} tokens), eval step {eval_ms:.2f} ms [{card}]")
+                mfu_line(f"eval step bs={TRAIN_BS} {label}, {runs[label][3]} tokens",
+                         step_flops(cfg, batch["images"].shape[1], decode_len=runs[label][3]), eval_ms,
+                         cfg.compute_dtype, card)
             ids = dict(word_map, **{"<end>": emitted_end_id(plain[1]["sequences"])})
         elif not bool((lengths < steps).any()):
             raise AssertionError(f"no row finished before step {steps} with <end> = {ids['<end>']}")
@@ -2872,13 +2927,6 @@ def training_phase(dev, card, seed, keep=None):
 # near-tie of that size).
 BF16_F32_TOL = 2e-3
 BF16_NOISE = 2.0
-BF16_OPS_PER_S = 989e12  # bf16 products on the tensor cores, dense
-# An f32 row times a bf16 weight, f32-accurate (the MLP tail's bf16
-# instance), at the card's best: the row split into three bf16 pieces (hi,
-# mid, lo: 24 bits), each product with the bf16 weight exact, summed in f32,
-# i.e. three bf16 products per product (the kernel runs two TF32 ones, the
-# row's hi and lo planes against the weight's only plane: 247.5 TFLOP/s).
-BF16_BY_F32_OPS_PER_S = BF16_OPS_PER_S / 3
 BF16_SHAPES = tuple((b, 64 >> s, 64 >> s, c) for b in (8, 32) for s, c in enumerate((128, 256, 512, 1024)))
 
 
@@ -3845,6 +3893,8 @@ def bf16_train_phase(dev, card, seed, word_map):
                   f"{TRAIN_TIMED_STEPS} steps (min {min(times):.2f}, max {max(times):.2f}), "
                   f"{TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                   f"GiB, loss {float(met['loss']):.4f} [{card}]")
+            mfu_line(f"{'bf16' if m is model else 'f32'} {label} step bs={TRAIN_BS}",
+                     step_flops(m.cfg, batch["images"].shape[1], train_encoder), ms, m.cfg.compute_dtype, card)
             if m is model and train_encoder:
                 state, groups, top, n_launch, wall_ms = _kernel_ms_by_group(
                     step, state, batch, [prng.step_seed(root, "dropout", 3, i) for i in range(2)])
@@ -4687,6 +4737,8 @@ def bf16_block_train(dev, card, seed, word_map, rng):
               f"max {max(times):.2f}), {TRAIN_BS / (ms / 1e3):.1f} images/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {sum(launches[label]) } kernel launches "
               f"{dict(zip(names, launches[label]))} per step, loss {float(met['loss']):.4f} [{card}]")
+        mfu_line(f"bf16 'block' {label} step bs={TRAIN_BS}", step_flops(cfg, batch["images"].shape[1], train_encoder),
+                 ms, cfg.compute_dtype, card)
         del state, step
         torch.cuda.empty_cache()
     print(f"phase 14c took {time.perf_counter() - t0:.1f} s")

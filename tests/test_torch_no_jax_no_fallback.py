@@ -71,7 +71,7 @@ def test_port_imports_no_jax():
         for new in ("data.vocab", "data.build", "data.dataset", "data.loader", "models.embeddings",
                     "train.checkpoint", "train.loop", "cli.common", "cli.train", "cli.test", "cli.build_data",
                     "native.lib", "native.bleu_native", "native.gather", "infer.visualize", "cli.graphs",
-                    "parallel.mesh", "parallel.collectives", "parallel.dryrun"):
+                    "parallel.mesh", "parallel.collectives", "parallel.dryrun", "eval.flops"):
             assert "tpu_captioner_torch." + new in names, new
         bad = sorted(m for m in sys.modules if m.split(".")[0] in (
             "pandas", "nltk", "PIL", "h5py", "matplotlib", "scipy"))

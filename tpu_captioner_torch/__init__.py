@@ -20,7 +20,8 @@ several; for the four decoder families:
                reference ``.pth.tar`` checkpoints;
 - ``ops``    — the hand-written Hopper kernels of those paths, each beside
                its plain PyTorch version;
-- ``eval``   — token metrics, the meter, rollout masks and corpus BLEU;
+- ``eval``   — token metrics, the meter, rollout masks, corpus BLEU, and
+               model FLOPs per step with MFU against the card's peaks;
 - ``native`` — the host runtime in C++ (corpus BLEU's counts, the batch
                gather), built with g++ on first use;
 - ``train``  — ``CaptionModel``, optimizers and ``TrainState``, the train and
