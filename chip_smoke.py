@@ -1070,7 +1070,7 @@ KERNEL_GROUPS = (
     ("dwconv_grad", ("dwconv_wgrad",)),
     ("dwconv", ("dwconv_fwd_kernel",)),
     ("block_fused conv + LayerNorm", ("conv_ln_kernel",)),
-    ("mlp_block", ("mlp_block_kernel", "ln_rows", "HiddenEpi", "OutEpi")),
+    ("mlp_block", ("mlp_block_kernel", "ln_rows", "ln_stats", "HiddenEpi", "OutEpi")),
     ("mlp_block_bwd", ("gemm_kernel", "prep_rows", "finish_rows", "column_partials",
                        "column_finish", "sum_splits")),
     ("mlp tf32 split", ("split_kernel",)),
@@ -3122,6 +3122,10 @@ def check_bf16_kernels(dev, card, layers):
                 acc[1 + i] += depth * t
             acc[4] += depth * n_bytes
             acc[5] += depth * n_ops
+            if name == "mlp_block_bf16":
+                one, one_by = bound(n_bytes, n_ops, BF16_BY_F32_OPS_PER_S)
+                print(f"bf16 mlp_block N={b * h * w} C={c}: kernel {times[0]:.4f} ms per launch ({depth} a pass), "
+                      f"bound {one:.4f} ms ({one_by}), {one / times[0]:.1%} of it [{card}]")
     out = {}
     for name, (err, ms, plain_ms, lib_ms, n_bytes, n_ops) in sums.items():
         rate = BF16_BY_F32_OPS_PER_S if name == "mlp_block_bf16" else F32_OPS_PER_S
@@ -3601,10 +3605,22 @@ def check_bf16_train_kernels(dev, card):
         t = (_graph_ms(lambda: fused_convnext_mlp_bwd(*args), iters=10),
              _graph_ms(lambda: _mlp_bwd_plain_bf16(*args), iters=3, warmup=1))
         t_f32 = _graph_ms(lambda: fused_convnext_mlp_bwd(*wide), iters=10)
+        again = fused_convnext_mlp_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"mlp_block_bwd bf16 kernel at N={n}, C={c}: a second call gave other bits")
+        # 32 N C^2 flops with a bf16 weight, 16 N C^2 of f32 activations;
+        # g, x, d_x in bf16, the weights in bf16 and their gradients in f32.
+        one_ops = (32 * n * c * c / BF16_BY_F32_OPS_PER_S + 16 * n * c * c / F32_PRODUCT_OPS_PER_S) * 1e3
+        one_bytes = (2 * 3 * n * c + 4 * 2 * n + 2 * 8 * c * c + 4 * 8 * c * c + 4 * 2 * 8 * c) / HBM_BYTES_PER_S * 1e3
+        one = max(one_ops, one_bytes)
         print(f"bf16 mlp_block_bwd N={n} C={c}: d_x {dx_err:.3e} ({dx_ulps:.2f} ulp), f32 outputs max relative "
-              f"{max(e[1] for e in errs):.3e} (tol {BF16_TRAIN_TOL:g}); kernel {t[0]:.4f} ms, plain {t[1]:.4f}, "
-              f"f32 instance {t_f32:.4f} per launch [{card}]")
+              f"{max(e[1] for e in errs):.3e} (tol {BF16_TRAIN_TOL:g}), the same bits twice; kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f}, f32 instance {t_f32:.4f} per launch; bound {one:.4f} ms "
+              f"({'operations' if one_ops >= one_bytes else 'bytes'}), {one / t[0]:.1%} of it [{card}]")
         if depth:
+            print(f"bf16 mlp_block_bwd N={n} C={c}, each launch of a call (device ms per call, torch.profiler): "
+                  + "; ".join(f"{name} x{k} {ms:.4f}" for name, k, ms in launch_breakdown(
+                      lambda: fused_convnext_mlp_bwd(*args))) + f" [{card}]")
             a = acc["mlp_block_bwd_bf16"]
             a[0] = max(a[0], worst)
             a[1] += depth * t[0]
@@ -3677,6 +3693,33 @@ def check_bf16_train_kernels(dev, card):
               + ("" if lib is None else f", library {lib:.4f} ms") + f", bound {bound_ms:.4f} ms ({bound_by}; "
               f"bytes {by_bytes:.4f}, operations {by_ops:.4f}){extra} [{card}]")
     return out
+
+
+def launch_breakdown(fn, calls=3):
+    """Each kernel of a call of ``fn``: (short name, launches a call, device
+    ms a call), longest first, from a ``torch.profiler`` window of
+    ``calls`` calls (the device's activity only) after a warm-up call
+    inside the profiler's schedule: a window that starts with the calls it
+    counts loses the first call's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    windows = []  # the recorded window's averages, taken before the profiler clears them
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                 on_trace_ready=lambda p: windows.append(p.key_averages())) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = []
+    for e in windows[-1]:
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")[:60]
+        rows.append((name, e.count // calls, e.self_device_time_total / 1e3 / calls))
+    return sorted(rows, key=lambda r: -r[2])
 
 
 def bf16_train_agree(label, got, want, grads, want_grads, floor_grads, f32_grads, params, want_params, start, after,

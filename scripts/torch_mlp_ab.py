@@ -29,7 +29,13 @@ inputs, per-image stochastic-depth rows):
   over one encoder pass;
 - ``bf16 C={c}`` and ``bf16 pass``, where the checkout has the bf16
   instance: the same device ms of ``fused_convnext_mlp`` on bf16 x,
-  residual, W1 and W2 at batch 32, and their sum over one encoder pass.
+  residual, W1 and W2 at batch 32, and their sum over one encoder pass;
+  ``bf16 C={c} | {kernel}``: each kernel's device ms per call;
+- ``bwd bf16 C={c}`` and ``finetune_step_bwd_bf16``, where the checkout has
+  the bf16 backward: device ms of ``fused_convnext_mlp_bwd`` on bf16 g, x,
+  W1 and W2 at the fine-tune step's two stages, and their sum over a step;
+  ``bwd bf16 C={c} | {kernel}``: each kernel's device ms per call of it
+  (``torch.profiler``, summed over the kernel's launches in the call).
 
 The last line is a table of each checkout's median per key, with the card's
 name and power limit; with ``--pairs A B``, where the roots were given as A
@@ -88,6 +94,29 @@ def measure(root):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    def launch_ms(fn, prefix, calls=3):
+        """Each kernel's device ms per call of ``fn``, by short name, after a
+        warm-up call inside the profiler's schedule (a window that starts
+        with the calls it counts loses the first call's kernels)."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        fn()
+        torch.cuda.synchronize()
+        windows = []  # the recorded window's averages, taken before the profiler clears them
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                     on_trace_ready=lambda p: windows.append(p.key_averages())) as prof:
+            for _ in range(calls + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        got = {}
+        for e in windows[-1]:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")[:70]
+            got[f"{prefix} | {name} x{e.count // calls}"] = e.self_device_time_total / 1e3 / calls
+        return got
+
     def stage_args(s, c, batch):
         g = torch.Generator().manual_seed(c + batch)
         f = lambda *sh: torch.randn(*sh, generator=g)  # noqa: E731
@@ -116,9 +145,20 @@ def measure(root):
                 if fused_convnext_mlp.bf16_launches == before:
                     raise SystemExit(f"{root}: the bf16 call at C={c} did not launch the bf16 instance")
                 sums["bf16 pass"] = sums.get("bf16 pass", 0.0) + depth * out[f"bf16 C={c}"]
+                out.update(launch_ms(lambda: fused_convnext_mlp(*a16), f"bf16 C={c}"))
             if s >= 2:  # a stage the fine-tune step trains: the cotangent in the residual's place
                 out[f"bwd C={c}"] = time_ms(lambda: fused_convnext_mlp_bwd(args[1], args[0], *args[2:]), iters=10)
                 step += depth * out[f"bwd C={c}"]
+                if hasattr(fused_convnext_mlp_bwd, "bf16_launches"):
+                    a16 = tuple(a.to(torch.bfloat16) if i in (0, 1, 5, 7) else a for i, a in enumerate(args))
+                    bwd16 = lambda: fused_convnext_mlp_bwd(a16[1], a16[0], *a16[2:])  # noqa: E731
+                    before = fused_convnext_mlp_bwd.bf16_launches
+                    out[f"bwd bf16 C={c}"] = graph_ms(bwd16, iters=5)
+                    if fused_convnext_mlp_bwd.bf16_launches == before:
+                        raise SystemExit(f"{root}: the bf16 backward at C={c} did not launch the bf16 instance")
+                    sums["finetune_step_bwd_bf16"] = sums.get("finetune_step_bwd_bf16", 0.0) + depth * out[
+                        f"bwd bf16 C={c}"]
+                    out.update(launch_ms(bwd16, f"bwd bf16 C={c}"))
             for batch in (8, BATCH):
                 args = stage_args(s, c, batch)
                 for path in ("whole", "sub"):
@@ -164,13 +204,15 @@ def main():
                               capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1]
         print(f"{root}: {line}", flush=True)
         runs.setdefault(root, []).append(json.loads(line))
-    table = {root: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for root, rs in runs.items()}
+    # A key a run lacks (a kernel the profiler saw in another run only) is left out.
+    table = {root: {k: statistics.median(r[k] for r in rs) for k in rs[0] if all(k in r for r in rs)}
+             for root, rs in runs.items()}
     summary = {"card": card, "median_ms": table}
     if pairs:
         a, b = (runs[root] for root in pairs)
         summary["pairs"] = {}
         for k in a[0]:
-            if k == "sub" or k not in b[0]:
+            if k == "sub" or not all(k in r for r in (*a, *b)):
                 continue
             diffs = [x[k] - y[k] for x, y in zip(a, b)]
             summary["pairs"][k] = {"n": len(diffs), "median_a_minus_b": statistics.median(diffs),

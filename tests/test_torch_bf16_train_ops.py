@@ -201,18 +201,22 @@ def test_bf16_dwconv_wrappers_take_only_their_dtypes():
 
 def test_bf16_backward_sources_have_no_fallback():
     """Both bf16 backward entry points exist in their sources and read
-    ``__nv_bfloat16``; the MLP backward's four weight products read the
-    weights' hi plane alone (``gemm<kW>``, kW = 1 in bf16) and its workspace
-    keeps one plane of each weight; the filter gradient's kernel is
-    instantiated on its element type; the wrappers widen none of g, x or the
-    weights to f32 copies, and catch no build or launch failure."""
+    ``__nv_bfloat16``; the MLP backward's four weight products run the
+    three-piece bf16 GEMM (``x3::gemm``) on the bf16 weights as they lie,
+    two of them MN-major, with no weight split, and its workspace keeps no
+    weight plane; the filter gradient's kernel is instantiated on its
+    element type; the wrappers widen none of g, x or the weights to f32
+    copies, and catch no build or launch failure."""
     from tpu_captioner_torch.ops import _build, dwconv, mlp_block
 
     bwd = (_build.CSRC / "mlp_block_bwd.cu").read_text()
     assert "int tc_mlp_block_backward_bf16(" in bwd and "tc_mlp_block_backward_bf16_workspace" in bwd
-    assert "static_cast<const bf*>(g)" in bwd and "using bf = __nv_bfloat16;" in bwd
-    assert "kW = sizeof(T) == 4 ? 2 : 1" in bwd and bwd.count("TC_TRY(gemm<kW>(") == 4
-    assert "make_plan(n, c, 1)" in bwd
+    assert "static_cast<const bf16*>(g)" in bwd and "backward_x3<1024>(TC_ARGS)" in bwd
+    body = bwd[bwd.index("int backward_x3("):bwd.index("// ------------------------------------------- the precise=False")]
+    assert body.count("TC_TRY(x3::gemm<0>(") == 2 and body.count("TC_TRY(x3::gemm<1>(") == 2
+    assert "x3::gemm<1>(du, w2," in body and "x3::gemm<1>(da, w1," in body
+    assert "split(w1" not in body and "split(w2" not in body and "to_bf16" not in body
+    assert "make_plan(n, C, true)" in body and "make_plan(n, c, true).total" in bwd
     dw = (_build.CSRC / "dwconv.cu").read_text()
     assert "int tc_dwconv_wgrad_bf16(" in dw and "template <class T, bool kTma, int kCc, int kTw>\n" \
         "__global__ void __launch_bounds__(kMaxThreads, 1)\n    dwconv_wgrad_kernel(" in dw

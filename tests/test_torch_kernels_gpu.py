@@ -91,7 +91,12 @@ composition on the CPU (bf16 gradients within one ulp of the largest,
 f32 ones within 1e-4 times max(1, the largest)); the sub-tiled MLP tail's
 within one ulp of its plain version and of the whole-tile bf16 instance,
 sd-0 rows bit for bit, the same bits twice; both refuse an x off a
-16-byte boundary.
+16-byte boundary.  The bf16 whole tile and backward on the three-piece
+GEMM (``csrc/bf16_gemm.cuh``: x3::gemm) at 1, 7, 1003 and 8192 rows and
+each stage's rows at batch 1, 8 and 32, under the same limits, both twice bit for bit;
+their libraries' x3 instances issue bf16 HGMMA and UTMALDG and no TF32
+HGMMA, no weight is split in a call, and the C side's tile plan and
+workspaces are ``ops/mlp_block.py:bf16_tail_plan``'s.
 """
 
 import math
@@ -760,6 +765,93 @@ def test_lstm_step_library_runs_tensor_cores_and_tma(cuda):
     assert not re.search(r"\b(?:RED|ATOM|ATOMG)\.\S*F32", sass)
 
 
+def cuda_sass(name):
+    """``cuobjdump -sass`` of the built library ``name``, by function:
+    {mangled name: its SASS}."""
+    import os
+    import re
+    import subprocess
+
+    from tpu_captioner_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def test_mlp_bf16_instances_run_bf16_tensor_cores_on_tma(cuda):
+    """The bf16 whole tile's and backward's three-piece GEMM (``x3::gemm_kernel``
+    instances: both forward products, the backward's four with a weight as
+    B, two of them on the MN-major layout) issues bf16 HGMMA and UTMALDG and
+    no TF32 HGMMA; and no weight split runs in either call (no ``to_bf16``
+    or ``split_kernel`` on a weight: the profiler's kernels by name)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from tpu_captioner_torch.ops.mlp_block import _bwd_lib, _lib
+
+    _lib(), _bwd_lib()
+    for name, count in (("mlp_block", 2), ("mlp_block_bwd", 4)):
+        fns = {k: v for k, v in cuda_sass(name).items() if "bf16mm2x311gemm_kernel" in k}
+        assert len(fns) == count, (name, sorted(fns))
+        for fn, sass in fns.items():
+            assert re.search(r"\bHGMMA\.\S*\.BF16", sass) and re.search(r"\bUTMALDG\b", sass), fn
+            assert not re.search(r"\bHGMMA\.\S*TF32", sass), fn
+    n, c = 2048, 512
+    args = bf16_mlp_args(n, c, cuda, seed=1)
+
+    def call():
+        fused_convnext_mlp(*args)
+        fused_convnext_mlp_bwd(args[1], *(a for i, a in enumerate(args) if i != 1))
+        torch.cuda.synchronize()
+
+    # One call recorded after a warm-up one (a window that starts with the
+    # call it records can lose that call's first kernels).
+    windows = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: windows.append(p.key_averages())) as prof:
+        for _ in range(2):
+            call()
+            prof.step()
+    names = [e.key for e in windows[-1] if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("bf16mm::x3::gemm_kernel" in k for k in names) == 6, names
+    # The backward's two transposed splits are of the f32 rows xn and d_u;
+    # a bf16 weight's split would be split_kernel<__nv_bfloat16>.
+    splits = [k for k in names if "split_kernel" in k]
+    assert len(splits) == 1 and "bfloat16" not in splits[0], names
+    assert not any("to_bf16" in k for k in names), names
+
+
+def test_mlp_bf16_plan_is_the_packages(cuda):
+    """The C side's tile plan (``tc_mlp_block_bf16_plan``) and both bf16
+    workspaces are ``ops/mlp_block.py:bf16_tail_plan``'s, at every width for
+    batch 1, 8 and 32 and at ragged rows, for this card's SM count and
+    another."""
+    import ctypes
+
+    from tpu_captioner_torch.ops.mlp_block import _bwd_lib, _lib, bf16_tail_plan
+
+    lib, bwd = _lib(), _bwd_lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for s, c in enumerate(SUPPORTED_C):
+        for n in [b * (64 >> s) ** 2 for b in (1, 8, 32)] + [1, 7, 1003]:
+            for count in (sms, 100, 0):
+                out = (ctypes.c_longlong * 14)()
+                assert lib.tc_mlp_block_bf16_plan(n, c, count, out) == 0
+                plan = bf16_tail_plan(n, c, count or sms)
+                assert list(out[:5]) == [*plan["tile"], plan["smem"]] and out[4] <= 232448
+                assert list(out[5:9]) == plan["tiles"] and list(out[9:13]) == plan["grid"]
+                assert out[13] == plan["forward_workspace"]
+            plan = bf16_tail_plan(n, c, sms)
+            assert lib.tc_mlp_block_forward_bf16_workspace(n, c, 0) == plan["forward_workspace"]
+            assert bwd.tc_mlp_block_backward_bf16_workspace(n, c) == plan["backward_workspace"]
+    assert lib.tc_mlp_block_bf16_plan(0, 128, 132, (ctypes.c_longlong * 14)()) == -1
+    assert lib.tc_mlp_block_bf16_plan(64, 2048, 132, (ctypes.c_longlong * 14)()) == -1
+
+
 # The sub-tile rows each width takes (ops/mlp_block.py:_pipeline_sub).
 MLP_SUBS = [(128, 64), (256, 64), (512, 64), (1024, 64)]
 
@@ -992,12 +1084,22 @@ def test_dwconv_bf16_kernel_matches_plain(cuda, shape, bias):
     assert xu.data_ptr() % 16 and within_bf16_ulp(got_u, _dw_plain(x, w, b))
 
 
-@pytest.mark.parametrize("c", SUPPORTED_C)
-@pytest.mark.parametrize("n", [1003, 8192])
+# The bf16 whole tile's and backward's rows: one row, a ragged 7 and 1003,
+# 8192, and each ConvNeXt-Base stage's rows at batch 1, 8 and 32 (b x 64^2
+# .. b x 8^2).
+BF16_ROWS = sorted({(c, n) for c in SUPPORTED_C for n in (1, 7, 1003, 8192)} | {
+    (c, b * (64 >> s) ** 2) for s, c in enumerate(SUPPORTED_C) for b in (1, 8, 32)})
+
+
+@pytest.mark.parametrize("c,n", BF16_ROWS)
 def test_mlp_bf16_kernel_matches_plain(cuda, c, n):
+    """The bf16 whole tile (three bf16 pieces a product) within one bf16 ulp
+    of its plain version; sd-0 rows the residual bit for bit; the same bits
+    from a second call."""
     from tpu_captioner_torch.ops.mlp_block import _mlp_plain_bf16
 
     x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(n, c, cuda, seed=c + n, sd="mixed")
+    sd[0] = 0.0  # at least one dropped row
     bf = torch.bfloat16
     args = (x.to(bf), res.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
     before = fused_convnext_mlp.bf16_launches
@@ -1007,6 +1109,7 @@ def test_mlp_bf16_kernel_matches_plain(cuda, c, n):
     assert got.dtype == bf and within_bf16_ulp(got, _mlp_plain_bf16(*args))
     skipped = sd == 0
     assert torch.equal(got[skipped], args[1][skipped])  # sd 0: the residual, bit for bit
+    assert torch.equal(fused_convnext_mlp(*args), got)
 
 
 # The sub-tiled kernel's bf16 instance: each width at a ragged row count
@@ -1089,14 +1192,16 @@ def test_cuda_model_pins_bf16_reductions_to_f32(cuda):
 # bf16 training: the backward instances.
 
 
-@pytest.mark.parametrize("n,c", [(8192, 512), (2048, 1024)] + [(1003, c) for c in SUPPORTED_C] + [(7, 1024)])
+@pytest.mark.parametrize("n,c", [(n, c) for c, n in BF16_ROWS])
 def test_mlp_bf16_backward_kernel_matches_plain(cuda, n, c):
     """The bf16 backward on bf16 g, x, w1 and w2: d_x within one bf16 ulp of
     the plain version (0 on rows with sd 0), the eight f32 gradients within
-    1e-4 x max(1, max |plain|), as the f32 instance's."""
+    1e-4 x max(1, max |plain|), as the f32 instance's; the nine outputs bit
+    for bit on a second call."""
     from tpu_captioner_torch.ops.mlp_block import _mlp_bwd_plain_bf16
 
     g, x, sd, lnw, lnb, w1, b1, w2, b2, gamma = mlp_args(n, c, cuda, seed=n + c, sd="mixed")
+    sd[0] = 0.0  # at least one dropped row
     bf = torch.bfloat16
     args = (g.to(bf), x.to(bf), sd, lnw, lnb, w1.to(bf), b1, w2.to(bf), b2, gamma)
     before = fused_convnext_mlp_bwd.launches, fused_convnext_mlp_bwd.bf16_launches

@@ -14,7 +14,7 @@
 // the f32-accurate tensor-core rate (3xTF32, tf32x3_gemm.cuh: 165 TFLOP/s);
 // 7.50 ms per bs-32 encoder pass.
 //
-// The whole-tile path (SUB = 0, the default).  Three launches and the
+// The whole-tile path (SUB = 0, the default; f32).  Three launches and the
 // weights' split per call: ln_rows (here) writes LN(x) as its two TF32
 // planes (N, C); gemm 1 writes h = gelu(LN(x) W1^T + b1) as two planes (N,
 // 4C) to device memory; gemm 2 runs out = res + sd * (...) in its epilogue
@@ -92,11 +92,22 @@
 // tpu_captioner/models/convnext.py:163-171; _pipeline_sub picks the
 // sub-tiled body for any dtype).  LayerNorm, products, GELU and residual in
 // f32, the f32 sum rounded to bf16 once.
-// - The whole tile (SUB = 0): ln_rows reads bf16 rows, the split reads bf16
-//   weights (a bf16 value is a TF32 value: its lo plane is zero, so the
-//   GEMM reads the weights' hi planes alone and runs two TF32 products a
-//   k-step, hi.hi and lo.hi of the f32 rows, exact f32 products), and the
-//   second product's epilogue reads the bf16 residual and rounds once.
+// - The whole tile (SUB = 0, whole_tile_x3), which replaces _kernel on
+//   this path: bf16 x, residual and weights, f32 products.  What bounds it
+//   on the H100: the two products, 16*N*C^2 flops at 329.67 TFLOP/s (an f32
+//   row split into three exact bf16 pieces times a bf16 weight, 989 / 3),
+//   3.75 ms per bs-32 encoder pass, against 1.6 ms for the bf16 bytes and
+//   h's f32 round trip.  The design (bf16_gemm.cuh: x3::gemm): three
+//   launches, no weight split.  ln_stats writes each row's (mu, rstd);
+//   the first product's consumers normalise their fragment of the bf16 x
+//   box in f32 ((x - mu) rstd ln_w + ln_b, ln_w and ln_b staged in shared
+//   memory), split it into three bf16 pieces in registers and run three
+//   register-A wgmma a k16 step on W1's bf16 box as it lies; its epilogue
+//   writes h = gelu(a + b1) as one f32 plane (N, 4C), 16*N*C bytes each
+//   way; the second product reads h's f32 boxes and W2's bf16 boxes the same way
+//   and runs OutEpi: the bf16 residual in, out rounded once.  Both GEMMs are
+//   persistent (one block an SM walks the 128 x 128 tiles), so a tile's
+//   epilogue overlaps the next tile's loads.
 // - The sub-tiled path (SUB = 64): fused_kernel<C, NC, bf16>.  x arrives by
 //   TMA as bf16 slabs (32 columns x 64 rows, 64-byte rows with the 64-byte
 //   swizzle: a thread's four columns are 8 bytes of a 16-byte chunk, the
@@ -161,10 +172,10 @@ __device__ __forceinline__ float at(float4 v, int e) { return e == 0 ? v.x : e =
 
 // ------------------------------------------------ the whole-tile path (SUB = 0)
 
-// LayerNorm of each row of x (f32 or bf16) into its two TF32 planes, xs
-// (N, C) and xs + N*C.
-template <int C, class T>
-__global__ void __launch_bounds__(kLnThreads) ln_rows(const T* __restrict__ x, const float* __restrict__ lnw,
+// LayerNorm of each row of x into its two TF32 planes, xs (N, C) and
+// xs + N*C.
+template <int C>
+__global__ void __launch_bounds__(kLnThreads) ln_rows(const float* __restrict__ x, const float* __restrict__ lnw,
                                                      const float* __restrict__ lnb, float* __restrict__ xs,
                                                      int n) {
   const int row = (blockIdx.x * kLnThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
@@ -197,17 +208,76 @@ __global__ void __launch_bounds__(kLnThreads) ln_rows(const T* __restrict__ x, c
   }
 }
 
-// x, res, the weights and out of T: f32, or bf16 (the bf16 instance).
-template <int C, class T>
-int whole_tile(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb,
-               const T* w1, const float* b1, const T* w2, const float* b2, const float* gamma,
-               T* out, float* work, int n, cudaStream_t s) {
+// The f32 instance: f32 x, res, weights and out.
+template <int C>
+int whole_tile(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
+               const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma,
+               float* out, float* work, int n, cudaStream_t s) {
   cudaError_t err = split_weights<C>(w1, w2, work, n, s);
   if (err != cudaSuccess) return (int)err;
-  ln_rows<C, T><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(
+  ln_rows<C><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(
       x, lnw, lnb, work + make_plan(n, C).xs, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)products<C>(res, sd, 1, b1, b2, gamma, out, work, n, s);
+}
+
+// ------------------------ the bf16 whole tile: three bf16 pieces a product
+
+// Each row's LayerNorm statistics (mu, rstd) of bf16 x, one warp a row, the
+// two passes over registers of ln_rows.
+template <int C>
+__global__ void __launch_bounds__(kLnThreads) ln_stats(const __nv_bfloat16* __restrict__ x,
+                                                      float2* __restrict__ stats, int n) {
+  const int row = (blockIdx.x * kLnThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= n) return;
+  float4 v[C / 128];
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < C / 128; ++q) {
+    v[q] = ld4(x + (size_t)row * C + 4 * lane + 128 * q);
+    s += (v[q].x + v[q].y) + (v[q].z + v[q].w);
+  }
+  const float mu = warp_sum(s) * (1.0f / C);
+  float ss = 0.f;
+#pragma unroll
+  for (int q = 0; q < C / 128; ++q) {
+    const float a = v[q].x - mu, b = v[q].y - mu, c = v[q].z - mu, d = v[q].w - mu;
+    ss += (a * a + b * b) + (c * c + d * d);
+  }
+  const float rstd = rsqrtf(warp_sum(ss) * (1.0f / C) + kLnEps);
+  if (lane == 0) stats[row] = make_float2(mu, rstd);
+}
+
+struct HiddenEpiF32 {  // h = gelu(v + b1) into h (N, 4C), f32
+  const float* b1;
+  float* h;
+  int ld;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + n);
+    *reinterpret_cast<float2*>(h + (size_t)m * ld + n) = make_float2(gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
+  }
+};
+
+// The bf16 instance's whole tile (the TPU kernel _kernel, mxu_dtype=float32,
+// on bf16 x, res, W1 and W2): ln_stats, then a = LN(x) W1^T with LayerNorm
+// in the product's prologue and h = gelu(a + b1) in its epilogue (f32, one
+// plane), then out = res + sd * ((h W2^T + b2) * gamma) rounded once
+// (OutEpi); both products on x3::gemm, the weights read as they lie.
+template <int C>
+int whole_tile_x3(const __nv_bfloat16* x, const __nv_bfloat16* res, const float* sd, const float* lnw,
+                  const float* lnb, const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
+                  const float* b2, const float* gamma, __nv_bfloat16* out, float* work, int n, cudaStream_t s) {
+  const bf16mm::x3::TailPlan p = bf16mm::x3::tail_plan(n, C, bf16mm::x3::sm_count());
+  float2* stats = reinterpret_cast<float2*>(work + p.stats);
+  float* h = work + p.h;
+  ln_stats<C><<<(n + kLnThreads / 32 - 1) / (kLnThreads / 32), kLnThreads, 0, s>>>(x, stats, n);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = bf16mm::x3::gemm<0>(x, w1, n, C, 4 * C, bf16mm::x3::LnA{stats, lnw, lnb}, HiddenEpiF32{b1, h, 4 * C}, s);
+  if (err == cudaSuccess)
+    err = bf16mm::x3::gemm<0>(h, w2, n, 4 * C, C, bf16mm::x3::RowsA{},
+                              OutEpi<__nv_bfloat16>{res, sd, 1, b2, gamma, out, C}, s);
+  return (int)err;
 }
 
 // ----------------------- the precise=False arm's whole tile (bf16 products)
@@ -1020,7 +1090,12 @@ template <int C, class T>
 int forward(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
             const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n, int sub,
             cudaStream_t s) {
-  if (sub == 0) return whole_tile<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  if (sub == 0) {
+    if constexpr (sizeof(T) == 2)
+      return whole_tile_x3<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+    else
+      return whole_tile<C>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  }
   if (sub != kSub) return (int)cudaErrorInvalidValue;
   int nc = 0;
   const cudaError_t err = fused_columns<C, T>(n, &nc);
@@ -1071,6 +1146,28 @@ extern "C" {
 // and folded bias.
 long long tc_mlp_block_forward_workspace(int n, int c, int sub) {
   return sub ? make_fused_plan(c).total : make_plan(n, c).total;
+}
+
+// Floats of workspace tc_mlp_block_forward_bf16 needs: the whole tile's
+// row statistics and h (x3::tail_plan), or the sub-tiled path's as the f32
+// instance's.
+long long tc_mlp_block_forward_bf16_workspace(int n, int c, int sub) {
+  return sub ? make_fused_plan(c).total : bf16mm::x3::tail_plan(n, c, bf16mm::x3::sm_count()).fwd_total;
+}
+
+// The bf16 instances' tile plan at n rows of width c on a card of `sms`
+// SMs (sms <= 0: this card's) into out[0..13]: the tile's rows, columns and
+// K-columns a stage, the ring's stages, the shared bytes a block; the tiles
+// and the grid of the four products (a = LN(x) W1^T, u = h W2^T, d_h = d_u
+// W2, d_xn = d_a W1); the forward's workspace floats.
+int tc_mlp_block_bf16_plan(int n, int c, int sms, long long* out) {
+  namespace x3 = bf16mm::x3;
+  if (n <= 0 || c % x3::kBN || c > x3::kMaxK) return -1;
+  const x3::TailPlan p = x3::tail_plan(n, c, sms > 0 ? sms : x3::sm_count());
+  out[0] = x3::kBM, out[1] = x3::kBN, out[2] = x3::kBK, out[3] = x3::kStages, out[4] = x3::kSmemBytes;
+  for (int i = 0; i < 4; ++i) out[5 + i] = p.tiles[i], out[9 + i] = p.grid[i];
+  out[13] = p.fwd_total;
+  return 0;
 }
 
 // The sub-tiled path's tiles at width c with nc output columns a block
@@ -1142,7 +1239,8 @@ int tc_mlp_phase_clocks(unsigned long long* out) {
 
 // The bf16 instances: x, res, w1, w2 and out bf16, the rest as
 // tc_mlp_block_forward, `sub` 0 (the whole tile) or 64 (the sub-tiled
-// path), the workspace tc_mlp_block_forward_workspace(n, c, sub) floats.
+// path), the workspace tc_mlp_block_forward_bf16_workspace(n, c, sub)
+// floats.
 int tc_mlp_block_forward_bf16(const void* x, const void* res, const float* sd, const float* lnw,
                               const float* lnb, const void* w1, const float* b1, const void* w2, const float* b2,
                               const float* gamma, void* out, float* work, int n, int c, int sub, void* stream) {

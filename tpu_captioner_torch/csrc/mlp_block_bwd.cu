@@ -59,24 +59,33 @@
 //   planes' rows are padded to a multiple of 4 floats for TMA's 16-byte
 //   strides; the padding is never read.
 //
-// The bf16 instance (tc_mlp_block_backward_bf16): the TPU kernel's arm on
-// bf16 g, x, W1 and W2 with mxu_dtype=float32 (_bwd_pallas_one, which the
-// JAX bf16 encoder's custom VJP calls with precise=True,
-// tpu_captioner/ops/mlp_block.py:497-515).  prep_rows widens bf16 x and g
-// as it reads them and recomputes the forward in f32 from them (not from the
-// forward's bf16 output); finish_rows rounds d_x to bf16 once; the column
-// sums read bf16 g.  The weights are bf16 values, exact in TF32: their lo
-// planes are zero, so `split` writes their hi planes alone (plain and
-// transposed), the workspace holds no lo plane of them, and the four
-// products that take a weight as B (the two recomputed forward products,
-// d_h = d_u W2 and d_xn = d_a W1) read B's hi plane alone: two TF32
-// products a k-step, not three (tf32x3::gemm<1>).  The two weight-gradient
-// products multiply f32 activations and keep three.  Every gradient but
-// d_x is written in f32; the caller rounds d_W1 and d_W2 to bf16 once, as
-// JAX's `.astype(w1.dtype)` does (:476).  Per call it reads half the bytes
-// of g and x and writes half of d_x; the products' bound falls to 32 N C^2
-// flops at 329.67 TFLOP/s (an f32 row times a bf16 weight, f32-accurate:
-// three exact bf16 products, 989 / 3) plus 16 N C^2 at 165.
+// The bf16 instance (tc_mlp_block_backward_bf16, backward_x3): the TPU
+// kernel's arm on bf16 g, x, W1 and W2 with mxu_dtype=float32
+// (_bwd_pallas_one, which the JAX bf16 encoder's custom VJP calls with
+// precise=True, tpu_captioner/ops/mlp_block.py:497-515).  prep_rows widens
+// bf16 x and g as it reads them and recomputes the forward in f32 from them
+// (not from the forward's bf16 output); finish_rows rounds d_x to bf16
+// once; the column sums read bf16 g.  Every gradient but d_x is written in
+// f32; the caller rounds d_W1 and d_W2 to bf16 once, as JAX's
+// `.astype(w1.dtype)` does (:476).  What bounds it on the H100: the
+// products, 32 N C^2 flops of f32 rows times a bf16 weight at 329.67
+// TFLOP/s (three exact bf16 pieces, 989 / 3) plus 16 N C^2 of f32
+// activations at 165 (3xTF32), 12.5 ms per bs-32 fine-tune step.  The
+// design:
+// - the four products with a weight as B run x3::gemm (bf16_gemm.cuh): the
+//   f32 A rows (xn, h, d_u, d_a: one f32 copy each, from prep_rows and the
+//   epilogues of products 1 and 3) split into three bf16 pieces in
+//   registers, three register-A wgmma a k16 step on the bf16 weight's box as
+//   it lies: K-major for a = xn W1^T and u = h W2^T, MN-major (wgmma's
+//   transposed B) for d_h = d_u W2 and d_xn = d_a W1, so no transposed or
+//   widened copy of a weight is made: no weight split at all;
+// - the two weight-gradient products, f32 times f32, stay on 3xTF32 with
+//   the transposed planes of xn, d_u, h and d_a (six bf16 pieces would run
+//   at the same 165 TFLOP/s);
+// - d_a's column sum reads the f32 copy.
+// Launches a call: prep_rows, the two transposed splits, four x3 GEMMs,
+// finish_rows, two 3xTF32 GEMMs and their split sums, the column partials
+// and their sum: 13.
 // The precise=False arm (tc_mlp_block_backward_bf16_products, f32 or bf16
 // data): the TPU kernel's mm with mxu_dtype=bfloat16 (:291-296), each of the
 // six products on bf16 operands rounded where it rounds them, summed in f32
@@ -182,6 +191,49 @@ struct MulEpi {
     const float2 s = ld2(gp + o);
     const float d0 = v.x * s.x, d1 = v.y * s.y;
     tf32x3::store_split2(da, plane, o, d0, d1);
+    tf32x3::store_split(dat, plane_t, (size_t)n * ld_t + m, d0);
+    tf32x3::store_split(dat, plane_t, (size_t)(n + 1) * ld_t + m, d1);
+  }
+};
+
+// The bf16 instance's: h and d_a as one f32 copy (the next x3 product's
+// A) beside their transposed planes (the weight gradients' operands).
+struct GeluEpiX3 {
+  const float* bias;
+  float* h;
+  float* ht;
+  float* gp;
+  long long plane_t;
+  int ld, ld_t;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = ld2(bias + n);
+    float hv[2], gv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = (e ? v.y : v.x) + (e ? b.y : b.x);
+      const float cdf = 0.5f * (1.0f + erff(a * kInvSqrt2));
+      hv[e] = a * cdf;
+      gv[e] = cdf + a * (expf(-0.5f * a * a) * kInvSqrt2Pi);
+    }
+    const size_t o = (size_t)m * ld + n;
+    *reinterpret_cast<float2*>(h + o) = make_float2(hv[0], hv[1]);
+    tf32x3::store_split(ht, plane_t, (size_t)n * ld_t + m, hv[0]);
+    tf32x3::store_split(ht, plane_t, (size_t)(n + 1) * ld_t + m, hv[1]);
+    *reinterpret_cast<float2*>(gp + o) = make_float2(gv[0], gv[1]);
+  }
+};
+
+struct MulEpiX3 {  // d_a = v * gp: f32, and transposed planes
+  const float* gp;
+  float* da;
+  float* dat;
+  long long plane_t;
+  int ld, ld_t;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const size_t o = (size_t)m * ld + n;
+    const float2 s = ld2(gp + o);
+    const float d0 = v.x * s.x, d1 = v.y * s.y;
+    *reinterpret_cast<float2*>(da + o) = make_float2(d0, d1);
     tf32x3::store_split(dat, plane_t, (size_t)n * ld_t + m, d0);
     tf32x3::store_split(dat, plane_t, (size_t)(n + 1) * ld_t + m, d1);
   }
@@ -406,9 +458,10 @@ struct Plan {
       colpart, wpart, total;
 };
 
-// wplanes: the TF32 planes a weight keeps, 2 for f32 weights, 1 for bf16
-// ones (their lo planes are zero and are neither written nor read).
-Plan make_plan(int n, int c, int wplanes) {
+// bf16: the bf16 instance's (backward_x3): no weight planes (the weights
+// are read as they lie), no plain planes of xn and d_u (the x3 products
+// read the f32 rows), h and d_a as one f32 copy each.
+Plan make_plan(int n, int c, bool bf16) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   Plan p;
@@ -431,23 +484,24 @@ Plan make_plan(int n, int c, int wplanes) {
   const long long nc = (long long)n * c, n4c = 4 * nc, cc4 = 4LL * c * c, tc = (long long)c * p.ldn;
   long long off = 0;
   auto take = [&](long long floats) { const long long at_ = off; off += round32(floats); return at_; };
-  p.w1s = take(wplanes * cc4);
-  p.w1t = take(wplanes * cc4);
-  p.w2s = take(wplanes * cc4);
-  p.w2t = take(wplanes * cc4);
+  const int planes = bf16 ? 0 : 2, hplanes = bf16 ? 1 : 2;
+  p.w1s = take(planes * cc4);
+  p.w1t = take(planes * cc4);
+  p.w2s = take(planes * cc4);
+  p.w2t = take(planes * cc4);
   p.xhat = take(nc);
   p.xn = take(nc);
   p.du = take(nc);
   p.u = take(nc);
   p.dxn = take(nc);
-  p.xns = take(2 * nc);
+  p.xns = take(planes * nc);
   p.xnt = take(2 * tc);
-  p.dus = take(2 * nc);
+  p.dus = take(planes * nc);
   p.dut = take(2 * tc);
-  p.hs = take(2 * n4c);
+  p.hs = take(hplanes * n4c);
   p.ht = take(8 * tc);
   p.gp = take(n4c);
-  p.das = take(2 * n4c);
+  p.das = take(hplanes * n4c);
   p.dat = take(8 * tc);
   p.rstd = take(n);
   p.colpart = take((long long)p.chunks * 8 * c);
@@ -462,19 +516,18 @@ Plan make_plan(int n, int c, int wplanes) {
     if (e_ != cudaSuccess) return (int)e_;    \
   } while (0)
 
-// g, x, the weights and d_x of T: f32, or bf16 (the bf16 instance, whose
-// weights keep their hi planes alone: kW = 1).
-template <int C, class T>
-int backward(const T* g, const T* x, const float* sd, const float* lnw, const float* lnb,
-             const T* w1, const float* b1, const T* w2, const float* b2,
-             const float* gamma, T* dx, float* dsd, float* dlnw, float* dlnb, float* dw1,
+// The f32 instance.
+template <int C>
+int backward(const float* g, const float* x, const float* sd, const float* lnw, const float* lnb,
+             const float* w1, const float* b1, const float* w2, const float* b2,
+             const float* gamma, float* dx, float* dsd, float* dlnw, float* dlnb, float* dw1,
              float* db1, float* dw2, float* db2, float* dgamma, float* work, int n,
              cudaStream_t s) {
   using tf32x3::Operand;
   using tf32x3::gemm;
   using tf32x3::split;
-  constexpr int C4 = 4 * C, kW = sizeof(T) == 4 ? 2 : 1;
-  const Plan p = make_plan(n, C, kW);
+  constexpr int C4 = 4 * C;
+  const Plan p = make_plan(n, C, false);
   const int ldn = p.ldn;
   float *w1s = work + p.w1s, *w1t = work + p.w1t, *w2s = work + p.w2s, *w2t = work + p.w2t;
   float *xhat = work + p.xhat, *xn = work + p.xn, *du = work + p.du, *u = work + p.u;
@@ -488,7 +541,7 @@ int backward(const T* g, const T* x, const float* sd, const float* lnw, const fl
   // The weights' planes: W1 (4C, C) and W1^T (C, 4C), W2 (C, 4C) and W2^T (4C, C).
   TC_TRY(split(w1, C4, C, w1s, w1t, C4, s));
   TC_TRY(split(w2, C, C4, w2s, w2t, C, s));
-  prep_rows<C, T><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
+  prep_rows<C, float><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
   TC_TRY(cudaGetLastError());
   TC_TRY(split(xn, n, C, xns, xnt, ldn, s));
   TC_TRY(split(du, n, C, dus, dut, ldn, s));
@@ -498,16 +551,15 @@ int backward(const T* g, const T* x, const float* sd, const float* lnw, const fl
   const Operand da_op{das, n, C4, C4, 4 * nc}, w1t_op{w1t, C, C4, C4, cc4};
   const Operand dat_op{dat, C4, n, ldn, 4 * tc}, xnt_op{xnt, C, n, ldn, tc};
   const Operand dut_op{dut, C, n, ldn, tc}, ht_op{ht, C4, n, ldn, 4 * tc};
-  // The four products with a weight as B (its hi plane alone when kW = 1).
   // a = xn W1^T + b1 -> h (planes, plain and transposed), gelu'(a)
-  TC_TRY(gemm<kW>(xn_op, w1_op, GeluEpi{b1, hs, ht, gp, 4 * nc, 4 * tc, C4, ldn}, s));
+  TC_TRY(gemm(xn_op, w1_op, GeluEpi{b1, hs, ht, gp, 4 * nc, 4 * tc, C4, ldn}, s));
   // u = h W2^T + b2
-  TC_TRY(gemm<kW>(h_op, w2_op, BiasEpi{b2, u, C}, s));
+  TC_TRY(gemm(h_op, w2_op, BiasEpi{b2, u, C}, s));
   // d_a = (d_u W2) * gelu'(a) (planes, plain and transposed)
-  TC_TRY(gemm<kW>(du_op, w2t_op, MulEpi{gp, das, dat, 4 * nc, 4 * tc, C4, ldn}, s));
+  TC_TRY(gemm(du_op, w2t_op, MulEpi{gp, das, dat, 4 * nc, 4 * tc, C4, ldn}, s));
   // d_xn = d_a W1
-  TC_TRY(gemm<kW>(da_op, w1t_op, StoreEpi{dxn, C, 0}, s));
-  finish_rows<C, T><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
+  TC_TRY(gemm(da_op, w1t_op, StoreEpi{dxn, C, 0}, s));
+  finish_rows<C, float><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
   TC_TRY(cudaGetLastError());
 
   // dW1 = d_a^T xn (4C, C) and dW2 = d_u^T h (C, 4C), reduced over the rows:
@@ -527,8 +579,66 @@ int backward(const T* g, const T* x, const float* sd, const float* lnw, const fl
     TC_TRY(cudaGetLastError());
   }
 
-  column_partials<T><<<p.chunks, kThreads, 0, s>>>(dxn, xhat, das, 4 * nc, du, g, sd, u, colpart, n, C,
+  column_partials<float><<<p.chunks, kThreads, 0, s>>>(dxn, xhat, das, 4 * nc, du, g, sd, u, colpart, n, C,
                                                  p.chunk_rows);
+  TC_TRY(cudaGetLastError());
+  column_finish<<<ceil_div(8 * C, kThreads), kThreads, 0, s>>>(colpart, p.chunks, C, dlnw, dlnb, db1, db2, dgamma);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 instance: bf16 g, x, weights and d_x (the notes above).
+template <int C>
+int backward_x3(const bf16* g, const bf16* x, const float* sd, const float* lnw, const float* lnb, const bf16* w1,
+                const float* b1, const bf16* w2, const float* b2, const float* gamma, bf16* dx, float* dsd,
+                float* dlnw, float* dlnb, float* dw1, float* db1, float* dw2, float* db2, float* dgamma, float* work,
+                int n, cudaStream_t s) {
+  using tf32x3::Operand;
+  namespace x3 = bf16mm::x3;
+  constexpr int C4 = 4 * C;
+  const Plan p = make_plan(n, C, true);
+  const int ldn = p.ldn;
+  float *xhat = work + p.xhat, *xn = work + p.xn, *du = work + p.du, *u = work + p.u, *dxn = work + p.dxn;
+  float *xnt = work + p.xnt, *dut = work + p.dut, *h = work + p.hs, *ht = work + p.ht, *gp = work + p.gp;
+  float *da = work + p.das, *dat = work + p.dat, *rstd = work + p.rstd;
+  float *colpart = work + p.colpart, *wpart = work + p.wpart;
+  const int row_blocks = ceil_div(n, kThreads / 32);
+  const long long cc4 = 4LL * C * C, tc = (long long)C * ldn;
+
+  prep_rows<C, bf16><<<row_blocks, kThreads, 0, s>>>(x, g, sd, lnw, lnb, gamma, xhat, xn, du, rstd, n);
+  TC_TRY(cudaGetLastError());
+  TC_TRY(tf32x3::split(xn, n, C, nullptr, xnt, ldn, s));
+  TC_TRY(tf32x3::split(du, n, C, nullptr, dut, ldn, s));
+
+  // a = xn W1^T + b1 -> h (f32, and transposed planes), gelu'(a)
+  TC_TRY(x3::gemm<0>(xn, w1, n, C, C4, x3::RowsA{}, GeluEpiX3{b1, h, ht, gp, 4 * tc, C4, ldn}, s));
+  // u = h W2^T + b2
+  TC_TRY(x3::gemm<0>(h, w2, n, C4, C, x3::RowsA{}, BiasEpi{b2, u, C}, s));
+  // d_a = (d_u W2) * gelu'(a), W2 (C, 4C) read MN-major
+  TC_TRY(x3::gemm<1>(du, w2, n, C, C4, x3::RowsA{}, MulEpiX3{gp, da, dat, 4 * tc, C4, ldn}, s));
+  // d_xn = d_a W1, W1 (4C, C) read MN-major
+  TC_TRY(x3::gemm<1>(da, w1, n, C4, C, x3::RowsA{}, StoreEpi{dxn, C, 0}, s));
+  finish_rows<C, bf16><<<row_blocks, kThreads, 0, s>>>(dxn, xhat, rstd, lnw, g, u, gamma, dx, dsd, n);
+  TC_TRY(cudaGetLastError());
+
+  // dW1 = d_a^T xn (4C, C) and dW2 = d_u^T h (C, 4C), reduced over the rows
+  // on 3xTF32, as the f32 instance's.
+  const Operand dat_op{dat, C4, n, ldn, 4 * tc}, xnt_op{xnt, C, n, ldn, tc};
+  const Operand dut_op{dut, C, n, ldn, tc}, ht_op{ht, C4, n, ldn, 4 * tc};
+  const int sum_blocks = ceil_div(cc4 / 4, kThreads);
+  float* out1 = p.splits > 1 ? wpart : dw1;
+  TC_TRY(tf32x3::gemm(dat_op, xnt_op, p.splits, p.k_split, StoreEpi{out1, C, cc4}, s));
+  if (p.splits > 1) {
+    sum_splits<<<sum_blocks, kThreads, 0, s>>>(wpart, p.splits, cc4 / 4, dw1);
+    TC_TRY(cudaGetLastError());
+  }
+  float* out2 = p.splits > 1 ? wpart : dw2;
+  TC_TRY(tf32x3::gemm(dut_op, ht_op, p.splits, p.k_split, StoreEpi{out2, C4, cc4}, s));
+  if (p.splits > 1) {
+    sum_splits<<<sum_blocks, kThreads, 0, s>>>(wpart, p.splits, cc4 / 4, dw2);
+    TC_TRY(cudaGetLastError());
+  }
+
+  column_partials<bf16, 1><<<p.chunks, kThreads, 0, s>>>(dxn, xhat, da, 0, du, g, sd, u, colpart, n, C, p.chunk_rows);
   TC_TRY(cudaGetLastError());
   column_finish<<<ceil_div(8 * C, kThreads), kThreads, 0, s>>>(colpart, p.chunks, C, dlnw, dlnb, db1, db2, dgamma);
   return (int)cudaGetLastError();
@@ -555,7 +665,7 @@ struct PlanBf16 {
 };
 
 PlanBf16 make_plan_bf16(int n, int c) {
-  const Plan q = make_plan(n, c, 1);  // the splits and chunks of the f32 design
+  const Plan q = make_plan(n, c, true);  // the splits and chunks of the f32 design
   PlanBf16 p;
   p.k_split = (q.k_split + bf16mm::kBK - 1) / bf16mm::kBK * bf16mm::kBK;
   p.splits = max(1, ceil_div(n, p.k_split));
@@ -680,10 +790,10 @@ int backward_bf16_any(const void* g, const void* x, const float* sd, const float
 extern "C" {
 
 // Floats of workspace tc_mlp_block_backward needs for n rows of width c.
-long long tc_mlp_block_backward_workspace(int n, int c) { return make_plan(n, c, 2).total; }
+long long tc_mlp_block_backward_workspace(int n, int c) { return make_plan(n, c, false).total; }
 
-// The same for tc_mlp_block_backward_bf16 (the weights without lo planes).
-long long tc_mlp_block_backward_bf16_workspace(int n, int c) { return make_plan(n, c, 1).total; }
+// The same for tc_mlp_block_backward_bf16 (no weight planes; h and d_a in f32).
+long long tc_mlp_block_backward_bf16_workspace(int n, int c) { return make_plan(n, c, true).total; }
 
 int tc_mlp_block_backward(const float* g, const float* x, const float* sd, const float* lnw,
                           const float* lnb, const float* w1, const float* b1, const float* w2,
@@ -711,17 +821,16 @@ int tc_mlp_block_backward_bf16(const void* g, const void* x, const float* sd, co
                                const float* b2, const float* gamma, void* dx, float* dsd,
                                float* dlnw, float* dlnb, float* dw1, float* db1, float* dw2,
                                float* db2, float* dgamma, float* work, int n, int c, void* stream) {
-  using bf = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaErrorInvalidValue;
-#define TC_ARGS static_cast<const bf*>(g), static_cast<const bf*>(x), sd, lnw, lnb, static_cast<const bf*>(w1), b1, \
-                static_cast<const bf*>(w2), b2, gamma, static_cast<bf*>(dx), dsd, dlnw, dlnb, dw1, db1, dw2, db2, \
-                dgamma, work, n, s
+#define TC_ARGS static_cast<const bf16*>(g), static_cast<const bf16*>(x), sd, lnw, lnb, static_cast<const bf16*>(w1), \
+                b1, static_cast<const bf16*>(w2), b2, gamma, static_cast<bf16*>(dx), dsd, dlnw, dlnb, dw1, db1, dw2, \
+                db2, dgamma, work, n, s
   switch (c) {
-    case 128: return backward<128>(TC_ARGS);
-    case 256: return backward<256>(TC_ARGS);
-    case 512: return backward<512>(TC_ARGS);
-    case 1024: return backward<1024>(TC_ARGS);
+    case 128: return backward_x3<128>(TC_ARGS);
+    case 256: return backward_x3<256>(TC_ARGS);
+    case 512: return backward_x3<512>(TC_ARGS);
+    case 1024: return backward_x3<1024>(TC_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TC_ARGS

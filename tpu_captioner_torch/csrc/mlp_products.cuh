@@ -17,10 +17,11 @@
 // (mlp_block.cu: fused_kernel) keeps h on chip instead: one launch whose
 // clusters share each hidden chunk through distributed shared memory.
 // Rows with sd 0 return res bit for bit: res + 0 * (finite) is res.
-// The MLP tail's bf16 instance reads bf16 res and writes bf16 out (T) and
-// splits bf16 weights (exact in TF32: their lo planes are zero, so each
-// product reads the weight's hi plane alone and runs two TF32 products, not
-// three); the sums, h and the epilogues stay f32.
+// The whole-block kernel's bf16 instance reads bf16 res and writes bf16 out
+// (T) and splits bf16 weights (exact in TF32: their lo planes are zero, so
+// each product reads the weight's hi plane alone and runs two TF32
+// products, not three); the sums, h and the epilogues stay f32.  (The MLP
+// tail's bf16 whole tile runs bf16_gemm.cuh's x3::gemm instead.)
 #pragma once
 
 #include <cuda_runtime.h>

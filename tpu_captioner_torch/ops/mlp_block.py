@@ -32,7 +32,11 @@ models/convnext.py:163-171; JAX's ``_pipeline_sub`` picks the sub-tiled
 body for any dtype): LayerNorm, products, GELU and residual in f32 (a bf16
 weight's TF32 planes are itself and zero: the 3xTF32 products are exact on
 it), the output rounded to bf16 once.  ``_mlp_plain_bf16`` is the plain
-version of both.  The backward's bf16 instance is the JAX backward's arm on
+version of both.  The whole tile and the backward's four products with a
+weight as B run on bf16 tensor cores: each f32 row value split into three
+exact bf16 pieces (``split_pieces`` models the split on the CPU), three
+products a k16 step against the bf16 weight as it lies
+(``csrc/bf16_gemm.cuh``, tiles per ``bf16_tail_plan``).  The backward's bf16 instance is the JAX backward's arm on
 bf16 g, x, W1 and W2 (:409-476, 497-515): the forward recomputed in f32
 from bf16 x, d_x rounded to bf16 once, every other gradient f32; the
 residual's gradient is g itself (bf16).  The weight gradients come back in
@@ -81,6 +85,11 @@ FUSED_TILES = {  # (c, nc): (S, JCB)
     (128, 128): (1, 64), (256, 128): (2, 64), (256, 256): (1, 64), (512, 128): (4, 32),
     (512, 256): (2, 64), (1024, 128): (8, 16), (1024, 256): (4, 32),
 }
+# The bf16 instances' three-piece GEMM (csrc/bf16_gemm.cuh: x3::gemm), which
+# tc_mlp_block_bf16_plan reports: 128 x 128 output tiles, stages of 64
+# K-columns, a ring of 4, one persistent block an SM.
+X3_TILE = (128, 128, 64, 4)  # rows, columns, K-columns a stage, stages
+X3_SMEM = 4 * (128 * 64 * 4 + 128 * 64 * 2) + 2 * 1024 * 4 + 2 * 4 * 8 + 1024
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -183,6 +192,61 @@ def _mlp_bwd_plain_bf16(g, x, sd, ln_w, ln_b, w1, b1, w2, b2, gamma):
     return (d_x.to(torch.bfloat16), *rest)
 
 
+def split_pieces(v):
+    """The bf16 instances' split of f32 values (csrc/bf16_gemm.cuh:
+    x3::split3), for the tests: hi is v's sign, exponent and top 8
+    significant bits (v with its low 16 bits cleared), mid the next 8 of
+    v - hi, lo the rest, each returned as a bf16 tensor.  hi + mid + lo == v
+    exactly wherever lo is a normal bf16 (|v| >= about 2^-103): the two
+    subtractions are exact in f32."""
+    def cut(t):  # the high 16 bits of each f32: a bf16 value, exactly
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+
+    v = v.float().contiguous()
+    hi = cut(v)
+    r = v - hi
+    mid = cut(r)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), (r - mid).to(torch.bfloat16)
+
+
+def _round32(v):
+    return (v + 31) // 32 * 32
+
+
+def bf16_tail_plan(n: int, c: int, sms: int = 132) -> dict:
+    """The bf16 instances' tile plan at ``n`` rows of width ``c`` on a card
+    of ``sms`` SMs, as ``tc_mlp_block_bf16_plan`` (csrc/bf16_gemm.cuh:
+    x3::tail_plan) and ``tc_mlp_block_backward_bf16_workspace``
+    (csrc/mlp_block_bwd.cu: make_plan) compute it.  ``tiles`` and ``grid``
+    of the four products with a weight as B, in the order a = LN(x) W1^T,
+    u = h W2^T, d_h = d_u W2, d_xn = d_a W1 (each a grid of min(tiles, sms)
+    persistent blocks); the forward's and the backward's workspace floats."""
+    bm, bn = X3_TILE[:2]
+    rows = -(-n // bm)
+    tiles = [rows * 4 * c // bn, rows * c // bn, rows * 4 * c // bn, rows * c // bn]
+    fwd = _round32(2 * n) + _round32(4 * n * c)
+    # The backward: the weight-gradient products' splits of the rows and the
+    # column sums' chunks (make_plan), then its arrays in order.
+    wtiles = (4 * c // 128) * (c // 128)
+    best, best_cost = 1, None
+    for s in range(1, max(1, n // 256) + 1):
+        cost = -(-(wtiles * s) // sms) * -(-n // s)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    k_split = _round32(-(-n // best))
+    splits = max(1, -(-n // k_split))
+    chunk_rows = max(16, -(-n // (2 * sms)))
+    chunks = max(1, -(-n // chunk_rows))
+    ldn = (n + 3) // 4 * 4
+    nc, tc = n * c, c * ldn
+    arrays = [nc] * 5 + [2 * tc, 2 * tc, 4 * nc, 8 * tc, 4 * nc, 4 * nc, 8 * tc, n, chunks * 8 * c,
+                         splits * 4 * c * c if splits > 1 else 0]
+    return {
+        "tile": X3_TILE, "smem": X3_SMEM, "tiles": tiles, "grid": [min(t, sms) for t in tiles],
+        "forward_workspace": fwd, "backward_workspace": sum(_round32(a) for a in arrays),
+    }
+
+
 def _pipeline_sub(n: int, c: int) -> int:
     """Sub-tile rows of the forward kernel at width ``c`` (the JAX package's
     ``_pipeline_sub``, tpu_captioner/ops/mlp_block.py:191); 0 selects the
@@ -235,9 +299,12 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.tc_mlp_block_forward_bf16_products.restype = ctypes.c_int
     lib.tc_mlp_block_forward_bf16_products.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for fn in (lib.tc_mlp_block_forward_workspace, lib.tc_mlp_block_forward_bf16_products_workspace):
+    for fn in (lib.tc_mlp_block_forward_workspace, lib.tc_mlp_block_forward_bf16_workspace,
+               lib.tc_mlp_block_forward_bf16_products_workspace):
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tc_mlp_block_bf16_plan.restype = ctypes.c_int
+    lib.tc_mlp_block_bf16_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.tc_mlp_block_fused_plan.restype = ctypes.c_int
     lib.tc_mlp_block_fused_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.tc_mlp_block_fused_columns.restype = ctypes.c_int
@@ -293,8 +360,9 @@ def _mlp_forward(x, residual, sd, ln_w, ln_b, w1, b1, w2, b2, gamma, precise=Tru
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if precise:
-            launch = lib.tc_mlp_block_forward_bf16 if bf16 else lib.tc_mlp_block_forward
-            work = sd.new_empty(lib.tc_mlp_block_forward_workspace(n, c, sub))
+            launch, workspace = ((lib.tc_mlp_block_forward_bf16, lib.tc_mlp_block_forward_bf16_workspace) if bf16
+                                 else (lib.tc_mlp_block_forward, lib.tc_mlp_block_forward_workspace))
+            work = sd.new_empty(workspace(n, c, sub))
             err = launch(*(t.data_ptr() for t in (*args, out, work)), n, c, sub, stream)
         else:
             work = sd.new_empty(lib.tc_mlp_block_forward_bf16_products_workspace(n, c, sub))
