@@ -141,8 +141,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    2e-3 x max(1, max |plain|): the depthwise conv's forward (with the
    block's bias and without) and the MLP tail at the four stages at batch 8
    and 32, timed by CUDA-graph replay beside ``F.conv2d(groups=C)`` in
-   bf16; the per-layer decode step's bf16 arm at 40, 160 and 32 rows,
-   cache length 52, four positions, CUDA-event times; (b) a bf16 flagship
+   bf16; the per-layer decode step's bf16 arm at 40, 160, 32 and 5 rows,
+   cache length 52, four positions, timed by CUDA-graph replay beside
+   CUDA-event times of eager calls; (b) a bf16 flagship
    saved with ``save_checkpoint`` and loaded through ``cli.caption``'s
    loader, beam 5 x 50 at batch 8 and 32 through ``caption_batch``: the
    bf16 instances' launches (36 + 36 per encoder pass, L per token), the
@@ -3059,10 +3060,11 @@ def check_bf16_kernels(dev, card, layers):
     ConvNeXt-Base stages at batch 8 and 32, each output within one bf16 ulp,
     timed by CUDA-graph replay (the conv beside ``F.conv2d(groups=C)`` in
     bf16 with the bias); the per-layer decode step's bf16 arm on
-    ``layers``' weights at the bs-8 and bs-32 beams' 40 and 160 rows and the
-    eval step's 32, cache length 52, four positions, with NaN in every
-    cache slot at or past pos: x_out and alpha within BF16_F32_TOL, k_new
-    and v_new within one ulp; CUDA-event times (as phase 3's decode).
+    ``layers``' weights at the bs-8 and bs-32 beams' 40 and 160 rows, the
+    eval step's 32 and a one-image beam's 5, cache length 52, four
+    positions, with NaN in every cache slot at or past pos: x_out and alpha
+    within BF16_F32_TOL, k_new and v_new within one ulp; device times by
+    CUDA-graph replay, beside CUDA-event times of eager calls.
     Returns {kernel: (worst error, ms, plain ms, library ms, bound ms,
     bound by)}: per bs-32 encoder pass (36 launches) for the conv and the
     tail, per 6-layer step at R = 40 for the decode arm."""
@@ -3144,8 +3146,8 @@ def check_bf16_kernels(dev, card, layers):
     g = torch.Generator().manual_seed(11)
     f = lambda *sh: torch.randn(*sh, generator=g).to(dev, bf)  # noqa: E731
 
-    for rows in (DECODE_ROWS, BEAM * TRAIN_BS, TRAIN_BS):
-        worst, times, plain_times, n_bytes, n_ops = 0.0, [], [], 0, 0
+    for rows in (DECODE_ROWS, BEAM * TRAIN_BS, TRAIN_BS, BEAM):
+        worst, times, eager_times, plain_times, n_bytes, n_ops = 0.0, [], [], [], 0, 0
         for pos in (0, 1, 25, DECODE_T - 1):
             ck, cv = f(L, rows, DECODE_T, E), f(L, rows, DECODE_T, E)
             ck[:, :, pos:] = float("nan")
@@ -3174,13 +3176,15 @@ def check_bf16_kernels(dev, card, layers):
             if not all(e <= max(BF16_F32_TOL, BF16_NOISE * n) for e, n in zip(step, floor)):
                 raise AssertionError(f"decode bf16 arm, {L}-layer step at R={rows}, pos {pos}: x {step[0]}, alpha "
                                      f"{step[1]} against the noise floor {floor}")
-            times.append(_time_ms(lambda: fused_decode_step(*args)))
+            times.append(_graph_ms(lambda: fused_decode_step(*args)))
+            eager_times.append(_time_ms(lambda: fused_decode_step(*args)))
             plain_times.append(_time_ms(lambda: _decode_step_plain_bf16(*args), iters=5, warmup=1))
             print(f"bf16 decode_step R={rows} pos={pos}: one layer's launch: x {launch[0]:.3e}, alpha {launch[1]:.3e} "
                   f"(relative, tol {BF16_F32_TOL:g}), k/v {launch[2]:.2f} ulp (tol 1); {L}-layer step: x "
                   f"{step[0]:.3e}, alpha {step[1]:.3e}, k/v {bf16_ulp_err(got[2], want[2])[1]:.2f} ulp; noise floor "
-                  f"(plain, f32 vs f64 sums) x {floor[0]:.3e}, alpha {floor[1]:.3e}; kernel {times[-1]:.4f} ms, "
-                  f"plain {plain_times[-1]:.4f} ms per {L}-layer step [{card}]")
+                  f"(plain, f32 vs f64 sums) x {floor[0]:.3e}, alpha {floor[1]:.3e}; kernel {times[-1]:.4f} ms "
+                  f"device (graph replay), {eager_times[-1]:.4f} eager, plain {plain_times[-1]:.4f} ms per {L}-layer "
+                  f"step [{card}]")
             # Per layer: the bf16 matrices, the f32 vectors, pos cached k/v
             # rows and P memory rows in bf16, k/v new out in bf16; x in (bf16)
             # and out (f32), alpha; the products at the bf16 rate.
@@ -3189,8 +3193,9 @@ def check_bf16_kernels(dev, card, layers):
             n_ops += L * rows * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
         bound_ms, bound_by = bound(n_bytes / 4, n_ops / 4, BF16_OPS_PER_S)
         ms, plain_ms = sum(times) / len(times), sum(plain_times) / len(plain_times)
-        print(f"bf16 decode_step at R={rows}, mean over the four positions: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) per step [{card}]")
+        print(f"bf16 decode_step at R={rows}, mean over the four positions: kernel {ms:.4f} ms device (graph "
+              f"replay), {sum(eager_times) / len(eager_times):.4f} eager, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it, per step [{card}]")
         if rows == DECODE_ROWS:
             out["decode_step_bf16"] = (worst, ms, plain_ms, None, bound_ms, bound_by)
         else:
@@ -4126,7 +4131,8 @@ def check_bf16_decode_modes(dev, card, model, word_map):
     instance at 32 rows over 51 tokens on ``model``'s bf16 operands (as
     ``mega_rollout`` casts them) against ``_full_rollout_plain_bf16`` under
     phase 11's rules (tolerances from the plain version with f64 sums).
-    CUDA-event times and bounds.  Returns {kernel: (error, ms, plain ms,
+    Device times by CUDA-graph replay (beside CUDA-event times of eager
+    calls) and bounds.  Returns {kernel: (error, ms, plain ms,
     library ms, bound ms, bound by)}."""
     import torch
 
@@ -4157,11 +4163,13 @@ def check_bf16_decode_modes(dev, card, model, word_map):
         errs = (bf16_rel(got[0], want[0]), bf16_rel(got[1], want[1]))
         floor = (bf16_rel(ref[0], want[0]), bf16_rel(ref[1], want[1]))
         worst = max(worst, *((a - b).float().abs().max().item() for a, b in zip(got, want)))
-        times.append(_time_ms(lambda: fused_decode_step(*args, one_cell=True)))
+        times.append(_graph_ms(lambda: fused_decode_step(*args, one_cell=True)))
+        eager = _time_ms(lambda: fused_decode_step(*args, one_cell=True))
         plain_times.append(_time_ms(lambda: _decode_step_plain_bf16(*args), iters=5, warmup=1))
         print(f"decode_onecell bf16 R={R} pos={pos}: equal to the {L} per-layer bf16 launches bit for bit; vs plain "
               f"x {errs[0]:.3e}, alpha {errs[1]:.3e} (noise floor {floor[0]:.3e}, {floor[1]:.3e}); kernel "
-              f"{times[-1]:.4f} ms, plain {plain_times[-1]:.4f} ms per {L}-layer step [{card}]")
+              f"{times[-1]:.4f} ms device (graph replay), {eager:.4f} eager, plain {plain_times[-1]:.4f} ms per "
+              f"{L}-layer step [{card}]")
         n_bytes += (L * (2 * (6 * E * E + 2 * E * Fd) + 4 * (9 * E + Fd) + 2 * R * (2 * pos + 2 * P + 2) * E)
                     + R * (6 * E + 4 * P))
         n_ops += L * R * (2 * (6 * E * E + 2 * E * Fd) + 4 * E * (pos + 1 + P))
@@ -4189,13 +4197,15 @@ def check_bf16_decode_modes(dev, card, model, word_map):
                                                       logit_tol)
         ends = want[1] == word_map["<end>"]
         lengths = torch.where(ends.any(dim=1), ends.int().argmax(dim=1) + 1, steps).tolist()
-        t_kernel = _time_ms(lambda: fused_full_rollout(*args), iters=5, warmup=1)
+        t_kernel = _graph_ms(lambda: fused_full_rollout(*args), iters=5, warmup=1)
+        t_eager = _time_ms(lambda: fused_full_rollout(*args), iters=5, warmup=1)
         t_plain = _time_ms(lambda: _full_rollout_plain_bf16(*args), iters=2, warmup=1)
     bound_ms, bound_by = bound(*rollout_bound(lengths, L, P, E, Fd, VOCAB, steps, esize=2), BF16_OPS_PER_S)
     print(f"decode_rollout bf16 R={R} steps={steps} ({max(lengths)} run): logits {logit_err:.3e} (tol "
           f"{logit_tol:.3e}; noise floor {noise_logit:.3e}), maps {alpha_err:.3e} (tol {alpha_tol:.3e}; floor "
-          f"{noise_alpha:.3e}), {len(ties)} rows differ at a near-tie; kernel {t_kernel:.4f} ms, plain "
-          f"{t_plain:.4f} ms per rollout, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+          f"{noise_alpha:.3e}), {len(ties)} rows differ at a near-tie; kernel {t_kernel:.4f} ms device (graph "
+          f"replay), {t_eager:.4f} eager, plain {t_plain:.4f} ms per rollout, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{card}]")
     out["decode_rollout_bf16"] = (max(logit_err, alpha_err), t_kernel, t_plain, None, bound_ms, bound_by)
     return out
 

@@ -2,7 +2,7 @@
 """Where a decode launch spends its time: block 0's timeline, and device
 time against the wrapper's time per call.
 
-    python3 scripts/decode_timeline.py [--out results/decode_timeline.json]
+    python3 scripts/decode_timeline.py [--bf16] [--out results/decode_timeline.json]
 
 Builds ``tpu_captioner_torch/csrc/decode_step.cu`` with
 ``TC_DECODE_TIMELINE`` defined (block 0's ``%globaltimer`` at the launch's
@@ -22,7 +22,10 @@ time per call from CUDA events around 50 calls, the device time of the
 decode kernels per call from ``torch.profiler``, and the host time per call
 without a synchronise: where the events exceed the device time, the host
 sets the pace.  The last line holds all of it, with the card's name and
-power limit.
+power limit.  ``--bf16`` runs the kernels' bf16 instances instead: the
+weight matrices cast with ``cast_weight_matrices(w, bfloat16)``, x, the
+caches and the memory K/V in bf16, and for the rollout the embedding table
+and the vocab head in bf16 too.
 """
 
 import argparse
@@ -110,6 +113,7 @@ def summarise(stamps, period, tail):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bf16", action="store_true", help="the kernels' bf16 instances")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -127,19 +131,21 @@ def main():
     dec = CaptionModel(cfg, device=dev, seed=0).decoder
     L, E, H = len(dec.layers), cfg.embed_dim, cfg.num_heads
     g = torch.Generator().manual_seed(1)
-    f = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+    dt = torch.bfloat16 if args.bf16 else torch.float32
+    f = lambda *sh: torch.randn(*sh, generator=g).to(dev, dt)  # noqa: E731
     T, P, STEPS = 52, 49, 51
     with torch.inference_mode():
-        w = decode_step.prepare_decode_weights(dec.layers, E)
+        w = decode_step.cast_weight_matrices(decode_step.prepare_decode_weights(dec.layers, E), dt)
         cases = {}
         for name, rows, one_cell in (("decode_step R=40", 40, False), ("decode_step R=160", 160, False),
                                      ("decode_onecell R=32", 32, True)):
             a = (w, f(rows, E), 25, f(L, rows, T, E), f(L, rows, T, E), f(L, rows, P, E), f(L, rows, P, E), H)
             cases[name] = (lambda a=a, o=one_cell: decode_step.fused_decode_step(*a, one_cell=o))
-        mem_k, mem_v = decode_step.prepare_cross_memory(dec.layers, dec.project_memory(f(32, P, cfg.encoder_dim)), E)
-        emb = dec.embedding.weight.contiguous()
+        mem = dec.project_memory(f(32, P, cfg.encoder_dim).float())
+        mem_k, mem_v = (m.to(dt) for m in decode_step.prepare_cross_memory(dec.layers, mem, E))
+        emb, fc_w = dec.embedding.weight.to(dt).contiguous(), dec.fc_out.weight.to(dt).contiguous()
         cases["decode_rollout R=32 x 51"] = lambda: decode_step.fused_full_rollout(
-            w, emb, dec.fc_out.weight, dec.fc_out.bias, dec.pe, mem_k, mem_v, 1, cfg.vocab_size, STEPS, H)
+            w, emb, fc_w, dec.fc_out.bias, dec.pe, mem_k, mem_v, 1, cfg.vocab_size, STEPS, H)
 
         results = {}
         # The ordinary build: events, profiler device time and host time per call.
@@ -184,7 +190,7 @@ def main():
                 print(name, "timeline of the last launch:", json.dumps(results[name]["timeline"]), flush=True)
         finally:
             _build.load = load
-    final = {"card": card, "results": results}
+    final = {"card": card, "dtype": str(dt), "results": results}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

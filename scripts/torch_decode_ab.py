@@ -13,7 +13,10 @@ from seed 0) and prints one JSON line of CUDA-event ms: the per-layer kernel
 bs-32 beam's 160 (``decode_step_r160``), and the one-cell kernel (one launch,
 the greedy eval's 32 rows), each at cache length 52 and averaged over
 positions 0, 25 and 51, and one 51-token greedy rollout of the rollout kernel
-(32 rows).  The last line is a table of each checkout's median per kernel,
+(32 rows); then the same four on the kernels' bf16 instances (the ``_bf16``
+keys: ``cast_weight_matrices(w, bfloat16)``, x, the caches and the memory K/V
+in bf16, the rollout's embedding table and vocab head in bf16 too).  The last
+line is a table of each checkout's median per kernel,
 with the card's name and power limit; with ``--pairs A B``, where the roots
 were given as A B B A ..., it also gives per kernel the median of the
 differences A - B of the pairs (run i of A against run i of B), their spread
@@ -38,7 +41,7 @@ def measure(root):
     from tpu_captioner_torch.core.backend import pin_f32_precision, require_cuda
     from tpu_captioner_torch.core.config import ModelConfig
     from tpu_captioner_torch.ops.decode_step import (
-        fused_decode_step, fused_full_rollout, prepare_cross_memory, prepare_decode_weights,
+        cast_weight_matrices, fused_decode_step, fused_full_rollout, prepare_cross_memory, prepare_decode_weights,
     )
     from tpu_captioner_torch.train.model import CaptionModel
 
@@ -63,21 +66,23 @@ def measure(root):
 
     out = {}
     with torch.inference_mode():
-        w = prepare_decode_weights(dec.layers, E)
-        for name, rows, one_cell in (("decode_step", BEAM_ROWS, False), ("decode_step_r160", BEAM32_ROWS, False),
-                                     ("decode_onecell", EVAL_ROWS, True)):
-            times = []
-            for pos in POSITIONS:
-                args = (w, f(rows, E), pos, f(L, rows, T, E), f(L, rows, T, E), f(L, rows, P, E),
-                        f(L, rows, P, E), H)
-                times.append(time_ms(lambda: fused_decode_step(*args, one_cell=one_cell)))
-            out[name] = sum(times) / len(times)
-        mem_k, mem_v = prepare_cross_memory(dec.layers, dec.project_memory(f(EVAL_ROWS, P, cfg.encoder_dim)), E)
-        emb = dec.embedding.weight.contiguous()
-        # An end id no row emits, so that every rollout runs all its steps.
-        out["decode_rollout"] = time_ms(lambda: fused_full_rollout(
-            w, emb, dec.fc_out.weight, dec.fc_out.bias, dec.pe, mem_k, mem_v, 1, cfg.vocab_size, STEPS, H,
-        ), iters=10, warmup=2)
+        for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            w = cast_weight_matrices(prepare_decode_weights(dec.layers, E), dt)
+            for name, rows, one_cell in (("decode_step", BEAM_ROWS, False), ("decode_step_r160", BEAM32_ROWS, False),
+                                         ("decode_onecell", EVAL_ROWS, True)):
+                times = []
+                for pos in POSITIONS:
+                    args = (w, f(rows, E).to(dt), pos, f(L, rows, T, E).to(dt), f(L, rows, T, E).to(dt),
+                            f(L, rows, P, E).to(dt), f(L, rows, P, E).to(dt), H)
+                    times.append(time_ms(lambda: fused_decode_step(*args, one_cell=one_cell)))
+                out[name + sfx] = sum(times) / len(times)
+            mem_k, mem_v = prepare_cross_memory(dec.layers, dec.project_memory(f(EVAL_ROWS, P, cfg.encoder_dim)), E)
+            emb, fc_w = dec.embedding.weight.to(dt).contiguous(), dec.fc_out.weight.to(dt).contiguous()
+            mem_k, mem_v = mem_k.to(dt), mem_v.to(dt)
+            # An end id no row emits, so that every rollout runs all its steps.
+            out["decode_rollout" + sfx] = time_ms(lambda: fused_full_rollout(
+                w, emb, fc_w, dec.fc_out.bias, dec.pe, mem_k, mem_v, 1, cfg.vocab_size, STEPS, H,
+            ), iters=10, warmup=2)
     return out
 
 

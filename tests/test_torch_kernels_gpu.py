@@ -1501,3 +1501,111 @@ def test_rollout_bf16_refuses_mixed_dtypes(cuda):
     with pytest.raises(ValueError, match="embedding must be torch.bfloat16"):
         fused_full_rollout(cast_weight_matrices(w, bf), emb, fc_w.to(bf), fc_b, pe, mk.to(bf), mv.to(bf),
                            1, 2, 3, 8)
+
+
+# The bf16 arm's mma.sync body (rows 4-6, bf16 instances): the per-layer,
+# one-cell and rollout instances at R = 5, 32, 40 and 160 rows, at E = 512
+# (H 8) and E = 200 (dh 25: the scalar-load instance, and K % 16 == 8, the
+# mma tile's half step), positions 0, 1, 25 and 51, under the rules above:
+# one layer's launch x and alpha within 2e-3 of max(1, max |plain|) and
+# k/v within one ulp; the six-layer step within that or twice the noise
+# floor; the one-cell instance equal to six per-layer launches bit for bit;
+# two calls bit for bit.
+BF16_TILE_ROWS = [5, 32, 40, 160]
+BF16_TILE_WIDTHS = [(512, 8), (200, 8)]
+
+
+@pytest.mark.parametrize("rows", BF16_TILE_ROWS)
+@pytest.mark.parametrize("E,H", BF16_TILE_WIDTHS)
+@pytest.mark.parametrize("pos", [0, 1, 25, 51])
+def test_decode_bf16_tile_instances_match_plain(cuda, rows, E, H, pos):
+    from tpu_captioner_torch.ops.decode_step import _decode_step_plain_bf16
+
+    args = decode_bf16(decode_args(6, rows, 52, 49, E, H, 512, pos, cuda, seed=3 * rows + E + pos))
+    w, x, _, ck, cv, mk, mv, _ = args
+    for l in range(6):
+        one = (type(w)(*(t[l : l + 1].contiguous() for t in w)), x, pos,
+               *(t[l : l + 1].contiguous() for t in (ck, cv, mk, mv)), H)
+        got, want = fused_decode_step(*one), _decode_step_plain_bf16(*one)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.isfinite(a).all() and within(a, b, 2e-3), l
+        for a, b in zip(got[2:], want[2:]):
+            assert within_bf16_ulp(a, b), l
+    before = (fused_decode_step.bf16_launches, fused_decode_step.onecell_bf16_launches)
+    per_layer = fused_decode_step(*args)
+    one_cell = fused_decode_step(*args, one_cell=True)
+    torch.cuda.synchronize()
+    assert (fused_decode_step.bf16_launches, fused_decode_step.onecell_bf16_launches) == (before[0] + 6,
+                                                                                         before[1] + 1)
+    want, ref = _decode_step_plain_bf16(*args), _decode_step_plain_bf16(*args, sums=torch.float64)
+    assert bf16_floor(per_layer[0], want[0], ref[0]) and bf16_floor(per_layer[1], want[1], ref[1])
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(per_layer, one_cell))
+    assert all(torch.equal(a, b) for a, b in zip(per_layer, fused_decode_step(*args)))
+    assert all(torch.equal(a, b) for a, b in zip(one_cell, fused_decode_step(*args, one_cell=True)))
+
+
+@pytest.mark.parametrize("rows", BF16_TILE_ROWS)
+@pytest.mark.parametrize("E,H", BF16_TILE_WIDTHS)
+def test_rollout_bf16_tile_instance_matches_plain(cuda, rows, E, H):
+    """51 tokens that no row ends, against the plain bf16 rollout and its
+    noise floor (``assert_bf16_rollouts_agree``); the same bits again."""
+    from tpu_captioner_torch.ops.decode_step import _full_rollout_plain_bf16, cast_weight_matrices
+
+    steps = 51
+    (w, emb, fc_w, fc_b, pe, mk, mv), _ = rollout_args(rows, steps, cuda, False, E=E, H=H, seed=rows + E + 1)
+    bf = torch.bfloat16
+    args = (cast_weight_matrices(w, bf), emb.to(bf), fc_w.to(bf), fc_b, pe, mk.to(bf), mv.to(bf))
+    start = emb.shape[0] - 2
+    got = fused_full_rollout(*args, start, -1, steps, H)
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.float32 and torch.isfinite(x).all() for x in (got[0], got[2]))
+    want = _full_rollout_plain_bf16(*args, start, -1, steps, H)
+    ref = _full_rollout_plain_bf16(*args, start, -1, steps, H, sums=torch.float64)
+    assert_bf16_rollouts_agree(got, want, ref)
+    assert int(fused_full_rollout.steps_run) == steps
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_full_rollout(*args, start, -1, steps, H)))
+
+
+def test_decode_layout_is_the_packages(cuda):
+    """The C side's shared-memory layout (``tc_decode_smem_layout``: total,
+    the bf16 copy's offset and row length, plan_ok) is
+    ``ops/decode_step.py:decode_layout``'s for both arms' plans."""
+    import ctypes
+
+    from tpu_captioner_torch.ops.decode_step import _lib, decode_layout, decode_plan
+
+    lib = _lib()
+    out = (ctypes.c_longlong * 4)()
+    for kind in ("layer", "onecell", "rollout"):
+        for R, E, H, F in ((1, 512, 8, 512), (5, 512, 8, 512), (40, 512, 8, 512), (160, 512, 8, 512),
+                           (40, 200, 8, 512), (160, 304, 8, 512), (32, 1024, 16, 1024)):
+            V, T = (9490, 51) if kind == "rollout" else (0, 52)
+            for esize in (4, 2):
+                plan = decode_plan(kind, R, T, 49, E, H, F, 132, V, esize=esize)
+                lay = decode_layout(plan, R, T, 49, E, H, F, V, esize)
+                assert lib.tc_decode_smem_layout((ctypes.c_int * 11)(*plan[:11]), R, T, 49, E, H, F, V,
+                                                 ("layer", "onecell", "rollout").index(kind), esize, out) == 0
+                assert list(out) == [lay["total"], lay["xb_offset"], lay["xb_row"], 1], (kind, R, E, esize)
+
+
+def test_decode_bf16_instances_run_bf16_mma(cuda):
+    """The bf16 body's products are bf16 HMMA (mma.sync m16n8k16 with f32
+    accumulators) in the bf16 instances of the per-layer, one-cell and
+    rollout kernels (in the out-of-line tile they call, where the SASS
+    lists it apart); the f32 instances and every other function hold no
+    HMMA."""
+    import re
+
+    sass = cuda_sass("decode_step")
+    hmma = {k for k, v in sass.items() if re.search(r"\bHMMA\.16816\.F32\.BF16\b", v)}
+    assert hmma, sorted(sass)
+    kernels = {k: v for k, v in sass.items() if re.search(r"decode_(layer|onecell|rollout)_kernel", k)}
+    assert len(kernels) == 12, sorted(kernels)  # three kernels x (f32, bf16) x (VEC 4, 1)
+    for name, code in kernels.items():
+        bf16 = "Lb1E" in name
+        if name in hmma:
+            assert bf16, name
+        elif bf16:  # the tile out of line: the instance calls it
+            assert re.search(r"\bCALL\b", code) and all("tile_mma" in k for k in hmma), (name, sorted(hmma))
+    assert all(("Lb1E" in k) or ("tile_mma" in k) for k in hmma), sorted(hmma)
+    assert not any(re.search(r"\bHMMA\b", v) for k, v in sass.items() if k not in hmma)

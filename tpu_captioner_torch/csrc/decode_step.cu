@@ -107,15 +107,46 @@
 // (tpu_captioner/ops/decode_step.py:233-237, 370-371), on the weight
 // matrices of cast_weight_matrices(w, bfloat16) and bf16 caches and memory
 // K/V.  The ring holds the weights as bf16 (half the bytes a launch
-// streams, and twice the units a slot count holds); the hidden state,
-// the staged rows and every intermediate stay f32.  Every product of the
-// JAX layer rounds both operands to bf16 and sums in f32: tile_dot rounds
-// each staged row value to bf16 as it loads it and multiplies it by the
-// bf16 weight exactly in an f32 FMA; the attention sums bf16(k * q / sqrt
-// (dh)) over each head's dims (the head-selector product, :150, 165) and
-// weights each value by bf16(p) (:155, 169), with the new k and v at pos
-// unrounded, as the JAX kernel merges them; alpha averages the unrounded
-// cross probabilities.  k_new and v_new are written as bf16.
+// streams, and twice the units a slot count holds).  Every product of the
+// JAX layer rounds both operands to bf16 and sums their exact products in
+// f32, which is what a bf16 tensor-core product with f32 accumulation
+// computes:
+// - Staged rows rounded once.  Each staging prologue puts a bf16 copy of
+//   its rows where the products read them (xb, after the rest of shared
+//   memory, rows of round_up(K, 16) + 8 values: the 16 bytes past a row's
+//   end put the rows of an ldmatrix on different banks): the landed f32
+//   input rows rounded, LayerNorm's output rounded as ln_rows writes it,
+//   the embedding plus PE rounded as it is gathered, or, for the two
+//   attention contexts and FFN1's hidden rows, which only a product reads,
+//   the rows as their phase wrote them, rounded to bf16 there, one bulk
+//   copy a row.  So a value is rounded once, whatever the number of column
+//   tiles that read it; the hidden state, the residuals and x_out stay f32.
+// - Products on mma.sync.  A warp task multiplies 16 staged bf16 rows by 8
+//   weight rows of a ring unit (tile_mma: mma.sync m16n8k16 .row.col, bf16
+//   in, f32 accumulators): A from xb through ldmatrix, B the nn.Linear (out,
+//   in) rows as the ring holds them, which is the .col layout, so no
+//   transposed copy.  In the per-layer kernel, where a unit has whole 8-row
+//   tiles (the two-row-group plans), the ring holds its rows ring_row(K)
+//   apart (one bulk copy a row, spread over warp 0's lanes), so that, as in
+//   xb, the 8 rows an ldmatrix reads fall on different banks: rows 1 KB
+//   apart would put all 8 on one (an 8-way conflict, 7 extra wavefronts a
+//   matrix, which several warps' tiles then queue on).  Each tile's loads
+//   run a k64 stage ahead of its products.  A block owns 4-16 columns of a
+//   product for at most 64 staged rows, so wgmma's 64-row M would be
+//   mostly padding.  Four accumulators take the k16 steps in turn and are
+//   added in a fixed order at the end: an output's sum order depends on K
+//   alone, as in the f32 tile, so the one-cell and per-layer instances (one
+//   row group or two, padded ring rows or not) give the same bits.  When K
+//   % 16 == 8 (E = 200) the last step's upper half of A and B is zeroed in
+//   registers: no staged pad or weight tail (a slot's stale bytes) ever
+//   enters a sum.
+// - The attention sums bf16(k * q / sqrt(dh)) over each head's dims (the
+//   head-selector product, :150, 165), two products rounded by one
+//   cvt.rn.bf16x2 and summed into four partial sums added in a fixed order
+//   (the new k at pos by the whole warp), and weights each value by bf16(p)
+//   (:155, 169), with the new k and v at pos unrounded, as the JAX kernel
+//   merges them; alpha averages the unrounded cross probabilities.  k_new
+//   and v_new are written as bf16.
 // The one-cell and rollout kernels have the same bf16 instances
 // (decode_onecell_kernel<VEC, true>, decode_rollout_kernel<VEC, true>:
 // _kernel_onecell and _mega_kernel with precise=False, the latter on
@@ -145,6 +176,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRT = 16;        // rows of a warp tile
 constexpr int kCG = 4;         // weight rows (output columns) of a warp tile
+constexpr int kCGb = 8;        // ... of a bf16 warp tile (mma.sync's n)
 constexpr int kLnVec = 8;      // float4s of a LayerNorm row per lane: E <= 32 * 4 * 8 = 1024
 constexpr float kLnEps = 1e-5f;
 constexpr int kMaxGroup = 16;  // ring units multiplied together
@@ -160,7 +192,7 @@ struct Plan {
   int cv, hc;       // vocab columns a block owns (rollout), and per ring unit
   int rc;           // rows staged at once, a multiple of kRT
   int slots;        // ring units in shared memory
-  int slot_floats;  // elements of a ring unit (floats, or bf16 in the bf16 arm), a multiple of 32
+  int slot_floats;  // elements of a ring slot (floats, or bf16 in the bf16 arm), a multiple of 32
   int group;        // ring units multiplied together, at most slots and kMaxGroup
 };
 constexpr int kPlanInts = 11;
@@ -204,6 +236,7 @@ struct Args {
   int ne, nf, upl;   // ring units per E-wide product, per FFN1 and per layer
   int upt, units;    // ring units per token and in the whole launch
   int wsize;         // bytes of a weight element: 4, or 2 in the bf16 arm
+  int xb_off;        // bf16 arm: byte offset of the staged bf16 rows in shared memory
 };
 
 // The element type of the weights, caches and memory K/V of an arm.
@@ -361,6 +394,24 @@ __device__ Unit unit_of(const Args& a, const Blk& k, int u) {
   return t;
 }
 
+// Elements from one weight row of K to the next in a padded ring slot: K
+// and 8 or 16 more, so that a row is an odd number of 16-byte granules and
+// the 8 rows of an ldmatrix fall on different banks.  Only the per-layer
+// kernel's bf16 instance pads, and only units of whole 8-row tiles (its
+// two-row-group plans, uc = 8); other units lie as they are stored, one
+// copy a unit: with uc = 4 the bank conflict is 4-way at most (the tile's
+// rows past nc repeat the last, one address), and in the one-cell and
+// rollout kernels a copy a row and its code cost more than they saved.
+__host__ __device__ __forceinline__ int ring_row(int K) { return K + ((K / 8) % 2 ? 16 : 8); }
+__host__ __device__ __forceinline__ bool padded_rows(const Plan& p, int wsize) {
+  return wsize == 2 && p.uc >= kCGb;
+}
+
+// A unit's row stride in its slot, where the launch may pad (PAD).
+__device__ __forceinline__ int unit_row(const Args& a, int K) {
+  return padded_rows(a.plan, a.wsize) ? ring_row(K) : K;
+}
+
 // Thread 0: copy unit u into its slot.  A unit with no columns only
 // arrives, so that every slot's barrier completes one phase per unit.
 __device__ void ring_issue(const Args& a, const Blk& k, int u) {
@@ -380,11 +431,37 @@ __device__ __forceinline__ void ring_wait(const Args& a, const Blk& k, int u) {
   mbar_wait(k.ubar + u % a.plan.slots, (u / a.plan.slots) & 1);
 }
 
+// Warp 0, where the launch may pad: copy unit u into its slot, a weight row
+// at a time where its rows are padded (unit_row), the rows' copies spread
+// over the lanes; else as ring_issue.
+__device__ void ring_issue_rows(const Args& a, const Blk& k, int u) {
+  const int slot = u % a.plan.slots, lane = threadIdx.x & 31;
+  const Unit t = unit_of(a, k, u);
+  const int ld = unit_row(a, t.K);
+  if (ld == t.K) {
+    if (lane == 0) ring_issue(a, k, u);
+    return;
+  }
+  uint64_t* bar = k.ubar + slot;
+  if (lane == 0) mbar_expect_tx(bar, 2u * t.cols * t.K);  // a padded unit has rows
+  __syncwarp();
+  unsigned char* dst = k.ring + (size_t)slot * a.plan.slot_floats * 2;
+  for (int i = lane; i < t.cols; i += 32)
+    bulk_load(dst + (size_t)i * ld * 2, t.src + (size_t)i * t.K * 2, 2u * t.K, bar);
+}
+
 // Keep `slots` units issued ahead of the first unreleased one.  Called by
 // all threads after a __syncthreads that ends the reads of the slots reused.
+// PAD: the launch may pad its units' rows (ring_issue_rows).
+template <bool PAD>
 __device__ void ring_refill(const Args& a, Blk& k) {
   const int upto = min(a.units, k.released + a.plan.slots);
-  if (threadIdx.x == 0 && k.issued < upto) {
+  if constexpr (PAD) {
+    if (threadIdx.x < 32 && k.issued < upto) {
+      fence_proxy_async_shared();  // the threads' reads of the reused slots come first
+      for (int u = k.issued; u < upto; ++u) ring_issue_rows(a, k, u);
+    }
+  } else if (threadIdx.x == 0 && k.issued < upto) {
     fence_proxy_async_shared();  // the threads' reads of the reused slots come first
     for (int u = k.issued; u < upto; ++u) ring_issue(a, k, u);
   }
@@ -394,12 +471,13 @@ __device__ void ring_refill(const Args& a, Blk& k) {
 // The units before `end` are consumed: thread 0 makes sure their copies
 // have landed (a block may own no rows of a product and never wait), then
 // their slots take the next units.
+template <bool PAD>
 __device__ void ring_release(const Args& a, Blk& k, int end) {
   if (threadIdx.x == 0)
     for (int u = k.released; u < end; ++u) ring_wait(a, k, u);
   __syncthreads();
   k.released = end;
-  ring_refill(a, k);
+  ring_refill<PAD>(a, k);
 }
 
 // Before the block exits: no copy may still be writing its shared memory.
@@ -409,24 +487,37 @@ __device__ void ring_drain(const Args& a, const Blk& k) {
 }
 
 // Floats of the layer body's scratch: qkv (R, 3E), eight (R, E) buffers,
-// hid (R, F) and the cross probabilities (R, H, P).
+// hid (R, F) and the cross probabilities (R, H, P).  (The bf16 arm keeps
+// the two contexts and hid as bf16 in the first half of theirs.)
 __host__ __device__ long long layer_scratch_floats(int R, int E, int H, int F, int P) {
   return (long long)R * (11LL * E + F + (long long)H * P);
 }
 
 // Dynamic shared memory of a launch: the mbarriers, the ring (of wsize-byte
 // weight elements), the staged rows, a LayerNorm's parameters, each warp's
-// attention scratch and, in the rollout, each row's key, token and flag.
+// attention scratch and, in the rollout, each row's key, token and flag;
+// in the bf16 arm then, 16-byte aligned at xb_offset, the staged rows' bf16
+// copy (rc rows of bf16_row_len values).
 // ops/decode_step.py:decode_plan computes the same sum.
-size_t smem_layout_bytes(const Plan& p, int R, int T, int P, int E, int H, int F, bool rollout, int wsize) {
+__host__ __device__ __forceinline__ int bf16_row_len(int E, int F) {
+  return (int)round_up(E > F ? E : F, 16) + 8;
+}
+
+size_t xb_offset(const Plan& p, int R, int T, int P, int E, int H, int F, bool rollout, int wsize) {
   const int TP = T > P ? T : P;
   size_t bytes = round_up(8 * (size_t)(p.slots + 1), 128) + (size_t)wsize * p.slots * p.slot_floats +
                  4 * (size_t)p.rc * (E > F ? E : F) + 8 * (size_t)E +
                  4 * round_up((size_t)kWarps * (E / H + TP), 2);
   if (rollout) bytes += 16 * (size_t)R;
-  return bytes;
+  return wsize == 2 ? round_up(bytes, 16) : bytes;
 }
 
+size_t smem_layout_bytes(const Plan& p, int R, int T, int P, int E, int H, int F, bool rollout, int wsize) {
+  const size_t bytes = xb_offset(p, R, T, P, E, H, F, rollout, wsize);
+  return wsize == 2 ? bytes + 2 * (size_t)p.rc * bf16_row_len(E, F) : bytes;
+}
+
+template <bool PAD>
 __device__ void blk_init(Args& a, Blk& k, unsigned char* smem) {
   const Plan& p = a.plan;
   const int E = a.E, F = a.F, dh = a.E / a.H, TP = a.T > a.P ? a.T : a.P;
@@ -457,7 +548,7 @@ __device__ void blk_init(Args& a, Blk& k, unsigned char* smem) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  ring_refill(a, k);
+  ring_refill<PAD>(a, k);
 }
 
 // A grid-wide barrier.  Each thread first orders its generic writes before
@@ -488,14 +579,25 @@ __device__ __noinline__ void stage_copy(float* xs, uint64_t* xbar, uint32_t phas
   mbar_wait(xbar, phase);
 }
 
+// Four values to dst: a float4, or (the bf16 arm's staged rows) four bf16
+// rounded to nearest by two cvt.rn.bf16x2, one 8-byte store.
+__device__ __forceinline__ void store4(float* p, float4 y) { *reinterpret_cast<float4*>(p) = y; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 y) {
+  const __nv_bfloat162 lo = __float22bfloat162_rn(make_float2(y.x, y.y));
+  const __nv_bfloat162 hi = __float22bfloat162_rn(make_float2(y.z, y.w));
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
 // One warp: LayerNorm of NR rows of E values, src[n] (shared or device
-// memory) with scale w and shift b, written to dst[n] and, when set, to
-// dst2[n].  A row is held in registers (E <= 32 * 4 * kLnVec) so that all
-// its loads are in flight at once, and NR rows go together so that their
-// reduction chains overlap (a warp issues in order); each row's arithmetic
-// is the same whatever NR.  src may equal dst.
-template <int NR>
-__device__ __forceinline__ void ln_rows(const float* const* src, float* const* dst, float* const* dst2,
+// memory) with scale w and shift b, written to dst[n] (f32, or bf16 in the
+// bf16 arm's staged copy) and, when set, to dst2[n] (f32).  A row is held in
+// registers (E <= 32 * 4 * kLnVec) so that all its loads are in flight at
+// once, and NR rows go together so that their reduction chains overlap (a
+// warp issues in order); each row's arithmetic is the same whatever NR.
+// src may equal dst.
+template <int NR, class D>
+__device__ __forceinline__ void ln_rows(const float* const* src, D* const* dst, float* const* dst2,
                                         const float* w, const float* b, int E) {
   const int lane = threadIdx.x & 31;
   float4 v[NR][kLnVec];
@@ -535,7 +637,7 @@ __device__ __forceinline__ void ln_rows(const float* const* src, float* const* d
       for (int n = 0; n < NR; ++n) {
         const float4 y = make_float4((v[n][j].x - mu[n]) * rstd[n] * g.x + o.x, (v[n][j].y - mu[n]) * rstd[n] * g.y + o.y,
                                      (v[n][j].z - mu[n]) * rstd[n] * g.z + o.z, (v[n][j].w - mu[n]) * rstd[n] * g.w + o.w);
-        *reinterpret_cast<float4*>(dst[n] + c) = y;
+        store4(dst[n] + c, y);
         if (dst2[n]) *reinterpret_cast<float4*>(dst2[n] + c) = y;
       }
     }
@@ -576,18 +678,97 @@ __device__ __noinline__ void stage_ln(float* xs, float* lnp, uint64_t* xbar, uin
 // The rollout's first prologue: x = embedding[tok] + pe for rows r0..r0+rn,
 // gathered by the threads (a bulk copy would queue behind the ring's
 // weight copies that the last product issued); the owner also writes x.
-// W: the table's element type.
-template <class W>
-__device__ __noinline__ void stage_embed(float* xs, const W* embedding, const float* pe, const int* tok,
+__device__ __noinline__ void stage_embed(float* xs, const float* embedding, const float* pe, const int* tok,
                                          float* x, int r0, int rn, int E, Owners own) {
   const int q = E / 4;  // float4s of a row
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rn * q; i += kThreads) {
+    const int r = i / q, c = 4 * (i % q);
+    const float4 e = load4(embedding + (size_t)tok[r0 + r] * E + c);
+    const float4 p = __ldg(reinterpret_cast<const float4*>(pe + c));
+    const float4 y = make_float4(e.x + p.x, e.y + p.y, e.z + p.z, e.w + p.w);
+    *reinterpret_cast<float4*>(xs + (size_t)r * E + c) = y;
+    if (own.mine(r0 + r)) *reinterpret_cast<float4*>(x + (size_t)(r0 + r) * E + c) = y;
+  }
+}
+
+// The bf16 arm's stagings: each also writes the rows' bf16 copy into xb
+// (row length ldb), which the products read.
+
+// stage_copy, then the landed rows rounded to bf16 into xb.
+__device__ __noinline__ void stage_copy_bf16(float* xs, __nv_bfloat16* xb, int ldb, uint64_t* xbar, uint32_t phase,
+                                             const float* src, int r0, int rn, int K) {
+  stage_copy(xs, xbar, phase, src, r0, rn, K);
+  const int q = K / 4;  // float4s of a row
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rn * q; i += kThreads) {
+    const int r = i / q, c = 4 * (i % q);
+    store4(xb + (size_t)r * ldb + c, *reinterpret_cast<const float4*>(xs + (size_t)r * K + c));
+  }
+}
+
+// Rows r0..r0+rn of src, bf16 rows of K values that an earlier phase wrote
+// (a context, or FFN1's hidden rows), into xb at row length ldb: one bulk
+// copy a row, issued by warp 0's lanes, on xbar.
+__device__ __noinline__ void stage_rows_bf16(__nv_bfloat16* xb, int ldb, uint64_t* xbar, uint32_t phase,
+                                             const __nv_bfloat16* src, int r0, int rn, int K) {
+  if (threadIdx.x < 32) {
+    fence_proxy_async_global();
+    fence_proxy_async_shared();
+    if (threadIdx.x == 0) mbar_expect_tx(xbar, 2u * rn * K);
+    __syncwarp();
+    for (int r = threadIdx.x; r < rn; r += 32)
+      bulk_load(xb + (size_t)r * ldb, src + (size_t)(r0 + r) * K, 2u * K, xbar);
+  }
+  mbar_wait(xbar, phase);
+}
+
+// stage_ln with the normalised rows written as bf16 into xb (xs keeps the
+// landed rows); the owner of a row writes it to dst in f32.
+__device__ __noinline__ void stage_ln_bf16(float* xs, __nv_bfloat16* xb, int ldb, float* lnp, uint64_t* xbar,
+                                           uint32_t phase, const float* src, const float* w, const float* b,
+                                           float* dst, int r0, int rn, int E, Owners own) {
+  if (threadIdx.x == 0) {
+    fence_proxy_async_global();
+    fence_proxy_async_shared();
+    const uint32_t rows = 4u * rn * E, par = 4u * E;
+    mbar_expect_tx(xbar, rows + 2 * par);
+    bulk_load(xs, src + (size_t)r0 * E, rows, xbar);
+    bulk_load(lnp, w, par, xbar);
+    bulk_load(lnp + E, b, par, xbar);
+  }
+  mbar_wait(xbar, phase);
+  auto row = [&](int i) { return xs + (size_t)i * E; };
+  auto brow = [&](int i) { return xb + (size_t)i * ldb; };
+  auto out = [&](int i) { return own.mine(r0 + i) ? dst + (size_t)(r0 + i) * E : nullptr; };
+  int i = threadIdx.x >> 5;
+  for (; i + kWarps < rn; i += 2 * kWarps) {
+    const float* const rows[2] = {row(i), row(i + kWarps)};
+    __nv_bfloat16* const copies[2] = {brow(i), brow(i + kWarps)};
+    float* const outs[2] = {out(i), out(i + kWarps)};
+    ln_rows<2>(rows, copies, outs, lnp, lnp + E, E);
+  }
+  if (i < rn) {
+    const float* const rows[1] = {row(i)};
+    __nv_bfloat16* const copies[1] = {brow(i)};
+    float* const outs[1] = {out(i)};
+    ln_rows<1>(rows, copies, outs, lnp, lnp + E, E);
+  }
+}
+
+// stage_embed of the bf16 table: x = embedding[tok] + pe in f32 (the owner
+// writes it), rounded to bf16 into xb.
+__device__ __noinline__ void stage_embed_bf16(__nv_bfloat16* xb, int ldb, const __nv_bfloat16* embedding,
+                                              const float* pe, const int* tok, float* x, int r0, int rn, int E,
+                                              Owners own) {
+  const int q = E / 4;
 #pragma unroll 4
   for (int i = threadIdx.x; i < rn * q; i += kThreads) {
     const int r = i / q, c = 4 * (i % q);
     const float4 e = load4(embedding + (size_t)tok[r0 + r] * E + c);  // a bf16 row widened exactly
     const float4 p = __ldg(reinterpret_cast<const float4*>(pe + c));
     const float4 y = make_float4(e.x + p.x, e.y + p.y, e.z + p.z, e.w + p.w);
-    *reinterpret_cast<float4*>(xs + (size_t)r * E + c) = y;
+    store4(xb + (size_t)r * ldb + c, y);
     if (own.mine(r0 + r)) *reinterpret_cast<float4*>(x + (size_t)(r0 + r) * E + c) = y;
   }
 }
@@ -605,10 +786,59 @@ __device__ __forceinline__ void stage_ln(const Args& a, Blk& k, const float* src
   k.xphase ^= 1;
 }
 
-template <class W>
 __device__ __forceinline__ void stage_embed(const Args& a, Blk& k, int s, float* x, int r0, int rn) {
-  stage_embed(k.xs, reinterpret_cast<const W*>(a.embedding), a.pe + (size_t)s * a.E, k.tok, x, r0, rn, a.E,
-              Owners{k.rpg, k.gc});
+  stage_embed(k.xs, a.embedding, a.pe + (size_t)s * a.E, k.tok, x, r0, rn, a.E, Owners{k.rpg, k.gc});
+}
+
+// The bf16 arm's staged copy: its place in this block's shared memory (the
+// base is the first mbarrier's) and its row length.
+__device__ __forceinline__ __nv_bfloat16* xb_of(const Args& a, const Blk& k) {
+  return reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<unsigned char*>(k.ubar) + a.xb_off);
+}
+
+// The stagings of either arm: BF also writes the bf16 copy.  stage_rows:
+// f32 rows (the input x); stage_acts: rows a phase of this launch wrote in
+// the arm's type (in the bf16 arm each value was rounded as it was written).
+template <bool BF>
+__device__ __forceinline__ void stage_rows(const Args& a, Blk& k, const float* src, int r0, int rn, int K) {
+  if constexpr (BF) {
+    stage_copy_bf16(k.xs, xb_of(a, k), bf16_row_len(a.E, a.F), k.xbar, k.xphase, src, r0, rn, K);
+    k.xphase ^= 1;
+  } else {
+    stage_copy(k, src, r0, rn, K);
+  }
+}
+
+template <bool BF>
+__device__ __forceinline__ void stage_acts(const Args& a, Blk& k, const float* src, int r0, int rn, int K) {
+  if constexpr (BF) {
+    stage_rows_bf16(xb_of(a, k), bf16_row_len(a.E, a.F), k.xbar, k.xphase,
+                    reinterpret_cast<const __nv_bfloat16*>(src), r0, rn, K);
+    k.xphase ^= 1;
+  } else {
+    stage_copy(k, src, r0, rn, K);
+  }
+}
+
+template <bool BF>
+__device__ __forceinline__ void stage_norm(const Args& a, Blk& k, const float* src, const float* w, const float* b,
+                                           float* dst, int r0, int rn) {
+  if constexpr (BF) {
+    stage_ln_bf16(k.xs, xb_of(a, k), bf16_row_len(a.E, a.F), k.lnp, k.xbar, k.xphase, src, w, b, dst, r0, rn, a.E,
+                  Owners{k.rpg, k.gc});
+    k.xphase ^= 1;
+  } else {
+    stage_ln(a, k, src, w, b, dst, r0, rn);
+  }
+}
+
+template <bool BF>
+__device__ __forceinline__ void stage_tokens(const Args& a, Blk& k, int s, float* x, int r0, int rn) {
+  if constexpr (BF)
+    stage_embed_bf16(xb_of(a, k), bf16_row_len(a.E, a.F), reinterpret_cast<const __nv_bfloat16*>(a.embedding),
+                     a.pe + (size_t)s * a.E, k.tok, x, r0, rn, a.E, Owners{k.rpg, k.gc});
+  else
+    stage_embed(a, k, s, x, r0, rn);
 }
 
 // One warp's tile of 16 staged rows (xr, row length K) by 4 weight rows
@@ -618,13 +848,8 @@ __device__ __forceinline__ void stage_embed(const Args& a, Blk& k, int s, float*
 // bound by instruction fetch when each product carries its own unrolled
 // copy.  All 20 loads of a k step go before its 256 multiply-adds, since a
 // warp issues in order; lanes split k in float4 steps and a reduce-scatter
-// of shuffles (five halving steps, 62 shuffles) sums the lanes.  W: the
-// weights' type; with bf16 weights (the bf16 arm) each staged value is
-// rounded to bf16 as it is loaded, so that each product is the exact
-// product of two bf16 values, summed in f32.
-template <class W>
-__device__ __noinline__ float2 tile_dot(const W* ws, const float* xr, int K, int nc) {
-  constexpr bool kBf16 = sizeof(W) == 2;
+// of shuffles (five halving steps, 62 shuffles) sums the lanes.
+__device__ __noinline__ float2 tile_dot(const float* ws, const float* xr, int K, int nc) {
   const int lane = threadIdx.x & 31;
   float v[kRT * kCG];  // flat (row, column) partial sums of this lane
 #pragma unroll
@@ -634,11 +859,7 @@ __device__ __noinline__ float2 tile_dot(const W* ws, const float* xr, int K, int
 #pragma unroll
     for (int c = 0; c < kCG; ++c) w[c] = load4(ws + (size_t)min(c, nc - 1) * K + kk);
 #pragma unroll
-    for (int r = 0; r < kRT; ++r) {
-      x[r] = *reinterpret_cast<const float4*>(xr + (size_t)r * K + kk);
-      if constexpr (kBf16)
-        x[r] = make_float4(round_bf16(x[r].x), round_bf16(x[r].y), round_bf16(x[r].z), round_bf16(x[r].w));
-    }
+    for (int r = 0; r < kRT; ++r) x[r] = *reinterpret_cast<const float4*>(xr + (size_t)r * K + kk);
 #pragma unroll
     for (int r = 0; r < kRT; ++r)
 #pragma unroll
@@ -649,22 +870,115 @@ __device__ __noinline__ float2 tile_dot(const W* ws, const float* xr, int K, int
   return make_float2(v[0], v[1]);
 }
 
+// ldmatrix of four or one 8 x 8 bf16 matrices (the lanes' row addresses at
+// `addr`), and one bf16 mma.sync m16n8k16 with f32 accumulators d += a b.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x1(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];" : "=r"(r[0]) : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bf16 arm's warp tile: 16 staged bf16 rows (xb, row length ldb) by 8
+// weight rows of a ring unit (ws, K values each, ldw apart; rows past nc
+// repeat the last and their sums are dropped), on mma.sync m16n8k16 (bf16
+// operands, f32 accumulators: the exact products of two bf16 values summed
+// in f32).  A's 16 x 16 fragment comes from xb by ldmatrix (lane l gives
+// row l % 16, k half l / 16), B's 16 x 8 from the weight rows as they lie,
+// which is mma's .col layout (lane l gives weight row l % 8, k eighth l /
+// 8: four k8 pieces, two k16 steps, a load).  xb's row stride, and a
+// padded unit's (ldw = ring_row(K)), are odd numbers of 16-byte granules,
+// so their ldmatrix loads meet no bank conflict.  A k64 stage's six loads
+// go out a stage ahead of its four products (two register sets), since a
+// warp issues in order.  k16 step s goes to accumulator s % 4; the four are
+// added in a fixed order, so an output's sum order depends on K alone.
+// When K % 16 == 8 the last step's upper k half of A and B is zeroed in
+// registers, so that neither xb's pad nor what follows a weight row in the
+// ring enters a sum.  Returns this lane's outputs (row lane / 4, columns
+// 2 (lane % 4) and + 1), (row lane / 4 + 8, the same columns), as mma's
+// accumulator fragment lies.  Out of line, as tile_dot.
+struct Frag64 {
+  uint32_t a[4][4], b[2][4];
+};
+
+__device__ __forceinline__ void load64(Frag64& f, uint32_t pa, uint32_t pb, int k0) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) ldsm_x4(pa + 2 * (k0 + 16 * s), f.a[s]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) ldsm_x4(pb + 2 * (k0 + 32 * h), f.b[h]);
+}
+
+__device__ __noinline__ float4 tile_mma(const __nv_bfloat16* ws, int ldw, const __nv_bfloat16* xb, int ldb, int K,
+                                        int nc) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t pa = smem_u32(xb + (size_t)(lane & 15) * ldb + 8 * (lane >> 4));
+  const uint32_t pb = smem_u32(ws + (size_t)min(lane & 7, nc - 1) * ldw + 8 * (lane >> 3));
+  float acc[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+  const int stages = K / 64;
+  Frag64 cur, next;
+  if (stages > 0) load64(cur, pa, pb, 0);
+#pragma unroll 1
+  for (int i = 0; i < stages; ++i) {
+    if (i + 1 < stages) load64(next, pa, pb, 64 * (i + 1));
+#pragma unroll
+    for (int s = 0; s < 4; ++s) mma_bf16(acc[s], cur.a[s], cur.b[s >> 1][2 * (s & 1)], cur.b[s >> 1][2 * (s & 1) + 1]);
+    cur = next;
+  }
+  const int k0 = 64 * stages, whole = (K - k0) >> 4, half = (K - k0) & 15;  // up to three k16 steps, 0 or 8 values
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t a[4], b[2];
+    if (s < whole) {
+      ldsm_x4(pa + 2 * (k0 + 16 * s), a);
+      ldsm_x2(pb + 2 * (k0 + 16 * s), b);
+      mma_bf16(acc[s], a, b[0], b[1]);
+    } else if (s == whole && half) {
+      ldsm_x4(pa + 2 * (k0 + 16 * s), a);
+      ldsm_x1(pb + 2 * (k0 + 16 * s), b);
+      a[2] = a[3] = 0u;
+      mma_bf16(acc[s], a, b[0], 0u);
+    }
+  }
+  float out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = (acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i]);
+  return make_float4(out[0], out[1], out[2], out[3]);
+}
+
 // out[r, c] for the block's rows [ra, rb) and the columns of ring units
 // u0..u0+nu-1 (K-long weight rows): stage(r0, rn) puts input rows
-// r0..r0+rn in xs, then each warp task multiplies 16 staged rows by 4
-// weight rows of a unit (tile_dot), and epi(r, c, sum, pre(r, c)) takes
+// r0..r0+rn in xs (and, in the bf16 arm, their bf16 copy in xb), then each
+// warp task multiplies 16 staged rows by a unit's 4 weight rows (tile_dot)
+// or, in the bf16 arm, 8 (tile_mma), and epi(r, c, sum, pre(r, c)) takes
 // each output, where pre(r, c) gives its bias and residual from device
-// memory.  Rows past rn of the last tile are computed from whatever xs
-// holds and dropped.  W: the weights' type in the ring.
-template <class W, class Stage, class Pre, class Epi>
+// memory.  Rows past rn of the last tile are computed from whatever xs (xb)
+// holds and dropped.  W: the weights' type in the ring; PAD: the launch may
+// pad its units' rows (unit_row).
+template <class W, bool PAD, class Stage, class Pre, class Epi>
 __device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stage, Pre pre, Epi epi) {
+  constexpr bool kBf = sizeof(W) == 2;
+  constexpr int CG = kBf ? kCGb : kCG;  // columns of a warp task
+  constexpr int NV = kBf ? 4 : 2;       // outputs of a lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int cols[kMaxGroup], col0[kMaxGroup], ncg = 0;
   for (int j = 0; j < nu; ++j) {
     const Unit t = unit_of(a, k, u0 + j);
     cols[j] = t.cols;
     col0[j] = t.col0;
-    ncg += (t.cols + kCG - 1) / kCG;
+    ncg += (t.cols + CG - 1) / CG;
   }
   const int S = a.plan.slot_floats, NS = a.plan.slots;
   for (int r0 = k.ra; r0 < k.rb; r0 += a.plan.rc) {
@@ -676,24 +990,42 @@ __device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stag
     for (int task = warp; task < nrt * ncg; task += kWarps) {
       const int rt = task % nrt;
       int cgi = task / nrt, j = 0;
-      while (cgi >= (cols[j] + kCG - 1) / kCG) cgi -= (cols[j++] + kCG - 1) / kCG;
-      const int u = u0 + j, nc = min(kCG, cols[j] - cgi * kCG);
+      while (cgi >= (cols[j] + CG - 1) / CG) cgi -= (cols[j++] + CG - 1) / CG;
+      const int u = u0 + j, nc = min(CG, cols[j] - cgi * CG);
       ring_wait(a, k, u);
       stamp(k, 7);
-      const float2 sums = tile_dot(reinterpret_cast<const W*>(k.ring) + (size_t)(u % NS) * S + (size_t)cgi * kCG * K,
-                                   k.xs + (size_t)rt * kRT * K, K, nc);
-      const float v[2] = {sums.x, sums.y};
-      // This lane's two outputs' epilogue operands; indices clamped into
-      // range so that both loads issue together, unpredicated.
-      float2 pv[2];
+      const int ldw = PAD ? unit_row(a, K) : K;  // weight row to row in the slot
+      const W* ws = reinterpret_cast<const W*>(k.ring) + (size_t)(u % NS) * S + (size_t)cgi * CG * ldw;
+      float v[NV];
+      // This lane's outputs: (row, column) of the tile.
+      auto at = [&](int i) {
+        return kBf ? make_int2((lane >> 2) + 8 * (i >> 1), 2 * (lane & 3) + (i & 1))
+                   : make_int2((2 * lane + i) / kCG, (2 * lane + i) % kCG);
+      };
+      // The epilogue operands; indices clamped into range so that all the
+      // loads issue together, unpredicated (in the bf16 arm before the
+      // tile, whose few microseconds then hide their latency).
+      float2 pv[NV];
+      auto load_pre = [&]() {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int flat = 2 * lane + i, r = rt * kRT + flat / kCG, c = cgi * kCG + flat % kCG;
-        pv[i] = pre(r0 + min(r, rn - 1), col0[j] + min(c, cols[j] - 1));
+        for (int i = 0; i < NV; ++i) {
+          const int r = rt * kRT + at(i).x, c = cgi * CG + at(i).y;
+          pv[i] = pre(r0 + min(r, rn - 1), col0[j] + min(c, cols[j] - 1));
+        }
+      };
+      if constexpr (kBf) {
+        load_pre();
+        const int ldb = bf16_row_len(a.E, a.F);
+        const float4 sums = tile_mma(ws, ldw, xb_of(a, k) + (size_t)rt * kRT * ldb, ldb, K, nc);
+        v[0] = sums.x, v[1] = sums.y, v[2] = sums.z, v[3] = sums.w;
+      } else {
+        const float2 sums = tile_dot(ws, k.xs + (size_t)rt * kRT * K, K, nc);
+        v[0] = sums.x, v[1] = sums.y;
+        load_pre();
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int flat = 2 * lane + i, r = rt * kRT + flat / kCG, c = cgi * kCG + flat % kCG;
+      for (int i = 0; i < NV; ++i) {
+        const int r = rt * kRT + at(i).x, c = cgi * CG + at(i).y;
         if (r < rn && c < cols[j]) epi(r0 + r, col0[j] + c, v[i], pv[i]);
       }
     }
@@ -704,19 +1036,19 @@ __device__ void product(const Args& a, Blk& k, int u0, int nu, int K, Stage stag
 // A product phase over ring units ub..ue-1, `group` units at a time, each
 // group's units released when it is done.  When the block's rows fit one
 // chunk they are staged once for all the groups.
-template <class W, class Stage, class Pre, class Epi>
+template <class W, bool PAD, class Stage, class Pre, class Epi>
 __device__ void product_units(const Args& a, Blk& k, int ub, int ue, int K, Stage stage, Pre pre, Epi epi) {
   const bool one_chunk = k.rb - k.ra <= a.plan.rc;
   bool staged = false;
   for (int g0 = ub; g0 < ue; g0 += a.plan.group) {
     const int n = min(a.plan.group, ue - g0);
-    product<W>(a, k, g0, n, K,
+    product<W, PAD>(a, k, g0, n, K,
             [&](int r0, int rn) {
               if (!(staged && one_chunk)) stage(r0, rn);
               staged = true;
             },
             pre, epi);
-    ring_release(a, k, g0 + n);
+    ring_release<PAD>(a, k, g0 + n);
     stamp(k, 6);
   }
 }
@@ -817,49 +1149,82 @@ __device__ __noinline__ void warp_attention(const float* q_src, int dh, float sc
   __syncwarp();
 }
 
+// Two values rounded to bf16 by one cvt.rn.bf16x2, widened back.
+__device__ __forceinline__ float2 round_bf16x2(float a, float b) {
+  return __bfloat1622float2(__float22bfloat162_rn(make_float2(a, b)));
+}
+
 // One score of the bf16 arm: the sum over a head's dh dims of bf16(q[d] *
 // k[d]), q already scaled by 1/sqrt(dh) (f32), k bf16 (the cache or the
-// memory) or f32 (the new k at pos).
+// memory) or f32 (the new k at pos).  The products are rounded in pairs and
+// summed into four partial sums (dims d % 4 at VEC 4; at VEC 1 each group of
+// four dims likewise, a last pair into the first two, a last dim into the
+// third), added in a fixed order: the sum order depends on dh alone.
 template <int VEC, class P>
 __device__ __forceinline__ float score_bf16(const float* sq, const P* k, int dh) {
-  float s = 0.f;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int d = 0;
   if constexpr (VEC == 4) {
-#pragma unroll 8
-    for (int d = 0; d < dh; d += 4) {
+#pragma unroll 16
+    for (; d < dh; d += 4) {
       const float4 kv = load4(k + d);
-      s += round_bf16(sq[d] * kv.x);
-      s += round_bf16(sq[d + 1] * kv.y);
-      s += round_bf16(sq[d + 2] * kv.z);
-      s += round_bf16(sq[d + 3] * kv.w);
+      const float2 lo = round_bf16x2(sq[d] * kv.x, sq[d + 1] * kv.y);
+      const float2 hi = round_bf16x2(sq[d + 2] * kv.z, sq[d + 3] * kv.w);
+      s0 += lo.x, s1 += lo.y, s2 += hi.x, s3 += hi.y;
     }
   } else {
-#pragma unroll 8
-    for (int d = 0; d < dh; ++d) s += round_bf16(sq[d] * to_f32(k[d]));
+#pragma unroll 4
+    for (; d + 4 <= dh; d += 4) {
+      const float2 lo = round_bf16x2(sq[d] * to_f32(k[d]), sq[d + 1] * to_f32(k[d + 1]));
+      const float2 hi = round_bf16x2(sq[d + 2] * to_f32(k[d + 2]), sq[d + 3] * to_f32(k[d + 3]));
+      s0 += lo.x, s1 += lo.y, s2 += hi.x, s3 += hi.y;
+    }
+    if (d + 2 <= dh) {
+      const float2 lo = round_bf16x2(sq[d] * to_f32(k[d]), sq[d + 1] * to_f32(k[d + 1]));
+      s0 += lo.x, s1 += lo.y;
+      d += 2;
+    }
+    if (d < dh) s2 += round_bf16(sq[d] * to_f32(k[d]));
   }
-  return s;
+  return (s0 + s1) + (s2 + s3);
 }
 
 // warp_attention in the bf16 arm (the JAX kernel's precise=False rounding,
 // the module note): keys and values below n_base in bf16 at kbase/vbase,
 // the new k/v at pos in f32 (kx/vx); q scaled before the products, each
-// product rounded to bf16, the softmax in f32, probs_out unrounded and each
-// probability rounded to bf16 before it weights its value.
+// product rounded to bf16 (score_bf16), the softmax in f32, probs_out
+// unrounded and each probability rounded to bf16 before it weights its
+// value.  The new k's score is the whole warp's (its dims in pairs over the
+// lanes, then a butterfly) and the weighted sum loads the bf16 rows kAttT at
+// a time and adds the new f32 v last, so that no lane or load picks its type
+// per position.  The context is written rounded to bf16 (ctx), as the
+// out-projection reads it.
 template <int VEC>
 __device__ __noinline__ void warp_attention_bf16(const float* q_src, int dh, float scale,
                                                  const __nv_bfloat16* kbase, const __nv_bfloat16* vbase,
                                                  size_t stride, int n_base, const float* kx, const float* vx,
-                                                 float* sq, float* sp, float* ctx, float* probs_out) {
+                                                 float* sq, float* sp, __nv_bfloat16* ctx, float* probs_out) {
   const int lane = threadIdx.x & 31;
   const int n_pos = n_base + (kx != nullptr);
   for (int d = lane; d < dh; d += 32) sq[d] = q_src[d] * scale;
   __syncwarp();
   float mx = -INFINITY;
-  for (int t = lane; t < n_pos; t += 32) {
-    const float s = t < n_base ? score_bf16<VEC>(sq, kbase + t * stride, dh) : score_bf16<VEC>(sq, kx, dh);
+  if (kx) {  // the new f32 key at pos: the whole warp, a pair of dims a lane, summed by a butterfly
+    float s = 0.f;
+    for (int d = 2 * lane; d < dh; d += 64) {
+      const float2 p = round_bf16x2(sq[d] * kx[d], d + 1 < dh ? sq[d + 1] * kx[d + 1] : 0.f);
+      s += p.x + p.y;
+    }
+    mx = warp_sum(s);
+    if (lane == 0) sp[n_base] = mx;
+  }
+  for (int t = lane; t < n_base; t += 32) {  // the bf16 keys, a lane each: no lane picks a type of its own
+    const float s = score_bf16<VEC>(sq, kbase + t * stride, dh);
     sp[t] = s;
     mx = fmaxf(mx, s);
   }
   mx = warp_max(mx);
+  __syncwarp();
   float sum = 0.f;
   for (int t = lane; t < n_pos; t += 32) {
     const float e = expf(sp[t] - mx);
@@ -879,36 +1244,40 @@ __device__ __noinline__ void warp_attention_bf16(const float* q_src, int dh, flo
       const int d = d0 + 4 * (lane & 15);
       const bool on = d < dh;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int t0 = half; t0 < n_pos; t0 += 2 * kAttT) {
+      for (int t0 = half; t0 < n_base; t0 += 2 * kAttT) {  // the bf16 rows: one load of one type each
         float4 vv[kAttT];
 #pragma unroll
         for (int i = 0; i < kAttT; ++i) {
           const int t = t0 + 2 * i;
-          vv[i] = !on || t >= n_pos ? make_float4(0.f, 0.f, 0.f, 0.f)
-                  : t < n_base      ? load4(vbase + t * stride + d)
-                                    : load4(vx + d);
+          vv[i] = on && t < n_base ? load4(vbase + t * stride + d) : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
         for (int i = 0; i < kAttT; ++i) {
-          const float p = t0 + 2 * i < n_pos ? sp[t0 + 2 * i] : 0.f;
+          const float p = t0 + 2 * i < n_base ? sp[t0 + 2 * i] : 0.f;
           acc.x = fmaf(p, vv[i].x, acc.x);
           acc.y = fmaf(p, vv[i].y, acc.y);
           acc.z = fmaf(p, vv[i].z, acc.z);
           acc.w = fmaf(p, vv[i].w, acc.w);
         }
       }
+      if (vx && on && half == (n_base & 1)) {  // the new f32 v at pos, last in its half's order
+        const float4 v = load4(vx + d);
+        const float p = sp[n_base];
+        acc = make_float4(fmaf(p, v.x, acc.x), fmaf(p, v.y, acc.y), fmaf(p, v.z, acc.z), fmaf(p, v.w, acc.w));
+      }
       acc.x += __shfl_xor_sync(0xffffffffu, acc.x, 16);
       acc.y += __shfl_xor_sync(0xffffffffu, acc.y, 16);
       acc.z += __shfl_xor_sync(0xffffffffu, acc.z, 16);
       acc.w += __shfl_xor_sync(0xffffffffu, acc.w, 16);
-      if (on && half == 0) *reinterpret_cast<float4*>(ctx + d) = acc;
+      if (on && half == 0) store4(ctx + d, acc);
     }
   } else {
     for (int d = lane; d < dh; d += 32) {
       float a = 0.f;
 #pragma unroll 8
-      for (int t = 0; t < n_pos; ++t) a = fmaf(sp[t], t < n_base ? to_f32(vbase[t * stride + d]) : vx[d], a);
-      ctx[d] = a;
+      for (int t = 0; t < n_base; ++t) a = fmaf(sp[t], to_f32(vbase[t * stride + d]), a);
+      if (vx) a = fmaf(sp[n_base], vx[d], a);
+      ctx[d] = __float2bfloat16(a);
     }
   }
   __syncwarp();
@@ -926,8 +1295,8 @@ enum InKind { kInRows = 0, kInLn3 = 1, kInEmbed = 2 };
 // (kInEmbed); in the last two the owners write them to x, the residual.
 // The layer's units are u0..u0+upl-1.  h3 = x2 + FFN2 is left for the
 // caller's LN3.  VEC is warp_attention's key load width; BF selects the
-// bf16 arm (the module note).
-template <int VEC, bool BF>
+// bf16 arm (the module note); PAD lets the ring pad its units' rows.
+template <int VEC, bool BF, bool PAD>
 __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l, int u0, int pos, InKind in,
                              float* x, int s) {
   using W = typename Elem<BF>::T;
@@ -936,7 +1305,7 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
   const float scale = rsqrtf((float)dh);
   const size_t RE = (size_t)R * E;
   float* qkv = a.scratch;      // (R, 3E)
-  float* ctx_s = qkv + 3 * RE;  // (R, E) self-attention context
+  float* ctx_s = qkv + 3 * RE;  // (R, E) self-attention context (bf16 in the bf16 arm, as are ctx_c and hid)
   float* h1 = ctx_s + RE;       // x + self-attention output
   float* x1 = h1 + RE;          // LN1
   float* q2 = x1 + RE;          // cross query
@@ -954,14 +1323,14 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
 
   // 1. QKV.
   const float* bq = a.b_qkv + (size_t)l * E3;
-  product_units<W>(a, k, u0, u_so, E,
+  product_units<W, PAD>(a, k, u0, u_so, E,
           [&](int r0, int rn) {
             if (in == kInRows)
-              stage_copy(k, a.x_in, r0, rn, E);
+              stage_rows<BF>(a, k, a.x_in, r0, rn, E);
             else if (in == kInLn3)
-              stage_ln(a, k, h3, a.ln3_w + (size_t)(l - 1) * E, a.ln3_b + (size_t)(l - 1) * E, x, r0, rn);
+              stage_norm<BF>(a, k, h3, a.ln3_w + (size_t)(l - 1) * E, a.ln3_b + (size_t)(l - 1) * E, x, r0, rn);
             else
-              stage_embed<W>(a, k, s, x, r0, rn);
+              stage_tokens<BF>(a, k, s, x, r0, rn);
           },
           [&](int, int c) { return make_float2(bq[c], 0.f); },
           [&](int r, int c, float y, float2 p) { qkv[(size_t)r * E3 + c] = y + p.x; });
@@ -984,7 +1353,7 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
     const float* vn = row + 2 * E + h * dh;
     if constexpr (BF)
       warp_attention_bf16<VEC>(row + h * dh, dh, scale, ck, cv, E, pos, kn, vn, sq, sp,
-                               ctx_s + (size_t)r * E + h * dh, nullptr);
+                               reinterpret_cast<W*>(ctx_s) + (size_t)r * E + h * dh, nullptr);
     else
       warp_attention<VEC>(row + h * dh, dh, scale, ck, cv, E, pos, kn, vn, sq, sp, ctx_s + (size_t)r * E + h * dh,
                           nullptr);
@@ -993,15 +1362,17 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
 
   // 3. Out-projection and residual.
   const float* bso = a.b_so + (size_t)l * E;
-  product_units<W>(a, k, u_so, u_cq, E, [&](int r0, int rn) { stage_copy(k, ctx_s, r0, rn, E); },
+  product_units<W, PAD>(a, k, u_so, u_cq, E, [&](int r0, int rn) { stage_acts<BF>(a, k, ctx_s, r0, rn, E); },
                 [&](int r, int c) { return make_float2(bso[c], res[(size_t)r * E + c]); },
                 [&](int r, int c, float y, float2 p) { h1[(size_t)r * E + c] = p.y + (y + p.x); });
   grid_barrier(grid, k);
 
   // 4. LN1 (prologue), cross query; then the cross-attention.
   const float* bcq = a.b_cq + (size_t)l * E;
-  product_units<W>(a, k, u_cq, u_co, E,
-                [&](int r0, int rn) { stage_ln(a, k, h1, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, r0, rn); },
+  product_units<W, PAD>(a, k, u_cq, u_co, E,
+                [&](int r0, int rn) {
+                  stage_norm<BF>(a, k, h1, a.ln1_w + (size_t)l * E, a.ln1_b + (size_t)l * E, x1, r0, rn);
+                },
                 [&](int, int c) { return make_float2(bcq[c], 0.f); },
                 [&](int r, int c, float y, float2 p) { q2[(size_t)r * E + c] = y + p.x; });
   grid_barrier(grid, k);
@@ -1011,24 +1382,28 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
     const W* mv = reinterpret_cast<const W*>(a.mem_v) + ((size_t)l * R + r) * P * E + h * dh;
     if constexpr (BF)
       warp_attention_bf16<VEC>(q2 + (size_t)r * E + h * dh, dh, scale, mk, mv, E, P, nullptr, nullptr, sq, sp,
-                               ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
+                               reinterpret_cast<W*>(ctx_c) + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
     else
       warp_attention<VEC>(q2 + (size_t)r * E + h * dh, dh, scale, mk, mv, E, P, nullptr, nullptr, sq, sp,
                           ctx_c + (size_t)r * E + h * dh, pbuf + ((size_t)r * H + h) * P);
   }
   grid_barrier(grid, k);
   const float* bco = a.b_co + (size_t)l * E;
-  product_units<W>(a, k, u_co, u_f1, E, [&](int r0, int rn) { stage_copy(k, ctx_c, r0, rn, E); },
+  product_units<W, PAD>(a, k, u_co, u_f1, E, [&](int r0, int rn) { stage_acts<BF>(a, k, ctx_c, r0, rn, E); },
                 [&](int r, int c) { return make_float2(bco[c], x1[(size_t)r * E + c]); },
                 [&](int r, int c, float y, float2 p) { h2[(size_t)r * E + c] = p.y + (y + p.x); });
   grid_barrier(grid, k);
 
   // 5. LN2 (prologue) and the alpha mean, FFN1, FFN2 and residual.
   const float* bf1 = a.b_f1 + (size_t)l * F;
-  product_units<W>(a, k, u_f1, u_f2, E,
-                [&](int r0, int rn) { stage_ln(a, k, h2, a.ln2_w + (size_t)l * E, a.ln2_b + (size_t)l * E, x2, r0, rn); },
+  product_units<W, PAD>(a, k, u_f1, u_f2, E,
+                [&](int r0, int rn) {
+                  stage_norm<BF>(a, k, h2, a.ln2_w + (size_t)l * E, a.ln2_b + (size_t)l * E, x2, r0, rn);
+                },
                 [&](int, int c) { return make_float2(bf1[c], 0.f); },
-                [&](int r, int c, float y, float2 p) { hid[(size_t)r * F + c] = fmaxf(y + p.x, 0.f); });
+                [&](int r, int c, float y, float2 p) {
+                  store_elem(reinterpret_cast<W*>(hid) + (size_t)r * F + c, fmaxf(y + p.x, 0.f));
+                });
   for (int i = threadIdx.x; i < (k.rb - k.ra) * P; i += kThreads) {
     const int r = k.ra + i / P, p = i % P;
     if (!owns(k, r)) continue;
@@ -1039,7 +1414,7 @@ __device__ void decode_layer(const Args& a, Blk& k, cg::grid_group& grid, int l,
   }
   grid_barrier(grid, k);
   const float* bf2 = a.b_f2 + (size_t)l * E;
-  product_units<W>(a, k, u_f2, u_f2 + ne, F, [&](int r0, int rn) { stage_copy(k, hid, r0, rn, F); },
+  product_units<W, PAD>(a, k, u_f2, u_f2 + ne, F, [&](int r0, int rn) { stage_acts<BF>(a, k, hid, r0, rn, F); },
                 [&](int r, int c) { return make_float2(bf2[c], x2[(size_t)r * E + c]); },
                 [&](int r, int c, float y, float2 p) { h3[(size_t)r * E + c] = p.y + (y + p.x); });
   grid_barrier(grid, k);
@@ -1064,9 +1439,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(const Args a0
   extern __shared__ __align__(128) unsigned char smem[];
   Args a = a0;
   Blk k;
-  blk_init(a, k, smem);
+  blk_init<BF>(a, k, smem);
   stamp(k, 0);
-  decode_layer<VEC, BF>(a, k, grid, a.layer, 0, a.pos, kInRows, nullptr, 0);
+  decode_layer<VEC, BF, BF>(a, k, grid, a.layer, 0, a.pos, kInRows, nullptr, 0);
   ln3_owned(a, k, a.layer);
   stamp(k, 4);
   ring_drain(a, k);
@@ -1078,10 +1453,10 @@ __global__ void __launch_bounds__(kThreads, 1) decode_onecell_kernel(const Args 
   extern __shared__ __align__(128) unsigned char smem[];
   Args a = a0;
   Blk k;
-  blk_init(a, k, smem);
+  blk_init<false>(a, k, smem);
   stamp(k, 0);
   for (int l = 0; l < a.L; ++l)
-    decode_layer<VEC, BF>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
+    decode_layer<VEC, BF, false>(a, k, grid, l, a.upl * l, a.pos, l == 0 ? kInRows : kInLn3, a.x_out, 0);
   ln3_owned(a, k, a.L - 1);
   stamp(k, 4);
   ring_drain(a, k);
@@ -1131,7 +1506,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args 
   extern __shared__ __align__(128) unsigned char smem[];
   Args a = a0;
   Blk k;
-  blk_init(a, k, smem);
+  blk_init<false>(a, k, smem);
   stamp(k, 0);
   const int R = a.R, E = a.E, L = a.L, S = a.steps, V = a.V;
   W* cache_k = reinterpret_cast<W*>(a.k_new);  // the same buffers as a.cache_k/v
@@ -1161,13 +1536,14 @@ __global__ void __launch_bounds__(kThreads, 1) decode_rollout_kernel(const Args 
     a.k_new = reinterpret_cast<float*>(cache_k + (size_t)s * E);
     a.v_new = reinterpret_cast<float*>(cache_v + (size_t)s * E);
     for (int l = 0; l < L; ++l)
-      decode_layer<VEC, BF>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
+      decode_layer<VEC, BF, false>(a, k, grid, l, s * a.upt + a.upl * l, s, l == 0 ? kInEmbed : kInLn3, x, s);
 
     // The head; its prologue is the last LN3.  Rows still running write
     // their logits and merge their keys.
-    product_units<W>(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
+    product_units<W, false>(a, k, s * a.upt + a.upl * L, (s + 1) * a.upt, E,
                   [&](int r0, int rn) {
-                    stage_ln(a, k, h3, a.ln3_w + (size_t)(L - 1) * E, a.ln3_b + (size_t)(L - 1) * E, x, r0, rn);
+                    stage_norm<BF>(a, k, h3, a.ln3_w + (size_t)(L - 1) * E, a.ln3_b + (size_t)(L - 1) * E, x, r0,
+                                   rn);
                   },
                   [&](int, int c) { return make_float2(a.fc_b[c], 0.f); },
                   [&](int r, int c, float y, float2 p) {
@@ -1200,14 +1576,17 @@ bool shapes_ok(int T, int E, int H, int F, int pos, int wsize) {
   return H > 0 && E % H == 0 && E % row == 0 && F % row == 0 && E <= 32 * 4 * kLnVec && pos >= 0 && pos < T;
 }
 
-// The plan covers every output column once and each unit fits its slot.
-bool plan_ok(const Plan& p, int R, int E, int F, int V) {
+// The plan covers every output column once and each unit fits its slot
+// (in the per-layer kernel, `layer`, a padded plan's rows take ring_row(K)
+// elements of it).
+bool plan_ok(const Plan& p, int R, int E, int F, int V, int wsize, bool layer) {
   if (p.grid < 1 || (p.row_groups != 1 && p.row_groups != 2) || p.grid % p.row_groups) return false;
-  const int gc = p.grid / p.row_groups;
+  const int gc = p.grid / p.row_groups, K = E > F ? E : F;
   const long long S = p.slot_floats;
   bool ok = (long long)p.ce * gc >= E && (long long)p.cf * gc >= F && p.uc >= 1 && p.rc >= kRT &&
-            p.rc % kRT == 0 && p.slots >= 1 && S % 32 == 0 && (long long)p.uc * (E > F ? E : F) <= S &&
-            p.group >= 1 && p.group <= p.slots && p.group <= kMaxGroup && R >= 1;
+            p.rc % kRT == 0 && p.slots >= 1 && S % 32 == 0 &&
+            (long long)p.uc * (layer && padded_rows(p, wsize) ? ring_row(K) : K) <= S && p.group >= 1 &&
+            p.group <= p.slots && p.group <= kMaxGroup && R >= 1;
   if (V > 0) ok = ok && p.row_groups == 1 && (long long)p.cv * p.grid >= V && p.hc >= 1 && (long long)p.hc * E <= S;
   return ok;
 }
@@ -1254,9 +1633,10 @@ int layer_launch(Args& a, const int* plan, int smem, bool one_cell, bool bf16, v
   a.wsize = bf16 ? 2 : 4;
   if (!shapes_ok(a.T, a.E, a.H, a.F, a.pos, a.wsize)) return (int)cudaErrorInvalidValue;
   a.plan = read_plan(plan);
-  if (!plan_ok(a.plan, a.R, a.E, a.F, 0) ||
+  if (!plan_ok(a.plan, a.R, a.E, a.F, 0, a.wsize, !one_cell) ||
       smem_layout_bytes(a.plan, a.R, a.T, a.P, a.E, a.H, a.F, false, a.wsize) != (size_t)smem)
     return (int)cudaErrorInvalidValue;
+  a.xb_off = (int)xb_offset(a.plan, a.R, a.T, a.P, a.E, a.H, a.F, false, a.wsize);
   a.l0 = one_cell ? 0 : a.layer;
   a.Lr = one_cell ? a.L : 1;
   set_units(a, 1);
@@ -1280,7 +1660,7 @@ int rollout_launch(const float* embedding, const float* fc_w, const float* fc_b,
   if (!shapes_ok(steps, E, H, F, 0, wsize) || V < 1 || (teacher == nullptr) != (use_teacher == nullptr))
     return (int)cudaErrorInvalidValue;
   const Plan p = read_plan(plan);
-  if (!plan_ok(p, R, E, F, V) || smem_layout_bytes(p, R, steps, P, E, H, F, true, wsize) != (size_t)smem)
+  if (!plan_ok(p, R, E, F, V, wsize, false) || smem_layout_bytes(p, R, steps, P, E, H, F, true, wsize) != (size_t)smem)
     return (int)cudaErrorInvalidValue;
   float* x = scratch + round4(layer_scratch_floats(R, E, H, F, P));
   float* alpha = x + round4((long long)R * E);
@@ -1292,6 +1672,7 @@ int rollout_launch(const float* embedding, const float* fc_w, const float* fc_b,
          embedding, fc_w, fc_b, pe, teacher, use_teacher, logits, seqs, alphas, best, state,
          V, steps, end_id, p, 0, L};
   a.wsize = wsize;
+  a.xb_off = (int)xb_offset(p, R, steps, P, E, H, F, true, wsize);
   set_units(a, steps);
   const bool v4 = vec4_heads(E, H);
   const void* kernel = bf16 ? (v4 ? (const void*)decode_rollout_kernel<4, true> : (const void*)decode_rollout_kernel<1, true>)
@@ -1302,6 +1683,23 @@ int rollout_launch(const float* embedding, const float* fc_w, const float* fc_b,
 }  // namespace
 
 extern "C" {
+
+// The shared-memory layout of a plan (11 ints, Plan's fields) for a launch
+// of R rows of kind 0 (per-layer), 1 (one-cell) or 2 (rollout, T the
+// steps) with wsize-byte weights, as the kernels take it: out[0] the total
+// bytes, out[1] the byte offset of the bf16 arm's staged copy, out[2] its
+// row length in values (0 and 0 in the f32 arm), out[3] plan_ok.  For the
+// CPU-side plan's tests (ops/decode_step.py:decode_layout).
+int tc_decode_smem_layout(const int* plan, int R, int T, int P, int E, int H, int F, int V, int kind, int wsize,
+                          long long* out) {
+  if ((wsize != 2 && wsize != 4) || H < 1 || E % H || kind < 0 || kind > 2) return -1;
+  const Plan p = read_plan(plan);
+  out[0] = (long long)smem_layout_bytes(p, R, T, P, E, H, F, kind == 2, wsize);
+  out[1] = wsize == 2 ? (long long)xb_offset(p, R, T, P, E, H, F, kind == 2, wsize) : 0;
+  out[2] = wsize == 2 ? bf16_row_len(E, F) : 0;
+  out[3] = plan_ok(p, R, E, F, V, wsize, kind == 0);
+  return 0;
+}
 
 // Floats of scratch the caller allocates for one layer or one-cell launch.
 long long tc_decode_scratch_floats(int R, int E, int H, int F, int P) {
@@ -1317,7 +1715,7 @@ long long tc_rollout_scratch_floats(int R, int E, int H, int F, int P) {
 
 // One decoder layer for all R rows; the caller launches layers 0..L-1 in
 // order on one stream, layer l > 0 reading layer l-1's x_out.  plan holds
-// 10 ints (Plan's fields, from decode_plan) and smem the dynamic
+// 11 ints (Plan's fields, from decode_plan) and smem the dynamic
 // shared memory they give.
 int tc_decode_layer_forward(
     const float* x_in, float* x_out, float* alpha, float* k_new, float* v_new,

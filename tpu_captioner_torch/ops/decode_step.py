@@ -37,8 +37,12 @@ probability is rounded to bf16 before it is summed per head; its k_new and
 v_new are bf16 and x_out and alpha f32, as the JAX kernel's.  Its plain
 version is ``_decode_step_plain_bf16``; its kernels, the bf16 instances of
 ``decode_layer_kernel`` and (``one_cell``) ``decode_onecell_kernel``, whose
-outputs are the same bits.  The wrapper accepts JAX's ``precise`` only as a
-check of the weights' dtype (a mismatch raises ``ValueError``).
+outputs are the same bits.  Their products run on the bf16 tensor cores
+(``mma.sync`` m16n8k16 on a bf16 copy of the staged rows, rounded once a
+product phase; ``decode_layout`` places it), with the same JAX arithmetic:
+exact products of bf16 values summed in f32.  The wrapper accepts JAX's
+``precise`` only as a check of the weights' dtype (a mismatch raises
+``ValueError``).
 ``fused_full_rollout`` takes the same two arms by the weights' dtype: the
 bf16 one on the operands JAX's ``storage_dtype=bfloat16`` casts (the six
 matrices, memory K/V, embedding table and ``fc_w``; ``fc_b`` and the PE
@@ -101,8 +105,13 @@ def decode_plan(kind: str, R: int, T: int, P: int, E: int, H: int, F: int, sms: 
     many units as fit (all of the layer's in the per-layer kernel).
     ``esize`` is the bytes of a weight element, 4, or 2 for the kernels'
     bf16 instances: the ring holds the weights (and the rollout's head) as
-    they are stored, so ``slot_floats`` counts elements of that size.
-    Raises ValueError when the shapes do not fit a block's shared memory."""
+    they are stored, so ``slot_floats`` counts elements of that size; the
+    per-layer kernel's bf16 instance keeps the rows of a unit of 8 rows or
+    more ``ring_row(K)`` apart in its slot,
+    the staged rows also have a bf16 copy (``decode_layout``) that the bf16
+    tiles of 8 columns read, and ring units are whole tiles of 8 columns or
+    the block's whole slice.  Raises ValueError when the shapes do not fit
+    a block's shared memory."""
     rollout = kind == "rollout"
     if esize not in (2, 4):
         raise ValueError(f"decode_plan: weights of 4 or 2 bytes, got {esize} for {kind!r}")
@@ -115,23 +124,70 @@ def decode_plan(kind: str, R: int, T: int, P: int, E: int, H: int, F: int, sms: 
                      f"{SMEM_LIMIT} bytes of shared memory per block")
 
 
+def bf16_row_len(E: int, F: int) -> int:
+    """Values of a staged row's bf16 copy (``csrc/decode_step.cu:
+    bf16_row_len``): the longest product input rounded up to the mma's k16
+    steps, and 8 more, so that the 16 rows of an ldmatrix fall on
+    different banks."""
+    return _ceil(max(E, F), 16) * 16 + 8
+
+
+def ring_row(K: int) -> int:
+    """Elements from one weight row of length ``K`` to the next in a padded
+    ring slot (``csrc/decode_step.cu:ring_row``: the per-layer kernel's
+    bf16 units of whole 8-row tiles): an odd number of 16-byte granules, so
+    that the 8 rows of an ldmatrix fall on different banks."""
+    return K + (16 if (K // 8) % 2 else 8)
+
+
+def decode_layout(plan: DecodePlan, R: int, T: int, P: int, E: int, H: int, F: int, V: int = 0,
+                  esize: int = 4) -> dict:
+    """The shared memory of a plan, region by region, as
+    ``csrc/decode_step.cu:blk_init`` lays it out: the mbarriers, the ring,
+    the staged f32 rows, a LayerNorm's parameters, the warps' attention
+    scratch, the rollout's per-row state (``V`` > 0), then in the bf16 arm
+    (``esize`` 2) the staged rows' bf16 copy, 16-byte aligned.  Byte
+    offsets and sizes by name, and ``total``; ``xb_offset`` and
+    ``xb_row`` are what ``tc_decode_smem_layout`` reports (0 in f32)."""
+    sizes = {
+        "mbarriers": _ceil(8 * (plan.slots + 1), 128) * 128,
+        "ring": esize * plan.slots * plan.slot_floats,
+        "rows": 4 * plan.rc * max(E, F),
+        "ln": 8 * E,
+        "attention": 4 * _ceil(_WARPS * (E // H + max(T, P)), 2) * 2,
+        "state": 16 * R if V else 0,
+    }
+    out, at = {}, 0
+    for name, n in sizes.items():
+        out[name] = (at, n)
+        at += n
+    xb_offset, xb_row = 0, 0
+    if esize == 2:
+        xb_offset, xb_row = _ceil(at, 16) * 16, bf16_row_len(E, F)
+        out["bf16_rows"] = (xb_offset, 2 * plan.rc * xb_row)
+        at = xb_offset + 2 * plan.rc * xb_row
+    out.update(total=at, xb_offset=xb_offset, xb_row=xb_row)
+    return out
+
+
 def _fit_plan(kind, gr, need, R, T, P, E, H, F, sms, V, esize):
     """``decode_plan`` at ``gr`` row groups with at least ``need`` ring
     units; None when nothing fits."""
     gc = sms // gr
     ce, cf = _ceil(E, gc), _ceil(F, gc)
     cv = _ceil(V, gc)
-    attn = 4 * _ceil(_WARPS * (E // H + max(T, P)), 2) * 2
-    state = 16 * R if V else 0
+    top = max(ce, cf)  # then whole warp tiles of 4 columns (bf16: 8), then (f32) 3, 2, 1
+    tiles = (lambda u: u % 8 == 0) if esize == 2 else (lambda u: u % 4 == 0 or u < 4)
+    padded = kind == "layer" and esize == 2  # the per-layer bf16 kernel pads units of 8 rows
+    row = lambda u, K: ring_row(K) if padded and u >= 8 else K  # noqa: E731 (a weight row in a slot)
     for rc in range(min(_ceil(_ceil(R, gr), _ROW_TILE) * _ROW_TILE, _MAX_ROWS), 0, -_ROW_TILE):
-        top = max(ce, cf)  # then whole warp tiles of 4 columns, then 3, 2, 1
-        for uc in (u for u in range(top, 0, -1) if u == top or u % 4 == 0 or u < 4):
-            slot = _ceil(uc * max(E, F), 32) * 32
+        for uc in (u for u in range(top, 0, -1) if u == top or tiles(u)):
+            slot = _ceil(uc * row(uc, max(E, F)), 32) * 32
             upl = 7 * _ceil(ce, uc) + _ceil(cf, uc)
             want = upl if kind == "layer" else _MAX_SLOTS
             for slots in range(want, need - 1, -1):
-                smem = (_ceil(8 * (slots + 1), 128) * 128 + esize * slots * slot + 4 * rc * max(E, F) + 8 * E
-                        + attn + state)
+                plan = DecodePlan(gc * gr, gr, ce, cf, uc, cv, 0, rc, slots, slot, 1, 0)
+                smem = decode_layout(plan, R, T, P, E, H, F, V, esize)["total"]
                 if smem <= SMEM_LIMIT:
                     hc = min(cv, slot // E) if V else 0
                     group = max(1, min(slots // 2, _MAX_GROUP))
@@ -386,6 +442,9 @@ def _lib():
     lib.tc_decode_scratch_floats.argtypes = [ctypes.c_int] * 5
     lib.tc_rollout_scratch_floats.restype = ctypes.c_longlong
     lib.tc_rollout_scratch_floats.argtypes = [ctypes.c_int] * 5
+    lib.tc_decode_smem_layout.restype = ctypes.c_int
+    lib.tc_decode_smem_layout.argtypes = ([ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9
+                                          + [ctypes.POINTER(ctypes.c_longlong)])
     return lib
 
 
