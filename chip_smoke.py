@@ -3130,12 +3130,15 @@ def check_bf16_kernels(dev, card, layers):
                       f"bound {one:.4f} ms ({one_by}), {one / times[0]:.1%} of it [{card}]")
     out = {}
     for name, (err, ms, plain_ms, lib_ms, n_bytes, n_ops) in sums.items():
-        rate = BF16_BY_F32_OPS_PER_S if name == "mlp_block_bf16" else F32_OPS_PER_S
+        # The bf16 conv's products are bf16 x bf16, exact in f32 and summed in
+        # f32: the tensor cores could do them, so the bf16 rate prices them.
+        rate = BF16_BY_F32_OPS_PER_S if name == "mlp_block_bf16" else BF16_OPS_PER_S
         bound_ms, bound_by = bound(n_bytes, n_ops, rate)
         out[name] = (err, ms, plain_ms, lib_ms, bound_ms, bound_by)
         lib = "" if lib_ms is None else f", F.conv2d bf16 {lib_ms:.4f} ms"
         print(f"{name} per bs-{TRAIN_BS} encoder pass (36 launches): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              f"{lib}, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+              f"{lib}, bound {bound_ms:.4f} ms ({bound_by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+              f"operations {n_ops / rate * 1e3:.4f} ms) [{card}]")
 
     # The decode arm: each layer's launch alone (one layer's weights, caches
     # and memory), then the six-layer step against the plain version and
@@ -3689,7 +3692,9 @@ def check_bf16_train_kernels(dev, card):
     out = {}
     for name, (err, ms, plain_ms, lib_ms, n_bytes, n_ops, ops_ms) in acc.items():
         by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops_ms if name == "mlp_block_bwd_bf16" else n_ops / F32_OPS_PER_S * 1e3
+        # The bf16 conv's gradients are bf16 x bf16 products, exact in f32 and
+        # summed in f32: the tensor cores could do them, so the bf16 rate.
+        by_ops = ops_ms if name == "mlp_block_bwd_bf16" else n_ops / BF16_OPS_PER_S * 1e3
         bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
         lib = None if name == "mlp_block_bwd_bf16" else lib_ms
         out[name] = (err, ms, plain_ms, lib, bound_ms, bound_by)

@@ -27,7 +27,12 @@ from seed 0):
 - the sums: ``pass_b8`` and ``pass_b32`` (36 forwards, one encoder pass;
   ``eager_pass_b8`` and ``eager_pass_b32`` of the eager times),
   ``step_fwd`` (36 forwards + 29 input gradients per fine-tune step at
-  starting_layer 5) and ``step_dw`` (27 + 3 filter gradients).
+  starting_layer 5) and ``step_dw`` (27 + 3 filter gradients);
+- the same in bf16 (the bf16 encoder's instances; bf16 x, filter, bias and
+  cotangent), each key with ``_bf16`` at its end: ``fwd_s{s}_b{B}_bf16``
+  (the forward with the bias in its epilogue), ``dx_s{s}_bf16``,
+  ``dw_s{s}_bf16`` (with the bias gradient), ``pass_b8_bf16``,
+  ``pass_b32_bf16``, ``step_fwd_bf16`` and ``step_dw_bf16``.
 The last line is a table of each checkout's median per key, with the card's
 name and power limit; with ``--pairs A B``, where the roots were given as A
 B B A ..., it also gives per key the median of the differences A - B of the
@@ -110,11 +115,24 @@ def measure(root):
                 cot = f(32, side, side, c)
                 out[f"dx_s{s}"] = time_ms(lambda: dwconv_forward(cot, w, flip=True))
                 out[f"dw_s{s}"] = time_ms(lambda: filter_grad(x, cot), iters=20)
-    for batch in (8, 32):
-        for pre in ("", "eager_"):
-            out[f"{pre}pass_b{batch}"] = sum(d * out[f"{pre}fwd_s{s}_b{batch}"] for s, d in enumerate(DEPTHS))
-    out["step_fwd"] = out["pass_b32"] + sum(n * out[f"dx_s{s}"] for s, n in D_X.items())
-    out["step_dw"] = sum(n * out[f"dw_s{s}"] for s, n in D_W.items())
+        bf = torch.bfloat16
+        for s, c in enumerate(DIMS):
+            side = 64 >> s
+            w, b = (0.1 * f(7, 7, c)).to(bf), (0.1 * f(c)).to(bf)
+            for batch in (8, 32):
+                x = f(batch, side, side, c).to(bf)
+                out[f"fwd_s{s}_b{batch}_bf16"] = time_ms(lambda: dwconv_forward(x, w, bias=b))
+            if s in D_X:
+                cot = f(32, side, side, c).to(bf)
+                out[f"dx_s{s}_bf16"] = time_ms(lambda: dwconv_forward(cot, w, flip=True))
+                out[f"dw_s{s}_bf16"] = time_ms(lambda: dwconv_filter_grad(x, cot, bias_grad=True), iters=20)
+    for end in ("", "_bf16"):
+        for batch in (8, 32):
+            for pre in ("", "eager_") if not end else ("",):
+                out[f"{pre}pass_b{batch}{end}"] = sum(d * out[f"{pre}fwd_s{s}_b{batch}{end}"]
+                                                      for s, d in enumerate(DEPTHS))
+        out[f"step_fwd{end}"] = out[f"pass_b32{end}"] + sum(n * out[f"dx_s{s}{end}"] for s, n in D_X.items())
+        out[f"step_dw{end}"] = sum(n * out[f"dw_s{s}{end}"] for s, n in D_W.items())
     out["fused_bias"] = float(fused_bias)
     return out
 

@@ -96,7 +96,12 @@ GEMM (``csrc/bf16_gemm.cuh``: x3::gemm) at 1, 7, 1003 and 8192 rows and
 each stage's rows at batch 1, 8 and 32, under the same limits, both twice bit for bit;
 their libraries' x3 instances issue bf16 HGMMA and UTMALDG and no TF32
 HGMMA, no weight is split in a call, and the C side's tile plan and
-workspaces are ``ops/mlp_block.py:bf16_tail_plan``'s.
+workspaces are ``ops/mlp_block.py:bf16_tail_plan``'s.  The depthwise conv's
+bf16 TMA instances at every ConvNeXt-Base stage and batch 1, 3, 8 and 32:
+the forward with and without the bias within one ulp, the filter and bias
+gradient within 1e-4 times max(1, the largest magnitude) and the same bits
+twice, the flipped input gradient at the fine-tune stages within one ulp and
+equal to the autograd function's.
 """
 
 import math
@@ -1249,6 +1254,56 @@ def test_dwconv_bf16_filter_grad_kernel_matches_plain(cuda, shape, bias_grad):
     dx = dwconv_forward(cot, w, flip=True)
     torch.cuda.synchronize()
     assert dx.dtype == bf and within_bf16_ulp(dx, _dw_plain(cot, w.flip(0, 1)))
+
+
+# Every ConvNeXt-Base stage at batch 1, 3, 8 and 32.
+BF16_DW_STAGES = [(b, 64 >> s, 64 >> s, 128 << s) for b in (1, 3, 8, 32) for s in range(4)]
+
+
+def bf16_dw_inputs(shape, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    x, cot = (torch.randn(*shape, generator=g).to(device, bf) for _ in range(2))
+    w = (0.1 * torch.randn(7, 7, shape[-1], generator=g)).to(device, bf)
+    b = (0.1 * torch.randn(shape[-1], generator=g)).to(device, bf)
+    return x, cot, w, b
+
+
+@pytest.mark.parametrize("shape", BF16_DW_STAGES)
+def test_dwconv_bf16_stages_match_plain(cuda, shape):
+    """The bf16 TMA instances at every stage and batch: the forward with
+    and without the bias within one bf16 ulp of the plain version; the
+    filter and bias gradient within 1e-4 x max(1, max |plain|), the same
+    bits twice."""
+    from tpu_captioner_torch.ops import _build
+    from tpu_captioner_torch.ops.dwconv import dwconv_plan
+
+    x, cot, w, b = bf16_dw_inputs(shape, cuda, 11 + sum(shape))
+    assert dwconv_plan(*shape, "forward", True, _build.sm_count(cuda.index or 0), esize=2).tma
+    for bias in (None, b):
+        got = dwconv_forward(x, w, bias=bias)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and within_bf16_ulp(got, _dw_plain(x, w, bias)), bias is None
+    got = dwconv_filter_grad(x, cot, True)
+    torch.cuda.synchronize()
+    for a, want in zip(got, _dw_grad_plain(x, cot, True)):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all() and within(a, want, 1e-4)
+    assert all(torch.equal(a, again) for a, again in zip(got, dwconv_filter_grad(x, cot, True)))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 32])
+@pytest.mark.parametrize("side, c", [(16, 512), (8, 1024)])
+def test_dwconv_bf16_input_gradient_matches_plain(cuda, side, c, batch):
+    """The flipped bf16 forward (the input gradient, rounded once) at the
+    fine-tune step's stages, alone and through the autograd function."""
+    shape = (batch, side, side, c)
+    x, cot, w, _ = bf16_dw_inputs(shape, cuda, 17 + batch)
+    dx = dwconv_forward(cot, w, flip=True)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and within_bf16_ulp(dx, _dw_plain(cot, w.flip(0, 1)))
+    xg = x.clone().requires_grad_(True)
+    (d_x,) = torch.autograd.grad(depthwise_conv7x7_nhwc(xg, w, True, True), (xg,), cot)
+    assert torch.equal(d_x, dx)
 
 
 def test_bf16_autograd_runs_the_backward_instances(cuda):
