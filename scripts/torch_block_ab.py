@@ -20,6 +20,9 @@ commits on one card.  A process builds that checkout's ``block_fused.cu`` and
   slower side);
 - ``pass_b8``, ``pass_b32`` and their ``eager_`` forms: one encoder pass,
   36 blocks (3, 3, 27, 3 per stage);
+- ``bf16_block_s{s}_b{B}`` and ``bf16_pass_b{B}``: the same device ms of
+  the bf16 instance (x, the taps, W1 and W2 bf16, the rest f32, as the
+  bf16 encoder calls it in ``'block'``), asserting that each call ran it;
 - ``pool_ms``: device ms of the flagship train step's dropout pool
   (29,366,272 bits); ``pool_host_us``: host us per pool wrapper call (a
   4096-bit pool, 2000 calls, no synchronise inside the loop).
@@ -94,8 +97,13 @@ def measure(root):
                 args = (x, sd.float(), *params)
                 out[f"block_s{s}_b{batch}"] = time_ms(lambda: fused_convnext_block(*args))
                 out[f"eager_block_s{s}_b{batch}"] = time_ms(lambda: fused_convnext_block(*args), eager=True)
+                a16 = tuple(a.to(torch.bfloat16) if i in (0, 2, 6, 8) else a for i, a in enumerate(args))
+                before = fused_convnext_block.bf16_launches
+                out[f"bf16_block_s{s}_b{batch}"] = time_ms(lambda: fused_convnext_block(*a16))
+                if fused_convnext_block.bf16_launches == before:
+                    raise SystemExit(f"{root}: the bf16 call at stage {s} did not launch the bf16 instance")
         for batch in (8, 32):
-            for pre in ("", "eager_"):
+            for pre in ("", "eager_", "bf16_"):
                 out[f"{pre}pass_b{batch}"] = sum(d * out[f"{pre}block_s{s}_b{batch}"] for s, d in enumerate(DEPTHS))
         seed = (0x9E3779B9, 7)
         out["pool_ms"] = time_ms(lambda: random_mask_pool(seed, POOL_N, 0.5, dev), iters=50)

@@ -26,7 +26,10 @@ inputs, per-image stochastic-depth rows):
   sub-tiled and the whole-tile path (calls captured in a CUDA graph and
   replayed, so that Python's dispatch does not count) at each stage at
   batch 8 and 32; ``sub pass bs{B}`` and ``whole pass bs{B}``: their sums
-  over one encoder pass;
+  over one encoder pass; ``sub bf16 C={c} bs{B}`` and ``sub bf16 pass
+  bs{B}``, where the checkout has the sub-tiled bf16 instance: the same
+  on bf16 x, residual, W1 and W2 (asserting that
+  ``pipelined_bf16_launches`` rose);
 - ``bf16 C={c}`` and ``bf16 pass``, where the checkout has the bf16
   instance: the same device ms of ``fused_convnext_mlp`` on bf16 x,
   residual, W1 and W2 at batch 32, and their sum over one encoder pass;
@@ -172,6 +175,18 @@ def measure(root):
                         raise SystemExit(f"{root}: SUB={sub} at C={c} did not run the {path} path")
                     out[f"{path} C={c} bs{batch}"] = t
                     sums[f"{path} pass bs{batch}"] = sums.get(f"{path} pass bs{batch}", 0.0) + depth * t
+                if hasattr(fused_convnext_mlp, "pipelined_bf16_launches"):
+                    a16 = tuple(a.to(torch.bfloat16) if i in (0, 1, 5, 7) else a for i, a in enumerate(args))
+                    os.environ["TPU_CAPTIONER_MLP_SUB"] = str(sub)
+                    before = fused_convnext_mlp.pipelined_bf16_launches
+                    t = graph_ms(lambda: fused_convnext_mlp(*a16))
+                    ran = fused_convnext_mlp.pipelined_bf16_launches > before
+                    os.environ.pop("TPU_CAPTIONER_MLP_SUB", None)
+                    if not ran:
+                        raise SystemExit(f"{root}: SUB={sub} at C={c} did not run the sub-tiled bf16 instance")
+                    out[f"sub bf16 C={c} bs{batch}"] = t
+                    key = f"sub bf16 pass bs{batch}"
+                    sums[key] = sums.get(key, 0.0) + depth * t
     out["encoder_pass"] = total
     out["finetune_step_bwd"] = step
     out.update(sums)

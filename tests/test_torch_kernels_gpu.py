@@ -128,6 +128,7 @@ from tpu_captioner_torch.ops.dwconv import (
 )
 from tpu_captioner_torch.ops.lstm_step import LstmStepWeights, _lstm_step_plain, fused_lstm_step
 from tpu_captioner_torch.ops.mlp_block import (
+    FUSED_TILES,
     SUPPORTED_C,
     _mlp_bwd_plain,
     _mlp_bwd_plain_bf16_products,
@@ -786,25 +787,60 @@ def cuda_sass(name):
     return dict(zip(parts[1::2], parts[2::2]))
 
 
-def test_mlp_bf16_instances_run_bf16_tensor_cores_on_tma(cuda):
-    """The bf16 whole tile's and backward's three-piece GEMM (``x3::gemm_kernel``
-    instances: both forward products, the backward's four with a weight as
-    B, two of them on the MN-major layout) issues bf16 HGMMA and UTMALDG and
-    no TF32 HGMMA; and no weight split runs in either call (no ``to_bf16``
-    or ``split_kernel`` on a weight: the profiler's kernels by name)."""
-    import re
-
+def recorded_kernels(call):
+    """The device kernels' names of one ``call()`` (which synchronises),
+    recorded by ``torch.profiler`` after a warm-up call (a window that
+    starts with the call it records can lose that call's first kernels).
+    A window that records no kernel at all is taken again, twice at most:
+    the card's profiler now and then misses a whole window (PERF.md §7)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    for _ in range(3):
+        windows = []
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: windows.append(p.key_averages())) as prof:
+            for _ in range(2):
+                call()
+                prof.step()
+        names = [e.key for e in windows[-1] if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def test_mlp_bf16_instances_run_bf16_tensor_cores_on_tma(cuda, monkeypatch):
+    """The bf16 instances' three-piece products issue bf16 HGMMA and UTMALDG
+    and no TF32 HGMMA: the whole tile's and backward's GEMM
+    (``x3::gemm_kernel`` instances: both forward products, the backward's
+    four with a weight as B, two of them on the MN-major layout), the bf16
+    block's two products (the whole tile's GEMM in ``block_fused``'s
+    library; no 3xTF32 GEMM with a bf16 epilogue remains there) and the
+    sub-tiled kernel's three-piece instances (``fused_kernel<C, NC, bf16,
+    false, true>``, seven tiles).  No weight split or preparation runs in a
+    bf16 call (no ``to_bf16``, ``split_kernel`` on a weight or ``prep_w1``:
+    the profiler's kernels by name): the whole tile and backward launch six
+    x3 GEMMs, the block its conv + LayerNorm and two x3 GEMMs, the
+    sub-tiled path its one kernel."""
+    import re
+
+    from tpu_captioner_torch.ops.block_fused import _lib as block_lib
     from tpu_captioner_torch.ops.mlp_block import _bwd_lib, _lib
 
-    _lib(), _bwd_lib()
-    for name, count in (("mlp_block", 2), ("mlp_block_bwd", 4)):
+    _lib(), _bwd_lib(), block_lib()
+    for name, count in (("mlp_block", 2), ("mlp_block_bwd", 4), ("block_fused", 2)):
         fns = {k: v for k, v in cuda_sass(name).items() if "bf16mm2x311gemm_kernel" in k}
         assert len(fns) == count, (name, sorted(fns))
         for fn, sass in fns.items():
             assert re.search(r"\bHGMMA\.\S*\.BF16", sass) and re.search(r"\bUTMALDG\b", sass), fn
             assert not re.search(r"\bHGMMA\.\S*TF32", sass), fn
+    tf32_bf16 = [k for k in cuda_sass("block_fused") if "tf32x3" in k and "13__nv_bfloat16" in k]
+    assert not tf32_bf16, tf32_bf16
+    sub_x3 = {k: v for k, v in cuda_sass("mlp_block").items()
+              if "12fused_kernel" in k and "13__nv_bfloat16Lb0ELb1E" in k}
+    assert len(sub_x3) == len(FUSED_TILES), sorted(sub_x3)
+    for fn, sass in sub_x3.items():
+        assert re.search(r"\bHGMMA\.\S*\.BF16", sass) and re.search(r"\bUTMALDG\b", sass), fn
+        assert not re.search(r"\bHGMMA\.\S*TF32", sass), fn
     n, c = 2048, 512
     args = bf16_mlp_args(n, c, cuda, seed=1)
 
@@ -813,21 +849,20 @@ def test_mlp_bf16_instances_run_bf16_tensor_cores_on_tma(cuda):
         fused_convnext_mlp_bwd(args[1], *(a for i, a in enumerate(args) if i != 1))
         torch.cuda.synchronize()
 
-    # One call recorded after a warm-up one (a window that starts with the
-    # call it records can lose that call's first kernels).
-    windows = []
-    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: windows.append(p.key_averages())) as prof:
-        for _ in range(2):
-            call()
-            prof.step()
-    names = [e.key for e in windows[-1] if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = recorded_kernels(call)
     assert sum("bf16mm::x3::gemm_kernel" in k for k in names) == 6, names
     # The backward's two transposed splits are of the f32 rows xn and d_u;
     # a bf16 weight's split would be split_kernel<__nv_bfloat16>.
     splits = [k for k in names if "split_kernel" in k]
     assert len(splits) == 1 and "bfloat16" not in splits[0], names
     assert not any("to_bf16" in k for k in names), names
+    blk = bf16_block_args((8, 16, 16, 512), cuda, seed=2)
+    names = recorded_kernels(lambda: (fused_convnext_block(*blk), torch.cuda.synchronize()))
+    assert len(names) == 3 and sum("bf16mm::x3::gemm_kernel" in k for k in names) == 2, names
+    assert any("conv_ln_kernel" in k for k in names) and not any("tf32x3" in k for k in names), names
+    monkeypatch.setenv("TPU_CAPTIONER_MLP_SUB", "64")
+    names = recorded_kernels(lambda: (fused_convnext_mlp(*args), torch.cuda.synchronize()))
+    assert len(names) == 1 and "fused_kernel" in names[0] and "__nv_bfloat16, false, true" in names[0], names
 
 
 def test_mlp_bf16_plan_is_the_packages(cuda):
@@ -938,6 +973,35 @@ def test_fused_mlp_plan_is_the_packages(cuda):
         assert lib.tc_mlp_block_fused_columns(c, 8 * (64 >> s) ** 2) == 128
 
 
+def test_bf16_x3_plans_are_the_packages(cuda):
+    """The three-piece instances' plans on the C side are the package's
+    mirrors: ``tc_mlp_block_fused_x3_plan`` is ``fused_x3_plan`` at every
+    tile (and refuses another), ``tc_block_fused_workspace`` is
+    ``block_workspace`` for both element sizes at the stage shapes and
+    ragged pixel counts (and -1 for another size), and the bf16 sub-tiled
+    call asks for no workspace."""
+    import ctypes
+
+    from tpu_captioner_torch.ops.block_fused import _lib as block_lib
+    from tpu_captioner_torch.ops.block_fused import block_workspace
+    from tpu_captioner_torch.ops.mlp_block import _lib, fused_x3_plan
+
+    lib, blk = _lib(), block_lib()
+    keys = ("cluster", "jcb", "jc", "slots", "smem", "sub_rows", "slot_bytes", "h_bytes")
+    for c, nc in FUSED_TILES:
+        out = (ctypes.c_int * 8)()
+        assert lib.tc_mlp_block_fused_x3_plan(c, nc, out) == 0
+        plan = fused_x3_plan(c, nc)
+        assert list(out) == [plan[k] for k in keys], (c, nc)
+    assert lib.tc_mlp_block_fused_x3_plan(192, 128, (ctypes.c_int * 8)()) == -1
+    for s, c in enumerate(SUPPORTED_C):
+        for n in [b * (64 >> s) ** 2 for b in (1, 8, 32)] + [7, 1003]:
+            for esize in (4, 2):
+                assert blk.tc_block_fused_workspace(n, c, esize) == block_workspace(n, c, esize), (n, c, esize)
+            assert lib.tc_mlp_block_forward_bf16_workspace(n, c, 64) == 0
+    assert blk.tc_block_fused_workspace(128, 512, 3) == -1
+
+
 def test_fused_mlp_kernel_refuses_other_sub_rows(cuda):
     """The C entry point takes sub 0 or 64 only: any other value returns
     cudaErrorInvalidValue before a launch (the wrapper never passes one)."""
@@ -1010,7 +1074,7 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda):
     args = block_args((2, 8, 8, 512), cuda)
     plan = block_plan(2, 8, 8, 512)
     lib = _lib()
-    out, work = torch.empty_like(args[0]), args[0].new_empty(lib.tc_block_fused_workspace(128, 512))
+    out, work = torch.empty_like(args[0]), args[0].new_empty(lib.tc_block_fused_workspace(128, 512, 4))
     bad = plan._replace(smem=plan.smem + 128)
     err = lib.tc_block_fused_forward(*(t.data_ptr() for t in (*args, out, work)), 2, 8, 8, 512, *bad.args(),
                                      _build.raw_stream(0))
@@ -1120,8 +1184,8 @@ def test_mlp_bf16_kernel_matches_plain(cuda, c, n):
 # The sub-tiled kernel's bf16 instance: each width at a ragged row count
 # and at its bs-8 and bs-32 stage shapes (128 and 256 output columns a
 # block), and one row tile alone.
-FUSED_BF16_ROWS = [(128, 1003), (128, 32768), (256, 777), (256, 8192), (256, 32767), (512, 2048), (512, 8191),
-                   (1024, 512), (1024, 2047), (1024, 64)]
+FUSED_BF16_ROWS = [(128, 1003), (128, 32768), (128, 131072), (256, 777), (256, 8192), (256, 32767), (256, 32768),
+                   (512, 2048), (512, 8191), (512, 8192), (1024, 512), (1024, 2047), (1024, 2048), (1024, 64)]
 
 
 def bf16_mlp_args(n, c, device, seed):
@@ -1348,8 +1412,8 @@ def bf16_block_args(shape, device, seed, sd="mixed"):
 def test_block_bf16_kernel_matches_plain(cuda, shape, sd):
     """Within one bf16 ulp of ``_block_plain_bf16`` at the four stage shapes
     at batch 8 and 32, a ragged batch and odd sides; sd-0 images are their
-    input bit for bit; one launch, counted as bf16; an x off a 16-byte
-    boundary is refused."""
+    input bit for bit; the same bits from a second call; one launch,
+    counted as bf16; an x off a 16-byte boundary is refused."""
     from tpu_captioner_torch.ops.block_fused import _block_plain_bf16
 
     args = bf16_block_args(shape, cuda, seed=shape[1] + shape[3], sd=sd)
@@ -1361,6 +1425,7 @@ def test_block_bf16_kernel_matches_plain(cuda, shape, sd):
     assert within_bf16_ulp(got, _block_plain_bf16(*args))
     dropped = args[1] == 0
     assert torch.equal(got[dropped], args[0][dropped])
+    assert torch.equal(fused_convnext_block(*args), got)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_convnext_block(unaligned(args[0]), *args[1:])
 
@@ -1402,7 +1467,7 @@ def test_block_bf16_plan_and_occupancy(cuda):
     big = _plan_on(0, 32, 8, 8, 1024, 2)
     assert big.parts <= lib.tc_block_fused_clusters(1024, big.units, big.smem, 2)
     args = bf16_block_args((2, 8, 8, 512), cuda, seed=1)
-    out, work = torch.empty_like(args[0]), args[1].new_empty(lib.tc_block_fused_workspace(128, 512))
+    out, work = torch.empty_like(args[0]), args[1].new_empty(lib.tc_block_fused_workspace(128, 512, 2))
     wrong = block_plan(2, 8, 8, 512)  # the f32 plan
     assert wrong.smem != block_plan(2, 8, 8, 512, esize=2).smem
     err = lib.tc_block_fused_forward_bf16(*(t.data_ptr() for t in (*args, out, work)), 2, 8, 8, 512, *wrong.args(),

@@ -150,12 +150,13 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     # the mbarrier and bulk-copy helpers that the decode source includes too;
     # the whole-block source shares the depthwise conv's tile header; the
     # LSTM step takes the GEMM header's 3xTF32 building blocks; the two
-    # MLP-tail sources take the bf16 GEMM's header too (precise=False).
+    # MLP-tail sources take the bf16 GEMM's header too (precise=False), and
+    # so does the whole-block source (its bf16 instance's products).
     bulk = {"mbarrier.cuh"}
     gemm = {"tf32x3_gemm.cuh"} | bulk
     products = {"mlp_products.cuh"} | gemm
     bf16 = {"bf16_gemm.cuh"}
     for name, extra in (("lstm_step", gemm), ("decode_step", bulk), ("mlp_block", products | bf16),
-                        ("mlp_block_bwd", gemm | bf16), ("block_fused", products | {"dwconv_tile.cuh"})):
+                        ("mlp_block_bwd", gemm | bf16), ("block_fused", products | bf16 | {"dwconv_tile.cuh"})):
         names = {p.name for p in _build._sources(_build.CSRC / f"{name}.cu", {})}
         assert names == {f"{name}.cu", "warp_reduce.cuh", *extra}, names

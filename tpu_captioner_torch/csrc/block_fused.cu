@@ -53,13 +53,24 @@
 // products, GELU and residual run in f32; out is rounded to bf16 once.  So
 // the ring holds bf16 boxes (half the bytes: the plan's slots are priced at
 // 2 bytes an element), each value widened as the consumer reads it
-// (dwconv_tile.cuh: conv_patch<bf16>), the taps are widened once into
-// registers, the products read the bf16 weights' hi planes alone (a bf16
-// value is a TF32 value: two TF32 products a k-step, exact f32 products),
-// and OutEpi reads the bf16 residual and rounds the f32 sum once.  What
-// bounds it: the same products, at the f32-accurate rate of a bf16 weight
-// (three bf16 products per product, 329.67 TFLOP/s); half the f32
-// instance's bytes of x and out.
+// (dwconv_tile.cuh: conv_patch<bf16>), and the taps are widened once into
+// registers.  Three launches, no weight split:
+// - conv_ln_kernel<C, bf16> writes LN(t) * ln_w + ln_b as one f32 plane
+//   (N, C): 6 N C bytes with x's bf16 read, where the TF32 planes took 10;
+// - the MLP tail's bf16 whole tile's two products (mlp_block.cu:
+//   whole_tile_x3) on bf16_gemm.cuh's x3::gemm: each f32 row value (the
+//   plane, then h) split in registers into three exact bf16 pieces, three
+//   register-A bf16 wgmma a k16 step on the bf16 weight read by TMA as it
+//   lies, a fresh accumulator a 64-deep stage; HiddenEpiF32 writes h as one
+//   f32 plane (N, 4C), OutEpi<bf16> reads x as the residual with the
+//   image's scale sd[m / (H*W)] and rounds once.
+// What bounds it: the products, 16*N*C^2 flops at the f32-accurate rate of
+// a bf16 weight (three bf16 products per product, 989 / 3 = 329.67
+// TFLOP/s), 3.81 ms per bs-32 encoder pass; the design's bytes (x read
+// twice and out written in bf16, the plane's and h's f32 round trips, 46 N
+// C a call) 2.7 ms.  The products run as the whole tile's do: the
+// consumers split each A fragment and then wait for their wgmma (PERF.md,
+// rows 1 and 9).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -67,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_gemm.cuh"
 #include "dwconv_tile.cuh"
 #include "mlp_products.cuh"
 #include "warp_reduce.cuh"
@@ -123,7 +135,9 @@ bool make_geom(Geom& g, int B, int H, int W, int C, int th, int tw, int cc, int 
 
 // grid (parts x C / 128 blocks), clusters of C / 128 along x; 32 * units
 // threads, every warp a consumer.  Thread 0 also issues the ring's copies.
-// x and the taps of T: f32, or bf16 (widened as read).
+// x and the taps of T: f32, with LN(t) written as its two TF32 planes
+// (N, C) for the 3xTF32 products, or bf16 (widened as read), with LN(t)
+// written as one f32 plane (N, C) for the three-piece products.
 template <int C, class T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     conv_ln_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ dww,
@@ -253,7 +267,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (h >= g.H || w >= g.W) continue;
       const float2 st = stats[(u.prow + k / kS) * kTw + k % kS];
       const size_t at = (((size_t)b * g.H + h) * g.W + w) * C + c;
-      tf32x3::store_split(planes, plane, at, (t[k] - st.x) * st.y * ln_w + ln_b);
+      const float v = (t[k] - st.x) * st.y * ln_w + ln_b;
+      if constexpr (sizeof(T) == 2)
+        planes[at] = v;
+      else
+        tf32x3::store_split(planes, plane, at, v);
     }
   }
   if constexpr (S > 1) cg::this_cluster().sync();  // peers may still be reading this block's pairs
@@ -286,23 +304,51 @@ cudaError_t allow_smem() {
   return err;
 }
 
+// The bf16 instance's workspace (floats): LN(t) * ln_w + ln_b as one f32
+// plane (N C), then h (4 N C f32).
+struct PlanX3 {
+  long long xs, h, total;
+};
+
+inline PlanX3 make_plan_x3(int n, int c) {
+  PlanX3 p;
+  const long long nc = (long long)n * c;
+  p.xs = 0;
+  p.h = round32(nc);
+  p.total = p.h + round32(4 * nc);
+  return p;
+}
+
 // x, the taps, the weights and out of T (f32, or bf16: the bf16 instance).
 template <int C, class T>
 int forward(const T* x, const float* sd, const T* dww, const float* dwb, const float* lnw, const float* lnb,
             const T* w1, const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work,
             const Geom& g, int smem, cudaStream_t s) {
+  constexpr bool kX3 = sizeof(T) == 2;
   const int n = g.B * g.H * g.W;
   CUtensorMap xmap = {};
   cudaError_t err = bind_device(x);
   if (err == cudaSuccess) err = nhwc_map(&xmap, x, g.B, g.H, g.W, C, kCc, kBoxC, g.th + 2 * PAD, sizeof(T));
   if (err == cudaSuccess) err = allow_smem<C, T>();
-  if (err == cudaSuccess) err = split_weights<C>(w1, w2, work, n, s);
+  if constexpr (!kX3)
+    if (err == cudaSuccess) err = split_weights<C>(w1, w2, work, n, s);
   if (err != cudaSuccess) return (int)err;
+  float* planes = work + (kX3 ? make_plan_x3(n, C).xs : make_plan(n, C).xs);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = conv_ln_config(g, smem, C / kCc, s, attr);
-  err = cudaLaunchKernelEx(&cfg, conv_ln_kernel<C, T>, xmap, dww, dwb, lnw, lnb, work + make_plan(n, C).xs, g);
+  err = cudaLaunchKernelEx(&cfg, conv_ln_kernel<C, T>, xmap, dww, dwb, lnw, lnb, planes, g);
   if (err == cudaSuccess) err = cudaGetLastError();
-  if (err == cudaSuccess) err = products<C>(x, sd, g.H * g.W, b1, b2, gamma, out, work, n, s);
+  if constexpr (kX3) {
+    // The tail's products on the bf16 weights as they lie: h = gelu(LN(t)
+    // W1^T + b1) as one f32 plane, then out = x + sd[image] * (...).
+    namespace x3 = bf16mm::x3;
+    float* h = work + make_plan_x3(n, C).h;
+    if (err == cudaSuccess) err = x3::gemm<0>(planes, w1, n, C, 4 * C, x3::RowsA{}, HiddenEpiF32{b1, h, 4 * C}, s);
+    if (err == cudaSuccess)
+      err = x3::gemm<0>(h, w2, n, 4 * C, C, x3::RowsA{}, OutEpi<T>{x, sd, g.H * g.W, b2, gamma, out, C}, s);
+  } else {
+    if (err == cudaSuccess) err = products<C>(x, sd, g.H * g.W, b1, b2, gamma, out, work, n, s);
+  }
   return (int)err;
 }
 
@@ -356,12 +402,16 @@ int clusters_of(int c, int units, int smem) {
 
 extern "C" {
 
-// Floats of workspace tc_block_fused_forward needs for n = B*H*W pixels of
-// width c: the LayerNorm planes, h's planes and the weights' splits.
-long long tc_block_fused_workspace(int n, int c) { return make_plan(n, c).total; }
+// Floats of workspace the forward needs for n = B*H*W pixels of width c
+// and x of esize-byte elements: f32 (4), the LayerNorm's and h's TF32
+// planes and the weights' splits; bf16 (2), the LayerNorm rows and h as one
+// f32 plane each; -1 for another esize.
+long long tc_block_fused_workspace(int n, int c, int esize) {
+  return esize == 4 ? make_plan(n, c).total : esize == 2 ? make_plan_x3(n, c).total : -1;
+}
 
 // out = the block of x (B, H, W, C); work holds tc_block_fused_workspace(B
-// * H * W, C) floats.  (th, tw, cc, cluster, slots, parts, smem) is
+// * H * W, C, 4) floats.  (th, tw, cc, cluster, slots, parts, smem) is
 // ops/block_fused.py:block_plan(B, H, W, C); a plan that breaks a rule, a
 // width other than 128, 256, 512 or 1024, or an x off a 16-byte boundary
 // returns cudaErrorInvalidValue without a launch.  Five launches on
@@ -376,7 +426,9 @@ int tc_block_fused_forward(const float* x, const float* sd, const float* dww, co
 }
 
 // The bf16 instance: x, dww, w1, w2 and out bf16, the rest f32, as
-// tc_block_fused_forward; the plan is block_plan(..., esize=2).
+// tc_block_fused_forward; the plan is block_plan(..., esize=2), the
+// workspace tc_block_fused_workspace(B * H * W, C, 2) floats.  Three
+// launches: the conv + LayerNorm, the two three-piece products.
 int tc_block_fused_forward_bf16(const void* x, const float* sd, const void* dww, const float* dwb,
                                 const float* lnw, const float* lnb, const void* w1, const float* b1,
                                 const void* w2, const float* b2, const float* gamma, void* out, float* work,

@@ -108,20 +108,38 @@
 //   and runs OutEpi: the bf16 residual in, out rounded once.  Both GEMMs are
 //   persistent (one block an SM walks the 128 x 128 tiles), so a tile's
 //   epilogue overlaps the next tile's loads.
-// - The sub-tiled path (SUB = 64): fused_kernel<C, NC, bf16>.  x arrives by
-//   TMA as bf16 slabs (32 columns x 64 rows, 64-byte rows with the 64-byte
-//   swizzle: a thread's four columns are 8 bytes of a 16-byte chunk, the
-//   chunk index XORed with bits 7-8 of the address, so a warp's fragment
-//   loads are free of bank conflicts, as the f32 slab's are), and the prologue
-//   widens each value as it normalises it; the statistics read bf16 rows.
-//   prep_w1 folds ln_w into W1 as the f32 instance does: W1 * ln_w is no
-//   bf16 value, so W1' keeps both TF32 planes and the first product its
-//   three TF32 products (f32-accurate, as the TPU kernel's f32 LayerNorm
-//   then product).  W2 holds bf16 values: only its hi plane is loaded, and
-//   the second product runs two TF32 products a k-step.  The epilogue reads
-//   the bf16 residual and rounds once.  The ring, the h buffers and the
-//   tiles are the f32 instance's (a bf16 slab uses half its region).
-// Half the bytes of x, the residual and the output.
+// - The sub-tiled path (SUB = 64): fused_kernel<C, NC, bf16, false, true>
+//   (sub_tiled_x3), the three-piece instance: the TF32 instance's clusters,
+//   persistent walk and exchange of h, on the bf16 tensor cores with the
+//   bf16 weights read by TMA as they lie (no preparation launch, no
+//   workspace).  x arrives as bf16 slabs (32 columns x 64 rows, 64-byte
+//   rows with the 64-byte swizzle), the statistics read bf16 rows, and the
+//   prologue normalises each thread's A fragment in f32, (x rstd - mu rstd)
+//   ln_w + ln_b in two FMAs (W1 * ln_w is no bf16 value, so nothing is
+//   folded; the stage's ln_w and ln_b are requested before its slot's
+//   wait), reading it in the natural column order (two bf16 pairs a
+//   register from the swizzled slab, free of bank conflicts: no permuted
+//   copy of W1), and splits each value into three exact bf16 pieces: three
+//   register-A m64nJCBk16 wgmmas a k16 step on W1's JCB x 32 bf16 box.  The
+//   GELU epilogue splits h once and writes its three bf16 pieces (hi, mid,
+//   lo planes, 6 bytes a value where the TF32 planes took 8) into every
+//   peer; the second product runs three shared-memory-A m64n128k16 wgmmas a
+//   k16 step on W2's 128 x 64 bf16 boxes, a fresh partial a 64-deep stage.
+//   No consumer re-splits h.  Where the first product adds a partial a
+//   stage (every tile but (256, 256) and (512, 256), whose registers hold no
+//   second fragment set), its stages run in pairs, the next stage's
+//   fragments computed while this stage's wgmmas run (kPipeA): the
+//   fragments' ALU work, not the tensor cores, paces the first product
+//   (PERF.md, row 2).  The plan (Fused<C, NC, true>, ops/
+//   mlp_block.py:fused_x3_plan): the TF32 instance's S, JC and JCB; ring
+//   slots of 16 KB (W2's 128 x 64 bf16 box; a first-product stage is W1's
+//   box at the slot's start and the two bf16 x slabs from 4 KB on), as
+//   many as fit beside both sub-tiles' h pieces (96 KB at JC = 128, 48 KB
+//   at 64) and the statistics: 8 at JC = 128, 11 at 64, 231,584-231,632 B
+//   of shared memory.  The epilogue reads the bf16 residual and rounds
+//   once.  What bounds it: the products, 16*N*C^2 flops at 329.67 TFLOP/s
+//   (3.75 ms per bs-32 pass); h never reaches device memory, so the bytes
+//   (x twice, the residual and out in bf16) take 0.47 ms.
 //
 // The precise=False arm (tc_mlp_block_forward_bf16_products): the same TPU
 // kernels with mxu_dtype=bfloat16, on f32 or bf16 data: each product's two
@@ -247,16 +265,6 @@ __global__ void __launch_bounds__(kLnThreads) ln_stats(const __nv_bfloat16* __re
   const float rstd = rsqrtf(warp_sum(ss) * (1.0f / C) + kLnEps);
   if (lane == 0) stats[row] = make_float2(mu, rstd);
 }
-
-struct HiddenEpiF32 {  // h = gelu(v + b1) into h (N, 4C), f32
-  const float* b1;
-  float* h;
-  int ld;
-  __device__ void operator()(int m, int n, float2 v) const {
-    const float2 b = *reinterpret_cast<const float2*>(b1 + n);
-    *reinterpret_cast<float2*>(h + (size_t)m * ld + n) = make_float2(gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
-  }
-};
 
 // The bf16 instance's whole tile (the TPU kernel _kernel, mxu_dtype=float32,
 // on bf16 x, res, W1 and W2): ln_stats, then a = LN(x) W1^T with LayerNorm
@@ -387,12 +395,13 @@ int whole_tile_bf16(const T* x, const T* res, const float* sd, const float* lnw,
 
 constexpr int kSub = 64;                  // sub-tile rows: the wgmma M
 constexpr int kFusedThreads = 384;        // two consumer warpgroups, one producer
-constexpr int kSlotFloats = 8192;         // a ring slot: 32 KB
-constexpr int kXSlab = kSub * tf32x3::kBK;  // floats of one sub-tile's 32-column x slab
+constexpr int kXSlab = kSub * tf32x3::kBK;  // floats of one sub-tile's 32-column f32 x slab
+constexpr int kSmemLimit = 232448;
 
 // The tiles of width C with NC output columns a block (ops/mlp_block.py:
-// FUSED_TILES holds the same numbers).
-template <int C, int NC_>
+// FUSED_TILES holds the same numbers), for the TF32 and the bf16-product
+// instances or (kX3) the three-piece one (ops/mlp_block.py:fused_x3_plan).
+template <int C, int NC_, bool kX3 = false>
 struct Fused {
   static constexpr int NC = NC_;                          // output columns a block
   static constexpr int S = C / NC;                        // cluster: blocks per row tile
@@ -404,16 +413,31 @@ struct Fused {
   // block: C = 1024 with 256 columns); else it runs one accumulator over K
   // = C <= 512.
   static constexpr bool kStagePartial = NC == 128 || JCB <= 32;
-  static constexpr int kSlots = JC == 64 ? 5 : 3;
-  static constexpr int kH = kSub * JC;                    // floats of one h plane of one sub-tile
-  static constexpr int kFloats = kSlots * kSlotFloats + 4 * kH + 2 * 2 * kSub;  // ring, h, stats
-  static constexpr int kSmem = 1024 + 4 * kFloats + 8 * (2 * kSlots + 4);     // + alignment, mbarriers
+  // A ring slot: 32 KB (a first-product stage of W1's JCB x 32 TF32 planes
+  // beside both sub-tiles' x slabs, or a second-product stage of W2's 128
+  // x 32 TF32 planes), or, for the three-piece instance, 16 KB (W1's JCB x
+  // 32 bf16 box and two bf16 slabs, or W2's 128 x 64 bf16 box).
+  static constexpr int kSlotFloats = kX3 ? 4096 : 8192;
+  static constexpr int kXAt = kX3 ? 1024 : kSlotFloats / 2;  // floats: the first x slab's place in a slot
+  static constexpr int kXStep = kX3 ? kXSlab / 2 : kXSlab;   // floats: the second slab's after the first
+  static constexpr int kH = kSub * JC;  // floats of one f32 h plane of one sub-tile
+  // Both sub-tiles' h buffers: two TF32 planes each, or three bf16 pieces
+  // (hi, mid, lo: kH / 2 floats each).
+  static constexpr int kHFloats = kX3 ? 3 * kH : 4 * kH;
+  // The three-piece instance takes as many slots as fit beside h and the
+  // statistics.
+  static constexpr int kSlots =
+      kX3 ? (kSmemLimit - 1024 - 4 * (kHFloats + 4 * kSub) - 8 * 4) / (4 * kSlotFloats + 16) : JC == 64 ? 5 : 3;
+  static constexpr int kFloats = kSlots * kSlotFloats + kHFloats + 2 * 2 * kSub;  // ring, h, stats
+  static constexpr int kSmem = 1024 + 4 * kFloats + 8 * (2 * kSlots + 4);        // + alignment, mbarriers
   static constexpr int kRowsAtOnce = 2048 / C;            // LayerNorm statistics: rows a warp loads at once
   static_assert(S * NC == C && (NC == 128 || NC == 256) && JC % tf32x3::kBK == 0 && 4 * C % JC == 0, "tiles");
-  static_assert(2 * tf32x3::kBK * JCB <= kSlotFloats / 2 && 2 * kXSlab <= kSlotFloats / 2 &&
-                    2 * tf32x3::kBK * 128 <= kSlotFloats,
+  static_assert(kX3 ? 2 * tf32x3::kBK * JCB <= 4 * kXAt && 4 * (kXAt + kXStep) + 2 * kXSlab <= 4 * kSlotFloats &&
+                          2 * 64 * 128 <= 4 * kSlotFloats
+                    : 2 * tf32x3::kBK * JCB <= kSlotFloats / 2 && 2 * kXSlab <= kSlotFloats / 2 &&
+                          2 * tf32x3::kBK * 128 <= kSlotFloats,
                 "a slot holds a stage");
-  static_assert(kSmem <= 232448, "shared memory");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
 };
 
 // Workspace of the sub-tiled path (floats): W1's prepared planes (8 C^2),
@@ -435,9 +459,9 @@ inline FusedPlan make_fused_plan(int c) {
 // W1' = W1 * ln_w (column by column) as its two TF32 planes (4C, C), the
 // columns of each 16-group in the order the fused kernel's A fragments take
 // them: column 16 G + 4 u + e goes to k-slot 16 G + u + 4 e.  b1' = b1 + W1
-// ln_b.  One warp per row of W1 (f32 or bf16, widened).
-template <int C, class T>
-__global__ void __launch_bounds__(256) prep_w1(const T* __restrict__ w1, const float* __restrict__ lnw,
+// ln_b.  One warp per row of W1.
+template <int C>
+__global__ void __launch_bounds__(256) prep_w1(const float* __restrict__ w1, const float* __restrict__ lnw,
                                               const float* __restrict__ lnb, const float* __restrict__ b1,
                                               float* __restrict__ w1p, float* __restrict__ b1f) {
   const int row = (blockIdx.x * 256 + threadIdx.x) >> 5, lane = threadIdx.x & 31;
@@ -577,13 +601,92 @@ __device__ __forceinline__ int slab_at(const __nv_bfloat16*, int r, int G, int q
   return r * tf32x3::kBK + ((((2 * G + (q >> 1)) ^ ((r >> 1) & 3)) << 3) | ((q & 1) << 2));
 }
 
+// Where bf16 columns k and k + 1 (k even) of row r sit in a bf16 slab: the
+// natural order's half of an A fragment register.
+__device__ __forceinline__ int slab_pair(int r, int k) {
+  return r * tf32x3::kBK + ((((k >> 3) ^ ((r >> 1) & 3)) << 3) | (k & 7));
+}
+
+// The three-piece instance's first product, one 32-column stage (kX3 of
+// fused_kernel).  x3_ln: the stage's ln_w and ln_b pairs at columns col0 +
+// 16 G + 8 e + 2 q and the next.
+__device__ __forceinline__ void x3_ln(const float* lnw, const float* lnb, int col0, int q, float2 (&lw)[2][2],
+                                      float2 (&lb)[2][2]) {
+#pragma unroll
+  for (int G = 0; G < 2; ++G)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      lw[G][e] = *reinterpret_cast<const float2*>(lnw + col0 + 16 * G + 8 * e + 2 * q);
+      lb[G][e] = *reinterpret_cast<const float2*>(lnb + col0 + 16 * G + 8 * e + 2 * q);
+    }
+}
+
+// The A fragments of the stage's two k16 steps in the natural order: k16
+// step G takes columns 16 G + 8 e + 2 q and the next (k-slots 2 q + 8 e, +
+// 1) of rows ra (register hr + 2 e, hr = 0) and ra + 8 (hr = 1) of the bf16
+// slab xs, LayerNorm'd in f32 with two FMAs a value (x rstd - mean rstd
+// from the rows' st = (rstd, -mean rstd), then ln_w and ln_b, as the
+// bf16-product instance), each value split into three exact bf16 pieces:
+// a[G][piece: hi, mid, lo].
+__device__ __forceinline__ void x3_frags(const __nv_bfloat16* xs, int ra, int q, float2 sa, float2 sb,
+                                         const float2 (&lw)[2][2], const float2 (&lb)[2][2],
+                                         uint32_t (&a)[2][3][4]) {
+#pragma unroll
+  for (int G = 0; G < 2; ++G)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float2 st = hr ? sb : sa, w = lw[G][e], b = lb[G][e];
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(xs + slab_pair(ra + 8 * hr, 16 * G + 8 * e + 2 * q));
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+        bf16mm::x3::split3(fmaf(fmaf(v.x, st.x, st.y), w.x, b.x), fmaf(fmaf(v.y, st.x, st.y), w.y, b.y),
+                           a[G][0][hr + 2 * e], a[G][1][hr + 2 * e], a[G][2][hr + 2 * e]);
+      }
+}
+
+// The stage's wgmmas: three a k16 step on W1's JCB x 32 bf16 box (64-byte
+// rows) at `slot`, lo first, the first into a fresh d unless `acc`.
+template <int JCB>
+__device__ __forceinline__ void x3_first(float (&d)[JCB / 2], const uint32_t (&a)[2][3][4], const void* slot,
+                                         bool acc) {
+  const uint64_t bd = bf16mm::desc64(slot);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    bf16mm::wgmma_rs<JCB>(d, a[t][2], bd + 2 * t, acc || t > 0);
+    bf16mm::wgmma_rs<JCB>(d, a[t][1], bd + 2 * t, 1);
+    bf16mm::wgmma_rs<JCB>(d, a[t][0], bd + 2 * t, 1);
+  }
+}
+
+// Keeps a stage's fragments in their registers until here: a register-A
+// wgmma reads them after it issues, which the compiler does not see.
+__device__ __forceinline__ void x3_hold(uint32_t (&a)[2][3][4]) {
+#pragma unroll
+  for (int i = 0; i < 24; ++i) asm volatile("" : "+r"(a[i / 12][i / 4 % 3][i % 4])::"memory");
+}
+
+// Stage i's fragments (x3_frags) into `a`: its ln_w and ln_b requested, its
+// slot (i % slots) waited for; xs0 is the sub-tile's slab in slot 0.
+__device__ __forceinline__ void x3_stage(const float* xs0, uint64_t* full, int i, int slots, int slot_floats,
+                                         const float* lnw, const float* lnb, int col0, int ra, int q, float2 sa,
+                                         float2 sb, uint32_t (&a)[2][3][4]) {
+  float2 lw[2][2], lb[2][2];
+  x3_ln(lnw, lnb, col0, q, lw, lb);
+  mbar_wait(&full[i % slots], (i / slots) & 1);
+  x3_frags(reinterpret_cast<const __nv_bfloat16*>(xs0 + i % slots * slot_floats), ra, q, sa, sb, lw, lb, a);
+}
+
 // grid: clusters x S blocks (clusters along x); pairs = ceil(n / 128) row
 // tiles, cluster i taking tiles i, i + clusters, ...  x, res and out of T:
-// f32, or bf16 (W2's lo plane then zero and not loaded).  kBP: the
+// f32 (the TF32 instance), or bf16 (kBP, kX3).  kBP: the
 // precise=False arm (bf16 products; see the notes of sub_tiled_bf16), whose
 // prologue applies lnw and lnb (b1f is then b1 itself); the other instances
-// ignore lnw and lnb (folded into W1 and b1f).
-template <int C, int NC, class T, bool kBP = false>
+// ignore lnw and lnb (folded into W1 and b1f).  kX3: the three-piece
+// instance (bf16 T, precise=True; see the notes of sub_tiled_x3), whose
+// prologue applies lnw and lnb too and whose W1 and W2 are the bf16 weights
+// as they lie (b1f is b1).
+template <int C, int NC, class T, bool kBP = false, bool kX3 = false>
 __global__ void __launch_bounds__(kFusedThreads, 1)
     fused_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w1map,
                  const __grid_constant__ CUtensorMap w2map, const T* __restrict__ x,
@@ -591,18 +694,29 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
                  const float* __restrict__ lnb, const float* __restrict__ b1f,
                  const float* __restrict__ b2, const float* __restrict__ gamma, T* __restrict__ out, int n,
                  int pairs) {
-  using F = Fused<C, NC>;
+  using F = Fused<C, NC, kX3>;
   constexpr int S = F::S, JCB = F::JCB, JC = F::JC, kSlots = F::kSlots, kBK = tf32x3::kBK;
-  constexpr int kW2Planes = sizeof(T) == 4 ? 2 : 1;  // a bf16 W2's lo plane is zero
+  constexpr int kSlotFloats = F::kSlotFloats;
+  constexpr bool kBoxes16 = kBP || kX3;  // bf16 weight boxes and bf16 h planes
   // K columns of a W2 stage: 32 of f32 planes, or 64 of bf16 (128-byte rows
   // either way).
-  constexpr int kW2K = kBP ? 64 : kBK;
+  constexpr int kW2K = kBoxes16 ? 64 : kBK;
+  constexpr int kPiece = kSub * JC;  // bf16 elements of one h piece plane of one sub-tile (kX3)
+  // kX3 where the first product adds a partial a stage (the registers of
+  // the other tiles hold no second fragment set): its stages pipelined, the
+  // next stage's fragments computed under this stage's wgmmas (PERF.md,
+  // row 2).
+  constexpr bool kPipeA = kX3 && F::kStagePartial;
+  static_assert(!kPipeA || (F::kStagePartial && (C / kBK) % 2 == 0), "stages in pairs, each into hp");
   extern __shared__ uint8_t smem_raw[];
   // Slots and h planes start on 1024-byte boundaries, where the 128-byte
   // swizzle pattern starts over (the descriptors' base offset 0).
   float* ring = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  float* hbuf = ring + kSlots * kSlotFloats;                   // (2 sub-tiles, hi / lo, JC / 32, 64, 32)
-  float2* stats = reinterpret_cast<float2*>(hbuf + 4 * F::kH);  // (2 sub-tiles, 64 rows): rstd, -mean rstd
+  // (2 sub-tiles, hi / lo, JC / 32, 64, 32), or (kX3) (2 sub-tiles, hi /
+  // mid / lo, JC / 64, 64, 64) of bf16.
+  float* hbuf = ring + kSlots * kSlotFloats;
+  // (2 sub-tiles, 64 rows): rstd, -mean rstd.
+  float2* stats = reinterpret_cast<float2*>(hbuf + F::kHFloats);
   uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * kSub);
   uint64_t* empty = full + kSlots;
   uint64_t* hfull = empty + kSlots;  // per sub-tile: every rank has written the chunk here
@@ -644,22 +758,22 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
       for (int p = cluster_id; p < pairs; p += clusters)
         for (int j = 0; j < F::kChunks; ++j) {
           for (int kt = 0; kt < C / kBK; ++kt) {  // W1's rows of this block's units, both sub-tiles' x
-            const int s = next((kBP ? 2 : 4 * 2) * kBK * JCB + (int)sizeof(T) * 2 * kXSlab);
+            const int s = next((kBoxes16 ? 2 : 4 * 2) * kBK * JCB + (int)sizeof(T) * 2 * kXSlab);
             float* slot = ring + s * kSlotFloats;
-            if constexpr (kBP)
+            if constexpr (kBoxes16)
               tma_load_2d(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
             else
               tf32x3::tma_load(slot, &w1map, kt * kBK, j * JC + rank * JCB, &full[s]);
-            tma_load_2d(slot + kSlotFloats / 2, &xmap, kt * kBK, p * 2 * kSub, &full[s]);
-            tma_load_2d(slot + kSlotFloats / 2 + kXSlab, &xmap, kt * kBK, p * 2 * kSub + kSub, &full[s]);
+            tma_load_2d(slot + F::kXAt, &xmap, kt * kBK, p * 2 * kSub, &full[s]);
+            tma_load_2d(slot + F::kXAt + F::kXStep, &xmap, kt * kBK, p * 2 * kSub + kSub, &full[s]);
           }
           for (int half = 0; half < F::NC / 128; ++half)
             for (int kt = 0; kt < JC / kW2K; ++kt) {  // W2's rows of this block's output columns
-              if constexpr (kBP) {
+              if constexpr (kBoxes16) {
                 const int s = next(2 * kW2K * 128);
                 tma_load_2d(ring + s * kSlotFloats, &w2map, j * JC + kt * kW2K, rank * F::NC + half * 128, &full[s]);
               } else {
-                const int s = next(4 * kW2Planes * kBK * 128);
+                const int s = next(4 * 2 * kBK * 128);
                 tf32x3::tma_load(ring + s * kSlotFloats, &w2map, j * JC + kt * kBK, rank * F::NC + half * 128,
                                  &full[s]);
               }
@@ -672,7 +786,7 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int w = wg, wi = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
     const int ra = 16 * wi + g;  // this thread's rows of the sub-tile: ra and ra + 8
-    float* hh = hbuf + w * 2 * F::kH;
+    float* hh = hbuf + w * (F::kHFloats / 2);
     uint32_t hdst[S];  // this sub-tile's h buffer in every rank
 #pragma unroll
     for (int r = 0; r < S; ++r) hdst[r] = S > 1 ? peer_addr(smem_u32(hh), r) : smem_u32(hh);
@@ -728,12 +842,51 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
         float h[JCB / 2], hp[JCB / 2];
 #pragma unroll
         for (int i = 0; i < JCB / 2; ++i) h[i] = hp[i] = 0.f;
+        if constexpr (kPipeA) {
+          // The three-piece stages in pairs, the next stage's fragments
+          // computed while this stage's wgmmas run (two fragment sets), each
+          // stage into hp afresh, added into h once its wgmmas are done.
+          uint32_t a0[2][3][4], a1[2][3][4];
+          constexpr int nk = C / kBK;
+          const float* xs0 = ring + F::kXAt + w * F::kXStep;  // this sub-tile's slab in slot 0
+          x3_stage(xs0, full, it, kSlots, kSlotFloats, lnw, lnb, 0, ra, q, sa, sb, a0);
+          for (int kt = 0; kt < nk; kt += 2) {
+            const int s0 = (it + kt) % kSlots, s1 = (it + kt + 1) % kSlots;
+            tf32x3::fence_regs(hp);
+            bf16mm::wgmma_fence();
+            x3_first<JCB>(hp, a0, ring + s0 * kSlotFloats, false);
+            tf32x3::wgmma_commit();
+            x3_stage(xs0, full, it + kt + 1, kSlots, kSlotFloats, lnw, lnb, (kt + 1) * kBK, ra, q, sa, sb, a1);
+            tf32x3::wgmma_wait<0>();
+            tf32x3::fence_regs(hp);
+            x3_hold(a0);
+            release(s0);
+#pragma unroll
+            for (int i = 0; i < JCB / 2; ++i) h[i] += hp[i];
+            tf32x3::fence_regs(hp);
+            bf16mm::wgmma_fence();
+            x3_first<JCB>(hp, a1, ring + s1 * kSlotFloats, false);
+            tf32x3::wgmma_commit();
+            if (kt + 2 < nk)
+              x3_stage(xs0, full, it + kt + 2, kSlots, kSlotFloats, lnw, lnb, (kt + 2) * kBK, ra, q, sa, sb, a0);
+            tf32x3::wgmma_wait<0>();
+            tf32x3::fence_regs(hp);
+            x3_hold(a1);
+            release(s1);
+#pragma unroll
+            for (int i = 0; i < JCB / 2; ++i) h[i] += hp[i];
+          }
+          it += C / kBK;
+          TC_PHASE(3)  // the first product
+        } else
         for (int kt = 0; kt < C / kBK; ++kt, ++it) {
           const int s = it % kSlots;
+          float2 lw[2][2], lb[2][2];  // kX3: requested before the wait for the slot
+          if constexpr (kX3) x3_ln(lnw, lnb, kt * kBK, q, lw, lb);
           mbar_wait(&full[s], (it / kSlots) & 1);
           TC_PHASE(1)  // the first product's slot
           const float* slot = ring + s * kSlotFloats;
-          const T* xs = reinterpret_cast<const T*>(slot + kSlotFloats / 2 + w * kXSlab);
+          const T* xs = reinterpret_cast<const T*>(slot + F::kXAt + w * F::kXStep);
           // Into hp, which the stage starts afresh, or straight into h,
           // which the chunk's first stage starts afresh.
           float (&d)[JCB / 2] = F::kStagePartial ? hp : h;
@@ -766,6 +919,13 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
             const uint64_t bd = bf16mm::desc64(slot);
 #pragma unroll
             for (int t = 0; t < 2; ++t) bf16mm::wgmma_rs<JCB>(d, a[t], bd + 2 * t, fresh > 0 || t > 0);
+          } else if constexpr (kX3) {
+            uint32_t a[2][3][4];
+            x3_frags(xs, ra, q, sa, sb, lw, lb, a);
+            tf32x3::fence_regs(d);
+            TC_PHASE(2)  // A fragments
+            bf16mm::wgmma_fence();
+            x3_first<JCB>(d, a, slot, fresh > 0);  // into the stage's (or the chunk's) partial
           } else {
             // A fragments of the four k-steps: k-step 2 G + e2 takes columns
             // 16 G + 4 q + 2 e2 (k-slot q) and + 1 (k-slot q + 4), W1's
@@ -825,6 +985,18 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
               const uint32_t v = bf16mm::pack2(v0, v1);
 #pragma unroll
               for (int r = 0; r < S; ++r) st_shared_b32<(S > 1)>(hdst[r] + off, v);
+            } else if constexpr (kX3) {
+              // Three bf16 planes, hi, mid and lo, each in kBP's layout.
+              const uint32_t off = 2 * ((kk >> 6) * kSub * 64 + row * 64) + ((((kk & 63) >> 3) ^ g) << 4) +
+                                   ((kk & 7) << 1);
+              uint32_t hi, mid, lo;
+              bf16mm::x3::split3(v0, v1, hi, mid, lo);
+#pragma unroll
+              for (int r = 0; r < S; ++r) {
+                st_shared_b32<(S > 1)>(hdst[r] + off, hi);
+                st_shared_b32<(S > 1)>(hdst[r] + off + 2 * kPiece, mid);
+                st_shared_b32<(S > 1)>(hdst[r] + off + 4 * kPiece, lo);
+              }
             } else {
               const float h0 = round_tf32_finite(v0), h1 = round_tf32_finite(v1);
               const float l0 = round_tf32_finite(v0 - h0), l1 = round_tf32_finite(v1 - h1);
@@ -868,14 +1040,26 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 #pragma unroll
               for (int kk = 0; kk < kW2K / 16; ++kk)
                 bf16mm::wgmma_ss128(op, bf16mm::desc128(hb) + 2 * kk, bf16mm::desc128(slot) + 2 * kk, kt > 0 || kk > 0);
+            } else if constexpr (kX3) {
+              // The stage's three products a k16 step, lo first, into a
+              // fresh partial: the chunk's 64-unit slab kt of each piece
+              // plane against W2's 128 x 64 bf16 box.
+              const bf16* hb = reinterpret_cast<const bf16*>(hh) + kt * kSub * kW2K;
+#pragma unroll
+              for (int kk = 0; kk < kW2K / 16; ++kk) {
+                const uint64_t bd = bf16mm::desc128(slot) + 2 * kk;
+                bf16mm::wgmma_ss128(op, bf16mm::desc128(hb + 2 * kPiece) + 2 * kk, bd, kk > 0);
+                bf16mm::wgmma_ss128(op, bf16mm::desc128(hb + kPiece) + 2 * kk, bd, 1);
+                bf16mm::wgmma_ss128(op, bf16mm::desc128(hb) + 2 * kk, bd, 1);
+              }
             } else {
               const uint64_t ah = tf32x3::smem_desc(hh + kt * kSub * kBK);
               const uint64_t al = tf32x3::smem_desc(hh + F::kH + kt * kSub * kBK);
               const uint64_t bh = tf32x3::smem_desc(slot), bl = tf32x3::smem_desc(slot + kBK * 128);
 #pragma unroll
               for (int kk = 0; kk < kBK / 8; ++kk) {
-                if constexpr (kW2Planes == 2) tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
-                tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, kW2Planes == 2 || kt > 0 || kk > 0);
+                tf32x3::wgmma_tf32(op, ah + 2 * kk, bl + 2 * kk, kt > 0 || kk > 0);
+                tf32x3::wgmma_tf32(op, al + 2 * kk, bh + 2 * kk, 1);
                 tf32x3::wgmma_tf32(op, ah + 2 * kk, bh + 2 * kk, 1);
               }
             }
@@ -884,10 +1068,16 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
             tf32x3::fence_acc(op);
             TC_PHASE(8)  // the second product's wgmmas
             release(s);
+            if constexpr (kX3) {
+#pragma unroll
+              for (int i = 0; i < 64; ++i) acc[64 * half + i] += op[i];
+            }
             TC_PHASE(9)  // release
           }
+          if constexpr (!kX3) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i) acc[64 * half + i] += op[i];
+            for (int i = 0; i < 64; ++i) acc[64 * half + i] += op[i];
+          }
         }
         if constexpr (S > 1) {
           wg_sync(1 + w);  // every warp's products have read the chunk
@@ -963,22 +1153,22 @@ cudaLaunchConfig_t fused_config(int clusters, int S, int smem, cudaStream_t s, c
 }
 
 // How many clusters of an instance the card runs at once (asked once).
-template <int C, int NC, class T, bool kBP = false>
+template <int C, int NC, class T, bool kBP = false, bool kX3 = false>
 cudaError_t active_clusters(int* out) {
-  using F = Fused<C, NC>;
+  using F = Fused<C, NC, kX3>;
   static int cached = 0;
   if (cached > 0) {
     *out = cached;
     return cudaSuccess;
   }
   cudaError_t err =
-      cudaFuncSetAttribute(fused_kernel<C, NC, T, kBP>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+      cudaFuncSetAttribute(fused_kernel<C, NC, T, kBP, kX3>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = fused_config(1, F::S, F::kSmem, nullptr, attr);
   cfg.numAttrs = 1;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC, T, kBP>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, fused_kernel<C, NC, T, kBP, kX3>, &cfg);
   if (err != cudaSuccess) return err;
   if (n < 1) return cudaErrorInvalidConfiguration;
   *out = cached = n;
@@ -990,13 +1180,13 @@ cudaError_t active_clusters(int* out) {
 // clusters the card holds at once, else 128 (twice the blocks to a tile).
 // At 256 a block does twice the work with fewer, wider wgmmas and half the
 // peers (PERF.md, row 2).
-template <int C, class T = float, bool kBP = false>
+template <int C, class T = float, bool kBP = false, bool kX3 = false>
 cudaError_t fused_columns(int n, int* nc) {
   *nc = 128;
   if constexpr (C > 128) {
     int c128 = 0, c256 = 0;
-    cudaError_t err = active_clusters<C, 128, T, kBP>(&c128);
-    if (err == cudaSuccess) err = active_clusters<C, 256, T, kBP>(&c256);
+    cudaError_t err = active_clusters<C, 128, T, kBP, kX3>(&c128);
+    if (err == cudaSuccess) err = active_clusters<C, 256, T, kBP, kX3>(&c256);
     if (err != cudaSuccess) return err;
     const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
     if ((pairs + c256 - 1) / c256 < (pairs + c128 - 1) / c128) *nc = 256;
@@ -1004,29 +1194,30 @@ cudaError_t fused_columns(int n, int* nc) {
   return cudaSuccess;
 }
 
-// x, res, the weights and out of T: f32, or bf16 (the bf16 instance).
-template <int C, int NC, class T>
-int sub_tiled(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
-              const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n,
-              cudaStream_t s) {
+// The TF32 instance: f32 x, res, weights and out; W1 prepared (prep_w1),
+// W2 split into its TF32 planes, each a call.
+template <int C, int NC>
+int sub_tiled(const float* x, const float* res, const float* sd, const float* lnw, const float* lnb,
+              const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma, float* out,
+              float* work, int n, cudaStream_t s) {
   using F = Fused<C, NC>;
   const FusedPlan p = make_fused_plan(C);
   int clusters = 0;
-  cudaError_t err = active_clusters<C, NC, T>(&clusters);
+  cudaError_t err = active_clusters<C, NC, float>(&clusters);
   if (err != cudaSuccess) return (int)err;
-  prep_w1<C, T><<<C / 2, 256, 0, s>>>(w1, lnw, lnb, b1, work + p.w1p, work + p.b1f);
+  prep_w1<C><<<C / 2, 256, 0, s>>>(w1, lnw, lnb, b1, work + p.w1p, work + p.b1f);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = tf32x3::split(w2, C, 4 * C, work + p.w2p, nullptr, 0, s)) != cudaSuccess) return (int)err;
   CUtensorMap xm, w1m, w2m;
   err = x_map(&xm, x, n, C);
   if (err == cudaSuccess) err = tf32x3::make_map(&w1m, {work + p.w1p, 4 * C, C, C, 4LL * C * C}, F::JCB);
   if (err == cudaSuccess)
-    err = tf32x3::make_map(&w2m, {work + p.w2p, C, 4 * C, 4 * C, 4LL * C * C}, 128, sizeof(T) == 4 ? 2 : 1);
+    err = tf32x3::make_map(&w2m, {work + p.w2p, C, 4 * C, 4 * C, 4LL * C * C}, 128);
   if (err != cudaSuccess) return (int)err;
   const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fused_config(pairs < clusters ? pairs : clusters, F::S, F::kSmem, s, attr);
-  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, T>, xm, w1m, w2m, x, res, sd, lnw, lnb,
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, float>, xm, w1m, w2m, x, res, sd, lnw, lnb,
                            (const float*)(work + p.b1f), b2, gamma, out, n, pairs);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -1086,6 +1277,43 @@ int sub_tiled_bf16(const T* x, const T* res, const float* sd, const float* lnw, 
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// The TPU kernel _kernel_pipelined with mxu_dtype=float32 on bf16 x,
+// residual, W1 and W2: fused_kernel<C, NC, bf16, false, true>, the
+// clusters, the persistent walk and the exchange of h of the other
+// instances, on the bf16 tensor cores with the weights as they lie (no
+// preparation launch, no workspace):
+// - the prologue normalises its A fragment from the staged bf16 x slab in
+//   f32 with the rows' (mean, rstd), ln_w and ln_b (the natural column
+//   order: two bf16 pairs a register, read from the 64-byte swizzle free
+//   of bank conflicts) and splits each value into three exact bf16 pieces;
+//   three register-A m64nJCBk16 wgmmas a k16 step on W1's JCB x 32 bf16
+//   box as it lies;
+// - h_j = gelu(...) is split once, in the epilogue, and exchanged as three
+//   bf16 piece planes (6 bytes a value where the TF32 planes take 8);
+// - the second product reads the pieces from shared memory: three
+//   m64n128k16 wgmmas a k16 step on W2's 128 x 64 bf16 boxes, a fresh
+//   partial a 64-deep stage added into the f32 sum.
+template <int C, int NC>
+int sub_tiled_x3(const bf16* x, const bf16* res, const float* sd, const float* lnw, const float* lnb,
+                 const bf16* w1, const float* b1, const bf16* w2, const float* b2, const float* gamma, bf16* out,
+                 int n, cudaStream_t s) {
+  using F = Fused<C, NC, true>;
+  int clusters = 0;
+  cudaError_t err = active_clusters<C, NC, bf16, false, true>(&clusters);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap xm, w1m, w2m;
+  err = x_map(&xm, x, n, C);
+  if (err == cudaSuccess) err = bf16mm::make_map(&w1m, {w1, 4 * C, C, C}, 32, F::JCB);
+  if (err == cudaSuccess) err = bf16mm::make_map(&w2m, {w2, C, 4 * C, 4 * C}, 64, 128);
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = (n + 2 * kSub - 1) / (2 * kSub);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fused_config(pairs < clusters ? pairs : clusters, F::S, F::kSmem, s, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<C, NC, bf16, false, true>, xm, w1m, w2m, x, res, sd, lnw, lnb, b1, b2,
+                           gamma, out, n, pairs);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 template <int C, class T>
 int forward(const T* x, const T* res, const float* sd, const float* lnw, const float* lnb, const T* w1,
             const float* b1, const T* w2, const float* b2, const float* gamma, T* out, float* work, int n, int sub,
@@ -1098,11 +1326,19 @@ int forward(const T* x, const T* res, const float* sd, const float* lnw, const f
   }
   if (sub != kSub) return (int)cudaErrorInvalidValue;
   int nc = 0;
-  const cudaError_t err = fused_columns<C, T>(n, &nc);
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (C > 128)
-    if (nc == 256) return sub_tiled<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
-  return sub_tiled<C, 128>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  if constexpr (sizeof(T) == 2) {  // the three-piece instance
+    const cudaError_t err = fused_columns<C, T, false, true>(n, &nc);
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (C > 128)
+      if (nc == 256) return sub_tiled_x3<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, n, s);
+    return sub_tiled_x3<C, 128>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, n, s);
+  } else {
+    const cudaError_t err = fused_columns<C, T>(n, &nc);
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (C > 128)
+      if (nc == 256) return sub_tiled<C, 256>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+    return sub_tiled<C, 128>(x, res, sd, lnw, lnb, w1, b1, w2, b2, gamma, out, work, n, s);
+  }
 }
 
 // The precise=False arm: the whole tile (sub 0) or the sub-tiled path (64).
@@ -1149,10 +1385,10 @@ long long tc_mlp_block_forward_workspace(int n, int c, int sub) {
 }
 
 // Floats of workspace tc_mlp_block_forward_bf16 needs: the whole tile's
-// row statistics and h (x3::tail_plan), or the sub-tiled path's as the f32
-// instance's.
+// row statistics and h (x3::tail_plan), or none for the sub-tiled path
+// (the weights read as they lie).
 long long tc_mlp_block_forward_bf16_workspace(int n, int c, int sub) {
-  return sub ? make_fused_plan(c).total : bf16mm::x3::tail_plan(n, c, bf16mm::x3::sm_count()).fwd_total;
+  return sub ? 0 : bf16mm::x3::tail_plan(n, c, bf16mm::x3::sm_count()).fwd_total;
 }
 
 // The bf16 instances' tile plan at n rows of width c on a card of `sms`
@@ -1179,6 +1415,30 @@ int tc_mlp_block_fused_plan(int c, int nc, int* out) {
   if (c == W && nc == N) {                                                                             \
     using F = Fused<W, N>;                                                                             \
     out[0] = F::S, out[1] = F::JCB, out[2] = F::JC, out[3] = F::kSlots, out[4] = F::kSmem, out[5] = kSub; \
+    return 0;                                                                                          \
+  }
+  TC_PLAN(128, 128)
+  TC_PLAN(256, 128)
+  TC_PLAN(256, 256)
+  TC_PLAN(512, 128)
+  TC_PLAN(512, 256)
+  TC_PLAN(1024, 128)
+  TC_PLAN(1024, 256)
+#undef TC_PLAN
+  return -1;
+}
+
+// The three-piece instance's tiles at width c with nc output columns a
+// block into out[0..7]: cluster size, hidden units a block per chunk, units
+// per chunk, ring slots, shared bytes, sub-tile rows, bytes a slot, bytes
+// of both sub-tiles' h pieces; -1 for an instance the library does not
+// hold.
+int tc_mlp_block_fused_x3_plan(int c, int nc, int* out) {
+#define TC_PLAN(W, N)                                                                                  \
+  if (c == W && nc == N) {                                                                             \
+    using F = Fused<W, N, true>;                                                                       \
+    out[0] = F::S, out[1] = F::JCB, out[2] = F::JC, out[3] = F::kSlots, out[4] = F::kSmem, out[5] = kSub; \
+    out[6] = 4 * F::kSlotFloats, out[7] = 4 * F::kHFloats;                                             \
     return 0;                                                                                          \
   }
   TC_PLAN(128, 128)

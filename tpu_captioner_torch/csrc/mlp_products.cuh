@@ -1,6 +1,6 @@
 // The ConvNeXt block tail's two products on the 3xTF32 GEMM
-// (tf32x3_gemm.cuh), shared by the two paths that feed them LayerNorm rows
-// as TF32 planes: the MLP tail's whole-tile path (mlp_block.cu, whose
+// (tf32x3_gemm.cuh), shared by the two f32 paths that feed them LayerNorm
+// rows as TF32 planes: the MLP tail's whole-tile path (mlp_block.cu, whose
 // ln_rows normalises the depthwise conv's output) and the whole-block
 // kernel (block_fused.cu, whose conv + LayerNorm launch writes the planes
 // straight from the conv).  For rows m < n of the planes xs (N, C):
@@ -17,11 +17,11 @@
 // (mlp_block.cu: fused_kernel) keeps h on chip instead: one launch whose
 // clusters share each hidden chunk through distributed shared memory.
 // Rows with sd 0 return res bit for bit: res + 0 * (finite) is res.
-// The whole-block kernel's bf16 instance reads bf16 res and writes bf16 out
-// (T) and splits bf16 weights (exact in TF32: their lo planes are zero, so
-// each product reads the weight's hi plane alone and runs two TF32
-// products, not three); the sums, h and the epilogues stay f32.  (The MLP
-// tail's bf16 whole tile runs bf16_gemm.cuh's x3::gemm instead.)
+// The epilogues serve the bf16 instances of both paths too, which run their
+// products on bf16_gemm.cuh's x3::gemm (an f32 row in three exact bf16
+// pieces times the bf16 weight as it lies): HiddenEpiF32 writes h as one f32
+// plane, and OutEpi<bf16> reads the bf16 residual and rounds the f32 sum
+// once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,6 +44,16 @@ struct HiddenEpi {  // h = gelu(v + b1) into h's planes (N, 4C)
   __device__ void operator()(int m, int n, float2 v) const {
     const float2 b = *reinterpret_cast<const float2*>(b1 + n);
     tf32x3::store_split2(h, plane, (size_t)m * ld + n, gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
+  }
+};
+
+struct HiddenEpiF32 {  // h = gelu(v + b1) into h (N, 4C), one f32 plane
+  const float* b1;
+  float* h;
+  int ld;
+  __device__ void operator()(int m, int n, float2 v) const {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + n);
+    *reinterpret_cast<float2*>(h + (size_t)m * ld + n) = make_float2(gelu_exact(v.x + b.x), gelu_exact(v.y + b.y));
   }
 };
 
@@ -93,29 +103,27 @@ inline Plan make_plan(int n, int c) {
   return p;
 }
 
-// W1's and W2's TF32 planes (from f32 or bf16 weights) into the workspace
-// of n rows.
-template <int C, class W>
-cudaError_t split_weights(const W* w1, const W* w2, float* work, int n, cudaStream_t s) {
+// W1's and W2's TF32 planes into the workspace of n rows.
+template <int C>
+cudaError_t split_weights(const float* w1, const float* w2, float* work, int n, cudaStream_t s) {
   const Plan p = make_plan(n, C);
   cudaError_t err = tf32x3::split(w1, 4 * C, C, work + p.w1s, nullptr, 0, s);
   if (err == cudaSuccess) err = tf32x3::split(w2, C, 4 * C, work + p.w2s, nullptr, 0, s);
   return err;
 }
 
-// The two products over the LayerNorm planes already in the workspace; res
-// and out of T, and the weights' too (bf16 T: their hi planes alone).
-template <int C, class T>
-cudaError_t products(const T* res, const float* sd, int per, const float* b1, const float* b2,
-                     const float* gamma, T* out, float* work, int n, cudaStream_t s) {
+// The two products over the LayerNorm planes already in the workspace.
+template <int C>
+cudaError_t products(const float* res, const float* sd, int per, const float* b1, const float* b2,
+                     const float* gamma, float* out, float* work, int n, cudaStream_t s) {
   using tf32x3::Operand;
-  constexpr int C4 = 4 * C, kWPlanes = sizeof(T) == 4 ? 2 : 1;
+  constexpr int C4 = 4 * C;
   const Plan p = make_plan(n, C);
   const long long nc = (long long)n * C;
   const Operand xo{work + p.xs, n, C, C, nc}, w1o{work + p.w1s, C4, C, C, 4LL * C * C};
   const Operand ho{work + p.h, n, C4, C4, 4 * nc}, w2o{work + p.w2s, C, C4, C4, 4LL * C * C};
-  cudaError_t err = tf32x3::gemm<kWPlanes>(xo, w1o, HiddenEpi{b1, work + p.h, 4 * nc, C4}, s);
-  if (err == cudaSuccess) err = tf32x3::gemm<kWPlanes>(ho, w2o, OutEpi<T>{res, sd, per, b2, gamma, out, C}, s);
+  cudaError_t err = tf32x3::gemm(xo, w1o, HiddenEpi{b1, work + p.h, 4 * nc, C4}, s);
+  if (err == cudaSuccess) err = tf32x3::gemm(ho, w2o, OutEpi<float>{res, sd, per, b2, gamma, out, C}, s);
   return err;
 }
 

@@ -1,7 +1,8 @@
 // f32-accurate matrix products on Hopper's TF32 tensor cores (3xTF32), for
-// the MLP-tail kernels: the whole-tile forward (mlp_block.cu, SUB = 0), the
-// backward (mlp_block_bwd.cu) and the whole-block kernel's products run the
-// GEMM below; the sub-tiled forward (mlp_block.cu: fused_kernel) runs its
+// the MLP-tail kernels' f32 instances: the whole-tile forward (mlp_block.cu,
+// SUB = 0), the backward (mlp_block_bwd.cu; its bf16 instance's two
+// weight-gradient products too) and the whole-block kernel's products run
+// the GEMM below; the sub-tiled forward (mlp_block.cu: fused_kernel) runs its
 // building blocks (the split, the descriptors, the wgmma wrappers, the
 // register-A form among them).  sm_90a only (wgmma).
 //
@@ -42,9 +43,8 @@
 // pace the ring.  The tensor cores add a wgmma's products into its
 // accumulator with truncation, a bias that grows with K: one accumulator
 // over all of K missed the tail's 1e-4 tolerance at C = 1024 (2e-4).  So a
-// consumer runs each stage's 12 wgmmas (4 k-steps of 8, 3 products each;
-// 8 when B holds bf16 values, whose lo plane is zero: kBPlanes = 1) into a
-// fresh accumulator, waits for them, releases the stage and adds
+// consumer runs each stage's 12 wgmmas (4 k-steps of 8, 3 products each)
+// into a fresh accumulator, waits for them, releases the stage and adds
 // the partial into f32 registers with round-to-nearest FADDs; the other
 // consumer warpgroup's wgmmas keep the tensor cores busy meanwhile.  The
 // epilogue hands each thread's pairs of adjacent columns to a functor, in
@@ -99,33 +99,26 @@ __device__ __forceinline__ void store_split2(float* p, long long plane, size_t a
   *reinterpret_cast<float2*>(p + at + plane) = make_float2(round_tf32(v0 - h0), round_tf32(v1 - h1));
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-// The split of src (R, Cc) f32 or bf16, row-major (Cc a multiple of 32),
-// into `plain` (R, Cc) and/or `trans` (Cc, ld_t), transposed; either may be
-// null.  Planes: R * Cc floats apart in `plain`, Cc * ld_t in `trans`.  A
-// block of 32 x 8 threads splits a 32 x 32 tile and transposes it through
-// shared memory, so both stores are coalesced.  A bf16 value is a TF32
-// value: its lo plane is zero and is not written (the GEMM reads a bf16
-// weight's hi plane alone, kBPlanes = 1).
-template <class S>
-__global__ void __launch_bounds__(256) split_kernel(const S* __restrict__ src, int R, int Cc,
+// The split of src (R, Cc), row-major (Cc a multiple of 32), into `plain`
+// (R, Cc) and/or `trans` (Cc, ld_t), transposed; either may be null.
+// Planes: R * Cc floats apart in `plain`, Cc * ld_t in `trans`.  A block of
+// 32 x 8 threads splits a 32 x 32 tile and transposes it through shared
+// memory, so both stores are coalesced.
+__global__ void __launch_bounds__(256) split_kernel(const float* __restrict__ src, int R, int Cc,
                                                     float* __restrict__ plain, float* __restrict__ trans,
                                                     int ld_t) {
   __shared__ float hi[32][33], lo[32][33];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
   const long long plane_p = (long long)R * Cc, plane_t = (long long)Cc * ld_t;
-  constexpr bool kLo = sizeof(S) == 4;  // bf16: no lo plane
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty + 8 * i, c = c0 + tx;
     if (r < R) {
-      const float v = load_f32(src + (size_t)r * Cc + c), h = round_tf32(v), l = round_tf32(v - h);
+      const float v = src[(size_t)r * Cc + c], h = round_tf32(v), l = round_tf32(v - h);
       if (plain) {
         plain[(size_t)r * Cc + c] = h;
-        if (kLo) plain[plane_p + (size_t)r * Cc + c] = l;
+        plain[plane_p + (size_t)r * Cc + c] = l;
       }
       hi[ty + 8 * i][tx] = h;
       lo[ty + 8 * i][tx] = l;
@@ -138,7 +131,7 @@ __global__ void __launch_bounds__(256) split_kernel(const S* __restrict__ src, i
     const int c = c0 + ty + 8 * i, r = r0 + tx;
     if (r < R) {
       trans[(size_t)c * ld_t + r] = hi[tx][ty + 8 * i];
-      if (kLo) trans[plane_t + (size_t)c * ld_t + r] = lo[tx][ty + 8 * i];
+      trans[plane_t + (size_t)c * ld_t + r] = lo[tx][ty + 8 * i];
     }
   }
 }
@@ -258,10 +251,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // ------------------------------------------------------------------ the GEMM
 // P[m, n] = sum over k in [kb, ke) of A(m, k) B(n, k), with kb = blockIdx.z
 // * k_split and ke = min(K, kb + k_split); epi(m, n, {P[m, n], P[m, n + 1]})
-// for every m < M (N is a multiple of 128).  kBPlanes = 1: B's lo plane
-// is zero (B holds bf16 values, exact in TF32), so its TMA box and its
-// product hi.lo are left out: two products a k-step, not three.
-template <class Epi, int kBPlanes>
+// for every m < M (N is a multiple of 128).
+template <class Epi>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                                                            const __grid_constant__ CUtensorMap map_b,
                                                            int M, int K, int k_split, Epi epi) {
@@ -294,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
         float* a = stages + s * kStageFloats;
-        mbar_expect_tx(&full[s], kStageBytes - (2 - kBPlanes) * kPlaneB * 4);
+        mbar_expect_tx(&full[s], kStageBytes);
         tma_load(a, &map_a, kb + kt * kBK, m0, &full[s]);
         tma_load(a + 2 * kPlaneA, &map_b, kb + kt * kBK, n0, &full[s]);
       }
@@ -323,8 +314,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         // 8 floats = 32 bytes = 2 in the descriptor's 16-byte address units.
         const uint64_t ah = smem_desc(a_hi) + 2 * kk, al = smem_desc(a_lo) + 2 * kk;
         const uint64_t bh = smem_desc(b_hi) + 2 * kk, bl = smem_desc(b_lo) + 2 * kk;
-        if (kBPlanes == 2) wgmma_tf32(d, ah, bl, kk > 0);  // the stage's first product starts d afresh
-        wgmma_tf32(d, al, bh, kBPlanes == 2 || kk > 0);
+        wgmma_tf32(d, ah, bl, kk > 0);  // the stage's first product starts d afresh
+        wgmma_tf32(d, al, bh, 1);
         wgmma_tf32(d, ah, bh, 1);
       }
       wgmma_commit();
@@ -361,12 +352,12 @@ struct Operand {
   long long plane;
 };
 
-inline cudaError_t make_map(CUtensorMap* map, const Operand& o, int box_rows, int planes = 2) {
+inline cudaError_t make_map(CUtensorMap* map, const Operand& o, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)o.k, (cuuint64_t)o.rows, (cuuint64_t)planes};
+  const cuuint64_t dims[3] = {(cuuint64_t)o.k, (cuuint64_t)o.rows, 2};
   const cuuint64_t strides[2] = {(cuuint64_t)o.ld * 4, (cuuint64_t)o.plane * 4};
-  const cuuint32_t box[3] = {kBK, (cuuint32_t)box_rows, (cuuint32_t)planes};
+  const cuuint32_t box[3] = {kBK, (cuuint32_t)box_rows, 2};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(o.p), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -375,33 +366,30 @@ inline cudaError_t make_map(CUtensorMap* map, const Operand& o, int box_rows, in
 }
 
 // P = A B^T over `splits` K ranges of k_split (a multiple of kBK), each
-// block handing its tile to `epi`; kBPlanes = 1 reads B's hi plane alone
-// (B of bf16 values).  Returns a cudaError_t.
-template <int kBPlanes = 2, class Epi>
+// block handing its tile to `epi`.  Returns a cudaError_t.
+template <class Epi>
 cudaError_t gemm(const Operand& a, const Operand& b, int splits, int k_split, Epi epi, cudaStream_t s) {
   if (b.rows % kBN || a.k != b.k || k_split % kBK || a.ld % 4 || b.ld % 4 || a.plane % 4 || b.plane % 4)
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   cudaError_t err = make_map(&ma, a, kBM);
-  if (err == cudaSuccess) err = make_map(&mb, b, kBN, kBPlanes);
+  if (err == cudaSuccess) err = make_map(&mb, b, kBN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_kernel<Epi, kBPlanes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
+    err = cudaFuncSetAttribute(gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(b.rows / kBN, (a.rows + kBM - 1) / kBM, splits);
-  gemm_kernel<Epi, kBPlanes><<<grid, kThreads, kSmemBytes, s>>>(ma, mb, a.rows, a.k, k_split, epi);
+  gemm_kernel<Epi><<<grid, kThreads, kSmemBytes, s>>>(ma, mb, a.rows, a.k, k_split, epi);
   return cudaGetLastError();
 }
 
 // P = A B^T over all of K in one pass.
-template <int kBPlanes = 2, class Epi>
+template <class Epi>
 cudaError_t gemm(const Operand& a, const Operand& b, Epi epi, cudaStream_t s) {
-  return gemm<kBPlanes>(a, b, 1, (a.k + kBK - 1) / kBK * kBK, epi, s);
+  return gemm(a, b, 1, (a.k + kBK - 1) / kBK * kBK, epi, s);
 }
 
 // The planes of src (R, Cc) into plain (R, Cc) and/or trans (Cc, ld_t).
-template <class S>
-inline cudaError_t split(const S* src, int R, int Cc, float* plain, float* trans, int ld_t, cudaStream_t s) {
+inline cudaError_t split(const float* src, int R, int Cc, float* plain, float* trans, int ld_t, cudaStream_t s) {
   const dim3 grid(Cc / 32, (R + 31) / 32);
   split_kernel<<<grid, dim3(32, 8), 0, s>>>(src, R, Cc, plain, trans, ld_t);
   return cudaGetLastError();

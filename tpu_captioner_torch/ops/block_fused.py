@@ -35,7 +35,11 @@ arithmetic on those operands (tpu_captioner/ops/block_fused.py:53-83):
 the conv's f32 sum of bf16 products plus the f32 bias, never rounded,
 then LayerNorm, products, GELU and residual in f32, out rounded to bf16
 once (``_block_plain_bf16``; ``csrc/block_fused.cu``'s bf16 instance,
-counted also in ``fused_convnext_block.bf16_launches``).  The JAX backward
+counted also in ``fused_convnext_block.bf16_launches``).  On the card that
+instance is three launches: the conv + LayerNorm kernel writes LN(t) as one
+f32 plane, and the MLP tail's bf16 whole tile's two products (each f32 row
+value in three exact bf16 pieces times the bf16 weight as it lies) run on
+it, no weight split; its workspace is ``block_workspace(n, c, 2)``.  The JAX backward
 is the VJP of its reference on those operands (:36-50, :181-183), and
 this one rounds where that VJP rounds: t is recomputed as the bf16 conv
 (``dwconv_forward``'s bf16 instance, rounded once) widened plus the f32
@@ -137,6 +141,24 @@ def block_plan(B: int, H: int, W: int, C: int, sms: int = 132, active: int = 0, 
     return BlockPlan(th, TILE_COLS, CHUNK, cluster, slots, parts, _HEADER + _SMALL + slots * box, units, tiles)
 
 
+def _round32(v: int) -> int:
+    return -(-v // 32) * 32
+
+
+def block_workspace(n: int, c: int, esize: int = 4) -> int:
+    """Floats of workspace a forward call on ``n`` = B*H*W pixels of width
+    ``c`` needs, as ``tc_block_fused_workspace`` computes it: for f32 x
+    (``esize`` 4) LN(t)'s two TF32 planes (2 N C), h's (8 N C) and the
+    weights' splits (8 C^2 each); for the bf16 instance (2) LN(t) as one f32
+    plane (N C) and h as one (4 N C), the weights read as they lie.  Each
+    array starts on a 32-float boundary."""
+    if esize == 4:
+        return _round32(2 * n * c) + _round32(8 * n * c) + 2 * _round32(8 * c * c)
+    if esize == 2:
+        return _round32(n * c) + _round32(4 * n * c)
+    raise ValueError(f"block_workspace: elements of 4 or 2 bytes, got {esize}")
+
+
 def _block_plain(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
     """Plain PyTorch version of the block kernel; its definition.  The JAX
     ``_reference_impl`` (tpu_captioner/ops/block_fused.py:36) with the port's
@@ -165,7 +187,7 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     lib.tc_block_fused_workspace.restype = ctypes.c_longlong
-    lib.tc_block_fused_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tc_block_fused_workspace.argtypes = [ctypes.c_int] * 3
     lib.tc_block_fused_clusters.restype = ctypes.c_int
     lib.tc_block_fused_clusters.argtypes = [ctypes.c_int] * 4
     return lib
@@ -235,7 +257,7 @@ def _block_forward(x, sd, dw_w, dw_b, ln_w, ln_b, w1, b1, w2, b2, gamma):
     out = torch.empty_like(x)
     launch = lib.tc_block_fused_forward_bf16 if bf16 else lib.tc_block_fused_forward
     with torch.cuda.device(device):
-        work = sd.new_empty(lib.tc_block_fused_workspace(b * h * w, c))
+        work = sd.new_empty(lib.tc_block_fused_workspace(b * h * w, c, x.element_size()))
         err = launch(*(t.data_ptr() for t in (*args, out, work)), b, h, w, c, *plan.args(), _build.raw_stream(device))
     _build.check(lib, err, "block_fused")
     fused_convnext_block.launches += 1

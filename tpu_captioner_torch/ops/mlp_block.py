@@ -32,11 +32,14 @@ models/convnext.py:163-171; JAX's ``_pipeline_sub`` picks the sub-tiled
 body for any dtype): LayerNorm, products, GELU and residual in f32 (a bf16
 weight's TF32 planes are itself and zero: the 3xTF32 products are exact on
 it), the output rounded to bf16 once.  ``_mlp_plain_bf16`` is the plain
-version of both.  The whole tile and the backward's four products with a
-weight as B run on bf16 tensor cores: each f32 row value split into three
-exact bf16 pieces (``split_pieces`` models the split on the CPU), three
-products a k16 step against the bf16 weight as it lies
-(``csrc/bf16_gemm.cuh``, tiles per ``bf16_tail_plan``).  The backward's bf16 instance is the JAX backward's arm on
+version of both.  Both forward instances and the backward's four products
+with a weight as B run on bf16 tensor cores: each f32 row value split into
+three exact bf16 pieces (``split_pieces`` models the split on the CPU),
+three products a k16 step against the bf16 weight as it lies
+(``csrc/bf16_gemm.cuh``, tiles per ``bf16_tail_plan``; the sub-tiled
+kernel's three-piece instance in ``csrc/mlp_block.cu``, tiles per
+``fused_x3_plan``, h exchanged between a cluster's blocks as its three
+pieces).  The backward's bf16 instance is the JAX backward's arm on
 bf16 g, x, W1 and W2 (:409-476, 497-515): the forward recomputed in f32
 from bf16 x, d_x rounded to bf16 once, every other gradient f32; the
 residual's gradient is g itself (bf16).  The weight gradients come back in
@@ -90,6 +93,8 @@ FUSED_TILES = {  # (c, nc): (S, JCB)
 # K-columns, a ring of 4, one persistent block an SM.
 X3_TILE = (128, 128, 64, 4)  # rows, columns, K-columns a stage, stages
 X3_SMEM = 4 * (128 * 64 * 4 + 128 * 64 * 2) + 2 * 1024 * 4 + 2 * 4 * 8 + 1024
+SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may have
+X3_SLOT_BYTES = 16_384  # a ring slot of the sub-tiled three-piece instance: W2's 128 x 64 bf16 box
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -247,6 +252,32 @@ def bf16_tail_plan(n: int, c: int, sms: int = 132) -> dict:
     }
 
 
+def fused_x3_plan(c: int, nc: int) -> dict:
+    """The sub-tiled kernel's three-piece instance (bf16 operands,
+    ``precise=True``) at width ``c`` with ``nc`` output columns a block, as
+    ``tc_mlp_block_fused_x3_plan`` (csrc/mlp_block.cu: ``Fused<C, NC,
+    true>``) computes it.  The cluster and the hidden chunks are the other
+    instances' (``FUSED_TILES``: ``cluster`` blocks, ``jcb`` hidden units a
+    block of each chunk of ``jc``).  A ring slot holds a stage of either
+    product: W1's jcb x 32 bf16 box beside the two sub-tiles' 64 x 32 bf16
+    x slabs, or W2's 128 x 64 bf16 box (``X3_SLOT_BYTES``).  h is exchanged
+    as three bf16 piece planes (hi, mid, lo) of 64 x jc a sub-tile; the
+    ring takes as many slots as fit in ``SMEM_LIMIT`` beside them, the rows'
+    statistics (2 x 64 float pairs), two mbarriers a slot and four for h,
+    and 1024 bytes of alignment slack.  Raises ValueError for a tile the
+    library does not hold."""
+    if (c, nc) not in FUSED_TILES:
+        raise ValueError(f"fused_x3_plan: no sub-tiled instance at C={c} with {nc} columns a block")
+    cluster, jcb = FUSED_TILES[c, nc]
+    jc = cluster * jcb
+    h_bytes = 2 * 3 * SUB_ROWS * jc * 2
+    stats = 2 * SUB_ROWS * 8
+    slots = (SMEM_LIMIT - 1024 - h_bytes - stats - 4 * 8) // (X3_SLOT_BYTES + 2 * 8)
+    smem = 1024 + slots * X3_SLOT_BYTES + h_bytes + stats + 8 * (2 * slots + 4)
+    return {"cluster": cluster, "jcb": jcb, "jc": jc, "slots": slots, "smem": smem, "sub_rows": SUB_ROWS,
+            "slot_bytes": X3_SLOT_BYTES, "h_bytes": h_bytes}
+
+
 def _pipeline_sub(n: int, c: int) -> int:
     """Sub-tile rows of the forward kernel at width ``c`` (the JAX package's
     ``_pipeline_sub``, tpu_captioner/ops/mlp_block.py:191); 0 selects the
@@ -305,8 +336,9 @@ def _lib():
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.tc_mlp_block_bf16_plan.restype = ctypes.c_int
     lib.tc_mlp_block_bf16_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-    lib.tc_mlp_block_fused_plan.restype = ctypes.c_int
-    lib.tc_mlp_block_fused_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.tc_mlp_block_fused_plan, lib.tc_mlp_block_fused_x3_plan):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.tc_mlp_block_fused_columns.restype = ctypes.c_int
     lib.tc_mlp_block_fused_columns.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
